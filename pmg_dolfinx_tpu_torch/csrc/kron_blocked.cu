@@ -1,0 +1,208 @@
+// Hand-written Hopper (sm_90a) kernels for the blocked Kronecker-sum apply.
+//
+// Replaces the Pallas kernels of pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:
+//   kron_t1_m               <- _kernel_t1_m       (x-contraction, separable bc mask)
+//   kron_t23_m<false>       <- _kernel_t23_m      (y/z-contractions + bc epilogue)
+//   kron_t23_m<true>        <- _kernel_t23_res_m  (the same, fused  r - A v)
+//
+// Operator (symmetrized form, see ops/kron_blocked.py:symmetrized_mats):
+//   t1'      = Ktx-contraction of (x * my_j * sxzm)           [kernel 1]
+//   acc      = sy_j t1' + sx_i (Kty w^ + w^ KtzT) [+ sigma sx_i w^]
+//              with w^ = x * mx_i * s23m                       [kernel 2]
+//   y        = acc * sx_i * s23m
+//   out      = x (1 - mx_i my_j mz_k) + y mx_i   (Dirichlet rows copy x)
+//
+// What bounds it on this card. Kt_a is the assembled 1D GLL stiffness
+// scaled symmetrically, so it is BANDED with half-width P (checked in
+// float64 at setup; the wrapper passes `band`). The TPU kernels run dense
+// per-slab MXU dots (~759 FMAs per output at p=6, ~24.6 GFLOP per apply at
+// 16.2M dofs); over the band the pair does 3*(2P+1) = 39 FMAs per output,
+// which leaves it memory-bound: ~5 lattice passes per apply (x read by each
+// kernel, t1' written then read, y written; the residual adds r). A dense
+// x-plane at 253^2 f32 (256,036 bytes) would not fit the 227 KB of shared
+// memory a block may use, and it is not needed: each output only reads its
+// 2P+1 band neighbours per axis.
+//
+// Design. A block owns a 32 (z) x 32 (x or y) tile of outputs, 256 threads
+// of 32 x 8, each thread 4 outputs along the tile's second axis; z is
+// fastest across a warp, so every global access coalesces. The block
+// stages its masked, scaled input tile WITH a halo of `band` planes in
+// shared memory, and the band of each 1D matrix its rows need, so the
+// 2P+1 neighbour reads per axis come from shared memory instead of 26
+// L1/L2 loads per output: global traffic per output drops to about
+// (32+2P)/32 input reads plus the output. Terms outside the lattice are
+// staged as zeros, so every thread runs the same 2P+1-term loops. Sums run
+// in true f32 FMA on the CUDA cores (the JAX package's precision="highest"
+// contract), in ascending neighbour order; only the order of addition
+// differs from a dense product.
+//
+// Every C entry point launches on the caller's stream, allocates nothing,
+// and returns cudaGetLastError() (or cudaErrorInvalidValue for a band the
+// tiles cannot hold) so the Python wrapper can raise.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTK = 32;           // tile extent along z (one warp)
+constexpr int kTR = 8;            // thread rows per block
+constexpr int kRPT = 4;           // outputs per thread along the tile rows
+constexpr int kRows = kTR * kRPT; // tile extent along x (kernel 1) / y (2)
+constexpr int kMaxBand = 16;          // keeps kernel 2's tiles under 48 KB
+
+__global__ void __launch_bounds__(kTK * kTR)
+kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
+          const float* __restrict__ Ktx, const float* __restrict__ sxzm,
+          float* __restrict__ out, int NX, int NY, int NZ, int band) {
+  extern __shared__ float smem[];
+  const int H = kRows + 2 * band;     // staged x-planes (tile + halo)
+  const int D = 2 * band + 1;         // band width
+  float* sw = smem;                   // [H][kTK]  w = x * my_j * sxzm
+  float* sK = smem + H * kTK;         // [D][kRows] Ktx[a, a - band + d]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kTK + tx;
+  const int k0 = blockIdx.x * kTK, a0 = blockIdx.y * kRows, j = blockIdx.z;
+  const int k = k0 + tx;
+  const int64_t plane = (int64_t)NY * NZ;
+  const float myj = myb[j];
+
+  for (int r = ty; r < H; r += kTR) {
+    const int a = a0 - band + r;
+    float v = 0.f;
+    if (a >= 0 && a < NX && k < NZ)
+      v = x[a * plane + (int64_t)j * NZ + k] * (myj * sxzm[(int64_t)a * NZ + k]);
+    sw[r * kTK + tx] = v;
+  }
+  for (int t = tid; t < D * kRows; t += kTK * kTR) {
+    const int d = t / kRows, r = t % kRows;
+    const int a = a0 + r, xi = a - band + d;
+    sK[t] = (a < NX && xi >= 0 && xi < NX) ? Ktx[(int64_t)a * NX + xi] : 0.f;
+  }
+  __syncthreads();
+  if (k >= NZ) return;
+  for (int q = 0; q < kRPT; ++q) {
+    const int r = ty + q * kTR;
+    const int a = a0 + r;
+    if (a >= NX) break;
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d)
+      acc = fmaf(sK[d * kRows + r], sw[(r + d) * kTK + tx], acc);
+    out[a * plane + (int64_t)j * NZ + k] = acc;
+  }
+}
+
+template <bool RESIDUAL>
+__global__ void __launch_bounds__(kTK * kTR)
+kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
+           const float* __restrict__ t1, const float* __restrict__ Kty,
+           const float* __restrict__ KtzT, const float* __restrict__ sx2d,
+           const float* __restrict__ sycol, const float* __restrict__ s23m,
+           const float* __restrict__ myb, const float* __restrict__ mzrow,
+           const float* __restrict__ r, float* __restrict__ out,
+           int NX, int NY, int NZ, int band, float sigma) {
+  extern __shared__ float smem[];
+  const int H = kRows + 2 * band;     // staged y-rows (tile + halo)
+  const int W = kTK + 2 * band;       // staged z-columns (tile + halo)
+  const int D = 2 * band + 1;
+  float* sw = smem;                   // [H][W]  w^ = x * mx_i * s23m
+  float* sKy = sw + H * W;            // [D][kRows] Kty[j, j - band + d]
+  float* sKz = sKy + D * kRows;       // [D][kTK]  KtzT[k - band + d, k]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kTK + tx;
+  const int k0 = blockIdx.x * kTK, j0 = blockIdx.y * kRows, i = blockIdx.z;
+  const int k = k0 + tx;
+  const int64_t plane = (int64_t)NY * NZ;
+  const float* xi_pl = x + (int64_t)i * plane;
+  const float mxi = mx2[i], sxi = sx2d[i];
+
+  for (int t = tid; t < H * W; t += kTK * kTR) {
+    const int jj = j0 - band + t / W, kk = k0 - band + t % W;
+    float v = 0.f;
+    if (jj >= 0 && jj < NY && kk >= 0 && kk < NZ) {
+      const int64_t o = (int64_t)jj * NZ + kk;
+      v = xi_pl[o] * (mxi * s23m[o]);
+    }
+    sw[t] = v;
+  }
+  for (int t = tid; t < D * kRows; t += kTK * kTR) {
+    const int d = t / kRows, rj = t % kRows;
+    const int j = j0 + rj, jj = j - band + d;
+    sKy[t] = (j < NY && jj >= 0 && jj < NY) ? Kty[(int64_t)j * NY + jj] : 0.f;
+  }
+  for (int t = tid; t < D * kTK; t += kTK * kTR) {
+    const int d = t / kTK, kc = k0 + t % kTK, kk = kc - band + d;
+    sKz[t] = (kc < NZ && kk >= 0 && kk < NZ) ? KtzT[(int64_t)kk * NZ + kc] : 0.f;
+  }
+  __syncthreads();
+  if (k >= NZ) return;
+  for (int q = 0; q < kRPT; ++q) {
+    const int rj = ty + q * kTR;
+    const int j = j0 + rj;
+    if (j >= NY) break;
+    float t2 = 0.f, t3 = 0.f;
+    for (int d = 0; d < D; ++d)
+      t2 = fmaf(sKy[d * kRows + rj], sw[(rj + d) * W + tx + band], t2);
+    const float* srow = sw + (rj + band) * W + tx;
+    for (int d = 0; d < D; ++d)
+      t3 = fmaf(srow[d], sKz[d * kTK + tx], t3);
+
+    const int64_t o = (int64_t)j * NZ + k;
+    const int64_t idx = (int64_t)i * plane + o;
+    const float xv = xi_pl[o];
+    const float s = s23m[o];
+    const float what = srow[band];
+    float acc = sycol[j] * t1[idx] + sxi * (t2 + t3);
+    if (sigma != 0.f) acc = acc + (sigma * sxi) * what;
+    const float y = acc * (sxi * s);
+    const float av = xv * (1.f - mxi * (myb[j] * mzrow[k])) + y * mxi;
+    out[idx] = RESIDUAL ? r[idx] - av : av;
+  }
+}
+
+inline dim3 tile_grid(int NZ, int rows, int third) {
+  return dim3((unsigned)((NZ + kTK - 1) / kTK),
+              (unsigned)((rows + kRows - 1) / kRows), (unsigned)third);
+}
+
+}  // namespace
+
+extern "C" {
+
+int kron_max_band() { return kMaxBand; }
+
+int kron_t1_m_launch(const float* x, const float* myb, const float* Ktx,
+                     const float* sxzm, float* out, int NX, int NY, int NZ,
+                     int band, void* stream) {
+  if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * ((kRows + 2 * band) * kTK + (2 * band + 1) * kRows);
+  kron_t1_m<<<tile_grid(NZ, NX, NY), dim3(kTK, kTR), smem,
+              (cudaStream_t)stream>>>(x, myb, Ktx, sxzm, out, NX, NY, NZ, band);
+  return (int)cudaGetLastError();
+}
+
+// r == nullptr: out = A x (kernel #2); otherwise out = r - A x (kernel #3).
+int kron_t23_m_launch(const float* x, const float* mx2, const float* t1,
+                      const float* Kty, const float* KtzT, const float* sx2d,
+                      const float* sycol, const float* s23m, const float* myb,
+                      const float* mzrow, const float* r, float* out, int NX,
+                      int NY, int NZ, int band, float sigma, void* stream) {
+  if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * ((kRows + 2 * band) * (kTK + 2 * band) +
+                       (2 * band + 1) * (kRows + kTK));
+  const dim3 grid = tile_grid(NZ, NY, NX), block(kTK, kTR);
+  if (r == nullptr) {
+    kron_t23_m<false><<<grid, block, smem, (cudaStream_t)stream>>>(
+        x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow, r, out, NX, NY,
+        NZ, band, sigma);
+  } else {
+    kron_t23_m<true><<<grid, block, smem, (cudaStream_t)stream>>>(
+        x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow, r, out, NX, NY,
+        NZ, band, sigma);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
