@@ -1,4 +1,4 @@
-"""PMG driver on PyTorch/CUDA: the flagship p-multigrid Poisson solve.
+"""PMG driver on PyTorch/CUDA: the p-multigrid Poisson solve.
 
 The port's counterpart of `examples/pmg.py` (same flag names for the
 ported subset): builds the fitted unit-cube mesh and the p-hierarchy with
@@ -9,11 +9,15 @@ the timing table and a final JSON line.
 
     python examples/pmg_torch.py --ndofs 16000000 --degrees 1 3 6 \\
         --coarse fdm --operator kron_blocked --pcg
+    python examples/pmg_torch.py --ndofs 16000000 --degrees 1 3 6 \\
+        --mesh perturbed --coarse cg --pcg
 
-``--operator kron_blocked`` runs the hand-written CUDA kernels
-(`pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu`, float32); ``kron`` is the
-plain torch operator. ``--device cpu`` runs everything on the CPU, where
-``kron_blocked`` uses the kernels' plain torch versions.
+``--operator kron_blocked`` and ``lattice_blocked`` run the hand-written
+CUDA kernels (`pmg_dolfinx_tpu_torch/csrc/`, float32); ``kron``,
+``lattice`` and ``dofmap`` are plain torch. ``--mesh perturbed`` builds
+the curved-hex `PerturbedBoxMesh` and switches a Kronecker operator to
+``lattice_blocked`` (f32) or ``lattice`` (f64). ``--device cpu`` runs
+everything on the CPU, where the kernels' plain torch versions run.
 """
 
 import argparse
@@ -24,15 +28,55 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def profile_vcycles(hier, b, n):
+    """Trace ``n`` back-to-back V-cycles with `torch.profiler`; print the
+    device time by kernel and the device busy time (the sum of the
+    kernels' durations; one stream, so they do not overlap) against the
+    wall clock."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if hier.device.type != "cuda":
+        raise SystemExit("--profile traces the card: needs --device cuda")
+    u0 = torch.zeros_like(b)
+    for _ in range(2):
+        hier.apply(b, u0)
+    torch.cuda.synchronize(hier.device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            hier.apply(b, u0)
+        torch.cuda.synchronize(hier.device)
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=20))
+    print(f"profile: {n} V-cycles on {torch.cuda.get_device_name(hier.device)}"
+          f": wall {wall:.3f} ms, device busy {busy:.3f} ms per V-cycle "
+          f"({len(kernels) / n:.0f} kernels; idle "
+          f"{max(0.0, 1 - busy / wall):.1%})")
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ndofs", type=int, default=50000,
                    help="target number of dofs (global)")
     p.add_argument("--dtype", choices=["f32", "f64"], default="f32")
-    p.add_argument("--operator", choices=["kron", "kron_blocked"],
+    p.add_argument("--operator",
+                   choices=["kron", "kron_blocked", "lattice",
+                            "lattice_blocked", "dofmap"],
                    default="kron",
-                   help="'kron_blocked' = hand-written CUDA kernels (f32)")
+                   help="'kron_blocked'/'lattice_blocked' = hand-written "
+                        "CUDA kernels (f32)")
+    p.add_argument("--mesh", choices=["box", "perturbed"], default="box",
+                   help="'perturbed' = curved hexes (general-hex "
+                        "operators only)")
     p.add_argument("--kappa", type=float, default=2.0)
     p.add_argument("--degrees", type=int, nargs="+", default=[1, 3])
     p.add_argument("--cycles", type=int, default=10)
@@ -45,10 +89,15 @@ def main():
                         "excludes the kernel build and first launches")
     p.add_argument("--device", default="cuda",
                    help="torch device (default 'cuda')")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="after the solve, trace N V-cycles with "
+                        "torch.profiler and print the device time by "
+                        "kernel (CUDA only)")
     args = p.parse_args()
 
     import torch
 
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
     from pmg_dolfinx_tpu_torch.models.poisson import (
         PoissonProblem,
         fit_box_cells,
@@ -62,14 +111,29 @@ def main():
     nc = fit_box_cells(args.ndofs, max(args.degrees))
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"mesh {nc[0]}x{nc[1]}x{nc[2]}, degrees {args.degrees}, "
-          f"device {name}, dtype {args.dtype}")
+    mesh = None
+    if args.mesh == "perturbed":
+        if args.coarse == "fdm":
+            raise SystemExit(
+                "--mesh perturbed --coarse fdm: the FDM coarse solve is "
+                "axis-aligned only, and the curved-hex h-multigrid coarse "
+                "solver 'hmg' is not ported yet (ROADMAP.md Queue 1 item "
+                "7); use --coarse cg")
+        mesh = PerturbedBoxMesh(nc)
+        if args.operator in ("kron", "kron_blocked"):
+            args.operator = ("lattice_blocked" if args.dtype == "f32"
+                             else "lattice")
+            print("perturbed (general-hex) mesh: switching operator "
+                  f"backend to '{args.operator}'")
+    print(f"mesh {args.mesh} {nc[0]}x{nc[1]}x{nc[2]}, degrees "
+          f"{args.degrees}, operator {args.operator}, device {name}, "
+          f"dtype {args.dtype}")
 
     with Timer("setup (operators+calibration+rhs)", sync=True):
         prob = PoissonProblem(
             nc=nc, degrees=tuple(args.degrees), kappa=args.kappa,
             dtype=dtype, coarse=args.coarse, operator=args.operator,
-            device=device,
+            mesh=mesh, device=device,
         )
     ndofs = [prob.mesh.num_dofs(P) for P in args.degrees]
     print("hierarchy:", " -> ".join(f"p={P}: {n}"
@@ -98,6 +162,8 @@ def main():
     err = prob.error_l2(u)
     print(f"L2 error vs manufactured solution: {err:.4e}")
 
+    if args.profile:
+        profile_vcycles(prob.hierarchy, prob.b, args.profile)
     list_timings()
     rel = rnorms[-1] / r0 if rnorms else None
     print(json.dumps({"rel_residual": rel, "l2_error": err}))

@@ -1,9 +1,10 @@
 """pmg_dolfinx_tpu_torch — the PyTorch/CUDA port of `pmg_dolfinx_tpu`.
 
-The same p-multigrid solver for ``-div(kappa grad u) = f`` on box
-meshes, written on torch tensors instead of JAX arrays, with the
-Kronecker-sum operator's Pallas kernels replaced by hand-written CUDA C++
-kernels for Hopper (`csrc/kron_blocked.cu`). The JAX package stays the
+The same p-multigrid solver for ``-div(kappa grad u) = f`` on box and
+curved-hex meshes, written on torch tensors instead of JAX arrays, with
+the Pallas kernels of the Kronecker-sum and general-hex lattice operators
+replaced by hand-written CUDA C++ kernels for Hopper
+(`csrc/kron_blocked.cu`, `csrc/lattice_blocked.cu`). The JAX package stays the
 reference: every module here keeps its counterpart's file name and
 layout (`fem ops solvers models utils`) and is held against it by the
 `tests/test_torch_*.py` parity tests.

@@ -1,4 +1,4 @@
-"""FEM infrastructure (numpy, host-side): 1D GLL rules, the box mesh,
+"""FEM infrastructure (numpy, host-side): 1D GLL rules, the box meshes,
 geometry factors, RHS assembly and error norms."""
 
 from .gll import (
@@ -7,4 +7,4 @@ from .gll import (
     gauss_lobatto,
     lagrange_tabulate,
 )
-from .mesh import BoxMesh
+from .mesh import BoxMesh, PerturbedBoxMesh

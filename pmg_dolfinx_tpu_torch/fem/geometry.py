@@ -72,12 +72,13 @@ def geometry_factors(xgeom, geometry_dofmap, dphi_geom, weights, kappa=None):
     return G, detJ
 
 
-def _adjugate_3x3(J):
-    """Adjugate of a batched 3x3 matrix: ``adj(J) = detJ * J^{-1}``."""
+def _adjugate_3x3(J, xp=np):
+    """Adjugate of a batched 3x3 matrix: ``adj(J) = detJ * J^{-1}``;
+    ``xp`` is ``np`` or ``torch``."""
     a, b, c = J[..., 0, 0], J[..., 0, 1], J[..., 0, 2]
     d, e, f = J[..., 1, 0], J[..., 1, 1], J[..., 1, 2]
     g, h, i = J[..., 2, 0], J[..., 2, 1], J[..., 2, 2]
-    row0 = np.stack([e * i - f * h, -(b * i - c * h), b * f - c * e], axis=-1)
-    row1 = np.stack([-(d * i - f * g), a * i - c * g, -(a * f - c * d)], axis=-1)
-    row2 = np.stack([d * h - e * g, -(a * h - b * g), a * e - b * d], axis=-1)
-    return np.stack([row0, row1, row2], axis=-2)
+    row0 = xp.stack([e * i - f * h, -(b * i - c * h), b * f - c * e], axis=-1)
+    row1 = xp.stack([-(d * i - f * g), a * i - c * g, -(a * f - c * d)], axis=-1)
+    row2 = xp.stack([d * h - e * g, -(a * h - b * g), a * e - b * d], axis=-1)
+    return xp.stack([row0, row1, row2], axis=-2)

@@ -1,9 +1,10 @@
 """Structured hexahedral box meshes with tensor-product dofmaps.
 
 Port of `pmg_dolfinx_tpu.fem.mesh` (numpy, host-side): `BoxMesh` with
-per-face Dirichlet flags and `require_axis_aligned`. Graded spacing,
-Robin faces and `PerturbedBoxMesh` are not ported yet (ROADMAP.md,
-Queue 1 item 2).
+per-face Dirichlet flags, `PerturbedBoxMesh` (general curved hexes from
+smoothly displaced vertices, `default_warp`) and `require_axis_aligned`.
+Graded spacing and Robin faces are not ported yet (ROADMAP.md, Queue 1
+item 7).
 
 Conventions (identical to the JAX package, so arrays compare bit for bit):
 - cells:  ``cell = (cx * ny + cy) * nz + cz`` (x slowest, z fastest),
@@ -153,8 +154,28 @@ class BoxMesh:
         out.setflags(write=False)
         return out
 
+    @lru_cache(maxsize=None)
+    def dof_multiplicity(self, P: int) -> np.ndarray:
+        """Number of cells sharing each dof, shape ``(ndofs,)`` float64
+        (weights the fine residual in the dofmap restriction)."""
+        mult = np.ones(1, dtype=np.float64)
+        for d in range(3):
+            ncd = self.nc[d]
+            g = np.arange(ncd * P + 1)
+            on_interface = (g % P == 0) & (g > 0) & (g < ncd * P)
+            md = np.where(on_interface, 2.0, 1.0)
+            mult = np.multiply.outer(mult, md)
+        out = np.ascontiguousarray(mult.reshape(self.num_dofs(P)))
+        out.setflags(write=False)
+        return out
+
+    def cell_centroids(self) -> np.ndarray:
+        """Cell centroids ``(ncells, 3)`` in dofmap cell order: the mean of
+        the 8 corners (exact for the trilinear geometry)."""
+        return self.geometry_x[self.geometry_dofmap].mean(axis=1)
+
     # Every cell Jacobian is diagonal-constant (the Kronecker / FDM paths
-    # require this).
+    # require this; general hexes use the lattice/dofmap backends).
     is_axis_aligned = True
 
     def __repr__(self):
@@ -165,5 +186,70 @@ def require_axis_aligned(mesh, what: str):
     """Guard for the Kronecker/FDM fast paths (diagonal-Jacobian only)."""
     if not getattr(mesh, "is_axis_aligned", True):
         raise ValueError(
-            f"{what} requires an axis-aligned BoxMesh (diagonal Jacobians)"
+            f"{what} requires an axis-aligned BoxMesh (diagonal Jacobians);"
+            " use the 'lattice' or 'dofmap' backend for general hexes"
         )
+
+
+def default_warp(amplitude=0.08):
+    """Smooth interior-bubble displacement vanishing on the unit cube's
+    boundary: every interior cell becomes a genuine (non-affine) hex while
+    the domain stays exactly the unit cube."""
+
+    def warp(x):
+        bx = np.sin(np.pi * x[0])
+        by = np.sin(np.pi * x[1])
+        bz = np.sin(np.pi * x[2])
+        b = bx * by * bz
+        return amplitude * np.stack([
+            b * np.cos(np.pi * x[1]),
+            b * np.cos(np.pi * x[2]),
+            b * np.cos(np.pi * x[0]),
+        ])
+
+    return warp
+
+
+class PerturbedBoxMesh(BoxMesh):
+    """Structured-topology mesh with smoothly displaced vertices: trilinear
+    (Q1) general hexahedral cells (non-diagonal Jacobians, all 6 G
+    entries). ``warp(x[(3, npts)]) -> displacement[(3, npts)]`` moves the
+    corner vertices only; higher-order dof coordinates follow the Q1 map.
+    The Kronecker/FDM paths reject it (``is_axis_aligned = False``).
+    """
+
+    is_axis_aligned = False
+
+    def __init__(self, nc, extent=(1.0, 1.0, 1.0), warp=None,
+                 dirichlet_faces=True):
+        super().__init__(nc, extent, dirichlet_faces=dirichlet_faces)
+        self._warp = warp if warp is not None else default_warp()
+
+    @lru_cache(maxsize=1)
+    def _geometry_x(self):
+        base = super()._geometry_x()
+        disp = np.asarray(self._warp(base.T), dtype=np.float64).T
+        out = base + disp
+        out.setflags(write=False)
+        return out
+
+    @lru_cache(maxsize=None)
+    def dof_coords(self, P: int) -> np.ndarray:
+        """Dof coordinates through the Q1 geometry map (per-cell trilinear
+        interpolation of the displaced corners at the reference GLL
+        points; consistent across shared faces)."""
+        xg, _ = gauss_lobatto(P + 1)
+        n = P + 1
+        phi1 = np.stack([1.0 - xg, xg], axis=1)  # (n, 2)
+        N = np.einsum("qa,rb,sc->qrsabc", phi1, phi1, phi1).reshape(
+            n**3, 8
+        )
+        corners = self.geometry_x[self.geometry_dofmap]  # (ncells, 8, 3)
+        coords_cells = np.einsum("qa,caD->cqD", N, corners)
+        out = np.zeros((self.num_dofs(P), 3))
+        out[self.dofmap(P).ravel()] = coords_cells.reshape(-1, 3)
+        out.setflags(write=False)
+        return out
+
+    def __repr__(self):
+        return f"PerturbedBoxMesh(nc={self.nc}, extent={self.extent})"

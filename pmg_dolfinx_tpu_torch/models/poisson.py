@@ -1,15 +1,16 @@
 """The Poisson model: ``-div(kappa grad u) = f`` on the unit cube.
 
-Port of `pmg_dolfinx_tpu.models.poisson` for the flagship solve:
-manufactured solution ``u_e = sin(pi x) sin(pi y) sin(pi z)``,
+Port of `pmg_dolfinx_tpu.models.poisson` for the flagship and curved-hex
+solves: manufactured solution ``u_e = sin(pi x) sin(pi y) sin(pi z)``,
 ``f = 3 pi^2 kappa u_e``, the cube-fitting cell search, and the
-`PoissonProblem` bundle with an explicit ``device``.
+`PoissonProblem` bundle with an explicit ``device`` (on a `BoxMesh`, or
+on a prebuilt ``mesh=`` such as `fem.mesh.PerturbedBoxMesh`).
 """
 
 import numpy as np
 import torch
 
-from ..fem.assembly import assemble_rhs, l2_error
+from ..fem.assembly import assemble_rhs, l2_error, l2_error_collocated
 from ..fem.mesh import BoxMesh
 from ..solvers.pmg import PMGHierarchy
 
@@ -57,10 +58,15 @@ class PoissonProblem:
     def __init__(self, nc=(10, 10, 10), degrees=(1, 3), kappa=2.0,
                  dtype=torch.float64, coarse="smoother", coarse_cfg=None,
                  smoother_iters=2, operator="kron", precision="highest",
-                 f=None, mesh=None, sigma=0.0, *, device):
+                 f=None, mesh=None, sigma=0.0, u_exact=None, *, device):
+        """``mesh`` (optional) replaces ``BoxMesh(nc)``, e.g. a
+        `PerturbedBoxMesh` with ``operator='lattice_blocked'``;
+        ``u_exact`` overrides the manufactured solution `error_l2` uses
+        (pass the matching ``f``)."""
         self.mesh = mesh if mesh is not None else BoxMesh(nc)
         self.degrees = tuple(degrees)
         self.kappa = kappa
+        self._u_exact = u_exact if u_exact is not None else globals()["u_exact"]
         self.hierarchy = PMGHierarchy(
             self.mesh, degrees=self.degrees, kappa=kappa, dtype=dtype,
             coarse=coarse, coarse_cfg=coarse_cfg,
@@ -79,6 +85,11 @@ class PoissonProblem:
 
     def error_l2(self, u):
         """L2 error of the discrete solution (flat, any device) vs the
-        manufactured solution."""
+        manufactured solution: the Gauss-Legendre rule of `l2_error` on
+        axis-aligned meshes, the geometry-general collocated GLL rule on
+        general (perturbed) ones."""
         u = np.asarray(torch.as_tensor(u).detach().to("cpu", torch.float64))
-        return l2_error(self.mesh, self.degrees[-1], u, u_exact)
+        if getattr(self.mesh, "is_axis_aligned", True):
+            return l2_error(self.mesh, self.degrees[-1], u, self._u_exact)
+        return l2_error_collocated(self.mesh, self.degrees[-1], u,
+                                   self._u_exact)

@@ -1,2 +1,3 @@
 """Operators: the Kronecker-sum Laplacian (plain torch and the blocked
-CUDA kernels), the lattice p-transfers and the dot product."""
+CUDA kernels), the general-hex lattice and dofmap Laplacians (plain torch
+and the lattice CUDA kernels), the p-transfers and the dot product."""

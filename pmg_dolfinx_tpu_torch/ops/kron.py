@@ -98,3 +98,42 @@ def kron_diagonal(Ks, ms, bc_marker, sigma=0.0):
         + sigma * m3
     ).reshape(-1)
     return torch.where(bc_marker.reshape(-1), torch.ones_like(diag), diag)
+
+
+class KronLaplacian:
+    """Operator bundle for axis-aligned `BoxMesh` on ``device``: ``op(x)``
+    on flat or lattice-shaped vectors, ``diag``, ``diag_inv``. ``sigma``
+    adds the lumped-mass shift; ``kappa`` is a scalar."""
+
+    def __init__(self, mesh, P, kappa=2.0, dtype=torch.float32, sigma=0.0,
+                 *, device):
+        from ..fem.assembly import resolve_kappa_axes
+        from ..fem.mesh import require_axis_aligned
+
+        require_axis_aligned(mesh, "KronLaplacian")
+        self.P = int(P)
+        self.mesh = mesh
+        self.dtype = dtype
+        self.sigma = float(sigma)
+        self.ndofs = mesh.num_dofs(P)
+        self.shape = mesh.lattice_shape(P)
+        self.kappa_axes = resolve_kappa_axes(mesh, kappa)
+        Ks, ms = [], []
+        for a, (nc_a, h_a, k_a) in enumerate(zip(mesh.nc, mesh.h_cells,
+                                                 self.kappa_axes)):
+            K, m = axis_stiffness_mass(
+                nc_a, self.P, h_a, robin=robin_axis_ends(mesh, a, 1.0 / k_a))
+            Ks.append(torch.tensor(k_a * K, dtype=dtype, device=device))
+            ms.append(torch.tensor(m, dtype=dtype, device=device))
+        self.Ks = tuple(Ks)
+        self.ms = tuple(ms)
+        self.bc_marker = torch.tensor(mesh.boundary_dof_marker(self.P),
+                                      device=device)
+        self.diag = kron_diagonal(self.Ks, self.ms, self.bc_marker,
+                                  sigma=self.sigma)
+        self.diag_inv = 1.0 / self.diag
+
+    def __call__(self, x):
+        return kron_laplacian_apply(x, self.Ks, self.ms,
+                                    self.bc_marker.reshape(x.shape),
+                                    sigma=self.sigma)

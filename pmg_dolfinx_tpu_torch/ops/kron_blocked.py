@@ -17,8 +17,8 @@ Dirichlet marker of a box (the only marker the flagship solve has):
   with the kernels on the card by `chip_smoke.py`.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/`` (keyed by a hash of the source) and bound through a
-plain C interface with `ctypes`. `LAUNCHES` counts every kernel launch,
+``build/kernels/`` (keyed by a hash of the source, `ops.cuda_build`) and
+bound through a plain C interface with `ctypes`. `LAUNCHES` counts every kernel launch,
 so a run can show that its main path went through the kernels.
 
 Not ported yet (ROADMAP.md, Queue 2): the full-``bc``-operand kernels
@@ -27,19 +27,18 @@ kernels and ``precision="high"`` (bf16x3).
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from .cuda_build import build_and_load
+from .cuda_build import check_operand as _check_lattice
+from .cuda_build import find_nvcc as _find_nvcc
+from .cuda_build import ptr as _ptr
+from .cuda_build import stream_of
+
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "kron_blocked.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches since the last reset: kernel name -> count. Raised only
 # where a wrapper launches its kernel.
@@ -185,13 +184,6 @@ def plain_residual_m(b3, u3, m, sigma=0.0):
 
 # --- CUDA kernels -------------------------------------------------------------
 
-def _find_nvcc():
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    return nvcc
-
-
 def load_kernels():
     """Build (once per source hash) and load the kernel library.
 
@@ -201,30 +193,7 @@ def load_kernels():
     global _lib, BUILD_LOG
     if _lib is not None:
         return _lib
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "the kron_blocked CUDA kernels need a CUDA device; "
-            "torch.cuda.is_available() is False")
-    nvcc = _find_nvcc()
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found (PATH or /usr/local/cuda/bin): cannot build "
-            f"the kron_blocked CUDA kernels from {_SRC}")
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD_DIR / f"kron_blocked_{digest[:16]}.so"
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {_SRC} (exit {proc.returncode}):\n"
-                f"{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, BUILD_LOG = build_and_load(_SRC, "kron_blocked", _find_nvcc)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.kron_t1_m_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.kron_t1_m_launch.restype = ci
@@ -243,18 +212,6 @@ def _expected_shapes(shape):
                 myb=(NY, 1), mzrow=(1, NZ))
 
 
-def _check_lattice(name, t, shape, device):
-    if not isinstance(t, torch.Tensor) or t.device != device:
-        raise ValueError(f"{name} must be a tensor on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_operands(x3, m):
     if x3.device.type != "cuda":
         raise ValueError(
@@ -266,10 +223,6 @@ def _check_operands(x3, m):
     for name, s in _expected_shapes(shape).items():
         _check_lattice(name, m[name], s, x3.device)
     return shape, m["band"]
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def _kernels_for(band):
@@ -287,10 +240,9 @@ def kron_t1_m(x3, m):
     lib = _kernels_for(band)
     out = torch.empty_like(x3)
     with torch.cuda.device(x3.device):
-        stream = torch.cuda.current_stream(x3.device).cuda_stream
         rc = lib.kron_t1_m_launch(
             _ptr(x3), _ptr(m["myb"]), _ptr(m["Ktx"]), _ptr(m["sxzm"]),
-            _ptr(out), NX, NY, NZ, band, ctypes.c_void_p(stream))
+            _ptr(out), NX, NY, NZ, band, stream_of(x3))
     if rc != 0:
         raise RuntimeError(f"kron_t1_m launch failed: CUDA error {rc}")
     LAUNCHES["t1_m"] += 1
@@ -308,13 +260,12 @@ def kron_t23_m(x3, t1, m, sigma=0.0, r3=None):
     lib = _kernels_for(band)
     out = torch.empty_like(x3)
     with torch.cuda.device(x3.device):
-        stream = torch.cuda.current_stream(x3.device).cuda_stream
         rc = lib.kron_t23_m_launch(
             _ptr(x3), _ptr(m["mx2"]), _ptr(t1), _ptr(m["Kty"]),
             _ptr(m["KtzT"]), _ptr(m["sx2d"]), _ptr(m["sycol"]),
             _ptr(m["s23m"]), _ptr(m["myb"]), _ptr(m["mzrow"]),
             None if r3 is None else _ptr(r3), _ptr(out),
-            NX, NY, NZ, band, float(sigma), ctypes.c_void_p(stream))
+            NX, NY, NZ, band, float(sigma), stream_of(x3))
     name = "t23_m" if r3 is None else "t23_res_m"
     if rc != 0:
         raise RuntimeError(f"kron_{name} launch failed: CUDA error {rc}")
@@ -352,3 +303,34 @@ def blocked_kron_residual(b3, u3, mats, *, sigma=0.0, precision="highest"):
     if u3.device.type == "cpu":
         return plain_residual_m(b3, u3, mats, sigma)
     return kron_t23_m(u3, kron_t1_m(u3, mats), mats, sigma, r3=b3)
+
+
+class PallasKronBlocked:
+    """The blocked kernel pair as an operator (float32) on ``device``:
+    ``op(x)`` on flat or lattice-shaped vectors, with the diagonal of
+    `ops.kron.KronLaplacian`."""
+
+    def __init__(self, mesh, P, kappa=2.0, precision="highest", sigma=0.0,
+                 *, device):
+        from .kron import KronLaplacian
+
+        _check_precision(precision)
+        base = KronLaplacian(mesh, P, kappa=kappa, dtype=torch.float32,
+                             sigma=sigma, device=device)
+        self.P = int(P)
+        self.mesh = mesh
+        self.ndofs = base.ndofs
+        self.shape = base.shape
+        self.precision = precision
+        self.sigma = base.sigma
+        self.diag = base.diag
+        self.diag_inv = base.diag_inv
+        self.mats = symmetrized_mats(
+            base.Ks, base.ms,
+            checked_face_masks(mesh, P, mesh.boundary_dof_marker(P)),
+            band=P, device=device)
+
+    def __call__(self, x):
+        y = blocked_kron_apply(x.reshape(self.shape), self.mats,
+                               sigma=self.sigma, precision=self.precision)
+        return y.reshape(x.shape)

@@ -1,13 +1,16 @@
 """The p-multigrid V-cycle preconditioner.
 
-Port of `pmg_dolfinx_tpu.solvers.pmg` for the flagship solve: the
-Kronecker-sum operator backends ``"kron"`` (plain torch einsums) and
-``"kron_blocked"`` (the CUDA kernels of `ops/kron_blocked.py`), the
+Port of `pmg_dolfinx_tpu.solvers.pmg`: the operator backends
+``"dofmap"`` (gather / cell kernel / scatter, `ops/laplacian.py`; the
+default), ``"lattice"`` (general hexes, plain torch einsums),
+``"lattice_blocked"`` (general hexes, the CUDA kernels of
+`ops/lattice_blocked.py`), ``"kron"`` and ``"kron_blocked"`` (axis-aligned
+boxes, plain torch / the CUDA kernels of `ops/kron_blocked.py`); the
 V-cycle with a ``"smoother"``, ``"cg"`` or ``"fdm"`` coarse solve, CG +
 Lanczos smoother calibration, and the stationary (`solve`) and FCG
-(`solve_pcg`) outer iterations. Vectors stay lattice-shaped
-``(NX, NY, NZ)`` inside the cycle; the public methods take and return
-flat vectors.
+(`solve_pcg`) outer iterations. The Kronecker family keeps vectors
+lattice-shaped ``(NX, NY, NZ)`` inside the cycle, the general family
+flat; the public methods take and return flat vectors.
 
 Cycle structure (operation for operation as in the JAX package):
 
@@ -39,9 +42,13 @@ DEFAULT_CALIBRATION_ITERS = 20
 DEFAULT_CALIBRATION_RTOL = 1e-6
 EIG_RANGE_FACTORS = (0.1, 1.1)
 
-_OPERATOR_TODO = ("only operator='kron' and 'kron_blocked' are ported; "
-                  "'lattice', 'lattice_blocked', 'dofmap', 'dss' and 'csr' "
-                  "are ROADMAP.md Queue 1 items 6 and 8")
+_OPERATORS = ("dofmap", "lattice", "lattice_blocked", "kron",
+              "kron_blocked")
+_OPERATOR_TODO = ("operator='csr' (assembled sparse matvec) and 'dss' "
+                  "(unstructured row gathers) are not ported yet; they are "
+                  "ROADMAP.md Queue 1 items 6 and 8")
+_SIGMA_FIELD_TODO = ("a sigma FIELD (callable) on the general backends is "
+                     "not ported yet (ROADMAP.md Queue 1 item 7)")
 _COARSE_TODO = ("only coarse='smoother', 'cg' and 'fdm' are ported; "
                 "'direct', 'hmg' and 'amg' are ROADMAP.md Queue 1 items 4 "
                 "and 7")
@@ -68,7 +75,15 @@ def _generic_calibration(lv, b, x0, *, ops, level, maxiter):
     )
 
 
-def _lattice_transfers():
+def _zeros(flat):
+    """The ``zeros`` cycle primitive: flat ``(ndofs,)`` vectors for the
+    general family, lattice-shaped ones for the Kronecker family."""
+    return lambda level, like: torch.zeros(
+        level.ndofs if flat else level.shape, dtype=like.dtype,
+        device=like.device)
+
+
+def _lattice_transfers(flat=False):
     from ..ops.lattice import lattice_prolongate, lattice_restrict
 
     return dict(
@@ -77,9 +92,80 @@ def _lattice_transfers():
         prolong=lambda tr, u, level_c, level_f: lattice_prolongate(
             u, (tr["Ix"], tr["Iy"], tr["Iz"]), level_c.shape),
         dot=lambda u, v, lv: inner_product(u, v),
-        zeros=lambda level, like: torch.zeros(level.shape, dtype=like.dtype,
-                                              device=like.device),
+        zeros=_zeros(flat),
     )
+
+
+def _shifted(raw, sigma):
+    """``x -> A x`` from a raw (bc-on-input-only) apply: adds the lumped-
+    mass shift ``sigma * m3 * x`` (``m3`` bc-zeroed) when ``sigma`` is
+    nonzero, then the Dirichlet identity rows."""
+
+    def apply(lv, x, level):
+        y = raw(lv, x, level)
+        if sigma:
+            y = y + sigma * lv["m3"] * x
+        return torch.where(lv["bc_marker"], x, y)
+
+    return apply
+
+
+def default_cycle_ops(sigma=0.0):
+    """V-cycle primitives of the dofmap backend: the gather / cell kernel /
+    scatter apply (`ops.laplacian`) and the dofmap p-transfers
+    (`ops.interpolate`); flat vectors."""
+    from ..ops.interpolate import prolongate, restrict
+    from ..ops.laplacian import laplacian_scatter_raw
+
+    def raw(lv, x, level):
+        return laplacian_scatter_raw(x, lv["dofmap"], lv["G"], lv["coeff"],
+                                     lv["D"], lv["bc_marker"])
+
+    return dict(
+        apply=_shifted(raw, sigma),
+        restrict=lambda tr, r, level_c, level_f: restrict(
+            r, tr["dofmap_c"], tr["dofmap_f"], tr["M1"], tr["mult_f"],
+            level_c.ndofs),
+        prolong=lambda tr, u, level_c, level_f: prolongate(
+            u, tr["dofmap_c"], tr["dofmap_f"], tr["M1"], level_f.ndofs),
+        dot=lambda u, v, lv: inner_product(u, v),
+        zeros=_zeros(True),
+    )
+
+
+def lattice_cycle_ops(sigma=0.0):
+    """V-cycle primitives of the plain-torch lattice backend (general
+    hexes, `ops.lattice`) with the lattice per-axis transfers; flat
+    vectors."""
+    from ..ops.lattice import lattice_laplacian_apply
+
+    def raw(lv, x, level):
+        mats = {k: lv[k] for k in ("Ex", "Dx", "Ey", "Dy", "Ez", "Dz")}
+        return lattice_laplacian_apply(x, mats, lv["G"], lv["bc_marker"],
+                                       apply_bc=False)
+
+    return dict(apply=_shifted(raw, sigma), **_lattice_transfers(flat=True))
+
+
+def lattice_blocked_cycle_ops(sigma=0.0):
+    """V-cycle primitives whose general-hex applies run K-A of
+    `ops.lattice_blocked` (the CUDA kernel on CUDA tensors, its plain torch
+    version on CPU tensors); lattice per-axis transfers; flat vectors.
+    A sigma shift rides a torch epilogue on the raw kernel output."""
+    from ..ops.lattice_blocked import blocked_lattice_apply
+
+    def apply_op(lv, x, level):
+        nc = tuple((N - 1) // level.P for N in level.shape)
+        if not sigma:
+            return blocked_lattice_apply(x, lv["lb_mats"], lv["Gt"],
+                                         lv["bc_marker"], nc, level.P)
+        y = blocked_lattice_apply(x, lv["lb_mats"], lv["Gt"],
+                                  lv["bc_marker"], nc, level.P,
+                                  apply_bc=False)
+        y = y + sigma * lv["m3"] * x
+        return torch.where(lv["bc_marker"], x, y)
+
+    return dict(apply=apply_op, **_lattice_transfers(flat=True))
 
 
 def kron_cycle_ops(sigma=0.0):
@@ -223,27 +309,44 @@ class PMGHierarchy:
                  smoother_iters=DEFAULT_SMOOTHER_ITERS, coarse="smoother",
                  coarse_cfg=None,
                  calibration_iters=DEFAULT_CALIBRATION_ITERS,
-                 operator="kron", precision="highest", sigma=0.0,
+                 operator="dofmap", precision="highest", sigma=0.0,
                  smoother="cheb", *, device):
-        """``operator`` is 'kron' (plain torch) or 'kron_blocked' (the
-        CUDA kernels on a CUDA device, float32 only); ``coarse`` is
-        'smoother', 'cg' or 'fdm'; ``kappa`` a scalar; ``sigma`` a scalar
-        lumped-mass shift."""
+        """``operator`` is 'dofmap' (gather/scatter, any hex mesh),
+        'lattice' (plain torch, any hex mesh), 'lattice_blocked' (the
+        CUDA kernels on a CUDA device, any hex mesh, float32 only), 'kron'
+        (plain torch, axis-aligned boxes) or 'kron_blocked' (the CUDA
+        kernels, axis-aligned boxes, float32 only); ``coarse`` is
+        'smoother', 'cg' or 'fdm' (axis-aligned only); ``kappa`` a scalar;
+        ``sigma`` a scalar lumped-mass shift."""
         from ..fem.assembly import (
+            geometry_factors_np,
+            lumped_mass_np,
+            ops_shift_scalar,
             resolve_kappa_axes,
             resolve_kappa_split,
             resolve_sigma,
+            scale_G,
         )
+        from ..fem.gll import derivative_matrix, interpolation_matrix_1d
         from ..fem.mesh import require_axis_aligned
         from ..ops.kron import (
             axis_stiffness_mass,
             kron_diagonal,
             robin_axis_ends,
         )
-        from ..ops.lattice import axis_interpolation_matrix
+        from ..ops.laplacian import laplacian_diagonal
+        from ..ops.lattice import (
+            axis_interpolation_matrix,
+            geometry_to_qlattice,
+            lattice_mats,
+        )
 
-        if operator not in ("kron", "kron_blocked"):
+        if operator in ("csr", "dss"):
             raise NotImplementedError(_OPERATOR_TODO)
+        if operator not in _OPERATORS:
+            raise ValueError(
+                f"unknown operator backend {operator!r}; expected one of "
+                f"{_OPERATORS}")
         if coarse not in ("smoother", "cg", "fdm"):
             raise NotImplementedError(_COARSE_TODO)
         if smoother != "cheb":
@@ -256,12 +359,15 @@ class PMGHierarchy:
             raise NotImplementedError(
                 "only precision='highest' (true f32/f64) is ported; "
                 "'high' (bf16x3) is ROADMAP.md Queue 1 item 1")
+        kron_family = operator in ("kron", "kron_blocked")
         self.sigma, sigma_field = resolve_sigma(sigma)
         if sigma_field is not None:
-            raise ValueError(
-                "a sigma FIELD (callable) requires a general backend; the "
-                "Kronecker paths carry only a separable scalar shift"
-            )
+            if kron_family:
+                raise ValueError(
+                    "a sigma FIELD (callable) requires a general backend; "
+                    "the Kronecker paths carry only a separable scalar shift"
+                )
+            raise NotImplementedError(_SIGMA_FIELD_TODO)
         if (not any(any(f) for f in mesh.dirichlet_faces)
                 and self.sigma == 0.0):
             raise ValueError(
@@ -269,8 +375,12 @@ class PMGHierarchy:
                 "singular (constant nullspace); add a Dirichlet face or a "
                 "positive sigma shift"
             )
-        require_axis_aligned(mesh, f"operator='{operator}'")
-        if operator == "kron_blocked" and dtype != torch.float32:
+        if kron_family:
+            require_axis_aligned(mesh, f"operator='{operator}'")
+        if coarse == "fdm":
+            require_axis_aligned(mesh, "coarse='fdm'")
+        if (operator in ("kron_blocked", "lattice_blocked")
+                and dtype != torch.float32):
             raise ValueError(
                 f"operator='{operator}' is f32-only (CUDA kernels); "
                 f"got dtype={dtype}"
@@ -285,57 +395,108 @@ class PMGHierarchy:
         self.dtype = dtype
         self.coarse = coarse
         self.coarse_cfg = dict(coarse_cfg or {})
+        self.operator_kind = operator
         self.eigs = []
+        ops_sigma = ops_shift_scalar(mesh, self.sigma, kron_family)
         if operator == "kron":
             self._ops = kron_cycle_ops(sigma=self.sigma)
-        else:
+        elif operator == "kron_blocked":
             self._ops = kron_blocked_cycle_ops(sigma=self.sigma)
+        elif operator == "lattice":
+            self._ops = lattice_cycle_ops(sigma=ops_sigma)
+        elif operator == "lattice_blocked":
+            self._ops = lattice_blocked_cycle_ops(sigma=ops_sigma)
+        else:
+            self._ops = default_cycle_ops(sigma=ops_sigma)
         ops = self._ops
-        tensor = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+        tensor = lambda a: torch.tensor(a, dtype=dtype, device=self.device)
+        dofmap_t = lambda P: torch.tensor(mesh.dofmap(P), dtype=torch.int64,
+                                          device=self.device)
 
         level_data = []
         levels = []
         for P in self.degrees:
             shape = mesh.lattice_shape(P)
+            ndofs = mesh.num_dofs(P)
             bc_np = mesh.boundary_dof_marker(P)
-            bc = torch.tensor(bc_np, device=self.device).reshape(shape)
-            lv = {}
-            for a, (name, nc_a, h_a, k_a) in enumerate(
-                    zip("xyz", mesh.nc, mesh.h_cells, self.kappa_axes)):
-                K, m = axis_stiffness_mass(
-                    nc_a, P, h_a, robin=robin_axis_ends(mesh, a, 1.0 / k_a))
-                lv["K" + name] = tensor(k_a * K)
-                lv["m" + name] = tensor(m)
-            lv["bc_marker"] = bc
-            level = Level(P=P, ndofs=mesh.num_dofs(P),
-                          smoother_iters=smoother_iters, shape=shape)
-            diag = kron_diagonal(
-                (lv["Kx"], lv["Ky"], lv["Kz"]),
-                (lv["mx"], lv["my"], lv["mz"]),
-                bc, sigma=self.sigma,
-            )
-            if operator == "kron_blocked":
-                # The kernels consume the symmetrized form with separable
-                # bc masks; the raw 1D factors are not needed at runtime.
-                from ..ops.kron_blocked import (
-                    checked_face_masks,
-                    symmetrized_mats,
-                )
-
-                lv["kb_mats"] = symmetrized_mats(
+            bc = torch.tensor(bc_np, device=self.device)
+            level = Level(P=P, ndofs=ndofs, smoother_iters=smoother_iters,
+                          shape=None if operator == "dofmap" else shape)
+            if kron_family:
+                bc = bc.reshape(shape)
+                lv = {}
+                for a, (name, nc_a, h_a, k_a) in enumerate(
+                        zip("xyz", mesh.nc, mesh.h_cells, self.kappa_axes)):
+                    K, m = axis_stiffness_mass(
+                        nc_a, P, h_a,
+                        robin=robin_axis_ends(mesh, a, 1.0 / k_a))
+                    lv["K" + name] = tensor(k_a * K)
+                    lv["m" + name] = tensor(m)
+                lv["bc_marker"] = bc
+                diag = kron_diagonal(
                     (lv["Kx"], lv["Ky"], lv["Kz"]),
                     (lv["mx"], lv["my"], lv["mz"]),
-                    checked_face_masks(mesh, P, bc_np),
-                    band=P, device=self.device, dtype=dtype,
-                )
-                for name in "xyz":
-                    del lv["K" + name], lv["m" + name]
-            lv["diag_inv"] = (1.0 / diag).reshape(shape)
+                    bc, sigma=self.sigma,
+                ).reshape(shape)
+                if operator == "kron_blocked":
+                    # The kernels consume the symmetrized form with
+                    # separable bc masks; the raw 1D factors are not
+                    # needed at runtime.
+                    from ..ops.kron_blocked import (
+                        checked_face_masks,
+                        symmetrized_mats,
+                    )
+
+                    lv["kb_mats"] = symmetrized_mats(
+                        (lv["Kx"], lv["Ky"], lv["Kz"]),
+                        (lv["mx"], lv["my"], lv["mz"]),
+                        checked_face_masks(mesh, P, bc_np),
+                        band=P, device=self.device, dtype=dtype,
+                    )
+                    for name in "xyz":
+                        del lv["K" + name], lv["m" + name]
+            else:
+                # General family: geometry factors in float64 on the host
+                # (shared with the rhs and the error norm), cast once.
+                G_cells, _ = geometry_factors_np(mesh, P, kappa=kt)
+                if operator == "lattice":
+                    lv = lattice_mats(mesh.nc, P, dtype, self.device)
+                    lv["G"] = tensor(geometry_to_qlattice(
+                        scale_G(G_cells, kc, kt), mesh.nc, P))
+                elif operator == "lattice_blocked":
+                    from ..ops.lattice_blocked import (
+                        geometry_to_gfirst,
+                        lattice_blocked_mats,
+                    )
+
+                    lv = dict(
+                        Gt=tensor(geometry_to_gfirst(geometry_to_qlattice(
+                            scale_G(G_cells, kc, kt), mesh.nc, P))),
+                        lb_mats=lattice_blocked_mats(
+                            mesh.nc, P, dtype, device=self.device),
+                    )
+                else:
+                    lv = dict(dofmap=dofmap_t(P), G=tensor(G_cells),
+                              coeff=tensor(kc),
+                              D=tensor(derivative_matrix(P)))
+                lv["bc_marker"] = bc
+                # The exact diagonal through the dofmap formulation.
+                diag = laplacian_diagonal(
+                    lv["dofmap"] if "dofmap" in lv else dofmap_t(P),
+                    lv["G"] if operator == "dofmap" else tensor(G_cells),
+                    tensor(kc), tensor(derivative_matrix(P)), bc, ndofs)
+                if ops_sigma:
+                    # Lumped-mass shift, bc-zeroed, added pointwise in the
+                    # apply and to the Jacobi diagonal.
+                    lv["m3"] = tensor(lumped_mass_np(mesh, P, bc_zero=True))
+                    diag = diag + ops_sigma * lv["m3"]
+            lv["diag_inv"] = 1.0 / diag
+            vshape = shape if kron_family else (ndofs,)
             # Smoother calibration: 20 recorded CG iterations on A x = 1,
             # Lanczos estimate, lmax inflated by 1.1.
             _, info = _generic_calibration(
-                lv, torch.ones(shape, dtype=dtype, device=self.device),
-                torch.zeros(shape, dtype=dtype, device=self.device),
+                lv, torch.ones(vshape, dtype=dtype, device=self.device),
+                torch.zeros(vshape, dtype=dtype, device=self.device),
                 ops=ops, level=level, maxiter=calibration_iters,
             )
             eigs = lanczos_eigenvalue_estimates(
@@ -350,10 +511,17 @@ class PMGHierarchy:
         transfer = []
         for i in range(len(self.degrees) - 1):
             Pc, Pf = self.degrees[i], self.degrees[i + 1]
-            transfer.append({
-                "I" + name: tensor(axis_interpolation_matrix(nc_a, Pc, Pf))
-                for name, nc_a in zip("xyz", mesh.nc)
-            })
+            if operator == "dofmap":
+                transfer.append(dict(
+                    M1=tensor(interpolation_matrix_1d(Pc, Pf)),
+                    dofmap_c=dofmap_t(Pc), dofmap_f=dofmap_t(Pf),
+                    mult_f=tensor(mesh.dof_multiplicity(Pf)),
+                ))
+            else:
+                transfer.append({
+                    "I" + name: tensor(axis_interpolation_matrix(nc_a, Pc, Pf))
+                    for name, nc_a in zip("xyz", mesh.nc)
+                })
 
         self.data = dict(levels=level_data, transfer=transfer)
         self.levels = tuple(levels)
@@ -396,7 +564,9 @@ class PMGHierarchy:
 
     def _to_work(self, v):
         v = torch.as_tensor(v, dtype=self.dtype, device=self.device)
-        return v.reshape(self.levels[-1].shape)
+        if self.operator_kind in ("kron", "kron_blocked"):
+            return v.reshape(self.levels[-1].shape)
+        return v.reshape(-1)
 
     def apply(self, b, u):
         """One V-cycle from iterate ``u`` (flat vectors)."""

@@ -106,7 +106,7 @@ def test_load_state_checks_shapes():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(operator="lattice"), "Queue 1 items 6 and 8"),
+    (dict(operator="csr"), "Queue 1 items 6 and 8"),
     (dict(coarse="hmg"), "Queue 1 items 4"),
     (dict(smoother="line"), "Queue 1 item 7"),
     (dict(coarse_cfg={"gamma": 2}), "Queue 1 item 7"),
