@@ -4,14 +4,14 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, builds the port's CUDA kernels from
-its sources and drives the flagship solve and the curved-hex solve
-through them. Every phase raises on failure; nothing is caught.
+its sources and drives the flagship solve, the curved-hex solve and the
+serving (transient) steppers through them. Every phase raises on failure; nothing is caught.
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch,
    CUDA and nvcc versions. Fails when ``torch.cuda.is_available()`` is
    False.
-2. Build the kernels (``csrc/kron_blocked.cu`` and
-   ``csrc/lattice_blocked.cu``, one nvcc each, started together, sm_90a).
+2. Build the kernels (``csrc/kron_blocked.cu``, ``csrc/lattice_blocked.cu``
+   and ``csrc/kron_packed.cu``, one nvcc each, started together, sm_90a).
 3. Kernel parity: each kernel against its plain torch version at
    2,048,383 dofs (nc=21, p=6, 127^3) and 16,194,277 dofs (nc=42, p=6,
    253^3), seeded inputs, sigma in {0, 0.5}; relative max-norm error
@@ -47,6 +47,31 @@ through them. Every phase raises on failure; nothing is caught.
    geom --mesh perturbed``) at 16.2M dofs, p=6: K-B's launch count rises.
 9. Curved in-card reference: nc=21 with ``operator="lattice"`` (plain
    torch) and ``"lattice_blocked"`` under the rules of phase 5.
+10. Serving kernel parity: ``packed_apply`` and ``packed_fdm``
+   (``csrc/kron_packed.cu``) through each of the four classes of
+   ``ops/kron_packed.py`` at 61^3 (nc=10, p=6, 226,981 dofs), kappa=2:
+   the apply at B in {1, 8, 64} with sigma in {0, 1e3} and one mixed
+   Dirichlet/Neumann case, the FDM solve at B in {1, 8, 64}; relative
+   max-norm <= 1e-5 against the plain torch versions; ``apply(solve(b))``
+   equals ``b`` to 1e-4; CUDA-event times in turns plain, kernel,
+   kernel, plain.
+11. Serving path, the README's configuration (61^3, p=6): heat CN
+   (``heat_packed_evolve``, dt=1e-3, 2000 steps) at B=1 and B=8, wave
+   leapfrog (``wave_packed_evolve``, 0.72 x ``wave_stable_dt``, 2000
+   steps) at B=1 and B=8 and Newmark at B=1: L2 error against the
+   analytic mode, column-steps/s, the device busy share under
+   ``torch.profiler``, the launches of both kernels (each must rise);
+   in-card reference: the same evolve with the plain versions agrees to
+   1e-4 relative (heat over 200 steps: after 2000 the CN state is below
+   float32 range).
+12. The JAX bench's ``heat_cn_2M`` recipe: ``heat_fdm_evolve`` on
+   ``BoxMesh((42,42,42))``, p=3 (2,048,383 dofs), CN, dt=1e-4, f32,
+   kappa=2 (plain torch): steps/s as the slope between 200 and 1000
+   steps.
+13. A small curved stepper: ``heat_pcg_evolve`` on
+   ``PerturbedBoxMesh((19,19,19))``, p=3 (195,112 dofs),
+   ``operator="lattice"``, ``coarse="cg"``, CN, 5 steps: FCG counts per
+   step, finite state.
 
 Prints a ``{"kernels": [...]}`` JSON line and, only when every phase
 passed, the last line
@@ -71,6 +96,8 @@ SOURCES = {
     "t23_res_m": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
     "lattice_apply": "pmg_dolfinx_tpu_torch/csrc/lattice_blocked.cu",
     "lattice_apply_geom": "pmg_dolfinx_tpu_torch/csrc/lattice_blocked.cu",
+    "packed_apply": "pmg_dolfinx_tpu_torch/csrc/kron_packed.cu",
+    "packed_fdm": "pmg_dolfinx_tpu_torch/csrc/kron_packed.cu",
 }
 TPU_KERNELS = {
     "t1_m": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:125",
@@ -80,6 +107,11 @@ TPU_KERNELS = {
                       "(_kernel_lattice_yx 'yexp'; also :69 _kernel_lattice "
                       "'v1' and :220 _kernel_lattice_ym 'ym')"),
     "lattice_apply_geom": "pmg_dolfinx_tpu/ops/pallas_lattice_blocked.py:411",
+    "packed_apply": ("pmg_dolfinx_tpu/ops/pallas_kron_packed.py:64 "
+                     "(_packed_kernel; also :471 _packed_single_kernel)"),
+    "packed_fdm": ("pmg_dolfinx_tpu/ops/pallas_kron_packed.py:273 "
+                   "(_packed_fdm_kernel; also :797 "
+                   "_packed_fdm_single_kernel)"),
 }
 KERNEL_RTOL = 1e-5
 REF_TRAJ_FROM = 5e-3
@@ -343,6 +375,314 @@ def vcycle_ms(hier, cycles=10, reps=3):
     return sorted(times)[len(times) // 2], times
 
 
+@contextlib.contextmanager
+def plain_packed():
+    """Run the serving classes on their plain torch versions on the card
+    (the in-card reference): the module's two entry points are swapped
+    for the plain functions while the block runs."""
+    from pmg_dolfinx_tpu_torch.ops import kron_packed as kp
+
+    saved = kp.packed_apply, kp.packed_fdm
+    kp.packed_apply, kp.packed_fdm = kp.plain_packed_apply, kp.plain_packed_fdm
+    try:
+        yield
+    finally:
+        kp.packed_apply, kp.packed_fdm = saved
+
+
+def profile_busy(fn):
+    """One call of ``fn`` under `torch.profiler`: (wall ms, device busy ms
+    = the sum of kernel durations (one stream, no overlap), kernel count,
+    {kernel name: ms})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return wall, sum(by_name.values()), len(kernels), by_name
+
+
+PACKED_NC = (10, 10, 10)     # 61^3 at p=6: 226,981 dofs, the serving size
+PACKED_P = 6
+MIXED = ((True, False), (False, False), (True, True))
+
+
+def packed_parity():
+    """Phase 10: both serving kernels through the four classes at 61^3;
+    returns {kernel: (max_abs_err, ms, plain_ms)} at B=8."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.ops import kron_packed as kp
+
+    P = PACKED_P
+    mesh = BoxMesh(PACKED_NC)
+    shape, n = mesh.lattice_shape(P), mesh.num_dofs(P)
+    out = {"packed_apply": [0.0, None, None], "packed_fdm": [0.0, None, None]}
+
+    def check(name, tag, got, ref, tol=KERNEL_RTOL):
+        torch.cuda.synchronize()
+        err = rel_max_err(got, ref)
+        out[name][0] = max(out[name][0], float((got - ref).abs().max()))
+        print(f"    {tag}: rel max err {err:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"{tag}: relative max-norm error {err:.3e} "
+                                 f"> {tol}")
+
+    for B in (1, 8, 64):
+        rng = np.random.default_rng(SEED + B)
+        U = torch.tensor(rng.standard_normal((B,) + shape, dtype=np.float32),
+                         device="cuda")
+        ops = {}
+        for sigma in (0.0, 1e3):
+            if B == 1:
+                op = kp.PackedKronSingle(mesh, P, kappa=2.0, sigma=sigma,
+                                         device="cuda")
+                got = op.apply_packed(U[0])[None]
+            else:
+                op = kp.PackedKronBatch(mesh, P, kappa=2.0, B=B, sigma=sigma,
+                                        device="cuda")
+                got = op.apply_packed(U)
+            ops[sigma] = op
+            check("packed_apply", f"{type(op).__name__} B={B} sigma={sigma:g}",
+                  got, kp.plain_packed_apply(U, op.mats, sigma))
+        if B == 1:
+            fdm = kp.PackedFDMSingle(mesh, P, kappa=2.0, device="cuda")
+            solve = lambda: fdm.solve_packed(U[0])[None]
+            apply = lambda: ops[0.0].apply_packed(U[0])[None]
+        else:
+            fdm = kp.PackedFDMBatch(mesh, P, kappa=2.0, B=B, device="cuda")
+            solve = lambda: fdm.solve_packed(U)
+            apply = lambda: ops[0.0].apply_packed(U)
+        check("packed_fdm", f"{type(fdm).__name__} B={B}", solve(),
+              kp.plain_packed_fdm(U, fdm.mats))
+        x = ops[0.0].pack(solve()) if B > 1 else solve()
+        back = (ops[0.0].apply_packed(x) if B > 1
+                else ops[0.0].apply_packed(x[0])[None])
+        torch.cuda.synchronize()
+        inv = rel_max_err(back, U)
+        print(f"    B={B}: apply(solve(b)) vs b: rel max err {inv:.3e}")
+        if not inv <= 1e-4:
+            raise AssertionError(f"the FDM is not the apply's inverse: {inv}")
+        for name, kern, plain in (
+                ("packed_apply", apply,
+                 lambda: kp.plain_packed_apply(U, ops[0.0].mats)),
+                ("packed_fdm", solve,
+                 lambda: kp.plain_packed_fdm(U, fdm.mats))):
+            ms_k, ms_p, four = turns(plain, kern)
+            what = (f"{B * n / ms_k / 1e6:.3f} GDOF/s per RHS"
+                    if name == "packed_apply" else
+                    f"{ms_k / B:.5f} ms per RHS solve")
+            print(f"    B={B} {name}: kernel {ms_k:.4f} ms vs plain "
+                  f"{ms_p:.4f} ms (turns {[round(t, 4) for t in four]}); "
+                  f"{what} (plain {B * n / ms_p / 1e6:.3f} GDOF/s, "
+                  f"{ms_p / B:.5f} ms per RHS)")
+            if B == 8:
+                out[name][1:] = [ms_k, ms_p]
+    mixed = BoxMesh(PACKED_NC, dirichlet_faces=MIXED)
+    U = torch.tensor(np.random.default_rng(SEED).standard_normal(
+        (8,) + shape, dtype=np.float32), device="cuda")
+    op = kp.PackedKronBatch(mixed, P, kappa=2.0, B=8, sigma=1e3,
+                            device="cuda")
+    fdm = kp.PackedFDMBatch(mixed, P, kappa=2.0, B=8, sigma=1e3,
+                            device="cuda")
+    check("packed_apply", "mixed faces PackedKronBatch B=8 sigma=1e3",
+          op.apply_packed(U), kp.plain_packed_apply(U, op.mats, 1e3))
+    check("packed_fdm", "mixed faces PackedFDMBatch B=8 sigma=1e3",
+          fdm.solve_packed(U), kp.plain_packed_fdm(U, fdm.mats))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+SERVING_STEPS = 2000
+
+
+def serving_path():
+    """Phase 11: the README's serving configuration; returns the launches
+    of both kernels over the timed and profiled runs."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import l2_error
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.ops import kron_packed as kp
+    from pmg_dolfinx_tpu_torch.solvers.transient import (
+        heat_packed_evolve, wave_packed_evolve, wave_stable_dt)
+
+    P, kappa = PACKED_P, 2.0
+    mesh = BoxMesh(PACKED_NC)
+    n = mesh.num_dofs(P)
+    c = mesh.dof_coords(P)
+    u0 = (np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1])
+          * np.sin(np.pi * c[:, 2]))
+    dt_wave = 0.72 * wave_stable_dt(mesh, P, kappa=kappa)
+    lam, omega = 3.0 * np.pi**2 * kappa, np.pi * np.sqrt(3.0 * kappa)
+    print(f"    mesh {PACKED_NC} p={P} ({n} dofs); wave dt {dt_wave:.4e} "
+          "(0.72 x wave_stable_dt)")
+    total = {"packed_apply": 0, "packed_fdm": 0}
+    for kind, B in (("heat", 1), ("heat", 8), ("leapfrog", 1),
+                    ("leapfrog", 8), ("newmark", 1)):
+        heat = kind == "heat"
+        dt = 1e-3 if heat else dt_wave
+        U0 = torch.tensor(np.broadcast_to(u0, (B, n)), dtype=torch.float32,
+                          device="cuda")
+
+        def make():
+            if heat:
+                return heat_packed_evolve(mesh, P, kappa=kappa, dt=dt, B=B,
+                                          scheme="cn", device="cuda")
+            return wave_packed_evolve(mesh, P, kappa=kappa, dt=dt, B=B,
+                                      scheme=kind, device="cuda")
+
+        def run(ev, k):
+            return ev(U0, k) if heat else ev(U0, torch.zeros_like(U0), k)[0]
+
+        tag = f"{'heat CN' if heat else 'wave ' + kind} B={B}"
+        for k in kp.LAUNCHES:
+            kp.LAUNCHES[k] = 0
+        ts = time.perf_counter()
+        ev = make()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - ts
+        run(ev, 20)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        UT = run(ev, SERVING_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        pw, busy, nk, by_name = profile_busy(lambda: run(ev, 100))
+        launches = dict(kp.LAUNCHES)
+        if tuple(UT.shape) != (B, n) or not bool(torch.isfinite(UT).all()):
+            raise AssertionError(f"{tag}: the state is not finite (B, ndofs)")
+        T = dt * SERVING_STEPS
+        amp = np.exp(-lam * T) if heat else np.cos(omega * T)
+        err = l2_error(mesh, P, UT[0].double().cpu().numpy(),
+                       lambda x: amp * np.sin(np.pi * x[0])
+                       * np.sin(np.pi * x[1]) * np.sin(np.pi * x[2]))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        print(f"    {tag}: {SERVING_STEPS} steps in {wall:.3f} s = "
+              f"{SERVING_STEPS * B / wall:.1f} column-steps/s "
+              f"({SERVING_STEPS / wall:.1f} steps/s); setup {setup_s:.2f} s; "
+              f"L2 error at T={T:.4g}: {err:.4e}; launches {launches}")
+        print(f"      profiled 100 steps: wall {pw / 100:.4f} ms/step, device "
+              f"busy {busy / 100:.4f} ms/step ({nk / 100:.0f} kernels/step; "
+              f"idle {max(0.0, 1 - busy / pw):.1%}); top: "
+              + ", ".join(f"{k[:40]} {v / 100:.4f}" for k, v in top))
+        if not err < 1e-2:
+            raise AssertionError(f"{tag}: L2 error {err}")
+        need = ("packed_fdm",) if heat else (
+            ("packed_apply",) if kind == "leapfrog" else
+            ("packed_apply", "packed_fdm"))
+        if not all(launches[k] > 0 for k in need):
+            raise AssertionError(f"{tag}: a kernel was not launched: "
+                                 f"{launches}")
+        for k in total:
+            total[k] += launches[k]
+        # In-card reference: the same evolve on the plain versions. The CN
+        # state falls below float32 range after 2000 steps, so heat is
+        # compared after 200.
+        nref = 200 if heat else SERVING_STEPS
+        Uk = UT if nref == SERVING_STEPS else run(ev, nref)
+        before = dict(kp.LAUNCHES)
+        with plain_packed():
+            Up = run(make(), nref)
+        if kp.LAUNCHES != before:
+            raise AssertionError(f"{tag}: the plain reference launched a "
+                                 "kernel")
+        d = rel_max_err(Uk, Up)
+        print(f"      in-card reference ({nref} steps, plain versions): rel "
+              f"max diff {d:.3e}")
+        if not d <= 1e-4:
+            raise AssertionError(f"{tag}: kernel and plain evolves differ {d}")
+    return total
+
+
+def heat_cn_2m():
+    """Phase 12: the JAX bench's heat_cn_2M recipe on the port."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import l2_error
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.solvers.transient import heat_fdm_evolve
+
+    mesh, P, dt = BoxMesh((42, 42, 42)), 3, 1e-4
+    c = mesh.dof_coords(P)
+    u0 = torch.tensor(np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1])
+                      * np.sin(np.pi * c[:, 2]), dtype=torch.float32,
+                      device="cuda")
+    evolve = heat_fdm_evolve(mesh, P, kappa=2.0, dt=dt, scheme="cn",
+                             dtype=torch.float32, device="cuda")
+
+    def timed(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = evolve(u0, k)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, u
+
+    lo, hi = 200, 1000
+    timed(lo)
+    timed(hi)
+    samples = []
+    for _ in range(3):
+        t_lo, _ = timed(lo)
+        t_hi, u = timed(hi)
+        samples.append((t_hi - t_lo) / (hi - lo))
+    per = sorted(samples)[1]
+    T = hi * dt
+    amp = np.exp(-3.0 * np.pi**2 * 2.0 * T)
+    err = l2_error(mesh, P, u.double().cpu().numpy().reshape(-1),
+                   lambda x: amp * np.sin(np.pi * x[0]) * np.sin(np.pi * x[1])
+                   * np.sin(np.pi * x[2]))
+    print(f"    {mesh.num_dofs(P)} dofs: {1.0 / per:.1f} steps/s "
+          f"({per * 1e3:.4f} ms/step; slope samples "
+          f"{[round(s * 1e3, 4) for s in samples]} ms); L2 error at "
+          f"T={T:g}: {err:.4e}")
+    if not (bool(torch.isfinite(u).all()) and err < 1e-3):
+        raise AssertionError(f"heat_cn_2M: L2 error {err}")
+
+
+def curved_stepper():
+    """Phase 13: heat_pcg_evolve on a small curved mesh."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_tpu_torch.solvers.transient import heat_pcg_evolve
+
+    mesh, P, dt, kappa = PerturbedBoxMesh((19, 19, 19)), 3, 1e-3, 2.0
+    ts = time.perf_counter()
+    hier = PMGHierarchy(mesh, degrees=(1, P), kappa=kappa / 2,
+                        sigma=1.0 / dt, dtype=torch.float32, coarse="cg",
+                        operator="lattice", device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - ts
+    c = mesh.dof_coords(P)
+    u0 = (np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1])
+          * np.sin(np.pi * c[:, 2]))
+    ts = time.perf_counter()
+    u, iters = heat_pcg_evolve(hier, mesh, P, dt, scheme="cn",
+                               rtol=1e-6)(u0, 5)
+    torch.cuda.synchronize()
+    print(f"    {mesh.num_dofs(P)} dofs p={P}: setup {setup_s:.2f} s, 5 CN "
+          f"steps {time.perf_counter() - ts:.2f} s (host clock); FCG "
+          f"iterations per step {iters}")
+    if not bool(torch.isfinite(u).all()) or max(iters) > 50:
+        raise AssertionError(f"curved stepper: iterations {iters}")
+
+
 def main():
     import numpy as np
     import torch
@@ -373,15 +713,16 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[-1])
     done(t0)
 
+    from pmg_dolfinx_tpu_torch.ops import kron_packed as kp
     from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
 
     t0 = phase("2. build kernels")
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(m.load_kernels) for m in (kb, lb)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for fut in [pool.submit(m.load_kernels) for m in (kb, lb, kp)]:
             fut.result()
-    print(f"    build seconds (both sources, in parallel): "
+    print(f"    build seconds (three sources, in parallel): "
           f"{time.perf_counter() - t0:.2f}")
-    for mod in (kb, lb):
+    for mod in (kb, lb, kp):
         for line in mod.BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
@@ -628,6 +969,26 @@ def main():
     print(f"    FCG solutions: relative difference {du:.3e}")
     if not du <= 1e-3:
         raise AssertionError(f"FCG solutions differ: {du}")
+    done(t0)
+
+    t0 = phase("10. serving kernel parity vs plain torch: 61^3, p=6")
+    main_shape.update(packed_parity())
+    done(t0)
+
+    t0 = phase("11. serving path: heat CN and wave at 61^3, p=6, B=1 and 8")
+    launches.update(serving_path())
+    print(f"    kernel launches on the serving path: "
+          f"packed_apply {launches['packed_apply']}, packed_fdm "
+          f"{launches['packed_fdm']}")
+    done(t0)
+
+    t0 = phase("12. heat_cn_2M recipe: heat_fdm_evolve, 2.05M dofs, p=3")
+    heat_cn_2m()
+    done(t0)
+
+    t0 = phase("13. curved stepper: heat_pcg_evolve, 195k dofs, p=3")
+    curved_stepper()
+    print(f"    peak host RSS {peak_rss_gb():.1f} GB")
     done(t0)
 
     kernels = [

@@ -117,16 +117,46 @@ def fcg_solve(A, b, x0, M, *, rtol=1e-8, maxiter=50, dot=_default_dot):
     k = 0
     done = bool(rz <= 0)
     while k < maxiter and not done:
-        q = A(p)
-        alpha = _safe_div(rz, dot(p, q))
-        x = x + alpha * p
-        r_new = r - alpha * q
-        z_new = M(r_new)
-        # Polak-Ribiere (flexible) beta.
-        beta = _safe_div(dot(z_new, r_new - r), rz)
-        rz_new = dot(r_new, z_new)
-        done = bool(_safe_div(rz_new, rz0) < rtol2)
-        p = z_new + beta * p
-        r, z, rz = r_new, z_new, rz_new
+        x, r, z, p, rz, converged = _fcg_iteration(A, M, dot, x, r, z, p, rz,
+                                                   rz0, rtol2)
+        done = bool(converged)
         k += 1
+    return x, dict(niter=k, rnorm=rz, rnorm0=rz0)
+
+
+def _fcg_iteration(A, M, dot, x, r, z, p, rz, rz0, rtol2):
+    q = A(p)
+    alpha = _safe_div(rz, dot(p, q))
+    x = x + alpha * p
+    r_new = r - alpha * q
+    z_new = M(r_new)
+    # Polak-Ribiere (flexible) beta.
+    beta = _safe_div(dot(z_new, r_new - r), rz)
+    rz_new = dot(r_new, z_new)
+    converged = _safe_div(rz_new, rz0) < rtol2
+    p = z_new + beta * p
+    return x, r_new, z_new, p, rz_new, converged
+
+
+def fcg_solve_fixed(A, b, x0, M, *, rtol=0.0, maxiter=5, dot=_default_dot):
+    """`fcg_solve` as a loop of exactly ``maxiter`` iterations that freezes
+    its state with ``torch.where`` once converged (the JAX ``while_loop``
+    traced inside a scan): the same iterate, and no host sync. Returns
+    ``(x, info)`` with ``niter`` a 0-d tensor."""
+    r = b - A(x0)
+    z = M(r)
+    p = z
+    rz = dot(r, z)
+    rz0 = rz
+    rtol2 = rtol * rtol
+    x = x0
+    k = torch.zeros((), dtype=torch.int64, device=b.device)
+    done = rz <= 0
+    for _ in range(maxiter):
+        new = _fcg_iteration(A, M, dot, x, r, z, p, rz, rz0, rtol2)
+        active = torch.logical_not(done)
+        x, r, z, p, rz = (torch.where(active, n, o)
+                          for n, o in zip(new[:5], (x, r, z, p, rz)))
+        k = k + active.to(k.dtype)
+        done = torch.logical_or(done, new[5])
     return x, dict(niter=k, rnorm=rz, rnorm0=rz0)

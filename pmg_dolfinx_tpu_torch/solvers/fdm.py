@@ -82,6 +82,8 @@ class FastDiagonalizationSolver:
 
         require_axis_aligned(mesh, "FastDiagonalizationSolver")
         P = int(P)
+        self.dtype = dtype
+        self.device = torch.device(device)
         self.shape = mesh.lattice_shape(P)
         faces = getattr(mesh, "dirichlet_faces", ((True, True),) * 3)
         self.trims = tuple((int(lo), int(hi)) for lo, hi in faces)
@@ -110,5 +112,9 @@ class FastDiagonalizationSolver:
                                       device=device)
 
     def solve(self, b):
+        """``u = A^{-1} b``; ``b`` (any float dtype, any device, flat or
+        lattice-shaped) is cast to the solver's dtype and device first,
+        as in the JAX package."""
+        b = torch.as_tensor(b).to(device=self.device, dtype=self.dtype)
         return fdm_solve(b, self.Vs, self.Vts, self.dinv, self.bc_marker,
                          self.shape, trims=self.trims)

@@ -562,11 +562,26 @@ class PMGHierarchy:
     def _fine_apply(self, x):
         return self._ops["apply"](self.data["levels"][-1], x, self.levels[-1])
 
-    def _to_work(self, v):
+    @property
+    def ops(self):
+        """The cycle-ops dict (apply/restrict/prolong/dot/zeros): the public
+        handle for composing `v_cycle` or a Krylov loop with this
+        hierarchy's operator backend."""
+        return self._ops
+
+    def _to_work(self, v, level=-1):
         v = torch.as_tensor(v, dtype=self.dtype, device=self.device)
         if self.operator_kind in ("kron", "kron_blocked"):
-            return v.reshape(self.levels[-1].shape)
+            return v.reshape(self.levels[level].shape)
         return v.reshape(-1)
+
+    def operator(self, level=-1):
+        """The fine-level (or chosen-level) operator as ``x -> A x``, with
+        the hierarchy's sigma shift and Dirichlet rows, on flat vectors."""
+        lv = self.data["levels"][level]
+        lvl = self.levels[level]
+        apply = self._ops["apply"]
+        return lambda x: apply(lv, self._to_work(x, level), lvl).reshape(-1)
 
     def apply(self, b, u):
         """One V-cycle from iterate ``u`` (flat vectors)."""

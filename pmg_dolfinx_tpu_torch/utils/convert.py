@@ -12,6 +12,9 @@ the dofmap levels (``dofmap``, ``G``, ``coeff``, ``D``), with
 `PMGHierarchy.load_state` to run its cycles on the JAX state (the
 calibrated ``lmax`` included), so cycle parity is tested apart from
 calibration parity.
+
+`packed_state_from_numpy` does the same for the serving classes of
+`ops.kron_packed`: it undoes the JAX lane packing of their factors.
 """
 
 import numpy as np
@@ -43,3 +46,39 @@ def hierarchy_data_from_numpy(tree, device, dtype):
     if "fdm" in tree:
         out["fdm"] = _convert(tree["fdm"], device, dtype)
     return out
+
+
+def packed_state_from_numpy(mats, kind, shape, *, device):
+    """The port's serving factors (`ops.kron_packed`) from a JAX packed
+    class's state, as numpy arrays: ``kind='kron'`` takes
+    `PackedKronBatch.mats` (``Ktx``, ``Kty``, ``KZbd``, ``sxy``, ``szrow``)
+    and ``kind='fdm'`` `PackedFDMBatch.mats` (``Vxt``, ``Vx``, ``Vyt``,
+    ``Vy``, ``VZTbd``, ``VZbd``, ``dinv``), each with the class's packed
+    marker under ``bcp``. The lane layout is undone: the ``NYp`` / ``Zp``
+    / ``Bp`` padding is cut off and one diagonal block of each
+    block-diagonal z matrix is kept (``KZbd`` holds ``Ktz^T``, ``VZTbd``
+    ``Vz`` and ``VZbd`` ``Vz^T``). ``shape`` is the lattice
+    ``(NX, NY, NZ)``. The result is the dict the port's class of the same
+    kind builds from the mesh."""
+    from ..ops.kron_packed import fdm_mats, kron_mats
+
+    NX, NY, NZ = shape
+    m = {k: np.asarray(v) for k, v in mats.items()}
+    _, NYp, L = m["bcp"].shape
+    Zp = 32 if NZ <= 32 else 64  # the JAX packing's lanes per slot
+
+    def lattice(a):
+        """Packed ``(NX, NYp, Bp*Zp)`` -> column 0 ``(NX, NY, NZ)``."""
+        return a.reshape(NX, NYp, L // Zp, Zp)[:, :NY, 0, :NZ]
+
+    bc = lattice(m["bcp"])
+    if kind == "kron":
+        return kron_mats(m["Ktx"], m["Kty"][:NY, :NY], m["KZbd"][:NZ, :NZ].T,
+                         m["sxy"][:, :NY], m["szrow"][0, :NZ], bc,
+                         device=device)
+    if kind == "fdm":
+        return fdm_mats(m["Vxt"], m["Vx"], m["Vyt"][:NY, :NY],
+                        m["Vy"][:NY, :NY], m["VZTbd"][:NZ, :NZ].T,
+                        m["VZbd"][:NZ, :NZ].T, lattice(m["dinv"]), bc,
+                        device=device)
+    raise ValueError(f"kind must be 'kron' or 'fdm', got {kind!r}")

@@ -3,9 +3,10 @@
 - `pmg_dolfinx_tpu_torch` and every submodule import without pulling in
   `jax` or the JAX package (checked in a fresh interpreter), the
   general-hex modules by name too.
-- On CPU tensors the blocked-apply wrappers (Kronecker and lattice) run
-  the plain torch versions; on any other non-CUDA device they raise
-  instead of falling back.
+- On CPU tensors the kernel wrappers (blocked Kronecker, lattice, and
+  the serving apply and solve of `ops.kron_packed`) run the plain torch
+  versions; on any other non-CUDA device they raise instead of falling
+  back.
 - The kernel loaders raise a clear error when there is no CUDA device or
   no ``nvcc``; they never hand back a stand-in.
 """
@@ -21,6 +22,7 @@ torch.set_num_threads(1)
 
 from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, PerturbedBoxMesh  # noqa: E402
 from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb  # noqa: E402
+from pmg_dolfinx_tpu_torch.ops import kron_packed as kp  # noqa: E402
 from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb  # noqa: E402
 from pmg_dolfinx_tpu_torch.ops.kron import axis_stiffness_mass  # noqa: E402
 
@@ -48,7 +50,8 @@ def test_port_imports_no_jax():
 
 _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "ops.interpolate", "ops.lattice", "ops.lattice_blocked",
-                "solvers.pmg", "utils.convert")
+                "ops.kron_packed", "solvers.pmg", "solvers.cg",
+                "solvers.fdm", "solvers.transient", "utils.convert")
 
 
 def test_general_hex_modules_import_no_jax():
@@ -145,3 +148,42 @@ def test_lattice_loader_raises_without_cuda_or_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         lb.load_kernels()
     assert lb._lib is None
+
+
+def _packed_operands():
+    mesh = BoxMesh((2, 3, 2))
+    op = kp.PackedKronBatch(mesh, 2, B=2, sigma=0.5, device="cpu")
+    fdm = kp.PackedFDMBatch(mesh, 2, B=2, device="cpu")
+    x = torch.randn((2,) + mesh.lattice_shape(2),
+                    generator=torch.Generator().manual_seed(0))
+    return op, fdm, x
+
+
+def test_packed_cpu_tensors_run_the_plain_version():
+    op, fdm, x = _packed_operands()
+    before = dict(kp.LAUNCHES)
+    assert torch.equal(op.apply_packed(x),
+                       kp.plain_packed_apply(x, op.mats, 0.5))
+    assert torch.equal(fdm.solve_packed(x), kp.plain_packed_fdm(x, fdm.mats))
+    assert kp.LAUNCHES == before  # no kernel ran
+
+
+def test_packed_non_cuda_device_raises_instead_of_falling_back():
+    op, fdm, x = _packed_operands()
+    xm = torch.empty(x.shape, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kp.packed_apply(xm, op.mats)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kp.packed_fdm(xm, fdm.mats)
+
+
+def test_packed_loader_raises_without_cuda_or_nvcc(monkeypatch):
+    monkeypatch.setattr(kp, "_lib", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="need a CUDA device"):
+        kp.load_kernels()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(kp, "_find_nvcc", lambda: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kp.load_kernels()
+    assert kp._lib is None
