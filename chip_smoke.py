@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, builds the port's CUDA kernels from
-its sources and drives the flagship solve, the curved-hex solve and the
-serving (transient) steppers through them. Every phase raises on failure; nothing is caught.
+its sources and drives the flagship solve (unfused and with the fused
+Chebyshev smoother, the refined, W-cycle and FMG modes), the curved-hex
+solve and the serving (transient) steppers through them. Every phase
+raises on failure; nothing is caught.
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch,
    CUDA and nvcc versions. Fails when ``torch.cuda.is_available()`` is
@@ -17,12 +19,32 @@ serving (transient) steppers through them. Every phase raises on failure; nothin
    253^3), seeded inputs, sigma in {0, 0.5}; relative max-norm error
    <= 1e-5 (float32, different summation order). Both timed with CUDA
    events.
+3b. Full-bc kernel parity: kernels #4-#7 (``kron_t1``, ``kron_t23``
+   apply/residual, ``kron_t23_cheb`` init and loop steps) on a
+   non-separable Dirichlet marker (the box faces plus ~1% of the interior
+   dofs), sigma in {0, 0.5}, at 127^3 and 253^3; relative max-norm error
+   <= 1e-5 against the plain torch versions, CUDA-event times in turns.
+   At 253^3 the ops entry points ``blocked_kron_apply``,
+   ``blocked_kron_residual`` and ``blocked_kron_cheb4`` run between a reset
+   and a read of the launch counts: each of the four kernels must launch.
 4. Main path: ``PoissonProblem(nc=(42,42,42), degrees=(1,3,6), kappa=2,
    float32, coarse="fdm", operator="kron_blocked")`` — 10 stationary
    V-cycles (the residual falls on each of the first 4) and FCG(V) to
    rtol 1e-6 within 50 iterations; every kernel's launch count must rise
    during this phase. Also times the V-cycle of the plain torch
    ``operator="kron"`` hierarchy at the same size.
+4b. The fused main path: ``PMGHierarchy(fuse_smoother=True)`` on phase
+   4's mesh and rhs (16,194,277 dofs): 10 stationary cycles (the residual
+   falls on each of the first 4), FCG(V) to rtol 1e-6 within one
+   iteration of phase 4's count, the FCG solution within 1e-3 relative of
+   phase 4's; kernels #4 and #7 must launch. V-cycle ms fused against
+   unfused in turns, and a `torch.profiler` breakdown of one V-cycle of
+   each.
+4c. ``solve_refined`` on the fused hierarchy: the f64 relative residual
+   falls below 1e-8 within 20 cycles (trajectory printed).
+4d. At nc=21 (2,048,383 dofs), fused: the W-cycle (``gamma=2``) ends
+   below the V-cycle after 6 cycles (f64 residuals of `solve_refined`),
+   and ``solve(fmg=True)``'s first residual is below the zero start's.
 5. In-card reference: the same problem at nc=21 with ``operator="kron"``
    (plain torch) and ``"kron_blocked"``, the second run with the first
    one's calibrated smoother bounds: residual trajectories agree to
@@ -73,7 +95,9 @@ serving (transient) steppers through them. Every phase raises on failure; nothin
    ``operator="lattice"``, ``coarse="cg"``, CN, 5 steps: FCG counts per
    step, finite state.
 
-Prints a ``{"kernels": [...]}`` JSON line and, only when every phase
+Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
+path, error, time, plain time, and its bound: bytes over 3.35 TB/s or
+f32 operations over 67 TFLOP/s, the larger) and, only when every phase
 passed, the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -94,6 +118,10 @@ SOURCES = {
     "t1_m": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
     "t23_m": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
     "t23_res_m": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
+    "t1": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
+    "t23": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
+    "t23_res": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
+    "t23_cheb": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
     "lattice_apply": "pmg_dolfinx_tpu_torch/csrc/lattice_blocked.cu",
     "lattice_apply_geom": "pmg_dolfinx_tpu_torch/csrc/lattice_blocked.cu",
     "packed_apply": "pmg_dolfinx_tpu_torch/csrc/kron_packed.cu",
@@ -103,6 +131,10 @@ TPU_KERNELS = {
     "t1_m": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:125",
     "t23_m": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:149",
     "t23_res_m": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:185",
+    "t1": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:70",
+    "t23": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:90",
+    "t23_res": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:264",
+    "t23_cheb": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:219",
     "lattice_apply": ("pmg_dolfinx_tpu/ops/pallas_lattice_blocked.py:117 "
                       "(_kernel_lattice_yx 'yexp'; also :69 _kernel_lattice "
                       "'v1' and :220 _kernel_lattice_ym 'ym')"),
@@ -115,7 +147,14 @@ TPU_KERNELS = {
 }
 KERNEL_RTOL = 1e-5
 REF_TRAJ_FROM = 5e-3
+# Fused against unfused Chebyshev at the same lmax: the CPU tests' gate
+# of the fused hierarchy against the JAX one.
+FUSED_TRAJ_RTOL = 1e-4
 SEED = 1234
+# The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
+# and float32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def phase(name):
@@ -125,6 +164,16 @@ def phase(name):
 
 def done(t0):
     print(f"    phase seconds: {time.perf_counter() - t0:.2f}", flush=True)
+
+
+def traj_diff(rel, rel_ref):
+    """Max relative difference of two residual trajectories over the
+    cycles where ``rel_ref`` is above `REF_TRAJ_FROM`."""
+    import numpy as np
+
+    rel, rel_ref = np.asarray(rel), np.asarray(rel_ref)
+    keep = rel_ref > REF_TRAJ_FROM
+    return float(np.max(np.abs(rel[keep] - rel_ref[keep]) / rel_ref[keep]))
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -180,6 +229,8 @@ def kernel_parity(nc, P, kappa=2.0):
                      device="cuda")
     r = torch.tensor(rng.standard_normal(shape, dtype=np.float32),
                      device="cuda")
+    bc = torch.tensor(mesh.boundary_dof_marker(P).reshape(shape),
+                      device="cuda")
     out = {}
     for sigma in (0.0, 0.5):
         t1_ref = kb.plain_t1_m(x, mats)
@@ -204,9 +255,10 @@ def kernel_parity(nc, P, kappa=2.0):
             out[name] = (max(prev[0], abs_err), prev[1], prev[2])
         # Whole entry points: apply = kernels 1+2, residual = kernels 1+3.
         for name, got, ref in (
-                ("apply", kb.blocked_kron_apply(x, mats, sigma=sigma),
+                ("apply", kb.blocked_kron_apply(x, bc, mats, sigma=sigma),
                  kb.plain_apply_m(x, mats, sigma)),
-                ("residual", kb.blocked_kron_residual(r, x, mats, sigma=sigma),
+                ("residual", kb.blocked_kron_residual(r, x, bc, mats,
+                                                      sigma=sigma),
                  kb.plain_residual_m(r, x, mats, sigma))):
             torch.cuda.synchronize()
             err = rel_max_err(got, ref)
@@ -234,13 +286,162 @@ def kernel_parity(nc, P, kappa=2.0):
               f"({k1:.4f}, {k2:.4f}) vs plain {ms_p:.4f} ms "
               f"({p1:.4f}, {p2:.4f})")
         out[name] = (out[name][0], ms_k, ms_p)
-    apply_k = cuda_ms(lambda: kb.blocked_kron_apply(x, mats))
+    apply_k = cuda_ms(lambda: kb.blocked_kron_apply(x, bc, mats))
     apply_p = cuda_ms(lambda: kb.plain_apply_m(x, mats))
     ndofs = x.numel()
     print(f"    {shape} apply: kernels {apply_k:.4f} ms "
           f"({ndofs / apply_k / 1e6:.3f} GDOF/s) vs plain {apply_p:.4f} ms "
           f"({ndofs / apply_p / 1e6:.3f} GDOF/s)")
     return out
+
+
+def kernel_bound(name, N, P, nc=None, B=None, dims=None):
+    """The least time (ms) the card could take for one launch of kernel
+    ``name`` at the shape its ``ms`` was measured on, and what bounds it:
+    the larger of its bytes (each input read once, each output written
+    once) over the HBM rate and its float32 operations (band-limited sums
+    as the kernels run them) over the f32 peak. ``N`` is the lattice's
+    dofs, ``P`` the degree (band half-width), ``nc`` the cells per axis
+    (lattice kernels), ``B`` the batch and ``dims`` the lattice extents
+    (serving kernels)."""
+    D = 2 * P + 1
+    n = P + 1
+    if name in ("t1_m", "t1", "t23_m", "t23", "t23_res_m", "t23_res",
+                "t23_cheb"):
+        lattices = {"t1_m": (1, 1), "t1": (1, 1), "t23_m": (2, 1),
+                    "t23": (2, 1), "t23_res_m": (3, 1), "t23_res": (3, 1),
+                    "t23_cheb": (5, 3)}[name]     # f32 (reads, writes)
+        marker = 0 if name.endswith("_m") else 1  # the 1-byte bc lattice
+        nbytes = 4 * N * sum(lattices) + marker * N
+        flops = {"t1_m": 2 * D + 2, "t1": 2 * D + 1, "t23_m": 4 * D + 10,
+                 "t23": 4 * D + 8, "t23_res_m": 4 * D + 11,
+                 "t23_res": 4 * D + 9, "t23_cheb": 4 * D + 14}[name] * N
+    elif name in ("lattice_apply", "lattice_apply_geom"):
+        cells = nc[0] * nc[1] * nc[2]
+        Q = cells * n**3
+        geom = 24 * Q if name == "lattice_apply" else 4 * 37 * cells
+        nbytes = 9 * N + geom
+        flops = (12 * n + 15 + (120 if name == "lattice_apply_geom" else 0)) * Q
+    elif name == "packed_apply":
+        nbytes = 8 * B * N + N
+        flops = (6 * D + 4) * B * N
+    elif name == "packed_fdm":
+        nbytes = 8 * B * N + 5 * N
+        flops = (4 * sum(dims) + 1) * B * N
+    else:
+        raise KeyError(name)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def full_bc_parity(nc, P, kappa=2.0, path=False):
+    """Phase 3b at one size: the full-bc kernels #4-#7 on a non-separable
+    marker (the box faces plus ~1% of the interior dofs) against their
+    plain versions, sigma in {0, 0.5}; returns ({kernel: (max_abs_err, ms,
+    plain_ms)}, launches). With ``path``, the ops entry points
+    (`blocked_kron_apply`, `blocked_kron_residual`, `blocked_kron_cheb4`)
+    run as a user calls them, between a reset and a read of the launch
+    counts; ``launches`` is that read (else None)."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops.kron import axis_stiffness_mass, kron_diagonal
+
+    mesh = BoxMesh((nc, nc, nc))
+    shape = mesh.lattice_shape(P)
+    Ks, ms = [], []
+    for nc_a, h_a in zip(mesh.nc, mesh.h_cells):
+        K, m = axis_stiffness_mass(nc_a, P, h_a)
+        Ks.append(torch.tensor(kappa * K, dtype=torch.float32, device="cuda"))
+        ms.append(torch.tensor(m, dtype=torch.float32, device="cuda"))
+    mats = kb.symmetrized_mats(Ks, ms, band=P, device="cuda")
+    rng = np.random.default_rng(SEED + 7 * nc)
+    bc_np = (mesh.boundary_dof_marker(P).reshape(shape)
+             | (rng.random(shape) < 0.01))
+    if kb.checked_face_masks(mesh, P, bc_np) is not None:
+        raise AssertionError("the phase-3b marker must not be separable")
+    bc = torch.tensor(bc_np, device="cuda")
+    x, r, b = (torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device="cuda") for _ in range(3))
+    dinv = 1.0 / kron_diagonal(Ks, ms, bc.reshape(-1)).reshape(shape)
+    lmax = torch.tensor(2.2, dtype=torch.float32, device="cuda")
+    out = {k: [0.0, None, None] for k in ("t1", "t23", "t23_res", "t23_cheb")}
+
+    def check(name, tag, got, ref):
+        torch.cuda.synchronize()
+        err = rel_max_err(got, ref)
+        out[name][0] = max(out[name][0], float((got - ref).abs().max()))
+        print(f"    {shape} P={P} {tag}: rel max err {err:.3e}")
+        if not err <= KERNEL_RTOL:
+            raise AssertionError(f"{tag} at {shape}: relative max-norm error "
+                                 f"{err:.3e} > {KERNEL_RTOL}")
+
+    for sigma in (0.0, 0.5):
+        t1_x = kb.plain_t1(x, bc, mats)
+        init = kb.plain_cheb_step(x, bc, x, b, dinv,
+                                  kb.cheb_coefs(lmax, 0, torch.float32, "cuda"),
+                                  mats, sigma, t1=t1_x)
+        t1_z = kb.plain_t1(init[2], bc, mats)
+        loop = kb.plain_cheb_step(init[2], bc, init[0], init[1], dinv,
+                                  kb.cheb_coefs(lmax, 1, torch.float32, "cuda"),
+                                  mats, sigma, t1=t1_z)
+        tag = f"sigma={sigma}"
+        check("t1", f"{tag} t1", kb.kron_t1(x, bc, mats), t1_x)
+        check("t23", f"{tag} t23", kb.kron_t23(x, bc, t1_x, mats, sigma),
+              kb.plain_t23(x, bc, t1_x, mats, sigma))
+        check("t23_res", f"{tag} t23_res",
+              kb.kron_t23(x, bc, t1_x, mats, sigma, r3=r),
+              r - kb.plain_t23(x, bc, t1_x, mats, sigma))
+        got = kb.kron_t23_cheb(x, bc, t1_x, mats, x, b, dinv, lmax, 0, sigma)
+        for part, g, w in zip("xrz", got, init):
+            check("t23_cheb", f"{tag} t23_cheb init {part}'", g, w)
+        got = kb.kron_t23_cheb(init[2], bc, t1_z, mats, init[0], init[1],
+                               dinv, lmax, 1, sigma)
+        for part, g, w in zip("xrz", got, loop):
+            check("t23_cheb", f"{tag} t23_cheb loop {part}'", g, w)
+    plain = {
+        "t1": lambda: kb.plain_t1(x, bc, mats),
+        "t23": lambda: kb.plain_t23(x, bc, t1_x, mats),
+        "t23_res": lambda: r - kb.plain_t23(x, bc, t1_x, mats),
+        "t23_cheb": lambda: kb.plain_cheb_step(
+            init[2], bc, init[0], init[1], dinv,
+            kb.cheb_coefs(lmax, 1, torch.float32, "cuda"), mats, t1=t1_z),
+    }
+    kern = {
+        "t1": lambda: kb.kron_t1(x, bc, mats),
+        "t23": lambda: kb.kron_t23(x, bc, t1_x, mats),
+        "t23_res": lambda: kb.kron_t23(x, bc, t1_x, mats, r3=r),
+        "t23_cheb": lambda: kb.kron_t23_cheb(init[2], bc, t1_z, mats,
+                                             init[0], init[1], dinv, lmax, 1),
+    }
+    for name in kern:
+        ms_k, ms_p, four = turns(plain[name], kern[name])
+        print(f"    {shape} P={P} {name}: kernel {ms_k:.4f} ms vs plain "
+              f"{ms_p:.4f} ms (turns {[round(t, 4) for t in four]})")
+        out[name][1:] = [ms_k, ms_p]
+    launches = None
+    if path:
+        for k in kb.LAUNCHES:
+            kb.LAUNCHES[k] = 0
+        y = kb.blocked_kron_apply(x, bc, mats)
+        rr = kb.blocked_kron_residual(r, x, bc, mats)
+        xc = kb.blocked_kron_cheb4(b, x, bc, mats, dinv, lmax, 2)
+        torch.cuda.synchronize()
+        launches = dict(kb.LAUNCHES)
+        print(f"    entry points on the non-separable marker: launches "
+              f"{launches}")
+        if not all(launches[k] > 0 for k in out):
+            raise AssertionError(f"a full-bc kernel was not launched: "
+                                 f"{launches}")
+        check("t23", "blocked_kron_apply", y, kb.plain_apply(x, bc, mats))
+        check("t23_res", "blocked_kron_residual", rr,
+              kb.plain_residual(r, x, bc, mats))
+        check("t23_cheb", "blocked_kron_cheb4 (2 iterations)", xc,
+              kb.plain_cheb4(b, x, bc, mats, dinv, lmax, 2))
+    return {k: tuple(v) for k, v in out.items()}, launches
 
 
 def turns(plain, kern):
@@ -683,6 +884,147 @@ def curved_stepper():
         raise AssertionError(f"curved stepper: iterations {iters}")
 
 
+def fused_path(prob, hier, rel_ref, u_ref, niter_ref, cfg, launches):
+    """Phase 4b: the slice's path, ``PMGHierarchy(fuse_smoother=True)`` on
+    phase 4's mesh and rhs; compared with phase 4's unfused hierarchy, its
+    stationary residual trajectory ``rel_ref`` and FCG solution. Adds the
+    launches of kernels #4 and #7 to ``launches``."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    for k in kb.LAUNCHES:
+        kb.LAUNCHES[k] = 0
+    ts = time.perf_counter()
+    fused = PMGHierarchy(prob.mesh, operator="kron_blocked",
+                         fuse_smoother=True, **cfg)
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f}  (lmax per "
+          f"level {[float(lv['lmax']) for lv in fused.data['levels']]}; "
+          "unfused "
+          f"{[float(lv['lmax']) for lv in hier.data['levels']]})")
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    ts = time.perf_counter()
+    _, rn = fused.solve(prob.b, num_cycles=10)
+    rel = [r / r0 for r in rn]
+    print(f"    10 cycles ({time.perf_counter() - ts:.3f} s host clock): rel "
+          f"{[f'{v:.4e}' for v in rel]}")
+    hist = [1.0] + rel
+    if not all(hist[i + 1] < hist[i] for i in range(4)):
+        raise AssertionError(f"residual did not fall on cycles 1-4: {rel}")
+    # Both hierarchies calibrate to the same lmax, so the two smoothers
+    # differ only by f32 rounding above the stall floor.
+    traj = traj_diff(rel, rel_ref)
+    print(f"    fused vs unfused trajectory max rel diff (cycles above "
+          f"{REF_TRAJ_FROM:g}): {traj:.3e}")
+    if not traj <= FUSED_TRAJ_RTOL:
+        raise AssertionError(f"fused and unfused trajectories differ: {traj}")
+    ts = time.perf_counter()
+    u, niter = fused.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    pcg_s = time.perf_counter() - ts
+    main = dict(kb.LAUNCHES)
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} ({pcg_s:.3f} s host "
+          f"clock; unfused {niter_ref}); kernel launches on this path: {main}")
+    if not (main["t1"] > 0 and main["t23_cheb"] > 0):
+        raise AssertionError(f"the fused kernels were not launched: {main}")
+    launches.update(t1=main["t1"], t23_cheb=main["t23_cheb"])
+    if abs(niter - niter_ref) > 1:
+        raise AssertionError(f"FCG counts differ: {niter} vs {niter_ref}")
+    if tuple(u.shape) != tuple(u_ref.shape) or not bool(
+            torch.isfinite(u).all()):
+        raise AssertionError("fused solution is not a finite vector of ndofs")
+    du = float(torch.linalg.vector_norm(u - u_ref)
+               / torch.linalg.vector_norm(u_ref))
+    print(f"    fused vs unfused FCG solution: relative difference {du:.3e}")
+    if not du <= 1e-3:
+        raise AssertionError(f"fused and unfused solutions differ: {du}")
+    # unfused, fused, fused, unfused: compare within this call only.
+    t_u1, _ = vcycle_ms(hier)
+    t_f1, all_f1 = vcycle_ms(fused)
+    t_f2, all_f2 = vcycle_ms(fused)
+    t_u2, _ = vcycle_ms(hier)
+    print(f"    V-cycle: fused {(t_f1 + t_f2) / 2:.3f} ms ({t_f1:.3f}, "
+          f"{t_f2:.3f}; reps {[round(t, 3) for t in all_f1 + all_f2]}) vs "
+          f"unfused {(t_u1 + t_u2) / 2:.3f} ms ({t_u1:.3f}, {t_u2:.3f}); 10 "
+          "back-to-back, median of 3, in turns unfused/fused/fused/unfused")
+    b1 = torch.ones(fused.levels[-1].ndofs, dtype=torch.float32,
+                    device="cuda")
+    u0 = torch.zeros_like(b1)
+    for tag, h in (("fused", fused), ("unfused", hier)):
+        h.apply(b1, u0)
+        wall, busy, nk, by_name = profile_busy(lambda: h.apply(b1, u0))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])
+        print(f"    profile, one {tag} V-cycle: wall {wall:.3f} ms, device "
+              f"busy {busy:.3f} ms, {nk} kernels, idle "
+              f"{max(0.0, 1 - busy / wall):.1%}")
+        for kname, ms in top[:10]:
+            print(f"      {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
+    return fused, u
+
+
+def refined_path(fused, b):
+    """Phase 4c: ``solve_refined`` on the fused hierarchy, to < 1e-8
+    relative f64 residual within 20 cycles."""
+    import torch
+
+    ts = time.perf_counter()
+    u64, rn = fused.solve_refined(b, num_cycles=20)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - ts
+    r0 = float(torch.linalg.vector_norm(b.double()))
+    rel = [r / r0 for r in rn]
+    print(f"    20 refinement cycles: {secs:.2f} s host clock (the f64 "
+          "Kronecker apply built on first use included)")
+    print(f"    f64 relative residual before each cycle: "
+          f"{[f'{v:.3e}' for v in rel]}")
+    if u64.dtype != torch.float64 or not bool(torch.isfinite(u64).all()):
+        raise AssertionError("solve_refined did not return a finite f64 vector")
+    if not min(rel) < 1e-8:
+        raise AssertionError(f"solve_refined stalled at {min(rel):.3e}")
+
+
+def cycle_modes(cfg):
+    """Phase 4d: at nc=21 the fused W-cycle against the fused V-cycle (f64
+    residuals of 7 `solve_refined` cycles: the f32 stationary residual
+    stalls near 2.4e-4 at this size) and the FMG start against the zero
+    start."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import f_rhs
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    mesh = BoxMesh((21, 21, 21))
+    b = torch.tensor(assemble_rhs(mesh, 6, f_rhs(2.0)), dtype=torch.float32,
+                     device="cuda")
+    r0 = float(torch.linalg.vector_norm(b))
+    hv = PMGHierarchy(mesh, operator="kron_blocked", fuse_smoother=True, **cfg)
+    hw = PMGHierarchy(mesh, operator="kron_blocked", fuse_smoother=True,
+                      coarse_cfg={"gamma": 2}, **cfg)
+    _, sv = hv.solve(b, num_cycles=6)
+    _, sw = hw.solve(b, num_cycles=6)
+    print(f"    stationary f32 rel, V: {[f'{v / r0:.3e}' for v in sv]}")
+    print(f"    stationary f32 rel, W: {[f'{v / r0:.3e}' for v in sw]}")
+    _, rv = hv.solve_refined(b, num_cycles=7)
+    _, rw = hw.solve_refined(b, num_cycles=7)
+    print(f"    refined f64 rel, V: {[f'{v / r0:.3e}' for v in rv]}")
+    print(f"    refined f64 rel, W: {[f'{v / r0:.3e}' for v in rw]}")
+    if not rw[-1] < rv[-1]:
+        raise AssertionError(f"the W-cycle did not end below the V-cycle: "
+                             f"{rw[-1]} vs {rv[-1]}")
+    print(f"    cycle ms: V {vcycle_ms(hv)[0]:.3f}, W {vcycle_ms(hw)[0]:.3f}")
+    _, rz = hv.solve(b, num_cycles=3)
+    _, rf = hv.solve(b, num_cycles=3, fmg=True)
+    print(f"    solve from zero rel {[f'{v / r0:.3e}' for v in rz]}; from the "
+          f"FMG guess {[f'{v / r0:.3e}' for v in rf]}")
+    if not rf[0] < rz[0]:
+        raise AssertionError(f"FMG start not below the zero start: {rf[0]} "
+                             f"vs {rz[0]}")
+
+
 def main():
     import numpy as np
     import torch
@@ -733,6 +1075,16 @@ def main():
     main_shape = kernel_parity(42, 6)
     done(t0)
 
+    t0 = phase("3b. full-bc kernels #4-#7 vs plain torch, non-separable "
+               "marker")
+    full_bc_parity(21, 6)
+    # 127^3 at band 3 is the shape of the main path's p=3 level.
+    band3, _ = full_bc_parity(42, 3)
+    full_bc, launches = full_bc_parity(42, 6, path=True)
+    main_shape.update({k: (max(v[0], band3[k][0]),) + v[1:]
+                       for k, v in full_bc.items()})
+    done(t0)
+
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
     from pmg_dolfinx_tpu_torch.models.poisson import PoissonProblem
     from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
@@ -764,7 +1116,8 @@ def main():
     u, niter = hier.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
     torch.cuda.synchronize()
     pcg_s = time.perf_counter() - ts
-    launches = dict(kb.LAUNCHES)
+    launches.update({k: v for k, v in kb.LAUNCHES.items()
+                     if k.endswith("_m")})
     print(f"    FCG(V) iterations to rtol 1e-6: {niter} ({pcg_s:.3f} s host "
           "clock)")
     if not niter < 50:
@@ -772,9 +1125,9 @@ def main():
     if tuple(u.shape) != (prob.mesh.num_dofs(6),) or not bool(
             torch.isfinite(u).all()):
         raise AssertionError("solution is not a finite vector of ndofs")
-    print(f"    kernel launches on the main path: {launches}")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    print(f"    kernel launches on the main path: {dict(kb.LAUNCHES)}")
+    if not all(kb.LAUNCHES[k] > 0 for k in ("t1_m", "t23_m", "t23_res_m")):
+        raise AssertionError(f"a kernel was not launched: {kb.LAUNCHES}")
     vc_blk, vc_blk_all = vcycle_ms(hier)
     print(f"    V-cycle {vc_blk:.3f} ms (kron_blocked kernels; 10 "
           f"back-to-back, 3 reps {[round(t, 3) for t in vc_blk_all]})")
@@ -784,7 +1137,6 @@ def main():
           f"({time.perf_counter() - ts:.1f} s host)")
     if not err < 1e-4:
         raise AssertionError(f"L2 error {err} too large")
-    del prob, u
     ts = time.perf_counter()
     plain_hier = PMGHierarchy(BoxMesh((42, 42, 42)), operator="kron", **cfg)
     torch.cuda.synchronize()
@@ -796,49 +1148,81 @@ def main():
     del plain_hier
     vc_blk2, _ = vcycle_ms(hier)
     print(f"    V-cycle again {vc_blk2:.3f} ms (kron_blocked)")
-    del hier
     done(t0)
 
-    t0 = phase("5. in-card reference: nc=21, kron (plain) vs kron_blocked")
+    t0 = phase("4b. fused main path: 16.2M dofs, kron_blocked + fdm, "
+               "fuse_smoother=True")
+    fused, u_fused = fused_path(prob, hier, rel, u, niter, cfg, launches)
+    done(t0)
+
+    t0 = phase("4c. solve_refined on the fused hierarchy: f64 outer "
+               "residual, 16.2M dofs")
+    refined_path(fused, prob.b)
+    del prob, u, hier, fused, u_fused
+    done(t0)
+
+    t0 = phase("4d. W-cycle and FMG at nc=21 (2,048,383 dofs), fused")
+    cycle_modes(cfg)
+    done(t0)
+
+    t0 = phase("5. in-card reference: nc=21, kron (plain) vs kron_blocked, "
+               "unfused and fused")
     res = {}
     lmax = None
-    for op in ("kron", "kron_blocked"):
-        prob = PoissonProblem(nc=(21, 21, 21), operator=op, **cfg)
-        levels = prob.hierarchy.data["levels"]
-        print(f"    {op}: own calibration lmax "
+    for tag in ("kron", "kron_blocked", "kron_blocked fused"):
+        op, fuse = tag.split()[0], tag.endswith("fused")
+        if not fuse:
+            prob = PoissonProblem(nc=(21, 21, 21), operator=op, **cfg)
+            h = prob.hierarchy
+        else:
+            # The fused smoother on every level (p=6 at band 6 and p=3 at
+            # band 3), on the unfused run's mesh and rhs.
+            h = PMGHierarchy(prob.mesh, operator=op, fuse_smoother=True,
+                             **cfg)
+        levels = h.data["levels"]
+        print(f"    {tag}: own calibration lmax "
               f"{[float(lv['lmax']) for lv in levels]}")
         if lmax is None:
             lmax = [lv["lmax"] for lv in levels]
         else:
-            # Run both cycles with the same smoother bounds, so the
+            # Run every cycle with the same smoother bounds, so the
             # comparison sees the operators and not two f32 calibrations.
-            prob.hierarchy.load_state(
-                {"levels": [{"lmax": v} for v in lmax]})
+            h.load_state({"levels": [{"lmax": v} for v in lmax]})
         r0 = float(torch.linalg.vector_norm(prob.b))
-        _, rn = prob.solve(num_cycles=10)
-        u, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
-        res[op] = (np.array(rn) / r0, niter, u, prob.error_l2(u),
-                   vcycle_ms(prob.hierarchy)[0])
-        print(f"    {op}: rel {[f'{v:.3e}' for v in res[op][0]]}, FCG "
-              f"{niter}, L2 {res[op][3]:.4e}, V-cycle {res[op][4]:.3f} ms")
-    (rk, nk, uk, _, _), (rb, nb, ub, _, _) = res["kron"], res["kron_blocked"]
+        _, rn = h.solve(prob.b, num_cycles=10)
+        u, niter = h.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+        res[tag] = (np.array(rn) / r0, niter, u, prob.error_l2(u),
+                    vcycle_ms(h)[0])
+        print(f"    {tag}: rel {[f'{v:.3e}' for v in res[tag][0]]}, FCG "
+              f"{niter}, L2 {res[tag][3]:.4e}, V-cycle {res[tag][4]:.3f} ms")
+    rk, nk, uk, _, _ = res["kron"]
     # The f32 residual stalls near 2.4e-4 relative at this size; within
     # ~20x of that floor the two operators' roundings alone move the
     # residual by ~1e-3, so the trajectories are compared above 5e-3.
-    keep = rk > REF_TRAJ_FROM
-    traj = float(np.max(np.abs(rb[keep] - rk[keep]) / rk[keep]))
-    print(f"    trajectory max rel diff (cycles above {REF_TRAJ_FROM:g}): "
+    for tag in ("kron_blocked", "kron_blocked fused"):
+        rb, nb, ub, _, _ = res[tag]
+        traj = traj_diff(rb, rk)
+        print(f"    {tag} vs kron: trajectory max rel diff (cycles above "
+              f"{REF_TRAJ_FROM:g}): {traj:.3e}")
+        if not traj <= 1e-3:
+            raise AssertionError(f"{tag}: trajectories differ: {traj}")
+        if abs(nk - nb) > 1:
+            raise AssertionError(f"{tag}: FCG counts differ: {nk} vs {nb}")
+        # The L2 error of an f32 solve at p=6 is the operator's f32
+        # rounding (the discretization error is ~1e-11), so compare the
+        # solutions.
+        du = float(torch.linalg.vector_norm(ub - uk)
+                   / torch.linalg.vector_norm(uk))
+        print(f"    {tag} vs kron: FCG solutions relative difference "
+              f"{du:.3e}")
+        if not du <= 1e-3:
+            raise AssertionError(f"{tag}: FCG solutions differ: {du}")
+    traj = traj_diff(res["kron_blocked fused"][0], res["kron_blocked"][0])
+    print(f"    fused vs unfused kron_blocked: trajectory max rel diff "
           f"{traj:.3e}")
-    if not traj <= 1e-3:
-        raise AssertionError(f"trajectories differ: {traj}")
-    if abs(nk - nb) > 1:
-        raise AssertionError(f"FCG counts differ: {nk} vs {nb}")
-    # The L2 error of an f32 solve at p=6 is the operator's f32 rounding
-    # (the discretization error is ~1e-11), so compare the solutions.
-    du = float(torch.linalg.vector_norm(ub - uk) / torch.linalg.vector_norm(uk))
-    print(f"    FCG solutions: relative difference {du:.3e}")
-    if not du <= 1e-3:
-        raise AssertionError(f"FCG solutions differ: {du}")
+    if not traj <= FUSED_TRAJ_RTOL:
+        raise AssertionError(f"fused and unfused trajectories differ: {traj}")
+    del prob, h
     done(t0)
 
     from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
@@ -957,8 +1341,7 @@ def main():
               f"{niter}, L2 {res[op][3]:.4e}, V-cycle {res[op][4]:.3f} ms")
     (rk, nk, uk, _, _), (rb, nb, ub, _, _) = (res["lattice"],
                                               res["lattice_blocked"])
-    keep = rk > REF_TRAJ_FROM
-    traj = float(np.max(np.abs(rb[keep] - rk[keep]) / rk[keep]))
+    traj = traj_diff(rb, rk)
     print(f"    trajectory max rel diff (cycles above {REF_TRAJ_FROM:g}): "
           f"{traj:.3e}")
     if not traj <= 1e-3:
@@ -991,13 +1374,24 @@ def main():
     print(f"    peak host RSS {peak_rss_gb():.1f} GB")
     done(t0)
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": TPU_KERNELS[name], "launches": launches[name],
-         "max_abs_err": main_shape[name][0], "ms": main_shape[name][1],
-         "plain_ms": main_shape[name][2]}
-        for name in SOURCES
-    ]
+    kernels = []
+    for name in SOURCES:
+        if name.startswith("lattice"):
+            bound, by = kernel_bound(name, 253**3, 6, nc=(42, 42, 42))
+        elif name.startswith("packed"):
+            bound, by = kernel_bound(name, 61**3, PACKED_P, B=8,
+                                     dims=(61, 61, 61))
+        else:
+            bound, by = kernel_bound(name, 253**3, 6)
+        kernels.append(
+            {"name": name, "route": "cuda", "source": SOURCES[name],
+             "replaces": TPU_KERNELS[name], "launches": launches[name],
+             "max_abs_err": main_shape[name][0], "ms": main_shape[name][1],
+             "plain_ms": main_shape[name][2], "bound_ms": bound,
+             "bound_by": by, "library_ms": None})
+        print(f"    {name}: {main_shape[name][1]:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), {bound / main_shape[name][1]:.0%} "
+              "of the bound's rate")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,14 @@ the timing table and a final JSON line.
         --coarse fdm --operator kron_blocked --pcg
     python examples/pmg_torch.py --ndofs 16000000 --degrees 1 3 6 \\
         --mesh perturbed --coarse cg --pcg
+    python examples/pmg_torch.py --ndofs 2000000 --degrees 1 3 6 \\
+        --coarse fdm --operator kron_blocked --refined --fmg
+
+``--gamma 2`` runs W-cycles, ``--fmg`` starts from the full-multigrid
+guess, ``--refined`` wraps the working-dtype V-cycle in float64
+iterative refinement, ``--fdm`` solves directly by fast diagonalization
+(with ``--refined``: f64 refinement around it), ``--smoother-iters``
+sets the Chebyshev iterations per smoothing pass.
 
 ``--operator kron_blocked`` and ``lattice_blocked`` run the hand-written
 CUDA kernels (`pmg_dolfinx_tpu_torch/csrc/`, float32); ``kron``,
@@ -82,8 +90,20 @@ def main():
     p.add_argument("--cycles", type=int, default=10)
     p.add_argument("--coarse", choices=["smoother", "cg", "fdm"],
                    default="cg")
+    p.add_argument("--smoother-iters", type=int, default=2,
+                   help="Chebyshev iterations per smoothing pass")
+    p.add_argument("--gamma", type=int, default=1,
+                   help="cycle index: 1 = V-cycle, 2 = W-cycle")
+    p.add_argument("--refined", action="store_true",
+                   help="mixed-precision refinement: f64 outer residual + "
+                        "working-dtype V-cycle")
     p.add_argument("--pcg", action="store_true",
                    help="V-cycle-preconditioned flexible CG outer solver")
+    p.add_argument("--fdm", action="store_true",
+                   help="fast-diagonalization direct solve (box mesh); "
+                        "with --refined, f64 refinement around it")
+    p.add_argument("--fmg", action="store_true",
+                   help="full-multigrid initial guess")
     p.add_argument("--warm", action="store_true",
                    help="run one throwaway solve first so the timed solve "
                         "excludes the kernel build and first launches")
@@ -134,6 +154,8 @@ def main():
             nc=nc, degrees=tuple(args.degrees), kappa=args.kappa,
             dtype=dtype, coarse=args.coarse, operator=args.operator,
             mesh=mesh, device=device,
+            coarse_cfg={"gamma": args.gamma} if args.gamma > 1 else None,
+            smoother_iters=args.smoother_iters,
         )
     ndofs = [prob.mesh.num_dofs(P) for P in args.degrees]
     print("hierarchy:", " -> ".join(f"p={P}: {n}"
@@ -142,12 +164,43 @@ def main():
         print(f"  level p={P}: eig range estimate "
               f"[{eig[0]:.4f}, {eig[-1]:.4f}]")
 
+    if args.fdm:
+        if args.fmg:
+            raise SystemExit("--fmg is an initial guess for the iterative "
+                             "solvers; --fdm is a direct solve: drop one")
+        from pmg_dolfinx_tpu_torch.solvers.fdm import (
+            FastDiagonalizationSolver,
+        )
+
+        fdm = FastDiagonalizationSolver(prob.mesh, args.degrees[-1],
+                                        kappa=args.kappa, dtype=dtype,
+                                        device=device)
+        with Timer("fdm solve", sync=True):
+            if args.refined:
+                u, rnorms = fdm.refine(prob.b, cycles=min(args.cycles, 4))
+            else:
+                u, rnorms = fdm.solve(prob.b), []
+        r0 = float(torch.linalg.vector_norm(prob.b))
+        for i, r in enumerate(rnorms):
+            print(f"refine {i}: rel = {r / r0:.4e}")
+        err = prob.error_l2(u)
+        print(f"L2 error vs manufactured solution: {err:.4e}")
+        list_timings()
+        rel = rnorms[-1] / r0 if rnorms else None
+        print(json.dumps({"rel_residual": rel, "l2_error": err}))
+        return
+
     def _solve():
+        if args.refined:
+            return prob.hierarchy.solve_refined(prob.b,
+                                                num_cycles=args.cycles,
+                                                fmg=args.fmg)
         if args.pcg:
             u, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-8,
-                                                maxiter=args.cycles)
+                                                maxiter=args.cycles,
+                                                fmg=args.fmg)
             return u, [], niter
-        return (*prob.solve(num_cycles=args.cycles),)
+        return (*prob.solve(num_cycles=args.cycles, fmg=args.fmg),)
 
     if args.warm:
         with Timer("pmg solve warmup", sync=True):

@@ -4,6 +4,10 @@
 //   kron_t1_m               <- _kernel_t1_m       (x-contraction, separable bc mask)
 //   kron_t23_m<false>       <- _kernel_t23_m      (y/z-contractions + bc epilogue)
 //   kron_t23_m<true>        <- _kernel_t23_res_m  (the same, fused  r - A v)
+//   kron_t1                 <- _kernel_t1         (x-contraction, full bc array)
+//   kron_t23<kApply>        <- _kernel_t23        (y/z-contractions, full bc array)
+//   kron_t23<kResidual>     <- _kernel_t23_res    (the same, fused  r - A v)
+//   kron_t23<kCheb>         <- _kernel_t23_cheb   (the same, fused Chebyshev-4 step)
 //
 // Operator (symmetrized form, see ops/kron_blocked.py:symmetrized_mats):
 //   t1'      = Ktx-contraction of (x * my_j * sxzm)           [kernel 1]
@@ -11,6 +15,22 @@
 //              with w^ = x * mx_i * s23m                       [kernel 2]
 //   y        = acc * sx_i * s23m
 //   out      = x (1 - mx_i my_j mz_k) + y mx_i   (Dirichlet rows copy x)
+//
+// The full-bc kernels take the Dirichlet marker as a byte lattice (a
+// torch.bool tensor is one byte per entry; no conversion to int32) and
+// the unmasked scale planes sxz = sx (x) sz, s23 = sy (x) sz:
+//   t1'      = Ktx-contraction of (where(bc, 0, x) * sxz)     [kron_t1]
+//   w^       = where(bc, 0, v) * s23 ; acc, y as above        [kron_t23]
+//   Av       = where(bc, v, y)
+//   kApply: out = Av ; kResidual: out = r - Av ;
+//   kCheb:  r' = r - Av ; x' = x + gamma v ; z' = a v + b dinv r'
+// with (gamma, a, b) = (0, 0, 4/(3 lmax)) on the init step (k = 0, v = x)
+// and (1, (2k-1)/(2k+3), (8k+4)/((2k+3) lmax)) on loop step k (v = z),
+// computed in float32 from the device scalar lmax in every thread, so a
+// smoother makes no host read. kCheb reads six lattices (v, bc, t1', x,
+// r, dinv) and writes three (r', x', z'); v is read through the y/z halo
+// by neighbouring blocks, so no output may alias an input: the wrapper
+// allocates every output.
 //
 // What bounds it on this card. Kt_a is the assembled 1D GLL stiffness
 // scaled symmetrically, so it is BANDED with half-width P (checked in
@@ -21,7 +41,10 @@
 // kernel, t1' written then read, y written; the residual adds r). A dense
 // x-plane at 253^2 f32 (256,036 bytes) would not fit the 227 KB of shared
 // memory a block may use, and it is not needed: each output only reads its
-// 2P+1 band neighbours per axis.
+// 2P+1 band neighbours per axis. The full-bc kernels add a 1-byte marker
+// read per kernel; the fused Chebyshev step moves ~8.25 lattice passes
+// (six reads, three writes) where the unfused smoother step moves the
+// pair's ~5 plus 10-15 passes of elementwise updates.
 //
 // Design. A block owns a 32 (z) x 32 (x or y) tile of outputs, 256 threads
 // of 32 x 8, each thread 4 outputs along the tile's second axis; z is
@@ -160,6 +183,145 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
   }
 }
 
+// kron_t1_m with the full bc lattice: w = where(bc, 0, x) * sxz.
+__global__ void __launch_bounds__(kTK * kTR)
+kron_t1(const float* __restrict__ x, const uint8_t* __restrict__ bc,
+        const float* __restrict__ Ktx, const float* __restrict__ sxz,
+        float* __restrict__ out, int NX, int NY, int NZ, int band) {
+  extern __shared__ float smem[];
+  const int H = kRows + 2 * band;
+  const int D = 2 * band + 1;
+  float* sw = smem;                   // [H][kTK]  w = where(bc, 0, x) * sxz
+  float* sK = smem + H * kTK;         // [D][kRows] Ktx[a, a - band + d]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kTK + tx;
+  const int k0 = blockIdx.x * kTK, a0 = blockIdx.y * kRows, j = blockIdx.z;
+  const int k = k0 + tx;
+  const int64_t plane = (int64_t)NY * NZ;
+
+  for (int r = ty; r < H; r += kTR) {
+    const int a = a0 - band + r;
+    float v = 0.f;
+    if (a >= 0 && a < NX && k < NZ) {
+      const int64_t g = a * plane + (int64_t)j * NZ + k;
+      v = bc[g] ? 0.f : x[g] * sxz[(int64_t)a * NZ + k];
+    }
+    sw[r * kTK + tx] = v;
+  }
+  for (int t = tid; t < D * kRows; t += kTK * kTR) {
+    const int d = t / kRows, r = t % kRows;
+    const int a = a0 + r, xi = a - band + d;
+    sK[t] = (a < NX && xi >= 0 && xi < NX) ? Ktx[(int64_t)a * NX + xi] : 0.f;
+  }
+  __syncthreads();
+  if (k >= NZ) return;
+  for (int q = 0; q < kRPT; ++q) {
+    const int r = ty + q * kTR;
+    const int a = a0 + r;
+    if (a >= NX) break;
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d)
+      acc = fmaf(sK[d * kRows + r], sw[(r + d) * kTK + tx], acc);
+    out[a * plane + (int64_t)j * NZ + k] = acc;
+  }
+}
+
+enum T23Mode { kApply = 0, kResidual = 1, kCheb = 2 };
+
+// kron_t23_m with the full bc lattice and three epilogues (see the head of
+// this file). Unused pointers of a mode are null.
+template <int MODE>
+__global__ void __launch_bounds__(kTK * kTR)
+kron_t23(const float* __restrict__ v, const uint8_t* __restrict__ bc,
+         const float* __restrict__ t1, const float* __restrict__ Kty,
+         const float* __restrict__ KtzT, const float* __restrict__ sx2d,
+         const float* __restrict__ sycol, const float* __restrict__ s23,
+         const float* __restrict__ r, const float* __restrict__ x,
+         const float* __restrict__ dinv, const float* __restrict__ lmax,
+         int kstep, float* __restrict__ out, float* __restrict__ xo,
+         float* __restrict__ zo, int NX, int NY, int NZ, int band,
+         float sigma) {
+  extern __shared__ float smem[];
+  const int H = kRows + 2 * band;
+  const int W = kTK + 2 * band;
+  const int D = 2 * band + 1;
+  float* sw = smem;                   // [H][W]  w^ = where(bc, 0, v) * s23
+  float* sKy = sw + H * W;            // [D][kRows] Kty[j, j - band + d]
+  float* sKz = sKy + D * kRows;       // [D][kTK]  KtzT[k - band + d, k]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kTK + tx;
+  const int k0 = blockIdx.x * kTK, j0 = blockIdx.y * kRows, i = blockIdx.z;
+  const int k = k0 + tx;
+  const int64_t plane = (int64_t)NY * NZ;
+  const float* vi_pl = v + (int64_t)i * plane;
+  const uint8_t* bci_pl = bc + (int64_t)i * plane;
+  const float sxi = sx2d[i];
+
+  for (int t = tid; t < H * W; t += kTK * kTR) {
+    const int jj = j0 - band + t / W, kk = k0 - band + t % W;
+    float w = 0.f;
+    if (jj >= 0 && jj < NY && kk >= 0 && kk < NZ) {
+      const int64_t o = (int64_t)jj * NZ + kk;
+      w = bci_pl[o] ? 0.f : vi_pl[o] * s23[o];
+    }
+    sw[t] = w;
+  }
+  for (int t = tid; t < D * kRows; t += kTK * kTR) {
+    const int d = t / kRows, rj = t % kRows;
+    const int j = j0 + rj, jj = j - band + d;
+    sKy[t] = (j < NY && jj >= 0 && jj < NY) ? Kty[(int64_t)j * NY + jj] : 0.f;
+  }
+  for (int t = tid; t < D * kTK; t += kTK * kTR) {
+    const int d = t / kTK, kc = k0 + t % kTK, kk = kc - band + d;
+    sKz[t] = (kc < NZ && kk >= 0 && kk < NZ) ? KtzT[(int64_t)kk * NZ + kc] : 0.f;
+  }
+  // The Chebyshev coefficients, as the JAX package computes them in f32.
+  float gamma = 0.f, ca = 0.f, cb = 0.f;
+  if (MODE == kCheb) {
+    const float lm = *lmax;
+    if (kstep == 0) {
+      cb = 4.f / (3.f * lm);
+    } else {
+      const float kf = (float)kstep;
+      gamma = 1.f;
+      ca = (2.f * kf - 1.f) / (2.f * kf + 3.f);
+      cb = (8.f * kf + 4.f) / ((2.f * kf + 3.f) * lm);
+    }
+  }
+  __syncthreads();
+  if (k >= NZ) return;
+  for (int q = 0; q < kRPT; ++q) {
+    const int rj = ty + q * kTR;
+    const int j = j0 + rj;
+    if (j >= NY) break;
+    float t2 = 0.f, t3 = 0.f;
+    for (int d = 0; d < D; ++d)
+      t2 = fmaf(sKy[d * kRows + rj], sw[(rj + d) * W + tx + band], t2);
+    const float* srow = sw + (rj + band) * W + tx;
+    for (int d = 0; d < D; ++d)
+      t3 = fmaf(srow[d], sKz[d * kTK + tx], t3);
+
+    const int64_t o = (int64_t)j * NZ + k;
+    const int64_t idx = (int64_t)i * plane + o;
+    const float vv = vi_pl[o];
+    const float what = srow[band];
+    float acc = sycol[j] * t1[idx] + sxi * (t2 + t3);
+    if (sigma != 0.f) acc = acc + (sigma * sxi) * what;
+    const float y = acc * (sxi * s23[o]);
+    const float av = bci_pl[o] ? vv : y;
+    if (MODE == kApply) {
+      out[idx] = av;
+    } else if (MODE == kResidual) {
+      out[idx] = r[idx] - av;
+    } else {
+      const float rn = r[idx] - av;
+      out[idx] = rn;
+      xo[idx] = x[idx] + gamma * vv;
+      zo[idx] = ca * vv + cb * dinv[idx] * rn;
+    }
+  }
+}
+
 inline dim3 tile_grid(int NZ, int rows, int third) {
   return dim3((unsigned)((NZ + kTK - 1) / kTK),
               (unsigned)((rows + kRows - 1) / kRows), (unsigned)third);
@@ -202,6 +364,60 @@ int kron_t23_m_launch(const float* x, const float* mx2, const float* t1,
         x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow, r, out, NX, NY,
         NZ, band, sigma);
   }
+  return (int)cudaGetLastError();
+}
+
+int kron_t1_launch(const float* x, const uint8_t* bc, const float* Ktx,
+                   const float* sxz, float* out, int NX, int NY, int NZ,
+                   int band, void* stream) {
+  if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * ((kRows + 2 * band) * kTK + (2 * band + 1) * kRows);
+  kron_t1<<<tile_grid(NZ, NX, NY), dim3(kTK, kTR), smem,
+            (cudaStream_t)stream>>>(x, bc, Ktx, sxz, out, NX, NY, NZ, band);
+  return (int)cudaGetLastError();
+}
+
+inline size_t t23_smem(int band) {
+  return sizeof(float) * ((kRows + 2 * band) * (kTK + 2 * band) +
+                          (2 * band + 1) * (kRows + kTK));
+}
+
+// r == nullptr: out = A v (kernel #5); otherwise out = r - A v (kernel #6).
+int kron_t23_launch(const float* v, const uint8_t* bc, const float* t1,
+                    const float* Kty, const float* KtzT, const float* sx2d,
+                    const float* sycol, const float* s23, const float* r,
+                    float* out, int NX, int NY, int NZ, int band, float sigma,
+                    void* stream) {
+  if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
+  const dim3 grid = tile_grid(NZ, NY, NX), block(kTK, kTR);
+  const size_t smem = t23_smem(band);
+  if (r == nullptr) {
+    kron_t23<kApply><<<grid, block, smem, (cudaStream_t)stream>>>(
+        v, bc, t1, Kty, KtzT, sx2d, sycol, s23, nullptr, nullptr, nullptr,
+        nullptr, 0, out, nullptr, nullptr, NX, NY, NZ, band, sigma);
+  } else {
+    kron_t23<kResidual><<<grid, block, smem, (cudaStream_t)stream>>>(
+        v, bc, t1, Kty, KtzT, sx2d, sycol, s23, r, nullptr, nullptr, nullptr,
+        0, out, nullptr, nullptr, NX, NY, NZ, band, sigma);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Kernel #7: one Chebyshev-4 half-step (kstep = 0: init, v = x).
+int kron_t23_cheb_launch(const float* v, const uint8_t* bc, const float* t1,
+                         const float* Kty, const float* KtzT,
+                         const float* sx2d, const float* sycol,
+                         const float* s23, const float* x, const float* r,
+                         const float* dinv, const float* lmax, int kstep,
+                         float* xo, float* ro, float* zo, int NX, int NY,
+                         int NZ, int band, float sigma, void* stream) {
+  if (band < 0 || band > kMaxBand || kstep < 0)
+    return (int)cudaErrorInvalidValue;
+  kron_t23<kCheb><<<tile_grid(NZ, NY, NX), dim3(kTK, kTR), t23_smem(band),
+                    (cudaStream_t)stream>>>(
+      v, bc, t1, Kty, KtzT, sx2d, sycol, s23, r, x, dinv, lmax, kstep, ro, xo,
+      zo, NX, NY, NZ, band, sigma);
   return (int)cudaGetLastError();
 }
 

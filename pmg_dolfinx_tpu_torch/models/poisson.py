@@ -78,10 +78,11 @@ class PoissonProblem:
         b = assemble_rhs(self.mesh, self.degrees[-1], f)
         self.b = torch.as_tensor(b, dtype=dtype, device=self.hierarchy.device)
 
-    def solve(self, num_cycles=10, residuals=True, u0=None):
-        """Run the stationary V-cycle iteration."""
+    def solve(self, num_cycles=10, residuals=True, u0=None, fmg=False):
+        """Run the stationary V-cycle iteration; ``u0`` resumes from an
+        iterate, ``fmg`` starts from the full-multigrid guess."""
         return self.hierarchy.solve(self.b, num_cycles=num_cycles,
-                                    residuals=residuals, u0=u0)
+                                    residuals=residuals, u0=u0, fmg=fmg)
 
     def error_l2(self, u):
         """L2 error of the discrete solution (flat, any device) vs the
@@ -93,3 +94,9 @@ class PoissonProblem:
             return l2_error(self.mesh, self.degrees[-1], u, self._u_exact)
         return l2_error_collocated(self.mesh, self.degrees[-1], u,
                                    self._u_exact)
+
+    def interpolate_exact(self):
+        """u_e sampled at the fine-space dofs (numpy, for initial guesses
+        and tests)."""
+        coords = self.mesh.dof_coords(self.degrees[-1])
+        return self._u_exact(coords.T)

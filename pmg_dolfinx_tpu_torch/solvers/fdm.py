@@ -10,7 +10,8 @@ free nodes (``V^T M V = I``),
 
 The eigenproblems are host numpy (float64); the solve is six
 `torch.einsum` contractions and a pointwise division, as the JAX package
-leaves it to XLA.
+leaves it to XLA. `FastDiagonalizationSolver.refine` wraps the solve in
+float64 iterative refinement.
 """
 
 import numpy as np
@@ -82,6 +83,8 @@ class FastDiagonalizationSolver:
 
         require_axis_aligned(mesh, "FastDiagonalizationSolver")
         P = int(P)
+        self.mesh = mesh
+        self.P = P
         self.dtype = dtype
         self.device = torch.device(device)
         self.shape = mesh.lattice_shape(P)
@@ -110,6 +113,8 @@ class FastDiagonalizationSolver:
         self.dinv = torch.as_tensor(1.0 / d, dtype=dtype, device=device)
         self.bc_marker = torch.tensor(mesh.boundary_dof_marker(P),
                                       device=device)
+        self._kappa = (kx, ky, kz)
+        self._sigma = float(sigma)
 
     def solve(self, b):
         """``u = A^{-1} b``; ``b`` (any float dtype, any device, flat or
@@ -118,3 +123,31 @@ class FastDiagonalizationSolver:
         b = torch.as_tensor(b).to(device=self.device, dtype=self.dtype)
         return fdm_solve(b, self.Vs, self.Vts, self.dinv, self.bc_marker,
                          self.shape, trims=self.trims)
+
+    def solve_many(self, B):
+        """`solve` over a leading right-hand-side axis (one column after
+        another; the JAX package vmaps them)."""
+        B = torch.as_tensor(B).to(device=self.device, dtype=self.dtype)
+        return torch.stack([self.solve(b) for b in B])
+
+    def refine(self, b, cycles=3):
+        """float64 iterative refinement around the working-dtype solve:
+        ``r64 = b - A64 u64 ; u64 += solve(r64)``, with the f64 Kronecker
+        operator carrying the same sigma. Returns ``(u64, rnorms)``, the
+        f64 residual norm before each correction."""
+        from ..ops.kron import KronLaplacian
+
+        if getattr(self, "_op64", None) is None:
+            # kappa is a scalar in the port: (k, k, k)
+            self._op64 = KronLaplacian(self.mesh, self.P,
+                                       kappa=self._kappa[0],
+                                       dtype=torch.float64,
+                                       sigma=self._sigma, device=self.device)
+        b64 = torch.as_tensor(b).to(device=self.device, dtype=torch.float64)
+        u64 = torch.zeros_like(b64)
+        rnorms = []
+        for _ in range(cycles):
+            r64 = b64 - self._op64(u64)
+            rnorms.append(torch.linalg.vector_norm(r64))
+            u64 = u64 + self.solve(r64).to(torch.float64).reshape(u64.shape)
+        return u64, [float(r) for r in rnorms]

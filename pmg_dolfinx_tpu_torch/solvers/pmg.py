@@ -7,8 +7,12 @@ default), ``"lattice"`` (general hexes, plain torch einsums),
 `ops/lattice_blocked.py`), ``"kron"`` and ``"kron_blocked"`` (axis-aligned
 boxes, plain torch / the CUDA kernels of `ops/kron_blocked.py`); the
 V-cycle with a ``"smoother"``, ``"cg"`` or ``"fdm"`` coarse solve, CG +
-Lanczos smoother calibration, and the stationary (`solve`) and FCG
-(`solve_pcg`) outer iterations. The Kronecker family keeps vectors
+Lanczos smoother calibration, the W-cycle (``coarse_cfg["gamma"]``),
+the full-multigrid initial guess (`fmg_initial_guess`), the fused
+Chebyshev smoother of ``kron_blocked`` (``fuse_smoother=True``), and the
+stationary (`solve`), FCG (`solve_pcg`), batched (`solve_many`,
+`solve_pcg_many`) and f64-refined (`solve_refined`) outer iterations. The
+Kronecker family keeps vectors
 lattice-shaped ``(NX, NY, NZ)`` inside the cycle, the general family
 flat; the public methods take and return flat vectors.
 
@@ -30,6 +34,7 @@ its ROADMAP.md item.
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..ops.blas import inner_product
@@ -52,8 +57,9 @@ _SIGMA_FIELD_TODO = ("a sigma FIELD (callable) on the general backends is "
 _COARSE_TODO = ("only coarse='smoother', 'cg' and 'fdm' are ported; "
                 "'direct', 'hmg' and 'amg' are ROADMAP.md Queue 1 items 4 "
                 "and 7")
-_CYCLE_TODO = ("W-cycles (gamma > 1) and FMG are ROADMAP.md Queue 1 "
-               "item 7")
+_TRANSFERS_TODO = ("fuse_transfers=True needs the transfer kernels "
+                   "_kernel_tx/_kernel_tyz, not ported yet (ROADMAP.md "
+                   "Queue 2, kernels #10/#11)")
 
 
 @dataclass(frozen=True)
@@ -183,22 +189,46 @@ def kron_cycle_ops(sigma=0.0):
     return dict(apply=apply_op, **_lattice_transfers())
 
 
-def kron_blocked_cycle_ops(sigma=0.0):
+def kron_blocked_cycle_ops(sigma=0.0, fuse_smoother=False,
+                           fuse_residual=True, fuse_transfers=False):
     """V-cycle primitives whose operator applies run the blocked kernel
     pair (`ops.kron_blocked`): the CUDA kernels on CUDA tensors, their
     plain torch versions on CPU tensors. The down-sweep ``r = b - A u``
-    runs through the fused residual kernel (the JAX package's default
-    ``fuse_residual=True``). Transfers and dots are the same torch
-    primitives as `kron_cycle_ops`."""
-    from ..ops.kron_blocked import blocked_kron_apply, blocked_kron_residual
+    runs through the fused residual kernel (``fuse_residual``, the JAX
+    package's default). ``fuse_smoother=True`` makes the smoother
+    `blocked_kron_cheb4`: each Chebyshev half-step is the full-bc kernel
+    #4 then kernel #7, which folds the update into the operator's
+    epilogue. Transfers and dots are the same torch primitives as
+    `kron_cycle_ops`; ``fuse_transfers=True`` (the transfer kernels
+    #10/#11) is not ported and raises."""
+    from ..ops.kron_blocked import (
+        blocked_kron_apply,
+        blocked_kron_cheb4,
+        blocked_kron_residual,
+    )
+
+    if fuse_transfers:
+        raise NotImplementedError(_TRANSFERS_TODO)
 
     def apply_op(lv, x, level):
-        return blocked_kron_apply(x, lv["kb_mats"], sigma=sigma)
+        return blocked_kron_apply(x, lv["bc_marker"], lv["kb_mats"],
+                                  sigma=sigma)
+
+    def smooth_op(lv, b, x, level):
+        return blocked_kron_cheb4(b, x, lv["bc_marker"], lv["kb_mats"],
+                                  lv["diag_inv"], lv["lmax"],
+                                  level.smoother_iters, sigma=sigma)
 
     def residual_op(lv, b, u, level):
-        return blocked_kron_residual(b, u, lv["kb_mats"], sigma=sigma)
+        return blocked_kron_residual(b, u, lv["bc_marker"], lv["kb_mats"],
+                                     sigma=sigma)
 
-    return dict(apply=apply_op, residual=residual_op, **_lattice_transfers())
+    fused = {}
+    if fuse_smoother:
+        fused = dict(smooth=smooth_op, residual=residual_op)
+    elif fuse_residual:
+        fused = dict(residual=residual_op)
+    return dict(apply=apply_op, **fused, **_lattice_transfers())
 
 
 def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
@@ -207,11 +237,12 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
 
     ``data`` holds the per-level arrays (``levels``), the inter-level
     transfer matrices (``transfer``) and the coarse-solver arrays;
-    ``levels`` is the tuple of `Level`; ``ops`` the cycle primitives.
+    ``levels`` is the tuple of `Level`; ``ops`` the cycle primitives
+    (``ops["smooth"]``, where a backend fuses the smoother, replaces the
+    generic Chebyshev-4). ``coarse_cfg["gamma"]`` selects the cycle index:
+    1 = V-cycle (default), 2 = W-cycle.
     """
     coarse_cfg = coarse_cfg or {}
-    if coarse_cfg.get("gamma", 1) != 1:
-        raise NotImplementedError(_CYCLE_TODO)
     L = len(levels)
     lvs = data["levels"]
     us = [None] * L
@@ -221,16 +252,37 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
     dot = ops["dot"]
     zeros = ops["zeros"]
 
-    def smooth(lv, b, x, level):
+    def _default_smooth(lv, b, x, level):
         return chebyshev4_solve(
             lambda t: ops["apply"](lv, t, level), b, x,
             lv["diag_inv"], lv["lmax"], level.smoother_iters,
         )
 
+    smooth = ops.get("smooth", _default_smooth)
     residual = ops.get(
         "residual",
         lambda lv, b, u, level: b - ops["apply"](lv, u, level),
     )
+
+    # W-cycle (gamma > 1): visit the coarse sub-hierarchy ``gamma`` times
+    # per level; the recursion bottoms out at the two-level cycle.
+    gamma = coarse_cfg.get("gamma", 1)
+    if gamma > 1 and L > 2:
+        top = L - 1
+        u = smooth(lvs[top], b_in, u_in, levels[top])
+        r = residual(lvs[top], b_in, u, levels[top])
+        b_c = ops["restrict"](
+            data["transfer"][top - 1], r, levels[top - 1], levels[top]
+        )
+        sub = dict(data, levels=lvs[:top], transfer=data["transfer"][:top - 1])
+        u_c = zeros(levels[top - 1], b_in)
+        for _ in range(gamma):
+            u_c = v_cycle(sub, b_c, u_c, levels=levels[:top], coarse=coarse,
+                          coarse_cfg=coarse_cfg, ops=ops)
+        du = ops["prolong"](
+            data["transfer"][top - 1], u_c, levels[top - 1], levels[top]
+        )
+        return smooth(lvs[top], b_in, u + du, levels[top])
 
     # Down sweep: pre-smooth and restrict.
     for i in range(L - 1, 0, -1):
@@ -279,6 +331,36 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
     return us[L - 1]
 
 
+def fmg_initial_guess(data, b_in, *, levels, coarse="smoother",
+                      coarse_cfg=None, ops):
+    """Full-multigrid (nested-iteration) initial guess: restrict the rhs
+    down the p-hierarchy (Dirichlet rows of each restricted rhs masked to
+    zero), then from the coarsest level up prolong the current solution
+    and run one V-cycle of the truncated hierarchy (coarsest..i); at
+    i = 0 that cycle is the coarse solve."""
+    L = len(levels)
+    lvs = data["levels"]
+    bs = [None] * L
+    bs[L - 1] = b_in
+    for i in range(L - 1, 0, -1):
+        r = ops["restrict"](data["transfer"][i - 1], bs[i],
+                            levels[i - 1], levels[i])
+        bs[i - 1] = torch.where(lvs[i - 1]["bc_marker"],
+                                torch.zeros_like(r), r)
+    u = None
+    for i in range(L):
+        if i:
+            u = ops["prolong"](data["transfer"][i - 1], u,
+                               levels[i - 1], levels[i])
+        else:
+            u = ops["zeros"](levels[0], b_in)
+        data_i = dict(data, levels=lvs[: i + 1],
+                      transfer=data["transfer"][:i])
+        u = v_cycle(data_i, bs[i], u, levels=levels[: i + 1],
+                    coarse=coarse, coarse_cfg=coarse_cfg, ops=ops)
+    return u
+
+
 def _merge_state(dst, src, path):
     """Overwrite the arrays of ``dst`` that ``src`` also holds (recursing
     into nested dicts); keys only ``dst`` has stay."""
@@ -310,6 +392,7 @@ class PMGHierarchy:
                  coarse_cfg=None,
                  calibration_iters=DEFAULT_CALIBRATION_ITERS,
                  operator="dofmap", precision="highest", sigma=0.0,
+                 fuse_smoother=False, fuse_transfers=False,
                  smoother="cheb", *, device):
         """``operator`` is 'dofmap' (gather/scatter, any hex mesh),
         'lattice' (plain torch, any hex mesh), 'lattice_blocked' (the
@@ -317,7 +400,11 @@ class PMGHierarchy:
         (plain torch, axis-aligned boxes) or 'kron_blocked' (the CUDA
         kernels, axis-aligned boxes, float32 only); ``coarse`` is
         'smoother', 'cg' or 'fdm' (axis-aligned only); ``kappa`` a scalar;
-        ``sigma`` a scalar lumped-mass shift."""
+        ``sigma`` a scalar lumped-mass shift. ``fuse_smoother=True``
+        (kron_blocked only) runs the smoother through the fused Chebyshev
+        kernel; ``fuse_transfers=True`` (kron_blocked only) is not ported
+        and raises NotImplementedError. ``coarse_cfg["gamma"] = 2`` makes
+        every cycle a W-cycle."""
         from ..fem.assembly import (
             geometry_factors_np,
             lumped_mass_np,
@@ -341,6 +428,11 @@ class PMGHierarchy:
             lattice_mats,
         )
 
+        if (fuse_smoother or fuse_transfers) and operator != "kron_blocked":
+            raise ValueError(
+                "fuse_smoother/fuse_transfers require operator="
+                "'kron_blocked' (kernel epilogues/transfers)"
+            )
         if operator in ("csr", "dss"):
             raise NotImplementedError(_OPERATOR_TODO)
         if operator not in _OPERATORS:
@@ -353,8 +445,6 @@ class PMGHierarchy:
             raise NotImplementedError(
                 "only the point-Jacobi Chebyshev smoother is ported; "
                 "'line' and 'schwarz' are ROADMAP.md Queue 1 item 7")
-        if (coarse_cfg or {}).get("gamma", 1) != 1:
-            raise NotImplementedError(_CYCLE_TODO)
         if precision != "highest":
             raise NotImplementedError(
                 "only precision='highest' (true f32/f64) is ported; "
@@ -389,6 +479,7 @@ class PMGHierarchy:
         self.degrees = tuple(int(p) for p in degrees)
         self.device = torch.device(device)
         kc, kt, const = resolve_kappa_split(mesh, kappa)
+        self._kc, self._kappa_fold = kc, kt
         self.kappa = float(kc[0]) if const else None
         self.kappa_axes = resolve_kappa_axes(mesh, kappa,
                                              split=(kc, kt, const))
@@ -398,10 +489,13 @@ class PMGHierarchy:
         self.operator_kind = operator
         self.eigs = []
         ops_sigma = ops_shift_scalar(mesh, self.sigma, kron_family)
+        self._ops_sigma = ops_sigma
         if operator == "kron":
             self._ops = kron_cycle_ops(sigma=self.sigma)
         elif operator == "kron_blocked":
-            self._ops = kron_blocked_cycle_ops(sigma=self.sigma)
+            self._ops = kron_blocked_cycle_ops(
+                sigma=self.sigma, fuse_smoother=fuse_smoother,
+                fuse_transfers=fuse_transfers)
         elif operator == "lattice":
             self._ops = lattice_cycle_ops(sigma=ops_sigma)
         elif operator == "lattice_blocked":
@@ -439,9 +533,10 @@ class PMGHierarchy:
                     bc, sigma=self.sigma,
                 ).reshape(shape)
                 if operator == "kron_blocked":
-                    # The kernels consume the symmetrized form with
-                    # separable bc masks; the raw 1D factors are not
-                    # needed at runtime.
+                    # The kernels consume the symmetrized form (with the
+                    # separable bc masks when the marker is a union of
+                    # box faces); the raw 1D factors are not needed at
+                    # runtime.
                     from ..ops.kron_blocked import (
                         checked_face_masks,
                         symmetrized_mats,
@@ -587,15 +682,23 @@ class PMGHierarchy:
         """One V-cycle from iterate ``u`` (flat vectors)."""
         return self._vcycle(self._to_work(b), self._to_work(u)).reshape(-1)
 
+    def _fmg_guess(self, bw):
+        """The FMG initial guess for a working-layout rhs."""
+        return fmg_initial_guess(self.data, bw, levels=self.levels,
+                                 coarse=self.coarse,
+                                 coarse_cfg=self.coarse_cfg, ops=self._ops)
+
     def solve(self, b, num_cycles=10, u0=None, residuals=True, fmg=False):
         """Stationary V-cycle iteration. Returns ``(u, residual_norms)``.
 
-        The residual norms stay on the device and are read back once, at
-        the end."""
-        if fmg:
-            raise NotImplementedError(_CYCLE_TODO)
+        ``fmg=True`` (and no ``u0``) starts from the full-multigrid guess
+        instead of zero. The residual norms stay on the device and are
+        read back once, at the end."""
         b = self._to_work(b)
-        u = torch.zeros_like(b) if u0 is None else self._to_work(u0)
+        if u0 is not None:
+            u = self._to_work(u0)
+        else:
+            u = self._fmg_guess(b) if fmg else torch.zeros_like(b)
         lv_f = self.data["levels"][-1]
         norms = []
         for _ in range(num_cycles):
@@ -608,26 +711,123 @@ class PMGHierarchy:
         return u, [float(v) for v in torch.stack(norms).cpu().numpy()]
 
     def solve_pcg(self, b, rtol=1e-8, maxiter=50, fmg=False):
-        """V-cycle-preconditioned flexible CG. Returns ``(u, niter)``.
+        """V-cycle-preconditioned flexible CG from zero (or, with
+        ``fmg=True``, from the full-multigrid guess). Returns
+        ``(u, niter)``.
 
         The loop reads its convergence flag on the host once per
         iteration (a CUDA graph or a fixed-count loop would remove that
         sync; later work)."""
         from .cg import fcg_solve
 
-        if fmg:
-            raise NotImplementedError(_CYCLE_TODO)
         lv_f = self.data["levels"][-1]
         b = self._to_work(b)
+        u0 = self._fmg_guess(b) if fmg else torch.zeros_like(b)
         u, info = fcg_solve(
-            self._fine_apply, b, torch.zeros_like(b),
+            self._fine_apply, b, u0,
             lambda r: self._vcycle(r, torch.zeros_like(r)),
             rtol=float(rtol), maxiter=int(maxiter),
             dot=lambda u_, v_: self._ops["dot"](u_, v_, lv_f),
         )
         return u.reshape(-1), int(info["niter"])
 
-    def solve_refined(self, *args, **kwargs):
-        raise NotImplementedError(
-            "solve_refined (f64 outer residual) is ROADMAP.md Queue 1 "
-            "item 4")
+    def _refine_apply64(self):
+        """``u64 -> A u64`` in float64 on the device for `solve_refined`:
+        the Kronecker form on axis-aligned meshes, else the lattice apply
+        with f64 geometry (and the lumped-mass shift); built once."""
+        if getattr(self, "_apply64", None) is not None:
+            return self._apply64
+        mesh, Pf, f64 = self.mesh, self.degrees[-1], torch.float64
+        if getattr(mesh, "is_axis_aligned", True):
+            from ..ops.kron import KronLaplacian
+
+            self._apply64 = KronLaplacian(mesh, Pf, kappa=self.kappa,
+                                          dtype=f64, sigma=self.sigma,
+                                          device=self.device)
+            return self._apply64
+        from ..fem.assembly import geometry_factors_np, lumped_mass_np, scale_G
+        from ..ops.lattice import (
+            geometry_to_qlattice,
+            lattice_laplacian_apply,
+            lattice_mats,
+        )
+
+        G_cells, _ = geometry_factors_np(mesh, Pf, kappa=self._kappa_fold)
+        G = torch.as_tensor(geometry_to_qlattice(
+            scale_G(G_cells, self._kc, self._kappa_fold), mesh.nc, Pf),
+            dtype=f64, device=self.device)
+        mats = lattice_mats(mesh.nc, Pf, f64, self.device)
+        bc = torch.tensor(mesh.boundary_dof_marker(Pf), device=self.device)
+        shift = self._ops_sigma
+        m3 = (torch.as_tensor(lumped_mass_np(mesh, Pf, bc_zero=True),
+                              dtype=f64, device=self.device)
+              if shift else None)
+
+        def apply64(u):  # u is flat: the general family's work layout
+            if not shift:
+                return lattice_laplacian_apply(u, mats, G, bc)
+            Au = lattice_laplacian_apply(u, mats, G, bc, apply_bc=False)
+            return torch.where(bc, u, Au + shift * m3 * u)
+
+        self._apply64 = apply64
+        return apply64
+
+    def solve_refined(self, b, num_cycles=15, rtol=0.0, residuals=True,
+                      u0=None, fmg=False):
+        """Mixed-precision iterative refinement: a float64 outer residual
+        with the working-dtype V-cycle as the error smoother,
+
+            r64 = b64 - A64 u64 ;  e = Vcycle(r, 0) ;  u64 += e
+
+        which converges past the f32 residual floor. The f64 apply is the
+        Kronecker form on axis-aligned meshes, else the lattice apply.
+        ``u0`` resumes from an iterate; ``fmg=True`` starts from the
+        working-dtype FMG guess. Returns ``(u64, residual_norms)``: the
+        f64 residual norm before each cycle. With ``rtol`` the loop stops
+        once it falls below ``rtol * |b|`` (one host read per cycle);
+        without, the norms are read back once, at the end."""
+        apply64 = self._refine_apply64()
+        f64 = dict(device=self.device, dtype=torch.float64)
+        # the f64 state shares the work layout (lattice-shaped for kron)
+        b64 = torch.as_tensor(b).to(**f64).reshape(self._to_work(b).shape)
+        if u0 is not None:
+            u64 = torch.as_tensor(u0).to(**f64).reshape(b64.shape)
+        elif fmg:
+            u64 = self._fmg_guess(self._to_work(b)).to(torch.float64)
+        else:
+            u64 = torch.zeros_like(b64)
+        r0 = float(torch.linalg.vector_norm(b64)) if rtol else None
+        norms = []
+        for _ in range(num_cycles):
+            r64 = b64 - apply64(u64)
+            rn = torch.linalg.vector_norm(r64)
+            r = self._to_work(r64)
+            e = self._vcycle(r, torch.zeros_like(r))
+            u64 = u64 + e.to(torch.float64)
+            norms.append(rn)
+            if rtol and float(rn) < rtol * r0:
+                break
+        rnorms = ([float(v) for v in torch.stack(norms).cpu().numpy()]
+                  if residuals and norms else [])
+        return u64.reshape(-1), rnorms
+
+    def solve_many(self, B, num_cycles=10):
+        """`solve` over a leading right-hand-side axis: ``B`` is ``(nrhs,
+        ndofs)``; returns ``(U, rnorms)`` with ``U`` of ``B``'s shape and
+        ``rnorms`` a numpy ``(nrhs, num_cycles)`` array. The columns run
+        one after another (the JAX package vmaps them), each exactly its
+        single-RHS solve."""
+        B = torch.as_tensor(B).to(device=self.device, dtype=self.dtype)
+        cols = [self.solve(b, num_cycles=num_cycles) for b in B]
+        U = torch.stack([u for u, _ in cols]).reshape(B.shape)
+        return U, np.array([rn for _, rn in cols]).reshape(len(cols),
+                                                           num_cycles)
+
+    def solve_pcg_many(self, B, rtol=1e-8, maxiter=50):
+        """`solve_pcg` over a leading right-hand-side axis. Returns ``(U,
+        niters)`` with the per-column FCG counts (a numpy int array),
+        each column's count and iterate its single-RHS ones."""
+        B = torch.as_tensor(B).to(device=self.device, dtype=self.dtype)
+        cols = [self.solve_pcg(b, rtol=rtol, maxiter=maxiter) for b in B]
+        U = torch.stack([u for u, _ in cols]).reshape(B.shape)
+        return U, np.array([n for _, n in cols], dtype=np.int64)

@@ -67,6 +67,9 @@ def test_general_hex_modules_import_no_jax():
     assert out == "[]", out
 
 
+_SEPARABLE = ("sxzm", "s23m", "mx2", "myb", "mzrow")
+
+
 def _mats(P=2, nc=(2, 3, 4)):
     mesh = BoxMesh(nc)
     Ks, ms = zip(*(axis_stiffness_mass(n, P, h)
@@ -82,20 +85,35 @@ def test_cpu_tensors_run_the_plain_version():
     x = torch.randn(shape, generator=g)
     b = torch.randn(shape, generator=g)
     before = dict(kb.LAUNCHES)
-    assert torch.equal(kb.blocked_kron_apply(x, mats, sigma=0.5),
+    bc = torch.tensor(BoxMesh((2, 3, 4)).boundary_dof_marker(2)).reshape(shape)
+    assert torch.equal(kb.blocked_kron_apply(x, bc, mats, sigma=0.5),
                        kb.plain_apply_m(x, mats, 0.5))
-    assert torch.equal(kb.blocked_kron_residual(b, x, mats),
+    assert torch.equal(kb.blocked_kron_residual(b, x, bc, mats),
                        kb.plain_residual_m(b, x, mats))
+    full = {k: v for k, v in mats.items() if k not in _SEPARABLE}
+    assert torch.equal(kb.blocked_kron_apply(x, bc, full, sigma=0.5),
+                       kb.plain_apply(x, bc, full, 0.5))
+    assert torch.equal(kb.blocked_kron_residual(b, x, bc, full),
+                       kb.plain_residual(b, x, bc, full))
+    assert torch.equal(
+        kb.blocked_kron_cheb4(b, x, bc, full, torch.ones(shape), 4.0, 2),
+        kb.blocked_kron_cheb4(b, x, bc, full, torch.ones(shape),
+                              torch.tensor(4.0), 2))
     assert kb.LAUNCHES == before  # no kernel ran
 
 
 def test_non_cuda_device_raises_instead_of_falling_back():
     shape, mats = _mats()
     x = torch.empty(shape, device="meta")
+    bc = torch.empty(shape, dtype=torch.bool, device="meta")
+    full = {k: v for k, v in mats.items() if k not in _SEPARABLE}
+    for m in (mats, full):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kb.blocked_kron_apply(x, bc, m)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kb.blocked_kron_residual(x, x, bc, m)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        kb.blocked_kron_apply(x, mats)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        kb.blocked_kron_residual(x, x, mats)
+        kb.blocked_kron_cheb4(x, x, bc, full, x, 4.0, 2)
 
 
 def test_loader_raises_without_cuda_or_nvcc(monkeypatch):

@@ -98,13 +98,15 @@ def test_plain_matches_pallas_interpret_f32(jx, faces, sigma):
     x32, b32 = x.astype(np.float32), b.astype(np.float32)
     y_j = jkb.blocked_kron_apply(jnp.asarray(x32), bc3, jmats,
                                  interpret=True, sigma=sigma)
-    y_t = tkb.blocked_kron_apply(torch.from_numpy(x32), tmats, sigma=sigma)
+    y_t = tkb.blocked_kron_apply(torch.from_numpy(x32), torch.tensor(
+        np.asarray(bc3)), tmats, sigma=sigma)
     assert y_t.dtype == torch.float32
     assert _rel(y_t.numpy(), y_j) <= 1e-5
     r_j = jkb.blocked_kron_residual(jnp.asarray(b32), jnp.asarray(x32), bc3,
                                     jmats, interpret=True, sigma=sigma)
     r_t = tkb.blocked_kron_residual(torch.from_numpy(b32),
-                                    torch.from_numpy(x32), tmats, sigma=sigma)
+                                    torch.from_numpy(x32), None, tmats,
+                                    sigma=sigma)
     assert _rel(r_t.numpy(), r_j) <= 1e-5
 
 
@@ -127,7 +129,7 @@ def test_plain_matches_emulation_f64(jx, faces, sigma):
                 t1_j) <= 1e-12
 
 
-def test_band_check_and_separable_guard():
+def test_band_check_and_separable_guard(jx):
     tm, tmats = _port_mats(True, "cpu", torch.float64)
     Ks = [tmats["Ktx"].clone(), tmats["Kty"], tmats["KtzT"].T]
     ms = [torch.ones(K.shape[0], dtype=torch.float64) for K in Ks]
@@ -136,15 +138,33 @@ def test_band_check_and_separable_guard():
     Ks[0][0, P + 1] = 1e-3  # one entry just outside the band
     with pytest.raises(ValueError, match="outside the band"):
         tkb.symmetrized_mats(Ks, ms, fm, band=P, device="cpu")
-    # a non-separable marker has no face masks: the full-bc kernels are
-    # not ported, so the setup refuses instead of running something else
+    with pytest.raises(ValueError, match="outside the band"):
+        tkb.symmetrized_mats(Ks, ms, None, band=P, device="cpu")
+    # a non-separable marker has no face masks: the setup gives the
+    # bc-array set and the entry points run the full-bc kernels, as JAX
     bad = tm.boundary_dof_marker(P).copy().reshape(tm.lattice_shape(P))
     bad[2, 2, 2] = True  # one interior dof
     assert tkb.checked_face_masks(tm, P, bad) is None
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tkb.symmetrized_mats(Ks, ms, None, band=P, device="cpu")
+    base = jx.KronLaplacian(jx.BoxMesh(NC), P, kappa=2.0,
+                            dtype=jx.jnp.float64)
+    jmats = jx.jkb.symmetrized_mats(base.Ks, base.ms, dtype=jx.jnp.float64)
+    mats = tkb.symmetrized_mats([np.asarray(K) for K in base.Ks],
+                                [np.asarray(m) for m in base.ms], band=P,
+                                device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(4)
+    x, b = rng.standard_normal(bad.shape), rng.standard_normal(bad.shape)
+    assert "sxzm" not in mats
+    y_j = jx.jkb.blocked_kron_apply(jx.jnp.asarray(x), bad, jmats)
+    y_t = tkb.blocked_kron_apply(torch.from_numpy(x), torch.from_numpy(bad),
+                                 mats)
+    assert _rel(y_t.numpy(), y_j) <= 1e-12
+    r_j = jx.jkb.blocked_kron_residual(jx.jnp.asarray(b), jx.jnp.asarray(x),
+                                       bad, jmats)
+    r_t = tkb.blocked_kron_residual(torch.from_numpy(b), torch.from_numpy(x),
+                                    torch.from_numpy(bad), mats)
+    assert _rel(r_t.numpy(), r_j) <= 1e-12
     with pytest.raises(NotImplementedError, match="precision='high'"):
-        tkb.blocked_kron_apply(torch.zeros(tm.lattice_shape(P)), tmats,
+        tkb.blocked_kron_apply(torch.zeros(tm.lattice_shape(P)), None, tmats,
                                precision="high")
 
 
@@ -169,12 +189,12 @@ def test_cuda_kernels_match_plain(cuda_device, faces, sigma):
     before = dict(tkb.LAUNCHES)
     t1 = tkb.kron_t1_m(x3, mats)
     assert _rel(t1.cpu(), tkb.plain_t1_m(x3, mats).cpu()) <= 1e-5
-    y = tkb.blocked_kron_apply(x3, mats, sigma=sigma)
+    y = tkb.blocked_kron_apply(x3, None, mats, sigma=sigma)
     assert _rel(y.cpu(), tkb.plain_apply_m(x3, mats, sigma).cpu()) <= 1e-5
-    r = tkb.blocked_kron_residual(b3, x3, mats, sigma=sigma)
+    r = tkb.blocked_kron_residual(b3, x3, None, mats, sigma=sigma)
     assert _rel(r.cpu(), tkb.plain_residual_m(b3, x3, mats, sigma).cpu()) <= 1e-5
     assert tkb.LAUNCHES["t1_m"] == before["t1_m"] + 3
     assert tkb.LAUNCHES["t23_m"] == before["t23_m"] + 1
     assert tkb.LAUNCHES["t23_res_m"] == before["t23_res_m"] + 1
     with pytest.raises(TypeError, match="float32"):
-        tkb.blocked_kron_apply(x3.double(), mats)
+        tkb.blocked_kron_apply(x3.double(), None, mats)

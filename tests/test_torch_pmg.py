@@ -109,7 +109,7 @@ def test_load_state_checks_shapes():
     (dict(operator="csr"), "Queue 1 items 6 and 8"),
     (dict(coarse="hmg"), "Queue 1 items 4"),
     (dict(smoother="line"), "Queue 1 item 7"),
-    (dict(coarse_cfg={"gamma": 2}), "Queue 1 item 7"),
+    (dict(smoother="schwarz"), "Queue 1 item 7"),
     (dict(precision="high"), "Queue 1 item 1"),
 ])
 def test_unported_options_raise(kwargs, match):
@@ -119,14 +119,15 @@ def test_unported_options_raise(kwargs, match):
 
 
 def test_unported_solves_raise():
+    """The solve modes that once raised here (FMG, ``solve_refined``) run;
+    the f32-only guard of the kernel backend stays."""
     hier = PMGHierarchy(BoxMesh((2, 2, 2)), degrees=(1, 2), device="cpu")
     b = torch.ones(hier.levels[-1].ndofs, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="FMG"):
-        hier.solve(b, fmg=True)
-    with pytest.raises(NotImplementedError, match="FMG"):
-        hier.solve_pcg(b, fmg=True)
-    with pytest.raises(NotImplementedError, match="solve_refined"):
-        hier.solve_refined(b)
+    _, rn = hier.solve(b, num_cycles=2, fmg=True)
+    assert len(rn) == 2 and rn[1] < rn[0]
+    assert hier.solve_pcg(b, fmg=True)[1] >= 0
+    u, rn = hier.solve_refined(b, num_cycles=3)
+    assert u.dtype == torch.float64 and len(rn) == 3 and rn[2] < rn[0]
     with pytest.raises(ValueError, match="f32-only"):
         PMGHierarchy(BoxMesh((2, 2, 2)), degrees=(1, 2), device="cpu",
                      operator="kron_blocked", dtype=torch.float64)
