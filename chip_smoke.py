@@ -4,16 +4,19 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, builds the port's CUDA kernels from
-its sources and drives the flagship solve (unfused and with the fused
-Chebyshev smoother, the refined, W-cycle and FMG modes), the curved-hex
-solve and the serving (transient) steppers through them. Every phase
-raises on failure; nothing is caught.
+its sources and drives the flagship solve (unfused, with the fused
+Chebyshev smoother and with the fused p-transfers, the refined, W-cycle
+and FMG modes), the whole-lattice Kronecker operator, the curved-hex
+solve and operator (streamed, z-grouped and in-kernel geometry) and the
+serving (transient) steppers through them. Every phase raises on
+failure; nothing is caught.
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch,
    CUDA and nvcc versions. Fails when ``torch.cuda.is_available()`` is
    False.
-2. Build the kernels (``csrc/kron_blocked.cu``, ``csrc/lattice_blocked.cu``
-   and ``csrc/kron_packed.cu``, one nvcc each, started together, sm_90a).
+2. Build the kernels (``csrc/kron_blocked.cu``, ``csrc/lattice_blocked.cu``,
+   ``csrc/kron_packed.cu``, ``csrc/transfer.cu`` and ``csrc/kron_fused.cu``,
+   one nvcc each, started together, sm_90a).
 3. Kernel parity: each kernel against its plain torch version at
    2,048,383 dofs (nc=21, p=6, 127^3) and 16,194,277 dofs (nc=42, p=6,
    253^3), seeded inputs, sigma in {0, 0.5}; relative max-norm error
@@ -27,6 +30,19 @@ raises on failure; nothing is caught.
    At 253^3 the ops entry points ``blocked_kron_apply``,
    ``blocked_kron_residual`` and ``blocked_kron_cheb4`` run between a reset
    and a read of the launch counts: each of the four kernels must launch.
+3c. Transfer kernel parity: ``transfer_x`` (#10) and ``transfer_yz`` (#11)
+   alone and as ``blocked_transfer`` against the plain torch versions for
+   the main path's two pairs, 253^3 <-> 127^3 (p 6 <-> 3) and 127^3 <->
+   43^3 (p 3 <-> 1), restrict and prolong, seeded x; relative max-norm
+   <= 1e-5. Kernel, plain (in turns) and library times (one
+   ``torch.einsum("ax,by,cz,xyz->abc")`` call, never used by the port)
+   beside the bound.
+3d. The whole-lattice Kronecker apply: ``PallasKronLaplacian(BoxMesh((21,
+   21, 21)), 6)`` (2,048,383 dofs, the headline metric's size) between a
+   reset and a read of the ``kron_fused`` count (one apply and the timed
+   applies); relative max-norm <= 1e-5 against its plain version and
+   <= 1e-4 against ``PallasKronBlocked`` on the same input (two f32 forms
+   of ``Kt``); ms, GDOF/s, plain ms, bound.
 4. Main path: ``PoissonProblem(nc=(42,42,42), degrees=(1,3,6), kappa=2,
    float32, coarse="fdm", operator="kron_blocked")`` — 10 stationary
    V-cycles (the residual falls on each of the first 4) and FCG(V) to
@@ -45,6 +61,14 @@ raises on failure; nothing is caught.
 4d. At nc=21 (2,048,383 dofs), fused: the W-cycle (``gamma=2``) ends
    below the V-cycle after 6 cycles (f64 residuals of `solve_refined`),
    and ``solve(fmg=True)``'s first residual is below the zero start's.
+4e. The fused p-transfers: ``PMGHierarchy(fuse_transfers=True)``, alone
+   and with ``fuse_smoother=True``, on phase 4's mesh and rhs: one
+   V-cycle launches each transfer kernel exactly 4 times (2 restrict, 2
+   prolong); 10 stationary cycles within 1e-4 of phase 4's (alone) / 4b's
+   (with the fused smoother) trajectory above 5e-3; FCG(V) within one
+   iteration of phase 4's count. V-cycle ms against 4b's in turns, and a
+   `torch.profiler` split of one cycle (transfer kernels against the
+   rest).
 5. In-card reference: the same problem at nc=21 with ``operator="kron"``
    (plain torch) and ``"kron_blocked"``, the second run with the first
    one's calibrated smoother bounds: residual trajectories agree to
@@ -53,10 +77,13 @@ raises on failure; nothing is caught.
 6. Lattice kernel parity: K-A (``lattice_apply``, launched under each
    variant name 'yexp', 'v1' and 'ym') at p=6 on nc=21 (2,048,383 dofs)
    and nc=42 (16,194,277 dofs), and at p=1 and p=3 on nc=42; K-B
-   (``lattice_apply_geom``) at p=6 on nc=21 and nc=42. Seeded x, the
-   geometry of the perturbed mesh, kappa=2; relative max-norm error
-   <= 1e-5 against the plain torch versions; timed in turns plain,
-   kernel, kernel, plain.
+   (``lattice_apply_geom``) at p=6 on nc=21 and nc=42; at nc=42, p=6 K-A
+   on the z-grouped ``Gz`` (``lattice_apply_zgrp``, zb=14 of
+   ``select_zgroup``) against its plain version and against K-A on ``Gt``;
+   ``PallasLatticeBlocked(variant="zgrp")`` with zb in {2, 3} on a small
+   mesh against its plain version and K-A. Seeded x, the geometry of the
+   perturbed mesh, kappa=2; relative max-norm error <= 1e-5 against the
+   plain torch versions; timed in turns plain, kernel, kernel, plain.
 7. Curved main path: ``PoissonProblem(mesh=PerturbedBoxMesh((42,42,42)),
    degrees=(1,3,6), kappa=2, float32, coarse="cg",
    operator="lattice_blocked")`` — 10 stationary V-cycles (the residual
@@ -67,6 +94,10 @@ raises on failure; nothing is caught.
 8. The operator micro-benchmark entry point
    (``examples/mat_free_torch.py --operator lattice_blocked --variant
    geom --mesh perturbed``) at 16.2M dofs, p=6: K-B's launch count rises.
+8b. The same entry point with ``--variant zgrp`` (zb from
+   ``select_zgroup``, 14): ``lattice_apply_zgrp``'s launch count rises.
+   Both runs get phase 7's mesh, so its host geometry factors are not
+   computed again.
 9. Curved in-card reference: nc=21 with ``operator="lattice"`` (plain
    torch) and ``"lattice_blocked"`` under the rules of phase 5.
 10. Serving kernel parity: ``packed_apply`` and ``packed_fdm``
@@ -96,8 +127,9 @@ raises on failure; nothing is caught.
    step, finite state.
 
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
-path, error, time, plain time, and its bound: bytes over 3.35 TB/s or
-f32 operations over 67 TFLOP/s, the larger) and, only when every phase
+path, error, time, plain time, library time where one PyTorch call
+computes the same function, and its bound: bytes over 3.35 TB/s or f32
+operations over 67 TFLOP/s, the larger) and, only when every phase
 passed, the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -123,9 +155,13 @@ SOURCES = {
     "t23_res": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
     "t23_cheb": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
     "lattice_apply": "pmg_dolfinx_tpu_torch/csrc/lattice_blocked.cu",
+    "lattice_apply_zgrp": "pmg_dolfinx_tpu_torch/csrc/lattice_blocked.cu",
     "lattice_apply_geom": "pmg_dolfinx_tpu_torch/csrc/lattice_blocked.cu",
     "packed_apply": "pmg_dolfinx_tpu_torch/csrc/kron_packed.cu",
     "packed_fdm": "pmg_dolfinx_tpu_torch/csrc/kron_packed.cu",
+    "transfer_x": "pmg_dolfinx_tpu_torch/csrc/transfer.cu",
+    "transfer_yz": "pmg_dolfinx_tpu_torch/csrc/transfer.cu",
+    "kron_fused": "pmg_dolfinx_tpu_torch/csrc/kron_fused.cu",
 }
 TPU_KERNELS = {
     "t1_m": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:125",
@@ -138,12 +174,16 @@ TPU_KERNELS = {
     "lattice_apply": ("pmg_dolfinx_tpu/ops/pallas_lattice_blocked.py:117 "
                       "(_kernel_lattice_yx 'yexp'; also :69 _kernel_lattice "
                       "'v1' and :220 _kernel_lattice_ym 'ym')"),
+    "lattice_apply_zgrp": "pmg_dolfinx_tpu/ops/pallas_lattice_blocked.py:332",
     "lattice_apply_geom": "pmg_dolfinx_tpu/ops/pallas_lattice_blocked.py:411",
     "packed_apply": ("pmg_dolfinx_tpu/ops/pallas_kron_packed.py:64 "
                      "(_packed_kernel; also :471 _packed_single_kernel)"),
     "packed_fdm": ("pmg_dolfinx_tpu/ops/pallas_kron_packed.py:273 "
                    "(_packed_fdm_kernel; also :797 "
                    "_packed_fdm_single_kernel)"),
+    "transfer_x": "pmg_dolfinx_tpu/ops/pallas_transfer.py:48",
+    "transfer_yz": "pmg_dolfinx_tpu/ops/pallas_transfer.py:56",
+    "kron_fused": "pmg_dolfinx_tpu/ops/pallas_kron.py:43",
 }
 KERNEL_RTOL = 1e-5
 REF_TRAJ_FROM = 5e-3
@@ -295,7 +335,7 @@ def kernel_parity(nc, P, kappa=2.0):
     return out
 
 
-def kernel_bound(name, N, P, nc=None, B=None, dims=None):
+def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None):
     """The least time (ms) the card could take for one launch of kernel
     ``name`` at the shape its ``ms`` was measured on, and what bounds it:
     the larger of its bytes (each input read once, each output written
@@ -303,7 +343,10 @@ def kernel_bound(name, N, P, nc=None, B=None, dims=None):
     as the kernels run them) over the f32 peak. ``N`` is the lattice's
     dofs, ``P`` the degree (band half-width), ``nc`` the cells per axis
     (lattice kernels), ``B`` the batch and ``dims`` the lattice extents
-    (serving kernels)."""
+    (serving kernels; the transfers' ``(NX, NY, NZ, A)`` / ``(A, NY, NZ,
+    B, C)``, the whole-lattice apply's ``(NX, NY, NZ)``). ``terms`` counts
+    the nonzero-range products these inputs need (`transfer_terms`,
+    `kron_fused_terms`)."""
     D = 2 * P + 1
     n = P + 1
     if name in ("t1_m", "t1", "t23_m", "t23", "t23_res_m", "t23_res",
@@ -316,10 +359,10 @@ def kernel_bound(name, N, P, nc=None, B=None, dims=None):
         flops = {"t1_m": 2 * D + 2, "t1": 2 * D + 1, "t23_m": 4 * D + 10,
                  "t23": 4 * D + 8, "t23_res_m": 4 * D + 11,
                  "t23_res": 4 * D + 9, "t23_cheb": 4 * D + 14}[name] * N
-    elif name in ("lattice_apply", "lattice_apply_geom"):
+    elif name in ("lattice_apply", "lattice_apply_zgrp", "lattice_apply_geom"):
         cells = nc[0] * nc[1] * nc[2]
         Q = cells * n**3
-        geom = 24 * Q if name == "lattice_apply" else 4 * 37 * cells
+        geom = 4 * 37 * cells if name == "lattice_apply_geom" else 24 * Q
         nbytes = 9 * N + geom
         flops = (12 * n + 15 + (120 if name == "lattice_apply_geom" else 0)) * Q
     elif name == "packed_apply":
@@ -328,6 +371,18 @@ def kernel_bound(name, N, P, nc=None, B=None, dims=None):
     elif name == "packed_fdm":
         nbytes = 8 * B * N + 5 * N
         flops = (4 * sum(dims) + 1) * B * N
+    elif name == "transfer_x":           # x3 and Mx read, t written
+        NX, NY, NZ, A = dims
+        nbytes = 4 * (NX + A) * NY * NZ + 4 * A * NX
+        flops = 2 * terms
+    elif name == "transfer_yz":          # t, My, MzT read, out written
+        A, NY, NZ, B_, C = dims
+        nbytes = 4 * A * (NY * NZ + B_ * C) + 4 * (B_ * NY + NZ * C)
+        flops = 2 * terms
+    elif name == "kron_fused":           # x, marker, planes read, y written
+        NX, NY, NZ = dims
+        nbytes = 9 * N + 4 * (NY * NZ + NX * NZ + NX * NY)
+        flops = 2 * terms + 5 * N
     else:
         raise KeyError(name)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -454,10 +509,159 @@ def turns(plain, kern):
     return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
 
 
-def lattice_parity(mesh, P, geom):
-    """Phase 6 at one size: K-A under each variant name (and K-B when
-    ``geom``) against the plain versions; returns {kernel: (max_abs_err,
-    ms, plain_ms)}."""
+def range_terms(M, axis):
+    """The products a banded sum over ``M``'s rows (``axis=0``) or columns
+    (``axis=1``) needs: the total length of their nonzero ranges."""
+    from pmg_dolfinx_tpu_torch.ops.transfer import nonzero_ranges
+
+    lo, hi = nonzero_ranges(M, axis).long()
+    return int((hi - lo).sum())
+
+
+def transfer_parity():
+    """Phase 3c: kernels #10/#11 against their plain versions on the main
+    path's two transfer pairs, both directions. Returns ({kernel:
+    (max_abs_err, ms, plain_ms)}, {kernel: (bound_ms, by)}, {kernel:
+    library_ms}) measured on the fine restriction 253^3 -> 127^3."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import transfer as tt
+    from pmg_dolfinx_tpu_torch.ops.lattice import axis_interpolation_matrix
+
+    out, bounds, library = {}, {}, {}
+    abs_err = {"transfer_x": 0.0, "transfer_yz": 0.0}
+    for nc, pc, pf in ((42, 3, 6), (42, 1, 3)):
+        I = torch.tensor(axis_interpolation_matrix(nc, pc, pf),
+                         dtype=torch.float32, device="cuda")
+        for direction in ("restrict", "prolong"):
+            Mx, My, MzT = tt.transfer_mats((I, I, I), direction)
+            n = nc * (pf if direction == "restrict" else pc) + 1
+            A = Mx.shape[0]
+            tag = f"{direction} {n}^3 -> {A}^3 (p {pc} <-> {pf})"
+            rng = np.random.default_rng(SEED + n)
+            x3 = torch.tensor(rng.standard_normal((n, n, n), dtype=np.float32),
+                              device="cuda")
+            t_ref = tt.plain_transfer_x(x3, Mx)
+            y_ref = tt.plain_transfer_yz(t_ref, My, MzT)
+            Mz = MzT.T.contiguous()        # the library call's operand
+            lib_pair = lambda: torch.einsum("ax,by,cz,xyz->abc", Mx, My, Mz,
+                                            x3)
+            for name, got, ref in (
+                    ("transfer_x", tt.transfer_x(x3, Mx), t_ref),
+                    ("transfer_yz", tt.transfer_yz(t_ref, My, MzT), y_ref),
+                    ("blocked_transfer", tt.blocked_transfer(x3, Mx, My, MzT),
+                     y_ref),
+                    ("library einsum", lib_pair(), y_ref)):
+                torch.cuda.synchronize()
+                err = rel_max_err(got, ref)
+                print(f"    {tag} {name}: rel max err {err:.3e}")
+                if not err <= KERNEL_RTOL:
+                    raise AssertionError(f"{name} {tag}: relative max-norm "
+                                         f"error {err:.3e} > {KERNEL_RTOL}")
+                if name in abs_err:
+                    abs_err[name] = max(abs_err[name],
+                                        float((got - ref).abs().max()))
+            bx = kernel_bound("transfer_x", 0, 0, dims=(n, n, n, A),
+                              terms=range_terms(Mx, 0) * n * n)
+            byz = kernel_bound("transfer_yz", 0, 0, dims=(A, n, n, A, A),
+                               terms=A * (range_terms(My, 0) * n
+                                          + A * range_terms(MzT, 1)))
+            ms_k, ms_p, four = turns(
+                lambda: tt.plain_transfer(x3, Mx, My, MzT),
+                lambda: tt.blocked_transfer(x3, Mx, My, MzT))
+            ms_l = cuda_ms(lib_pair, reps=5, warmup=1)
+            print(f"    {tag}: kernels {ms_k:.4f} ms, plain {ms_p:.4f} ms "
+                  f"(turns {[round(t, 4) for t in four]}), library "
+                  f"{ms_l:.4f} ms, bound {bx[0] + byz[0]:.4f} ms "
+                  f"(transfer_x {bx[0]:.4f} {bx[1]}, transfer_yz "
+                  f"{byz[0]:.4f} {byz[1]})")
+            if (pf, direction) != (6, "restrict"):
+                continue
+            # Each kernel alone on the fine restriction, the V-cycle's
+            # largest transfer; its library yardstick is one call each.
+            for name, plain, kern, lib, bound in (
+                    ("transfer_x", lambda: tt.plain_transfer_x(x3, Mx),
+                     lambda: tt.transfer_x(x3, Mx),
+                     lambda: torch.matmul(Mx, x3.view(n, -1)), bx),
+                    ("transfer_yz", lambda: tt.plain_transfer_yz(t_ref, My,
+                                                                 MzT),
+                     lambda: tt.transfer_yz(t_ref, My, MzT),
+                     lambda: torch.einsum("by,ayz,zc->abc", My, t_ref, MzT),
+                     byz)):
+                ms_k, ms_p, four = turns(plain, kern)
+                library[name] = cuda_ms(lib, reps=5, warmup=1)
+                out[name] = (abs_err[name], ms_k, ms_p)
+                bounds[name] = bound
+                print(f"    {tag} {name}: kernel {ms_k:.4f} ms vs plain "
+                      f"{ms_p:.4f} ms (turns {[round(t, 4) for t in four]}), "
+                      f"library {library[name]:.4f} ms, bound "
+                      f"{bound[0]:.4f} ms ({bound[1]})")
+    for name in abs_err:
+        out[name] = (abs_err[name],) + out[name][1:]
+    return out, bounds, library
+
+
+def kron_fused_path():
+    """Phase 3d: ``PallasKronLaplacian`` at 2,048,383 dofs, p=6. Returns
+    ({"kron_fused": (max_abs_err, ms, plain_ms)}, launches on the path,
+    (bound_ms, by))."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops import kron_fused as kf
+
+    mesh, P = BoxMesh((21, 21, 21)), 6
+    x = torch.tensor(np.random.default_rng(SEED + 12).standard_normal(
+        mesh.num_dofs(P), dtype=np.float32), device="cuda")
+    for k in kf.LAUNCHES:
+        kf.LAUNCHES[k] = 0
+    op = kf.PallasKronLaplacian(mesh, P, kappa=2.0, device="cuda")
+    y = op(x)
+    ms_path = cuda_ms(lambda: op(x), reps=50)
+    torch.cuda.synchronize()
+    launches = kf.LAUNCHES["kron_fused"]
+    N = op.ndofs
+    print(f"    {op.shape} ({N} dofs): {ms_path:.4f} ms per apply = "
+          f"{N / ms_path / 1e6:.3f} GDOF/s (50 back-to-back); launches "
+          f"{launches}")
+    if not (launches > 0 and tuple(y.shape) == (N,)
+            and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"PallasKronLaplacian: launches {launches}, "
+                             f"shape {tuple(y.shape)}")
+    x3 = x.reshape(op.shape)
+    ref = kf.plain_kron_fused(x3, op.bc3, op.Ks, op.planes).reshape(-1)
+    err = rel_max_err(y, ref)
+    opb = kb.PallasKronBlocked(mesh, P, kappa=2.0, device="cuda")
+    yb = opb(x)
+    torch.cuda.synchronize()
+    d = rel_max_err(y, yb)
+    print(f"    kron_fused vs plain: rel max err {err:.3e}; vs "
+          f"PallasKronBlocked: {d:.3e}")
+    if not err <= KERNEL_RTOL:
+        raise AssertionError(f"kron_fused: {err:.3e} > {KERNEL_RTOL}")
+    if not d <= 1e-4:
+        raise AssertionError(f"PallasKronLaplacian and PallasKronBlocked "
+                             f"differ: {d:.3e}")
+    ms_k, ms_p, four = turns(
+        lambda: kf.plain_kron_fused(x3, op.bc3, op.Ks, op.planes),
+        lambda: kf.kron_fused(x3, op.bc3, op.Ks, op.planes, op.ranges))
+    ms_b = cuda_ms(lambda: opb(x3))
+    terms = sum(range_terms(K, 0) * N // n for K, n in zip(op.Ks, op.shape))
+    bound = kernel_bound("kron_fused", N, P, dims=op.shape, terms=terms)
+    print(f"    kron_fused: kernel {ms_k:.4f} ms vs plain {ms_p:.4f} ms "
+          f"(turns {[round(t, 4) for t in four]}); PallasKronBlocked "
+          f"{ms_b:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})")
+    return ({"kron_fused": (float((y - ref).abs().max()), ms_k, ms_p)},
+            launches, bound)
+
+
+def lattice_parity(mesh, P, geom, zgrp=False):
+    """Phase 6 at one size: K-A under each variant name (K-B when
+    ``geom``, K-A on the z-grouped geometry when ``zgrp``) against the
+    plain versions; returns {kernel: (max_abs_err, ms, plain_ms)}."""
     import numpy as np
     import torch
 
@@ -472,9 +676,9 @@ def lattice_parity(mesh, P, geom):
     print(f"    nc={nc[0]} p={P}: host f64 geometry factors "
           f"{time.perf_counter() - ts:.1f} s; peak host RSS so far "
           f"{peak_rss_gb():.1f} GB")
-    Gt = torch.tensor(lb.geometry_to_gfirst(geometry_to_qlattice(
-        scale_G(G_cells, kc, None), nc, P)), dtype=torch.float32,
-        device="cuda")
+    Gq = geometry_to_qlattice(scale_G(G_cells, kc, None), nc, P)
+    Gt = torch.tensor(lb.geometry_to_gfirst(Gq), dtype=torch.float32,
+                      device="cuda")
     mats = lb.lattice_blocked_mats(nc, P, device="cuda")
     bc = torch.tensor(mesh.boundary_dof_marker(P), device="cuda")
     rng = np.random.default_rng(SEED + 100 * P + nc[0])
@@ -502,7 +706,39 @@ def lattice_parity(mesh, P, geom):
           f"{ms_p:.4f} ms (turns {[round(t, 4) for t in four]}); "
           f"{x.numel() / ms_k / 1e6:.3f} GDOF/s")
     out["lattice_apply"] = (abs_err, ms_k, ms_p)
-    del Gt, ref
+    if zgrp:
+        # K-A on Gz read in place: the same sums on the same values as on
+        # Gt, so its result is K-A's.
+        y_gt = lb.blocked_lattice_apply(x, mats, Gt, bc, nc, P)
+        del Gt, ref
+        zb = lb.select_zgroup(nc[2], P)
+        Gz = torch.tensor(lb.geometry_to_zgrouped(Gq, zb, P),
+                          dtype=torch.float32, device="cuda")
+        zmats = lb.zgroup_matrices(zb, P, device="cuda")
+        ref = lb.plain_lattice_apply_zgrp(x, mats, Gz, bc, nc, P, zb)
+        got = lb.blocked_lattice_apply_zgrp(x, mats, zmats, Gz, bc, nc, P, zb)
+        torch.cuda.synchronize()
+        err, d = rel_max_err(got, ref), rel_max_err(got, y_gt)
+        print(f"    {tag} lattice_apply_zgrp (zb={zb}): rel max err "
+              f"{err:.3e}; vs K-A on Gt {d:.3e} (bitwise equal: "
+              f"{bool(torch.equal(got, y_gt))})")
+        if not (err <= KERNEL_RTOL and d <= KERNEL_RTOL):
+            raise AssertionError(f"lattice_apply_zgrp at {tag}: {err:.3e}, "
+                                 f"vs K-A {d:.3e}")
+        abs_err = float((got - ref).abs().max())
+        del ref, got, y_gt
+        ms_k, ms_p, four = turns(
+            lambda: lb.plain_lattice_apply_zgrp(x, mats, Gz, bc, nc, P, zb),
+            lambda: lb.blocked_lattice_apply_zgrp(x, mats, zmats, Gz, bc, nc,
+                                                  P, zb))
+        print(f"    {tag} lattice_apply_zgrp: kernel {ms_k:.4f} ms vs plain "
+              f"{ms_p:.4f} ms (turns {[round(t, 4) for t in four]}); "
+              f"{x.numel() / ms_k / 1e6:.3f} GDOF/s")
+        out["lattice_apply_zgrp"] = (abs_err, ms_k, ms_p)
+        del Gz
+    else:
+        del Gt, ref
+    del Gq
     if geom:
         co = torch.tensor(lb.lattice_geom_coefficients(mesh, P, kc),
                           dtype=torch.float32, device="cuda")
@@ -528,6 +764,34 @@ def lattice_parity(mesh, P, geom):
     return out
 
 
+def zgrp_small():
+    """Phase 6: ``PallasLatticeBlocked(variant="zgrp")`` with zb in {2, 3}
+    on a small curved mesh (ncz = 6) against its plain version and K-A."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    mesh, P = PerturbedBoxMesh((5, 4, 6)), 6
+    k_a = lb.PallasLatticeBlocked(mesh, P, kappa=2.0, device="cuda")
+    x = torch.tensor(np.random.default_rng(SEED + 16).standard_normal(
+        k_a.ndofs, dtype=np.float32), device="cuda")
+    y_a = k_a(x)
+    for zb in (2, 3):
+        op = lb.PallasLatticeBlocked(mesh, P, kappa=2.0, variant="zgrp",
+                                     zb=zb, device="cuda")
+        got = op(x)
+        ref = lb.plain_lattice_apply_zgrp(x, op.mats, op.Gz, op.bc_marker,
+                                          mesh.nc, P, zb)
+        torch.cuda.synchronize()
+        err, d = rel_max_err(got, ref), rel_max_err(got, y_a)
+        print(f"    {mesh.nc} p={P} zgrp zb={zb}: rel max err {err:.3e}; vs "
+              f"K-A {d:.3e}")
+        if not (err <= KERNEL_RTOL and d <= KERNEL_RTOL):
+            raise AssertionError(f"zgrp zb={zb}: {err:.3e}, vs K-A {d:.3e}")
+
+
 def f64_diagonal(mesh, P, kappa=2.0):
     """The operator diagonal in f64 on the host (sequential sums)."""
     import torch
@@ -544,20 +808,33 @@ def f64_diagonal(mesh, P, kappa=2.0):
         torch.tensor(mesh.boundary_dof_marker(P)), mesh.num_dofs(P))
 
 
-def run_mat_free(args):
+def run_mat_free(args, mesh=None):
     """Runs ``examples/mat_free_torch.py`` in this process (so its kernel
-    launches count here) and returns its last JSON line."""
+    launches count here) and returns its last JSON line. With ``mesh``,
+    the ``PerturbedBoxMesh`` the example builds for the same cells is that
+    instance, so its cached host geometry factors are not computed
+    again."""
+    from pmg_dolfinx_tpu_torch.fem import mesh as fem_mesh
+
     spec = importlib.util.spec_from_file_location(
         "mat_free_torch", ROOT / "examples" / "mat_free_torch.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    argv, buf = sys.argv, io.StringIO()
+
+    def reuse(nc):
+        if tuple(nc) != tuple(mesh.nc):
+            raise AssertionError(f"mat_free built {nc}, not {mesh.nc}")
+        return mesh
+
+    argv, saved, buf = sys.argv, fem_mesh.PerturbedBoxMesh, io.StringIO()
     sys.argv = ["mat_free_torch.py", *args]
+    if mesh is not None:
+        fem_mesh.PerturbedBoxMesh = reuse
     try:
         with contextlib.redirect_stdout(buf):
             mod.main()
     finally:
-        sys.argv = argv
+        sys.argv, fem_mesh.PerturbedBoxMesh = argv, saved
     text = buf.getvalue()
     print("    " + text.strip().replace("\n", "\n    "))
     return json.loads(text.strip().splitlines()[-1])
@@ -961,7 +1238,80 @@ def fused_path(prob, hier, rel_ref, u_ref, niter_ref, cfg, launches):
               f"{max(0.0, 1 - busy / wall):.1%}")
         for kname, ms in top[:10]:
             print(f"      {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
-    return fused, u
+    return fused, u, rel
+
+
+def fused_transfer_path(prob, hier, fused, rel_ref, rel_fused, niter_ref,
+                        cfg, launches):
+    """Phase 4e: ``PMGHierarchy(fuse_transfers=True)`` alone and with
+    ``fuse_smoother=True`` on phase 4's mesh and rhs, against phase 4's
+    (``hier``, ``rel_ref``) and 4b's (``fused``, ``rel_fused``) hierarchies.
+    Adds the transfer kernels' launches on this path to ``launches``."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import transfer as tt
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    b1 = torch.ones_like(prob.b)
+    u0 = torch.zeros_like(b1)
+    path = {k: 0 for k in tt.LAUNCHES}
+    for tag, smoother, ref_h, ref_rel in (
+            ("fuse_transfers", False, hier, rel_ref),
+            ("fuse_transfers + fuse_smoother", True, fused, rel_fused)):
+        for k in tt.LAUNCHES:
+            tt.LAUNCHES[k] = 0
+        ts = time.perf_counter()
+        h = PMGHierarchy(prob.mesh, operator="kron_blocked",
+                         fuse_transfers=True, fuse_smoother=smoother, **cfg)
+        torch.cuda.synchronize()
+        print(f"    {tag}: setup seconds {time.perf_counter() - ts:.2f}")
+        _, rn = h.solve(prob.b, num_cycles=10)
+        rel = [r / r0 for r in rn]
+        traj = traj_diff(rel, ref_rel)
+        u, niter = h.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+        torch.cuda.synchronize()
+        for k in path:
+            path[k] += tt.LAUNCHES[k]
+        print(f"    {tag}: rel {[f'{v:.4e}' for v in rel]}; trajectory max "
+              f"rel diff against the einsum transfers (cycles above "
+              f"{REF_TRAJ_FROM:g}) {traj:.3e}; FCG(V) {niter} (phase 4: "
+              f"{niter_ref}); launches {dict(tt.LAUNCHES)}")
+        if not traj <= FUSED_TRAJ_RTOL:
+            raise AssertionError(f"{tag}: trajectories differ: {traj}")
+        if abs(niter - niter_ref) > 1:
+            raise AssertionError(f"{tag}: FCG counts differ: {niter} vs "
+                                 f"{niter_ref}")
+        if not bool(torch.isfinite(u).all()):
+            raise AssertionError(f"{tag}: the FCG solution is not finite")
+        # One V-cycle: 2 restrictions and 2 prolongations, each kernel
+        # #10 then #11.
+        for k in tt.LAUNCHES:
+            tt.LAUNCHES[k] = 0
+        h.apply(b1, u0)
+        torch.cuda.synchronize()
+        if tt.LAUNCHES != {"transfer_x": 4, "transfer_yz": 4}:
+            raise AssertionError(f"{tag}: one V-cycle launched "
+                                 f"{tt.LAUNCHES}, not 4 transfers")
+        # reference, fused transfers, fused transfers, reference
+        t_r1, _ = vcycle_ms(ref_h)
+        t_f1, all_f1 = vcycle_ms(h)
+        t_f2, all_f2 = vcycle_ms(h)
+        t_r2, _ = vcycle_ms(ref_h)
+        print(f"    {tag}: V-cycle {(t_f1 + t_f2) / 2:.3f} ms ({t_f1:.3f}, "
+              f"{t_f2:.3f}; reps {[round(t, 3) for t in all_f1 + all_f2]}) "
+              f"vs einsum transfers {(t_r1 + t_r2) / 2:.3f} ms ({t_r1:.3f}, "
+              f"{t_r2:.3f}); 10 back-to-back, median of 3, in turns")
+        wall, busy, nk, by_name = profile_busy(lambda: h.apply(b1, u0))
+        tms = sum(v for k, v in by_name.items() if "transfer" in k)
+        print(f"    profile, one {tag} V-cycle: wall {wall:.3f} ms, device "
+              f"busy {busy:.3f} ms, {nk} kernels; transfer kernels "
+              f"{tms:.4f} ms ({tms / busy:.1%}), the rest "
+              f"{busy - tms:.4f} ms")
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"      {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
+        del h, u
+    launches.update(path)
 
 
 def refined_path(fused, b):
@@ -1055,16 +1405,19 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[-1])
     done(t0)
 
+    from pmg_dolfinx_tpu_torch.ops import kron_fused as kf
     from pmg_dolfinx_tpu_torch.ops import kron_packed as kp
     from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+    from pmg_dolfinx_tpu_torch.ops import transfer as tt
 
     t0 = phase("2. build kernels")
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        for fut in [pool.submit(m.load_kernels) for m in (kb, lb, kp)]:
+    modules = (kb, lb, kp, tt, kf)
+    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
+        for fut in [pool.submit(m.load_kernels) for m in modules]:
             fut.result()
-    print(f"    build seconds (three sources, in parallel): "
+    print(f"    build seconds ({len(modules)} sources, in parallel): "
           f"{time.perf_counter() - t0:.2f}")
-    for mod in (kb, lb, kp):
+    for mod in modules:
         for line in mod.BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
@@ -1083,6 +1436,17 @@ def main():
     full_bc, launches = full_bc_parity(42, 6, path=True)
     main_shape.update({k: (max(v[0], band3[k][0]),) + v[1:]
                        for k, v in full_bc.items()})
+    done(t0)
+
+    t0 = phase("3c. transfer kernels #10/#11 vs plain torch: 253^3 <-> "
+               "127^3 and 127^3 <-> 43^3")
+    res_t, bounds, library = transfer_parity()
+    main_shape.update(res_t)
+    done(t0)
+
+    t0 = phase("3d. PallasKronLaplacian (kernel #12): 2,048,383 dofs, p=6")
+    res_k, launches["kron_fused"], bounds["kron_fused"] = kron_fused_path()
+    main_shape.update(res_k)
     done(t0)
 
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
@@ -1152,17 +1516,24 @@ def main():
 
     t0 = phase("4b. fused main path: 16.2M dofs, kron_blocked + fdm, "
                "fuse_smoother=True")
-    fused, u_fused = fused_path(prob, hier, rel, u, niter, cfg, launches)
+    fused, u_fused, rel_fused = fused_path(prob, hier, rel, u, niter, cfg,
+                                           launches)
     done(t0)
 
     t0 = phase("4c. solve_refined on the fused hierarchy: f64 outer "
                "residual, 16.2M dofs")
     refined_path(fused, prob.b)
-    del prob, u, hier, fused, u_fused
     done(t0)
 
     t0 = phase("4d. W-cycle and FMG at nc=21 (2,048,383 dofs), fused")
     cycle_modes(cfg)
+    done(t0)
+
+    t0 = phase("4e. fused p-transfers: 16.2M dofs, kron_blocked + fdm, "
+               "fuse_transfers=True (alone and with fuse_smoother)")
+    fused_transfer_path(prob, hier, fused, rel, rel_fused, niter, cfg,
+                        launches)
+    del prob, u, hier, fused, u_fused
     done(t0)
 
     t0 = phase("5. in-card reference: nc=21, kron (plain) vs kron_blocked, "
@@ -1232,7 +1603,8 @@ def main():
     lattice_parity(PerturbedBoxMesh((21, 21, 21)), 6, geom=True)
     lattice_parity(curved, 1, geom=False)
     lattice_parity(curved, 3, geom=False)
-    main_shape.update(lattice_parity(curved, 6, geom=True))
+    main_shape.update(lattice_parity(curved, 6, geom=True, zgrp=True))
+    zgrp_small()
     done(t0)
 
     t0 = phase("7. curved main path: 16.2M dofs, p=(1,3,6), lattice_blocked "
@@ -1295,22 +1667,26 @@ def main():
     del plain_hier
     done(t0)
 
-    t0 = phase("8. operator micro-benchmark entry point, K-B: 16.2M dofs, "
-               "p=6")
+    for step, variant, name in (("8", "geom", "lattice_apply_geom"),
+                                ("8b", "zgrp", "lattice_apply_zgrp")):
+        t0 = phase(f"{step}. operator micro-benchmark entry point, "
+                   f"--variant {variant}: 16.2M dofs, p=6")
+        for k in lb.LAUNCHES:
+            lb.LAUNCHES[k] = 0
+        mf = run_mat_free(["--ndofs", "16194277", "--degree", "6", "--mesh",
+                           "perturbed", "--operator", "lattice_blocked",
+                           "--variant", variant, "--reps", "50"],
+                          mesh=curved)
+        launches[name] = lb.LAUNCHES[name]
+        print(f"    kernel launches on this path: {dict(lb.LAUNCHES)}")
+        if not launches[name] > 0:
+            raise AssertionError(f"{name} was not launched: "
+                                 f"{dict(lb.LAUNCHES)}")
+        if not (mf["device"] == torch.cuda.get_device_name(0)
+                and mf["ms_per_apply"] > 0):
+            raise AssertionError(f"mat_free did not time the card: {mf}")
+        done(t0)
     del curved
-    for k in lb.LAUNCHES:
-        lb.LAUNCHES[k] = 0
-    mf = run_mat_free(["--ndofs", "16194277", "--degree", "6", "--mesh",
-                       "perturbed", "--operator", "lattice_blocked",
-                       "--variant", "geom", "--reps", "50"])
-    launches["lattice_apply_geom"] = lb.LAUNCHES["lattice_apply_geom"]
-    print(f"    kernel launches on this path: {dict(lb.LAUNCHES)}")
-    if not launches["lattice_apply_geom"] > 0:
-        raise AssertionError(f"K-B was not launched: {dict(lb.LAUNCHES)}")
-    if not (mf["device"] == torch.cuda.get_device_name(0)
-            and mf["ms_per_apply"] > 0):
-        raise AssertionError(f"mat_free did not time the card: {mf}")
-    done(t0)
 
     t0 = phase("9. curved in-card reference: nc=21, lattice (plain) vs "
                "lattice_blocked")
@@ -1376,7 +1752,9 @@ def main():
 
     kernels = []
     for name in SOURCES:
-        if name.startswith("lattice"):
+        if name in bounds:       # measured with its own inputs (3c, 3d)
+            bound, by = bounds[name]
+        elif name.startswith("lattice"):
             bound, by = kernel_bound(name, 253**3, 6, nc=(42, 42, 42))
         elif name.startswith("packed"):
             bound, by = kernel_bound(name, 61**3, PACKED_P, B=8,
@@ -1388,7 +1766,7 @@ def main():
              "replaces": TPU_KERNELS[name], "launches": launches[name],
              "max_abs_err": main_shape[name][0], "ms": main_shape[name][1],
              "plain_ms": main_shape[name][2], "bound_ms": bound,
-             "bound_by": by, "library_ms": None})
+             "bound_by": by, "library_ms": library.get(name)})
         print(f"    {name}: {main_shape[name][1]:.4f} ms, bound "
               f"{bound:.4f} ms ({by}), {bound / main_shape[name][1]:.0%} "
               "of the bound's rate")

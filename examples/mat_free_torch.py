@@ -10,6 +10,9 @@ checks the operator against the assembled scipy stiffness matrix.
         --operator lattice_blocked --mesh perturbed
     python examples/mat_free_torch.py --device cpu --ndofs 20000 \\
         --degree 3 --operator lattice_blocked --variant geom --mat_comp
+    python examples/mat_free_torch.py --device cpu --ndofs 24000 \\
+        --degree 3 --operator lattice_blocked --variant zgrp --zb 2 \\
+        --mesh perturbed --mat_comp
 
 ``kron_blocked`` and ``lattice_blocked`` run the hand-written CUDA
 kernels (float32); on ``--device cpu`` they run their plain torch
@@ -35,11 +38,15 @@ def main():
                    choices=["dofmap", "lattice", "lattice_blocked", "kron",
                             "kron_blocked"],
                    default="kron")
-    p.add_argument("--variant", choices=["yexp", "v1", "ym", "geom", ""],
+    p.add_argument("--variant",
+                   choices=["yexp", "v1", "ym", "geom", "zgrp", ""],
                    default="",
                    help="lattice_blocked variant: 'yexp'/'v1'/'ym' stream "
-                        "G (one CUDA kernel), 'geom' rebuilds G in the "
-                        "kernel")
+                        "G (one CUDA kernel), 'zgrp' the z-grouped G (the "
+                        "same kernel), 'geom' rebuilds G in the kernel")
+    p.add_argument("--zb", type=int, default=0,
+                   help="z-group size for --variant zgrp (default: the "
+                        "select_zgroup choice)")
     p.add_argument("--mesh", choices=["box", "perturbed"], default="box")
     p.add_argument("--kappa", type=float, default=2.0)
     p.add_argument("--degree", type=int, default=4)
@@ -86,7 +93,8 @@ def main():
             PallasLatticeBlocked,
         )
 
-        op = PallasLatticeBlocked(mesh, P, variant=args.variant or None, **kw)
+        op = PallasLatticeBlocked(mesh, P, variant=args.variant or None,
+                                  zb=args.zb or None, **kw)
     elif args.operator == "lattice":
         from pmg_dolfinx_tpu_torch.ops.lattice import LatticeLaplacian
 

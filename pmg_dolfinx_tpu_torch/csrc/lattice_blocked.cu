@@ -8,6 +8,13 @@
 //        out over VMEM and the MXU; on this card one kernel computes it.
 //   K-B  lattice_apply_geom  <- _kernel_lattice_geom ('geom'): the same y,
 //        with G rebuilt per quadrature point from 37 floats per cell.
+//   K-A  lattice_apply_zgrp  <- _kernel_lattice_zg ('zgrp'): the same y,
+//        with G in the TPU kernel's z-grouped layout Gz (Qx, 6*ngz, Qy,
+//        zb*n). The TPU kernel groups z so that its MXU contracts small
+//        shared group matrices instead of the dense (NZ, Qz) pair; here the
+//        z contraction is already cell by cell, so K-A reads Gz in place:
+//        point qz = cz*n + iz lies in group qz / (zb*n) at column
+//        qz % (zb*n). Only the geometry's addressing differs.
 //
 // Operator (per cell, n = P+1 GLL points per axis, D = the 1D GLL
 // derivative matrix D[q][m] = l_m'(x_q)):
@@ -31,12 +38,14 @@
 // register pressure decide in practice.
 //
 // Design.
-// 1. lattice_cells<N, GEOM>: a block owns one (cx, cy) cell column and a
+// 1. lattice_cells<N, GEO>: a block owns one (cx, cy) cell column and a
 //    chunk of ZC(N) cells along z; thread (qz, j) owns the x-line
 //    (i = 0..n-1) of one (j, k) point of one cell, qz = cell * n + k. z is
 //    fastest across threads, so the reads of x, of G (layout
-//    (6, Qx, Qy, Qz), runs of ZC*n floats along z) and the writes of the
-//    partial sums coalesce. The chunk's bc-zeroed dof values sit in shared
+//    (6, Qx, Qy, Qz), runs of ZC*n floats along z; with Gz the runs break
+//    where a chunk crosses a z-group) and the writes of the partial sums
+//    coalesce. GEO picks the geometry: kGt, kZgrp read it, kGeom
+//    rebuilds it. The chunk's bc-zeroed dof values sit in shared
 //    memory; the y and z derivatives read it, the x derivative too (the
 //    same column). The t vectors go to shared memory for the transposed
 //    sums. Each cell writes its n^3 partial results to a cell-expanded
@@ -60,16 +69,22 @@ namespace {
 
 constexpr int kCo = 37;     // per-cell coefficients of K-B
 
+// Where K-A finds the geometry of a quadrature point.
+constexpr int kGt = 0;      // G (6, Qx, Qy, Qz)                    (K-A)
+constexpr int kGeom = 1;    // rebuilt from co (37, ncx, ncy, ncz)  (K-B)
+constexpr int kZgrp = 2;    // Gz (Qx, 6*ngz, Qy, zb*n), z-grouped  (K-A)
+
 // Cells per block along z: ~42 z-threads per j-row of threads.
 template <int N>
 __host__ __device__ constexpr int zc() { return 42 / N > 0 ? 42 / N : 1; }
 
-template <int N, bool GEOM>
+template <int N, int GEO>
 __global__ void __launch_bounds__(N * N * zc<N>())
 lattice_cells(const float* __restrict__ x, const unsigned char* __restrict__ bc,
               const float* __restrict__ G, const float* __restrict__ co,
               const float* __restrict__ D1, const float* __restrict__ gll,
-              float* __restrict__ ycells, int ncx, int ncy, int ncz) {
+              float* __restrict__ ycells, int ncx, int ncy, int ncz, int zbn) {
+  constexpr bool GEOM = GEO == kGeom;
   constexpr int ZC = zc<N>();
   constexpr int W = ZC * N;            // z-extent of the chunk (points)
   constexpr int P = N - 1;
@@ -114,6 +129,10 @@ lattice_cells(const float* __restrict__ x, const unsigned char* __restrict__ bc,
 
   const int qb = qz - k;                    // first z-point of this cell
   const int64_t qy = (int64_t)cy * N + j, qzg = (int64_t)cz0 * N + qz;
+  // kZgrp: Gz[qx][e * ngz + grp][qy][w], the point qzg = grp * zbn + w.
+  const int ngz = GEO == kZgrp ? ncz * N / zbn : 1;
+  const int grp = GEO == kZgrp ? (int)qzg / zbn : 0;
+  const int64_t zrow = ((int64_t)grp * Qy + qy) * zbn + (qzg - (int64_t)grp * zbn);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     float ux = 0.f, uy = 0.f, uz = 0.f;
@@ -160,6 +179,15 @@ lattice_cells(const float* __restrict__ x, const unsigned char* __restrict__ bc,
         g3 = (K10 * K10 + K11 * K11 + K12 * K12) * scale;
         g4 = (K20 * K10 + K21 * K11 + K22 * K12) * scale;
         g5 = (K20 * K20 + K21 * K21 + K22 * K22) * scale;
+      } else if constexpr (GEO == kZgrp) {
+        const int64_t e = (int64_t)ngz * Qy * zbn;
+        const int64_t o = ((int64_t)cx * N + i) * 6 * e + zrow;
+        g0 = G[o];
+        g1 = G[o + e];
+        g2 = G[o + 2 * e];
+        g3 = G[o + 3 * e];
+        g4 = G[o + 4 * e];
+        g5 = G[o + 5 * e];
       } else {
         const int64_t e = Qx * Qy * Qz;
         const int64_t o = (((int64_t)cx * N + i) * Qy + qy) * Qz + qzg;
@@ -237,30 +265,32 @@ lattice_fold(const float* __restrict__ ycells, const float* __restrict__ x,
   out[g] = s;
 }
 
-template <int N, bool GEOM>
+template <int N, int GEO>
 void launch_cells(const float* x, const unsigned char* bc, const float* G,
                   const float* co, const float* D1, const float* gll,
-                  float* ycells, int ncx, int ncy, int ncz,
+                  float* ycells, int ncx, int ncy, int ncz, int zbn,
                   cudaStream_t stream) {
   constexpr int ZC = zc<N>();
   const dim3 grid((unsigned)((ncz + ZC - 1) / ZC), (unsigned)ncy,
                   (unsigned)ncx);
-  lattice_cells<N, GEOM><<<grid, dim3(ZC * N, N), 0, stream>>>(
-      x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz);
+  lattice_cells<N, GEO><<<grid, dim3(ZC * N, N), 0, stream>>>(
+      x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, zbn);
 }
 
-template <bool GEOM>
+// zb: cells per z-group (kZgrp only; the kernel takes zb * (P+1)).
+template <int GEO>
 int apply(const float* x, const unsigned char* bc, const float* G,
           const float* co, const float* D1, const float* gll, float* ycells,
-          float* out, int P, int ncx, int ncy, int ncz, int apply_bc,
+          float* out, int P, int ncx, int ncy, int ncz, int zb, int apply_bc,
           cudaStream_t stream) {
+  const int zbn = zb * (P + 1);
   switch (P) {
-    case 1: launch_cells<2, GEOM>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, stream); break;
-    case 2: launch_cells<3, GEOM>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, stream); break;
-    case 3: launch_cells<4, GEOM>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, stream); break;
-    case 4: launch_cells<5, GEOM>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, stream); break;
-    case 5: launch_cells<6, GEOM>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, stream); break;
-    case 6: launch_cells<7, GEOM>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, stream); break;
+    case 1: launch_cells<2, GEO>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, zbn, stream); break;
+    case 2: launch_cells<3, GEO>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, zbn, stream); break;
+    case 3: launch_cells<4, GEO>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, zbn, stream); break;
+    case 4: launch_cells<5, GEO>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, zbn, stream); break;
+    case 5: launch_cells<6, GEO>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, zbn, stream); break;
+    case 6: launch_cells<7, GEO>(x, bc, G, co, D1, gll, ycells, ncx, ncy, ncz, zbn, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   const int err = (int)cudaGetLastError();
@@ -283,8 +313,19 @@ int lattice_apply_launch(const float* x, const unsigned char* bc,
                          const float* Gt, const float* D1, float* ycells,
                          float* out, int P, int ncx, int ncy, int ncz,
                          int apply_bc, void* stream) {
-  return apply<false>(x, bc, Gt, nullptr, D1, nullptr, ycells, out, P, ncx,
-                      ncy, ncz, apply_bc, (cudaStream_t)stream);
+  return apply<kGt>(x, bc, Gt, nullptr, D1, nullptr, ycells, out, P, ncx,
+                    ncy, ncz, 1, apply_bc, (cudaStream_t)stream);
+}
+
+// K-A on the z-grouped geometry Gz (Qx, 6*ngz, Qy, zb*(P+1)), ngz = ncz/zb.
+int lattice_apply_zgrp_launch(const float* x, const unsigned char* bc,
+                              const float* Gz, const float* D1,
+                              float* ycells, float* out, int P, int ncx,
+                              int ncy, int ncz, int zb, int apply_bc,
+                              void* stream) {
+  if (zb <= 0 || ncz % zb) return (int)cudaErrorInvalidValue;
+  return apply<kZgrp>(x, bc, Gz, nullptr, D1, nullptr, ycells, out, P, ncx,
+                      ncy, ncz, zb, apply_bc, (cudaStream_t)stream);
 }
 
 // K-B: out = A x with G rebuilt from co (37, ncx, ncy, ncz); gll holds the
@@ -294,8 +335,8 @@ int lattice_apply_geom_launch(const float* x, const unsigned char* bc,
                               const float* gll, float* ycells, float* out,
                               int P, int ncx, int ncy, int ncz, int apply_bc,
                               void* stream) {
-  return apply<true>(x, bc, nullptr, co, D1, gll, ycells, out, P, ncx, ncy,
-                     ncz, apply_bc, (cudaStream_t)stream);
+  return apply<kGeom>(x, bc, nullptr, co, D1, gll, ycells, out, P, ncx, ncy,
+                      ncz, 1, apply_bc, (cudaStream_t)stream);
 }
 
 }  // extern "C"

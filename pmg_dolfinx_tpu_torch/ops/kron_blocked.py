@@ -435,10 +435,11 @@ def kron_t23_cheb(v3, bc3, t1, m, x3, r3, dinv3, lmax, k, sigma=0.0):
 
 
 def _check_precision(precision):
+    """The port's precision policy: true f32/f64 products ('highest')."""
     if precision == "high":
         raise NotImplementedError(
-            "precision='high' (bf16x3 products) is not ported; the CUDA "
-            "kernels run true f32 FMA ('highest')")
+            "precision='high' (bf16x3 products) is not ported (ROADMAP.md "
+            "Queue 1 item 1); the port runs true f32/f64 ('highest')")
     if precision != "highest":
         raise ValueError(
             f"precision must be 'highest' or 'high', got {precision!r}")

@@ -1,0 +1,170 @@
+"""Whole-lattice Kronecker-sum apply: a hand-written CUDA kernel and its
+plain torch version.
+
+Port of `pmg_dolfinx_tpu.ops.pallas_kron` (the module name drops
+``pallas_`` as the port's other kernel modules do; the class keeps its JAX
+name). On the bc-zeroed ``xb = where(bc, 0, x)``
+
+    y = (Kx ._x xb) * myz + (Ky ._y xb) * mxz + (Kz ._z xb) * mxy
+
+then ``where(bc, x, y)``, with the per-axis stiffness ``K`` (kappa folded
+in) and the lumped-mass planes ``myz = my (x) mz``, ``mxz``, ``mxy`` of
+`ops.kron.KronLaplacian`: the unsymmetrized form, so it differs from the
+symmetrized `ops.kron.kron_laplacian_apply` and `ops.kron_blocked` in f32
+rounding only.
+
+- `kron_fused_apply(x3, bc3, Ks, planes)` — the entry point: a CPU tensor
+  runs `plain_kron_fused`; a CUDA tensor launches `kron_fused` of
+  `csrc/kron_fused.cu` (one launch; each thread sums the nonzero band of
+  its rows, the ranges found once by `ops.transfer.nonzero_ranges`) or
+  raises. There is no fallback.
+- `plain_kron_fused` — the TPU kernel's arithmetic as three einsums.
+- `PallasKronLaplacian` — the operator bundle (apply, ``diag``,
+  ``diag_inv``).
+
+The TPU class pads the lattice to the (8, 128) tiling and keeps it whole in
+VMEM, which limits its size (`pallas_kron.py:17-19`). The CUDA kernel reads
+x from device memory (L2-resident at the headline size), so it takes no
+padding and has no size limit. Not ported: ``interpret`` and the padding.
+The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
+``build/kernels/`` (`ops.cuda_build`) and bound with `ctypes`. `LAUNCHES`
+counts every launch.
+"""
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .cuda_build import build_and_load
+from .cuda_build import check_operand as _check
+from .cuda_build import find_nvcc as _find_nvcc
+from .cuda_build import ptr as _ptr
+from .cuda_build import stream_of
+from .transfer import nonzero_ranges
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "kron_fused.cu"
+
+# Kernel launches since the last reset: kernel name -> count. Raised only
+# where the wrapper launches its kernel.
+LAUNCHES = {"kron_fused": 0}
+
+# The loaded library and the compiler's output of the build that made it.
+_lib = None
+BUILD_LOG = ""
+
+
+def mass_planes(ms):
+    """``(myz, mxz, mxy)``: the outer products of the per-axis lumped
+    masses ``ms = (mx, my, mz)``, in their dtype (as the JAX class forms
+    them from its float32 masses)."""
+    mx, my, mz = ms
+    return torch.outer(my, mz), torch.outer(mx, mz), torch.outer(mx, my)
+
+
+def plain_kron_fused(x3, bc3, Ks, planes):
+    """``where(bc, x, y)`` with ``y`` the three mass-scaled line
+    contractions of the bc-zeroed ``x3``, as the TPU kernel sums them."""
+    Kx, Ky, Kz = Ks
+    myz, mxz, mxy = planes
+    xb = torch.where(bc3, torch.zeros_like(x3), x3)
+    t1 = torch.einsum("ax,xyz->ayz", Kx, xb) * myz[None]
+    t2 = torch.einsum("by,xyz->xbz", Ky, xb) * mxz[:, None, :]
+    t3 = torch.einsum("cz,xyz->xyc", Kz, xb) * mxy[:, :, None]
+    return torch.where(bc3, x3, t1 + t2 + t3)
+
+
+def load_kernels():
+    """Build (once per source hash) and load the kernel library.
+
+    Raises RuntimeError when there is no CUDA device, no ``nvcc`` or the
+    build fails; never returns a stand-in.
+    """
+    global _lib, BUILD_LOG
+    if _lib is not None:
+        return _lib
+    lib, BUILD_LOG = build_and_load(_SRC, "kron_fused", _find_nvcc)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.kron_fused_launch.argtypes = [vp] * 10 + [ci] * 3 + [vp]
+    lib.kron_fused_launch.restype = ci
+    _lib = lib
+    return lib
+
+
+def band_ranges(Ks):
+    """The nonzero ranges of the rows of ``Kx``, ``Ky``, ``Kz`` in the
+    kernel's layout, one int32 vector ``[lo_x, hi_x, lo_y, hi_y, lo_z,
+    hi_z]`` (cached on the matrices by `nonzero_ranges`)."""
+    return torch.cat([nonzero_ranges(K, 0).reshape(-1) for K in Ks])
+
+
+def kron_fused(x3, bc3, Ks, planes, ranges=None):
+    """Launch the kernel on CUDA tensors: ``where(bc, x, y)`` as a new
+    ``(NX, NY, NZ)`` lattice. ``ranges`` from `band_ranges` (formed here
+    when not given)."""
+    if x3.device.type != "cuda":
+        raise ValueError(
+            f"the kron_fused kernel runs on CUDA tensors, got {x3.device}")
+    if x3.ndim != 3:
+        raise ValueError(f"x must be lattice-shaped (3D), got {x3.ndim}D")
+    NX, NY, NZ = x3.shape
+    dev = x3.device
+    _check("x", x3, x3.shape, dev)
+    _check("bc", bc3, x3.shape, dev, torch.bool)
+    for name, K, n in zip(("Kx", "Ky", "Kz"), Ks, (NX, NY, NZ)):
+        _check(name, K, (n, n), dev)
+    for name, m, s in zip(("myz", "mxz", "mxy"), planes,
+                          ((NY, NZ), (NX, NZ), (NX, NY))):
+        _check(name, m, s, dev)
+    if ranges is None:
+        ranges = band_ranges(Ks)
+    _check("ranges", ranges, (2 * (NX + NY + NZ),), dev, torch.int32)
+    lib = load_kernels()
+    out = torch.empty_like(x3)
+    with torch.cuda.device(dev):
+        rc = lib.kron_fused_launch(
+            _ptr(x3), _ptr(bc3), *(_ptr(K) for K in Ks), _ptr(ranges),
+            *(_ptr(m) for m in planes), _ptr(out), NX, NY, NZ, stream_of(x3))
+    if rc != 0:
+        raise RuntimeError(f"kron_fused launch failed: CUDA error {rc}")
+    LAUNCHES["kron_fused"] += 1
+    return out
+
+
+def kron_fused_apply(x3, bc3, Ks, planes, ranges=None):
+    """The whole-lattice apply on a lattice-shaped ``x3`` with the bool
+    marker ``bc3``: `plain_kron_fused` on a CPU tensor (any float dtype),
+    the CUDA kernel (float32) on a CUDA tensor."""
+    if x3.device.type == "cpu":
+        return plain_kron_fused(x3, bc3, Ks, planes)
+    return kron_fused(x3, bc3, Ks, planes, ranges)
+
+
+class PallasKronLaplacian:
+    """The whole-lattice fused Kronecker-sum apply as an operator
+    (float32) on ``device``: ``op(x)`` returns the flat ``A x`` (as the JAX
+    class does), with ``diag`` and ``diag_inv`` of
+    `ops.kron.KronLaplacian`. ``kappa`` is a scalar."""
+
+    def __init__(self, mesh, P, kappa=2.0, *, device):
+        from .kron import KronLaplacian
+
+        base = KronLaplacian(mesh, P, kappa=kappa, dtype=torch.float32,
+                             device=device)
+        self.P = int(P)
+        self.mesh = mesh
+        self.ndofs = base.ndofs
+        self.shape = base.shape
+        self.device = torch.device(device)
+        self.diag = base.diag
+        self.diag_inv = base.diag_inv
+        self.Ks = base.Ks
+        self.planes = mass_planes(base.ms)
+        self.bc3 = base.bc_marker.reshape(self.shape)
+        self.ranges = band_ranges(self.Ks)
+
+    def __call__(self, x):
+        x3 = torch.as_tensor(x, dtype=torch.float32,
+                             device=self.device).reshape(self.shape)
+        return kron_fused_apply(x3, self.bc3, self.Ks, self.planes,
+                                self.ranges).reshape(-1)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..fem.gll import derivative_matrix, interpolation_matrix_1d
+from .kron_blocked import _check_precision
 
 
 def axis_matrices(nc: int, P: int, dtype=np.float64):
@@ -65,10 +66,12 @@ def along_z(M, t):
     return torch.einsum("cz,xyz->xyc", M, t)
 
 
-def lattice_prolongate(x_c, I1s, shape_c):
+def lattice_prolongate(x_c, I1s, shape_c, precision="highest"):
     """Coarse->fine transfer via three per-axis dense contractions.
     Shape-preserving: lattice-shaped in -> lattice-shaped out, flat in ->
-    flat out."""
+    flat out. ``precision`` is the JAX package's fourth positional; only
+    'highest' is ported."""
+    _check_precision(precision)
     Ix, Iy, Iz = I1s
     t = x_c.reshape(shape_c)
     t = along_x(Ix, t)
@@ -77,8 +80,9 @@ def lattice_prolongate(x_c, I1s, shape_c):
     return t if x_c.ndim == 3 else t.reshape(-1)
 
 
-def lattice_restrict(x_f, I1s, shape_f):
+def lattice_restrict(x_f, I1s, shape_f, precision="highest"):
     """Fine->coarse transfer: the transposed per-axis contractions."""
+    _check_precision(precision)
     Ix, Iy, Iz = I1s
     t = x_f.reshape(shape_f)
     t = along_x(Ix.T, t)
@@ -206,10 +210,7 @@ class LatticeLaplacian:
         )
         from .laplacian import laplacian_diagonal
 
-        if precision != "highest":
-            raise NotImplementedError(
-                "only precision='highest' (true f32/f64) is ported; "
-                "'high' (bf16x3) is ROADMAP.md Queue 1 item 1")
+        _check_precision(precision)
         self.P = int(P)
         self.mesh = mesh
         self.dtype = dtype

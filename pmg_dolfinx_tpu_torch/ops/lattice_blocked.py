@@ -5,29 +5,34 @@ Port of `pmg_dolfinx_tpu.ops.pallas_lattice_blocked`:
 
 - host setup, as in the JAX package: `lattice_blocked_mats`,
   `geometry_to_gfirst`, `lattice_geom_coefficients`, `lattice_geom_data`
-  and `geom_to_G` (numpy float64, or torch for the plain version);
-- `blocked_lattice_apply` (variants 'yexp', 'v1', 'ym') and
-  `blocked_lattice_apply_geom` ('geom') — the entry points. On a CPU
-  tensor they run the plain torch version; on a CUDA tensor they launch
-  the kernels of `csrc/lattice_blocked.cu` or raise. There is no fallback
-  from CUDA to the plain version. The three TPU variants lay the same
-  ``y = A x`` out differently over VMEM and the MXU, so all three launch
-  one kernel here (K-A, `lattice_apply`); 'geom' launches K-B
-  (`lattice_apply_geom`), which rebuilds G in the kernel from 37 floats
-  per cell;
-- `plain_lattice_apply` / `plain_lattice_apply_geom` — the JAX package's
-  emulation path (`lattice_laplacian_apply` on ``moveaxis(Gt, 0, -1)``,
-  or on `geom_to_G` of the coefficients), used by the CPU tests and
-  compared with the kernels on the card by `chip_smoke.py`;
+  and `geom_to_G` (numpy float64, or torch for the plain version), and
+  for the z-grouped variant `select_zgroup`, `zgroup_matrices` and
+  `geometry_to_zgrouped`;
+- `blocked_lattice_apply` (variants 'yexp', 'v1', 'ym'),
+  `blocked_lattice_apply_zgrp` ('zgrp') and `blocked_lattice_apply_geom`
+  ('geom') — the entry points. On a CPU tensor they run the plain torch
+  version; on a CUDA tensor they launch the kernels of
+  `csrc/lattice_blocked.cu` or raise. There is no fallback from CUDA to
+  the plain version. The three TPU variants lay the same ``y = A x`` out
+  differently over VMEM and the MXU, so all three launch one kernel here
+  (K-A, `lattice_apply`); 'zgrp' launches K-A on the z-grouped geometry
+  ``Gz`` (`lattice_apply_zgrp`: the TPU kernel's group matrices are an
+  MXU device, K-A contracts z cell by cell and only addresses ``Gz``
+  differently); 'geom' launches K-B (`lattice_apply_geom`), which
+  rebuilds G in the kernel from 37 floats per cell;
+- `plain_lattice_apply`, `plain_lattice_apply_zgrp`,
+  `plain_lattice_apply_geom` — the JAX package's emulation paths
+  (`lattice_laplacian_apply` on ``moveaxis(Gt, 0, -1)``, on the un-grouped
+  ``Gz``, or on `geom_to_G` of the coefficients), used by the CPU tests
+  and compared with the kernels on the card by `chip_smoke.py`;
 - `PallasLatticeBlocked` — the operator bundle (apply + exact diagonal).
 
 The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` (`ops.cuda_build`) and bound through a plain C
 interface with `ctypes`. `LAUNCHES` counts every kernel launch.
 
-Not ported: the z-grouped variant 'zgrp' (ROADMAP.md Queue 2, kernel
-#16), ``precision="high"`` (bf16x3), and the TPU tile knobs ``bcells``
-and ``interpret``.
+Not ported: ``precision="high"`` (bf16x3), and the TPU tile knobs
+``bcells`` and ``interpret``.
 """
 
 import ctypes
@@ -48,7 +53,8 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "lattice_blocked.cu"
 
 # Kernel launches since the last reset: kernel name -> count. Raised only
 # where a wrapper launches its kernel.
-LAUNCHES = {"lattice_apply": 0, "lattice_apply_geom": 0}
+LAUNCHES = {"lattice_apply": 0, "lattice_apply_zgrp": 0,
+            "lattice_apply_geom": 0}
 
 # Degrees the kernels are compiled for (csrc/lattice_blocked.cu, N = P+1).
 DEGREES = (1, 2, 3, 4, 5, 6)
@@ -57,8 +63,6 @@ DEGREES = (1, 2, 3, 4, 5, 6)
 _lib = None
 BUILD_LOG = ""
 
-_ZGRP_TODO = ("the z-grouped lattice kernel _kernel_lattice_zg (variant "
-              "'zgrp') is not ported yet (ROADMAP.md Queue 2, kernel #16)")
 _MATS_PLAIN = ("Ex", "Dx", "Ey", "Dy", "Ez", "Dz")
 
 
@@ -81,6 +85,65 @@ def lattice_blocked_mats(nc, P, dtype=torch.float32, *, device):
         Ez=f(Ez), EzT=f(Ez.T.copy()), Dz=f(Dz), DzT=f(Dz.T.copy()),
         D1=f(derivative_matrix(P)),
     )
+
+
+def _pad128(v):
+    return -(-int(v) // 128) * 128
+
+
+def select_zgroup(ncz, P, max_groups=8, margin=0.8):
+    """The JAX package's z-group size ``zb`` for the 'zgrp' variant, or
+    None: the divisor of ``ncz`` (2 to ``max_groups`` groups) whose padded
+    TPU matrix-unit cost ``ngz * pad128(zb*P+1) * pad128(zb*(P+1))`` beats
+    the dense ``pad128(NZ) * pad128(Qz)`` by at least ``1 - margin``. A
+    model of the TPU, kept so that ``zb`` is chosen as in the reference."""
+    n = P + 1
+    dense = _pad128(ncz * P + 1) * _pad128(ncz * n)
+    best, best_cost = None, dense * margin
+    for zb in range(1, ncz):
+        if ncz % zb:
+            continue
+        ngz = ncz // zb
+        if ngz < 2 or ngz > max_groups:
+            continue
+        cost = ngz * _pad128(zb * P + 1) * _pad128(zb * n)
+        if cost < best_cost:
+            best, best_cost = zb, cost
+    return best
+
+
+def zgroup_matrices(zb, P, dtype=torch.float32, *, device):
+    """The z-block expansion/derivative matrices every group shares
+    (`axis_matrices` of a ``zb``-cell axis, ``(zb*(P+1), zb*P+1)``), as in
+    the JAX package. The CUDA kernel does not read them."""
+    E, Dg = axis_matrices(zb, P)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return dict(EzTb=f(E.T.copy()), Ezb=f(E), DzTb=f(Dg.T.copy()),
+                Dzb=f(Dg))
+
+
+def geometry_to_zgrouped(Gq, zb, P):
+    """Reorder quadrature-lattice geometry ``(Qx, Qy, Qz, 6)`` to the
+    z-grouped layout ``(Qx, 6*ngz, Qy, zb*(P+1))`` (numpy; entry-major on
+    dim 1), as the JAX package does once at setup."""
+    Gq = np.asarray(Gq)
+    Qx, Qy, Qz, _ = Gq.shape
+    zbn = zb * (P + 1)
+    ngz = Qz // zbn
+    G = Gq.reshape(Qx, Qy, ngz, zbn, 6)
+    G = np.transpose(G, (0, 4, 2, 1, 3))    # (Qx, 6, ngz, Qy, zbn)
+    return np.ascontiguousarray(G.reshape(Qx, 6 * ngz, Qy, zbn))
+
+
+def zgrouped_to_qlattice(Gz, nc, P, zb):
+    """Inverse of `geometry_to_zgrouped` for a tensor: ``(Qx, Qy, Qz, 6)``
+    (a view where torch can make one)."""
+    ncx, ncy, ncz = nc
+    n = P + 1
+    ngz = ncz // zb
+    return torch.permute(Gz.reshape(ncx * n, 6, ngz, ncy * n, zb * n),
+                         (0, 3, 2, 4, 1)).reshape(ncx * n, ncy * n,
+                                                  ncz * n, 6)
 
 
 def geometry_to_gfirst(Gq):
@@ -214,6 +277,15 @@ def plain_lattice_apply(x, mats, Gt, bc_marker, apply_bc=True):
         bc_marker, apply_bc=apply_bc)
 
 
+def plain_lattice_apply_zgrp(x, mats, Gz, bc_marker, nc, P, zb,
+                             apply_bc=True):
+    """The function of K-A on ``Gz``: `lattice_laplacian_apply` on the
+    un-grouped geometry (the JAX emulation path)."""
+    return lattice_laplacian_apply(
+        x, {k: mats[k] for k in _MATS_PLAIN},
+        zgrouped_to_qlattice(Gz, nc, P, zb), bc_marker, apply_bc=apply_bc)
+
+
 def plain_lattice_apply_geom(x, mats, co, bc_marker, nc, P, apply_bc=True):
     """K-B's function: `geom_to_G` of the coefficients, then
     `lattice_laplacian_apply`."""
@@ -239,6 +311,8 @@ def load_kernels():
     lib.lattice_apply_launch.restype = ci
     lib.lattice_apply_geom_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.lattice_apply_geom_launch.restype = ci
+    lib.lattice_apply_zgrp_launch.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.lattice_apply_zgrp_launch.restype = ci
     _lib = lib
     return lib
 
@@ -278,6 +352,33 @@ def lattice_apply(x, bc_marker, Gt, D1, nc, P, apply_bc=True):
     if rc != 0:
         raise RuntimeError(f"lattice_apply launch failed: CUDA error {rc}")
     LAUNCHES["lattice_apply"] += 1
+    return out
+
+
+def _check_zb(nc, zb):
+    if zb <= 0 or nc[2] % zb:
+        raise ValueError(f"zb={zb} must divide ncz={nc[2]}")
+
+
+def lattice_apply_zgrp(x, bc_marker, Gz, D1, nc, P, zb, apply_bc=True):
+    """Launch K-A on CUDA tensors with the z-grouped geometry ``Gz``
+    ``(Qx, 6*ngz, Qy, zb*(P+1))`` of `geometry_to_zgrouped`; returns a new
+    tensor shaped like x."""
+    Qx, Qy, Qz = _check_common(x, bc_marker, D1, nc, P)
+    _check_zb(nc, zb)
+    zbn = zb * (P + 1)
+    _check("Gz", Gz, (Qx, 6 * (Qz // zbn), Qy, zbn), x.device)
+    lib = load_kernels()
+    out = torch.empty_like(x)
+    ycells = torch.empty((Qx, Qy, Qz), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.lattice_apply_zgrp_launch(
+            _ptr(x), _ptr(bc_marker), _ptr(Gz), _ptr(D1), _ptr(ycells),
+            _ptr(out), P, *nc, int(zb), int(bool(apply_bc)), stream_of(x))
+    if rc != 0:
+        raise RuntimeError(
+            f"lattice_apply_zgrp launch failed: CUDA error {rc}")
+    LAUNCHES["lattice_apply_zgrp"] += 1
     return out
 
 
@@ -327,12 +428,12 @@ def blocked_lattice_apply(x, mats, Gt, bc_marker, nc, P, *,
     torch version (any float dtype); a CUDA tensor launches K-A (float32)
     or raises."""
     _check_precision(precision)
-    if variant == "zgrp":
-        raise NotImplementedError(_ZGRP_TODO)
     if variant not in (None, "yexp", "v1", "ym"):
         raise ValueError(f"unknown variant {variant!r} (the in-kernel-"
-                         "geometry 'geom' variant has its own entry point, "
-                         "`blocked_lattice_apply_geom`)")
+                         "geometry 'geom' and z-grouped 'zgrp' variants "
+                         "have their own entry points, "
+                         "`blocked_lattice_apply_geom` and "
+                         "`blocked_lattice_apply_zgrp`)")
     if x.device.type == "cpu":
         return plain_lattice_apply(x, mats, Gt, bc_marker, apply_bc)
     return lattice_apply(x, bc_marker, Gt, mats["D1"], tuple(nc), int(P),
@@ -353,19 +454,34 @@ def blocked_lattice_apply_geom(x, mats, co, bc_marker, nc, P, *, xi, wx,
                               int(P), xi, wx, apply_bc)
 
 
-def blocked_lattice_apply_zgrp(*args, **kwargs):
-    raise NotImplementedError(_ZGRP_TODO)
+def blocked_lattice_apply_zgrp(x, mats, zmats, Gz, bc_marker, nc, P, zb, *,
+                               precision="highest", apply_bc=True):
+    """Fused ``y = A x`` with the z-grouped geometry ``Gz`` of
+    `geometry_to_zgrouped` (``zb`` must divide ``nc[2]``; `select_zgroup`
+    picks it). ``zmats`` from `zgroup_matrices` keeps the JAX signature;
+    the CUDA kernel does not need it. CPU tensors run the plain version;
+    CUDA tensors launch K-A on ``Gz`` or raise."""
+    _check_precision(precision)
+    nc, P, zb = tuple(nc), int(P), int(zb)
+    _check_zb(nc, zb)
+    if x.device.type == "cpu":
+        return plain_lattice_apply_zgrp(x, mats, Gz, bc_marker, nc, P, zb,
+                                        apply_bc)
+    return lattice_apply_zgrp(x, bc_marker, Gz, mats["D1"], nc, P, zb,
+                              apply_bc)
 
 
 class PallasLatticeBlocked:
     """General-hex operator over the lattice kernels, float32, on
     ``device``: ``op(x)`` and the exact (dofmap) diagonal. ``variant``
-    None/'yexp'/'v1'/'ym' streams the quadrature-lattice G (K-A);
-    'geom' uploads 37 floats per cell and rebuilds G in the kernel (K-B).
-    ``kappa`` is a scalar."""
+    None/'yexp'/'v1'/'ym' streams the quadrature-lattice G (K-A); 'zgrp'
+    streams the z-grouped ``Gz`` (K-A; ``zb`` from `select_zgroup` when
+    not given; only ``Gz`` is kept, never G beside it); 'geom' uploads 37
+    floats per cell and rebuilds G in the kernel (K-B). ``kappa`` is a
+    scalar."""
 
     def __init__(self, mesh, P, kappa=2.0, precision="highest", variant=None,
-                 *, device):
+                 zb=None, *, device):
         from ..fem.assembly import (
             geometry_factors_np,
             resolve_kappa_split,
@@ -376,10 +492,17 @@ class PallasLatticeBlocked:
         from .lattice import geometry_to_qlattice
 
         _check_precision(precision)
-        if variant == "zgrp":
-            raise NotImplementedError(_ZGRP_TODO)
-        if variant not in (None, "yexp", "v1", "ym", "geom"):
+        if variant not in (None, "yexp", "v1", "ym", "geom", "zgrp"):
             raise ValueError(f"unknown variant {variant!r}")
+        self.zb = self.zmats = self.Gz = None
+        if variant == "zgrp":
+            self.zb = int(zb) if zb else select_zgroup(mesh.nc[2], P)
+            if self.zb is None:
+                raise ValueError(
+                    f"variant='zgrp': ncz={mesh.nc[2]} has no z-group "
+                    "divisor that beats the dense z dots (see "
+                    "select_zgroup) — use variant='yexp'")
+            _check_zb(mesh.nc, self.zb)
         self.P = int(P)
         self.mesh = mesh
         self.ndofs = mesh.num_dofs(P)
@@ -396,6 +519,13 @@ class PallasLatticeBlocked:
             _, self._xi, self._wx = lattice_geom_data(mesh.nc, self.P,
                                                       device="cpu")
             self.Gt = None
+        elif variant == "zgrp":
+            Gq = geometry_to_qlattice(scale_G(G_cells, kappa_cells, kt),
+                                      mesh.nc, self.P)
+            self.Gz = f32(geometry_to_zgrouped(Gq, self.zb, self.P))
+            del Gq
+            self.zmats = zgroup_matrices(self.zb, self.P, device=self.device)
+            self.Gt = self.co = None
         else:
             Gq = geometry_to_qlattice(scale_G(G_cells, kappa_cells, kt),
                                       mesh.nc, self.P)
@@ -417,6 +547,10 @@ class PallasLatticeBlocked:
             return blocked_lattice_apply_geom(
                 x, self.mats, self.co, self.bc_marker, self.mesh.nc, self.P,
                 xi=self._xi, wx=self._wx, precision=self.precision)
+        if self.variant == "zgrp":
+            return blocked_lattice_apply_zgrp(
+                x, self.mats, self.zmats, self.Gz, self.bc_marker,
+                self.mesh.nc, self.P, self.zb, precision=self.precision)
         return blocked_lattice_apply(
             x, self.mats, self.Gt, self.bc_marker, self.mesh.nc, self.P,
             precision=self.precision, variant=self.variant)

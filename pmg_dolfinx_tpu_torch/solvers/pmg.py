@@ -9,7 +9,8 @@ boxes, plain torch / the CUDA kernels of `ops/kron_blocked.py`); the
 V-cycle with a ``"smoother"``, ``"cg"`` or ``"fdm"`` coarse solve, CG +
 Lanczos smoother calibration, the W-cycle (``coarse_cfg["gamma"]``),
 the full-multigrid initial guess (`fmg_initial_guess`), the fused
-Chebyshev smoother of ``kron_blocked`` (``fuse_smoother=True``), and the
+Chebyshev smoother and the fused p-transfers of ``kron_blocked``
+(``fuse_smoother=True``, ``fuse_transfers=True``), and the
 stationary (`solve`), FCG (`solve_pcg`), batched (`solve_many`,
 `solve_pcg_many`) and f64-refined (`solve_refined`) outer iterations. The
 Kronecker family keeps vectors
@@ -57,9 +58,6 @@ _SIGMA_FIELD_TODO = ("a sigma FIELD (callable) on the general backends is "
 _COARSE_TODO = ("only coarse='smoother', 'cg' and 'fdm' are ported; "
                 "'direct', 'hmg' and 'amg' are ROADMAP.md Queue 1 items 4 "
                 "and 7")
-_TRANSFERS_TODO = ("fuse_transfers=True needs the transfer kernels "
-                   "_kernel_tx/_kernel_tyz, not ported yet (ROADMAP.md "
-                   "Queue 2, kernels #10/#11)")
 
 
 @dataclass(frozen=True)
@@ -89,17 +87,55 @@ def _zeros(flat):
         device=like.device)
 
 
-def _lattice_transfers(flat=False):
+def _lattice_transfers(flat=False, precision="highest"):
     from ..ops.lattice import lattice_prolongate, lattice_restrict
 
     return dict(
         restrict=lambda tr, r, level_c, level_f: lattice_restrict(
-            r, (tr["Ix"], tr["Iy"], tr["Iz"]), level_f.shape),
+            r, (tr["Ix"], tr["Iy"], tr["Iz"]), level_f.shape, precision),
         prolong=lambda tr, u, level_c, level_f: lattice_prolongate(
-            u, (tr["Ix"], tr["Iy"], tr["Iz"]), level_c.shape),
+            u, (tr["Ix"], tr["Iy"], tr["Iz"]), level_c.shape, precision),
         dot=lambda u, v, lv: inner_product(u, v),
         zeros=_zeros(flat),
     )
+
+
+def _fused_transfers():
+    """``restrict``/``prolong`` through `ops.transfer.blocked_transfer`
+    (kernels #10/#11 on CUDA tensors). Each transfer's ``(Mx, My, MzT)``
+    (and with them the nonzero ranges the kernels cache on the matrices)
+    is formed once per transfer dict and direction, and again only when
+    `PMGHierarchy.load_state` replaces the interpolation matrices."""
+    from ..ops.transfer import blocked_transfer, transfer_mats
+
+    plans = {}
+
+    def mats(tr, direction):
+        I1s = (tr["Ix"], tr["Iy"], tr["Iz"])
+        key = (id(tr), direction)
+        hit = plans.get(key)
+        # the plan holds I1s, so an identity match cannot be a reused id
+        if hit is None or any(a is not b for a, b in zip(hit[0], I1s)):
+            hit = plans[key] = (I1s, transfer_mats(I1s, direction,
+                                                   dtype=I1s[0].dtype))
+        return hit[1]
+
+    return dict(
+        restrict=lambda tr, r, level_c, level_f: blocked_transfer(
+            r, *mats(tr, "restrict")),
+        prolong=lambda tr, u, level_c, level_f: blocked_transfer(
+            u, *mats(tr, "prolong")),
+    )
+
+
+def _tpu_tile(name, value, default):
+    """The JAX factories' TPU tile knobs keep their positions; the CUDA
+    kernels fix their own tiles, so anything but JAX's default raises."""
+    if value != default:
+        raise ValueError(
+            f"{name}={value!r} is a TPU tile size of the JAX package's "
+            f"Pallas kernels; the CUDA kernels fix their own tiles and do "
+            f"not take it (leave it at {default!r})")
 
 
 def _shifted(raw, sigma):
@@ -139,26 +175,35 @@ def default_cycle_ops(sigma=0.0):
     )
 
 
-def lattice_cycle_ops(sigma=0.0):
+def lattice_cycle_ops(precision="highest", sigma=0.0):
     """V-cycle primitives of the plain-torch lattice backend (general
     hexes, `ops.lattice`) with the lattice per-axis transfers; flat
-    vectors."""
+    vectors. ``precision`` as in the JAX package ('highest' only)."""
+    from ..ops.kron_blocked import _check_precision
     from ..ops.lattice import lattice_laplacian_apply
+
+    _check_precision(precision)
 
     def raw(lv, x, level):
         mats = {k: lv[k] for k in ("Ex", "Dx", "Ey", "Dy", "Ez", "Dz")}
         return lattice_laplacian_apply(x, mats, lv["G"], lv["bc_marker"],
                                        apply_bc=False)
 
-    return dict(apply=_shifted(raw, sigma), **_lattice_transfers(flat=True))
+    return dict(apply=_shifted(raw, sigma),
+                **_lattice_transfers(flat=True, precision=precision))
 
 
-def lattice_blocked_cycle_ops(sigma=0.0):
+def lattice_blocked_cycle_ops(precision="highest", bcells=1, sigma=0.0):
     """V-cycle primitives whose general-hex applies run K-A of
     `ops.lattice_blocked` (the CUDA kernel on CUDA tensors, its plain torch
     version on CPU tensors); lattice per-axis transfers; flat vectors.
-    A sigma shift rides a torch epilogue on the raw kernel output."""
+    A sigma shift rides a torch epilogue on the raw kernel output.
+    ``bcells`` is the JAX kernel's TPU tile knob: only its default 1."""
+    from ..ops.kron_blocked import _check_precision
     from ..ops.lattice_blocked import blocked_lattice_apply
+
+    _check_precision(precision)
+    _tpu_tile("bcells", bcells, 1)
 
     def apply_op(lv, x, level):
         nc = tuple((N - 1) // level.P for N in level.shape)
@@ -171,14 +216,19 @@ def lattice_blocked_cycle_ops(sigma=0.0):
         y = y + sigma * lv["m3"] * x
         return torch.where(lv["bc_marker"], x, y)
 
+    # transfers are cheap; keep them exact (as the JAX package does)
     return dict(apply=apply_op, **_lattice_transfers(flat=True))
 
 
-def kron_cycle_ops(sigma=0.0):
+def kron_cycle_ops(precision="highest", sigma=0.0):
     """V-cycle primitives backed by the plain-torch Kronecker-sum apply
     (`ops.kron`) and the lattice per-axis transfers; lattice-shaped
-    vectors throughout."""
+    vectors throughout. ``precision`` as in the JAX package ('highest'
+    only)."""
     from ..ops.kron import kron_laplacian_apply
+    from ..ops.kron_blocked import _check_precision
+
+    _check_precision(precision)
 
     def apply_op(lv, x, level):
         return kron_laplacian_apply(
@@ -186,10 +236,11 @@ def kron_cycle_ops(sigma=0.0):
             lv["bc_marker"], sigma=sigma,
         )
 
-    return dict(apply=apply_op, **_lattice_transfers())
+    return dict(apply=apply_op, **_lattice_transfers(precision=precision))
 
 
-def kron_blocked_cycle_ops(sigma=0.0, fuse_smoother=False,
+def kron_blocked_cycle_ops(precision="highest", by=None, bx=None,
+                           fuse_smoother=False, sigma=0.0,
                            fuse_residual=True, fuse_transfers=False):
     """V-cycle primitives whose operator applies run the blocked kernel
     pair (`ops.kron_blocked`): the CUDA kernels on CUDA tensors, their
@@ -198,17 +249,21 @@ def kron_blocked_cycle_ops(sigma=0.0, fuse_smoother=False,
     package's default). ``fuse_smoother=True`` makes the smoother
     `blocked_kron_cheb4`: each Chebyshev half-step is the full-bc kernel
     #4 then kernel #7, which folds the update into the operator's
-    epilogue. Transfers and dots are the same torch primitives as
-    `kron_cycle_ops`; ``fuse_transfers=True`` (the transfer kernels
-    #10/#11) is not ported and raises."""
+    epilogue. ``fuse_transfers=True`` runs the p-transfers through
+    `ops.transfer.blocked_transfer` (kernels #10/#11); otherwise they are
+    the torch einsums of `kron_cycle_ops`. The parameters keep the JAX
+    package's order; ``by``/``bx`` are its TPU slab sizes and must stay
+    None."""
     from ..ops.kron_blocked import (
+        _check_precision,
         blocked_kron_apply,
         blocked_kron_cheb4,
         blocked_kron_residual,
     )
 
-    if fuse_transfers:
-        raise NotImplementedError(_TRANSFERS_TODO)
+    _check_precision(precision)
+    _tpu_tile("by", by, None)
+    _tpu_tile("bx", bx, None)
 
     def apply_op(lv, x, level):
         return blocked_kron_apply(x, lv["bc_marker"], lv["kb_mats"],
@@ -228,7 +283,11 @@ def kron_blocked_cycle_ops(sigma=0.0, fuse_smoother=False,
         fused = dict(smooth=smooth_op, residual=residual_op)
     elif fuse_residual:
         fused = dict(residual=residual_op)
-    return dict(apply=apply_op, **fused, **_lattice_transfers())
+    # transfers are cheap; keep them exact (as the JAX package does)
+    transfers = _lattice_transfers()
+    if fuse_transfers:
+        transfers.update(_fused_transfers())
+    return dict(apply=apply_op, **fused, **transfers)
 
 
 def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
@@ -402,9 +461,10 @@ class PMGHierarchy:
         'smoother', 'cg' or 'fdm' (axis-aligned only); ``kappa`` a scalar;
         ``sigma`` a scalar lumped-mass shift. ``fuse_smoother=True``
         (kron_blocked only) runs the smoother through the fused Chebyshev
-        kernel; ``fuse_transfers=True`` (kron_blocked only) is not ported
-        and raises NotImplementedError. ``coarse_cfg["gamma"] = 2`` makes
-        every cycle a W-cycle."""
+        kernel; ``fuse_transfers=True`` (kron_blocked only) runs the
+        p-transfers through the transfer kernels #10/#11
+        (`ops.transfer`). ``coarse_cfg["gamma"] = 2`` makes every cycle a
+        W-cycle."""
         from ..fem.assembly import (
             geometry_factors_np,
             lumped_mass_np,
@@ -491,15 +551,17 @@ class PMGHierarchy:
         ops_sigma = ops_shift_scalar(mesh, self.sigma, kron_family)
         self._ops_sigma = ops_sigma
         if operator == "kron":
-            self._ops = kron_cycle_ops(sigma=self.sigma)
+            self._ops = kron_cycle_ops(precision=precision, sigma=self.sigma)
         elif operator == "kron_blocked":
             self._ops = kron_blocked_cycle_ops(
-                sigma=self.sigma, fuse_smoother=fuse_smoother,
-                fuse_transfers=fuse_transfers)
+                precision=precision, fuse_smoother=fuse_smoother,
+                sigma=self.sigma, fuse_transfers=fuse_transfers)
         elif operator == "lattice":
-            self._ops = lattice_cycle_ops(sigma=ops_sigma)
+            self._ops = lattice_cycle_ops(precision=precision,
+                                          sigma=ops_sigma)
         elif operator == "lattice_blocked":
-            self._ops = lattice_blocked_cycle_ops(sigma=ops_sigma)
+            self._ops = lattice_blocked_cycle_ops(precision=precision,
+                                                  sigma=ops_sigma)
         else:
             self._ops = default_cycle_ops(sigma=ops_sigma)
         ops = self._ops

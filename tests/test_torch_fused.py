@@ -269,9 +269,18 @@ def test_fuse_options_raise_as_in_jax():
         with pytest.raises(ValueError, match="fuse_smoother/fuse_transfers"):
             PMGHierarchy(mesh, degrees=(1, 2), operator="kron",
                          device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="#10/#11"):
-        PMGHierarchy(mesh, degrees=(1, 2), operator="kron_blocked",
+    # fuse_transfers=True builds, as in JAX, and swaps only the transfers
+    h = PMGHierarchy(mesh, degrees=(1, 2), operator="kron_blocked",
                      dtype=torch.float32, fuse_transfers=True, device="cpu")
+    plain = kron_blocked_cycle_ops()
+    assert set(h.ops) == set(plain)
+    tr = h.data["transfer"][0]
+    lc, lf = h.levels
+    r = torch.randn(lf.shape, generator=torch.Generator().manual_seed(1))
+    for name, v in (("restrict", r), ("prolong", r[::2, ::2, ::2])):
+        got = h.ops[name](tr, v.contiguous(), lc, lf)
+        want = plain[name](tr, v.contiguous(), lc, lf)
+        assert _rel2(got.numpy(), want.numpy()) <= 1e-6, name
 
 
 @pytest.fixture

@@ -3,10 +3,11 @@
 - `pmg_dolfinx_tpu_torch` and every submodule import without pulling in
   `jax` or the JAX package (checked in a fresh interpreter), the
   general-hex modules by name too.
-- On CPU tensors the kernel wrappers (blocked Kronecker, lattice, and
-  the serving apply and solve of `ops.kron_packed`) run the plain torch
-  versions; on any other non-CUDA device they raise instead of falling
-  back.
+- On CPU tensors the kernel wrappers (blocked Kronecker, lattice with
+  the z-grouped variant, the serving apply and solve of
+  `ops.kron_packed`, the fused p-transfers of `ops.transfer` and the
+  whole-lattice apply of `ops.kron_fused`) run the plain torch versions;
+  on any other non-CUDA device they raise instead of falling back.
 - The kernel loaders raise a clear error when there is no CUDA device or
   no ``nvcc``; they never hand back a stand-in.
 """
@@ -22,8 +23,10 @@ torch.set_num_threads(1)
 
 from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, PerturbedBoxMesh  # noqa: E402
 from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb  # noqa: E402
+from pmg_dolfinx_tpu_torch.ops import kron_fused as kf  # noqa: E402
 from pmg_dolfinx_tpu_torch.ops import kron_packed as kp  # noqa: E402
 from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb  # noqa: E402
+from pmg_dolfinx_tpu_torch.ops import transfer as tt  # noqa: E402
 from pmg_dolfinx_tpu_torch.ops.kron import axis_stiffness_mass  # noqa: E402
 
 _PROBE = """
@@ -50,8 +53,9 @@ def test_port_imports_no_jax():
 
 _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "ops.interpolate", "ops.lattice", "ops.lattice_blocked",
-                "ops.kron_packed", "solvers.pmg", "solvers.cg",
-                "solvers.fdm", "solvers.transient", "utils.convert")
+                "ops.kron_packed", "ops.transfer", "ops.kron_fused",
+                "solvers.pmg", "solvers.cg", "solvers.fdm",
+                "solvers.transient", "utils.convert")
 
 
 def test_general_hex_modules_import_no_jax():
@@ -205,3 +209,69 @@ def test_packed_loader_raises_without_cuda_or_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kp.load_kernels()
     assert kp._lib is None
+
+
+def _transfer_operands():
+    from pmg_dolfinx_tpu_torch.ops.lattice import axis_interpolation_matrix
+
+    I = torch.tensor(axis_interpolation_matrix(2, 1, 2), dtype=torch.float32)
+    x = torch.randn((5, 5, 5), generator=torch.Generator().manual_seed(0))
+    return tt.transfer_mats((I, I, I), "restrict"), x
+
+
+def _kron_fused_operands():
+    op = kf.PallasKronLaplacian(BoxMesh((2, 3, 2)), 2, device="cpu")
+    x = torch.randn(op.shape, generator=torch.Generator().manual_seed(0))
+    return op, x
+
+
+def test_transfer_and_kron_fused_cpu_tensors_run_the_plain_version():
+    mats, x = _transfer_operands()
+    op, x3 = _kron_fused_operands()
+    before = (dict(tt.LAUNCHES), dict(kf.LAUNCHES))
+    assert torch.equal(tt.blocked_transfer(x, *mats),
+                       tt.plain_transfer(x, *mats))
+    assert torch.equal(op(x3).reshape(op.shape),
+                       kf.plain_kron_fused(x3, op.bc3, op.Ks, op.planes))
+    assert (dict(tt.LAUNCHES), dict(kf.LAUNCHES)) == before  # no kernel ran
+
+
+def test_transfer_and_kron_fused_non_cuda_device_raises():
+    mats, x = _transfer_operands()
+    op, x3 = _kron_fused_operands()
+    xm = torch.empty(x.shape, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tt.blocked_transfer(xm, *mats)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tt.transfer_yz(xm, mats[1], mats[2])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kf.kron_fused_apply(torch.empty(x3.shape, device="meta"), op.bc3,
+                            op.Ks, op.planes)
+
+
+def test_zgrp_cpu_runs_plain_and_meta_raises():
+    mesh = PerturbedBoxMesh((2, 3, 4))
+    op = lb.PallasLatticeBlocked(mesh, 2, variant="zgrp", zb=2, device="cpu")
+    x = torch.randn(op.ndofs, generator=torch.Generator().manual_seed(0))
+    before = dict(lb.LAUNCHES)
+    assert torch.equal(op(x), lb.plain_lattice_apply_zgrp(
+        x, op.mats, op.Gz, op.bc_marker, mesh.nc, 2, 2))
+    assert lb.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lb.blocked_lattice_apply_zgrp(torch.empty(x.shape, device="meta"),
+                                      op.mats, op.zmats, op.Gz, op.bc_marker,
+                                      mesh.nc, 2, 2)
+
+
+@pytest.mark.parametrize("mod", ["transfer", "kron_fused"])
+def test_new_loaders_raise_without_cuda_or_nvcc(monkeypatch, mod):
+    m = {"transfer": tt, "kron_fused": kf}[mod]
+    monkeypatch.setattr(m, "_lib", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="need a CUDA device"):
+        m.load_kernels()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(m, "_find_nvcc", lambda: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        m.load_kernels()
+    assert m._lib is None

@@ -14,8 +14,13 @@
 - The kernel modules against the Pallas kernels run in interpret mode,
   f32, relative 2-norm <= 1e-5 (the JAX package's own bound): variants
   'yexp', 'v1', 'ym' and 'geom', scalar kappa through the operator
-  classes and a per-cell positive kappa fed directly as G and ``co``.
-- On the card, K-A and K-B against their plain versions (marked ``cuda``;
+  classes and a per-cell positive kappa fed directly as G and ``co``;
+  'zgrp' (``PerturbedBoxMesh((3, 2, 6))``, ``zb`` in {2, 3}, scalar
+  kappa) through the class and its entry point, with the z-grouped setup
+  (`geometry_to_zgrouped`, `zgroup_matrices`) bit for bit and
+  `select_zgroup` as in JAX.
+- On the card, K-A (on G and on the z-grouped Gz) and K-B against their
+  plain versions (marked ``cuda``;
   skipped without a GPU). Those tests need no JAX, so on a GPU machine
   without JAX they run as
   ``python -m pytest --noconftest -m cuda tests/test_torch_lattice.py``.
@@ -293,22 +298,83 @@ def test_blocked_matches_pallas_interpret_f32(jx, variant):
 
 
 def test_blocked_guards():
+    """The JAX package's errors: 'zgrp' has its own entry point, ``zb``
+    must divide ``ncz``, a mesh without a usable z-group refuses 'zgrp'."""
     tm = TMesh((2, 2, 2))
     mats = tlb.lattice_blocked_mats(tm.nc, 2, device="cpu")
     x = torch.zeros(tm.num_dofs(2))
     bc = torch.tensor(tm.boundary_dof_marker(2))
     Gt = torch.zeros((6,) + tuple(3 * n for n in tm.nc))
-    with pytest.raises(NotImplementedError, match="Queue 2, kernel #16"):
+    with pytest.raises(ValueError, match="'zgrp' variants have their own"):
         tlb.blocked_lattice_apply(x, mats, Gt, bc, tm.nc, 2, variant="zgrp")
-    with pytest.raises(NotImplementedError, match="Queue 2, kernel #16"):
-        tlb.blocked_lattice_apply_zgrp(x)
-    with pytest.raises(NotImplementedError, match="Queue 2, kernel #16"):
+    with pytest.raises(ValueError, match="must divide"):
+        tlb.blocked_lattice_apply_zgrp(x, mats, None, Gt, bc, tm.nc, 2, 3)
+    with pytest.raises(ValueError, match="z-group"):
         tlb.PallasLatticeBlocked(tm, 2, variant="zgrp", device="cpu")
     with pytest.raises(NotImplementedError, match="precision='high'"):
         tlb.blocked_lattice_apply(x, mats, Gt, bc, tm.nc, 2,
                                   precision="high")
     with pytest.raises(ValueError, match="unknown variant"):
         tlb.blocked_lattice_apply(x, mats, Gt, bc, tm.nc, 2, variant="geom")
+
+
+ZG_NC = (3, 2, 6)
+
+
+@pytest.mark.parametrize("zb", [2, 3])
+def test_zgrp_matches_pallas_interpret(jx, zb):
+    """'zgrp' with scalar kappa: the operator class against JAX's in
+    interpret mode, and the entry point on the same ``Gz``; relative
+    2-norm <= 1e-5 (the JAX package's own gate). The class holds only
+    ``Gz``. Per-cell kappa waits for ROADMAP.md Queue 1 item 7."""
+    jnp, jlb = jx.jnp, jx.jlb
+    jm, tm = jx.Mesh(ZG_NC), TMesh(ZG_NC)
+    x = np.random.default_rng(5).standard_normal(tm.num_dofs(P)).astype(
+        np.float32)
+    op_j = jlb.PallasLatticeBlocked(jm, P, kappa=2.0, interpret=True,
+                                    variant="zgrp", zb=zb)
+    op_t = tlb.PallasLatticeBlocked(tm, P, kappa=2.0, variant="zgrp", zb=zb,
+                                    device="cpu")
+    assert op_t.Gt is None and op_t.co is None and op_t.zb == zb
+    before = dict(tlb.LAUNCHES)
+    y_t = op_t(torch.from_numpy(x))
+    assert tlb.LAUNCHES == before  # the plain version; no kernel
+    assert y_t.dtype == torch.float32
+    assert _rel(y_t.numpy(), op_j(jnp.asarray(x))) <= 1e-5
+    assert _rel(op_t.diag.numpy(), op_j.diag) <= 1e-6
+    y_e = tlb.blocked_lattice_apply_zgrp(
+        torch.from_numpy(x), op_t.mats, op_t.zmats, op_t.Gz, op_t.bc_marker,
+        ZG_NC, P, zb, apply_bc=False)
+    y_je = jlb.blocked_lattice_apply_zgrp(
+        jnp.asarray(x), op_j.mats, op_j.zmats, op_j.Gz, op_j.bc_marker,
+        ZG_NC, P, zb, interpret=True, apply_bc=False)
+    assert _rel(y_e.numpy(), y_je) <= 1e-5
+
+
+@pytest.mark.parametrize("zb", [2, 3])
+def test_zgrouped_setup_bitwise(jx, zb):
+    tm = TMesh(ZG_NC)
+    G_cells, _ = tasm.geometry_factors_np(tm, P)
+    Gq = tlat.geometry_to_qlattice(G_cells, ZG_NC, P)
+    Gz = tlb.geometry_to_zgrouped(Gq, zb, P)
+    assert np.array_equal(Gz, jx.jlb.geometry_to_zgrouped(Gq, zb, P))
+    assert np.array_equal(
+        tlb.zgrouped_to_qlattice(torch.from_numpy(Gz), ZG_NC, P, zb).numpy(),
+        Gq)
+    tz = tlb.zgroup_matrices(zb, P, torch.float64, device="cpu")
+    jz = jx.jlb.zgroup_matrices(zb, P, jx.jnp.float64)
+    assert tz.keys() == jz.keys()
+    for k in tz:
+        assert np.array_equal(tz[k].numpy(), np.asarray(jz[k])), k
+
+
+def test_select_zgroup_as_in_jax(jx):
+    assert tlb.select_zgroup(42, 6) == 14
+    assert tlb.select_zgroup(3, 6) is None
+    assert tlb.select_zgroup(41, 6) is None  # prime: no usable divisor
+    for ncz in range(1, 49):
+        for p in (1, 3, 6):
+            assert tlb.select_zgroup(ncz, p) == jx.jlb.select_zgroup(ncz, p)
 
 
 # --- on the card ----------------------------------------------------------------
@@ -358,3 +424,28 @@ def test_cuda_lattice_kernels_match_plain(cuda_device, p):
                           k_a.mats["D1"], tm.nc, p)
     with pytest.raises(NotImplementedError, match="compiled for"):
         tlb.lattice_apply(x, k_a.bc_marker, k_a.Gt, k_a.mats["D1"], tm.nc, 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zb", [1, 2, 3])
+@pytest.mark.parametrize("p", [1, 3, 6])
+def test_cuda_zgrp_matches_plain_and_gt(cuda_device, p, zb):
+    tm = TMesh((3, 4, 6), dirichlet_faces=MIXED)
+    k_z = tlb.PallasLatticeBlocked(tm, p, kappa=2.0, variant="zgrp", zb=zb,
+                                   device=cuda_device)
+    k_a = tlb.PallasLatticeBlocked(tm, p, kappa=2.0, device=cuda_device)
+    x = torch.tensor(np.random.default_rng(9).standard_normal(k_z.ndofs),
+                     dtype=torch.float32, device=cuda_device)
+    before = dict(tlb.LAUNCHES)
+    for apply_bc in (True, False):
+        y = tlb.blocked_lattice_apply_zgrp(x, k_z.mats, k_z.zmats, k_z.Gz,
+                                           k_z.bc_marker, tm.nc, p, zb,
+                                           apply_bc=apply_bc)
+        ref = tlb.plain_lattice_apply_zgrp(x, k_z.mats, k_z.Gz,
+                                           k_z.bc_marker, tm.nc, p, zb,
+                                           apply_bc)
+        assert _rel_max(y, ref) <= 1e-5
+    # the same kernel on the same geometry, read in place: equal results
+    assert torch.equal(k_z(x), k_a(x))
+    assert tlb.LAUNCHES["lattice_apply_zgrp"] == \
+        before["lattice_apply_zgrp"] + 3
