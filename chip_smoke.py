@@ -162,6 +162,8 @@ SOURCES = {
     "transfer_x": "pmg_dolfinx_tpu_torch/csrc/transfer.cu",
     "transfer_yz": "pmg_dolfinx_tpu_torch/csrc/transfer.cu",
     "kron_fused": "pmg_dolfinx_tpu_torch/csrc/kron_fused.cu",
+    "t23_grid": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
+    "t23_grid_m": "pmg_dolfinx_tpu_torch/csrc/kron_blocked.cu",
 }
 TPU_KERNELS = {
     "t1_m": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:125",
@@ -184,12 +186,26 @@ TPU_KERNELS = {
     "transfer_x": "pmg_dolfinx_tpu/ops/pallas_transfer.py:48",
     "transfer_yz": "pmg_dolfinx_tpu/ops/pallas_transfer.py:56",
     "kron_fused": "pmg_dolfinx_tpu/ops/pallas_kron.py:43",
+    "t23_grid": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:295",
+    "t23_grid_m": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:365",
 }
 KERNEL_RTOL = 1e-5
 REF_TRAJ_FROM = 5e-3
 # Fused against unfused Chebyshev at the same lmax: the CPU tests' gate
 # of the fused hierarchy against the JAX one.
 FUSED_TRAJ_RTOL = 1e-4
+# The device grid against one device, both f32, on cycles above
+# REF_TRAJ_FROM, relative: within twice the spread of two correct f32
+# operators on the same problem, measured in the same run (the plain kron
+# hierarchy against kron_blocked; the grid sums the interface planes in
+# another order), at least the JAX package's own 5e-4
+# (tests/test_grid2d.py) and at most GRID_TRAJ_CAP.
+GRID_TRAJ_RTOL = 5e-4
+GRID_TRAJ_CAP = 5e-3
+# One grid V-cycle against one single-device V-cycle on a seeded random
+# rhs and iterate, at the same smoother bounds: relative max-norm.
+GRID_VCYCLE_RTOL = 1e-5
+GRID_NEEDS = ((True, True), (True, False), (False, True))
 SEED = 1234
 # The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores.
@@ -214,6 +230,51 @@ def traj_diff(rel, rel_ref):
     rel, rel_ref = np.asarray(rel), np.asarray(rel_ref)
     keep = rel_ref > REF_TRAJ_FROM
     return float(np.max(np.abs(rel[keep] - rel_ref[keep]) / rel_ref[keep]))
+
+
+def grid_traj_gate(rel, rel_ref, spread, tag):
+    """Raise unless ``rel`` keeps within the grid gate of ``rel_ref`` on
+    every cycle where ``rel_ref`` is above `REF_TRAJ_FROM`: relative, twice
+    ``spread`` (the `traj_diff` of two correct f32 operators on the same
+    problem, this run) clipped to [GRID_TRAJ_RTOL, GRID_TRAJ_CAP]."""
+    gate = min(max(GRID_TRAJ_RTOL, 2.0 * spread), GRID_TRAJ_CAP)
+    diff = traj_diff(rel, rel_ref)
+    print(f"    {tag}: trajectory max rel diff (cycles above "
+          f"{REF_TRAJ_FROM:g}) {diff:.3e}; gate {gate:.3e} (2 x the "
+          f"plain-kron spread {spread:.3e}, clipped to [{GRID_TRAJ_RTOL:g}, "
+          f"{GRID_TRAJ_CAP:g}])")
+    if not diff <= gate:
+        raise AssertionError(f"{tag}: trajectories differ by {diff:.3e} > "
+                             f"{gate:.3e} relative")
+
+
+def grid_vcycle_parity(grid, hier, seed, tag):
+    """One `GridPMG` V-cycle against one single-device V-cycle on a seeded
+    random rhs and iterate, the grid run at the single device's smoother
+    bounds (the two calibrations differ by f32 rounding): the smoother,
+    the transfers and the coarse gather/slice of the grid, on the card."""
+    import numpy as np
+    import torch
+
+    n = hier.levels[-1].ndofs
+    rng = np.random.default_rng(seed)
+    b, u = (torch.tensor(rng.standard_normal(n, dtype=np.float32),
+                         device="cuda") for _ in range(2))
+    own = [lv["lmax"] for lv in grid.data["levels"]]
+    for lv_g, lv_s in zip(grid.data["levels"], hier.data["levels"]):
+        lv_g["lmax"] = lv_s["lmax"]
+    try:
+        v_g = grid.from_dist(grid.apply(grid.to_dist(b), grid.to_dist(u)))
+    finally:
+        for lv_g, lm in zip(grid.data["levels"], own):
+            lv_g["lmax"] = lm
+    v_s = hier.apply(b, u)
+    err = rel_max_err(v_g, v_s)
+    print(f"    {tag}: one V-cycle, seeded random rhs and iterate, vs the "
+          f"single device: rel max err {err:.3e} (gate {GRID_VCYCLE_RTOL:g})")
+    if not err <= GRID_VCYCLE_RTOL:
+        raise AssertionError(f"{tag}: grid and single-device V-cycles differ "
+                             f"by {err:.3e}")
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -262,7 +323,8 @@ def kernel_parity(nc, P, kappa=2.0):
         Ks.append(torch.tensor(kappa * K, dtype=torch.float32))
         ms.append(torch.tensor(m, dtype=torch.float32))
     mats = kb.symmetrized_mats(
-        Ks, ms, kb.checked_face_masks(mesh, P, mesh.boundary_dof_marker(P)),
+        Ks, ms, face_masks=kb.checked_face_masks(
+            mesh, P, mesh.boundary_dof_marker(P)),
         band=P, device="cuda")
     rng = np.random.default_rng(SEED + nc)
     x = torch.tensor(rng.standard_normal(shape, dtype=np.float32),
@@ -379,6 +441,12 @@ def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None):
         A, NY, NZ, B_, C = dims
         nbytes = 4 * A * (NY * NZ + B_ * C) + 4 * (B_ * NY + NZ * C)
         flops = 2 * terms
+    elif name in ("t23_grid", "t23_grid_m"):  # t23(_m) + the cy/cz planes
+        NX, NY, NZ = dims
+        marker = 1 if name == "t23_grid" else 0
+        edge = 2 * NX * NZ + 2 * NX * NY
+        nbytes = 4 * N * 3 + marker * N + 4 * edge
+        flops = (4 * D + (8 if marker else 10)) * N + 2 * edge
     elif name == "kron_fused":           # x, marker, planes read, y written
         NX, NY, NZ = dims
         nbytes = 9 * N + 4 * (NY * NZ + NX * NZ + NX * NY)
@@ -742,10 +810,10 @@ def lattice_parity(mesh, P, geom, zgrp=False):
     if geom:
         co = torch.tensor(lb.lattice_geom_coefficients(mesh, P, kc),
                           dtype=torch.float32, device="cuda")
-        _, xi, wx = lb.lattice_geom_data(nc, P, device="cuda")
+        geom, xi, wx = lb.lattice_geom_data(nc, P, device="cuda")
         ref = lb.plain_lattice_apply_geom(x, mats, co, bc, nc, P)
-        got = lb.blocked_lattice_apply_geom(x, mats, co, bc, nc, P, xi=xi,
-                                            wx=wx)
+        got = lb.blocked_lattice_apply_geom(x, mats, co, geom, bc, nc, P,
+                                            xi=xi, wx=wx)
         torch.cuda.synchronize()
         err = rel_max_err(got, ref)
         print(f"    {tag} lattice_apply_geom: rel max err {err:.3e}")
@@ -755,8 +823,8 @@ def lattice_parity(mesh, P, geom, zgrp=False):
         del ref, got
         ms_k, ms_p, four = turns(
             lambda: lb.plain_lattice_apply_geom(x, mats, co, bc, nc, P),
-            lambda: lb.blocked_lattice_apply_geom(x, mats, co, bc, nc, P,
-                                                  xi=xi, wx=wx))
+            lambda: lb.blocked_lattice_apply_geom(x, mats, co, geom, bc, nc,
+                                                  P, xi=xi, wx=wx))
         print(f"    {tag} lattice_apply_geom: kernel {ms_k:.4f} ms vs "
               f"plain {ms_p:.4f} ms (turns {[round(t, 4) for t in four]}); "
               f"{x.numel() / ms_k / 1e6:.3f} GDOF/s")
@@ -1375,6 +1443,302 @@ def cycle_modes(cfg):
                              f"vs {rz[0]}")
 
 
+def grid_mats(nc, P, shards, masks, kappa=2.0):
+    """The grid-stacked kron_blocked arrays of `GridPMG` on
+    ``BoxMesh(nc)`` at degree P (float32, on the card), with the box's
+    separable masks when ``masks``."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops.kron import axis_stiffness_mass, local_axis_K
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPartition
+    from pmg_dolfinx_tpu_torch.parallel.partition import duplicate_planes
+
+    mesh = BoxMesh(nc)
+    part = GridPartition(mesh, shards)
+    npls = part.local_shape(P)
+    Ks, ms = [], []
+    for a in range(3):
+        K, _ = local_axis_K(mesh, a, part.cells_per_shard[a], P, kappa,
+                            part.shards[a])
+        _, mg = axis_stiffness_mass(mesh.nc[a], P, mesh.h_cells[a])
+        Ks.append(K)
+        ms.append(duplicate_planes(mg, npls[a], part.shards[a]))
+    fm = None
+    if masks:
+        fm = tuple(duplicate_planes(m, npls[a], part.shards[a]) for a, m in
+                   enumerate(kb.axis_interior_masks(mesh, P)))
+    mats, _ = kb.grid_symmetrized_mats(Ks, ms, part.shards, torch.float32,
+                                       fm, band=P, device="cuda")
+    return mesh, part, mats
+
+
+def grid_kernel_parity(nc):
+    """Phase 3e at one per-shard shape: kernels #8 / #9 on one shard of a
+    box (``nc`` cells, p=6) against their plain versions, with seeded
+    synthetic corrections, need_y / need_z in GRID_NEEDS, sigma in {0, 0.5},
+    apply and fused residual. Returns ({kernel: (max_abs_err, ms,
+    plain_ms)}, {kernel: (bound_ms, by)}) timed on the apply with both
+    corrections."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+
+    P = 6
+    mesh, _, m = grid_mats(nc, P, (1, 1, 1), masks=True)
+    shape = mesh.lattice_shape(P)
+    rng = np.random.default_rng(SEED + 8 * nc[0])
+    f32 = lambda s: torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                                 device="cuda")
+    x, r = f32(shape), f32(shape)
+    bc = torch.tensor(mesh.boundary_dof_marker(P).reshape(shape),
+                      device="cuda")
+    cy0, cz0 = f32((shape[0], 2, shape[2])), f32((shape[0], shape[1], 2))
+    t1 = kb.plain_t1_m(x, m)
+    err = {"t23_grid": 0.0, "t23_grid_m": 0.0}
+    for need in GRID_NEEDS:
+        cy = cy0 if need[0] else None
+        cz = cz0 if need[1] else None
+        for sigma in (0.0, 0.5):
+            for rr in (None, r):
+                ref8 = kb.plain_t23_grid(x, bc, t1, m, sigma, cy, cz)
+                ref9 = kb.plain_t23_grid_m(x, t1, m, sigma, cy, cz)
+                if rr is not None:
+                    ref8, ref9 = rr - ref8, rr - ref9
+                for name, got, ref in (
+                        ("t23_grid", kb.kron_t23_grid(x, bc, t1, m, sigma, cy,
+                                                      cz, r3=rr), ref8),
+                        ("t23_grid_m", kb.kron_t23_grid_m(x, t1, m, sigma, cy,
+                                                          cz, r3=rr), ref9)):
+                    torch.cuda.synchronize()
+                    e = rel_max_err(got, ref)
+                    tag = (f"{shape} {name} need_y={need[0]} "
+                           f"need_z={need[1]} sigma={sigma} "
+                           f"{'residual' if rr is not None else 'apply'}")
+                    if not e <= KERNEL_RTOL:
+                        raise AssertionError(f"{tag}: relative max-norm "
+                                             f"error {e:.3e} > {KERNEL_RTOL}")
+                    err[name] = max(err[name], float((got - ref).abs().max()))
+                    print(f"    {tag}: rel max err {e:.3e}")
+    out, bounds = {}, {}
+    N = x.numel()
+    for name, plain, kern in (
+            ("t23_grid",
+             lambda: kb.plain_t23_grid(x, bc, t1, m, 0.0, cy0, cz0),
+             lambda: kb.kron_t23_grid(x, bc, t1, m, 0.0, cy0, cz0)),
+            ("t23_grid_m",
+             lambda: kb.plain_t23_grid_m(x, t1, m, 0.0, cy0, cz0),
+             lambda: kb.kron_t23_grid_m(x, t1, m, 0.0, cy0, cz0))):
+        ms_k, ms_p, four = turns(plain, kern)
+        bounds[name] = kernel_bound(name, N, P, dims=shape)
+        out[name] = (err[name], ms_k, ms_p)
+        print(f"    {shape} {name} (both corrections): kernel {ms_k:.4f} ms "
+              f"vs plain {ms_p:.4f} ms (turns {[round(t, 4) for t in four]}); "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); "
+              f"t23_m without corrections "
+              f"{cuda_ms(lambda: kb.kron_t23_m(x, t1, m)):.4f} ms")
+    return out, bounds
+
+
+def grid_entry_point():
+    """Phase 3e, the entry point: `blocked_kron_apply_grid` on the stacked
+    (2, 2, 2) layout of nc=21, p=6 with a non-separable marker (the box
+    faces plus ~1% of the interior dofs, as phase 3b) and every exchange of
+    `grid_kron_blocked_cycle_ops`, apply and fused residual, between a
+    reset and a read of the launch counts (kernel #8 must launch), held to
+    the same call on CPU copies (the plain versions). Returns the
+    launches of #8."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel import grid2d as g2
+
+    shards, P = (2, 2, 2), 6
+    mesh, part, mats = grid_mats((22, 22, 22), P, shards, masks=False)
+    shape = mesh.lattice_shape(P)
+    rng = np.random.default_rng(SEED + 33)
+    bc_np = (mesh.boundary_dof_marker(P).reshape(shape)
+             | (rng.random(shape) < 0.01))
+    grid = g2.StackedGrid(shards)
+    stack = lambda a: g2.stack_shards(torch.tensor(
+        part.to_dist(P, a.reshape(-1))), shards).to("cuda")
+    bc = stack(bc_np.astype(np.float64)) > 0.5
+    x = stack(rng.standard_normal(shape)).float()
+    r = stack(rng.standard_normal(shape)).float()
+    kw = dict(
+        exchange_x=lambda t: g2._exchange_axis(t, grid, 0, inplace=True),
+        ex_y=g2._plane_exchange_pair(grid, 1),
+        ex_z=g2._plane_exchange_pair(grid, 2))
+    for k in kb.LAUNCHES:
+        kb.LAUNCHES[k] = 0
+    y = kb.blocked_kron_apply_grid(x, bc, mats, **kw)
+    rr = kb.blocked_kron_apply_grid(x, bc, mats, r3=r, **kw)
+    torch.cuda.synchronize()
+    launches = dict(kb.LAUNCHES)
+    print(f"    blocked_kron_apply_grid on the stacked (2, 2, 2) layout of "
+          f"{shape} ({x.shape[3:]} per shard), non-separable marker: "
+          f"launches {launches}")
+    if not (launches["t23_grid"] > 0 and launches["t23_grid_res"] > 0):
+        raise AssertionError(f"kernel #8 was not launched: {launches}")
+    cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+           for k, v in mats.items()}
+    y_ref = kb.blocked_kron_apply_grid(x.cpu(), bc.cpu(), cpu, **kw)
+    r_ref = kb.blocked_kron_apply_grid(x.cpu(), bc.cpu(), cpu, r3=r.cpu(),
+                                       **kw)
+    for tag, got, ref in (("apply", y, y_ref), ("residual", rr, r_ref)):
+        e = rel_max_err(got.cpu(), ref)
+        print(f"    entry point {tag} vs the plain versions on the CPU: rel "
+              f"max err {e:.3e}")
+        if not e <= KERNEL_RTOL:
+            raise AssertionError(f"grid entry point {tag}: {e:.3e}")
+    return launches["t23_grid"] + launches["t23_grid_res"]
+
+
+def grid_vcycle_ms(grid, cycles=10, reps=3):
+    """`vcycle_ms` for a `GridPMG`: one-vectors in the stacked layout."""
+    import torch
+
+    b = torch.ones(grid.shards + grid.levels[-1].shape, dtype=grid.dtype,
+                   device=grid.device)
+    u = torch.zeros_like(b)
+    times = [cuda_ms(lambda: grid.apply(b, u), reps=cycles, warmup=2)
+             for _ in range(reps)]
+    return sorted(times)[len(times) // 2], times
+
+
+def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
+    """Phase 14: the device-grid main path, ``GridPMG(BoxMesh((42, 42,
+    42)), (2, 2, 2), degrees=(1, 3, 6), kappa=2, float32, coarse="fdm",
+    operator="kron_blocked")`` on phase 4's mesh and rhs, every shard on
+    this card, against phase 4's single-device hierarchy (``spread``: phase
+    4's plain-kron spread); then (1, 2, 4) at about 2.0M dofs against the
+    single-device hierarchy on its mesh. Adds #9's launches on the path to
+    ``launches``."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import f_rhs
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    path_kernels = ("t1_m", "t23_grid_m", "t23_grid_res_m")
+    for k in kb.LAUNCHES:
+        kb.LAUNCHES[k] = 0
+    ts = time.perf_counter()
+    grid = GridPMG(prob.mesh, (2, 2, 2), operator="kron_blocked", **cfg)
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f}  (per-shard "
+          f"lattice {grid.levels[-1].shape}; eig max per level "
+          f"{[float(e[-1]) for e in grid.eigs]}; single device "
+          f"{[float(e[-1]) for e in hier.eigs]})")
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    ts = time.perf_counter()
+    u, rn = grid.solve(prob.b, num_cycles=10)
+    rel = [v / r0 for v in rn]
+    print(f"    10 cycles ({time.perf_counter() - ts:.3f} s host clock): rel "
+          f"{[f'{v:.4e}' for v in rel]}")
+    hist = [1.0] + rel
+    if not all(hist[i + 1] < hist[i] for i in range(4)):
+        raise AssertionError(f"residual did not fall on cycles 1-4: {rel}")
+    grid_traj_gate(rel, rel_ref, spread, "grid vs single device")
+    ts = time.perf_counter()
+    u, niter = grid.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    pcg_s = time.perf_counter() - ts
+    main = dict(kb.LAUNCHES)
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} ({pcg_s:.3f} s host "
+          f"clock; single device {niter_ref}); kernel launches on this path: "
+          f"{main}")
+    if not all(main[k] > 0 for k in path_kernels):
+        raise AssertionError(f"a grid-path kernel was not launched: {main}")
+    launches["t23_grid_m"] = main["t23_grid_m"] + main["t23_grid_res_m"]
+    if abs(niter - niter_ref) > 1:
+        raise AssertionError(f"FCG counts differ: {niter} vs {niter_ref}")
+    if tuple(u.shape) != tuple(u_ref.shape) or not bool(
+            torch.isfinite(u).all()):
+        raise AssertionError("grid solution is not a finite vector of ndofs")
+    du = float(torch.linalg.vector_norm(u - u_ref)
+               / torch.linalg.vector_norm(u_ref))
+    print(f"    grid vs single-device FCG solution: relative difference "
+          f"{du:.3e}")
+    if not du <= 1e-3:
+        raise AssertionError(f"grid and single-device solutions differ: {du}")
+    # The decomposed operator against the single-device one on a seeded
+    # random vector (no cancellation, so f32 rounding stays ~1e-7).
+    x = torch.tensor(np.random.default_rng(SEED + 14).standard_normal(
+        u_ref.numel(), dtype=np.float32), device="cuda")
+    lv_s, lv_g = hier.levels[-1], grid.levels[-1]
+    y_s = hier.ops["apply"](hier.data["levels"][-1], x.reshape(lv_s.shape),
+                            lv_s).reshape(-1)
+    y_g = grid.from_dist(grid.ops["apply"](grid.data["levels"][-1],
+                                           grid.to_dist(x), lv_g))
+    err = rel_max_err(y_g, y_s)
+    print(f"    grid apply vs single-device apply, seeded random vector: rel "
+          f"max err {err:.3e}")
+    if not err <= KERNEL_RTOL:
+        raise AssertionError(f"grid and single-device operators differ: {err}")
+    del x, y_s, y_g
+    grid_vcycle_parity(grid, hier, SEED + 15, "grid (2, 2, 2)")
+    bd = grid.to_dist(prob.b)
+    ud = torch.zeros_like(bd)
+    for k in kb.LAUNCHES:
+        kb.LAUNCHES[k] = 0
+    grid.apply(bd, ud)
+    torch.cuda.synchronize()
+    print(f"    launches per grid V-cycle: "
+          f"{ {k: v for k, v in kb.LAUNCHES.items() if v} }")
+    # single device, grid, grid, single device
+    t_s1, _ = vcycle_ms(hier)
+    t_g1, all_g1 = grid_vcycle_ms(grid)
+    t_g2, all_g2 = grid_vcycle_ms(grid)
+    t_s2, _ = vcycle_ms(hier)
+    print(f"    V-cycle: grid (2, 2, 2) {(t_g1 + t_g2) / 2:.3f} ms ({t_g1:.3f}, "
+          f"{t_g2:.3f}; reps {[round(t, 3) for t in all_g1 + all_g2]}) vs "
+          f"single device {(t_s1 + t_s2) / 2:.3f} ms ({t_s1:.3f}, "
+          f"{t_s2:.3f}); 10 back-to-back, median of 3, in turns")
+    wall, busy, nk, by_name = profile_busy(lambda: grid.apply(bd, ud))
+    print(f"    profile, one grid V-cycle: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, {nk} kernels, idle {max(0.0, 1 - busy / wall):.1%}")
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"      {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
+    del grid, u, bd, ud
+
+    # (1, 2, 4): 21 cells cannot split 2 or 4 ways, so the nearest mesh
+    # with ~2.0M dofs at p=6 that can.
+    mesh = BoxMesh((21, 22, 20))
+    b = torch.tensor(assemble_rhs(mesh, 6, f_rhs(2.0)), dtype=torch.float32,
+                     device="cuda")
+    r0 = float(torch.linalg.vector_norm(b))
+    single = PMGHierarchy(mesh, operator="kron_blocked", **cfg)
+    grid = GridPMG(mesh, (1, 2, 4), operator="kron_blocked", **cfg)
+    _, rn_s = single.solve(b, num_cycles=10)
+    _, rn_g = grid.solve(b, num_cycles=10)
+    _, rn_p = PMGHierarchy(mesh, operator="kron", **cfg).solve(
+        b, num_cycles=10)
+    spread_124 = traj_diff([v / r0 for v in rn_p], [v / r0 for v in rn_s])
+    u_s, n_s = single.solve_pcg(b, rtol=1e-6, maxiter=50)
+    u_g, n_g = grid.solve_pcg(b, rtol=1e-6, maxiter=50)
+    rel_s, rel_g = [v / r0 for v in rn_s], [v / r0 for v in rn_g]
+    du = float(torch.linalg.vector_norm(u_g - u_s)
+               / torch.linalg.vector_norm(u_s))
+    print(f"    (1, 2, 4) on {mesh.nc} ({mesh.num_dofs(6)} dofs, per-shard "
+          f"{grid.levels[-1].shape}): rel {[f'{v:.3e}' for v in rel_g]} "
+          f"(single {[f'{v:.3e}' for v in rel_s]}); FCG {n_g} (single "
+          f"{n_s}); solutions {du:.3e}; V-cycle grid "
+          f"{grid_vcycle_ms(grid)[0]:.3f} ms vs single "
+          f"{vcycle_ms(single)[0]:.3f} ms")
+    grid_traj_gate(rel_g, rel_s, spread_124, "(1, 2, 4) vs single device")
+    grid_vcycle_parity(grid, single, SEED + 16, "grid (1, 2, 4)")
+    if abs(n_g - n_s) > 1 or not du <= 1e-3:
+        raise AssertionError(f"(1, 2, 4): FCG {n_g} vs {n_s}, solutions {du}")
+
+
 def main():
     import numpy as np
     import torch
@@ -1449,6 +1813,15 @@ def main():
     main_shape.update(res_k)
     done(t0)
 
+    t0 = phase("3e. device-grid kernels #8/#9 vs plain torch: per-shard "
+               "127^3 and 253x127x127, and the grid entry point")
+    grid_kernel_parity((42, 21, 21))
+    res_g, bounds_g = grid_kernel_parity((21, 21, 21))
+    main_shape.update(res_g)
+    bounds.update(bounds_g)
+    launches["t23_grid"] = grid_entry_point()
+    done(t0)
+
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
     from pmg_dolfinx_tpu_torch.models.poisson import PoissonProblem
     from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
@@ -1509,6 +1882,14 @@ def main():
     vc_plain, vc_plain_all = vcycle_ms(plain_hier)
     print(f"    V-cycle {vc_plain:.3f} ms (plain torch kron; 10 "
           f"back-to-back, 3 reps {[round(t, 3) for t in vc_plain_all]})")
+    # The f32 spread of two correct operators at this size (phase 14
+    # compares the device grid against the same single-device trajectory).
+    _, rn_plain = plain_hier.solve(prob.b, num_cycles=10)
+    rel_plain = [v / r0 for v in rn_plain]
+    spread = traj_diff(rel_plain, rel)
+    print(f"    plain kron trajectory: rel {[f'{v:.4e}' for v in rel_plain]}; "
+          f"max rel diff from kron_blocked's (cycles above "
+          f"{REF_TRAJ_FROM:g}) {spread:.3e}")
     del plain_hier
     vc_blk2, _ = vcycle_ms(hier)
     print(f"    V-cycle again {vc_blk2:.3f} ms (kron_blocked)")
@@ -1533,7 +1914,14 @@ def main():
                "fuse_transfers=True (alone and with fuse_smoother)")
     fused_transfer_path(prob, hier, fused, rel, rel_fused, niter, cfg,
                         launches)
-    del prob, u, hier, fused, u_fused
+    del fused, u_fused
+    done(t0)
+
+    t0 = phase("14. device-grid main path (run here, on phase 4's mesh, rhs "
+               "and hierarchy): GridPMG (2,2,2), 16.2M dofs, kron_blocked + "
+               "fdm, every shard on this card")
+    grid_path(prob, hier, rel, u, niter, spread, cfg, launches)
+    del prob, u, hier
     done(t0)
 
     t0 = phase("5. in-card reference: nc=21, kron (plain) vs kron_blocked, "

@@ -40,8 +40,9 @@ def refuse_unported(args):
         raise SystemExit("--grade: graded spacing is not ported yet "
                          "(ROADMAP.md Queue 1 item 2)")
     if args.shards:
-        raise SystemExit("--shards: the distributed layer is not ported yet "
-                         "(ROADMAP.md Queue 1 item 10)")
+        raise SystemExit("--shards: the distributed steppers "
+                         "(transient_dist) are not ported yet (ROADMAP.md "
+                         "Queue 1 item 10)")
     if getattr(args, "save_series", ""):
         raise SystemExit("--save-series: utils/io is not ported yet "
                          "(ROADMAP.md Queue 1 item 11)")

@@ -8,6 +8,8 @@
 //   kron_t23<kApply>        <- _kernel_t23        (y/z-contractions, full bc array)
 //   kron_t23<kResidual>     <- _kernel_t23_res    (the same, fused  r - A v)
 //   kron_t23<kCheb>         <- _kernel_t23_cheb   (the same, fused Chebyshev-4 step)
+//   kron_t23_m<R, true>     <- _kernel_t23_grid_m (kernel 2 on a device-grid shard)
+//   kron_t23<kApply|kResidual, true> <- _kernel_t23_grid (the same, full bc array)
 //
 // Operator (symmetrized form, see ops/kron_blocked.py:symmetrized_mats):
 //   t1'      = Ktx-contraction of (x * my_j * sxzm)           [kernel 1]
@@ -59,6 +61,24 @@
 // contract), in ascending neighbour order; only the order of addition
 // differs from a dense product.
 //
+// Device-grid shards (GRID = true). On a shard of a 2D/3D device grid the
+// y/z contractions of the boundary planes miss the neighbour shard's
+// cells; the caller computes those partial sums from x, exchanges them,
+// and passes what it received as two nullable correction arrays:
+//   cy (NX, 2, NZ): t2 partials for the first (0) and last (1) y-plane,
+//   cz (NX, NY, 2): t3 partials for the first and last z-plane.
+// Each thread adds them to its accumulator after the sigma term and before
+// the final scaling, as the TPU kernel does:
+//   acc += sx_i (cy[i,0,k] [j == 0] + cy[i,1,k] [j == NY-1])
+//   acc += sx_i (cz[i,j,0] [k == 0] + cz[i,j,1] [k == NZ-1])
+// so the shared output factor sx_i s23 completes the neighbour terms. The
+// Dirichlet epilogue overwrites bc rows afterwards, so the corrections need
+// no mask. GRID is a template flag, so kernels #2, #3 and #5-#7 compile
+// exactly as before; a null cy or cz (an unsharded axis) is a uniform
+// branch, and only boundary-plane threads load a correction. The launchers
+// of kernels 2 and #5/#6 take cy / cz and pick the GRID instantiation when
+// either is given.
+//
 // Every C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for a band the
 // tiles cannot hold) so the Python wrapper can raise.
@@ -73,6 +93,22 @@ constexpr int kTR = 8;            // thread rows per block
 constexpr int kRPT = 4;           // outputs per thread along the tile rows
 constexpr int kRows = kTR * kRPT; // tile extent along x (kernel 1) / y (2)
 constexpr int kMaxBand = 16;          // keeps kernel 2's tiles under 48 KB
+
+// The neighbour-shard corrections of a device-grid shard (see the head of
+// this file): what the thread at (i, j, k) adds to its accumulator.
+__device__ __forceinline__ float grid_corrections(
+    float acc, float sxi, const float* __restrict__ cy,
+    const float* __restrict__ cz, int i, int j, int k, int NY, int NZ) {
+  if (cy != nullptr && (j == 0 || j == NY - 1)) {
+    const float* c = cy + (int64_t)i * 2 * NZ + k;
+    acc = acc + sxi * ((j == 0 ? c[0] : 0.f) + (j == NY - 1 ? c[NZ] : 0.f));
+  }
+  if (cz != nullptr && (k == 0 || k == NZ - 1)) {
+    const float* c = cz + ((int64_t)i * NY + j) * 2;
+    acc = acc + sxi * ((k == 0 ? c[0] : 0.f) + (k == NZ - 1 ? c[1] : 0.f));
+  }
+  return acc;
+}
 
 __global__ void __launch_bounds__(kTK * kTR)
 kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
@@ -115,13 +151,14 @@ kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
   }
 }
 
-template <bool RESIDUAL>
+template <bool RESIDUAL, bool GRID>
 __global__ void __launch_bounds__(kTK * kTR)
 kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
            const float* __restrict__ t1, const float* __restrict__ Kty,
            const float* __restrict__ KtzT, const float* __restrict__ sx2d,
            const float* __restrict__ sycol, const float* __restrict__ s23m,
            const float* __restrict__ myb, const float* __restrict__ mzrow,
+           const float* __restrict__ cy, const float* __restrict__ cz,
            const float* __restrict__ r, float* __restrict__ out,
            int NX, int NY, int NZ, int band, float sigma) {
   extern __shared__ float smem[];
@@ -177,6 +214,7 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
     const float what = srow[band];
     float acc = sycol[j] * t1[idx] + sxi * (t2 + t3);
     if (sigma != 0.f) acc = acc + (sigma * sxi) * what;
+    if (GRID) acc = grid_corrections(acc, sxi, cy, cz, i, j, k, NY, NZ);
     const float y = acc * (sxi * s);
     const float av = xv * (1.f - mxi * (myb[j] * mzrow[k])) + y * mxi;
     out[idx] = RESIDUAL ? r[idx] - av : av;
@@ -230,12 +268,13 @@ enum T23Mode { kApply = 0, kResidual = 1, kCheb = 2 };
 
 // kron_t23_m with the full bc lattice and three epilogues (see the head of
 // this file). Unused pointers of a mode are null.
-template <int MODE>
+template <int MODE, bool GRID>
 __global__ void __launch_bounds__(kTK * kTR)
 kron_t23(const float* __restrict__ v, const uint8_t* __restrict__ bc,
          const float* __restrict__ t1, const float* __restrict__ Kty,
          const float* __restrict__ KtzT, const float* __restrict__ sx2d,
          const float* __restrict__ sycol, const float* __restrict__ s23,
+         const float* __restrict__ cy, const float* __restrict__ cz,
          const float* __restrict__ r, const float* __restrict__ x,
          const float* __restrict__ dinv, const float* __restrict__ lmax,
          int kstep, float* __restrict__ out, float* __restrict__ xo,
@@ -307,6 +346,7 @@ kron_t23(const float* __restrict__ v, const uint8_t* __restrict__ bc,
     const float what = srow[band];
     float acc = sycol[j] * t1[idx] + sxi * (t2 + t3);
     if (sigma != 0.f) acc = acc + (sigma * sxi) * what;
+    if (GRID) acc = grid_corrections(acc, sxi, cy, cz, i, j, k, NY, NZ);
     const float y = acc * (sxi * s23[o]);
     const float av = bci_pl[o] ? vv : y;
     if (MODE == kApply) {
@@ -327,6 +367,13 @@ inline dim3 tile_grid(int NZ, int rows, int third) {
               (unsigned)((rows + kRows - 1) / kRows), (unsigned)third);
 }
 
+// Shared memory of kernel 2 and of #5-#9: the staged tile with its halo
+// and the bands of Kty and KtzT.
+inline size_t t23_smem(int band) {
+  return sizeof(float) * ((kRows + 2 * band) * (kTK + 2 * band) +
+                          (2 * band + 1) * (kRows + kTK));
+}
+
 }  // namespace
 
 extern "C" {
@@ -345,25 +392,22 @@ int kron_t1_m_launch(const float* x, const float* myb, const float* Ktx,
 }
 
 // r == nullptr: out = A x (kernel #2); otherwise out = r - A x (kernel #3).
+// With cy or cz (either may be null): kernel #9 in the same two forms.
 int kron_t23_m_launch(const float* x, const float* mx2, const float* t1,
                       const float* Kty, const float* KtzT, const float* sx2d,
                       const float* sycol, const float* s23m, const float* myb,
-                      const float* mzrow, const float* r, float* out, int NX,
-                      int NY, int NZ, int band, float sigma, void* stream) {
+                      const float* mzrow, const float* cy, const float* cz,
+                      const float* r, float* out, int NX, int NY, int NZ,
+                      int band, float sigma, void* stream) {
   if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((kRows + 2 * band) * (kTK + 2 * band) +
-                       (2 * band + 1) * (kRows + kTK));
-  const dim3 grid = tile_grid(NZ, NY, NX), block(kTK, kTR);
-  if (r == nullptr) {
-    kron_t23_m<false><<<grid, block, smem, (cudaStream_t)stream>>>(
-        x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow, r, out, NX, NY,
-        NZ, band, sigma);
-  } else {
-    kron_t23_m<true><<<grid, block, smem, (cudaStream_t)stream>>>(
-        x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow, r, out, NX, NY,
-        NZ, band, sigma);
-  }
+  const bool grid = cy != nullptr || cz != nullptr;
+  auto kern = r == nullptr
+      ? (grid ? kron_t23_m<false, true> : kron_t23_m<false, false>)
+      : (grid ? kron_t23_m<true, true> : kron_t23_m<true, false>);
+  kern<<<tile_grid(NZ, NY, NX), dim3(kTK, kTR), t23_smem(band),
+         (cudaStream_t)stream>>>(x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m,
+                                 myb, mzrow, cy, cz, r, out, NX, NY, NZ, band,
+                                 sigma);
   return (int)cudaGetLastError();
 }
 
@@ -378,29 +422,22 @@ int kron_t1_launch(const float* x, const uint8_t* bc, const float* Ktx,
   return (int)cudaGetLastError();
 }
 
-inline size_t t23_smem(int band) {
-  return sizeof(float) * ((kRows + 2 * band) * (kTK + 2 * band) +
-                          (2 * band + 1) * (kRows + kTK));
-}
-
 // r == nullptr: out = A v (kernel #5); otherwise out = r - A v (kernel #6).
+// With cy or cz (either may be null): kernel #8 in the same two forms.
 int kron_t23_launch(const float* v, const uint8_t* bc, const float* t1,
                     const float* Kty, const float* KtzT, const float* sx2d,
-                    const float* sycol, const float* s23, const float* r,
-                    float* out, int NX, int NY, int NZ, int band, float sigma,
-                    void* stream) {
+                    const float* sycol, const float* s23, const float* cy,
+                    const float* cz, const float* r, float* out, int NX,
+                    int NY, int NZ, int band, float sigma, void* stream) {
   if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
-  const dim3 grid = tile_grid(NZ, NY, NX), block(kTK, kTR);
-  const size_t smem = t23_smem(band);
-  if (r == nullptr) {
-    kron_t23<kApply><<<grid, block, smem, (cudaStream_t)stream>>>(
-        v, bc, t1, Kty, KtzT, sx2d, sycol, s23, nullptr, nullptr, nullptr,
-        nullptr, 0, out, nullptr, nullptr, NX, NY, NZ, band, sigma);
-  } else {
-    kron_t23<kResidual><<<grid, block, smem, (cudaStream_t)stream>>>(
-        v, bc, t1, Kty, KtzT, sx2d, sycol, s23, r, nullptr, nullptr, nullptr,
-        0, out, nullptr, nullptr, NX, NY, NZ, band, sigma);
-  }
+  const bool grid = cy != nullptr || cz != nullptr;
+  auto kern = r == nullptr
+      ? (grid ? kron_t23<kApply, true> : kron_t23<kApply, false>)
+      : (grid ? kron_t23<kResidual, true> : kron_t23<kResidual, false>);
+  kern<<<tile_grid(NZ, NY, NX), dim3(kTK, kTR), t23_smem(band),
+         (cudaStream_t)stream>>>(v, bc, t1, Kty, KtzT, sx2d, sycol, s23, cy,
+                                 cz, r, nullptr, nullptr, nullptr, 0, out,
+                                 nullptr, nullptr, NX, NY, NZ, band, sigma);
   return (int)cudaGetLastError();
 }
 
@@ -414,10 +451,10 @@ int kron_t23_cheb_launch(const float* v, const uint8_t* bc, const float* t1,
                          int NZ, int band, float sigma, void* stream) {
   if (band < 0 || band > kMaxBand || kstep < 0)
     return (int)cudaErrorInvalidValue;
-  kron_t23<kCheb><<<tile_grid(NZ, NY, NX), dim3(kTK, kTR), t23_smem(band),
-                    (cudaStream_t)stream>>>(
-      v, bc, t1, Kty, KtzT, sx2d, sycol, s23, r, x, dinv, lmax, kstep, ro, xo,
-      zo, NX, NY, NZ, band, sigma);
+  kron_t23<kCheb, false><<<tile_grid(NZ, NY, NX), dim3(kTK, kTR),
+                           t23_smem(band), (cudaStream_t)stream>>>(
+      v, bc, t1, Kty, KtzT, sx2d, sycol, s23, nullptr, nullptr, r, x, dinv,
+      lmax, kstep, ro, xo, zo, NX, NY, NZ, band, sigma);
   return (int)cudaGetLastError();
 }
 

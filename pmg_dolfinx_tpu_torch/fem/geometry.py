@@ -42,10 +42,17 @@ def quadrature_weights_3d(P: int) -> np.ndarray:
     return np.einsum("i,j,k->ijk", w, w, w).reshape(-1)
 
 
-def geometry_factors(xgeom, geometry_dofmap, dphi_geom, weights, kappa=None):
+def geometry_factors(xgeom, geometry_dofmap, dphi_geom, weights, xp=np,
+                     kappa=None):
     """Compute ``G[(ncells, nq, 6)]`` and ``detJ[(ncells, nq)]`` in numpy
     float64. ``kappa`` (optional) is an ``(ncells,)`` DG-0 scalar field
-    that post-multiplies the 6 entries."""
+    that post-multiplies the 6 entries. ``xp`` keeps the JAX package's
+    fifth parameter, its array module: here always numpy (the port's
+    geometry is host setup), anything else raises ValueError."""
+    if xp is not np:
+        raise ValueError(
+            f"xp={xp!r}: the port computes geometry factors on the host "
+            "with numpy only (pass xp=numpy)")
     coords = xgeom[geometry_dofmap]  # (ncells, 8, 3)
     J = np.einsum("cka,bqk->cqab", coords, dphi_geom)
     K = _adjugate_3x3(J)

@@ -58,11 +58,24 @@ class PoissonProblem:
     def __init__(self, nc=(10, 10, 10), degrees=(1, 3), kappa=2.0,
                  dtype=torch.float64, coarse="smoother", coarse_cfg=None,
                  smoother_iters=2, operator="kron", precision="highest",
-                 f=None, mesh=None, sigma=0.0, u_exact=None, *, device):
+                 f=None, mesh=None, sigma=0.0, smoother="cheb",
+                 u_exact=None, robin_g=None, *, device):
         """``mesh`` (optional) replaces ``BoxMesh(nc)``, e.g. a
         `PerturbedBoxMesh` with ``operator='lattice_blocked'``;
         ``u_exact`` overrides the manufactured solution `error_l2` uses
-        (pass the matching ``f``)."""
+        (pass the matching ``f``). The parameters keep the JAX package's
+        order: ``smoother`` is 'cheb' (the line and Schwarz smoothers are
+        ROADMAP.md Queue 1 item 7b) and ``robin_g`` None (Robin data is
+        item 7c)."""
+        if smoother != "cheb":
+            raise NotImplementedError(
+                f"smoother={smoother!r}: only the point-Jacobi Chebyshev "
+                "smoother ('cheb') is ported; 'line' and 'schwarz' are "
+                "ROADMAP.md Queue 1 item 7b")
+        if robin_g is not None:
+            raise NotImplementedError(
+                "robin_g (Robin boundary data) is not ported yet (ROADMAP.md "
+                "Queue 1 item 7c)")
         self.mesh = mesh if mesh is not None else BoxMesh(nc)
         self.degrees = tuple(degrees)
         self.kappa = kappa

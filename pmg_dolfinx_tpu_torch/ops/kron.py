@@ -1,6 +1,8 @@
 """Kronecker-sum Laplacian on axis-aligned box meshes (plain torch).
 
-Port of `pmg_dolfinx_tpu.ops.kron`. On an axis-aligned box the GLL
+Port of `pmg_dolfinx_tpu.ops.kron` (the apply, the diagonal, the
+operator class and the device-grid helpers `local_axis_K` /
+`stacked_local_K`). On an axis-aligned box the GLL
 stiffness operator is the Kronecker sum
 
     A = kappa * ( K_x (x) M_y (x) M_z + M_x (x) K_y (x) M_z
@@ -51,7 +53,49 @@ def robin_axis_ends(mesh, axis: int, scale: float = 1.0):
     return (float(ra[axis, 0]) * scale, float(ra[axis, 1]) * scale)
 
 
-def kron_laplacian_apply(x, Ks, ms, bc_marker, apply_bc=True, sigma=0.0):
+def stacked_local_K(Kl, k_a, robin_ends, n_shards):
+    """Per-shard row-stacked kappa-folded LOCAL axis stiffness ``(S * npl,
+    npl)`` (float64) for a sharded axis whose global ends carry Robin
+    terms: the ``alpha`` updates land on the first shard's ``[0, 0]`` and
+    the last shard's ``[-1, -1]``. The device-grid layer reaches it only
+    through `local_axis_K`, which raises for Robin ends (ROADMAP.md Queue 1
+    item 7c); kept for the JAX package's call shape."""
+    out = np.tile(k_a * np.asarray(Kl, np.float64), (int(n_shards), 1))
+    out[0, 0] += float(robin_ends[0])
+    out[-1, -1] += float(robin_ends[1])
+    return out
+
+
+def local_axis_K(mesh, a, nc_local, Pdeg, k_a, n_shards_a):
+    """Kappa-folded LOCAL axis stiffness of one shard of a device grid:
+    ``(K, stacked)``. ``stacked=False``: the shard-invariant ``(npl,
+    npl)`` float64 matrix (a uniform axis, or an unsharded one with its
+    spacing folded in); ``stacked=True``: the per-shard row-stacked ``(S *
+    npl, npl)`` form of a sharded GRADED axis (each block assembled from
+    its shard's cells). Robin ends raise NotImplementedError (ROADMAP.md
+    Queue 1 item 7c)."""
+    if robin_axis_ends(mesh, a) != (0.0, 0.0):
+        raise NotImplementedError(
+            "Robin faces on the device grid are not ported yet (ROADMAP.md "
+            "Queue 1 item 7c)")
+    h_cells = np.broadcast_to(np.asarray(mesh.h_cells[a], np.float64),
+                              (mesh.nc[a],))
+    graded = not bool(np.allclose(h_cells, h_cells[0], rtol=1e-12))
+    if n_shards_a == 1 or not graded:
+        K, _ = axis_stiffness_mass(nc_local, Pdeg,
+                                   h_cells if n_shards_a == 1
+                                   else h_cells[0])
+        return k_a * K, False
+    blocks = []
+    for s in range(n_shards_a):
+        Ks, _ = axis_stiffness_mass(
+            nc_local, Pdeg, h_cells[s * nc_local:(s + 1) * nc_local])
+        blocks.append(k_a * Ks)
+    return np.vstack(blocks), True
+
+
+def kron_laplacian_apply(x, Ks, ms, bc_marker, precision="highest",
+                         apply_bc=True, exchange=None, sigma=0.0):
     """``y = A x`` via the Kronecker-sum form (shape-preserving).
 
     ``x`` is flat ``(NX*NY*NZ,)`` or lattice-shaped ``(NX, NY, NZ)``;
@@ -59,8 +103,15 @@ def kron_laplacian_apply(x, Ks, ms, bc_marker, apply_bc=True, sigma=0.0):
     per-axis lumped masses, ``bc_marker`` a bool marker shaped like
     ``x``. Uses the symmetrized scaling ``A = S (Kt_x ⊕ Kt_y ⊕ Kt_z) S``
     with ``s_a = sqrt(m_a)``, ``Kt_a = K_a / (s_a s_a^T)``; ``sigma``
-    adds the lumped-mass shift ``sigma M``.
+    adds the lumped-mass shift ``sigma M``. ``exchange`` (optional) is
+    applied to the K_x term's lattice before the terms are summed: the
+    interface partial-sum reconciliation of an x-sharded layout, as in
+    the JAX package. ``precision`` is the JAX package's ('highest' only).
+    The parameters keep the JAX package's order.
     """
+    from .kron_blocked import _check_precision
+
+    _check_precision(precision)
     Kx, Ky, Kz = Ks
     mx, my, mz = ms
     NX, NY, NZ = Kx.shape[1], Ky.shape[1], Kz.shape[1]
@@ -72,6 +123,8 @@ def kron_laplacian_apply(x, Ks, ms, bc_marker, apply_bc=True, sigma=0.0):
     w = (torch.where(bc_marker, torch.zeros_like(x), x).reshape(NX, NY, NZ)) * s3
 
     t1 = torch.einsum("ax,xyz->ayz", Ktx, w)
+    if exchange is not None:
+        t1 = exchange(t1)
     t2 = torch.einsum("by,xyz->xbz", Kty, w)
     t3 = torch.einsum("cz,xyz->xyc", Ktz, w)
     t = t1 + t2 + t3
@@ -103,15 +156,19 @@ def kron_diagonal(Ks, ms, bc_marker, sigma=0.0):
 class KronLaplacian:
     """Operator bundle for axis-aligned `BoxMesh` on ``device``: ``op(x)``
     on flat or lattice-shaped vectors, ``diag``, ``diag_inv``. ``sigma``
-    adds the lumped-mass shift; ``kappa`` is a scalar."""
+    adds the lumped-mass shift; ``kappa`` is a scalar; ``precision`` is
+    the JAX package's fifth parameter ('highest' only)."""
 
-    def __init__(self, mesh, P, kappa=2.0, dtype=torch.float32, sigma=0.0,
-                 *, device):
+    def __init__(self, mesh, P, kappa=2.0, dtype=torch.float32,
+                 precision="highest", sigma=0.0, *, device):
         from ..fem.assembly import resolve_kappa_axes
         from ..fem.mesh import require_axis_aligned
+        from .kron_blocked import _check_precision
 
+        _check_precision(precision)
         require_axis_aligned(mesh, "KronLaplacian")
         self.P = int(P)
+        self.precision = precision
         self.mesh = mesh
         self.dtype = dtype
         self.sigma = float(sigma)

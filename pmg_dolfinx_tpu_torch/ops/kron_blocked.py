@@ -22,15 +22,21 @@ Port of `pmg_dolfinx_tpu.ops.pallas_kron_blocked`:
   `plain_cheb_step`, `plain_cheb4` — dense `torch.einsum` versions of the
   same functions in any float dtype (the ports of `_emu_t1` / `_emu_apply` and of the
   emulated Chebyshev half-step), used by the CPU tests and compared with
-  the kernels on the card by `chip_smoke.py`.
+  the kernels on the card by `chip_smoke.py`;
+- the device-grid half: `grid_symmetrized_mats`, `shard_blocks`,
+  `edge_partials` and `blocked_kron_apply_grid`. On a shard, kernel 2 takes
+  the neighbour corrections ``cy`` / ``cz`` (added before the final
+  scaling): `kron_t23_m` / `kron_t23` with either correction given launch
+  kernels #9 / #8 (`kron_t23_grid_m` / `kron_t23_grid` are the same
+  functions under the names of the JAX package's kernels), and
+  `plain_t23_m` / `plain_t23` are their plain versions.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` (keyed by a hash of the source, `ops.cuda_build`) and
 bound through a plain C interface with `ctypes`. `LAUNCHES` counts every kernel launch,
 so a run can show that its main path went through the kernels.
 
-Not ported yet (ROADMAP.md, Queue 2): the device-grid kernels and
-``precision="high"`` (bf16x3).
+Not ported yet: ``precision="high"`` (bf16x3, ROADMAP.md Queue 1 item 1).
 """
 
 import ctypes
@@ -50,7 +56,8 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "kron_blocked.cu"
 # Kernel launches since the last reset: kernel name -> count. Raised only
 # where a wrapper launches its kernel.
 LAUNCHES = {"t1_m": 0, "t23_m": 0, "t23_res_m": 0, "t1": 0, "t23": 0,
-            "t23_res": 0, "t23_cheb": 0}
+            "t23_res": 0, "t23_cheb": 0, "t23_grid": 0, "t23_grid_res": 0,
+            "t23_grid_m": 0, "t23_grid_res_m": 0}
 
 # The loaded library and the compiler's output of the build that made it.
 _lib = None
@@ -62,8 +69,8 @@ def _np64(a):
     return np.asarray(a, np.float64)
 
 
-def symmetrized_mats(Ks, ms, face_masks=None, *, band, device,
-                     dtype=torch.float32):
+def symmetrized_mats(Ks, ms, dtype=torch.float32, face_masks=None, *, band,
+                     device):
     """The symmetrized-scaling arrays the blocked kernels consume.
 
     ``Ks`` are the per-axis stiffness matrices (kappa folded in), ``ms``
@@ -74,8 +81,8 @@ def symmetrized_mats(Ks, ms, face_masks=None, *, band, device,
     interior vectors of `checked_face_masks`) adds the separable set: the
     bc mask folded into the scale planes (``sxzm``, ``s23m``) and the
     epilogue vectors (``mx2``, ``myb``, ``mzrow``). Computed in float64,
-    cast once. Names and shapes follow the JAX package, so its state
-    converts directly (`utils.convert`).
+    cast once to ``dtype``. Names, shapes and the positional order follow
+    the JAX package, so its state converts directly (`utils.convert`).
 
     ``band`` is the half-bandwidth of every ``Kt_a`` (the degree P for
     the GLL stiffness): the kernels sum over the band only, so an entry
@@ -87,13 +94,7 @@ def symmetrized_mats(Ks, ms, face_masks=None, *, band, device,
     Kts = [K / s[:, None] / s[None, :] for K, s in zip(Ks64, ss)]
     band = int(band)
     for name, Kt in zip("xyz", Kts):
-        i, j = np.indices(Kt.shape)
-        outside = np.abs(i - j) > band
-        if np.any(Kt[outside] != 0.0):
-            raise ValueError(
-                f"Kt_{name} has nonzero entries outside the band "
-                f"|i-j| <= {band}; the blocked kernels sum over the band "
-                "only")
+        _check_band(name, Kt, band)
     arrays = dict(
         Ktx=Kts[0],
         Kty=Kts[1],
@@ -116,6 +117,15 @@ def symmetrized_mats(Ks, ms, face_masks=None, *, band, device,
            for k, v in arrays.items()}
     out["band"] = band
     return out
+
+
+def _check_band(name, Kt, band):
+    """Raise unless the square ``Kt`` is banded with half-width ``band``."""
+    i, j = np.indices(Kt.shape)
+    if np.any(Kt[np.abs(i - j) > band] != 0.0):
+        raise ValueError(
+            f"Kt_{name} has nonzero entries outside the band |i-j| <= "
+            f"{band}; the blocked kernels sum over the band only")
 
 
 def checked_face_masks(mesh, P, bc_marker):
@@ -163,8 +173,23 @@ def plain_t1_m(x3, m):
     return torch.einsum("ax,xyz->ayz", m["Ktx"], w)
 
 
-def plain_t23_m(x3, t1, m, sigma=0.0):
-    """Kernel 2: the y/z contractions, scaling and bc epilogue on t1'."""
+def _add_corrections(acc, sx2, cy, cz):
+    """The neighbour corrections of kernels #8 / #9 on the accumulator's
+    boundary planes (in place on ``acc``, the caller's own tensor)."""
+    if cy is not None:
+        acc[:, 0, :] += sx2 * cy[:, 0, :]
+        acc[:, -1, :] += sx2 * cy[:, 1, :]
+    if cz is not None:
+        acc[:, :, 0] += sx2 * cz[:, :, 0]
+        acc[:, :, -1] += sx2 * cz[:, :, 1]
+    return acc
+
+
+def plain_t23_m(x3, t1, m, sigma=0.0, cy=None, cz=None):
+    """Kernel 2: the y/z contractions, scaling and bc epilogue on t1'.
+    On a device-grid shard (kernel #9) the neighbour corrections ``cy``
+    (NX, 2, NZ) / ``cz`` (NX, NY, 2) are added to the accumulator's
+    boundary planes before the final scaling."""
     mx = m["mx2"][:, 0][:, None, None]
     what = x3 * (mx * m["s23m"][None])
     t2 = torch.einsum("by,xyz->xbz", m["Kty"], what)
@@ -174,6 +199,7 @@ def plain_t23_m(x3, t1, m, sigma=0.0):
     acc = sy * t1 + sx * (t2 + t3)
     if sigma:
         acc = acc + (sigma * sx) * what
+    acc = _add_corrections(acc, m["sx2d"], cy, cz)
     y = acc * (sx * m["s23m"][None])
     inter_yz = (m["myb"] * m["mzrow"])[None]
     return x3 * (1.0 - mx * inter_yz) + y * mx
@@ -195,9 +221,10 @@ def plain_t1(x3, bc3, m):
     return torch.einsum("ax,xyz->ayz", m["Ktx"], w)
 
 
-def plain_t23(x3, bc3, t1, m, sigma=0.0):
+def plain_t23(x3, bc3, t1, m, sigma=0.0, cy=None, cz=None):
     """Kernel #5: the y/z contractions and scaling on t1', then the bc
-    rows ``where(bc, x, y)``."""
+    rows ``where(bc, x, y)``; with ``cy`` / ``cz`` kernel #8 (the JAX
+    package's ``_emu_t23_grid``), as in `plain_t23_m`."""
     what = torch.where(bc3, torch.zeros_like(x3), x3) * m["s23"][None]
     t2 = torch.einsum("by,xyz->xbz", m["Kty"], what)
     t3 = torch.einsum("xyz,zc->xyc", what, m["KtzT"])
@@ -206,6 +233,7 @@ def plain_t23(x3, bc3, t1, m, sigma=0.0):
     acc = sy * t1 + sx * (t2 + t3)
     if sigma:
         acc = acc + (sigma * sx) * what
+    acc = _add_corrections(acc, m["sx2d"], cy, cz)
     return torch.where(bc3, x3, acc * (sx * m["s23"][None]))
 
 
@@ -279,11 +307,11 @@ def load_kernels():
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.kron_t1_m_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.kron_t1_m_launch.restype = ci
-    lib.kron_t23_m_launch.argtypes = [vp] * 12 + [ci] * 4 + [cf, vp]
+    lib.kron_t23_m_launch.argtypes = [vp] * 14 + [ci] * 4 + [cf, vp]
     lib.kron_t23_m_launch.restype = ci
     lib.kron_t1_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.kron_t1_launch.restype = ci
-    lib.kron_t23_launch.argtypes = [vp] * 10 + [ci] * 4 + [cf, vp]
+    lib.kron_t23_launch.argtypes = [vp] * 12 + [ci] * 4 + [cf, vp]
     lib.kron_t23_launch.restype = ci
     lib.kron_t23_cheb_launch.argtypes = ([vp] * 12 + [ci] + [vp] * 3
                                          + [ci] * 4 + [cf, vp])
@@ -330,11 +358,55 @@ def _kernels_for(band):
     return lib
 
 
-def kron_t1_m(x3, m):
-    """Launch kernel 1 on CUDA tensors; returns a new ``t1'`` lattice."""
+def _out(out, x3):
+    """A new output lattice like ``x3``, or the caller's ``out`` (checked;
+    it must not alias an input)."""
+    if out is None:
+        return torch.empty_like(x3)
+    _check_lattice("out", out, tuple(x3.shape), x3.device)
+    return out
+
+
+def _plain_into(av, r3, out):
+    """The CPU branch of a wrapper: the plain ``av`` (or ``r3 - av``), in
+    ``out`` when given."""
+    res = av if r3 is None else r3 - av
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def _opt(t):
+    return None if t is None else _ptr(t)
+
+
+def _t23_name(base, cy, cz, r3):
+    """The `LAUNCHES` key of a kernel-2 launch: ``t23[_grid][_res]`` plus
+    the separable suffix in ``base``."""
+    grid = "_grid" if cy is not None or cz is not None else ""
+    return "t23" + grid + ("" if r3 is None else "_res") + base
+
+
+def _check_t23_extras(x3, t1, r3, cy, cz):
+    NX, NY, NZ = shape = tuple(x3.shape)
+    _check_lattice("t1", t1, shape, x3.device)
+    if r3 is not None:
+        _check_lattice("r", r3, shape, x3.device)
+    if cy is not None:
+        _check_lattice("cy", cy, (NX, 2, NZ), x3.device)
+    if cz is not None:
+        _check_lattice("cz", cz, (NX, NY, 2), x3.device)
+
+
+def kron_t1_m(x3, m, out=None):
+    """Launch kernel 1 on CUDA tensors (`plain_t1_m` on CPU tensors);
+    returns a new ``t1'`` lattice (or writes ``out``)."""
+    if x3.device.type == "cpu":
+        return _plain_into(plain_t1_m(x3, m), None, out)
     (NX, NY, NZ), band = _check_operands(x3, m)
     lib = _kernels_for(band)
-    out = torch.empty_like(x3)
+    out = _out(out, x3)
     with torch.cuda.device(x3.device):
         rc = lib.kron_t1_m_launch(
             _ptr(x3), _ptr(m["myb"]), _ptr(m["Ktx"]), _ptr(m["sxzm"]),
@@ -345,36 +417,40 @@ def kron_t1_m(x3, m):
     return out
 
 
-def kron_t23_m(x3, t1, m, sigma=0.0, r3=None):
+def kron_t23_m(x3, t1, m, sigma=0.0, cy=None, cz=None, r3=None, out=None):
     """Launch kernel 2 (``A x``), or kernel 3 (``r - A x``) when ``r3``
-    is given, on CUDA tensors; returns a new lattice."""
-    shape, band = _check_operands(x3, m)
-    _check_lattice("t1", t1, shape, x3.device)
-    if r3 is not None:
-        _check_lattice("r", r3, shape, x3.device)
-    NX, NY, NZ = shape
+    is given, on CUDA tensors; with either neighbour correction ``cy`` /
+    ``cz`` of a device-grid shard, kernel #9 in the same two forms. A CPU
+    tensor runs `plain_t23_m`. Returns a new lattice (or writes ``out``)."""
+    if x3.device.type == "cpu":
+        return _plain_into(plain_t23_m(x3, t1, m, sigma, cy, cz), r3, out)
+    (NX, NY, NZ), band = _check_operands(x3, m)
+    _check_t23_extras(x3, t1, r3, cy, cz)
     lib = _kernels_for(band)
-    out = torch.empty_like(x3)
+    out = _out(out, x3)
     with torch.cuda.device(x3.device):
         rc = lib.kron_t23_m_launch(
             _ptr(x3), _ptr(m["mx2"]), _ptr(t1), _ptr(m["Kty"]),
             _ptr(m["KtzT"]), _ptr(m["sx2d"]), _ptr(m["sycol"]),
-            _ptr(m["s23m"]), _ptr(m["myb"]), _ptr(m["mzrow"]),
-            None if r3 is None else _ptr(r3), _ptr(out),
-            NX, NY, NZ, band, float(sigma), stream_of(x3))
-    name = "t23_m" if r3 is None else "t23_res_m"
+            _ptr(m["s23m"]), _ptr(m["myb"]), _ptr(m["mzrow"]), _opt(cy),
+            _opt(cz), _opt(r3), _ptr(out), NX, NY, NZ, band, float(sigma),
+            stream_of(x3))
+    name = _t23_name("_m", cy, cz, r3)
     if rc != 0:
         raise RuntimeError(f"kron_{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
     return out
 
 
-def kron_t1(x3, bc3, m):
+def kron_t1(x3, bc3, m, out=None):
     """Launch kernel #4 (``t1'`` with the full bool marker ``bc3``) on
-    CUDA tensors; returns a new lattice."""
+    CUDA tensors (`plain_t1` on CPU tensors); returns a new lattice (or
+    writes ``out``)."""
+    if x3.device.type == "cpu":
+        return _plain_into(plain_t1(x3, bc3, m), None, out)
     (NX, NY, NZ), band = _check_operands(x3, m, bc3)
     lib = _kernels_for(band)
-    out = torch.empty_like(x3)
+    out = _out(out, x3)
     with torch.cuda.device(x3.device):
         rc = lib.kron_t1_launch(
             _ptr(x3), _ptr(bc3), _ptr(m["Ktx"]), _ptr(m["sxz"]), _ptr(out),
@@ -390,21 +466,23 @@ def _t23_args(v3, bc3, t1, m):
             _ptr(m["sx2d"]), _ptr(m["sycol"]), _ptr(m["s23"]))
 
 
-def kron_t23(v3, bc3, t1, m, sigma=0.0, r3=None):
+def kron_t23(v3, bc3, t1, m, sigma=0.0, cy=None, cz=None, r3=None,
+             out=None):
     """Launch kernel #5 (``where(bc, v, y)``), or kernel #6 (``r - A v``)
-    when ``r3`` is given, on CUDA tensors; returns a new lattice."""
-    shape, band = _check_operands(v3, m, bc3)
-    _check_lattice("t1", t1, shape, v3.device)
-    if r3 is not None:
-        _check_lattice("r", r3, shape, v3.device)
-    NX, NY, NZ = shape
+    when ``r3`` is given, on CUDA tensors; with either neighbour
+    correction ``cy`` / ``cz``, kernel #8 in the same two forms. A CPU
+    tensor runs `plain_t23`. Returns a new lattice (or writes ``out``)."""
+    if v3.device.type == "cpu":
+        return _plain_into(plain_t23(v3, bc3, t1, m, sigma, cy, cz), r3, out)
+    (NX, NY, NZ), band = _check_operands(v3, m, bc3)
+    _check_t23_extras(v3, t1, r3, cy, cz)
     lib = _kernels_for(band)
-    out = torch.empty_like(v3)
+    out = _out(out, v3)
     with torch.cuda.device(v3.device):
         rc = lib.kron_t23_launch(
-            *_t23_args(v3, bc3, t1, m), None if r3 is None else _ptr(r3),
+            *_t23_args(v3, bc3, t1, m), _opt(cy), _opt(cz), _opt(r3),
             _ptr(out), NX, NY, NZ, band, float(sigma), stream_of(v3))
-    name = "t23" if r3 is None else "t23_res"
+    name = _t23_name("", cy, cz, r3)
     if rc != 0:
         raise RuntimeError(f"kron_{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -434,6 +512,17 @@ def kron_t23_cheb(v3, bc3, t1, m, x3, r3, dinv3, lmax, k, sigma=0.0):
     return xo, ro, zo
 
 
+def _tpu_knob(name, value, default):
+    """The JAX package's TPU-only knobs (Pallas tile sizes, interpret
+    mode) keep their positions in the port's signatures; anything but
+    JAX's default raises."""
+    if value != default:
+        raise ValueError(
+            f"{name}={value!r} is a TPU tile or mode knob of the JAX "
+            "package's Pallas kernels; the CUDA kernels fix their own tiles "
+            f"and take no interpret mode (leave it at {default!r})")
+
+
 def _check_precision(precision):
     """The port's precision policy: true f32/f64 products ('highest')."""
     if precision == "high":
@@ -445,7 +534,8 @@ def _check_precision(precision):
             f"precision must be 'highest' or 'high', got {precision!r}")
 
 
-def blocked_kron_apply(x3, bc3, mats, *, sigma=0.0, precision="highest"):
+def blocked_kron_apply(x3, bc3, mats, *, sigma=0.0, precision="highest",
+                       exchange=None):
     """``A x`` on a lattice-shaped vector through the blocked kernel pair.
 
     ``bc3`` is the lattice-shaped bool Dirichlet marker, ``mats`` the dict
@@ -453,64 +543,323 @@ def blocked_kron_apply(x3, bc3, mats, *, sigma=0.0, precision="highest"):
     masks come from ``mats`` and ``bc3`` is not read (kernels #1 + #2);
     otherwise the full-bc kernels #4 + #5. A CPU tensor runs the plain
     torch version (any float dtype); a CUDA tensor launches the kernels
-    (float32) or raises.
+    (float32) or raises. ``exchange`` (optional) is applied to kernel 1's
+    output, the x-stiffness term, before kernel 2 reads it: the interface
+    partial-sum reconciliation of an x-sharded layout, as in the JAX
+    package (it may write that tensor in place; it is this call's own).
     """
     _check_precision(precision)
     separable = "sxzm" in mats
     if x3.device.type == "cpu":
+        t1 = plain_t1_m(x3, mats) if separable else plain_t1(x3, bc3, mats)
+        if exchange is not None:
+            t1 = exchange(t1)
         if separable:
-            return plain_apply_m(x3, mats, sigma)
-        return plain_apply(x3, bc3, mats, sigma)
+            return plain_t23_m(x3, t1, mats, sigma)
+        return plain_t23(x3, bc3, t1, mats, sigma)
+    t1 = kron_t1_m(x3, mats) if separable else kron_t1(x3, bc3, mats)
+    if exchange is not None:
+        t1 = exchange(t1)
     if separable:
-        return kron_t23_m(x3, kron_t1_m(x3, mats), mats, sigma)
-    return kron_t23(x3, bc3, kron_t1(x3, bc3, mats), mats, sigma)
+        return kron_t23_m(x3, t1, mats, sigma)
+    return kron_t23(x3, bc3, t1, mats, sigma)
 
 
 def blocked_kron_residual(b3, u3, bc3, mats, *, sigma=0.0,
-                          precision="highest"):
+                          precision="highest", exchange=None):
     """Fused ``r = b - A u`` through kernel 1 and a residual kernel (#1 +
     #3 with the separable arrays, else #4 + #6; the plain torch version
-    on CPU tensors)."""
+    on CPU tensors). ``exchange`` as in `blocked_kron_apply`."""
     _check_precision(precision)
     separable = "sxzm" in mats
     if u3.device.type == "cpu":
+        t1 = plain_t1_m(u3, mats) if separable else plain_t1(u3, bc3, mats)
+        if exchange is not None:
+            t1 = exchange(t1)
         if separable:
-            return plain_residual_m(b3, u3, mats, sigma)
-        return plain_residual(b3, u3, bc3, mats, sigma)
+            return b3 - plain_t23_m(u3, t1, mats, sigma)
+        return b3 - plain_t23(u3, bc3, t1, mats, sigma)
+    t1 = kron_t1_m(u3, mats) if separable else kron_t1(u3, bc3, mats)
+    if exchange is not None:
+        t1 = exchange(t1)
     if separable:
-        return kron_t23_m(u3, kron_t1_m(u3, mats), mats, sigma, r3=b3)
-    return kron_t23(u3, bc3, kron_t1(u3, bc3, mats), mats, sigma, r3=b3)
+        return kron_t23_m(u3, t1, mats, sigma, r3=b3)
+    return kron_t23(u3, bc3, t1, mats, sigma, r3=b3)
 
 
 def blocked_kron_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters, *,
-                       sigma=0.0, precision="highest"):
+                       sigma=0.0, precision="highest", exchange=None):
     """Fourth-kind Chebyshev smoothing of ``A x = b`` from ``x3`` with the
     update fused into the full-bc kernels: the recurrence of
     `solvers.chebyshev.chebyshev4_solve` with ``1 + num_iters`` half-steps,
     each kernel #4 then kernel #7 (the plain torch half-step on CPU
     tensors). ``lmax`` is a 0-d tensor (or a float); on the card it is
-    read by the kernel, so the smoother makes no host sync. Returns the
-    new ``x``; the inputs are not written."""
+    read by the kernel, so the smoother makes no host sync. ``exchange``
+    as in `blocked_kron_apply`, on every half-step's kernel-1 output.
+    Returns the new ``x``; the inputs are not written."""
     _check_precision(precision)
     if x3.device.type == "cpu":
-        return plain_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters, sigma)
+        if exchange is None:
+            return plain_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters,
+                               sigma)
+
+        def plain_step(v, x, r, k):
+            coefs = cheb_coefs(lmax, k, x3.dtype, x3.device)
+            return plain_cheb_step(v, bc3, x, r, dinv3, coefs, mats, sigma,
+                                   t1=exchange(plain_t1(v, bc3, mats)))
+        return _cheb4(plain_step, b3, x3, num_iters)
     lm = torch.as_tensor(lmax, dtype=torch.float32, device=x3.device)
 
     def step(v, x, r, k):
-        return kron_t23_cheb(v, bc3, kron_t1(v, bc3, mats), mats, x, r,
-                             dinv3, lm, k, sigma)
+        t1 = kron_t1(v, bc3, mats)
+        if exchange is not None:
+            t1 = exchange(t1)
+        return kron_t23_cheb(v, bc3, t1, mats, x, r, dinv3, lm, k, sigma)
     return _cheb4(step, b3, x3, num_iters)
+
+
+# --- the device-grid half: kernels #8 / #9 -----------------------------------
+#
+# A shard of a 2D/3D device grid (`parallel.grid2d`) holds the local lattice
+# of its box with the interface planes duplicated. Its kernel 1 output is
+# shard-partial only across x-interfaces (reconciled by ``exchange_x``), and
+# the y/z contractions of its first/last y- and z-planes miss the neighbour
+# shard's cells: those partial sums are computed from x (`edge_partials`),
+# exchanged, and the received planes ``cy`` / ``cz`` are added by kernel 2
+# before its final scaling (kernels #8 / #9). Inputs are one shard's 3D
+# lattice with its local arrays, or the stacked ``(sx, sy, sz, NX, NY, NZ)``
+# layout of every shard with the grid-stacked arrays of
+# `grid_symmetrized_mats`; kernels 1 and 2 then run shard by shard.
+
+# Per key of `grid_symmetrized_mats`: the grid axis its rows and its
+# columns are stacked along (None: replicated).
+_GRID_AXES = dict(
+    Ktx=("x", None), Kty=("y", None), KtzT=("z", None), Ktye=("y", None),
+    KtzTe=("z", None), sx2d=("x", None), sycol=("y", None), sxz=("x", "z"),
+    s23=("y", "z"), sxzm=("x", "z"), s23m=("y", "z"), mx2=("x", None),
+    myb=("y", None), mzrow=(None, "z"))
+
+
+def grid_symmetrized_mats(Ks_local, ms_dup, shards, dtype=torch.float32,
+                          face_masks_dup=None, *, band, device):
+    """Per-shard symmetrized arrays of a device grid, stacked along each
+    sharded axis (the JAX package's layout and order).
+
+    ``Ks_local``: per-axis LOCAL 1D stiffness, ``(npl_a, npl_a)`` (one
+    matrix for every shard of the axis) or row-stacked ``(S_a * npl_a,
+    npl_a)`` (`ops.kron.local_axis_K`). ``ms_dup``: per-axis global lumped
+    masses in the duplicated-plane layout ``(S_a * npl_a,)``; the sqrt-mass
+    scalings differ between boundary and interior shards, so every scaled
+    factor is built per shard and stacked. ``face_masks_dup`` (the separable
+    bc masks in the same layout) adds ``sxzm``, ``s23m``, ``mx2``, ``myb``,
+    ``mzrow``. ``Ktye`` / ``KtzTe`` are the interface rows of ``Kty`` /
+    columns of ``KtzT`` that `edge_partials` contracts with. Built in
+    float64, cast once to ``dtype``; ``band`` as in `symmetrized_mats`.
+    Returns ``(mats, axes)``: the dict (with ``"band"``) and, per array,
+    the grid axes its rows and columns are stacked along.
+    """
+    mx, my, mz = (_np64(m) for m in ms_dup)
+    sx, sy, sz = np.sqrt(mx), np.sqrt(my), np.sqrt(mz)
+    Sx, Sy, Sz = shards
+    Kx, Ky, Kz = (_np64(K) for K in Ks_local)
+    nplx, nply, nplz = Kx.shape[-1], Ky.shape[-1], Kz.shape[-1]
+    Kx, Ky, Kz = (
+        (K.reshape(S, npl, npl) if K.shape[0] == S * npl
+         else np.broadcast_to(K, (S, npl, npl)))
+        for K, S, npl in ((Kx, Sx, nplx), (Ky, Sy, nply), (Kz, Sz, nplz)))
+    band = int(band)
+
+    def stacked(name, K3, s_all, S, npl, pick=None, transpose=False):
+        out = []
+        for K, sl in zip(K3, s_all.reshape(S, npl)):
+            Kt = K / sl[:, None] / sl[None, :]
+            _check_band(name, Kt, band)
+            if transpose:
+                Kt = Kt.T.copy()
+                if pick is not None:
+                    Kt = Kt[:, pick]
+            elif pick is not None:
+                Kt = Kt[pick]
+            out.append(Kt)
+        return np.concatenate(out, axis=0)
+
+    edge = np.array([0, -1])
+    arrays = dict(
+        Ktx=stacked("x", Kx, sx, Sx, nplx),
+        Kty=stacked("y", Ky, sy, Sy, nply),
+        KtzT=stacked("z", Kz, sz, Sz, nplz, transpose=True),
+        Ktye=stacked("y", Ky, sy, Sy, nply, pick=edge),
+        KtzTe=stacked("z", Kz, sz, Sz, nplz, transpose=True, pick=edge),
+        sx2d=sx[:, None],
+        sycol=sy[:, None],
+        sxz=np.outer(sx, sz),
+        s23=np.outer(sy, sz),
+    )
+    if face_masks_dup is not None:
+        mxd, myd, mzd = (_np64(m) for m in face_masks_dup)
+        arrays.update(
+            sxzm=np.outer(mxd * sx, mzd * sz),
+            s23m=np.outer(myd * sy, mzd * sz),
+            mx2=mxd[:, None],
+            myb=myd[:, None],
+            mzrow=mzd[None, :],
+        )
+    out = {k: torch.as_tensor(v, dtype=dtype, device=device).contiguous()
+           for k, v in arrays.items()}
+    out["band"] = band
+    return out, {k: _GRID_AXES[k] for k in arrays}
+
+
+def shard_mats(mats, idx):
+    """Shard ``idx = (i, j, k)``'s local arrays, each a contiguous copy,
+    from the grid-stacked ``mats`` of `grid_symmetrized_mats`."""
+    pos = dict(zip("xyz", idx))
+    n = dict(x=mats["Ktx"].shape[1], y=mats["Kty"].shape[1],
+             z=mats["KtzT"].shape[1])
+    every = slice(None)
+    out = {"band": mats["band"]}
+    for key, (ra, ca) in _GRID_AXES.items():
+        if key not in mats:
+            continue
+        rn = 2 if key == "Ktye" else n.get(ra)
+        rows = every if ra is None else slice(pos[ra] * rn,
+                                              (pos[ra] + 1) * rn)
+        cols = every if ca is None else slice(pos[ca] * n[ca],
+                                              (pos[ca] + 1) * n[ca])
+        out[key] = mats[key][rows, cols].contiguous()
+    return out
+
+
+def shard_blocks(mats):
+    """Every shard's `shard_mats`, keyed by shard index in the order of
+    the stacked layout: cut once per level by the caller (`GridPMG`) and
+    passed to `blocked_kron_apply_grid`."""
+    S = [mats[k].shape[0] // mats[k].shape[1] for k in ("Ktx", "Kty", "KtzT")]
+    return {(i, j, k): shard_mats(mats, (i, j, k)) for i in range(S[0])
+            for j in range(S[1]) for k in range(S[2])}
+
+
+def edge_partials(x3, bc3, m, need_y, need_z):
+    """Pre-scaling partial sums of kernel 2's y / z contractions on the
+    first and last local y- and z-planes, from x (the JAX package's
+    ``_edge_partials``, torch einsums): ``t2b[x, e, z] = Ktye[e] @ what``
+    and ``t3b[x, y, e] = what @ KtzTe[:, e]`` with ``what = where(bc, 0, x)
+    * s23``. One shard's 3D lattice with its own arrays, or the stacked
+    layout with the grid-stacked arrays (all shards in one contraction).
+    Returns ``(t2b, t3b)``, None where not needed."""
+    one = x3.ndim == 3
+    if one:
+        x3, bc3 = x3[None, None, None], bc3[None, None, None]
+    Sy, Sz, nx, ny, nz = x3.shape[1:]
+    s23 = m["s23"].reshape(Sy, ny, Sz, nz).permute(0, 2, 1, 3)
+    w = torch.where(bc3, torch.zeros_like(x3), x3) * s23[None, :, :, None]
+    t2b = (torch.einsum("jeb,ijkxbz->ijkxez", m["Ktye"].reshape(Sy, 2, ny),
+                        w) if need_y else None)
+    t3b = (torch.einsum("ijkxyz,kze->ijkxye", w,
+                        m["KtzTe"].reshape(Sz, nz, 2)) if need_z else None)
+    if one:
+        t2b = None if t2b is None else t2b[0, 0, 0]
+        t3b = None if t3b is None else t3b[0, 0, 0]
+    return t2b, t3b
+
+
+# Kernels #8 / #9 and their plain versions under the names of the JAX
+# package's kernels: kernel 2 given a shard's corrections.
+plain_t23_grid = plain_t23
+plain_t23_grid_m = plain_t23_m
+kron_t23_grid = kron_t23
+kron_t23_grid_m = kron_t23_m
+
+
+def blocked_kron_apply_grid(x3, bc3, mats, *, by=8, bx=8,
+                            precision="highest", interpret=None,
+                            exchange_x=None, ex_y=None, ex_z=None,
+                            sigma=0.0, r3=None, blocks=None):
+    """Blocked Kronecker apply under a 2D/3D device grid (the JAX
+    package's signature).
+
+    ``x3``/``bc3`` are one shard's 3D lattice and marker with its local
+    ``mats``, or the stacked ``(sx, sy, sz, NX, NY, NZ)`` layout with the
+    grid-stacked ``mats`` of `grid_symmetrized_mats` (``blocks``: their
+    `shard_blocks`, cut here when not given). Three independent per-axis
+    reconciliations, each a collective of `parallel.grid2d`:
+
+    - ``exchange_x(t1)``: kernel 1's output (the x term) across
+      x-interfaces;
+    - ``ex_y(first, last) -> (add_first, add_last)``: the t2 edge partials
+      (`edge_partials`) to the y-neighbours; the received planes ``cy``
+      feed kernel 2;
+    - ``ex_z``: the same for the t3 term across z-interfaces (``cz``).
+
+    With ``r3`` kernel 2 emits the fused residual ``r3 - A x``. Kernel 2
+    is #9 with the separable arrays (``"sxzm"`` in ``mats``), else #8; with
+    neither ``ex_y`` nor ``ex_z`` one shard's call is `blocked_kron_apply`
+    / `blocked_kron_residual` with ``exchange=exchange_x`` (kernels #1-#6),
+    as in the JAX package. CPU tensors run the plain versions, CUDA tensors
+    the kernels (per shard) or raise. ``by``, ``bx`` and ``interpret`` are
+    the JAX package's TPU knobs (defaults only).
+    """
+    _check_precision(precision)
+    _tpu_knob("by", by, 8)
+    _tpu_knob("bx", bx, 8)
+    _tpu_knob("interpret", interpret, None)
+    need_y, need_z = ex_y is not None, ex_z is not None
+    if x3.ndim == 3:
+        if not (need_y or need_z):
+            if r3 is not None:
+                return blocked_kron_residual(r3, x3, bc3, mats, sigma=sigma,
+                                             exchange=exchange_x)
+            return blocked_kron_apply(x3, bc3, mats, sigma=sigma,
+                                      exchange=exchange_x)
+        blocks = {(): mats}
+    elif blocks is None:
+        blocks = shard_blocks(mats)
+    x3, bc3 = x3.contiguous(), bc3.contiguous()
+    r3 = None if r3 is None else r3.contiguous()
+    cy = cz = None
+    if need_y or need_z:
+        # Edge partials from x, exchanged with the neighbours; the planes
+        # received become kernel 2's correction inputs.
+        t2b, t3b = edge_partials(x3, bc3, mats, need_y, need_z)
+        if need_y:
+            cy = torch.stack(ex_y(t2b[..., 0, :], t2b[..., 1, :]), dim=-2)
+        if need_z:
+            cz = torch.stack(ex_z(t3b[..., 0], t3b[..., 1]), dim=-1)
+    separable = "sxzm" in mats
+    t1 = torch.empty_like(x3)
+    for idx, m in blocks.items():
+        if separable:
+            kron_t1_m(x3[idx], m, out=t1[idx])
+        else:
+            kron_t1(x3[idx], bc3[idx], m, out=t1[idx])
+    if exchange_x is not None:
+        t1 = exchange_x(t1)
+    out = torch.empty_like(x3)
+    part = lambda t, idx: None if t is None else t[idx]
+    for idx, m in blocks.items():
+        extra = dict(cy=part(cy, idx), cz=part(cz, idx), r3=part(r3, idx),
+                     out=out[idx])
+        if separable:
+            kron_t23_m(x3[idx], t1[idx], m, sigma, **extra)
+        else:
+            kron_t23(x3[idx], bc3[idx], t1[idx], m, sigma, **extra)
+    return out
 
 
 class PallasKronBlocked:
     """The blocked kernel pair as an operator (float32) on ``device``:
     ``op(x)`` on flat or lattice-shaped vectors, with the diagonal of
-    `ops.kron.KronLaplacian`."""
+    `ops.kron.KronLaplacian`. The parameters keep the JAX package's
+    order; its TPU knobs ``by``, ``bx`` and ``interpret`` take their
+    defaults only."""
 
-    def __init__(self, mesh, P, kappa=2.0, precision="highest", sigma=0.0,
-                 *, device):
+    def __init__(self, mesh, P, kappa=2.0, by=None, bx=None, interpret=False,
+                 precision="highest", sigma=0.0, *, device):
         from .kron import KronLaplacian
 
+        _tpu_knob("by", by, None)
+        _tpu_knob("bx", bx, None)
+        _tpu_knob("interpret", interpret, False)
         _check_precision(precision)
         base = KronLaplacian(mesh, P, kappa=kappa, dtype=torch.float32,
                              sigma=sigma, device=device)
@@ -525,7 +874,8 @@ class PallasKronBlocked:
         self.bc3 = base.bc_marker.reshape(self.shape)
         self.mats = symmetrized_mats(
             base.Ks, base.ms,
-            checked_face_masks(mesh, P, mesh.boundary_dof_marker(P)),
+            face_masks=checked_face_masks(mesh, P,
+                                          mesh.boundary_dof_marker(P)),
             band=P, device=device)
 
     def __call__(self, x):

@@ -144,10 +144,14 @@ class PallasKronLaplacian:
     """The whole-lattice fused Kronecker-sum apply as an operator
     (float32) on ``device``: ``op(x)`` returns the flat ``A x`` (as the JAX
     class does), with ``diag`` and ``diag_inv`` of
-    `ops.kron.KronLaplacian`. ``kappa`` is a scalar."""
+    `ops.kron.KronLaplacian`. ``kappa`` is a scalar; ``interpret`` keeps
+    the JAX package's fourth parameter (``False`` only)."""
 
-    def __init__(self, mesh, P, kappa=2.0, *, device):
+    def __init__(self, mesh, P, kappa=2.0, interpret=False, *, device):
         from .kron import KronLaplacian
+        from .kron_blocked import _tpu_knob
+
+        _tpu_knob("interpret", interpret, False)
 
         base = KronLaplacian(mesh, P, kappa=kappa, dtype=torch.float32,
                              device=device)

@@ -130,7 +130,8 @@ def _fold(s, axis, nc, P):
     return torch.movedim(fold_axis0(s, nc, P), 0, axis)
 
 
-def lattice_laplacian_apply(x, mats, G, bc_marker, apply_bc=True):
+def lattice_laplacian_apply(x, mats, G, bc_marker, precision="highest",
+                            apply_bc=True):
     """``y = A x`` on a flat ``(NX*NY*NZ,)`` or lattice-shaped dof vector
     (shape-preserving).
 
@@ -138,8 +139,10 @@ def lattice_laplacian_apply(x, mats, G, bc_marker, apply_bc=True):
     N_a)``), ``G`` the ``(Qx, Qy, Qz, 6)`` weighted geometry factors with
     the coefficient folded in, ``bc_marker`` a bool marker shaped like
     ``x``. Dirichlet dofs are zeroed on input; their rows return ``x``
-    unless ``apply_bc=False`` (the raw accumulation).
+    unless ``apply_bc=False`` (the raw accumulation). ``precision`` is the
+    JAX package's fifth parameter ('highest' only).
     """
+    _check_precision(precision)
     Ex, Dx = mats["Ex"], mats["Dx"]
     Ey, Dy = mats["Ey"], mats["Dy"]
     Ez, Dz = mats["Ez"], mats["Dz"]

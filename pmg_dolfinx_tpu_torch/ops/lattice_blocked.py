@@ -32,7 +32,8 @@ The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
 interface with `ctypes`. `LAUNCHES` counts every kernel launch.
 
 Not ported: ``precision="high"`` (bf16x3), and the TPU tile knobs
-``bcells`` and ``interpret``.
+``bcells`` and ``interpret`` (they keep their positions in
+`PallasLatticeBlocked`; anything but JAX's default raises).
 """
 
 import ctypes
@@ -46,7 +47,7 @@ from .cuda_build import check_operand as _check
 from .cuda_build import find_nvcc as _find_nvcc
 from .cuda_build import ptr as _ptr
 from .cuda_build import stream_of
-from .kron_blocked import _check_precision
+from .kron_blocked import _check_precision, _tpu_knob
 from .lattice import axis_matrices, lattice_laplacian_apply
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "lattice_blocked.cu"
@@ -440,12 +441,14 @@ def blocked_lattice_apply(x, mats, Gt, bc_marker, nc, P, *,
                          apply_bc)
 
 
-def blocked_lattice_apply_geom(x, mats, co, bc_marker, nc, P, *, xi, wx,
-                               precision="highest", apply_bc=True):
+def blocked_lattice_apply_geom(x, mats, co, geom, bc_marker, nc, P, *, xi,
+                               wx, precision="highest", apply_bc=True):
     """Fused ``y = A x`` with in-kernel geometry: ``co`` is the (37, ncx,
-    ncy, ncz) coefficient array, ``xi``/``wx`` the GLL tuples from
-    `lattice_geom_data`. CPU tensors run the plain version; CUDA tensors
-    launch K-B or raise."""
+    ncy, ncz) coefficient array, ``geom`` the expansion-matrix dict and
+    ``xi``/``wx`` the GLL tuples from `lattice_geom_data` (the JAX
+    signature; K-B rebuilds the expansion from ``xi`` itself, so ``geom``
+    is not read). CPU tensors run the plain version; CUDA tensors launch
+    K-B or raise."""
     _check_precision(precision)
     if x.device.type == "cpu":
         return plain_lattice_apply_geom(x, mats, co, bc_marker, tuple(nc),
@@ -478,10 +481,11 @@ class PallasLatticeBlocked:
     streams the z-grouped ``Gz`` (K-A; ``zb`` from `select_zgroup` when
     not given; only ``Gz`` is kept, never G beside it); 'geom' uploads 37
     floats per cell and rebuilds G in the kernel (K-B). ``kappa`` is a
-    scalar."""
+    scalar. The parameters keep the JAX package's order; its TPU knobs
+    ``bcells`` and ``interpret`` take their defaults only."""
 
-    def __init__(self, mesh, P, kappa=2.0, precision="highest", variant=None,
-                 zb=None, *, device):
+    def __init__(self, mesh, P, kappa=2.0, bcells=1, interpret=False,
+                 precision="highest", variant=None, zb=None, *, device):
         from ..fem.assembly import (
             geometry_factors_np,
             resolve_kappa_split,
@@ -492,9 +496,11 @@ class PallasLatticeBlocked:
         from .lattice import geometry_to_qlattice
 
         _check_precision(precision)
+        _tpu_knob("bcells", bcells, 1)
+        _tpu_knob("interpret", interpret, False)
         if variant not in (None, "yexp", "v1", "ym", "geom", "zgrp"):
             raise ValueError(f"unknown variant {variant!r}")
-        self.zb = self.zmats = self.Gz = None
+        self.zb = self.zmats = self.Gz = self.geom = None
         if variant == "zgrp":
             self.zb = int(zb) if zb else select_zgroup(mesh.nc[2], P)
             if self.zb is None:
@@ -516,8 +522,8 @@ class PallasLatticeBlocked:
         if variant == "geom":
             self.co = f32(lattice_geom_coefficients(mesh, self.P,
                                                     kappa_cells))
-            _, self._xi, self._wx = lattice_geom_data(mesh.nc, self.P,
-                                                      device="cpu")
+            self.geom, self._xi, self._wx = lattice_geom_data(
+                mesh.nc, self.P, device=self.device)
             self.Gt = None
         elif variant == "zgrp":
             Gq = geometry_to_qlattice(scale_G(G_cells, kappa_cells, kt),
@@ -545,8 +551,9 @@ class PallasLatticeBlocked:
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         if self.variant == "geom":
             return blocked_lattice_apply_geom(
-                x, self.mats, self.co, self.bc_marker, self.mesh.nc, self.P,
-                xi=self._xi, wx=self._wx, precision=self.precision)
+                x, self.mats, self.co, self.geom, self.bc_marker,
+                self.mesh.nc, self.P, xi=self._xi, wx=self._wx,
+                precision=self.precision)
         if self.variant == "zgrp":
             return blocked_lattice_apply_zgrp(
                 x, self.mats, self.zmats, self.Gz, self.bc_marker,

@@ -36,16 +36,18 @@ def _default_dot(u, v):
 
 
 def cg_solve(A, b, x0, diag_inv, *, rtol=1e-8, maxiter=100, record=False,
-             dot=_default_dot):
+             dot=_default_dot, precond=None):
     """Solve ``A x = b`` with Jacobi-preconditioned CG.
 
     ``A`` is a callable ``x -> A @ x``; ``diag_inv`` the inverse operator
     diagonal; ``rtol`` is on the preconditioned residual norm. With
     ``record=True`` the loop runs exactly ``maxiter`` iterations and also
     returns the per-iteration ``alphas``, ``betas``, ``residuals`` and
-    ``stored`` mask. Returns ``(x, info)``.
+    ``stored`` mask. ``precond`` (a callable ``r -> M^-1 r``, a fixed SPD
+    linear operator) replaces the Jacobi preconditioner. Returns ``(x,
+    info)``.
     """
-    M = lambda r: diag_inv * r
+    M = precond if precond is not None else (lambda r: diag_inv * r)
     r = b - A(x0)
     p = M(r)
     rnorm0 = dot(p, r)

@@ -43,15 +43,19 @@ def _axis_eig(nc, P, h, ends=(True, True), robin=(0.0, 0.0)):
 _ALL_DIRICHLET_TRIMS = ((1, 1), (1, 1), (1, 1))
 
 
-def fdm_solve(b, Vs, Vts, dinv, bc_marker, shape,
+def fdm_solve(b, Vs, Vts, dinv, bc_marker, shape, precision="highest",
               trims=_ALL_DIRICHLET_TRIMS):
     """Direct solve ``u = A^{-1} b`` (shape-preserving).
 
     ``Vs``/``Vts`` are the per-axis eigenvector matrices and transposes,
     ``dinv`` the reciprocal eigenvalue-sum lattice, ``shape`` the full
     lattice shape, ``trims`` the per-axis (lo, hi) Dirichlet-plane trim
-    counts. Dirichlet rows return ``u[bc] = b[bc]``.
+    counts. Dirichlet rows return ``u[bc] = b[bc]``. ``precision`` is the
+    JAX package's seventh parameter ('highest' only).
     """
+    from ..ops.kron_blocked import _check_precision
+
+    _check_precision(precision)
     b3 = b.reshape(shape)
     t = b3[tuple(slice(lo, n - hi) for n, (lo, hi) in zip(shape, trims))]
     Vx, Vy, Vz = Vs
@@ -73,14 +77,17 @@ class FastDiagonalizationSolver:
     """Direct solver bundle for `BoxMesh` + constant kappa; ``solve(b)``
     is exact to working precision in one application."""
 
-    def __init__(self, mesh, P, kappa=2.0, dtype=torch.float32, sigma=0.0,
-                 *, device):
+    def __init__(self, mesh, P, kappa=2.0, dtype=torch.float32,
+                 precision="highest", sigma=0.0, *, device):
         """``sigma`` shifts the operator by the lumped mass (the shift
-        adds to the eigenvalue sums)."""
+        adds to the eigenvalue sums); ``precision`` is the JAX package's
+        fifth parameter ('highest' only)."""
         from ..fem.assembly import resolve_kappa_axes
         from ..fem.mesh import require_axis_aligned
         from ..ops.kron import robin_axis_ends
+        from ..ops.kron_blocked import _check_precision
 
+        _check_precision(precision)
         require_axis_aligned(mesh, "FastDiagonalizationSolver")
         P = int(P)
         self.mesh = mesh

@@ -131,11 +131,9 @@ def _fused_transfers():
 def _tpu_tile(name, value, default):
     """The JAX factories' TPU tile knobs keep their positions; the CUDA
     kernels fix their own tiles, so anything but JAX's default raises."""
-    if value != default:
-        raise ValueError(
-            f"{name}={value!r} is a TPU tile size of the JAX package's "
-            f"Pallas kernels; the CUDA kernels fix their own tiles and do "
-            f"not take it (leave it at {default!r})")
+    from ..ops.kron_blocked import _tpu_knob
+
+    _tpu_knob(name, value, default)
 
 
 def _shifted(raw, sigma):
@@ -354,6 +352,11 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
         )
 
     # Coarse level: mask Dirichlet rows of the restricted rhs, then solve.
+    # The fdm solve works on the GLOBAL coarse problem: a device-grid
+    # backend supplies "coarse_gather" / "coarse_slice" (identities on one
+    # device).
+    gather = ops.get("coarse_gather", lambda v: v)
+    unslice = ops.get("coarse_slice", lambda v: v)
     bc0 = lvs[0]["bc_marker"]
     b0 = torch.where(bc0, torch.zeros_like(bs[0]), bs[0])
     u0 = zeros(levels[0], b_in)
@@ -371,12 +374,12 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
         from .fdm import fdm_solve
 
         fd = data["fdm"]
-        u0 = fdm_solve(
-            b0, (fd["Vx"], fd["Vy"], fd["Vz"]),
+        u0 = unslice(fdm_solve(
+            gather(b0), (fd["Vx"], fd["Vy"], fd["Vz"]),
             (fd["Vxt"], fd["Vyt"], fd["Vzt"]), fd["dinv"],
             fd["bc_global"], coarse_cfg["fdm_shape"],
             trims=coarse_cfg.get("fdm_trims", ((1, 1),) * 3),
-        )
+        ))
     else:
         raise NotImplementedError(_COARSE_TODO)
     us[0] = u0
@@ -504,7 +507,7 @@ class PMGHierarchy:
         if smoother != "cheb":
             raise NotImplementedError(
                 "only the point-Jacobi Chebyshev smoother is ported; "
-                "'line' and 'schwarz' are ROADMAP.md Queue 1 item 7")
+                "'line' and 'schwarz' are ROADMAP.md Queue 1 item 7b")
         if precision != "highest":
             raise NotImplementedError(
                 "only precision='highest' (true f32/f64) is ported; "
@@ -606,9 +609,9 @@ class PMGHierarchy:
 
                     lv["kb_mats"] = symmetrized_mats(
                         (lv["Kx"], lv["Ky"], lv["Kz"]),
-                        (lv["mx"], lv["my"], lv["mz"]),
+                        (lv["mx"], lv["my"], lv["mz"]), dtype,
                         checked_face_masks(mesh, P, bc_np),
-                        band=P, device=self.device, dtype=dtype,
+                        band=P, device=self.device,
                     )
                     for name in "xyz":
                         del lv["K" + name], lv["m" + name]

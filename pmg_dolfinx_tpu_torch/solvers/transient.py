@@ -143,14 +143,18 @@ def _packed_bundle(mesh, P, B, device):
     return mk_op, mk_fdm, unpack
 
 
-def heat_packed_evolve(mesh, P, kappa=1.0, dt=1e-2, B=8, scheme="cn", f=None,
-                       f_time=None, *, device):
+def heat_packed_evolve(mesh, P, kappa=1.0, dt=1e-2, B=8, scheme="cn",
+                       interpret=False, f=None, f_time=None, *, device):
     """``evolve(U0[(B, ndofs)], nsteps) -> U_T`` stepping a batch of
     trajectories through the serving kernels (float32, NZ <= 64): one
     packed FDM direct solve per step; CN by the exact-inverse identity
     ``u1 = A^{-1}(2 sigma M u + f) - u`` with ``A = K/2 + M/dt``.
     Homogeneous Dirichlet data; ``f`` / ``f_time`` as in
-    `heat_fdm_evolve`, shared by every column."""
+    `heat_fdm_evolve`, shared by every column. ``interpret`` is the JAX
+    package's Pallas interpret mode (``False`` only)."""
+    from ..ops.kron_blocked import _tpu_knob
+
+    _tpu_knob("interpret", interpret, False)
     if scheme not in ("be", "cn"):
         raise ValueError(f"scheme must be 'be' or 'cn', got {scheme!r}")
     _, mk_fdm, unpack = _packed_bundle(mesh, P, B, device)
@@ -225,13 +229,18 @@ def wave_newmark_evolve(mesh, P, kappa=1.0, dt=1e-2, beta=0.25, gamma=0.5,
 
 
 def wave_packed_evolve(mesh, P, kappa=1.0, dt=1e-2, B=8, scheme="newmark",
-                       beta=0.25, gamma=0.5, f=None, f_time=None, *, device):
+                       beta=0.25, gamma=0.5, interpret=False, f=None,
+                       f_time=None, *, device):
     """``evolve(U0, V0[(B, ndofs)], nsteps) -> (U_T, V_T)`` through the
     serving kernels (float32, NZ <= 64, homogeneous Dirichlet):
     ``'newmark'`` is one packed FDM solve per step (its start acceleration
     one packed apply), ``'leapfrog'`` one packed apply per step
     (conditionally stable, `wave_stable_dt`). The packed mass and interior
-    mask keep Dirichlet rows exactly zero."""
+    mask keep Dirichlet rows exactly zero. ``interpret`` is the JAX
+    package's Pallas interpret mode (``False`` only)."""
+    from ..ops.kron_blocked import _tpu_knob
+
+    _tpu_knob("interpret", interpret, False)
     if scheme not in ("newmark", "leapfrog"):
         raise ValueError(
             f"scheme must be 'newmark' or 'leapfrog', got {scheme!r}")

@@ -13,6 +13,10 @@ the dofmap levels (``dofmap``, ``G``, ``coeff``, ``D``), with
 calibrated ``lmax`` included), so cycle parity is tested apart from
 calibration parity.
 
+`grid_data_from_numpy` does the same for the device grid: it turns a
+numpy copy of the JAX `GridPMG.data` into the data of the port's
+`parallel.grid2d.GridPMG` (its `load_state` takes the result).
+
 `packed_state_from_numpy` does the same for the serving classes of
 `ops.kron_packed`: it undoes the JAX lane packing of their factors.
 """
@@ -42,6 +46,43 @@ def hierarchy_data_from_numpy(tree, device, dtype):
     out = {
         "levels": _convert(list(tree["levels"]), device, dtype),
         "transfer": _convert(list(tree["transfer"]), device, dtype),
+    }
+    if "fdm" in tree:
+        out["fdm"] = _convert(tree["fdm"], device, dtype)
+    return out
+
+
+# The lattice-shaped arrays of a JAX GridPMG level or transfer: JAX keeps
+# them in its global duplicated layout, the port stacks the shards.
+_GRID_LATTICE_KEYS = ("bc_marker", "weights", "diag_inv", "weights_f")
+
+
+def grid_data_from_numpy(tree, grid, device, dtype):
+    """The port's `GridPMG` data (``levels``, ``transfer``, ``fdm``) from a
+    numpy copy of the JAX `GridPMG.data` (``jax.tree.map(np.asarray,
+    grid.data)``). ``grid`` is the port's `GridPMG` (or `GridPartition`)
+    of the same mesh and shards. The lattice arrays (``bc_marker``,
+    ``weights``, ``diag_inv``, ``weights_f``) go from JAX's global
+    duplicated layout ``(sx*nplx, sy*nply, sz*nplz)`` to the stacked
+    ``(sx, sy, sz, nplx, nply, nplz)``; the grid-stacked ``kb_mats``, the
+    ``K*``/``m*`` factors, the interpolation matrices, ``lmax`` and the
+    global ``fdm`` arrays keep their layout. Float arrays are cast to
+    ``dtype``."""
+    from ..parallel.grid2d import stack_shards
+
+    shards = getattr(grid, "part", grid).shards
+
+    def one(d):
+        out = {}
+        for k, v in d.items():
+            t = _convert(v, device, dtype)
+            out[k] = (stack_shards(t, shards) if k in _GRID_LATTICE_KEYS
+                      else t)
+        return out
+
+    out = {
+        "levels": [one(lv) for lv in tree["levels"]],
+        "transfer": [one(tr) for tr in tree["transfer"]],
     }
     if "fdm" in tree:
         out["fdm"] = _convert(tree["fdm"], device, dtype)

@@ -165,8 +165,9 @@ def test_jax_signature_binds_bc3_positionally():
         box.shape))
     # the separable arrays: bc3 is bound and not read
     sep = tkb.symmetrized_mats(
-        Ks, ms, tkb.checked_face_masks(mesh, P, mesh.boundary_dof_marker(P)),
-        band=P, device="cpu", dtype=torch.float64)
+        Ks, ms, torch.float64,
+        tkb.checked_face_masks(mesh, P, mesh.boundary_dof_marker(P)),
+        band=P, device="cpu")
     assert torch.equal(tkb.blocked_kron_apply(x3, box, sep),
                        tkb.plain_apply_m(x3, sep))
     # the bc-array set: the marker drives the Dirichlet rows

@@ -1,0 +1,111 @@
+"""Kernels #8 / #9 (`ops.kron_blocked.kron_t23_grid` / `kron_t23_grid_m`)
+and the device-grid solve on an NVIDIA GPU, against the port's own plain
+versions. Every test here carries the ``cuda`` marker and skips without
+a card; the module imports no JAX (the card has none), so it runs there
+with ``python -m pytest --noconftest -m cuda tests/test_torch_grid_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs  # noqa: E402
+from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh  # noqa: E402
+from pmg_dolfinx_tpu_torch.models.poisson import f_rhs  # noqa: E402
+from pmg_dolfinx_tpu_torch.ops import kron_blocked as tkb  # noqa: E402
+from pmg_dolfinx_tpu_torch.ops.kron import axis_stiffness_mass  # noqa: E402
+from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG  # noqa: E402
+
+NEEDS = [(True, True), (True, False), (False, True)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the port's CUDA kernels)")
+    return "cuda"
+
+
+def _rel_max(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _inputs(device, seed=8):
+    """One shard's operands on a mixed-Dirichlet (3, 4, 2) box at P=3:
+    the lattice, marker, local mats (with the separable masks), kernel
+    1's output and random corrections, from a seed."""
+    faces = ((True, False), (True, True), (False, True))
+    mesh = BoxMesh((3, 4, 2), dirichlet_faces=faces)
+    P = 3
+    shape = mesh.lattice_shape(P)
+    rng = np.random.default_rng(seed)
+    Ks, ms = [], []
+    for nc_a, h_a in zip(mesh.nc, mesh.h_cells):
+        K, m = axis_stiffness_mass(nc_a, P, h_a)
+        Ks.append(2.0 * K)
+        ms.append(m)
+    fm = tkb.axis_interior_masks(mesh, P)
+    m, _ = tkb.grid_symmetrized_mats(Ks, ms, (1, 1, 1), torch.float32, fm,
+                                     band=P, device=device)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    x = f32(rng.standard_normal(shape))
+    bc = torch.tensor(mesh.boundary_dof_marker(P).reshape(shape),
+                      device=device)
+    return (x, bc, m, tkb.plain_t1_m(x, m),
+            f32(rng.standard_normal((shape[0], 2, shape[2]))),
+            f32(rng.standard_normal((shape[0], shape[1], 2))),
+            f32(rng.standard_normal(shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", NEEDS)
+def test_grid_kernels_match_plain_on_cuda(cuda_device, need):
+    """#8 / #9 against `plain_t23_grid` / `plain_t23_grid_m` for both
+    sigmas, apply and fused residual: <= 1e-5 relative max-norm; each
+    launch is counted."""
+    x, bc, m, t1, cy, cz, r = _inputs(cuda_device)
+    cy = cy if need[0] else None
+    cz = cz if need[1] else None
+    before = dict(tkb.LAUNCHES)
+    for sigma in (0.0, 0.5):
+        for rr in (None, r):
+            ref8 = tkb.plain_t23_grid(x, bc, t1, m, sigma, cy, cz)
+            ref9 = tkb.plain_t23_grid_m(x, t1, m, sigma, cy, cz)
+            if rr is not None:
+                ref8, ref9 = rr - ref8, rr - ref9
+            got8 = tkb.kron_t23_grid(x, bc, t1, m, sigma, cy, cz, r3=rr)
+            got9 = tkb.kron_t23_grid_m(x, t1, m, sigma, cy, cz, r3=rr)
+            assert _rel_max(got8, ref8) <= 1e-5
+            assert _rel_max(got9, ref9) <= 1e-5
+    for k in ("t23_grid", "t23_grid_res", "t23_grid_m", "t23_grid_res_m"):
+        assert tkb.LAUNCHES[k] == before[k] + 2
+
+
+@pytest.mark.cuda
+def test_grid_wrappers_refuse_bad_operands(cuda_device):
+    x, bc, m, t1, cy, cz, r = _inputs(cuda_device)
+    with pytest.raises(ValueError, match="cy has shape"):
+        tkb.kron_t23_grid_m(x, t1, m, 0.0, cz, None)
+    with pytest.raises(TypeError, match="float32"):
+        tkb.kron_t23_grid(x.double(), bc, t1.double(), m)
+
+
+@pytest.mark.cuda
+def test_grid_pmg_on_cuda_matches_cpu(cuda_device):
+    """The (2, 2, 2) kron_blocked grid solve on the card against the same
+    solve on the CPU (plain versions): trajectories within 5e-4 above 5e-3
+    of the initial residual; kernel #9 launches."""
+    nc = (4, 4, 4)
+    b = assemble_rhs(BoxMesh(nc), 3, f_rhs(2.0))
+    kw = dict(shards=(2, 2, 2), degrees=(1, 3), kappa=2.0, coarse="fdm",
+              operator="kron_blocked", dtype=torch.float32)
+    before = tkb.LAUNCHES["t23_grid_m"]
+    _, rn_c = GridPMG(BoxMesh(nc), device=cuda_device, **kw).solve(
+        b, num_cycles=5)
+    _, rn_h = GridPMG(BoxMesh(nc), device="cpu", **kw).solve(b, num_cycles=5)
+    r0 = float(np.linalg.norm(b))
+    rel_c, rel_h = np.array(rn_c) / r0, np.array(rn_h) / r0
+    keep = rel_h > 5e-3
+    assert np.max(np.abs(rel_c[keep] - rel_h[keep]) / rel_h[keep]) <= 5e-4
+    assert tkb.LAUNCHES["t23_grid_m"] > before

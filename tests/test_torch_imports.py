@@ -2,11 +2,13 @@
 
 - `pmg_dolfinx_tpu_torch` and every submodule import without pulling in
   `jax` or the JAX package (checked in a fresh interpreter), the
-  general-hex modules by name too.
+  general-hex and device-grid modules by name too; the port's drivers
+  (`examples/*_torch.py`) and `chip_smoke.py` import neither.
 - On CPU tensors the kernel wrappers (blocked Kronecker, lattice with
   the z-grouped variant, the serving apply and solve of
   `ops.kron_packed`, the fused p-transfers of `ops.transfer` and the
-  whole-lattice apply of `ops.kron_fused`) run the plain torch versions;
+  whole-lattice apply of `ops.kron_fused`, the device-grid kernel 2 of
+  `ops.kron_blocked`) run the plain torch versions;
   on any other non-CUDA device they raise instead of falling back.
 - The kernel loaders raise a clear error when there is no CUDA device or
   no ``nvcc``; they never hand back a stand-in.
@@ -55,7 +57,8 @@ _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "ops.interpolate", "ops.lattice", "ops.lattice_blocked",
                 "ops.kron_packed", "ops.transfer", "ops.kron_fused",
                 "solvers.pmg", "solvers.cg", "solvers.fdm",
-                "solvers.transient", "utils.convert")
+                "solvers.transient", "utils.convert", "ops.blas", "ops.kron",
+                "parallel.partition", "parallel.dist", "parallel.grid2d")
 
 
 def test_general_hex_modules_import_no_jax():
@@ -71,6 +74,26 @@ def test_general_hex_modules_import_no_jax():
     assert out == "[]", out
 
 
+def test_drivers_and_smoke_import_no_jax():
+    """No import statement of a port driver or of `chip_smoke.py` names
+    `jax` or the JAX package."""
+    import ast
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = sorted(root.glob("examples/*_torch.py")) + [root / "chip_smoke.py"]
+    assert len(files) >= 7
+    for f in files:
+        names = []
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.append(node.module)
+        bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                       "pmg_dolfinx_tpu")]
+        assert not bad, (f.name, bad)
+
+
 _SEPARABLE = ("sxzm", "s23m", "mx2", "myb", "mzrow")
 
 
@@ -80,7 +103,7 @@ def _mats(P=2, nc=(2, 3, 4)):
                    for n, h in zip(mesh.nc, mesh.h_cells)))
     fm = kb.checked_face_masks(mesh, P, mesh.boundary_dof_marker(P))
     return mesh.lattice_shape(P), kb.symmetrized_mats(
-        [2.0 * K for K in Ks], ms, fm, band=P, device="cpu")
+        [2.0 * K for K in Ks], ms, face_masks=fm, band=P, device="cpu")
 
 
 def test_cpu_tensors_run_the_plain_version():
@@ -156,8 +179,9 @@ def test_lattice_non_cuda_device_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA tensors"):
         lb.blocked_lattice_apply(xm, op.mats, op.Gt, op.bc_marker, mesh.nc, 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        lb.blocked_lattice_apply_geom(xm, opg.mats, opg.co, opg.bc_marker,
-                                      mesh.nc, 2, xi=opg._xi, wx=opg._wx)
+        lb.blocked_lattice_apply_geom(xm, opg.mats, opg.co, opg.geom,
+                                      opg.bc_marker, mesh.nc, 2, xi=opg._xi,
+                                      wx=opg._wx)
 
 
 def test_lattice_loader_raises_without_cuda_or_nvcc(monkeypatch):
@@ -275,3 +299,24 @@ def test_new_loaders_raise_without_cuda_or_nvcc(monkeypatch, mod):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         m.load_kernels()
     assert m._lib is None
+
+
+def test_grid_kernel_wrappers_cpu_plain_and_meta_raises():
+    shape, mats = _mats()
+    g = torch.Generator().manual_seed(1)
+    x, t1, r = (torch.randn(shape, generator=g) for _ in range(3))
+    cy = torch.randn((shape[0], 2, shape[2]), generator=g)
+    cz = torch.randn((shape[0], shape[1], 2), generator=g)
+    bc = torch.tensor(BoxMesh((2, 3, 4)).boundary_dof_marker(2)).reshape(shape)
+    before = dict(kb.LAUNCHES)
+    assert torch.equal(kb.kron_t23_grid_m(x, t1, mats, 0.5, cy, cz),
+                       kb.plain_t23_grid_m(x, t1, mats, 0.5, cy, cz))
+    assert torch.equal(kb.kron_t23_grid(x, bc, t1, mats, 0.5, cy, None, r3=r),
+                       r - kb.plain_t23_grid(x, bc, t1, mats, 0.5, cy, None))
+    assert kb.LAUNCHES == before  # no kernel ran
+    xm = torch.empty(shape, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kb.kron_t23_grid_m(xm, xm, mats, 0.0, None, None)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kb.kron_t23_grid(xm, torch.empty(shape, dtype=torch.bool,
+                                         device="meta"), xm, mats)

@@ -56,8 +56,8 @@ def _setup(jx, faces, dtype, jdtype, seed=0):
     jmats = jx.jkb.symmetrized_mats(base.Ks, base.ms, dtype=jdtype,
                                     face_masks=fm_j)
     tmats = tkb.symmetrized_mats([np.asarray(K) for K in base.Ks],
-                                 [np.asarray(m) for m in base.ms], fm_t,
-                                 band=P, device="cpu", dtype=dtype)
+                                 [np.asarray(m) for m in base.ms], dtype,
+                                 fm_t, band=P, device="cpu")
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(shape)
     b = rng.standard_normal(shape)
@@ -70,8 +70,8 @@ def _port_mats(faces, device, dtype=torch.float32):
     Ks, ms = zip(*(axis_stiffness_mass(n, P, h)
                    for n, h in zip(tm.nc, tm.h_cells)))
     fm = tkb.checked_face_masks(tm, P, tm.boundary_dof_marker(P))
-    return tm, tkb.symmetrized_mats([2.0 * K for K in Ks], ms, fm, band=P,
-                                    device=device, dtype=dtype)
+    return tm, tkb.symmetrized_mats([2.0 * K for K in Ks], ms, dtype, fm,
+                                    band=P, device=device)
 
 
 def _rel(a, b):
@@ -134,12 +134,13 @@ def test_band_check_and_separable_guard(jx):
     Ks = [tmats["Ktx"].clone(), tmats["Kty"], tmats["KtzT"].T]
     ms = [torch.ones(K.shape[0], dtype=torch.float64) for K in Ks]
     fm = tkb.checked_face_masks(tm, P, tm.boundary_dof_marker(P))
-    tkb.symmetrized_mats(Ks, ms, fm, band=P, device="cpu")
+    tkb.symmetrized_mats(Ks, ms, face_masks=fm, band=P, device="cpu")
     Ks[0][0, P + 1] = 1e-3  # one entry just outside the band
     with pytest.raises(ValueError, match="outside the band"):
-        tkb.symmetrized_mats(Ks, ms, fm, band=P, device="cpu")
+        tkb.symmetrized_mats(Ks, ms, face_masks=fm, band=P, device="cpu")
     with pytest.raises(ValueError, match="outside the band"):
-        tkb.symmetrized_mats(Ks, ms, None, band=P, device="cpu")
+        tkb.symmetrized_mats(Ks, ms, face_masks=None, band=P,
+                             device="cpu")
     # a non-separable marker has no face masks: the setup gives the
     # bc-array set and the entry points run the full-bc kernels, as JAX
     bad = tm.boundary_dof_marker(P).copy().reshape(tm.lattice_shape(P))

@@ -276,11 +276,11 @@ def test_blocked_matches_pallas_interpret_f32(jx, variant):
     mats_j = jlb.lattice_blocked_mats(NC, P)
     if variant == "geom":
         co = tlb.lattice_geom_coefficients(tm, P, kc)
-        _, xi, wx = tlb.lattice_geom_data(NC, P, device="cpu")
+        geom_t, xi, wx = tlb.lattice_geom_data(NC, P, device="cpu")
         geom_j, _, _ = jlb.lattice_geom_data(NC, P)
         y_t = tlb.blocked_lattice_apply_geom(
             torch.from_numpy(x), mats_t, torch.tensor(co, dtype=torch.float32),
-            bc_t, NC, P, xi=xi, wx=wx)
+            geom_t, bc_t, NC, P, xi=xi, wx=wx)
         y_j = jlb.blocked_lattice_apply_geom(
             jnp.asarray(x), mats_j, jnp.asarray(co, jnp.float32), geom_j,
             bc_j, NC, P, xi=xi, wx=wx, bcells=1, interpret=True)
@@ -407,7 +407,8 @@ def test_cuda_lattice_kernels_match_plain(cuda_device, p):
                                       apply_bc)
         assert _rel_max(y, ref) <= 1e-5
         y = tlb.blocked_lattice_apply_geom(
-            x, k_b.mats, k_b.co, k_b.bc_marker, tm.nc, p, xi=k_b._xi,
+            x, k_b.mats, k_b.co, k_b.geom, k_b.bc_marker, tm.nc, p,
+            xi=k_b._xi,
             wx=k_b._wx, apply_bc=apply_bc)
         ref = tlb.plain_lattice_apply_geom(x, k_b.mats, k_b.co,
                                            k_b.bc_marker, tm.nc, p, apply_bc)

@@ -1,0 +1,294 @@
+"""The port's functions and classes bind positional arguments as the JAX
+package does.
+
+Each test calls the JAX original and the port's counterpart with the same
+positional argument list and compares the results (f64 to 1e-12 unless
+the JAX function is f32 only, then f32 to 1e-5). The TPU-only knobs
+(``precision``, ``interpret``, ``xp``, the tile sizes ``by``/``bx``/
+``bcells``) keep their positions in the port and take JAX's default
+only; anything else raises. ``kron_laplacian_apply`` also takes JAX's
+``exchange`` hook, applied to the K_x term before the terms are summed.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from pmg_dolfinx_tpu.fem.mesh import BoxMesh as JBox  # noqa: E402
+from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh as JPert  # noqa: E402
+from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh as TBox  # noqa: E402
+from pmg_dolfinx_tpu_torch.fem.mesh import (  # noqa: E402
+    PerturbedBoxMesh as TPert,
+)
+
+NC = (3, 3, 3)
+P = 2
+SIGMA = 0.5
+
+
+def _rel(a, b):
+    a = np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a,
+                   np.float64)
+    b = np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def _kron_factors(nc, p, dtype=np.float64):
+    from pmg_dolfinx_tpu_torch.ops.kron import axis_stiffness_mass
+
+    mesh = TBox(nc)
+    Ks, ms = [], []
+    for nc_a, h_a in zip(mesh.nc, mesh.h_cells):
+        K, m = axis_stiffness_mass(nc_a, p, h_a)
+        Ks.append((2.0 * K).astype(dtype))
+        ms.append(m.astype(dtype))
+    return mesh, Ks, ms
+
+
+@pytest.mark.parametrize("apply_bc", [False, True])
+def test_kron_laplacian_apply_positional(apply_bc):
+    """``(x, Ks, ms, bc, "highest", apply_bc, exchange, sigma)``: the
+    silent fault bound "highest" to ``apply_bc`` and overwrote the
+    Dirichlet rows where JAX returns ``A x``."""
+    from pmg_dolfinx_tpu.ops import kron as jk
+    from pmg_dolfinx_tpu_torch.ops import kron as tk
+
+    mesh, Ks, ms = _kron_factors(NC, P)
+    shape = mesh.lattice_shape(P)
+    x = np.random.default_rng(0).standard_normal(shape)
+    bc = mesh.boundary_dof_marker(P).reshape(shape)
+    tt = lambda a: torch.from_numpy(np.asarray(a))
+    y_t = tk.kron_laplacian_apply(tt(x), [tt(K) for K in Ks],
+                                  [tt(m) for m in ms], tt(bc), "highest",
+                                  apply_bc)
+    y_j = jk.kron_laplacian_apply(jnp.asarray(x), [jnp.asarray(K) for K in Ks],
+                                  [jnp.asarray(m) for m in ms],
+                                  jnp.asarray(bc), "highest", apply_bc)
+    assert _rel(y_t, y_j) <= 1e-12
+    # exchange (on the K_x term) and sigma, positionally
+    y_t = tk.kron_laplacian_apply(tt(x), [tt(K) for K in Ks],
+                                  [tt(m) for m in ms], tt(bc), "highest",
+                                  apply_bc, lambda t: 2.0 * t, SIGMA)
+    y_j = jk.kron_laplacian_apply(jnp.asarray(x), [jnp.asarray(K) for K in Ks],
+                                  [jnp.asarray(m) for m in ms],
+                                  jnp.asarray(bc), "highest", apply_bc,
+                                  lambda t: 2.0 * t, SIGMA)
+    assert _rel(y_t, y_j) <= 1e-12
+
+
+def test_poisson_problem_positional():
+    """JAX's 13th positional ``smoother`` and 14th ``u_exact`` (the fault
+    bound "cheb" to ``u_exact``); ``robin_g`` and other smoothers raise."""
+    from pmg_dolfinx_tpu.models import poisson as jp
+    from pmg_dolfinx_tpu_torch.models import poisson as tp
+
+    u_ex = lambda x: np.sin(np.pi * x[0]) * x[1] * (1 - x[1]) * np.sin(
+        np.pi * x[2])
+    args = ((2, 2, 2), (1, 2), 2.0)
+    rest = ("smoother", None, 2, "kron", "highest", None, None, 0.0, "cheb",
+            u_ex)
+    jprob = jp.PoissonProblem(*args, jnp.float64, *rest)
+    tprob = tp.PoissonProblem(*args, torch.float64, *rest, device="cpu")
+    uj, _ = jprob.solve(num_cycles=3)
+    ut, _ = tprob.solve(num_cycles=3)
+    assert _rel(ut, uj) <= 1e-12
+    assert abs(tprob.error_l2(ut) - jprob.error_l2(np.asarray(uj))) <= (
+        1e-12 * jprob.error_l2(np.asarray(uj)))
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        tp.PoissonProblem(*args, torch.float64, *rest[:-2], "line",
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        tp.PoissonProblem(*args, torch.float64, *rest, {"g": 1.0},
+                          device="cpu")
+
+
+def test_kron_laplacian_class_positional():
+    """``KronLaplacian(mesh, P, kappa, dtype, precision, sigma)``."""
+    from pmg_dolfinx_tpu.ops.kron import KronLaplacian as JK
+    from pmg_dolfinx_tpu_torch.ops.kron import KronLaplacian as TK
+
+    x = np.random.default_rng(1).standard_normal(TBox(NC).num_dofs(P))
+    jop = JK(JBox(NC), P, 2.0, jnp.float64, "highest", SIGMA)
+    top = TK(TBox(NC), P, 2.0, torch.float64, "highest", SIGMA,
+             device="cpu")
+    assert _rel(top(torch.from_numpy(x)), jop(jnp.asarray(x))) <= 1e-12
+    with pytest.raises(NotImplementedError, match="precision='high'"):
+        TK(TBox(NC), P, 2.0, torch.float64, "high", device="cpu")
+
+
+def test_fdm_positional():
+    """``FastDiagonalizationSolver(mesh, P, kappa, dtype, precision,
+    sigma)`` and ``fdm_solve(b, Vs, Vts, dinv, bc, shape, precision,
+    trims)``."""
+    from pmg_dolfinx_tpu.solvers import fdm as jf
+    from pmg_dolfinx_tpu_torch.solvers import fdm as tf
+
+    b = np.random.default_rng(2).standard_normal(TBox(NC).num_dofs(P))
+    js = jf.FastDiagonalizationSolver(JBox(NC), P, 2.0, jnp.float64,
+                                      "highest", SIGMA)
+    ts = tf.FastDiagonalizationSolver(TBox(NC), P, 2.0, torch.float64,
+                                      "highest", SIGMA, device="cpu")
+    assert _rel(ts.solve(b), js.solve(jnp.asarray(b))) <= 1e-12
+    shape = TBox(NC).lattice_shape(P)
+    u_t = tf.fdm_solve(torch.from_numpy(b), ts.Vs, ts.Vts, ts.dinv,
+                       ts.bc_marker, shape, "highest", ts.trims)
+    u_j = jf.fdm_solve(jnp.asarray(b), js.Vs, js.Vts, js.dinv, js.bc_marker,
+                       shape, "highest", js.trims)
+    assert _rel(u_t, u_j) <= 1e-12
+
+
+def test_lattice_laplacian_apply_positional():
+    """``lattice_laplacian_apply(x, mats, G, bc, precision, apply_bc)``."""
+    from pmg_dolfinx_tpu.ops import lattice as jl
+    from pmg_dolfinx_tpu_torch.ops import lattice as tl
+
+    top = tl.LatticeLaplacian(TPert(NC), P, kappa=2.0, dtype=torch.float64,
+                              device="cpu")
+    jop = jl.LatticeLaplacian(JPert(NC), P, kappa=2.0, dtype=jnp.float64)
+    x = np.random.default_rng(3).standard_normal(TPert(NC).num_dofs(P))
+    y_t = tl.lattice_laplacian_apply(torch.from_numpy(x), top.mats, top.G,
+                                     top.bc_marker, "highest", False)
+    y_j = jl.lattice_laplacian_apply(jnp.asarray(x), jop.mats, jop.G,
+                                     jop.bc_marker, "highest", False)
+    assert _rel(y_t, y_j) <= 1e-12
+
+
+@pytest.mark.parametrize("family", ["heat", "wave"])
+def test_packed_evolve_positional(family):
+    """``heat_packed_evolve(mesh, P, kappa, dt, B, scheme, interpret, f,
+    f_time)`` and ``wave_packed_evolve(..., scheme, beta, gamma,
+    interpret, ...)``; ``interpret=True`` raises in the port."""
+    from pmg_dolfinx_tpu.solvers import transient as jt
+    from pmg_dolfinx_tpu_torch.solvers import transient as tt
+
+    nc, p, B = (3, 3, 4), 3, 2
+    mesh = TBox(nc)
+    rng = np.random.default_rng(4)
+    U0 = rng.standard_normal((B, mesh.num_dofs(p))).astype(np.float32)
+    U0[:, mesh.boundary_dof_marker(p)] = 0.0
+    if family == "heat":
+        args = (2.0, 2e-3, B, "cn")
+        Uj = jt.heat_packed_evolve(JBox(nc), p, *args, False, None, None)(
+            U0, 4)
+        Ut = tt.heat_packed_evolve(mesh, p, *args, False, None, None,
+                                   device="cpu")(U0, 4)
+        assert _rel(Ut, Uj) <= 1e-5
+        with pytest.raises(ValueError, match="interpret=True"):
+            tt.heat_packed_evolve(mesh, p, *args, True, device="cpu")
+        return
+    dt = float(0.5 * jt.wave_stable_dt(JBox(nc), p, kappa=2.0))
+    args = (2.0, dt, B, "newmark", 0.25, 0.5)
+    Uj, Vj = jt.wave_packed_evolve(JBox(nc), p, *args, False, None, None)(
+        U0, 0.0 * U0, 4)
+    Ut, Vt = tt.wave_packed_evolve(mesh, p, *args, False, None, None,
+                                   device="cpu")(U0, 0.0 * U0, 4)
+    assert _rel(Ut, Uj) <= 1e-5 and _rel(Vt, Vj) <= 1e-5
+    with pytest.raises(ValueError, match="interpret=True"):
+        tt.wave_packed_evolve(mesh, p, *args, True, device="cpu")
+
+
+def test_geometry_factors_positional():
+    """``geometry_factors(xgeom, dofmap, dphi, weights, xp, kappa)``; the
+    port's ``xp`` is numpy only."""
+    from pmg_dolfinx_tpu.fem import geometry as jg
+    from pmg_dolfinx_tpu_torch.fem import geometry as tg
+
+    mesh = TPert(NC)
+    kappa = np.random.default_rng(5).uniform(0.5, 2.0, mesh.ncells)
+    args = (mesh.geometry_x, mesh.geometry_dofmap,
+            tg.tabulate_geometry_dphi(P), tg.quadrature_weights_3d(P))
+    G_t, d_t = tg.geometry_factors(*args, np, kappa)
+    G_j, d_j = jg.geometry_factors(*args, np, kappa)
+    assert _rel(G_t, G_j) <= 1e-12 and _rel(d_t, d_j) <= 1e-12
+    with pytest.raises(ValueError, match="numpy only"):
+        tg.geometry_factors(*args, torch, kappa)
+
+
+def test_blocked_lattice_apply_geom_positional():
+    """``blocked_lattice_apply_geom(x, mats, co, geom, bc, nc, P, *, xi,
+    wx)``: ``geom`` is the fourth parameter."""
+    from pmg_dolfinx_tpu.ops import pallas_lattice_blocked as jlb
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as tlb
+
+    mesh = TPert(NC)
+    co = tlb.lattice_geom_coefficients(mesh, P, np.full(mesh.ncells, 2.0))
+    x = np.random.default_rng(6).standard_normal(mesh.num_dofs(P)).astype(
+        np.float32)
+    bc = mesh.boundary_dof_marker(P)
+    geom_t, xi, wx = tlb.lattice_geom_data(NC, P, device="cpu")
+    geom_j, _, _ = jlb.lattice_geom_data(NC, P)
+    y_t = tlb.blocked_lattice_apply_geom(
+        torch.from_numpy(x), tlb.lattice_blocked_mats(NC, P, device="cpu"),
+        torch.tensor(co, dtype=torch.float32), geom_t, torch.tensor(bc), NC,
+        P, xi=xi, wx=wx)
+    y_j = jlb.blocked_lattice_apply_geom(
+        jnp.asarray(x), jlb.lattice_blocked_mats(NC, P),
+        jnp.asarray(co, jnp.float32), geom_j, jnp.asarray(bc), NC, P, xi=xi,
+        wx=wx)
+    assert _rel(y_t, y_j) <= 1e-5
+
+
+@pytest.mark.parametrize("masks", [False, True])
+def test_symmetrized_mats_positional(masks):
+    """``symmetrized_mats(Ks, ms, dtype, face_masks)``."""
+    from pmg_dolfinx_tpu.ops import pallas_kron_blocked as jkb
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as tkb
+
+    mesh, Ks, ms = _kron_factors(NC, P)
+    fm = tkb.checked_face_masks(mesh, P, mesh.boundary_dof_marker(P))
+    fm = fm if masks else None
+    m_t = tkb.symmetrized_mats(Ks, ms, torch.float64, fm, band=P,
+                               device="cpu")
+    m_j = jkb.symmetrized_mats(Ks, ms, jnp.float64, fm)
+    assert set(m_j) == set(m_t) - {"band"}
+    for k, v in m_j.items():
+        assert m_t[k].dtype == torch.float64
+        assert _rel(m_t[k], v) <= 1e-15, k
+
+
+def test_operator_classes_positional():
+    """``PallasKronBlocked(mesh, P, kappa, by, bx, interpret, precision,
+    sigma)``, ``PallasLatticeBlocked(mesh, P, kappa, bcells, interpret,
+    precision, variant, zb)`` and ``PallasKronLaplacian(mesh, P, kappa,
+    interpret)``; their TPU knobs take JAX's defaults only."""
+    from pmg_dolfinx_tpu.ops import pallas_kron as jkf
+    from pmg_dolfinx_tpu.ops import pallas_kron_blocked as jkb
+    from pmg_dolfinx_tpu.ops import pallas_lattice_blocked as jlb
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as tkb
+    from pmg_dolfinx_tpu_torch.ops import kron_fused as tkf
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as tlb
+
+    x = np.random.default_rng(7).standard_normal(TBox(NC).num_dofs(P)).astype(
+        np.float32)
+    tx = torch.from_numpy(x)
+    top = tkb.PallasKronBlocked(TBox(NC), P, 2.0, None, None, False,
+                                "highest", SIGMA, device="cpu")
+    jop = jkb.PallasKronBlocked(JBox(NC), P, 2.0, None, None, False,
+                                "highest", SIGMA)
+    assert _rel(top(tx), jop(jnp.asarray(x))) <= 1e-5
+    top = tlb.PallasLatticeBlocked(TPert(NC), P, 2.0, 1, False, "highest",
+                                   "geom", None, device="cpu")
+    jop = jlb.PallasLatticeBlocked(JPert(NC), P, 2.0, 1, False, "highest",
+                                   "geom", None)
+    assert _rel(top(tx), jop(jnp.asarray(x))) <= 1e-5
+    top = tkf.PallasKronLaplacian(TBox(NC), P, 2.0, False, device="cpu")
+    # JAX's CPU run needs its interpret mode; the port's takes the default
+    jop = jkf.PallasKronLaplacian(JBox(NC), P, 2.0, True)
+    assert _rel(top(tx), jop(jnp.asarray(x))) <= 1e-5
+    for call in (
+            lambda: tkb.PallasKronBlocked(TBox(NC), P, 2.0, 8, device="cpu"),
+            lambda: tkb.PallasKronBlocked(TBox(NC), P, 2.0, None, None, True,
+                                          device="cpu"),
+            lambda: tlb.PallasLatticeBlocked(TPert(NC), P, 2.0, 2,
+                                             device="cpu"),
+            lambda: tkf.PallasKronLaplacian(TBox(NC), P, 2.0, True,
+                                            device="cpu")):
+        with pytest.raises(ValueError, match="TPU tile or mode knob"):
+            call()
