@@ -16,12 +16,21 @@ failure; nothing is caught.
    False.
 2. Build the kernels (``csrc/kron_blocked.cu``, ``csrc/lattice_blocked.cu``,
    ``csrc/kron_packed.cu``, ``csrc/transfer.cu`` and ``csrc/kron_fused.cu``,
-   one nvcc each, started together, sm_90a).
+   one nvcc each, started together, sm_90a); the seconds, and each
+   kernel's registers and spills (``kron_blocked.cu``: the marching
+   kernels at the main path's bands 3 and 6, and the most over all).
 3. Kernel parity: each kernel against its plain torch version at
    2,048,383 dofs (nc=21, p=6, 127^3) and 16,194,277 dofs (nc=42, p=6,
    253^3), seeded inputs, sigma in {0, 0.5}; relative max-norm error
    <= 1e-5 (float32, different summation order). Both timed with CUDA
-   events.
+   events around host-issued calls, in turns; kernels #1-#3 also as
+   device time (a CUDA graph of 20 launches replayed between CUDA
+   events), kernel 1 beside its library call (one ``torch.matmul`` of
+   ``Ktx`` with the pre-masked input, TF32 off), and the host
+   microseconds per launch of the ``kron_t1_m`` / ``kron_t23_m``
+   wrappers (1000 calls enqueued). Then #1-#3 the same way at the
+   V-cycles' coarser shapes (127^3 and 64^3 at band 3, 43^3 and 22^3 at
+   band 1) and at the highest bands (121^3 at band 10, 129^3 at 16).
 3b. Full-bc kernel parity: kernels #4-#7 (``kron_t1``, ``kron_t23``
    apply/residual, ``kron_t23_cheb`` init and loop steps) on a
    non-separable Dirichlet marker (the box faces plus ~1% of the interior
@@ -43,19 +52,27 @@ failure; nothing is caught.
    applies); relative max-norm <= 1e-5 against its plain version and
    <= 1e-4 against ``PallasKronBlocked`` on the same input (two f32 forms
    of ``Kt``); ms, GDOF/s, plain ms, bound.
+3e. The device-grid kernels #8/#9 on one shard at 127^3 and 253x127x127
+   (band 6), 64^3 (band 3) and 22^3 (band 1) with seeded corrections
+   against their plain versions, and #9 as device time (CUDA graph);
+   `blocked_kron_apply_grid` on a non-separable marker must launch #8.
 4. Main path: ``PoissonProblem(nc=(42,42,42), degrees=(1,3,6), kappa=2,
    float32, coarse="fdm", operator="kron_blocked")`` — 10 stationary
    V-cycles (the residual falls on each of the first 4) and FCG(V) to
    rtol 1e-6 within 50 iterations; every kernel's launch count must rise
-   during this phase. Also times the V-cycle of the plain torch
-   ``operator="kron"`` hierarchy at the same size.
+   during this phase. The back-to-back V-cycle's idle share (1 - the
+   `torch.profiler` busy ms of one cycle / the CUDA-event ms per cycle).
+   Also times the V-cycle of the plain torch ``operator="kron"``
+   hierarchy at the same size.
 4b. The fused main path: ``PMGHierarchy(fuse_smoother=True)`` on phase
    4's mesh and rhs (16,194,277 dofs): 10 stationary cycles (the residual
    falls on each of the first 4), FCG(V) to rtol 1e-6 within one
    iteration of phase 4's count, the FCG solution within 1e-3 relative of
    phase 4's; kernels #4 and #7 must launch. V-cycle ms fused against
-   unfused in turns, and a `torch.profiler` breakdown of one V-cycle of
-   each.
+   unfused in turns; for each, the CUDA-event ms and the host ms to
+   enqueue 10 cycles over 5 reps (who sets the pace), and a
+   `torch.profiler` breakdown of one V-cycle with its idle share of the
+   back-to-back cycle.
 4c. ``solve_refined`` on the fused hierarchy: the f64 relative residual
    falls below 1e-8 within 20 cycles (trajectory printed).
 4d. At nc=21 (2,048,383 dofs), fused: the W-cycle (``gamma=2``) ends
@@ -127,9 +144,10 @@ failure; nothing is caught.
    step, finite state.
 
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
-path, error, time, plain time, library time where one PyTorch call
-computes the same function, and its bound: bytes over 3.35 TB/s or f32
-operations over 67 TFLOP/s, the larger) and, only when every phase
+path, error, host-issued time, plain time, library time where one
+PyTorch call computes the same function, and its bound: bytes over 3.35
+TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#3 and #9 add
+their device times as ``device_ms*`` keys) and, only when every phase
 passed, the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -294,6 +312,64 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, launches=20, reps=5):
+    """Device ms per call of ``fn``: a `torch.cuda.CUDAGraph` capturing
+    ``launches`` calls, replayed between CUDA events (median of ``reps``
+    replays), so the host's launch rate does not enter. A kernel wrapper
+    counts its launches once, at the capture."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return sorted(times)[reps // 2]
+
+
+def host_us(fn, calls=1000):
+    """Host microseconds per call of ``fn`` (enqueue only: the card is
+    idle before the first call, and its finish is not timed)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def ptxas_lines(log, keep):
+    """The ``-Xptxas -v`` registers and spills of each kernel of ``log``
+    whose mangled name contains one of ``keep``, one line each."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif name and any(k in name for k in keep):
+            if "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                out.append(f"{name[name.find('kron_t'):][:32]}: "
+                           f"{line.split(': ', 1)[-1].strip()}; {spill}")
+    return out
+
+
 def peak_rss_gb():
     """Peak resident host memory of this process so far, GB."""
     import resource
@@ -305,9 +381,13 @@ def rel_max_err(got, ref):
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-def kernel_parity(nc, P, kappa=2.0):
-    """Phase 3 at one size: returns {kernel: (max_abs_err, ms, plain_ms)}
-    measured at sigma=0 (the errors over both sigmas)."""
+def kernel_parity(nc, P, kappa=2.0, host_cost=False):
+    """Phase 3 at one size: returns ({kernel: (max_abs_err, ms, plain_ms)}
+    measured at sigma=0 (the errors over both sigmas; ms host-issued, in
+    turns with plain), {kernel: device ms from `graph_ms`}, the library
+    ms of kernel 1 (one ``torch.matmul`` of ``Ktx`` with the pre-masked
+    input, TF32 off, never used by the port) and {kernel: host us per
+    launch}, measured with ``host_cost`` only, else empty)."""
     import numpy as np
     import torch
 
@@ -388,13 +468,42 @@ def kernel_parity(nc, P, kappa=2.0):
               f"({k1:.4f}, {k2:.4f}) vs plain {ms_p:.4f} ms "
               f"({p1:.4f}, {p2:.4f})")
         out[name] = (out[name][0], ms_k, ms_p)
+    # Device time: a CUDA graph of 20 launches into preallocated outputs.
+    y = torch.empty_like(x)
+    dev = {
+        "t1_m": graph_ms(lambda: kb.kron_t1_m(x, mats, out=y)),
+        "t23_m": graph_ms(lambda: kb.kron_t23_m(x, t1_ref, mats, out=y)),
+        "t23_res_m": graph_ms(lambda: kb.kron_t23_m(x, t1_ref, mats, r3=r,
+                                                    out=y)),
+    }
+    w = (x * (mats["myb"][None, :, :] * mats["sxzm"][:, None, :])).view(
+        shape[0], -1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib_t1 = cuda_ms(lambda: torch.matmul(mats["Ktx"], w))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    host = {}
+    if host_cost:
+        host = {
+            "t1_m": host_us(lambda: kb.kron_t1_m(x, mats, out=y)),
+            "t23_m": host_us(lambda: kb.kron_t23_m(x, t1_ref, mats, out=y)),
+        }
+    print(f"    {shape} device ms (CUDA graph of 20 launches): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in dev.items())
+          + f"; t1_m library (torch.matmul, TF32 off) {lib_t1:.4f}"
+          + "".join(f"; host us per launch (1000 enqueued) {k} {v:.2f}"
+                    for k, v in host.items()))
     apply_k = cuda_ms(lambda: kb.blocked_kron_apply(x, bc, mats))
+    apply_g = graph_ms(lambda: kb.blocked_kron_apply(x, bc, mats))
     apply_p = cuda_ms(lambda: kb.plain_apply_m(x, mats))
     ndofs = x.numel()
     print(f"    {shape} apply: kernels {apply_k:.4f} ms "
-          f"({ndofs / apply_k / 1e6:.3f} GDOF/s) vs plain {apply_p:.4f} ms "
+          f"({ndofs / apply_k / 1e6:.3f} GDOF/s; device {apply_g:.4f} ms, "
+          f"{ndofs / apply_g / 1e6:.3f} GDOF/s) vs plain {apply_p:.4f} ms "
           f"({ndofs / apply_p / 1e6:.3f} GDOF/s)")
-    return out
+    return out, dev, lib_t1, host
 
 
 def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None):
@@ -921,6 +1030,34 @@ def vcycle_ms(hier, cycles=10, reps=3):
     return sorted(times)[len(times) // 2], times
 
 
+def vcycle_pace(hier, cycles=10, reps=5):
+    """Who sets the pace of back-to-back V-cycles: per rep of ``cycles``
+    cycles, (CUDA-event ms per cycle, host ms per cycle to enqueue them).
+    Host ms well under the event ms: the card sets the pace; host ms near
+    it: the host does, and the cycle's wall time follows the host's speed."""
+    import torch
+
+    b = torch.ones(hier.levels[-1].ndofs, dtype=hier.dtype,
+                   device=hier.device)
+    u = torch.zeros_like(b)
+    for _ in range(2):
+        hier.apply(b, u)
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(cycles):
+            hier.apply(b, u)
+        host = (time.perf_counter() - t0) * 1e3 / cycles
+        end.record()
+        end.synchronize()
+        out.append((start.elapsed_time(end) / cycles, host))
+    return out
+
+
 @contextlib.contextmanager
 def plain_packed():
     """Run the serving classes on their plain torch versions on the card
@@ -1297,13 +1434,18 @@ def fused_path(prob, hier, rel_ref, u_ref, niter_ref, cfg, launches):
     b1 = torch.ones(fused.levels[-1].ndofs, dtype=torch.float32,
                     device="cuda")
     u0 = torch.zeros_like(b1)
-    for tag, h in (("fused", fused), ("unfused", hier)):
+    for tag, h, t_b2b in (("fused", fused, (t_f1 + t_f2) / 2),
+                          ("unfused", hier, (t_u1 + t_u2) / 2)):
+        pace = vcycle_pace(h)
+        print(f"    {tag} V-cycle pace, 5 reps of 10 (CUDA-event ms, host ms "
+              f"to enqueue): {[(round(e, 3), round(c, 3)) for e, c in pace]}")
         h.apply(b1, u0)
         wall, busy, nk, by_name = profile_busy(lambda: h.apply(b1, u0))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])
         print(f"    profile, one {tag} V-cycle: wall {wall:.3f} ms, device "
               f"busy {busy:.3f} ms, {nk} kernels, idle "
-              f"{max(0.0, 1 - busy / wall):.1%}")
+              f"{max(0.0, 1 - busy / wall):.1%}; of the back-to-back "
+              f"{t_b2b:.3f} ms: idle {max(0.0, 1 - busy / t_b2b):.1%}")
         for kname, ms in top[:10]:
             print(f"      {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
     return fused, u, rel
@@ -1474,19 +1616,18 @@ def grid_mats(nc, P, shards, masks, kappa=2.0):
     return mesh, part, mats
 
 
-def grid_kernel_parity(nc):
+def grid_kernel_parity(nc, P=6):
     """Phase 3e at one per-shard shape: kernels #8 / #9 on one shard of a
-    box (``nc`` cells, p=6) against their plain versions, with seeded
+    box (``nc`` cells, degree P) against their plain versions, with seeded
     synthetic corrections, need_y / need_z in GRID_NEEDS, sigma in {0, 0.5},
     apply and fused residual. Returns ({kernel: (max_abs_err, ms,
-    plain_ms)}, {kernel: (bound_ms, by)}) timed on the apply with both
-    corrections."""
+    plain_ms)}, {kernel: (bound_ms, by)}, #9's device ms from `graph_ms`),
+    timed on the apply with both corrections."""
     import numpy as np
     import torch
 
     from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
 
-    P = 6
     mesh, _, m = grid_mats(nc, P, (1, 1, 1), masks=True)
     shape = mesh.lattice_shape(P)
     rng = np.random.default_rng(SEED + 8 * nc[0])
@@ -1539,7 +1680,14 @@ def grid_kernel_parity(nc):
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); "
               f"t23_m without corrections "
               f"{cuda_ms(lambda: kb.kron_t23_m(x, t1, m)):.4f} ms")
-    return out, bounds
+    y = torch.empty_like(x)
+    dev9 = graph_ms(lambda: kb.kron_t23_grid_m(x, t1, m, 0.0, cy0, cz0,
+                                               out=y))
+    dev9r = graph_ms(lambda: kb.kron_t23_grid_m(x, t1, m, 0.0, cy0, cz0,
+                                                r3=r, out=y))
+    print(f"    {shape} t23_grid_m (both corrections) device ms (CUDA graph "
+          f"of 20 launches): apply {dev9:.4f}, residual {dev9r:.4f}")
+    return out, bounds, dev9
 
 
 def grid_entry_point():
@@ -1782,14 +1930,37 @@ def main():
     print(f"    build seconds ({len(modules)} sources, in parallel): "
           f"{time.perf_counter() - t0:.2f}")
     for mod in modules:
+        if mod is kb:
+            # One instantiation per band: the main path's bands 3 and 6 of
+            # the marching kernels, then the largest count over all.
+            for line in ptxas_lines(kb.BUILD_LOG, (
+                    "kron_t1_mILi3E", "kron_t1_mILi6E", "kron_t23_mILi3E",
+                    "kron_t23_mILi6E", "kron_t1P", "kron_t23ILi")):
+                print("    " + line)
+            regs = [int(line.split("Used ")[1].split()[0])
+                    for line in kb.BUILD_LOG.splitlines() if "Used " in line]
+            spills = [line.strip() for line in kb.BUILD_LOG.splitlines()
+                      if "spill" in line
+                      and " 0 bytes spill stores" not in line]
+            print(f"    kron_blocked.cu: {len(regs)} kernels, at most "
+                  f"{max(regs, default=0)} registers; {len(spills)} with "
+                  f"spills {spills[:2]}")
+            continue
         for line in mod.BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
     done(t0)
 
     t0 = phase("3. kernel parity vs plain torch")
-    kernel_parity(21, 6)
-    main_shape = kernel_parity(42, 6)
+    _, dev_127, _, host = kernel_parity(21, 6, host_cost=True)
+    main_shape, dev_253, lib_t1, _ = kernel_parity(42, 6)
+    library = {"t1_m": lib_t1}
+    # The shapes the V-cycles launch at their coarser levels (the single
+    # device's 127^3 at band 3; the (2, 2, 2) grid's shards at 64^3, band
+    # 3, and 22^3, band 1; 43^3 at band 1), and the highest bands.
+    dev_more = {}
+    for nc, P in ((42, 3), (21, 3), (42, 1), (21, 1), (12, 10), (8, 16)):
+        dev_more[f"{nc * P + 1}^3 band {P}"] = kernel_parity(nc, P)[1]
     done(t0)
 
     t0 = phase("3b. full-bc kernels #4-#7 vs plain torch, non-separable "
@@ -1804,8 +1975,9 @@ def main():
 
     t0 = phase("3c. transfer kernels #10/#11 vs plain torch: 253^3 <-> "
                "127^3 and 127^3 <-> 43^3")
-    res_t, bounds, library = transfer_parity()
+    res_t, bounds, lib_t = transfer_parity()
     main_shape.update(res_t)
+    library.update(lib_t)
     done(t0)
 
     t0 = phase("3d. PallasKronLaplacian (kernel #12): 2,048,383 dofs, p=6")
@@ -1815,8 +1987,11 @@ def main():
 
     t0 = phase("3e. device-grid kernels #8/#9 vs plain torch: per-shard "
                "127^3 and 253x127x127, and the grid entry point")
-    grid_kernel_parity((42, 21, 21))
-    res_g, bounds_g = grid_kernel_parity((21, 21, 21))
+    _, _, dev9_253 = grid_kernel_parity((42, 21, 21))
+    res_g, bounds_g, dev9_127 = grid_kernel_parity((21, 21, 21))
+    # The grid V-cycle's p=3 and p=1 shards.
+    dev9_more = {f"{21 * P + 1}^3 band {P}":
+                 grid_kernel_parity((21, 21, 21), P)[2] for P in (3, 1)}
     main_shape.update(res_g)
     bounds.update(bounds_g)
     launches["t23_grid"] = grid_entry_point()
@@ -1868,6 +2043,12 @@ def main():
     vc_blk, vc_blk_all = vcycle_ms(hier)
     print(f"    V-cycle {vc_blk:.3f} ms (kron_blocked kernels; 10 "
           f"back-to-back, 3 reps {[round(t, 3) for t in vc_blk_all]})")
+    b1 = torch.ones_like(prob.b)
+    hier.apply(b1, torch.zeros_like(b1))
+    _, busy, nk, _ = profile_busy(lambda: hier.apply(b1, torch.zeros_like(b1)))
+    print(f"    device busy per V-cycle {busy:.3f} ms ({nk} kernels, "
+          f"torch.profiler) of the back-to-back {vc_blk:.3f} ms: idle "
+          f"{max(0.0, 1 - busy / vc_blk):.1%}")
     ts = time.perf_counter()
     err = prob.error_l2(u)
     print(f"    L2 error vs manufactured solution: {err:.4e} "
@@ -2138,6 +2319,18 @@ def main():
     print(f"    peak host RSS {peak_rss_gb():.1f} GB")
     done(t0)
 
+    # Kernels #1-#3 and #9: besides `ms` (host-issued, as every row), the
+    # device time from a CUDA graph at the main path's fine shape, at 127^3
+    # and at the V-cycles' coarser shapes.
+    extra = {name: {"device_ms": dev_253[name], "device_ms_127": dev_127[name],
+                    "device_ms_by_shape": {k: v[name]
+                                           for k, v in dev_more.items()}}
+             for name in dev_253}
+    extra["t23_grid_m"] = {"device_ms": dev9_127,
+                           "device_ms_253x127x127": dev9_253,
+                           "device_ms_by_shape": dev9_more}
+    for name in ("t1_m", "t23_m"):
+        extra[name]["host_us_per_launch"] = host[name]
     kernels = []
     for name in SOURCES:
         if name in bounds:       # measured with its own inputs (3c, 3d)
@@ -2149,15 +2342,19 @@ def main():
                                      dims=(61, 61, 61))
         else:
             bound, by = kernel_bound(name, 253**3, 6)
+        ms = main_shape[name][1]
         kernels.append(
             {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": TPU_KERNELS[name], "launches": launches[name],
-             "max_abs_err": main_shape[name][0], "ms": main_shape[name][1],
+             "max_abs_err": main_shape[name][0], "ms": ms,
              "plain_ms": main_shape[name][2], "bound_ms": bound,
-             "bound_by": by, "library_ms": library.get(name)})
-        print(f"    {name}: {main_shape[name][1]:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), {bound / main_shape[name][1]:.0%} "
-              "of the bound's rate")
+             "bound_by": by, "library_ms": library.get(name),
+             **extra.get(name, {})})
+        dev = extra.get(name, {}).get("device_ms")
+        print(f"    {name}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{bound / ms:.0%} of the bound's rate"
+              + ("" if dev is None else
+                 f"; device {dev:.4f} ms, {bound / dev:.0%}"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,37 @@
 // (six reads, three writes) where the unfused smoother step moves the
 // pair's ~5 plus 10-15 passes of elementwise updates.
 //
-// Design. A block owns a 32 (z) x 32 (x or y) tile of outputs, 256 threads
+// Design of kron_t1_m and kron_t23_m (kernels #1-#3, #9): streaming
+// marches. A tile staged in shared memory (the full-bc kernels below)
+// costs two shared-memory loads per FMA and rereads its halo; these two
+// walk the lattice once instead, with the band's window in registers:
+//   kron_t1_m: a thread owns one (j, k) lane and marches along x over a
+//     chunk of planes, keeping the last 2P+1 scaled inputs w in a
+//     register ring; out[a] sums Ktx[a, a-P+d] w[a-P+d]. The chunk's band
+//     of Ktx is staged once in shared memory and read as warp-uniform
+//     float4 broadcasts. x is read once per chunk plus a 2P-plane halo;
+//     there is no barrier inside the march.
+//   kron_t23_m: a thread owns one (i, k) lane and marches along y inside
+//     x-plane i. The 2P+1 rows of w^ sit in a register ring for the
+//     y-contraction (Kty rows as uniform broadcasts, as above). Each warp
+//     writes every arriving row of w^ (with its z halo), raw x and s23m
+//     into rings of 2P+1 rows in its own shared memory, so the
+//     z-contraction of row j (its 2P+1 KtzT coefficients stay in
+//     registers) and the Dirichlet epilogue read row j from there when
+//     row j+P arrives: x is read from HBM once, and the only barrier is a
+//     __syncwarp per row.
+// What bounds them is the load stream: a march issues one row of each
+// lattice per step, so each thread fetches its HBM operands kAhead rows
+// ahead into registers (the loop unrolled by kAhead keeps every slot a
+// compile-time register). The warps of a block lie along z, so a block
+// reads whole contiguous rows. The ring indices must be compile-time too
+// (a register array with a runtime index spills), so both kernels are
+// templated on the band and the launchers dispatch bands 0..kMaxBand. The
+// sums keep the order of the tiled kernels (fmaf over d ascending from 0,
+// zero terms outside the lattice), so the results are the same bits.
+//
+// Design of the full-bc kernels (#4-#8). A block owns a 32 (z) x 32 (x or
+// y) tile of outputs, 256 threads
 // of 32 x 8, each thread 4 outputs along the tile's second axis; z is
 // fastest across a warp, so every global access coalesces. The block
 // stages its masked, scaled input tile WITH a halo of `band` planes in
@@ -86,6 +116,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
 namespace {
 
 constexpr int kTK = 32;           // tile extent along z (one warp)
@@ -110,49 +143,138 @@ __device__ __forceinline__ float grid_corrections(
   return acc;
 }
 
-__global__ void __launch_bounds__(kTK * kTR)
-kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
-          const float* __restrict__ Ktx, const float* __restrict__ sxzm,
-          float* __restrict__ out, int NX, int NY, int NZ, int band) {
-  extern __shared__ float smem[];
-  const int H = kRows + 2 * band;     // staged x-planes (tile + halo)
-  const int D = 2 * band + 1;         // band width
-  float* sw = smem;                   // [H][kTK]  w = x * my_j * sxzm
-  float* sK = smem + H * kTK;         // [D][kRows] Ktx[a, a - band + d]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTK + tx;
-  const int k0 = blockIdx.x * kTK, a0 = blockIdx.y * kRows, j = blockIdx.z;
-  const int k = k0 + tx;
-  const int64_t plane = (int64_t)NY * NZ;
-  const float myj = myb[j];
+// The marching kernels' blocks: 32 lanes along z by kWarps warps, one
+// output lane per thread, each warp on its own j (kron_t1_m) or i
+// (kron_t23_m) and the block marching one chunk of the third axis.
+constexpr int kWarps = 8;
+constexpr int kLanes = 32;
+// March chunks: kLongChunk planes (a 2P-plane halo over more outputs)
+// when that still gives every SM 4 blocks, else the longest of
+// kShortChunk, kShortChunk / 2, ..., kMinChunk that gives every SM a
+// block (see march_chunk).
+constexpr int kLongChunk = 64;
+constexpr int kShortChunk = 32;
+constexpr int kMinChunk = 2;
 
-  for (int r = ty; r < H; r += kTR) {
-    const int a = a0 - band + r;
-    float v = 0.f;
-    if (a >= 0 && a < NX && k < NZ)
-      v = x[a * plane + (int64_t)j * NZ + k] * (myj * sxzm[(int64_t)a * NZ + k]);
-    sw[r * kTK + tx] = v;
-  }
-  for (int t = tid; t < D * kRows; t += kTK * kTR) {
-    const int d = t / kRows, r = t % kRows;
-    const int a = a0 + r, xi = a - band + d;
-    sK[t] = (a < NX && xi >= 0 && xi < NX) ? Ktx[(int64_t)a * NX + xi] : 0.f;
-  }
-  __syncthreads();
-  if (k >= NZ) return;
-  for (int q = 0; q < kRPT; ++q) {
-    const int r = ty + q * kTR;
-    const int a = a0 + r;
-    if (a >= NX) break;
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d)
-      acc = fmaf(sK[d * kRows + r], sw[(r + d) * kTK + tx], acc);
-    out[a * plane + (int64_t)j * NZ + k] = acc;
+// A band row padded to whole float4s, so a warp reads it as broadcasts.
+__host__ __device__ constexpr int band_pad(int band) {
+  return (2 * band + 1 + 3) & ~3;
+}
+
+// Stage rows [r0, r0 + rows) of the band of the square n x n matrix K in
+// shared memory: sK[r][d] = K[r0 + r, r0 + r - BAND + d], zero outside
+// the matrix and in the padding.
+template <int BAND>
+__device__ __forceinline__ void stage_band(float* sK,
+                                           const float* __restrict__ K,
+                                           int r0, int rows, int n) {
+  constexpr int D = 2 * BAND + 1, DP = band_pad(BAND);
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  for (int t = tid; t < rows * DP; t += kLanes * kWarps) {
+    const int r = t / DP, d = t - r * DP;
+    const int a = r0 + r, c = a - BAND + d;
+    sK[t] = (d < D && a < n && c >= 0 && c < n) ? K[(int64_t)a * n + c] : 0.f;
   }
 }
 
-template <bool RESIDUAL, bool GRID>
-__global__ void __launch_bounds__(kTK * kTR)
+// sum_d band[d] * v[d] as fmaf over d ascending from 0, the band row read
+// from shared memory as float4 broadcasts.
+template <int BAND>
+__device__ __forceinline__ float band_dot(const float* sKrow, const float* v) {
+  constexpr int D = 2 * BAND + 1, DP = band_pad(BAND);
+  const float4* k4 = reinterpret_cast<const float4*>(sKrow);
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < DP / 4; ++q) {
+    const float4 c = k4[q];
+    const float cs[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * q + e < D) acc = fmaf(cs[e], v[4 * q + e], acc);
+  }
+  return acc;
+}
+
+// Rows a thread's loads run ahead of its march: a slot's loads are
+// issued kAhead rows before their use, so a warp keeps that many rows of
+// its HBM streams in flight instead of waiting on every row's latency.
+// The march loop is unrolled by kAhead, so every slot index is a
+// compile-time register. kron_t23_m fetches its L2-resident operands
+// (the s23m plane, the z halo) only kNear rows ahead, to save registers.
+constexpr int kAheadT1 = 12;
+constexpr int kAheadT23 = 8;
+constexpr int kNear = 2;
+// Shared memory of kron_t23_m: the chunk's Kty band, sycol and myb, and
+// each warp's rings of w^ (with its z halo), raw x and s23m.
+__host__ __device__ constexpr size_t t23_m_smem(int band, int chunk) {
+  return sizeof(float) *
+         (chunk * (band_pad(band) + 2) +
+          kWarps * (2 * band + 1) * (3 * kLanes + 2 * band));
+}
+// kron_t23_m asks for two blocks per SM (at most 128 registers a thread)
+// where two blocks' shared memory fits in an SM (228 KB on sm_90, 1 KB
+// reserved per block): at one block, the residual form's extra stream (r)
+// left the card half idle; at three, the main path's bands spill. Above
+// that band (14-16) one block fits, and a register cap would only spill.
+constexpr size_t kSmemPerSM = 228 * 1024;
+__host__ __device__ constexpr int t23_m_min_blocks(int band) {
+  return 2 * (t23_m_smem(band, kLongChunk) + 1024) <= kSmemPerSM ? 2 : 1;
+}
+
+template <int BAND>
+__global__ void __launch_bounds__(kLanes * kWarps)
+kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
+          const float* __restrict__ Ktx, const float* __restrict__ sxzm,
+          float* __restrict__ out, int NX, int NY, int NZ, int chunk,
+          int kw) {
+  constexpr int D = 2 * BAND + 1, DP = band_pad(BAND), U = kAheadT1;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);   // [chunk][DP] Ktx band
+  const int k = (blockIdx.x * kw + threadIdx.y % kw) * kLanes + threadIdx.x;
+  const int j = blockIdx.y * (kWarps / kw) + threadIdx.y / kw;
+  const int a0 = blockIdx.z * chunk;
+  const int a1 = min(a0 + chunk, NX);
+  stage_band<BAND>(sK, Ktx, a0, chunk, NX);
+  __syncthreads();
+  if (j >= NY || k >= NZ) return;
+  const int64_t plane = (int64_t)NY * NZ;
+  const float* xl = x + (int64_t)j * NZ + k;
+  const float* sl = sxzm + k;
+  float* ol = out + (int64_t)j * NZ + k;
+  const float myj = myb[j];
+  // Plane a arrives as x[a, j, k] and sxzm[a, k] (zero outside the
+  // lattice and past the march); w[a] = x * (my_j * sxzm). out[a - BAND]
+  // is summed then.
+  const int an0 = a0 - BAND, an1 = a1 + BAND, aend = min(an1, NX);
+  float px[U], ps[U];
+  auto fetch = [&](int s, int a) {
+    const bool in = a >= 0 && a < aend;
+    px[s] = in ? xl[a * plane] : 0.f;
+    ps[s] = in ? sl[(int64_t)a * NZ] : 0.f;
+  };
+#pragma unroll
+  for (int s = 0; s < U; ++s) fetch(s, an0 + s);
+  float ring[D];   // ring[d] = w[a - BAND + d] when out[a] is summed
+#pragma unroll
+  for (int d = 0; d < D; ++d) ring[d] = 0.f;
+  for (int ab = an0; ab < an1; ab += U) {
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      const int an = ab + s;
+      if (an >= an1) break;
+      const float w = px[s] * (myj * ps[s]);
+      fetch(s, an + U);
+#pragma unroll
+      for (int d = 0; d + 1 < D; ++d) ring[d] = ring[d + 1];
+      ring[D - 1] = w;
+      const int a = an - BAND;
+      if (a >= a0) ol[a * plane] = band_dot<BAND>(sK + (a - a0) * DP, ring);
+    }
+  }
+}
+
+template <int BAND, bool RESIDUAL, bool GRID>
+__global__ void __launch_bounds__(kLanes * kWarps, t23_m_min_blocks(BAND))
 kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
            const float* __restrict__ t1, const float* __restrict__ Kty,
            const float* __restrict__ KtzT, const float* __restrict__ sx2d,
@@ -160,64 +282,131 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
            const float* __restrict__ myb, const float* __restrict__ mzrow,
            const float* __restrict__ cy, const float* __restrict__ cz,
            const float* __restrict__ r, float* __restrict__ out,
-           int NX, int NY, int NZ, int band, float sigma) {
-  extern __shared__ float smem[];
-  const int H = kRows + 2 * band;     // staged y-rows (tile + halo)
-  const int W = kTK + 2 * band;       // staged z-columns (tile + halo)
-  const int D = 2 * band + 1;
-  float* sw = smem;                   // [H][W]  w^ = x * mx_i * s23m
-  float* sKy = sw + H * W;            // [D][kRows] Kty[j, j - band + d]
-  float* sKz = sKy + D * kRows;       // [D][kTK]  KtzT[k - band + d, k]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTK + tx;
-  const int k0 = blockIdx.x * kTK, j0 = blockIdx.y * kRows, i = blockIdx.z;
-  const int k = k0 + tx;
+           int NX, int NY, int NZ, int chunk, int kw, float sigma) {
+  constexpr int D = 2 * BAND + 1, DP = band_pad(BAND), U = kAheadT23;
+  constexpr int W = kLanes + 2 * BAND;   // a ring row: the warp's z + halo
+  extern __shared__ float4 smem4[];
+  float* sKy = reinterpret_cast<float*>(smem4);   // [chunk][DP] Kty band
+  float* sSy = sKy + chunk * DP;                  // [chunk] sycol
+  float* sMy = sSy + chunk;                       // [chunk] myb
+  // This warp's rings of the last D rows: w^ [D][W], raw x and s23m [D][32].
+  float* sW = sMy + chunk + threadIdx.y * D * (W + 2 * kLanes);
+  float* sX = sW + D * W;
+  float* sS = sX + D * kLanes;
+  const int lane = threadIdx.x;
+  const int k0 = (blockIdx.x * kw + threadIdx.y % kw) * kLanes, k = k0 + lane;
+  const int i = blockIdx.y * (kWarps / kw) + threadIdx.y / kw;
+  const int j0 = blockIdx.z * chunk;
+  const int j1 = min(j0 + chunk, NY);
+  stage_band<BAND>(sKy, Kty, j0, chunk, NY);
+  for (int t = threadIdx.y * kLanes + lane; t < chunk; t += kLanes * kWarps) {
+    sSy[t] = j0 + t < NY ? sycol[j0 + t] : 0.f;
+    sMy[t] = j0 + t < NY ? myb[j0 + t] : 0.f;
+  }
+  __syncthreads();
+  if (i >= NX || k0 >= NZ) return;  // the whole warp: both warp-uniform
+  const bool kin = k < NZ;
   const int64_t plane = (int64_t)NY * NZ;
   const float* xi_pl = x + (int64_t)i * plane;
   const float mxi = mx2[i], sxi = sx2d[i];
-
-  for (int t = tid; t < H * W; t += kTK * kTR) {
-    const int jj = j0 - band + t / W, kk = k0 - band + t % W;
-    float v = 0.f;
-    if (jj >= 0 && jj < NY && kk >= 0 && kk < NZ) {
-      const int64_t o = (int64_t)jj * NZ + kk;
-      v = xi_pl[o] * (mxi * s23m[o]);
+  float kz[D];                       // KtzT[k - BAND + d, k]
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const int kk = k - BAND + d;
+    kz[d] = (kin && kk >= 0 && kk < NZ) ? KtzT[(int64_t)kk * NZ + k] : 0.f;
+  }
+  // The z halo: lanes < BAND also load column k0 - BAND + lane, lanes >=
+  // 32 - BAND column k0 + BAND + lane (2 BAND <= 32: one extra each).
+  int hk = -1, hpos = -1;
+  if (lane < BAND) {
+    hk = k0 - BAND + lane;
+    hpos = lane;
+  } else if (lane >= kLanes - BAND) {
+    hk = k0 + BAND + lane;
+    hpos = 2 * BAND + lane;
+  }
+  const bool hin = hk >= 0 && hk < NZ;
+  const float mzk = kin ? mzrow[k] : 0.f;
+  // Each lane's columns; a row adds a 32-bit in-plane offset (NY NZ < 2^31).
+  const float* xk = xi_pl + k;
+  const float* sk = s23m + k;
+  const float* xh = xi_pl + (hin ? hk : 0);
+  const float* sh = s23m + (hin ? hk : 0);
+  const float* tk = t1 + (int64_t)i * plane + k;
+  const float* rk = RESIDUAL ? r + (int64_t)i * plane + k : nullptr;
+  float* ok = out + (int64_t)i * plane + k;
+  // Far slot s holds the HBM operands: x of row jn (for its arrival) and
+  // t1', r of row jn - BAND (its epilogue); near slot s % kNear the s23m
+  // of row jn and the halo column's x and s23m. Zero outside the lattice,
+  // the chunk and the march.
+  static_assert(U % kNear == 0, "near slots rotate within the unroll");
+  const int jn0 = j0 - BAND, jn1 = j1 + BAND, jend = min(jn1, NY);
+  float px[U], pt[U], pr[U], ps[kNear], phx[kNear], phs[kNear];
+  auto fetch_far = [&](int s, int jn) {
+    const int o = jn * NZ;
+    px[s] = jn >= 0 && jn < jend && kin ? xk[o] : 0.f;
+    const int je = jn - BAND;
+    const bool epi = kin && je >= j0 && je < j1;
+    pt[s] = epi ? tk[o - BAND * NZ] : 0.f;
+    pr[s] = RESIDUAL && epi ? rk[o - BAND * NZ] : 0.f;
+  };
+  auto fetch_near = [&](int q, int jn) {
+    const bool row = jn >= 0 && jn < jend;
+    const int o = jn * NZ;
+    ps[q] = row && kin ? sk[o] : 0.f;
+    phx[q] = row && hin ? xh[o] : 0.f;
+    phs[q] = row && hin ? sh[o] : 0.f;
+  };
+#pragma unroll
+  for (int s = 0; s < U; ++s) fetch_far(s, jn0 + s);
+#pragma unroll
+  for (int q = 0; q < kNear; ++q) fetch_near(q, jn0 + q);
+  float ring[D];   // ring[d] = w^[j - BAND + d, k] when row j is summed
+#pragma unroll
+  for (int d = 0; d < D; ++d) ring[d] = 0.f;
+  int slot = 0;    // the ring row of the arriving row jn
+  for (int jb = jn0; jb < jn1; jb += U) {
+#pragma unroll
+    for (int s = 0; s < U; ++s) {
+      const int jn = jb + s;
+      if (jn >= jn1) break;
+      // Row jn arrives: w^ = x * (mx_i * s23m).
+      const int q = s % kNear;
+      const float xv = px[s], sv = ps[q];
+      const float wv = xv * (mxi * sv);
+      const float hw = phx[q] * (mxi * phs[q]);
+      const float tv = pt[s], rv = pr[s];
+      fetch_far(s, jn + U);
+      fetch_near(q, jn + kNear);
+      sW[slot * W + BAND + lane] = wv;
+      if (hpos >= 0) sW[slot * W + hpos] = hw;
+      sX[slot * kLanes + lane] = xv;
+      sS[slot * kLanes + lane] = sv;
+#pragma unroll
+      for (int d = 0; d + 1 < D; ++d) ring[d] = ring[d + 1];
+      ring[D - 1] = wv;
+      __syncwarp();
+      const int j = jn - BAND;       // the row whose window is complete
+      const int sj = slot >= BAND ? slot - BAND : slot + BAND + 1;
+      if (++slot == D) slot = 0;
+      if (j < j0) continue;
+      const float t2 = band_dot<BAND>(sKy + (j - j0) * DP, ring);
+      const float* srow = sW + sj * W + lane;
+      float t3 = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) t3 = fmaf(srow[d], kz[d], t3);
+      const float xj = sX[sj * kLanes + lane];
+      const float sj23 = sS[sj * kLanes + lane];
+      if (BAND == 0) __syncwarp();   // the next row reuses the only slot
+      if (!kin) continue;
+      const float what = ring[BAND];
+      float acc = sSy[j - j0] * tv + sxi * (t2 + t3);
+      if (sigma != 0.f) acc = acc + (sigma * sxi) * what;
+      if (GRID) acc = grid_corrections(acc, sxi, cy, cz, i, j, k, NY, NZ);
+      const float y = acc * (sxi * sj23);
+      const float av = xj * (1.f - mxi * (sMy[j - j0] * mzk)) + y * mxi;
+      ok[j * NZ] = RESIDUAL ? rv - av : av;
     }
-    sw[t] = v;
-  }
-  for (int t = tid; t < D * kRows; t += kTK * kTR) {
-    const int d = t / kRows, rj = t % kRows;
-    const int j = j0 + rj, jj = j - band + d;
-    sKy[t] = (j < NY && jj >= 0 && jj < NY) ? Kty[(int64_t)j * NY + jj] : 0.f;
-  }
-  for (int t = tid; t < D * kTK; t += kTK * kTR) {
-    const int d = t / kTK, kc = k0 + t % kTK, kk = kc - band + d;
-    sKz[t] = (kc < NZ && kk >= 0 && kk < NZ) ? KtzT[(int64_t)kk * NZ + kc] : 0.f;
-  }
-  __syncthreads();
-  if (k >= NZ) return;
-  for (int q = 0; q < kRPT; ++q) {
-    const int rj = ty + q * kTR;
-    const int j = j0 + rj;
-    if (j >= NY) break;
-    float t2 = 0.f, t3 = 0.f;
-    for (int d = 0; d < D; ++d)
-      t2 = fmaf(sKy[d * kRows + rj], sw[(rj + d) * W + tx + band], t2);
-    const float* srow = sw + (rj + band) * W + tx;
-    for (int d = 0; d < D; ++d)
-      t3 = fmaf(srow[d], sKz[d * kTK + tx], t3);
-
-    const int64_t o = (int64_t)j * NZ + k;
-    const int64_t idx = (int64_t)i * plane + o;
-    const float xv = xi_pl[o];
-    const float s = s23m[o];
-    const float what = srow[band];
-    float acc = sycol[j] * t1[idx] + sxi * (t2 + t3);
-    if (sigma != 0.f) acc = acc + (sigma * sxi) * what;
-    if (GRID) acc = grid_corrections(acc, sxi, cy, cz, i, j, k, NY, NZ);
-    const float y = acc * (sxi * s);
-    const float av = xv * (1.f - mxi * (myb[j] * mzrow[k])) + y * mxi;
-    out[idx] = RESIDUAL ? r[idx] - av : av;
   }
 }
 
@@ -374,6 +563,127 @@ inline size_t t23_smem(int band) {
                           (2 * band + 1) * (kRows + kTK));
 }
 
+// Calls fn(std::integral_constant<int, BAND>) for band in 0..kMaxBand, each
+// band its own instantiation; any other band is cudaErrorInvalidValue.
+template <int B = 0, class Fn>
+int with_band(int band, Fn&& fn) {
+  if constexpr (B > kMaxBand) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (band == B) return fn(std::integral_constant<int, B>{});
+    return with_band<B + 1>(band, fn);
+  }
+}
+
+// The current device and its SM count, read from the runtime once per
+// device.
+struct Card {
+  int dev, sms;
+};
+inline Card current_card() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> sms[kMaxDevices];
+  Card c{0, 0};
+  cudaGetDevice(&c.dev);
+  if (c.dev >= 0 && c.dev < kMaxDevices) c.sms = sms[c.dev].load();
+  if (c.sms == 0) {
+    cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, c.dev);
+    if (c.dev >= 0 && c.dev < kMaxDevices) sms[c.dev].store(c.sms);
+  }
+  return c;
+}
+
+// The chunk a marching block covers along an axis of n planes, when one
+// chunk layer of the grid has `layer` blocks, on a card of `sms` SMs. A
+// short chunk pays its 2P-plane halo over fewer outputs, but a lattice
+// too small to give every SM a block leaves the card idle and each
+// thread's march one long dependent chain: on the H100 the 253^3 lattice
+// measured best at 64 planes, 127^3 at 32, 64^3 at 8 or 4, 43^3 at 4 or
+// 2 and 22^3 at 2.
+inline int march_chunk(int n, int layer, int sms) {
+  auto blocks = [&](int c) { return (int64_t)layer * ((n + c - 1) / c); };
+  if (blocks(kLongChunk) >= 4 * sms) return kLongChunk;
+  int c = kShortChunk;
+  while (c > kMinChunk && blocks(c) < sms) c /= 2;
+  return c;
+}
+
+// Warps of a block along z: the most, up to kWarps, that divide a row's
+// warps evenly, so a block reads whole contiguous rows and none of its
+// warps lies wholly past the lattice (129 columns take 1, not 8 warps).
+inline int march_kw(int NZ) {
+  const int row_warps = (NZ + kLanes - 1) / kLanes;
+  int kw = kWarps;
+  while (kw > 1 && row_warps % kw != 0) kw /= 2;
+  return kw;
+}
+
+inline dim3 march_grid(int NZ, int across, int n, int chunk, int kw) {
+  const int rows = kWarps / kw;
+  return dim3((unsigned)((NZ + kw * kLanes - 1) / (kw * kLanes)),
+              (unsigned)((across + rows - 1) / rows),
+              (unsigned)((n + chunk - 1) / chunk));
+}
+
+// Dynamic shared memory above the 48 KB default needs an opt-in per kernel
+// and device; `granted` keeps a bit per device already opted in to
+// `bytes`, so a launch makes no runtime call for it after the first.
+template <class Kernel>
+int allow_smem(Kernel kern, size_t bytes, int dev,
+               std::atomic<uint64_t>& granted) {
+  if (bytes <= 48 * 1024) return 0;
+  const uint64_t bit = dev >= 0 && dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit != 0 && (granted.load() & bit) != 0) return 0;
+  const int rc = (int)cudaFuncSetAttribute(
+      (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (rc == 0) granted.fetch_or(bit);
+  return rc;
+}
+
+// kron_t1_m's shared memory (the chunk's Ktx band) stays under the default.
+static_assert(sizeof(float) * kLongChunk * band_pad(kMaxBand) <= 48 * 1024,
+              "kron_t1_m needs no shared-memory opt-in");
+
+int launch_t1_m(const float* x, const float* myb, const float* Ktx,
+                const float* sxzm, float* out, int NX, int NY, int NZ,
+                int band, int chunk, int kw, cudaStream_t stream) {
+  return with_band(band, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    const size_t smem = sizeof(float) * chunk * band_pad(B);
+    kron_t1_m<B><<<march_grid(NZ, NY, NX, chunk, kw), dim3(kLanes, kWarps),
+                   smem, stream>>>(x, myb, Ktx, sxzm, out, NX, NY, NZ, chunk,
+                                   kw);
+    return (int)cudaGetLastError();
+  });
+}
+
+int launch_t23_m(const float* x, const float* mx2, const float* t1,
+                 const float* Kty, const float* KtzT, const float* sx2d,
+                 const float* sycol, const float* s23m, const float* myb,
+                 const float* mzrow, const float* cy, const float* cz,
+                 const float* r, float* out, int NX, int NY, int NZ,
+                 int band, int chunk, int kw, float sigma, int dev,
+                 cudaStream_t stream) {
+  const bool grid = cy != nullptr || cz != nullptr;
+  return with_band(band, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    auto kern = r == nullptr
+        ? (grid ? kron_t23_m<B, false, true> : kron_t23_m<B, false, false>)
+        : (grid ? kron_t23_m<B, true, true> : kron_t23_m<B, true, false>);
+    // One opt-in per variant and device, for the longest chunk.
+    static std::atomic<uint64_t> granted[2][2];
+    if (int rc = allow_smem(kern, t23_m_smem(B, kLongChunk), dev,
+                            granted[r != nullptr][grid]))
+      return rc;
+    const size_t smem = t23_m_smem(B, chunk);
+    kern<<<march_grid(NZ, NX, NY, chunk, kw), dim3(kLanes, kWarps), smem,
+           stream>>>(x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow,
+                     cy, cz, r, out, NX, NY, NZ, chunk, kw, sigma);
+    return (int)cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -383,12 +693,11 @@ int kron_max_band() { return kMaxBand; }
 int kron_t1_m_launch(const float* x, const float* myb, const float* Ktx,
                      const float* sxzm, float* out, int NX, int NY, int NZ,
                      int band, void* stream) {
-  if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((kRows + 2 * band) * kTK + (2 * band + 1) * kRows);
-  kron_t1_m<<<tile_grid(NZ, NX, NY), dim3(kTK, kTR), smem,
-              (cudaStream_t)stream>>>(x, myb, Ktx, sxzm, out, NX, NY, NZ, band);
-  return (int)cudaGetLastError();
+  const int kw = march_kw(NZ);
+  const dim3 layer = march_grid(NZ, NY, 1, 1, kw);
+  return launch_t1_m(x, myb, Ktx, sxzm, out, NX, NY, NZ, band,
+                     march_chunk(NX, layer.x * layer.y, current_card().sms),
+                     kw, (cudaStream_t)stream);
 }
 
 // r == nullptr: out = A x (kernel #2); otherwise out = r - A x (kernel #3).
@@ -399,16 +708,13 @@ int kron_t23_m_launch(const float* x, const float* mx2, const float* t1,
                       const float* mzrow, const float* cy, const float* cz,
                       const float* r, float* out, int NX, int NY, int NZ,
                       int band, float sigma, void* stream) {
-  if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
-  const bool grid = cy != nullptr || cz != nullptr;
-  auto kern = r == nullptr
-      ? (grid ? kron_t23_m<false, true> : kron_t23_m<false, false>)
-      : (grid ? kron_t23_m<true, true> : kron_t23_m<true, false>);
-  kern<<<tile_grid(NZ, NY, NX), dim3(kTK, kTR), t23_smem(band),
-         (cudaStream_t)stream>>>(x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m,
-                                 myb, mzrow, cy, cz, r, out, NX, NY, NZ, band,
-                                 sigma);
-  return (int)cudaGetLastError();
+  const int kw = march_kw(NZ);
+  const dim3 layer = march_grid(NZ, NX, 1, 1, kw);
+  const Card card = current_card();
+  return launch_t23_m(x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow,
+                      cy, cz, r, out, NX, NY, NZ, band,
+                      march_chunk(NY, layer.x * layer.y, card.sms), kw, sigma,
+                      card.dev, (cudaStream_t)stream);
 }
 
 int kron_t1_launch(const float* x, const uint8_t* bc, const float* Ktx,

@@ -39,6 +39,7 @@ so a run can show that its main path went through the kernels.
 Not ported yet: ``precision="high"`` (bf16x3, ROADMAP.md Queue 1 item 1).
 """
 
+import contextlib
 import ctypes
 from pathlib import Path
 
@@ -59,9 +60,11 @@ LAUNCHES = {"t1_m": 0, "t23_m": 0, "t23_res_m": 0, "t1": 0, "t23": 0,
             "t23_res": 0, "t23_cheb": 0, "t23_grid": 0, "t23_grid_res": 0,
             "t23_grid_m": 0, "t23_grid_res_m": 0}
 
-# The loaded library and the compiler's output of the build that made it.
+# The loaded library, the compiler's output of the build that made it and
+# the largest band its kernels take (read from the library once).
 _lib = None
 BUILD_LOG = ""
+_MAX_BAND = None
 
 def _np64(a):
     if isinstance(a, torch.Tensor):
@@ -300,7 +303,7 @@ def load_kernels():
     Raises RuntimeError when there is no CUDA device, no ``nvcc`` or the
     build fails; never returns a stand-in.
     """
-    global _lib, BUILD_LOG
+    global _lib, BUILD_LOG, _MAX_BAND
     if _lib is not None:
         return _lib
     lib, BUILD_LOG = build_and_load(_SRC, "kron_blocked", _find_nvcc)
@@ -318,6 +321,7 @@ def load_kernels():
     lib.kron_t23_cheb_launch.restype = ci
     lib.kron_max_band.argtypes = []
     lib.kron_max_band.restype = ci
+    _MAX_BAND = lib.kron_max_band()
     _lib = lib
     return lib
 
@@ -351,11 +355,19 @@ def _check_operands(x3, m, bc3=None):
 
 def _kernels_for(band):
     lib = load_kernels()
-    if not 0 <= band <= lib.kron_max_band():
+    if not 0 <= band <= _MAX_BAND:
         raise ValueError(
             f"band {band} exceeds the kernels' tiles (at most "
-            f"{lib.kron_max_band()}, i.e. degree P <= {lib.kron_max_band()})")
+            f"{_MAX_BAND}, i.e. degree P <= {_MAX_BAND})")
     return lib
+
+
+def _on_device(x3):
+    """The device context of a launch on ``x3``: none when its device is
+    already the current one."""
+    if x3.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x3.device)
 
 
 def _out(out, x3):
@@ -407,10 +419,11 @@ def kron_t1_m(x3, m, out=None):
     (NX, NY, NZ), band = _check_operands(x3, m)
     lib = _kernels_for(band)
     out = _out(out, x3)
-    with torch.cuda.device(x3.device):
+    with _on_device(x3):
         rc = lib.kron_t1_m_launch(
-            _ptr(x3), _ptr(m["myb"]), _ptr(m["Ktx"]), _ptr(m["sxzm"]),
-            _ptr(out), NX, NY, NZ, band, stream_of(x3))
+            x3.data_ptr(), m["myb"].data_ptr(), m["Ktx"].data_ptr(),
+            m["sxzm"].data_ptr(), out.data_ptr(), NX, NY, NZ, band,
+            stream_of(x3))
     if rc != 0:
         raise RuntimeError(f"kron_t1_m launch failed: CUDA error {rc}")
     LAUNCHES["t1_m"] += 1
@@ -428,13 +441,13 @@ def kron_t23_m(x3, t1, m, sigma=0.0, cy=None, cz=None, r3=None, out=None):
     _check_t23_extras(x3, t1, r3, cy, cz)
     lib = _kernels_for(band)
     out = _out(out, x3)
-    with torch.cuda.device(x3.device):
+    with _on_device(x3):
         rc = lib.kron_t23_m_launch(
-            _ptr(x3), _ptr(m["mx2"]), _ptr(t1), _ptr(m["Kty"]),
-            _ptr(m["KtzT"]), _ptr(m["sx2d"]), _ptr(m["sycol"]),
-            _ptr(m["s23m"]), _ptr(m["myb"]), _ptr(m["mzrow"]), _opt(cy),
-            _opt(cz), _opt(r3), _ptr(out), NX, NY, NZ, band, float(sigma),
-            stream_of(x3))
+            x3.data_ptr(), m["mx2"].data_ptr(), t1.data_ptr(),
+            m["Kty"].data_ptr(), m["KtzT"].data_ptr(), m["sx2d"].data_ptr(),
+            m["sycol"].data_ptr(), m["s23m"].data_ptr(), m["myb"].data_ptr(),
+            m["mzrow"].data_ptr(), _opt(cy), _opt(cz), _opt(r3),
+            out.data_ptr(), NX, NY, NZ, band, float(sigma), stream_of(x3))
     name = _t23_name("_m", cy, cz, r3)
     if rc != 0:
         raise RuntimeError(f"kron_{name} launch failed: CUDA error {rc}")

@@ -18,6 +18,11 @@ from pmg_dolfinx_tpu_torch.ops.kron import axis_stiffness_mass  # noqa: E402
 from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG  # noqa: E402
 
 NEEDS = [(True, True), (True, False), (False, True)]
+# Kernel #9 at awkward shapes: extents off the 32-lane and march-chunk
+# grids, one axis no longer than 2 band + 1, bands 1, 3, 6 and 16.
+AWKWARD = [((7, 3, 9), 1), ((37, 70, 5), 3), ((40, 13, 33), 6),
+           ((20, 45, 97), 16)]
+MIXED = ((True, False), (False, True), (True, True))
 
 
 @pytest.fixture
@@ -109,3 +114,49 @@ def test_grid_pmg_on_cuda_matches_cpu(cuda_device):
     keep = rel_h > 5e-3
     assert np.max(np.abs(rel_c[keep] - rel_h[keep]) / rel_h[keep]) <= 5e-4
     assert tkb.LAUNCHES["t23_grid_m"] > before
+
+
+def _banded(shape, band, device, seed):
+    """One shard's operands with random symmetric banded ``K_a``, positive
+    masses and mixed Dirichlet faces: the lattice, mats, kernel 1's
+    output, both corrections and a residual rhs."""
+    rng = np.random.default_rng(seed)
+    Ks, fm = [], []
+    for n, (lo, hi) in zip(shape, MIXED):
+        A = rng.standard_normal((n, n))
+        i, j = np.indices((n, n))
+        A[np.abs(i - j) > band] = 0.0
+        Ks.append(A + A.T)
+        m = np.ones(n)
+        m[0], m[-1] = (0.0 if lo else 1.0), (0.0 if hi else 1.0)
+        fm.append(m)
+    ms = [rng.uniform(0.5, 2.0, n) for n in shape]
+    m = tkb.symmetrized_mats(Ks, ms, torch.float32, fm, band=band,
+                             device=device)
+    f32 = lambda s: torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                 device=device)
+    x = f32(shape)
+    return (x, m, tkb.plain_t1_m(x, m), f32((shape[0], 2, shape[2])),
+            f32((shape[0], shape[1], 2)), f32(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", NEEDS)
+@pytest.mark.parametrize("shape,band", AWKWARD)
+def test_grid_kernel_9_awkward_shapes(cuda_device, shape, band, need):
+    """#9 with ``cy`` only, ``cz`` only and both against
+    `plain_t23_grid_m`, apply and fused residual, both sigmas: <= 1e-5
+    relative max-norm; each launch is counted once."""
+    x, m, t1, cy, cz, r = _banded(shape, band, cuda_device, sum(shape))
+    cy = cy if need[0] else None
+    cz = cz if need[1] else None
+    before = dict(tkb.LAUNCHES)
+    for sigma in (0.0, 0.5):
+        for rr in (None, r):
+            ref = tkb.plain_t23_grid_m(x, t1, m, sigma, cy, cz)
+            if rr is not None:
+                ref = rr - ref
+            got = tkb.kron_t23_grid_m(x, t1, m, sigma, cy, cz, r3=rr)
+            assert _rel_max(got, ref) <= 1e-5, (sigma, rr is None)
+    for k in ("t23_grid_m", "t23_grid_res_m"):
+        assert tkb.LAUNCHES[k] == before[k] + 2

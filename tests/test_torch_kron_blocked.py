@@ -8,8 +8,11 @@
 - The setup arrays equal the JAX ones bit for bit; the band check
   refuses a matrix with an entry outside the band.
 - On the card, each CUDA kernel against its plain version (marked
-  ``cuda``; skipped without a GPU). That test needs no JAX, so on a GPU
-  machine without JAX it runs as
+  ``cuda``; skipped without a GPU), also kernels #1-#3 at awkward
+  shapes and bands (extents off the 32-lane and march-chunk grids, an
+  axis no longer than the band's 2P+1, bands 1, 3, 6 and 16, mixed
+  faces). Those tests need no JAX, so on a GPU machine without JAX they
+  run as
   ``python -m pytest --noconftest -m cuda tests/test_torch_kron_blocked.py``.
 """
 
@@ -199,3 +202,78 @@ def test_cuda_kernels_match_plain(cuda_device, faces, sigma):
     assert tkb.LAUNCHES["t23_res_m"] == before["t23_res_m"] + 1
     with pytest.raises(TypeError, match="float32"):
         tkb.blocked_kron_apply(x3.double(), None, mats)
+
+
+# Kernels #1-#3 at shapes the marching kernels must get right: extents
+# that are not multiples of 32 (lanes) or of the march chunk, one axis no
+# longer than 2 band + 1, and bands 1, 3, 6 and 16.
+AWKWARD = [((7, 3, 9), 1), ((37, 130, 5), 3), ((70, 13, 33), 6),
+           ((130, 70, 40), 6), ((20, 45, 97), 16)]
+
+
+def _banded_mats(shape, band, faces, device, seed):
+    """Random symmetric banded ``K_a``, positive masses and the separable
+    face masks of ``faces``: the kernels' operands for any band."""
+    rng = np.random.default_rng(seed)
+    Ks, fm = [], []
+    for n, (lo, hi) in zip(shape, faces):
+        A = rng.standard_normal((n, n))
+        i, j = np.indices((n, n))
+        A[np.abs(i - j) > band] = 0.0
+        Ks.append(A + A.T)
+        m = np.ones(n)
+        m[0], m[-1] = (0.0 if lo else 1.0), (0.0 if hi else 1.0)
+        fm.append(m)
+    ms = [rng.uniform(0.5, 2.0, n) for n in shape]
+    return rng, tkb.symmetrized_mats(Ks, ms, torch.float32, fm, band=band,
+                                     device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faces", [((True, True),) * 3, MIXED])
+@pytest.mark.parametrize("shape,band", AWKWARD)
+def test_cuda_marching_kernels_awkward_shapes(cuda_device, shape, band,
+                                              faces):
+    """`kron_t1_m` and `kron_t23_m` (apply and residual, both sigmas)
+    against `plain_t1_m` / `plain_t23_m`: <= 1e-5 relative max-norm; each
+    launch is counted once."""
+    rng, m = _banded_mats(shape, band, faces, cuda_device, sum(shape) + band)
+    f32 = lambda: torch.tensor(rng.standard_normal(shape),
+                               dtype=torch.float32, device=cuda_device)
+    x, r = f32(), f32()
+    before = dict(tkb.LAUNCHES)
+    t1 = tkb.kron_t1_m(x, m)
+    assert _rel(t1.cpu(), tkb.plain_t1_m(x, m).cpu()) <= 1e-5
+    for sigma in (0.0, 0.5):
+        for rr in (None, r):
+            got = tkb.kron_t23_m(x, t1, m, sigma, r3=rr)
+            ref = tkb.plain_t23_m(x, t1, m, sigma)
+            if rr is not None:
+                ref = rr - ref
+            assert _rel(got.cpu(), ref.cpu()) <= 1e-5, (sigma, rr is None)
+    assert tkb.LAUNCHES["t1_m"] == before["t1_m"] + 1
+    assert tkb.LAUNCHES["t23_m"] == before["t23_m"] + 2
+    assert tkb.LAUNCHES["t23_res_m"] == before["t23_res_m"] + 2
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_recheck_replaced_arrays(cuda_device):
+    """The wrappers check a mats dict's arrays on every launch: an array
+    replaced in the dict, or changed in place, after a launch is checked
+    again before the next one."""
+    _, m = _banded_mats((9, 10, 11), 3, ((True, True),) * 3, cuda_device, 3)
+    x = torch.zeros((9, 10, 11), device=cuda_device)
+    t1 = tkb.kron_t1_m(x, m)
+    tkb.kron_t23_m(x, t1, m)
+    kty = m["Kty"]
+    m["Kty"] = kty[:, :-1].contiguous()
+    with pytest.raises(ValueError, match="Kty has shape"):
+        tkb.kron_t23_m(x, t1, m)
+    m["Kty"] = kty
+    m["sxzm"] = m["sxzm"].double()
+    with pytest.raises(TypeError, match="sxzm must be torch.float32"):
+        tkb.kron_t1_m(x, m)
+    m["sxzm"] = m["sxzm"].float()
+    m["KtzT"].t_()
+    with pytest.raises(ValueError, match="KtzT must be contiguous"):
+        tkb.kron_t23_m(x, t1, m)
