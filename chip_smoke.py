@@ -28,14 +28,18 @@ failure; nothing is caught.
    events), kernel 1 beside its library call (one ``torch.matmul`` of
    ``Ktx`` with the pre-masked input, TF32 off), and the host
    microseconds per launch of the ``kron_t1_m`` / ``kron_t23_m``
-   wrappers (1000 calls enqueued). Then #1-#3 the same way at the
-   V-cycles' coarser shapes (127^3 and 64^3 at band 3, 43^3 and 22^3 at
-   band 1) and at the highest bands (121^3 at band 10, 129^3 at 16).
+   wrappers (the least of 5 rounds of 1000 calls enqueued). Then #1-#3
+   the same way at the V-cycles' coarser shapes (127^3 and 64^3 at band
+   3, 43^3 and 22^3 at band 1) and at the highest bands (121^3 at band
+   10, 129^3 at 16).
 3b. Full-bc kernel parity: kernels #4-#7 (``kron_t1``, ``kron_t23``
    apply/residual, ``kron_t23_cheb`` init and loop steps) on a
    non-separable Dirichlet marker (the box faces plus ~1% of the interior
    dofs), sigma in {0, 0.5}, at 127^3 and 253^3; relative max-norm error
-   <= 1e-5 against the plain torch versions, CUDA-event times in turns.
+   <= 1e-5 against the plain torch versions, CUDA-event times in turns;
+   #4 also as device time (CUDA graph) at each size, beside its library
+   call (one ``torch.matmul`` of ``Ktx`` with the pre-masked, pre-scaled
+   input, TF32 off) and the host us per launch of ``kron_t1``.
    At 253^3 the ops entry points ``blocked_kron_apply``,
    ``blocked_kron_residual`` and ``blocked_kron_cheb4`` run between a reset
    and a read of the launch counts: each of the four kernels must launch.
@@ -45,7 +49,11 @@ failure; nothing is caught.
    43^3 (p 3 <-> 1), restrict and prolong, seeded x; relative max-norm
    <= 1e-5. Kernel, plain (in turns) and library times (one
    ``torch.einsum("ax,by,cz,xyz->abc")`` call, never used by the port)
-   beside the bound.
+   beside the bound; each kernel alone as device time (CUDA graph) at all
+   four shapes beside its bound and library call (``torch.matmul`` /
+   ``torch.einsum("by,ayz,zc->abc")``), `transfer_yz`'s launch plan with
+   its shared memory and blocks per SM, and both wrappers' host us per
+   launch at 253^3 -> 127^3.
 3d. The whole-lattice Kronecker apply: ``PallasKronLaplacian(BoxMesh((21,
    21, 21)), 6)`` (2,048,383 dofs, the headline metric's size) between a
    reset and a read of the ``kron_fused`` count (one apply and the timed
@@ -72,7 +80,8 @@ failure; nothing is caught.
    unfused in turns; for each, the CUDA-event ms and the host ms to
    enqueue 10 cycles over 5 reps (who sets the pace), and a
    `torch.profiler` breakdown of one V-cycle with its idle share of the
-   back-to-back cycle.
+   back-to-back cycle and the ms of kernels #4, #7, #10, #11 in it; the
+   trajectory and FCG count beside the parent commit's as printed.
 4c. ``solve_refined`` on the fused hierarchy: the f64 relative residual
    falls below 1e-8 within 20 cycles (trajectory printed).
 4d. At nc=21 (2,048,383 dofs), fused: the W-cycle (``gamma=2``) ends
@@ -83,9 +92,11 @@ failure; nothing is caught.
    V-cycle launches each transfer kernel exactly 4 times (2 restrict, 2
    prolong); 10 stationary cycles within 1e-4 of phase 4's (alone) / 4b's
    (with the fused smoother) trajectory above 5e-3; FCG(V) within one
-   iteration of phase 4's count. V-cycle ms against 4b's in turns, and a
+   iteration of phase 4's count; #11 must launch in both and #4 with the
+   fused smoother. V-cycle ms against 4b's in turns, and a
    `torch.profiler` split of one cycle (transfer kernels against the
-   rest).
+   rest; busy ms, idle share, #4/#7/#10/#11 ms); the trajectories and
+   FCG counts beside the parent commit's as printed.
 5. In-card reference: the same problem at nc=21 with ``operator="kron"``
    (plain torch) and ``"kron_blocked"``, the second run with the first
    one's calibrated smoother bounds: residual trajectories agree to
@@ -146,8 +157,9 @@ failure; nothing is caught.
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
 PyTorch call computes the same function, and its bound: bytes over 3.35
-TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#3 and #9 add
-their device times as ``device_ms*`` keys) and, only when every phase
+TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#4, #9, #10 and
+#11 add their device times as ``device_ms*`` keys, the transfers per
+V-cycle shape beside ``bound_ms_by_shape``) and, only when every phase
 passed, the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -339,24 +351,28 @@ def graph_ms(fn, launches=20, reps=5):
     return sorted(times)[reps // 2]
 
 
-def host_us(fn, calls=1000):
+def host_us(fn, calls=1000, reps=5):
     """Host microseconds per call of ``fn`` (enqueue only: the card is
-    idle before the first call, and its finish is not timed)."""
+    idle before the first call, and its finish is not timed): the least
+    of ``reps`` rounds of ``calls`` calls, since a busy host only adds."""
     import torch
 
     fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return us
+    return best
 
 
-def ptxas_lines(log, keep):
+def ptxas_lines(log, keep, prefix="kron_t"):
     """The ``-Xptxas -v`` registers and spills of each kernel of ``log``
-    whose mangled name contains one of ``keep``, one line each."""
+    whose mangled name contains one of ``keep``, one line each, the name
+    from ``prefix`` on."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -365,7 +381,7 @@ def ptxas_lines(log, keep):
             if "spill" in line:
                 spill = line.strip()
             elif "registers" in line:
-                out.append(f"{name[name.find('kron_t'):][:32]}: "
+                out.append(f"{name[name.find(prefix):][:32]}: "
                            f"{line.split(': ', 1)[-1].strip()}; {spill}")
     return out
 
@@ -493,8 +509,8 @@ def kernel_parity(nc, P, kappa=2.0, host_cost=False):
     print(f"    {shape} device ms (CUDA graph of 20 launches): "
           + ", ".join(f"{k} {v:.4f}" for k, v in dev.items())
           + f"; t1_m library (torch.matmul, TF32 off) {lib_t1:.4f}"
-          + "".join(f"; host us per launch (1000 enqueued) {k} {v:.2f}"
-                    for k, v in host.items()))
+          + "".join(f"; host us per launch (least of 5 x 1000 enqueued) "
+                    f"{k} {v:.2f}" for k, v in host.items()))
     apply_k = cuda_ms(lambda: kb.blocked_kron_apply(x, bc, mats))
     apply_g = graph_ms(lambda: kb.blocked_kron_apply(x, bc, mats))
     apply_p = cuda_ms(lambda: kb.plain_apply_m(x, mats))
@@ -571,10 +587,13 @@ def full_bc_parity(nc, P, kappa=2.0, path=False):
     """Phase 3b at one size: the full-bc kernels #4-#7 on a non-separable
     marker (the box faces plus ~1% of the interior dofs) against their
     plain versions, sigma in {0, 0.5}; returns ({kernel: (max_abs_err, ms,
-    plain_ms)}, launches). With ``path``, the ops entry points
-    (`blocked_kron_apply`, `blocked_kron_residual`, `blocked_kron_cheb4`)
-    run as a user calls them, between a reset and a read of the launch
-    counts; ``launches`` is that read (else None)."""
+    plain_ms)}, launches, t1) with ``t1`` kernel #4's {"device_ms": from
+    `graph_ms`, "library_ms": one ``torch.matmul`` of ``Ktx`` with the
+    pre-masked, pre-scaled input (TF32 off, never used by the port),
+    "host_us": per launch, `host_us`}. With ``path``, the ops entry
+    points (`blocked_kron_apply`, `blocked_kron_residual`,
+    `blocked_kron_cheb4`) run as a user calls them, between a reset and a
+    read of the launch counts; ``launches`` is that read (else None)."""
     import numpy as np
     import torch
 
@@ -654,6 +673,21 @@ def full_bc_parity(nc, P, kappa=2.0, path=False):
         print(f"    {shape} P={P} {name}: kernel {ms_k:.4f} ms vs plain "
               f"{ms_p:.4f} ms (turns {[round(t, 4) for t in four]})")
         out[name][1:] = [ms_k, ms_p]
+    # Kernel #4 as device time, beside its library call and host cost.
+    y = torch.empty_like(x)
+    t1 = {"device_ms": graph_ms(lambda: kb.kron_t1(x, bc, mats, out=y))}
+    w = torch.where(bc, 0.0, x * mats["sxz"][:, None, :]).view(shape[0], -1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t1["library_ms"] = cuda_ms(lambda: torch.matmul(mats["Ktx"], w))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    t1["host_us"] = host_us(lambda: kb.kron_t1(x, bc, mats, out=y))
+    print(f"    {shape} P={P} t1 (#4): device {t1['device_ms']:.4f} ms (CUDA "
+          f"graph of 20 launches); library (torch.matmul, TF32 off) "
+          f"{t1['library_ms']:.4f} ms; host us per launch (least of 5 x "
+          f"1000 enqueued) {t1['host_us']:.2f}")
     launches = None
     if path:
         for k in kb.LAUNCHES:
@@ -673,7 +707,7 @@ def full_bc_parity(nc, P, kappa=2.0, path=False):
               kb.plain_residual(r, x, bc, mats))
         check("t23_cheb", "blocked_kron_cheb4 (2 iterations)", xc,
               kb.plain_cheb4(b, x, bc, mats, dinv, lmax, 2))
-    return {k: tuple(v) for k, v in out.items()}, launches
+    return {k: tuple(v) for k, v in out.items()}, launches, t1
 
 
 def turns(plain, kern):
@@ -699,7 +733,10 @@ def transfer_parity():
     """Phase 3c: kernels #10/#11 against their plain versions on the main
     path's two transfer pairs, both directions. Returns ({kernel:
     (max_abs_err, ms, plain_ms)}, {kernel: (bound_ms, by)}, {kernel:
-    library_ms}) measured on the fine restriction 253^3 -> 127^3."""
+    library_ms}) measured on the fine restriction 253^3 -> 127^3, and
+    {kernel: extra keys of the kernels line}: each kernel alone as device
+    time (`graph_ms`) at all four V-cycle shapes beside its bound and
+    library time there, and its host us per launch."""
     import numpy as np
     import torch
 
@@ -708,6 +745,8 @@ def transfer_parity():
 
     out, bounds, library = {}, {}, {}
     abs_err = {"transfer_x": 0.0, "transfer_yz": 0.0}
+    extra = {name: {"device_ms_by_shape": {}, "bound_ms_by_shape": {},
+                    "library_ms_by_shape": {}} for name in abs_err}
     for nc, pc, pf in ((42, 3, 6), (42, 1, 3)):
         I = torch.tensor(axis_interpolation_matrix(nc, pc, pf),
                          dtype=torch.float32, device="cuda")
@@ -753,21 +792,51 @@ def transfer_parity():
                   f"{ms_l:.4f} ms, bound {bx[0] + byz[0]:.4f} ms "
                   f"(transfer_x {bx[0]:.4f} {bx[1]}, transfer_yz "
                   f"{byz[0]:.4f} {byz[1]})")
+            # Each kernel alone as device time; its library yardstick is
+            # one call each.
+            key = f"{direction} {n}^3 -> {A}^3"
+            alone = {
+                "transfer_x": (lambda: tt.transfer_x(x3, Mx),
+                               lambda: torch.matmul(Mx, x3.view(n, -1)), bx),
+                "transfer_yz": (lambda: tt.transfer_yz(t_ref, My, MzT),
+                                lambda: torch.einsum("by,ayz,zc->abc", My,
+                                                     t_ref, MzT), byz)}
+            for name, (kern, lib, bound) in alone.items():
+                e = extra[name]
+                dev = e["device_ms_by_shape"][key] = graph_ms(kern)
+                e["bound_ms_by_shape"][key] = bound[0]
+                lib_ms = e["library_ms_by_shape"][key] = cuda_ms(
+                    lib, reps=5, warmup=1)
+                print(f"    {key} {name}: device {dev:.4f} ms (CUDA graph of "
+                      f"20 launches), {bound[0] / dev:.0%} of its bound "
+                      f"{bound[0]:.4f} ms ({bound[1]}); library "
+                      f"{lib_ms:.4f} ms")
+            if hasattr(tt, "yz_plan"):
+                W, RB = tt.yz_plan(A, n, A, A, max(
+                    tt.nonzero_width(My, 0), tt.nonzero_width(MzT, 1)),
+                    tt._sms(x3.device))
+                print(f"    {key} transfer_yz plan: ring width {W}, {RB} "
+                      f"rows per block of 256 threads, "
+                      f"{tt.yz_smem(W, RB, n, A)} B shared memory, "
+                      f"{tt.yz_blocks_per_sm(W, RB, n, A)} blocks per SM")
             if (pf, direction) != (6, "restrict"):
                 continue
+            for name, (kern, _, _) in alone.items():
+                extra[name]["device_ms"] = extra[name][
+                    "device_ms_by_shape"][key]
+                extra[name]["host_us_per_launch"] = host_us(kern)
+                print(f"    {key} {name}: host us per launch (least of 5 "
+                      f"x 1000 enqueued) "
+                      f"{extra[name]['host_us_per_launch']:.2f}")
             # Each kernel alone on the fine restriction, the V-cycle's
-            # largest transfer; its library yardstick is one call each.
-            for name, plain, kern, lib, bound in (
-                    ("transfer_x", lambda: tt.plain_transfer_x(x3, Mx),
-                     lambda: tt.transfer_x(x3, Mx),
-                     lambda: torch.matmul(Mx, x3.view(n, -1)), bx),
+            # largest transfer, in turns with its plain version.
+            for name, plain in (
+                    ("transfer_x", lambda: tt.plain_transfer_x(x3, Mx)),
                     ("transfer_yz", lambda: tt.plain_transfer_yz(t_ref, My,
-                                                                 MzT),
-                     lambda: tt.transfer_yz(t_ref, My, MzT),
-                     lambda: torch.einsum("by,ayz,zc->abc", My, t_ref, MzT),
-                     byz)):
+                                                                 MzT))):
+                kern, _, bound = alone[name]
                 ms_k, ms_p, four = turns(plain, kern)
-                library[name] = cuda_ms(lib, reps=5, warmup=1)
+                library[name] = extra[name]["library_ms_by_shape"][key]
                 out[name] = (abs_err[name], ms_k, ms_p)
                 bounds[name] = bound
                 print(f"    {tag} {name}: kernel {ms_k:.4f} ms vs plain "
@@ -776,7 +845,7 @@ def transfer_parity():
                       f"{bound[0]:.4f} ms ({bound[1]})")
     for name in abs_err:
         out[name] = (abs_err[name],) + out[name][1:]
-    return out, bounds, library
+    return out, bounds, library, extra
 
 
 def kron_fused_path():
@@ -1095,6 +1164,67 @@ def profile_busy(fn):
     return wall, sum(by_name.values()), len(kernels), by_name
 
 
+def fused_kernel_ms(by_name):
+    """{kernel: ms} of kernels #4, #7, #10 and #11 in a `profile_busy`
+    split, by the name the profiler gives each launch (template arguments
+    demangled, ``kron_t1_m<6, true>``, or mangled, ``kron_t1_mILi6ELb1E``;
+    the tiled #4 of earlier commits is ``kron_t1``)."""
+    import re
+
+    def kid(n):
+        if "transfer_yz" in n:
+            return "#11 transfer_yz"
+        if "transfer_x" in n:
+            return "#10 transfer_x"
+        if "kron_t23<2" in n or "kron_t23ILi2E" in n:
+            return "#7 t23_cheb"
+        if ("kron_t1_m" in n and ("true>" in n or "Lb1E" in n)) or re.search(
+                r"kron_t1(?!_m)", n):
+            return "#4 t1"
+        return None
+
+    out = {k: 0.0 for k in ("#4 t1", "#7 t23_cheb", "#10 transfer_x",
+                            "#11 transfer_yz")}
+    for name, ms in by_name.items():
+        k = kid(name)
+        if k is not None:
+            out[k] += ms
+    return out
+
+
+# The parent commit's printed trajectories (relative residuals of the 10
+# stationary cycles, as printed) and FCG(V) counts in phases 4b and 4e,
+# from the parent's package under this script on an NVIDIA H100 80GB HBM3
+# at 700 W: kernels that keep every sum's order repeat them digit for
+# digit.
+_FUSED_SMOOTHER_REL = ["8.7404e-02", "2.3993e-02", "9.4998e-03", "3.9849e-03",
+                       "1.8904e-03", "1.2124e-03", "1.0516e-03", "9.5400e-04",
+                       "9.0908e-04", "8.8960e-04"]
+PARENT_RUNS = {
+    "4b fuse_smoother": (_FUSED_SMOOTHER_REL, 5),
+    "4e fuse_transfers": (["8.7404e-02", "2.3993e-02", "9.4996e-03",
+                           "3.9843e-03", "1.8888e-03", "1.2122e-03",
+                           "1.0527e-03", "9.5441e-04", "9.1710e-04",
+                           "8.9045e-04"], 5),
+    "4e fuse_transfers + fuse_smoother": (_FUSED_SMOOTHER_REL, 5),
+}
+
+
+def against_parent(tag, rel, niter):
+    """Print whether ``rel`` and ``niter`` repeat the parent's as printed
+    (`PARENT_RUNS`); the phase's own gates decide pass or fail."""
+    ref = PARENT_RUNS.get(tag)
+    if ref is None:
+        print(f"    {tag}: no parent values to compare with")
+        return
+    same = [f"{v:.4e}" for v in rel] == ref[0] and niter == ref[1]
+    diff = max(abs(v - float(r)) / float(r) for v, r in zip(rel, ref[0]))
+    print(f"    {tag}: trajectory and FCG(V) "
+          f"{'equal' if same else 'differ from'} the parent's as printed "
+          f"(max rel diff from its 4 printed digits {diff:.1e}; parent "
+          f"FCG(V) {ref[1]})")
+
+
 PACKED_NC = (10, 10, 10)     # 61^3 at p=6: 226,981 dofs, the serving size
 PACKED_P = 6
 MIXED = ((True, False), (False, False), (True, True))
@@ -1411,6 +1541,7 @@ def fused_path(prob, hier, rel_ref, u_ref, niter_ref, cfg, launches):
           f"clock; unfused {niter_ref}); kernel launches on this path: {main}")
     if not (main["t1"] > 0 and main["t23_cheb"] > 0):
         raise AssertionError(f"the fused kernels were not launched: {main}")
+    against_parent("4b fuse_smoother", rel, niter)
     launches.update(t1=main["t1"], t23_cheb=main["t23_cheb"])
     if abs(niter - niter_ref) > 1:
         raise AssertionError(f"FCG counts differ: {niter} vs {niter_ref}")
@@ -1448,6 +1579,9 @@ def fused_path(prob, hier, rel_ref, u_ref, niter_ref, cfg, launches):
               f"{t_b2b:.3f} ms: idle {max(0.0, 1 - busy / t_b2b):.1%}")
         for kname, ms in top[:10]:
             print(f"      {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
+        print(f"    {tag} V-cycle, busy {busy:.4f} ms per cycle: "
+              + ", ".join(f"{k} {v:.4f} ms"
+                          for k, v in fused_kernel_ms(by_name).items()))
     return fused, u, rel
 
 
@@ -1459,6 +1593,7 @@ def fused_transfer_path(prob, hier, fused, rel_ref, rel_fused, niter_ref,
     Adds the transfer kernels' launches on this path to ``launches``."""
     import torch
 
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
     from pmg_dolfinx_tpu_torch.ops import transfer as tt
     from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
 
@@ -1469,8 +1604,9 @@ def fused_transfer_path(prob, hier, fused, rel_ref, rel_fused, niter_ref,
     for tag, smoother, ref_h, ref_rel in (
             ("fuse_transfers", False, hier, rel_ref),
             ("fuse_transfers + fuse_smoother", True, fused, rel_fused)):
-        for k in tt.LAUNCHES:
-            tt.LAUNCHES[k] = 0
+        for mod in (tt, kb):
+            for k in mod.LAUNCHES:
+                mod.LAUNCHES[k] = 0
         ts = time.perf_counter()
         h = PMGHierarchy(prob.mesh, operator="kron_blocked",
                          fuse_transfers=True, fuse_smoother=smoother, **cfg)
@@ -1489,6 +1625,12 @@ def fused_transfer_path(prob, hier, fused, rel_ref, rel_fused, niter_ref,
               f"{niter_ref}); launches {dict(tt.LAUNCHES)}")
         if not traj <= FUSED_TRAJ_RTOL:
             raise AssertionError(f"{tag}: trajectories differ: {traj}")
+        if not (tt.LAUNCHES["transfer_yz"] > 0
+                and (kb.LAUNCHES["t1"] > 0) == smoother):
+            raise AssertionError(f"{tag}: kernels #4/#11 launched "
+                                 f"{kb.LAUNCHES['t1']} / "
+                                 f"{tt.LAUNCHES['transfer_yz']} times")
+        against_parent(f"4e {tag}", rel, niter)
         if abs(niter - niter_ref) > 1:
             raise AssertionError(f"{tag}: FCG counts differ: {niter} vs "
                                  f"{niter_ref}")
@@ -1520,6 +1662,12 @@ def fused_transfer_path(prob, hier, fused, rel_ref, rel_fused, niter_ref,
               f"{busy - tms:.4f} ms")
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"      {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
+        print(f"    {tag} V-cycle, busy {busy:.4f} ms per cycle, idle "
+              f"{max(0.0, 1 - busy / wall):.1%} of the profiled cycle and "
+              f"{max(0.0, 1 - busy / ((t_f1 + t_f2) / 2)):.1%} of the "
+              "back-to-back one: " + ", ".join(
+                  f"{k} {v:.4f} ms"
+                  for k, v in fused_kernel_ms(by_name).items()))
         del h, u
     launches.update(path)
 
@@ -1935,7 +2083,7 @@ def main():
             # the marching kernels, then the largest count over all.
             for line in ptxas_lines(kb.BUILD_LOG, (
                     "kron_t1_mILi3E", "kron_t1_mILi6E", "kron_t23_mILi3E",
-                    "kron_t23_mILi6E", "kron_t1P", "kron_t23ILi")):
+                    "kron_t23_mILi6E", "kron_t23ILi")):
                 print("    " + line)
             regs = [int(line.split("Used ")[1].split()[0])
                     for line in kb.BUILD_LOG.splitlines() if "Used " in line]
@@ -1945,6 +2093,10 @@ def main():
             print(f"    kron_blocked.cu: {len(regs)} kernels, at most "
                   f"{max(regs, default=0)} registers; {len(spills)} with "
                   f"spills {spills[:2]}")
+            continue
+        if mod is tt:
+            for line in ptxas_lines(tt.BUILD_LOG, ("transfer",), "transfer"):
+                print("    " + line)
             continue
         for line in mod.BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line:
@@ -1965,17 +2117,18 @@ def main():
 
     t0 = phase("3b. full-bc kernels #4-#7 vs plain torch, non-separable "
                "marker")
-    full_bc_parity(21, 6)
+    _, _, t1_127 = full_bc_parity(21, 6)
     # 127^3 at band 3 is the shape of the main path's p=3 level.
-    band3, _ = full_bc_parity(42, 3)
-    full_bc, launches = full_bc_parity(42, 6, path=True)
+    band3, _, t1_band3 = full_bc_parity(42, 3)
+    full_bc, launches, t1_253 = full_bc_parity(42, 6, path=True)
+    library["t1"] = t1_253["library_ms"]
     main_shape.update({k: (max(v[0], band3[k][0]),) + v[1:]
                        for k, v in full_bc.items()})
     done(t0)
 
     t0 = phase("3c. transfer kernels #10/#11 vs plain torch: 253^3 <-> "
                "127^3 and 127^3 <-> 43^3")
-    res_t, bounds, lib_t = transfer_parity()
+    res_t, bounds, lib_t, extra_t = transfer_parity()
     main_shape.update(res_t)
     library.update(lib_t)
     done(t0)
@@ -2331,6 +2484,15 @@ def main():
                            "device_ms_by_shape": dev9_more}
     for name in ("t1_m", "t23_m"):
         extra[name]["host_us_per_launch"] = host[name]
+    # Kernel #4 (3b) and the transfers #10/#11 (3c, all four V-cycle
+    # shapes), as device time.
+    extra["t1"] = {
+        "device_ms": t1_253["device_ms"], "device_ms_127": t1_127["device_ms"],
+        "device_ms_by_shape": {"127^3 band 3": t1_band3["device_ms"]},
+        "bound_ms_by_shape": {"127^3 band 3": kernel_bound("t1", 127**3,
+                                                           3)[0]},
+        "host_us_per_launch": t1_253["host_us"]}
+    extra.update(extra_t)
     kernels = []
     for name in SOURCES:
         if name in bounds:       # measured with its own inputs (3c, 3d)

@@ -1,10 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for the blocked Kronecker-sum apply.
 //
 // Replaces the Pallas kernels of pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:
-//   kron_t1_m               <- _kernel_t1_m       (x-contraction, separable bc mask)
+//   kron_t1_m<B, false>     <- _kernel_t1_m       (x-contraction, separable bc mask)
 //   kron_t23_m<false>       <- _kernel_t23_m      (y/z-contractions + bc epilogue)
 //   kron_t23_m<true>        <- _kernel_t23_res_m  (the same, fused  r - A v)
-//   kron_t1                 <- _kernel_t1         (x-contraction, full bc array)
+//   kron_t1_m<B, true>      <- _kernel_t1         (x-contraction, full bc array)
 //   kron_t23<kApply>        <- _kernel_t23        (y/z-contractions, full bc array)
 //   kron_t23<kResidual>     <- _kernel_t23_res    (the same, fused  r - A v)
 //   kron_t23<kCheb>         <- _kernel_t23_cheb   (the same, fused Chebyshev-4 step)
@@ -21,7 +21,7 @@
 // The full-bc kernels take the Dirichlet marker as a byte lattice (a
 // torch.bool tensor is one byte per entry; no conversion to int32) and
 // the unmasked scale planes sxz = sx (x) sz, s23 = sy (x) sz:
-//   t1'      = Ktx-contraction of (where(bc, 0, x) * sxz)     [kron_t1]
+//   t1'      = Ktx-contraction of (where(bc, 0, x) * sxz)     [kernel #4]
 //   w^       = where(bc, 0, v) * s23 ; acc, y as above        [kron_t23]
 //   Av       = where(bc, v, y)
 //   kApply: out = Av ; kResidual: out = r - Av ;
@@ -48,16 +48,18 @@
 // (six reads, three writes) where the unfused smoother step moves the
 // pair's ~5 plus 10-15 passes of elementwise updates.
 //
-// Design of kron_t1_m and kron_t23_m (kernels #1-#3, #9): streaming
-// marches. A tile staged in shared memory (the full-bc kernels below)
-// costs two shared-memory loads per FMA and rereads its halo; these two
-// walk the lattice once instead, with the band's window in registers:
+// Design of kron_t1_m and kron_t23_m (kernels #1-#4, #9): streaming
+// marches. A tile staged in shared memory (the full-bc kernels #5-#8
+// below) costs two shared-memory loads per FMA and rereads its halo; these
+// two walk the lattice once instead, with the band's window in registers:
 //   kron_t1_m: a thread owns one (j, k) lane and marches along x over a
 //     chunk of planes, keeping the last 2P+1 scaled inputs w in a
 //     register ring; out[a] sums Ktx[a, a-P+d] w[a-P+d]. The chunk's band
 //     of Ktx is staged once in shared memory and read as warp-uniform
 //     float4 broadcasts. x is read once per chunk plus a 2P-plane halo;
-//     there is no barrier inside the march.
+//     there is no barrier inside the march. The mask is a template flag:
+//     kernel #1 scales by my_j sxzm, kernel #4 reads the bc byte of each
+//     entry beside x and zeroes a marked one (FULL), as the tiles did.
 //   kron_t23_m: a thread owns one (i, k) lane and marches along y inside
 //     x-plane i. The 2P+1 rows of w^ sit in a register ring for the
 //     y-contraction (Kty rows as uniform broadcasts, as above). Each warp
@@ -77,9 +79,8 @@
 // sums keep the order of the tiled kernels (fmaf over d ascending from 0,
 // zero terms outside the lattice), so the results are the same bits.
 //
-// Design of the full-bc kernels (#4-#8). A block owns a 32 (z) x 32 (x or
-// y) tile of outputs, 256 threads
-// of 32 x 8, each thread 4 outputs along the tile's second axis; z is
+// Design of the full-bc kernels #5-#8. A block owns a 32 (z) x 32 (y) tile
+// of outputs, 256 threads of 32 x 8, each thread 4 outputs along y; z is
 // fastest across a warp, so every global access coalesces. The block
 // stages its masked, scaled input tile WITH a halo of `band` planes in
 // shared memory, and the band of each 1D matrix its rows need, so the
@@ -124,7 +125,7 @@ namespace {
 constexpr int kTK = 32;           // tile extent along z (one warp)
 constexpr int kTR = 8;            // thread rows per block
 constexpr int kRPT = 4;           // outputs per thread along the tile rows
-constexpr int kRows = kTR * kRPT; // tile extent along x (kernel 1) / y (2)
+constexpr int kRows = kTR * kRPT; // tile extent along y
 constexpr int kMaxBand = 16;          // keeps kernel 2's tiles under 48 KB
 
 // The neighbour-shard corrections of a device-grid shard (see the head of
@@ -221,12 +222,14 @@ __host__ __device__ constexpr int t23_m_min_blocks(int band) {
   return 2 * (t23_m_smem(band, kLongChunk) + 1024) <= kSmemPerSM ? 2 : 1;
 }
 
-template <int BAND>
+// FULL = false: kernel #1, w = x * (my_j * sxzm) with the separable mask;
+// FULL = true: kernel #4, w = where(bc, 0, x) * sxz with the bc lattice.
+template <int BAND, bool FULL>
 __global__ void __launch_bounds__(kLanes * kWarps)
 kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
-          const float* __restrict__ Ktx, const float* __restrict__ sxzm,
-          float* __restrict__ out, int NX, int NY, int NZ, int chunk,
-          int kw) {
+          const uint8_t* __restrict__ bc, const float* __restrict__ Ktx,
+          const float* __restrict__ sxz, float* __restrict__ out, int NX,
+          int NY, int NZ, int chunk, int kw) {
   constexpr int D = 2 * BAND + 1, DP = band_pad(BAND), U = kAheadT1;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);   // [chunk][DP] Ktx band
@@ -239,18 +242,24 @@ kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
   if (j >= NY || k >= NZ) return;
   const int64_t plane = (int64_t)NY * NZ;
   const float* xl = x + (int64_t)j * NZ + k;
-  const float* sl = sxzm + k;
+  const uint8_t* bl = FULL ? bc + (int64_t)j * NZ + k : nullptr;
+  const float* sl = sxz + k;
   float* ol = out + (int64_t)j * NZ + k;
-  const float myj = myb[j];
-  // Plane a arrives as x[a, j, k] and sxzm[a, k] (zero outside the
-  // lattice and past the march); w[a] = x * (my_j * sxzm). out[a - BAND]
-  // is summed then.
+  const float myj = FULL ? 0.f : myb[j];
+  // Plane a arrives as x[a, j, k], sxz(m)[a, k] and (FULL) bc[a, j, k]
+  // (zero, resp. set, outside the lattice and past the march); w[a] is
+  // the tiled kernels' staged value: x * (my_j * sxzm), or where(bc, 0,
+  // x * sxz). out[a - BAND] is summed then.
   const int an0 = a0 - BAND, an1 = a1 + BAND, aend = min(an1, NX);
+  // The marker byte stays as loaded until its plane arrives: testing it
+  // here would wait on the load at every fetch.
   float px[U], ps[U];
+  unsigned pb[U];
   auto fetch = [&](int s, int a) {
     const bool in = a >= 0 && a < aend;
     px[s] = in ? xl[a * plane] : 0.f;
     ps[s] = in ? sl[(int64_t)a * NZ] : 0.f;
+    if (FULL) pb[s] = in ? bl[a * plane] : 1u;
   };
 #pragma unroll
   for (int s = 0; s < U; ++s) fetch(s, an0 + s);
@@ -262,7 +271,8 @@ kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
     for (int s = 0; s < U; ++s) {
       const int an = ab + s;
       if (an >= an1) break;
-      const float w = px[s] * (myj * ps[s]);
+      const float w = FULL ? (pb[s] != 0 ? 0.f : px[s] * ps[s])
+                           : px[s] * (myj * ps[s]);
       fetch(s, an + U);
 #pragma unroll
       for (int d = 0; d + 1 < D; ++d) ring[d] = ring[d + 1];
@@ -407,49 +417,6 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
       const float av = xj * (1.f - mxi * (sMy[j - j0] * mzk)) + y * mxi;
       ok[j * NZ] = RESIDUAL ? rv - av : av;
     }
-  }
-}
-
-// kron_t1_m with the full bc lattice: w = where(bc, 0, x) * sxz.
-__global__ void __launch_bounds__(kTK * kTR)
-kron_t1(const float* __restrict__ x, const uint8_t* __restrict__ bc,
-        const float* __restrict__ Ktx, const float* __restrict__ sxz,
-        float* __restrict__ out, int NX, int NY, int NZ, int band) {
-  extern __shared__ float smem[];
-  const int H = kRows + 2 * band;
-  const int D = 2 * band + 1;
-  float* sw = smem;                   // [H][kTK]  w = where(bc, 0, x) * sxz
-  float* sK = smem + H * kTK;         // [D][kRows] Ktx[a, a - band + d]
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTK + tx;
-  const int k0 = blockIdx.x * kTK, a0 = blockIdx.y * kRows, j = blockIdx.z;
-  const int k = k0 + tx;
-  const int64_t plane = (int64_t)NY * NZ;
-
-  for (int r = ty; r < H; r += kTR) {
-    const int a = a0 - band + r;
-    float v = 0.f;
-    if (a >= 0 && a < NX && k < NZ) {
-      const int64_t g = a * plane + (int64_t)j * NZ + k;
-      v = bc[g] ? 0.f : x[g] * sxz[(int64_t)a * NZ + k];
-    }
-    sw[r * kTK + tx] = v;
-  }
-  for (int t = tid; t < D * kRows; t += kTK * kTR) {
-    const int d = t / kRows, r = t % kRows;
-    const int a = a0 + r, xi = a - band + d;
-    sK[t] = (a < NX && xi >= 0 && xi < NX) ? Ktx[(int64_t)a * NX + xi] : 0.f;
-  }
-  __syncthreads();
-  if (k >= NZ) return;
-  for (int q = 0; q < kRPT; ++q) {
-    const int r = ty + q * kTR;
-    const int a = a0 + r;
-    if (a >= NX) break;
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d)
-      acc = fmaf(sK[d * kRows + r], sw[(r + d) * kTK + tx], acc);
-    out[a * plane + (int64_t)j * NZ + k] = acc;
   }
 }
 
@@ -645,15 +612,19 @@ int allow_smem(Kernel kern, size_t bytes, int dev,
 static_assert(sizeof(float) * kLongChunk * band_pad(kMaxBand) <= 48 * 1024,
               "kron_t1_m needs no shared-memory opt-in");
 
-int launch_t1_m(const float* x, const float* myb, const float* Ktx,
-                const float* sxzm, float* out, int NX, int NY, int NZ,
-                int band, int chunk, int kw, cudaStream_t stream) {
+template <bool FULL>
+int launch_t1_m(const float* x, const float* myb, const uint8_t* bc,
+                const float* Ktx, const float* sxz, float* out, int NX,
+                int NY, int NZ, int band, cudaStream_t stream) {
+  const int kw = march_kw(NZ);
+  const dim3 layer = march_grid(NZ, NY, 1, 1, kw);
+  const int chunk = march_chunk(NX, layer.x * layer.y, current_card().sms);
   return with_band(band, [&](auto b) {
     constexpr int B = decltype(b)::value;
     const size_t smem = sizeof(float) * chunk * band_pad(B);
-    kron_t1_m<B><<<march_grid(NZ, NY, NX, chunk, kw), dim3(kLanes, kWarps),
-                   smem, stream>>>(x, myb, Ktx, sxzm, out, NX, NY, NZ, chunk,
-                                   kw);
+    kron_t1_m<B, FULL><<<march_grid(NZ, NY, NX, chunk, kw),
+                         dim3(kLanes, kWarps), smem, stream>>>(
+        x, myb, bc, Ktx, sxz, out, NX, NY, NZ, chunk, kw);
     return (int)cudaGetLastError();
   });
 }
@@ -693,11 +664,8 @@ int kron_max_band() { return kMaxBand; }
 int kron_t1_m_launch(const float* x, const float* myb, const float* Ktx,
                      const float* sxzm, float* out, int NX, int NY, int NZ,
                      int band, void* stream) {
-  const int kw = march_kw(NZ);
-  const dim3 layer = march_grid(NZ, NY, 1, 1, kw);
-  return launch_t1_m(x, myb, Ktx, sxzm, out, NX, NY, NZ, band,
-                     march_chunk(NX, layer.x * layer.y, current_card().sms),
-                     kw, (cudaStream_t)stream);
+  return launch_t1_m<false>(x, myb, nullptr, Ktx, sxzm, out, NX, NY, NZ,
+                            band, (cudaStream_t)stream);
 }
 
 // r == nullptr: out = A x (kernel #2); otherwise out = r - A x (kernel #3).
@@ -720,12 +688,8 @@ int kron_t23_m_launch(const float* x, const float* mx2, const float* t1,
 int kron_t1_launch(const float* x, const uint8_t* bc, const float* Ktx,
                    const float* sxz, float* out, int NX, int NY, int NZ,
                    int band, void* stream) {
-  if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((kRows + 2 * band) * kTK + (2 * band + 1) * kRows);
-  kron_t1<<<tile_grid(NZ, NX, NY), dim3(kTK, kTR), smem,
-            (cudaStream_t)stream>>>(x, bc, Ktx, sxz, out, NX, NY, NZ, band);
-  return (int)cudaGetLastError();
+  return launch_t1_m<true>(x, nullptr, bc, Ktx, sxz, out, NX, NY, NZ, band,
+                           (cudaStream_t)stream);
 }
 
 // r == nullptr: out = A v (kernel #5); otherwise out = r - A v (kernel #6).

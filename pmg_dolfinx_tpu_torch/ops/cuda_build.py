@@ -10,6 +10,7 @@ of the checkout. Nothing here runs at import time, and nothing falls
 back: no device, no ``nvcc`` or a failed build raises RuntimeError.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -89,3 +90,11 @@ def ptr(t):
 def stream_of(t):
     """The current CUDA stream of ``t``'s device as a ctypes argument."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def on_device(t):
+    """The device context of a launch on ``t``: none when its device is
+    already the current one (a context costs a few microseconds a launch)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)

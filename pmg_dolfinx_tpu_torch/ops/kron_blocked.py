@@ -39,7 +39,6 @@ so a run can show that its main path went through the kernels.
 Not ported yet: ``precision="high"`` (bf16x3, ROADMAP.md Queue 1 item 1).
 """
 
-import contextlib
 import ctypes
 from pathlib import Path
 
@@ -49,6 +48,7 @@ import torch
 from .cuda_build import build_and_load
 from .cuda_build import check_operand as _check_lattice
 from .cuda_build import find_nvcc as _find_nvcc
+from .cuda_build import on_device as _on_device
 from .cuda_build import ptr as _ptr
 from .cuda_build import stream_of
 
@@ -362,14 +362,6 @@ def _kernels_for(band):
     return lib
 
 
-def _on_device(x3):
-    """The device context of a launch on ``x3``: none when its device is
-    already the current one."""
-    if x3.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(x3.device)
-
-
 def _out(out, x3):
     """A new output lattice like ``x3``, or the caller's ``out`` (checked;
     it must not alias an input)."""
@@ -464,10 +456,11 @@ def kron_t1(x3, bc3, m, out=None):
     (NX, NY, NZ), band = _check_operands(x3, m, bc3)
     lib = _kernels_for(band)
     out = _out(out, x3)
-    with torch.cuda.device(x3.device):
+    with _on_device(x3):
         rc = lib.kron_t1_launch(
-            _ptr(x3), _ptr(bc3), _ptr(m["Ktx"]), _ptr(m["sxz"]), _ptr(out),
-            NX, NY, NZ, band, stream_of(x3))
+            x3.data_ptr(), bc3.data_ptr(), m["Ktx"].data_ptr(),
+            m["sxz"].data_ptr(), out.data_ptr(), NX, NY, NZ, band,
+            stream_of(x3))
     if rc != 0:
         raise RuntimeError(f"kron_t1 launch failed: CUDA error {rc}")
     LAUNCHES["t1"] += 1

@@ -16,12 +16,15 @@ with ``(Mx, My, MzT)`` from `transfer_mats`: ``(Ix, Iy, Iz^T)`` to prolong
   of `csrc/transfer.cu` or raises (no fallback): `transfer_x` (#10,
   ``_kernel_tx``) writes ``t = Mx ._x x3``, the only intermediate that
   reaches device memory, and `transfer_yz` (#11, ``_kernel_tyz``) forms
-  ``My t_a MzT`` for each ``a``-slab from the ``t`` rows it stages in
-  shared memory.
+  ``My t_a MzT`` for each ``a``-slab, marching along y with the rows'
+  window in registers (no block barrier in the march), on the launch
+  plan `yz_plan` picks once per shape.
 - The kernels sum each row only over its nonzero range ``[lo, hi)``:
   `nonzero_ranges` finds it on the device, from the matrix itself, and
-  caches it on the matrix (recomputed only after an in-place write), so
-  the result is the dense product's for any matrix the caller passes.
+  caches it on the matrix with the widest range (`nonzero_width`, read
+  to the host once) and the lines' order by ``hi`` (recomputed only after
+  an in-place write), so the result is the dense product's for any
+  matrix the caller passes.
 - `plain_transfer` — the three einsums in the JAX package's x, y, z order
   (its emulation path); `plain_transfer_x` / `plain_transfer_yz` are the
   two kernels' halves of it.
@@ -42,7 +45,7 @@ import torch
 from .cuda_build import build_and_load
 from .cuda_build import check_operand as _check
 from .cuda_build import find_nvcc as _find_nvcc
-from .cuda_build import ptr as _ptr
+from .cuda_build import on_device as _on_device
 from .cuda_build import stream_of
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "transfer.cu"
@@ -72,12 +75,9 @@ def transfer_mats(I1s, direction, dtype=torch.float32):
     return tuple(M.contiguous() for M in mats)
 
 
-def nonzero_ranges(M, axis=0):
-    """``[lo, hi)`` of the nonzeros of each row (``axis=0``) or column
-    (``axis=1``) of the 2D ``M``, as a ``(2, n)`` int32 tensor on ``M``'s
-    device (``lo = hi = 0`` for an all-zero line). Computed on the device
-    without a host read, once per tensor: the result is cached on ``M``
-    with its version counter, so an in-place write recomputes it."""
+def _nz_lines(M, axis):
+    """``(ranges, width, order)`` of the rows (``axis=0``) or columns
+    (``axis=1``) of ``M``, cached on ``M`` with its version counter."""
     key = "_pmg_nz_rows" if axis == 0 else "_pmg_nz_cols"
     hit = getattr(M, key, None)
     if hit is not None and hit[0] == M._version:
@@ -89,8 +89,146 @@ def nonzero_ranges(M, axis=0):
     hi = torch.where(nz, idx + 1, 0).amax(dim=1)
     lo = torch.minimum(lo, hi)          # all-zero lines: [0, 0)
     ranges = torch.stack([lo, hi]).to(torch.int32).contiguous()
-    setattr(M, key, (M._version, ranges))
-    return ranges
+    width = int((hi - lo).max()) if hi.numel() else 0   # the one host read
+    order = torch.argsort(hi, stable=True).to(torch.int32).contiguous()
+    lines = (ranges, width, order)
+    setattr(M, key, (M._version, lines))
+    return lines
+
+
+def nonzero_ranges(M, axis=0):
+    """``[lo, hi)`` of the nonzeros of each row (``axis=0``) or column
+    (``axis=1``) of the 2D ``M``, as a ``(2, n)`` int32 tensor on ``M``'s
+    device (``lo = hi = 0`` for an all-zero line). Computed once per
+    tensor, with the widest range (`nonzero_width`, the one host read) and
+    the lines' stable order by ``hi``: all three are cached on ``M`` with
+    its version counter, so an in-place write recomputes them."""
+    return _nz_lines(M, axis)[0]
+
+
+def nonzero_width(M, axis=0):
+    """The widest ``hi - lo`` of `nonzero_ranges` ``(M, axis)``, an int
+    cached beside the ranges (no host read after the first call)."""
+    return _nz_lines(M, axis)[1]
+
+
+# The ring widths transfer_yz is compiled for (0: the runtime-width
+# variant, for any wider range), and its rows per block.
+YZ_WIDTHS = (4, 8, 12, 16)
+YZ_ROWS = (32, 16, 8, 4)
+_MAX_SMEM = 227 * 1024     # dynamic shared memory a block may use
+_PLANS = {}
+_SMS = {}
+
+
+def yz_smem(W, RB, NZ, C):
+    """Shared-memory bytes of a `transfer_yz` block (``csrc/transfer.cu``
+    ``yz_smem``): u rows, the MzT band, the rows' My coefficients, their
+    b / lo / hi and the columns' lo / length."""
+    return 4 * (RB * NZ + W * C + RB * W) + 4 * (3 * RB + 2 * C)
+
+
+def yz_plan(A, NZ, B, C, width, sms):
+    """The launch plan ``(W, RB)`` of `transfer_yz` for ``t`` of ``(A, .,
+    NZ)``, ``out`` of ``(A, B, C)``, widest nonzero range ``width`` on a
+    card of ``sms`` SMs: ``W`` the narrowest ring width of `YZ_WIDTHS`
+    that holds ``width`` (0 when none does), ``RB`` the most rows per
+    block (`YZ_ROWS`) whose shared memory fits and that still gives the
+    card three blocks for every two SMs (a block's rows share its
+    y-window; more rows, fewer halo rows read twice), else the fewest that
+    fit. Raises ValueError when no block's shared memory fits."""
+    key = (A, NZ, B, C, width, sms)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    W = next((w for w in YZ_WIDTHS if w >= width), 0)
+    fits = [rb for rb in YZ_ROWS if yz_smem(W, rb, NZ, C) <= _MAX_SMEM]
+    if not fits:
+        raise ValueError(f"a ({NZ} -> {C}) z-contraction does not fit the "
+                         "kernel's shared memory")
+    RB = next((rb for rb in fits if 2 * A * -(-B // rb) >= 3 * sms),
+              fits[-1])
+    plan = _PLANS[key] = (W, RB)
+    return plan
+
+
+def _yz_rows(My, W):
+    """`transfer_yz`'s row operands of ``My``, laid out once per ring width
+    ``W`` and cached on ``My`` with its version: ``(rows, coef)``, ``rows``
+    (3, B) int32 the rows in the stable order of their ranges' ends
+    (`nonzero_ranges`) with their ``lo`` and ``hi``, ``coef`` (B, W)
+    float32 ``My[b, hi - W + d]`` for ``hi - W + d >= lo``, else 0 (None
+    for ``W = 0``). Device ops only: no host read."""
+    hit = getattr(My, "_pmg_yz_rows", None)
+    if hit is not None and hit[0] == (My._version, W):
+        return hit[1]
+    ranges, _, order = _nz_lines(My, 0)
+    o = order.long()
+    lo, hi = ranges[0].long()[o], ranges[1].long()[o]
+    rows = torch.stack([o, lo, hi]).to(torch.int32).contiguous()
+    coef = None
+    if W:
+        y = hi[:, None] - W + torch.arange(W, device=My.device)
+        coef = torch.where(y >= lo[:, None], My[o[:, None], y.clamp(min=0)],
+                           0.0).to(torch.float32).contiguous()
+    My._pmg_yz_rows = ((My._version, W), (rows, coef))
+    return rows, coef
+
+
+def _yz_band(MzT, W):
+    """`transfer_yz`'s column band of ``MzT``, (W, C) float32 ``MzT[lo +
+    d, c]`` for ``d < hi - lo``, else 0 (None for ``W = 0``), laid out once
+    per ring width and cached on ``MzT`` with its version."""
+    if not W:
+        return None
+    hit = getattr(MzT, "_pmg_yz_band", None)
+    if hit is not None and hit[0] == (MzT._version, W):
+        return hit[1]
+    lo, hi = nonzero_ranges(MzT, 1).long()
+    z = lo[None, :] + torch.arange(W, device=MzT.device)[:, None]
+    c = torch.arange(MzT.shape[1], device=MzT.device)[None, :]
+    band = torch.where(z < hi[None, :],
+                       MzT[z.clamp(max=MzT.shape[0] - 1), c],
+                       0.0).to(torch.float32).contiguous()
+    MzT._pmg_yz_band = ((MzT._version, W), band)
+    return band
+
+
+def _yz_launch(t, My, MzT):
+    """The launch record of `transfer_yz` for ``t`` on ``(My, MzT)``: ``(W,
+    RB)`` from `yz_plan` and the device pointers of the laid-out operands
+    (rows, coefficients, column ranges, band). Cached on ``My`` (the
+    V-cycle keeps one ``MzT`` per ``My``) with the operands it points to,
+    and rebuilt when ``MzT``, either version, ``A`` or the device changes,
+    so a launch reads one attribute."""
+    key = (My._version, MzT._version, t.shape[0], t.device.index)
+    hit = getattr(My, "_pmg_yz_launch", None)
+    if hit is not None and hit[0] is MzT and hit[1] == key:
+        return hit[2]
+    A, NZ, B, C = t.shape[0], t.shape[2], My.shape[0], MzT.shape[1]
+    W, RB = yz_plan(A, NZ, B, C, max(nonzero_width(My, 0),
+                                     nonzero_width(MzT, 1)), _sms(t.device))
+    rows, coef = _yz_rows(My, W)
+    operands = (rows, coef, nonzero_ranges(MzT, 1), _yz_band(MzT, W))
+    record = (W, RB) + tuple(None if x is None else x.data_ptr()
+                             for x in operands)
+    My._pmg_yz_launch = (MzT, key, record, operands)
+    return record
+
+
+def yz_blocks_per_sm(W, RB, NZ, C):
+    """Blocks of `transfer_yz` one SM of the current card holds on the plan
+    ``(W, RB)`` at ``NZ -> C`` (the CUDA occupancy API)."""
+    return load_kernels().transfer_yz_blocks_per_sm(W, RB, NZ, C)
+
+
+def _sms(device):
+    """The SM count of a CUDA device, read once per device."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 # --- plain torch versions -----------------------------------------------------
@@ -126,10 +264,10 @@ def load_kernels():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.transfer_x_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
     lib.transfer_x_launch.restype = ci
-    lib.transfer_yz_launch.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    lib.transfer_yz_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
     lib.transfer_yz_launch.restype = ci
-    lib.transfer_yz_smem.argtypes = [ci, ci]
-    lib.transfer_yz_smem.restype = ci
+    lib.transfer_yz_blocks_per_sm.argtypes = [ci] * 4
+    lib.transfer_yz_blocks_per_sm.restype = ci
     _lib = lib
     return lib
 
@@ -155,9 +293,10 @@ def transfer_x(x3, Mx):
     rx = nonzero_ranges(Mx, 0)
     lib = load_kernels()
     t = torch.empty((A, NY, NZ), dtype=torch.float32, device=x3.device)
-    with torch.cuda.device(x3.device):
-        rc = lib.transfer_x_launch(_ptr(x3), _ptr(Mx), _ptr(rx), _ptr(t),
-                                   NX, NY * NZ, A, stream_of(x3))
+    with _on_device(x3):
+        rc = lib.transfer_x_launch(x3.data_ptr(), Mx.data_ptr(),
+                                   rx.data_ptr(), t.data_ptr(), NX, NY * NZ,
+                                   A, stream_of(x3))
     if rc != 0:
         raise RuntimeError(f"transfer_x launch failed: CUDA error {rc}")
     LAUNCHES["transfer_x"] += 1
@@ -167,23 +306,21 @@ def transfer_x(x3, Mx):
 def transfer_yz(t, My, MzT):
     """Launch kernel #11 on CUDA tensors: ``out[a] = My t[a] MzT`` for
     every ``a``-slab of the ``(A, NY, NZ)`` lattice ``t``; a new ``(A, B,
-    C)`` lattice."""
+    C)`` lattice. The plan (`yz_plan`) comes from the ranges' cached
+    widths, so a launch makes no host read; every array is checked on
+    every launch."""
     _check_x3(t)
     A, NY, NZ = t.shape
     B, C = My.shape[0], MzT.shape[1]
     _check("My", My, (B, NY), t.device)
     _check("MzT", MzT, (NZ, C), t.device)
+    W, RB, rows, coef, rz, band = _yz_launch(t, My, MzT)
     lib = load_kernels()
-    yc = lib.transfer_yz_smem(NY, NZ)
-    if yc <= 0:
-        raise ValueError(f"a z-extent of {NZ} does not fit the kernel's "
-                         "shared memory")
-    ry, rz = nonzero_ranges(My, 0), nonzero_ranges(MzT, 1)
     out = torch.empty((A, B, C), dtype=torch.float32, device=t.device)
-    with torch.cuda.device(t.device):
-        rc = lib.transfer_yz_launch(_ptr(t), _ptr(My), _ptr(ry), _ptr(MzT),
-                                    _ptr(rz), _ptr(out), A, NY, NZ, B, C,
-                                    stream_of(t))
+    with _on_device(t):
+        rc = lib.transfer_yz_launch(
+            t.data_ptr(), My.data_ptr(), rows, coef, MzT.data_ptr(), rz,
+            band, out.data_ptr(), A, NY, NZ, B, C, W, RB, stream_of(t))
     if rc != 0:
         raise RuntimeError(f"transfer_yz launch failed: CUDA error {rc}")
     LAUNCHES["transfer_yz"] += 1

@@ -11,8 +11,9 @@
   ``cuda``; skipped without a GPU), also kernels #1-#3 at awkward
   shapes and bands (extents off the 32-lane and march-chunk grids, an
   axis no longer than the band's 2P+1, bands 1, 3, 6 and 16, mixed
-  faces). Those tests need no JAX, so on a GPU machine without JAX they
-  run as
+  faces), and kernel #4 (`kron_t1`, the same march with the full marker)
+  at those shapes on a random non-separable marker. Those tests need no
+  JAX, so on a GPU machine without JAX they run as
   ``python -m pytest --noconftest -m cuda tests/test_torch_kron_blocked.py``.
 """
 
@@ -256,6 +257,38 @@ def test_cuda_marching_kernels_awkward_shapes(cuda_device, shape, band,
     assert tkb.LAUNCHES["t23_res_m"] == before["t23_res_m"] + 2
 
 
+def _non_separable_marker(shape, faces, rng, frac=0.02):
+    """The Dirichlet faces of ``faces`` plus a random ``frac`` of the
+    dofs: a marker that no union of box faces gives."""
+    bc = rng.random(shape) < frac
+    for axis, ends in enumerate(faces):
+        for end, on in zip((0, -1), ends):
+            if on:
+                idx = [slice(None)] * 3
+                idx[axis] = end
+                bc[tuple(idx)] = True
+    return bc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("faces", [((True, True),) * 3, MIXED])
+@pytest.mark.parametrize("shape,band", AWKWARD)
+def test_cuda_full_bc_march_awkward_shapes(cuda_device, shape, band, faces):
+    """Kernel #4 `kron_t1` (the x-march of kernel 1 with the bool marker)
+    on a random non-separable marker against `plain_t1`: <= 1e-5 relative
+    max-norm; the launch is counted once."""
+    rng, m = _banded_mats(shape, band, faces, cuda_device,
+                          7 * sum(shape) + band)
+    bc = torch.tensor(_non_separable_marker(shape, faces, rng),
+                      device=cuda_device)
+    x = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                     device=cuda_device)
+    before = dict(tkb.LAUNCHES)
+    got = tkb.kron_t1(x, bc, m)
+    assert _rel(got.cpu(), tkb.plain_t1(x, bc, m).cpu()) <= 1e-5
+    assert tkb.LAUNCHES == dict(before, t1=before["t1"] + 1)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_recheck_replaced_arrays(cuda_device):
     """The wrappers check a mats dict's arrays on every launch: an array
@@ -274,6 +307,13 @@ def test_cuda_wrappers_recheck_replaced_arrays(cuda_device):
     with pytest.raises(TypeError, match="sxzm must be torch.float32"):
         tkb.kron_t1_m(x, m)
     m["sxzm"] = m["sxzm"].float()
+    bc = torch.zeros((9, 10, 11), dtype=torch.bool, device=cuda_device)
+    tkb.kron_t1(x, bc, m)
+    sxz = m["sxz"]
+    m["sxz"] = sxz[:-1].contiguous()
+    with pytest.raises(ValueError, match="sxz has shape"):
+        tkb.kron_t1(x, bc, m)
+    m["sxz"] = sxz
     m["KtzT"].t_()
     with pytest.raises(ValueError, match="KtzT must be contiguous"):
         tkb.kron_t23_m(x, t1, m)

@@ -6,15 +6,20 @@ with the JAX package.
   directions, ``BoxMesh((4, 3, 5))``, p 1 <-> 3, f32: relative 2-norm
   <= 1e-6 (the JAX package's own gate, `tests/test_pallas.py`).
 - `transfer_mats` equal to JAX's, and its ValueError; `nonzero_ranges`
-  exact on a sparse matrix and refreshed after an in-place write.
+  exact on a sparse matrix and refreshed after an in-place write, with
+  the widest range (`nonzero_width`) and the rows' order by ``hi`` cached
+  beside it; `yz_plan`'s ring width and rows per block for the V-cycle's
+  four transfer shapes.
 - ``PMGHierarchy(operator="kron_blocked", fuse_transfers=True)``, with and
   without ``fuse_smoother``, on the JAX hierarchy's state (`utils.convert`,
   `load_state`) against JAX's fused-transfer hierarchy: f32 residuals
   within 1e-4 relative, ``BoxMesh((4, 4, 4))``, degrees (1, 3), four
   cycles with the ``fdm`` coarse solve, three with ``cg`` (see the test).
 - On the card, both kernels against their plain versions (marked
-  ``cuda``; skipped without a GPU). That test needs no JAX, so on a GPU
-  machine without JAX it runs as
+  ``cuda``; skipped without a GPU), and `transfer_yz` alone at the fused
+  V-cycle's four shapes, at odd extents and on a band wider than every
+  ring width (the runtime-width variant). Those tests need no JAX, so on
+  a GPU machine without JAX they run as
   ``python -m pytest --noconftest -m cuda tests/test_torch_transfer.py``.
 """
 
@@ -116,6 +121,146 @@ def test_nonzero_ranges_exact_and_refreshed():
     assert lo.tolist() == [0, 1, 4, 7] and hi.tolist() == [3, 6, 9, 10]
 
 
+def _banded(n, m, band, seed):
+    """A random ``(n, m)`` matrix, nonzero within ``band`` of its scaled
+    diagonal ``j = i m / n``: a range of up to ``2 band + 1``."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, m))
+    i, j = np.indices((n, m))
+    M[np.abs(j - (i * m) // n) > band] = 0.0
+    return torch.tensor(M, dtype=torch.float32)
+
+
+def _cycle_mats(nc, pc, pf, direction):
+    I = torch.tensor(axis_interpolation_matrix(nc, pc, pf),
+                     dtype=torch.float32)
+    return tt.transfer_mats((I, I, I), direction)
+
+
+@pytest.mark.parametrize("case", ["restrict", "prolong", "banded",
+                                  "permuted"])
+def test_nonzero_width_and_order_cached_and_refreshed(case):
+    """The widest range equals numpy's ``max(hi - lo)`` and the order is a
+    stable sort of ``hi``, both cached with the ranges and recomputed
+    after an in-place write."""
+    if case in ("restrict", "prolong"):
+        M = _cycle_mats(9, 3, 6, case)[1]
+    else:
+        M = _banded(23, 31, 4, 2)
+        if case == "permuted":
+            M = M[torch.randperm(23, generator=torch.Generator()
+                                 .manual_seed(0))].contiguous()
+    for axis in (0, 1):
+        nz = M.numpy() != 0
+        nz = nz if axis == 0 else nz.T
+        lo = np.where(nz.any(1), nz.argmax(1), 0)
+        hi = np.where(nz.any(1), nz.shape[1] - nz[:, ::-1].argmax(1), 0)
+        assert tt.nonzero_width(M, axis) == int((hi - lo).max())
+        ranges, width, order = tt._nz_lines(M, axis)
+        assert tt._nz_lines(M, axis)[2] is order           # cached
+        assert ranges.tolist() == [lo.tolist(), hi.tolist()]
+        assert order.dtype == torch.int32
+        assert order.tolist() == np.argsort(hi, kind="stable").tolist()
+    before = tt.nonzero_width(M, 0)
+    M[0, :] = 1.0                      # an in-place write refreshes them
+    assert tt.nonzero_width(M, 0) == M.shape[1] > before
+    hi = tt.nonzero_ranges(M, 0)[1].numpy()
+    assert tt._nz_lines(M, 0)[2].tolist() == np.argsort(
+        hi, kind="stable").tolist()
+
+
+# The fused V-cycle's four transfers at 16.2M dofs (nc 42, p 1-3-6): t's
+# (A, NY, NZ), out's (B, C) and the plan on a 132-SM card.
+CYCLE_PLANS = [
+    ((3, 6, "restrict"), (127, 253, 253), (127, 127), (12, 32)),
+    ((1, 3, "restrict"), (43, 127, 127), (43, 43), (8, 8)),
+    ((1, 3, "prolong"), (127, 43, 43), (127, 127), (4, 32)),
+    ((3, 6, "prolong"), (253, 127, 127), (253, 253), (4, 32)),
+]
+
+
+@pytest.mark.parametrize("pair,t_shape,out_bc,plan", CYCLE_PLANS)
+def test_yz_plan_for_the_cycle_shapes(pair, t_shape, out_bc, plan):
+    """`yz_plan` on the widths the V-cycle's matrices give: the narrowest
+    ring width that holds the widest range, and the most rows per block
+    that still give the card three blocks for every two SMs; its shared
+    memory fits under the default 48 KB."""
+    pc, pf, direction = pair
+    _, My, MzT = _cycle_mats(42, pc, pf, direction)
+    A, NY, NZ = t_shape
+    B, C = out_bc
+    assert My.shape == (B, NY) and MzT.shape == (NZ, C)
+    width = max(tt.nonzero_width(My, 0), tt.nonzero_width(MzT, 1))
+    assert width == {6: 12, 3: 5 if direction == "restrict" else 4,
+                     1: 2}[pf if direction == "restrict" else pc]
+    assert tt.yz_plan(A, NZ, B, C, width, 132) == plan
+    assert tt.yz_smem(*plan, NZ, C) <= 48 * 1024
+
+
+@pytest.mark.parametrize("direction,W", [("restrict", 12), ("restrict", 16),
+                                         ("prolong", 4), ("prolong", 0)])
+def test_yz_operands_layout(direction, W):
+    """`transfer_yz`'s operands laid out once per matrix: the rows in the
+    stable order of their ends with their ranges, each row's coefficients
+    aligned to its end (zero below its start), the columns' band of MzT
+    (zero past each range); refreshed after an in-place write."""
+    _, My, MzT = _cycle_mats(9, 3, 6, direction)
+    rows, coef = tt._yz_rows(My, W)
+    (lo, hi), order = tt.nonzero_ranges(My, 0), tt._nz_lines(My, 0)[2]
+    assert rows.tolist() == [order.tolist(), lo[order.long()].tolist(),
+                             hi[order.long()].tolist()]
+    assert tt._yz_rows(My, W)[0] is rows                 # cached
+    band = tt._yz_band(MzT, W)
+    if W == 0:
+        assert coef is None and band is None
+        return
+    M = My.numpy()
+    for p, (b, l, h) in enumerate(rows.T.tolist()):
+        want = [M[b, h - W + d] if h - W + d >= l else 0.0 for d in range(W)]
+        assert coef[p].tolist() == want
+    zlo, zhi = tt.nonzero_ranges(MzT, 1).tolist()
+    for c in range(MzT.shape[1]):
+        want = [float(MzT[zlo[c] + d, c]) if d < zhi[c] - zlo[c] else 0.0
+                for d in range(W)]
+        assert band[:, c].tolist() == want
+    My[0, 0] += 1.0                    # an in-place write refreshes them
+    assert tt._yz_rows(My, W)[0] is not rows
+
+
+def test_yz_launch_record_cached_and_rebuilt():
+    """One launch record per (My, MzT) pair: the plan and the pointers of
+    the laid-out operands, read back from the cache, rebuilt for another
+    slab count, another MzT or after an in-place write."""
+    _, My, MzT = _cycle_mats(9, 3, 6, "restrict")
+    tt._SMS.setdefault(None, 132)       # a CPU tensor's device index
+    t = torch.zeros((19, 55, 55))
+    rec = tt._yz_launch(t, My, MzT)
+    W, RB = tt.yz_plan(19, 55, 19, 19, 12, tt._sms(t.device))
+    rows, coef = tt._yz_rows(My, W)
+    assert rec == (W, RB, rows.data_ptr(), coef.data_ptr(),
+                   tt.nonzero_ranges(MzT, 1).data_ptr(),
+                   tt._yz_band(MzT, W).data_ptr())
+    assert tt._yz_launch(t, My, MzT) is rec
+    assert tt._yz_launch(torch.zeros((3, 55, 55)), My, MzT) is not rec
+    rec = tt._yz_launch(t, My, MzT)
+    assert tt._yz_launch(t, My, MzT.clone()) is not rec
+    rec = tt._yz_launch(t, My, MzT)
+    MzT[0, 0] += 0.0
+    assert tt._yz_launch(t, My, MzT) is not rec
+
+
+def test_yz_plan_runtime_width_and_limits():
+    """A range wider than every ring width takes W = 0 (the runtime-width
+    variant), a small card gets more rows per block, and a z-extent no
+    block's shared memory holds raises."""
+    assert tt.yz_plan(40, 70, 20, 33, max(tt.YZ_WIDTHS) + 1, 132)[0] == 0
+    assert tt.yz_plan(40, 70, 20, 33, 16, 132) == (16, 4)
+    assert tt.yz_plan(127, 253, 127, 127, 12, 8) == (12, 32)
+    assert tt.yz_plan(3, 253, 3, 127, 0, 132) == (4, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tt.yz_plan(4, 60000, 4, 4, 3, 132)
+
+
 @pytest.mark.parametrize("fuse_smoother", [False, True])
 @pytest.mark.parametrize("coarse", ["fdm", "cg"])
 def test_fused_transfer_hierarchy_matches_jax(jx, coarse, fuse_smoother):
@@ -210,3 +355,52 @@ def test_cuda_transfer_kernels_match_plain(cuda_device, pc, pf, direction):
     assert _rel_max(tt.transfer_x(x3, D), tt.plain_transfer_x(x3, D)) <= 1e-5
     with pytest.raises(TypeError, match="float32"):
         tt.transfer_x(x3.double(), Mx)
+
+
+# transfer_yz alone: the fused V-cycle's four shapes (nc 42), then odd
+# extents (NZ off the 32-lane grid; restrictions from p=6 with NY = 7,
+# shorter than a coarse row's range of up to 13) for three degree pairs.
+YZ_CASES = ([(42, pc, pf) for pc, pf in ((3, 6), (1, 3))]
+            + [((3, 1, 5), pc, pf) for pc, pf in ((1, 3), (3, 6), (2, 5))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["restrict", "prolong"])
+@pytest.mark.parametrize("nc,pc,pf", YZ_CASES)
+def test_cuda_transfer_yz_shapes(cuda_device, nc, pc, pf, direction):
+    """`transfer_yz` against `plain_transfer_yz`: <= 1e-5 relative
+    max-norm, one launch counted."""
+    ncs = (nc,) * 3 if isinstance(nc, int) else nc
+    I1s = [torch.tensor(axis_interpolation_matrix(n, pc, pf),
+                        dtype=torch.float32, device=cuda_device) for n in ncs]
+    Mx, My, MzT = tt.transfer_mats(I1s, direction)
+    p = pf if direction == "restrict" else pc
+    shape = (Mx.shape[0],) + tuple(n * p + 1 for n in ncs[1:])
+    t = torch.tensor(np.random.default_rng(sum(shape)).standard_normal(shape),
+                     dtype=torch.float32, device=cuda_device)
+    before = tt.LAUNCHES["transfer_yz"]
+    y = tt.transfer_yz(t, My, MzT)
+    assert _rel_max(y, tt.plain_transfer_yz(t, My, MzT)) <= 1e-5
+    assert tt.LAUNCHES["transfer_yz"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("permute", [False, True])
+def test_cuda_transfer_yz_runtime_width(cuda_device, permute):
+    """A band wider than every ring width (the runtime-width variant), and
+    the same rows in a shuffled order with an all-zero row (ranges whose
+    ends are not sorted) at a width the rings hold."""
+    band = 10 if not permute else 3
+    My, MzT = _banded(20, 45, band, 1), _banded(33, 70, band, 2).T
+    if permute:
+        My = My[torch.randperm(20, generator=torch.Generator()
+                               .manual_seed(0))]
+        My[4] = 0.0
+    My, MzT = My.contiguous().to(cuda_device), MzT.contiguous().to(cuda_device)
+    assert (tt.nonzero_width(My, 0) > max(tt.YZ_WIDTHS)) != permute
+    t = torch.tensor(np.random.default_rng(4).standard_normal((6, 45, 70)),
+                     dtype=torch.float32, device=cuda_device)
+    y = tt.transfer_yz(t, My, MzT)
+    assert _rel_max(y, tt.plain_transfer_yz(t, My, MzT)) <= 1e-5
+    with pytest.raises(ValueError, match="MzT has shape"):
+        tt.transfer_yz(t, My, MzT[:-1].contiguous())
