@@ -111,17 +111,27 @@ failure; nothing is caught.
    ``PallasLatticeBlocked(variant="zgrp")`` with zb in {2, 3} on a small
    mesh against its plain version and K-A. Seeded x, the geometry of the
    perturbed mesh, kappa=2; relative max-norm error <= 1e-5 against the
-   plain torch versions; timed in turns plain, kernel, kernel, plain.
+   plain torch versions; two applies of K-A give the same bits; timed in
+   turns plain, kernel, kernel, plain. Each kernel at each size also as
+   device time (`graph_ms`) beside its bound, host us per launch, and
+   (one-launch design) its box, blocks per SM and face scratch.
 7. Curved main path: ``PoissonProblem(mesh=PerturbedBoxMesh((42,42,42)),
    degrees=(1,3,6), kappa=2, float32, coarse="cg",
    operator="lattice_blocked")`` — 10 stationary V-cycles (the residual
    falls on each of the first 4), FCG(V) to rtol 1e-6 within 50
    iterations, K-A's launch count rises, collocated L2 error < 1e-4;
    V-cycle timed against the plain torch ``operator="lattice"``
-   hierarchy on the same mesh.
+   hierarchy on the same mesh; one V-cycle under `torch.profiler`,
+   labelled complete only when its lattice kernels number the wrappers'
+   count and its kernel count repeats (`profile_complete`): wall ms,
+   device busy ms, K-A's share of it by degree and the idle share of the
+   back-to-back cycle; the trajectory and FCG count beside the parent
+   commit's as printed (`PARENT_RUNS`), within 1e-3 relative above 5e-3
+   and one iteration.
 8. The operator micro-benchmark entry point
    (``examples/mat_free_torch.py --operator lattice_blocked --variant
-   geom --mesh perturbed``) at 16.2M dofs, p=6: K-B's launch count rises.
+   geom --mesh perturbed``) at 16.2M dofs, p=6: K-B's launch count rises;
+   ms per apply and GDOF/s.
 8b. The same entry point with ``--variant zgrp`` (zb from
    ``select_zgroup``, 14): ``lattice_apply_zgrp``'s launch count rises.
    Both runs get phase 7's mesh, so its host geometry factors are not
@@ -157,10 +167,11 @@ failure; nothing is caught.
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
 PyTorch call computes the same function, and its bound: bytes over 3.35
-TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#4, #9, #10 and
-#11 add their device times as ``device_ms*`` keys, the transfers per
-V-cycle shape beside ``bound_ms_by_shape``) and, only when every phase
-passed, the last line
+TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#4, #9, #10,
+#11 and the lattice kernels #13-#17 add their device times as
+``device_ms*`` keys, the transfers and the lattice kernels per V-cycle
+shape beside ``bound_ms_by_shape``, the lattice kernels with their box
+and face scratch) and, only when every phase passed, the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -904,10 +915,52 @@ def kron_fused_path():
             launches, bound)
 
 
+def lattice_kernel_ms(by_name):
+    """{kernel: ms} of the lattice kernels in a `profile_busy` split: the
+    march (``lattice_march``, or the cells pass ``lattice_cells`` of
+    earlier commits) and the fold (``lattice_faces``, or ``lattice_fold``
+    over the whole lattice)."""
+    out = {"march": 0.0, "fold": 0.0}
+    for name, ms in by_name.items():
+        if "lattice_march" in name or "lattice_cells" in name:
+            out["march"] += ms
+        elif "lattice_faces" in name or "lattice_fold" in name:
+            out["fold"] += ms
+    return out
+
+
+def lattice_device(lb, name, fn, N, P, nc):
+    """Device time of one lattice kernel's apply (`graph_ms`), its bound,
+    host us per launch and (on the one-launch design) its box, blocks per
+    SM and face scratch; printed and returned as a dict.
+    (`tools/lattice_bench_torch.py` splits the time by kernel.)"""
+    dev = graph_ms(fn)
+    bound, by = kernel_bound(name, N, P, nc=nc)
+    rec = {"device_ms": dev, "bound_ms": bound, "bound_by": by,
+           "host_us": host_us(fn, calls=200)}
+    if hasattr(lb, "lattice_plan"):
+        zb = lb.select_zgroup(nc[2], P) if name == "lattice_apply_zgrp" \
+            else None
+        plan = lb.lattice_plan(nc, P, zb)
+        nbytes, faces = lb.face_scratch_bytes(nc, P, plan)
+        rec.update(box=list(plan), face_scratch_bytes=nbytes,
+                   face_kernel_threads=faces, blocks_per_sm=lb.blocks_per_sm(
+                       name, P, plan))
+    print(f"    {name} nc={nc[0]} p={P}: device {dev:.4f} ms (bound "
+          f"{bound:.4f} ms, {by}: {bound / dev:.0%}); host "
+          f"{rec['host_us']:.1f} us per launch"
+          + ("" if "box" not in rec else
+             f"; box {tuple(rec['box'])}, {rec['blocks_per_sm']} blocks/SM,"
+             f" face scratch {rec['face_scratch_bytes'] / 1e6:.2f} MB, "
+             f"face kernel {rec['face_kernel_threads']} threads"))
+    return rec
+
+
 def lattice_parity(mesh, P, geom, zgrp=False):
     """Phase 6 at one size: K-A under each variant name (K-B when
     ``geom``, K-A on the z-grouped geometry when ``zgrp``) against the
-    plain versions; returns {kernel: (max_abs_err, ms, plain_ms)}."""
+    plain versions; returns ({kernel: (max_abs_err, ms, plain_ms)},
+    {kernel: `lattice_device` record})."""
     import numpy as np
     import torch
 
@@ -952,9 +1005,20 @@ def lattice_parity(mesh, P, geom, zgrp=False):
           f"{ms_p:.4f} ms (turns {[round(t, 4) for t in four]}); "
           f"{x.numel() / ms_k / 1e6:.3f} GDOF/s")
     out["lattice_apply"] = (abs_err, ms_k, ms_p)
+    y1 = lb.blocked_lattice_apply(x, mats, Gt, bc, nc, P)
+    same = bool(torch.equal(y1, lb.blocked_lattice_apply(x, mats, Gt, bc, nc,
+                                                         P)))
+    print(f"    {tag} lattice_apply: two applies bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"lattice_apply at {tag}: two applies differ")
+    del y1
+    dev = {"lattice_apply": lattice_device(
+        lb, "lattice_apply", lambda: lb.blocked_lattice_apply(
+            x, mats, Gt, bc, nc, P), x.numel(), P, nc)}
     if zgrp:
         # K-A on Gz read in place: the same sums on the same values as on
-        # Gt, so its result is K-A's.
+        # Gt; its box holds within a z-group, so where that box differs
+        # from Gt's the fold adds in another order (last bits only).
         y_gt = lb.blocked_lattice_apply(x, mats, Gt, bc, nc, P)
         del Gt, ref
         zb = lb.select_zgroup(nc[2], P)
@@ -981,6 +1045,9 @@ def lattice_parity(mesh, P, geom, zgrp=False):
               f"{ms_p:.4f} ms (turns {[round(t, 4) for t in four]}); "
               f"{x.numel() / ms_k / 1e6:.3f} GDOF/s")
         out["lattice_apply_zgrp"] = (abs_err, ms_k, ms_p)
+        dev["lattice_apply_zgrp"] = lattice_device(
+            lb, "lattice_apply_zgrp", lambda: lb.blocked_lattice_apply_zgrp(
+                x, mats, zmats, Gz, bc, nc, P, zb), x.numel(), P, nc)
         del Gz
     else:
         del Gt, ref
@@ -1007,7 +1074,11 @@ def lattice_parity(mesh, P, geom, zgrp=False):
               f"plain {ms_p:.4f} ms (turns {[round(t, 4) for t in four]}); "
               f"{x.numel() / ms_k / 1e6:.3f} GDOF/s")
         out["lattice_apply_geom"] = (abs_err, ms_k, ms_p)
-    return out
+        dev["lattice_apply_geom"] = lattice_device(
+            lb, "lattice_apply_geom", lambda: lb.blocked_lattice_apply_geom(
+                x, mats, co, geom, bc, nc, P, xi=xi, wx=wx), x.numel(), P,
+            nc)
+    return out, dev
 
 
 def zgrp_small():
@@ -1142,10 +1213,11 @@ def plain_packed():
         kp.packed_apply, kp.packed_fdm = saved
 
 
-def profile_busy(fn):
+def profile_busy(fn, counts=None):
     """One call of ``fn`` under `torch.profiler`: (wall ms, device busy ms
     = the sum of kernel durations (one stream, no overlap), kernel count,
-    {kernel name: ms})."""
+    {kernel name: ms}); ``counts``, when given, gets {kernel name:
+    launches}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1161,7 +1233,42 @@ def profile_busy(fn):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        if counts is not None:
+            counts[e.name] = counts.get(e.name, 0) + 1
     return wall, sum(by_name.values()), len(kernels), by_name
+
+
+def profile_complete(fn, lb, tries=8):
+    """`profile_busy` of one call of ``fn`` (a curved V-cycle) from a
+    complete window. Late in a long process the profiler can leave out
+    some of a window's kernels (here phase 7 misses two of the cycle's
+    seven p=6 applies in every window; a fresh process on the same mesh
+    keeps them all, `tools/lattice_bench_torch.py --vcycle`), so a window
+    is read as complete only when its lattice kernels number what the
+    wrappers counted for the call (`lb.LAUNCHES`:
+    each apply is one march, or cells, kernel and one fold, or faces,
+    kernel; every level of the curved cycle has faces between boxes) and
+    its kernel count equals an earlier window's. Returns (wall, busy, kernels,
+    {name: ms}, {name: launches}, windows tried, complete)."""
+    seen, last = [], None
+    for tries_made in range(1, tries + 1):
+        before = sum(lb.LAUNCHES.values())
+        calls = {}
+        wall, busy, nk, by_name = profile_busy(fn, calls)
+        applies = sum(lb.LAUNCHES.values()) - before
+        march = sum(n for k, n in calls.items()
+                    if "lattice_march" in k or "lattice_cells" in k)
+        fold = sum(n for k, n in calls.items()
+                   if "lattice_faces" in k or "lattice_fold" in k)
+        complete = march == applies and fold == applies and nk in seen
+        print(f"    profile window {tries_made}: {nk} kernels, lattice "
+              f"{march} + {fold} for {applies} applies"
+              + (" (complete)" if complete else ""))
+        seen.append(nk)
+        last = (wall, busy, nk, by_name, calls, tries_made, complete)
+        if complete:
+            break
+    return last
 
 
 def fused_kernel_ms(by_name):
@@ -1193,10 +1300,11 @@ def fused_kernel_ms(by_name):
 
 
 # The parent commit's printed trajectories (relative residuals of the 10
-# stationary cycles, as printed) and FCG(V) counts in phases 4b and 4e,
-# from the parent's package under this script on an NVIDIA H100 80GB HBM3
-# at 700 W: kernels that keep every sum's order repeat them digit for
-# digit.
+# stationary cycles, as printed) and FCG(V) counts in phases 4b, 4e and
+# 7, from the parent's package under this script on an NVIDIA H100 80GB
+# HBM3 at 700 W: kernels that keep every sum's order repeat them digit
+# for digit; phase 7's lattice kernels fold in another order, so its
+# trajectory is held to 1e-3 of the parent's (`parent_gate`).
 _FUSED_SMOOTHER_REL = ["8.7404e-02", "2.3993e-02", "9.4998e-03", "3.9849e-03",
                        "1.8904e-03", "1.2124e-03", "1.0516e-03", "9.5400e-04",
                        "9.0908e-04", "8.8960e-04"]
@@ -1207,6 +1315,9 @@ PARENT_RUNS = {
                            "1.0527e-03", "9.5441e-04", "9.1710e-04",
                            "8.9045e-04"], 5),
     "4e fuse_transfers + fuse_smoother": (_FUSED_SMOOTHER_REL, 5),
+    "7 curved": (["1.0156e-01", "2.8758e-02", "1.1751e-02", "5.1864e-03",
+                  "2.4541e-03", "1.3631e-03", "1.0296e-03", "8.3217e-04",
+                  "7.2670e-04", "6.9319e-04"], 7),
 }
 
 
@@ -1223,6 +1334,22 @@ def against_parent(tag, rel, niter):
           f"{'equal' if same else 'differ from'} the parent's as printed "
           f"(max rel diff from its 4 printed digits {diff:.1e}; parent "
           f"FCG(V) {ref[1]})")
+
+
+def parent_gate(tag, rel, niter, rtol=1e-3):
+    """Raise unless ``rel`` keeps within ``rtol`` of the parent's printed
+    trajectory (`PARENT_RUNS`) on every cycle above `REF_TRAJ_FROM` and
+    ``niter`` within one iteration of the parent's FCG(V) count: a
+    changed summation order moves the last bits only."""
+    ref = PARENT_RUNS.get(tag)
+    if ref is None:
+        return
+    diff = traj_diff(rel, [float(v) for v in ref[0]])
+    print(f"    {tag}: trajectory max rel diff from the parent's "
+          f"{diff:.3e} (gate {rtol:g}); FCG(V) {niter} vs {ref[1]}")
+    if not (diff <= rtol and abs(niter - ref[1]) <= 1):
+        raise AssertionError(f"{tag}: trajectory {diff:.3e} or FCG(V) "
+                             f"{niter} vs {ref[1]} off the parent's")
 
 
 PACKED_NC = (10, 10, 10)     # 61^3 at p=6: 226,981 dofs, the serving size
@@ -2098,6 +2225,11 @@ def main():
             for line in ptxas_lines(tt.BUILD_LOG, ("transfer",), "transfer"):
                 print("    " + line)
             continue
+        if mod is lb:
+            for kernel in ("lattice_march", "lattice_faces"):
+                for line in ptxas_lines(lb.BUILD_LOG, (kernel,), kernel):
+                    print("    " + line)
+            continue
         for line in mod.BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
@@ -2321,12 +2453,30 @@ def main():
     from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
 
     t0 = phase("6. lattice kernel parity vs plain torch")
+    extra = {}
     curved = PerturbedBoxMesh((42, 42, 42))
-    lattice_parity(PerturbedBoxMesh((21, 21, 21)), 6, geom=True)
-    lattice_parity(curved, 1, geom=False)
-    lattice_parity(curved, 3, geom=False)
-    main_shape.update(lattice_parity(curved, 6, geom=True, zgrp=True))
+    _, lat21 = lattice_parity(PerturbedBoxMesh((21, 21, 21)), 6, geom=True)
+    _, lat_p1 = lattice_parity(curved, 1, geom=False)
+    _, lat_p3 = lattice_parity(curved, 3, geom=False)
+    res_l, lat_p6 = lattice_parity(curved, 6, geom=True, zgrp=True)
+    main_shape.update(res_l)
     zgrp_small()
+    # K-A at the curved V-cycle's three levels, K-B and K-A on Gz at p=6
+    # (nc=42), and K-A and K-B at nc=21: device time beside the bound.
+    for name, rec in lat_p6.items():
+        extra[name] = {
+            "device_ms": rec["device_ms"], "device_share_of_bound":
+            rec["bound_ms"] / rec["device_ms"],
+            "host_us_per_launch": rec["host_us"],
+            **{k: rec[k] for k in ("box", "face_scratch_bytes",
+                                   "face_kernel_threads", "blocks_per_sm")
+               if k in rec},
+            "device_ms_by_shape": {}, "bound_ms_by_shape": {}}
+    for tag, recs in (("127^3 p=3", lat_p3), ("43^3 p=1", lat_p1),
+                      ("127^3 p=6 (nc=21)", lat21)):
+        for name, rec in recs.items():
+            extra[name]["device_ms_by_shape"][tag] = rec["device_ms"]
+            extra[name]["bound_ms_by_shape"][tag] = rec["bound_ms"]
     done(t0)
 
     t0 = phase("7. curved main path: 16.2M dofs, p=(1,3,6), lattice_blocked "
@@ -2377,6 +2527,26 @@ def main():
           f"back-to-back, 3 reps {[round(t, 3) for t in vc_lb_all]}); "
           f"peak host RSS so far {peak_rss_gb():.1f} GB, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1024**3:.1f} GB")
+    b1 = torch.ones_like(prob.b)
+    hier.apply(b1, torch.zeros_like(b1))
+    wall, busy, nk, by_name, calls, tries, complete = profile_complete(
+        lambda: hier.apply(b1, torch.zeros_like(b1)), lb)
+    ka = lattice_kernel_ms(by_name)
+    print(f"    profiled V-cycle ({'complete' if complete else 'INCOMPLETE'}"
+          f" window, {tries} tried): wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({nk} kernels), of which K-A "
+          f"{ka['march'] + ka['fold']:.3f} "
+          f"ms ({(ka['march'] + ka['fold']) / busy:.1%}: march/cells "
+          f"{ka['march']:.3f}, faces/fold {ka['fold']:.3f}); idle "
+          f"{max(0.0, 1 - busy / vc_lb):.1%} of the back-to-back "
+          f"{vc_lb:.3f} ms")
+    # K-A by template (degree) in the profiled cycle: calls and ms.
+    print("    K-A kernels in the profiled V-cycle (name: launches, ms): "
+          + "; ".join(f"{n[:48]}: {calls[n]}, {ms:.3f}" for n, ms in sorted(
+              by_name.items()) if "lattice_" in n))
+    against_parent("7 curved", rel, niter)
+    parent_gate("7 curved", rel, niter)
+    del b1
     del prob, u, hier
     ts = time.perf_counter()
     plain_hier = PMGHierarchy(curved, operator="lattice", **ccfg)
@@ -2407,6 +2577,9 @@ def main():
         if not (mf["device"] == torch.cuda.get_device_name(0)
                 and mf["ms_per_apply"] > 0):
             raise AssertionError(f"mat_free did not time the card: {mf}")
+        print(f"    {name}: {mf['ms_per_apply']:.4f} ms per apply, "
+              f"{mf['gdofs']:.3f} GDOF/s (examples/mat_free_torch.py, "
+              f"{mf['clock']})")
         done(t0)
     del curved
 
@@ -2475,10 +2648,11 @@ def main():
     # Kernels #1-#3 and #9: besides `ms` (host-issued, as every row), the
     # device time from a CUDA graph at the main path's fine shape, at 127^3
     # and at the V-cycles' coarser shapes.
-    extra = {name: {"device_ms": dev_253[name], "device_ms_127": dev_127[name],
-                    "device_ms_by_shape": {k: v[name]
-                                           for k, v in dev_more.items()}}
-             for name in dev_253}
+    extra.update({name: {"device_ms": dev_253[name],
+                         "device_ms_127": dev_127[name],
+                         "device_ms_by_shape": {k: v[name]
+                                                for k, v in dev_more.items()}}
+                  for name in dev_253})
     extra["t23_grid_m"] = {"device_ms": dev9_127,
                            "device_ms_253x127x127": dev9_253,
                            "device_ms_by_shape": dev9_more}

@@ -27,9 +27,15 @@ Port of `pmg_dolfinx_tpu.ops.pallas_lattice_blocked`:
   and compared with the kernels on the card by `chip_smoke.py`;
 - `PallasLatticeBlocked` — the operator bundle (apply + exact diagonal).
 
-The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/`` (`ops.cuda_build`) and bound through a plain C
-interface with `ctypes`. `LAUNCHES` counts every kernel launch.
+Each apply on the card is one streaming pass: a block marches along x
+through a box of cells (`lattice_plan`) and folds the overlap-add of its
+own cells on chip; the dofs on faces between boxes go to a face scratch
+(`face_scratch_bytes`, taken from the caching allocator on each call,
+never a cell-expanded lattice) that a second, small launch sums in a
+fixed order (`csrc/lattice_blocked.cu`). The kernels are built with
+``nvcc`` for ``sm_90a`` at first use into ``build/kernels/``
+(`ops.cuda_build`) and bound through a plain C interface with `ctypes`.
+`LAUNCHES` counts one per apply.
 
 Not ported: ``precision="high"`` (bf16x3), and the TPU tile knobs
 ``bcells`` and ``interpret`` (they keep their positions in
@@ -45,7 +51,7 @@ import torch
 from .cuda_build import build_and_load
 from .cuda_build import check_operand as _check
 from .cuda_build import find_nvcc as _find_nvcc
-from .cuda_build import ptr as _ptr
+from .cuda_build import on_device as _on_device
 from .cuda_build import stream_of
 from .kron_blocked import _check_precision, _tpu_knob
 from .lattice import axis_matrices, lattice_laplacian_apply
@@ -297,6 +303,50 @@ def plain_lattice_apply_geom(x, mats, co, bc_marker, nc, P, apply_bc=True):
 
 # --- CUDA kernels -------------------------------------------------------------
 
+# Cells per box along (y, z) by degree, and along x, the march: the
+# boxes of ``csrc/lattice_blocked.cu``'s ``lattice_march`` that ran fastest
+# on an H100 at the curved V-cycle's levels (tools/lattice_bench_torch.py
+# --sweep); at p=6 a block of 147 threads keeps its sums in registers.
+BOX = {1: (4, 14), 2: (3, 8), 3: (2, 7), 4: (2, 4), 5: (1, 6), 6: (1, 3)}
+MARCH = 6
+
+
+def max_threads(P, kernel="lattice_apply"):
+    """The threads a block of ``kernel`` may have at degree ``P``: 384 for
+    K-A at P >= 4, else 256 (``max_threads`` of the CUDA source, whose
+    launch refuses a larger box). `lattice_plan` fits 'zgrp' boxes to it."""
+    return 384 if kernel != "lattice_apply_geom" and P >= 4 else 256
+
+
+def _fit(nc, target):
+    """Cells per box along an axis of ``nc`` cells near ``target``: the
+    even split of ``nc`` into ceil(nc / target) boxes (the last box is
+    the one short of the others, by less than a box)."""
+    target = max(1, min(int(target), nc))
+    return -(-nc // -(-nc // target))
+
+
+def lattice_plan(nc, P, zb=None):
+    """The box ``(Sx, By, Bz)`` in cells that a block of the lattice
+    kernels owns and marches through along x, for ``nc`` cells at degree
+    ``P``: `BOX` and `MARCH` fitted to the lattice (`_fit`). For 'zgrp'
+    (z-group ``zb``) Bz is the largest divisor of ``zb`` up to three
+    times the target whose block stays within `max_threads`, so that a
+    box's z-runs of ``Gz`` never straddle a group."""
+    ncx, ncy, ncz = (int(c) for c in nc)
+    P = int(P)
+    ty, tz = BOX[P]
+    By = _fit(ncy, ty)
+    if zb is None:
+        Bz = _fit(ncz, tz)
+    else:
+        zb = int(zb)
+        cap = max_threads(P, "lattice_apply_zgrp") // (By * (P + 1) ** 2)
+        Bz = max(d for d in range(1, min(zb, 3 * tz, max(1, cap)) + 1)
+                 if zb % d == 0)
+    return (_fit(ncx, MARCH), By, Bz)
+
+
 def load_kernels():
     """Build (once per source hash) and load the kernel library.
 
@@ -308,12 +358,16 @@ def load_kernels():
         return _lib
     lib, BUILD_LOG = build_and_load(_SRC, "lattice_blocked", _find_nvcc)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lattice_apply_launch.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+    lib.lattice_apply_launch.argtypes = [vp] * 6 + [ci] * 8 + [vp]
     lib.lattice_apply_launch.restype = ci
-    lib.lattice_apply_geom_launch.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.lattice_apply_geom_launch.argtypes = [vp] * 7 + [ci] * 8 + [vp]
     lib.lattice_apply_geom_launch.restype = ci
-    lib.lattice_apply_zgrp_launch.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.lattice_apply_zgrp_launch.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.lattice_apply_zgrp_launch.restype = ci
+    lib.lattice_scratch_bytes.argtypes = [ci] * 7 + [vp]
+    lib.lattice_scratch_bytes.restype = ctypes.c_int64
+    lib.lattice_blocks_per_sm.argtypes = [ci] * 4
+    lib.lattice_blocks_per_sm.restype = ci
     _lib = lib
     return lib
 
@@ -337,22 +391,69 @@ def _check_common(x, bc_marker, D1, nc, P):
     return tuple(c * (P + 1) for c in nc)
 
 
+def face_scratch_bytes(nc, P, box):
+    """Bytes of the face scratch of ``box`` on ``nc`` cells at degree
+    ``P`` and the threads of its face kernel (``lattice_scratch_bytes`` of
+    the CUDA source, which owns the layout)."""
+    faces = ctypes.c_int64(0)
+    nbytes = load_kernels().lattice_scratch_bytes(
+        int(P), *(int(c) for c in nc), *(int(s) for s in box),
+        ctypes.byref(faces))
+    if nbytes < 0:
+        raise ValueError(f"no launch plan for box {tuple(box)} on {nc} "
+                         f"cells at P={P}")
+    return int(nbytes), faces.value
+
+
+# Launch records: (nc, P, zb) -> (box, floats of the face scratch).
+_RECORDS = {}
+
+
+def _record(nc, P, zb=None):
+    """The box (`lattice_plan`) of the lattice kernels on ``nc`` cells at
+    degree ``P`` (z-group ``zb`` for 'zgrp') and the floats of its face
+    scratch, worked out once."""
+    key = (nc, P, zb)
+    rec = _RECORDS.get(key)
+    if rec is None:
+        box = lattice_plan(nc, P, zb)
+        rec = _RECORDS[key] = (box, max(1, face_scratch_bytes(nc, P, box)[0]
+                                        // 4))
+    return rec
+
+
+def _scratch(floats, x):
+    """A face scratch from the caching allocator on x's stream, for one
+    launch: it needs no initial value, and no two calls share one."""
+    return torch.empty(floats, dtype=torch.float32, device=x.device)
+
+
+def _launched(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _cells(nc):
+    return tuple(int(c) for c in nc)
+
+
 def lattice_apply(x, bc_marker, Gt, D1, nc, P, apply_bc=True):
     """Launch K-A on CUDA tensors: ``A x`` (flat or lattice-shaped f32
     ``x``, bool ``bc_marker`` of the same shape, ``Gt`` ``(6, Qx, Qy,
     Qz)``, ``D1`` ``(P+1, P+1)``); returns a new tensor shaped like x."""
+    nc = _cells(nc)
     Q = _check_common(x, bc_marker, D1, nc, P)
     _check("Gt", Gt, (6,) + Q, x.device)
-    lib = load_kernels()
+    box, floats = _record(nc, P)
     out = torch.empty_like(x)
-    ycells = torch.empty(Q, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.lattice_apply_launch(
-            _ptr(x), _ptr(bc_marker), _ptr(Gt), _ptr(D1), _ptr(ycells),
-            _ptr(out), P, *nc, int(bool(apply_bc)), stream_of(x))
-    if rc != 0:
-        raise RuntimeError(f"lattice_apply launch failed: CUDA error {rc}")
-    LAUNCHES["lattice_apply"] += 1
+    scratch = _scratch(floats, x)
+    with _on_device(x):
+        rc = load_kernels().lattice_apply_launch(
+            x.data_ptr(), bc_marker.data_ptr(), Gt.data_ptr(), D1.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), P, *nc, *box,
+            int(bool(apply_bc)), stream_of(x))
+    _launched("lattice_apply", rc)
     return out
 
 
@@ -365,21 +466,20 @@ def lattice_apply_zgrp(x, bc_marker, Gz, D1, nc, P, zb, apply_bc=True):
     """Launch K-A on CUDA tensors with the z-grouped geometry ``Gz``
     ``(Qx, 6*ngz, Qy, zb*(P+1))`` of `geometry_to_zgrouped`; returns a new
     tensor shaped like x."""
+    nc, zb = _cells(nc), int(zb)
     Qx, Qy, Qz = _check_common(x, bc_marker, D1, nc, P)
     _check_zb(nc, zb)
     zbn = zb * (P + 1)
     _check("Gz", Gz, (Qx, 6 * (Qz // zbn), Qy, zbn), x.device)
-    lib = load_kernels()
+    box, floats = _record(nc, P, zb)
     out = torch.empty_like(x)
-    ycells = torch.empty((Qx, Qy, Qz), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.lattice_apply_zgrp_launch(
-            _ptr(x), _ptr(bc_marker), _ptr(Gz), _ptr(D1), _ptr(ycells),
-            _ptr(out), P, *nc, int(zb), int(bool(apply_bc)), stream_of(x))
-    if rc != 0:
-        raise RuntimeError(
-            f"lattice_apply_zgrp launch failed: CUDA error {rc}")
-    LAUNCHES["lattice_apply_zgrp"] += 1
+    scratch = _scratch(floats, x)
+    with _on_device(x):
+        rc = load_kernels().lattice_apply_zgrp_launch(
+            x.data_ptr(), bc_marker.data_ptr(), Gz.data_ptr(), D1.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), P, *nc, zb, *box,
+            int(bool(apply_bc)), stream_of(x))
+    _launched("lattice_apply_zgrp", rc)
     return out
 
 
@@ -400,24 +500,31 @@ def lattice_apply_geom(x, bc_marker, co, D1, nc, P, xi, wx, apply_bc=True):
     """Launch K-B on CUDA tensors: ``A x`` with G rebuilt in the kernel
     from ``co`` ``(37, ncx, ncy, ncz)`` f32 and the GLL tuples ``xi``,
     ``wx``; returns a new tensor shaped like x."""
-    Q = _check_common(x, bc_marker, D1, nc, P)
-    _check("co", co, (37,) + tuple(nc), x.device)
+    nc = _cells(nc)
+    _check_common(x, bc_marker, D1, nc, P)
+    _check("co", co, (37,) + nc, x.device)
     if len(xi) != P + 1 or len(wx) != P + 1:
         raise ValueError(f"xi and wx must hold P+1 = {P + 1} values")
     gll = _gll_table(xi, wx, x.device)
-    lib = load_kernels()
+    box, floats = _record(nc, P)
     out = torch.empty_like(x)
-    ycells = torch.empty(Q, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.lattice_apply_geom_launch(
-            _ptr(x), _ptr(bc_marker), _ptr(co), _ptr(D1), _ptr(gll),
-            _ptr(ycells), _ptr(out), P, *nc, int(bool(apply_bc)),
-            stream_of(x))
-    if rc != 0:
-        raise RuntimeError(
-            f"lattice_apply_geom launch failed: CUDA error {rc}")
-    LAUNCHES["lattice_apply_geom"] += 1
+    scratch = _scratch(floats, x)
+    with _on_device(x):
+        rc = load_kernels().lattice_apply_geom_launch(
+            x.data_ptr(), bc_marker.data_ptr(), co.data_ptr(), D1.data_ptr(),
+            gll.data_ptr(), scratch.data_ptr(), out.data_ptr(), P, *nc, *box,
+            int(bool(apply_bc)), stream_of(x))
+    _launched("lattice_apply_geom", rc)
     return out
+
+
+def blocks_per_sm(kernel, P, plan):
+    """Blocks of ``kernel`` ('lattice_apply', 'lattice_apply_geom' or
+    'lattice_apply_zgrp') one SM of the current card holds at degree ``P``
+    on ``plan`` (the CUDA occupancy API)."""
+    geo = {"lattice_apply": 0, "lattice_apply_geom": 1,
+           "lattice_apply_zgrp": 2}[kernel]
+    return load_kernels().lattice_blocks_per_sm(geo, P, plan[1], plan[2])
 
 
 def blocked_lattice_apply(x, mats, Gt, bc_marker, nc, P, *,

@@ -427,10 +427,19 @@ def test_cuda_lattice_kernels_match_plain(cuda_device, p):
         tlb.lattice_apply(x, k_a.bc_marker, k_a.Gt, k_a.mats["D1"], tm.nc, 7)
 
 
+def _on_box(monkeypatch, P, box):
+    """Make `lattice_plan` pick ``box`` ``(Sx, By, Bz)`` at degree ``P``
+    (each fitted to the mesh as `BOX` and `MARCH` are): both patched, the
+    launch records cleared."""
+    monkeypatch.setattr(tlb, "BOX", {**tlb.BOX, P: tuple(box[1:])})
+    monkeypatch.setattr(tlb, "MARCH", box[0])
+    monkeypatch.setattr(tlb, "_RECORDS", {})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("zb", [1, 2, 3])
 @pytest.mark.parametrize("p", [1, 3, 6])
-def test_cuda_zgrp_matches_plain_and_gt(cuda_device, p, zb):
+def test_cuda_zgrp_matches_plain_and_gt(cuda_device, monkeypatch, p, zb):
     tm = TMesh((3, 4, 6), dirichlet_faces=MIXED)
     k_z = tlb.PallasLatticeBlocked(tm, p, kappa=2.0, variant="zgrp", zb=zb,
                                    device=cuda_device)
@@ -446,7 +455,228 @@ def test_cuda_zgrp_matches_plain_and_gt(cuda_device, p, zb):
                                            k_z.bc_marker, tm.nc, p, zb,
                                            apply_bc)
         assert _rel_max(y, ref) <= 1e-5
-    # the same kernel on the same geometry, read in place: equal results
-    assert torch.equal(k_z(x), k_a(x))
+    # the same kernel on the same geometry, read in place, on the same
+    # box (the box sets the order of the fold's sums): equal results
+    y_z, plan = k_z(x), tlb.lattice_plan(tm.nc, p, zb)
+    _on_box(monkeypatch, p, plan)
+    assert tlb.lattice_plan(tm.nc, p) == plan
+    assert torch.equal(y_z, k_a(x))
     assert tlb.LAUNCHES["lattice_apply_zgrp"] == \
         before["lattice_apply_zgrp"] + 3
+
+
+# --- the one-launch march: host plan (CPU) and the kernels (card) -------------
+
+def test_lattice_plan_at_the_vcycle_levels():
+    """The box each block marches at the curved V-cycle's levels (nc=42,
+    p=6, 3, 1), for 'zgrp' at zb=14, and on awkward extents; each fits
+    its kernel's thread cap."""
+    nc = (42, 42, 42)
+    assert tlb.lattice_plan(nc, 6) == (6, 1, 3)
+    assert tlb.lattice_plan(nc, 3) == (6, 2, 7)
+    assert tlb.lattice_plan(nc, 1) == (6, 4, 14)
+    assert tlb.lattice_plan(nc, 6, zb=14) == (6, 1, 7)   # Bz divides zb
+    assert tlb.lattice_plan((5, 7, 11), 6) == (5, 1, 3)
+    assert tlb.lattice_plan((3, 13, 9), 3) == (3, 2, 5)
+    for P in tlb.DEGREES:
+        _, By, Bz = tlb.lattice_plan(nc, P)
+        for kernel in ("lattice_apply", "lattice_apply_geom"):
+            assert By * Bz * (P + 1) ** 2 <= tlb.max_threads(P, kernel)
+    assert tlb.max_threads(6) == 384
+    assert tlb.max_threads(6, "lattice_apply_geom") == 256
+    assert tlb.max_threads(3) == 256
+
+
+@pytest.mark.parametrize("nc,P,zb", [((42, 42, 42), 6, 14),
+                                     ((42, 42, 42), 6, 21),
+                                     ((42, 42, 42), 1, 6),
+                                     ((5, 7, 11), 2, None),
+                                     ((1, 3, 2), 5, None),
+                                     ((3, 5, 6), 6, 6),
+                                     ((8, 10, 12), 4, 12),
+                                     ((9, 1, 40), 1, None)])
+def test_lattice_plan_fits_its_kernels(nc, P, zb):
+    """On any extent the box splits each axis evenly (every box but the
+    last is full, the last short by less than a box), a block stays within
+    its kernel's thread cap, a 'zgrp' box within one z-group, and a list
+    of cells plans as its tuple does."""
+    plan = tlb.lattice_plan(nc, P, zb)
+    assert plan == tlb.lattice_plan(list(nc), P, zb)
+    for S, c in zip(plan, nc):
+        nb = -(-c // S)
+        assert 1 <= S <= c and (nb - 1) * S < c <= nb * S
+    threads = plan[1] * plan[2] * (P + 1) ** 2
+    if zb is None:
+        assert plan == tlb.lattice_plan(nc, P, None)
+        for kernel in ("lattice_apply", "lattice_apply_geom"):
+            assert threads <= tlb.max_threads(P, kernel)
+    else:
+        assert zb % plan[2] == 0
+        assert threads <= tlb.max_threads(P, "lattice_apply_zgrp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,P,plan", [((42, 42, 42), 6, (6, 1, 3)),
+                                       ((42, 42, 42), 3, (6, 2, 7)),
+                                       ((42, 42, 42), 1, (6, 4, 14)),
+                                       ((5, 7, 11), 2, (2, 3, 4)),
+                                       ((3, 1, 4), 1, (1, 1, 1))])
+def test_lattice_face_scratch_holds_the_shared_dofs(cuda_device, nc, P,
+                                                    plan):
+    """`face_scratch_bytes` (the CUDA source's layout) and the face
+    kernel's enumeration: for each set A of shared axes, its entries (A's
+    boundaries at side 0, the other axes' dofs less those on a face
+    between boxes, as ``lattice_faces`` skips them) are exactly the dofs
+    shared along A, counted one by one, and each has a slot per sharing
+    box."""
+    nbytes, threads = tlb.face_scratch_bytes(nc, P, plan)
+    N = [c * P + 1 for c in nc]
+    S = [min(s, c) * P for s, c in zip(plan, nc)]
+    nb = [-(-c // min(s, c)) for c, s in zip(nc, plan)]
+    on = []
+    for a in range(3):
+        m = np.zeros(N[a], bool)
+        m[S[a]:N[a] - 1:S[a]] = True       # faces between boxes
+        on.append(m)
+    grid = np.meshgrid(*on, indexing="ij")
+    mask = grid[0].astype(int) | grid[1] << 1 | grid[2] << 2
+    slots = entries = 0
+    for A in range(1, 8):
+        dims = [2 * (nb[a] - 1) if A >> a & 1 else N[a] for a in range(3)]
+        slots += int(np.prod(dims))
+        entries += int(np.prod(dims)) >> bin(A).count("1")
+        kept = 1
+        for a in range(3):
+            kept *= nb[a] - 1 if A >> a & 1 else int((~on[a]).sum())
+        assert kept == int((mask == A).sum()), A
+    assert (nbytes, threads) == (4 * slots, entries)
+    if nc == (42, 42, 42) and P == 6:
+        assert (nbytes, threads) == (34295792, 4060559)
+        assert int((mask > 0).sum()) == 3626917
+
+
+def _march_cases():
+    out = []
+    for P in (1, 2, 3, 4, 5, 6):
+        for nc in ((5, 7, 11), (3, 13, 9), (1, 3, 2)):
+            out.append((P, nc))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,nc", _march_cases())
+def test_cuda_march_awkward_shapes(cuda_device, monkeypatch, P, nc):
+    """K-A on Gt and K-B against their plain versions (relative max-norm
+    1e-5) at every degree, on extents off the box grid and an axis of one
+    cell, mixed Dirichlet faces, apply_bc on and off, on the plan's box
+    and on boxes that put faces between blocks along every axis."""
+    tm = TMesh(nc, dirichlet_faces=MIXED)
+    k_a = tlb.PallasLatticeBlocked(tm, P, kappa=2.0, device=cuda_device)
+    k_b = tlb.PallasLatticeBlocked(tm, P, kappa=2.0, variant="geom",
+                                   device=cuda_device)
+    x = torch.tensor(np.random.default_rng(P).standard_normal(k_a.ndofs),
+                     dtype=torch.float32, device=cuda_device)
+    D1 = k_a.mats["D1"]
+    ref = {bc: (tlb.plain_lattice_apply(x, k_a.mats, k_a.Gt, k_a.bc_marker,
+                                        bc),
+                tlb.plain_lattice_apply_geom(x, k_b.mats, k_b.co,
+                                             k_b.bc_marker, nc, P, bc))
+           for bc in (True, False)}
+    for box in (None, (1, 1, 1), (2, 1, 2), (1, 2, 1), (2, 2, 2)):
+        if box is not None:
+            _on_box(monkeypatch, P, box)
+        plan = tlb.lattice_plan(nc, P)
+        for apply_bc in (True, False):
+            before = dict(tlb.LAUNCHES)
+            y = tlb.lattice_apply(x, k_a.bc_marker, k_a.Gt, D1, nc, P,
+                                  apply_bc)
+            assert _rel_max(y, ref[apply_bc][0]) <= 1e-5, (plan, apply_bc)
+            if plan[1] * plan[2] * (P + 1) ** 2 <= tlb.max_threads(
+                    P, "lattice_apply_geom"):
+                y = tlb.lattice_apply_geom(x, k_b.bc_marker, k_b.co, D1, nc,
+                                           P, k_b._xi, k_b._wx, apply_bc)
+                assert _rel_max(y, ref[apply_bc][1]) <= 1e-5, (plan,
+                                                               apply_bc)
+            assert tlb.LAUNCHES["lattice_apply"] == \
+                before["lattice_apply"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zb", [1, 2, 3, 6])
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5, 6])
+def test_cuda_march_zgrp_shapes(cuda_device, monkeypatch, P, zb):
+    """K-A on the z-grouped Gz against its plain version (1e-5) and
+    bitwise against K-A on Gt on the same box, on the plan's box and on
+    smaller ones (at zb=6 boxes shorter than the z-group), mixed faces,
+    apply_bc on and off."""
+    nc = (3, 5, 6)
+    tm = TMesh(nc, dirichlet_faces=MIXED)
+    k_z = tlb.PallasLatticeBlocked(tm, P, kappa=2.0, variant="zgrp", zb=zb,
+                                   device=cuda_device)
+    k_a = tlb.PallasLatticeBlocked(tm, P, kappa=2.0, device=cuda_device)
+    x = torch.tensor(np.random.default_rng(10 + P).standard_normal(
+        k_z.ndofs), dtype=torch.float32, device=cuda_device)
+    D1 = k_a.mats["D1"]
+    for box in (None, (1, 1, 1), (2, 2, 2)):
+        if box is not None:
+            _on_box(monkeypatch, P, box)
+        plan = tlb.lattice_plan(nc, P, zb)
+        assert zb % plan[2] == 0
+        ys = {}
+        for apply_bc in (True, False):
+            ys[apply_bc] = tlb.lattice_apply_zgrp(x, k_z.bc_marker, k_z.Gz,
+                                                  D1, nc, P, zb, apply_bc)
+            ref = tlb.plain_lattice_apply_zgrp(x, k_z.mats, k_z.Gz,
+                                               k_z.bc_marker, nc, P, zb,
+                                               apply_bc)
+            assert _rel_max(ys[apply_bc], ref) <= 1e-5, (plan, apply_bc)
+        _on_box(monkeypatch, P, plan)
+        assert tlb.lattice_plan(nc, P) == plan
+        for apply_bc in (True, False):
+            assert torch.equal(ys[apply_bc], tlb.lattice_apply(
+                x, k_a.bc_marker, k_a.Gt, D1, nc, P, apply_bc)), plan
+
+
+@pytest.mark.cuda
+def test_cuda_march_same_bits_and_scratch_per_call(cuda_device,
+                                                   monkeypatch):
+    """Two applies of the same input give the same bits (the fold sums
+    in a fixed order, no atomics); an apply keeps only its output (the
+    face scratch comes from the caching allocator per call, never a
+    cell-expanded lattice), so applies on two streams at once and a first
+    apply inside a CUDA graph capture give the same bits too; a box over
+    the kernel's thread cap is refused at launch."""
+    nc, P = (6, 5, 7), 3
+    tm = TMesh(nc, dirichlet_faces=MIXED)
+    k_a = tlb.PallasLatticeBlocked(tm, P, kappa=2.0, device=cuda_device)
+    k_b = tlb.PallasLatticeBlocked(tm, P, kappa=2.0, variant="geom",
+                                   device=cuda_device)
+    x = torch.tensor(np.random.default_rng(3).standard_normal(k_a.ndofs),
+                     dtype=torch.float32, device=cuda_device)
+    for op in (k_a, k_b):
+        y1 = op(x)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        y2 = op(x)
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2)
+        assert torch.cuda.memory_allocated() - base <= -(-4 * x.numel()
+                                                         // 512) * 512
+        streams = (torch.cuda.Stream(), torch.cuda.Stream())
+        ys = []
+        for s in streams:
+            with torch.cuda.stream(s):
+                ys.append(op(x))
+        torch.cuda.synchronize()
+        assert all(torch.equal(y, y1) for y in ys)
+    y_a = k_a(x)
+    monkeypatch.setattr(tlb, "_RECORDS", {})
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g = k_a(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y_g, y_a)
+    _on_box(monkeypatch, P, (6, 7, 7))         # 5 x 7 cells: 560 threads
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k_a(x)
