@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent PARENT_CHECKOUT]
 
 Runs from the root of a checkout, builds the port's CUDA kernels from
 its sources and drives the flagship solve (unfused, with the fused
@@ -145,16 +145,24 @@ failure; nothing is caught.
    Dirichlet/Neumann case, the FDM solve at B in {1, 8, 64}; relative
    max-norm <= 1e-5 against the plain torch versions; ``apply(solve(b))``
    equals ``b`` to 1e-4; CUDA-event times in turns plain, kernel,
-   kernel, plain.
+   kernel, plain; each kernel's device time (`graph_ms`) at each B beside
+   its bound, its kernels per call (profiler) and host us per call at
+   B=1, and both launch plans. With ``--parent DIR`` (a parent checkout,
+   e.g. ``git archive`` unpacked under ``build/``) the parent's package
+   is timed in the same process, in turns (parent, change, change,
+   parent), with its kernels and host us per call, and whether both give
+   the same bits.
 11. Serving path, the README's configuration (61^3, p=6): heat CN
    (``heat_packed_evolve``, dt=1e-3, 2000 steps) at B=1 and B=8, wave
    leapfrog (``wave_packed_evolve``, 0.72 x ``wave_stable_dt``, 2000
    steps) at B=1 and B=8 and Newmark at B=1: L2 error against the
-   analytic mode, column-steps/s, the device busy share under
-   ``torch.profiler``, the launches of both kernels (each must rise);
-   in-card reference: the same evolve with the plain versions agrees to
-   1e-4 relative (heat over 200 steps: after 2000 the CN state is below
-   float32 range).
+   analytic mode, column-steps/s, kernels and device busy ms per step
+   under ``torch.profiler`` with the idle share, the launches of both
+   kernels (each must rise); in-card reference: the same evolve with the
+   plain versions agrees to 1e-4 relative (heat over 200 steps: after
+   2000 the CN state is below float32 range). With ``--parent``, each
+   configuration's profiled steps also run on the parent's package, in
+   turns.
 12. The JAX bench's ``heat_cn_2M`` recipe: ``heat_fdm_evolve`` on
    ``BoxMesh((42,42,42))``, p=3 (2,048,383 dofs), CN, dt=1e-4, f32,
    kappa=2 (plain torch): steps/s as the slope between 200 and 1000
@@ -168,10 +176,13 @@ Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
 PyTorch call computes the same function, and its bound: bytes over 3.35
 TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#4, #9, #10,
-#11 and the lattice kernels #13-#17 add their device times as
-``device_ms*`` keys, the transfers and the lattice kernels per V-cycle
-shape beside ``bound_ms_by_shape``, the lattice kernels with their box
-and face scratch) and, only when every phase passed, the last line
+#11, the lattice kernels #13-#17 and the serving kernels #18-#21 add
+their device times as ``device_ms*`` keys, the transfers and the lattice
+kernels per V-cycle shape beside ``bound_ms_by_shape``, the lattice
+kernels with their box and face scratch, the serving kernels per batch
+beside ``bound_ms_by_batch``, with their kernels and host us per call
+and, with ``--parent``, the parent's device times) and, only when every
+phase passed, the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -1354,22 +1365,81 @@ def parent_gate(tag, rel, niter, rtol=1e-3):
 
 PACKED_NC = (10, 10, 10)     # 61^3 at p=6: 226,981 dofs, the serving size
 PACKED_P = 6
+PACKED_BATCHES = (1, 8, 64)  # B=64 (58 MB) is more than the card's L2
 MIXED = ((True, False), (False, False), (True, True))
 
 
-def packed_parity():
+def load_parent(root):
+    """The ``pmg_dolfinx_tpu_torch`` package of the checkout at ``root``,
+    imported as ``pmg_parent`` (its kernels build from its own sources
+    into its own ``build/``), or None without ``root``."""
+    if root is None:
+        return None
+    sys.path.insert(0, str(ROOT / "tools"))
+    from host_cost_torch import load
+
+    return load(root, "pmg_parent")
+
+
+def packed_ops(pkg, mesh, P, B, U):
+    """{kernel: (call, the call's operand dict)} of the serving classes of
+    package ``pkg`` (a module) at batch ``B`` on ``U`` (sigma = 0):
+    the single classes at B = 1, the batch classes above."""
+    kp = importlib.import_module(f"{pkg.__name__}.ops.kron_packed")
+    if B == 1:
+        op = kp.PackedKronSingle(mesh, P, kappa=2.0, device="cuda")
+        fdm = kp.PackedFDMSingle(mesh, P, kappa=2.0, device="cuda")
+        return {"packed_apply": (lambda: op.apply_packed(U[0])[None], op),
+                "packed_fdm": (lambda: fdm.solve_packed(U[0])[None], fdm)}
+    op = kp.PackedKronBatch(mesh, P, kappa=2.0, B=B, device="cuda")
+    fdm = kp.PackedFDMBatch(mesh, P, kappa=2.0, B=B, device="cuda")
+    return {"packed_apply": (lambda: op.apply_packed(U), op),
+            "packed_fdm": (lambda: fdm.solve_packed(U), fdm)}
+
+
+def kernels_per_call(fn, counts=None, windows=5):
+    """The kernels one call of ``fn`` launches: the most any of
+    ``windows`` one-call `profile_busy` windows shows (the profiler can
+    leave a window's first kernels out, never add one), or None when every
+    window came back empty (late in a long process, §7 of PERF.md);
+    ``counts`` gets that window's {kernel name: launches}."""
+    best, best_counts = 0, {}
+    for _ in range(windows):
+        c = {}
+        n = profile_busy(fn, c)[2]
+        if n > best:
+            best, best_counts = n, c
+    if counts is not None:
+        counts.update(best_counts)
+    return best or None
+
+
+def packed_parity(parent=None):
     """Phase 10: both serving kernels through the four classes at 61^3;
-    returns {kernel: (max_abs_err, ms, plain_ms)} at B=8."""
+    returns ({kernel: (max_abs_err, ms, plain_ms)} at B=8, {kernel: the
+    kernels line's extra keys}): device time (`graph_ms`) at each batch
+    of `PACKED_BATCHES` beside the bound, kernels per call (profiler),
+    host us per call at B=1, and, with the parent's package ``parent``,
+    the parent's device time in turns (parent, change, change, parent),
+    its kernels and host us per call, and whether both give the same
+    bits."""
     import numpy as np
     import torch
 
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
     from pmg_dolfinx_tpu_torch.ops import kron_packed as kp
 
+    import pmg_dolfinx_tpu_torch as this
+
     P = PACKED_P
     mesh = BoxMesh(PACKED_NC)
     shape, n = mesh.lattice_shape(P), mesh.num_dofs(P)
     out = {"packed_apply": [0.0, None, None], "packed_fdm": [0.0, None, None]}
+    extra = {k: {"device_ms_by_batch": {}, "bound_ms_by_batch": {},
+                 "bound_share_by_batch": {}, "plain_ms_by_batch": {},
+                 "parent_device_ms_by_batch": {} if parent else None,
+                 "same_bits_as_parent_by_batch": {} if parent else None}
+             for k in out}
 
     def check(name, tag, got, ref, tol=KERNEL_RTOL):
         torch.cuda.synchronize()
@@ -1380,7 +1450,7 @@ def packed_parity():
             raise AssertionError(f"{tag}: relative max-norm error {err:.3e} "
                                  f"> {tol}")
 
-    for B in (1, 8, 64):
+    for B in PACKED_BATCHES:
         rng = np.random.default_rng(SEED + B)
         U = torch.tensor(rng.standard_normal((B,) + shape, dtype=np.float32),
                          device="cuda")
@@ -1397,14 +1467,8 @@ def packed_parity():
             ops[sigma] = op
             check("packed_apply", f"{type(op).__name__} B={B} sigma={sigma:g}",
                   got, kp.plain_packed_apply(U, op.mats, sigma))
-        if B == 1:
-            fdm = kp.PackedFDMSingle(mesh, P, kappa=2.0, device="cuda")
-            solve = lambda: fdm.solve_packed(U[0])[None]
-            apply = lambda: ops[0.0].apply_packed(U[0])[None]
-        else:
-            fdm = kp.PackedFDMBatch(mesh, P, kappa=2.0, B=B, device="cuda")
-            solve = lambda: fdm.solve_packed(U)
-            apply = lambda: ops[0.0].apply_packed(U)
+        calls = packed_ops(this, mesh, P, B, U)
+        solve, fdm = calls["packed_fdm"]
         check("packed_fdm", f"{type(fdm).__name__} B={B}", solve(),
               kp.plain_packed_fdm(U, fdm.mats))
         x = ops[0.0].pack(solve()) if B > 1 else solve()
@@ -1415,21 +1479,64 @@ def packed_parity():
         print(f"    B={B}: apply(solve(b)) vs b: rel max err {inv:.3e}")
         if not inv <= 1e-4:
             raise AssertionError(f"the FDM is not the apply's inverse: {inv}")
-        for name, kern, plain in (
-                ("packed_apply", apply,
-                 lambda: kp.plain_packed_apply(U, ops[0.0].mats)),
-                ("packed_fdm", solve,
-                 lambda: kp.plain_packed_fdm(U, fdm.mats))):
+        pcalls = packed_ops(parent, mesh, P, B, U) if parent else None
+        for name, (kern, obj) in calls.items():
+            plain = ((lambda: kp.plain_packed_apply(U, obj.mats))
+                     if name == "packed_apply" else
+                     (lambda: kp.plain_packed_fdm(U, obj.mats)))
             ms_k, ms_p, four = turns(plain, kern)
-            what = (f"{B * n / ms_k / 1e6:.3f} GDOF/s per RHS"
-                    if name == "packed_apply" else
-                    f"{ms_k / B:.5f} ms per RHS solve")
-            print(f"    B={B} {name}: kernel {ms_k:.4f} ms vs plain "
-                  f"{ms_p:.4f} ms (turns {[round(t, 4) for t in four]}); "
-                  f"{what} (plain {B * n / ms_p / 1e6:.3f} GDOF/s, "
-                  f"{ms_p / B:.5f} ms per RHS)")
+            bound, by = kernel_bound(name, n, P, B=B, dims=shape)
+            e = extra[name]
+            if pcalls:
+                par = pcalls[name][0]
+                p1, d1, d2, p2 = (graph_ms(par), graph_ms(kern),
+                                  graph_ms(kern), graph_ms(par))
+                dev, pdev = (d1 + d2) / 2, (p1 + p2) / 2
+                same = bool(torch.equal(kern(), par()))
+                e["parent_device_ms_by_batch"][str(B)] = pdev
+                e["same_bits_as_parent_by_batch"][str(B)] = same
+                vs = (f"; parent {pdev:.4f} ms (turns {p1:.4f}, {d1:.4f}, "
+                      f"{d2:.4f}, {p2:.4f}), same bits {same}")
+            else:
+                dev, vs = graph_ms(kern), ""
+            e["device_ms_by_batch"][str(B)] = dev
+            e["bound_ms_by_batch"][str(B)] = bound
+            e["bound_share_by_batch"][str(B)] = bound / dev
+            e["plain_ms_by_batch"][str(B)] = ms_p
+            print(f"    B={B} {name}: device {dev:.4f} ms, bound {bound:.4f} "
+                  f"ms ({by}), {bound / dev:.0%} of it{vs}; host-issued "
+                  f"{ms_k:.4f} ms vs plain {ms_p:.4f} ms (turns "
+                  f"{[round(t, 4) for t in four]}); "
+                  f"{B * n / dev / 1e6:.3f} GDOF/s, {dev / B:.5f} ms per RHS")
             if B == 8:
                 out[name][1:] = [ms_k, ms_p]
+                e["device_ms"] = dev
+            if B == 1:
+                counts = {}
+                nk = kernels_per_call(kern, counts)
+                e["kernels_per_call"] = nk
+                e["host_us_per_call"] = host_us(kern)
+                kpc = ("kernels per call not measured (empty profiler "
+                       "windows)" if nk is None else
+                       f"{nk} kernels per call ("
+                       + ", ".join(k[:32] for k in counts) + ")")
+                line = (f"    B=1 {name}: {kpc}, host "
+                        f"{e['host_us_per_call']:.2f} us per call")
+                if pcalls:
+                    par = pcalls[name][0]
+                    e["parent_kernels_per_call"] = kernels_per_call(par)
+                    e["parent_host_us_per_call"] = host_us(par)
+                    line += (f"; parent {e['parent_kernels_per_call']} "
+                             f"kernels, {e['parent_host_us_per_call']:.2f} us")
+                print(line)
+    for B in (1, 8, 64):
+        print("    " + ", ".join(
+            f"{k} launch plan at B={B}: {v}" for k, v in (
+                ("packed_apply", kp.apply_plan(
+                    B, shape, PACKED_P, kp._sms(torch.device("cuda", 0)),
+                    kp._resident(torch.device("cuda", 0), PACKED_P,
+                                 shape[2], shape[0]))),
+                ("packed_fdm", kp.fdm_launch_plan(B, shape)))))
     mixed = BoxMesh(PACKED_NC, dirichlet_faces=MIXED)
     U = torch.tensor(np.random.default_rng(SEED).standard_normal(
         (8,) + shape, dtype=np.float32), device="cuda")
@@ -1441,23 +1548,27 @@ def packed_parity():
           op.apply_packed(U), kp.plain_packed_apply(U, op.mats, 1e3))
     check("packed_fdm", "mixed faces PackedFDMBatch B=8 sigma=1e3",
           fdm.solve_packed(U), kp.plain_packed_fdm(U, fdm.mats))
-    return {k: tuple(v) for k, v in out.items()}
+    return {k: tuple(v) for k, v in out.items()}, extra
 
 
 SERVING_STEPS = 2000
+SERVING_CONFIGS = (("heat", 1), ("heat", 8), ("leapfrog", 1), ("leapfrog", 8),
+                   ("newmark", 1))
 
 
-def serving_path():
+def serving_path(parent=None):
     """Phase 11: the README's serving configuration; returns the launches
-    of both kernels over the timed and profiled runs."""
+    of both kernels over the timed and profiled runs. With the parent's
+    package ``parent``, each configuration's 100 profiled steps also run
+    on it, in turns (change, parent, parent, change)."""
     import numpy as np
     import torch
 
     from pmg_dolfinx_tpu_torch.fem.assembly import l2_error
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
     from pmg_dolfinx_tpu_torch.ops import kron_packed as kp
-    from pmg_dolfinx_tpu_torch.solvers.transient import (
-        heat_packed_evolve, wave_packed_evolve, wave_stable_dt)
+    from pmg_dolfinx_tpu_torch.solvers import transient
+    from pmg_dolfinx_tpu_torch.solvers.transient import wave_stable_dt
 
     P, kappa = PACKED_P, 2.0
     mesh = BoxMesh(PACKED_NC)
@@ -1469,20 +1580,21 @@ def serving_path():
     lam, omega = 3.0 * np.pi**2 * kappa, np.pi * np.sqrt(3.0 * kappa)
     print(f"    mesh {PACKED_NC} p={P} ({n} dofs); wave dt {dt_wave:.4e} "
           "(0.72 x wave_stable_dt)")
+    ptr = (importlib.import_module(f"{parent.__name__}.solvers.transient")
+           if parent else None)
     total = {"packed_apply": 0, "packed_fdm": 0}
-    for kind, B in (("heat", 1), ("heat", 8), ("leapfrog", 1),
-                    ("leapfrog", 8), ("newmark", 1)):
+    for kind, B in SERVING_CONFIGS:
         heat = kind == "heat"
         dt = 1e-3 if heat else dt_wave
         U0 = torch.tensor(np.broadcast_to(u0, (B, n)), dtype=torch.float32,
                           device="cuda")
 
-        def make():
+        def make(mod=transient):
             if heat:
-                return heat_packed_evolve(mesh, P, kappa=kappa, dt=dt, B=B,
-                                          scheme="cn", device="cuda")
-            return wave_packed_evolve(mesh, P, kappa=kappa, dt=dt, B=B,
-                                      scheme=kind, device="cuda")
+                return mod.heat_packed_evolve(mesh, P, kappa=kappa, dt=dt,
+                                              B=B, scheme="cn", device="cuda")
+            return mod.wave_packed_evolve(mesh, P, kappa=kappa, dt=dt, B=B,
+                                          scheme=kind, device="cuda")
 
         def run(ev, k):
             return ev(U0, k) if heat else ev(U0, torch.zeros_like(U0), k)[0]
@@ -1518,6 +1630,17 @@ def serving_path():
               f"busy {busy / 100:.4f} ms/step ({nk / 100:.0f} kernels/step; "
               f"idle {max(0.0, 1 - busy / pw):.1%}); top: "
               + ", ".join(f"{k[:40]} {v / 100:.4f}" for k, v in top))
+        if ptr is not None:
+            pev = make(ptr)
+            run(pev, 20)
+            rows = []
+            for who, e in (("change", ev), ("parent", pev), ("parent", pev),
+                           ("change", ev)):
+                pw2, busy2, nk2, _ = profile_busy(lambda: run(e, 100))
+                rows.append(f"{who} {nk2 / 100:.0f} kernels/step, busy "
+                            f"{busy2 / 100:.4f} ms/step, wall "
+                            f"{pw2 / 100:.4f} ms/step")
+            print("      in turns: " + "; ".join(rows))
         if not err < 1e-2:
             raise AssertionError(f"{tag}: L2 error {err}")
         need = ("packed_fdm",) if heat else (
@@ -2163,9 +2286,16 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
 
 
 def main():
+    import argparse
+
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="root of a parent checkout: phases 10-11 also time "
+                    "its serving kernels and steppers, in turns")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
@@ -2174,6 +2304,7 @@ def main():
                          "of a checkout")
     sys.path.insert(0, str(ROOT))
 
+    parent = load_parent(args.parent)
     t0 = phase("1. environment")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2626,11 +2757,13 @@ def main():
     done(t0)
 
     t0 = phase("10. serving kernel parity vs plain torch: 61^3, p=6")
-    main_shape.update(packed_parity())
+    res_p, extra_p = packed_parity(parent)
+    main_shape.update(res_p)
+    extra.update(extra_p)
     done(t0)
 
     t0 = phase("11. serving path: heat CN and wave at 61^3, p=6, B=1 and 8")
-    launches.update(serving_path())
+    launches.update(serving_path(parent))
     print(f"    kernel launches on the serving path: "
           f"packed_apply {launches['packed_apply']}, packed_fdm "
           f"{launches['packed_fdm']}")

@@ -21,11 +21,17 @@ not have, so the port keeps the functions and drops the packing:
 `packed_apply` and `packed_fdm` are the entry points: on a CPU tensor they
 run `plain_packed_apply` / `plain_packed_fdm` (torch einsums, what the
 tests compare with JAX); on a CUDA tensor they launch the kernels of
-`csrc/kron_packed.cu` (one launch sequence for the whole batch) or raise.
-The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/`` (`ops.cuda_build`) and bound through a plain C
-interface with `ctypes`. `LAUNCHES` counts the launches of each entry
-point.
+`csrc/kron_packed.cu` or raise: the apply is one launch (an x-march,
+on the chunk `apply_plan` picks once per shape), the solve three (the x
+transform, the four y/z transforms of each x-slab in shared memory, the
+x transform back with the Dirichlet epilogue) through one padded scratch
+batch. The kernels are built with ``nvcc`` for ``sm_90a`` at first use
+into ``build/kernels/`` (`ops.cuda_build`) and bound through a plain C
+interface with `ctypes`. `LAUNCHES` counts the calls of each entry point.
+
+`kron_mats` and `fdm_mats` check the fixed operands once and lay them
+out for the kernels (`band_rows`, `kmajor`, `fdm_layout`); a call checks
+only its batch.
 
 The factors are built as the JAX package builds them: from the float32
 `KronLaplacian`'s ``Ks``/``ms`` converted to float64 (`_embed_ends` /
@@ -44,26 +50,41 @@ import numpy as np
 import torch
 
 from .cuda_build import build_and_load
-from .cuda_build import check_operand as _check
 from .cuda_build import find_nvcc as _find_nvcc
+from .cuda_build import on_device as _on_device
 from .cuda_build import ptr as _ptr
 from .cuda_build import stream_of
 from .kron_blocked import _check_precision
+from .transfer import _sms
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "kron_packed.cu"
 
-# Launches of each entry point since the last reset (one per call on CUDA
-# tensors: three kernel passes for an apply, five for a solve).
+# Calls of each entry point on CUDA tensors since the last reset, one per
+# call (an apply is one kernel launch, a solve three).
 LAUNCHES = {"packed_apply": 0, "packed_fdm": 0}
 
 # The loaded library, the compiler's output of the build that made it, and
-# the extents it is compiled for (max NX and NY, max NZ, max B).
+# the extents it is compiled for (max NX and NY, max NZ, max B, the widest
+# band the apply march holds in registers).
 _lib = None
 BUILD_LOG = ""
 _LIMITS = None
 
+# The apply march (csrc/kron_packed.cu): threads per block, and what a
+# step over a halo plane costs against an output plane (it loads and
+# converts the plane but sums nothing), the plan's estimate.
+APPLY_THREADS = 512
+HALO_STEP_COST = 0.3
+# Launch plans by (B, NX, NY, NZ, band, SMs, resident blocks per SM), and
+# resident march blocks per SM by (device, band, NZ).
+_PLANS = {}
+_RESIDENT = {}
+
 KRON_KEYS = ("Ktx", "Kty", "Ktz", "sxy", "sz", "bc")
 FDM_KEYS = ("Vxt", "Vx", "Vyt", "Vy", "Vzt", "Vz", "dinv", "bc")
+# The operands each kernel call passes, in the C entry points' order.
+KRON_FIXED = ("bcq", "sxy", "sz", "Kxb", "Kyb", "Kzb")
+FDM_FIXED = ("bcp", "Lxf", "Lxb", "Lyf", "Lyb", "Rzf", "Rzb", "dinvp")
 
 
 def _round_up(v, m):
@@ -131,14 +152,72 @@ def _band(*mats):
     return band
 
 
+def band_pad(band):
+    """The length of a band row: ``2 band + 1`` rounded up to whole
+    float4s."""
+    return _round_up(2 * int(band) + 1, 4)
+
+
+def band_rows(K, band):
+    """The band of the square ``K`` as float32 rows ``(n, band_pad(band))``:
+    row ``a`` holds ``K[a, a - band + d]`` for ``d <= 2 band``, zero
+    outside the matrix and in the padding."""
+    K = np.asarray(K, np.float32)
+    n = K.shape[0]
+    out = np.zeros((n, band_pad(band)), np.float32)
+    a = np.arange(n)
+    for d in range(2 * band + 1):
+        c = a - band + d
+        ok = (c >= 0) & (c < n)
+        out[a[ok], d] = K[a[ok], c[ok]]
+    return out
+
+
+def kmajor(M, rows, cols):
+    """``M^T`` as a float32 ``(rows, cols)`` array, zero-padded: row ``k``
+    holds ``M[:, k]``, the layout the FDM kernels' products stage."""
+    Mt = np.asarray(M, np.float32).T
+    out = np.zeros((rows, cols), np.float32)
+    out[:Mt.shape[0], :Mt.shape[1]] = Mt
+    return out
+
+
+def fdm_layout(shape):
+    """``(NXp, NYp, NZp)``: the extents rounded up to whole float4s. The
+    FDM's scratch batch is ``(B, NX, NY, NZp)``."""
+    return tuple(_round_up(int(n), 4) for n in shape)
+
+
+def _expect(arrays, shapes, who):
+    """Raise ValueError unless each array has its shape in ``shapes``."""
+    for k, want in shapes.items():
+        got = tuple(np.shape(arrays[k]))
+        if got != tuple(want):
+            raise ValueError(f"{who}: {k} has shape {got}, expected "
+                             f"{tuple(want)}")
+
+
 def kron_mats(Ktx, Kty, Ktz, sxy, sz, bc, *, device):
     """The apply's operands as float32 tensors (``bc`` bool) on ``device``:
     ``Ktx``/``Kty``/``Ktz`` the symmetrized per-axis stiffness (``y = Kt w``
     along the axis), ``sxy[(NX, NY)]`` and ``sz[(NZ,)]`` the separable
     sqrt-mass scale, ``bc[(NX, NY, NZ)]`` the Dirichlet marker; ``band``
-    is the half-bandwidth of the three matrices (the kernels' k loops)."""
-    out = _f32(dict(Ktx=Ktx, Kty=Kty, Ktz=Ktz, sxy=sxy, sz=sz), bc, device)
-    out["band"] = _band(Ktx, Kty, Ktz)
+    is the half-bandwidth of the three matrices, and ``Kxb``/``Kyb``/
+    ``Kzb`` their band rows (`band_rows`) and ``bcq`` the marker as uint8
+    padded to whole 16-byte rows along z, the kernel's layout. Raises
+    ValueError on operands whose shapes disagree."""
+    NX, NY, NZ = _lattice_of(bc, "kron_mats")
+    arrays = dict(Ktx=Ktx, Kty=Kty, Ktz=Ktz, sxy=sxy, sz=sz)
+    _expect(arrays, dict(Ktx=(NX, NX), Kty=(NY, NY), Ktz=(NZ, NZ),
+                         sxy=(NX, NY), sz=(NZ,)), "kron_mats")
+    band = _band(Ktx, Kty, Ktz)
+    out = _f32(dict(arrays, Kxb=band_rows(Ktx, band),
+                    Kyb=band_rows(Kty, band), Kzb=band_rows(Ktz, band)),
+               bc, device)
+    bcq = np.zeros((NX, NY, _round_up(NZ, 16)), np.uint8)
+    bcq[..., :NZ] = np.asarray(bc, bool)
+    out["bcq"] = torch.from_numpy(bcq).to(device)
+    out["band"] = band
     return out
 
 
@@ -146,9 +225,38 @@ def fdm_mats(Vxt, Vx, Vyt, Vy, Vzt, Vz, dinv, bc, *, device):
     """The direct solve's operands as float32 tensors (``bc`` bool): the
     embedded eigenvector matrices (forward ``V*t``, backward ``V*``, each
     contracting as ``y = V w`` along its axis), ``dinv[(NX, NY, NZ)]``
-    and the Dirichlet marker."""
-    return _f32(dict(Vxt=Vxt, Vx=Vx, Vyt=Vyt, Vy=Vy, Vzt=Vzt, Vz=Vz,
-                     dinv=dinv), bc, device)
+    and the Dirichlet marker; and the kernels' layouts of them: ``Lxf``,
+    ``Lxb`` ``(NX, NXp)``, ``Lyf``, ``Lyb`` ``(NY, NYp)``, ``Rzf``,
+    ``Rzb`` ``(NZp, NZp)`` the k-major transposes (`kmajor`) of ``Vxt``,
+    ``Vx``, ``Vyt``, ``Vy``, ``Vzt``, ``Vz``, and ``dinvp`` ``dinv``
+    zero-padded to ``(NX, NY, NZp)`` (`fdm_layout`), ``bcp`` the marker
+    as uint8 padded the same way. Raises ValueError on operands whose
+    shapes disagree."""
+    NX, NY, NZ = _lattice_of(bc, "fdm_mats")
+    arrays = dict(Vxt=Vxt, Vx=Vx, Vyt=Vyt, Vy=Vy, Vzt=Vzt, Vz=Vz, dinv=dinv)
+    _expect(arrays, dict(Vxt=(NX, NX), Vx=(NX, NX), Vyt=(NY, NY),
+                         Vy=(NY, NY), Vzt=(NZ, NZ), Vz=(NZ, NZ),
+                         dinv=(NX, NY, NZ)), "fdm_mats")
+    NXp, NYp, NZp = fdm_layout((NX, NY, NZ))
+    dinvp = np.zeros((NX, NY, NZp), np.float32)
+    dinvp[..., :NZ] = np.asarray(dinv, np.float32)
+    bcp = np.zeros((NX, NY, NZp), np.uint8)
+    bcp[..., :NZ] = np.asarray(bc, bool)
+    out = _f32(dict(arrays, Lxf=kmajor(Vxt, NX, NXp),
+                    Lxb=kmajor(Vx, NX, NXp), Lyf=kmajor(Vyt, NY, NYp),
+                    Lyb=kmajor(Vy, NY, NYp), Rzf=kmajor(Vzt, NZp, NZp),
+                    Rzb=kmajor(Vz, NZp, NZp), dinvp=dinvp), bc, device)
+    out["bcp"] = torch.from_numpy(bcp).to(device)
+    return out
+
+
+def _lattice_of(bc, who):
+    """The lattice ``(NX, NY, NZ)`` of the marker ``bc``."""
+    shape = tuple(np.shape(bc))
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"{who}: bc must be a (NX, NY, NZ) marker, got "
+                         f"shape {shape}")
+    return shape
 
 
 def _f32(arrays, bc, device):
@@ -215,12 +323,18 @@ def load_kernels():
         return _lib
     lib, BUILD_LOG = build_and_load(_SRC, "kron_packed", _find_nvcc)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.packed_apply_launch.argtypes = [vp] * 9 + [ci] * 5 + [cf, vp]
+    lib.packed_apply_launch.argtypes = [vp] * 8 + [ci] * 6 + [cf, vp]
     lib.packed_apply_launch.restype = ci
-    lib.packed_fdm_launch.argtypes = [vp] * 12 + [ci] * 4 + [vp]
+    lib.packed_fdm_launch.argtypes = [vp] * 11 + [ci] * 4 + [vp]
     lib.packed_fdm_launch.restype = ci
+    lib.packed_fdm_plan.argtypes = [ci] * 4 + [ctypes.POINTER(
+        ctypes.c_longlong)]
+    lib.packed_fdm_plan.restype = ci
+    lib.packed_apply_resident.argtypes = [ci] * 3
+    lib.packed_apply_resident.restype = ci
     limits = []
-    for name in ("packed_max_n", "packed_max_nz", "packed_max_batch"):
+    for name in ("packed_max_n", "packed_max_nz", "packed_max_batch",
+                 "packed_max_band_march"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
         limits.append(getattr(lib, name)())
@@ -229,44 +343,120 @@ def load_kernels():
     return lib
 
 
-def _check_batch(X, m, keys):
-    """Check a kernel call's operands; returns ``(lib, B, NX, NY, NZ)``."""
+def apply_plan(B, shape, band, sms, resident=1):
+    """The apply march's launch shape on a card of ``sms`` SMs holding
+    ``resident`` march blocks each: ``{"lanes", "rows", "chunk", "grid"}``.
+    A block of `APPLY_THREADS` threads, two z values each, owns a tile of
+    ``rows`` y-rows and ``lanes`` z values (32 or 64, the z extent
+    rounded up), marching over ``chunk`` x-planes plus a ``band``-plane
+    halo each side. The chunk minimises waves x steps per block (a halo
+    step weighs `HALO_STEP_COST`), the longer chunk on a tie: short
+    chunks fill the card at B = 1, one whole-x chunk reads the halo once
+    at large B."""
+    key = (B, *shape, band, sms, resident)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    NX, NY, NZ = shape
+    lanes = 32 if NZ <= 32 else 64
+    rows = APPLY_THREADS // (lanes // 2)
+    tiles = -(-NY // rows)
+    best = None
+    for nch in range(1, NX + 1):
+        chunk = -(-NX // nch)
+        if -(-NX // chunk) != nch:
+            continue
+        waves = -(-(tiles * nch * B) // (sms * resident))
+        cost = waves * (chunk + HALO_STEP_COST * 2 * band)
+        if best is None or cost < best[0]:
+            best = (cost, chunk, nch)
+    _, chunk, nch = best
+    plan = _PLANS[key] = {"lanes": lanes, "rows": rows, "chunk": chunk,
+                          "grid": (tiles, nch, B)}
+    return plan
+
+
+def _resident(device, band, NZ, NX):
+    """Resident apply-march blocks per SM of ``device`` (the CUDA occupancy
+    API, at the longest chunk's shared memory), read once."""
+    key = (device.index, band, NZ)
+    n = _RESIDENT.get(key)
+    if n is None:
+        n = load_kernels().packed_apply_resident(band, NZ, NX)
+        if n <= 0:
+            raise RuntimeError(f"packed_apply: the march at band {band} "
+                               f"does not fit an SM (CUDA error {-n})")
+        _RESIDENT[key] = n
+    return n
+
+
+def fdm_launch_plan(B, shape):
+    """The solve's launch plan on the current card (`csrc/kron_packed.cu`
+    ``fdm_plan``): the persistent grid, tile columns and shared bytes of
+    each x pass, the slab pass's grid, shared bytes, slab buffers and
+    whether two blocks share each slab."""
+    info = (ctypes.c_longlong * 10)()
+    rc = load_kernels().packed_fdm_plan(B, *shape, info)
+    if rc != 0:
+        raise RuntimeError(f"packed_fdm plan failed: CUDA error {rc}")
+    return dict(zip(("x_fwd_blocks", "x_fwd_columns", "x_bwd_blocks",
+                     "x_bwd_columns", "slab_blocks", "slab_buffers",
+                     "x_fwd_smem", "slab_smem", "x_bwd_smem", "slab_pairs"),
+                    list(info)))
+
+
+def _fixed(m, keys):
+    """The ctypes pointers of the fixed operands ``keys`` of ``m``, made
+    once per operand dict."""
+    ptrs = m.get("_ptrs")
+    if ptrs is None or ptrs[0] != keys:
+        ptrs = m["_ptrs"] = (keys, tuple(_ptr(m[k]) for k in keys))
+    return ptrs[1]
+
+
+def _check_batch(X, m):
+    """Check a kernel call's batch against its operands ``m`` (checked
+    when `kron_mats` / `fdm_mats` built them); returns ``(lib, B)``."""
     if X.device.type != "cuda":
         raise ValueError(
             f"the kron_packed kernels run on CUDA tensors, got {X.device}")
-    if X.ndim != 4:
-        raise ValueError(f"the batch must be (B, NX, NY, NZ), got {X.ndim}D")
-    B, NX, NY, NZ = X.shape
-    _check("x", X, X.shape, X.device)
-    shapes = dict(Ktx=(NX, NX), Kty=(NY, NY), Ktz=(NZ, NZ), sxy=(NX, NY),
-                  sz=(NZ,), Vxt=(NX, NX), Vx=(NX, NX), Vyt=(NY, NY),
-                  Vy=(NY, NY), Vzt=(NZ, NZ), Vz=(NZ, NZ), dinv=(NX, NY, NZ))
-    for k in keys:
-        if k == "bc":
-            _check(k, m[k], (NX, NY, NZ), X.device, torch.bool)
-        else:
-            _check(k, m[k], shapes[k], X.device)
+    if X.dtype != torch.float32:
+        raise TypeError(f"the batch must be torch.float32, got {X.dtype}")
+    bc = m["bc"]
+    if X.ndim != 4 or X.shape[1:] != bc.shape:
+        raise ValueError("the batch must be (B, "
+                         f"{', '.join(map(str, bc.shape))}), got "
+                         f"{tuple(X.shape)}")
+    if X.device != bc.device:
+        raise ValueError(f"the batch is on {X.device}, its operands on "
+                         f"{bc.device}")
+    if not X.is_contiguous():
+        raise ValueError("the batch must be contiguous")
     lib = load_kernels()
-    max_n, max_nz, max_b = _LIMITS
+    max_n, max_nz, max_b, _ = _LIMITS
+    B, NX, NY, NZ = X.shape
     if not (max(NX, NY) <= max_n and NZ <= max_nz and 1 <= B <= max_b):
         raise ValueError(
             f"batch {tuple(X.shape)} is outside what the kron_packed kernels "
             f"are compiled for (NX, NY <= {max_n}, NZ <= {max_nz}, "
             f"1 <= B <= {max_b})")
-    return lib, B, NX, NY, NZ
+    return lib, B
 
 
 def launch_packed_apply(X, m, sigma=0.0):
-    """Launch the apply kernels on a CUDA ``(B, NX, NY, NZ)`` batch."""
-    lib, B, NX, NY, NZ = _check_batch(X, m, KRON_KEYS)
-    t = torch.empty_like(X)
+    """Launch the apply kernel on a CUDA ``(B, NX, NY, NZ)`` batch."""
+    lib, B = _check_batch(X, m)
+    shape, band = tuple(X.shape[1:]), m["band"]
+    chunk = 1
+    if band <= _LIMITS[3]:
+        chunk = apply_plan(B, shape, band, _sms(X.device),
+                           _resident(X.device, band, shape[2],
+                                     shape[0]))["chunk"]
     out = torch.empty_like(X)
-    with torch.cuda.device(X.device):
+    with _on_device(X):
         rc = lib.packed_apply_launch(
-            _ptr(X), _ptr(m["bc"]), _ptr(m["sxy"]), _ptr(m["sz"]),
-            _ptr(m["Ktx"]), _ptr(m["Kty"]), _ptr(m["Ktz"]), _ptr(t),
-            _ptr(out), B, NX, NY, NZ, int(m["band"]), float(sigma),
-            stream_of(X))
+            _ptr(X), *_fixed(m, KRON_FIXED), _ptr(out), B, *shape, band,
+            chunk, float(sigma), stream_of(X))
     if rc != 0:
         raise RuntimeError(f"packed_apply launch failed: CUDA error {rc}")
     LAUNCHES["packed_apply"] += 1
@@ -276,16 +466,15 @@ def launch_packed_apply(X, m, sigma=0.0):
 def launch_packed_fdm(Bv, m):
     """Launch the direct-solve kernels on a CUDA ``(B, NX, NY, NZ)``
     batch."""
-    lib, B, NX, NY, NZ = _check_batch(Bv, m, FDM_KEYS)
-    t1 = torch.empty_like(Bv)
-    t2 = torch.empty_like(Bv)
+    lib, B = _check_batch(Bv, m)
+    NX, NY, NZ = Bv.shape[1:]
+    t = torch.empty((B, NX, NY, _round_up(NZ, 4)), dtype=torch.float32,
+                    device=Bv.device)
     out = torch.empty_like(Bv)
-    with torch.cuda.device(Bv.device):
+    with _on_device(Bv):
         rc = lib.packed_fdm_launch(
-            _ptr(Bv), _ptr(m["bc"]), _ptr(m["Vxt"]), _ptr(m["Vx"]),
-            _ptr(m["Vyt"]), _ptr(m["Vy"]), _ptr(m["Vzt"]), _ptr(m["Vz"]),
-            _ptr(m["dinv"]), _ptr(t1), _ptr(t2), _ptr(out), B, NX, NY, NZ,
-            stream_of(Bv))
+            _ptr(Bv), *_fixed(m, FDM_FIXED), _ptr(t), _ptr(out), B, NX, NY,
+            NZ, stream_of(Bv))
     if rc != 0:
         raise RuntimeError(f"packed_fdm launch failed: CUDA error {rc}")
     LAUNCHES["packed_fdm"] += 1

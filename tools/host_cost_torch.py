@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Host microseconds per launch of the port's `kron_t1` (#4) and
-`transfer_yz` (#11) wrappers, this checkout against another, in one
-process and in turns, on one NVIDIA GPU.
+"""Host microseconds per launch of the port's `kron_t1` (#4),
+`transfer_yz` (#11), `packed_apply` (#18/#20) and `packed_fdm` (#19/#21)
+wrappers, this checkout against another, in one process and in turns, on
+one NVIDIA GPU.
 
     python3 tools/host_cost_torch.py OTHER_CHECKOUT [--rounds 10]
 
 Imports this checkout's `pmg_dolfinx_tpu_torch` and the other's (under
 an alias), each building its kernels from its own sources, and times
 1000 enqueued launches of each wrapper at the fused V-cycle's largest
-shapes (`kron_t1` on 253^3 at band 6, `transfer_yz` on 253^3 -> 127^3),
-in turns this, other, other, this, ``--rounds`` times. Each package gets
+shapes (`kron_t1` on 253^3 at band 6, `transfer_yz` on 253^3 -> 127^3)
+and the serving kernels at B=1 (`PackedKronSingle.apply_packed`,
+`PackedFDMSingle.solve_packed` on 61^3, p=6), in turns this, other,
+other, this, ``--rounds`` times. Each package gets
 its own copies of the operands, since both cache on the tensors. Prints
 the card, then the median and least per launch of each wrapper.
 """
@@ -70,8 +73,16 @@ def launches(name, rng):
     _, My, MzT = tt.transfer_mats((I, I, I), "restrict")
     t = torch.tensor(rng.standard_normal((127, 253, 253), dtype=np.float32),
                      device="cuda")
+    kp = ops("kron_packed")
+    serving = importlib.import_module(f"{name}.fem.mesh").BoxMesh((10,) * 3)
+    op = kp.PackedKronSingle(serving, 6, device="cuda")
+    fdm = kp.PackedFDMSingle(serving, 6, device="cuda")
+    u = torch.tensor(rng.standard_normal(serving.lattice_shape(6),
+                                         dtype=np.float32), device="cuda")
     calls = {"kron_t1": lambda: kb.kron_t1(x, bc, mats, out=y),
-             "transfer_yz": lambda: tt.transfer_yz(t, My, MzT)}
+             "transfer_yz": lambda: tt.transfer_yz(t, My, MzT),
+             "packed_apply": lambda: op.apply_packed(u),
+             "packed_fdm": lambda: fdm.solve_packed(u)}
     for fn in calls.values():
         fn()
     return calls
