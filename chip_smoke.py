@@ -51,15 +51,21 @@ failure; nothing is caught.
    ``torch.einsum("ax,by,cz,xyz->abc")`` call, never used by the port)
    beside the bound; each kernel alone as device time (CUDA graph) at all
    four shapes beside its bound and library call (``torch.matmul`` /
-   ``torch.einsum("by,ayz,zc->abc")``), `transfer_yz`'s launch plan with
-   its shared memory and blocks per SM, and both wrappers' host us per
-   launch at 253^3 -> 127^3.
+   ``torch.einsum("by,ayz,zc->abc")``), both launch plans (`transfer_yz`'s
+   with its shared memory and blocks per SM), and both wrappers' host us
+   per launch at 253^3 -> 127^3. With ``--parent``, each kernel's device
+   time at each shape in turns with the parent's, and whether both give
+   the same bits.
 3d. The whole-lattice Kronecker apply: ``PallasKronLaplacian(BoxMesh((21,
    21, 21)), 6)`` (2,048,383 dofs, the headline metric's size) between a
    reset and a read of the ``kron_fused`` count (one apply and the timed
    applies); relative max-norm <= 1e-5 against its plain version and
    <= 1e-4 against ``PallasKronBlocked`` on the same input (two f32 forms
-   of ``Kt``); ms, GDOF/s, plain ms, bound.
+   of ``Kt``); ms, GDOF/s, plain ms, bound. Then at 127^3 and 253^3
+   (16,194,277 dofs) the same two gates and the kernel's device time
+   beside its bound and ``PallasKronBlocked``'s device time for the same
+   apply (#1 + #2); with ``--parent``, the parent's device time in turns
+   and whether both give the same bits.
 3e. The device-grid kernels #8/#9 on one shard at 127^3 and 253x127x127
    (band 6), 64^3 (band 3) and 22^3 (band 1) with seeded corrections
    against their plain versions, and #9 as device time (CUDA graph);
@@ -175,13 +181,14 @@ failure; nothing is caught.
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
 PyTorch call computes the same function, and its bound: bytes over 3.35
-TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#4, #9, #10,
-#11, the lattice kernels #13-#17 and the serving kernels #18-#21 add
-their device times as ``device_ms*`` keys, the transfers and the lattice
-kernels per V-cycle shape beside ``bound_ms_by_shape``, the lattice
-kernels with their box and face scratch, the serving kernels per batch
-beside ``bound_ms_by_batch``, with their kernels and host us per call
-and, with ``--parent``, the parent's device times) and, only when every
+TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#4, #9-#12, the
+lattice kernels #13-#17 and the serving kernels #18-#21 add their device
+times as ``device_ms*`` keys, the transfers, #12 and the lattice
+kernels per shape beside ``bound_ms_by_shape`` (#12 with the blocked
+apply's device time), the lattice kernels with their box and face
+scratch, the serving kernels per batch beside ``bound_ms_by_batch``,
+with their kernels and host us per call and, with ``--parent``, the
+parent's device times and whether the bits are the same) and, only when every
 phase passed, the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -751,24 +758,32 @@ def range_terms(M, axis):
     return int((hi - lo).sum())
 
 
-def transfer_parity():
+def transfer_parity(parent=None):
     """Phase 3c: kernels #10/#11 against their plain versions on the main
     path's two transfer pairs, both directions. Returns ({kernel:
     (max_abs_err, ms, plain_ms)}, {kernel: (bound_ms, by)}, {kernel:
     library_ms}) measured on the fine restriction 253^3 -> 127^3, and
     {kernel: extra keys of the kernels line}: each kernel alone as device
     time (`graph_ms`) at all four V-cycle shapes beside its bound and
-    library time there, and its host us per launch."""
+    library time there, and its host us per launch. With the parent's
+    package ``parent``, each kernel's device time at each shape is taken
+    in turns with the parent's (parent, change, change, parent), and
+    whether both give the same bits."""
     import numpy as np
     import torch
 
     from pmg_dolfinx_tpu_torch.ops import transfer as tt
     from pmg_dolfinx_tpu_torch.ops.lattice import axis_interpolation_matrix
 
+    ptt = (importlib.import_module(f"{parent.__name__}.ops.transfer")
+           if parent else None)
     out, bounds, library = {}, {}, {}
     abs_err = {"transfer_x": 0.0, "transfer_yz": 0.0}
     extra = {name: {"device_ms_by_shape": {}, "bound_ms_by_shape": {},
-                    "library_ms_by_shape": {}} for name in abs_err}
+                    "library_ms_by_shape": {},
+                    "parent_device_ms_by_shape": {} if parent else None,
+                    "same_bits_as_parent_by_shape": {} if parent else None}
+             for name in abs_err}
     for nc, pc, pf in ((42, 3, 6), (42, 1, 3)):
         I = torch.tensor(axis_interpolation_matrix(nc, pc, pf),
                          dtype=torch.float32, device="cuda")
@@ -823,16 +838,38 @@ def transfer_parity():
                 "transfer_yz": (lambda: tt.transfer_yz(t_ref, My, MzT),
                                 lambda: torch.einsum("by,ayz,zc->abc", My,
                                                      t_ref, MzT), byz)}
+            if parent:   # the parent's wrappers cache on their own copies
+                pM = [M.clone() for M in (Mx, My, MzT)]
+                palone = {
+                    "transfer_x": lambda: ptt.transfer_x(x3, pM[0]),
+                    "transfer_yz": lambda: ptt.transfer_yz(t_ref, pM[1],
+                                                           pM[2])}
             for name, (kern, lib, bound) in alone.items():
                 e = extra[name]
-                dev = e["device_ms_by_shape"][key] = graph_ms(kern)
+                if parent:
+                    par = palone[name]
+                    p1, d1, d2, p2 = (graph_ms(par), graph_ms(kern),
+                                      graph_ms(kern), graph_ms(par))
+                    dev, pdev = (d1 + d2) / 2, (p1 + p2) / 2
+                    same = bool(torch.equal(kern(), par()))
+                    e["parent_device_ms_by_shape"][key] = pdev
+                    e["same_bits_as_parent_by_shape"][key] = same
+                    vs = (f"; parent {pdev:.4f} ms, {bound[0] / pdev:.0%} "
+                          f"(turns {p1:.4f}, {d1:.4f}, {d2:.4f}, {p2:.4f}), "
+                          f"same bits {same}")
+                else:
+                    dev, vs = graph_ms(kern), ""
+                e["device_ms_by_shape"][key] = dev
                 e["bound_ms_by_shape"][key] = bound[0]
                 lib_ms = e["library_ms_by_shape"][key] = cuda_ms(
                     lib, reps=5, warmup=1)
                 print(f"    {key} {name}: device {dev:.4f} ms (CUDA graph of "
                       f"20 launches), {bound[0] / dev:.0%} of its bound "
                       f"{bound[0]:.4f} ms ({bound[1]}); library "
-                      f"{lib_ms:.4f} ms")
+                      f"{lib_ms:.4f} ms{vs}")
+            if hasattr(tt, "x_plan"):
+                print(f"    {key} transfer_x plan (ring width, rows per "
+                      f"block, columns per thread): {tt._x_launch(x3, Mx)[:3]}")
             if hasattr(tt, "yz_plan"):
                 W, RB = tt.yz_plan(A, n, A, A, max(
                     tt.nonzero_width(My, 0), tt.nonzero_width(MzT, 1)),
@@ -870,10 +907,11 @@ def transfer_parity():
     return out, bounds, library, extra
 
 
-def kron_fused_path():
+def kron_fused_path(parent=None):
     """Phase 3d: ``PallasKronLaplacian`` at 2,048,383 dofs, p=6. Returns
     ({"kron_fused": (max_abs_err, ms, plain_ms)}, launches on the path,
-    (bound_ms, by))."""
+    (bound_ms, by), the kernels line's extra keys): then `kron_fused_device`
+    at 127^3 and 253^3."""
     import numpy as np
     import torch
 
@@ -922,8 +960,89 @@ def kron_fused_path():
     print(f"    kron_fused: kernel {ms_k:.4f} ms vs plain {ms_p:.4f} ms "
           f"(turns {[round(t, 4) for t in four]}); PallasKronBlocked "
           f"{ms_b:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]})")
-    return ({"kron_fused": (float((y - ref).abs().max()), ms_k, ms_p)},
-            launches, bound)
+    err_abs = float((y - ref).abs().max())
+    del op, opb, y, yb, ref
+    extra = {"device_ms_by_shape": {}, "bound_ms_by_shape": {},
+             "blocked_device_ms_by_shape": {},
+             "parent_device_ms_by_shape": {} if parent else None,
+             "same_bits_as_parent_by_shape": {} if parent else None}
+    for nc in (21, 42):
+        err_abs = max(err_abs, kron_fused_device(nc, extra, parent))
+    extra["device_ms"] = extra["device_ms_by_shape"]["127^3"]
+    return {"kron_fused": (err_abs, ms_k, ms_p)}, launches, bound, extra
+
+
+def kron_fused_device(nc, extra, parent=None):
+    """Phase 3d at ``BoxMesh((nc,) * 3)``, p=6: kernel #12 within 1e-5 of
+    its plain version and 1e-4 of ``PallasKronBlocked`` (#1 + #2, the same
+    operator in two launches) on a seeded x, then its device time
+    (`graph_ms`) beside its bound, the blocked apply's device time and,
+    with the parent's package, the parent's device time in turns (parent,
+    change, change, parent) and whether both give the same bits; into
+    ``extra``. Returns the largest absolute error against the plain
+    version."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops import kron_fused as kf
+
+    mesh, P = BoxMesh((nc,) * 3), 6
+    op = kf.PallasKronLaplacian(mesh, P, kappa=2.0, device="cuda")
+    N, key = op.ndofs, f"{op.shape[0]}^3"
+    x = torch.tensor(np.random.default_rng(SEED + nc).standard_normal(
+        N, dtype=np.float32), device="cuda")
+    x3 = x.reshape(op.shape)
+
+    def kern():
+        return kf.kron_fused(x3, op.bc3, op.Ks, op.planes, op.ranges)
+
+    got = kern()
+    ref = kf.plain_kron_fused(x3, op.bc3, op.Ks, op.planes)
+    opb = kb.PallasKronBlocked(mesh, P, kappa=2.0, device="cuda")
+    torch.cuda.synchronize()
+    err = rel_max_err(got, ref)
+    d = rel_max_err(got.reshape(-1), opb(x))
+    print(f"    {key} ({N} dofs) kron_fused vs plain: rel max err "
+          f"{err:.3e}; vs PallasKronBlocked {d:.3e}; plan (band, chunk) "
+          f"{kf.fused_plan(op.shape, op.band, kf._sms(x.device))}")
+    if not (err <= KERNEL_RTOL and d <= 1e-4):
+        raise AssertionError(f"kron_fused at {key}: {err:.3e} against its "
+                             f"plain version, {d:.3e} against the blocked "
+                             "apply")
+    err_abs = float((got - ref).abs().max())
+    del ref, got
+    terms = sum(range_terms(K, 0) * N // n for K, n in zip(op.Ks, op.shape))
+    bound, by = kernel_bound("kron_fused", N, P, dims=op.shape, terms=terms)
+    if parent:
+        pkf = importlib.import_module(f"{parent.__name__}.ops.kron_fused")
+        pop = pkf.PallasKronLaplacian(mesh, P, kappa=2.0, device="cuda")
+
+        def par():
+            return pkf.kron_fused(x3, pop.bc3, pop.Ks, pop.planes,
+                                  pop.ranges)
+
+        p1, d1, d2, p2 = graph_ms(par), graph_ms(kern), graph_ms(kern), \
+            graph_ms(par)
+        dev, pdev = (d1 + d2) / 2, (p1 + p2) / 2
+        same = bool(torch.equal(kern(), par()))
+        extra["parent_device_ms_by_shape"][key] = pdev
+        extra["same_bits_as_parent_by_shape"][key] = same
+        vs = (f"; parent {pdev:.4f} ms, {bound / pdev:.0%} (turns "
+              f"{p1:.4f}, {d1:.4f}, {d2:.4f}, {p2:.4f}), same bits {same}")
+        del pop
+    else:
+        dev, vs = graph_ms(kern), ""
+    blocked = graph_ms(lambda: opb(x))
+    extra["device_ms_by_shape"][key] = dev
+    extra["bound_ms_by_shape"][key] = bound
+    extra["blocked_device_ms_by_shape"][key] = blocked
+    print(f"    {key} kron_fused: device {dev:.4f} ms (CUDA graph of 20 "
+          f"launches), {bound / dev:.0%} of its bound {bound:.4f} ms ({by}), "
+          f"{N / dev / 1e6:.3f} GDOF/s; PallasKronBlocked (#1 + #2) device "
+          f"{blocked:.4f} ms{vs}")
+    return err_abs
 
 
 def lattice_kernel_ms(by_name):
@@ -2293,8 +2412,9 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="root of a parent checkout: phases 10-11 also time "
-                    "its serving kernels and steppers, in turns")
+                    help="root of a parent checkout: phases 3c, 3d and 10-11 "
+                    "also time its transfer, whole-lattice and serving "
+                    "kernels and its steppers, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2391,13 +2511,14 @@ def main():
 
     t0 = phase("3c. transfer kernels #10/#11 vs plain torch: 253^3 <-> "
                "127^3 and 127^3 <-> 43^3")
-    res_t, bounds, lib_t, extra_t = transfer_parity()
+    res_t, bounds, lib_t, extra_t = transfer_parity(parent)
     main_shape.update(res_t)
     library.update(lib_t)
     done(t0)
 
     t0 = phase("3d. PallasKronLaplacian (kernel #12): 2,048,383 dofs, p=6")
-    res_k, launches["kron_fused"], bounds["kron_fused"] = kron_fused_path()
+    res_k, launches["kron_fused"], bounds["kron_fused"], extra_k = \
+        kron_fused_path(parent)
     main_shape.update(res_k)
     done(t0)
 
@@ -2800,6 +2921,7 @@ def main():
                                                            3)[0]},
         "host_us_per_launch": t1_253["host_us"]}
     extra.update(extra_t)
+    extra["kron_fused"] = extra_k
     kernels = []
     for name in SOURCES:
         if name in bounds:       # measured with its own inputs (3c, 3d)

@@ -38,7 +38,7 @@ def refuse_unported(args):
     """The JAX driver's flags whose layers the port does not have yet."""
     if args.grade:
         raise SystemExit("--grade: graded spacing is not ported yet "
-                         "(ROADMAP.md Queue 1 item 2)")
+                         "(ROADMAP.md Queue 1 item 7c)")
     if args.shards:
         raise SystemExit("--shards: the distributed steppers "
                          "(transient_dist) are not ported yet (ROADMAP.md "

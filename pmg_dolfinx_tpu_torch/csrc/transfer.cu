@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the fused per-axis p-transfers.
 //
 // Replaces the Pallas kernels of pmg_dolfinx_tpu/ops/pallas_transfer.py:
-//   transfer_x      <- _kernel_tx    t[a, y, z] = sum_x Mx[a, x] x3[x, y, z]
+//   transfer_x<W, C>, transfer_x_direct
+//                   <- _kernel_tx    t[a, y, z] = sum_x Mx[a, x] x3[x, y, z]
 //   transfer_yz<W>  <- _kernel_tyz   out[a]     = My @ t[a] @ MzT
 // so that, as on the TPU, the x-contracted lattice t is the only
 // intermediate that reaches device memory. Restriction passes (Ix^T, Iy^T,
@@ -16,12 +17,30 @@
 // of the TPU kernels would do 253 FMAs per output and term.
 //
 // Design.
-// 1. transfer_x: a block owns one output row a and 256 consecutive points
-//    of the (y, z) plane; each thread sums its point over the row's
-//    nonzero range [lo, hi) of Mx. Reads of x3 and writes of t coalesce;
-//    Mx[a, x] is the same for the whole block. Blocks of neighbouring a
-//    are launched next to each other (a is blockIdx.x), so the x3 rows two
-//    of them share are read from L2.
+// 1. transfer_x<W, C>: a thread owns C (y, z) columns of x3 and marches
+//    them along x, reading each row of its range once (a warp reads 128
+//    contiguous bytes of a row) into a register ring of the last W rows,
+//    max(W, kAhead) rows ahead of their use. A block takes a segment of S
+//    output rows a in the stable order of their ranges' ends hi (the
+//    layout transfer_yz uses, ops/transfer.py:_yz_rows) and marches only
+//    the union of their ranges; when the march reaches hi - 1 of the next
+//    row in order, the thread sums t[a] = sum_x Mx[a, x] x3[x] over the
+//    ring (the row's W coefficients in shared memory, read as float4
+//    broadcasts) and writes it, coalesced. The plane of a V-cycle's
+//    transfer has 1,849 to 64,009 columns, too few threads to hide a
+//    march's latency, so the rows are cut into segments until the launch
+//    fills the card (ops/transfer.py:x_plan; neighbouring segments share
+//    a few rows of x3, through L2), and a thread marches C = 2 or 4
+//    columns kThreads apart, so each step has C loads in flight. The
+//    march is transfer_yz's y march (march_rows below), so W is the same
+//    template parameter: 4, 8, 12, 16, and 0 for a runtime-length sum
+//    over each row's range. Where 8-row segments cannot give every SM two
+//    blocks (the p 1 <-> 3 transfers: 1,849 or 16,129 columns by 43 or
+//    127 rows), a march's latency shows and the plan takes the direct
+//    form, transfer_x_direct: a thread per output, each row of x3 read
+//    from L2 by every output row whose range covers it (~6.5 times on a
+//    p 6 -> 3 restriction), the kernel the march replaced. Both sum the
+//    same terms in the same order, so the results are its bits.
 // 2. transfer_yz: a block of 8 warps owns one a-slab and RB output rows b,
 //    taken in the order of their ranges' ends hi (a stable sort of hi;
 //    the identity for most matrices), and works in two phases with one
@@ -77,22 +96,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLanes = 32;
 constexpr int kMaxRows = 32;            // output rows b per transfer_yz block
+constexpr int kMaxSeg = 64;             // output rows a per transfer_x block
 constexpr int kAhead = 8;               // rows of t a lane's loads run ahead
 constexpr int kMaxSmem = 227 * 1024;    // dynamic shared memory per block
-
-__global__ void __launch_bounds__(kThreads)
-transfer_x(const float* __restrict__ x3, const float* __restrict__ Mx,
-           const int* __restrict__ rx, float* __restrict__ t, int NX,
-           int NYZ, int A) {
-  const int a = blockIdx.x;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
-  if (p >= NYZ) return;
-  const float* row = Mx + (int64_t)a * NX;
-  float acc = 0.f;
-  for (int x = rx[a]; x < rx[A + a]; ++x)
-    acc = fmaf(row[x], x3[(int64_t)x * NYZ + p], acc);
-  t[(int64_t)a * NYZ + p] = acc;
-}
 
 // Shared memory of a transfer_yz block: u [RB][NZ], the MzT band [W][C],
 // the rows' My coefficients [RB][W], then the rows' b, lo, hi [RB] and
@@ -102,74 +108,168 @@ __host__ __device__ constexpr size_t yz_smem(int W, int RB, int NZ, int C) {
          sizeof(int) * (3 * (size_t)RB + 2 * (size_t)C);
 }
 
-// The y phase of one lane (column z) over the block's rows [r0, r1), in
-// hi order: u[r][z] = sum over y in [lo, hi) of My[b, y] t[a, y, z].
-template <int W>
-__device__ __forceinline__ void yz_rows(
-    const float* __restrict__ ta, const float* __restrict__ My, float* sU,
-    const float* sMy, const int* sRow, const int* sLo, const int* sHi,
-    int z, int NY, int NZ, int r0, int r1) {
-  const bool zin = z < NZ;
-  const float* tz = ta + (zin ? z : 0);
+// The march of C columns (col + c * cstep, c < C) over the rows [r0, r1)
+// of a block, taken in the order of their ranges' ends hi: for each row r
+// and column c, sink(r, c, sum over v in [lo, hi) of M[row, v] col[c *
+// cstep + v * stride]), the sum from 0 in fmaf, v ascending. A column's
+// values pass through a register ring of the last W (W >= every range)
+// and are loaded max(W, kAhead) ahead; sM[r][d] = M[row, hi - W + d],
+// zero (and skipped) below lo. W = 0: runtime-length sums over the rows of
+// M (K columns) read from L1/L2. Bit c of `in` is clear for a column past
+// the lattice: it marches zeros and its sink must not store.
+template <int W, int C, class Sink>
+__device__ __forceinline__ void march_rows(
+    const float* __restrict__ col, int cstep, int stride,
+    const float* __restrict__ M, int K, const float* sM, const int* sRow,
+    const int* sLo, const int* sHi, unsigned in, int r0, int r1, Sink sink) {
   if constexpr (W == 0) {
     for (int r = r0; r < r1; ++r) {
       const int lo = sLo[r], hi = sHi[r];
       if (hi <= lo) continue;
-      const float* row = My + (int64_t)sRow[r] * NY;
-      float acc = 0.f;
-      for (int y = lo; y < hi; ++y)
-        acc = fmaf(row[y], zin ? tz[y * NZ] : 0.f, acc);
-      if (zin) sU[r * NZ + z] = acc;
+      const float* row = M + (int64_t)sRow[r] * K;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const bool cin = (in >> c) & 1u;
+        float acc = 0.f;
+        for (int v = lo; v < hi; ++v)
+          acc = fmaf(row[v], cin ? col[c * cstep + v * stride] : 0.f, acc);
+        sink(r, c, acc);
+      }
     }
   } else {
     constexpr int U = W < kAhead ? kAhead : W;   // a multiple of W
-    int ylo = NY, yhi = 0;
+    int vlo = K, vhi = 0;
     for (int r = r0; r < r1; ++r) {
       if (sLo[r] < sHi[r]) {
-        ylo = min(ylo, sLo[r]);
-        yhi = max(yhi, sHi[r]);
+        vlo = min(vlo, sLo[r]);
+        vhi = max(vhi, sHi[r]);
       }
     }
-    // Empty rows (lo = hi = 0) sort first and are never summed (their u
-    // is not read); rows past B (hi = 0) come last, after every nonempty
-    // row, so the march ends before it reaches them.
+    // Empty rows (lo = hi = 0) sort first and are never summed; rows past
+    // the matrix (hi = 0) come last, after every nonempty row, so the
+    // march ends before it reaches them.
     int q = r0;
     while (q < r1 && sHi[q] == 0) ++q;
     int qhi = q < r1 ? sHi[q] : -1;   // the end of row q's range
-    float ring[W], pf[U];   // ring[(y - ylo) % W] = t[a, y, z]
+    float ring[C][W], pf[C][U];   // ring[c][(v - vlo) % W] = column c at v
+    auto load = [&](int c, int v) {
+      return ((in >> c) & 1u) && v < vhi ? col[c * cstep + v * stride] : 0.f;
+    };
 #pragma unroll
-    for (int s = 0; s < W; ++s) ring[s] = 0.f;
+    for (int c = 0; c < C; ++c) {
 #pragma unroll
-    for (int s = 0; s < U; ++s)
-      pf[s] = zin && ylo + s < yhi ? tz[(ylo + s) * NZ] : 0.f;
-    for (int yb = ylo; yb < yhi; yb += U) {
+      for (int s = 0; s < W; ++s) ring[c][s] = 0.f;
+#pragma unroll
+      for (int s = 0; s < U; ++s) pf[c][s] = load(c, vlo + s);
+    }
+    for (int vb = vlo; vb < vhi; vb += U) {
 #pragma unroll
       for (int s = 0; s < U; ++s) {
-        const int y = yb + s;
-        if (y >= yhi) break;
-        ring[s % W] = pf[s];
-        pf[s] = zin && y + U < yhi ? tz[(y + U) * NZ] : 0.f;
-        // Rows whose range ends at y: sMy[q][d] = My[b, y + 1 - W + d],
-        // zero (and skipped) below lo.
-        for (; qhi == y + 1; qhi = ++q < r1 ? sHi[q] : -1) {
+        const int v = vb + s;
+        if (v >= vhi) break;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          ring[c][s % W] = pf[c][s];
+          pf[c][s] = load(c, v + U);
+        }
+        // Rows whose range ends at v: sM[q][d] = M[row, v + 1 - W + d].
+        for (; qhi == v + 1; qhi = ++q < r1 ? sHi[q] : -1) {
           const int skip = W - (qhi - sLo[q]);
-          const float4* c4 = reinterpret_cast<const float4*>(sMy + q * W);
-          float acc = 0.f;
+          const float4* c4 = reinterpret_cast<const float4*>(sM + q * W);
+          float acc[C];
+#pragma unroll
+          for (int c = 0; c < C; ++c) acc[c] = 0.f;
 #pragma unroll
           for (int e = 0; e < W / 4; ++e) {
-            const float4 c = c4[e];
-            const float cs[4] = {c.x, c.y, c.z, c.w};
+            const float4 k4 = c4[e];
+            const float ks[4] = {k4.x, k4.y, k4.z, k4.w};
 #pragma unroll
             for (int f = 0; f < 4; ++f) {
               const int d = 4 * e + f;
-              if (d >= skip) acc = fmaf(cs[f], ring[(s + 1 + d) % W], acc);
+              if (d >= skip) {
+#pragma unroll
+                for (int c = 0; c < C; ++c)
+                  acc[c] = fmaf(ks[f], ring[c][(s + 1 + d) % W], acc[c]);
+              }
             }
           }
-          if (zin) sU[q * NZ + z] = acc;
+#pragma unroll
+          for (int c = 0; c < C; ++c) sink(q, c, acc[c]);
         }
       }
     }
   }
+}
+
+// Shared memory of a transfer_x block: the segment's coefficients [S][W]
+// and its rows' row, lo, hi [S].
+__host__ __device__ constexpr size_t x_smem(int W, int S) {
+  return sizeof(float) * (size_t)S * W + sizeof(int) * 3 * (size_t)S;
+}
+
+// A block: S output rows by kThreads * C columns, column c of a thread at
+// p0 + c * kThreads, so each step of the march reads C coalesced pieces of
+// a row of x3.
+template <int W, int C>
+__global__ void __launch_bounds__(kThreads)
+transfer_x(const float* __restrict__ x3, const float* __restrict__ Mx,
+           const int* __restrict__ xrows, const float* __restrict__ xcoef,
+           float* __restrict__ t, int NX, int NYZ, int A, int S) {
+  extern __shared__ float4 smem4[];
+  float* sMx = reinterpret_cast<float*>(smem4);       // [S][W] Mx, by hi
+  int* sRow = reinterpret_cast<int*>(sMx + S * W);    // [S] a (-1 past A)
+  int* sLo = sRow + S;                                // [S] its x range
+  int* sHi = sLo + S;
+  const int tid = threadIdx.x, q0 = blockIdx.y * S;
+  for (int r = tid; r < S; r += kThreads) {
+    const bool in = q0 + r < A;
+    sRow[r] = in ? xrows[q0 + r] : -1;
+    sLo[r] = in ? xrows[A + q0 + r] : 0;
+    sHi[r] = in ? xrows[2 * A + q0 + r] : 0;
+  }
+  if constexpr (W > 0) {
+    const float4* c4 = reinterpret_cast<const float4*>(xcoef) + q0 * W / 4;
+    float4* s4 = reinterpret_cast<float4*>(sMx);
+    const int n4 = (min(S, A - q0) * W) / 4;
+    for (int i = tid; i < S * W / 4; i += kThreads)
+      s4[i] = i < n4 ? c4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+  const int64_t p0 = (int64_t)blockIdx.x * kThreads * C + tid;
+  unsigned in = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    in |= (p0 + c * kThreads < NYZ ? 1u : 0u) << c;
+  auto sink = [&](int r, int c, float acc) {
+    if ((in >> c) & 1u) t[(int64_t)sRow[r] * NYZ + p0 + c * kThreads] = acc;
+  };
+  for (int r = 0; r < S; ++r)   // all-zero rows of Mx: t[a] = 0
+    if (sRow[r] >= 0 && sHi[r] <= sLo[r]) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) sink(r, c, 0.f);
+    }
+  march_rows<W, C>(x3 + (in ? p0 : 0), kThreads, NYZ, Mx, NX, sMx, sRow,
+                   sLo, sHi, in, 0, S, sink);
+}
+
+// The direct form, for planes too small to fill the card with marches: a
+// thread per output (row q in hi order, column p), summing its row's range
+// from L1/L2 (the kernel the march replaced, in the same order). Blocks
+// of neighbouring rows are launched next to each other (q is blockIdx.x),
+// so the x3 rows their ranges share are read from L2.
+__global__ void __launch_bounds__(kThreads)
+transfer_x_direct(const float* __restrict__ x3, const float* __restrict__ Mx,
+                  const int* __restrict__ xrows, float* __restrict__ t,
+                  int NX, int NYZ, int A) {
+  const int q = blockIdx.x;
+  const int64_t p = (int64_t)blockIdx.y * kThreads + threadIdx.x;
+  if (p >= NYZ) return;
+  const int a = xrows[q];
+  const float* row = Mx + (int64_t)a * NX;
+  float acc = 0.f;
+  for (int v = xrows[A + q]; v < xrows[2 * A + q]; ++v)
+    acc = fmaf(row[v], x3[(int64_t)v * NYZ + p], acc);
+  t[(int64_t)a * NYZ + p] = acc;
 }
 
 template <int W>
@@ -224,8 +324,13 @@ transfer_yz(const float* __restrict__ t, const float* __restrict__ My,
   const int rows = RB / groups;
   for (int item = warp; item < nseg * groups; item += kWarps) {
     const int seg = item % nseg, g = item / nseg;
-    yz_rows<W>(ta, My, sU, sMy, sRow, sLo, sHi, seg * kLanes + lane, NY, NZ,
-               g * rows, (g + 1) * rows);
+    const int z = seg * kLanes + lane;
+    const bool zin = z < NZ;
+    march_rows<W, 1>(ta + (zin ? z : 0), 0, NZ, My, NY, sMy, sRow, sLo, sHi,
+                     zin ? 1u : 0u, g * rows, (g + 1) * rows,
+                     [&](int r, int, float acc) {
+                       if (zin) sU[r * NZ + z] = acc;
+                     });
   }
   __syncthreads();
 
@@ -296,14 +401,53 @@ int launch_yz(const float* t, const float* My, const int* yrows,
 
 extern "C" {
 
-// t (A, NY*NZ) = Mx (A, NX) contracted with x3 (NX, NY*NZ) along x; rx is
-// (2, A): the [lo, hi) nonzero range of each row of Mx.
-int transfer_x_launch(const float* x3, const float* Mx, const int* rx,
-                      float* t, int NX, int NYZ, int A, void* stream) {
-  const dim3 grid((unsigned)A, (unsigned)((NYZ + kThreads - 1) / kThreads));
-  transfer_x<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x3, Mx, rx, t, NX,
-                                                          NYZ, A);
-  return (int)cudaGetLastError();
+// t (A, NY*NZ) = Mx (A, NX) contracted with x3 (NX, NY*NZ) along x.
+// xrows (3, A): the rows of Mx in the stable order of their ranges' ends
+// hi, then each one's lo and hi; xcoef (A, W): row xrows[0][q]'s Mx[a, hi
+// - W + d], zero below lo (unused for W = 0). The plan: W the ring width
+// (4, 8, 12 or 16, at least the widest range; 0 for any width), S the
+// rows per block (1 to kMaxSeg) and C the columns per thread (1, 2 or 4),
+// as ops/transfer.py:x_plan picks them; S = 0 launches the direct form
+// (W and C unused).
+int transfer_x_launch(const float* x3, const float* Mx, const int* xrows,
+                      const float* xcoef, float* t, int NX, int NYZ, int A,
+                      int W, int S, int C, void* stream) {
+  if ((int64_t)NX * NYZ >= (int64_t{1} << 31))
+    return (int)cudaErrorInvalidValue;
+  if (S == 0) {
+    if ((NYZ + kThreads - 1) / kThreads > 65535)
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)A, (unsigned)((NYZ + kThreads - 1) / kThreads));
+    transfer_x_direct<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        x3, Mx, xrows, t, NX, NYZ, A);
+    return (int)cudaGetLastError();
+  }
+  if (C != 1 && C != 2 && C != 4) return (int)cudaErrorInvalidValue;
+  const int64_t cols = ((int64_t)NYZ + kThreads * C - 1) / (kThreads * C);
+  if (S < 0 || S > kMaxSeg || cols > 0x7fffffff || (A + S - 1) / S > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)cols, (unsigned)((A + S - 1) / S));
+  auto launch = [&](auto kernel_width, auto columns) {
+    constexpr int kW = decltype(kernel_width)::value;
+    constexpr int kC = decltype(columns)::value;
+    transfer_x<kW, kC><<<grid, kThreads, x_smem(kW, S),
+                         (cudaStream_t)stream>>>(x3, Mx, xrows, xcoef, t, NX,
+                                                 NYZ, A, S);
+    return (int)cudaGetLastError();
+  };
+  auto widths = [&](auto columns) {
+    switch (W) {
+      case 0: return launch(std::integral_constant<int, 0>{}, columns);
+      case 4: return launch(std::integral_constant<int, 4>{}, columns);
+      case 8: return launch(std::integral_constant<int, 8>{}, columns);
+      case 12: return launch(std::integral_constant<int, 12>{}, columns);
+      case 16: return launch(std::integral_constant<int, 16>{}, columns);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  };
+  if (C == 1) return widths(std::integral_constant<int, 1>{});
+  if (C == 2) return widths(std::integral_constant<int, 2>{});
+  return widths(std::integral_constant<int, 4>{});
 }
 
 // out (A, B, C) = My (B, NY) t[a] (NY, NZ) MzT (NZ, C) for every a.

@@ -529,6 +529,14 @@ def _tpu_knob(name, value, default):
             f"and take no interpret mode (leave it at {default!r})")
 
 
+def _tpu_knobs(by, bx, interpret):
+    """The JAX entry points' keyword tile sizes and interpret mode
+    (``by=8, bx=8, interpret=None``): their defaults only."""
+    _tpu_knob("by", by, 8)
+    _tpu_knob("bx", bx, 8)
+    _tpu_knob("interpret", interpret, None)
+
+
 def _check_precision(precision):
     """The port's precision policy: true f32/f64 products ('highest')."""
     if precision == "high":
@@ -540,8 +548,8 @@ def _check_precision(precision):
             f"precision must be 'highest' or 'high', got {precision!r}")
 
 
-def blocked_kron_apply(x3, bc3, mats, *, sigma=0.0, precision="highest",
-                       exchange=None):
+def blocked_kron_apply(x3, bc3, mats, *, by=8, bx=8, precision="highest",
+                       interpret=None, exchange=None, sigma=0.0):
     """``A x`` on a lattice-shaped vector through the blocked kernel pair.
 
     ``bc3`` is the lattice-shaped bool Dirichlet marker, ``mats`` the dict
@@ -553,8 +561,11 @@ def blocked_kron_apply(x3, bc3, mats, *, sigma=0.0, precision="highest",
     output, the x-stiffness term, before kernel 2 reads it: the interface
     partial-sum reconciliation of an x-sharded layout, as in the JAX
     package (it may write that tensor in place; it is this call's own).
+    The JAX package's tile and mode knobs ``by``, ``bx``, ``interpret``
+    take its defaults only (`_tpu_knobs`).
     """
     _check_precision(precision)
+    _tpu_knobs(by, bx, interpret)
     separable = "sxzm" in mats
     if x3.device.type == "cpu":
         t1 = plain_t1_m(x3, mats) if separable else plain_t1(x3, bc3, mats)
@@ -571,12 +582,15 @@ def blocked_kron_apply(x3, bc3, mats, *, sigma=0.0, precision="highest",
     return kron_t23(x3, bc3, t1, mats, sigma)
 
 
-def blocked_kron_residual(b3, u3, bc3, mats, *, sigma=0.0,
-                          precision="highest", exchange=None):
+def blocked_kron_residual(b3, u3, bc3, mats, *, by=8, bx=8,
+                          precision="highest", interpret=None, exchange=None,
+                          sigma=0.0):
     """Fused ``r = b - A u`` through kernel 1 and a residual kernel (#1 +
     #3 with the separable arrays, else #4 + #6; the plain torch version
-    on CPU tensors). ``exchange`` as in `blocked_kron_apply`."""
+    on CPU tensors). ``exchange`` and the TPU knobs as in
+    `blocked_kron_apply`."""
     _check_precision(precision)
+    _tpu_knobs(by, bx, interpret)
     separable = "sxzm" in mats
     if u3.device.type == "cpu":
         t1 = plain_t1_m(u3, mats) if separable else plain_t1(u3, bc3, mats)
@@ -594,16 +608,19 @@ def blocked_kron_residual(b3, u3, bc3, mats, *, sigma=0.0,
 
 
 def blocked_kron_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters, *,
-                       sigma=0.0, precision="highest", exchange=None):
+                       by=8, bx=8, precision="highest", interpret=None,
+                       exchange=None, sigma=0.0):
     """Fourth-kind Chebyshev smoothing of ``A x = b`` from ``x3`` with the
     update fused into the full-bc kernels: the recurrence of
     `solvers.chebyshev.chebyshev4_solve` with ``1 + num_iters`` half-steps,
     each kernel #4 then kernel #7 (the plain torch half-step on CPU
     tensors). ``lmax`` is a 0-d tensor (or a float); on the card it is
     read by the kernel, so the smoother makes no host sync. ``exchange``
-    as in `blocked_kron_apply`, on every half-step's kernel-1 output.
-    Returns the new ``x``; the inputs are not written."""
+    as in `blocked_kron_apply`, on every half-step's kernel-1 output, and
+    so are the TPU knobs. Returns the new ``x``; the inputs are not
+    written."""
     _check_precision(precision)
+    _tpu_knobs(by, bx, interpret)
     if x3.device.type == "cpu":
         if exchange is None:
             return plain_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters,
@@ -806,9 +823,7 @@ def blocked_kron_apply_grid(x3, bc3, mats, *, by=8, bx=8,
     the JAX package's TPU knobs (defaults only).
     """
     _check_precision(precision)
-    _tpu_knob("by", by, 8)
-    _tpu_knob("bx", bx, 8)
-    _tpu_knob("interpret", interpret, None)
+    _tpu_knobs(by, bx, interpret)
     need_y, need_z = ex_y is not None, ex_z is not None
     if x3.ndim == 3:
         if not (need_y or need_z):

@@ -15,17 +15,22 @@ rounding only.
 
 - `kron_fused_apply(x3, bc3, Ks, planes)` — the entry point: a CPU tensor
   runs `plain_kron_fused`; a CUDA tensor launches `kron_fused` of
-  `csrc/kron_fused.cu` (one launch; each thread sums the nonzero band of
-  its rows, the ranges found once by `ops.transfer.nonzero_ranges`) or
-  raises. There is no fallback.
+  `csrc/kron_fused.cu` or raises. There is no fallback. One launch: a
+  block marches a tile of (y, z) outputs along x over a chunk of planes
+  (`fused_plan`), each plane's tile loaded once with its y/z halo; the
+  band (the widest distance of a nonzero from the diagonal, `fused_band`,
+  from the ranges `band_ranges` finds once by
+  `ops.transfer.nonzero_ranges`) is the march's template parameter, and
+  a band above `MAX_BAND` takes the runtime-width form.
 - `plain_kron_fused` — the TPU kernel's arithmetic as three einsums.
 - `PallasKronLaplacian` — the operator bundle (apply, ``diag``,
   ``diag_inv``).
 
 The TPU class pads the lattice to the (8, 128) tiling and keeps it whole in
-VMEM, which limits its size (`pallas_kron.py:17-19`). The CUDA kernel reads
-x from device memory (L2-resident at the headline size), so it takes no
-padding and has no size limit. Not ported: ``interpret`` and the padding.
+VMEM, which limits its size (`pallas_kron.py:17-19`). The CUDA kernel
+streams x from device memory plane by plane, so it takes no padding and
+has no size limit. Not ported: ``interpret`` (its slot takes ``False``
+only) and the padding.
 The kernel is built with ``nvcc`` for ``sm_90a`` at first use into
 ``build/kernels/`` (`ops.cuda_build`) and bound with `ctypes`. `LAUNCHES`
 counts every launch.
@@ -41,7 +46,7 @@ from .cuda_build import check_operand as _check
 from .cuda_build import find_nvcc as _find_nvcc
 from .cuda_build import ptr as _ptr
 from .cuda_build import stream_of
-from .transfer import nonzero_ranges
+from .transfer import _sms, nonzero_ranges
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "kron_fused.cu"
 
@@ -85,7 +90,7 @@ def load_kernels():
         return _lib
     lib, BUILD_LOG = build_and_load(_SRC, "kron_fused", _find_nvcc)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.kron_fused_launch.argtypes = [vp] * 10 + [ci] * 3 + [vp]
+    lib.kron_fused_launch.argtypes = [vp] * 10 + [ci] * 5 + [vp]
     lib.kron_fused_launch.restype = ci
     _lib = lib
     return lib
@@ -98,10 +103,64 @@ def band_ranges(Ks):
     return torch.cat([nonzero_ranges(K, 0).reshape(-1) for K in Ks])
 
 
+# The march's templated bands (above: the runtime-width form), its tile
+# of TILE_Z x TILE_Y outputs, the longest chunk of planes a block
+# outputs, and the chunk rule of kron_t1_m's march: the longest chunk
+# when the card still gets LONG_BLOCKS_PER_SM blocks per SM, else the
+# longest of 32, 16, ..., 2 that gives every SM a block.
+MAX_BAND = 8
+TILE_Z, TILE_Y = 64, 8
+LONG_CHUNK, SHORT_CHUNK, MIN_CHUNK = 64, 32, 2
+LONG_BLOCKS_PER_SM = 3
+
+
+def fused_band(ranges, shape):
+    """The widest distance of a nonzero from the diagonal over the rows of
+    ``Kx``, ``Ky``, ``Kz`` (0 for diagonal or zero matrices), from their
+    `band_ranges` layout; one host read, cached on ``ranges`` with its
+    version."""
+    hit = getattr(ranges, "_pmg_band", None)
+    if hit is not None and hit[0] == ranges._version:
+        return hit[1]
+    band, off = 0, 0
+    for n in shape:
+        lo = ranges[off:off + n].long()
+        hi = ranges[off + n:off + 2 * n].long()
+        off += 2 * n
+        i = torch.arange(n, device=ranges.device)
+        full = hi > lo
+        if bool(full.any()):
+            d = torch.maximum(i - lo, hi - 1 - i)[full]
+            band = max(band, int(d.max()))
+    ranges._pmg_band = (ranges._version, band)
+    return band
+
+
+def fused_plan(shape, band, sms):
+    """The launch plan ``(band, chunk)`` of `kron_fused` on an ``(NX, NY,
+    NZ)`` lattice whose matrices reach ``band`` off the diagonal, on a
+    card of ``sms`` SMs: ``band`` -1 (the runtime-width form) above
+    `MAX_BAND`; ``chunk`` the planes a block outputs along x, by the rule
+    above, for the layer of ``ceil(NZ / TILE_Z) * ceil(NY / TILE_Y)``
+    tiles."""
+    NX, NY, NZ = shape
+    if band > MAX_BAND:
+        return -1, 0
+    layer = -(-NZ // TILE_Z) * -(-NY // TILE_Y)
+    blocks = lambda c: layer * -(-NX // c)
+    if blocks(LONG_CHUNK) >= LONG_BLOCKS_PER_SM * sms:
+        return band, LONG_CHUNK
+    c = SHORT_CHUNK
+    while c > MIN_CHUNK and blocks(c) < sms:
+        c //= 2
+    return band, c
+
+
 def kron_fused(x3, bc3, Ks, planes, ranges=None):
     """Launch the kernel on CUDA tensors: ``where(bc, x, y)`` as a new
     ``(NX, NY, NZ)`` lattice. ``ranges`` from `band_ranges` (formed here
-    when not given)."""
+    when not given); the plan (`fused_plan`) from their band, read to the
+    host once per ranges tensor."""
     if x3.device.type != "cuda":
         raise ValueError(
             f"the kron_fused kernel runs on CUDA tensors, got {x3.device}")
@@ -119,12 +178,18 @@ def kron_fused(x3, bc3, Ks, planes, ranges=None):
     if ranges is None:
         ranges = band_ranges(Ks)
     _check("ranges", ranges, (2 * (NX + NY + NZ),), dev, torch.int32)
+    if NX * NY * NZ >= 2**31:
+        raise ValueError(f"a {tuple(x3.shape)} lattice exceeds the kernel's "
+                         "32-bit offsets")
+    band, chunk = fused_plan(x3.shape, fused_band(ranges, x3.shape),
+                             _sms(dev))
     lib = load_kernels()
     out = torch.empty_like(x3)
     with torch.cuda.device(dev):
         rc = lib.kron_fused_launch(
             _ptr(x3), _ptr(bc3), *(_ptr(K) for K in Ks), _ptr(ranges),
-            *(_ptr(m) for m in planes), _ptr(out), NX, NY, NZ, stream_of(x3))
+            *(_ptr(m) for m in planes), _ptr(out), NX, NY, NZ, band, chunk,
+            stream_of(x3))
     if rc != 0:
         raise RuntimeError(f"kron_fused launch failed: CUDA error {rc}")
     LAUNCHES["kron_fused"] += 1
@@ -166,6 +231,7 @@ class PallasKronLaplacian:
         self.planes = mass_planes(base.ms)
         self.bc3 = base.bc_marker.reshape(self.shape)
         self.ranges = band_ranges(self.Ks)
+        self.band = fused_band(self.ranges, self.shape)   # the host read
 
     def __call__(self, x):
         x3 = torch.as_tensor(x, dtype=torch.float32,

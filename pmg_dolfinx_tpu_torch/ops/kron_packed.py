@@ -39,8 +39,9 @@ The factors are built as the JAX package builds them: from the float32
 (`utils.convert.packed_state_from_numpy`) and a mesh-built one agree.
 
 Not ported: ``precision="high"`` (bf16x3, raises NotImplementedError),
-the TPU knob ``interpret``, per-axis and tensor kappa (ROADMAP.md Queue 1
-item 7) and graded spacing (Queue 1 item 2).
+the TPU knob ``interpret`` (it keeps its trailing slot in the four
+classes and takes ``False`` only), per-axis and tensor kappa and graded
+spacing (ROADMAP.md Queue 1 item 7c).
 """
 
 import ctypes
@@ -54,7 +55,7 @@ from .cuda_build import find_nvcc as _find_nvcc
 from .cuda_build import on_device as _on_device
 from .cuda_build import ptr as _ptr
 from .cuda_build import stream_of
-from .kron_blocked import _check_precision
+from .kron_blocked import _check_precision, _tpu_knob
 from .transfer import _sms
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "kron_packed.cu"
@@ -599,8 +600,9 @@ class PackedKronBatch(_Kron):
     """
 
     def __init__(self, mesh, P, kappa=2.0, B=8, precision="highest",
-                 sigma=0.0, *, device):
+                 sigma=0.0, interpret=False, *, device):
         _check_precision(precision)
+        _tpu_knob("interpret", interpret, False)
         self._init_layout(mesh, P, (-1,), device)
         self.B = int(B)
         self._kron_setup(kappa, precision, sigma)
@@ -612,7 +614,9 @@ class PackedFDMBatch(_FDM):
     `solvers.fdm.FastDiagonalizationSolver` (scalar kappa, sigma shift,
     mixed Dirichlet/Neumann faces); ``u[bc] = b[bc]``."""
 
-    def __init__(self, mesh, P, kappa=2.0, B=8, sigma=0.0, *, device):
+    def __init__(self, mesh, P, kappa=2.0, B=8, sigma=0.0, interpret=False,
+                 *, device):
+        _tpu_knob("interpret", interpret, False)
         self._init_layout(mesh, P, (-1,), device)
         self.B = int(B)
         self._fdm_setup(kappa, sigma)
@@ -640,8 +644,9 @@ class PackedKronSingle(_Kron):
     ``(ndofs,)`` or ``(NX, NY, NZ)``."""
 
     def __init__(self, mesh, P, kappa=2.0, precision="highest", sigma=0.0,
-                 *, device):
+                 interpret=False, *, device):
         _check_precision(precision)
+        _tpu_knob("interpret", interpret, False)
         self._init_layout(mesh, P, (), device)
         _check_slab(P, self.shape)
         self._kron_setup(kappa, precision, sigma)
@@ -651,6 +656,8 @@ class PackedFDMSingle(_FDM):
     """Single-RHS FDM direct solve for small lattices (float32): the
     function of `PackedFDMBatch` at B = 1, on the same factors."""
 
-    def __init__(self, mesh, P, kappa=2.0, sigma=0.0, *, device):
+    def __init__(self, mesh, P, kappa=2.0, sigma=0.0, interpret=False, *,
+                 device):
+        _tpu_knob("interpret", interpret, False)
         self._init_layout(mesh, P, (), device)
         self._fdm_setup(kappa, sigma)

@@ -226,10 +226,17 @@ def lattice_geom_data(nc, P, dtype=torch.float32, *, device):
     ), tuple(float(v) for v in q1), tuple(float(v) for v in w1)
 
 
-def geom_to_G(co, nc, P):
+def geom_to_G(co, nc, P, xp=np):
     """Quadrature-lattice geometry ``(Qx, Qy, Qz, 6)`` rebuilt from the
     coefficient grids: numpy float64 for a numpy ``co``, torch in
-    ``co``'s dtype and device for a tensor (the plain version of K-B)."""
+    ``co``'s dtype and device for a tensor (the plain version of K-B).
+    ``xp`` keeps the JAX package's fourth parameter, its array module:
+    numpy only here (the array type of ``co`` picks the module), anything
+    else raises ValueError."""
+    if xp is not np:
+        raise ValueError(
+            f"xp={xp!r}: geom_to_G follows the type of co (numpy or torch); "
+            "pass xp=numpy, the JAX package's default")
     from ..fem.geometry import _adjugate_3x3
     from ..fem.gll import gauss_lobatto
 
@@ -527,15 +534,25 @@ def blocks_per_sm(kernel, P, plan):
     return load_kernels().lattice_blocks_per_sm(geo, P, plan[1], plan[2])
 
 
-def blocked_lattice_apply(x, mats, Gt, bc_marker, nc, P, *,
-                          precision="highest", apply_bc=True, variant=None):
+def _lattice_knobs(bcells, interpret):
+    """The JAX entry points' keyword TPU knobs (``bcells=1,
+    interpret=None``): their defaults only."""
+    _tpu_knob("bcells", bcells, 1)
+    _tpu_knob("interpret", interpret, None)
+
+
+def blocked_lattice_apply(x, mats, Gt, bc_marker, nc, P, *, bcells=1,
+                          precision="highest", interpret=None,
+                          apply_bc=True, variant=None):
     """Fused ``y = A x`` on general hexes (shape-preserving). ``Gt`` is the
     ``(6, Qx, Qy, Qz)`` array of `geometry_to_gfirst`, ``mats`` from
     `lattice_blocked_mats`. ``variant`` in {None, 'yexp', 'v1', 'ym'}: the
     TPU layouts of one function, all K-A here. A CPU tensor runs the plain
     torch version (any float dtype); a CUDA tensor launches K-A (float32)
-    or raises."""
+    or raises. The JAX package's TPU knobs ``bcells`` and ``interpret``
+    take its defaults only."""
     _check_precision(precision)
+    _lattice_knobs(bcells, interpret)
     if variant not in (None, "yexp", "v1", "ym"):
         raise ValueError(f"unknown variant {variant!r} (the in-kernel-"
                          "geometry 'geom' and z-grouped 'zgrp' variants "
@@ -549,14 +566,17 @@ def blocked_lattice_apply(x, mats, Gt, bc_marker, nc, P, *,
 
 
 def blocked_lattice_apply_geom(x, mats, co, geom, bc_marker, nc, P, *, xi,
-                               wx, precision="highest", apply_bc=True):
+                               wx, bcells=1, precision="highest",
+                               interpret=None, apply_bc=True):
     """Fused ``y = A x`` with in-kernel geometry: ``co`` is the (37, ncx,
     ncy, ncz) coefficient array, ``geom`` the expansion-matrix dict and
     ``xi``/``wx`` the GLL tuples from `lattice_geom_data` (the JAX
     signature; K-B rebuilds the expansion from ``xi`` itself, so ``geom``
     is not read). CPU tensors run the plain version; CUDA tensors launch
-    K-B or raise."""
+    K-B or raise. ``bcells`` and ``interpret`` as in
+    `blocked_lattice_apply`."""
     _check_precision(precision)
+    _lattice_knobs(bcells, interpret)
     if x.device.type == "cpu":
         return plain_lattice_apply_geom(x, mats, co, bc_marker, tuple(nc),
                                         int(P), apply_bc)
@@ -565,13 +585,16 @@ def blocked_lattice_apply_geom(x, mats, co, geom, bc_marker, nc, P, *, xi,
 
 
 def blocked_lattice_apply_zgrp(x, mats, zmats, Gz, bc_marker, nc, P, zb, *,
-                               precision="highest", apply_bc=True):
+                               bcells=1, precision="highest", interpret=None,
+                               apply_bc=True):
     """Fused ``y = A x`` with the z-grouped geometry ``Gz`` of
     `geometry_to_zgrouped` (``zb`` must divide ``nc[2]``; `select_zgroup`
     picks it). ``zmats`` from `zgroup_matrices` keeps the JAX signature;
     the CUDA kernel does not need it. CPU tensors run the plain version;
-    CUDA tensors launch K-A on ``Gz`` or raise."""
+    CUDA tensors launch K-A on ``Gz`` or raise. ``bcells`` and
+    ``interpret`` as in `blocked_lattice_apply`."""
     _check_precision(precision)
+    _lattice_knobs(bcells, interpret)
     nc, P, zb = tuple(nc), int(P), int(zb)
     _check_zb(nc, zb)
     if x.device.type == "cpu":

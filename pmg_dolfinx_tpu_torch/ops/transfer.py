@@ -15,10 +15,11 @@ with ``(Mx, My, MzT)`` from `transfer_mats`: ``(Ix, Iy, Iz^T)`` to prolong
   it runs `plain_transfer`; on a CUDA tensor it launches the two kernels
   of `csrc/transfer.cu` or raises (no fallback): `transfer_x` (#10,
   ``_kernel_tx``) writes ``t = Mx ._x x3``, the only intermediate that
-  reaches device memory, and `transfer_yz` (#11, ``_kernel_tyz``) forms
-  ``My t_a MzT`` for each ``a``-slab, marching along y with the rows'
-  window in registers (no block barrier in the march), on the launch
-  plan `yz_plan` picks once per shape.
+  reaches device memory, marching each (y, z) column along x through a
+  segment of output rows (the plan `x_plan`), and `transfer_yz` (#11,
+  ``_kernel_tyz``) forms ``My t_a MzT`` for each ``a``-slab, marching
+  along y with the rows' window in registers (no block barrier in the
+  march), on the launch plan `yz_plan` picks once per shape.
 - The kernels sum each row only over its nonzero range ``[lo, hi)``:
   `nonzero_ranges` finds it on the device, from the matrix itself, and
   caches it on the matrix with the widest range (`nonzero_width`, read
@@ -34,7 +35,8 @@ The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
 counts every kernel launch.
 
 Not ported: the TPU kernels' slab sizes ``by``/``bx`` (the CUDA kernels
-fix their own tiles) and ``interpret``.
+fix their own tiles) and ``interpret``: `blocked_transfer` keeps them as
+keywords that take JAX's defaults only.
 """
 
 import ctypes
@@ -153,15 +155,19 @@ def yz_plan(A, NZ, B, C, width, sms):
 
 
 def _yz_rows(My, W):
-    """`transfer_yz`'s row operands of ``My``, laid out once per ring width
-    ``W`` and cached on ``My`` with its version: ``(rows, coef)``, ``rows``
-    (3, B) int32 the rows in the stable order of their ranges' ends
+    """The row operands of ``My`` for a march over its rows (`transfer_yz`
+    on ``My``, `transfer_x` on ``Mx``), laid out once per ring width ``W``
+    and cached on ``My`` with its version: ``(rows, coef)``, ``rows`` (3,
+    B) int32 the rows in the stable order of their ranges' ends
     (`nonzero_ranges`) with their ``lo`` and ``hi``, ``coef`` (B, W)
     float32 ``My[b, hi - W + d]`` for ``hi - W + d >= lo``, else 0 (None
     for ``W = 0``). Device ops only: no host read."""
-    hit = getattr(My, "_pmg_yz_rows", None)
-    if hit is not None and hit[0] == (My._version, W):
-        return hit[1]
+    cache = getattr(My, "_pmg_yz_rows", None)
+    if cache is None or cache[0] != My._version:
+        cache = My._pmg_yz_rows = (My._version, {})
+    hit = cache[1].get(W)
+    if hit is not None:
+        return hit
     ranges, _, order = _nz_lines(My, 0)
     o = order.long()
     lo, hi = ranges[0].long()[o], ranges[1].long()[o]
@@ -171,7 +177,7 @@ def _yz_rows(My, W):
         y = hi[:, None] - W + torch.arange(W, device=My.device)
         coef = torch.where(y >= lo[:, None], My[o[:, None], y.clamp(min=0)],
                            0.0).to(torch.float32).contiguous()
-    My._pmg_yz_rows = ((My._version, W), (rows, coef))
+    cache[1][W] = rows, coef
     return rows, coef
 
 
@@ -213,6 +219,59 @@ def _yz_launch(t, My, MzT):
     record = (W, RB) + tuple(None if x is None else x.data_ptr()
                              for x in operands)
     My._pmg_yz_launch = (MzT, key, record, operands)
+    return record
+
+
+# transfer_x: output rows per block (a segment marches the union of its
+# rows' ranges) and the rows of the segments that must fill the card for
+# the march to beat the direct form.
+X_ROWS = (64, 32, 16, 8, 4, 2, 1)
+X_MIN_ROWS = 8
+_XPLANS = {}
+
+
+def x_plan(A, NYZ, width, sms):
+    """The launch plan ``(W, S, C)`` of `transfer_x` for ``A`` output rows
+    over a plane of ``NYZ`` columns, widest nonzero range ``width``, on a
+    card of ``sms`` SMs: ``W`` the narrowest ring width of `YZ_WIDTHS`
+    that holds ``width`` (0 when none does), ``C`` the columns a thread
+    marches (4, or 2 for rings of 12 and more and the runtime width), and
+    ``S`` the most rows per block of `X_ROWS` that still gives every SM a
+    block of 256 threads (a segment re-reads the rows of x3 its
+    neighbour's ranges share; more rows, fewer such rows). When segments
+    of `X_MIN_ROWS` rows cannot give every SM two blocks, the march cannot
+    hide its latency and ``S`` is 0: the direct form, a thread per output
+    (on the H100 it was faster at 127^3 -> 43^3 and 43^3 -> 127^3)."""
+    key = (A, NYZ, width, sms)
+    plan = _XPLANS.get(key)
+    if plan is not None:
+        return plan
+    W = next((w for w in YZ_WIDTHS if w >= width), 0)
+    C = 2 if W == 0 or W >= 12 else 4
+    cols = -(-NYZ // (256 * C))
+    if cols * -(-A // X_MIN_ROWS) < 2 * sms:
+        S = 0
+    else:
+        S = next(s for s in X_ROWS if cols * -(-A // s) >= sms)
+    plan = _XPLANS[key] = (W, S, C)
+    return plan
+
+
+def _x_launch(x3, Mx):
+    """The launch record of `transfer_x` for ``x3`` on ``Mx``: ``(W, S,
+    C)`` from `x_plan` and the device pointers of the laid-out rows and
+    coefficients (`_yz_rows`), cached on ``Mx`` with them and rebuilt
+    when its version, the plane or the device changes."""
+    NYZ = x3.shape[1] * x3.shape[2]
+    key = (Mx._version, NYZ, x3.device.index)
+    hit = getattr(Mx, "_pmg_x_launch", None)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    plan = x_plan(Mx.shape[0], NYZ, nonzero_width(Mx, 0), _sms(x3.device))
+    operands = _yz_rows(Mx, plan[0])
+    record = plan + tuple(None if x is None else x.data_ptr()
+                          for x in operands)
+    Mx._pmg_x_launch = (key, record, operands)
     return record
 
 
@@ -262,7 +321,7 @@ def load_kernels():
         return _lib
     lib, BUILD_LOG = build_and_load(_SRC, "transfer", _find_nvcc)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.transfer_x_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+    lib.transfer_x_launch.argtypes = [vp] * 5 + [ci] * 6 + [vp]
     lib.transfer_x_launch.restype = ci
     lib.transfer_yz_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
     lib.transfer_yz_launch.restype = ci
@@ -283,20 +342,22 @@ def _check_x3(x3):
 
 def transfer_x(x3, Mx):
     """Launch kernel #10 on CUDA tensors: ``t = Mx ._x x3``, a new
-    ``(A, NY, NZ)`` lattice."""
+    ``(A, NY, NZ)`` lattice. The plan (`x_plan`) and the row operands are
+    cached on ``Mx``, so a launch makes no host read."""
     _check_x3(x3)
     NX, NY, NZ = x3.shape
     A = Mx.shape[0]
     _check("Mx", Mx, (A, NX), x3.device)
-    if NY * NZ > 65535 * 256:
-        raise ValueError(f"a ({NY}, {NZ}) plane exceeds the kernel's grid")
-    rx = nonzero_ranges(Mx, 0)
+    if NX * NY * NZ >= 2**31:
+        raise ValueError(f"a {tuple(x3.shape)} lattice exceeds the kernel's "
+                         "32-bit offsets")
+    W, S, C, rows, coef = _x_launch(x3, Mx)
     lib = load_kernels()
     t = torch.empty((A, NY, NZ), dtype=torch.float32, device=x3.device)
     with _on_device(x3):
-        rc = lib.transfer_x_launch(x3.data_ptr(), Mx.data_ptr(),
-                                   rx.data_ptr(), t.data_ptr(), NX, NY * NZ,
-                                   A, stream_of(x3))
+        rc = lib.transfer_x_launch(x3.data_ptr(), Mx.data_ptr(), rows, coef,
+                                   t.data_ptr(), NX, NY * NZ, A, W, S, C,
+                                   stream_of(x3))
     if rc != 0:
         raise RuntimeError(f"transfer_x launch failed: CUDA error {rc}")
     LAUNCHES["transfer_x"] += 1
@@ -327,12 +388,17 @@ def transfer_yz(t, My, MzT):
     return out
 
 
-def blocked_transfer(x3, Mx, My, MzT):
+def blocked_transfer(x3, Mx, My, MzT, *, by=8, bx=8, interpret=None):
     """``y[a,b,c] = sum_{xyz} Mx[a,x] My[b,y] MzT[z,c] x3[x,y,z]``
     (lattice-shaped ``x3``). ``MzT`` arrives transposed (the
     z-contraction is a right-multiplication), as `transfer_mats` gives
     it. A CPU tensor runs `plain_transfer` (any float dtype); a CUDA
-    tensor launches kernels #10 then #11 (float32) or raises."""
+    tensor launches kernels #10 then #11 (float32) or raises. The JAX
+    package's slab sizes ``by``/``bx`` and ``interpret`` take its
+    defaults only."""
+    from .kron_blocked import _tpu_knobs
+
+    _tpu_knobs(by, bx, interpret)
     if x3.device.type == "cpu":
         return plain_transfer(x3, Mx, My, MzT)
     return transfer_yz(transfer_x(x3, Mx), My, MzT)

@@ -56,8 +56,8 @@ _OPERATOR_TODO = ("operator='csr' (assembled sparse matvec) and 'dss' "
 _SIGMA_FIELD_TODO = ("a sigma FIELD (callable) on the general backends is "
                      "not ported yet (ROADMAP.md Queue 1 item 7)")
 _COARSE_TODO = ("only coarse='smoother', 'cg' and 'fdm' are ported; "
-                "'direct', 'hmg' and 'amg' are ROADMAP.md Queue 1 items 4 "
-                "and 7")
+                "'direct' and 'hmg' are ROADMAP.md Queue 1 item 7a, 'amg' "
+                "item 8")
 
 
 @dataclass(frozen=True)

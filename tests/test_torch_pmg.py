@@ -107,7 +107,7 @@ def test_load_state_checks_shapes():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(operator="csr"), "Queue 1 items 6 and 8"),
-    (dict(coarse="hmg"), "Queue 1 items 4"),
+    (dict(coarse="hmg"), "Queue 1 item 7a"),
     (dict(smoother="line"), "Queue 1 item 7"),
     (dict(smoother="schwarz"), "Queue 1 item 7"),
     (dict(precision="high"), "Queue 1 item 1"),

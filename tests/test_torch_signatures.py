@@ -292,3 +292,176 @@ def test_operator_classes_positional():
                                             device="cpu")):
         with pytest.raises(ValueError, match="TPU tile or mode knob"):
             call()
+
+
+# The JAX package's TPU knobs that the port lacked until its signature
+# scan found them: a JAX-style call raised TypeError.
+PACKED_ARGS = {"PackedKronBatch": (2.0, 2, "highest", SIGMA),
+               "PackedFDMBatch": (2.0, 2, SIGMA),
+               "PackedKronSingle": (2.0, "highest", SIGMA),
+               "PackedFDMSingle": (2.0, SIGMA)}
+
+
+@pytest.mark.parametrize("cls", sorted(PACKED_ARGS))
+def test_packed_classes_interpret_positional(cls):
+    """The packed classes' trailing positional ``interpret=False``
+    (`pallas_kron_packed.py:190, 401, 674, 893`): the apply or solve of
+    JAX and the port with the same positionals; ``True`` raises."""
+    from pmg_dolfinx_tpu.ops import pallas_kron_packed as jkp
+    from pmg_dolfinx_tpu_torch.ops import kron_packed as tkp
+
+    nc, p = (2, 2, 2), 2
+    args = PACKED_ARGS[cls]
+    jop = getattr(jkp, cls)(JBox(nc), p, *args, False)
+    top = getattr(tkp, cls)(TBox(nc), p, *args, False, device="cpu")
+    n = TBox(nc).num_dofs(p)
+    shape = (2, n) if "Batch" in cls else (n,)
+    x = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+    call = "solve" if "FDM" in cls else "__call__"
+    y_t = getattr(top, call)(torch.from_numpy(x))
+    assert _rel(y_t, getattr(jop, call)(jnp.asarray(x))) <= 1e-5
+    with pytest.raises(ValueError, match="TPU tile or mode knob"):
+        getattr(tkp, cls)(TBox(nc), p, *args, True, device="cpu")
+    with pytest.raises(ValueError, match="TPU tile or mode knob"):
+        getattr(tkp, cls)(TBox(nc), p, *args, interpret=True, device="cpu")
+
+
+def test_geom_to_G_xp_positional():
+    """``geom_to_G(co, nc, P, xp)``: numpy, JAX's default, positionally;
+    any other module raises."""
+    from pmg_dolfinx_tpu.ops import pallas_lattice_blocked as jlb
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as tlb
+
+    mesh = TPert(NC)
+    co = tlb.lattice_geom_coefficients(mesh, P, np.full(mesh.ncells, 2.0))
+    G_t = tlb.geom_to_G(co, NC, P, np)
+    assert _rel(G_t, jlb.geom_to_G(co, NC, P, np)) <= 1e-12
+    assert _rel(tlb.geom_to_G(torch.tensor(co), NC, P, xp=np), G_t) <= 1e-12
+    with pytest.raises(ValueError, match="xp="):
+        tlb.geom_to_G(co, NC, P, torch)
+
+
+KRON_KNOBS = [dict(by=8, bx=8, interpret=None), dict(by=16), dict(bx=4),
+              dict(interpret=True)]
+
+
+@pytest.mark.parametrize("entry", ["apply", "residual", "cheb4"])
+def test_blocked_kron_entry_points_keyword_knobs(entry):
+    """``blocked_kron_apply/residual/cheb4(..., *, by=8, bx=8,
+    interpret=None)``: JAX's keywords at their defaults give JAX's result
+    (its CPU emulation path); any other value raises."""
+    from pmg_dolfinx_tpu.ops import pallas_kron_blocked as jkb
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as tkb
+
+    mesh, Ks, ms = _kron_factors(NC, P, np.float32)
+    shape = mesh.lattice_shape(P)
+    bc = mesh.boundary_dof_marker(P).reshape(shape)
+    fm = tkb.checked_face_masks(mesh, P, bc)
+    tm = tkb.symmetrized_mats(Ks, ms, torch.float32, fm, band=P,
+                              device="cpu")
+    jm = jkb.symmetrized_mats(Ks, ms, jnp.float32, fm)
+    rng = np.random.default_rng(9)
+    x, b = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    dinv = np.full(shape, 0.5, np.float32)
+    lmax = np.asarray(6.0, np.float32)
+    tt = lambda a: torch.from_numpy(a)
+    calls = {
+        "apply": (lambda m, c, **k: m.blocked_kron_apply(c(x), c(bc), mt(m),
+                                                         **k)),
+        "residual": (lambda m, c, **k: m.blocked_kron_residual(
+            c(b), c(x), c(bc), mt(m), **k)),
+        "cheb4": (lambda m, c, **k: m.blocked_kron_cheb4(
+            c(b), c(x), c(bc), mt(m), c(dinv), c(lmax), 2, **k))}
+    mt = lambda m: tm if m is tkb else jm
+    call = calls[entry]
+    knobs = KRON_KNOBS[0]
+    y_t = call(tkb, tt, sigma=SIGMA, **knobs)
+    y_j = call(jkb, jnp.asarray, sigma=SIGMA, **knobs)
+    assert _rel(y_t, y_j) <= 1e-5
+    for bad in KRON_KNOBS[1:]:
+        with pytest.raises(ValueError, match="TPU tile or mode knob"):
+            call(tkb, tt, **bad)
+
+
+def test_blocked_transfer_keyword_knobs():
+    """``blocked_transfer(x3, Mx, My, MzT, *, by=8, bx=8,
+    interpret=None)``."""
+    from pmg_dolfinx_tpu.ops import pallas_transfer as jt
+    from pmg_dolfinx_tpu_torch.ops import transfer as tt
+    from pmg_dolfinx_tpu_torch.ops.lattice import axis_interpolation_matrix
+
+    I1s = [axis_interpolation_matrix(n, 1, P) for n in NC]
+    Mt = tt.transfer_mats([torch.tensor(I) for I in I1s], "restrict")
+    Mj = jt.transfer_mats(I1s, "restrict")
+    x = np.random.default_rng(10).standard_normal(
+        TBox(NC).lattice_shape(P)).astype(np.float32)
+    y_t = tt.blocked_transfer(torch.from_numpy(x), *Mt, **KRON_KNOBS[0])
+    y_j = jt.blocked_transfer(jnp.asarray(x), *Mj, **KRON_KNOBS[0])
+    assert _rel(y_t, y_j) <= 1e-6
+    for bad in KRON_KNOBS[1:]:
+        with pytest.raises(ValueError, match="TPU tile or mode knob"):
+            tt.blocked_transfer(torch.from_numpy(x), *Mt, **bad)
+
+
+@pytest.mark.parametrize("entry", ["apply", "zgrp", "geom"])
+def test_blocked_lattice_entry_points_keyword_knobs(entry):
+    """``blocked_lattice_apply(_zgrp, _geom)(..., *, bcells=1,
+    interpret=None)``: JAX's defaults accepted, anything else raises."""
+    from pmg_dolfinx_tpu.ops import pallas_lattice_blocked as jlb
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as tlb
+
+    nc, p = (2, 2, 2), 2
+    jop = jlb.PallasLatticeBlocked(JPert(nc), p, 2.0, 1, True, "highest",
+                                   "zgrp" if entry == "zgrp" else
+                                   ("geom" if entry == "geom" else None), 1)
+    top = tlb.PallasLatticeBlocked(TPert(nc), p, 2.0, 1, False, "highest",
+                                   "zgrp" if entry == "zgrp" else
+                                   ("geom" if entry == "geom" else None), 1,
+                                   device="cpu")
+    x = np.random.default_rng(11).standard_normal(
+        TPert(nc).num_dofs(p)).astype(np.float32)
+    mats_t = tlb.lattice_blocked_mats(nc, p, device="cpu")
+    mats_j = jlb.lattice_blocked_mats(nc, p)
+    bc_t = torch.tensor(TPert(nc).boundary_dof_marker(p))
+    bc_j = jnp.asarray(np.asarray(bc_t))
+
+    def call(bad=None):
+        k = dict(bcells=1, interpret=None) if bad is None else bad
+        if entry == "apply":
+            return (tlb.blocked_lattice_apply(torch.from_numpy(x), mats_t,
+                                              top.Gt, bc_t, nc, p, **k),
+                    None if bad else jlb.blocked_lattice_apply(
+                        jnp.asarray(x), mats_j, jnp.asarray(np.asarray(
+                            top.Gt)), bc_j, nc, p, **k))
+        if entry == "zgrp":
+            return (tlb.blocked_lattice_apply_zgrp(
+                torch.from_numpy(x), mats_t, top.zmats, top.Gz, bc_t, nc, p,
+                1, **k),
+                    None if bad else jlb.blocked_lattice_apply_zgrp(
+                        jnp.asarray(x), mats_j, jop.zmats, jnp.asarray(
+                            np.asarray(top.Gz)), bc_j, nc, p, 1, **k))
+        return (tlb.blocked_lattice_apply_geom(
+            torch.from_numpy(x), mats_t, top.co, top.geom, bc_t, nc, p,
+            xi=top._xi, wx=top._wx, **k),
+                None if bad else jlb.blocked_lattice_apply_geom(
+                    jnp.asarray(x), mats_j, jnp.asarray(np.asarray(top.co)),
+                    jop.geom, bc_j, nc, p, xi=top._xi, wx=top._wx, **k))
+
+    y_t, y_j = call()
+    assert _rel(y_t, y_j) <= 1e-5
+    for bad in (dict(bcells=2), dict(interpret=True)):
+        with pytest.raises(ValueError, match="TPU tile or mode knob"):
+            call(bad)
+
+
+@pytest.mark.parametrize("coarse,item", [("direct", "item 7a"),
+                                         ("hmg", "item 7a"),
+                                         ("amg", "item 8")])
+def test_coarse_refusal_names_its_roadmap_item(coarse, item):
+    """`PMGHierarchy`'s refusal of an unported coarse solver names the
+    ROADMAP item that ports it: 7a for 'direct' and 'hmg', 8 for 'amg'."""
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    with pytest.raises(NotImplementedError, match=item):
+        PMGHierarchy(TBox((2, 2, 2)), degrees=(1, 2), coarse=coarse,
+                     device="cpu")

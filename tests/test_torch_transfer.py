@@ -15,11 +15,20 @@ with the JAX package.
   `load_state`) against JAX's fused-transfer hierarchy: f32 residuals
   within 1e-4 relative, ``BoxMesh((4, 4, 4))``, degrees (1, 3), four
   cycles with the ``fdm`` coarse solve, three with ``cg`` (see the test).
+- The same against JAX at p 3 <-> 6 (the Pallas kernels in interpret
+  mode), relative max-norm <= 1e-5.
+- `x_plan` (ring width, rows per block, columns per thread, or the direct
+  form) at the V-cycle's four transfer shapes, and the x rows its
+  segments read there.
 - On the card, both kernels against their plain versions (marked
-  ``cuda``; skipped without a GPU), and `transfer_yz` alone at the fused
+  ``cuda``; skipped without a GPU), `transfer_yz` alone at the fused
   V-cycle's four shapes, at odd extents and on a band wider than every
-  ring width (the runtime-width variant). Those tests need no JAX, so on
-  a GPU machine without JAX they run as
+  ring width (the runtime-width variant), and `transfer_x` alone: the
+  march (every ring width, 1-4 columns a thread, segments of 1-64 rows)
+  and the direct form at the cycle's shapes and odd ones, on a permuted
+  matrix with an all-zero row and a dense one; the same bits on two
+  calls and a first call inside a CUDA graph capture. Those tests need
+  no JAX, so on a GPU machine without JAX they run as
   ``python -m pytest --noconftest -m cuda tests/test_torch_transfer.py``.
 """
 
@@ -92,6 +101,94 @@ def test_blocked_transfer_matches_pallas_interpret(jx, direction):
     lattice = lattice_restrict if direction == "restrict" else \
         lattice_prolongate
     assert _rel(y_t.numpy(), lattice(torch.from_numpy(x), tI, shape)) <= 1e-6
+
+
+@pytest.mark.parametrize("direction", ["restrict", "prolong"])
+def test_blocked_transfer_matches_pallas_interpret_p36(jx, direction):
+    """p 3 <-> 6 on ``BoxMesh((2, 1, 3))``: `plain_transfer` (the plain
+    versions of #10 then #11) against the Pallas kernels in interpret
+    mode, relative max-norm."""
+    jnp = jx.jnp
+    nc = (2, 1, 3)
+    I1s = _I1s(nc, 3, 6)
+    p = 6 if direction == "restrict" else 3
+    shape = tuple(n * p + 1 for n in nc)
+    x3 = np.random.default_rng(12).standard_normal(shape).astype(np.float32)
+    y_j = np.asarray(jx.jt.blocked_transfer(
+        jnp.asarray(x3), *jx.jt.transfer_mats(I1s, direction),
+        interpret=True), np.float64)
+    Mt = tt.transfer_mats([torch.tensor(I) for I in I1s], direction)
+    t = tt.plain_transfer_x(torch.from_numpy(x3), Mt[0])
+    y_t = tt.plain_transfer_yz(t, *Mt[1:]).numpy().astype(np.float64)
+    assert np.abs(y_t - y_j).max() <= 1e-5 * np.abs(y_j).max()
+
+
+# transfer_x's plan at the fused V-cycle's four shapes (nc 42) on a card
+# of 132 SMs: (ring width, rows per block, columns per thread); rows 0 is
+# the direct form (a thread per output).
+X_PLANS = [((42, 3, 6), "restrict", (12, 64, 2)),
+           ((42, 3, 6), "prolong", (4, 16, 4)),
+           ((42, 1, 3), "restrict", (8, 0, 4)),
+           ((42, 1, 3), "prolong", (4, 0, 4))]
+
+
+def _segments(M, S):
+    """The x range ``[lo, hi)`` each segment of ``S`` rows of ``M`` (in the
+    order of their ranges' ends) marches: the union of its nonempty rows'
+    ranges, ``(0, 0)`` for a segment of empty rows."""
+    lo, hi = tt.nonzero_ranges(M, 0).long()
+    order = torch.argsort(hi, stable=True)
+    out = []
+    for s0 in range(0, M.shape[0], S):
+        rows = order[s0:s0 + S]
+        full = hi[rows] > lo[rows]
+        out.append((int(lo[rows][full].min()), int(hi[rows][full].max()))
+                   if bool(full.any()) else (0, 0))
+    return np.array(out).reshape(-1, 2)
+
+
+@pytest.mark.parametrize("pair,direction,plan", X_PLANS)
+def test_x_plan_for_the_cycle_shapes(pair, direction, plan):
+    nc, pc, pf = pair
+    Mx = tt.transfer_mats(_I1s((nc,), pc, pf) * 3, direction)[0]
+    p = pf if direction == "restrict" else pc
+    n = nc * p + 1
+    assert tt.x_plan(Mx.shape[0], n * n, tt.nonzero_width(Mx, 0), 132) == plan
+    W, S, C = plan
+    if S:   # the segments fill the card, and re-read at most half of x3
+        cols = -(-n * n // (256 * C))
+        assert cols * -(-Mx.shape[0] // S) >= 132
+        seg = _segments(Mx, S)
+        assert (seg[:, 1] - seg[:, 0]).sum() <= 1.5 * n
+
+
+def test_x_plan_on_a_permuted_matrix():
+    """Rows whose ranges end out of order, with an all-zero row: the ring
+    holds the widest range, the rows are taken in the stable order of
+    their ends (`_yz_rows`, the march's layout) with each one's
+    coefficients at the ring's end, and every row's range lies inside its
+    segment's."""
+    M = _banded(20, 45, 3, 1)[torch.randperm(
+        20, generator=torch.Generator().manual_seed(0))].contiguous()
+    M[4] = 0.0
+    W, S, C = tt.x_plan(20, 30 * 70, tt.nonzero_width(M, 0), 1)
+    assert (W, C) == (8, 4) and S > 0
+    rows, coef = tt._yz_rows(M, W)
+    order, lo, hi = rows.long()
+    assert torch.equal(hi, torch.sort(hi, stable=True).values)
+    assert int(order[0]) == 4 and int(hi[0]) == 0
+    for q in range(20):
+        a, l, h = int(order[q]), int(lo[q]), int(hi[q])
+        nz = torch.nonzero(M[a]).reshape(-1)
+        if len(nz):
+            assert (l, h) == (int(nz.min()), int(nz.max()) + 1)
+            assert torch.equal(coef[q, W - (h - l):], M[a, l:h])
+        assert bool((coef[q, :W - (h - l)] == 0).all())
+    seg = _segments(M, S)
+    for q in range(20):
+        a, b = seg[q // S]
+        if hi[q] > lo[q]:
+            assert a <= int(lo[q]) and int(hi[q]) <= b
 
 
 def test_transfer_mats_direction_error(jx):
@@ -404,3 +501,87 @@ def test_cuda_transfer_yz_runtime_width(cuda_device, permute):
     assert _rel_max(y, tt.plain_transfer_yz(t, My, MzT)) <= 1e-5
     with pytest.raises(ValueError, match="MzT has shape"):
         tt.transfer_yz(t, My, MzT[:-1].contiguous())
+
+
+# transfer_x alone: the fused V-cycle's shapes (nc 42) and odd extents.
+X_CASES = [(42, 3, 6), (42, 1, 3), ((3, 5, 7), 1, 3), ((3, 5, 7), 3, 6),
+           ((2, 1, 9), 2, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [None, 1, 16])
+@pytest.mark.parametrize("direction", ["restrict", "prolong"])
+@pytest.mark.parametrize("nc,pc,pf", X_CASES)
+def test_cuda_transfer_x_shapes(cuda_device, monkeypatch, nc, pc, pf,
+                                direction, sms):
+    """`transfer_x` against `plain_transfer_x`, <= 1e-5 relative max-norm,
+    one launch: on the card's SM count (the cycle's plans: marches of 64
+    and 16 rows, the direct form) and as if on fewer SMs (longer
+    segments, the march where the card would take the direct form)."""
+    if sms is not None:
+        monkeypatch.setattr(tt, "_sms", lambda device: sms)
+    ncs = (nc,) * 3 if isinstance(nc, int) else nc
+    Mx = tt.transfer_mats([torch.tensor(axis_interpolation_matrix(n, pc, pf),
+                                        dtype=torch.float32,
+                                        device=cuda_device) for n in ncs],
+                          direction)[0]
+    p = pf if direction == "restrict" else pc
+    shape = tuple(n * p + 1 for n in ncs)
+    x3 = torch.tensor(np.random.default_rng(sum(shape)).standard_normal(shape),
+                      dtype=torch.float32, device=cuda_device)
+    before = tt.LAUNCHES["transfer_x"]
+    t = tt.transfer_x(x3, Mx)
+    assert tt.LAUNCHES["transfer_x"] == before + 1
+    assert _rel_max(t, tt.plain_transfer_x(x3, Mx)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [None, 1])
+@pytest.mark.parametrize("case", ["permuted", "wide", "dense"])
+def test_cuda_transfer_x_any_matrix(cuda_device, monkeypatch, case, sms):
+    """Rows whose ranges end out of order with an all-zero row (ring width
+    4), a band wider than every ring (the runtime width) and a dense
+    matrix, as the march and as the direct form."""
+    if sms is not None:
+        monkeypatch.setattr(tt, "_sms", lambda device: sms)
+    if case == "permuted":
+        M = _banded(20, 45, 1, 1)[torch.randperm(
+            20, generator=torch.Generator().manual_seed(0))]
+        M[4] = 0.0
+    elif case == "wide":
+        M = _banded(20, 45, 10, 2)
+    else:
+        M = torch.rand((7, 45), generator=torch.Generator().manual_seed(3))
+    M = M.contiguous().to(cuda_device)
+    x3 = torch.tensor(np.random.default_rng(4).standard_normal((45, 30, 70)),
+                      dtype=torch.float32, device=cuda_device)
+    t = tt.transfer_x(x3, M)
+    assert _rel_max(t, tt.plain_transfer_x(x3, M)) <= 1e-5
+    if case == "permuted":
+        assert bool((t[4] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_transfer_x_same_bits_and_first_call_in_graph_capture(
+        cuda_device):
+    """Two calls give the same bits; a first call on new matrices (their
+    rows laid out inside the capture; the widest range, the one host
+    read, taken before it) inside a CUDA graph capture, replayed, gives
+    them again, for the march and the direct form."""
+    for nc, pc, pf in ((42, 3, 6), (42, 1, 3)):
+        I = torch.tensor(axis_interpolation_matrix(nc, pc, pf),
+                         dtype=torch.float32, device=cuda_device)
+        Mx = tt.transfer_mats((I, I, I), "restrict")[0]
+        n = nc * pf + 1
+        x3 = torch.tensor(np.random.default_rng(n).standard_normal(
+            (n, n, n)), dtype=torch.float32, device=cuda_device)
+        t1, t2 = tt.transfer_x(x3, Mx), tt.transfer_x(x3, Mx)
+        assert torch.equal(t1, t2)
+        M2 = Mx.clone()
+        tt.nonzero_width(M2, 0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            t3 = tt.transfer_x(x3, M2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(t3, t1)

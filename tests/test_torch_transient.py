@@ -392,7 +392,7 @@ def test_wave_driver_f64_matches_jax_evolve():
 
 
 @pytest.mark.parametrize("name,flag,item", [
-    ("heat_torch.py", ("--grade", "z:8"), "Queue 1 item 2"),
+    ("heat_torch.py", ("--grade", "z:8"), "Queue 1 item 7c"),
     ("wave_torch.py", ("--shards", "2"), "Queue 1 item 10"),
     ("heat_torch.py", ("--save-series", "out.vtk"), "Queue 1 item 11"),
 ])
