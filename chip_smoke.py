@@ -43,6 +43,12 @@ failure; nothing is caught.
    At 253^3 the ops entry points ``blocked_kron_apply``,
    ``blocked_kron_residual`` and ``blocked_kron_cheb4`` run between a reset
    and a read of the launch counts: each of the four kernels must launch.
+   Then #5 / #6 (the y-march with the marker byte up to band 12, the tile
+   above: ``t23_plan``) within 1e-5 of ``plain_t23`` and as device time
+   beside the bound and the separable twin's (#2 / #3) at 253^3 and
+   127^3 band 6, 127^3 band 3, and phase 3's 43^3 band 1, 121^3 band 10
+   and 129^3 band 16; with ``--parent``, the parent's in turns and
+   whether both give the same bits (#7 too, at the first three).
 3c. Transfer kernel parity: ``transfer_x`` (#10) and ``transfer_yz`` (#11)
    alone and as ``blocked_transfer`` against the plain torch versions for
    the main path's two pairs, 253^3 <-> 127^3 (p 6 <-> 3) and 127^3 <->
@@ -68,8 +74,11 @@ failure; nothing is caught.
    and whether both give the same bits.
 3e. The device-grid kernels #8/#9 on one shard at 127^3 and 253x127x127
    (band 6), 64^3 (band 3) and 22^3 (band 1) with seeded corrections
-   against their plain versions, and #9 as device time (CUDA graph);
-   `blocked_kron_apply_grid` on a non-separable marker must launch #8.
+   against their plain versions (#8 on a non-separable marker), #9 and #8
+   (apply and residual) as device time (CUDA graph), #8 beside its bound
+   and #9's time, with ``--parent`` beside the parent's #8 and whether
+   both give the same bits; `blocked_kron_apply_grid` on a non-separable
+   marker must launch #8.
 4. Main path: ``PoissonProblem(nc=(42,42,42), degrees=(1,3,6), kappa=2,
    float32, coarse="fdm", operator="kron_blocked")`` — 10 stationary
    V-cycles (the residual falls on each of the first 4) and FCG(V) to
@@ -181,11 +190,12 @@ failure; nothing is caught.
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
 PyTorch call computes the same function, and its bound: bytes over 3.35
-TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#4, #9-#12, the
+TB/s or f32 operations over 67 TFLOP/s, the larger; #1-#6, #8-#12, the
 lattice kernels #13-#17 and the serving kernels #18-#21 add their device
-times as ``device_ms*`` keys, the transfers, #12 and the lattice
-kernels per shape beside ``bound_ms_by_shape`` (#12 with the blocked
-apply's device time), the lattice kernels with their box and face
+times as ``device_ms*`` keys, #5, #6, #8, the transfers, #12 and the
+lattice kernels per shape beside ``bound_ms_by_shape`` (#5, #6, #8 with
+their separable twin's device time, #12 with the blocked apply's), the
+lattice kernels with their box and face
 scratch, the serving kernels per batch beside ``bound_ms_by_batch``,
 with their kernels and host us per call and, with ``--parent``, the
 parent's device times and whether the bits are the same) and, only when every
@@ -380,6 +390,26 @@ def graph_ms(fn, launches=20, reps=5):
     return sorted(times)[reps // 2]
 
 
+def device_ms(kern, par=None, bound=None):
+    """Device ms of ``kern`` (`graph_ms`) and the text to print after it.
+    With the parent's twin call ``par``, both run in turns (parent,
+    change, change, parent) and the third value is (parent ms, whether
+    both give the same bits), else None; ``bound`` (ms) adds the
+    parent's share of it to the text."""
+    import torch
+
+    if par is None:
+        return graph_ms(kern), "", None
+    p1, d1, d2, p2 = graph_ms(par), graph_ms(kern), graph_ms(kern), \
+        graph_ms(par)
+    pdev = (p1 + p2) / 2
+    same = bool(torch.equal(kern().clone(), par()))
+    share = "" if bound is None else f", {bound / pdev:.0%}"
+    return (d1 + d2) / 2, (
+        f"; parent {pdev:.4f} ms{share} (turns {p1:.4f}, {d1:.4f}, "
+        f"{d2:.4f}, {p2:.4f}), same bits {same}"), (pdev, same)
+
+
 def host_us(fn, calls=1000, reps=5):
     """Host microseconds per call of ``fn`` (enqueue only: the card is
     idle before the first call, and its finish is not timed): the least
@@ -398,10 +428,10 @@ def host_us(fn, calls=1000, reps=5):
     return best
 
 
-def ptxas_lines(log, keep, prefix="kron_t"):
+def ptxas_lines(log, keep, prefix="kron_t", width=32):
     """The ``-Xptxas -v`` registers and spills of each kernel of ``log``
     whose mangled name contains one of ``keep``, one line each, the name
-    from ``prefix`` on."""
+    from ``prefix`` on (``width`` characters of it)."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -410,7 +440,7 @@ def ptxas_lines(log, keep, prefix="kron_t"):
             if "spill" in line:
                 spill = line.strip()
             elif "registers" in line:
-                out.append(f"{name[name.find(prefix):][:32]}: "
+                out.append(f"{name[name.find(prefix):][:width]}: "
                            f"{line.split(': ', 1)[-1].strip()}; {spill}")
     return out
 
@@ -595,12 +625,14 @@ def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None):
         A, NY, NZ, B_, C = dims
         nbytes = 4 * A * (NY * NZ + B_ * C) + 4 * (B_ * NY + NZ * C)
         flops = 2 * terms
-    elif name in ("t23_grid", "t23_grid_m"):  # t23(_m) + the cy/cz planes
+    elif name in ("t23_grid", "t23_grid_m", "t23_grid_res",
+                  "t23_grid_res_m"):     # t23(_res)(_m) + the cy/cz planes
         NX, NY, NZ = dims
-        marker = 1 if name == "t23_grid" else 0
+        marker = 0 if name.endswith("_m") else 1
+        res = 1 if "_res" in name else 0
         edge = 2 * NX * NZ + 2 * NX * NY
-        nbytes = 4 * N * 3 + marker * N + 4 * edge
-        flops = (4 * D + (8 if marker else 10)) * N + 2 * edge
+        nbytes = 4 * N * (3 + res) + marker * N + 4 * edge
+        flops = (4 * D + (8 if marker else 10) + res) * N + 2 * edge
     elif name == "kron_fused":           # x, marker, planes read, y written
         NX, NY, NZ = dims
         nbytes = 9 * N + 4 * (NY * NZ + NX * NZ + NX * NY)
@@ -739,6 +771,95 @@ def full_bc_parity(nc, P, kappa=2.0, path=False):
     return {k: tuple(v) for k, v in out.items()}, launches, t1
 
 
+def full_bc_march(nc, P, extra, parent=None, kappa=2.0):
+    """Phase 3b, kernels #5 / #6 (`kron_t23`, the y-march with the marker
+    byte) at ``BoxMesh((nc,) * 3)``, degree P, on a non-separable marker
+    (the box faces plus ~1% of the interior dofs): within 1e-5 of
+    `plain_t23` (apply and residual, sigma in {0, 0.5}), then each
+    kernel's device time (`graph_ms`) beside its bound and its separable
+    twin's (#2 / #3 on the box's face masks, same x and t1'). With the
+    parent's package ``parent``, the parent's device time in turns
+    (parent, change, change, parent) and whether both give the same bits,
+    for #7 (`kron_t23_cheb`, loop step) too. Into ``extra`` (kernel name
+    -> the kernels line's keys, by shape)."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops.kron import axis_stiffness_mass
+
+    mesh = BoxMesh((nc, nc, nc))
+    shape = mesh.lattice_shape(P)
+    Ks, ms = zip(*(axis_stiffness_mass(n, P, h)
+                   for n, h in zip(mesh.nc, mesh.h_cells)))
+    Ks = [kappa * K for K in Ks]
+    mats = kb.symmetrized_mats(Ks, ms, band=P, device="cuda")
+    sep = kb.symmetrized_mats(Ks, ms, face_masks=kb.checked_face_masks(
+        mesh, P, mesh.boundary_dof_marker(P)), band=P, device="cuda")
+    rng = np.random.default_rng(SEED + 11 * nc + P)
+    bc = torch.tensor(mesh.boundary_dof_marker(P).reshape(shape)
+                      | (rng.random(shape) < 0.01), device="cuda")
+    x, r, b = (torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device="cuda") for _ in range(3))
+    t1 = kb.plain_t1(x, bc, mats)
+    t1m = kb.plain_t1_m(x, sep)
+    key = f"{shape[0]}^3 band {P}"
+    for sigma in (0.0, 0.5):
+        for rr in (None, r):
+            ref = kb.plain_t23(x, bc, t1, mats, sigma)
+            if rr is not None:
+                ref = rr - ref
+            got = kb.kron_t23(x, bc, t1, mats, sigma, r3=rr)
+            torch.cuda.synchronize()
+            err = rel_max_err(got, ref)
+            tag = (f"{key} {'t23_res' if rr is not None else 't23'} "
+                   f"sigma={sigma}")
+            print(f"    {tag}: rel max err {err:.3e}")
+            if not err <= KERNEL_RTOL:
+                raise AssertionError(f"{tag}: relative max-norm error "
+                                     f"{err:.3e} > {KERNEL_RTOL}")
+    pkb = (importlib.import_module(f"{parent.__name__}.ops.kron_blocked")
+           if parent else None)
+    y = torch.empty_like(x)
+    N = x.numel()
+    dinv = torch.rand(shape, device="cuda") + 0.5
+    lmax = torch.tensor(2.2, dtype=torch.float32, device="cuda")
+    cases = {
+        "t23": (lambda k: k.kron_t23(x, bc, t1, mats, out=y),
+                lambda: kb.kron_t23_m(x, t1m, sep, out=y), "t23_m"),
+        "t23_res": (lambda k: k.kron_t23(x, bc, t1, mats, r3=r, out=y),
+                    lambda: kb.kron_t23_m(x, t1m, sep, r3=r, out=y),
+                    "t23_res_m"),
+    }
+    if parent and (nc, P) in ((42, 6), (21, 6), (42, 3)):
+        # #7 keeps the parent's code: its bits and time beside the parent's.
+        cases["t23_cheb"] = (lambda k: k.kron_t23_cheb(
+            x, bc, t1, mats, b, r, dinv, lmax, 1)[1], None, None)
+    for name, (kern, twin, twin_name) in cases.items():
+        e = extra.setdefault(name, {
+            "device_ms_by_shape": {}, "bound_ms_by_shape": {},
+            "twin_device_ms_by_shape": {},
+            "parent_device_ms_by_shape": {} if parent else None,
+            "same_bits_as_parent_by_shape": {} if parent else None})
+        bound, by = kernel_bound(name, N, P)
+        dev, vs, par = device_ms(lambda: kern(kb), parent and (
+            lambda: kern(pkb)), bound)
+        if par:
+            (e["parent_device_ms_by_shape"][key],
+             e["same_bits_as_parent_by_shape"][key]) = par
+        e["device_ms_by_shape"][key] = dev
+        e["bound_ms_by_shape"][key] = bound
+        tw = ""
+        if twin is not None:
+            tdev = e["twin_device_ms_by_shape"][key] = graph_ms(twin)
+            tw = f"; separable twin {twin_name} {tdev:.4f} ms"
+        form = f" ({kb.t23_plan(P)})" if name != "t23_cheb" else ""
+        print(f"    {key} {name}{form}: device {dev:.4f} ms (CUDA graph of 20 "
+              f"launches), {bound / dev:.0%} of its bound {bound:.4f} ms "
+              f"({by}){tw}{vs}")
+
+
 def turns(plain, kern):
     """Times ``plain`` and ``kern`` in turns plain, kernel, kernel, plain;
     returns (kernel ms, plain ms, the four times)."""
@@ -846,19 +967,11 @@ def transfer_parity(parent=None):
                                                            pM[2])}
             for name, (kern, lib, bound) in alone.items():
                 e = extra[name]
-                if parent:
-                    par = palone[name]
-                    p1, d1, d2, p2 = (graph_ms(par), graph_ms(kern),
-                                      graph_ms(kern), graph_ms(par))
-                    dev, pdev = (d1 + d2) / 2, (p1 + p2) / 2
-                    same = bool(torch.equal(kern(), par()))
-                    e["parent_device_ms_by_shape"][key] = pdev
-                    e["same_bits_as_parent_by_shape"][key] = same
-                    vs = (f"; parent {pdev:.4f} ms, {bound[0] / pdev:.0%} "
-                          f"(turns {p1:.4f}, {d1:.4f}, {d2:.4f}, {p2:.4f}), "
-                          f"same bits {same}")
-                else:
-                    dev, vs = graph_ms(kern), ""
+                dev, vs, par = device_ms(kern, parent and palone[name],
+                                         bound[0])
+                if par:
+                    (e["parent_device_ms_by_shape"][key],
+                     e["same_bits_as_parent_by_shape"][key]) = par
                 e["device_ms_by_shape"][key] = dev
                 e["bound_ms_by_shape"][key] = bound[0]
                 lib_ms = e["library_ms_by_shape"][key] = cuda_ms(
@@ -1023,17 +1136,12 @@ def kron_fused_device(nc, extra, parent=None):
             return pkf.kron_fused(x3, pop.bc3, pop.Ks, pop.planes,
                                   pop.ranges)
 
-        p1, d1, d2, p2 = graph_ms(par), graph_ms(kern), graph_ms(kern), \
-            graph_ms(par)
-        dev, pdev = (d1 + d2) / 2, (p1 + p2) / 2
-        same = bool(torch.equal(kern(), par()))
+        dev, vs, (pdev, same) = device_ms(kern, par, bound)
         extra["parent_device_ms_by_shape"][key] = pdev
         extra["same_bits_as_parent_by_shape"][key] = same
-        vs = (f"; parent {pdev:.4f} ms, {bound / pdev:.0%} (turns "
-              f"{p1:.4f}, {d1:.4f}, {d2:.4f}, {p2:.4f}), same bits {same}")
         del pop
     else:
-        dev, vs = graph_ms(kern), ""
+        dev, vs, _ = device_ms(kern)
     blocked = graph_ms(lambda: opb(x))
     extra["device_ms_by_shape"][key] = dev
     extra["bound_ms_by_shape"][key] = bound
@@ -1606,18 +1714,10 @@ def packed_parity(parent=None):
             ms_k, ms_p, four = turns(plain, kern)
             bound, by = kernel_bound(name, n, P, B=B, dims=shape)
             e = extra[name]
-            if pcalls:
-                par = pcalls[name][0]
-                p1, d1, d2, p2 = (graph_ms(par), graph_ms(kern),
-                                  graph_ms(kern), graph_ms(par))
-                dev, pdev = (d1 + d2) / 2, (p1 + p2) / 2
-                same = bool(torch.equal(kern(), par()))
-                e["parent_device_ms_by_batch"][str(B)] = pdev
-                e["same_bits_as_parent_by_batch"][str(B)] = same
-                vs = (f"; parent {pdev:.4f} ms (turns {p1:.4f}, {d1:.4f}, "
-                      f"{d2:.4f}, {p2:.4f}), same bits {same}")
-            else:
-                dev, vs = graph_ms(kern), ""
+            dev, vs, par = device_ms(kern, pcalls and pcalls[name][0])
+            if par:
+                (e["parent_device_ms_by_batch"][str(B)],
+                 e["same_bits_as_parent_by_batch"][str(B)]) = par
             e["device_ms_by_batch"][str(B)] = dev
             e["bound_ms_by_batch"][str(B)] = bound
             e["bound_share_by_batch"][str(B)] = bound / dev
@@ -2133,13 +2233,18 @@ def grid_mats(nc, P, shards, masks, kappa=2.0):
     return mesh, part, mats
 
 
-def grid_kernel_parity(nc, P=6):
+def grid_kernel_parity(nc, P=6, extra=None, parent=None):
     """Phase 3e at one per-shard shape: kernels #8 / #9 on one shard of a
     box (``nc`` cells, degree P) against their plain versions, with seeded
     synthetic corrections, need_y / need_z in GRID_NEEDS, sigma in {0, 0.5},
-    apply and fused residual. Returns ({kernel: (max_abs_err, ms,
+    apply and fused residual; #8 on a non-separable marker (the box faces
+    plus ~1% of the interior dofs). Returns ({kernel: (max_abs_err, ms,
     plain_ms)}, {kernel: (bound_ms, by)}, #9's device ms from `graph_ms`),
-    timed on the apply with both corrections."""
+    timed on the apply with both corrections. With ``extra``, #8's device
+    time, apply and residual with both corrections, beside its bound and
+    #9's (its separable twin) goes into ``extra["t23_grid"]``; with the
+    parent's package ``parent``, also the parent's #8 in turns (parent,
+    change, change, parent) and whether both give the same bits."""
     import numpy as np
     import torch
 
@@ -2151,8 +2256,8 @@ def grid_kernel_parity(nc, P=6):
     f32 = lambda s: torch.tensor(rng.standard_normal(s, dtype=np.float32),
                                  device="cuda")
     x, r = f32(shape), f32(shape)
-    bc = torch.tensor(mesh.boundary_dof_marker(P).reshape(shape),
-                      device="cuda")
+    bc = torch.tensor(mesh.boundary_dof_marker(P).reshape(shape)
+                      | (rng.random(shape) < 0.01), device="cuda")
     cy0, cz0 = f32((shape[0], 2, shape[2])), f32((shape[0], shape[1], 2))
     t1 = kb.plain_t1_m(x, m)
     err = {"t23_grid": 0.0, "t23_grid_m": 0.0}
@@ -2204,7 +2309,50 @@ def grid_kernel_parity(nc, P=6):
                                                 r3=r, out=y))
     print(f"    {shape} t23_grid_m (both corrections) device ms (CUDA graph "
           f"of 20 launches): apply {dev9:.4f}, residual {dev9r:.4f}")
+    if extra is not None:
+        grid_march_device(x, bc, t1, m, cy0, cz0, r, (dev9, dev9r), P,
+                          extra, parent)
     return out, bounds, dev9
+
+
+def grid_march_device(x, bc, t1, m, cy, cz, r, twin, P, extra, parent):
+    """Phase 3e: #8 (apply, residual) with both corrections as device time
+    beside its bound and #9's device time ``twin`` (apply, residual); with
+    the parent's package, the parent's #8 in turns and whether both give
+    the same bits. Into ``extra["t23_grid"]``, keyed by shape and form."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+
+    pkb = (importlib.import_module(f"{parent.__name__}.ops.kron_blocked")
+           if parent else None)
+    e = extra.setdefault("t23_grid", {
+        "device_ms_by_shape": {}, "bound_ms_by_shape": {},
+        "twin_device_ms_by_shape": {},
+        "parent_device_ms_by_shape": {} if parent else None,
+        "same_bits_as_parent_by_shape": {} if parent else None})
+    shape = tuple(x.shape)
+    y = torch.empty_like(x)
+    for form, rr, tdev in (("apply", None, twin[0]),
+                           ("residual", r, twin[1])):
+        def kern(k):
+            return k.kron_t23_grid(x, bc, t1, m, 0.0, cy, cz, r3=rr, out=y)
+
+        key = f"{'x'.join(map(str, shape))} band {P} {form}"
+        bound, by = kernel_bound("t23_grid" if rr is None else
+                                 "t23_grid_res", x.numel(), P, dims=shape)
+        dev, vs, par = device_ms(lambda: kern(kb), parent and (
+            lambda: kern(pkb)), bound)
+        if par:
+            (e["parent_device_ms_by_shape"][key],
+             e["same_bits_as_parent_by_shape"][key]) = par
+        e["device_ms_by_shape"][key] = dev
+        e["bound_ms_by_shape"][key] = bound
+        e["twin_device_ms_by_shape"][key] = tdev
+        print(f"    {key} t23_grid (both corrections): device {dev:.4f} ms "
+              f"(CUDA graph of 20 launches), {bound / dev:.0%} of its bound "
+              f"{bound:.4f} ms ({by}); separable twin t23_grid_m "
+              f"{tdev:.4f} ms{vs}")
 
 
 def grid_entry_point():
@@ -2412,9 +2560,9 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="root of a parent checkout: phases 3c, 3d and 10-11 "
-                    "also time its transfer, whole-lattice and serving "
-                    "kernels and its steppers, in turns")
+                    help="root of a parent checkout: phases 3b-3e and 10-11 "
+                    "also time its full-bc, transfer, whole-lattice, shard "
+                    "and serving kernels and its steppers, in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2450,18 +2598,22 @@ def main():
 
     t0 = phase("2. build kernels")
     modules = (kb, lb, kp, tt, kf)
-    with ThreadPoolExecutor(max_workers=len(modules)) as pool:
-        for fut in [pool.submit(m.load_kernels) for m in modules]:
+    # The parent's kron_blocked.cu (phases 3b and 3e time it) alongside.
+    builds = modules + ((importlib.import_module(
+        f"{parent.__name__}.ops.kron_blocked"),) if parent else ())
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        for fut in [pool.submit(m.load_kernels) for m in builds]:
             fut.result()
-    print(f"    build seconds ({len(modules)} sources, in parallel): "
+    print(f"    build seconds ({len(builds)} sources, in parallel): "
           f"{time.perf_counter() - t0:.2f}")
     for mod in modules:
         if mod is kb:
             # One instantiation per band: the main path's bands 3 and 6 of
-            # the marching kernels, then the largest count over all.
+            # the marching kernels (kron_t23_m: <BAND, RESIDUAL, GRID,
+            # FULL>), then the largest count over all.
             for line in ptxas_lines(kb.BUILD_LOG, (
                     "kron_t1_mILi3E", "kron_t1_mILi6E", "kron_t23_mILi3E",
-                    "kron_t23_mILi6E", "kron_t23ILi")):
+                    "kron_t23_mILi6E", "kron_t23ILi"), width=40):
                 print("    " + line)
             regs = [int(line.split("Used ")[1].split()[0])
                     for line in kb.BUILD_LOG.splitlines() if "Used " in line]
@@ -2498,6 +2650,7 @@ def main():
         dev_more[f"{nc * P + 1}^3 band {P}"] = kernel_parity(nc, P)[1]
     done(t0)
 
+    extra = {}   # each kernel's further keys of the kernels line
     t0 = phase("3b. full-bc kernels #4-#7 vs plain torch, non-separable "
                "marker")
     _, _, t1_127 = full_bc_parity(21, 6)
@@ -2507,6 +2660,15 @@ def main():
     library["t1"] = t1_253["library_ms"]
     main_shape.update({k: (max(v[0], band3[k][0]),) + v[1:]
                        for k, v in full_bc.items()})
+    # #5 / #6 as device time at 3b's shapes and at phase 3's bands 1, 10
+    # and 16, beside #2 / #3 (and, with --parent, the parent's).
+    march = {}
+    for nc, P in ((42, 6), (21, 6), (42, 3), (42, 1), (12, 10), (8, 16)):
+        full_bc_march(nc, P, march, parent)
+    for name in ("t23", "t23_res"):
+        march[name]["device_ms"] = march[name]["device_ms_by_shape"][
+            "253^3 band 6"]
+    extra.update(march)
     done(t0)
 
     t0 = phase("3c. transfer kernels #10/#11 vs plain torch: 253^3 <-> "
@@ -2524,11 +2686,15 @@ def main():
 
     t0 = phase("3e. device-grid kernels #8/#9 vs plain torch: per-shard "
                "127^3 and 253x127x127, and the grid entry point")
-    _, _, dev9_253 = grid_kernel_parity((42, 21, 21))
-    res_g, bounds_g, dev9_127 = grid_kernel_parity((21, 21, 21))
+    _, _, dev9_253 = grid_kernel_parity((42, 21, 21), 6, extra, parent)
+    res_g, bounds_g, dev9_127 = grid_kernel_parity((21, 21, 21), 6, extra,
+                                                   parent)
+    extra["t23_grid"]["device_ms"] = extra["t23_grid"][
+        "device_ms_by_shape"]["127x127x127 band 6 apply"]
     # The grid V-cycle's p=3 and p=1 shards.
     dev9_more = {f"{21 * P + 1}^3 band {P}":
-                 grid_kernel_parity((21, 21, 21), P)[2] for P in (3, 1)}
+                 grid_kernel_parity((21, 21, 21), P, extra, parent)[2]
+                 for P in (3, 1)}
     main_shape.update(res_g)
     bounds.update(bounds_g)
     launches["t23_grid"] = grid_entry_point()
@@ -2705,7 +2871,6 @@ def main():
     from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
 
     t0 = phase("6. lattice kernel parity vs plain torch")
-    extra = {}
     curved = PerturbedBoxMesh((42, 42, 42))
     _, lat21 = lattice_parity(PerturbedBoxMesh((21, 21, 21)), 6, geom=True)
     _, lat_p1 = lattice_parity(curved, 1, geom=False)

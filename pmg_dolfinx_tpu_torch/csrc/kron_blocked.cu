@@ -1,15 +1,18 @@
 // Hand-written Hopper (sm_90a) kernels for the blocked Kronecker-sum apply.
 //
-// Replaces the Pallas kernels of pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:
-//   kron_t1_m<B, false>     <- _kernel_t1_m       (x-contraction, separable bc mask)
-//   kron_t23_m<false>       <- _kernel_t23_m      (y/z-contractions + bc epilogue)
-//   kron_t23_m<true>        <- _kernel_t23_res_m  (the same, fused  r - A v)
-//   kron_t1_m<B, true>      <- _kernel_t1         (x-contraction, full bc array)
-//   kron_t23<kApply>        <- _kernel_t23        (y/z-contractions, full bc array)
-//   kron_t23<kResidual>     <- _kernel_t23_res    (the same, fused  r - A v)
-//   kron_t23<kCheb>         <- _kernel_t23_cheb   (the same, fused Chebyshev-4 step)
-//   kron_t23_m<R, true>     <- _kernel_t23_grid_m (kernel 2 on a device-grid shard)
-//   kron_t23<kApply|kResidual, true> <- _kernel_t23_grid (the same, full bc array)
+// Replaces the Pallas kernels of pmg_dolfinx_tpu/ops/pallas_kron_blocked.py
+// (kron_t23_m<BAND, RESIDUAL, GRID, FULL>):
+//   kron_t1_m<B, false>          <- _kernel_t1_m       (x-contraction, separable bc mask)
+//   kron_t23_m<B, 0, 0, false>   <- _kernel_t23_m      (y/z-contractions + bc epilogue)
+//   kron_t23_m<B, 1, 0, false>   <- _kernel_t23_res_m  (the same, fused  r - A v)
+//   kron_t1_m<B, true>           <- _kernel_t1         (x-contraction, full bc array)
+//   kron_t23_m<B, 0, 0, true>    <- _kernel_t23        (y/z-contractions, full bc array)
+//   kron_t23_m<B, 1, 0, true>    <- _kernel_t23_res    (the same, fused  r - A v)
+//   kron_t23<kCheb>              <- _kernel_t23_cheb   (the same, fused Chebyshev-4 step)
+//   kron_t23_m<B, R, 1, false>   <- _kernel_t23_grid_m (kernel 2 on a device-grid shard)
+//   kron_t23_m<B, R, 1, true>    <- _kernel_t23_grid   (the same, full bc array)
+// Above band kT23MarchMaxBand the full-bc #5, #6 and #8 run as the staged
+// tile kron_t23<kApply|kResidual, GRID> instead (see below).
 //
 // Operator (symmetrized form, see ops/kron_blocked.py:symmetrized_mats):
 //   t1'      = Ktx-contraction of (x * my_j * sxzm)           [kernel 1]
@@ -48,10 +51,10 @@
 // (six reads, three writes) where the unfused smoother step moves the
 // pair's ~5 plus 10-15 passes of elementwise updates.
 //
-// Design of kron_t1_m and kron_t23_m (kernels #1-#4, #9): streaming
-// marches. A tile staged in shared memory (the full-bc kernels #5-#8
-// below) costs two shared-memory loads per FMA and rereads its halo; these
-// two walk the lattice once instead, with the band's window in registers:
+// Design of kron_t1_m and kron_t23_m (kernels #1-#6, #8, #9): streaming
+// marches. A tile staged in shared memory (kron_t23 below) costs two
+// shared-memory loads per FMA and rereads its halo; these two walk the
+// lattice once instead, with the band's window in registers:
 //   kron_t1_m: a thread owns one (j, k) lane and marches along x over a
 //     chunk of planes, keeping the last 2P+1 scaled inputs w in a
 //     register ring; out[a] sums Ktx[a, a-P+d] w[a-P+d]. The chunk's band
@@ -68,7 +71,12 @@
 //     z-contraction of row j (its 2P+1 KtzT coefficients stay in
 //     registers) and the Dirichlet epilogue read row j from there when
 //     row j+P arrives: x is read from HBM once, and the only barrier is a
-//     __syncwarp per row.
+//     __syncwarp per row. FULL (kernels #5, #6, #8) reads the bc byte of
+//     each row beside x, kept raw until the row arrives; w^ = where(bc,
+//     0, x) * s23, and the row's marker rides to the epilogue in the sign
+//     bit of its s23 ring entry (s23 >= 0), which takes where(bc, x, y).
+//     Its residual and shard forms hold more operands, so they fetch the
+//     byte only kNear rows ahead to fit 128 registers.
 // What bounds them is the load stream: a march issues one row of each
 // lattice per step, so each thread fetches its HBM operands kAhead rows
 // ahead into registers (the loop unrolled by kAhead keeps every slot a
@@ -79,18 +87,20 @@
 // sums keep the order of the tiled kernels (fmaf over d ascending from 0,
 // zero terms outside the lattice), so the results are the same bits.
 //
-// Design of the full-bc kernels #5-#8. A block owns a 32 (z) x 32 (y) tile
-// of outputs, 256 threads of 32 x 8, each thread 4 outputs along y; z is
-// fastest across a warp, so every global access coalesces. The block
-// stages its masked, scaled input tile WITH a halo of `band` planes in
-// shared memory, and the band of each 1D matrix its rows need, so the
+// Design of kron_t23, the tile: kernel #7 (the fused Chebyshev step) at
+// every band, and #5, #6, #8 above band kT23MarchMaxBand, where the
+// march's residual form spills and ran slower. A block owns a 32 (z) x 32
+// (y) tile of outputs, 256 threads of 32 x 8, each thread 4 outputs along
+// y; z is fastest across a warp, so every global access coalesces. The
+// block stages its masked, scaled input tile WITH a halo of `band` planes
+// in shared memory, and the band of each 1D matrix its rows need, so the
 // 2P+1 neighbour reads per axis come from shared memory instead of 26
 // L1/L2 loads per output: global traffic per output drops to about
 // (32+2P)/32 input reads plus the output. Terms outside the lattice are
 // staged as zeros, so every thread runs the same 2P+1-term loops. Sums run
 // in true f32 FMA on the CUDA cores (the JAX package's precision="highest"
-// contract), in ascending neighbour order; only the order of addition
-// differs from a dense product.
+// contract), in ascending neighbour order, the order the marches keep;
+// only the order of addition differs from a dense product.
 //
 // Device-grid shards (GRID = true). On a shard of a 2D/3D device grid the
 // y/z contractions of the boundary planes miss the neighbour shard's
@@ -127,6 +137,12 @@ constexpr int kTR = 8;            // thread rows per block
 constexpr int kRPT = 4;           // outputs per thread along the tile rows
 constexpr int kRows = kTR * kRPT; // tile extent along y
 constexpr int kMaxBand = 16;          // keeps kernel 2's tiles under 48 KB
+// Kernels #5, #6 and #8 run the y-march (kron_t23_m with FULL) up to this
+// band; above it the march's residual form measured slower than the tile
+// on the H100, and the tile kron_t23<kApply|kResidual, GRID> serves them.
+// The wrapper's plan (ops/kron_blocked.py:t23_plan, the same band) picks
+// the form; the launcher refuses the march above this band.
+constexpr int kT23MarchMaxBand = 12;
 
 // The neighbour-shard corrections of a device-grid shard (see the head of
 // this file): what the thread at (i, j, k) adds to its accumulator.
@@ -205,6 +221,11 @@ __device__ __forceinline__ float band_dot(const float* sKrow, const float* v) {
 constexpr int kAheadT1 = 12;
 constexpr int kAheadT23 = 8;
 constexpr int kNear = 2;
+// FULL kron_t23_m, which also streams the marker bytes, fetches its rows
+// kAheadT23Full ahead, and its residual and shard forms fetch the bytes
+// only kNear rows ahead: so every form fits 128 registers (8 rows ahead,
+// the residual and shard forms spilled and ran slower).
+constexpr int kAheadT23Full = 6;
 // Shared memory of kron_t23_m: the chunk's Kty band, sycol and myb, and
 // each warp's rings of w^ (with its z halo), raw x and s23m.
 __host__ __device__ constexpr size_t t23_m_smem(int band, int chunk) {
@@ -283,23 +304,31 @@ kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
   }
 }
 
-template <int BAND, bool RESIDUAL, bool GRID>
+// FULL = false: kernels #2, #3 and #9 with the separable masks, w^ = x *
+// (mx_i * s23m) and the epilogue x (1 - mx_i my_j mz_k) + y mx_i; FULL =
+// true: kernels #5, #6 and #8 with the bc lattice, w^ = where(bc, 0, x) *
+// s23 and the epilogue where(bc, x, y) (mx2, myb and mzrow are null, and
+// s23m is the unmasked s23).
+template <int BAND, bool RESIDUAL, bool GRID, bool FULL>
 __global__ void __launch_bounds__(kLanes * kWarps, t23_m_min_blocks(BAND))
 kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
-           const float* __restrict__ t1, const float* __restrict__ Kty,
-           const float* __restrict__ KtzT, const float* __restrict__ sx2d,
-           const float* __restrict__ sycol, const float* __restrict__ s23m,
-           const float* __restrict__ myb, const float* __restrict__ mzrow,
-           const float* __restrict__ cy, const float* __restrict__ cz,
-           const float* __restrict__ r, float* __restrict__ out,
-           int NX, int NY, int NZ, int chunk, int kw, float sigma) {
-  constexpr int D = 2 * BAND + 1, DP = band_pad(BAND), U = kAheadT23;
+           const uint8_t* __restrict__ bc, const float* __restrict__ t1,
+           const float* __restrict__ Kty, const float* __restrict__ KtzT,
+           const float* __restrict__ sx2d, const float* __restrict__ sycol,
+           const float* __restrict__ s23m, const float* __restrict__ myb,
+           const float* __restrict__ mzrow, const float* __restrict__ cy,
+           const float* __restrict__ cz, const float* __restrict__ r,
+           float* __restrict__ out, int NX, int NY, int NZ, int chunk, int kw,
+           float sigma) {
+  constexpr int D = 2 * BAND + 1, DP = band_pad(BAND);
+  constexpr int U = FULL ? kAheadT23Full : kAheadT23;
   constexpr int W = kLanes + 2 * BAND;   // a ring row: the warp's z + halo
   extern __shared__ float4 smem4[];
   float* sKy = reinterpret_cast<float*>(smem4);   // [chunk][DP] Kty band
   float* sSy = sKy + chunk * DP;                  // [chunk] sycol
   float* sMy = sSy + chunk;                       // [chunk] myb
-  // This warp's rings of the last D rows: w^ [D][W], raw x and s23m [D][32].
+  // This warp's rings of the last D rows: w^ [D][W], raw x and s23m
+  // [D][32] (FULL: s23 with the row's marker in its sign bit).
   float* sW = sMy + chunk + threadIdx.y * D * (W + 2 * kLanes);
   float* sX = sW + D * W;
   float* sS = sX + D * kLanes;
@@ -311,14 +340,14 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
   stage_band<BAND>(sKy, Kty, j0, chunk, NY);
   for (int t = threadIdx.y * kLanes + lane; t < chunk; t += kLanes * kWarps) {
     sSy[t] = j0 + t < NY ? sycol[j0 + t] : 0.f;
-    sMy[t] = j0 + t < NY ? myb[j0 + t] : 0.f;
+    if (!FULL) sMy[t] = j0 + t < NY ? myb[j0 + t] : 0.f;
   }
   __syncthreads();
   if (i >= NX || k0 >= NZ) return;  // the whole warp: both warp-uniform
   const bool kin = k < NZ;
   const int64_t plane = (int64_t)NY * NZ;
   const float* xi_pl = x + (int64_t)i * plane;
-  const float mxi = mx2[i], sxi = sx2d[i];
+  const float mxi = FULL ? 0.f : mx2[i], sxi = sx2d[i];
   float kz[D];                       // KtzT[k - BAND + d, k]
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -336,25 +365,36 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
     hpos = 2 * BAND + lane;
   }
   const bool hin = hk >= 0 && hk < NZ;
-  const float mzk = kin ? mzrow[k] : 0.f;
+  const float mzk = !FULL && kin ? mzrow[k] : 0.f;
   // Each lane's columns; a row adds a 32-bit in-plane offset (NY NZ < 2^31).
   const float* xk = xi_pl + k;
   const float* sk = s23m + k;
   const float* xh = xi_pl + (hin ? hk : 0);
   const float* sh = s23m + (hin ? hk : 0);
+  const uint8_t* bi_pl = FULL ? bc + (int64_t)i * plane : nullptr;
   const float* tk = t1 + (int64_t)i * plane + k;
   const float* rk = RESIDUAL ? r + (int64_t)i * plane + k : nullptr;
   float* ok = out + (int64_t)i * plane + k;
-  // Far slot s holds the HBM operands: x of row jn (for its arrival) and
-  // t1', r of row jn - BAND (its epilogue); near slot s % kNear the s23m
-  // of row jn and the halo column's x and s23m. Zero outside the lattice,
-  // the chunk and the march.
-  static_assert(U % kNear == 0, "near slots rotate within the unroll");
+  // Far slot s holds the HBM operands: x of row jn for its arrival, t1'
+  // and r of row jn - BAND for its epilogue; near slot s % kNear the s23m
+  // of row jn and the halo column's x, s23m (and marker byte); marker
+  // slot s % KB the marker byte of row jn. Zero (resp. marked)
+  // outside the lattice, the chunk and the march. A marker byte stays as
+  // loaded until its row arrives: testing it at the fetch would wait on
+  // the load.
+  constexpr int KB = RESIDUAL || GRID ? kNear : U;
+  static_assert(U % kNear == 0 && U % KB == 0,
+                "near and marker slots rotate within the unroll");
   const int jn0 = j0 - BAND, jn1 = j1 + BAND, jend = min(jn1, NY);
   float px[U], pt[U], pr[U], ps[kNear], phx[kNear], phs[kNear];
+  unsigned pb[KB], phb[kNear];
+  auto fetch_bc = [&](int q, int jn) {
+    pb[q] = jn >= 0 && jn < jend && kin ? bi_pl[jn * NZ + k] : 1u;
+  };
   auto fetch_far = [&](int s, int jn) {
     const int o = jn * NZ;
-    px[s] = jn >= 0 && jn < jend && kin ? xk[o] : 0.f;
+    const bool row = jn >= 0 && jn < jend && kin;
+    px[s] = row ? xk[o] : 0.f;
     const int je = jn - BAND;
     const bool epi = kin && je >= j0 && je < j1;
     pt[s] = epi ? tk[o - BAND * NZ] : 0.f;
@@ -366,11 +406,16 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
     ps[q] = row && kin ? sk[o] : 0.f;
     phx[q] = row && hin ? xh[o] : 0.f;
     phs[q] = row && hin ? sh[o] : 0.f;
+    if (FULL) phb[q] = row && hin ? bi_pl[o + hk] : 1u;
   };
 #pragma unroll
   for (int s = 0; s < U; ++s) fetch_far(s, jn0 + s);
 #pragma unroll
   for (int q = 0; q < kNear; ++q) fetch_near(q, jn0 + q);
+  if (FULL) {
+#pragma unroll
+    for (int q = 0; q < KB; ++q) fetch_bc(q, jn0 + q);
+  }
   float ring[D];   // ring[d] = w^[j - BAND + d, k] when row j is summed
 #pragma unroll
   for (int d = 0; d < D; ++d) ring[d] = 0.f;
@@ -380,18 +425,29 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
     for (int s = 0; s < U; ++s) {
       const int jn = jb + s;
       if (jn >= jn1) break;
-      // Row jn arrives: w^ = x * (mx_i * s23m).
+      // Row jn arrives: w^ = x * (mx_i * s23m), or where(bc, 0, x * s23).
+      // FULL keeps the row's marker in the sign bit of its s23 ring entry
+      // (s23 >= 0), for the epilogue.
       const int q = s % kNear;
       const float xv = px[s], sv = ps[q];
-      const float wv = xv * (mxi * sv);
-      const float hw = phx[q] * (mxi * phs[q]);
+      float wv, hw, sring = sv;
+      if (FULL) {
+        const bool bn = pb[s % KB] != 0;
+        wv = bn ? 0.f : xv * sv;
+        hw = phb[q] != 0 ? 0.f : phx[q] * phs[q];
+        sring = __int_as_float(__float_as_int(sv) | (bn ? INT32_MIN : 0));
+        fetch_bc(s % KB, jn + KB);
+      } else {
+        wv = xv * (mxi * sv);
+        hw = phx[q] * (mxi * phs[q]);
+      }
       const float tv = pt[s], rv = pr[s];
       fetch_far(s, jn + U);
       fetch_near(q, jn + kNear);
       sW[slot * W + BAND + lane] = wv;
       if (hpos >= 0) sW[slot * W + hpos] = hw;
       sX[slot * kLanes + lane] = xv;
-      sS[slot * kLanes + lane] = sv;
+      sS[slot * kLanes + lane] = sring;
 #pragma unroll
       for (int d = 0; d + 1 < D; ++d) ring[d] = ring[d + 1];
       ring[D - 1] = wv;
@@ -406,7 +462,9 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
 #pragma unroll
       for (int d = 0; d < D; ++d) t3 = fmaf(srow[d], kz[d], t3);
       const float xj = sX[sj * kLanes + lane];
-      const float sj23 = sS[sj * kLanes + lane];
+      const float sring_j = sS[sj * kLanes + lane];
+      const float sj23 = FULL ? fabsf(sring_j) : sring_j;
+      const bool bcj = FULL && __float_as_int(sring_j) < 0;
       if (BAND == 0) __syncwarp();   // the next row reuses the only slot
       if (!kin) continue;
       const float what = ring[BAND];
@@ -414,7 +472,9 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
       if (sigma != 0.f) acc = acc + (sigma * sxi) * what;
       if (GRID) acc = grid_corrections(acc, sxi, cy, cz, i, j, k, NY, NZ);
       const float y = acc * (sxi * sj23);
-      const float av = xj * (1.f - mxi * (sMy[j - j0] * mzk)) + y * mxi;
+      const float av =
+          FULL ? (bcj ? xj : y)
+               : xj * (1.f - mxi * (sMy[j - j0] * mzk)) + y * mxi;
       ok[j * NZ] = RESIDUAL ? rv - av : av;
     }
   }
@@ -530,15 +590,15 @@ inline size_t t23_smem(int band) {
                           (2 * band + 1) * (kRows + kTK));
 }
 
-// Calls fn(std::integral_constant<int, BAND>) for band in 0..kMaxBand, each
+// Calls fn(std::integral_constant<int, BAND>) for band in 0..MAX, each
 // band its own instantiation; any other band is cudaErrorInvalidValue.
-template <int B = 0, class Fn>
+template <int MAX, int B = 0, class Fn>
 int with_band(int band, Fn&& fn) {
-  if constexpr (B > kMaxBand) {
+  if constexpr (B > MAX) {
     return (int)cudaErrorInvalidValue;
   } else {
     if (band == B) return fn(std::integral_constant<int, B>{});
-    return with_band<B + 1>(band, fn);
+    return with_band<MAX, B + 1>(band, fn);
   }
 }
 
@@ -619,7 +679,7 @@ int launch_t1_m(const float* x, const float* myb, const uint8_t* bc,
   const int kw = march_kw(NZ);
   const dim3 layer = march_grid(NZ, NY, 1, 1, kw);
   const int chunk = march_chunk(NX, layer.x * layer.y, current_card().sms);
-  return with_band(band, [&](auto b) {
+  return with_band<kMaxBand>(band, [&](auto b) {
     constexpr int B = decltype(b)::value;
     const size_t smem = sizeof(float) * chunk * band_pad(B);
     kron_t1_m<B, FULL><<<march_grid(NZ, NY, NX, chunk, kw),
@@ -629,27 +689,36 @@ int launch_t1_m(const float* x, const float* myb, const uint8_t* bc,
   });
 }
 
-int launch_t23_m(const float* x, const float* mx2, const float* t1,
-                 const float* Kty, const float* KtzT, const float* sx2d,
-                 const float* sycol, const float* s23m, const float* myb,
-                 const float* mzrow, const float* cy, const float* cz,
-                 const float* r, float* out, int NX, int NY, int NZ,
-                 int band, int chunk, int kw, float sigma, int dev,
-                 cudaStream_t stream) {
+// Kernel 2 in its four forms (apply or residual, with or without the
+// shard corrections): separable over bands 0..kMaxBand, FULL over bands
+// 0..kT23MarchMaxBand.
+template <bool FULL>
+int launch_t23_m(const float* x, const float* mx2, const uint8_t* bc,
+                 const float* t1, const float* Kty, const float* KtzT,
+                 const float* sx2d, const float* sycol, const float* s23m,
+                 const float* myb, const float* mzrow, const float* cy,
+                 const float* cz, const float* r, float* out, int NX, int NY,
+                 int NZ, int band, float sigma, cudaStream_t stream) {
+  const int kw = march_kw(NZ);
+  const dim3 layer = march_grid(NZ, NX, 1, 1, kw);
+  const Card card = current_card();
+  const int chunk = march_chunk(NY, layer.x * layer.y, card.sms);
   const bool grid = cy != nullptr || cz != nullptr;
-  return with_band(band, [&](auto b) {
+  constexpr int kMax = FULL ? kT23MarchMaxBand : kMaxBand;
+  return with_band<kMax>(band, [&](auto b) {
     constexpr int B = decltype(b)::value;
-    auto kern = r == nullptr
-        ? (grid ? kron_t23_m<B, false, true> : kron_t23_m<B, false, false>)
-        : (grid ? kron_t23_m<B, true, true> : kron_t23_m<B, true, false>);
+    auto kern = r == nullptr ? (grid ? kron_t23_m<B, false, true, FULL>
+                                     : kron_t23_m<B, false, false, FULL>)
+                             : (grid ? kron_t23_m<B, true, true, FULL>
+                                     : kron_t23_m<B, true, false, FULL>);
     // One opt-in per variant and device, for the longest chunk.
     static std::atomic<uint64_t> granted[2][2];
-    if (int rc = allow_smem(kern, t23_m_smem(B, kLongChunk), dev,
+    if (int rc = allow_smem(kern, t23_m_smem(B, kLongChunk), card.dev,
                             granted[r != nullptr][grid]))
       return rc;
     const size_t smem = t23_m_smem(B, chunk);
     kern<<<march_grid(NZ, NX, NY, chunk, kw), dim3(kLanes, kWarps), smem,
-           stream>>>(x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow,
+           stream>>>(x, mx2, bc, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow,
                      cy, cz, r, out, NX, NY, NZ, chunk, kw, sigma);
     return (int)cudaGetLastError();
   });
@@ -676,13 +745,9 @@ int kron_t23_m_launch(const float* x, const float* mx2, const float* t1,
                       const float* mzrow, const float* cy, const float* cz,
                       const float* r, float* out, int NX, int NY, int NZ,
                       int band, float sigma, void* stream) {
-  const int kw = march_kw(NZ);
-  const dim3 layer = march_grid(NZ, NX, 1, 1, kw);
-  const Card card = current_card();
-  return launch_t23_m(x, mx2, t1, Kty, KtzT, sx2d, sycol, s23m, myb, mzrow,
-                      cy, cz, r, out, NX, NY, NZ, band,
-                      march_chunk(NY, layer.x * layer.y, card.sms), kw, sigma,
-                      card.dev, (cudaStream_t)stream);
+  return launch_t23_m<false>(x, mx2, nullptr, t1, Kty, KtzT, sx2d, sycol,
+                             s23m, myb, mzrow, cy, cz, r, out, NX, NY, NZ,
+                             band, sigma, (cudaStream_t)stream);
 }
 
 int kron_t1_launch(const float* x, const uint8_t* bc, const float* Ktx,
@@ -694,11 +759,18 @@ int kron_t1_launch(const float* x, const uint8_t* bc, const float* Ktx,
 
 // r == nullptr: out = A v (kernel #5); otherwise out = r - A v (kernel #6).
 // With cy or cz (either may be null): kernel #8 in the same two forms.
+// march != 0: the y-march kron_t23_m<B, R, G, true> (bands up to
+// kT23MarchMaxBand); march == 0: the tile kron_t23<kApply|kResidual, G>.
 int kron_t23_launch(const float* v, const uint8_t* bc, const float* t1,
                     const float* Kty, const float* KtzT, const float* sx2d,
                     const float* sycol, const float* s23, const float* cy,
                     const float* cz, const float* r, float* out, int NX,
-                    int NY, int NZ, int band, float sigma, void* stream) {
+                    int NY, int NZ, int band, float sigma, int march,
+                    void* stream) {
+  if (march)
+    return launch_t23_m<true>(v, nullptr, bc, t1, Kty, KtzT, sx2d, sycol,
+                              s23, nullptr, nullptr, cy, cz, r, out, NX, NY,
+                              NZ, band, sigma, (cudaStream_t)stream);
   if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
   const bool grid = cy != nullptr || cz != nullptr;
   auto kern = r == nullptr

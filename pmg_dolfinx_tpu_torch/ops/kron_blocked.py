@@ -12,8 +12,10 @@ Port of `pmg_dolfinx_tpu.ops.pallas_kron_blocked`:
   separable arrays in ``mats`` (``"sxzm"``, a box's face masks) that is
   kernel 1 `kron_t1_m` then kernel 2 `kron_t23_m` (whose residual form
   fuses ``r - A v``) and ``bc3`` is not read; otherwise the full-bc pair
-  `kron_t1` then `kron_t23` (apply or residual epilogue). There is no
-  fallback from CUDA to the plain version;
+  `kron_t1` then `kron_t23` (apply or residual epilogue): the same two
+  marches reading the marker byte beside x, kernel 2 as the staged tile
+  above band `T23_MARCH_MAX_BAND` (`t23_plan`). There is no fallback from
+  CUDA to the plain version;
 - `blocked_kron_cheb4` — the fourth-kind Chebyshev smoother with the
   update fused into the full-bc kernels: each half-step is `kron_t1` then
   `kron_t23_cheb`, which writes ``(x', r', z')`` in one pass;
@@ -65,6 +67,14 @@ LAUNCHES = {"t1_m": 0, "t23_m": 0, "t23_res_m": 0, "t1": 0, "t23": 0,
 _lib = None
 BUILD_LOG = ""
 _MAX_BAND = None
+
+# Kernels #5 / #6 / #8 run the y-march of kernel 2 with the marker byte up
+# to this band; above it their residual form measured slower than the
+# staged tile on the H100 (PERF.md section 6), and the tile serves them.
+# The library compiles the march up to the same band (`kT23MarchMaxBand`)
+# and refuses it above.
+T23_MARCH_MAX_BAND = 12
+
 
 def _np64(a):
     if isinstance(a, torch.Tensor):
@@ -314,7 +324,7 @@ def load_kernels():
     lib.kron_t23_m_launch.restype = ci
     lib.kron_t1_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.kron_t1_launch.restype = ci
-    lib.kron_t23_launch.argtypes = [vp] * 12 + [ci] * 4 + [cf, vp]
+    lib.kron_t23_launch.argtypes = [vp] * 12 + [ci] * 4 + [cf, ci, vp]
     lib.kron_t23_launch.restype = ci
     lib.kron_t23_cheb_launch.argtypes = ([vp] * 12 + [ci] + [vp] * 3
                                          + [ci] * 4 + [cf, vp])
@@ -467,6 +477,14 @@ def kron_t1(x3, bc3, m, out=None):
     return out
 
 
+def t23_plan(band):
+    """The form of kernels #5 / #6 / #8 at half-bandwidth ``band``:
+    "march" (the y-march of kernel 2 with the marker byte) up to
+    `T23_MARCH_MAX_BAND`, else "tile" (a staged 32 x 32 tile with a
+    ``band``-wide halo)."""
+    return "march" if band <= T23_MARCH_MAX_BAND else "tile"
+
+
 def _t23_args(v3, bc3, t1, m):
     return (_ptr(v3), _ptr(bc3), _ptr(t1), _ptr(m["Kty"]), _ptr(m["KtzT"]),
             _ptr(m["sx2d"]), _ptr(m["sycol"]), _ptr(m["s23"]))
@@ -476,8 +494,10 @@ def kron_t23(v3, bc3, t1, m, sigma=0.0, cy=None, cz=None, r3=None,
              out=None):
     """Launch kernel #5 (``where(bc, v, y)``), or kernel #6 (``r - A v``)
     when ``r3`` is given, on CUDA tensors; with either neighbour
-    correction ``cy`` / ``cz``, kernel #8 in the same two forms. A CPU
-    tensor runs `plain_t23`. Returns a new lattice (or writes ``out``)."""
+    correction ``cy`` / ``cz``, kernel #8 in the same two forms, each in
+    the form `t23_plan` picks for the band. A CPU tensor runs
+    `plain_t23`. Returns a new lattice (or writes ``out``, which must not
+    alias an input)."""
     if v3.device.type == "cpu":
         return _plain_into(plain_t23(v3, bc3, t1, m, sigma, cy, cz), r3, out)
     (NX, NY, NZ), band = _check_operands(v3, m, bc3)
@@ -487,7 +507,8 @@ def kron_t23(v3, bc3, t1, m, sigma=0.0, cy=None, cz=None, r3=None,
     with torch.cuda.device(v3.device):
         rc = lib.kron_t23_launch(
             *_t23_args(v3, bc3, t1, m), _opt(cy), _opt(cz), _opt(r3),
-            _ptr(out), NX, NY, NZ, band, float(sigma), stream_of(v3))
+            _ptr(out), NX, NY, NZ, band, float(sigma),
+            int(t23_plan(band) == "march"), stream_of(v3))
     name = _t23_name("", cy, cz, r3)
     if rc != 0:
         raise RuntimeError(f"kron_{name} launch failed: CUDA error {rc}")

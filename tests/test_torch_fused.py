@@ -11,6 +11,10 @@ smoother with the JAX package.
   against the JAX Pallas kernels run with ``interpret=True``: <= 1e-5.
   A box marker and a non-separable one (box faces plus interior dofs),
   sigma in {0, 37}.
+- `plain_t23` (#5) and its residual form (#6) against JAX's
+  `_kernel_t23` / `_kernel_t23_res` (``interpret=True``) on random banded
+  operands and markers that stress the y-march (marked rows at chunk
+  borders, marked columns in a warp's z halo) at awkward shapes: <= 1e-5.
 - `blocked_kron_cheb4` against JAX's (``interpret=True``,
   ``BoxMesh((5,4,3))``, P=4, f32) and against the port's generic
   `chebyshev4_solve`: <= 1e-6 (JAX's own gate, `tests/test_pallas.py`).
@@ -150,6 +154,68 @@ def test_entry_points_match_pallas_interpret_f32(jx, separable, sigma):
                                     torch.from_numpy(x32), tbc, tmats,
                                     sigma=sigma)
     assert _rel(r_t.numpy(), r_j) <= 1e-5
+
+
+# Shapes that stress the y-march of kernels #5 / #6: an axis no longer
+# than 2 band + 1, rows past the march chunks' borders, z extents off the
+# 32-lane grid (13, 33) and under one warp (9).
+MARCH_SHAPES = [((7, 3, 9), 1), ((5, 37, 33), 3), ((4, 70, 13), 6)]
+
+
+def _stress_case(shape, band, seed):
+    """Random symmetric banded ``K_a`` and positive masses (the full-bc
+    arrays, f32), and non-separable markers that stress kernels #5 / #6:
+    whole marked y-rows at the march chunks' borders, and marked columns
+    on both sides of each 32-column warp border (the z halo), each over
+    the x = 0 and y faces plus a random 3% of the dofs."""
+    rng = np.random.default_rng(seed)
+    Ks = []
+    for n in shape:
+        A = rng.standard_normal((n, n))
+        i, j = np.indices((n, n))
+        A[np.abs(i - j) > band] = 0.0
+        Ks.append(A + A.T)
+    ms = [rng.uniform(0.5, 2.0, n) for n in shape]
+    mats = tkb.symmetrized_mats(Ks, ms, torch.float32, band=band,
+                                device="cpu")
+    markers = []
+    for axis, cut in ((1, lambda a: a % 16 in (0, 1, 15) and a < shape[1] - 2),
+                      (2, lambda a: a % 32 in (0, 1, 2, 29, 30, 31))):
+        bc = rng.random(shape) < 0.03
+        bc[0], bc[:, 0], bc[:, -1] = True, True, True
+        for a in range(shape[axis]):
+            if cut(a):
+                idx = [slice(None)] * 3
+                idx[axis] = a
+                bc[tuple(idx)] = True
+        markers.append(bc)
+    return rng, mats, markers
+
+
+@pytest.mark.parametrize("shape,band", MARCH_SHAPES)
+def test_plain_t23_stress_markers_match_pallas_interpret(jx, shape, band):
+    """f32: `plain_t23` (kernel #5) and ``r - plain_t23`` (#6) against
+    JAX's `_kernel_t23` / `_kernel_t23_res` run with ``interpret=True`` on
+    the same operands, on markers that stress the march, sigma 0 and 0.5:
+    <= 1e-5 relative max-norm (f32, another summation order)."""
+    jnp, jkb = jx.jnp, jx.jkb
+    rng, m, markers = _stress_case(shape, band, 3 * sum(shape) + band)
+    ops = [jnp.asarray(m[k].numpy()) for k in ("Kty", "KtzT", "sx2d",
+                                               "sycol", "s23")]
+    x, r = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    tx, tr = torch.from_numpy(x), torch.from_numpy(r)
+    for sigma in (0.0, 0.5):
+        t23 = jkb._build_calls(shape, 8, 8, False, True, (), sigma)[1]
+        res = jkb._build_res_call(shape, 8, False, True, (), sigma)
+        for bc in markers:
+            tbc = torch.from_numpy(bc)
+            t1 = tkb.plain_t1(tx, tbc, m)
+            args = (jnp.asarray(x), jnp.asarray(bc), jnp.asarray(t1.numpy()),
+                    *ops)
+            y = tkb.plain_t23(tx, tbc, t1, m, sigma)
+            assert _rel(y.numpy(), t23(*args)) <= 1e-5, sigma
+            assert _rel(tkb.kron_t23(tx, tbc, t1, m, sigma, r3=tr).numpy(),
+                        res(*args, jnp.asarray(r))) <= 1e-5, sigma
 
 
 def test_jax_signature_binds_bc3_positionally():

@@ -13,8 +13,10 @@
   Pallas kernels in interpret mode (f32, <= 1e-5 relative max-norm) and
   the JAX twin ``_emu_t23_grid`` in f64 (<= 1e-12), for the correction
   cases need_y / need_z in {(T, T), (T, F), (F, T)}, sigma in {0, 0.5},
-  residual on and off; `edge_partials` (stacked and per shard) equals
-  JAX's;
+  residual on and off, and #8 on random banded operands with a marker
+  that stresses its y-march (marked rows at chunk borders, marked columns
+  in a warp's z halo) at awkward shapes; `edge_partials` (stacked and per
+  shard) equals JAX's;
 - `GridPMG(operator="kron")` in f64 reproduces JAX's `GridPMG` for
   (2, 2, 2) and (1, 2, 4) with the ``cg`` and ``fdm`` coarse solves
   (trajectory 1e-10 relative, solution 1e-10, FCG count equal) and the
@@ -369,6 +371,85 @@ def test_plain_t23_grid_matches_emulation_f64(need):
         assert (a is None) == (b is None)
         if a is not None:
             assert _rel_max(a, b) <= 1e-12
+
+
+# Kernel #8 (the y-march with the marker byte and a shard's corrections)
+# at shapes that stress the march, each with the sigma its interpret-mode
+# case runs (a Pallas build per shape and sigma).
+MARCH_SHAPES = [((7, 3, 9), 1, 0.5), ((5, 37, 33), 3, 0.0),
+                ((4, 70, 13), 6, 0.5)]
+
+
+def _march_inputs(shape, band, dtype, seed):
+    """One shard's operands for #8 with random symmetric banded ``K_a``:
+    the port's f32/f64 arrays, a marker with whole y-rows marked at the
+    march chunks' borders and columns marked around each 32-column warp
+    border (the z halo), the lattice, kernel 1's output, corrections and
+    a residual rhs, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    Ks = []
+    for n in shape:
+        A = rng.standard_normal((n, n))
+        i, j = np.indices((n, n))
+        A[np.abs(i - j) > band] = 0.0
+        Ks.append(A + A.T)
+    ms = [rng.uniform(0.5, 2.0, n) for n in shape]
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    m = tkb.symmetrized_mats(Ks, ms, tdt, band=band, device="cpu")
+    bc = rng.random(shape) < 0.03
+    bc[0], bc[:, :, -1] = True, True
+    for j in range(shape[1] - 2):
+        bc[:, j] |= j % 16 in (0, 1, 15)
+    for k in range(shape[2]):
+        bc[:, :, k] |= k % 32 in (0, 1, 2, 29, 30, 31)
+    x3, r3 = (rng.standard_normal(shape).astype(dtype) for _ in range(2))
+    t1 = tkb.plain_t1(torch.from_numpy(x3), torch.from_numpy(bc), m)
+    cy = rng.standard_normal((shape[0], 2, shape[2])).astype(dtype)
+    cz = rng.standard_normal((shape[0], shape[1], 2)).astype(dtype)
+    return m, bc, x3, t1.numpy(), cy, cz, r3
+
+
+@pytest.mark.parametrize("shape,band,sigma", MARCH_SHAPES)
+def test_plain_t23_grid_stress_markers_match_pallas_interpret(shape, band,
+                                                              sigma):
+    """f32: `plain_t23_grid` (kernel #8, apply and fused residual, both
+    corrections) against JAX's `_kernel_t23_grid` in interpret mode on the
+    same operands, on a marker that stresses the march: <= 1e-5."""
+    m, bc, x3, t1, cy, cz, r3 = _march_inputs(shape, band, np.float32,
+                                              7 * sum(shape))
+    ops = [jnp.asarray(m[k].numpy()) for k in ("Kty", "KtzT", "sx2d",
+                                               "sycol", "s23")]
+    xt, bt, t1t = (torch.from_numpy(a) for a in (x3, bc, t1))
+    for residual in (False, True):
+        call = jkb._build_t23_grid_call(shape, 8, False, True, (), sigma,
+                                        True, True, residual=residual)
+        extra = [jnp.asarray(r3)] if residual else []
+        want = call(jnp.asarray(x3), jnp.asarray(bc), jnp.asarray(t1), *ops,
+                    jnp.asarray(cy), jnp.asarray(cz), *extra)
+        got = tkb.kron_t23_grid(xt, bt, t1t, m, sigma, torch.from_numpy(cy),
+                                torch.from_numpy(cz),
+                                r3=torch.from_numpy(r3) if residual else None)
+        assert _rel_max(got, want) <= 1e-5, residual
+
+
+@pytest.mark.parametrize("shape,band", [c[:2] for c in MARCH_SHAPES])
+def test_plain_t23_grid_stress_markers_match_emulation_f64(shape, band):
+    """f64: `plain_t23_grid` against JAX's ``_emu_t23_grid`` on the
+    stress marker, every correction case, sigma 0 and 0.5: <= 1e-12."""
+    m, bc, x3, t1, cy, cz, r3 = _march_inputs(shape, band, np.float64,
+                                              7 * sum(shape))
+    jm = {k: jnp.asarray(v.numpy()) for k, v in m.items() if k != "band"}
+    tt = lambda a: None if a is None else torch.from_numpy(a)
+    for need_y, need_z in NEEDS:
+        cyv, czv = (cy if need_y else None), (cz if need_z else None)
+        for sg in (0.0, 0.5):
+            want = jkb._emu_t23_grid(
+                jnp.asarray(x3), jnp.asarray(bc), jnp.asarray(t1), jm, sg,
+                None if cyv is None else jnp.asarray(cyv),
+                None if czv is None else jnp.asarray(czv))
+            got = tkb.plain_t23_grid(tt(x3), tt(bc), tt(t1), m, sg, tt(cyv),
+                                     tt(czv))
+            assert _rel_max(got, want) <= 1e-12, (need_y, need_z, sg)
 
 
 def test_stacked_edge_partials_and_apply_match_per_shard():

@@ -160,3 +160,34 @@ def test_grid_kernel_9_awkward_shapes(cuda_device, shape, band, need):
             assert _rel_max(got, ref) <= 1e-5, (sigma, rr is None)
     for k in ("t23_grid_m", "t23_grid_res_m"):
         assert tkb.LAUNCHES[k] == before[k] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", NEEDS)
+@pytest.mark.parametrize("shape,band", AWKWARD)
+def test_grid_kernel_8_awkward_shapes(cuda_device, shape, band, need):
+    """#8 (the y-march with the marker byte and a shard's corrections) on
+    a random non-separable marker with ``cy`` only, ``cz`` only and both
+    against `plain_t23_grid`, apply and fused residual, both sigmas: <=
+    1e-5 relative max-norm; each launch is counted once, and a second
+    call gives the same bits."""
+    x, m, _, cy, cz, r = _banded(shape, band, cuda_device, 3 * sum(shape))
+    rng = np.random.default_rng(band)
+    bc_np = rng.random(shape) < 0.03
+    bc_np[0], bc_np[:, -1], bc_np[:, :, 0] = True, True, True
+    bc = torch.tensor(bc_np, device=cuda_device)
+    t1 = tkb.plain_t1(x, bc, m)
+    cy = cy if need[0] else None
+    cz = cz if need[1] else None
+    for sigma in (0.0, 0.5):
+        for rr in (None, r):
+            name = "t23_grid" if rr is None else "t23_grid_res"
+            before = dict(tkb.LAUNCHES)
+            ref = tkb.plain_t23_grid(x, bc, t1, m, sigma, cy, cz)
+            if rr is not None:
+                ref = rr - ref
+            got = tkb.kron_t23_grid(x, bc, t1, m, sigma, cy, cz, r3=rr)
+            assert _rel_max(got, ref) <= 1e-5, (sigma, rr is None)
+            assert torch.equal(
+                tkb.kron_t23_grid(x, bc, t1, m, sigma, cy, cz, r3=rr), got)
+            assert tkb.LAUNCHES == dict(before, **{name: before[name] + 2})

@@ -7,12 +7,19 @@
   <= 1e-12 relative.
 - The setup arrays equal the JAX ones bit for bit; the band check
   refuses a matrix with an entry outside the band.
+- f64: the full-bc plain versions (`plain_t23`, the entry points without
+  face masks) against JAX's emulation on markers that stress the y-march
+  of kernels #5 / #6 (marked rows at chunk borders, marked columns in a
+  warp's z halo) at awkward shapes: <= 1e-12.
 - On the card, each CUDA kernel against its plain version (marked
   ``cuda``; skipped without a GPU), also kernels #1-#3 at awkward
   shapes and bands (extents off the 32-lane and march-chunk grids, an
   axis no longer than the band's 2P+1, bands 1, 3, 6 and 16, mixed
-  faces), and kernel #4 (`kron_t1`, the same march with the full marker)
-  at those shapes on a random non-separable marker. Those tests need no
+  faces), and kernels #4-#6 (`kron_t1` and `kron_t23`, the same marches
+  with the full marker) at those shapes on a random non-separable marker
+  and on markers that stress the y-march (marked rows at chunk borders,
+  marked columns in a warp's z halo), and first #5, #6 and #8 launches
+  inside a CUDA graph capture. Those tests need no
   JAX, so on a GPU machine without JAX they run as
   ``python -m pytest --noconftest -m cuda tests/test_torch_kron_blocked.py``.
 """
@@ -173,6 +180,55 @@ def test_band_check_and_separable_guard(jx):
                                precision="high")
 
 
+# Shapes that stress the y-march of kernels #5 / #6 / #8: an axis no
+# longer than 2 band + 1, rows past the march chunks' borders, z extents
+# off the 32-lane grid (13, 33) and under one warp (9).
+MARCH_SHAPES = [((7, 3, 9), 1), ((5, 37, 33), 3), ((4, 70, 13), 6)]
+
+
+@pytest.mark.parametrize("shape,band", MARCH_SHAPES)
+def test_plain_full_bc_stress_markers_match_emulation_f64(jx, shape, band):
+    """f64: `plain_t23` (kernel #5, and #6 as ``r - A v``) and the
+    full-bc entry points against JAX's emulation of `_kernel_t23`
+    (``_emu_apply`` on ``_emu_t1``) on markers that stress the march
+    (`_stress_markers`), random banded ``K_a``, sigma 0 and 0.5: <= 1e-12
+    relative max-norm."""
+    jnp, jkb = jx.jnp, jx.jkb
+    rng, m = _banded_mats(shape, band, MIXED, "cpu", 5 * sum(shape) + band,
+                          torch.float64)
+    jm = {k: jnp.asarray(v.numpy()) for k, v in m.items() if k != "band"}
+    x, r = rng.standard_normal(shape), rng.standard_normal(shape)
+    tx, tr = torch.from_numpy(x), torch.from_numpy(r)
+    for bc in _stress_markers(shape, rng):
+        tbc = torch.from_numpy(bc)
+        t1_j = jkb._emu_t1(jnp.asarray(x), bc, jm)
+        t1 = tkb.plain_t1(tx, tbc, m)
+        assert _rel(t1.numpy(), t1_j) <= 1e-12
+        for sigma in (0.0, 0.5):
+            y_j = jkb._emu_apply(jnp.asarray(x), bc, t1_j, jm, sigma=sigma)
+            assert _rel(tkb.plain_t23(tx, tbc, t1, m, sigma).numpy(),
+                        y_j) <= 1e-12
+            assert _rel(tkb.kron_t23(tx, tbc, t1, m, sigma, r3=tr).numpy(),
+                        r - np.asarray(y_j)) <= 1e-12
+            full = {k: v for k, v in m.items() if k not in _SEPARABLE}
+            assert _rel(tkb.blocked_kron_apply(tx, tbc, full,
+                                               sigma=sigma).numpy(),
+                        y_j) <= 1e-12
+            assert _rel(tkb.blocked_kron_residual(tr, tx, tbc, full,
+                                                  sigma=sigma).numpy(),
+                        r - np.asarray(y_j)) <= 1e-12
+
+
+def test_t23_plan_marches_up_to_band_12():
+    """Kernels #5 / #6 / #8 run the y-march at every band up to 12 (the
+    hierarchies' bands 1, 3 and 6 among them) and the staged tile at bands
+    13-16, where the march's residual form measured slower on the card
+    (`tools/t23_bands_torch.py`)."""
+    assert tkb.T23_MARCH_MAX_BAND == 12
+    assert [tkb.t23_plan(b) for b in range(17)] == (["march"] * 13
+                                                    + ["tile"] * 4)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -212,9 +268,13 @@ AWKWARD = [((7, 3, 9), 1), ((37, 130, 5), 3), ((70, 13, 33), 6),
            ((130, 70, 40), 6), ((20, 45, 97), 16)]
 
 
-def _banded_mats(shape, band, faces, device, seed):
+_SEPARABLE = ("sxzm", "s23m", "mx2", "myb", "mzrow")
+
+
+def _banded_mats(shape, band, faces, device, seed, dtype=torch.float32):
     """Random symmetric banded ``K_a``, positive masses and the separable
-    face masks of ``faces``: the kernels' operands for any band."""
+    face masks of ``faces``: the kernels' operands for any band (both
+    the separable and the full-bc set)."""
     rng = np.random.default_rng(seed)
     Ks, fm = [], []
     for n, (lo, hi) in zip(shape, faces):
@@ -226,7 +286,7 @@ def _banded_mats(shape, band, faces, device, seed):
         m[0], m[-1] = (0.0 if lo else 1.0), (0.0 if hi else 1.0)
         fm.append(m)
     ms = [rng.uniform(0.5, 2.0, n) for n in shape]
-    return rng, tkb.symmetrized_mats(Ks, ms, torch.float32, fm, band=band,
+    return rng, tkb.symmetrized_mats(Ks, ms, dtype, fm, band=band,
                                      device=device)
 
 
@@ -270,23 +330,113 @@ def _non_separable_marker(shape, faces, rng, frac=0.02):
     return bc
 
 
+def _stress_markers(shape, rng):
+    """Non-separable markers that stress kernels #5 / #6: whole marked
+    y-rows at the march chunks' borders (rows 0-4, 7-8, 15-16, 31-33; the
+    last two rows stay free of it), and marked columns on both sides of each
+    32-column warp border (the z halo), each with a random 2% of the
+    dofs."""
+    rows = _non_separable_marker(shape, MIXED, rng)
+    for j in (0, 1, 2, 3, 4, 7, 8, 15, 16, 31, 32, 33):
+        if j < shape[1] - 2:
+            rows[:, j, :] = True
+    halo = _non_separable_marker(shape, MIXED, rng)
+    for k in range(shape[2]):
+        if k % 32 in (0, 1, 2, 29, 30, 31):
+            halo[:, :, k] = True
+    return rows, halo
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("faces", [((True, True),) * 3, MIXED])
 @pytest.mark.parametrize("shape,band", AWKWARD)
 def test_cuda_full_bc_march_awkward_shapes(cuda_device, shape, band, faces):
     """Kernel #4 `kron_t1` (the x-march of kernel 1 with the bool marker)
-    on a random non-separable marker against `plain_t1`: <= 1e-5 relative
-    max-norm; the launch is counted once."""
+    and kernels #5 / #6 `kron_t23` (the y-march of kernel 2 with the
+    marker byte; apply and residual, both sigmas) on a random
+    non-separable marker against `plain_t1` / `plain_t23`: <= 1e-5
+    relative max-norm; each launch is counted once, and a second call
+    gives the same bits."""
     rng, m = _banded_mats(shape, band, faces, cuda_device,
                           7 * sum(shape) + band)
     bc = torch.tensor(_non_separable_marker(shape, faces, rng),
                       device=cuda_device)
-    x = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
-                     device=cuda_device)
+    x, r = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                         device=cuda_device) for _ in range(2))
     before = dict(tkb.LAUNCHES)
     got = tkb.kron_t1(x, bc, m)
     assert _rel(got.cpu(), tkb.plain_t1(x, bc, m).cpu()) <= 1e-5
     assert tkb.LAUNCHES == dict(before, t1=before["t1"] + 1)
+    t1 = tkb.plain_t1(x, bc, m)
+    for sigma in (0.0, 0.5):
+        for rr in (None, r):
+            name = "t23" if rr is None else "t23_res"
+            before = dict(tkb.LAUNCHES)
+            got = tkb.kron_t23(x, bc, t1, m, sigma, r3=rr)
+            ref = tkb.plain_t23(x, bc, t1, m, sigma)
+            if rr is not None:
+                ref = rr - ref
+            assert _rel(got.cpu(), ref.cpu()) <= 1e-5, (sigma, name)
+            assert torch.equal(tkb.kron_t23(x, bc, t1, m, sigma, r3=rr), got)
+            assert tkb.LAUNCHES == dict(before, **{name: before[name] + 2})
+
+
+@pytest.mark.cuda
+def test_cuda_full_bc_march_marker_patterns(cuda_device):
+    """Kernels #5 / #6 on markers that stress the march: whole marked
+    y-rows at the march chunks' borders, marked columns in the z halo of
+    the 32-column warps, a z extent off the 32-lane grid, at bands 1, 3
+    and 6: <= 1e-5 relative max-norm against `plain_t23`."""
+    for shape, band in (((7, 3, 9), 1), ((5, 37, 33), 3), ((4, 70, 13), 6),
+                        ((3, 70, 97), 6)):
+        rng, m = _banded_mats(shape, band, MIXED, cuda_device, sum(shape))
+        for bc_np in _stress_markers(shape, rng):
+            bc = torch.tensor(bc_np, device=cuda_device)
+            x, r = (torch.tensor(rng.standard_normal(shape),
+                                 dtype=torch.float32, device=cuda_device)
+                    for _ in range(2))
+            t1 = tkb.plain_t1(x, bc, m)
+            for sigma in (0.0, 0.5):
+                ref = tkb.plain_t23(x, bc, t1, m, sigma)
+                assert _rel(tkb.kron_t23(x, bc, t1, m, sigma).cpu(),
+                            ref.cpu()) <= 1e-5, (shape, sigma)
+                assert _rel(tkb.kron_t23(x, bc, t1, m, sigma, r3=r).cpu(),
+                            (r - ref).cpu()) <= 1e-5, (shape, sigma)
+
+
+@pytest.mark.cuda
+def test_cuda_full_bc_march_first_call_in_graph(cuda_device):
+    """First launches of #5, #6 and #8 (with both shard corrections) at a
+    band no other test uses (the march's shared-memory opt-in is made in
+    each first call) inside a CUDA graph capture, replayed: the same bits
+    as calls outside the graph, within 1e-5 of `plain_t23`."""
+    shape, band = (9, 40, 45), 8
+    assert tkb.t23_plan(band) == "march"
+    rng, m = _banded_mats(shape, band, MIXED, cuda_device, 12)
+    bc = torch.tensor(_non_separable_marker(shape, MIXED, rng),
+                      device=cuda_device)
+    x, r = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                         device=cuda_device) for _ in range(2))
+    cy, cz = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                           device=cuda_device)
+              for s in ((shape[0], 2, shape[2]), (shape[0], shape[1], 2)))
+    t1 = tkb.plain_t1(x, bc, m)
+    calls = (lambda: tkb.kron_t23(x, bc, t1, m, 0.5),
+             lambda: tkb.kron_t23(x, bc, t1, m, 0.5, r3=r),
+             lambda: tkb.kron_t23_grid(x, bc, t1, m, 0.5, cy, cz))
+    tkb.load_kernels()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        in_graph = [call() for call in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    refs = (tkb.plain_t23(x, bc, t1, m, 0.5),
+            r - tkb.plain_t23(x, bc, t1, m, 0.5),
+            tkb.plain_t23_grid(x, bc, t1, m, 0.5, cy, cz))
+    for call, y_g, ref in zip(calls, in_graph, refs):
+        y = call()
+        assert torch.equal(y_g, y)
+        assert _rel(y.cpu(), ref.cpu()) <= 1e-5
 
 
 @pytest.mark.cuda
