@@ -6,10 +6,14 @@
 Runs from the root of a checkout, builds the port's CUDA kernels from
 its sources and drives the flagship solve (unfused, with the fused
 Chebyshev smoother and with the fused p-transfers, the refined, W-cycle
-and FMG modes), the whole-lattice Kronecker operator, the curved-hex
-solve and operator (streamed, z-grouped and in-kernel geometry) and the
-serving (transient) steppers through them. Every phase raises on
-failure; nothing is caught.
+and FMG modes, the Schwarz smoother, the device grid), the whole-lattice
+Kronecker operator, the curved-hex solve and operator (streamed,
+z-grouped and in-kernel geometry; with the Schwarz smoother and the
+h-multigrid coarse solve), the serving (transient) steppers and the
+AMG-driver twin through them. Every phase raises on failure; nothing is
+caught. The phases run in the order 1-4e, 14, 15, 18d, 5-8b, 16, 17,
+9-13, 18a-18c: 15 and 18d reuse phase 4's mesh and rhs, 16 and 17 phase
+7's mesh and its host geometry factors.
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch,
    CUDA and nvcc versions. Fails when ``torch.cuda.is_available()`` is
@@ -186,6 +190,45 @@ failure; nothing is caught.
    ``PerturbedBoxMesh((19,19,19))``, p=3 (195,112 dofs),
    ``operator="lattice"``, ``coarse="cg"``, CN, 5 steps: FCG counts per
    step, finite state.
+15. The Schwarz flagship, the JAX bench's ``vcycle_16M_p136_schwarz``:
+   ``PMGHierarchy(smoother="schwarz")`` on phase 4's mesh and rhs
+   (16,194,277 dofs, p=(1,3,6), kappa=2, float32, ``kron_blocked`` +
+   ``fdm``): setup seconds, 10 stationary cycles with the contraction per
+   cycle, FCG(V) to rtol 1e-6 within phase 4's point-Jacobi count, L2 <
+   1e-4, #1/#2/#3 launch; the V-cycle's CUDA-event ms and pace, its
+   profiled busy ms and kernels (window complete when the profiler's
+   ``kron_t*`` kernels number the wrappers' launches), and the Schwarz
+   applies' share of the busy time (each level's apply profiled alone,
+   times 2 x (smoother_iters + 1) per cycle). At nc=21 against the
+   plain-torch ``kron`` Schwarz hierarchy at its smoother bounds: one
+   V-cycle on a seeded random rhs and iterate within 1e-5 (relative
+   max-norm), and the trajectories within twice the f32 residual floor
+   (absolute difference of the relative residuals; the relative
+   difference is printed).
+16. Curved Schwarz: ``PoissonProblem(mesh=PerturbedBoxMesh((42,42,42)),
+   ..., coarse="cg", operator="lattice_blocked", smoother="schwarz")`` on
+   phase 7's mesh: FCG(V) within phase 7's point-Jacobi count, K-A
+   launches, collocated L2 < 1e-4, V-cycle ms; then the nc=21 recipe of
+   the JAX bench's ``curved_2M_p136`` Schwarz half (V-cycle ms, FCG(V),
+   L2).
+17. Curved hmg coarse, the JAX driver's ``--mesh perturbed --coarse fdm``
+   path: ``coarse="hmg"`` on phase 7's mesh (h-levels (42,42,42) ->
+   (21,...) -> (7,...) at p=1, a 512-dof dense bottom): the levels, setup
+   seconds, FCG(V) within one of phase 7's ``cg``-coarse count, L2 <
+   1e-4, wall and busy ms per V-cycle and the idle share beside phase
+   7's.
+18. The remaining entry points. a: ``examples/amg_torch.py --ndofs
+   2000000 --pc jacobi|cheb|hmg``, box and ``--mesh perturbed``, in this
+   process: hmg-CG below Jacobi-CG's iterations on each mesh. b:
+   ``coarse="direct"`` at nc=14, p=(1,3,6), ``kron_blocked``, against
+   ``coarse="fdm"`` at the same smoother bounds: trajectories within 1e-4
+   above 5e-3. c: ``BoxMesh((16,16,32), extent=(1,1,0.25))`` (64:1
+   coupling), p=(1,3), float64 ``kron``, ``coarse="hmg"`` on
+   ``semicoarsen_sizes`` with ``smoother="line"`` (z) on the p- and
+   h-levels: FCG(V) to 1e-10 below the point-Jacobi hierarchy's. d (run
+   after 15): ``GridPMG((2,2,2), smoother="schwarz",
+   operator="kron_blocked")`` on phase 4's mesh: one grid V-cycle within
+   1e-5 of phase 15's single-device one, #9 launches.
 
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
@@ -196,7 +239,9 @@ times as ``device_ms*`` keys, #5, #6, #8, the transfers, #12 and the
 lattice kernels per shape beside ``bound_ms_by_shape`` (#5, #6, #8 with
 their separable twin's device time, #12 with the blocked apply's), the
 lattice kernels with their box and face
-scratch, the serving kernels per batch beside ``bound_ms_by_batch``,
+scratch, the serving kernels per batch beside ``bound_ms_by_batch``;
+``launches`` sums each kernel's launches over every path that runs it
+(#1-#3 phases 4 and 15, #9 phases 14 and 18d, K-A phases 7, 16 and 17),
 with their kernels and host us per call and, with ``--parent``, the
 parent's device times and whether the bits are the same) and, only when every
 phase passed, the last line
@@ -275,6 +320,13 @@ GRID_TRAJ_CAP = 5e-3
 # rhs and iterate, at the same smoother bounds: relative max-norm.
 GRID_VCYCLE_RTOL = 1e-5
 GRID_NEEDS = ((True, True), (True, False), (False, True))
+# The kron_blocked Schwarz hierarchy against its plain-torch kron twin at
+# nc=21, at the twin's smoother bounds: one V-cycle on a seeded random rhs
+# and iterate, relative max-norm. (Their f32 residual trajectories differ
+# by the f32 residual's rounding noise, about the stationary floor times
+# |b| in absolute terms each, 2.5e-4 here: ~8e-4 relative on cycle 1
+# already. So the trajectories are held to twice that floor, absolute.)
+SCHWARZ_VCYCLE_RTOL = 1e-5
 SEED = 1234
 # The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores.
@@ -344,6 +396,20 @@ def grid_vcycle_parity(grid, hier, seed, tag):
     if not err <= GRID_VCYCLE_RTOL:
         raise AssertionError(f"{tag}: grid and single-device V-cycles differ "
                              f"by {err:.3e}")
+
+
+def vcycle_pair_parity(hier, ref, seed):
+    """Relative max-norm difference of one V-cycle of two single-device
+    hierarchies on the same seeded random rhs and iterate (at whatever
+    smoother bounds they hold)."""
+    import numpy as np
+    import torch
+
+    n = ref.levels[-1].ndofs
+    rng = np.random.default_rng(seed)
+    b, u = (torch.tensor(rng.standard_normal(n, dtype=np.float32),
+                         device="cuda") for _ in range(2))
+    return rel_max_err(hier.apply(b, u), ref.apply(b, u))
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -2552,6 +2618,447 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
         raise AssertionError(f"(1, 2, 4): FCG {n_g} vs {n_s}, solutions {du}")
 
 
+
+def kron_profile(fn, tag, tries=4):
+    """`profile_busy` of one V-cycle ``fn`` on a Kronecker hierarchy from a
+    complete window: one whose ``kron_t*`` kernels number the wrappers'
+    launches in the call and whose kernel count repeats an earlier
+    window's (late in a long process the profiler leaves kernels out, see
+    `profile_complete`); up to ``tries`` windows. Prints the window read.
+    Returns (wall ms, busy ms, kernels, {name: ms}, complete)."""
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+
+    seen_nk = []
+    for tried in range(1, tries + 1):
+        before = sum(kb.LAUNCHES.values())
+        calls = {}
+        wall, busy, nk, by_name = profile_busy(fn, calls)
+        launched = sum(kb.LAUNCHES.values()) - before
+        seen = sum(n for k, n in calls.items() if "kron_t" in k)
+        complete = seen == launched and nk in seen_nk
+        seen_nk.append(nk)
+        if complete:
+            break
+    print(f"    {tag}: profiled V-cycle ({'complete' if complete else 'INCOMPLETE'}"
+          f" window, {tried} tried: {seen} kron kernels for {launched} "
+          f"launches): wall {wall:.3f} ms, device busy {busy:.3f} ms ({nk} "
+          f"kernels)")
+    return wall, busy, nk, by_name, complete
+
+
+def schwarz_flagship(prob, niter_ref, cfg, launches):
+    """Phase 15: the Schwarz flagship, the JAX bench's
+    ``vcycle_16M_p136_schwarz`` (``PoissonProblem(nc=(42, 42, 42),
+    degrees=(1, 3, 6), kappa=2, float32, coarse="fdm",
+    operator="kron_blocked", smoother="schwarz")``), its hierarchy on phase
+    4's mesh and rhs. Gates: FCG(V) to 1e-6 within phase 4's (point-Jacobi)
+    count, L2 < 1e-4, #1/#2/#3 launch; at nc=21, at the plain-torch
+    ``kron`` Schwarz twin's smoother bounds, one V-cycle within
+    `SCHWARZ_VCYCLE_RTOL` of the twin's and the trajectories within twice
+    the f32 floor. Adds #1-#3's launches to ``launches``; returns the
+    hierarchy (phase 18d)."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import f_rhs
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_tpu_torch.solvers.schwarz import schwarz_precond_apply
+
+    for k in kb.LAUNCHES:
+        kb.LAUNCHES[k] = 0
+    ts = time.perf_counter()
+    hier = PMGHierarchy(prob.mesh, operator="kron_blocked",
+                        smoother="schwarz", **cfg)
+    torch.cuda.synchronize()
+    sw_mb = sum(t.numel() * t.element_size() for lv in hier.data["levels"]
+                for t in lv["schwarz"].values()) / 1e6
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f} (no rhs; lmax "
+          f"per level {[float(lv['lmax']) for lv in hier.data['levels']]}; "
+          f"Schwarz arrays {sw_mb:.0f} MB)")
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    ts = time.perf_counter()
+    _, rn = hier.solve(prob.b, num_cycles=10)
+    rel = [v / r0 for v in rn]
+    rate = [b / a for a, b in zip([1.0] + rel, rel)]
+    print(f"    10 cycles ({time.perf_counter() - ts:.3f} s host clock): rel "
+          f"{[f'{v:.4e}' for v in rel]}; contraction per cycle "
+          f"{[f'{v:.3f}' for v in rate]}, over 10 cycles "
+          f"{rel[-1] ** 0.1:.3f}")
+    ts = time.perf_counter()
+    u, niter = hier.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    path = dict(kb.LAUNCHES)
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} "
+          f"({time.perf_counter() - ts:.3f} s host clock; point Jacobi, "
+          f"phase 4: {niter_ref}); kernel launches on this path: {path}")
+    if not all(path[k] > 0 for k in ("t1_m", "t23_m", "t23_res_m")):
+        raise AssertionError(f"a kernel was not launched: {path}")
+    for k in ("t1_m", "t23_m", "t23_res_m"):
+        launches[k] += path[k]
+    if not niter <= niter_ref:
+        raise AssertionError(f"Schwarz FCG(V) {niter} > point Jacobi's "
+                             f"{niter_ref}")
+    if tuple(u.shape) != (hier.levels[-1].ndofs,) or not bool(
+            torch.isfinite(u).all()):
+        raise AssertionError("solution is not a finite vector of ndofs")
+    vc, vc_all = vcycle_ms(hier)
+    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+          f"{[round(t, 3) for t in vc_all]}); pace, 5 reps of 10 (CUDA-event "
+          f"ms, host ms to enqueue): "
+          f"{[(round(a, 3), round(b, 3)) for a, b in vcycle_pace(hier)]}")
+    b1 = torch.ones_like(prob.b)
+    hier.apply(b1, torch.zeros_like(b1))
+    _, busy, _, by_name, complete = kron_profile(
+        lambda: hier.apply(b1, torch.zeros_like(b1)), "Schwarz flagship")
+    # The Schwarz applies of one cycle, each level's apply timed alone
+    # (CUDA events, back-to-back: card-paced at these sizes):
+    # (smoother_iters + 1) per smooth, a pre- and a post-smooth on every
+    # level above the coarse one.
+    sw_ms, parts = 0.0, []
+    for lv, level in zip(hier.data["levels"][1:], hier.levels[1:]):
+        r = torch.randn(level.shape, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(SEED))
+        apply = lambda: schwarz_precond_apply(lv["schwarz"], r, level.shape,
+                                              level.P)
+        one = cuda_ms(apply, reps=10)
+        n = 2 * (level.smoother_iters + 1)
+        sw_ms += n * one
+        parts.append(f"p={level.P}: {n} x {one:.3f} ms")
+    _, one_busy, nk1, names = profile_busy(apply)
+    print(f"    Schwarz applies per V-cycle (CUDA events): {'; '.join(parts)}"
+          f": {sw_ms:.3f} ms, {sw_ms / vc:.1%} of the back-to-back V-cycle "
+          f"{vc:.3f} ms" + (f"; idle {max(0.0, 1 - busy / vc):.1%}"
+                            if complete else ""))
+    print(f"    one p={level.P} Schwarz apply by kernel ({nk1} kernels, busy "
+          f"{one_busy:.3f} ms of its CUDA-event {one:.3f} ms): " + "; ".join(
+              f"{ms:.3f} ms {name[:60]}" for name, ms in sorted(
+                  names.items(), key=lambda kv: -kv[1])[:6]))
+    print("    busy V-cycle by kernel (top 8): " + "; ".join(
+        f"{ms:.3f} ms {name[:50]}" for name, ms in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:8]))
+    ts = time.perf_counter()
+    err = prob.error_l2(u)
+    print(f"    L2 error vs manufactured solution: {err:.4e} "
+          f"({time.perf_counter() - ts:.1f} s host)")
+    if not err < 1e-4:
+        raise AssertionError(f"L2 error {err} too large")
+
+    # nc=21: the kernels' Schwarz trajectory against the plain-torch
+    # Kronecker twin's, at the twin's smoother bounds (phase 5's rules).
+    mesh = BoxMesh((21, 21, 21))
+    b = torch.tensor(assemble_rhs(mesh, cfg["degrees"][-1], f_rhs(2.0)),
+                     dtype=torch.float32, device="cuda")
+    r0 = float(torch.linalg.vector_norm(b))
+    res, hs = {}, {}
+    lmax = None
+    for op in ("kron", "kron_blocked"):
+        h = hs[op] = PMGHierarchy(mesh, operator=op, smoother="schwarz",
+                                  **cfg)
+        if lmax is None:
+            lmax = [lv["lmax"] for lv in h.data["levels"]]
+        else:
+            h.load_state({"levels": [{"lmax": v} for v in lmax]})
+        _, rn = h.solve(b, num_cycles=10)
+        res[op] = (np.array(rn) / r0, h.solve_pcg(b, rtol=1e-6)[1],
+                   vcycle_ms(h)[0])
+        print(f"    nc=21 {op} Schwarz: rel "
+              f"{[f'{v:.3e}' for v in res[op][0]]}, FCG {res[op][1]}, "
+              f"V-cycle {res[op][2]:.3f} ms")
+    rk, rb = res["kron"][0], res["kron_blocked"][0]
+    # each trajectory carries its own f32 noise of about its floor
+    floor = float(max(rk.min(), rb.min()))
+    gap = float(np.abs(rb - rk).max())
+    print(f"    nc=21 kron_blocked vs kron Schwarz: trajectory max rel diff "
+          f"(cycles above {REF_TRAJ_FROM:g}) {traj_diff(rb, rk):.3e}; max "
+          f"abs diff of the relative residuals {gap:.3e} (gate: twice the "
+          f"f32 floor, 2 x {floor:.3e})")
+    if not gap <= 2.0 * floor:
+        raise AssertionError(f"Schwarz trajectories differ by {gap:.3e} > "
+                             f"twice the f32 floor {floor:.3e}")
+    err = vcycle_pair_parity(hs["kron_blocked"], hs["kron"], SEED + 15)
+    print(f"    nc=21 kron_blocked vs kron Schwarz: one V-cycle, seeded "
+          f"random rhs and iterate, rel max err {err:.3e} (gate "
+          f"{SCHWARZ_VCYCLE_RTOL:g})")
+    if not err <= SCHWARZ_VCYCLE_RTOL:
+        raise AssertionError(f"Schwarz V-cycles differ by {err:.3e}")
+    return hier
+
+
+def grid_schwarz(prob, hier, cfg, launches):
+    """Phase 18d: ``GridPMG(BoxMesh((42, 42, 42)), (2, 2, 2),
+    smoother="schwarz", operator="kron_blocked")`` on phase 4's mesh and
+    rhs, every shard on this card: one grid V-cycle within
+    `GRID_VCYCLE_RTOL` of phase 15's single-device Schwarz V-cycle, #9
+    launches. Adds #9's launches to ``launches``."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+
+    for k in kb.LAUNCHES:
+        kb.LAUNCHES[k] = 0
+    ts = time.perf_counter()
+    grid = GridPMG(prob.mesh, (2, 2, 2), operator="kron_blocked",
+                   smoother="schwarz", **cfg)
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f} (per-shard "
+          f"lattice {grid.levels[-1].shape}; eig max per level "
+          f"{[float(e[-1]) for e in grid.eigs]}; single device "
+          f"{[float(e[-1]) for e in hier.eigs]})")
+    grid_vcycle_parity(grid, hier, SEED + 18, "grid (2, 2, 2) Schwarz")
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    _, rn = grid.solve(prob.b, num_cycles=4)
+    path = dict(kb.LAUNCHES)
+    print(f"    4 cycles: rel {[f'{v / r0:.4e}' for v in rn]}; kernel "
+          f"launches on this path: {path}")
+    if not path["t23_grid_m"] > 0:
+        raise AssertionError(f"#9 was not launched: {path}")
+    launches["t23_grid_m"] += path["t23_grid_m"] + path["t23_grid_res_m"]
+    print(f"    V-cycle: grid (2, 2, 2) Schwarz {grid_vcycle_ms(grid)[0]:.3f} "
+          f"ms vs single device {vcycle_ms(hier)[0]:.3f} ms (10 "
+          f"back-to-back, median of 3)")
+
+
+def curved_schwarz(curved, niter_ref, ccfg, launches):
+    """Phase 16: ``PoissonProblem(mesh=PerturbedBoxMesh((42, 42, 42)),
+    degrees=(1, 3, 6), kappa=2, float32, coarse="cg",
+    operator="lattice_blocked", smoother="schwarz")`` on phase 7's mesh
+    (16,194,277 dofs): FCG(V) within phase 7's point-Jacobi count, K-A
+    launches, collocated L2 < 1e-4; then the nc=21 recipe of the JAX
+    bench's ``curved_2M_p136`` Schwarz half. Adds K-A's launches to
+    ``launches``."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import PoissonProblem
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    for k in lb.LAUNCHES:
+        lb.LAUNCHES[k] = 0
+    ts = time.perf_counter()
+    prob = PoissonProblem(mesh=curved, operator="lattice_blocked",
+                          smoother="schwarz", **ccfg)
+    torch.cuda.synchronize()
+    hier = prob.hierarchy
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f} (lmax per level "
+          f"{[float(lv['lmax']) for lv in hier.data['levels']]})")
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    _, rn = prob.solve(num_cycles=10)
+    print(f"    10 cycles: rel {[f'{v / r0:.4e}' for v in rn]}")
+    u, niter = hier.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} (point Jacobi, phase "
+          f"7: {niter_ref}); kernel launches on this path: "
+          f"{dict(lb.LAUNCHES)}")
+    if not lb.LAUNCHES["lattice_apply"] > 0:
+        raise AssertionError(f"K-A was not launched: {dict(lb.LAUNCHES)}")
+    launches["lattice_apply"] += lb.LAUNCHES["lattice_apply"]
+    if not niter <= niter_ref:
+        raise AssertionError(f"Schwarz FCG(V) {niter} > point Jacobi's "
+                             f"{niter_ref}")
+    err = prob.error_l2(u)
+    vc, vc_all = vcycle_ms(hier)
+    print(f"    collocated L2 error {err:.4e}; V-cycle {vc:.3f} ms (10 "
+          f"back-to-back, 3 reps {[round(t, 3) for t in vc_all]})")
+    if not err < 1e-4:
+        raise AssertionError(f"L2 error {err} too large")
+    del prob, hier, u
+    ts = time.perf_counter()
+    prob = PoissonProblem(mesh=PerturbedBoxMesh((21, 21, 21)),
+                          operator="lattice_blocked", smoother="schwarz",
+                          **ccfg)
+    _, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6)
+    u, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6)
+    print(f"    curved_2M_p136 Schwarz recipe (nc=21, 2,048,383 dofs): "
+          f"V-cycle {vcycle_ms(prob.hierarchy)[0]:.3f} ms, FCG(V) {niter}, "
+          f"collocated L2 {prob.error_l2(u):.4e} "
+          f"({time.perf_counter() - ts:.1f} s with setup)")
+
+
+def curved_hmg(curved, niter_ref, vc_ref, busy_ref, ccfg, launches):
+    """Phase 17: the JAX driver's ``--mesh perturbed --coarse fdm`` path
+    (``coarse="hmg"``: the rediscretised curved h-hierarchy, (42, 42, 42)
+    -> (21, ...) -> (7, ...) at p=1 with a 512-dof dense bottom) on phase
+    7's mesh, ``lattice_blocked``: FCG(V) within one of phase 7's ``cg``
+    coarse count, collocated L2 < 1e-4; wall and busy ms per V-cycle beside
+    phase 7's. Adds K-A's launches to ``launches``."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.models.poisson import PoissonProblem
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    for k in lb.LAUNCHES:
+        lb.LAUNCHES[k] = 0
+    ts = time.perf_counter()
+    prob = PoissonProblem(mesh=curved, operator="lattice_blocked",
+                          **dict(ccfg, coarse="hmg"))
+    torch.cuda.synchronize()
+    hier = prob.hierarchy
+    cc = hier.coarse_cfg
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f}; h-levels "
+          f"{[lv.shape for lv in cc['hmg_levels']]} at p=1, bottom "
+          f"'{cc['hmg_bottom']}' ({cc['hmg_levels'][0].ndofs} dofs), "
+          f"{cc['cycles']} h-cycles per coarse solve; h-level lmax "
+          f"{[float(lv['lmax']) for lv in hier.data['hmg']['levels']]}")
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    _, rn = prob.solve(num_cycles=10)
+    print(f"    10 cycles: rel {[f'{v / r0:.4e}' for v in rn]}")
+    u, niter = hier.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} (cg coarse, phase 7: "
+          f"{niter_ref}); kernel launches on this path: {dict(lb.LAUNCHES)}")
+    launches["lattice_apply"] += lb.LAUNCHES["lattice_apply"]
+    if abs(niter - niter_ref) > 1:
+        raise AssertionError(f"FCG(V) {niter} vs phase 7's {niter_ref}")
+    err = prob.error_l2(u)
+    print(f"    collocated L2 error {err:.4e}")
+    if not err < 1e-4:
+        raise AssertionError(f"L2 error {err} too large")
+    vc, vc_all = vcycle_ms(hier)
+    b1 = torch.ones_like(prob.b)
+    hier.apply(b1, torch.zeros_like(b1))
+    wall, busy, nk, by_name, _, tries, complete = profile_complete(
+        lambda: hier.apply(b1, torch.zeros_like(b1)), lb)
+    ka = lattice_kernel_ms(by_name)
+    print(f"    V-cycle {vc:.3f} ms back-to-back (3 reps "
+          f"{[round(t, 3) for t in vc_all]}), device busy {busy:.3f} ms "
+          f"({nk} kernels, {'complete' if complete else 'INCOMPLETE'} window, "
+          f"{tries} tried; K-A {ka['march'] + ka['fold']:.3f} ms), idle "
+          f"{max(0.0, 1 - busy / vc):.1%}; phase 7 (cg coarse): "
+          f"{vc_ref:.3f} ms, busy {busy_ref:.3f} ms, idle "
+          f"{max(0.0, 1 - busy_ref / vc_ref):.1%}")
+    print("    busy V-cycle by kernel (top 8): " + "; ".join(
+        f"{ms:.3f} ms {name[:50]}" for name, ms in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:8]))
+
+
+def amg_twin():
+    """Phase 18a: ``examples/amg_torch.py --ndofs 2000000 --pc
+    jacobi|cheb|hmg``, box and ``--mesh perturbed``, in this process, one
+    mesh object per cell count (the fit gives 124 x 124 x 127 cells,
+    2,000,000 p=1 dofs; the hmg runs round them to multiples of 4, 124 x
+    124 x 128, h-levels down to 31 x 31 x 32 cells with a ``cg`` bottom,
+    as the JAX driver does): h-multigrid-preconditioned CG must take
+    fewer iterations than Jacobi-CG on each mesh."""
+    from pmg_dolfinx_tpu_torch.utils import timers
+
+    spec = importlib.util.spec_from_file_location(
+        "amg_torch", ROOT / "examples" / "amg_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import fit_box_cells
+
+    nc = fit_box_cells(2000000, 1)
+    nc4 = tuple((c + 3) // 4 * 4 for c in nc)   # the driver's hmg rounding
+    for mesh in ("box", "perturbed"):
+        iters = {}
+        kind = PerturbedBoxMesh if mesh == "perturbed" else BoxMesh
+        # one mesh per cell count, so its host geometry is computed once
+        meshes = {nc: kind(nc), nc4: kind(nc4)}
+        for pc in ("jacobi", "cheb", "hmg"):
+            timers._records.clear()
+            buf = io.StringIO()
+            ts = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                iters[pc] = mod.main(["--ndofs", "2000000", "--pc", pc,
+                                      "--mesh", mesh],
+                                     mesh=meshes[nc4 if pc == "hmg" else nc])
+            keep = [line for line in buf.getvalue().splitlines()
+                    if line.startswith(("mesh", "h-MG", "Chebyshev", "CG",
+                                        "final"))]
+            print(f"    {mesh} {pc}: " + "; ".join(keep) + f"; solve "
+                  f"{timers._records['ZZZ Solve'][1]:.3f} s, run "
+                  f"{time.perf_counter() - ts:.1f} s")
+        if not iters["hmg"] < iters["jacobi"]:
+            raise AssertionError(f"{mesh}: hmg-CG {iters['hmg']} iterations "
+                                 f"not below Jacobi-CG's {iters['jacobi']}")
+
+
+def direct_coarse(cfg):
+    """Phase 18b: ``coarse="direct"`` (the host f64 Cholesky of the p=1
+    matrix, 3,375 dofs) against ``coarse="fdm"`` at nc=14, p=(1, 3, 6),
+    ``kron_blocked``, at the fdm run's smoother bounds: both coarse solves
+    are exact, so the trajectories agree within `FUSED_TRAJ_RTOL` above
+    `REF_TRAJ_FROM`."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import f_rhs
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    mesh = BoxMesh((14, 14, 14))
+    b = torch.tensor(assemble_rhs(mesh, cfg["degrees"][-1], f_rhs(2.0)),
+                     dtype=torch.float32, device="cuda")
+    r0 = float(torch.linalg.vector_norm(b))
+    res, lmax = {}, None
+    for coarse in ("fdm", "direct"):
+        ts = time.perf_counter()
+        h = PMGHierarchy(mesh, operator="kron_blocked",
+                         **dict(cfg, coarse=coarse))
+        setup = time.perf_counter() - ts
+        if lmax is None:
+            lmax = [lv["lmax"] for lv in h.data["levels"]]
+        else:
+            h.load_state({"levels": [{"lmax": v} for v in lmax]})
+        _, rn = h.solve(b, num_cycles=10)
+        res[coarse] = np.array(rn) / r0
+        print(f"    {coarse}: setup {setup:.2f} s, rel "
+              f"{[f'{v:.3e}' for v in res[coarse]]}, FCG "
+              f"{h.solve_pcg(b, rtol=1e-6)[1]}, V-cycle "
+              f"{vcycle_ms(h)[0]:.3f} ms")
+    traj = traj_diff(res["direct"], res["fdm"])
+    print(f"    direct vs fdm coarse: trajectory max rel diff (cycles above "
+          f"{REF_TRAJ_FROM:g}) {traj:.3e} (gate {FUSED_TRAJ_RTOL:g})")
+    if not traj <= FUSED_TRAJ_RTOL:
+        raise AssertionError(f"direct and fdm trajectories differ: {traj}")
+
+
+def line_semicoarsened():
+    """Phase 18c: the anisotropy case, stretched cells ``BoxMesh((16, 16,
+    32), extent=(1, 1, 0.25))`` (64:1 coupling), p=(1, 3), float64, plain
+    torch ``kron``, ``coarse="hmg"`` on ``semicoarsen_sizes`` of
+    ``semicoarsen_axes`` with the line smoother ('line', resolving to z) on
+    the p- and h-levels, against the point-Jacobi hierarchy on the same
+    h-levels: FCG(V) to 1e-10 must take fewer iterations."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import f_gauss
+    from pmg_dolfinx_tpu_torch.solvers.hmg import (
+        semicoarsen_axes,
+        semicoarsen_sizes,
+    )
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    mesh = BoxMesh((16, 16, 32), extent=(1.0, 1.0, 0.25))
+    axes = semicoarsen_axes(mesh, 2.0)
+    sizes = semicoarsen_sizes(mesh.nc, axes)
+    b = torch.tensor(assemble_rhs(mesh, 3, f_gauss), dtype=torch.float64,
+                     device="cuda")
+    iters = {}
+    for sm in ("line", "cheb"):
+        ts = time.perf_counter()
+        h = PMGHierarchy(mesh, degrees=(1, 3), kappa=2.0,
+                         dtype=torch.float64, operator="kron", coarse="hmg",
+                         coarse_cfg=dict(sizes=sizes, smoother=sm),
+                         smoother=sm, device="cuda")
+        setup = time.perf_counter() - ts
+        _, iters[sm] = h.solve_pcg(b, rtol=1e-10, maxiter=200)
+        print(f"    {sm}: line axis {h.levels[-1].line_axis if sm == 'line' else '-'}, "
+              f"h-levels {sizes} (axes {axes}), setup {setup:.2f} s, FCG(V) "
+              f"to 1e-10: {iters[sm]}, V-cycle {vcycle_ms(h)[0]:.3f} ms")
+    if not iters["line"] < iters["cheb"]:
+        raise AssertionError(f"line FCG(V) {iters['line']} not below point "
+                             f"Jacobi's {iters['cheb']}")
+
+
 def main():
     import argparse
 
@@ -2805,7 +3312,19 @@ def main():
                "and hierarchy): GridPMG (2,2,2), 16.2M dofs, kron_blocked + "
                "fdm, every shard on this card")
     grid_path(prob, hier, rel, u, niter, spread, cfg, launches)
-    del prob, u, hier
+    done(t0)
+
+    t0 = phase("15. Schwarz flagship (run here, on phase 4's mesh and rhs): "
+               "16.2M dofs, p=(1,3,6), kron_blocked + fdm, smoother=schwarz")
+    del hier
+    hier_sw = schwarz_flagship(prob, niter, cfg, launches)
+    done(t0)
+
+    t0 = phase("18d. device-grid Schwarz (run here, on phase 4's mesh and "
+               "rhs): GridPMG (2,2,2), 16.2M dofs, kron_blocked + fdm, "
+               "smoother=schwarz")
+    grid_schwarz(prob, hier_sw, cfg, launches)
+    del prob, u, hier_sw
     done(t0)
 
     t0 = phase("5. in-card reference: nc=21, kron (plain) vs kron_blocked, "
@@ -2963,6 +3482,7 @@ def main():
               by_name.items()) if "lattice_" in n))
     against_parent("7 curved", rel, niter)
     parent_gate("7 curved", rel, niter)
+    curved_ref = (niter, vc_lb, busy)
     del b1
     del prob, u, hier
     ts = time.perf_counter()
@@ -2998,6 +3518,17 @@ def main():
               f"{mf['gdofs']:.3f} GDOF/s (examples/mat_free_torch.py, "
               f"{mf['clock']})")
         done(t0)
+
+    t0 = phase("16. curved Schwarz (run here, on phase 7's mesh): 16.2M "
+               "dofs, p=(1,3,6), lattice_blocked + cg, smoother=schwarz; "
+               "then the nc=21 curved_2M_p136 Schwarz recipe")
+    curved_schwarz(curved, curved_ref[0], ccfg, launches)
+    done(t0)
+
+    t0 = phase("17. curved hmg coarse (run here, on phase 7's mesh): 16.2M "
+               "dofs, p=(1,3,6), lattice_blocked + hmg")
+    curved_hmg(curved, *curved_ref, ccfg, launches)
+    done(t0)
     del curved
 
     t0 = phase("9. curved in-card reference: nc=21, lattice (plain) vs "
@@ -3061,6 +3592,22 @@ def main():
 
     t0 = phase("13. curved stepper: heat_pcg_evolve, 195k dofs, p=3")
     curved_stepper()
+    print(f"    peak host RSS {peak_rss_gb():.1f} GB")
+    done(t0)
+
+    t0 = phase("18a. AMG twin: examples/amg_torch.py --ndofs 2000000 --pc "
+               "jacobi|cheb|hmg, box and perturbed")
+    amg_twin()
+    done(t0)
+
+    t0 = phase("18b. direct coarse: nc=14, p=(1,3,6), kron_blocked, "
+               "coarse=direct vs fdm")
+    direct_coarse(cfg)
+    done(t0)
+
+    t0 = phase("18c. line smoother + semicoarsened hmg: BoxMesh((16,16,32), "
+               "extent (1,1,0.25)), p=(1,3), f64 kron")
+    line_semicoarsened()
     print(f"    peak host RSS {peak_rss_gb():.1f} GB")
     done(t0)
 

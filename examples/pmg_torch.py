@@ -13,18 +13,30 @@ the timing table and a final JSON line.
         --mesh perturbed --coarse cg --pcg
     python examples/pmg_torch.py --ndofs 2000000 --degrees 1 3 6 \\
         --coarse fdm --operator kron_blocked --refined --fmg
+    python examples/pmg_torch.py --ndofs 16000000 --degrees 1 3 6 \\
+        --coarse fdm --operator kron_blocked --smoother schwarz --pcg
+    python examples/pmg_torch.py --ndofs 16200000 --degrees 1 3 6 \\
+        --mesh perturbed --coarse fdm --pcg     # switches to --coarse hmg
 
 ``--gamma 2`` runs W-cycles, ``--fmg`` starts from the full-multigrid
 guess, ``--refined`` wraps the working-dtype V-cycle in float64
 iterative refinement, ``--fdm`` solves directly by fast diagonalization
 (with ``--refined``: f64 refinement around it), ``--smoother-iters``
-sets the Chebyshev iterations per smoothing pass.
+sets the Chebyshev iterations per smoothing pass. ``--smoother``
+picks the p-levels' Chebyshev preconditioner: point Jacobi ('cheb'),
+line relaxation ('line' along the strongest coupling, or 'line-x|y|z';
+moderate sizes) or the cell-wise FDM Schwarz blocks ('schwarz', any
+size). ``--coarse direct`` is the dense Cholesky coarse solve (moderate
+sizes), ``--coarse hmg`` nested geometric h-multigrid cycles, with
+``--hmg-smoother`` for the h-levels and ``--semicoarsen AXES|auto`` to
+coarsen the strongly-coupled axes first.
 
 ``--operator kron_blocked`` and ``lattice_blocked`` run the hand-written
 CUDA kernels (`pmg_dolfinx_tpu_torch/csrc/`, float32); ``kron``,
 ``lattice`` and ``dofmap`` are plain torch. ``--mesh perturbed`` builds
 the curved-hex `PerturbedBoxMesh` and switches a Kronecker operator to
-``lattice_blocked`` (f32) or ``lattice`` (f64). ``--device cpu`` runs
+``lattice_blocked`` (f32) or ``lattice`` (f64), and ``--coarse fdm`` to
+``hmg`` (the curved operator rediscretised per h-level). ``--device cpu`` runs
 everything on the CPU, where the kernels' plain torch versions run.
 """
 
@@ -70,7 +82,7 @@ def profile_vcycles(hier, b, n):
           f"{max(0.0, 1 - busy / wall):.1%})")
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ndofs", type=int, default=50000,
@@ -88,8 +100,26 @@ def main():
     p.add_argument("--kappa", type=float, default=2.0)
     p.add_argument("--degrees", type=int, nargs="+", default=[1, 3])
     p.add_argument("--cycles", type=int, default=10)
-    p.add_argument("--coarse", choices=["smoother", "cg", "fdm"],
+    p.add_argument("--coarse",
+                   choices=["smoother", "cg", "direct", "hmg", "fdm"],
                    default="cg")
+    p.add_argument("--semicoarsen", type=str, default="",
+                   help="h-MG semi-coarsening axes, e.g. 'z' or 'xy', or "
+                        "'auto' (with --coarse hmg: coarsen the "
+                        "strongly-coupled axes first; "
+                        "solvers.hmg.semicoarsen_sizes)")
+    p.add_argument("--smoother", type=str, default="cheb",
+                   choices=["cheb", "line", "line-x", "line-y", "line-z",
+                            "schwarz"],
+                   help="p-level smoother preconditioner: point Jacobi, "
+                        "line relaxation ('line' = the axis of the "
+                        "strongest kappa_aa/h_a^2; moderate sizes) or "
+                        "cell-wise FDM Schwarz (any size)")
+    p.add_argument("--hmg-smoother", type=str, default="cheb",
+                   choices=["cheb", "line", "line-x", "line-y", "line-z",
+                            "schwarz"],
+                   help="h-level smoother preconditioner (with --coarse "
+                        "hmg)")
     p.add_argument("--smoother-iters", type=int, default=2,
                    help="Chebyshev iterations per smoothing pass")
     p.add_argument("--gamma", type=int, default=1,
@@ -113,7 +143,7 @@ def main():
                    help="after the solve, trace N V-cycles with "
                         "torch.profiler and print the device time by "
                         "kernel (CUDA only)")
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     import torch
 
@@ -133,29 +163,52 @@ def main():
             else "cpu")
     mesh = None
     if args.mesh == "perturbed":
-        if args.coarse == "fdm":
-            raise SystemExit(
-                "--mesh perturbed --coarse fdm: the FDM coarse solve is "
-                "axis-aligned only, and the curved-hex h-multigrid coarse "
-                "solver 'hmg' is not ported yet (ROADMAP.md Queue 1 item "
-                "7); use --coarse cg")
         mesh = PerturbedBoxMesh(nc)
         if args.operator in ("kron", "kron_blocked"):
             args.operator = ("lattice_blocked" if args.dtype == "f32"
                              else "lattice")
             print("perturbed (general-hex) mesh: switching operator "
                   f"backend to '{args.operator}'")
+        if args.coarse == "fdm":
+            args.coarse = "hmg"
+            print("perturbed mesh: switching coarse solver to 'hmg' "
+                  "(fdm is axis-aligned only; hmg rediscretizes the "
+                  "curved operator per h-level)")
     print(f"mesh {args.mesh} {nc[0]}x{nc[1]}x{nc[2]}, degrees "
           f"{args.degrees}, operator {args.operator}, device {name}, "
           f"dtype {args.dtype}")
 
     with Timer("setup (operators+calibration+rhs)", sync=True):
+        coarse_cfg = {}
+        if args.gamma > 1:
+            coarse_cfg["gamma"] = args.gamma
+        if args.hmg_smoother != "cheb":
+            if args.coarse != "hmg":
+                raise SystemExit("--hmg-smoother requires --coarse hmg")
+            coarse_cfg["smoother"] = args.hmg_smoother
+        if args.semicoarsen:
+            from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+            from pmg_dolfinx_tpu_torch.solvers.hmg import (
+                semicoarsen_axes,
+                semicoarsen_sizes,
+            )
+
+            if args.coarse != "hmg":
+                raise SystemExit("--semicoarsen requires --coarse hmg")
+            if args.semicoarsen == "auto":
+                axes = semicoarsen_axes(mesh or BoxMesh(nc), args.kappa)
+                print(f"semi-coarsening axes (auto): "
+                      f"{''.join('xyz'[a] for a in axes) or '(none)'}")
+            else:
+                axes = tuple(sorted("xyz".index(a)
+                                    for a in args.semicoarsen))
+            coarse_cfg["sizes"] = semicoarsen_sizes(nc, axes)
+            print(f"semi-coarsened h-levels: {coarse_cfg['sizes']}")
         prob = PoissonProblem(
             nc=nc, degrees=tuple(args.degrees), kappa=args.kappa,
             dtype=dtype, coarse=args.coarse, operator=args.operator,
-            mesh=mesh, device=device,
-            coarse_cfg={"gamma": args.gamma} if args.gamma > 1 else None,
-            smoother_iters=args.smoother_iters,
+            mesh=mesh, device=device, coarse_cfg=coarse_cfg or None,
+            smoother_iters=args.smoother_iters, smoother=args.smoother,
         )
     ndofs = [prob.mesh.num_dofs(P) for P in args.degrees]
     print("hierarchy:", " -> ".join(f"p={P}: {n}"

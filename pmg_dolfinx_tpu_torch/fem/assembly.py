@@ -2,11 +2,13 @@
 
 Port of the parts of `pmg_dolfinx_tpu.fem.assembly` the flagship and
 curved-hex solves need: the scipy stiffness oracle, the RHS, the lumped
-mass, the Gauss-Legendre (axis-aligned) and collocated (any hex) L2
-errors, and the coefficient resolvers. Everything here is setup-time
-NumPy (float64), copied from the JAX package so the arrays agree bit for
-bit; none of it runs in the solve path. Variable, per-axis and tensor
-kappa are not ported yet (ROADMAP.md, Queue 1 item 7).
+mass (and its shifted forms `shifted_mass_np` / `general_shift_np` for
+a scalar sigma), the stiffness diagonal, the Gauss-Legendre
+(axis-aligned) and collocated (any hex) L2 errors, and the coefficient
+resolvers. Everything here is setup-time NumPy (float64), copied from
+the JAX package so the arrays agree bit for bit; none of it runs in the
+solve path. Variable, per-axis and tensor kappa, sigma fields and Robin
+faces are not ported yet (ROADMAP.md, Queue 1 item 7c).
 """
 
 import numpy as np
@@ -22,6 +24,8 @@ from .mesh import BoxMesh
 
 _KAPPA_TODO = ("only a scalar kappa is ported; variable, per-axis and "
                "tensor kappa are ROADMAP.md Queue 1 item 7")
+_SHIFT_TODO = ("sigma fields and Robin faces are not ported yet (ROADMAP.md "
+               "Queue 1 item 7c)")
 
 
 def geometry_factors_np(mesh: BoxMesh, P: int,
@@ -126,6 +130,27 @@ def resolve_sigma(sigma):
     return float(sigma), None
 
 
+def shifted_mass_np(mesh: BoxMesh, P: int, sigma_field=None,
+                    bc_zero: bool = True) -> np.ndarray:
+    """GLL-lumped mass, the ``m3`` vector of a scalar sigma shift. A sigma
+    field raises NotImplementedError (ROADMAP.md Queue 1 item 7c)."""
+    if sigma_field is not None:
+        raise NotImplementedError(_SHIFT_TODO)
+    return lumped_mass_np(mesh, P, bc_zero=bc_zero)
+
+
+def general_shift_np(mesh: BoxMesh, P: int, sigma, sigma_field=None):
+    """``(ops_sigma, m3)``: the pointwise shift of a general-backend level
+    (the apply and the Jacobi diagonal add ``ops_sigma * m3 * u``); ``m3``
+    is None when sigma is 0. Sigma fields and Robin faces raise
+    NotImplementedError (ROADMAP.md Queue 1 item 7c)."""
+    if sigma_field is not None or getattr(mesh, "has_robin", False):
+        raise NotImplementedError(_SHIFT_TODO)
+    sigma = float(sigma)
+    return (ops_shift_scalar(mesh, sigma),
+            shifted_mass_np(mesh, P) if sigma else None)
+
+
 def ops_shift_scalar(mesh: BoxMesh, sigma, kron_family: bool = False):
     """The cycle-ops pointwise-shift scalar for a level on ``mesh``.
     Robin faces on the general backends force it to 1.0; the kron family
@@ -171,6 +196,16 @@ def resolve_kappa_split(mesh: BoxMesh, kappa):
     return kc, None, const
 
 
+def cell_scalar(kappa_cells) -> float:
+    """The one value of a per-cell coefficient array that is constant (the
+    only per-cell field the port carries); a field that varies raises
+    NotImplementedError (ROADMAP.md Queue 1 item 7)."""
+    kc = np.asarray(kappa_cells, np.float64).reshape(-1)
+    if not np.all(kc == kc[0]):
+        raise NotImplementedError(_KAPPA_TODO)
+    return float(kc[0])
+
+
 def resolve_kappa_axes(mesh: BoxMesh, kappa, split=None):
     """Resolve a kron-family scalar coefficient to ``(k, k, k)``."""
     kc, _, const = split if split is not None else resolve_kappa_split(
@@ -179,6 +214,35 @@ def resolve_kappa_axes(mesh: BoxMesh, kappa, split=None):
         raise NotImplementedError(_KAPPA_TODO)
     k = float(kc[0])
     return (k, k, k)
+
+
+def stiffness_diagonal_np(mesh: BoxMesh, P: int, kappa=1.0) -> np.ndarray:
+    """The exact stiffness diagonal in float64 on the host (the dofmap
+    formula of `ops.laplacian.laplacian_diagonal`, summed in cell order);
+    Dirichlet rows get 1."""
+    kc, kt, _ = resolve_kappa_split(mesh, kappa)
+    G, _ = geometry_factors_np(mesh, P, kappa=kt)
+    kappa = kc[:, None, None, None]
+    n = P + 1
+    g = G.reshape(mesh.ncells, n, n, n, 6)
+    D = derivative_matrix(P)
+    D2 = D * D
+    d = np.diagonal(D)
+    diag = (
+        np.einsum("mi,cmjk->cijk", D2, g[..., 0])
+        + np.einsum("mj,cimk->cijk", D2, g[..., 3])
+        + np.einsum("mk,cijm->cijk", D2, g[..., 5])
+        + 2.0
+        * (
+            d[:, None, None] * d[None, :, None] * g[..., 1]
+            + d[:, None, None] * d[None, None, :] * g[..., 2]
+            + d[None, :, None] * d[None, None, :] * g[..., 4]
+        )
+    ) * kappa
+    out = np.zeros(mesh.num_dofs(P))
+    np.add.at(out, mesh.dofmap(P).ravel(), diag.ravel())
+    out[mesh.boundary_dof_marker(P)] = 1.0
+    return out
 
 
 def l2_error(mesh: BoxMesh, P: int, u_h: np.ndarray, u_exact, nq: int | None = None) -> float:

@@ -64,6 +64,12 @@ class BoxMesh:
         self.h_cells = tuple(h_cells)
         self.dirichlet_faces = _norm_dirichlet_faces(dirichlet_faces)
 
+    @property
+    def is_graded(self) -> bool:
+        """True when an axis carries non-uniform cell spacing: never, until
+        graded spacing is ported (ROADMAP.md Queue 1 item 7c)."""
+        return False
+
     @lru_cache(maxsize=None)
     def axis_nodes(self, a: int) -> np.ndarray:
         """1D node coordinates along axis ``a``, shape ``(nc_a + 1,)``."""

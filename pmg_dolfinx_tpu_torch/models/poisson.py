@@ -2,7 +2,8 @@
 
 Port of `pmg_dolfinx_tpu.models.poisson` for the flagship and curved-hex
 solves: manufactured solution ``u_e = sin(pi x) sin(pi y) sin(pi z)``,
-``f = 3 pi^2 kappa u_e``, the cube-fitting cell search, and the
+``f = 3 pi^2 kappa u_e``, the AMG driver's Gaussian source `f_gauss`,
+the cube-fitting cell search, and the
 `PoissonProblem` bundle with an explicit ``device`` (on a `BoxMesh`, or
 on a prebuilt ``mesh=`` such as `fem.mesh.PerturbedBoxMesh`).
 """
@@ -27,6 +28,14 @@ def f_rhs(kappa, sigma=0.0):
         return (3.0 * np.pi**2 * kappa + sigma) * u_exact(x)
 
     return f
+
+
+def f_gauss(x):
+    """The reference AMG driver's Gaussian point source
+    ``1000 exp(-((x-.5)^2+(y-.5)^2)/.02)``: not the manufactured sine,
+    which on a uniform p=1 grid is an exact eigenvector of every
+    tensor-product operator (CG would converge in one iteration)."""
+    return 1000.0 * np.exp(-((x[0] - 0.5) ** 2 + (x[1] - 0.5) ** 2) / 0.02)
 
 
 def fit_box_cells(ndofs_target: int, max_degree: int, search: int = 5):
@@ -64,14 +73,9 @@ class PoissonProblem:
         `PerturbedBoxMesh` with ``operator='lattice_blocked'``;
         ``u_exact`` overrides the manufactured solution `error_l2` uses
         (pass the matching ``f``). The parameters keep the JAX package's
-        order: ``smoother`` is 'cheb' (the line and Schwarz smoothers are
-        ROADMAP.md Queue 1 item 7b) and ``robin_g`` None (Robin data is
-        item 7c)."""
-        if smoother != "cheb":
-            raise NotImplementedError(
-                f"smoother={smoother!r}: only the point-Jacobi Chebyshev "
-                "smoother ('cheb') is ported; 'line' and 'schwarz' are "
-                "ROADMAP.md Queue 1 item 7b")
+        order: ``smoother`` is 'cheb', 'line', 'line-x|y|z' or 'schwarz'
+        (see `PMGHierarchy`) and ``robin_g`` None (Robin data is ROADMAP.md
+        Queue 1 item 7c)."""
         if robin_g is not None:
             raise NotImplementedError(
                 "robin_g (Robin boundary data) is not ported yet (ROADMAP.md "
@@ -84,7 +88,8 @@ class PoissonProblem:
             self.mesh, degrees=self.degrees, kappa=kappa, dtype=dtype,
             coarse=coarse, coarse_cfg=coarse_cfg,
             smoother_iters=smoother_iters, operator=operator,
-            precision=precision, sigma=sigma, device=device,
+            precision=precision, sigma=sigma, smoother=smoother,
+            device=device,
         )
         if f is None:
             f = f_rhs(self.hierarchy.kappa, sigma=sigma)

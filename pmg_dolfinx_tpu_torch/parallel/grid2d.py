@@ -27,11 +27,17 @@ the ``psum`` of a dot, and the ``all_gather`` / ``dynamic_slice`` of the
 global coarse solve. On the stacked layout each is an exact tensor
 operation on the three leading (shard) axes.
 
+Smoothers: point Jacobi, line relaxation along an unsharded axis (the
+global block inverses laid out like the vectors, `_stacked_line_blocks`)
+and the cell-wise Schwarz blocks (per-shard dense axis transforms,
+`_stacked_schwarz`, the overlap-add reconciled by the grid exchange).
+Coarse solves: ``cg``, ``smoother`` and the gathered ``fdm`` and
+``direct``.
+
 Not ported here (ROADMAP.md Queue 1 item 10 unless named): the lattice,
-lattice_blocked and dofmap grid backends, the ``direct`` / ``hmg``
-coarse solvers (items 7a / 10) and ``coarse_cfg["dist"]``,
-`build_hmg_grid(_general)`, line and Schwarz smoothers (7b), sigma fields,
-tensor kappa and Robin faces (7c), ``solve_refined``, ``devices`` (the
+lattice_blocked and dofmap grid backends, the ``hmg`` coarse solver and
+``coarse_cfg["dist"]``, `build_hmg_grid(_general)`, sigma fields, tensor
+kappa and Robin faces (7c), ``solve_refined``, ``devices`` (the
 multi-process backend) and ``precision="high"`` (item 1). Each raises
 NotImplementedError naming its item.
 """
@@ -47,6 +53,7 @@ from ..solvers.pmg import (
     DEFAULT_SMOOTHER_ITERS,
     EIG_RANGE_FACTORS,
     Level,
+    _level_precond,
     _merge_state,
     fmg_initial_guess,
     v_cycle,
@@ -388,8 +395,9 @@ class GridPMG:
     The JAX package's signature: operator backends ``"kron"`` (plain
     torch, any float dtype) and ``"kron_blocked"`` (the CUDA kernels,
     float32); coarse solvers ``"cg"`` (default), ``"smoother"`` and the
-    gathered ``"fdm"``; the point-Jacobi Chebyshev smoother; scalar
-    ``kappa`` and ``sigma``. Methods `solve`, `solve_pcg`, `to_dist`,
+    gathered ``"fdm"`` and ``"direct"``; smoothers ``"cheb"`` (point
+    Jacobi), ``"line"`` / ``"line-x|y|z"`` (the line axis unsharded) and
+    ``"schwarz"`` (any layout); scalar ``kappa`` and ``sigma``. Methods `solve`, `solve_pcg`, `to_dist`,
     `from_dist` and `load_state`; vectors in and out are global flat
     vectors (numpy or tensors in, tensors on ``device`` out).
     """
@@ -428,8 +436,21 @@ class GridPMG:
                 "singular (constant nullspace); add a Dirichlet face, a "
                 "positive sigma shift, or a Robin face"
             )
-        if smoother != "cheb":
-            raise _todo(f"smoother={smoother!r} (line / Schwarz)", "7b")
+        # Line blocks need the line axis unsharded (lines stay within a
+        # shard); Schwarz blocks are cell-local, so any layout works.
+        from ..solvers.line import parse_line_smoother
+
+        self._schwarz = smoother == "schwarz"
+        self._line_axis = (None if self._schwarz else parse_line_smoother(
+            smoother, mesh, kappa,
+            allowed=tuple(a for a in range(3) if shards[a] == 1)))
+        if self._line_axis is not None and shards[self._line_axis] != 1:
+            raise ValueError(
+                f"GridPMG smoother='line' along {'xyz'[self._line_axis]} "
+                f"needs shards[{self._line_axis}]==1 (lines must not span "
+                f"shards); got shards={shards} — pick an explicit "
+                "'line-x|y|z' along an unsharded axis or re-layout"
+            )
         if operator not in ("kron", "kron_blocked", "lattice",
                             "lattice_blocked", "dofmap"):
             raise ValueError(
@@ -450,8 +471,6 @@ class GridPMG:
                 f"GridPMG: unsupported coarse solver '{coarse}' "
                 "(choose from cg, smoother, fdm, direct, hmg)"
             )
-        if coarse == "direct":
-            raise _todo("coarse='direct'", "7a")
         if coarse == "hmg":
             raise _todo("coarse='hmg'", "10")
         if (coarse_cfg or {}).get("dist"):
@@ -483,11 +502,9 @@ class GridPMG:
                                               sigma=self.sigma)
         else:
             ops = grid_kron_cycle_ops(shards, precision, sigma=self.sigma)
-        if coarse == "fdm":
-            from ..solvers.fdm import FastDiagonalizationSolver
-
-            P0 = self.degrees[0]
-            coarse_gather, coarse_slice = grid_coarse_hooks(self.part, P0)
+        if coarse in ("fdm", "direct"):
+            coarse_gather, coarse_slice = grid_coarse_hooks(
+                self.part, self.degrees[0])
             ops = dict(ops, coarse_gather=coarse_gather,
                        coarse_slice=coarse_slice)
         self._ops = ops
@@ -497,9 +514,12 @@ class GridPMG:
             lv = self._build_level(Pdeg)
             level = Level(P=Pdeg, ndofs=self.part.local_ndofs(Pdeg),
                           smoother_iters=smoother_iters,
-                          shape=self.part.local_shape(Pdeg))
+                          shape=self.part.local_shape(Pdeg),
+                          line_axis=(self._line_axis
+                                     if self._line_axis is not None else 2))
             # Smoother calibration, as the JAX package runs it per shard:
-            # recorded CG on A x = 1 from 0, Lanczos, lmax inflated by 1.1.
+            # recorded CG on A x = 1 from 0 preconditioned as the smoother
+            # is (line, Schwarz or Jacobi), Lanczos, lmax inflated by 1.1.
             ones = torch.ones(shards + level.shape, dtype=dtype,
                               device=self.device)
             _, info = cg_solve(
@@ -507,6 +527,7 @@ class GridPMG:
                 ones, torch.zeros_like(ones), lv["diag_inv"],
                 rtol=DEFAULT_CALIBRATION_RTOL, maxiter=calibration_iters,
                 record=True, dot=lambda u, v, _lv=lv: ops["dot"](u, v, _lv),
+                precond=_level_precond(lv, level, ops),
             )
             eigs = lanczos_eigenvalue_estimates(
                 info["alphas"].cpu().numpy(), info["betas"].cpu().numpy(),
@@ -531,7 +552,15 @@ class GridPMG:
                 self.part.ownership_weights(Pf), dtype)
             transfer.append(tr)
         self.data = dict(levels=level_data, transfer=transfer)
-        if coarse == "fdm":
+        if coarse == "direct":
+            from ..solvers.pmg import dense_cholesky
+
+            self.data["coarse_chol"] = torch.as_tensor(
+                dense_cholesky(mesh, self.degrees[0], self.kappa, self.sigma),
+                dtype=dtype, device=self.device)
+        elif coarse == "fdm":
+            from ..solvers.fdm import FastDiagonalizationSolver
+
             fd = FastDiagonalizationSolver(
                 mesh, self.degrees[0], kappa=self.kappa, dtype=dtype,
                 precision=precision, sigma=self.sigma, device=self.device,
@@ -556,7 +585,8 @@ class GridPMG:
         """The per-level arrays under the JAX package's names, vectors in
         the stacked layout: ``bc_marker``, ``weights``, ``diag_inv`` and
         the backend's ``K*``/``m*`` (kron) or ``kb_mats`` (kron_blocked,
-        grid-stacked) with its per-shard ``kb_blocks``."""
+        grid-stacked) with its per-shard ``kb_blocks``, and the smoother's
+        ``line_inv`` or ``schwarz``."""
         from ..ops.kron import axis_stiffness_mass, local_axis_K
         from .dist import _shifted_diag_np
 
@@ -569,6 +599,10 @@ class GridPMG:
             diag_inv=self._stacked(part.to_dist(Pdeg, 1.0 / _shifted_diag_np(
                 mesh, Pdeg, self._kappa_cells, self.sigma)), dtype),
         )
+        if self._line_axis is not None:
+            lv["line_inv"] = self._stacked_line_blocks(Pdeg)
+        elif self._schwarz:
+            lv["schwarz"] = self._stacked_schwarz(Pdeg)
         npls = part.local_shape(Pdeg)
         Ks_local, ms_dup = [], []
         for a in range(3):
@@ -599,6 +633,48 @@ class GridPMG:
                 lv["m" + name] = torch.as_tensor(ms_dup[a], dtype=dtype,
                                                  device=self.device)
         return lv
+
+    def _stacked_line_blocks(self, Pdeg):
+        """The global line-block inverses in the stacked layout: ``(sx, sy,
+        sz, npl_a, npl_b, n, n)`` over the two non-line axes ``a < b`` (the
+        line axis's shard dim is 1), duplicated lines holding identical
+        blocks; `line_precond_apply` reads them in the order of the
+        stacked vector with the line axis moved last."""
+        from ..solvers.line import line_block_inverses, shard_line_blocks
+
+        part, axis = self.part, self._line_axis
+        others = [a for a in range(3) if a != axis]
+        dup = shard_line_blocks(
+            line_block_inverses(self.mesh, Pdeg, self.kappa, axis,
+                                sigma=self.sigma),
+            self.mesh.lattice_shape(Pdeg), axis,
+            [part._axis_starts(Pdeg, a) for a in others])
+        (s0, s1), (n0, n1) = ((self.shards[a] for a in others),
+                              (part.local_shape(Pdeg)[a] for a in others))
+        n = dup.shape[-1]
+        st = (torch.as_tensor(dup, dtype=self.dtype, device=self.device)
+              .reshape(s0, n0, s1, n1, n, n).permute(0, 2, 1, 3, 4, 5))
+        return st.unsqueeze(axis).contiguous()
+
+    def _stacked_schwarz(self, Pdeg):
+        """The global Schwarz data in the stacked layout: each dense axis
+        transform as per-shard blocks ``(S_a, ncl_a*n, npl_a)``
+        (`shard_dense_axis`), ``ginv`` cut cell-contiguously per shard and
+        the marker in the duplicated-plane layout."""
+        from ..solvers.schwarz import build_schwarz_np, shard_dense_axis
+
+        part, dtype = self.part, self.dtype
+        swg = build_schwarz_np(self.mesh, Pdeg, self.kappa, sigma=self.sigma)
+        sw = {k: torch.as_tensor(
+            shard_dense_axis(swg[k], Pdeg, *part._axis_starts(Pdeg, a)),
+            dtype=dtype, device=self.device).reshape(self.shards[a], -1,
+                                                     part.local_shape(Pdeg)[a])
+            for a, k in enumerate(("Ux", "Uy", "Uz"))}
+        sw["ginv"] = stack_shards(torch.as_tensor(
+            swg["ginv"], dtype=dtype, device=self.device), self.shards)
+        sw["bc"] = self._stacked(part.to_dist(
+            Pdeg, np.asarray(swg["bc"], np.float64)) > 0.5)
+        return sw
 
     # -- API -------------------------------------------------------------
 

@@ -6,8 +6,12 @@ default), ``"lattice"`` (general hexes, plain torch einsums),
 ``"lattice_blocked"`` (general hexes, the CUDA kernels of
 `ops/lattice_blocked.py`), ``"kron"`` and ``"kron_blocked"`` (axis-aligned
 boxes, plain torch / the CUDA kernels of `ops/kron_blocked.py`); the
-V-cycle with a ``"smoother"``, ``"cg"`` or ``"fdm"`` coarse solve, CG +
-Lanczos smoother calibration, the W-cycle (``coarse_cfg["gamma"]``),
+V-cycle with a ``"smoother"``, ``"cg"``, ``"fdm"``, ``"direct"`` (dense
+Cholesky) or ``"hmg"`` (nested geometric h-multigrid, `solvers/hmg.py`)
+coarse solve; the point-Jacobi, line (`solvers/line.py`) and cell-wise
+Schwarz (`solvers/schwarz.py`) Chebyshev smoothers; CG + Lanczos
+smoother calibration on the preconditioned operator, the W-cycle
+(``coarse_cfg["gamma"]``),
 the full-multigrid initial guess (`fmg_initial_guess`), the fused
 Chebyshev smoother and the fused p-transfers of ``kron_blocked``
 (``fuse_smoother=True``, ``fuse_transfers=True``), and the
@@ -33,6 +37,7 @@ Everything else the JAX module offers raises NotImplementedError naming
 its ROADMAP.md item.
 """
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -55,9 +60,9 @@ _OPERATOR_TODO = ("operator='csr' (assembled sparse matvec) and 'dss' "
                   "ROADMAP.md Queue 1 items 6 and 8")
 _SIGMA_FIELD_TODO = ("a sigma FIELD (callable) on the general backends is "
                      "not ported yet (ROADMAP.md Queue 1 item 7)")
-_COARSE_TODO = ("only coarse='smoother', 'cg' and 'fdm' are ported; "
-                "'direct' and 'hmg' are ROADMAP.md Queue 1 item 7a, 'amg' "
-                "item 8")
+_COARSE = ("smoother", "cg", "fdm", "direct", "hmg")
+_COARSE_TODO = ("coarse='amg' (smoothed-aggregation AMG) is not ported yet "
+                "(ROADMAP.md Queue 1 item 8)")
 
 
 @dataclass(frozen=True)
@@ -68,14 +73,56 @@ class Level:
     ndofs: int
     smoother_iters: int = DEFAULT_SMOOTHER_ITERS
     shape: tuple | None = None
+    # The unstructured layout's static sizes: None until the DSS backend
+    # is ported (ROADMAP.md Queue 1 item 8).
+    dss: object = None
+    # Line-relaxation axis when the level's data carries "line_inv".
+    line_axis: int = 2
+
+
+def _level_precond(lv, level, ops):
+    """The level's smoother preconditioner ``r -> M^-1 r`` when it carries
+    line blocks (``line_inv``) or Schwarz data (``schwarz``, its partials
+    reconciled by ``ops["exchange"]`` on a device grid); None for point
+    Jacobi."""
+    if level.dss is not None:
+        raise NotImplementedError(
+            "the DSS Schwarz smoother is ROADMAP.md Queue 1 item 8")
+    if "line_inv" in lv:
+        from .line import line_precond_apply
+
+        return lambda r: line_precond_apply(lv["line_inv"], r, level.shape,
+                                            level.line_axis)
+    if "schwarz" in lv:
+        from .schwarz import schwarz_precond_apply
+
+        return lambda r: schwarz_precond_apply(
+            lv["schwarz"], r, level.shape, level.P,
+            exchange=ops.get("exchange"))
+    return None
+
+
+def dense_cholesky(mesh, P, kappa, sigma=0.0, sigma_field=None):
+    """The ``direct`` coarse factor: the lower Cholesky factor (host numpy,
+    float64) of the dense bc-applied stiffness plus the lumped-mass
+    ``sigma`` shift. Dense: for moderate coarse sizes only."""
+    from ..fem.assembly import assemble_stiffness, shifted_mass_np
+
+    A0 = assemble_stiffness(mesh, P, kappa=kappa).toarray()
+    if sigma:
+        A0[np.diag_indices_from(A0)] += sigma * shifted_mass_np(
+            mesh, P, sigma_field)
+    return np.linalg.cholesky(A0)
 
 
 def _generic_calibration(lv, b, x0, *, ops, level, maxiter):
+    # lmax of the SAME preconditioned operator the smoother iterates on
     A = lambda x: ops["apply"](lv, x, level)
     return cg_solve(
         A, b, x0, lv["diag_inv"],
         rtol=DEFAULT_CALIBRATION_RTOL, maxiter=maxiter, record=True,
         dot=lambda u, v: ops["dot"](u, v, lv),
+        precond=_level_precond(lv, level, ops),
     )
 
 
@@ -296,8 +343,12 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
     transfer matrices (``transfer``) and the coarse-solver arrays;
     ``levels`` is the tuple of `Level`; ``ops`` the cycle primitives
     (``ops["smooth"]``, where a backend fuses the smoother, replaces the
-    generic Chebyshev-4). ``coarse_cfg["gamma"]`` selects the cycle index:
-    1 = V-cycle (default), 2 = W-cycle.
+    generic Chebyshev-4, whose preconditioner is the level's line blocks,
+    Schwarz data or Jacobi diagonal). ``coarse_cfg["gamma"]`` selects the
+    cycle index: 1 = V-cycle (default), 2 = W-cycle; ``coarse="hmg"``
+    reads its nested hierarchy from ``coarse_cfg`` (``hmg_levels``,
+    ``hmg_ops``, ``hmg_bottom``, ``hmg_gamma``, ``cycles``: 2 unless set,
+    `PMGHierarchy` sets 3) and ``data["hmg"]``.
     """
     coarse_cfg = coarse_cfg or {}
     L = len(levels)
@@ -310,9 +361,11 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
     zeros = ops["zeros"]
 
     def _default_smooth(lv, b, x, level):
+        minv = _level_precond(lv, level, ops)
         return chebyshev4_solve(
             lambda t: ops["apply"](lv, t, level), b, x,
-            lv["diag_inv"], lv["lmax"], level.smoother_iters,
+            lv["diag_inv"] if minv is None else minv, lv["lmax"],
+            level.smoother_iters,
         )
 
     smooth = ops.get("smooth", _default_smooth)
@@ -352,9 +405,9 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
         )
 
     # Coarse level: mask Dirichlet rows of the restricted rhs, then solve.
-    # The fdm solve works on the GLOBAL coarse problem: a device-grid
-    # backend supplies "coarse_gather" / "coarse_slice" (identities on one
-    # device).
+    # The direct, fdm and hmg solves work on the GLOBAL coarse problem: a
+    # device-grid backend supplies "coarse_gather" / "coarse_slice"
+    # (identities on one device).
     gather = ops.get("coarse_gather", lambda v: v)
     unslice = ops.get("coarse_slice", lambda v: v)
     bc0 = lvs[0]["bc_marker"]
@@ -380,8 +433,36 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
             fd["bc_global"], coarse_cfg["fdm_shape"],
             trims=coarse_cfg.get("fdm_trims", ((1, 1),) * 3),
         ))
-    else:
+    elif coarse == "direct":
+        # Dense Cholesky factor from setup; the triangular solves take the
+        # coarse vector flat (the coarse level is small).
+        chol = data["coarse_chol"]
+        b0g = gather(b0)
+        y = torch.linalg.solve_triangular(chol, b0g.reshape(-1, 1),
+                                          upper=False)
+        u0g = torch.linalg.solve_triangular(chol.T, y, upper=True)
+        u0 = unslice(u0g.reshape(b0g.shape))
+    elif coarse == "hmg":
+        # Nested geometric h-multigrid V-cycles (solvers/hmg.py): this
+        # same function over the h-hierarchy, the rhs reshaped at the seam
+        # to the h-levels' layout (lattice-shaped kron, flat lattice).
+        hmg_ops = coarse_cfg.get("hmg_ops", ops)
+        hmg_levels = coarse_cfg["hmg_levels"]
+        u0g = hmg_ops["zeros"](hmg_levels[-1], b_in)
+        b0g_raw = gather(b0)
+        b0g = b0g_raw.reshape(u0g.shape)
+        for _ in range(coarse_cfg.get("cycles", 2)):
+            u0g = v_cycle(
+                data["hmg"], b0g, u0g, levels=hmg_levels,
+                coarse=coarse_cfg.get("hmg_bottom", "direct"),
+                coarse_cfg={"gamma": coarse_cfg.get("hmg_gamma", 1)},
+                ops=hmg_ops,
+            )
+        u0 = unslice(u0g.reshape(b0g_raw.shape))
+    elif coarse == "amg":
         raise NotImplementedError(_COARSE_TODO)
+    else:
+        raise ValueError(f"unknown coarse solver '{coarse}'")
     us[0] = u0
 
     # Up sweep: prolong, correct, post-smooth.
@@ -461,11 +542,18 @@ class PMGHierarchy:
         CUDA kernels on a CUDA device, any hex mesh, float32 only), 'kron'
         (plain torch, axis-aligned boxes) or 'kron_blocked' (the CUDA
         kernels, axis-aligned boxes, float32 only); ``coarse`` is
-        'smoother', 'cg' or 'fdm' (axis-aligned only); ``kappa`` a scalar;
-        ``sigma`` a scalar lumped-mass shift. ``fuse_smoother=True``
-        (kron_blocked only) runs the smoother through the fused Chebyshev
-        kernel; ``fuse_transfers=True`` (kron_blocked only) runs the
-        p-transfers through the transfer kernels #10/#11
+        'smoother', 'cg', 'fdm' (axis-aligned only), 'direct' (dense
+        Cholesky of the assembled p=1 matrix, moderate sizes) or 'hmg'
+        (nested h-multigrid cycles: `solvers.hmg.build_hmg` on boxes,
+        `build_hmg_general` on curved meshes; ``coarse_cfg`` keys
+        ``sizes``, ``smoother``, ``bottom``, ``min_cells``, ``cycles``
+        (default 3), ``hmg_gamma``); ``kappa`` a scalar; ``sigma`` a
+        scalar lumped-mass shift. ``smoother`` is 'cheb' (point Jacobi),
+        'line' / 'line-x|y|z' (line relaxation, moderate sizes) or
+        'schwarz' (cell-wise FDM Schwarz, any size). ``fuse_smoother=True``
+        (kron_blocked, point Jacobi only) runs the smoother through the
+        fused Chebyshev kernel; ``fuse_transfers=True`` (kron_blocked
+        only) runs the p-transfers through the transfer kernels #10/#11
         (`ops.transfer`). ``coarse_cfg["gamma"] = 2`` makes every cycle a
         W-cycle."""
         from ..fem.assembly import (
@@ -502,12 +590,10 @@ class PMGHierarchy:
             raise ValueError(
                 f"unknown operator backend {operator!r}; expected one of "
                 f"{_OPERATORS}")
-        if coarse not in ("smoother", "cg", "fdm"):
+        if coarse == "amg":
             raise NotImplementedError(_COARSE_TODO)
-        if smoother != "cheb":
-            raise NotImplementedError(
-                "only the point-Jacobi Chebyshev smoother is ported; "
-                "'line' and 'schwarz' are ROADMAP.md Queue 1 item 7b")
+        if coarse not in _COARSE:
+            raise ValueError(f"unknown coarse solver '{coarse}'")
         if precision != "highest":
             raise NotImplementedError(
                 "only precision='highest' (true f32/f64) is ported; "
@@ -520,6 +606,19 @@ class PMGHierarchy:
                     "a sigma FIELD (callable) requires a general backend; "
                     "the Kronecker paths carry only a separable scalar shift"
                 )
+            if coarse == "fdm":
+                raise ValueError(
+                    "coarse='fdm' supports a scalar sigma only (the "
+                    "shift must stay a pure eigenvalue offset); use "
+                    "'hmg', 'cg', 'direct' or 'smoother'"
+                )
+            if smoother != "cheb" or (coarse_cfg or {}).get(
+                    "smoother", "cheb") != "cheb":
+                raise ValueError(
+                    "line/schwarz smoothers support a scalar sigma only "
+                    "(their block builders fold a uniform shift); use "
+                    "smoother='cheb' with a sigma field"
+                )
             raise NotImplementedError(_SIGMA_FIELD_TODO)
         if (not any(any(f) for f in mesh.dirichlet_faces)
                 and self.sigma == 0.0):
@@ -527,6 +626,20 @@ class PMGHierarchy:
                 "pure-Neumann problem (no Dirichlet face) with sigma=0 is "
                 "singular (constant nullspace); add a Dirichlet face or a "
                 "positive sigma shift"
+            )
+        # The smoother's preconditioner on every p-level: point Jacobi
+        # ('cheb'), line relaxation along the strongly-coupled axis
+        # ('line' auto, 'line-x|y|z') or the cell-wise Schwarz blocks.
+        from .line import line_block_inverses, parse_line_smoother
+
+        self._schwarz = smoother == "schwarz"
+        self._line_axis = (None if self._schwarz
+                           else parse_line_smoother(smoother, mesh, kappa))
+        if (self._line_axis is not None or self._schwarz) and fuse_smoother:
+            raise ValueError(
+                f"smoother={smoother!r} is incompatible with "
+                "fuse_smoother=True (the fused kernel epilogue hard-codes "
+                "point Jacobi)"
             )
         if kron_family:
             require_axis_aligned(mesh, f"operator='{operator}'")
@@ -544,6 +657,7 @@ class PMGHierarchy:
         kc, kt, const = resolve_kappa_split(mesh, kappa)
         self._kc, self._kappa_fold = kc, kt
         self.kappa = float(kc[0]) if const else None
+        self._kappa_raw = kappa
         self.kappa_axes = resolve_kappa_axes(mesh, kappa,
                                              split=(kc, kt, const))
         self.dtype = dtype
@@ -651,6 +765,20 @@ class PMGHierarchy:
                     lv["m3"] = tensor(lumped_mass_np(mesh, P, bc_zero=True))
                     diag = diag + ops_sigma * lv["m3"]
             lv["diag_inv"] = 1.0 / diag
+            if self._line_axis is not None:
+                # Dense within-line block inverses of the assembled
+                # (bc-applied, sigma-shifted) operator (solvers/line.py).
+                lv["line_inv"] = tensor(line_block_inverses(
+                    mesh, P, kappa, self._line_axis, sigma=self.sigma))
+                level = dataclasses.replace(level, line_axis=self._line_axis,
+                                            shape=shape)
+            elif self._schwarz:
+                from .schwarz import build_schwarz
+
+                lv["schwarz"] = build_schwarz(mesh, P, kappa, dtype,
+                                              sigma=self.sigma,
+                                              device=self.device)
+                level = dataclasses.replace(level, shape=shape)
             vshape = shape if kron_family else (ndofs,)
             # Smoother calibration: 20 recorded CG iterations on A x = 1,
             # Lanczos estimate, lmax inflated by 1.1.
@@ -686,7 +814,33 @@ class PMGHierarchy:
         self.data = dict(levels=level_data, transfer=transfer)
         self.levels = tuple(levels)
 
-        if coarse == "fdm":
+        if coarse == "direct":
+            self.data["coarse_chol"] = tensor(dense_cholesky(
+                mesh, self.degrees[0], self.kappa, self.sigma))
+        elif coarse == "hmg":
+            cfg = self.coarse_cfg
+            kw = dict(smoother_iters=smoother_iters, precision=precision,
+                      bottom=cfg.get("bottom", "direct"),
+                      min_cells=cfg.get("min_cells", 2), sigma=self.sigma,
+                      sizes=cfg.get("sizes"),
+                      smoother=cfg.get("smoother", "cheb"),
+                      device=self.device)
+            if getattr(mesh, "is_axis_aligned", True):
+                from .hmg import build_hmg
+
+                hmg_levels, hmg_data, hmg_bottom = build_hmg(
+                    mesh, self.degrees[0], self.kappa_axes, dtype, **kw)
+                hmg_ops = kron_cycle_ops(precision, sigma=self.sigma)
+            else:
+                # Curved hexes: the rediscretised lattice h-hierarchy.
+                from .hmg import build_hmg_general
+
+                hmg_levels, hmg_data, hmg_bottom, hmg_ops = build_hmg_general(
+                    mesh, self.degrees[0], self._kappa_raw, dtype, **kw)
+            self.data["hmg"] = hmg_data
+            cfg.update(hmg_levels=hmg_levels, hmg_ops=hmg_ops,
+                       hmg_bottom=hmg_bottom, cycles=cfg.get("cycles", 3))
+        elif coarse == "fdm":
             from .fdm import FastDiagonalizationSolver
 
             fd = FastDiagonalizationSolver(

@@ -186,10 +186,13 @@ def test_pmg_driver_perturbed_on_cpu():
     assert "FCG(V-cycle) converged in" in out.stdout
     last = json.loads(out.stdout.strip().splitlines()[-1])
     assert 0.0 < last["l2_error"] < 1e-4
-    refused = _run("pmg_torch.py", "--ndofs", "2000", "--mesh", "perturbed",
-                   "--coarse", "fdm")
-    assert refused.returncode != 0
-    assert "--coarse cg" in refused.stderr
+    # JAX's switch: the FDM coarse solve is axis-aligned only, so a curved
+    # mesh gets the rediscretised h-multigrid coarse solve
+    switched = _run("pmg_torch.py", "--ndofs", "2000", "--mesh", "perturbed",
+                    "--coarse", "fdm", "--pcg")
+    assert switched.returncode == 0, switched.stderr
+    assert "switching coarse solver to 'hmg'" in switched.stdout
+    assert "FCG(V-cycle) converged in" in switched.stdout
 
 
 def test_mat_free_driver_geom_on_cpu():

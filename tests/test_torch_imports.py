@@ -58,7 +58,8 @@ _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "ops.kron_packed", "ops.transfer", "ops.kron_fused",
                 "solvers.pmg", "solvers.cg", "solvers.fdm",
                 "solvers.transient", "utils.convert", "ops.blas", "ops.kron",
-                "parallel.partition", "parallel.dist", "parallel.grid2d")
+                "parallel.partition", "parallel.dist", "parallel.grid2d",
+                "solvers.line", "solvers.schwarz", "solvers.hmg")
 
 
 def test_general_hex_modules_import_no_jax():

@@ -107,15 +107,32 @@ def test_load_state_checks_shapes():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(operator="csr"), "Queue 1 items 6 and 8"),
-    (dict(coarse="hmg"), "Queue 1 item 7a"),
-    (dict(smoother="line"), "Queue 1 item 7"),
-    (dict(smoother="schwarz"), "Queue 1 item 7"),
+    (dict(coarse="hmg"), None),
+    (dict(smoother="line"), None),
+    (dict(smoother="schwarz"), None),
     (dict(precision="high"), "Queue 1 item 1"),
 ])
 def test_unported_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        PMGHierarchy(BoxMesh((2, 2, 2)), degrees=(1, 2), device="cpu",
-                     **kwargs)
+    """The options still to port raise naming their ROADMAP item; those
+    ported since (``match`` None: the h-multigrid coarse solve, the line
+    and Schwarz smoothers) build and cycle as the JAX package does (f64:
+    eigenvalue estimates to 1e-12, 3 cycles to 1e-10)."""
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            PMGHierarchy(BoxMesh((2, 2, 2)), degrees=(1, 2), device="cpu",
+                         **kwargs)
+        return
+    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy as JHierarchy
+
+    hier = PMGHierarchy(BoxMesh((2, 2, 2)), degrees=(1, 2), device="cpu",
+                        **kwargs)
+    jhier = JHierarchy(JBoxMesh((2, 2, 2)), degrees=(1, 2), **kwargs)
+    for et, ej in zip(hier.eigs, jhier.eigs):
+        assert np.max(_rel(et, ej)) <= 1e-12
+    b = np.random.default_rng(2).standard_normal(hier.levels[-1].ndofs)
+    _, rt = hier.solve(b, num_cycles=3)
+    _, rj = jhier.solve(jnp.asarray(b), num_cycles=3)
+    assert np.max(_rel(rt, rj)) <= 1e-10
 
 
 def test_unported_solves_raise():

@@ -85,7 +85,8 @@ def test_kron_laplacian_apply_positional(apply_bc):
 
 def test_poisson_problem_positional():
     """JAX's 13th positional ``smoother`` and 14th ``u_exact`` (the fault
-    bound "cheb" to ``u_exact``); ``robin_g`` and other smoothers raise."""
+    bound "cheb" to ``u_exact``), with 'cheb' and 'line'; ``robin_g``
+    raises."""
     from pmg_dolfinx_tpu.models import poisson as jp
     from pmg_dolfinx_tpu_torch.models import poisson as tp
 
@@ -101,9 +102,13 @@ def test_poisson_problem_positional():
     assert _rel(ut, uj) <= 1e-12
     assert abs(tprob.error_l2(ut) - jprob.error_l2(np.asarray(uj))) <= (
         1e-12 * jprob.error_l2(np.asarray(uj)))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tp.PoissonProblem(*args, torch.float64, *rest[:-2], "line",
-                          device="cpu")
+    jline = jp.PoissonProblem(*args, jnp.float64, *rest[:-2], "line")
+    tline = tp.PoissonProblem(*args, torch.float64, *rest[:-2], "line",
+                              device="cpu")
+    assert tline.hierarchy.levels[-1].line_axis == (
+        jline.hierarchy.levels[-1].line_axis)
+    assert _rel(tline.solve(num_cycles=3)[0], jline.solve(num_cycles=3)[0]
+                ) <= 1e-12
     with pytest.raises(NotImplementedError, match="item 7c"):
         tp.PoissonProblem(*args, torch.float64, *rest, {"g": 1.0},
                           device="cpu")
@@ -454,14 +459,29 @@ def test_blocked_lattice_entry_points_keyword_knobs(entry):
             call(bad)
 
 
-@pytest.mark.parametrize("coarse,item", [("direct", "item 7a"),
-                                         ("hmg", "item 7a"),
+@pytest.mark.parametrize("coarse,item", [("direct", None),
+                                         ("hmg", None),
                                          ("amg", "item 8")])
 def test_coarse_refusal_names_its_roadmap_item(coarse, item):
     """`PMGHierarchy`'s refusal of an unported coarse solver names the
-    ROADMAP item that ports it: 7a for 'direct' and 'hmg', 8 for 'amg'."""
+    ROADMAP item that ports it (8 for 'amg'); 'direct' and 'hmg' (item
+    7a, ported) bind JAX's positional ``(mesh, degrees, kappa, dtype,
+    smoother_iters, coarse, coarse_cfg)`` and cycle as JAX's (f64,
+    1e-12)."""
+    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy as JH
     from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
 
-    with pytest.raises(NotImplementedError, match=item):
-        PMGHierarchy(TBox((2, 2, 2)), degrees=(1, 2), coarse=coarse,
-                     device="cpu")
+    args = ((1, 2), 2.0)
+    rest = (2, coarse, None)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            PMGHierarchy(TBox((2, 2, 2)), *args, torch.float64, *rest,
+                         device="cpu")
+        return
+    th = PMGHierarchy(TBox((2, 2, 2)), *args, torch.float64, *rest,
+                      device="cpu")
+    jh = JH(JBox((2, 2, 2)), *args, jnp.float64, *rest)
+    assert th.coarse == jh.coarse == coarse
+    b = np.random.default_rng(3).standard_normal(th.levels[-1].ndofs)
+    assert _rel(th.apply(b, np.zeros_like(b)),
+                jh.apply(jnp.asarray(b), jnp.zeros(b.shape))) <= 1e-12
