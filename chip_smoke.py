@@ -9,11 +9,14 @@ Chebyshev smoother and with the fused p-transfers, the refined, W-cycle
 and FMG modes, the Schwarz smoother, the device grid), the whole-lattice
 Kronecker operator, the curved-hex solve and operator (streamed,
 z-grouped and in-kernel geometry; with the Schwarz smoother and the
-h-multigrid coarse solve), the serving (transient) steppers and the
-AMG-driver twin through them. Every phase raises on failure; nothing is
-caught. The phases run in the order 1-4e, 14, 15, 18d, 5-8b, 16, 17,
-9-13, 18a-18c: 15 and 18d reuse phase 4's mesh and rhs, 16 and 17 phase
-7's mesh and its host geometry factors.
+h-multigrid coarse solve), the serving (transient) steppers, the
+AMG-driver twin and the coefficient and boundary-condition family
+(graded spacing, Neumann and Robin faces, per-axis, tensor and variable
+kappa, sigma fields) through them. Every phase raises on failure;
+nothing is caught. The phases run in the order 1-3f, 4-4e, 14, 15, 18d,
+19a-19c, 5-8b, 16, 17, 20a-20c, 9-11, 21, 12, 13, 18a-18c: 15, 18d, 19b,
+20a and 20c reuse phase 4's mesh (and its host geometry factors), 16
+and 17 phase 7's.
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch,
    CUDA and nvcc versions. Fails when ``torch.cuda.is_available()`` is
@@ -83,6 +86,11 @@ caught. The phases run in the order 1-4e, 14, 15, 18d, 5-8b, 16, 17,
    and #9's time, with ``--parent`` beside the parent's #8 and whether
    both give the same bits; `blocked_kron_apply_grid` on a non-separable
    marker must launch #8.
+3f. This slice's operands: kernels #1-#3 (separable masks), #4 and #7
+   (init and loop step, the box marker as the fused smoother passes it)
+   at 253^3 and #12 at 127^3 on a box with x Neumann, y Robin (alpha 2),
+   z Dirichlet and graded (ratio 8), per-axis kappa (1, 2, 4), sigma in
+   {0, 0.5}: relative max-norm <= 1e-5 against the plain versions.
 4. Main path: ``PoissonProblem(nc=(42,42,42), degrees=(1,3,6), kappa=2,
    float32, coarse="fdm", operator="kron_blocked")`` — 10 stationary
    V-cycles (the residual falls on each of the first 4) and FCG(V) to
@@ -230,6 +238,37 @@ caught. The phases run in the order 1-4e, 14, 15, 18d, 5-8b, 16, 17,
    operator="kron_blocked")`` on phase 4's mesh: one grid V-cycle within
    1e-5 of phase 15's single-device one, #9 launches.
 
+19. The box family at 16,194,277 dofs, p=(1,3,6), float32,
+   ``kron_blocked`` + ``fdm`` (JAX's ``examples/pmg.py`` flags). a:
+   ``--grade z:8 --neumann x --robin y`` (the mesh of 3f, kappa 2,
+   `f_rhs_mixed` / `u_exact_mixed` / `robin_data`): FCG(V) to 1e-6
+   within 50, L2 < 1e-4 (on a host thread, joined after phase 5), ms per
+   V-cycle (CUDA events, 10 back-to-back, median of 3), #1-#3 launch. b: ``--kappa-field aniso-diag``
+   (diag(1, 1, 100)) on phase 4's mesh: FCG(V) count and ms per V-cycle;
+   the ``--fdm`` one-shot direct solve within 1e-3 of the FCG solution,
+   and its L2 < 1e-4 at nc=21. c: at nc=21, a's problem with
+   ``fuse_smoother=True, fuse_transfers=True`` (#4/#7/#10/#11) at the
+   unfused hierarchy's smoother bounds: one V-cycle on a seeded input
+   within 1e-5 of the unfused one's, FCG(V) within one.
+20. The general family, ``lattice_blocked``. a: ``--kappa-field aniso``
+   (`kappa_aniso`, 100:1 rotated 30 degrees, folded into G: the first
+   off-diagonal G on a box) on phase 4's mesh, ``coarse="cg"``: FCG(V) to
+   1e-6 within 100, ms per V-cycle beside phase 7's curved cycle, K-A
+   launches; L2 < 1e-4 at nc=21. b: at nc=21, `kappa_linear` with
+   ``coarse="hmg"`` and `sigma_linear` with ``coarse="cg"``: FCG(V)
+   within one of the plain ``lattice`` hierarchy's, L2 < 1e-4 (the DG-0
+   `kappa_linear`: within 1% of the plain solve's, its own h^2
+   coefficient error), one V-cycle on a seeded input within 1e-5 of the
+   plain hierarchy's at its smoother bounds. c: K-B
+   (``PallasLatticeBlocked(kappa=kappa_linear, variant="geom")``, the
+   per-cell kappa at ``co[36]``) at 253^3 on phase 4's mesh, within 1e-5
+   of its plain version.
+21. Serving at 61^3, p=6, kappa (1, 1, 100), z graded (ratio 8), x
+   Neumann: #18-#21 through the four packed classes within 1e-5 of their
+   plain versions; heat CN (dt 1e-4) at B=1 and B=8 (steps/s; 20 steps
+   within 1e-4 of the f64 `heat_fdm_evolve`), leapfrog at B=1 and 8 (100
+   steps within 1e-4 of `wave_leapfrog_evolve`).
+
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
 PyTorch call computes the same function, and its bound: bytes over 3.35
@@ -241,7 +280,9 @@ their separable twin's device time, #12 with the blocked apply's), the
 lattice kernels with their box and face
 scratch, the serving kernels per batch beside ``bound_ms_by_batch``;
 ``launches`` sums each kernel's launches over every path that runs it
-(#1-#3 phases 4 and 15, #9 phases 14 and 18d, K-A phases 7, 16 and 17),
+(#1-#3 phases 4, 15 and 19a/19b, #4/#7/#10/#11 phases 4b-4e and 19c, #9
+phases 14 and 18d, K-A phases 7, 16, 17, 20a and 20b, K-B phases 8 and
+20c, #18-#21 phases 11 and 21),
 with their kernels and host us per call and, with ``--parent``, the
 parent's device times and whether the bits are the same) and, only when every
 phase passed, the last line
@@ -3059,6 +3100,495 @@ def line_semicoarsened():
                              f"Jacobi's {iters['cheb']}")
 
 
+# --- the coefficient and boundary-condition family (phases 3f, 19-21) ---------
+
+# The JAX driver's ``--grade z:8 --neumann x --robin y``: x Neumann, y
+# Robin (alpha 2) on both faces, z Dirichlet, z graded (ratio 8).
+MIX_FACES = ((False, False), (False, False), (True, True))
+MIX_ROBIN = ((0.0, 0.0), (2.0, 2.0), (0.0, 0.0))
+GRADE_RATIO = 8.0
+# ``--kappa-field aniso-diag``: the grid-aligned tensor diag(1, 1, 100).
+ANISO_DIAG = (1.0, 1.0, 100.0)
+
+
+def mixed_mesh(nc):
+    """`BoxMesh((nc,) * 3)` with `MIX_FACES`, `MIX_ROBIN` and z graded."""
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, geometric_spacing
+
+    return BoxMesh((nc, nc, nc), dirichlet_faces=MIX_FACES, robin=MIX_ROBIN,
+                   spacing=(None, None, geometric_spacing(nc, GRADE_RATIO)))
+
+
+def mixed_problem(mesh, **cfg):
+    """The JAX driver's mixed-BC problem on ``mesh`` (kappa 2): the
+    manufactured `u_exact_mixed`, its source and Robin data."""
+    from pmg_dolfinx_tpu_torch.models import poisson as pm
+
+    u = pm.u_exact_mixed(MIX_FACES)
+    g = pm.robin_data(2.0, u, pm.grad_u_exact_mixed(MIX_FACES), MIX_ROBIN)
+    return pm.PoissonProblem(mesh=mesh, f=pm.f_rhs_mixed(2.0, MIX_FACES),
+                             u_exact=u, robin_g=g, **cfg)
+
+
+def reset(*modules):
+    for mod in modules:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+
+
+def add_launches(launches, counts, need):
+    """Raise unless each kernel of ``need`` launched (``counts`` read just
+    after the path); add the counts to the kernels line's ``launches``."""
+    if not all(counts[k] > 0 for k in need):
+        raise AssertionError(f"a kernel of {need} was not launched: {counts}")
+    for k in need:
+        launches[k] += counts[k]
+
+
+def check_rel(tag, got, ref, tol=KERNEL_RTOL):
+    import torch
+
+    torch.cuda.synchronize()
+    err = rel_max_err(got, ref)
+    print(f"    {tag}: rel max err {err:.3e} (gate {tol:g})")
+    if not err <= tol:
+        raise AssertionError(f"{tag}: {err:.3e} > {tol:g}")
+    return err
+
+
+def coeff_operand_parity():
+    """Phase 3f: kernels #1-#3, #4/#7 and #12 on this slice's operands,
+    the first non-Toeplitz, Robin-ended factors they see: 253^3 (nc=42,
+    p=6), x Neumann, y Robin (alpha 2), z Dirichlet and graded (ratio 8),
+    per-axis kappa (1, 2, 4); #1-#3 with the separable masks, #4 and #7
+    (init and loop step) with the box marker as the fused smoother gives
+    it, sigma in {0, 0.5}; #12 at 127^3 on the same kind of mesh. Each
+    within `KERNEL_RTOL` of its plain version."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops import kron_fused as kf
+    from pmg_dolfinx_tpu_torch.ops.kron import KronLaplacian, kron_diagonal
+
+    P, kappa = 6, (1.0, 2.0, 4.0)
+    mesh = mixed_mesh(42)
+    op = KronLaplacian(mesh, P, kappa=kappa, dtype=torch.float32,
+                       device="cuda")
+    shape = mesh.lattice_shape(P)
+    masks = kb.checked_face_masks(mesh, P, mesh.boundary_dof_marker(P))
+    if masks is None:
+        raise AssertionError("the mixed box marker must be separable")
+    mats = kb.symmetrized_mats(op.Ks, op.ms, face_masks=masks, band=P,
+                               device="cuda")
+    rng = np.random.default_rng(SEED + 14)
+    x, r, b = (torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device="cuda") for _ in range(3))
+    bc = op.bc_marker.reshape(shape)
+    dinv = 1.0 / kron_diagonal(op.Ks, op.ms, op.bc_marker).reshape(shape)
+    lmax = torch.tensor(2.2, dtype=torch.float32, device="cuda")
+    for sigma in (0.0, 0.5):
+        tag = f"{shape} sigma={sigma}"
+        t1 = kb.plain_t1_m(x, mats)
+        check_rel(f"{tag} #1 t1_m", kb.kron_t1_m(x, mats), t1)
+        check_rel(f"{tag} #2 t23_m", kb.kron_t23_m(x, t1, mats, sigma),
+                  kb.plain_t23_m(x, t1, mats, sigma))
+        check_rel(f"{tag} #3 t23_res_m",
+                  kb.kron_t23_m(x, t1, mats, sigma, r3=r),
+                  r - kb.plain_t23_m(x, t1, mats, sigma))
+        t1f = kb.plain_t1(x, bc, mats)
+        check_rel(f"{tag} #4 t1", kb.kron_t1(x, bc, mats), t1f)
+        init = kb.plain_cheb_step(x, bc, x, b, dinv, kb.cheb_coefs(
+            lmax, 0, torch.float32, "cuda"), mats, sigma, t1=t1f)
+        got = kb.kron_t23_cheb(x, bc, t1f, mats, x, b, dinv, lmax, 0, sigma)
+        for part, g, w in zip("xrz", got, init):
+            check_rel(f"{tag} #7 t23_cheb init {part}'", g, w)
+        t1z = kb.plain_t1(init[2], bc, mats)
+        loop = kb.plain_cheb_step(init[2], bc, init[0], init[1], dinv,
+                                  kb.cheb_coefs(lmax, 1, torch.float32,
+                                                "cuda"), mats, sigma, t1=t1z)
+        got = kb.kron_t23_cheb(init[2], bc, t1z, mats, init[0], init[1],
+                               dinv, lmax, 1, sigma)
+        for part, g, w in zip("xrz", got, loop):
+            check_rel(f"{tag} #7 t23_cheb loop {part}'", g, w)
+    del op, mats, x, r, b, bc, dinv, init, loop, got
+    m21 = mixed_mesh(21)
+    opf = kf.PallasKronLaplacian(m21, P, kappa=kappa, device="cuda")
+    x = torch.tensor(rng.standard_normal(m21.num_dofs(P), dtype=np.float32),
+                     device="cuda")
+    check_rel(f"{opf.shape} #12 kron_fused", opf(x),
+              kf.plain_kron_fused(x.reshape(opf.shape), opf.bc3, opf.Ks,
+                                  opf.planes).reshape(-1))
+
+
+def box_family(mesh, launches):
+    """Phase 19a/19b at 16,194,277 dofs (p=(1,3,6), float32, kron_blocked +
+    fdm). 19a: the JAX driver's ``--grade z:8 --neumann x --robin y``
+    (kappa 2): FCG(V) to 1e-6 within 50, L2 < 1e-4, ms per V-cycle, #1-#3
+    launches. 19b on ``mesh`` (phase 4's uniform box, whose host geometry
+    is cached): ``--kappa-field aniso-diag``: FCG(V) count, ms per
+    V-cycle; the ``--fdm`` one-shot direct solve against the FCG solution,
+    and its L2 < 1e-4 at nc=21. Returns ({tag: (FCG, ms per V-cycle)},
+    19a's L2 job for `check_l2`)."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs, l2_error
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import (
+        PoissonProblem,
+        f_rhs_tensor,
+        u_exact,
+    )
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.solvers.fdm import FastDiagonalizationSolver
+
+    cfg = dict(degrees=(1, 3, 6), dtype=torch.float32, coarse="fdm",
+               operator="kron_blocked", device="cuda")
+    need = ("t1_m", "t23_m", "t23_res_m")
+    out = {}
+    t0 = phase("19a. box family: --grade z:8 --neumann x --robin y, 16.2M "
+               "dofs, p=(1,3,6), kron_blocked + fdm")
+    reset(kb)
+    ts = time.perf_counter()
+    prob = mixed_problem(mixed_mesh(42), kappa=2.0, **cfg)
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f} (eig max per "
+          f"level {[round(float(e[-1]), 4) for e in prob.hierarchy.eigs]})")
+    u, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    path = dict(kb.LAUNCHES)
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter}; launches {path}")
+    if not niter < 50 or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"19a: FCG {niter}, finite "
+                             f"{bool(torch.isfinite(u).all())}")
+    add_launches(launches, path, need)
+    # The host L2 (numpy, ~100 s at this size) runs on a worker thread
+    # while the card goes on; `check_l2` joins it.
+    pool = ThreadPoolExecutor(max_workers=1)
+    l2_job = (pool.submit(prob.error_l2, u.double().cpu().numpy()),
+              time.perf_counter())
+    pool.shutdown(wait=False)
+    vc, vc_all = vcycle_ms(prob.hierarchy)
+    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+          f"{[round(t, 3) for t in vc_all]}); the L2 error runs on a host "
+          "thread")
+    out["19a"] = (niter, vc)
+    del prob, u
+    done(t0)
+
+    t0 = phase("19b. box family: --kappa-field aniso-diag (diag(1,1,100)), "
+               "16.2M dofs, kron_blocked + fdm; the --fdm one-shot solve")
+    K = np.diag(ANISO_DIAG)
+    f = f_rhs_tensor(K)
+    reset(kb)
+    ts = time.perf_counter()
+    prob = PoissonProblem(mesh=mesh, kappa=K, f=f, **cfg)
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f} (kappa_axes "
+          f"{prob.hierarchy.kappa_axes})")
+    u, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6, maxiter=200)
+    torch.cuda.synchronize()
+    path = dict(kb.LAUNCHES)
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter}; launches {path}")
+    if not niter < 200 or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"19b: FCG {niter}")
+    add_launches(launches, path, need)
+    vc, vc_all = vcycle_ms(prob.hierarchy)
+    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+          f"{[round(t, 3) for t in vc_all]})")
+    out["19b"] = (niter, vc)
+    fdm = FastDiagonalizationSolver(mesh, 6, kappa=K, dtype=torch.float32,
+                                    device="cuda")
+    fdm.solve(prob.b)
+    t_fdm = cuda_ms(lambda: fdm.solve(prob.b), reps=5, warmup=1)
+    d = float(torch.linalg.vector_norm(fdm.solve(prob.b) - u)
+              / torch.linalg.vector_norm(u))
+    print(f"    --fdm one-shot solve: {t_fdm:.3f} ms; against the FCG "
+          f"solution: rel diff {d:.3e} (gate 1e-3)")
+    if not d <= 1e-3:
+        raise AssertionError(f"19b: FDM and FCG solutions differ by {d}")
+    del prob, u, fdm
+    m21 = BoxMesh((21, 21, 21))
+    fdm = FastDiagonalizationSolver(m21, 6, kappa=K, dtype=torch.float32,
+                                    device="cuda")
+    b21 = torch.tensor(assemble_rhs(m21, 6, f), dtype=torch.float32,
+                       device="cuda")
+    err = l2_error(m21, 6, fdm.solve(b21).double().cpu().numpy(), u_exact)
+    print(f"    --fdm one-shot at nc=21: L2 error {err:.4e}")
+    if not err < 1e-4:
+        raise AssertionError(f"19b: FDM L2 error {err}")
+    done(t0)
+    return out, l2_job
+
+
+def check_l2(job):
+    """Join phase 19a's L2 thread: L2 < 1e-4."""
+    future, started = job
+    err = future.result()
+    print(f"    19a (joined): L2 error vs u_exact_mixed {err:.4e} (the host "
+          f"thread started {time.perf_counter() - started:.1f} s ago)")
+    if not err < 1e-4:
+        raise AssertionError(f"19a: L2 error {err}")
+
+
+def box_family_fused(launches):
+    """Phase 19c: at nc=21, 19a's problem on the fused hierarchy
+    (``fuse_smoother=True, fuse_transfers=True``: #4/#7/#10/#11) at the
+    unfused one's smoother bounds: one V-cycle on a seeded random rhs and
+    iterate within `SCHWARZ_VCYCLE_RTOL`; FCG(V) within one of the
+    unfused count."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops import transfer as tt
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    cfg = dict(degrees=(1, 3, 6), kappa=2.0, dtype=torch.float32,
+               coarse="fdm", operator="kron_blocked", device="cuda")
+    prob = mixed_problem(mixed_mesh(21), **cfg)
+    ref = prob.hierarchy
+    reset(kb, tt)
+    fused = PMGHierarchy(prob.mesh, fuse_smoother=True, fuse_transfers=True,
+                         **cfg)
+    fused.load_state({"levels": [{"lmax": lv["lmax"]}
+                                 for lv in ref.data["levels"]]})
+    err = vcycle_pair_parity(fused, ref, SEED + 19)
+    _, n_f = fused.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    path = {**kb.LAUNCHES, **tt.LAUNCHES}
+    _, n_u = ref.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    print(f"    fused vs unfused, one V-cycle (seeded rhs and iterate, the "
+          f"same lmax): rel max err {err:.3e} (gate "
+          f"{SCHWARZ_VCYCLE_RTOL:g}); FCG(V) {n_f} vs {n_u}; launches {path}")
+    if not err <= SCHWARZ_VCYCLE_RTOL:
+        raise AssertionError(f"19c: fused and unfused V-cycles differ {err}")
+    if abs(n_f - n_u) > 1:
+        raise AssertionError(f"19c: FCG counts {n_f} vs {n_u}")
+    add_launches(launches, path, ("t1", "t23_cheb", "transfer_x",
+                                  "transfer_yz"))
+
+
+def general_family(mesh, launches, vc_curved):
+    """Phase 20 (lattice_blocked, K-A / K-B). 20a on ``mesh`` (phase 4's
+    uniform box at 16.2M): ``--kappa-field aniso`` (`kappa_aniso`, 100:1
+    rotated 30 degrees, folded into G), ``coarse="cg"``, FCG(V) to 1e-6
+    within 100, ms per V-cycle beside phase 7's curved cycle
+    (``vc_curved``), K-A launches; its L2 < 1e-4 at nc=21. 20b at nc=21:
+    `kappa_linear` with ``coarse="hmg"`` and `sigma_linear` with
+    ``coarse="cg"``: FCG(V) within one of the plain ``lattice``
+    hierarchy's, L2 < 1e-4 (`kappa_linear`: within 1% of the plain
+    solve's, the DG-0 coefficient's own h^2 error), one V-cycle within
+    `SCHWARZ_VCYCLE_RTOL` of the plain hierarchy's at its smoother
+    bounds. 20c: K-B (``variant="geom"``) with `kappa_linear` on
+    ``mesh`` through its operator class, within `KERNEL_RTOL` of its plain
+    version. Returns {tag: (FCG, ms per V-cycle)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models import poisson as pm
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    cfg = dict(degrees=(1, 3, 6), dtype=torch.float32,
+               operator="lattice_blocked", device="cuda")
+    out = {}
+    t0 = phase("20a. general family: --kappa-field aniso (100:1 rotated 30 "
+               "degrees), 16.2M dofs, lattice_blocked + cg")
+    K = pm.kappa_aniso()
+    f = pm.f_rhs_tensor(K)
+    reset(lb)
+    ts = time.perf_counter()
+    prob = pm.PoissonProblem(mesh=mesh, kappa=K, f=f, coarse="cg", **cfg)
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f}; peak host RSS "
+          f"{peak_rss_gb():.1f} GB")
+    u, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6, maxiter=100)
+    torch.cuda.synchronize()
+    path = dict(lb.LAUNCHES)
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter}; launches {path}")
+    if not niter < 100 or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"20a: FCG {niter}")
+    add_launches(launches, path, ("lattice_apply",))
+    vc, vc_all = vcycle_ms(prob.hierarchy)
+    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+          f"{[round(t, 3) for t in vc_all]}); phase 7's curved cycle "
+          f"{vc_curved:.3f} ms")
+    out["20a"] = (niter, vc)
+    del prob, u
+    reset(lb)
+    p21 = pm.PoissonProblem(mesh=BoxMesh((21, 21, 21)), kappa=K, f=f,
+                            coarse="cg", **cfg)
+    u, n21 = p21.hierarchy.solve_pcg(p21.b, rtol=1e-6, maxiter=100)
+    add_launches(launches, dict(lb.LAUNCHES), ("lattice_apply",))
+    err = p21.error_l2(u)
+    print(f"    at nc=21: FCG(V) {n21}, L2 error {err:.4e}")
+    if not err < 1e-4:
+        raise AssertionError(f"20a: L2 error at nc=21 {err}")
+    del p21, u
+    done(t0)
+
+    t0 = phase("20b. general family at nc=21: kappa_linear + hmg, "
+               "sigma_linear + cg; lattice_blocked vs plain lattice")
+    m21 = BoxMesh((21, 21, 21))
+    for tag, kw in (
+            ("kappa_linear + hmg", dict(kappa=pm.kappa_linear,
+                                        f=pm.f_rhs_variable(), coarse="hmg")),
+            ("sigma_linear + cg", dict(kappa=2.0, sigma=pm.sigma_linear,
+                                       f=pm.f_rhs_sigma_field(2.0),
+                                       coarse="cg"))):
+        reset(lb)
+        prob = pm.PoissonProblem(mesh=m21, **kw, **cfg)
+        u, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+        torch.cuda.synchronize()
+        path = dict(lb.LAUNCHES)
+        err = prob.error_l2(u)
+        plain = PMGHierarchy(m21, **{k: v for k, v in kw.items()
+                                     if k != "f"},
+                             **dict(cfg, operator="lattice"))
+        u_p, n_p = plain.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+        err_p = prob.error_l2(u_p)
+        prob.hierarchy.load_state({"levels": [
+            {"lmax": lv["lmax"]} for lv in plain.data["levels"]]})
+        d = vcycle_pair_parity(prob.hierarchy, plain, SEED + 20)
+        # The DG-0 kappa (1 + x sampled at the centroids) converges as h^2
+        # whatever the degree: at nc=21 its L2 is the coefficient's, so it
+        # is held to the plain hierarchy's instead of 1e-4.
+        l2_gate = 1.01 * err_p if callable(kw["kappa"]) else 1e-4
+        print(f"    {tag}: FCG(V) {niter} (plain {n_p}), L2 {err:.4e} "
+              f"(plain {err_p:.4e}; gate {l2_gate:.4e}), V-cycle "
+              f"{vcycle_ms(prob.hierarchy)[0]:.3f} ms; one V-cycle vs the "
+              f"plain lattice hierarchy (its lmax): rel max err {d:.3e}; "
+              f"launches {path}")
+        if not (niter < 50 and abs(niter - n_p) <= 1 and err < l2_gate
+                and d <= SCHWARZ_VCYCLE_RTOL):
+            raise AssertionError(f"20b {tag}: FCG {niter} / {n_p}, L2 "
+                                 f"{err} / {err_p}, V-cycle diff {d}")
+        add_launches(launches, path, ("lattice_apply",))
+        out[f"20b {tag}"] = (niter, None)
+        del prob, plain, u, u_p
+    done(t0)
+
+    t0 = phase("20c. K-B (variant='geom') with kappa_linear at 253^3 (16.2M "
+               "dofs), p=6")
+    reset(lb)
+    op = lb.PallasLatticeBlocked(mesh, 6, kappa=pm.kappa_linear,
+                                 variant="geom", device="cuda")
+    x = torch.tensor(np.random.default_rng(SEED + 17).standard_normal(
+        op.ndofs, dtype=np.float32), device="cuda")
+    y = op(x)
+    ms = cuda_ms(lambda: op(x))
+    torch.cuda.synchronize()
+    path = dict(lb.LAUNCHES)
+    add_launches(launches, path, ("lattice_apply_geom",))
+    print(f"    PallasLatticeBlocked(kappa=kappa_linear, variant='geom'): "
+          f"{ms:.4f} ms per apply ({op.ndofs / ms / 1e6:.3f} GDOF/s); "
+          f"launches {path}; co[36] spans "
+          f"[{float(op.co[36].min()):.4f}, {float(op.co[36].max()):.4f}]")
+    check_rel("20c K-B vs plain", y, lb.plain_lattice_apply_geom(
+        x, op.mats, op.co, op.bc_marker, mesh.nc, 6))
+    done(t0)
+    return out
+
+
+def serving_family(launches):
+    """Phase 21: serving at 61^3, p=6, kappa (1, 1, 100), z graded (ratio
+    8), x Neumann: #18-#21 through the four packed classes within
+    `KERNEL_RTOL` of their plain versions; heat CN (dt 1e-4) at B=1 and
+    B=8 through `heat_packed_evolve`, each column after 20 steps within
+    1e-4 of `heat_fdm_evolve`'s in float64 (plain torch FDM steps; the
+    stiff z modes keep CN's f32 rounding undamped, so longer runs compare
+    noise), steps/s; leapfrog at B=1 and 8 (#18/#20) within 1e-4 of
+    `wave_leapfrog_evolve` over 100 steps."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, geometric_spacing
+    from pmg_dolfinx_tpu_torch.ops import kron_packed as kp
+    from pmg_dolfinx_tpu_torch.solvers import transient
+
+    P, kappa, dt = PACKED_P, ANISO_DIAG, 1e-4
+    mesh = BoxMesh(PACKED_NC, dirichlet_faces=((False, False), (True, True),
+                                               (True, True)),
+                   spacing=(None, None, geometric_spacing(PACKED_NC[2],
+                                                          GRADE_RATIO)))
+    n = mesh.num_dofs(P)
+    rng = np.random.default_rng(SEED + 21)
+    for kind, B in (("PackedKronBatch", 8), ("PackedFDMBatch", 8),
+                    ("PackedKronSingle", 1), ("PackedFDMSingle", 1)):
+        kw = dict(kappa=kappa, sigma=1.0 / dt)
+        if "Batch" in kind:
+            kw["B"] = B
+        op = getattr(kp, kind)(mesh, P, device="cuda", **kw)
+        U = torch.tensor(rng.standard_normal((B, n) if B > 1 else n,
+                                             dtype=np.float32), device="cuda")
+        call = op if "Kron" in kind else op.solve
+        got = call(U)
+        with plain_packed():
+            ref = call(U)
+        check_rel(f"{kind} (B={B}) kernel vs plain", got, ref)
+    c = mesh.dof_coords(P)
+    u0 = np.cos(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1]) * np.sin(
+        np.pi * c[:, 2])
+    steps, nref = 1000, 20
+    for B in (1, 8):
+        U0 = torch.tensor(np.stack([u0 * (1.0 + 0.1 * j) for j in range(B)]),
+                          dtype=torch.float32, device="cuda")
+        reset(kp)
+        ev = transient.heat_packed_evolve(mesh, P, kappa=kappa, dt=dt, B=B,
+                                          scheme="cn", device="cuda")
+        ev(U0, 20)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        UT = ev(U0, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        path = dict(kp.LAUNCHES)
+        ref = transient.heat_fdm_evolve(mesh, P, kappa=kappa, dt=dt,
+                                        scheme="cn", dtype=torch.float64,
+                                        device="cuda")
+        Uk = ev(U0, nref).double()
+        d = max(rel_max_err(Uk[j].reshape(-1),
+                            ref(U0[j].double(), nref).reshape(-1))
+                for j in range(B))
+        print(f"    heat CN B={B}: {steps} steps in {wall:.3f} s = "
+              f"{steps / wall:.1f} steps/s ({steps * B / wall:.1f} "
+              f"column-steps/s); launches {path}; {nref} steps against "
+              f"heat_fdm_evolve (f64): rel max diff {d:.3e} (gate 1e-4)")
+        if not bool(torch.isfinite(UT).all()) or not d <= 1e-4:
+            raise AssertionError(f"21 B={B}: finite "
+                                 f"{bool(torch.isfinite(UT).all())}, "
+                                 f"diff {d}")
+        add_launches(launches, path, ("packed_fdm",))
+    # The apply kernels (#18/#20) on this path: leapfrog at 0.72 x
+    # wave_stable_dt, held to `wave_leapfrog_evolve` (plain torch).
+    dtw = 0.72 * transient.wave_stable_dt(mesh, P, kappa=kappa)
+    for B in (1, 8):
+        U0 = torch.tensor(np.stack([u0 * (1.0 - 0.05 * j) for j in range(B)]),
+                          dtype=torch.float32, device="cuda")
+        reset(kp)
+        ev = transient.wave_packed_evolve(mesh, P, kappa=kappa, dt=dtw, B=B,
+                                          scheme="leapfrog", device="cuda")
+        ts = time.perf_counter()
+        UT, _ = ev(U0, torch.zeros_like(U0), 100)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        path = dict(kp.LAUNCHES)
+        ref = transient.wave_leapfrog_evolve(mesh, P, kappa=kappa, dt=dtw,
+                                             dtype=torch.float32,
+                                             device="cuda")
+        d = max(rel_max_err(UT[j].reshape(-1), ref(
+            U0[j], torch.zeros_like(U0[j]), 100)[0].reshape(-1))
+            for j in range(B))
+        print(f"    leapfrog B={B} (dt {dtw:.4e}): 100 steps, "
+              f"{100 / wall:.1f} steps/s; launches {path}; against "
+              f"wave_leapfrog_evolve: rel max diff {d:.3e} (gate 1e-4)")
+        if not d <= 1e-4:
+            raise AssertionError(f"21 leapfrog B={B}: diff {d}")
+        add_launches(launches, path, ("packed_apply",))
+
+
 def main():
     import argparse
 
@@ -3207,6 +3737,11 @@ def main():
     launches["t23_grid"] = grid_entry_point()
     done(t0)
 
+    t0 = phase("3f. kernels #1-#3, #4/#7 and #12 on graded, Robin-ended "
+               "factors with per-axis kappa (253^3 and 127^3)")
+    coeff_operand_parity()
+    done(t0)
+
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
     from pmg_dolfinx_tpu_torch.models.poisson import PoissonProblem
     from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
@@ -3324,7 +3859,14 @@ def main():
                "rhs): GridPMG (2,2,2), 16.2M dofs, kron_blocked + fdm, "
                "smoother=schwarz")
     grid_schwarz(prob, hier_sw, cfg, launches)
+    box42 = prob.mesh   # its host geometry serves phases 19b and 20
     del prob, u, hier_sw
+    done(t0)
+
+    family, l2_19a = box_family(box42, launches)
+    t0 = phase("19c. box family at nc=21: --grade z:8 --neumann x --robin y, "
+               "fuse_smoother + fuse_transfers vs unfused")
+    box_family_fused(launches)
     done(t0)
 
     t0 = phase("5. in-card reference: nc=21, kron (plain) vs kron_blocked, "
@@ -3386,6 +3928,7 @@ def main():
         raise AssertionError(f"fused and unfused trajectories differ: {traj}")
     del prob, h
     done(t0)
+    check_l2(l2_19a)
 
     from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
 
@@ -3531,6 +4074,9 @@ def main():
     done(t0)
     del curved
 
+    family.update(general_family(box42, launches, curved_ref[1]))
+    del box42
+
     t0 = phase("9. curved in-card reference: nc=21, lattice (plain) vs "
                "lattice_blocked")
     res = {}
@@ -3584,6 +4130,11 @@ def main():
     print(f"    kernel launches on the serving path: "
           f"packed_apply {launches['packed_apply']}, packed_fdm "
           f"{launches['packed_fdm']}")
+    done(t0)
+
+    t0 = phase("21. serving at 61^3, p=6: kappa (1,1,100), z graded, x "
+               "Neumann; heat CN and leapfrog at B=1 and 8")
+    serving_family(launches)
     done(t0)
 
     t0 = phase("12. heat_cn_2M recipe: heat_fdm_evolve, 2.05M dofs, p=3")
@@ -3658,6 +4209,9 @@ def main():
               f"{bound / ms:.0%} of the bound's rate"
               + ("" if dev is None else
                  f"; device {dev:.4f} ms, {bound / dev:.0%}"))
+    print("    coefficient family (FCG(V), ms per V-cycle): " + "; ".join(
+        f"{k} {n}, " + ("-" if ms is None else f"{ms:.3f}")
+        for k, (n, ms) in family.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,8 @@ def base_parser(doc):
                         "kron_packed kernels (f32, NZ <= 64; B=1 uses the "
                         "single-RHS classes)")
     p.add_argument("--grade", type=str, default="",
-                   help="graded spacing (not ported)")
+                   help="graded spacing 'AXES:RATIO' (e.g. 'z:8'); the "
+                        "FDM step solve stays exact on graded meshes")
     p.add_argument("--shards", type=str, default="",
                    help="distributed time loop (not ported)")
     p.add_argument("--device", default="cuda",
@@ -36,9 +37,6 @@ def base_parser(doc):
 
 def refuse_unported(args):
     """The JAX driver's flags whose layers the port does not have yet."""
-    if args.grade:
-        raise SystemExit("--grade: graded spacing is not ported yet "
-                         "(ROADMAP.md Queue 1 item 7c)")
     if args.shards:
         raise SystemExit("--shards: the distributed steppers "
                          "(transient_dist) are not ported yet (ROADMAP.md "
@@ -49,7 +47,8 @@ def refuse_unported(args):
 
 
 def setup(args):
-    """``(torch, device, dtype, mesh)`` for the fitted unit cube."""
+    """``(torch, device, dtype, mesh)`` for the fitted unit cube (graded
+    with ``--grade``)."""
     import torch
 
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, PerturbedBoxMesh
@@ -61,7 +60,18 @@ def setup(args):
         raise SystemExit("--device cuda: torch.cuda.is_available() is False")
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
     nc = fit_box_cells(args.ndofs, args.degree)
-    mesh = PerturbedBoxMesh(nc) if args.mesh == "perturbed" else BoxMesh(nc)
+    spacing = None
+    if args.grade:
+        from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
+
+        axes_s, ratio_s = args.grade.split(":")
+        spacing = tuple(
+            geometric_spacing(nc[a], float(ratio_s))
+            if "xyz"[a] in axes_s else None
+            for a in range(3)
+        )
+    kind = PerturbedBoxMesh if args.mesh == "perturbed" else BoxMesh
+    mesh = kind(nc, spacing=spacing)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device {name}")

@@ -15,6 +15,7 @@ p=1 Poisson problem with a Gaussian source). The preconditioners:
 
     python examples/amg_torch.py --ndofs 2000000 --pc hmg
     python examples/amg_torch.py --ndofs 2000000 --pc hmg --mesh perturbed
+    python examples/amg_torch.py --ndofs 2000000 --pc hmg --kappa-field linear
 
 Every operator here is plain torch (the p=1 lattice apply and the h-levels'
 einsums), as the JAX package runs XLA there. ``--device cpu`` runs on the
@@ -48,14 +49,12 @@ def main(argv=None, mesh=None):
                         "rediscretised curved h-levels)")
     p.add_argument("--kappa-field", choices=["const", "linear"],
                    default="const",
-                   help="'linear' (a variable DG-0 coefficient) is not "
-                        "ported yet")
+                   help="'linear': the variable DG-0 coefficient "
+                        "kappa(x) = 1 + x (models.poisson.kappa_linear; "
+                        "with --pc hmg the rediscretised lattice h-levels)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default 'cuda')")
     args = p.parse_args(argv)
-    if args.kappa_field != "const":
-        raise SystemExit("--kappa-field linear: variable kappa is not ported "
-                         "yet (ROADMAP.md Queue 1 item 7c)")
 
     import torch
 
@@ -81,6 +80,11 @@ def main(argv=None, mesh=None):
         raise ValueError(f"mesh {mesh} is not the fitted {kind.__name__} on "
                          f"{nc} cells")
     kappa = args.kappa
+    if args.kappa_field == "linear":
+        from pmg_dolfinx_tpu_torch.models.poisson import kappa_linear
+
+        kappa = kappa_linear
+    general = args.mesh == "perturbed" or args.kappa_field != "const"
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"mesh {nc} ({args.mesh}), p=1, ndofs={mesh.num_dofs(1)}, "
@@ -112,8 +116,9 @@ def main(argv=None, mesh=None):
     if args.pc == "hmg":
         from pmg_dolfinx_tpu_torch.solvers.pmg import v_cycle
 
-        if args.mesh == "perturbed":
-            # the curved operator rediscretised on every h-level
+        if general:
+            # the curved operator or the DG-0 kappa rediscretised on
+            # every h-level
             from pmg_dolfinx_tpu_torch.solvers.hmg import build_hmg_general
 
             levels, data, bottom, hops = build_hmg_general(

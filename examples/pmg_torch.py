@@ -31,6 +31,20 @@ sizes), ``--coarse hmg`` nested geometric h-multigrid cycles, with
 ``--hmg-smoother`` for the h-levels and ``--semicoarsen AXES|auto`` to
 coarsen the strongly-coupled axes first.
 
+The model family: ``--kappa-field linear`` (the DG-0 kappa ``1 + x``,
+switches a Kronecker operator to ``lattice``), ``aniso`` (a 100:1 tensor
+rotated 30 degrees, folded into the geometry factors: ``lattice_blocked``
+in f32) or ``aniso-diag`` (``diag(1, 1, 100)``, per-axis: the Kronecker
+family and ``--fdm`` stay); ``--sigma S`` (a lumped-mass shift) or
+``--sigma-field`` (``10 (1 + x + y)``, general backends); ``--grade
+AXES:RATIO`` (geometric grading); ``--neumann AXES`` / ``--robin AXES``
+(homogeneous Neumann or Robin ``alpha = 2`` on both faces of the axes,
+with the matching manufactured solution), as in the JAX driver:
+
+    python examples/pmg_torch.py --ndofs 16000000 --degrees 1 3 6 \\
+        --coarse fdm --operator kron_blocked --pcg \\
+        --grade z:8 --neumann x --robin y
+
 ``--operator kron_blocked`` and ``lattice_blocked`` run the hand-written
 CUDA kernels (`pmg_dolfinx_tpu_torch/csrc/`, float32); ``kron``,
 ``lattice`` and ``dofmap`` are plain torch. ``--mesh perturbed`` builds
@@ -80,6 +94,101 @@ def profile_vcycles(hier, b, n):
           f": wall {wall:.3f} ms, device busy {busy:.3f} ms per V-cycle "
           f"({len(kernels) / n:.0f} kernels; idle "
           f"{max(0.0, 1 - busy / wall):.1%})")
+
+
+def model_family(args, nc):
+    """The JAX driver's model-family flags, resolved as it resolves them:
+    ``(kappa, f, sigma, u_exact, robin_g, robin, faces, spacing)``, with
+    the operator switched to a general backend where a coefficient needs
+    one (``args.operator`` is updated)."""
+    import numpy as np
+
+    from pmg_dolfinx_tpu_torch.models import poisson as pm
+
+    kappa, f, sigma = args.kappa, None, args.sigma
+    if args.sigma_field:
+        if (args.sigma or args.kappa_field != "const" or args.neumann
+                or args.robin or args.fdm):
+            raise SystemExit("--sigma-field: use alone (constant kappa, "
+                             "no --sigma/--neumann/--robin/--fdm — the "
+                             "manufactured source is built for that "
+                             "combination, and the FDM shift must be "
+                             "separable)")
+        sigma = pm.sigma_linear
+        f = pm.f_rhs_sigma_field(args.kappa)
+        if args.operator in ("kron", "kron_blocked"):
+            args.operator = "lattice"
+            print("sigma field: switching operator backend to 'lattice'")
+    if args.kappa_field == "linear":
+        kappa, f = pm.kappa_linear, pm.f_rhs_variable(sigma=args.sigma)
+        if args.operator in ("kron", "kron_blocked"):
+            args.operator = "lattice"
+            print("variable kappa: switching operator backend to 'lattice'")
+    elif args.kappa_field == "aniso":
+        kappa = pm.kappa_aniso()
+        f = pm.f_rhs_tensor(kappa, sigma=args.sigma)
+        if args.operator in ("kron", "kron_blocked"):
+            args.operator = ("lattice_blocked" if args.dtype == "f32"
+                             else "lattice")
+            print("tensor kappa: switching operator backend to "
+                  f"'{args.operator}'")
+    elif args.kappa_field == "aniso-diag":
+        # per-axis: the Kronecker family and the FDM solve stay
+        kappa = np.diag([1.0, 1.0, 100.0])
+        f = pm.f_rhs_tensor(kappa, sigma=args.sigma)
+    u_exact = robin_g = robin = None
+    faces = True
+    if args.neumann or args.robin:
+        if args.kappa_field != "const":
+            raise SystemExit("--neumann/--robin support --kappa-field "
+                             "const only (the manufactured mixed-BC "
+                             "solution is constant-kappa)")
+        if set(args.neumann) & set(args.robin):
+            raise SystemExit("--neumann and --robin must name disjoint "
+                             "axes")
+        faces = tuple(
+            ((False, False)
+             if "xyz"[a] in args.neumann or "xyz"[a] in args.robin
+             else (True, True))
+            for a in range(3)
+        )
+        f = pm.f_rhs_mixed(args.kappa, faces, sigma=args.sigma)
+        u_exact = pm.u_exact_mixed(faces)
+        if args.robin:
+            if args.mesh == "perturbed":
+                raise SystemExit("--robin manufactures the surface data "
+                                 "g on flat faces (axis-aligned box "
+                                 "only)")
+            robin = tuple(
+                (2.0, 2.0) if "xyz"[a] in args.robin else (0.0, 0.0)
+                for a in range(3)
+            )
+            robin_g = pm.robin_data(args.kappa, u_exact,
+                                    pm.grad_u_exact_mixed(faces), robin)
+            print(f"Robin faces (alpha=2) on axes '{args.robin}'"
+                  + (f", Neumann on '{args.neumann}'" if args.neumann
+                     else "") + f": dirichlet_faces={faces}")
+        else:
+            print(f"Neumann faces on axes '{args.neumann}': "
+                  f"dirichlet_faces={faces}")
+    spacing = None
+    if args.grade:
+        from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
+
+        try:
+            axes_s, ratio_s = args.grade.split(":")
+            ratio = float(ratio_s)
+            grade_axes = tuple(sorted("xyz".index(a) for a in axes_s))
+        except (ValueError, IndexError):
+            raise SystemExit("--grade expects 'AXES:RATIO', e.g. 'z:8' "
+                             "or 'xyz:4'")
+        spacing = tuple(
+            geometric_spacing(nc[a], ratio) if a in grade_axes else None
+            for a in range(3)
+        )
+        print(f"graded spacing on axes '{axes_s}' (geometric, ratio "
+              f"{ratio:g})")
+    return kappa, f, sigma, u_exact, robin_g, robin, faces, spacing
 
 
 def main(argv=None):
@@ -139,6 +248,32 @@ def main(argv=None):
                         "excludes the kernel build and first launches")
     p.add_argument("--device", default="cuda",
                    help="torch device (default 'cuda')")
+    p.add_argument("--kappa-field",
+                   choices=["const", "linear", "aniso", "aniso-diag"],
+                   default="const",
+                   help="'linear': kappa(x) = 1 + x (DG-0; a general "
+                        "backend); 'aniso': a 100:1 tensor rotated 30 "
+                        "degrees off the grid (folded into the geometry "
+                        "factors); 'aniso-diag': diag(1, 1, 100), per-axis "
+                        "(the Kronecker family and --fdm apply)")
+    p.add_argument("--sigma", type=float, default=0.0,
+                   help="lumped-mass shift: -div(kappa grad u) + sigma u "
+                        "= f")
+    p.add_argument("--sigma-field", action="store_true",
+                   help="reaction field sigma(x) = 10 (1 + x + y) "
+                        "(models.poisson.sigma_linear; general backends)")
+    p.add_argument("--grade", type=str, default="",
+                   help="graded spacing 'AXES:RATIO', e.g. 'z:8' or "
+                        "'xyz:4' (geometric, largest cell RATIO times the "
+                        "smallest); the whole Kronecker family and --fdm "
+                        "carry it")
+    p.add_argument("--neumann", type=str, default="",
+                   help="axes whose both faces carry the homogeneous "
+                        "Neumann condition instead of Dirichlet, e.g. 'x'")
+    p.add_argument("--robin", type=str, default="",
+                   help="axes whose both faces carry the Robin condition "
+                        "kappa du/dn + alpha u = g (alpha = 2), e.g. 'y' "
+                        "(axis-aligned box, constant kappa)")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="after the solve, trace N V-cycles with "
                         "torch.profiler and print the device time by "
@@ -147,7 +282,7 @@ def main(argv=None):
 
     import torch
 
-    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, PerturbedBoxMesh
     from pmg_dolfinx_tpu_torch.models.poisson import (
         PoissonProblem,
         fit_box_cells,
@@ -161,9 +296,11 @@ def main(argv=None):
     nc = fit_box_cells(args.ndofs, max(args.degrees))
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    kappa, f, sigma, u_exact, robin_g, robin, faces, spacing = (
+        model_family(args, nc))
     mesh = None
     if args.mesh == "perturbed":
-        mesh = PerturbedBoxMesh(nc)
+        mesh = PerturbedBoxMesh(nc, dirichlet_faces=faces, spacing=spacing)
         if args.operator in ("kron", "kron_blocked"):
             args.operator = ("lattice_blocked" if args.dtype == "f32"
                              else "lattice")
@@ -174,6 +311,9 @@ def main(argv=None):
             print("perturbed mesh: switching coarse solver to 'hmg' "
                   "(fdm is axis-aligned only; hmg rediscretizes the "
                   "curved operator per h-level)")
+    elif faces is not True or spacing is not None:
+        mesh = BoxMesh(nc, dirichlet_faces=faces, robin=robin,
+                       spacing=spacing)
     print(f"mesh {args.mesh} {nc[0]}x{nc[1]}x{nc[2]}, degrees "
           f"{args.degrees}, operator {args.operator}, device {name}, "
           f"dtype {args.dtype}")
@@ -187,7 +327,6 @@ def main(argv=None):
                 raise SystemExit("--hmg-smoother requires --coarse hmg")
             coarse_cfg["smoother"] = args.hmg_smoother
         if args.semicoarsen:
-            from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
             from pmg_dolfinx_tpu_torch.solvers.hmg import (
                 semicoarsen_axes,
                 semicoarsen_sizes,
@@ -196,7 +335,7 @@ def main(argv=None):
             if args.coarse != "hmg":
                 raise SystemExit("--semicoarsen requires --coarse hmg")
             if args.semicoarsen == "auto":
-                axes = semicoarsen_axes(mesh or BoxMesh(nc), args.kappa)
+                axes = semicoarsen_axes(mesh or BoxMesh(nc), kappa)
                 print(f"semi-coarsening axes (auto): "
                       f"{''.join('xyz'[a] for a in axes) or '(none)'}")
             else:
@@ -205,10 +344,11 @@ def main(argv=None):
             coarse_cfg["sizes"] = semicoarsen_sizes(nc, axes)
             print(f"semi-coarsened h-levels: {coarse_cfg['sizes']}")
         prob = PoissonProblem(
-            nc=nc, degrees=tuple(args.degrees), kappa=args.kappa,
-            dtype=dtype, coarse=args.coarse, operator=args.operator,
-            mesh=mesh, device=device, coarse_cfg=coarse_cfg or None,
+            nc=nc, degrees=tuple(args.degrees), kappa=kappa,
+            dtype=dtype, coarse=args.coarse, operator=args.operator, f=f,
+            mesh=mesh, sigma=sigma, coarse_cfg=coarse_cfg or None,
             smoother_iters=args.smoother_iters, smoother=args.smoother,
+            u_exact=u_exact, robin_g=robin_g, device=device,
         )
     ndofs = [prob.mesh.num_dofs(P) for P in args.degrees]
     print("hierarchy:", " -> ".join(f"p={P}: {n}"
@@ -221,13 +361,18 @@ def main(argv=None):
         if args.fmg:
             raise SystemExit("--fmg is an initial guess for the iterative "
                              "solvers; --fdm is a direct solve: drop one")
+        if args.kappa_field not in ("const", "aniso-diag"):
+            raise SystemExit("--fdm is a constant-coefficient (or diagonal-"
+                             "tensor) direct solve; use --pcg for variable "
+                             "kappa")
         from pmg_dolfinx_tpu_torch.solvers.fdm import (
             FastDiagonalizationSolver,
         )
 
-        fdm = FastDiagonalizationSolver(prob.mesh, args.degrees[-1],
-                                        kappa=args.kappa, dtype=dtype,
-                                        device=device)
+        fdm = FastDiagonalizationSolver(
+            prob.mesh, args.degrees[-1],
+            kappa=kappa if args.kappa_field == "aniso-diag" else args.kappa,
+            dtype=dtype, sigma=args.sigma, device=device)
         with Timer("fdm solve", sync=True):
             if args.refined:
                 u, rnorms = fdm.refine(prob.b, cycles=min(args.cycles, 4))

@@ -7,4 +7,4 @@ from .gll import (
     gauss_lobatto,
     lagrange_tabulate,
 )
-from .mesh import BoxMesh, PerturbedBoxMesh
+from .mesh import BoxMesh, PerturbedBoxMesh, geometric_spacing

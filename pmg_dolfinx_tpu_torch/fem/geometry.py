@@ -46,7 +46,9 @@ def geometry_factors(xgeom, geometry_dofmap, dphi_geom, weights, xp=np,
                      kappa=None):
     """Compute ``G[(ncells, nq, 6)]`` and ``detJ[(ncells, nq)]`` in numpy
     float64. ``kappa`` (optional) is an ``(ncells,)`` DG-0 scalar field
-    that post-multiplies the 6 entries. ``xp`` keeps the JAX package's
+    that post-multiplies the 6 entries, or an ``(ncells, 3, 3)`` symmetric
+    tensor folded in as ``G = w/detJ K kappa K^T`` (full anisotropic
+    diffusion; the 6-entry layout is unchanged). ``xp`` keeps the JAX package's
     fifth parameter, its array module: here always numpy (the port's
     geometry is host setup), anything else raises ValueError."""
     if xp is not np:
@@ -61,7 +63,11 @@ def geometry_factors(xgeom, geometry_dofmap, dphi_geom, weights, xp=np,
         + J[..., 1, 0] * K[..., 0, 1]
         + J[..., 2, 0] * K[..., 0, 2]
     )
-    KKt = np.einsum("xqam,xqbm->xqab", K, K)
+    if kappa is not None and np.ndim(kappa) == 3:
+        KKt = np.einsum("xqam,xmn,xqbn->xqab", K, kappa, K)
+        kappa = None  # folded; no scalar post-multiply
+    else:
+        KKt = np.einsum("xqam,xqbm->xqab", K, K)
     scale = weights[None, :] / detJ
     G = np.stack(
         [

@@ -1,10 +1,10 @@
 """Structured hexahedral box meshes with tensor-product dofmaps.
 
 Port of `pmg_dolfinx_tpu.fem.mesh` (numpy, host-side): `BoxMesh` with
-per-face Dirichlet flags, `PerturbedBoxMesh` (general curved hexes from
-smoothly displaced vertices, `default_warp`) and `require_axis_aligned`.
-Graded spacing and Robin faces are not ported yet (ROADMAP.md, Queue 1
-item 7).
+per-face Dirichlet flags, Robin faces (``robin``, per-face ``alpha``) and
+graded spacing (``spacing``, `geometric_spacing`), `PerturbedBoxMesh`
+(general curved hexes from smoothly displaced vertices, `default_warp`)
+and `require_axis_aligned`.
 
 Conventions (identical to the JAX package, so arrays compare bit for bit):
 - cells:  ``cell = (cx * ny + cy) * nz + cz`` (x slowest, z fastest),
@@ -22,6 +22,77 @@ import numpy as np
 from .gll import gauss_lobatto
 
 
+def _norm_robin_alpha(robin, dirichlet_faces):
+    """Normalize the Robin spec to a read-only 3x2 float64 array of
+    per-face coefficients ``alpha`` (0 = no Robin term on that face)."""
+    if robin is None:
+        out = np.zeros((3, 2))
+    else:
+        # a copy: setflags below must not freeze a caller's array
+        out = np.array(robin, dtype=np.float64)
+        if out.shape != (3, 2):
+            raise ValueError(
+                "robin must be a 3x2 nested sequence of per-face alpha "
+                "coefficients ((x0,x1),(y0,y1),(z0,z1)); 0 disables a face"
+            )
+        if np.any(out < 0.0):
+            raise ValueError("robin alpha coefficients must be >= 0")
+        for a in range(3):
+            for s in range(2):
+                if out[a, s] > 0.0 and dirichlet_faces[a][s]:
+                    raise ValueError(
+                        f"face (axis={a}, side={s}) is flagged Dirichlet "
+                        "AND Robin; a Robin face must be non-Dirichlet "
+                        "(drop it from dirichlet_faces)"
+                    )
+    out.setflags(write=False)
+    return out
+
+
+def _norm_spacing(spacing, nc, extent):
+    """Normalize the per-axis grading spec to absolute cell sizes.
+
+    ``spacing`` is a 3-tuple; each entry is None (uniform axis) or a
+    length-``nc[a]`` sequence of positive relative cell widths, scaled so
+    the axis fills ``extent[a]``. Returns ``(h_cells, uniform)``: read-only
+    float64 ``(nc_a,)`` arrays of absolute cell sizes, and the per-axis
+    is-uniform flags (a constant spacing array counts as uniform)."""
+    if spacing is None:
+        spacing = (None, None, None)
+    if len(spacing) != 3:
+        raise ValueError("spacing must be a 3-tuple of per-axis entries "
+                         "(None = uniform axis)")
+    h_cells, uniform = [], []
+    for a, (s, n, e) in enumerate(zip(spacing, nc, extent)):
+        if s is None:
+            h = np.full(n, e / n)
+            uniform.append(True)
+        else:
+            s = np.asarray(s, dtype=np.float64)
+            if s.shape != (n,):
+                raise ValueError(
+                    f"spacing[{a}] must have one width per cell "
+                    f"(shape ({n},), got {s.shape})")
+            if np.any(s <= 0.0):
+                raise ValueError(f"spacing[{a}] widths must be positive")
+            h = s * (e / s.sum())
+            uniform.append(bool(np.allclose(h, h[0], rtol=1e-12)))
+        h.setflags(write=False)
+        h_cells.append(h)
+    return tuple(h_cells), tuple(uniform)
+
+
+def geometric_spacing(n, ratio):
+    """Cell widths in geometric progression, smallest first: the last cell
+    is ``ratio`` times the first (boundary-layer grading; pass, possibly
+    reversed, as a `BoxMesh` ``spacing`` entry)."""
+    if n < 1:
+        raise ValueError("need at least one cell")
+    if ratio <= 0:
+        raise ValueError("ratio must be positive")
+    return np.geomspace(1.0, float(ratio), n)
+
+
 def _norm_dirichlet_faces(faces):
     """Normalize to a 3x2 nested bool tuple ((x0,x1),(y0,y1),(z0,z1))."""
     if faces is True or faces is None:
@@ -36,7 +107,7 @@ def _norm_dirichlet_faces(faces):
 
 
 class BoxMesh:
-    """Structured box mesh of ``nx x ny x nz`` uniform hexahedral cells.
+    """Structured box mesh of ``nx x ny x nz`` hexahedral cells.
 
     Parameters
     ----------
@@ -48,27 +119,45 @@ class BoxMesh:
         Per-axis (low-face, high-face) Dirichlet flags; unflagged faces
         carry the homogeneous Neumann condition. Default: all six faces
         Dirichlet.
+    robin : 3x2 nested floats, optional
+        Per-face Robin coefficients ``alpha`` of ``kappa du/dn + alpha u =
+        g`` (0 = none; a Robin face must not be Dirichlet).
+    spacing : 3-tuple, optional
+        Per-axis None (uniform) or relative cell widths (graded).
     """
 
-    def __init__(self, nc, extent=(1.0, 1.0, 1.0), dirichlet_faces=True):
+    def __init__(self, nc, extent=(1.0, 1.0, 1.0), dirichlet_faces=True,
+                 robin=None, spacing=None):
         self.nc = tuple(int(v) for v in nc)
         self.extent = tuple(float(v) for v in extent)
         if any(v < 1 for v in self.nc):
             raise ValueError("need at least one cell per direction")
         self.ncells = self.nc[0] * self.nc[1] * self.nc[2]
-        h_cells = []
-        for n, e in zip(self.nc, self.extent):
-            h = np.full(n, e / n)
-            h.setflags(write=False)
-            h_cells.append(h)
-        self.h_cells = tuple(h_cells)
+        self.h_cells, self._uniform = _norm_spacing(spacing, self.nc,
+                                                    self.extent)
         self.dirichlet_faces = _norm_dirichlet_faces(dirichlet_faces)
+        self.robin_alpha = _norm_robin_alpha(robin, self.dirichlet_faces)
+
+    @property
+    def h(self) -> tuple:
+        """Per-axis uniform cell size; raises ValueError on a graded mesh
+        (use ``h_cells``)."""
+        if not all(self._uniform):
+            raise ValueError(
+                "mesh is graded (non-uniform spacing); there is no "
+                "single per-axis h — use mesh.h_cells"
+            )
+        return tuple(float(hc[0]) for hc in self.h_cells)
 
     @property
     def is_graded(self) -> bool:
-        """True when an axis carries non-uniform cell spacing: never, until
-        graded spacing is ported (ROADMAP.md Queue 1 item 7c)."""
-        return False
+        """True when any axis carries non-uniform cell spacing."""
+        return not all(self._uniform)
+
+    @property
+    def has_robin(self) -> bool:
+        """True when any face carries a Robin term (alpha > 0)."""
+        return bool(np.any(self.robin_alpha > 0.0))
 
     @lru_cache(maxsize=None)
     def axis_nodes(self, a: int) -> np.ndarray:
@@ -185,7 +274,8 @@ class BoxMesh:
     is_axis_aligned = True
 
     def __repr__(self):
-        return f"BoxMesh(nc={self.nc}, extent={self.extent})"
+        g = ", graded" if self.is_graded else ""
+        return f"BoxMesh(nc={self.nc}, extent={self.extent}{g})"
 
 
 def require_axis_aligned(mesh, what: str):
@@ -227,8 +317,9 @@ class PerturbedBoxMesh(BoxMesh):
     is_axis_aligned = False
 
     def __init__(self, nc, extent=(1.0, 1.0, 1.0), warp=None,
-                 dirichlet_faces=True):
-        super().__init__(nc, extent, dirichlet_faces=dirichlet_faces)
+                 dirichlet_faces=True, robin=None, spacing=None):
+        super().__init__(nc, extent, dirichlet_faces=dirichlet_faces,
+                         robin=robin, spacing=spacing)
         self._warp = warp if warp is not None else default_warp()
 
     @lru_cache(maxsize=1)

@@ -58,8 +58,9 @@ def stacked_local_K(Kl, k_a, robin_ends, n_shards):
     npl)`` (float64) for a sharded axis whose global ends carry Robin
     terms: the ``alpha`` updates land on the first shard's ``[0, 0]`` and
     the last shard's ``[-1, -1]``. The device-grid layer reaches it only
-    through `local_axis_K`, which raises for Robin ends (ROADMAP.md Queue 1
-    item 7c); kept for the JAX package's call shape."""
+    through `local_axis_K`, which raises for Robin ends (the grid's Robin
+    faces are ROADMAP.md Queue 1 item 10); kept for the JAX package's call
+    shape."""
     out = np.tile(k_a * np.asarray(Kl, np.float64), (int(n_shards), 1))
     out[0, 0] += float(robin_ends[0])
     out[-1, -1] += float(robin_ends[1])
@@ -73,11 +74,11 @@ def local_axis_K(mesh, a, nc_local, Pdeg, k_a, n_shards_a):
     spacing folded in); ``stacked=True``: the per-shard row-stacked ``(S *
     npl, npl)`` form of a sharded GRADED axis (each block assembled from
     its shard's cells). Robin ends raise NotImplementedError (ROADMAP.md
-    Queue 1 item 7c)."""
+    Queue 1 item 10)."""
     if robin_axis_ends(mesh, a) != (0.0, 0.0):
         raise NotImplementedError(
             "Robin faces on the device grid are not ported yet (ROADMAP.md "
-            "Queue 1 item 7c)")
+            "Queue 1 item 10)")
     h_cells = np.broadcast_to(np.asarray(mesh.h_cells[a], np.float64),
                               (mesh.nc[a],))
     graded = not bool(np.allclose(h_cells, h_cells[0], rtol=1e-12))
@@ -156,8 +157,10 @@ def kron_diagonal(Ks, ms, bc_marker, sigma=0.0):
 class KronLaplacian:
     """Operator bundle for axis-aligned `BoxMesh` on ``device``: ``op(x)``
     on flat or lattice-shaped vectors, ``diag``, ``diag_inv``. ``sigma``
-    adds the lumped-mass shift; ``kappa`` is a scalar; ``precision`` is
-    the JAX package's fifth parameter ('highest' only)."""
+    adds the lumped-mass shift; ``kappa`` is a scalar, a per-axis tuple or
+    a constant diagonal tensor (`resolve_kappa_axes`), graded spacing and
+    Robin ends ride the 1D factors; ``precision`` is the JAX package's
+    fifth parameter ('highest' only)."""
 
     def __init__(self, mesh, P, kappa=2.0, dtype=torch.float32,
                  precision="highest", sigma=0.0, *, device):

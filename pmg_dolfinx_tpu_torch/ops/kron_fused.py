@@ -209,8 +209,10 @@ class PallasKronLaplacian:
     """The whole-lattice fused Kronecker-sum apply as an operator
     (float32) on ``device``: ``op(x)`` returns the flat ``A x`` (as the JAX
     class does), with ``diag`` and ``diag_inv`` of
-    `ops.kron.KronLaplacian`. ``kappa`` is a scalar; ``interpret`` keeps
-    the JAX package's fourth parameter (``False`` only)."""
+    `ops.kron.KronLaplacian`, whose 1D factors it takes: ``kappa`` is a
+    scalar, a per-axis tuple or a constant diagonal tensor, graded
+    spacing and Robin ends ride the factors. ``interpret`` keeps the JAX
+    package's fourth parameter (``False`` only)."""
 
     def __init__(self, mesh, P, kappa=2.0, interpret=False, *, device):
         from .kron import KronLaplacian

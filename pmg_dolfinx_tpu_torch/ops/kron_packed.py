@@ -38,10 +38,12 @@ The factors are built as the JAX package builds them: from the float32
 `_fdm_embedded` for the FDM), so a converted JAX state
 (`utils.convert.packed_state_from_numpy`) and a mesh-built one agree.
 
-Not ported: ``precision="high"`` (bf16x3, raises NotImplementedError),
-the TPU knob ``interpret`` (it keeps its trailing slot in the four
-classes and takes ``False`` only), per-axis and tensor kappa and graded
-spacing (ROADMAP.md Queue 1 item 7c).
+Kappa is a scalar, a per-axis tuple or a constant diagonal tensor
+(`resolve_kappa_axes`); graded spacing, mixed Dirichlet/Neumann faces and
+Robin ends ride the per-axis factors, as in the JAX package. Not ported:
+``precision="high"`` (bf16x3, raises NotImplementedError) and the TPU
+knob ``interpret`` (it keeps its trailing slot in the four classes and
+takes ``False`` only).
 """
 
 import ctypes
@@ -596,7 +598,8 @@ class PackedKronBatch(_Kron):
     ``__call__`` takes and returns ``(B, ndofs)`` or ``(B, NX, NY, NZ)``;
     `pack` / `apply_packed` / `unpack` keep the batch in its working
     layout across a whole solve. Same operator contract per right-hand
-    side as `ops.kron.KronLaplacian` (scalar kappa, sigma, mixed faces).
+    side as `ops.kron.KronLaplacian` (per-axis kappa, sigma, mixed faces,
+    graded spacing).
     """
 
     def __init__(self, mesh, P, kappa=2.0, B=8, precision="highest",
@@ -611,7 +614,7 @@ class PackedKronBatch(_Kron):
 class PackedFDMBatch(_FDM):
     """Batched FDM direct solve for small lattices (float32): per
     right-hand side the solver contract of
-    `solvers.fdm.FastDiagonalizationSolver` (scalar kappa, sigma shift,
+    `solvers.fdm.FastDiagonalizationSolver` (per-axis kappa, sigma shift,
     mixed Dirichlet/Neumann faces); ``u[bc] = b[bc]``."""
 
     def __init__(self, mesh, P, kappa=2.0, B=8, sigma=0.0, interpret=False,

@@ -96,7 +96,8 @@ def laplacian_diagonal(dofmap, G, coeff, D, bc_marker, ndofs):
 class MatFreeLaplacian:
     """Operator bundle of the dofmap formulation on ``device``: dofmap, G,
     1D derivative table, bc marker, diagonal; ``op(x) -> y`` on flat
-    vectors. ``kappa`` is a scalar."""
+    vectors. ``kappa`` is any form `fem.assembly.resolve_kappa` takes (a
+    tensor folds into G)."""
 
     def __init__(self, mesh, P, kappa=1.0, dtype=torch.float64, *, device):
         self.P = int(P)

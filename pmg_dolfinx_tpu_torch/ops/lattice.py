@@ -201,7 +201,8 @@ class LatticeLaplacian:
 
     Same contract as `ops.laplacian.MatFreeLaplacian` (``op(x)``,
     ``diag``, ``diag_inv``); the diagonal comes from the exact dofmap
-    formulation. ``kappa`` is a scalar.
+    formulation. ``kappa`` is any form `fem.assembly.resolve_kappa`
+    takes (a tensor folds into G).
     """
 
     def __init__(self, mesh, P, kappa=2.0, dtype=torch.float32,

@@ -611,7 +611,8 @@ class PallasLatticeBlocked:
     streams the z-grouped ``Gz`` (K-A; ``zb`` from `select_zgroup` when
     not given; only ``Gz`` is kept, never G beside it); 'geom' uploads 37
     floats per cell and rebuilds G in the kernel (K-B). ``kappa`` is a
-    scalar. The parameters keep the JAX package's order; its TPU knobs
+    scalar, a DG-0 per-cell field (K-B reads it at ``co[36]``) or a
+    callable; a tensor folds into G (not with 'geom'). The parameters keep the JAX package's order; its TPU knobs
     ``bcells`` and ``interpret`` take their defaults only."""
 
     def __init__(self, mesh, P, kappa=2.0, bcells=1, interpret=False,
@@ -648,6 +649,12 @@ class PallasLatticeBlocked:
         f32 = lambda a: torch.tensor(a, dtype=torch.float32,
                                      device=self.device)
         kappa_cells, kt, _ = resolve_kappa_split(mesh, kappa)
+        if kt is not None and variant == "geom":
+            raise ValueError(
+                "variant='geom' rebuilds geometry from scalar-kappa "
+                "coefficients in-kernel; tensor kappa needs the "
+                "G-streaming variants ('yexp'/'v1'/'zgrp')"
+            )
         G_cells, _ = geometry_factors_np(mesh, self.P, kappa=kt)
         if variant == "geom":
             self.co = f32(lattice_geom_coefficients(mesh, self.P,

@@ -36,10 +36,11 @@ Coarse solves: ``cg``, ``smoother`` and the gathered ``fdm`` and
 
 Not ported here (ROADMAP.md Queue 1 item 10 unless named): the lattice,
 lattice_blocked and dofmap grid backends, the ``hmg`` coarse solver and
-``coarse_cfg["dist"]``, `build_hmg_grid(_general)`, sigma fields, tensor
-kappa and Robin faces (7c), ``solve_refined``, ``devices`` (the
-multi-process backend) and ``precision="high"`` (item 1). Each raises
-NotImplementedError naming its item.
+``coarse_cfg["dist"]``, `build_hmg_grid(_general)`, sigma fields,
+per-axis, tensor and per-cell kappa, Robin faces and graded spacing,
+``solve_refined``, ``devices`` (the multi-process backend) and
+``precision="high"`` (item 1). Each raises NotImplementedError naming
+its item.
 """
 
 import numpy as np
@@ -424,10 +425,12 @@ class GridPMG:
                     "— the Kronecker paths carry only a separable scalar "
                     "shift"
                 )
-            raise _todo("a sigma field", "7c")
+            raise _todo("a sigma field", 10)
         self.sigma = float(sigma)
         if getattr(mesh, "has_robin", False):
-            raise _todo("Robin faces", "7c")
+            raise _todo("Robin faces", 10)
+        if getattr(mesh, "is_graded", False):
+            raise _todo("graded spacing", 10)
         if (not any(any(f) for f in getattr(mesh, "dirichlet_faces",
                                             ((True, True),) * 3))
                 and self.sigma == 0.0):
@@ -481,9 +484,11 @@ class GridPMG:
         if precision != "highest":
             raise ValueError(
                 f"precision must be 'highest' or 'high', got {precision!r}")
-        kc, _, const = resolve_kappa_split(mesh, kappa)
+        kc, kt, const = resolve_kappa_split(mesh, kappa)
+        if kt is not None or not const:
+            raise _todo("a per-axis, tensor or per-cell kappa", 10)
         self.kappa_axes = resolve_kappa_axes(mesh, kappa,
-                                             split=(kc, None, const))
+                                             split=(kc, kt, const))
         self._kappa_cells = kc
         self.kappa = float(kc[0])
         self.mesh = mesh

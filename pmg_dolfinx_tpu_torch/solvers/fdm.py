@@ -74,8 +74,11 @@ def fdm_solve(b, Vs, Vts, dinv, bc_marker, shape, precision="highest",
 
 
 class FastDiagonalizationSolver:
-    """Direct solver bundle for `BoxMesh` + constant kappa; ``solve(b)``
-    is exact to working precision in one application."""
+    """Direct solver bundle for `BoxMesh` + a constant scalar, per-axis or
+    diagonal-tensor kappa (each axis' eigenvalues scale by its ``k_a``),
+    graded spacing, mixed Dirichlet/Neumann faces and Robin ends (pre-
+    divided by ``k_a``); ``solve(b)`` is exact to working precision in one
+    application."""
 
     def __init__(self, mesh, P, kappa=2.0, dtype=torch.float32,
                  precision="highest", sigma=0.0, *, device):
@@ -145,9 +148,8 @@ class FastDiagonalizationSolver:
         from ..ops.kron import KronLaplacian
 
         if getattr(self, "_op64", None) is None:
-            # kappa is a scalar in the port: (k, k, k)
             self._op64 = KronLaplacian(self.mesh, self.P,
-                                       kappa=self._kappa[0],
+                                       kappa=self._kappa,
                                        dtype=torch.float64,
                                        sigma=self._sigma, device=self.device)
         b64 = torch.as_tensor(b).to(device=self.device, dtype=torch.float64)

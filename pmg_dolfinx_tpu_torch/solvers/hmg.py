@@ -10,10 +10,14 @@ transpose), and each level smooths with the calibrated fourth-kind
 Chebyshev over point Jacobi, line relaxation (`solvers.line`) or the
 cell-wise Schwarz blocks (`solvers.schwarz`).
 
-`build_hmg` builds Kronecker-sum levels (axis-aligned boxes, constant
-kappa: plain torch `kron_cycle_ops`); `build_hmg_general` rediscretises
-the lattice operator per level (curved `PerturbedBoxMesh` hexes: plain
-torch `lattice_cycle_ops`). The bottom is a dense Cholesky solve
+`build_hmg` builds Kronecker-sum levels (axis-aligned boxes, a constant
+scalar, per-axis or diagonal-tensor kappa, Robin ends and graded spacing
+on every level: plain torch `kron_cycle_ops`); `build_hmg_general`
+rediscretises the lattice operator per level (curved `PerturbedBoxMesh`
+hexes, variable or tensor kappa volume-averaged onto each level's cells,
+sigma fields and Robin faces baked into each level's shift: plain torch
+`lattice_cycle_ops`). A graded fine mesh coarsens by merging cells
+(`coarsen_spacing`). The bottom is a dense Cholesky solve
 (``"direct"``, up to 4096 dofs, else Krylov), ``"cg"`` or the level's
 smoother. `PMGHierarchy(coarse="hmg")` runs a few nested h-cycles as the
 p=1 coarse solve.
@@ -25,9 +29,6 @@ import torch
 from ..fem.gll import gauss_lobatto, lagrange_tabulate
 from ..fem.mesh import BoxMesh
 from .line import line_block_inverses, parse_line_smoother
-
-_GRADED_TODO = ("graded spacing is not ported yet (ROADMAP.md Queue 1 item "
-                "7c)")
 
 
 def axis_h_interpolation(nc_coarse: int, P: int = 1, factor: int = 2,
@@ -150,17 +151,14 @@ def semicoarsen_sizes(nc, axes, min_cells=2, max_levels=10):
 
 def axis_coupling(mesh, kappa):
     """Per-axis effective coupling ``mean(kappa_aa) / mean(h_a)^2``: a
-    coefficient's diagonal and stretched cells both count. ``kappa`` is a
-    scalar or a constant ``(3, 3)`` tensor (the kron h-hierarchy passes
-    its per-axis coefficients as a diagonal one)."""
+    coefficient's diagonal and stretched cells both count (on a graded
+    mesh the mean spacing per axis)."""
     from ..fem.assembly import resolve_kappa_split
 
-    if np.ndim(kappa) == 2:
-        kt = np.broadcast_to(np.asarray(kappa, np.float64),
-                             (mesh.ncells, 3, 3)).copy()
+    kc, kt, _ = resolve_kappa_split(mesh, kappa)
+    if kt is not None:
         kaa = np.diagonal(kt.mean(axis=0))
     else:
-        kc, _, _ = resolve_kappa_split(mesh, kappa)
         kaa = np.full(3, float(np.mean(kc)))
     h_eff = np.array([float(hc.mean()) for hc in mesh.h_cells])
     return kaa / h_eff ** 2
@@ -200,6 +198,21 @@ def validate_hmg_sizes(nc, sizes):
         if lf == lc:
             raise ValueError(f"hmg sizes contains a repeated level {lf}")
     return sizes
+
+
+def _level_mesh(mesh, cls, **kw):
+    """``nc -> cls(nc, ...)``: a level mesh of the h-hierarchy on ``mesh``'s
+    extent, faces and Robin coefficients, a graded mesh's spacing merged
+    onto the coarser cells (`coarsen_spacing`)."""
+    robin = mesh.robin_alpha if getattr(mesh, "has_robin", False) else None
+
+    def make(nc):
+        return cls(nc, extent=mesh.extent,
+                   dirichlet_faces=mesh.dirichlet_faces, robin=robin,
+                   spacing=(coarsen_spacing(mesh.h_cells, mesh.nc, nc)
+                            if mesh.is_graded else None), **kw)
+
+    return make
 
 
 def _same_or(mesh, nc, make):
@@ -273,26 +286,23 @@ def build_hmg(mesh, P, kappa, dtype, smoother_iters=2, min_cells=2,
     """``(levels, data, bottom)`` of the Kronecker-sum h-hierarchy for
     `v_cycle` on ``device``: levels coarse -> fine, ``data`` with
     ``levels``, ``transfer`` and (direct bottom) ``coarse_chol``.
-    ``sigma`` rediscretises ``A + sigma M`` per level; ``smoother`` is
-    'cheb' (point Jacobi), 'line' / 'line-x|y|z' or 'schwarz'."""
+    ``kappa`` is a scalar, per-axis or constant diagonal-tensor coefficient;
+    the mesh's Robin ends and grading carry to every level. ``sigma``
+    rediscretises ``A + sigma M`` per level; ``smoother`` is 'cheb' (point
+    Jacobi), 'line' / 'line-x|y|z' or 'schwarz'."""
     from ..fem.assembly import resolve_kappa_axes
     from ..ops.kron import axis_stiffness_mass, kron_diagonal, robin_axis_ends
     from .pmg import Level, kron_cycle_ops
 
-    if mesh.is_graded:
-        raise NotImplementedError(_GRADED_TODO)
-    # `PMGHierarchy` passes its per-axis coefficients (k, k, k)
-    kax = (tuple(float(k) for k in kappa) if isinstance(kappa, (tuple, list))
-           else resolve_kappa_axes(mesh, kappa))
-    if len(set(kax)) > 1:
-        raise NotImplementedError(
-            "per-axis kappa is not ported yet (ROADMAP.md Queue 1 item 7c)")
+    kax = resolve_kappa_axes(mesh, kappa)
     sizes = _level_sizes(mesh, sizes, min_cells, max_levels)
-    meshes = [_same_or(mesh, nc, lambda nc: BoxMesh(
-        nc, extent=mesh.extent, dirichlet_faces=mesh.dirichlet_faces))
-        for nc in sizes]
+    meshes = [_same_or(mesh, nc, _level_mesh(mesh, BoxMesh))
+              for nc in sizes]
     ops = kron_cycle_ops(precision, sigma=sigma)
-    kassemble = kax[0]
+    # A scalar kappa keeps the scalar form (the same assembled blocks and
+    # bottom factor); a true per-axis one goes as the diagonal tensor.
+    kassemble = (float(kax[0]) if kax[0] == kax[1] == kax[2]
+                 else np.diag(kax))
     schwarz = smoother == "schwarz"
     line_axis = (None if schwarz
                  else parse_line_smoother(smoother, mesh, np.diag(kax)))
@@ -376,13 +386,13 @@ def build_hmg_general(mesh, P, kappa, dtype, smoother_iters=2, min_cells=2,
 
     Every level is a mesh of the same class on coarsened cell counts (the
     perturbed mesh's warp evaluated at the coarse corners, an exact subset
-    of the fine ones), with its own geometry factors; kappa is
-    volume-averaged onto each level's cells and the sigma shift uses each
-    level's own lumped mass. Transfers are the reference-coordinate nodal
+    of the fine ones), with its own geometry factors; a kappa array or
+    tensor is volume-averaged onto each level's cells (a callable is
+    sampled at each level's centroids) and the sigma shift, a sigma field
+    and Robin faces use each level's own lumped and boundary masses. Transfers are the reference-coordinate nodal
     interpolation of `axis_h_interpolation`. ``ops`` is the plain torch
     `lattice_cycle_ops` (flat vectors)."""
     from ..fem.assembly import (
-        cell_scalar,
         general_shift_np,
         geometry_factors_np,
         ops_shift_scalar,
@@ -394,16 +404,11 @@ def build_hmg_general(mesh, P, kappa, dtype, smoother_iters=2, min_cells=2,
     from ..ops.lattice import geometry_to_qlattice, lattice_mats
     from .pmg import Level, lattice_cycle_ops
 
-    if mesh.is_graded:
-        raise NotImplementedError(_GRADED_TODO)
     sizes = _level_sizes(mesh, sizes, min_cells, max_levels)
     if isinstance(mesh, PerturbedBoxMesh):
-        make = lambda nc: PerturbedBoxMesh(nc, extent=mesh.extent,
-                                           warp=mesh._warp,
-                                           dirichlet_faces=mesh.dirichlet_faces)
+        make = _level_mesh(mesh, PerturbedBoxMesh, warp=mesh._warp)
     else:
-        make = lambda nc: BoxMesh(nc, extent=mesh.extent,
-                                  dirichlet_faces=mesh.dirichlet_faces)
+        make = _level_mesh(mesh, BoxMesh)
     meshes = [_same_or(mesh, nc, make) for nc in sizes]
     kappa_fine, _ = resolve_kappa(mesh, kappa)
     ops_sigma = ops_shift_scalar(mesh, sigma)
@@ -412,20 +417,26 @@ def build_hmg_general(mesh, P, kappa, dtype, smoother_iters=2, min_cells=2,
     line_axis = (None if schwarz
                  else parse_line_smoother(smoother, mesh, kappa))
     tensor = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    coarsen = lambda m: coarsen_cell_field(
-        kappa_fine, mesh.nc, m.nc,
-        h_cells=mesh.h_cells if mesh.is_graded else None)
+
+    def coarsen(m):
+        """The level's per-cell coefficient (scalar or tensor)."""
+        if callable(kappa):
+            return resolve_kappa(m, kappa)[0]
+        return coarsen_cell_field(
+            kappa_fine, mesh.nc, m.nc,
+            h_cells=mesh.h_cells if mesh.is_graded else None)
 
     levels, level_data = [], []
     for m in meshes:
         kc = coarsen(m)
-        G_cells, _ = geometry_factors_np(m, P)
+        kfold = kc if kc.ndim == 3 else None  # a tensor folds into G
+        G_cells, _ = geometry_factors_np(m, P, kappa=kfold)
         lv = lattice_mats(m.nc, P, dtype, device)
-        lv["G"] = tensor(geometry_to_qlattice(scale_G(G_cells, kc, None),
+        lv["G"] = tensor(geometry_to_qlattice(scale_G(G_cells, kc, kfold),
                                               m.nc, P))
         lv["bc_marker"] = torch.tensor(m.boundary_dof_marker(P),
                                           device=device)
-        diag = stiffness_diagonal_np(m, P, cell_scalar(kc))
+        diag = stiffness_diagonal_np(m, P, kc)
         if ops_sigma:
             m3 = general_shift_np(m, P, sigma, sigma_field)[1]
             lv["m3"] = tensor(m3)
@@ -433,13 +444,13 @@ def build_hmg_general(mesh, P, kappa, dtype, smoother_iters=2, min_cells=2,
         lv["diag_inv"] = tensor(1.0 / diag)
         if line_axis is not None:
             lv["line_inv"] = tensor(line_block_inverses(
-                m, P, cell_scalar(kc), line_axis, sigma=sigma))
+                m, P, kc, line_axis, sigma=sigma))
         elif schwarz:
             from .schwarz import build_schwarz
 
             # the separable approximation: per-cell (volume-averaged)
             # coefficients on the nominal box geometry
-            lv["schwarz"] = build_schwarz(m, P, cell_scalar(kc), dtype,
+            lv["schwarz"] = build_schwarz(m, P, kc, dtype,
                                           sigma=sigma, device=device)
         level = Level(P=P, ndofs=m.num_dofs(P),
                       smoother_iters=smoother_iters,
@@ -459,6 +470,5 @@ def build_hmg_general(mesh, P, kappa, dtype, smoother_iters=2, min_cells=2,
         from .pmg import dense_cholesky
 
         data["coarse_chol"] = tensor(dense_cholesky(
-            meshes[0], P, cell_scalar(coarsen(meshes[0])), sigma,
-            sigma_field))
+            meshes[0], P, coarsen(meshes[0]), sigma, sigma_field))
     return tuple(levels), data, bottom, ops

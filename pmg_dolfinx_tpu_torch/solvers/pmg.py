@@ -16,7 +16,11 @@ the full-multigrid initial guess (`fmg_initial_guess`), the fused
 Chebyshev smoother and the fused p-transfers of ``kron_blocked``
 (``fuse_smoother=True``, ``fuse_transfers=True``), and the
 stationary (`solve`), FCG (`solve_pcg`), batched (`solve_many`,
-`solve_pcg_many`) and f64-refined (`solve_refined`) outer iterations. The
+`solve_pcg_many`) and f64-refined (`solve_refined`) outer iterations;
+every coefficient `fem.assembly.resolve_kappa` takes (per-axis and
+diagonal-tensor kappa on the Kronecker family, variable and full-tensor
+kappa on the general family), sigma fields (general family), and the
+mesh's Robin faces, Neumann faces and graded spacing. The
 Kronecker family keeps vectors
 lattice-shaped ``(NX, NY, NZ)`` inside the cycle, the general family
 flat; the public methods take and return flat vectors.
@@ -58,8 +62,6 @@ _OPERATORS = ("dofmap", "lattice", "lattice_blocked", "kron",
 _OPERATOR_TODO = ("operator='csr' (assembled sparse matvec) and 'dss' "
                   "(unstructured row gathers) are not ported yet; they are "
                   "ROADMAP.md Queue 1 items 6 and 8")
-_SIGMA_FIELD_TODO = ("a sigma FIELD (callable) on the general backends is "
-                     "not ported yet (ROADMAP.md Queue 1 item 7)")
 _COARSE = ("smoother", "cg", "fdm", "direct", "hmg")
 _COARSE_TODO = ("coarse='amg' (smoothed-aggregation AMG) is not ported yet "
                 "(ROADMAP.md Queue 1 item 8)")
@@ -100,6 +102,37 @@ def _level_precond(lv, level, ops):
             lv["schwarz"], r, level.shape, level.P,
             exchange=ops.get("exchange"))
     return None
+
+
+def warn_tensor_stationary(kappa_fold, kappa_axes=None, operator="",
+                           line=False):
+    """Warn that the stationary V-cycle iteration can diverge with a
+    strongly anisotropic tensor kappa (measured in the JAX package:
+    rotated 100:1 anisotropy, levels (1, 3, 6), the default 2 Chebyshev
+    iterations diverge while FCG(V) converges in 10). The remedies:
+    `solve_pcg`, 3-4 ``smoother_iters``, or ``smoother='line'`` at
+    moderate sizes. Diagonal tensors on the Kronecker family and
+    hierarchies already running a line or Schwarz smoother (``line``)
+    are exempt."""
+    if line:
+        return
+    if kappa_axes is not None and operator in ("kron", "kron_blocked"):
+        return
+    if kappa_fold is not None:
+        import warnings
+
+        warnings.warn(
+            "stationary V-cycle iteration with a tensor (anisotropic) "
+            "kappa can diverge for strong off-axis anisotropy; prefer "
+            "solve_pcg, which is robust (measured: rotated 100:1 "
+            "anisotropy, FCG(V) 10 iterations), or raise "
+            "smoother_iters (3-4 measured to restore stationary "
+            "contraction, threshold problem-dependent) or use "
+            "smoother='line' at moderate sizes; a better coarse "
+            "operator does not help — the divergence lives at the "
+            "high-p smoothing levels",
+            stacklevel=3,
+        )
 
 
 def dense_cholesky(mesh, P, kappa, sigma=0.0, sigma_field=None):
@@ -547,8 +580,15 @@ class PMGHierarchy:
         (nested h-multigrid cycles: `solvers.hmg.build_hmg` on boxes,
         `build_hmg_general` on curved meshes; ``coarse_cfg`` keys
         ``sizes``, ``smoother``, ``bottom``, ``min_cells``, ``cycles``
-        (default 3), ``hmg_gamma``); ``kappa`` a scalar; ``sigma`` a
-        scalar lumped-mass shift. ``smoother`` is 'cheb' (point Jacobi),
+        (default 3), ``hmg_gamma``). ``kappa`` is a scalar, a per-axis
+        tuple, a DG-0 ``(ncells,)`` array, a symmetric ``(3, 3)`` or
+        ``(ncells, 3, 3)`` tensor (folded into the geometry factors) or a
+        callable sampled at the cell centroids; the Kronecker backends and
+        'fdm' take the constant diagonal ones only. ``sigma`` is a scalar
+        lumped-mass shift or a callable reaction field (general backends,
+        baked into each level's ``m3``). Robin faces of the mesh ride the
+        1D factors' ends (Kronecker family) or ``m3`` (general family).
+        ``smoother`` is 'cheb' (point Jacobi),
         'line' / 'line-x|y|z' (line relaxation, moderate sizes) or
         'schwarz' (cell-wise FDM Schwarz, any size). ``fuse_smoother=True``
         (kron_blocked, point Jacobi only) runs the smoother through the
@@ -558,7 +598,6 @@ class PMGHierarchy:
         W-cycle."""
         from ..fem.assembly import (
             geometry_factors_np,
-            lumped_mass_np,
             ops_shift_scalar,
             resolve_kappa_axes,
             resolve_kappa_split,
@@ -603,8 +642,9 @@ class PMGHierarchy:
         if sigma_field is not None:
             if kron_family:
                 raise ValueError(
-                    "a sigma FIELD (callable) requires a general backend; "
-                    "the Kronecker paths carry only a separable scalar shift"
+                    "a sigma FIELD (callable) requires a general backend "
+                    "('lattice', 'lattice_blocked', 'dofmap') — the "
+                    "Kronecker paths carry only a separable scalar shift"
                 )
             if coarse == "fdm":
                 raise ValueError(
@@ -619,13 +659,13 @@ class PMGHierarchy:
                     "(their block builders fold a uniform shift); use "
                     "smoother='cheb' with a sigma field"
                 )
-            raise NotImplementedError(_SIGMA_FIELD_TODO)
+        self._sigma_field = sigma_field
         if (not any(any(f) for f in mesh.dirichlet_faces)
-                and self.sigma == 0.0):
+                and self.sigma == 0.0 and not mesh.has_robin):
             raise ValueError(
                 "pure-Neumann problem (no Dirichlet face) with sigma=0 is "
-                "singular (constant nullspace); add a Dirichlet face or a "
-                "positive sigma shift"
+                "singular (constant nullspace); add a Dirichlet face, a "
+                "positive sigma shift, or a Robin face"
             )
         # The smoother's preconditioner on every p-level: point Jacobi
         # ('cheb'), line relaxation along the strongly-coupled axis
@@ -656,10 +696,26 @@ class PMGHierarchy:
         self.device = torch.device(device)
         kc, kt, const = resolve_kappa_split(mesh, kappa)
         self._kc, self._kappa_fold = kc, kt
+        # the per-cell coefficient: the tensor when there is one
+        self.kappa_cells = kt if kt is not None else kc
         self.kappa = float(kc[0]) if const else None
         self._kappa_raw = kappa
-        self.kappa_axes = resolve_kappa_axes(mesh, kappa,
-                                             split=(kc, kt, const))
+        # (kx, ky, kz) of a constant scalar, per-axis or diagonal-tensor
+        # kappa (the Kronecker family and 'fdm' need it); None otherwise
+        try:
+            self.kappa_axes = resolve_kappa_axes(mesh, kappa,
+                                                 split=(kc, kt, const))
+        except ValueError:
+            if kron_family:
+                raise
+            self.kappa_axes = None
+        if self.kappa_axes is None and coarse == "fdm":
+            raise ValueError(
+                "coarse='fdm' is constant-coefficient (scalar, per-axis "
+                "or diagonal-tensor) only; use 'hmg', 'cg', 'smoother' "
+                "or 'direct' with variable kappa (or FDM as an outer FCG "
+                "preconditioner, solvers/fdm.py)"
+            )
         self.dtype = dtype
         self.coarse = coarse
         self.coarse_cfg = dict(coarse_cfg or {})
@@ -760,9 +816,10 @@ class PMGHierarchy:
                     lv["G"] if operator == "dofmap" else tensor(G_cells),
                     tensor(kc), tensor(derivative_matrix(P)), bc, ndofs)
                 if ops_sigma:
-                    # Lumped-mass shift, bc-zeroed, added pointwise in the
-                    # apply and to the Jacobi diagonal.
-                    lv["m3"] = tensor(lumped_mass_np(mesh, P, bc_zero=True))
+                    # The pointwise shift (`_baked_m3_np`: the bc-zeroed
+                    # lumped mass, field-scaled, Robin mass baked in),
+                    # added in the apply and to the Jacobi diagonal.
+                    lv["m3"] = tensor(self._baked_m3_np(mesh, P))
                     diag = diag + ops_sigma * lv["m3"]
             lv["diag_inv"] = 1.0 / diag
             if self._line_axis is not None:
@@ -816,7 +873,8 @@ class PMGHierarchy:
 
         if coarse == "direct":
             self.data["coarse_chol"] = tensor(dense_cholesky(
-                mesh, self.degrees[0], self.kappa, self.sigma))
+                mesh, self.degrees[0], self.kappa_cells, self.sigma,
+                sigma_field))
         elif coarse == "hmg":
             cfg = self.coarse_cfg
             kw = dict(smoother_iters=smoother_iters, precision=precision,
@@ -825,18 +883,22 @@ class PMGHierarchy:
                       sizes=cfg.get("sizes"),
                       smoother=cfg.get("smoother", "cheb"),
                       device=self.device)
-            if getattr(mesh, "is_axis_aligned", True):
+            if (getattr(mesh, "is_axis_aligned", True)
+                    and self.kappa_axes is not None
+                    and sigma_field is None):
                 from .hmg import build_hmg
 
                 hmg_levels, hmg_data, hmg_bottom = build_hmg(
                     mesh, self.degrees[0], self.kappa_axes, dtype, **kw)
                 hmg_ops = kron_cycle_ops(precision, sigma=self.sigma)
             else:
-                # Curved hexes: the rediscretised lattice h-hierarchy.
+                # Curved hexes, variable or tensor kappa, a sigma field:
+                # the rediscretised lattice h-hierarchy.
                 from .hmg import build_hmg_general
 
                 hmg_levels, hmg_data, hmg_bottom, hmg_ops = build_hmg_general(
-                    mesh, self.degrees[0], self._kappa_raw, dtype, **kw)
+                    mesh, self.degrees[0], self._kappa_raw, dtype,
+                    sigma_field=sigma_field, **kw)
             self.data["hmg"] = hmg_data
             cfg.update(hmg_levels=hmg_levels, hmg_ops=hmg_ops,
                        hmg_bottom=hmg_bottom, cycles=cfg.get("cycles", 3))
@@ -844,7 +906,7 @@ class PMGHierarchy:
             from .fdm import FastDiagonalizationSolver
 
             fd = FastDiagonalizationSolver(
-                mesh, self.degrees[0], kappa=self.kappa_axes[0],
+                mesh, self.degrees[0], kappa=self.kappa_axes,
                 dtype=dtype, sigma=self.sigma, device=self.device,
             )
             self.data["fdm"] = dict(
@@ -854,6 +916,20 @@ class PMGHierarchy:
             )
             self.coarse_cfg["fdm_shape"] = mesh.lattice_shape(self.degrees[0])
             self.coarse_cfg["fdm_trims"] = fd.trims
+
+    def _baked_m3_np(self, m, P):
+        """The pointwise shift vector (float64, host) of a general-backend
+        level on mesh ``m``: `fem.assembly.general_shift_np`'s ``m3`` (the
+        field-scaled lumped mass, with the Robin boundary mass and sigma
+        baked in when the mesh has Robin faces)."""
+        from ..fem.assembly import general_shift_np
+
+        return general_shift_np(m, P, self.sigma, self._sigma_field)[1]
+
+    def _warn_tensor(self):
+        warn_tensor_stationary(
+            self._kappa_fold, self.kappa_axes, self.operator_kind,
+            line=self._line_axis is not None or self._schwarz)
 
     def load_state(self, data):
         """Overwrite this hierarchy's level, transfer and coarse arrays
@@ -913,6 +989,7 @@ class PMGHierarchy:
         ``fmg=True`` (and no ``u0``) starts from the full-multigrid guess
         instead of zero. The residual norms stay on the device and are
         read back once, at the end."""
+        self._warn_tensor()
         b = self._to_work(b)
         if u0 is not None:
             u = self._to_work(u0)
@@ -952,19 +1029,22 @@ class PMGHierarchy:
 
     def _refine_apply64(self):
         """``u64 -> A u64`` in float64 on the device for `solve_refined`:
-        the Kronecker form on axis-aligned meshes, else the lattice apply
-        with f64 geometry (and the lumped-mass shift); built once."""
+        the Kronecker form on axis-aligned meshes with a constant diagonal
+        kappa and no sigma field, else the lattice apply with f64 geometry
+        (and the baked pointwise shift); built once."""
         if getattr(self, "_apply64", None) is not None:
             return self._apply64
         mesh, Pf, f64 = self.mesh, self.degrees[-1], torch.float64
-        if getattr(mesh, "is_axis_aligned", True):
+        if (getattr(mesh, "is_axis_aligned", True)
+                and self.kappa_axes is not None
+                and self._sigma_field is None):
             from ..ops.kron import KronLaplacian
 
-            self._apply64 = KronLaplacian(mesh, Pf, kappa=self.kappa,
+            self._apply64 = KronLaplacian(mesh, Pf, kappa=self.kappa_axes,
                                           dtype=f64, sigma=self.sigma,
                                           device=self.device)
             return self._apply64
-        from ..fem.assembly import geometry_factors_np, lumped_mass_np, scale_G
+        from ..fem.assembly import geometry_factors_np, scale_G
         from ..ops.lattice import (
             geometry_to_qlattice,
             lattice_laplacian_apply,
@@ -978,8 +1058,8 @@ class PMGHierarchy:
         mats = lattice_mats(mesh.nc, Pf, f64, self.device)
         bc = torch.tensor(mesh.boundary_dof_marker(Pf), device=self.device)
         shift = self._ops_sigma
-        m3 = (torch.as_tensor(lumped_mass_np(mesh, Pf, bc_zero=True),
-                              dtype=f64, device=self.device)
+        m3 = (torch.as_tensor(self._baked_m3_np(mesh, Pf), dtype=f64,
+                              device=self.device)
               if shift else None)
 
         def apply64(u):  # u is flat: the general family's work layout
@@ -1005,6 +1085,7 @@ class PMGHierarchy:
         f64 residual norm before each cycle. With ``rtol`` the loop stops
         once it falls below ``rtol * |b|`` (one host read per cycle);
         without, the norms are read back once, at the end."""
+        self._warn_tensor()
         apply64 = self._refine_apply64()
         f64 = dict(device=self.device, dtype=torch.float64)
         # the f64 state shares the work layout (lattice-shaped for kron)

@@ -111,12 +111,16 @@ def build_schwarz_np(mesh, P, kappa, sigma=0.0):
     assume that per-axis separable set)."""
     from ..fem.assembly import resolve_kappa_split
 
-    kc, _, _ = resolve_kappa_split(mesh, kappa)
+    kc, kt, _ = resolve_kappa_split(mesh, kappa)
     ncx, ncy, ncz = mesh.nc
-    kd = np.broadcast_to(
-        np.asarray(kc, np.float64).reshape(ncx, ncy, ncz)[..., None],
-        (ncx, ncy, ncz, 3),
-    )
+    if kt is not None:
+        # a tensor: its per-cell diagonal (the separable approximation)
+        kd = np.diagonal(kt, axis1=1, axis2=2).reshape(ncx, ncy, ncz, 3)
+    else:
+        kd = np.broadcast_to(
+            np.asarray(kc, np.float64).reshape(ncx, ncy, ncz)[..., None],
+            (ncx, ncy, ncz, 3),
+        )
     faces = getattr(mesh, "dirichlet_faces", ((True, True),) * 3)
     Vs, lams = [], []
     for a, (nca, ha) in enumerate(zip(mesh.nc, mesh.h_cells)):

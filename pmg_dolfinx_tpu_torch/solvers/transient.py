@@ -19,8 +19,10 @@ batch of trajectories through `ops.kron_packed` (the CUDA kernels on a
 CUDA device): pack once, step in the working layout, unpack at the end;
 homogeneous Dirichlet data, states ``(B, ndofs)``, float32.
 
-Kappa is a scalar (per-axis and tensor kappa are ROADMAP.md Queue 1 item
-7). Not ported yet: the semilinear evolvers (need `models/semilinear.py`)
+Kappa is a scalar, a per-axis tuple or a constant diagonal tensor on the
+FDM and serving paths (`_half_kappa` halves each for CN); graded spacing,
+mixed Dirichlet/Neumann faces and Robin ends ride the per-axis factors of
+every box evolver. Not ported yet: the semilinear evolvers (need `models/semilinear.py`)
 and `convdiff_fdm_evolve` (needs the advection terms); ROADMAP.md Queue 1
 item 9.
 """
@@ -31,9 +33,6 @@ import torch
 from ..fem.assembly import lumped_mass_np
 from ..ops.kron_blocked import _check_precision
 from .fdm import FastDiagonalizationSolver
-
-_KAPPA_TODO = ("only a scalar kappa is ported; per-axis and tensor kappa "
-               "are ROADMAP.md Queue 1 item 7")
 
 
 def source_scales(f_time, dt, nsteps, when):
@@ -49,10 +48,17 @@ def source_scales(f_time, dt, nsteps, when):
 
 
 def _half_kappa(kappa):
-    """kappa/2 for a scalar coefficient."""
-    if not np.isscalar(kappa):
-        raise NotImplementedError(_KAPPA_TODO)
-    return 0.5 * float(kappa)
+    """kappa/2 for scalar, per-axis and diagonal-tensor coefficients. A
+    per-axis 3-tuple stays a tuple: `resolve_kappa_axes` recognizes the
+    per-axis form by tuple-ness (a (3,) array reads as a per-cell
+    field)."""
+    if np.isscalar(kappa):
+        return 0.5 * float(kappa)
+    if (isinstance(kappa, (tuple, list)) and len(kappa) == 3
+            and all(np.ndim(k) == 0 for k in kappa)):
+        return tuple(0.5 * float(k) for k in kappa)
+    k = np.asarray(kappa, dtype=np.float64)
+    return 0.5 * k
 
 
 def _lattice_vectors(mesh, P, f, dtype, device):

@@ -4,9 +4,12 @@
 converted to numpy (``jax.tree.map(np.asarray, hier.data)``), into the
 port's data layout: ``levels`` and ``transfer`` lists of dicts of
 tensors plus the optional ``fdm`` dict. Every operator family carries
-over under the JAX names: the Kronecker levels (``kb_mats`` ...), the
-lattice family (``Gt``, ``lb_mats``, ``G``, ``E*``/``D*``, ``m3``) and
-the dofmap levels (``dofmap``, ``G``, ``coeff``, ``D``), with
+over under the JAX names: the Kronecker levels (``kb_mats`` ..., from
+1D factors with Robin ends, graded spacing and per-axis kappa folded
+in), the lattice family (``Gt``, ``lb_mats``, ``G`` with a tensor kappa
+folded in, ``E*``/``D*``, ``m3`` with a sigma field and the Robin mass
+baked in) and the dofmap levels (``dofmap``, ``G``, ``coeff``, ``D``),
+with
 ``diag_inv``, ``lmax`` and the transfers (``I*`` or ``M1``,
 ``dofmap_c``/``dofmap_f``, ``mult_f``). Pass the result to the port's
 `PMGHierarchy.load_state` to run its cycles on the JAX state (the

@@ -159,9 +159,13 @@ def test_general_family_guards():
         PMGHierarchy(tm, degrees=(1, 2), operator="kron", device="cpu")
     with pytest.raises(ValueError, match="axis-aligned"):
         PMGHierarchy(tm, degrees=(1, 2), coarse="fdm", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        PMGHierarchy(tm, degrees=(1, 2), sigma=lambda x: x[0],
-                     device="cpu")
+    # a sigma field rides the general family's baked m3, never kron
+    with pytest.raises(ValueError, match="sigma FIELD"):
+        PMGHierarchy(tm, degrees=(1, 2), sigma=lambda x: 1.0 + x[0],
+                     operator="kron", device="cpu")
+    field = PMGHierarchy(tm, degrees=(1, 2), sigma=lambda x: 1.0 + x[0],
+                         device="cpu")
+    assert field.sigma == 1.0 and "m3" in field.data["levels"][-1]
     with pytest.raises(ValueError, match="f32-only"):
         PMGHierarchy(tm, degrees=(1, 2), operator="lattice_blocked",
                      dtype=torch.float64, device="cpu")

@@ -90,8 +90,11 @@ def test_coefficient_helpers():
         assert np.array_equal(a, b) if a is not None else b is None
     assert t_asm.resolve_sigma(0.5) == j_asm.resolve_sigma(0.5)
     assert t_asm.ops_shift_scalar(tm, 0.5, True) == j_asm.ops_shift_scalar(jm, 0.5, True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        t_asm.resolve_kappa(tm, np.ones(tm.ncells))
+    kc = np.linspace(1.0, 2.0, tm.ncells)
+    for a, b in zip(t_asm.resolve_kappa(tm, kc), j_asm.resolve_kappa(jm, kc)):
+        assert np.array_equal(a, b)
+    with pytest.raises(ValueError, match="per-cell kappa"):
+        t_asm.resolve_kappa(tm, np.ones(tm.ncells + 1))
 
 
 @pytest.mark.parametrize("P", [1, 3, 6])

@@ -655,8 +655,15 @@ def test_grid_pmg_refuses_what_is_not_ported():
              NotImplementedError, "item 10"),
             (lambda: tg.GridPMG(mesh, (2, 2), sigma=lambda x: x[0], **kw),
              ValueError, "sigma FIELD"),
-            (lambda: tg.GridPMG(mesh, (2, 2), kappa=np.ones(64), **kw),
-             NotImplementedError, "item 7"),
+            (lambda: tg.GridPMG(mesh, (2, 2), kappa=np.arange(1.0, 65.0),
+                                **kw), NotImplementedError, "item 10"),
+            (lambda: tg.GridPMG(TBox(NC, dirichlet_faces=(
+                (False, False), (True, True), (True, True)),
+                robin=((1.0, 1.0), (0.0, 0.0), (0.0, 0.0))), (2, 2), **kw),
+             NotImplementedError, "item 10"),
+            (lambda: tg.GridPMG(TBox(NC, spacing=(None, None, (1.0, 2.0, 3.0,
+                                                              4.0))),
+                                (2, 2), **kw), NotImplementedError, "item 10"),
             (lambda: tg.GridPMG(mesh, (2, 2), precision="high", **kw),
              NotImplementedError, "item 1"),
             (lambda: tg.GridPMG(mesh, (2, 2), **kw).solve_refined(None),

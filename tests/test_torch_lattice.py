@@ -326,7 +326,7 @@ def test_zgrp_matches_pallas_interpret(jx, zb):
     """'zgrp' with scalar kappa: the operator class against JAX's in
     interpret mode, and the entry point on the same ``Gz``; relative
     2-norm <= 1e-5 (the JAX package's own gate). The class holds only
-    ``Gz``. Per-cell kappa waits for ROADMAP.md Queue 1 item 7."""
+    ``Gz``. Per-cell and tensor kappa: `tests/test_torch_coefficients.py`."""
     jnp, jlb = jx.jnp, jx.jlb
     jm, tm = jx.Mesh(ZG_NC), TMesh(ZG_NC)
     x = np.random.default_rng(5).standard_normal(tm.num_dofs(P)).astype(

@@ -11,8 +11,9 @@ package's lane-packed classes (`ops.pallas_kron_packed`).
   classes at B=1; `utils.convert.packed_state_from_numpy` turns the JAX
   classes' lane-packed factors into exactly the port's factors.
 - The same `ValueError`s as JAX (NZ <= 64, the single apply's slab
-  height, singular operators, precision names); ``precision='high'`` and
-  per-axis kappa raise NotImplementedError.
+  height, singular operators, precision names, a non-diagonal tensor
+  kappa); ``precision='high'`` raises NotImplementedError. Per-axis
+  kappa, graded spacing and Neumann axes: `tests/test_torch_graded.py`.
 - On the card, each CUDA kernel against its plain version through all
   four classes (marked ``cuda``; skipped without a GPU). Those tests need
   no JAX: ``python -m pytest --noconftest -m cuda
@@ -227,8 +228,19 @@ def test_precision_and_kappa_guards(kind):
         getattr(kp, kind)(mesh, 3, precision="high", device="cpu")
     with pytest.raises(ValueError, match="precision"):
         getattr(kp, kind)(mesh, 3, precision="default", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        getattr(kp, kind)(mesh, 3, kappa=(1.0, 2.0, 3.0), device="cpu")
+    # per-axis kappa scales each axis' factor; an off-diagonal tensor
+    # cannot be a Kronecker sum
+    x = np.random.default_rng(0).standard_normal((1, mesh.num_dofs(3)))
+    x = torch.tensor(x if kind == "PackedKronBatch" else x[0],
+                     dtype=torch.float32)
+    per_axis = getattr(kp, kind)(mesh, 3, kappa=(2.0, 2.0, 2.0),
+                                 device="cpu")
+    scalar = getattr(kp, kind)(mesh, 3, kappa=2.0, device="cpu")
+    assert torch.equal(per_axis(x), scalar(x))
+    with pytest.raises(ValueError, match="DIAGONAL"):
+        getattr(kp, kind)(mesh, 3, kappa=np.array(
+            [[1.0, 0.5, 0.0], [0.5, 1.0, 0.0], [0.0, 0.0, 1.0]]),
+            device="cpu")
 
 
 @pytest.fixture

@@ -84,9 +84,9 @@ def test_kron_laplacian_apply_positional(apply_bc):
 
 
 def test_poisson_problem_positional():
-    """JAX's 13th positional ``smoother`` and 14th ``u_exact`` (the fault
-    bound "cheb" to ``u_exact``), with 'cheb' and 'line'; ``robin_g``
-    raises."""
+    """JAX's 13th positional ``smoother``, 14th ``u_exact`` (the fault
+    bound "cheb" to ``u_exact``), with 'cheb' and 'line', and 15th
+    ``robin_g``."""
     from pmg_dolfinx_tpu.models import poisson as jp
     from pmg_dolfinx_tpu_torch.models import poisson as tp
 
@@ -109,9 +109,17 @@ def test_poisson_problem_positional():
         jline.hierarchy.levels[-1].line_axis)
     assert _rel(tline.solve(num_cycles=3)[0], jline.solve(num_cycles=3)[0]
                 ) <= 1e-12
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        tp.PoissonProblem(*args, torch.float64, *rest, {"g": 1.0},
-                          device="cpu")
+    # robin_g, 15th: the Robin data of a mesh with Robin faces
+    faces = ((True, True), (False, False), (True, True))
+    robin = ((0.0, 0.0), (2.0, 1.0), (0.0, 0.0))
+    g = {(1, 0): lambda x: x[0] + x[2], (1, 1): 0.5}
+    jr = jp.PoissonProblem(*args, jnp.float64, *rest[:6],
+                           JBox((2, 2, 2), dirichlet_faces=faces,
+                                robin=robin), *rest[7:], g)
+    tr = tp.PoissonProblem(*args, torch.float64, *rest[:6],
+                           TBox((2, 2, 2), dirichlet_faces=faces,
+                                robin=robin), *rest[7:], g, device="cpu")
+    assert _rel(tr.b, np.asarray(jr.b)) <= 1e-13
 
 
 def test_kron_laplacian_class_positional():
@@ -485,3 +493,78 @@ def test_coarse_refusal_names_its_roadmap_item(coarse, item):
     b = np.random.default_rng(3).standard_normal(th.levels[-1].ndofs)
     assert _rel(th.apply(b, np.zeros_like(b)),
                 jh.apply(jnp.asarray(b), jnp.zeros(b.shape))) <= 1e-12
+
+
+@pytest.mark.parametrize("kind", ["BoxMesh", "PerturbedBoxMesh"])
+def test_mesh_robin_spacing_positional(kind):
+    """``BoxMesh(nc, extent, dirichlet_faces, robin, spacing)`` and
+    ``PerturbedBoxMesh(nc, extent, warp, dirichlet_faces, robin,
+    spacing)``: JAX's parameter lists, and the same mesh from the same
+    positionals."""
+    import inspect
+
+    from pmg_dolfinx_tpu.fem import mesh as jm
+    from pmg_dolfinx_tpu_torch.fem import mesh as tm
+
+    jcls, tcls = getattr(jm, kind), getattr(tm, kind)
+    assert (list(inspect.signature(tcls).parameters)
+            == list(inspect.signature(jcls).parameters))
+    faces = ((False, True), (True, True), (False, False))
+    robin = ((1.0, 0.0), (0.0, 0.0), (0.5, 2.0))
+    spacing = (None, (1.0, 2.0, 4.0), None)
+    args = (NC, (1.0, 2.0, 0.5)) + ((None,) if kind != "BoxMesh" else ()) + (
+        faces, robin, spacing)
+    j, t = jcls(*args), tcls(*args)
+    assert np.array_equal(t.robin_alpha, j.robin_alpha)
+    assert np.array_equal(t.dof_coords(P), j.dof_coords(P))
+    assert t.is_graded == j.is_graded and t.has_robin == j.has_robin
+
+
+@pytest.mark.parametrize("name", [
+    "resolve_kappa", "resolve_kappa_split", "resolve_kappa_axes",
+    "resolve_sigma", "shifted_mass_np", "general_shift_np", "lifted_rhs",
+    "robin_mass_np", "robin_rhs_np", "stiffness_diagonal_np",
+    "assemble_stiffness", "ops_shift_scalar"])
+def test_coefficient_helpers_positional(name):
+    """The ported resolvers and boundary helpers keep JAX's parameter
+    lists, and the same positionals give the same arrays."""
+    import inspect
+
+    from pmg_dolfinx_tpu.fem import assembly as ja
+    from pmg_dolfinx_tpu_torch.fem import assembly as ta
+
+    tf, jf = getattr(ta, name), getattr(ja, name)
+    assert (list(inspect.signature(tf).parameters)
+            == list(inspect.signature(jf).parameters))
+    faces = ((True, True), (False, False), (True, True))
+    mk = lambda cls: cls(NC, (1.0, 1.0, 1.0), faces,
+                         ((0.0, 0.0), (2.0, 1.0), (0.0, 0.0)))
+    jmesh, tmesh = mk(JBox), mk(TBox)
+    field = lambda x: 1.0 + x[0]
+    calls = {
+        "resolve_kappa": (np.linspace(1.0, 2.0, 27),),
+        "resolve_kappa_split": ((1.0, 2.0, 3.0),),
+        "resolve_kappa_axes": (np.diag([1.0, 2.0, 3.0]), None),
+        "resolve_sigma": None,
+        "shifted_mass_np": (P, field, False),
+        "general_shift_np": (P, 0.5, field),
+        "lifted_rhs": (P, 2.0, field, lambda x: x[1]),
+        "robin_mass_np": (P, False),
+        "robin_rhs_np": (P, {(1, 0): field, (1, 1): 0.5}),
+        "stiffness_diagonal_np": (P, (1.0, 2.0, 3.0)),
+        "assemble_stiffness": (P, 2.0, False),
+        "ops_shift_scalar": (0.5, False),
+    }
+    if calls[name] is None:
+        assert tf(field) == jf(field) and tf(0.5) == jf(0.5)
+        return
+    got, want = tf(tmesh, *calls[name]), jf(jmesh, *calls[name])
+    if name == "assemble_stiffness":
+        got, want = got.toarray(), want.toarray()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        if g is None or np.ndim(g) == 0:
+            assert g == w
+        else:
+            assert np.abs(np.asarray(g) - np.asarray(w)).max() <= (
+                1e-13 * max(1.0, np.abs(np.asarray(w)).max()))

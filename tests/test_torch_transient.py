@@ -116,9 +116,12 @@ def test_source_scales_and_kappa_guard():
                               jt.source_scales(f, 0.1, 5, when))
     assert np.array_equal(tt.source_scales(None, 0.1, 4, "end"), np.ones(4))
     assert tt._half_kappa(3.0) == jt._half_kappa(3.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tt.heat_fdm_evolve(BoxMesh((2, 2, 2)), 2, kappa=(1.0, 2.0, 3.0),
-                           device="cpu")
+    assert tt._half_kappa((1.0, 2.0, 3.0)) == jt._half_kappa((1.0, 2.0, 3.0))
+    u0 = _mode(BoxMesh((2, 2, 2)), 2)
+    kw = dict(kappa=(1.0, 2.0, 3.0), dt=1e-2)
+    assert _rel(tt.heat_fdm_evolve(BoxMesh((2, 2, 2)), 2, device="cpu",
+                                   **kw)(u0, 2),
+                jt.heat_fdm_evolve(JBox((2, 2, 2)), 2, **kw)(u0, 2)) <= 1e-10
 
 
 @pytest.mark.parametrize("scheme", ["be", "cn"])
@@ -392,10 +395,31 @@ def test_wave_driver_f64_matches_jax_evolve():
 
 
 @pytest.mark.parametrize("name,flag,item", [
-    ("heat_torch.py", ("--grade", "z:8"), "Queue 1 item 7c"),
+    ("heat_torch.py", ("--grade", "z:8", "--dtype", "f64"), None),
     ("wave_torch.py", ("--shards", "2"), "Queue 1 item 10"),
+    ("heat_torch.py", ("--shards", "2"), "Queue 1 item 10"),
     ("heat_torch.py", ("--save-series", "out.vtk"), "Queue 1 item 11"),
 ])
 def test_driver_refuses_unported_flags(name, flag, item):
+    """The JAX driver flags whose layers the port lacks refuse with their
+    ROADMAP item; ``--grade`` (ported) runs, and its f64 box path prints
+    the JAX evolver's L2 error on the graded mesh (1e-8)."""
     proc = _driver(name, *flag)
-    assert proc.returncode != 0 and item in proc.stderr
+    if item is not None:
+        assert proc.returncode != 0 and item in proc.stderr
+        return
+    from pmg_dolfinx_tpu.fem.assembly import l2_error
+    from pmg_dolfinx_tpu.fem.mesh import geometric_spacing
+
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])["l2_error"]
+    nc = (4, 4, 4)
+    mesh = JBox(nc, spacing=(None, None, geometric_spacing(4, 8.0)))
+    c = mesh.dof_coords(3)
+    u0 = np.where(mesh.boundary_dof_marker(3), 0.0, np.sin(np.pi * c[:, 0])
+                  * np.sin(np.pi * c[:, 1]) * np.sin(np.pi * c[:, 2]))
+    uT = jt.heat_fdm_evolve(mesh, 3, kappa=KAPPA, dt=1e-3)(u0, 6)
+    amp = np.exp(-3.0 * np.pi**2 * KAPPA * 6e-3)
+    want = l2_error(mesh, 3, np.asarray(uT).reshape(-1), lambda x: amp * (
+        np.sin(np.pi * x[0]) * np.sin(np.pi * x[1]) * np.sin(np.pi * x[2])))
+    assert abs(got / want - 1) <= 1e-8
