@@ -47,7 +47,8 @@ with the matching manufactured solution), as in the JAX driver:
 
 ``--operator kron_blocked`` and ``lattice_blocked`` run the hand-written
 CUDA kernels (`pmg_dolfinx_tpu_torch/csrc/`, float32); ``kron``,
-``lattice`` and ``dofmap`` are plain torch. ``--mesh perturbed`` builds
+``lattice`` and ``dofmap`` are plain torch, ``csr`` the assembled matrix
+(cuSPARSE matvecs). ``--mesh perturbed`` builds
 the curved-hex `PerturbedBoxMesh` and switches a Kronecker operator to
 ``lattice_blocked`` (f32) or ``lattice`` (f64), and ``--coarse fdm`` to
 ``hmg`` (the curved operator rediscretised per h-level). ``--device cpu`` runs
@@ -199,10 +200,13 @@ def main(argv=None):
     p.add_argument("--dtype", choices=["f32", "f64"], default="f32")
     p.add_argument("--operator",
                    choices=["kron", "kron_blocked", "lattice",
-                            "lattice_blocked", "dofmap"],
+                            "lattice_blocked", "dofmap", "csr", "dss"],
                    default="kron",
                    help="'kron_blocked'/'lattice_blocked' = hand-written "
-                        "CUDA kernels (f32)")
+                        "CUDA kernels (f32); 'csr' = assembled sparse "
+                        "matvec (cuSPARSE); 'dss' = the unstructured "
+                        "backend (needs an unstructured mesh: "
+                        "examples/unstructured_torch.py)")
     p.add_argument("--mesh", choices=["box", "perturbed"], default="box",
                    help="'perturbed' = curved hexes (general-hex "
                         "operators only)")

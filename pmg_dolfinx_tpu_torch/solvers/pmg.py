@@ -5,11 +5,14 @@ Port of `pmg_dolfinx_tpu.solvers.pmg`: the operator backends
 default), ``"lattice"`` (general hexes, plain torch einsums),
 ``"lattice_blocked"`` (general hexes, the CUDA kernels of
 `ops/lattice_blocked.py`), ``"kron"`` and ``"kron_blocked"`` (axis-aligned
-boxes, plain torch / the CUDA kernels of `ops/kron_blocked.py`); the
-V-cycle with a ``"smoother"``, ``"cg"``, ``"fdm"``, ``"direct"`` (dense
-Cholesky) or ``"hmg"`` (nested geometric h-multigrid, `solvers/hmg.py`)
-coarse solve; the point-Jacobi, line (`solvers/line.py`) and cell-wise
-Schwarz (`solvers/schwarz.py`) Chebyshev smoothers; CG + Lanczos
+boxes, plain torch / the CUDA kernels of `ops/kron_blocked.py`),
+``"dss"`` (unstructured hex meshes, `ops/unstructured.py`) and ``"csr"``
+(the assembled sparse matrix, `ops/csr.py`); the V-cycle with a
+``"smoother"``, ``"cg"``, ``"fdm"``, ``"direct"`` (dense Cholesky),
+``"hmg"`` (nested geometric h-multigrid, `solvers/hmg.py`) or ``"amg"``
+(smoothed aggregation, `solvers/amg.py`) coarse solve; the point-Jacobi,
+line (`solvers/line.py`) and cell-wise Schwarz (`solvers/schwarz.py`, on
+a DSS level `solvers/schwarz_dss.py`) Chebyshev smoothers; CG + Lanczos
 smoother calibration on the preconditioned operator, the W-cycle
 (``coarse_cfg["gamma"]``),
 the full-multigrid initial guess (`fmg_initial_guess`), the fused
@@ -58,13 +61,8 @@ DEFAULT_CALIBRATION_RTOL = 1e-6
 EIG_RANGE_FACTORS = (0.1, 1.1)
 
 _OPERATORS = ("dofmap", "lattice", "lattice_blocked", "kron",
-              "kron_blocked")
-_OPERATOR_TODO = ("operator='csr' (assembled sparse matvec) and 'dss' "
-                  "(unstructured row gathers) are not ported yet; they are "
-                  "ROADMAP.md Queue 1 items 6 and 8")
-_COARSE = ("smoother", "cg", "fdm", "direct", "hmg")
-_COARSE_TODO = ("coarse='amg' (smoothed-aggregation AMG) is not ported yet "
-                "(ROADMAP.md Queue 1 item 8)")
+              "kron_blocked", "dss", "csr")
+_COARSE = ("smoother", "cg", "fdm", "direct", "hmg", "amg")
 
 
 @dataclass(frozen=True)
@@ -75,8 +73,8 @@ class Level:
     ndofs: int
     smoother_iters: int = DEFAULT_SMOOTHER_ITERS
     shape: tuple | None = None
-    # The unstructured layout's static sizes: None until the DSS backend
-    # is ported (ROADMAP.md Queue 1 item 8).
+    # The unstructured layout's static sizes (`ops.unstructured.DSSMeta`)
+    # on a ``dss`` level; None otherwise.
     dss: object = None
     # Line-relaxation axis when the level's data carries "line_inv".
     line_axis: int = 2
@@ -85,16 +83,17 @@ class Level:
 def _level_precond(lv, level, ops):
     """The level's smoother preconditioner ``r -> M^-1 r`` when it carries
     line blocks (``line_inv``) or Schwarz data (``schwarz``, its partials
-    reconciled by ``ops["exchange"]`` on a device grid); None for point
-    Jacobi."""
-    if level.dss is not None:
-        raise NotImplementedError(
-            "the DSS Schwarz smoother is ROADMAP.md Queue 1 item 8")
+    reconciled by ``ops["exchange"]`` on a device grid; the cell blocks of
+    `solvers.schwarz_dss` on a DSS level); None for point Jacobi."""
     if "line_inv" in lv:
         from .line import line_precond_apply
 
         return lambda r: line_precond_apply(lv["line_inv"], r, level.shape,
                                             level.line_axis)
+    if "schwarz" in lv and level.dss is not None:
+        from .schwarz_dss import dss_schwarz_apply
+
+        return lambda r: dss_schwarz_apply(lv["schwarz"], r, lv, level.dss)
     if "schwarz" in lv:
         from .schwarz import schwarz_precond_apply
 
@@ -253,6 +252,48 @@ def default_cycle_ops(sigma=0.0):
     )
 
 
+def csr_cycle_ops():
+    """V-cycle primitives whose operator applies are ASSEMBLED sparse
+    matvecs (the `ops.csr.MatrixOperator` matrix ``A`` in the level data;
+    the reference's CSR fine-operator path, examples/pmg/main.cpp:40-43).
+    Dirichlet rows/columns are eliminated with unit diagonal at assembly
+    and any sigma/Robin shift is baked into the diagonal, so ``A @ x``
+    alone has the matrix-free semantics; transfers and dot are the dofmap
+    backend's."""
+    ops = default_cycle_ops()
+    ops["apply"] = lambda lv, x, level: torch.mv(lv["A"], x)
+    return ops
+
+
+def dss_cycle_ops(precision="highest", sigma=0.0):
+    """V-cycle primitives for unstructured hex topology on the DSS operator
+    (`ops.unstructured`): applies and p-transfers through the level's
+    gather / scatter tables; ``sigma`` adds the lumped-mass shift through
+    the bc-zeroed ``m3`` level vector; flat vectors."""
+    from ..ops.kron_blocked import _check_precision
+    from ..ops.unstructured import (
+        dss_laplacian_apply,
+        dss_prolongate,
+        dss_restrict,
+    )
+
+    _check_precision(precision)
+
+    def apply_op(lv, x, level):
+        return dss_laplacian_apply(x, lv, level.dss, sigma=sigma)
+
+    return dict(
+        apply=apply_op,
+        restrict=lambda tr, r, level_c, level_f: dss_restrict(
+            r, tr["M1"], tr["tf"], level_f.dss, tr["tc"], level_c.dss,
+            tr["inv_mult_f"]),
+        prolong=lambda tr, u, level_c, level_f: dss_prolongate(
+            u, tr["M1"], tr["tc"], level_c.dss, tr["tf"], level_f.dss),
+        dot=lambda u, v, lv: inner_product(u, v),
+        zeros=_zeros(True),
+    )
+
+
 def lattice_cycle_ops(precision="highest", sigma=0.0):
     """V-cycle primitives of the plain-torch lattice backend (general
     hexes, `ops.lattice`) with the lattice per-axis transfers; flat
@@ -381,7 +422,9 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
     cycle index: 1 = V-cycle (default), 2 = W-cycle; ``coarse="hmg"``
     reads its nested hierarchy from ``coarse_cfg`` (``hmg_levels``,
     ``hmg_ops``, ``hmg_bottom``, ``hmg_gamma``, ``cycles``: 2 unless set,
-    `PMGHierarchy` sets 3) and ``data["hmg"]``.
+    `PMGHierarchy` sets 3) and ``data["hmg"]``; ``coarse="amg"`` reads
+    ``coarse_cfg["amg_meta"]`` and ``cycles`` (2 unless set, `PMGHierarchy`
+    sets 3, as in the JAX package) and ``data["amg"]``.
     """
     coarse_cfg = coarse_cfg or {}
     L = len(levels)
@@ -493,7 +536,24 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
             )
         u0 = unslice(u0g.reshape(b0g_raw.shape))
     elif coarse == "amg":
-        raise NotImplementedError(_COARSE_TODO)
+        # Smoothed-aggregation AMG cycles on the p-coarse problem
+        # (solvers/amg.py): level 0 through this hierarchy's own apply and
+        # smoother, the deeper levels sparse CSR / dense. The aggregate
+        # index sums need flat carriers, so lattice-shaped backends reshape
+        # at this seam.
+        from .amg import amg_cycle
+
+        b0f = b0.reshape(-1)
+        shape0 = b0.shape
+        apply0f = lambda xf: ops["apply"](
+            lvs[0], xf.reshape(shape0), levels[0]).reshape(-1)
+        smooth0f = lambda lv, bb, xx, level: smooth(
+            lv, bb.reshape(shape0), xx.reshape(shape0), level).reshape(-1)
+        u0f = zeros(levels[0], b_in).reshape(-1)
+        for _ in range(coarse_cfg.get("cycles", 2)):
+            u0f = amg_cycle(data["amg"], b0f, u0f, coarse_cfg["amg_meta"],
+                            lvs[0], levels[0], smooth0f, apply0f)
+        u0 = u0f.reshape(shape0)
     else:
         raise ValueError(f"unknown coarse solver '{coarse}'")
     us[0] = u0
@@ -539,19 +599,25 @@ def fmg_initial_guess(data, b_in, *, levels, coarse="smoother",
 
 def _merge_state(dst, src, path):
     """Overwrite the arrays of ``dst`` that ``src`` also holds (recursing
-    into nested dicts); keys only ``dst`` has stay."""
-    for key, old in dst.items():
-        if key not in src:
+    into nested dicts and lists); keys only ``dst`` has stay."""
+    keys = range(len(dst)) if isinstance(dst, list) else list(dst)
+    for key in keys:
+        if isinstance(dst, list):
+            if key >= len(src):
+                continue
+        elif key not in src:
             continue
-        new = src[key]
-        if isinstance(old, dict):
+        old, new = dst[key], src[key]
+        if isinstance(old, (dict, list)):
             _merge_state(old, new, f"{path}.{key}")
         elif isinstance(old, torch.Tensor):
             if tuple(new.shape) != tuple(old.shape):
                 raise ValueError(
                     f"{path}.{key}: shape {tuple(new.shape)} does not match "
                     f"{tuple(old.shape)}")
-            dst[key] = new.to(device=old.device, dtype=old.dtype).contiguous()
+            new = new.to(device=old.device, dtype=old.dtype)
+            dst[key] = (new.contiguous() if old.layout == torch.strided
+                        else new)
 
 
 class PMGHierarchy:
@@ -571,16 +637,22 @@ class PMGHierarchy:
                  fuse_smoother=False, fuse_transfers=False,
                  smoother="cheb", *, device):
         """``operator`` is 'dofmap' (gather/scatter, any hex mesh),
-        'lattice' (plain torch, any hex mesh), 'lattice_blocked' (the
-        CUDA kernels on a CUDA device, any hex mesh, float32 only), 'kron'
-        (plain torch, axis-aligned boxes) or 'kron_blocked' (the CUDA
-        kernels, axis-aligned boxes, float32 only); ``coarse`` is
-        'smoother', 'cg', 'fdm' (axis-aligned only), 'direct' (dense
-        Cholesky of the assembled p=1 matrix, moderate sizes) or 'hmg'
+        'lattice' (plain torch, box-topology hex meshes), 'lattice_blocked'
+        (the CUDA kernels on a CUDA device, box-topology hex meshes,
+        float32 only), 'kron' (plain torch, axis-aligned boxes),
+        'kron_blocked' (the CUDA kernels, axis-aligned boxes, float32
+        only), 'dss' (the entity-blocked gather/scatter of
+        `ops.unstructured`, meshes with a ``dss_layout``) or 'csr' (the
+        assembled sparse matrix, any hex mesh, moderate sizes); ``coarse``
+        is 'smoother', 'cg', 'fdm' (axis-aligned only), 'direct' (dense
+        Cholesky of the assembled p=1 matrix, moderate sizes), 'hmg'
         (nested h-multigrid cycles: `solvers.hmg.build_hmg` on boxes,
         `build_hmg_general` on curved meshes; ``coarse_cfg`` keys
         ``sizes``, ``smoother``, ``bottom``, ``min_cells``, ``cycles``
-        (default 3), ``hmg_gamma``). ``kappa`` is a scalar, a per-axis
+        (default 3), ``hmg_gamma``) or 'amg' (smoothed-aggregation AMG
+        cycles, any mesh: `solvers.amg.build_amg`; ``coarse_cfg`` keys
+        ``theta``, ``dense_cap``, ``psmooth``, ``nu``, ``cycles`` (default
+        3)). ``kappa`` is a scalar, a per-axis
         tuple, a DG-0 ``(ncells,)`` array, a symmetric ``(3, 3)`` or
         ``(ncells, 3, 3)`` tensor (folded into the geometry factors) or a
         callable sampled at the cell centroids; the Kronecker backends and
@@ -623,14 +695,17 @@ class PMGHierarchy:
                 "fuse_smoother/fuse_transfers require operator="
                 "'kron_blocked' (kernel epilogues/transfers)"
             )
-        if operator in ("csr", "dss"):
-            raise NotImplementedError(_OPERATOR_TODO)
         if operator not in _OPERATORS:
             raise ValueError(
                 f"unknown operator backend {operator!r}; expected one of "
                 f"{_OPERATORS}")
-        if coarse == "amg":
-            raise NotImplementedError(_COARSE_TODO)
+        if operator == "dss" and not hasattr(mesh, "dss_layout"):
+            raise ValueError(
+                "operator='dss' needs a mesh with a DSS entity layout "
+                "(UnstructuredHexMesh); box meshes should use the faster "
+                "'kron'/'lattice' families - or wrap the box as "
+                "UnstructuredHexMesh(geometry_x, geometry_dofmap) to force "
+                "the unstructured path")
         if coarse not in _COARSE:
             raise ValueError(f"unknown coarse solver '{coarse}'")
         if precision != "highest":
@@ -660,8 +735,12 @@ class PMGHierarchy:
                     "smoother='cheb' with a sigma field"
                 )
         self._sigma_field = sigma_field
-        if (not any(any(f) for f in mesh.dirichlet_faces)
-                and self.sigma == 0.0 and not mesh.has_robin):
+        # Duck-typed meshes (UnstructuredHexMesh) carry no face flags: every
+        # boundary face is Dirichlet unless their marker says otherwise.
+        if (not any(any(f) for f in getattr(mesh, "dirichlet_faces",
+                                            ((True, True),) * 3))
+                and self.sigma == 0.0
+                and not getattr(mesh, "has_robin", False)):
             raise ValueError(
                 "pure-Neumann problem (no Dirichlet face) with sigma=0 is "
                 "singular (constant nullspace); add a Dirichlet face, a "
@@ -735,6 +814,10 @@ class PMGHierarchy:
         elif operator == "lattice_blocked":
             self._ops = lattice_blocked_cycle_ops(precision=precision,
                                                   sigma=ops_sigma)
+        elif operator == "dss":
+            self._ops = dss_cycle_ops(precision, sigma=ops_sigma)
+        elif operator == "csr":
+            self._ops = csr_cycle_ops()
         else:
             self._ops = default_cycle_ops(sigma=ops_sigma)
         ops = self._ops
@@ -744,13 +827,17 @@ class PMGHierarchy:
 
         level_data = []
         levels = []
+        lattice_family = kron_family or operator in ("lattice",
+                                                     "lattice_blocked")
         for P in self.degrees:
-            shape = mesh.lattice_shape(P)
+            # only the tensor-product families read the lattice shape (a
+            # box-only attribute)
+            shape = mesh.lattice_shape(P) if lattice_family else None
             ndofs = mesh.num_dofs(P)
             bc_np = mesh.boundary_dof_marker(P)
             bc = torch.tensor(bc_np, device=self.device)
             level = Level(P=P, ndofs=ndofs, smoother_iters=smoother_iters,
-                          shape=None if operator == "dofmap" else shape)
+                          shape=shape)
             if kron_family:
                 bc = bc.reshape(shape)
                 lv = {}
@@ -785,6 +872,18 @@ class PMGHierarchy:
                     )
                     for name in "xyz":
                         del lv["K" + name], lv["m" + name]
+            elif operator == "csr":
+                # Assembled on the host (float64) with the bc rows and the
+                # pointwise shift baked in; the exact assembled diagonal.
+                from ..ops.csr import MatrixOperator
+
+                mo = MatrixOperator(
+                    mesh, P, kappa=self.kappa_cells, dtype=dtype,
+                    shift_diag=(ops_sigma * self._baked_m3_np(mesh, P)
+                                if ops_sigma else None),
+                    device=self.device)
+                lv = dict(A=mo._A, bc_marker=bc)
+                diag = mo.diag
             else:
                 # General family: geometry factors in float64 on the host
                 # (shared with the rhs and the error norm), cast once.
@@ -805,6 +904,20 @@ class PMGHierarchy:
                         lb_mats=lattice_blocked_mats(
                             mesh.nc, P, dtype, device=self.device),
                     )
+                elif operator == "dss":
+                    # The dofmap backend's G / coeff split on the DSS
+                    # tables (a tensor kappa is folded into G).
+                    from ..ops.unstructured import (
+                        dss_device_tables,
+                        dss_meta,
+                    )
+
+                    layout = mesh.dss_layout(P)
+                    lv = dict(dss_device_tables(layout, dtype,
+                                                device=self.device),
+                              G=tensor(G_cells), coeff=tensor(kc),
+                              D=tensor(derivative_matrix(P)))
+                    level = dataclasses.replace(level, dss=dss_meta(layout))
                 else:
                     lv = dict(dofmap=dofmap_t(P), G=tensor(G_cells),
                               coeff=tensor(kc),
@@ -813,7 +926,8 @@ class PMGHierarchy:
                 # The exact diagonal through the dofmap formulation.
                 diag = laplacian_diagonal(
                     lv["dofmap"] if "dofmap" in lv else dofmap_t(P),
-                    lv["G"] if operator == "dofmap" else tensor(G_cells),
+                    lv["G"] if operator in ("dofmap", "dss")
+                    else tensor(G_cells),
                     tensor(kc), tensor(derivative_matrix(P)), bc, ndofs)
                 if ops_sigma:
                     # The pointwise shift (`_baked_m3_np`: the bc-zeroed
@@ -828,14 +942,23 @@ class PMGHierarchy:
                 lv["line_inv"] = tensor(line_block_inverses(
                     mesh, P, kappa, self._line_axis, sigma=self.sigma))
                 level = dataclasses.replace(level, line_axis=self._line_axis,
-                                            shape=shape)
+                                            shape=mesh.lattice_shape(P))
+            elif self._schwarz and operator == "dss":
+                # Unstructured topology: per-cell separable blocks from each
+                # cell's own edge geometry, applied through the DSS tables.
+                from .schwarz_dss import build_schwarz_dss
+
+                lv["schwarz"] = build_schwarz_dss(mesh, P, kappa, dtype,
+                                                  sigma=self.sigma,
+                                                  device=self.device)
             elif self._schwarz:
                 from .schwarz import build_schwarz
 
                 lv["schwarz"] = build_schwarz(mesh, P, kappa, dtype,
                                               sigma=self.sigma,
                                               device=self.device)
-                level = dataclasses.replace(level, shape=shape)
+                level = dataclasses.replace(level,
+                                            shape=mesh.lattice_shape(P))
             vshape = shape if kron_family else (ndofs,)
             # Smoother calibration: 20 recorded CG iterations on A x = 1,
             # Lanczos estimate, lmax inflated by 1.1.
@@ -856,7 +979,15 @@ class PMGHierarchy:
         transfer = []
         for i in range(len(self.degrees) - 1):
             Pc, Pf = self.degrees[i], self.degrees[i + 1]
-            if operator == "dofmap":
+            if operator == "dss":
+                # The DSS transfers read the two levels' tables (the same
+                # dicts, no copies).
+                transfer.append(dict(
+                    M1=tensor(interpolation_matrix_1d(Pc, Pf)),
+                    tc=level_data[i], tf=level_data[i + 1],
+                    inv_mult_f=tensor(1.0 / mesh.dof_multiplicity(Pf)),
+                ))
+            elif operator in ("dofmap", "csr"):
                 transfer.append(dict(
                     M1=tensor(interpolation_matrix_1d(Pc, Pf)),
                     dofmap_c=dofmap_t(Pc), dofmap_f=dofmap_t(Pf),
@@ -875,6 +1006,30 @@ class PMGHierarchy:
             self.data["coarse_chol"] = tensor(dense_cholesky(
                 mesh, self.degrees[0], self.kappa_cells, self.sigma,
                 sigma_field))
+        elif coarse == "amg":
+            import scipy.sparse as sp
+
+            from ..fem.assembly import assemble_stiffness, shifted_mass_np
+            from .amg import DENSE_CAP, build_amg
+
+            cfg = self.coarse_cfg
+            A0 = assemble_stiffness(mesh, self.degrees[0],
+                                    kappa=self.kappa_cells).tocsr()
+            if self.sigma:
+                A0 = (A0 + sp.diags(self.sigma * shifted_mass_np(
+                    mesh, self.degrees[0], sigma_field))).tocsr()
+            amg_data, amg_meta = build_amg(
+                A0, mesh.boundary_dof_marker(self.degrees[0]), dtype,
+                theta=cfg.get("theta", 0.0),
+                dense_cap=cfg.get("dense_cap", DENSE_CAP),
+                smoother_iters=smoother_iters,
+                psmooth=cfg.get("psmooth", 2), nu=cfg.get("nu", 2),
+                device=self.device)
+            self.data["amg"] = amg_data
+            cfg["amg_meta"] = amg_meta
+            # 3 cycles (the JAX package's default here; `v_cycle` alone
+            # defaults to 2)
+            cfg.setdefault("cycles", 3)
         elif coarse == "hmg":
             cfg = self.coarse_cfg
             kw = dict(smoother_iters=smoother_iters, precision=precision,
@@ -941,8 +1096,9 @@ class PMGHierarchy:
             _merge_state(self.data["levels"][i], lv, f"levels[{i}]")
         for i, tr in enumerate(data.get("transfer", ())):
             _merge_state(self.data["transfer"][i], tr, f"transfer[{i}]")
-        if "fdm" in data and "fdm" in self.data:
-            _merge_state(self.data["fdm"], data["fdm"], "fdm")
+        for key in ("fdm", "amg"):
+            if key in data and key in self.data:
+                _merge_state(self.data[key], data[key], key)
 
     def _vcycle(self, b, u):
         return v_cycle(self.data, b, u, levels=self.levels,

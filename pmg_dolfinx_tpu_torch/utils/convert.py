@@ -11,7 +11,13 @@ folded in, ``E*``/``D*``, ``m3`` with a sigma field and the Robin mass
 baked in) and the dofmap levels (``dofmap``, ``G``, ``coeff``, ``D``),
 with
 ``diag_inv``, ``lmax`` and the transfers (``I*`` or ``M1``,
-``dofmap_c``/``dofmap_f``, ``mult_f``). Pass the result to the port's
+``dofmap_c``/``dofmap_f``, ``mult_f``); the ``csr`` levels' BCOO matrices
+become torch sparse CSR tensors; the ``dss`` levels carry their ``G``,
+``coeff``, ``D``, ``m3``, Schwarz blocks and transfer weights (the JAX
+TPU row-gather tables have no port counterpart and are left out: the
+port's own tables come from the same mesh's layout); the ``amg`` coarse
+data (``agg0``, ``scale0``, ``dinv0``, ``omega0``, the ``inner`` sparse
+levels and ``chol``) carries over whole. Pass the result to the port's
 `PMGHierarchy.load_state` to run its cycles on the JAX state (the
 calibrated ``lmax`` included), so cycle parity is tested apart from
 calibration parity.
@@ -28,11 +34,36 @@ import numpy as np
 import torch
 
 
+# The JAX DSS level's TPU layout tables (row gathers, variant-sorted
+# slices, the one-hot permutation matrix): the port builds its own.
+_JAX_DSS_TABLES = frozenset((
+    "vert_id", "vert_src", "face_id", "edge_id", "face_src", "edge_src",
+    "face_gid", "face_gunsort", "face_sorder", "face_ssrc", "edge_gid",
+    "edge_gunsort", "edge_sorder", "edge_ssrc", "pmat"))
+
+
+def _sparse(M, device, dtype):
+    """A BCOO (``data``, ``indices`` ``(nnz, 2)``, ``shape``) as a torch
+    sparse CSR tensor."""
+    import scipy.sparse as sp
+
+    from ..ops.csr import to_sparse_csr
+
+    idx = np.asarray(M.indices)
+    C = sp.coo_matrix((np.asarray(M.data, np.float64),
+                       (idx[:, 0], idx[:, 1])), shape=tuple(M.shape))
+    return to_sparse_csr(C.tocsr(), dtype, device)
+
+
 def _convert(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+        return {k: _convert(v, device, dtype) for k, v in tree.items()
+                if k not in _JAX_DSS_TABLES}
     if isinstance(tree, (list, tuple)):
         return [_convert(v, device, dtype) for v in tree]
+    if hasattr(tree, "indices") and hasattr(tree, "data") and not isinstance(
+            tree, np.ndarray):
+        return _sparse(tree, device, dtype)
     arr = np.asarray(tree)
     if arr.dtype == np.bool_:
         return torch.tensor(arr, device=device)
@@ -42,16 +73,17 @@ def _convert(tree, device, dtype):
 
 
 def hierarchy_data_from_numpy(tree, device, dtype):
-    """Port-layout hierarchy data (``levels``, ``transfer``, ``fdm``)
-    from a numpy copy of the JAX hierarchy's data tree; float arrays are
-    cast to ``dtype``, bool markers stay bool, integer dofmaps become
-    int64."""
+    """Port-layout hierarchy data (``levels``, ``transfer``, ``fdm``,
+    ``amg``) from a numpy copy of the JAX hierarchy's data tree; float
+    arrays are cast to ``dtype``, bool markers stay bool, integer dofmaps
+    and aggregate maps become int64, BCOO matrices sparse CSR."""
     out = {
         "levels": _convert(list(tree["levels"]), device, dtype),
         "transfer": _convert(list(tree["transfer"]), device, dtype),
     }
-    if "fdm" in tree:
-        out["fdm"] = _convert(tree["fdm"], device, dtype)
+    for key in ("fdm", "amg"):
+        if key in tree:
+            out[key] = _convert(tree[key], device, dtype)
     return out
 
 

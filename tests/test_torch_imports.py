@@ -59,7 +59,9 @@ _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "solvers.pmg", "solvers.cg", "solvers.fdm",
                 "solvers.transient", "utils.convert", "ops.blas", "ops.kron",
                 "parallel.partition", "parallel.dist", "parallel.grid2d",
-                "solvers.line", "solvers.schwarz", "solvers.hmg")
+                "solvers.line", "solvers.schwarz", "solvers.hmg",
+                "fem.unstructured", "ops.unstructured", "ops.csr",
+                "solvers.amg", "solvers.schwarz_dss")
 
 
 def test_general_hex_modules_import_no_jax():

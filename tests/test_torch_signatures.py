@@ -471,21 +471,21 @@ def test_blocked_lattice_entry_points_keyword_knobs(entry):
                                          ("hmg", None),
                                          ("amg", "item 8")])
 def test_coarse_refusal_names_its_roadmap_item(coarse, item):
-    """`PMGHierarchy`'s refusal of an unported coarse solver names the
-    ROADMAP item that ports it (8 for 'amg'); 'direct' and 'hmg' (item
-    7a, ported) bind JAX's positional ``(mesh, degrees, kappa, dtype,
-    smoother_iters, coarse, coarse_cfg)`` and cycle as JAX's (f64,
-    1e-12)."""
+    """The coarse solvers the port once refused, by the ROADMAP item that
+    ported them ('direct' and 'hmg': item 7a; 'amg': item 8, which the
+    refusal named): each binds JAX's positional ``(mesh, degrees, kappa,
+    dtype, smoother_iters, coarse, coarse_cfg)`` and cycles as JAX's
+    (f64, 1e-12), and no refusal names the item any more."""
+    import inspect
+
     from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy as JH
+    from pmg_dolfinx_tpu_torch.solvers import pmg as tpmg
     from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
 
     args = ((1, 2), 2.0)
     rest = (2, coarse, None)
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            PMGHierarchy(TBox((2, 2, 2)), *args, torch.float64, *rest,
-                         device="cpu")
-        return
+        assert item not in inspect.getsource(tpmg)
     th = PMGHierarchy(TBox((2, 2, 2)), *args, torch.float64, *rest,
                       device="cpu")
     jh = JH(JBox((2, 2, 2)), *args, jnp.float64, *rest)
@@ -568,3 +568,97 @@ def test_coefficient_helpers_positional(name):
         else:
             assert np.abs(np.asarray(g) - np.asarray(w)).max() <= (
                 1e-13 * max(1.0, np.abs(np.asarray(w)).max()))
+
+
+def _positional(fn):
+    import inspect
+
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind != p.KEYWORD_ONLY]
+
+
+@pytest.mark.parametrize("mod,name", [
+    ("fem.unstructured", "UnstructuredHexMesh"),
+    ("fem.unstructured", "l_shaped_hex_mesh"),
+    ("fem.unstructured", "load_hex_mesh_npz"),
+    ("fem.unstructured", "read_gmsh_hex"),
+    ("fem.unstructured", "gmsh_corner_permutation"),
+    ("ops.unstructured", "DSSMeta"),
+    ("ops.unstructured", "dss_meta"),
+    ("ops.unstructured", "dss_device_tables"),
+    ("ops.unstructured", "dss_gather"),
+    ("ops.unstructured", "dss_scatter"),
+    ("ops.unstructured", "apply_cells"),
+    ("ops.unstructured", "dss_laplacian_apply"),
+    ("ops.unstructured", "dss_prolongate"),
+    ("ops.unstructured", "dss_restrict"),
+    ("ops.csr", "MatrixOperator"),
+    ("ops.csr", "InterpolationMatrixOperator"),
+    ("solvers.amg", "aggregate"),
+    ("solvers.amg", "build_amg"),
+    ("solvers.amg", "amg_cycle"),
+    ("solvers.schwarz_dss", "build_schwarz_dss"),
+    ("solvers.schwarz_dss", "dss_schwarz_apply"),
+    ("solvers.pmg", "csr_cycle_ops"),
+    ("solvers.pmg", "dss_cycle_ops"),
+])
+def test_unstructured_family_signatures(mod, name):
+    """The unstructured family keeps JAX's public names and positional
+    orders; the port adds only the keyword-only ``device``."""
+    import importlib
+
+    jf = getattr(importlib.import_module(f"pmg_dolfinx_tpu.{mod}"), name)
+    tf = getattr(importlib.import_module(f"pmg_dolfinx_tpu_torch.{mod}"),
+                 name)
+    assert _positional(tf) == _positional(jf)
+
+
+def test_unstructured_positional_calls_match_jax():
+    """The positional calls of JAX's unstructured tests bind the same
+    arguments in the port: ``UnstructuredHexMesh(nodes, cells, dirichlet,
+    tol, tagged_faces)``, ``build_amg(A0, bc_mask, dtype, theta,
+    dense_cap)``, ``dss_laplacian_apply(x, lv, meta, precision, sigma,
+    apply_bc)`` (f64, 1e-12)."""
+    from pmg_dolfinx_tpu.fem import unstructured as ju
+    from pmg_dolfinx_tpu.ops import unstructured as jus
+    from pmg_dolfinx_tpu.solvers import amg as jamg
+    from pmg_dolfinx_tpu_torch.fem import unstructured as tu
+    from pmg_dolfinx_tpu_torch.fem.assembly import (
+        assemble_stiffness,
+        geometry_factors_np,
+    )
+    from pmg_dolfinx_tpu_torch.fem.gll import derivative_matrix
+    from pmg_dolfinx_tpu_torch.ops import unstructured as tus
+    from pmg_dolfinx_tpu_torch.solvers import amg as tamg
+
+    base = ju.l_shaped_hex_mesh(2)
+    sel = lambda x: x[2] < 0.5
+    args = (base.geometry_x, base.geometry_dofmap, sel, 1e-7, None)
+    mt, mj = tu.UnstructuredHexMesh(*args), ju.UnstructuredHexMesh(*args)
+    assert mt.tol == mj.tol == 1e-7
+    assert np.array_equal(mt.boundary_dof_marker(2),
+                          mj.boundary_dof_marker(2))
+    A = assemble_stiffness(mt, 1, kappa=2.0).tocsr()
+    bc = mt.boundary_dof_marker(1)
+    dt, metat = tamg.build_amg(A, bc, torch.float64, 0.0, 3, device="cpu")
+    dj, metaj = jamg.build_amg(A, bc, jnp.float64, 0.0, 3)
+    assert metat == metaj
+    assert np.abs(dt["chol"].numpy() - np.asarray(dj["chol"])).max() <= 1e-12
+    P = 2
+    lt, lj = mt.dss_layout(P), mj.dss_layout(P)
+    G = geometry_factors_np(mt, P)[0]
+    D = derivative_matrix(P)
+    bcm = mt.boundary_dof_marker(P)
+    lvt = dict(tus.dss_device_tables(lt, device="cpu"), G=torch.tensor(G),
+               coeff=torch.ones(mt.ncells, dtype=torch.float64),
+               D=torch.tensor(D), bc_marker=torch.tensor(bcm),
+               m3=torch.ones(mt.num_dofs(P), dtype=torch.float64))
+    lvj = dict(jus.dss_device_tables(lj), G=jnp.asarray(G),
+               coeff=jnp.ones(mt.ncells), D=jnp.asarray(D),
+               bc_marker=jnp.asarray(bcm), m3=jnp.ones(mt.num_dofs(P)))
+    x = np.random.default_rng(2).standard_normal(mt.num_dofs(P))
+    yt = tus.dss_laplacian_apply(torch.tensor(x), lvt, tus.dss_meta(lt),
+                                 "highest", 0.5, False)
+    yj = jus.dss_laplacian_apply(jnp.asarray(x), lvj, jus.dss_meta(lj),
+                                 "highest", 0.5, False)
+    assert _rel(yt, yj) <= 1e-12
