@@ -13,13 +13,16 @@ h-multigrid coarse solve), the serving (transient) steppers, the
 AMG-driver twin, the coefficient and boundary-condition family
 (graded spacing, Neumann and Robin faces, per-axis, tensor and variable
 kappa, sigma fields) and the unstructured-mesh family (the DSS and csr
-operators, the DSS Schwarz smoother, the AMG coarse solve) through them.
+operators, the DSS Schwarz smoother, the AMG coarse solve) and the
+transient and extra model families (steady and implicit Newton,
+convection-diffusion with BiCGStab, the semilinear serving and IMEX
+steppers, modal LOBPCG) through them.
 Every phase raises on failure; nothing is caught. The phases run in the
-order 1-3f, 4-4e, 14, 15, 18d, 24a, 19a-19c, 5-8b, 16, 17, 20a-20c, 9-11,
-21, 12, 13, 18a-18c, 22, 23a-23d, 24b: 15, 18d, 24a, 19b, 20a and 20c
-reuse phase 4's mesh (and its host geometry factors), 16 and 17 phase
-7's. The 16.2M L2 errors of phases 4, 15 and 19a run on host threads
-(joined after phase 5), and the L-shaped meshes of phases 22-23 build on
+order 1-3f, 4-4e, 14, 15, 18d, 24a, 25a, 25b, 19a-19c, 5-8b, 16, 17,
+20a-20c, 9-11, 21, 12, 13, 18a-18c, 22, 23a-23d, 24b, 25c-25f: 15, 18d,
+24a, 25a, 25b, 19b, 20a and 20c reuse phase 4's mesh (and its host
+geometry factors; 25a its hierarchy), 16 and 17 phase 7's. The 16.2M L2
+errors of phases 4, 15 and 19a run on host threads (joined after phase 5), and the L-shaped meshes of phases 22-23 build on
 host threads started with phase 2. The script prints its seconds.
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch,
@@ -230,7 +233,8 @@ host threads started with phase 2. The script prints its seconds.
    1e-4, wall and busy ms per V-cycle and the idle share beside phase
    7's.
 18. The remaining entry points. a: ``examples/amg_torch.py --ndofs
-   2000000 --pc jacobi|cheb|hmg``, box and ``--mesh perturbed``, in this
+   500000 --pc jacobi|cheb|hmg`` (cut from 2M for time), box and ``--mesh
+   perturbed``, in this
    process: hmg-CG below Jacobi-CG's iterations on each mesh. b:
    ``coarse="direct"`` at nc=14, p=(1,3,6), ``kron_blocked``, against
    ``coarse="fdm"`` at the same smoother bounds: trajectories within 1e-4
@@ -295,6 +299,37 @@ host threads started with phase 2. The script prints its seconds.
    (cuSPARSE) on ``l_shaped_hex_mesh(4)``, p=(1,3): FCG within 1 of the
    ``dss`` hierarchy's, one V-cycle within 1e-5 of it.
 
+25. The transient and extra model families (no new kernel: JAX writes
+   BiCGStab, LOBPCG, the advection and the reactions as XLA ops). a (run
+   after 24a): `newton_solve` on phase 4's hierarchy, cubic(5) with its
+   manufactured source and Bratu(5); the f32 floor ``|F32(u64)| / |F0|``
+   at the f64 solution (Newton on a plain f64 ``kron`` hierarchy) sets
+   rtol = 10 x floor; Newton within 8 steps, cubic collocated L2 < 1e-4,
+   ms per Newton step, FCG per step, #1-#3 launch; both f32 solutions
+   within 1e-3 of the f64 ones. b (after 25a): `convdiff_solve` on plain
+   ``kron`` hierarchies, f32 (rtol 1e-8) and f64, at 16.2M (velocity
+   (3,-1.5,0.8), kappa 2) and nc=21: f32 against f64 within twice the f32
+   floor predicted in f64, ``A^-1 (A32 u64 - b)`` (at 16.2M also the L2
+   error), at nc=21 also within 1e-4; and `sd_stabilized_kappa` at cell
+   Pe 21 (the JAX README's 6^3 case, f64, 'p' and 'cell'): BiCGStab
+   counts, ms per iteration. c (after 24b):
+   `semilinear_packed_evolve` at 61^3, p=6, 200 steps, CNAB and BE at B=1
+   (#21) and 8 (#19), Bratu at B=8: each column within 1e-4 of the f64
+   `semilinear_fdm_evolve`; steps/s (3 reps), busy ms per step and idle
+   share (complete profiler window), launches. d: `semilinear_fdm_evolve`
+   and `convdiff_fdm_evolve` (CNAB, f32) at 2,048,383 dofs, p=3, 200
+   steps: within 1e-4 of f64, steps/s. e: `semilinear_newton_evolve` at
+   nc=21, p=(1,3,6), ``kron_blocked``, 5 steps, rtol by 25a's rule: within
+   1e-4 of the f64 ``kron`` run, Newton per step, #1-#3 launch. f:
+   `examples/modes_torch.py` (f64) ``--ndofs 100000 --kmodes 6 --neumann
+   x --sigma 5`` and ``--mesh perturbed --ndofs 1000 --kmodes 1`` (its
+   ``lattice`` + ``cg`` hierarchy); that hierarchy at ~30k dofs for 2 LOBPCG
+   iterations (FCG per solve below its cap, coarse CG per V-cycle); and
+   `lowest_eigenpairs` on the ~30k-dof ``PerturbedBoxMesh`` (k=1, tol
+   1e-14, a ``lattice`` + ``direct`` hierarchy): each pair's ``|K u - lam
+   M u| / |lam M u|`` against the host scipy stiffness (1e-7, 1e-6),
+   M-orthonormality <= 1e-10, LOBPCG iterations and seconds.
+
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
 PyTorch call computes the same function, and its bound: bytes over 3.35
@@ -306,9 +341,9 @@ their separable twin's device time, #12 with the blocked apply's), the
 lattice kernels with their box and face
 scratch, the serving kernels per batch beside ``bound_ms_by_batch``;
 ``launches`` sums each kernel's launches over every path that runs it
-(#1-#3 phases 4, 15, 24a and 19a/19b, #4/#7/#10/#11 phases 4b-4e and 19c, #9
-phases 14 and 18d, K-A phases 7, 16, 17, 20a and 20b, K-B phases 8 and
-20c, #18-#21 phases 11 and 21),
+(#1-#3 phases 4, 15, 24a, 25a, 25e and 19a/19b, #4/#7/#10/#11 phases
+4b-4e and 19c, #9 phases 14 and 18d, K-A phases 7, 16, 17, 20a and 20b,
+K-B phases 8 and 20c, #18-#21 phases 11 and 21, #19/#21 phase 25c),
 with their kernels and host us per call and, with ``--parent``, the
 parent's device times and whether the bits are the same) and, only when every
 phase passed, the last line
@@ -2999,14 +3034,17 @@ def curved_hmg(curved, niter_ref, vc_ref, busy_ref, ccfg, launches):
             by_name.items(), key=lambda kv: -kv[1])[:8]))
 
 
+AMG_TWIN_NDOFS = 500000   # cut from 2,000,000 (112 s, mostly host setup)
+
+
 def amg_twin():
-    """Phase 18a: ``examples/amg_torch.py --ndofs 2000000 --pc
+    """Phase 18a: ``examples/amg_torch.py --ndofs AMG_TWIN_NDOFS --pc
     jacobi|cheb|hmg``, box and ``--mesh perturbed``, in this process, one
-    mesh object per cell count (the fit gives 124 x 124 x 127 cells,
-    2,000,000 p=1 dofs; the hmg runs round them to multiples of 4, 124 x
-    124 x 128, h-levels down to 31 x 31 x 32 cells with a ``cg`` bottom,
-    as the JAX driver does): h-multigrid-preconditioned CG must take
-    fewer iterations than Jacobi-CG on each mesh."""
+    mesh object per cell count (the hmg runs round the fitted cells to
+    multiples of 4, with a ``cg`` bottom, as the JAX driver does):
+    h-multigrid-preconditioned CG must take fewer iterations than
+    Jacobi-CG on each mesh. Cut from the driver's 2M to keep the script in
+    its time limit: the six runs were mostly host setup."""
     from pmg_dolfinx_tpu_torch.utils import timers
 
     spec = importlib.util.spec_from_file_location(
@@ -3016,7 +3054,7 @@ def amg_twin():
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, PerturbedBoxMesh
     from pmg_dolfinx_tpu_torch.models.poisson import fit_box_cells
 
-    nc = fit_box_cells(2000000, 1)
+    nc = fit_box_cells(AMG_TWIN_NDOFS, 1)
     nc4 = tuple((c + 3) // 4 * 4 for c in nc)   # the driver's hmg rounding
     for mesh in ("box", "perturbed"):
         iters = {}
@@ -3028,8 +3066,8 @@ def amg_twin():
             buf = io.StringIO()
             ts = time.perf_counter()
             with contextlib.redirect_stdout(buf):
-                iters[pc] = mod.main(["--ndofs", "2000000", "--pc", pc,
-                                      "--mesh", mesh],
+                iters[pc] = mod.main(["--ndofs", str(AMG_TWIN_NDOFS), "--pc",
+                                      pc, "--mesh", mesh],
                                      mesh=meshes[nc4 if pc == "hmg" else nc])
             keep = [line for line in buf.getvalue().splitlines()
                     if line.startswith(("mesh", "h-MG", "Chebyshev", "CG",
@@ -3944,6 +3982,702 @@ def csr_small():
         raise AssertionError(f"24b: FCG {its}, V-cycle {err}")
 
 
+# --- phases 25a-25f: the transient and extra model families (no new kernel)
+
+NEWTON_MAXSTEPS = 8   # 25a gate: Newton steps
+SMALL_NC = (21, 21, 21)   # 25b's in-card reference and 25e: 2,048,383 dofs
+IMEX_NC = (42, 42, 42)    # 25d at p=3: 2,048,383 dofs
+IMEX_RTOL = 1e-4      # 25b-25e gates: f32 against the f64 run, rel max-norm
+# 25a: the f32 Newton solutions against the f64 ones, rel max-norm. The f32
+# solves stop at 10x the f32 floor; cubic and Bratu measured 1.68e-4 and
+# 1.92e-4 (NVIDIA H100 80GB HBM3, 700 W); an operator fault shows as O(1).
+NEWTON_F64_RTOL = 1e-3
+# 25b: f32 against f64 within this factor of the f32 operator's own floor,
+# predicted in f64 as A^-1 (A32 u64 - b). Measured / predicted on the CPU
+# at p=6: 0.96-1.02 at nc=6-12, 1.57 at nc=4 (15,625 dofs, where the
+# solve's other f32 rounding is as large as the operator's).
+CONV_FLOOR_FACTOR = 2.0
+SEMI_C = 5.0          # cubic(5), the driver's default
+BRATU_LAM = 5.0
+
+
+def rel_l2(got, ref):
+    import torch
+
+    return float(torch.linalg.vector_norm(got - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+def f_norm(hier, u, b, nl):
+    """``|A u + m3 N(u) - b|`` with ``hier``'s fine operator (its dtype and
+    backend): the Newton residual of `solvers.newton`, on flat vectors."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import lumped_mass_np
+
+    lv, fine = hier.data["levels"][-1], hier.levels[-1]
+    m3 = hier._to_work(lumped_mass_np(hier.mesh, fine.P, bc_zero=True))
+    uw, bw = hier._to_work(u), hier._to_work(b)
+    F = hier._ops["apply"](lv, uw, fine) + m3 * nl.N(uw) - bw
+    return float(torch.sqrt(hier._ops["dot"](F, F, lv)))
+
+
+def newton_f32(hier, b, nl, rtol, tag, atol=0.0):
+    """`newton_solve` on ``hier`` with its wall time: (u, info, ms per
+    Newton step). Raises unless it converges within NEWTON_MAXSTEPS."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.solvers.newton import newton_solve
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import lumped_mass_np
+
+    # newton_solve forms the lumped mass on the host on every call, as
+    # the JAX package does; timed alone here, and left out of ms per step.
+    ts = time.perf_counter()
+    lumped_mass_np(hier.mesh, hier.levels[-1].P, bc_zero=True)
+    host = (time.perf_counter() - ts) * 1e3
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    u, info = newton_solve(hier, b, nl, rtol=rtol, atol=atol)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - ts) * 1e3
+    per = (wall - host) / max(info["niter"], 1)
+    print(f"    {tag}: {info['niter']} Newton steps, converged "
+          f"{info['converged']}, |F|/|F0| "
+          f"{[f'{f / info['fnorms'][0]:.3e}' for f in info['fnorms']]}, FCG "
+          f"per step {info['lin_iters']}; {wall:.1f} ms, of which the host "
+          f"lumped mass {host:.1f} ms: {per:.2f} ms per Newton step")
+    if not (info["converged"] and info["niter"] <= NEWTON_MAXSTEPS
+            and bool(torch.isfinite(u).all())):
+        raise AssertionError(f"{tag}: Newton did not converge within "
+                             f"{NEWTON_MAXSTEPS}: {info}")
+    return u, info, per
+
+
+def newton_flagship(prob, cfg, launches):
+    """Phase 25a: `newton_solve` on phase 4's flagship hierarchy (16.2M
+    dofs, p=(1,3,6), ``kron_blocked`` + ``fdm``, f32), cubic(5) with its
+    manufactured source and Bratu(5) with f = 0. First the f32 operator's
+    floor: ``|F|`` at the f64 solution (Newton on a plain ``kron`` f64
+    hierarchy, rtol 1e-10), evaluated with the f32 operator, over ``|F0|``;
+    the f32 runs take rtol = 10 x that floor. Gates: Newton within
+    NEWTON_MAXSTEPS, the cubic's collocated L2 error < 1e-4, #1-#3 launch.
+    Returns {tag: (Newton steps, ms per Newton step)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import (assemble_rhs,
+                                                    l2_error_collocated)
+    from pmg_dolfinx_tpu_torch.models import semilinear
+    from pmg_dolfinx_tpu_torch.models.poisson import u_exact
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.solvers.newton import newton_solve
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    hier, mesh, P = prob.hierarchy, prob.mesh, 6
+    ts = time.perf_counter()
+    cubic = semilinear.cubic(SEMI_C)
+    cases = {"cubic": (cubic, assemble_rhs(mesh, P, semilinear.f_rhs_semilinear(
+        2.0, cubic))), "bratu": (semilinear.bratu(BRATU_LAM),
+                                 np.zeros(mesh.num_dofs(P)))}
+    print(f"    rhs assembly {time.perf_counter() - ts:.2f} s (host)")
+    ts = time.perf_counter()
+    h64 = PMGHierarchy(mesh, operator="kron", **dict(cfg,
+                                                     dtype=torch.float64))
+    torch.cuda.synchronize()
+    print(f"    f64 plain kron hierarchy setup {time.perf_counter() - ts:.2f} "
+          "s")
+    out, rtols, refs = {}, {}, {}
+    for tag, (nl, b) in cases.items():
+        ts = time.perf_counter()
+        u64, i64 = newton_solve(h64, b, nl, rtol=1e-10)
+        f0 = i64["fnorms"][0]
+        floor = f_norm(hier, u64, b, nl) / f0
+        rtols[tag] = 10.0 * floor
+        refs[tag] = u64
+        print(f"    {tag}: f64 Newton {i64['niter']} steps (FCG "
+              f"{i64['lin_iters']}, {time.perf_counter() - ts:.2f} s), "
+              f"|F64|/|F0| {i64['fnorms'][-1] / f0:.3e}; f32 operator at the "
+              f"f64 solution: |F32|/|F0| = {floor:.3e} (the floor); rtol "
+              f"{rtols[tag]:.3e}")
+    del h64
+    reset(kb)
+    for tag, (nl, b) in cases.items():
+        u, info, per = newton_f32(hier, b, nl, rtols[tag], f"{tag} f32")
+        du = rel_max_err(u.double(), refs[tag])
+        print(f"      against the f64 solution: rel max diff {du:.3e} (gate "
+              f"{NEWTON_F64_RTOL:g})")
+        if not du <= NEWTON_F64_RTOL:
+            raise AssertionError(f"25a {tag}: {du} from the f64 solution")
+        if tag == "cubic":
+            err = l2_error_collocated(mesh, P, u.double().cpu().numpy(),
+                                      u_exact)
+            print(f"      collocated L2 error vs the manufactured solution "
+                  f"{err:.4e} (gate 1e-4)")
+            if not err < 1e-4:
+                raise AssertionError(f"25a: L2 error {err}")
+        out[f"25a {tag}"] = (info["niter"], per)
+    path = dict(kb.LAUNCHES)
+    print(f"    launches in the f32 Newton runs: {path}")
+    add_launches(launches, path, ("t1_m", "t23_m", "t23_res_m"))
+    return out
+
+
+def convdiff_phase(mesh42, launches):
+    """Phase 25b: `convdiff_solve` (BiCGStab, V-cycle of the symmetric
+    part) on a plain ``kron`` hierarchy (f32, p=(1,3,6), fdm coarse) on
+    phase 4's mesh, the driver's velocity (3,-1.5,0.8) and kappa 2, rtol
+    1e-6, beside the f64 solve (rtol 1e-10); at nc=21 the f32 solve (rtol
+    1e-8, below its floor) against the f64 one within IMEX_RTOL; at both
+    sizes `conv_floor_gate`; the streamline-diagonal case at cell Pe 21
+    (the JAX README's: 6^3 cells, p=(1,3), f64, 'p' and 'cell' scales).
+    Returns {tag: (BiCGStab iterations, ms per iteration)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import (assemble_rhs,
+                                                    l2_error_collocated)
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import u_exact
+    from pmg_dolfinx_tpu_torch.solvers.convdiff import (convdiff_solve,
+                                                        sd_stabilized_kappa)
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    cvel, out = (3.0, -1.5, 0.8), {}
+
+    def solve(mesh, degrees, kappa, cv, dtype, rtol, tag, kappa_src=2.0):
+        # The source is the physical problem's (kappa_src); the hierarchy
+        # may carry a stabilized kappa, as in the driver.
+        ts = time.perf_counter()
+        hier = PMGHierarchy(mesh, degrees=degrees, kappa=kappa, dtype=dtype,
+                            coarse="fdm", operator="kron", device="cuda")
+        b = assemble_rhs(mesh, degrees[-1], conv_source(kappa_src, cv))
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - ts
+        ts = time.perf_counter()
+        u, info = convdiff_solve(hier, b, cv, rtol=rtol, maxiter=200)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - ts) * 1e3
+        per = wall / max(info["niter"], 1)
+        pe = float(np.linalg.norm(cv)) / mesh.nc[0] / (2.0 * kappa_src)
+        print(f"    {tag}: {mesh.num_dofs(degrees[-1])} dofs, cell Pe "
+              f"{pe:.3f}; {info['niter']} BiCGStab iterations, rel resid "
+              f"{info['rel_resid']:.2e}; {wall:.1f} ms = {per:.3f} ms per "
+              f"iteration (setup and rhs {setup:.2f} s)")
+        if not (info["rel_resid"] <= rtol and info["niter"] < 200
+                and bool(torch.isfinite(u).all())):
+            raise AssertionError(f"25b {tag}: {info}")
+        out[f"25b {tag}"] = (info["niter"], per)
+        return u, hier, b
+
+    def pair(mesh, rtol32, tag):
+        u32, h32, b = solve(mesh, (1, 3, 6), 2.0, cvel, torch.float32,
+                            rtol32, f"{tag} f32")
+        u64, h64, _ = solve(mesh, (1, 3, 6), 2.0, cvel, torch.float64,
+                            1e-10, f"{tag} f64")
+        d = rel_max_err(u32.double(), u64)
+        u_pred = conv_floor_gate(h32, h64, b, cvel, u32, u64, tag)
+        return u32, u64, u_pred, d
+
+    u32, u64, u_pred, _ = pair(mesh42, 1e-8, "16.2M")
+    errs = [l2_error_collocated(mesh42, 6, v.double().cpu().numpy(), u_exact)
+            for v in (u32, u64, u_pred)]
+    print(f"      collocated L2 error vs the manufactured solution: f32 "
+          f"{errs[0]:.4e}, f64 {errs[1]:.4e}, the predicted f32 floor "
+          f"{errs[2]:.4e} (gate {CONV_FLOOR_FACTOR:g} x the floor)")
+    if not errs[0] <= CONV_FLOOR_FACTOR * errs[2]:
+        raise AssertionError(f"25b 16.2M: L2 errors {errs}")
+    del u32, u64, u_pred
+    u32, u64, _, d = pair(BoxMesh(SMALL_NC), 1e-8, "nc=21")
+    print(f"      nc=21: f32 against f64, rel max diff {d:.3e} (gate "
+          f"{IMEX_RTOL:g}), rel 2-norm diff {rel_l2(u32.double(), u64):.3e}")
+    if not d <= IMEX_RTOL:
+        raise AssertionError(f"25b: f32 and f64 solutions differ: {d}")
+    # Streamline-diagonal stabilization at cell Pe 21: the JAX README's
+    # case (6^3 cells, p=3, f64, kappa 0.004, c = (1, 0.4, 0.2)).
+    mesh6, kappa_sd, cv_sd = BoxMesh((6, 6, 6)), 0.004, (1.0, 0.4, 0.2)
+    for h_eff in ("p", "cell"):
+        keff, taus = sd_stabilized_kappa(mesh6, 3, cv_sd, kappa_sd,
+                                         h_eff=h_eff)
+        print(f"    SD '{h_eff}': kappa {kappa_sd:g} -> "
+              f"{tuple(round(float(k), 6) for k in keff)}")
+        solve(mesh6, (1, 3), keff, cv_sd, torch.float64, 1e-9,
+              f"SD '{h_eff}' Pe 21 f64", kappa_src=kappa_sd)
+    return out
+
+
+def convdiff_apply(hier, cvel, x):
+    """The convection-diffusion operator of `solvers.convdiff` (the fine
+    ``kron`` apply plus the advection terms, Dirichlet rows ``x``) in
+    ``hier``'s dtype, on flat vectors."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops.kron import (axis_advection,
+                                                kron_advection_terms)
+
+    lv, fine = hier.data["levels"][-1], hier.levels[-1]
+    Cs = tuple(torch.tensor(axis_advection(hier.mesh.nc[a], fine.P),
+                            dtype=hier.dtype, device="cuda")
+               for a in range(3))
+    xw = hier._to_work(x)
+    w = torch.where(lv["bc_marker"], torch.zeros_like(xw), xw)
+    adv = kron_advection_terms(
+        w, Cs, (lv["mx"], lv["my"], lv["mz"]),
+        torch.tensor(cvel, dtype=hier.dtype, device="cuda"))
+    y = hier._ops["apply"](lv, xw, fine) + adv
+    return torch.where(lv["bc_marker"], xw, y).reshape(-1)
+
+
+def conv_floor_gate(h32, h64, b, cvel, u32, u64, tag):
+    """The f32 floor of the convection-diffusion solve, predicted in f64:
+    the f32 solution satisfies ``A32 u32 = b``, so to first order ``u32 -
+    u64 = -A^-1 (A32 u64 - b)``, one f64 solve of the f32 operator's
+    residual at ``u64``. Gate: ``|u32 - u64|_max`` within
+    CONV_FLOOR_FACTOR of the prediction's (a fault beyond f32 rounding,
+    in the operator, the V-cycle or BiCGStab, shows above it). Returns
+    the predicted f32 solution ``u64 - e``."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.solvers.convdiff import convdiff_solve
+
+    bt = torch.as_tensor(b, dtype=torch.float64, device="cuda")
+    r = convdiff_apply(h32, cvel, u64.float()).double() - bt
+    e, _ = convdiff_solve(h64, r, cvel, rtol=1e-10, maxiter=200)
+    pred = float(e.abs().max() / u64.abs().max())
+    d = rel_max_err(u32.double(), u64)
+    rb = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(bt))
+    print(f"      {tag}: f32 operator at the f64 solution |A32 u64 - b| / |b| "
+          f"{rb:.3e}; "
+          f"predicted f32 floor (rel max) {pred:.3e}, measured f32 vs f64 "
+          f"{d:.3e}: ratio {d / pred:.3f} (gate {CONV_FLOOR_FACTOR:g})")
+    if not d <= CONV_FLOOR_FACTOR * pred:
+        raise AssertionError(f"25b {tag}: f32 vs f64 {d}, above "
+                             f"{CONV_FLOOR_FACTOR} x the f32 floor {pred}")
+    return u64 - e
+
+
+def conv_source(kappa, cvel):
+    """The convdiff driver's manufactured source for ``u_e = sin sin sin``:
+    ``-kappa lap u_e + c . grad u_e``."""
+    import numpy as np
+
+    pi = np.pi
+
+    def f(x):
+        sx, sy, sz = (np.sin(pi * x[a]) for a in range(3))
+        cx, cy, cz = (np.cos(pi * x[a]) for a in range(3))
+        g = (pi * cx * sy * sz, pi * sx * cy * sz, pi * sx * sy * cz)
+        return (3.0 * pi**2 * kappa * sx * sy * sz
+                + sum(c_ * g_ for c_, g_ in zip(cvel, g)))
+
+    return f
+
+
+def serving_window(fn, kp, tries=4):
+    """`profile_busy` of ``fn`` (serving steps) from a complete window: the
+    packed FDM's kernels in the window number 3 per counted call and the
+    kernel count repeats an earlier window's. Returns (wall, busy, kernels,
+    complete)."""
+    seen, last = [], None
+    for _ in range(tries):
+        before = kp.LAUNCHES["packed_fdm"]
+        calls = {}
+        wall, busy, nk, _ = profile_busy(fn, calls)
+        n = kp.LAUNCHES["packed_fdm"] - before
+        fdm = sum(c for k, c in calls.items() if "fdm_" in k)
+        complete = fdm == 3 * n and nk in seen
+        seen.append(nk)
+        last = (wall, busy, nk, complete)
+        if complete:
+            break
+    return last
+
+
+SEMI_STEPS = 200
+SEMI_CONFIGS = (("cubic", "cnab", 1), ("cubic", "cnab", 8),
+                ("cubic", "be", 1), ("cubic", "be", 8),
+                ("bratu", "cnab", 8))
+
+
+# 25f: the driver's box run (modes_torch.py argv), its general family at
+# the driver's defaults (``lattice`` + ``cg``, default tol) on a small mesh,
+# and the general family at ~30k dofs; gates on |K u - lam M u| / |lam M u|.
+MODES_BOX = ["--ndofs", "100000", "--kmodes", "6", "--neumann", "x",
+             "--sigma", "5"]
+MODES_BOX_RES = 1e-7
+# The driver's hierarchy and tol, k=1: its default k=4 took 85.13 s here
+# (21 iterations; NVIDIA H100 80GB HBM3, 700 W), k=1 15 on the CPU.
+MODES_DRIVER_GENERAL = ["--mesh", "perturbed", "--ndofs", "1000",
+                        "--kmodes", "1"]
+MODES_GENERAL_NDOFS = 30000
+MODES_PROBE_ITERS = 2
+# k=1 on a ``direct`` coarse at 30k: with the driver's ``cg`` coarse every
+# V-cycle is host-paced by the coarse CG's per-iteration reads (k=4, tol
+# 1e-13: 638.2 s for 16 iterations on the card), which the script's time
+# limit cannot hold. One vector meets LOBPCG's stopping test sooner: at
+# tol 1e-13 its residual was 1.5e-6 (k=4: 9.3e-7), so tol 1e-14.
+MODES_GENERAL_K = 1
+MODES_GENERAL_TOL = 1e-14
+MODES_GENERAL_RES = 1e-6
+
+
+def semilinear_serving(launches):
+    """Phase 25c: `semilinear_packed_evolve` at 61^3, p=6 (226,981 dofs),
+    kappa 2, dt 1e-3, 200 steps: cubic(5) with its manufactured source
+    (columns ``a_j u_e``, a_j in [0.25, 1.5]), CNAB and BE at B=1 (#21)
+    and B=8 (#19), and Bratu(5) at B=8 from zero. Gate: each column within
+    IMEX_RTOL of `semilinear_fdm_evolve` in f64 on the same column.
+    Steps/s over 3 reps, busy ms per step and the idle share from a
+    complete profiler window, the launches of #19 / #21. Returns {tag:
+    (steps/s, ms per step)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models import semilinear
+    from pmg_dolfinx_tpu_torch.ops import kron_packed as kp
+    from pmg_dolfinx_tpu_torch.solvers.transient import (
+        semilinear_fdm_evolve, semilinear_packed_evolve)
+
+    P, kappa, dt = PACKED_P, 2.0, 1e-3
+    mesh = BoxMesh(PACKED_NC)
+    n = mesh.num_dofs(P)
+    c = mesh.dof_coords(P)
+    ue = np.where(mesh.boundary_dof_marker(P), 0.0,
+                  np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1])
+                  * np.sin(np.pi * c[:, 2]))
+    nls = {"cubic": semilinear.cubic(SEMI_C),
+           "bratu": semilinear.bratu(BRATU_LAM)}
+    f_cubic = assemble_rhs(mesh, P, semilinear.f_rhs_semilinear(
+        kappa, nls["cubic"]))
+    out = {}
+    for model, scheme, B in SEMI_CONFIGS:
+        nl = nls[model]
+        f = f_cubic if model == "cubic" else None
+        amps = np.linspace(0.25, 1.5, B) if model == "cubic" else np.zeros(B)
+        U0 = torch.tensor(amps[:, None] * ue[None, :], dtype=torch.float32,
+                          device="cuda")
+        tag = f"{model} {scheme} B={B}"
+        reset(kp)
+        ev = semilinear_packed_evolve(mesh, P, nl, kappa=kappa, dt=dt, B=B,
+                                      scheme=scheme, f=f, device="cuda")
+        UT = ev(U0, SEMI_STEPS)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            UT = ev(U0, SEMI_STEPS)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - ts)
+        wall, busy, nk, complete = serving_window(lambda: ev(U0, 100), kp)
+        path = dict(kp.LAUNCHES)
+        rates = sorted(SEMI_STEPS / w for w in walls)
+        if tuple(UT.shape) != (B, n) or not bool(torch.isfinite(UT).all()):
+            raise AssertionError(f"25c {tag}: the state is not finite "
+                                 "(B, ndofs)")
+        if not path["packed_fdm"] > 0:
+            raise AssertionError(f"25c {tag}: packed_fdm was not launched")
+        launches["packed_fdm"] += path["packed_fdm"]
+        ref_ev = semilinear_fdm_evolve(mesh, P, nl, kappa=kappa, dt=dt,
+                                       scheme=scheme, f=f,
+                                       dtype=torch.float64, device="cuda")
+        refs = [ref_ev(U0[j].double(), SEMI_STEPS).reshape(-1)
+                for j in range(B)]
+        d = max(rel_max_err(UT[j].double(), refs[j]) for j in range(B))
+        d2 = max(rel_l2(UT[j].double(), refs[j]) for j in range(B))
+        reps = [round(r, 1) for r in rates]
+        print(f"    {tag}: {rates[1]:.1f} steps/s (3 reps {reps}; "
+              f"{rates[1] * B:.1f} column-steps/s); profiled 100 steps "
+              f"({'complete' if complete else 'INCOMPLETE'} window): wall "
+              f"{wall / 100:.4f} ms/step, busy {busy / 100:.4f} ms/step "
+              f"({nk / 100:.0f} kernels/step), idle "
+              f"{max(0.0, 1 - busy / wall):.1%}; launches {path}; worst "
+              f"column vs f64 semilinear_fdm_evolve: rel max {d:.3e} "
+              f"(gate {IMEX_RTOL:g}), rel 2-norm {d2:.3e}")
+        if not d <= IMEX_RTOL:
+            raise AssertionError(f"25c {tag}: {d} from the f64 run")
+        out[f"25c {tag}"] = (rates[1], 1e3 / rates[1])
+    return out
+
+
+def imex_2m():
+    """Phase 25d: `semilinear_fdm_evolve` (cubic(5), source, dt 1e-4) and
+    `convdiff_fdm_evolve` (velocity (3,-1.5,0.8), source, dt a quarter of
+    `convdiff_advective_dt`), CNAB, f32, on ``BoxMesh((42,42,42))`` at p=3
+    (2,048,383 dofs, the ``heat_cn_2M`` size), 200 steps from zero: within
+    IMEX_RTOL of the f64 run; steps/s over 3 reps. Returns {tag: (steps/s,
+    ms per step)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models import semilinear
+    from pmg_dolfinx_tpu_torch.solvers.transient import (
+        convdiff_advective_dt, convdiff_fdm_evolve, semilinear_fdm_evolve)
+
+    mesh, P, steps, out = BoxMesh(IMEX_NC), 3, 200, {}
+    cvel = (3.0, -1.5, 0.8)
+    nl = semilinear.cubic(SEMI_C)
+    dt_cd = 0.25 * convdiff_advective_dt(mesh, P, cvel)
+    jobs = {
+        "semilinear cnab": (
+            lambda dtype, f: semilinear_fdm_evolve(
+                mesh, P, nl, kappa=2.0, dt=1e-4, scheme="cnab", f=f,
+                dtype=dtype, device="cuda"),
+            assemble_rhs(mesh, P, semilinear.f_rhs_semilinear(2.0, nl)),
+            1e-4),
+        "convdiff cnab": (
+            lambda dtype, f: convdiff_fdm_evolve(
+                mesh, P, cvel, kappa=2.0, dt=dt_cd, scheme="cnab", f=f,
+                dtype=dtype, device="cuda"),
+            assemble_rhs(mesh, P, conv_source(2.0, cvel)), dt_cd),
+    }
+    u0 = torch.zeros(mesh.num_dofs(P), device="cuda")
+    for tag, (make, f, dt) in jobs.items():
+        ev = make(torch.float32, f)
+        uT = ev(u0, steps)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            uT = ev(u0, steps)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - ts)
+        rates = sorted(steps / w for w in walls)
+        ref = make(torch.float64, f)(u0.double(), steps)
+        d = rel_max_err(uT.double(), ref)
+        print(f"    {tag}: dt {dt:.3e}, {mesh.num_dofs(P)} dofs: "
+              f"{rates[1]:.1f} steps/s ({1e3 / rates[1]:.4f} ms/step; 3 reps "
+              f"{[round(r, 1) for r in rates]}); f32 vs f64 after {steps} "
+              f"steps: rel max diff {d:.3e} (gate {IMEX_RTOL:g}), rel 2-norm "
+              f"diff {rel_l2(uT.double(), ref):.3e}")
+        if not (bool(torch.isfinite(uT).all()) and d <= IMEX_RTOL):
+            raise AssertionError(f"25d {tag}: {d}")
+        out[f"25d {tag}"] = (rates[1], 1e3 / rates[1])
+    return out
+
+
+def newton_be(launches):
+    """Phase 25e: `semilinear_newton_evolve` on a ``kron_blocked`` + fdm
+    hierarchy at nc=21, p=(1,3,6) (2,048,383 dofs), f32, sigma = 1/dt, dt
+    5e-3, 5 steps of cubic(5) with its manufactured source from zero,
+    against the f64 plain ``kron`` run (rtol 1e-10). The f32 rtol follows
+    25a: 10 x the floor ``|F32(u64_1)|`` over the smallest initial
+    residual of a step. Gate: within IMEX_RTOL; #1-#3 launch. Returns
+    {tag: (Newton steps in all, ms per step)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import (assemble_rhs,
+                                                    lumped_mass_np)
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models import semilinear
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_tpu_torch.solvers.transient import (
+        semilinear_newton_evolve)
+
+    mesh, P, dt, steps = BoxMesh(SMALL_NC), 6, 5e-3, 5
+    nl = semilinear.cubic(SEMI_C)
+    f = assemble_rhs(mesh, P, semilinear.f_rhs_semilinear(2.0, nl))
+    cfg = dict(degrees=(1, 3, 6), kappa=2.0, coarse="fdm", sigma=1.0 / dt,
+               device="cuda")
+    h64 = PMGHierarchy(mesh, operator="kron", dtype=torch.float64, **cfg)
+    h32 = PMGHierarchy(mesh, operator="kron_blocked", dtype=torch.float32,
+                       **cfg)
+    ev64 = semilinear_newton_evolve(h64, mesh, P, nl, dt, rtol=1e-10, f=f)
+    u0 = np.zeros(mesh.num_dofs(P))
+    traj = [torch.zeros(mesh.num_dofs(P), dtype=torch.float64,
+                        device="cuda")]
+    it64 = []
+    for _ in range(steps):
+        u, its = ev64(traj[-1], 1)
+        traj.append(u)
+        it64 += its
+    # Step n+1's initial Newton residual: F(u^n) with b = m3 u^n / dt + f.
+    sdt = 1.0 / dt
+    m3 = torch.tensor(lumped_mass_np(mesh, P, bc_zero=True),
+                      dtype=torch.float64, device="cuda")
+    fv = torch.tensor(f, dtype=torch.float64, device="cuda")
+    f_init = [f_norm(h64, traj[n], sdt * m3 * traj[n] + fv, nl)
+              for n in range(steps)]
+    floor = f_norm(h32, traj[1], sdt * m3 * traj[0] + fv, nl)
+    rtol = 10.0 * floor / min(f_init)
+    print(f"    f64 plain kron: Newton per step {it64}; initial residuals "
+          f"{[f'{v:.3e}' for v in f_init]}; f32 operator at the f64 step-1 "
+          f"state: |F32| = {floor:.3e} (the floor); f32 rtol {rtol:.3e}")
+    reset(kb)
+    ev32 = semilinear_newton_evolve(h32, mesh, P, nl, dt, rtol=rtol, f=f)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    u32, it32 = ev32(u0, steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - ts) * 1e3
+    path = dict(kb.LAUNCHES)
+    d = rel_max_err(u32, traj[-1])
+    print(f"    f32 kron_blocked: Newton per step {it32}; {wall:.1f} ms "
+          f"({wall / steps:.1f} ms per time step); against the f64 run: rel "
+          f"max diff {d:.3e} (gate {IMEX_RTOL:g}), rel 2-norm diff "
+          f"{rel_l2(u32, traj[-1]):.3e}; launches {path}")
+    if not (bool(torch.isfinite(u32).all()) and d <= IMEX_RTOL):
+        raise AssertionError(f"25e: {d} from the f64 run")
+    add_launches(launches, path, ("t1_m", "t23_m", "t23_res_m"))
+    return {"25e newton-be": (sum(it32), wall / steps)}
+
+
+def modes_phase():
+    """Phase 25f, float64. The box: `examples/modes_torch.py` with the JAX
+    README's flags (`MODES_BOX`: ``--ndofs 100000 --kmodes 6 --neumann x
+    --sigma 5``, FDM inverse). The general family through the driver at
+    its defaults but k=1 (`MODES_DRIVER_GENERAL`: ``--mesh perturbed``,
+    the ``lattice`` + ``cg`` hierarchy, default tol) on a 1,000-dof mesh, with
+    `fcg_counts` reading the FCG(V) count of every inverse solve and the
+    coarse CG iterations of every V-cycle (each ends on a host read); the
+    same hierarchy at ~MODES_GENERAL_NDOFS dofs for MODES_PROBE_ITERS
+    LOBPCG iterations of one vector (gate: no solve at the FCG cap). Then
+    `lowest_eigenpairs` on ``PerturbedBoxMesh`` at ~MODES_GENERAL_NDOFS
+    dofs, p=3, k=MODES_GENERAL_K, tol MODES_GENERAL_TOL, with a
+    ``lattice`` + ``direct`` hierarchy passed as ``hierarchy=``. Gates,
+    against the host scipy stiffness: each pair's ``|K u - lam M u| /
+    |lam M u|`` (free dofs) within MODES_BOX_RES / MODES_GENERAL_RES, the
+    M-orthonormality error <= 1e-10. Returns {tag: (LOBPCG iterations,
+    seconds)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import fit_box_cells
+    from pmg_dolfinx_tpu_torch.solvers.eig import lowest_eigenpairs
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    out = {}
+    res, mesh, lams, U = modes_driver(MODES_BOX)
+    check_modes("box FDM", mesh, 5.0, lams, U, res["iters"], res["seconds"],
+                MODES_BOX_RES, out)
+    with fcg_counts() as (fcg, coarse):
+        res, mesh, lams, U = modes_driver(MODES_DRIVER_GENERAL)
+    cycles = sum(fcg) + len(fcg)   # one V-cycle before the first iteration
+    print(f"    the driver (lattice + cg, k=1): {len(fcg)} FCG(V) solves, "
+          f"FCG per solve min / median / max {min(fcg)} / "
+          f"{int(np.median(fcg))} / {max(fcg)} (cap 100, "
+          f"{sum(n >= 100 for n in fcg)} at it); coarse CG per V-cycle "
+          f"{sum(coarse) / max(len(coarse), 1):.1f} (max {max(coarse)}, cap "
+          f"60) over {len(coarse)} V-cycles ({cycles} counted from FCG); "
+          f"{res['seconds'] / max(sum(fcg), 1) * 1e3:.3f} ms per FCG "
+          f"iteration")
+    check_modes("perturbed driver", mesh, 0.0, lams, U, res["iters"],
+                res["seconds"], MODES_GENERAL_RES, out)
+    mesh = PerturbedBoxMesh(fit_box_cells(MODES_GENERAL_NDOFS, 3))
+    # The driver's default hierarchy at ~30k dofs, MODES_PROBE_ITERS LOBPCG
+    # iterations of one vector: what paces each inverse solve there.
+    ts = time.perf_counter()
+    with fcg_counts() as (fcg, coarse):
+        lowest_eigenpairs(mesh, 3, kappa=2.0, k=1, maxiter=MODES_PROBE_ITERS,
+                          device="cuda")
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - ts
+    print(f"    driver's default hierarchy at {mesh.num_dofs(3)} dofs, k=1, "
+          f"{MODES_PROBE_ITERS} LOBPCG iterations: {secs:.2f} s with setup; "
+          f"FCG per solve {fcg} (cap 100); coarse CG per V-cycle "
+          f"{sum(coarse) / max(len(coarse), 1):.1f} (max {max(coarse)}, cap "
+          f"60) over {len(coarse)} V-cycles; "
+          f"{secs / max(sum(fcg), 1) * 1e3:.3f} ms per FCG iteration")
+    if max(fcg) >= 100 or max(fcg + [0]) == 0:
+        raise AssertionError(f"25f: FCG counts {fcg} at the driver's "
+                             "default hierarchy")
+    ts = time.perf_counter()
+    hier = PMGHierarchy(mesh, degrees=(1, 3), kappa=2.0, dtype=torch.float64,
+                        coarse="direct", operator="lattice", device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - ts
+    ts = time.perf_counter()
+    with fcg_counts() as (fcg, _):
+        lams, U, iters = lowest_eigenpairs(
+            mesh, 3, kappa=2.0, k=MODES_GENERAL_K, tol=MODES_GENERAL_TOL,
+            hierarchy=hier, device="cuda")
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - ts
+    print(f"    general family: hierarchy (lattice + direct) setup "
+          f"{setup:.2f} s; eigenvalues {[round(float(v), 6) for v in lams]}; "
+          f"{len(fcg)} FCG(V) solves, FCG per solve min / median / max "
+          f"{min(fcg)} / {int(np.median(fcg))} / {max(fcg)}; "
+          f"{secs / max(sum(fcg), 1) * 1e3:.3f} ms per FCG iteration")
+    check_modes("perturbed FCG(V)", mesh, 0.0, lams, U, iters, secs,
+                MODES_GENERAL_RES, out)
+    return out
+
+
+@contextlib.contextmanager
+def fcg_counts():
+    """Within the block, list each `PMGHierarchy.solve_pcg` call's FCG
+    count and each coarse `cg_solve` call's iterations (the setup's
+    recording calibrations left out): yields the two lists."""
+    from pmg_dolfinx_tpu_torch.solvers import pmg
+
+    fcg, coarse = [], []
+    solve_pcg, cg_solve = pmg.PMGHierarchy.solve_pcg, pmg.cg_solve
+
+    def counted_pcg(self, *a, **k):
+        u, n = solve_pcg(self, *a, **k)
+        fcg.append(int(n))
+        return u, n
+
+    def counted_cg(*a, **k):
+        x, info = cg_solve(*a, **k)
+        if not k.get("record"):
+            coarse.append(int(info["niter"]))
+        return x, info
+
+    pmg.PMGHierarchy.solve_pcg, pmg.cg_solve = counted_pcg, counted_cg
+    try:
+        yield fcg, coarse
+    finally:
+        pmg.PMGHierarchy.solve_pcg, pmg.cg_solve = solve_pcg, cg_solve
+
+
+def modes_driver(argv):
+    """``examples/modes_torch.py`` on ``argv`` in this process (a few lines
+    of its output printed): (result, mesh, lams, U)."""
+    if str(ROOT / "examples") not in sys.path:
+        sys.path.insert(0, str(ROOT / "examples"))  # its _common_torch
+    mod = load_example("modes_torch")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = mod.run(argv)
+    lines = buf.getvalue().strip().splitlines()
+    print("    " + "\n    ".join(lines[1:5]))
+    return out
+
+
+def check_modes(tag, mesh, sigma, lams, U, iters, secs, gate, out):
+    """The 25f gates against the host scipy stiffness (kappa 2, p=3)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import (assemble_stiffness,
+                                                    lumped_mass_np)
+
+    P = 3
+    m = lumped_mass_np(mesh, P)
+    K = assemble_stiffness(mesh, P, kappa=2.0, bc=False).tocsr() \
+        + sp.diags(sigma * m)
+    free = ~mesh.boundary_dof_marker(P)
+    Un = U.cpu().numpy()
+    resid = [np.linalg.norm((K @ Un[:, j] - lams[j] * m * Un[:, j])[free])
+             / np.linalg.norm((lams[j] * m * Un[:, j])[free])
+             for j in range(Un.shape[1])]
+    orth = float(np.abs(Un.T @ (m[:, None] * Un) - np.eye(Un.shape[1])).max())
+    print(f"    {tag}: {mesh.num_dofs(P)} dofs, {iters} LOBPCG iterations in "
+          f"{secs:.2f} s; max |K u - lam M u| / |lam M u| {max(resid):.3e} "
+          f"(gate {gate:g}), M-orthonormality {orth:.3e} (gate 1e-10)")
+    if not (max(resid) <= gate and orth <= 1e-10):
+        raise AssertionError(f"25f {tag}: residual {max(resid)}, "
+                             f"orthonormality {orth}")
+    out[f"25f {tag}"] = (iters, secs)
+
+
 def main():
     import argparse
 
@@ -4226,8 +4960,19 @@ def main():
     t0 = phase("24a. flagship with the AMG coarse (run here, on phase 4's "
                "mesh and rhs): 16.2M dofs, p=(1,3,6), kron_blocked + amg")
     family = {"24a": flagship_amg(prob, niter, vc_blk, cfg, launches)}
-    box42 = prob.mesh   # its host geometry serves phases 19b and 20
+    done(t0)
+
+    t0 = phase("25a. steady Newton on phase 4's flagship hierarchy: 16.2M "
+               "dofs, p=(1,3,6), kron_blocked + fdm, cubic(5) and bratu(5)")
+    family.update(newton_flagship(prob, cfg, launches))
+    box42 = prob.mesh   # its host geometry serves phases 19b, 20 and 25b
     del prob, u
+    done(t0)
+
+    t0 = phase("25b. convection-diffusion (BiCGStab, V-cycle of the "
+               "symmetric part): 16.2M dofs f32 kron; nc=21 f32 vs f64; SD "
+               "at cell Pe 20")
+    family.update(convdiff_phase(box42, launches))
     done(t0)
 
     fam, l2_19a = box_family(box42, launches)
@@ -4516,8 +5261,8 @@ def main():
     print(f"    peak host RSS {peak_rss_gb():.1f} GB")
     done(t0)
 
-    t0 = phase("18a. AMG twin: examples/amg_torch.py --ndofs 2000000 --pc "
-               "jacobi|cheb|hmg, box and perturbed")
+    t0 = phase(f"18a. AMG twin: examples/amg_torch.py --ndofs "
+               f"{AMG_TWIN_NDOFS} --pc jacobi|cheb|hmg, box and perturbed")
     amg_twin()
     done(t0)
 
@@ -4560,6 +5305,29 @@ def main():
                       for n, r in dss.items()))
     print(f"    phases 22-24b added {time.perf_counter() - t_new:.1f} s "
           "(24a and the host threads not counted)")
+
+    t_new = time.perf_counter()
+    t0 = phase("25c. semilinear serving: semilinear_packed_evolve at 61^3, "
+               "p=6, cnab/be, B=1 (#21) and 8 (#19), cubic and bratu")
+    family.update(semilinear_serving(launches))
+    done(t0)
+
+    t0 = phase("25d. IMEX stepping at 2.05M dofs, p=3: semilinear_fdm_evolve "
+               "and convdiff_fdm_evolve, CNAB, f32 vs f64")
+    family.update(imex_2m())
+    done(t0)
+
+    t0 = phase("25e. implicit Newton-BE: semilinear_newton_evolve, nc=21, "
+               "p=(1,3,6), kron_blocked + fdm, f32 vs f64 kron")
+    family.update(newton_be(launches))
+    done(t0)
+
+    t0 = phase("25f. modes: examples/modes_torch.py, FDM box (100k); "
+               "lowest_eigenpairs, FCG(V) perturbed (30k); float64")
+    family.update(modes_phase())
+    done(t0)
+    print(f"    phases 25c-25f added {time.perf_counter() - t_new:.1f} s "
+          "(25a and 25b not counted)")
 
     # Kernels #1-#3 and #9: besides `ms` (host-issued, as every row), the
     # device time from a CUDA graph at the main path's fine shape, at 127^3
@@ -4608,9 +5376,11 @@ def main():
               f"{bound / ms:.0%} of the bound's rate"
               + ("" if dev is None else
                  f"; device {dev:.4f} ms, {bound / dev:.0%}"))
-    print("    coefficient and unstructured families (FCG(V), ms per "
-          "V-cycle): " + "; ".join(
-        f"{k} {n}, " + ("-" if ms is None else f"{ms:.3f}")
+    print("    coefficient, unstructured and model families (FCG(V), ms "
+          "per V-cycle; 25a/25e Newton steps, ms per step; 25b BiCGStab "
+          "iterations, ms per iteration; 25c/25d steps/s, ms per step; 25f "
+          "LOBPCG iterations, s): " + "; ".join(
+        f"{k} {n:.6g}, " + ("-" if ms is None else f"{ms:.4g}")
         for k, (n, ms) in family.items()))
     print(f"    script seconds: {time.perf_counter() - t_script:.1f}")
     print(json.dumps({"kernels": kernels}))

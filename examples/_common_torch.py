@@ -1,5 +1,6 @@
-"""Shared CLI plumbing of the port's transient drivers (`heat_torch.py`,
-`wave_torch.py`)."""
+"""Shared CLI plumbing of the port's transient and model-family drivers
+(`heat_torch.py`, `wave_torch.py`; `nonlinear_torch.py`,
+`convdiff_torch.py`, `modes_torch.py`)."""
 
 import argparse
 import os
@@ -35,6 +36,41 @@ def base_parser(doc):
     return p
 
 
+def model_parser(doc):
+    """The flags of the JAX package's ``examples/_common.py`` parser for the
+    model-family drivers (``--ndofs``, ``--dtype``, ``--operator``,
+    ``--kappa``), with ``--device`` in place of ``--cpu``."""
+    p = argparse.ArgumentParser(description=doc,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--ndofs", type=int, default=50000,
+                   help="target number of dofs (global)")
+    p.add_argument("--dtype", choices=["f32", "f64"], default="f32")
+    p.add_argument("--operator",
+                   choices=["kron", "kron_blocked", "lattice",
+                            "lattice_blocked", "dofmap", "csr", "dss"],
+                   default="kron", help="operator backend ('kron_blocked' "
+                   "and 'lattice_blocked' run the CUDA kernels, float32)")
+    p.add_argument("--kappa", type=float, default=2.0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default 'cuda')")
+    return p
+
+
+def torch_device(args):
+    """``(torch, device, dtype)`` from ``--device`` and ``--dtype``; a CUDA
+    device without a card refuses."""
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
+    dtype = torch.float64 if args.dtype == "f64" else torch.float32
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"device {name}")
+    return torch, device, dtype
+
+
 def refuse_unported(args):
     """The JAX driver's flags whose layers the port does not have yet."""
     if args.shards:
@@ -55,10 +91,7 @@ def setup(args):
     from pmg_dolfinx_tpu_torch.models.poisson import fit_box_cells
 
     refuse_unported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: torch.cuda.is_available() is False")
-    dtype = torch.float64 if args.dtype == "f64" else torch.float32
+    _, device, dtype = torch_device(args)
     nc = fit_box_cells(args.ndofs, args.degree)
     spacing = None
     if args.grade:
@@ -72,9 +105,6 @@ def setup(args):
         )
     kind = PerturbedBoxMesh if args.mesh == "perturbed" else BoxMesh
     mesh = kind(nc, spacing=spacing)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    print(f"device {name}")
     return torch, device, dtype, mesh
 
 

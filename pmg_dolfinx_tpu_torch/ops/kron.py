@@ -12,7 +12,9 @@ with banded 1D stiffness ``K[(N, N)]`` and diagonal lumped mass
 ``m[(N,)]``. `kron_laplacian_apply` evaluates it as three `torch.einsum`
 contractions, as the JAX package leaves it to XLA; this is the
 ``operator="kron"`` backend and the in-solver reference for the CUDA
-kernels of `ops/kron_blocked.py`.
+kernels of `ops/kron_blocked.py`. The advection half (`axis_advection`,
+`kron_advection_terms`, `kron_convdiff_apply`) adds ``c . grad`` the
+same way, for the convection-diffusion family (`solvers/convdiff.py`).
 """
 
 import numpy as np
@@ -42,6 +44,67 @@ def axis_stiffness_mass(nc: int, P: int, h,
     if robin[1]:
         K[-1, -1] += float(robin[1])
     return K, m
+
+
+def axis_advection(nc: int, P: int) -> np.ndarray:
+    """1D GLL advection (weak first-derivative) matrix ``C[(N, N)]``,
+    ``C_ij = integral phi_i phi_j' dx``, on an ``nc``-cell 1D mesh
+    (float64). Scale-free: the 1/h of the derivative cancels the h of the
+    volume element, so graded cells share one matrix; GLL quadrature
+    integrates the product exactly, so ``C + C^T = e_N e_N^T - e_0
+    e_0^T``. The 3D advection ``c . grad`` on an axis-aligned box is
+    ``sum_a c_a M_b (x) C_a (x) M_c`` (`kron_advection_terms`)."""
+    E, Dg = axis_matrices(nc, P)
+    _, w1 = gauss_lobatto(P + 1)
+    w = np.tile(w1, nc)
+    return E.T @ (w[:, None] * Dg)
+
+
+def _todo_exchange(exchanges):
+    if any(e is not None for e in exchanges):
+        raise NotImplementedError(
+            "per-axis interface exchanges of the advection terms (a sharded "
+            "layout) are not ported yet (ROADMAP.md Queue 1 item 10)")
+
+
+def kron_advection_terms(x_masked, Cs, ms, cvel, precision="highest",
+                         exchanges=(None, None, None)):
+    """``sum_a c_a (M_b (x) C_a (x) M_c) x`` on the lattice-shaped,
+    bc-masked input: three `torch.einsum` contractions (TF32 off,
+    `pmg_dolfinx_tpu_torch/__init__.py`), as the JAX package leaves them
+    to XLA. ``cvel`` is the velocity 3-vector (a tensor or a sequence of
+    floats); ``exchanges`` keeps the JAX package's slot for the sharded
+    layouts and takes ``None`` entries only."""
+    from .kron_blocked import _check_precision
+
+    _check_precision(precision)
+    _todo_exchange(exchanges)
+    Cx, Cy, Cz = Cs
+    mx, my, mz = ms
+    w = x_masked
+    tx = torch.einsum("ax,xyz->ayz", Cx, w)
+    ty = torch.einsum("by,xyz->xbz", Cy, w)
+    tz = torch.einsum("cz,xyz->xyc", Cz, w)
+    return (cvel[0] * tx * (my[None, :, None] * mz[None, None, :])
+            + cvel[1] * ty * (mx[:, None, None] * mz[None, None, :])
+            + cvel[2] * tz * (mx[:, None, None] * my[None, :, None]))
+
+
+def kron_convdiff_apply(x, Ks, Cs, ms, cvel, bc_marker,
+                        precision="highest", sigma=0.0,
+                        exchange=None, adv_exchanges=(None, None, None)):
+    """Convection-diffusion operator ``y = (A + sigma M + B(c)) x`` on the
+    Kronecker family: `kron_laplacian_apply` (unmasked epilogue) plus
+    `kron_advection_terms`, one shared bc mask and epilogue (Dirichlet
+    rows return ``x``). Nonsymmetric: solve with `solvers.bicgstab`."""
+    lat = x.reshape(Ks[0].shape[1], Ks[1].shape[1], Ks[2].shape[1])
+    bc3 = bc_marker.reshape(lat.shape)
+    w = torch.where(bc3, torch.zeros_like(lat), lat)
+    y = kron_laplacian_apply(w, Ks, ms, bc3, precision=precision,
+                             apply_bc=False, exchange=exchange, sigma=sigma)
+    y = y + kron_advection_terms(w, Cs, ms, cvel, precision=precision,
+                                 exchanges=adv_exchanges)
+    return torch.where(bc3, lat, y).reshape(x.shape)
 
 
 def robin_axis_ends(mesh, axis: int, scale: float = 1.0):

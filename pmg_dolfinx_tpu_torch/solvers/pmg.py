@@ -410,15 +410,19 @@ def kron_blocked_cycle_ops(precision="highest", by=None, bx=None,
 
 
 def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
-            ops):
+            ops=None, diagnostics=False):
     """One V-cycle ``u_out = PMG(b_in, u_in)``.
 
     ``data`` holds the per-level arrays (``levels``), the inter-level
     transfer matrices (``transfer``) and the coarse-solver arrays;
     ``levels`` is the tuple of `Level`; ``ops`` the cycle primitives
-    (``ops["smooth"]``, where a backend fuses the smoother, replaces the
+    (`default_cycle_ops`, the dofmap backend, when None; ``ops["smooth"]``,
+    where a backend fuses the smoother, replaces the
     generic Chebyshev-4, whose preconditioner is the level's line blocks,
-    Schwarz data or Jacobi diagonal). ``coarse_cfg["gamma"]`` selects the
+    Schwarz data or Jacobi diagonal). ``diagnostics=True`` returns ``(u,
+    {"pre": [...], "post": [...]})``: the residual norms after each
+    pre-smoothing (fine to coarse) and each post-smoothing (coarse to
+    fine), 0-d tensors on the device (V-cycle only). ``coarse_cfg["gamma"]`` selects the
     cycle index: 1 = V-cycle (default), 2 = W-cycle; ``coarse="hmg"``
     reads its nested hierarchy from ``coarse_cfg`` (``hmg_levels``,
     ``hmg_ops``, ``hmg_bottom``, ``hmg_gamma``, ``cycles``: 2 unless set,
@@ -427,12 +431,14 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
     sets 3, as in the JAX package) and ``data["amg"]``.
     """
     coarse_cfg = coarse_cfg or {}
+    ops = ops or default_cycle_ops()
     L = len(levels)
     lvs = data["levels"]
     us = [None] * L
     bs = [None] * L
     us[L - 1] = u_in
     bs[L - 1] = b_in
+    diag = {"pre": [], "post": []} if diagnostics else None
     dot = ops["dot"]
     zeros = ops["zeros"]
 
@@ -454,6 +460,9 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
     # per level; the recursion bottoms out at the two-level cycle.
     gamma = coarse_cfg.get("gamma", 1)
     if gamma > 1 and L > 2:
+        if diagnostics:
+            raise NotImplementedError(
+                "per-level diagnostics are V-cycle only (gamma=1)")
         top = L - 1
         u = smooth(lvs[top], b_in, u_in, levels[top])
         r = residual(lvs[top], b_in, u, levels[top])
@@ -476,6 +485,8 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
             us[i] = zeros(levels[i], b_in)
         us[i] = smooth(lvs[i], bs[i], us[i], levels[i])
         r = residual(lvs[i], bs[i], us[i], levels[i])
+        if diagnostics:
+            diag["pre"].append(torch.sqrt(dot(r, r, lvs[i])))
         bs[i - 1] = ops["restrict"](
             data["transfer"][i - 1], r, levels[i - 1], levels[i]
         )
@@ -564,17 +575,23 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
                             levels[i + 1])
         us[i + 1] = us[i + 1] + du
         us[i + 1] = smooth(lvs[i + 1], bs[i + 1], us[i + 1], levels[i + 1])
+        if diagnostics:
+            r = bs[i + 1] - ops["apply"](lvs[i + 1], us[i + 1], levels[i + 1])
+            diag["post"].append(torch.sqrt(dot(r, r, lvs[i + 1])))
+    if diagnostics:
+        return us[L - 1], diag
     return us[L - 1]
 
 
 def fmg_initial_guess(data, b_in, *, levels, coarse="smoother",
-                      coarse_cfg=None, ops):
+                      coarse_cfg=None, ops=None):
     """Full-multigrid (nested-iteration) initial guess: restrict the rhs
     down the p-hierarchy (Dirichlet rows of each restricted rhs masked to
     zero), then from the coarsest level up prolong the current solution
     and run one V-cycle of the truncated hierarchy (coarsest..i); at
-    i = 0 that cycle is the coarse solve."""
+    i = 0 that cycle is the coarse solve. ``ops`` as in `v_cycle`."""
     L = len(levels)
+    ops = ops or default_cycle_ops()
     lvs = data["levels"]
     bs = [None] * L
     bs[L - 1] = b_in
@@ -1100,10 +1117,10 @@ class PMGHierarchy:
             if key in data and key in self.data:
                 _merge_state(self.data[key], data[key], key)
 
-    def _vcycle(self, b, u):
+    def _vcycle(self, b, u, diagnostics=False):
         return v_cycle(self.data, b, u, levels=self.levels,
                        coarse=self.coarse, coarse_cfg=self.coarse_cfg,
-                       ops=self._ops)
+                       ops=self._ops, diagnostics=diagnostics)
 
     def _fine_apply(self, x):
         return self._ops["apply"](self.data["levels"][-1], x, self.levels[-1])
@@ -1129,9 +1146,15 @@ class PMGHierarchy:
         apply = self._ops["apply"]
         return lambda x: apply(lv, self._to_work(x, level), lvl).reshape(-1)
 
-    def apply(self, b, u):
-        """One V-cycle from iterate ``u`` (flat vectors)."""
-        return self._vcycle(self._to_work(b), self._to_work(u)).reshape(-1)
+    def apply(self, b, u, diagnostics=False):
+        """One V-cycle from iterate ``u`` (flat vectors). ``diagnostics=True``
+        returns ``(u, {"pre": [...], "post": [...]})``, the per-level
+        residual norms of `v_cycle`."""
+        out = self._vcycle(self._to_work(b), self._to_work(u),
+                           diagnostics=diagnostics)
+        if diagnostics:
+            return out[0].reshape(-1), out[1]
+        return out.reshape(-1)
 
     def _fmg_guess(self, bw):
         """The FMG initial guess for a working-layout rhs."""

@@ -19,12 +19,21 @@ batch of trajectories through `ops.kron_packed` (the CUDA kernels on a
 CUDA device): pack once, step in the working layout, unpack at the end;
 homogeneous Dirichlet data, states ``(B, ndofs)``, float32.
 
+The IMEX evolvers (`semilinear_fdm_evolve`, `convdiff_fdm_evolve`, and
+the serving `semilinear_packed_evolve`) treat the linear diffusion (and a
+``sigma`` reaction) implicitly, one FDM or packed FDM solve per step, and
+the pointwise reaction ``m3 N(u)`` or the advection ``c . grad u``
+explicitly (BE with forward Euler, or CNAB: Crank-Nicolson with
+Adams-Bashforth 2, started with ``N(u0)`` / ``adv(u0)``);
+`semilinear_newton_evolve` is the fully implicit BE stepper, one
+`solvers.newton.newton_solve` per step (host loop). `convdiff_advective_dt`
+is the explicit advection's CFL estimate.
+
 Kappa is a scalar, a per-axis tuple or a constant diagonal tensor on the
 FDM and serving paths (`_half_kappa` halves each for CN); graded spacing,
 mixed Dirichlet/Neumann faces and Robin ends ride the per-axis factors of
-every box evolver. Not ported yet: the semilinear evolvers (need `models/semilinear.py`)
-and `convdiff_fdm_evolve` (needs the advection terms); ROADMAP.md Queue 1
-item 9.
+every box evolver. Not ported: the sharded `semilinear_dist_evolve` and
+`convdiff_dist_evolve` (ROADMAP.md Queue 1 item 10).
 """
 
 import numpy as np
@@ -193,6 +202,56 @@ def heat_packed_evolve(mesh, P, kappa=1.0, dt=1e-2, B=8, scheme="cn",
     return evolve
 
 
+def semilinear_packed_evolve(mesh, P, nonlin, kappa=1.0, dt=1e-3, B=8,
+                             scheme="cnab", sigma=0.0, interpret=False,
+                             f=None, f_time=None, *, device):
+    """``evolve(U0[(B, ndofs)], nsteps) -> U_T`` for ``u_t - div(kappa grad
+    u) + sigma u + N(u) = f``, a batch of trajectories through the serving
+    kernels (float32, NZ <= 64; `ops.kron_packed`: the CUDA kernels #19 at
+    ``B >= 2`` and #21 at ``B = 1`` on a CUDA device): one packed FDM solve
+    per step, the collocated reaction ``m3p * N(Pu)`` evaluated in the
+    working layout, the IMEX schemes of `semilinear_fdm_evolve`.
+    Homogeneous Dirichlet data; ``f`` / ``f_time`` as in `heat_fdm_evolve`,
+    shared by every column. ``interpret`` is the JAX package's Pallas
+    interpret mode (``False`` only)."""
+    from ..ops.kron_blocked import _tpu_knob
+
+    _tpu_knob("interpret", interpret, False)
+    if scheme not in ("be", "cnab"):
+        raise ValueError(f"scheme must be 'be' or 'cnab', got {scheme!r}")
+    _, mk_fdm, unpack = _packed_bundle(mesh, P, B, device)
+    sdt = 1.0 / float(dt)
+    shift = (float(sigma) + sdt if scheme == "be"
+             else 0.5 * float(sigma) + sdt)
+    kap_op = _half_kappa(kappa) if scheme == "cnab" else kappa
+    fdm = mk_fdm(kappa=kap_op, sigma=shift)
+    m3p = fdm.pack(lumped_mass_np(mesh, P, bc_zero=True).astype(np.float32))
+    fp = None if f is None else fdm.pack(np.asarray(f, np.float32))
+
+    def src(g):
+        return 0.0 if fp is None else g * fp
+
+    when = "end" if scheme == "be" else "mid"
+
+    def evolve(U0, nsteps):
+        g = _scales(f_time, dt, int(nsteps), when, torch.float32, device)
+        Pu = fdm.pack(U0)
+        if scheme == "be":
+            for n in range(int(nsteps)):
+                rhs = sdt * m3p * Pu - m3p * nonlin.N(Pu) + src(g[n])
+                Pu = fdm.solve_packed(rhs)
+        else:
+            N_m1 = nonlin.N(Pu)
+            for n in range(int(nsteps)):
+                N_n = nonlin.N(Pu)
+                rhs = (2.0 * sdt * m3p * Pu
+                       - m3p * (1.5 * N_n - 0.5 * N_m1) + src(g[n]))
+                Pu, N_m1 = fdm.solve_packed(rhs) - Pu, N_n
+        return unpack(fdm, Pu)
+
+    return evolve
+
+
 def wave_newmark_evolve(mesh, P, kappa=1.0, dt=1e-2, beta=0.25, gamma=0.5,
                         dtype=torch.float64, precision="highest", f=None,
                         f_time=None, *, device):
@@ -304,6 +363,189 @@ def wave_packed_evolve(mesh, P, kappa=1.0, dt=1e-2, B=8, scheme="newmark",
             return unpack(op0, u), unpack(op0, vT)
 
     return evolve
+
+
+def convdiff_fdm_evolve(mesh, P, velocity, kappa=1.0, dt=1e-3,
+                        scheme="cnab", sigma=0.0, dtype=torch.float64,
+                        precision="highest", f=None, f_time=None, *, device):
+    """``evolve(u0, nsteps) -> u_T`` (lattice-shaped) for ``u_t - div(kappa
+    grad u) + sigma u + c . grad u = f`` on an axis-aligned box: diffusion
+    and ``sigma`` implicit (one FDM direct solve per step, shift ``sigma +
+    1/dt`` for BE, ``sigma/2 + 1/dt`` and kappa/2 for CN), the advection
+    explicit (three contractions, `ops.kron.kron_advection_terms`).
+    ``scheme`` 'be' (forward-Euler advection, O(dt)) or 'cnab' (CN with
+    Adams-Bashforth 2, the first step forward Euler, O(dt^2); the CN half
+    by the exact-inverse identity, see the code). Keep ``dt`` below
+    `convdiff_advective_dt`. ``f`` / ``f_time`` as in
+    `heat_fdm_evolve`; ``u0`` carries the Dirichlet data."""
+    from ..ops.kron import (axis_advection, axis_stiffness_mass,
+                            kron_advection_terms)
+
+    if scheme not in ("be", "cnab"):
+        raise ValueError(f"scheme must be 'be' or 'cnab', got {scheme!r}")
+    _check_precision(precision)
+    sdt = 1.0 / float(dt)
+    shape, bc, m3, fvec = _lattice_vectors(mesh, P, f, dtype, device)
+    cvel = np.asarray(velocity, dtype=np.float64)
+    if cvel.shape != (3,):
+        raise ValueError(f"velocity must be a 3-vector, got {cvel.shape}")
+    cvel = torch.tensor(cvel, dtype=dtype, device=device)
+    Cs = tuple(torch.tensor(axis_advection(mesh.nc[a], P), dtype=dtype,
+                            device=device) for a in range(3))
+    ms = tuple(
+        torch.tensor(axis_stiffness_mass(mesh.nc[a], P, mesh.h_cells[a])[1],
+                     dtype=dtype, device=device)
+        for a in range(3))
+
+    def adv(u):
+        w = torch.where(bc, torch.zeros_like(u), u)
+        return kron_advection_terms(w, Cs, ms, cvel, precision=precision)
+
+    if scheme == "be":
+        solver = FastDiagonalizationSolver(mesh, P, kappa=kappa, dtype=dtype,
+                                           sigma=float(sigma) + sdt,
+                                           device=device)
+
+        def run(u, g):
+            for n in range(len(g)):
+                rhs = torch.where(bc, u, sdt * m3 * u - adv(u) + g[n] * fvec)
+                u = solver.solve(rhs)
+            return u
+    else:
+        # CNAB with L = K + sigma M and A = M/dt + L/2: A u^{n+1} = (M/dt -
+        # L/2) u^n - (3/2 C u^n - 1/2 C u^{n-1}) + f. The JAX package forms
+        # the right diffusion term as 2 (M/dt) u - A u (one shifted kron
+        # apply), whose f32 cancellation drifts; here the exact-inverse
+        # identity of `semilinear_fdm_evolve`, u^{n+1} = A^{-1}(2 (M/dt)
+        # u^n + S) - u^n: the same scheme, no apply (f64 to rounding).
+        solver = FastDiagonalizationSolver(mesh, P, kappa=_half_kappa(kappa),
+                                           dtype=dtype,
+                                           sigma=0.5 * float(sigma) + sdt,
+                                           device=device)
+
+        def run(u, g):
+            # AB2 start: the missing C u^{-1} is C u^0 (forward Euler).
+            adv_m1 = adv(u)
+            for n in range(len(g)):
+                adv_n = adv(u)
+                S = g[n] * fvec - (1.5 * adv_n - 0.5 * adv_m1)
+                rhs = torch.where(bc, 2.0 * u, 2.0 * sdt * m3 * u + S)
+                u, adv_m1 = solver.solve(rhs) - u, adv_n
+            return u
+
+    when = "end" if scheme == "be" else "mid"
+
+    def evolve(u0, nsteps):
+        g = _scales(f_time, dt, int(nsteps), when, dtype, device)
+        u = torch.as_tensor(u0).to(device=device, dtype=dtype).reshape(shape)
+        return run(u, g)
+
+    return evolve
+
+
+def semilinear_fdm_evolve(mesh, P, nonlin, kappa=1.0, dt=1e-3,
+                          scheme="cnab", sigma=0.0, dtype=torch.float64,
+                          precision="highest", f=None, f_time=None, *,
+                          device):
+    """``evolve(u0, nsteps) -> u_T`` (lattice-shaped) for ``u_t -
+    div(kappa grad u) + sigma u + N(u) = f`` on an axis-aligned box
+    (``nonlin`` a `models.semilinear.Nonlinearity`): the linear part
+    implicit (one FDM direct solve per step), the collocated reaction ``m3
+    N(u)`` explicit. ``scheme`` 'be' (O(dt); its fixed point is the steady
+    system of `solvers.newton.newton_solve`) or 'cnab' (CN by the
+    exact-inverse identity ``u1 = A^{-1}(2 M/dt u + S) - u`` with AB2
+    reaction, O(dt^2)). The explicit reaction limits dt (``dt |N'| <~
+    1``); stiff reactions take `semilinear_newton_evolve`."""
+    if scheme not in ("be", "cnab"):
+        raise ValueError(f"scheme must be 'be' or 'cnab', got {scheme!r}")
+    _check_precision(precision)
+    sdt = 1.0 / float(dt)
+    shape, bc, m3, fvec = _lattice_vectors(mesh, P, f, dtype, device)
+
+    if scheme == "be":
+        solver = FastDiagonalizationSolver(mesh, P, kappa=kappa, dtype=dtype,
+                                           sigma=float(sigma) + sdt,
+                                           device=device)
+
+        def run(u, g):
+            for n in range(len(g)):
+                rhs = torch.where(bc, u, sdt * m3 * u - m3 * nonlin.N(u)
+                                  + g[n] * fvec)
+                u = solver.solve(rhs)
+            return u
+        when = "end"
+    else:
+        # A = M/dt + (K + sigma M)/2: kappa/2 and shift sigma/2 + 1/dt.
+        solver = FastDiagonalizationSolver(mesh, P, kappa=_half_kappa(kappa),
+                                           dtype=dtype,
+                                           sigma=0.5 * float(sigma) + sdt,
+                                           device=device)
+
+        def run(u, g):
+            N_m1 = nonlin.N(u)
+            for n in range(len(g)):
+                N_n = nonlin.N(u)
+                S = g[n] * fvec - m3 * (1.5 * N_n - 0.5 * N_m1)
+                rhs = torch.where(bc, 2.0 * u, 2.0 * sdt * m3 * u + S)
+                u, N_m1 = solver.solve(rhs) - u, N_n
+            return u
+        when = "mid"
+
+    def evolve(u0, nsteps):
+        g = _scales(f_time, dt, int(nsteps), when, dtype, device)
+        u = torch.as_tensor(u0).to(device=device, dtype=dtype).reshape(shape)
+        return run(u, g)
+
+    return evolve
+
+
+def semilinear_newton_evolve(hier, mesh, P, nonlin, dt, rtol=1e-10,
+                             f=None, f_time=None, lin_maxiter=60):
+    """Fully implicit backward Euler ``evolve(u0, nsteps) -> (u_T, iters)``
+    for stiff semilinear reactions (and the general mesh family): each step
+    solves ``(A + M/dt) u + m3 N(u) = (M/dt) u^n + g f`` with
+    `solvers.newton.newton_solve`, warm-started at ``u^n``. ``hier`` must
+    be built with ``sigma = sigma_problem + 1/dt``. The state is float64
+    on the hierarchy's device between steps (the JAX package keeps it in
+    host float64); ``u_T`` is flat. Host loop; per-step Newton counts."""
+    from .newton import newton_solve
+
+    sdt = 1.0 / float(dt)
+    f64 = dict(dtype=torch.float64, device=hier.device)
+    m3 = torch.tensor(lumped_mass_np(mesh, P, bc_zero=True), **f64)
+    fvec = (torch.zeros_like(m3) if f is None
+            else torch.tensor(np.asarray(f, dtype=np.float64).reshape(-1),
+                              **f64))
+
+    def evolve(u0, nsteps):
+        u = torch.as_tensor(u0).to(**f64).reshape(-1)
+        iters = []
+        for n in range(int(nsteps)):
+            g = 1.0 if f_time is None else float(f_time(dt * (n + 1)))
+            b = sdt * m3 * u + g * fvec
+            u_j, info = newton_solve(hier, b, nonlin, rtol=rtol, u0=u,
+                                     lin_maxiter=lin_maxiter)
+            u = u_j.to(torch.float64).reshape(-1)
+            iters.append(int(info["niter"]))
+        return u, iters
+
+    return evolve
+
+
+def convdiff_advective_dt(mesh, P, velocity):
+    """Advective CFL estimate of the explicit advection term: ``dt_adv = 1
+    / sum_a |c_a| / gap_a``, ``gap_a`` the smallest GLL node spacing along
+    axis ``a`` (the smallest cell on a graded axis). Run CNAB a safe factor
+    below it."""
+    from ..fem.gll import gauss_lobatto
+
+    x1, _ = gauss_lobatto(P + 1)
+    gap_ref = float(np.min(np.diff(x1)))  # on [0, 1]
+    cvel = np.asarray(velocity, dtype=np.float64)
+    rate = sum(
+        abs(float(cvel[a])) / (gap_ref * float(np.min(mesh.h_cells[a])))
+        for a in range(3))
+    return 1.0 / max(rate, np.finfo(np.float64).tiny)
 
 
 def wave_stable_dt(mesh, P, kappa=1.0):

@@ -2,8 +2,9 @@
 
 - `pmg_dolfinx_tpu_torch` and every submodule import without pulling in
   `jax` or the JAX package (checked in a fresh interpreter), the
-  general-hex and device-grid modules by name too; the port's drivers
-  (`examples/*_torch.py`) and `chip_smoke.py` import neither.
+  general-hex, device-grid and model-family modules by name too; the
+  port's drivers (`examples/*_torch.py`, the modes, nonlinear and
+  convdiff ones among them) and `chip_smoke.py` import neither.
 - On CPU tensors the kernel wrappers (blocked Kronecker, lattice with
   the z-grouped variant, the serving apply and solve of
   `ops.kron_packed`, the fused p-transfers of `ops.transfer` and the
@@ -61,7 +62,9 @@ _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "parallel.partition", "parallel.dist", "parallel.grid2d",
                 "solvers.line", "solvers.schwarz", "solvers.hmg",
                 "fem.unstructured", "ops.unstructured", "ops.csr",
-                "solvers.amg", "solvers.schwarz_dss")
+                "solvers.amg", "solvers.schwarz_dss", "models.semilinear",
+                "solvers.bicgstab", "solvers.shardwrap", "solvers.newton",
+                "solvers.convdiff", "solvers.lobpcg", "solvers.eig")
 
 
 def test_general_hex_modules_import_no_jax():
@@ -84,7 +87,10 @@ def test_drivers_and_smoke_import_no_jax():
 
     root = pathlib.Path(__file__).resolve().parent.parent
     files = sorted(root.glob("examples/*_torch.py")) + [root / "chip_smoke.py"]
-    assert len(files) >= 7
+    names = {f.name for f in files}
+    assert {"modes_torch.py", "nonlinear_torch.py",
+            "convdiff_torch.py"} <= names
+    assert len(files) >= 10
     for f in files:
         names = []
         for node in ast.walk(ast.parse(f.read_text())):

@@ -662,3 +662,73 @@ def test_unstructured_positional_calls_match_jax():
     yj = jus.dss_laplacian_apply(jnp.asarray(x), lvj, jus.dss_meta(lj),
                                  "highest", 0.5, False)
     assert _rel(yt, yj) <= 1e-12
+
+
+def test_vcycle_and_fmg_default_to_the_dofmap_ops():
+    """``v_cycle(data, b, u, levels=...)`` and ``fmg_initial_guess(data, b,
+    levels=...)`` without ``ops`` run the dofmap backend's cycle ops, as
+    the JAX package's ``ops=None`` does (the port once required ``ops``);
+    f64 to 1e-12 against JAX on a ``dofmap`` hierarchy."""
+    from pmg_dolfinx_tpu.solvers import pmg as jpmg
+    from pmg_dolfinx_tpu_torch.solvers import pmg as tpmg
+
+    kw = dict(degrees=(1, 2, 3), kappa=2.0, coarse="cg", operator="dofmap")
+    th = tpmg.PMGHierarchy(TBox(NC), device="cpu", **kw)
+    jh = jpmg.PMGHierarchy(JBox(NC), **kw)
+    b = np.random.default_rng(4).standard_normal(th.levels[-1].ndofs)
+    b[TBox(NC).boundary_dof_marker(3)] = 0.0
+    u = 0.1 * np.random.default_rng(5).standard_normal(b.size)
+    args = dict(levels=th.levels, coarse="cg", coarse_cfg=th.coarse_cfg)
+    jargs = dict(levels=jh.levels, coarse="cg", coarse_cfg=jh.coarse_cfg)
+    yt = tpmg.v_cycle(th.data, torch.tensor(b), torch.tensor(u), **args)
+    yj = jpmg.v_cycle(jh.data, jnp.asarray(b), jnp.asarray(u), **jargs)
+    assert _rel(yt, yj) <= 1e-12
+    gt = tpmg.fmg_initial_guess(th.data, torch.tensor(b), **args)
+    gj = jpmg.fmg_initial_guess(jh.data, jnp.asarray(b), **jargs)
+    assert _rel(gt, gj) <= 1e-12
+
+
+@pytest.mark.parametrize("mod,name", [
+    ("models.semilinear", "Nonlinearity"),
+    ("models.semilinear", "cubic"),
+    ("models.semilinear", "bratu"),
+    ("models.semilinear", "f_rhs_semilinear"),
+    ("solvers.bicgstab", "bicgstab_solve"),
+    ("solvers.newton", "newton_solve"),
+    ("solvers.convdiff", "sd_stabilized_kappa"),
+    ("solvers.convdiff", "convdiff_solve"),
+    ("solvers.shardwrap", "is_sharded"),
+    ("solvers.shardwrap", "layout_converters"),
+    ("solvers.shardwrap", "shards_of"),
+    ("solvers.shardwrap", "axis_exchanges"),
+    ("ops.kron", "axis_advection"),
+    ("ops.kron", "kron_advection_terms"),
+    ("ops.kron", "kron_convdiff_apply"),
+    ("solvers.transient", "semilinear_packed_evolve"),
+    ("solvers.transient", "semilinear_fdm_evolve"),
+    ("solvers.transient", "semilinear_newton_evolve"),
+    ("solvers.transient", "convdiff_fdm_evolve"),
+    ("solvers.transient", "convdiff_advective_dt"),
+    ("solvers.eig", "lowest_eigenpairs"),
+    ("solvers.pmg", "v_cycle"),
+    ("solvers.pmg", "fmg_initial_guess"),
+])
+def test_transient_and_extra_families_signatures(mod, name):
+    """The transient and extra model families keep JAX's public names and
+    positional orders; the port adds only keyword-only parameters
+    (``device``, and ``dtype`` on `lowest_eigenpairs`)."""
+    import importlib
+
+    jf = getattr(importlib.import_module(f"pmg_dolfinx_tpu.{mod}"), name)
+    tf = getattr(importlib.import_module(f"pmg_dolfinx_tpu_torch.{mod}"),
+                 name)
+    assert _positional(tf) == _positional(jf)
+
+
+def test_lobpcg_matches_jax_signature():
+    """`solvers.lobpcg.lobpcg_standard` keeps the parameters of
+    `jax.experimental.sparse.linalg.lobpcg_standard`."""
+    from jax.experimental.sparse.linalg import lobpcg_standard as jl
+    from pmg_dolfinx_tpu_torch.solvers.lobpcg import lobpcg_standard as tl
+
+    assert _positional(tl) == _positional(jl) == ["A", "X", "m", "tol"]
