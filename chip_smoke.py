@@ -16,14 +16,18 @@ kappa, sigma fields) and the unstructured-mesh family (the DSS and csr
 operators, the DSS Schwarz smoother, the AMG coarse solve) and the
 transient and extra model families (steady and implicit Newton,
 convection-diffusion with BiCGStab, the semilinear serving and IMEX
-steppers, modal LOBPCG) through them.
+steppers, modal LOBPCG) and the 1D slab layer (`DistPMG`, its sweep
+driver, Newton, BiCGStab and the halo micro-benchmark on the slabs)
+through them.
 Every phase raises on failure; nothing is caught. The phases run in the
-order 1-3f, 4-4e, 14, 15, 18d, 24a, 25a, 25b, 19a-19c, 5-8b, 16, 17,
-20a-20c, 9-11, 21, 12, 13, 18a-18c, 22, 23a-23d, 24b, 25c-25f: 15, 18d,
-24a, 25a, 25b, 19b, 20a and 20c reuse phase 4's mesh (and its host
-geometry factors; 25a its hierarchy), 16 and 17 phase 7's. The 16.2M L2
-errors of phases 4, 15 and 19a run on host threads (joined after phase 5), and the L-shaped meshes of phases 22-23 build on
-host threads started with phase 2. The script prints its seconds.
+order 1-3f, 4-4e, 14, 26a, 26b, 15, 18d, 24a, 25a, 25b, 26c, 19a-19c,
+5-8b, 16, 17, 20a-20c, 9-11, 21, 12, 13, 18a-18c, 22, 23a-23d, 24b,
+25c-25f: 26a, 15, 18d, 24a, 25a, 25b, 19b and 20c reuse phase 4's mesh
+(and its host geometry factors; 25a and 26a its hierarchy, 26c 26a's),
+16 and 17 phase 7's. The 16.2M L2 errors of phases 4, 15, 19a and 26a
+run on host threads (joined after phase 5), and the L-shaped meshes of
+phases 22-23 build on host threads started with phase 2. The script
+prints its seconds.
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch,
    CUDA and nvcc versions. Fails when ``torch.cuda.is_available()`` is
@@ -260,9 +264,10 @@ host threads started with phase 2. The script prints its seconds.
    within 1e-5 of the unfused one's, FCG(V) within one.
 20. The general family, ``lattice_blocked``. a: ``--kappa-field aniso``
    (`kappa_aniso`, 100:1 rotated 30 degrees, folded into G: the first
-   off-diagonal G on a box) on phase 4's mesh, ``coarse="cg"``: FCG(V) to
-   1e-6 within 100, ms per V-cycle beside phase 7's curved cycle, K-A
-   launches; L2 < 1e-4 at nc=21. b: at nc=21, `kappa_linear` with
+   off-diagonal G on a box) at nc=21 (16.2M until PR 17), ``coarse="cg"``:
+   FCG(V) to 1e-6 within 100, ms per V-cycle beside phase 7's curved
+   cycle, K-A launches, L2 < 1e-4. b: at nc=14 (nc=21 until PR 17),
+   `kappa_linear` with
    ``coarse="hmg"`` and `sigma_linear` with ``coarse="cg"``: FCG(V)
    within one of the plain ``lattice`` hierarchy's, L2 < 1e-4 (the DG-0
    `kappa_linear`: within 1% of the plain solve's, its own h^2
@@ -323,12 +328,32 @@ host threads started with phase 2. The script prints its seconds.
    1e-4 of the f64 ``kron`` run, Newton per step, #1-#3 launch. f:
    `examples/modes_torch.py` (f64) ``--ndofs 100000 --kmodes 6 --neumann
    x --sigma 5`` and ``--mesh perturbed --ndofs 1000 --kmodes 1`` (its
-   ``lattice`` + ``cg`` hierarchy); that hierarchy at ~30k dofs for 2 LOBPCG
+   ``lattice`` + ``cg`` hierarchy); that hierarchy at ~10k dofs for 2 LOBPCG
    iterations (FCG per solve below its cap, coarse CG per V-cycle); and
-   `lowest_eigenpairs` on the ~30k-dof ``PerturbedBoxMesh`` (k=1, tol
+   `lowest_eigenpairs` on the ~10k-dof ``PerturbedBoxMesh`` (k=1, tol
    1e-14, a ``lattice`` + ``direct`` hierarchy): each pair's ``|K u - lam
    M u| / |lam M u|`` against the host scipy stiffness (1e-7, 1e-6),
    M-orthonormality <= 1e-10, LOBPCG iterations and seconds.
+
+26. The 1D slab layer (`parallel.dist`; no new kernel: JAX's slab runs
+   its exchanges, einsums and scatters as XLA ops and #1-#3 per shard).
+   a (run after 14): ``DistPMG(BoxMesh((42, 42, 42)), n_devices=6,
+   degrees=(1, 3, 6), kappa=2, float32, coarse="fdm",
+   operator="kron_blocked")`` on phase 4's mesh and rhs, the six slabs
+   stacked on the card: the trajectory within phase 14's grid gate of
+   phase 4's, FCG(V) within one of phase 4's, the solution within 1e-3,
+   the apply and one V-cycle on a seeded input within 1e-5 of phase 4's
+   hierarchy's, the per-slab launch design's V-cycle within 1e-5 of the
+   stacked one's, L2 < 1e-4 (host thread); ms per V-cycle of both launch
+   designs in turns beside phase 4's, #1-#3 launches per V-cycle, the
+   idle share from a complete profiler window. b:
+   `examples/scaling_torch.py`'s slab sweep (S = 1, 2, 4, 8) at ~2.5M
+   dofs, p=(1,3,6), ``kron_blocked`` + ``fdm``, f32, 3 cycles, and
+   ``dofmap`` + ``cg`` in f64 at ~300k dofs: every trajectory invariant.
+   c (after 25b): `newton_solve` on 26a's hierarchy within 1e-3 of 25a's
+   f64 solution; `convdiff_solve` on 7 slabs at nc=21 within 25b's f32
+   gates of its f64 solution; `examples/vector_update_torch.py` (8
+   slabs, p=6, ``kron_blocked``, 100 rounds) with a deterministic dot.
 
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
@@ -341,8 +366,8 @@ their separable twin's device time, #12 with the blocked apply's), the
 lattice kernels with their box and face
 scratch, the serving kernels per batch beside ``bound_ms_by_batch``;
 ``launches`` sums each kernel's launches over every path that runs it
-(#1-#3 phases 4, 15, 24a, 25a, 25e and 19a/19b, #4/#7/#10/#11 phases
-4b-4e and 19c, #9 phases 14 and 18d, K-A phases 7, 16, 17, 20a and 20b,
+(#1-#3 phases 4, 15, 24a, 25a, 25e, 19a/19b and 26a-26c, #4/#7/#10/#11
+phases 4b-4e and 19c, #9 phases 14 and 18d, K-A phases 7, 16, 17, 20a and 20b,
 K-B phases 8 and 20c, #18-#21 phases 11 and 21, #19/#21 phase 25c),
 with their kernels and host us per call and, with ``--parent``, the
 parent's device times and whether the bits are the same) and, only when every
@@ -2721,6 +2746,383 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
 
 
 
+# Phase 26a: the flagship mesh's 42 x-cells in 6 slabs of 7 (258 stacked
+# x-planes at p=6 against 253).
+SLAB_SHARDS = 6
+# 20b's mesh: nc=21 until PR 17 (64.0 s on a slow host), cut for 26a-26c.
+GENERAL_NC = (14, 14, 14)
+SLAB_SWEEP = ["--ndofs", "2000000", "--degrees", "1", "3", "6",
+              "--operator", "kron_blocked", "--coarse", "fdm", "--dtype",
+              "f32", "--max-devices", "8", "--cycles", "3"]
+SLAB_SWEEP_F64 = ["--ndofs", "250000", "--operator", "dofmap", "--coarse",
+                  "cg", "--dtype", "f64", "--max-devices", "8"]
+VECTOR_UPDATE = ["--operator", "kron_blocked", "--ndofs", "2000000",
+                 "--degree", "6", "--devices", "8", "--rounds", "100"]
+CONV_SLAB_SHARDS = 7     # 26c: nc=21 in 7 slabs of 3 cells
+
+
+def run_example(name, args):
+    """``examples/<name>.py`` with ``args`` in this process (its kernel
+    launches count here, its kernels are this process's); prints its
+    output indented and returns its last line, a JSON object."""
+    if str(ROOT / "examples") not in sys.path:
+        sys.path.insert(0, str(ROOT / "examples"))
+    mod = load_example(name)
+    argv, buf = sys.argv, io.StringIO()
+    sys.argv = [f"{name}.py", *args]
+    try:
+        with contextlib.redirect_stdout(buf):
+            mod.main()
+    finally:
+        sys.argv = argv
+    text = buf.getvalue()
+    print("    " + text.strip().replace("\n", "\n    ")[:4000])
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def slab_vcycle_ms(dist, cycles=10, reps=3):
+    """`vcycle_ms` for a `DistPMG`: one-vectors in the slab layout."""
+    import torch
+
+    b = dist.to_dist(torch.ones(dist.mesh.num_dofs(dist.degrees[-1]),
+                                device=dist.device))
+    u = torch.zeros_like(b)
+    times = [cuda_ms(lambda: dist.apply(b, u), reps=cycles, warmup=2)
+             for _ in range(reps)]
+    return sorted(times)[len(times) // 2], times
+
+
+def per_slab_launch_ops(slab):
+    """The other launch design of the slab's ``kron_blocked`` apply, for
+    timing only: kernels 1 and 2 (or 3) once per slab on its contiguous
+    block and its own arrays (`slab_blocks`), the x exchange between them
+    (what `GridPMG` does per shard). Returns ``slab``'s cycle ops with
+    ``apply`` and ``residual`` replaced."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.dist import (
+        _exchange_partials,
+        slab_blocks,
+    )
+
+    S, sigma = slab.n_shards, slab.sigma
+    blocks = {id(lv["kb_mats"]): slab_blocks(lv["kb_mats"], S)
+              for lv in slab.data["levels"] if "kb_mats" in lv}
+
+    def run(lv, x, r=None):
+        mine = blocks[id(lv["kb_mats"])]
+        if "sxzm" not in lv["kb_mats"]:
+            raise AssertionError("per-slab launches: separable marker only")
+        x = x.contiguous()
+        t1 = torch.empty_like(x)
+        for s, m in enumerate(mine):
+            kb.kron_t1_m(x[s], m, out=t1[s])
+        t1 = _exchange_partials(t1, S, inplace=True)
+        out = torch.empty_like(x)
+        for s, m in enumerate(mine):
+            kb.kron_t23_m(x[s], t1[s], m, sigma,
+                          r3=None if r is None else r[s], out=out[s])
+        return out
+
+    return dict(slab._ops,
+                apply=lambda lv, x, level: run(lv, x),
+                residual=lambda lv, b, u, level: run(lv, u, r=b.contiguous()))
+
+
+def slab_kernel_parity(slab):
+    """Kernels #1-#3 on the slab's own operand, the stacked fine lattice
+    ``(S*npl, NY, NZ)`` with its block-diagonal ``Ktx`` and stacked scale
+    factors, against the per-slab plain versions on each slab's own
+    arrays (`slab_blocks`): kernel by kernel, and the apply and residual
+    entry points with the x exchange, on seeded inputs at sigma 0 and
+    0.5, gated at ``KERNEL_RTOL``. These launches are comparisons; they
+    are not counted as the main path's."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.dist import (
+        _exchange_partials,
+        slab_blocks,
+    )
+
+    S = slab.n_shards
+    lv = slab.data["levels"][-1]
+    mats = lv["kb_mats"]
+    blocks = slab_blocks(mats, S)
+    shape = (S,) + tuple(slab.levels[-1].shape)
+    rng = np.random.default_rng(SEED + 28)
+    x, r = (torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                         device="cuda") for _ in range(2))
+    flat = lambda t: t.reshape((-1,) + shape[2:])
+    bc = flat(lv["bc_marker"])
+
+    def ex(t1):
+        lat = t1.view(shape)
+        return _exchange_partials(lat, S, inplace=True).view(t1.shape)
+
+    t1_raw = torch.stack([kb.plain_t1_m(x[s], blocks[s]) for s in range(S)])
+    t1 = _exchange_partials(t1_raw.clone(), S)
+    worst = 0.0
+    for sigma in (0.0, 0.5):
+        y_ref = torch.stack([kb.plain_t23_m(x[s], t1[s], blocks[s], sigma)
+                             for s in range(S)])
+        cases = (
+            ("t1_m", lambda: kb.kron_t1_m(flat(x), mats), t1_raw),
+            ("t23_m", lambda: kb.kron_t23_m(flat(x), flat(t1), mats, sigma),
+             y_ref),
+            ("t23_res_m", lambda: kb.kron_t23_m(flat(x), flat(t1), mats,
+                                                sigma, r3=flat(r)),
+             r - y_ref),
+            ("apply", lambda: kb.blocked_kron_apply(
+                flat(x), bc, mats, exchange=ex, sigma=sigma), y_ref),
+            ("residual", lambda: kb.blocked_kron_residual(
+                flat(r), flat(x), bc, mats, exchange=ex, sigma=sigma),
+             r - y_ref),
+        )
+        for name, launch, ref in cases:
+            got = launch()
+            torch.cuda.synchronize()
+            err = rel_max_err(got.reshape(shape), ref)
+            worst = max(worst, err)
+            print(f"    stacked {tuple(flat(x).shape)} sigma={sigma} {name} "
+                  f"vs the per-slab plain versions: rel max err {err:.3e}")
+            if not err <= KERNEL_RTOL:
+                raise AssertionError(
+                    f"stacked slab {name}, sigma={sigma}: relative max-norm "
+                    f"error {err:.3e} > {KERNEL_RTOL}")
+    return worst
+
+
+def slab_flagship(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg,
+                  launches):
+    """Phase 26a: the slab main path, ``DistPMG(BoxMesh((42, 42, 42)),
+    n_devices=6, degrees=(1, 3, 6), kappa=2, float32, coarse="fdm",
+    operator="kron_blocked")`` on phase 4's mesh and rhs, the six slabs
+    stacked on this card, against phase 4's single-device hierarchy
+    (``spread``: phase 4's plain-kron spread, the grid gate of phase 14).
+    Gates: the stationary trajectory, FCG(V) within 1 of phase 4's, the
+    solution within 1e-3, the apply within 1e-5 and one V-cycle on a
+    seeded input within 1e-5 of the single device's, kernels #1-#3 and
+    the apply and residual on the stacked fine operand within 1e-5 of the
+    per-slab plain versions (`slab_kernel_parity`), the per-slab launch
+    design's V-cycle (`per_slab_launch_ops`) within 1e-5 of the stacked
+    one's, #1-#3 launch; the L2 error (< 1e-4) on a host thread. Prints
+    ms per V-cycle of both launch designs in turns beside the single
+    device's, launches per V-cycle and the idle share (complete profiler
+    window). Adds #1-#3's
+    launches to ``launches``; returns (the hierarchy, the L2 job, {tag:
+    (FCG count, ms per V-cycle)})."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.dist import DistPMG
+
+    reset(kb)
+    ts = time.perf_counter()
+    slab = DistPMG(prob.mesh, n_devices=SLAB_SHARDS,
+                   operator="kron_blocked", **cfg)
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f}  (slab "
+          f"lattice {slab.levels[-1].shape} x {SLAB_SHARDS}; eig max per level "
+          f"{[float(e[-1]) for e in slab.eigs]}; single device "
+          f"{[float(e[-1]) for e in hier.eigs]})")
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    ts = time.perf_counter()
+    u, rn = slab.solve(prob.b, num_cycles=10)
+    rel = [v / r0 for v in rn]
+    print(f"    10 cycles ({time.perf_counter() - ts:.3f} s host clock): rel "
+          f"{[f'{v:.4e}' for v in rel]}")
+    hist = [1.0] + rel
+    if not all(hist[i + 1] < hist[i] for i in range(4)):
+        raise AssertionError(f"residual did not fall on cycles 1-4: {rel}")
+    grid_traj_gate(rel, rel_ref, spread, "slab vs single device")
+    ts = time.perf_counter()
+    u, niter = slab.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    pcg_s = time.perf_counter() - ts
+    path = dict(kb.LAUNCHES)
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} ({pcg_s:.3f} s host "
+          f"clock; single device {niter_ref}); kernel launches on this path: "
+          f"{ {k: v for k, v in path.items() if v} }")
+    add_launches(launches, path, ("t1_m", "t23_m", "t23_res_m"))
+    if abs(niter - niter_ref) > 1:
+        raise AssertionError(f"FCG counts differ: {niter} vs {niter_ref}")
+    if tuple(u.shape) != tuple(u_ref.shape) or not bool(
+            torch.isfinite(u).all()):
+        raise AssertionError("slab solution is not a finite vector of ndofs")
+    du = rel_l2(u, u_ref)
+    print(f"    slab vs single-device FCG solution: relative difference "
+          f"{du:.3e}")
+    if not du <= 1e-3:
+        raise AssertionError(f"slab and single-device solutions differ: {du}")
+    l2 = start_l2(prob.error_l2, u.double().cpu().numpy())
+    x = torch.tensor(np.random.default_rng(SEED + 26).standard_normal(
+        u_ref.numel(), dtype=np.float32), device="cuda")
+    y_s = hier.operator()(x)
+    y_d = slab.from_dist(slab.operator()(slab.to_dist(x)))
+    err = rel_max_err(y_d, y_s)
+    print(f"    slab apply vs single-device apply, seeded random vector: rel "
+          f"max err {err:.3e}")
+    if not err <= KERNEL_RTOL:
+        raise AssertionError(f"slab and single-device operators differ: {err}")
+    del x, y_s, y_d
+    grid_vcycle_parity(slab, hier, SEED + 27, f"slab ({SLAB_SHARDS} slabs)")
+    slab_kernel_parity(slab)
+    bd = slab.to_dist(prob.b)
+    ud = torch.zeros_like(bd)
+    stacked = slab._ops
+    per_shard = per_slab_launch_ops(slab)
+
+    def with_ops(ops, fn):
+        slab._ops = ops
+        try:
+            return fn()
+        finally:
+            slab._ops = stacked
+
+    per_cycle = {}
+    for tag, ops in (("stacked", stacked), ("per_shard", per_shard)):
+        reset(kb)
+        with_ops(ops, lambda: slab.apply(bd, ud))
+        torch.cuda.synchronize()
+        per_cycle[tag] = {k: v for k, v in kb.LAUNCHES.items() if v}
+        print(f"    launches per slab V-cycle, {tag}: {per_cycle[tag]}")
+    v_st = slab.apply(bd, ud)
+    v_ps = with_ops(per_shard, lambda: slab.apply(bd, ud))
+    err = rel_max_err(v_ps, v_st)
+    print(f"    one V-cycle, per-shard launches vs stacked: rel max err "
+          f"{err:.3e} (gate {KERNEL_RTOL:g})")
+    if not err <= KERNEL_RTOL:
+        raise AssertionError(f"the two launch designs differ: {err}")
+    # stacked, per-shard, per-shard, stacked; the single device around them
+    t_h1, _ = vcycle_ms(hier)
+    t_s1, all_s1 = slab_vcycle_ms(slab)
+    t_p1, all_p1 = with_ops(per_shard, lambda: slab_vcycle_ms(slab))
+    t_p2, all_p2 = with_ops(per_shard, lambda: slab_vcycle_ms(slab))
+    t_s2, all_s2 = slab_vcycle_ms(slab)
+    t_h2, _ = vcycle_ms(hier)
+    vc_st, vc_ps = (t_s1 + t_s2) / 2, (t_p1 + t_p2) / 2
+    print(f"    V-cycle: slab stacked launches {vc_st:.3f} ms ({t_s1:.3f}, "
+          f"{t_s2:.3f}; reps {[round(t, 3) for t in all_s1 + all_s2]}), "
+          f"per-shard launches {vc_ps:.3f} ms ({t_p1:.3f}, {t_p2:.3f}; reps "
+          f"{[round(t, 3) for t in all_p1 + all_p2]}), single device "
+          f"{(t_h1 + t_h2) / 2:.3f} ms ({t_h1:.3f}, {t_h2:.3f}); 10 "
+          f"back-to-back, median of 3, in turns")
+    faster = "stacked" if vc_st <= vc_ps else "per_shard"
+    print(f"    faster design this run: {faster}; DistPMG runs: stacked")
+    wall, busy, nk, by_name, complete = kron_profile(
+        lambda: slab.apply(bd, ud), "slab stacked")
+    print(f"      idle {max(0.0, 1 - busy / vc_st):.1%} of the back-to-back "
+          f"{vc_st:.3f} ms")
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"      {ms:8.4f} ms {ms / busy:6.1%}  {kname[:90]}")
+    return slab, l2, {"26a slab": (niter, vc_st),
+                      "26a slab per-shard": (niter, vc_ps)}
+
+
+def slab_sweeps(launches):
+    """Phase 26b: ``examples/scaling_torch.py``'s 1D slab sweep (strong
+    mode, S = 1, 2, 4, 8) at about 2M dofs, p=(1,3,6), ``kron_blocked`` +
+    ``fdm``, f32, 3 cycles (the f32 floor stays 40x below the last one),
+    and the driver's default ``dofmap`` + ``cg`` in f64 at about 250k
+    dofs: every count's trajectory invariant (rtol 1e-3 / 1e-9). Adds
+    #1-#3's launches of the f32 sweep to ``launches``. Returns {tag:
+    (cycles, ms per V-cycle at 8 slabs)}."""
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+
+    out = {}
+    for tag, args in (("f32 kron_blocked", SLAB_SWEEP),
+                      ("f64 dofmap", SLAB_SWEEP_F64)):
+        reset(kb)
+        res = run_example("scaling_torch", args)
+        rows = res["rows"]
+        inv = [r["invariant"] for r in rows[1:]]
+        print(f"    {tag}: slabs {[r['devices'] for r in rows]}, s/cycle "
+              f"{[round(r['s_per_cycle'], 5) for r in rows]}, invariant "
+              f"{inv}")
+        if not (len(rows) == 4 and all(v is True for v in inv)):
+            raise AssertionError(f"26b {tag}: trajectories not invariant: "
+                                 f"{inv}")
+        if tag.startswith("f32"):
+            add_launches(launches, dict(kb.LAUNCHES),
+                         ("t1_m", "t23_m", "t23_res_m"))
+        out[f"26b {tag}"] = (len(rows[-1]["rnorms"]),
+                             1e3 * rows[-1]["s_per_cycle"])
+    return out
+
+
+def slab_models(slab, newton_ref, conv_ref, launches):
+    """Phase 26c: `newton_solve` (cubic(5)) on phase 26a's slab hierarchy
+    against phase 25a's f64 single-device solution (25a's rtol and gate);
+    `convdiff_solve` on a plain ``kron`` slab hierarchy (nc=21, 7 slabs,
+    f32, rtol 1e-8) against phase 25b's nc=21 f64 solution within 25b's
+    gates (IMEX_RTOL and CONV_FLOOR_FACTOR x the f32 floor predicted
+    there); ``examples/vector_update_torch.py`` (8 slabs, ~2M dofs, p=6,
+    ``kron_blocked``, 100 rounds) with a deterministic, finite dot. Adds
+    #1-#3's launches to ``launches``. Returns {tag: (count, ms)}."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models import semilinear
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.dist import DistPMG
+    from pmg_dolfinx_tpu_torch.solvers.convdiff import convdiff_solve
+
+    out = {}
+    u64, rtol, b = newton_ref
+    reset(kb)
+    u, info, per = newton_f32(slab, b, semilinear.cubic(SEMI_C), rtol,
+                              "slab cubic f32")
+    add_launches(launches, dict(kb.LAUNCHES), ("t1_m", "t23_m", "t23_res_m"))
+    du = rel_max_err(u.double(), u64)
+    print(f"      against 25a's f64 single-device solution: rel max diff "
+          f"{du:.3e} (gate {NEWTON_F64_RTOL:g})")
+    if not du <= NEWTON_F64_RTOL:
+        raise AssertionError(f"26c Newton: {du} from the f64 solution")
+    out["26c slab Newton"] = (info["niter"], per)
+
+    u64, u_pred = conv_ref
+    cvel = (3.0, -1.5, 0.8)
+    mesh = BoxMesh(SMALL_NC)
+    ts = time.perf_counter()
+    h = DistPMG(mesh, n_devices=CONV_SLAB_SHARDS, degrees=(1, 3, 6),
+                kappa=2.0, dtype=torch.float32, coarse="fdm",
+                operator="kron", device="cuda")
+    b = assemble_rhs(mesh, 6, conv_source(2.0, cvel))
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - ts
+    ts = time.perf_counter()
+    u, info = convdiff_solve(h, b, cvel, rtol=1e-8, maxiter=200)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - ts) * 1e3
+    pred = rel_max_err(u_pred, u64)
+    d = rel_max_err(u.double(), u64)
+    print(f"    convdiff, {CONV_SLAB_SHARDS} slabs at nc=21: "
+          f"{info['niter']} BiCGStab iterations, rel resid "
+          f"{info['rel_resid']:.2e}, {wall:.1f} ms (setup and rhs "
+          f"{setup:.2f} s); against 25b's f64 single-device solution rel "
+          f"max diff {d:.3e}, 25b's predicted f32 floor {pred:.3e}: ratio "
+          f"{d / pred:.3f} (gates {IMEX_RTOL:g} and {CONV_FLOOR_FACTOR:g} x "
+          f"the floor)")
+    if not (info["rel_resid"] <= 1e-8 and d <= IMEX_RTOL
+            and d <= CONV_FLOOR_FACTOR * pred):
+        raise AssertionError(f"26c convdiff: {info}, {d}, floor {pred}")
+    out["26c slab BiCGStab"] = (info["niter"], wall / max(info["niter"], 1))
+    del h
+
+    reset(kb)
+    res = run_example("vector_update_torch", VECTOR_UPDATE)
+    if not (res["deterministic"] is True and res["rounds"] == 100):
+        raise AssertionError(f"26c vector_update: {res}")
+    add_launches(launches, dict(kb.LAUNCHES), ("t1_m", "t23_m"))
+    out["26c vector_update"] = (res["rounds"], 1e3 * res["s_per_round"])
+    return out
+
+
 def kron_profile(fn, tag, tries=4):
     """`profile_busy` of one V-cycle ``fn`` on a Kronecker hierarchy from a
     complete window: one whose ``kron_t*`` kernels number the wrappers'
@@ -3034,7 +3436,9 @@ def curved_hmg(curved, niter_ref, vc_ref, busy_ref, ccfg, launches):
             by_name.items(), key=lambda kv: -kv[1])[:8]))
 
 
-AMG_TWIN_NDOFS = 500000   # cut from 2,000,000 (112 s, mostly host setup)
+# Cut from 2,000,000 (112 s, mostly host setup; PR 16) and from 500,000
+# (34.9 s; PR 17, for the slab phases 26a-26c).
+AMG_TWIN_NDOFS = 250000
 
 
 def amg_twin():
@@ -3438,11 +3842,11 @@ def box_family_fused(launches):
 
 
 def general_family(mesh, launches, vc_curved):
-    """Phase 20 (lattice_blocked, K-A / K-B). 20a on ``mesh`` (phase 4's
-    uniform box at 16.2M): ``--kappa-field aniso`` (`kappa_aniso`, 100:1
-    rotated 30 degrees, folded into G), ``coarse="cg"``, FCG(V) to 1e-6
-    within 100, ms per V-cycle beside phase 7's curved cycle
-    (``vc_curved``), K-A launches; its L2 < 1e-4 at nc=21. 20b at nc=21:
+    """Phase 20 (lattice_blocked, K-A / K-B). 20a at nc=21 (2,048,383
+    dofs): ``--kappa-field aniso`` (`kappa_aniso`, 100:1 rotated 30
+    degrees, folded into G), ``coarse="cg"``, FCG(V) to 1e-6 within 100,
+    ms per V-cycle beside phase 7's curved cycle (``vc_curved``), K-A
+    launches, L2 < 1e-4. 20b at `GENERAL_NC` (nc=21 until PR 17):
     `kappa_linear` with ``coarse="hmg"`` and `sigma_linear` with
     ``coarse="cg"``: FCG(V) within one of the plain ``lattice``
     hierarchy's, L2 < 1e-4 (`kappa_linear`: within 1% of the plain
@@ -3463,43 +3867,38 @@ def general_family(mesh, launches, vc_curved):
                operator="lattice_blocked", device="cuda")
     out = {}
     t0 = phase("20a. general family: --kappa-field aniso (100:1 rotated 30 "
-               "degrees), 16.2M dofs, lattice_blocked + cg")
+               "degrees), nc=21 (2,048,383 dofs), lattice_blocked + cg")
     K = pm.kappa_aniso()
     f = pm.f_rhs_tensor(K)
+    # At nc=21 since PR 17 (16.2M until then: its host tensor fold took
+    # 61-87 s of the script's time limit).
     reset(lb)
     ts = time.perf_counter()
-    prob = pm.PoissonProblem(mesh=mesh, kappa=K, f=f, coarse="cg", **cfg)
-    torch.cuda.synchronize()
-    print(f"    setup seconds: {time.perf_counter() - ts:.2f}; peak host RSS "
-          f"{peak_rss_gb():.1f} GB")
-    u, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6, maxiter=100)
-    torch.cuda.synchronize()
-    path = dict(lb.LAUNCHES)
-    print(f"    FCG(V) iterations to rtol 1e-6: {niter}; launches {path}")
-    if not niter < 100 or not bool(torch.isfinite(u).all()):
-        raise AssertionError(f"20a: FCG {niter}")
-    add_launches(launches, path, ("lattice_apply",))
-    vc, vc_all = vcycle_ms(prob.hierarchy)
-    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
-          f"{[round(t, 3) for t in vc_all]}); phase 7's curved cycle "
-          f"{vc_curved:.3f} ms")
-    out["20a"] = (niter, vc)
-    del prob, u
-    reset(lb)
     p21 = pm.PoissonProblem(mesh=BoxMesh((21, 21, 21)), kappa=K, f=f,
                             coarse="cg", **cfg)
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f}")
     u, n21 = p21.hierarchy.solve_pcg(p21.b, rtol=1e-6, maxiter=100)
-    add_launches(launches, dict(lb.LAUNCHES), ("lattice_apply",))
+    torch.cuda.synchronize()
+    path = dict(lb.LAUNCHES)
+    if not n21 < 100 or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"20a: FCG {n21}")
+    add_launches(launches, path, ("lattice_apply",))
+    vc, vc_all = vcycle_ms(p21.hierarchy)
     err = p21.error_l2(u)
-    print(f"    at nc=21: FCG(V) {n21}, L2 error {err:.4e}")
+    print(f"    FCG(V) iterations to rtol 1e-6: {n21}; launches {path}; "
+          f"V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+          f"{[round(t, 3) for t in vc_all]}; phase 7's 16.2M curved cycle "
+          f"{vc_curved:.3f} ms); L2 error {err:.4e}")
     if not err < 1e-4:
         raise AssertionError(f"20a: L2 error at nc=21 {err}")
+    out["20a"] = (n21, vc)
     del p21, u
     done(t0)
 
-    t0 = phase("20b. general family at nc=21: kappa_linear + hmg, "
-               "sigma_linear + cg; lattice_blocked vs plain lattice")
-    m21 = BoxMesh((21, 21, 21))
+    t0 = phase(f"20b. general family at nc={GENERAL_NC[0]}: kappa_linear + "
+               "hmg, sigma_linear + cg; lattice_blocked vs plain lattice")
+    mesh_b = BoxMesh(GENERAL_NC)
     for tag, kw in (
             ("kappa_linear + hmg", dict(kappa=pm.kappa_linear,
                                         f=pm.f_rhs_variable(), coarse="hmg")),
@@ -3507,12 +3906,12 @@ def general_family(mesh, launches, vc_curved):
                                        f=pm.f_rhs_sigma_field(2.0),
                                        coarse="cg"))):
         reset(lb)
-        prob = pm.PoissonProblem(mesh=m21, **kw, **cfg)
+        prob = pm.PoissonProblem(mesh=mesh_b, **kw, **cfg)
         u, niter = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
         torch.cuda.synchronize()
         path = dict(lb.LAUNCHES)
         err = prob.error_l2(u)
-        plain = PMGHierarchy(m21, **{k: v for k, v in kw.items()
+        plain = PMGHierarchy(mesh_b, **{k: v for k, v in kw.items()
                                      if k != "f"},
                              **dict(cfg, operator="lattice"))
         u_p, n_p = plain.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
@@ -4054,7 +4453,7 @@ def newton_f32(hier, b, nl, rtol, tag, atol=0.0):
     return u, info, per
 
 
-def newton_flagship(prob, cfg, launches):
+def newton_flagship(prob, cfg, launches, keep=None):
     """Phase 25a: `newton_solve` on phase 4's flagship hierarchy (16.2M
     dofs, p=(1,3,6), ``kron_blocked`` + ``fdm``, f32), cubic(5) with its
     manufactured source and Bratu(5) with f = 0. First the f32 operator's
@@ -4062,7 +4461,8 @@ def newton_flagship(prob, cfg, launches):
     hierarchy, rtol 1e-10), evaluated with the f32 operator, over ``|F0|``;
     the f32 runs take rtol = 10 x that floor. Gates: Newton within
     NEWTON_MAXSTEPS, the cubic's collocated L2 error < 1e-4, #1-#3 launch.
-    Returns {tag: (Newton steps, ms per Newton step)}."""
+    Returns {tag: (Newton steps, ms per Newton step)}; ``keep`` (a dict)
+    gets the cubic's (f64 solution, f32 rtol, rhs) for phase 26c."""
     import numpy as np
     import torch
 
@@ -4101,6 +4501,8 @@ def newton_flagship(prob, cfg, launches):
               f"f64 solution: |F32|/|F0| = {floor:.3e} (the floor); rtol "
               f"{rtols[tag]:.3e}")
     del h64
+    if keep is not None:
+        keep["cubic"] = (refs["cubic"], rtols["cubic"], cases["cubic"][1])
     reset(kb)
     for tag, (nl, b) in cases.items():
         u, info, per = newton_f32(hier, b, nl, rtols[tag], f"{tag} f32")
@@ -4123,7 +4525,7 @@ def newton_flagship(prob, cfg, launches):
     return out
 
 
-def convdiff_phase(mesh42, launches):
+def convdiff_phase(mesh42, launches, keep=None):
     """Phase 25b: `convdiff_solve` (BiCGStab, V-cycle of the symmetric
     part) on a plain ``kron`` hierarchy (f32, p=(1,3,6), fdm coarse) on
     phase 4's mesh, the driver's velocity (3,-1.5,0.8) and kappa 2, rtol
@@ -4131,7 +4533,8 @@ def convdiff_phase(mesh42, launches):
     1e-8, below its floor) against the f64 one within IMEX_RTOL; at both
     sizes `conv_floor_gate`; the streamline-diagonal case at cell Pe 21
     (the JAX README's: 6^3 cells, p=(1,3), f64, 'p' and 'cell' scales).
-    Returns {tag: (BiCGStab iterations, ms per iteration)}."""
+    Returns {tag: (BiCGStab iterations, ms per iteration)}; ``keep`` (a
+    dict) gets nc=21's (f64 solution, predicted f32 solution) for 26c."""
     import numpy as np
     import torch
 
@@ -4188,7 +4591,9 @@ def convdiff_phase(mesh42, launches):
     if not errs[0] <= CONV_FLOOR_FACTOR * errs[2]:
         raise AssertionError(f"25b 16.2M: L2 errors {errs}")
     del u32, u64, u_pred
-    u32, u64, _, d = pair(BoxMesh(SMALL_NC), 1e-8, "nc=21")
+    u32, u64, u_pred, d = pair(BoxMesh(SMALL_NC), 1e-8, "nc=21")
+    if keep is not None:
+        keep["nc21"] = (u64, u_pred)
     print(f"      nc=21: f32 against f64, rel max diff {d:.3e} (gate "
           f"{IMEX_RTOL:g}), rel 2-norm diff {rel_l2(u32.double(), u64):.3e}")
     if not d <= IMEX_RTOL:
@@ -4301,7 +4706,7 @@ SEMI_CONFIGS = (("cubic", "cnab", 1), ("cubic", "cnab", 8),
 
 # 25f: the driver's box run (modes_torch.py argv), its general family at
 # the driver's defaults (``lattice`` + ``cg``, default tol) on a small mesh,
-# and the general family at ~30k dofs; gates on |K u - lam M u| / |lam M u|.
+# and the general family at ~10k dofs; gates on |K u - lam M u| / |lam M u|.
 MODES_BOX = ["--ndofs", "100000", "--kmodes", "6", "--neumann", "x",
              "--sigma", "5"]
 MODES_BOX_RES = 1e-7
@@ -4309,9 +4714,10 @@ MODES_BOX_RES = 1e-7
 # (21 iterations; NVIDIA H100 80GB HBM3, 700 W), k=1 15 on the CPU.
 MODES_DRIVER_GENERAL = ["--mesh", "perturbed", "--ndofs", "1000",
                         "--kmodes", "1"]
-MODES_GENERAL_NDOFS = 30000
+# ~10k since PR 17 (29,920 until then: 25f took 64-83 s of the time limit)
+MODES_GENERAL_NDOFS = 10000
 MODES_PROBE_ITERS = 2
-# k=1 on a ``direct`` coarse at 30k: with the driver's ``cg`` coarse every
+# k=1 on a ``direct`` coarse: at 30k with the driver's ``cg`` coarse every
 # V-cycle is host-paced by the coarse CG's per-iteration reads (k=4, tol
 # 1e-13: 638.2 s for 16 iterations on the card), which the script's time
 # limit cannot hold. One vector meets LOBPCG's stopping test sooner: at
@@ -4570,7 +4976,7 @@ def modes_phase():
     check_modes("perturbed driver", mesh, 0.0, lams, U, res["iters"],
                 res["seconds"], MODES_GENERAL_RES, out)
     mesh = PerturbedBoxMesh(fit_box_cells(MODES_GENERAL_NDOFS, 3))
-    # The driver's default hierarchy at ~30k dofs, MODES_PROBE_ITERS LOBPCG
+    # The driver's default hierarchy at ~10k dofs, MODES_PROBE_ITERS LOBPCG
     # iterations of one vector: what paces each inverse solve there.
     ts = time.perf_counter()
     with fcg_counts() as (fcg, coarse):
@@ -4944,6 +5350,18 @@ def main():
     grid_path(prob, hier, rel, u, niter, spread, cfg, launches)
     done(t0)
 
+    t0 = phase("26a. slab main path (run here, on phase 4's mesh, rhs and "
+               "hierarchy): DistPMG, 6 slabs, 16.2M dofs, kron_blocked + fdm, "
+               "every slab on this card")
+    slab, l2_26a, family = slab_flagship(prob, hier, rel, u, niter, spread,
+                                         cfg, launches)
+    done(t0)
+
+    t0 = phase("26b. examples/scaling_torch.py 1D slab sweep: ~2M dofs "
+               "kron_blocked f32 and ~250k dofs dofmap + cg f64, 1-8 slabs")
+    family.update(slab_sweeps(launches))
+    done(t0)
+
     t0 = phase("15. Schwarz flagship (run here, on phase 4's mesh and rhs): "
                "16.2M dofs, p=(1,3,6), kron_blocked + fdm, smoother=schwarz")
     del hier
@@ -4959,12 +5377,13 @@ def main():
 
     t0 = phase("24a. flagship with the AMG coarse (run here, on phase 4's "
                "mesh and rhs): 16.2M dofs, p=(1,3,6), kron_blocked + amg")
-    family = {"24a": flagship_amg(prob, niter, vc_blk, cfg, launches)}
+    family["24a"] = flagship_amg(prob, niter, vc_blk, cfg, launches)
     done(t0)
 
     t0 = phase("25a. steady Newton on phase 4's flagship hierarchy: 16.2M "
                "dofs, p=(1,3,6), kron_blocked + fdm, cubic(5) and bratu(5)")
-    family.update(newton_flagship(prob, cfg, launches))
+    keep = {}
+    family.update(newton_flagship(prob, cfg, launches, keep))
     box42 = prob.mesh   # its host geometry serves phases 19b, 20 and 25b
     del prob, u
     done(t0)
@@ -4972,7 +5391,14 @@ def main():
     t0 = phase("25b. convection-diffusion (BiCGStab, V-cycle of the "
                "symmetric part): 16.2M dofs f32 kron; nc=21 f32 vs f64; SD "
                "at cell Pe 20")
-    family.update(convdiff_phase(box42, launches))
+    family.update(convdiff_phase(box42, launches, keep))
+    done(t0)
+
+    t0 = phase("26c. slab model families: newton_solve on 26a's hierarchy "
+               "(16.2M), convdiff_solve on 7 slabs at nc=21, "
+               "examples/vector_update_torch.py")
+    family.update(slab_models(slab, keep["cubic"], keep["nc21"], launches))
+    del slab, keep
     done(t0)
 
     fam, l2_19a = box_family(box42, launches)
@@ -5043,6 +5469,7 @@ def main():
     done(t0)
     check_l2(l2_4, "4", "the manufactured solution")
     check_l2(l2_15, "15", "the manufactured solution")
+    check_l2(l2_26a, "26a", "the manufactured solution")
     check_l2(l2_19a)
 
     from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
@@ -5323,7 +5750,7 @@ def main():
     done(t0)
 
     t0 = phase("25f. modes: examples/modes_torch.py, FDM box (100k); "
-               "lowest_eigenpairs, FCG(V) perturbed (30k); float64")
+               "lowest_eigenpairs, FCG(V) perturbed (10k); float64")
     family.update(modes_phase())
     done(t0)
     print(f"    phases 25c-25f added {time.perf_counter() - t_new:.1f} s "

@@ -30,7 +30,8 @@ def base_parser(doc):
                    help="graded spacing 'AXES:RATIO' (e.g. 'z:8'); the "
                         "FDM step solve stays exact on graded meshes")
     p.add_argument("--shards", type=str, default="",
-                   help="distributed time loop (not ported)")
+                   help="distributed time loop (transient_dist, not "
+                        "ported)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default 'cuda')")
     return p
@@ -72,7 +73,9 @@ def torch_device(args):
 
 
 def refuse_unported(args):
-    """The JAX driver's flags whose layers the port does not have yet."""
+    """The transient drivers' flags whose layers the port does not have
+    yet: ``--shards`` (the distributed steppers; the steady model drivers
+    take it, e.g. `convdiff_torch.py`) and ``--save-series``."""
     if args.shards:
         raise SystemExit("--shards: the distributed steppers "
                          "(transient_dist) are not ported yet (ROADMAP.md "

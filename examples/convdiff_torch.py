@@ -8,12 +8,17 @@ Kronecker separability (three contractions per apply, `ops.kron`), and
 BiCGStab, preconditioned by the V-cycle of the symmetric part, solves the
 system. The operator is ``kron`` (torch einsums, as JAX runs it on XLA).
 ``--transient`` steps to the steady state instead (implicit FDM
-diffusion, explicit advection).
+diffusion, explicit advection). ``--shards N`` runs the steady solve on
+the slab `DistPMG` (N x-slabs), ``--shards sx,sy,sz`` on the grid
+`GridPMG`: every shard is stacked on the one device, so the times
+measure the cost of the decomposition, not scaling. The sharded IMEX
+loop (``--transient --shards``, transient_dist) is not ported.
 
     python examples/convdiff_torch.py --ndofs 16000000 --degrees 1 3 6
     python examples/convdiff_torch.py --peclet-sweep --device cpu --dtype f64
     python examples/convdiff_torch.py --transient --steps 500
     python examples/convdiff_torch.py --velocity 1680,0,0 --stabilize p
+    python examples/convdiff_torch.py --shards 4 --device cpu --dtype f64
 """
 
 import json
@@ -63,12 +68,19 @@ def main():
                         "Pe > 1 (sd_stabilized_kappa): 'p' = h/P scale, "
                         "'cell' = h scale")
     p.add_argument("--shards", type=str, default="",
-                   help="sharded solve / time loop (not ported)")
+                   help="shard the steady solve: 'N' (x-slab DistPMG) or "
+                        "'sx,sy,sz' (GridPMG), stacked on the one device")
     args = p.parse_args()
+    shards = None
     if args.shards:
-        raise SystemExit("--shards: the sharded convection-diffusion solve "
-                         "and time loop are not ported yet (ROADMAP.md Queue "
-                         "1 item 10)")
+        parts = [int(v) for v in args.shards.split(",")]
+        if len(parts) not in (1, 3):
+            raise SystemExit("--shards expects 'N' or 'sx,sy,sz'")
+        shards = parts[0] if len(parts) == 1 else tuple(parts)
+        if args.transient:
+            raise SystemExit("--transient --shards: the sharded IMEX loop "
+                             "(transient_dist) is not ported yet (ROADMAP.md "
+                             "Queue 1 item 10)")
     torch, device, dtype = torch_device(args)
 
     from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs, l2_error
@@ -84,6 +96,9 @@ def main():
               "--operator kron")
         args.operator = "kron"
     nc = fit_box_cells(args.ndofs, max(args.degrees))
+    if shards is not None:
+        sh3 = (shards, 1, 1) if np.ndim(shards) == 0 else shards
+        nc = tuple((c + s - 1) // s * s for c, s in zip(nc, sh3))
     mesh = BoxMesh(nc)
     P = max(args.degrees)
     cvel = np.array([float(s) for s in args.velocity.split(",")])
@@ -138,9 +153,18 @@ def main():
                                          h_eff=args.stabilize)
             print(f"SD stabilization ({args.stabilize}): kappa_eff "
                   f"{tuple(round(float(k), 6) for k in kap)}")
-        return PMGHierarchy(mesh, degrees=tuple(args.degrees), kappa=kap,
-                            dtype=dtype, coarse=args.coarse, operator="kron",
-                            sigma=args.sigma, device=device)
+        kw = dict(degrees=tuple(args.degrees), kappa=kap, dtype=dtype,
+                  coarse=args.coarse, operator="kron", sigma=args.sigma,
+                  device=device)
+        if shards is None:
+            return PMGHierarchy(mesh, **kw)
+        if np.ndim(shards) == 0:
+            from pmg_dolfinx_tpu_torch.parallel.dist import DistPMG
+
+            return DistPMG(mesh, n_devices=int(shards), **kw)
+        from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+
+        return GridPMG(mesh, shards=tuple(shards), **kw)
 
     with Timer("setup (hierarchy build + calibration + rhs)", sync=True):
         hier = make_hier(cvel)

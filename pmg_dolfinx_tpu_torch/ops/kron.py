@@ -60,11 +60,20 @@ def axis_advection(nc: int, P: int) -> np.ndarray:
     return E.T @ (w[:, None] * Dg)
 
 
-def _todo_exchange(exchanges):
-    if any(e is not None for e in exchanges):
-        raise NotImplementedError(
-            "per-axis interface exchanges of the advection terms (a sharded "
-            "layout) are not ported yet (ROADMAP.md Queue 1 item 10)")
+def _stacked_factor(m, w, a):
+    """The axis-``a`` lumped mass ``m`` (the duplicated layout of a
+    sharded axis) as a broadcast factor of the lattice ``w``: one lattice
+    ``(NX, NY, NZ)``, the slab stack ``(S, npl, NY, NZ)`` (x sharded) or
+    the grid stack ``(sx, sy, sz, nx, ny, nz)``."""
+    lead = w.dim() - 3
+    n = w.shape[lead + a]
+    shape = [1] * w.dim()
+    shape[lead + a] = n
+    if lead == 3:
+        shape[a] = w.shape[a]
+    elif lead == 1 and a == 0:
+        shape[0] = w.shape[0]
+    return m.reshape(shape)
 
 
 def kron_advection_terms(x_masked, Cs, ms, cvel, precision="highest",
@@ -73,21 +82,28 @@ def kron_advection_terms(x_masked, Cs, ms, cvel, precision="highest",
     bc-masked input: three `torch.einsum` contractions (TF32 off,
     `pmg_dolfinx_tpu_torch/__init__.py`), as the JAX package leaves them
     to XLA. ``cvel`` is the velocity 3-vector (a tensor or a sequence of
-    floats); ``exchanges`` keeps the JAX package's slot for the sharded
-    layouts and takes ``None`` entries only."""
+    floats). On a sharded layout (the slab stack ``(S, npl, NY, NZ)`` or
+    the grid stack ``(sx, sy, sz, nx, ny, nz)``, with the LOCAL ``Cs`` and
+    the duplicated-layout ``ms``) ``exchanges[a]`` reconciles the axis-a
+    term's interface planes (`solvers.shardwrap.axis_exchanges`); the
+    mass scalings are pointwise and already consistent."""
     from .kron_blocked import _check_precision
 
     _check_precision(precision)
-    _todo_exchange(exchanges)
-    Cx, Cy, Cz = Cs
-    mx, my, mz = ms
     w = x_masked
-    tx = torch.einsum("ax,xyz->ayz", Cx, w)
-    ty = torch.einsum("by,xyz->xbz", Cy, w)
-    tz = torch.einsum("cz,xyz->xyc", Cz, w)
-    return (cvel[0] * tx * (my[None, :, None] * mz[None, None, :])
-            + cvel[1] * ty * (mx[:, None, None] * mz[None, None, :])
-            + cvel[2] * tz * (mx[:, None, None] * my[None, :, None]))
+    lead = "ijk"[:w.dim() - 3]
+    eqs = (f"ax,{lead}xyz->{lead}ayz", f"by,{lead}xyz->{lead}xbz",
+           f"cz,{lead}xyz->{lead}xyc")
+    ts = []
+    for a in range(3):
+        t = torch.einsum(eqs[a], Cs[a], w)
+        if exchanges[a] is not None:
+            t = exchanges[a](t)
+        ts.append(t)
+    mx, my, mz = (_stacked_factor(m, w, a) for a, m in enumerate(ms))
+    return (cvel[0] * ts[0] * (my * mz)
+            + cvel[1] * ts[1] * (mx * mz)
+            + cvel[2] * ts[2] * (mx * my))
 
 
 def kron_convdiff_apply(x, Ks, Cs, ms, cvel, bc_marker,

@@ -55,15 +55,15 @@ def axis_interpolation_matrix(nc: int, P_coarse: int, P_fine: int, dtype=np.floa
 
 
 def along_x(M, t):
-    return torch.einsum("ax,xyz->ayz", M, t)
+    return torch.einsum("ax,...xyz->...ayz", M, t)
 
 
 def along_y(M, t):
-    return torch.einsum("by,xyz->xbz", M, t)
+    return torch.einsum("by,...xyz->...xbz", M, t)
 
 
 def along_z(M, t):
-    return torch.einsum("cz,xyz->xyc", M, t)
+    return torch.einsum("cz,...xyz->...xyc", M, t)
 
 
 def lattice_prolongate(x_c, I1s, shape_c, precision="highest"):
@@ -140,7 +140,9 @@ def lattice_laplacian_apply(x, mats, G, bc_marker, precision="highest",
     the coefficient folded in, ``bc_marker`` a bool marker shaped like
     ``x``. Dirichlet dofs are zeroed on input; their rows return ``x``
     unless ``apply_bc=False`` (the raw accumulation). ``precision`` is the
-    JAX package's fifth parameter ('highest' only).
+    JAX package's fifth parameter ('highest' only). A stack of lattices
+    ``(S, NX, NY, NZ)`` with ``G`` of ``(S, Qx, Qy, Qz, 6)`` applies
+    each lattice's own operator (the slabs of `parallel.dist`).
     """
     _check_precision(precision)
     Ex, Dx = mats["Ex"], mats["Dx"]
@@ -148,7 +150,9 @@ def lattice_laplacian_apply(x, mats, G, bc_marker, precision="highest",
     Ez, Dz = mats["Ez"], mats["Dz"]
     NX, NY, NZ = Ex.shape[1], Ey.shape[1], Ez.shape[1]
 
-    xb = torch.where(bc_marker, torch.zeros_like(x), x).reshape(NX, NY, NZ)
+    lead = tuple(x.shape[:-3]) if x.dim() > 3 else ()
+    xb = torch.where(bc_marker, torch.zeros_like(x), x).reshape(
+        lead + (NX, NY, NZ))
 
     # Forward: values of grad(u) on the quadrature lattice.
     t_z = along_z(Ez, xb)                        # (NX, NY, Qz)

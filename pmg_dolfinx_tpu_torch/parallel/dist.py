@@ -1,8 +1,69 @@
-"""Host-side setup shared by the distributed layouts.
+"""The 1D slab decomposition (`DistPMG`), every slab stacked on one device.
 
-Port of `pmg_dolfinx_tpu.parallel.dist._shifted_diag_np`. The rest of
-`DistPMG` (the 1D slab layout) is ROADMAP.md Queue 1 item 10.
+Port of `pmg_dolfinx_tpu.parallel.dist`. JAX runs `DistPMG` as one
+``shard_map`` program over a 1D device mesh ``"x"``: each shard holds
+the ``npl = cells_x/S * P + 1`` x-planes of its slab (`SlabPartition`,
+the interface plane duplicated), cell compute is shard-local, interface
+partial sums are exchanged with both neighbours after every cell scatter
+and inner products are ownership-weighted local dots plus a ``psum``.
+
+Layout. The port stacks the ``S`` slabs on one device. The Kronecker
+family (``kron``, ``kron_blocked``) keeps a slab vector as ONE contiguous
+tensor ``(S, npl, NY, NZ)``; reshaped to ``(S*npl, NY, NZ)`` it is JAX's
+public duplicated layout. The general backends (``dofmap``, ``lattice``)
+keep JAX's flat ``(S * local_ndofs,)``. Pointwise work runs on the whole
+tensor; the per-slab work (cell kernels, einsums) is batched over ``S``.
+
+The seam. Every collective of the JAX program goes through the port's
+one communication object, `parallel.grid2d.StackedGrid`, with ``shards =
+(S, 1, 1)``: the non-wrapping ``ppermute`` pair of `_exchange_partials`
+(the grid's exchange along x), the ``psum`` of the dots and the
+``all_gather`` / ``dynamic_slice`` of the gathered coarse solves. A slab
+tensor is viewed as the grid's ``(S, 1, 1, npl, NY, NZ)`` for them.
+
+``kron_blocked`` runs kernels #1-#3 (`ops.kron_blocked`) with the x
+exchange between kernel 1 and kernel 2, each kernel launched ONCE over
+the stacked lattice ``(S*npl, NY, NZ)``: a block-diagonal ``Ktx`` (each
+block a slab's own banded x-stiffness, zero between blocks, so every
+slab gets its own ``t1`` exactly) and the stacked scale factors. The
+other design, kernels 1 and 2 once per slab on its contiguous block (what
+`GridPMG` does), measured 1.9x slower on the card (PERF.md §6);
+`chip_smoke.py` builds it from `slab_blocks` to time it against this one.
+
+Ported: `SlabPartition`, the cycle-op factories `dist_cycle_ops`
+(dofmap), `dist_kron_cycle_ops`, `dist_kron_blocked_cycle_ops`,
+`dist_lattice_cycle_ops`, and `DistPMG` with the point-Jacobi, line
+(``line-y``/``line-z``) and Schwarz smoothers, the ``cg``, ``smoother``
+and gathered ``fdm`` / ``direct`` coarse solves, scalar and per-axis
+kappa, a scalar sigma, `solve`, `solve_pcg`, `solve_refined`,
+`load_state`. JAX's ``pvary`` has no counterpart (ROADMAP.md, "Do not
+port"); ``make_mesh`` neither (no device mesh). Not ported yet, each
+raising NotImplementedError naming its ROADMAP.md item: ``coarse="hmg"``
+and ``coarse_cfg["dist"]`` (`build_hmg_dist`, ``fdm_dist``), sigma
+fields, Robin faces, graded spacing, tensor or per-cell kappa,
+``devices=`` (the multi-process backend, item 10) and
+``precision="high"`` (item 1).
 """
+
+import numpy as np
+import torch
+
+from ..ops.blas import dist_inner_product
+from ..solvers.cg import cg_solve
+from ..solvers.pmg import (
+    DEFAULT_CALIBRATION_ITERS,
+    DEFAULT_CALIBRATION_RTOL,
+    DEFAULT_SMOOTHER_ITERS,
+    EIG_RANGE_FACTORS,
+    Level,
+    _level_precond,
+    _merge_state,
+    _shifted,
+    fmg_initial_guess,
+    v_cycle,
+)
+from ..solvers.tridiag import lanczos_eigenvalue_estimates
+from .partition import SlabPartition, duplicate_planes
 
 
 def _shifted_diag_np(mesh, Pdeg, kappa_cells, sigma, sigma_field=None):
@@ -18,3 +79,819 @@ def _shifted_diag_np(mesh, Pdeg, kappa_cells, sigma, sigma_field=None):
     if getattr(mesh, "has_robin", False):
         d = d + robin_mass_np(mesh, Pdeg)
     return d
+
+
+def _todo(what, item=10):
+    return NotImplementedError(
+        f"DistPMG: {what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+def _grid(n_shards):
+    from .grid2d import StackedGrid
+
+    return StackedGrid((n_shards, 1, 1))
+
+
+def _six(t, n_shards, shape):
+    """A slab tensor (``(S, npl, NY, NZ)``, ``(S*npl, NY, NZ)`` or flat)
+    viewed as the grid's stacked ``(S, 1, 1, npl, NY, NZ)``."""
+    return t.reshape((n_shards, 1, 1) + tuple(shape))
+
+
+def _exchange_partials(lat, n_shards, *, inplace=False):
+    """Reconcile interface-plane partial sums with both neighbours.
+
+    ``lat`` is the stacked slab lattice ``(S, npl, NY, NZ)``: shard
+    ``s``'s last plane and shard ``s+1``'s first plane are copies of one
+    global plane, each holding the partial sum of its own cells; after
+    the exchange both hold the full sum (the non-wrapping ``ppermute``
+    pair of `StackedGrid`, zeros at the chain ends). Returns a new
+    tensor, or writes ``lat`` when ``inplace``."""
+    from .grid2d import _exchange_axis
+
+    if n_shards == 1:
+        return lat
+    out = _exchange_axis(_six(lat, n_shards, lat.shape[1:]),
+                         _grid(n_shards), 0, inplace=inplace)
+    return out.reshape(lat.shape)
+
+
+def _slab_transfers(n_shards, flat):
+    """The lattice p-transfers, dot, zeros and exchange of the slab
+    layout: restriction weights the fine interface planes by ownership,
+    contracts each slab with the LOCAL per-axis transposed interpolation
+    and reconciles the coarse interface partials; prolongation needs no
+    communication (both owners of a plane compute it alike)."""
+    from .grid2d import _stacked_contract
+
+    S = n_shards
+    grid = _grid(S)
+
+    def out(t, level):
+        return t.reshape(-1) if flat else t.reshape((S,) + level.shape)
+
+    def restrict_op(tr, r, level_c, level_f):
+        lat = _six(r * tr["weights_f"], S, level_f.shape)
+        for dim, name in enumerate(("Ix", "Iy", "Iz")):
+            lat = _stacked_contract(tr[name].T, lat, dim)
+        return out(_exchange_partials(lat[:, 0, 0], S, inplace=True),
+                   level_c)
+
+    def prolong_op(tr, u, level_c, level_f):
+        lat = _six(u, S, level_c.shape)
+        for dim, name in enumerate(("Ix", "Iy", "Iz")):
+            lat = _stacked_contract(tr[name], lat, dim)
+        return out(lat, level_f)
+
+    return dict(
+        restrict=restrict_op, prolong=prolong_op,
+        dot=lambda u, v, lv: grid.dot(u, v, lv["weights"]),
+        zeros=lambda level, like: torch.zeros(
+            (S * level.ndofs,) if flat else (S,) + tuple(level.shape),
+            dtype=like.dtype, device=like.device),
+        exchange=lambda lat: _exchange_partials(lat, S),
+    )
+
+
+def _stacked_dofmap(dofmap, n_shards, ndofs_local):
+    """The replicated local dofmap offset per slab into the flat stack:
+    ``(S * ncells_local, n^3)``, slab-major (the global cell order)."""
+    off = torch.arange(n_shards, device=dofmap.device) * ndofs_local
+    return (dofmap[None] + off[:, None, None]).reshape(-1, dofmap.shape[1])
+
+
+def dist_cycle_ops(n_shards, sigma=0.0):
+    """V-cycle primitives of the dofmap backend on the slab layout (flat
+    vectors): `laplacian_scatter_raw` per slab with the replicated local
+    dofmap (batched over the slabs), then the partial-sum exchange;
+    dofmap p-transfers likewise (restriction exchanged, prolongation
+    consistent without communication). ``sigma`` adds the lumped-mass
+    shift after the exchange."""
+    from ..ops.interpolate import prolongate, restrict
+    from ..ops.laplacian import laplacian_scatter_raw
+
+    S = n_shards
+
+    def raw(lv, x, level):
+        dm = _stacked_dofmap(lv["dofmap"], S, level.ndofs)
+        y = laplacian_scatter_raw(x, dm, lv["G"], lv["coeff"], lv["D"],
+                                  lv["bc_marker"])
+        lat = y.reshape((S,) + level.shape)
+        return _exchange_partials(lat, S, inplace=True).reshape(-1)
+
+    def restrict_op(tr, r, level_c, level_f):
+        y = restrict(r, _stacked_dofmap(tr["dofmap_c"], S, level_c.ndofs),
+                     _stacked_dofmap(tr["dofmap_f"], S, level_f.ndofs),
+                     tr["M1"], tr["mult_f"], S * level_c.ndofs)
+        lat = y.reshape((S,) + level_c.shape)
+        return _exchange_partials(lat, S, inplace=True).reshape(-1)
+
+    def prolong_op(tr, u, level_c, level_f):
+        return prolongate(u, _stacked_dofmap(tr["dofmap_c"], S, level_c.ndofs),
+                          _stacked_dofmap(tr["dofmap_f"], S, level_f.ndofs),
+                          tr["M1"], S * level_f.ndofs)
+
+    return dict(_slab_transfers(S, flat=True), apply=_shifted(raw, sigma),
+                restrict=restrict_op, prolong=prolong_op)
+
+
+def dist_kron_cycle_ops(n_shards, precision="highest", sigma=0.0):
+    """V-cycle primitives of the plain-torch Kronecker-sum backend on the
+    slab layout: per slab the symmetrized ``S (Kt_x ⊕ Kt_y ⊕ Kt_z) S``
+    with the LOCAL x stiffness and the duplicated-layout x mass (batched
+    over the slabs), the x term reconciled by the exchange; lattice
+    transfers. Vectors ``(S, npl, NY, NZ)``."""
+    from ..ops.kron_blocked import _check_precision
+    from .grid2d import grid_kron_cycle_ops
+
+    _check_precision(precision)
+    S = n_shards
+    grid_apply = grid_kron_cycle_ops((S, 1, 1), precision, sigma)["apply"]
+
+    def apply_op(lv, x, level):
+        six = lambda t: _six(t, S, level.shape)
+        y = grid_apply(dict(lv, bc_marker=six(lv["bc_marker"])), six(x),
+                       level)
+        return y.reshape(x.shape)
+
+    return dict(_slab_transfers(S, flat=False), apply=apply_op)
+
+
+def slab_blocks(mats, n_shards):
+    """Each slab's own arrays from the stacked ``kb_mats`` of a slab level
+    (a list, slab order): its diagonal block of the block-diagonal
+    ``Ktx`` and its rows of the x-dependent factors, each a contiguous
+    copy; the shard-invariant y/z factors are shared."""
+    n = mats["Ktx"].shape[0] // n_shards
+    out = []
+    for s in range(n_shards):
+        rows = slice(s * n, (s + 1) * n)
+        m = dict(mats)
+        m["Ktx"] = mats["Ktx"][rows, rows].contiguous()
+        for key in ("sx2d", "sxz", "sxzm", "mx2"):
+            if key in mats:
+                m[key] = mats[key][rows].contiguous()
+        out.append(m)
+    return out
+
+
+def dist_kron_blocked_cycle_ops(n_shards, precision="highest", sigma=0.0):
+    """V-cycle primitives over the blocked kernel pair on the slab layout:
+    kernel 1's output (the x term, the only shard-partial quantity) rides
+    the exchange before kernel 2 reads it; the down-sweep residual is
+    fused into kernel 3. Each kernel runs once over the stacked lattice
+    (block-diagonal ``Ktx``, the level's ``kb_mats``). CPU tensors run
+    the plain versions. Lattice transfers in exact precision, as in the
+    JAX package."""
+    from ..ops.kron_blocked import (
+        _check_precision,
+        blocked_kron_apply,
+        blocked_kron_residual,
+    )
+
+    _check_precision(precision)
+    S = n_shards
+
+    def ex(t1):  # kernel 1's output is the entry point's own tensor
+        lat = t1.view((S, -1) + tuple(t1.shape[1:]))
+        return _exchange_partials(lat, S, inplace=True).view(t1.shape)
+
+    def run(lv, x, level, r=None):
+        x = x.contiguous()
+        flat3 = lambda t: t.reshape((-1,) + tuple(level.shape[1:]))
+        if r is None:
+            y = blocked_kron_apply(flat3(x), flat3(lv["bc_marker"]),
+                                   lv["kb_mats"], exchange=ex, sigma=sigma)
+        else:
+            y = blocked_kron_residual(flat3(r.contiguous()), flat3(x),
+                                      flat3(lv["bc_marker"]), lv["kb_mats"],
+                                      exchange=ex, sigma=sigma)
+        return y.reshape(x.shape)
+
+    return dict(
+        _slab_transfers(S, flat=False),
+        apply=lambda lv, x, level: run(lv, x, level),
+        residual=lambda lv, b, u, level: run(lv, u, level, r=b),
+    )
+
+
+def dist_lattice_cycle_ops(n_shards, precision="highest", sigma=0.0):
+    """V-cycle primitives of the plain-torch lattice backend on the slab
+    layout (flat vectors): per slab the lattice apply with the LOCAL x
+    axis matrices and the slab's quadrature-lattice geometry (batched
+    over the slabs), the exchange, then the pointwise ``sigma`` shift;
+    lattice transfers."""
+    from ..ops.kron_blocked import _check_precision
+    from ..ops.lattice import lattice_laplacian_apply
+
+    _check_precision(precision)
+    S = n_shards
+
+    def raw(lv, x, level):
+        shape = (S,) + tuple(level.shape)
+        mats = {k: lv[k] for k in ("Ex", "Dx", "Ey", "Dy", "Ez", "Dz")}
+        G = lv["G"].reshape((S, -1) + tuple(lv["G"].shape[1:]))
+        y = lattice_laplacian_apply(x.reshape(shape), mats, G,
+                                    lv["bc_marker"].reshape(shape),
+                                    apply_bc=False)
+        return _exchange_partials(y, S, inplace=True).reshape(-1)
+
+    return dict(_slab_transfers(S, flat=True),
+                apply=_shifted(raw, sigma))
+
+
+def slab_coarse_hooks(part, P0):
+    """Gather/slice hooks of the gathered coarse solves: ``coarse_gather``
+    takes the slab coarse vector to the global lattice (3D from the
+    Kronecker layout, flat from the flat one; the duplicated interface
+    planes kept once), ``coarse_slice`` a global vector back to the
+    layout of its shape (3D -> ``(S, npl, NY, NZ)``, flat -> flat)."""
+    S = part.n_shards
+    grid = _grid(S)
+    shape0 = part.local_shape(P0)
+    glob = part.mesh.lattice_shape(P0)
+
+    def coarse_gather(b0):
+        g = grid.all_gather(_six(b0, S, shape0))
+        return g if b0.dim() == 4 else g.reshape(-1)
+
+    def coarse_slice(ug):
+        loc = grid.local_slices(ug.reshape(glob), shape0)
+        return (loc.reshape((S,) + shape0) if ug.dim() == 3
+                else loc.reshape(-1))
+
+    return coarse_gather, coarse_slice
+
+
+class DistPMG:
+    """p-multigrid on a slab-partitioned box mesh, every slab stacked on
+    one device (``device``, CUDA unless the caller asks for the CPU).
+
+    The JAX package's signature. ``n_devices`` is the number of stacked
+    slabs (None: one slab, the whole mesh; the port runs on one device,
+    so JAX's "every device" is one). ``operator``: ``"dofmap"`` (the
+    default), ``"lattice"`` (plain torch; the general backends keep flat
+    vectors), ``"kron"`` (plain torch) or ``"kron_blocked"`` (kernels
+    #1-#3, float32; vectors ``(S, npl, NY, NZ)``); ``coarse``: ``"cg"``,
+    ``"smoother"`` and the gathered ``"fdm"`` and ``"direct"``;
+    ``smoother``: ``"cheb"`` (point Jacobi), ``"line-y"`` / ``"line-z"``
+    (``"line"`` resolves to one of them; lines along x would span
+    shards) or ``"schwarz"``; ``kappa`` a scalar or per-axis tuple,
+    ``sigma`` a scalar. Vectors in and out of `solve` / `solve_pcg` / `solve_refined` are
+    global flat vectors (numpy or tensors in, tensors on ``device``
+    out); `apply`, `operator` and `residual_norm` take the slab layout
+    of `to_dist`.
+    """
+
+    def __init__(self, mesh, n_devices=None, degrees=(1, 3), kappa=2.0,
+                 dtype=torch.float64, smoother_iters=DEFAULT_SMOOTHER_ITERS,
+                 coarse="cg", coarse_cfg=None, devices=None,
+                 calibration_iters=DEFAULT_CALIBRATION_ITERS,
+                 operator="dofmap", precision="highest", sigma=0.0,
+                 smoother="cheb", *, device="cuda"):
+        from ..fem.assembly import (
+            ops_shift_scalar,
+            resolve_kappa_axes,
+            resolve_kappa_split,
+            resolve_sigma,
+        )
+        from ..fem.mesh import require_axis_aligned
+        from ..solvers.line import parse_line_smoother
+
+        if devices is not None:
+            raise _todo("devices= (the multi-process torch.distributed "
+                        "backend; the port stacks every slab on one "
+                        "device)")
+        n_devices = int(n_devices or 1)
+        self.n_shards = n_devices
+        self.part = SlabPartition(mesh, n_devices)
+        self.mesh = mesh
+        self.degrees = tuple(int(p) for p in degrees)
+        self.sigma, sigma_field = resolve_sigma(sigma)
+        if sigma_field is not None:
+            if operator in ("kron", "kron_blocked"):
+                raise ValueError(
+                    "a sigma FIELD (callable) requires a general backend "
+                    "— the Kronecker paths carry only a separable scalar "
+                    "shift"
+                )
+            raise _todo("a sigma field")
+        if getattr(mesh, "has_robin", False):
+            raise _todo("Robin faces")
+        if getattr(mesh, "is_graded", False):
+            raise _todo("graded spacing")
+        if (not any(any(f) for f in getattr(mesh, "dirichlet_faces",
+                                            ((True, True),) * 3))
+                and self.sigma == 0.0):
+            raise ValueError(
+                "pure-Neumann problem (no Dirichlet face) with sigma=0 is "
+                "singular (constant nullspace); add a Dirichlet face, a "
+                "positive sigma shift, or a Robin face"
+            )
+        # Line blocks along y or z are slab-local; the Schwarz cell blocks
+        # are cell-local, their overlap-add reconciled by the exchange.
+        self._schwarz = smoother == "schwarz"
+        self._line_axis = (None if self._schwarz
+                           else parse_line_smoother(smoother, mesh, kappa,
+                                                    allowed=(1, 2)))
+        if self._line_axis == 0:
+            raise ValueError(
+                "DistPMG smoother='line' cannot relax along x — the "
+                "sharded axis (lines would span shards); use 'line-y'/"
+                "'line-z', or GridPMG with an x-unsharded layout"
+            )
+        if operator not in ("kron", "kron_blocked", "lattice", "dofmap"):
+            raise ValueError(
+                f"DistPMG: unknown operator backend {operator!r} (choose "
+                "'kron', 'kron_blocked', 'lattice' or 'dofmap'; the fused "
+                "general-hex 'lattice_blocked' runs on GridPMG — a 1D "
+                "slab is shards=(S, 1, 1))"
+            )
+        kron_family = operator in ("kron", "kron_blocked")
+        self._ops_sigma = ops_shift_scalar(mesh, self.sigma, kron_family)
+        if kron_family:
+            require_axis_aligned(mesh, f"DistPMG operator='{operator}'")
+        if operator == "kron_blocked" and dtype != torch.float32:
+            raise ValueError(
+                "operator='kron_blocked' is f32-only (CUDA kernels); "
+                f"got dtype={dtype}"
+            )
+        if coarse == "fdm":
+            require_axis_aligned(mesh, "coarse='fdm'")
+        per_axis = (isinstance(kappa, (tuple, list)) and len(kappa) == 3
+                    and all(np.ndim(k) == 0 for k in kappa))
+        kc, kt, const = resolve_kappa_split(mesh, kappa)
+        if not per_axis and (kt is not None or not const):
+            raise _todo("a tensor or per-cell kappa")
+        self._kappa_raw = kappa
+        self._kc, self._kappa_fold = kc, kt
+        self.kappa_cells = kt if kt is not None else kc
+        self.kappa = float(kc[0]) if const else None
+        self.kappa_axes = resolve_kappa_axes(mesh, kappa,
+                                             split=(kc, kt, const))
+        if precision == "high":
+            raise _todo("precision='high' (bf16x3 products)", 1)
+        if precision != "highest":
+            raise ValueError(
+                f"precision must be 'highest' or 'high', got {precision!r}")
+        if coarse not in ("cg", "smoother", "fdm", "direct", "hmg"):
+            raise ValueError(
+                f"DistPMG: unsupported coarse solver '{coarse}' "
+                "(choose from cg, smoother, fdm, direct, hmg)"
+            )
+        if coarse == "hmg":
+            raise _todo("coarse='hmg' (the gathered and build_hmg_dist "
+                        "h-multigrid coarse solves)")
+        if (coarse_cfg or {}).get("dist"):
+            raise _todo("coarse_cfg['dist'] (fdm_dist, the non-gathered "
+                        "coarse solve)")
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.precision = precision
+        self.coarse = coarse
+        self.coarse_cfg = dict(coarse_cfg or {})
+        self.operator_kind = operator
+        self._kron = kron_family
+        self.grid = _grid(n_devices)
+        self.eigs = []
+
+        S = n_devices
+        if operator == "kron":
+            ops = dist_kron_cycle_ops(S, precision, sigma=self.sigma)
+        elif operator == "kron_blocked":
+            ops = dist_kron_blocked_cycle_ops(S, precision, sigma=self.sigma)
+        elif operator == "lattice":
+            ops = dist_lattice_cycle_ops(S, precision, sigma=self._ops_sigma)
+        else:
+            ops = dist_cycle_ops(S, sigma=self._ops_sigma)
+        if coarse in ("fdm", "direct"):
+            gather, unslice = slab_coarse_hooks(self.part, self.degrees[0])
+            ops = dict(ops, coarse_gather=gather, coarse_slice=unslice)
+        self._ops = ops
+
+        level_data, levels = [], []
+        for Pdeg in self.degrees:
+            lv = self._build_level(Pdeg)
+            level = Level(P=Pdeg, ndofs=self.part.local_ndofs(Pdeg),
+                          smoother_iters=smoother_iters,
+                          shape=self.part.local_shape(Pdeg),
+                          line_axis=(self._line_axis
+                                     if self._line_axis is not None else 2))
+            # Smoother calibration, as JAX runs it distributed: recorded CG
+            # on A x = 1 from 0, preconditioned as the smoother is,
+            # Lanczos, lmax inflated by 1.1.
+            ones = torch.ones(self._vshape(level), dtype=dtype,
+                              device=self.device)
+            _, info = cg_solve(
+                lambda x, _lv=lv, _level=level: ops["apply"](_lv, x, _level),
+                ones, torch.zeros_like(ones), lv["diag_inv"],
+                rtol=DEFAULT_CALIBRATION_RTOL, maxiter=calibration_iters,
+                record=True, dot=lambda u, v, _lv=lv: ops["dot"](u, v, _lv),
+                precond=_level_precond(lv, level, ops),
+            )
+            eigs = lanczos_eigenvalue_estimates(
+                info["alphas"].cpu().numpy(), info["betas"].cpu().numpy(),
+                info["stored"].cpu().numpy(),
+            )
+            self.eigs.append(eigs)
+            lv["lmax"] = torch.tensor(EIG_RANGE_FACTORS[1] * eigs[-1],
+                                      dtype=dtype, device=self.device)
+            level_data.append(lv)
+            levels.append(level)
+        self.levels = tuple(levels)
+        self.data = dict(levels=level_data,
+                         transfer=[self._build_transfer(Pc, Pf) for Pc, Pf
+                                   in zip(self.degrees[:-1],
+                                          self.degrees[1:])])
+        if coarse == "direct":
+            from ..solvers.pmg import dense_cholesky
+
+            self.data["coarse_chol"] = torch.as_tensor(
+                dense_cholesky(mesh, self.degrees[0], self.kappa_cells,
+                               self.sigma),
+                dtype=dtype, device=self.device)
+        elif coarse == "fdm":
+            from ..solvers.fdm import FastDiagonalizationSolver
+
+            fd = FastDiagonalizationSolver(
+                mesh, self.degrees[0], kappa=self.kappa_axes, dtype=dtype,
+                precision=precision, sigma=self.sigma, device=self.device,
+            )
+            self.data["fdm"] = dict(
+                Vx=fd.Vs[0], Vy=fd.Vs[1], Vz=fd.Vs[2],
+                Vxt=fd.Vts[0], Vyt=fd.Vts[1], Vzt=fd.Vts[2],
+                dinv=fd.dinv, bc_global=fd.bc_marker,
+            )
+            self.coarse_cfg["fdm_shape"] = mesh.lattice_shape(self.degrees[0])
+            self.coarse_cfg["fdm_trims"] = fd.trims
+
+    # -- setup -----------------------------------------------------------
+
+    def _vshape(self, level):
+        """The working-layout shape of a vector on ``level``."""
+        if self._kron:
+            return (self.n_shards,) + tuple(level.shape)
+        return (self.n_shards * level.ndofs,)
+
+    def _work(self, dup, Pdeg, dtype=None):
+        """A host array in JAX's duplicated layout ``(S*npl, NY, NZ)`` ->
+        the working layout on the device (``(S, npl, NY, NZ)`` or flat)."""
+        t = torch.as_tensor(np.ascontiguousarray(dup), device=self.device)
+        if dtype is not None:
+            t = t.to(dtype)
+        if self._kron:
+            return t.reshape((self.n_shards,) + self.part.local_shape(Pdeg))
+        return t.reshape(-1)
+
+    def _build_level(self, Pdeg):
+        """The per-level arrays under the JAX package's names, vectors in
+        the working layout: ``bc_marker``, ``weights``, ``diag_inv``, the
+        smoother's ``line_inv`` or ``schwarz``, ``m3`` (general backends
+        with a shift) and the backend's arrays."""
+        from ..fem.assembly import general_shift_np
+
+        part, mesh, dtype = self.part, self.mesh, self.dtype
+        lv = dict(
+            bc_marker=self._work(
+                part.to_dist(Pdeg, mesh.boundary_dof_marker(Pdeg)) > 0.5,
+                Pdeg),
+            weights=self._work(part.ownership_weights(Pdeg), Pdeg, dtype),
+            diag_inv=self._work(part.to_dist(Pdeg, 1.0 / _shifted_diag_np(
+                mesh, Pdeg, self.kappa_cells, self.sigma)), Pdeg, dtype),
+        )
+        if self._line_axis is not None:
+            from ..solvers.line import line_block_inverses, shard_line_blocks
+
+            lv["line_inv"] = torch.as_tensor(shard_line_blocks(
+                line_block_inverses(mesh, Pdeg, self._kappa_raw,
+                                    self._line_axis, sigma=self.sigma),
+                mesh.lattice_shape(Pdeg), self._line_axis,
+                [part.axis_starts(Pdeg), None]), dtype=dtype,
+                device=self.device)
+        elif self._schwarz:
+            lv["schwarz"] = self._slab_schwarz(Pdeg)
+        if self._ops_sigma and not self._kron:
+            lv["m3"] = self._work(part.to_dist(Pdeg, general_shift_np(
+                mesh, Pdeg, self.sigma)[1]), Pdeg, dtype)
+        if self._kron:
+            lv.update(self._kron_arrays(Pdeg, dtype))
+        elif self.operator_kind == "lattice":
+            lv.update(self._lattice_arrays(Pdeg, dtype))
+        else:
+            from ..fem.assembly import geometry_factors_np
+            from ..fem.gll import derivative_matrix
+
+            G_cells, _ = geometry_factors_np(mesh, Pdeg,
+                                             kappa=self._kappa_fold)
+            tensor = lambda a: torch.tensor(a, dtype=dtype,
+                                            device=self.device)
+            lv.update(
+                dofmap=torch.tensor(part.local_dofmap(Pdeg),
+                                       dtype=torch.int64, device=self.device),
+                G=tensor(G_cells), coeff=tensor(self._kc),
+                D=tensor(derivative_matrix(Pdeg)),
+            )
+        return lv
+
+    def _kron_arrays(self, Pdeg, dtype, operator=None):
+        """The Kronecker family's level arrays: the LOCAL x stiffness,
+        global y/z stiffness (kappa folded in) and the duplicated-layout
+        x mass (``kron``), or the symmetrized ``kb_mats`` on the stacked
+        lattice (``kron_blocked``)."""
+        from ..ops.kron import axis_stiffness_mass, local_axis_K
+
+        part, mesh, kax = self.part, self.mesh, self.kappa_axes
+        S, npl = part.n_shards, part.local_planes(Pdeg)
+        Kx, _ = local_axis_K(mesh, 0, part.cells_per_shard_x, Pdeg, kax[0], S)
+        Ky, my = axis_stiffness_mass(mesh.nc[1], Pdeg, mesh.h_cells[1])
+        Kz, mz = axis_stiffness_mass(mesh.nc[2], Pdeg, mesh.h_cells[2])
+        _, mx_g = axis_stiffness_mass(mesh.nc[0], Pdeg, mesh.h_cells[0])
+        mx_dup = duplicate_planes(mx_g, npl, S)
+        Ks = (Kx, kax[1] * Ky, kax[2] * Kz)
+        if (operator or self.operator_kind) == "kron":
+            t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+            return dict(Kx=t(Ks[0]), Ky=t(Ks[1]), Kz=t(Ks[2]), mx=t(mx_dup),
+                        my=t(my), mz=t(mz))
+        from ..ops.kron_blocked import (
+            _check_band,
+            checked_face_masks,
+            symmetrized_mats,
+        )
+
+        # The shard-invariant y/z factors from the helper on slab 0; the
+        # x-dependent ones stacked over the slabs (the sqrt-mass scalings
+        # differ between boundary and interior slabs), Ktx block-diagonal.
+        fm = checked_face_masks(mesh, Pdeg, mesh.boundary_dof_marker(Pdeg))
+        kb = symmetrized_mats(
+            Ks, (mx_dup[:npl], my, mz), dtype,
+            None if fm is None else (fm[0][:npl], fm[1], fm[2]),
+            band=Pdeg, device=self.device)
+        sx = np.sqrt(mx_dup)
+        sz = np.sqrt(mz)
+        Ktx = np.zeros((S * npl, S * npl))
+        for s in range(S):
+            ss = sx[s * npl:(s + 1) * npl]
+            Ktx[s * npl:(s + 1) * npl, s * npl:(s + 1) * npl] = (
+                Kx / ss[:, None] / ss[None, :])
+        _check_band("x", Ktx, Pdeg)
+        arrays = dict(Ktx=Ktx, sx2d=sx[:, None], sxz=np.outer(sx, sz))
+        if fm is not None:
+            mxd = duplicate_planes(fm[0], npl, S)
+            arrays.update(sxzm=np.outer(mxd * sx, fm[2] * sz),
+                          mx2=mxd[:, None])
+        kb.update({k: torch.as_tensor(v, dtype=dtype,
+                                      device=self.device).contiguous()
+                   for k, v in arrays.items()})
+        return dict(kb_mats=kb)
+
+    def _lattice_arrays(self, Pdeg, dtype):
+        """The lattice backend's level arrays: the quadrature-lattice
+        geometry (slab-contiguous along x, kappa folded in) and the axis
+        matrices of ONE slab's cells."""
+        from ..fem.assembly import geometry_factors_np, scale_G
+        from ..ops.lattice import geometry_to_qlattice, lattice_mats
+
+        part, mesh = self.part, self.mesh
+        G_cells, _ = geometry_factors_np(mesh, Pdeg, kappa=self._kappa_fold)
+        lv = lattice_mats((part.cells_per_shard_x, mesh.nc[1], mesh.nc[2]),
+                          Pdeg, dtype, self.device)
+        lv["G"] = torch.as_tensor(geometry_to_qlattice(
+            scale_G(G_cells, self._kc, self._kappa_fold), mesh.nc, Pdeg),
+            dtype=dtype, device=self.device)
+        return lv
+
+    def _slab_schwarz(self, Pdeg):
+        """The global Schwarz data in the slab layout: ``Ux`` as per-slab
+        diagonal blocks ``(S, ncl*n, npl)`` (`shard_dense_axis`), ``Uy`` /
+        ``Uz`` whole, ``ginv`` cut cell-contiguously per slab and the
+        marker in the working layout (4D for both families: the dense
+        apply runs on the ``(S, npl, NY, NZ)`` stack)."""
+        from ..solvers.schwarz import build_schwarz_np, shard_dense_axis
+
+        part, dtype, S = self.part, self.dtype, self.n_shards
+        swg = build_schwarz_np(self.mesh, Pdeg, self._kappa_raw,
+                               sigma=self.sigma)
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                      device=self.device)
+        g = t(swg["ginv"])
+        shape = (S,) + part.local_shape(Pdeg)
+        return dict(
+            Ux=t(shard_dense_axis(swg["Ux"], Pdeg, *part.axis_starts(Pdeg))
+                 ).reshape(S, -1, part.local_planes(Pdeg)),
+            Uy=t(swg["Uy"]), Uz=t(swg["Uz"]),
+            ginv=g.reshape((S, -1) + tuple(g.shape[1:])),
+            bc=torch.as_tensor(part.to_dist(
+                Pdeg, np.asarray(swg["bc"], np.float64)) > 0.5,
+                device=self.device).reshape(shape),
+        )
+
+    def _build_transfer(self, Pc, Pf):
+        from ..fem.gll import interpolation_matrix_1d
+        from ..ops.lattice import axis_interpolation_matrix
+
+        part, mesh, dtype = self.part, self.mesh, self.dtype
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+        if self.operator_kind == "dofmap":
+            dm = lambda P: torch.tensor(part.local_dofmap(P),
+                                           dtype=torch.int64,
+                                           device=self.device)
+            return dict(
+                M1=t(interpolation_matrix_1d(Pc, Pf)),
+                dofmap_c=dm(Pc), dofmap_f=dm(Pf),
+                mult_f=self._work(part.to_dist(Pf, mesh.dof_multiplicity(Pf)),
+                                  Pf, dtype),
+            )
+        return dict(
+            Ix=t(axis_interpolation_matrix(part.cells_per_shard_x, Pc, Pf)),
+            Iy=t(axis_interpolation_matrix(mesh.nc[1], Pc, Pf)),
+            Iz=t(axis_interpolation_matrix(mesh.nc[2], Pc, Pf)),
+            weights_f=self._work(part.ownership_weights(Pf), Pf, dtype),
+        )
+
+    # -- vector layout helpers -------------------------------------------
+
+    @property
+    def ops(self):
+        """The cycle-ops dict (apply/residual/restrict/prolong/dot/zeros/
+        exchange and the coarse hooks) on the slab layout."""
+        return self._ops
+
+    def to_dist(self, u, level=-1):
+        """A global flat vector (numpy or tensor) -> the working slab layout
+        on the device (``(S, npl, NY, NZ)`` for the Kronecker family, flat
+        ``(S * local_ndofs,)`` otherwise) in the working dtype."""
+        return self._slabs(u, level, self.dtype)
+
+    def _slabs(self, u, level, dtype):
+        """`to_dist` in ``dtype``."""
+        Pdeg = self.degrees[level]
+        u = torch.as_tensor(u).to(device=self.device, dtype=dtype)
+        loc = self.grid.local_slices(u.reshape(self.mesh.lattice_shape(Pdeg)),
+                                     self.part.local_shape(Pdeg))
+        return loc.reshape(self._vshape(self.levels[level]))
+
+    def from_dist(self, ud, level=-1):
+        """The slab layout -> the global flat vector (a tensor on the
+        device)."""
+        six = _six(ud, self.n_shards, self.levels[level].shape)
+        return self.grid.all_gather(six).reshape(-1)
+
+    def load_state(self, data):
+        """Overwrite the level, transfer and coarse arrays (the calibrated
+        ``lmax`` included) with those of ``data`` — the port's layout, e.g.
+        from `utils.convert.dist_data_from_numpy` of the JAX `DistPMG`'s
+        data — so cycles can be compared apart from calibration. Keys
+        ``data`` does not hold keep their values; shapes must match."""
+        for i, lv in enumerate(data["levels"]):
+            _merge_state(self.data["levels"][i], lv, f"levels[{i}]")
+        for i, tr in enumerate(data.get("transfer", ())):
+            _merge_state(self.data["transfer"][i], tr, f"transfer[{i}]")
+        for key in ("fdm", "coarse_chol"):
+            if key in data and key in self.data:
+                if key == "fdm":
+                    _merge_state(self.data[key], data[key], key)
+                else:
+                    _merge_state(self.data, {key: data[key]}, key)
+
+    # -- solver API --------------------------------------------------------
+
+    def _vcycle(self, b, u):
+        return v_cycle(self.data, b, u, levels=self.levels,
+                       coarse=self.coarse, coarse_cfg=self.coarse_cfg,
+                       ops=self._ops)
+
+    def _fine_apply(self, x):
+        return self._ops["apply"](self.data["levels"][-1], x, self.levels[-1])
+
+    def _fmg_guess_dist(self, bd):
+        """The full-multigrid guess for a slab-layout rhs."""
+        return fmg_initial_guess(self.data, bd, levels=self.levels,
+                                 coarse=self.coarse,
+                                 coarse_cfg=self.coarse_cfg, ops=self._ops)
+
+    def _warn_tensor(self):
+        from ..solvers.pmg import warn_tensor_stationary
+
+        warn_tensor_stationary(self._kappa_fold, self.kappa_axes,
+                               self.operator_kind,
+                               line=(self._line_axis is not None
+                                     or self._schwarz))
+
+    def apply(self, b_dist, u_dist):
+        """One V-cycle on slab-layout vectors."""
+        return self._vcycle(b_dist, u_dist)
+
+    def operator(self):
+        """Fine-level operator ``x_dist -> (A x)_dist`` on the slab layout."""
+        return self._fine_apply
+
+    def residual_norm(self, b_dist, u_dist):
+        """``|b - A u|`` (ownership-weighted) as a float."""
+        r = b_dist - self._fine_apply(u_dist)
+        lvf = self.data["levels"][-1]
+        return float(torch.sqrt(self._ops["dot"](r, r, lvf)))
+
+    def solve(self, b, num_cycles=10, residuals=True, u0=None, fmg=False):
+        """Stationary V-cycle iteration on a global rhs from zero (``u0``
+        resumes from an iterate, ``fmg=True`` starts from the
+        full-multigrid guess). Returns ``(u, residual_norms)``: the global
+        flat solution on the device and the fine residual norm after each
+        cycle, read back once at the end."""
+        self._warn_tensor()
+        bd = self.to_dist(b)
+        if u0 is not None:
+            ud = self.to_dist(u0)
+        elif fmg:
+            ud = self._fmg_guess_dist(bd)
+        else:
+            ud = torch.zeros_like(bd)
+        lvf = self.data["levels"][-1]
+        norms = []
+        for _ in range(num_cycles):
+            ud = self._vcycle(bd, ud)
+            r = bd - self._fine_apply(ud)
+            norms.append(torch.sqrt(self._ops["dot"](r, r, lvf)))
+        out = self.from_dist(ud)
+        if not residuals or not norms:
+            return out, []
+        return out, [float(v) for v in torch.stack(norms).cpu().numpy()]
+
+    def solve_pcg(self, b, rtol=1e-8, maxiter=50, fmg=False):
+        """V-cycle-preconditioned flexible CG on the slabs from zero (or
+        the FMG guess). Returns ``(u, niter)``; the loop reads its
+        convergence flag on the host once per iteration."""
+        from ..solvers.cg import fcg_solve
+
+        lvf = self.data["levels"][-1]
+        bd = self.to_dist(b)
+        u0 = self._fmg_guess_dist(bd) if fmg else torch.zeros_like(bd)
+        u, info = fcg_solve(
+            self._fine_apply, bd, u0,
+            lambda r: self._vcycle(r, torch.zeros_like(r)),
+            rtol=float(rtol), maxiter=int(maxiter),
+            dot=lambda u_, v_: self._ops["dot"](u_, v_, lvf),
+        )
+        return self.from_dist(u), int(info["niter"])
+
+    def _refine_apply64(self):
+        """``u64 -> A u64`` in float64 on the slab layout for
+        `solve_refined`: the slab Kronecker apply on axis-aligned meshes,
+        else the slab lattice apply with f64 geometry; built once."""
+        if getattr(self, "_apply64", None) is not None:
+            return self._apply64
+        f64, S, Pf = torch.float64, self.n_shards, self.degrees[-1]
+        fine = self.levels[-1]
+        lv64 = dict(bc_marker=self.data["levels"][-1]["bc_marker"])
+        if getattr(self.mesh, "is_axis_aligned", True):
+            lv64.update(self._kron_arrays(Pf, f64, operator="kron"))
+            raw = dist_kron_cycle_ops(S, sigma=self.sigma)["apply"]
+            if not self._kron:  # the general layout is flat
+                six = (S,) + tuple(fine.shape)
+                lv64["bc_marker"] = lv64["bc_marker"].reshape(six)
+                apply = lambda u: raw(lv64, u.reshape(six), fine).reshape(-1)
+            else:
+                apply = lambda u: raw(lv64, u, fine)
+        else:
+            lv64.update(self._lattice_arrays(Pf, f64))
+            if self._ops_sigma:
+                lv64["m3"] = self.data["levels"][-1]["m3"].to(f64)
+            raw = dist_lattice_cycle_ops(S, sigma=self._ops_sigma)["apply"]
+            apply = lambda u: raw(lv64, u, fine)
+        self._apply64 = apply
+        return apply
+
+    def solve_refined(self, b, num_cycles=15, rtol=0.0, residuals=True,
+                      u0=None, fmg=False):
+        """Mixed-precision iterative refinement on the slabs: a float64
+        residual through the f64 slab apply (Kronecker on axis-aligned
+        meshes, lattice otherwise) with the working-dtype V-cycle as the
+        error smoother. ``u0`` resumes from an iterate, ``fmg=True`` starts
+        from the working-dtype FMG guess. Returns ``(u64, residual_norms)``
+        (the f64 residual norm before each cycle); with ``rtol`` the loop
+        stops once it falls below ``rtol * |b|``."""
+        self._warn_tensor()
+        apply64 = self._refine_apply64()
+        f64 = torch.float64
+        w64 = self.data["levels"][-1]["weights"].to(f64)
+        b64 = self._slabs(b, -1, f64)
+        if u0 is not None:
+            u64 = self._slabs(u0, -1, f64)
+        elif fmg:
+            u64 = self._fmg_guess_dist(b64.to(self.dtype)).to(f64)
+        else:
+            u64 = torch.zeros_like(b64)
+        r0 = (float(np.linalg.norm(np.asarray(
+            torch.as_tensor(b).detach().cpu(), dtype=np.float64)))
+            if rtol else None)
+        norms = []
+        for _ in range(num_cycles):
+            r64 = b64 - apply64(u64)
+            rn = torch.sqrt(dist_inner_product(r64, r64, w64))
+            r = r64.to(self.dtype)
+            u64 = u64 + self._vcycle(r, torch.zeros_like(r)).to(f64)
+            norms.append(rn)
+            if rtol and float(rn) < rtol * r0:
+                break
+        rnorms = ([float(v) for v in torch.stack(norms).cpu().numpy()]
+                  if residuals and norms else [])
+        return self.from_dist(u64), rnorms

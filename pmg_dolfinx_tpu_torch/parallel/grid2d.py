@@ -40,7 +40,8 @@ lattice_blocked and dofmap grid backends, the ``hmg`` coarse solver and
 per-axis, tensor and per-cell kappa, Robin faces and graded spacing,
 ``solve_refined``, ``devices`` (the multi-process backend) and
 ``precision="high"`` (item 1). Each raises NotImplementedError naming
-its item.
+its item. The 1D slab (`parallel.dist.DistPMG`) goes through the same
+seam with ``shards=(S, 1, 1)``.
 """
 
 import numpy as np

@@ -1,7 +1,7 @@
 """Steady convection-diffusion: ``-div(kappa grad u) + c . grad u + sigma u
 = f`` with a constant velocity ``c`` on axis-aligned boxes.
 
-Port of `pmg_dolfinx_tpu.solvers.convdiff` (one device). The advection
+Port of `pmg_dolfinx_tpu.solvers.convdiff`. The advection
 operator factors per axis like the Kronecker-sum stiffness (``c . grad
 -> sum_a c_a M_b (x) C_a (x) M_c``, `ops.kron.kron_advection_terms`), so
 the operator is the hierarchy's ``kron`` apply plus three contractions.
@@ -12,8 +12,10 @@ streamline-diagonal diffusion for the advection-dominated regime.
 
 As in the JAX package the advection rides the level data of
 ``operator="kron"`` (the per-axis masses), which runs as torch einsums:
-JAX has no Pallas form of this operator. The sharded branches are
-ROADMAP.md Queue 1 item 10 (`solvers.shardwrap`).
+JAX has no Pallas form of this operator. On the slab (`DistPMG`) and
+the grid (`GridPMG`) the same program runs on the stacked layout, each
+axis' advection term reconciled by that axis' exchange
+(`solvers.shardwrap.axis_exchanges`).
 """
 
 import numpy as np
@@ -100,8 +102,9 @@ def convdiff_solve(hier, b, velocity, *, rtol=1e-8, maxiter=200, u0=None):
     ``hier``'s fine-level operator (kappa diffusion + optional sigma) and
     whose advection velocity is the constant 3-vector ``velocity``.
 
-    ``hier`` must be built with ``operator='kron'`` (box meshes, graded
-    spacing included: the 1D advection matrix is scale-free). Returns
+    ``hier`` (a `PMGHierarchy`, `DistPMG` or `GridPMG`) must be built
+    with ``operator='kron'`` (box meshes, graded spacing included: the 1D
+    advection matrix is scale-free). Returns
     ``(u, info)``: ``u`` flat on the hierarchy's device, ``info =
     dict(niter, rel_resid)`` from the preconditioned BiCGStab loop.
     """

@@ -58,15 +58,27 @@ def line_block_inverses(mesh, P, kappa, axis, sigma=0.0):
     return np.linalg.inv(blocks)
 
 
+def stacked_lead(r, shape):
+    """The leading (shard) dims of ``r`` over the local lattice ``shape``:
+    ``()`` for one lattice (flat or 3D), the dims before the last three
+    of a stacked tensor, ``(S,)`` for a flat stack of ``S`` lattices (the
+    slab layout of the general backends, `parallel.dist`)."""
+    if r.dim() > 3:
+        return tuple(r.shape[:-3])
+    n = shape[0] * shape[1] * shape[2]
+    return () if r.numel() == n else (r.numel() // n,)
+
+
 def line_precond_apply(line_inv, r, shape, axis):
     """Apply the line preconditioner ``r -> T^-1 r`` (shape-preserving).
 
-    ``r`` is flat, lattice-shaped, or a device grid's stacked ``(sx, sy,
-    sz) + shape`` tensor; ``line_inv`` flattens to the line order of
+    ``r`` is flat, lattice-shaped, a device grid's stacked ``(sx, sy,
+    sz) + shape`` tensor or a slab stack (``(S,) + shape`` or flat,
+    `stacked_lead`); ``line_inv`` flattens to the line order of
     ``movedim(r, axis, -1)`` (for the stacked layout: shard axes first,
     the two non-line local axes, then the line). One batched dense matvec
     over all lines."""
-    lead = tuple(r.shape[:-3]) if r.dim() > 3 else ()
+    lead = stacked_lead(r, shape)
     rm = torch.movedim(r.reshape(lead + tuple(shape)), len(lead) + axis, -1)
     mshape = rm.shape
     n = mshape[-1]

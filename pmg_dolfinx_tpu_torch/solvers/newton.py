@@ -1,6 +1,6 @@
 """Inexact Newton-Krylov for semilinear reaction-diffusion problems.
 
-Port of `pmg_dolfinx_tpu.solvers.newton` (one device). The discrete
+Port of `pmg_dolfinx_tpu.solvers.newton`. The discrete
 system, with the nonlinear reaction collocated through the lumped mass,
 
     F(u) = A u + m3 * N(u) - b = 0,
@@ -19,8 +19,8 @@ kernels #1-#3 (and #4/#7, #10/#11 when the hierarchy fuses them).
 
 The JAX package jits a residual and a step program per ``(nonlinearity,
 lin_maxiter)`` and caches them on the hierarchy; here nothing compiles,
-so each call builds its plain closures anew. The sharded branches are
-ROADMAP.md Queue 1 item 10 (`solvers.shardwrap`).
+so each call builds its plain closures anew. On the slab and the grid
+the same closures run on the stacked layout (`solvers.shardwrap`).
 """
 
 import numpy as np
@@ -76,9 +76,10 @@ def newton_solve(hier, b, nonlin, *, rtol=1e-9, atol=0.0, maxiter=20,
     """Solve ``A u + m3 N(u) = b`` by V-cycle-preconditioned inexact
     Newton.
 
-    ``hier`` is a built `PMGHierarchy` (its linear operator, shift
-    included, is ``A``); ``b`` the global flat rhs with zero Dirichlet
-    rows; ``nonlin`` a `models.semilinear.Nonlinearity`. Stops when ``|F|
+    ``hier`` is a built `PMGHierarchy`, `DistPMG` or `GridPMG` (its
+    linear operator, shift included, is ``A``); ``b`` the global flat rhs
+    with zero Dirichlet rows; ``nonlin`` a
+    `models.semilinear.Nonlinearity`. Stops when ``|F|
     <= rtol |F(u0)| + atol``. ``lin_rtol`` fixes the inner FCG tolerance;
     None is the Eisenstat-Walker forcing ``eta_k = clip(0.9 (|F_k| /
     |F_{k-1}|)^2, 1e-10, 1e-2)``. ``damping`` scales every step.

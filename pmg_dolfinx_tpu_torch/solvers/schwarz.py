@@ -202,8 +202,16 @@ def build_schwarz(mesh, P, kappa, dtype, sigma=0.0, form="dense", *,
 def _dense_apply(sw, x):
     """The six axis contractions around ``ginv``; on a device grid's
     stacked ``(sx, sy, sz, nx, ny, nz)`` layout each ``U_a`` is per shard,
-    ``(S_a, nca_l*n, npl_a)``."""
+    ``(S_a, nca_l*n, npl_a)``; on the slab stack ``(S, nx, ny, nz)`` only
+    ``Ux`` is."""
     Ux, Uy, Uz, g = sw["Ux"], sw["Uy"], sw["Uz"], sw["ginv"]
+    if x.dim() == 4:
+        t = torch.einsum("iax,ixyz->iayz", Ux, x)
+        t = torch.einsum("by,iayz->iabz", Uy, t)
+        t = torch.einsum("cz,iabz->iabc", Uz, t) * g
+        t = torch.einsum("cz,iabc->iabz", Uz, t)
+        t = torch.einsum("by,iabz->iayz", Uy, t)
+        return torch.einsum("iax,iayz->ixyz", Ux, t)
     if Ux.dim() == 2:
         t = torch.einsum("ax,xyz->ayz", Ux, x)
         t = torch.einsum("by,ayz->abz", Uy, t)
@@ -228,18 +236,20 @@ def schwarz_precond_apply(sw, r, shape, P, precision="highest",
     ``"dense"`` form (default when ``sw`` holds ``Ux``) or the
     ``"batched"`` reference form (cell expansion, batched per-cell
     ``V^T`` / ``V`` products, overlap-add). ``r`` is flat or lattice-shaped
-    (or, dense form, a device grid's stacked layout, ``shape`` the local
-    lattice); ``exchange`` reconciles the interface partials of a device
-    grid after the overlap-add. ``precision`` is the JAX package's
+    (or, dense form, a device grid's stacked layout or a slab stack,
+    ``shape`` the local lattice; `solvers.line.stacked_lead`);
+    ``exchange`` reconciles the interface partials of a device grid or
+    slab after the overlap-add. ``precision`` is the JAX package's
     ('highest' only)."""
     from ..ops.kron_blocked import _check_precision
     from ..ops.lattice import _expand, _fold
+    from .line import stacked_lead
 
     _check_precision(precision)
     n = P + 1
     NX, NY, NZ = shape
     ncx, ncy, ncz = (NX - 1) // P, (NY - 1) // P, (NZ - 1) // P
-    lead = tuple(r.shape[:-3]) if r.dim() > 3 else ()
+    lead = stacked_lead(r, shape)
     x = r.reshape(lead + tuple(shape))
     if form is None:
         form = "dense" if "Ux" in sw else "batched"

@@ -26,6 +26,10 @@ calibration parity.
 numpy copy of the JAX `GridPMG.data` into the data of the port's
 `parallel.grid2d.GridPMG` (its `load_state` takes the result).
 
+`dist_data_from_numpy` does the same for the 1D slab: it turns a numpy
+copy of the JAX `DistPMG.data` into the data of the port's
+`parallel.dist.DistPMG`.
+
 `packed_state_from_numpy` does the same for the serving classes of
 `ops.kron_packed`: it undoes the JAX lane packing of their factors.
 """
@@ -121,6 +125,65 @@ def grid_data_from_numpy(tree, grid, device, dtype):
     }
     if "fdm" in tree:
         out["fdm"] = _convert(tree["fdm"], device, dtype)
+    return out
+
+
+# The vectors of a JAX DistPMG level or transfer, in its duplicated slab
+# layout ``(S*npl, NY, NZ)`` (Kronecker family) or flat (general backends).
+_SLAB_VECTOR_KEYS = ("bc_marker", "weights", "diag_inv", "weights_f", "m3",
+                     "mult_f")
+
+
+def dist_data_from_numpy(tree, dist, device, dtype):
+    """The port's `DistPMG` data (``levels``, ``transfer``, ``fdm`` or
+    ``coarse_chol``) from a numpy copy of the JAX `DistPMG.data`
+    (``jax.tree.map(np.asarray, dist.data)``). ``dist`` is the port's
+    `DistPMG` of the same mesh, slab count and backend. The level and
+    transfer vectors go from JAX's duplicated layout to the port's working
+    one (``(S, npl, NY, NZ)`` for the Kronecker family, flat otherwise);
+    the row-stacked per-slab ``kb_mats["Ktx"]`` ``(S*npl, npl)`` becomes
+    the block-diagonal ``(S*npl, S*npl)`` kernel 1 reads on the stack; the
+    Schwarz ``Ux`` / ``ginv`` / ``bc`` take the slab stack's shapes; every
+    other array (the shard-invariant factors, ``line_inv``, ``G``, the
+    dofmaps, ``lmax``, the interpolation matrices and the global coarse
+    arrays) keeps its layout. Float arrays are cast to ``dtype``."""
+    S = dist.n_shards
+
+    def vec(t, P):
+        if dist.operator_kind in ("kron", "kron_blocked"):
+            return t.reshape((S,) + dist.part.local_shape(P))
+        return t.reshape(-1)
+
+    def one(d, P):
+        out = {}
+        for k, v in d.items():
+            t = _convert(v, device, dtype) if not isinstance(v, dict) else v
+            if k in _SLAB_VECTOR_KEYS:
+                t = vec(t, P)
+            elif k == "kb_mats":
+                t = _convert(v, device, dtype)
+                K = t["Ktx"]
+                n = K.shape[1]
+                t["Ktx"] = torch.block_diag(*K.reshape(S, n, n)).contiguous()
+            elif k == "schwarz":
+                t = _convert(v, device, dtype)
+                npl = dist.part.local_planes(P)
+                t["Ux"] = t["Ux"].reshape(S, -1, npl)
+                t["ginv"] = t["ginv"].reshape((S, -1) + tuple(
+                    t["ginv"].shape[1:]))
+                t["bc"] = t["bc"].reshape((S,) + dist.part.local_shape(P))
+            out[k] = t
+        return out
+
+    degrees = dist.degrees
+    out = {
+        "levels": [one(lv, P) for lv, P in zip(tree["levels"], degrees)],
+        "transfer": [one(tr, P) for tr, P in zip(tree["transfer"],
+                                                 degrees[1:])],
+    }
+    for key in ("fdm", "coarse_chol"):
+        if key in tree:
+            out[key] = _convert(tree[key], device, dtype)
     return out
 
 

@@ -14,8 +14,10 @@ on the CPU.
   1e-7 of JAX's spsolve oracle and 1e-8 of each other, the counts within
   5% (rounding is amplified there; see the test). A non-kron hierarchy
   and a non-3-vector velocity raise.
-- The sharded JAX case ``test_convdiff_sharded_matches_oracle`` is
-  ROADMAP.md Queue 1 item 10 and is not ported here.
+- `kron_advection_terms` applies JAX's per-axis ``exchanges`` hooks as
+  JAX does. The sharded JAX case ``test_convdiff_sharded_matches_oracle``
+  (slab and grid) is ported in `tests/test_torch_dist_solvers.py`; the
+  driver's ``--transient --shards`` (transient_dist) still refuses.
 """
 
 import numpy as np
@@ -88,9 +90,13 @@ def test_convdiff_apply_matches_jax(graded):
     aj = jk.kron_advection_terms(jnp.asarray(w), J(Cs), J(ms),
                                  jnp.asarray(CVEL))
     assert _rel(at, aj) <= 1e-13
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tk.kron_advection_terms(torch.tensor(w), T(Cs), T(ms), CVEL,
-                                exchanges=(lambda t: t, None, None))
+    # the per-axis exchange hooks apply to each axis' term, as in JAX
+    ex = (lambda t: 2.0 * t, None, lambda t: -t)
+    at = tk.kron_advection_terms(torch.tensor(w), T(Cs), T(ms), CVEL,
+                                 exchanges=ex)
+    aj = jk.kron_advection_terms(jnp.asarray(w), J(Cs), J(ms),
+                                 jnp.asarray(CVEL), exchanges=ex)
+    assert _rel(at, aj) <= 1e-13
 
 
 def test_bicgstab_matches_jax():
@@ -239,7 +245,7 @@ def test_convdiff_driver_f64_matches_jax_solve():
 @pytest.mark.parametrize("args,item", [
     (("--transient", "--steps", "100"), None),
     (("--peclet-sweep", "--dtype", "f64", "--stabilize", "cell"), None),
-    (("--shards", "2"), "Queue 1 item 10"),
+    (("--transient", "--shards", "2"), "Queue 1 item 10"),
 ])
 def test_convdiff_driver_modes(args, item):
     import json

@@ -1,0 +1,103 @@
+"""The slab layer's ``kron_blocked`` apply on an NVIDIA GPU
+(`parallel.dist.dist_kron_blocked_cycle_ops`: kernels #1-#3 with the x
+exchange between kernel 1 and kernel 2), against the per-slab plain
+versions. Every test here carries the ``cuda`` marker and skips without
+a card; the module imports no JAX (the card has none), so it runs there
+with ``python -m pytest --noconftest -m cuda tests/test_torch_dist_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh  # noqa: E402
+from pmg_dolfinx_tpu_torch.ops import kron_blocked as tkb  # noqa: E402
+from pmg_dolfinx_tpu_torch.parallel.dist import (  # noqa: E402
+    DistPMG,
+    _exchange_partials,
+    dist_kron_blocked_cycle_ops,
+    slab_blocks,
+)
+
+# (cells, slabs, degree): extents off the kernels' 32-lane and chunk grids,
+# one slab per shard and a slab of one cell, bands 1, 3 and 6.
+CASES = [((8, 5, 7), 2, 3), ((12, 9, 4), 4, 6), ((6, 3, 11), 6, 1),
+         ((10, 4, 4), 5, 6)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the port's CUDA kernels)")
+    return "cuda"
+
+
+def _rel_max(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _plain_per_slab(x, lv, S, sigma, r=None):
+    """Kernels 1 and 2 (or 3) as the per-slab plain versions on each
+    slab's own arrays, the plain exchange between them."""
+    blocks = slab_blocks(lv["kb_mats"], S)
+    t1 = torch.stack([tkb.plain_t1_m(x[s], blocks[s]) for s in range(S)])
+    t1 = _exchange_partials(t1, S)
+    y = torch.stack([tkb.plain_t23_m(x[s], t1[s], blocks[s], sigma)
+                     for s in range(S)])
+    return y if r is None else r - y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc,S,P", CASES)
+def test_cuda_slab_apply_and_residual_match_per_slab_plain(cuda_device, nc,
+                                                           S, P):
+    """The apply and fused residual on the stacked slab lattice equal the
+    per-slab plain versions to 1e-5 (relative max-norm, f32), sigma 0 and
+    0.5, and launch #1-#3 each once per call over all the slabs."""
+    mesh = BoxMesh(nc)
+    rng = np.random.default_rng(17 + P)
+    for sigma in (0.0, 0.5):
+        dist = DistPMG(mesh, n_devices=S, degrees=(P,), dtype=torch.float32,
+                       operator="kron_blocked", sigma=sigma, coarse="cg",
+                       device=cuda_device)
+        lv, level = dist.data["levels"][-1], dist.levels[-1]
+        ops = dist_kron_blocked_cycle_ops(S, sigma=sigma)
+        shape = (S,) + tuple(level.shape)
+        x, b = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                             device=cuda_device) for _ in range(2))
+        for k in tkb.LAUNCHES:
+            tkb.LAUNCHES[k] = 0
+        y = ops["apply"](lv, x, level)
+        r = ops["residual"](lv, b, x, level)
+        torch.cuda.synchronize()
+        assert tkb.LAUNCHES["t1_m"] == 2
+        assert tkb.LAUNCHES["t23_m"] == 1
+        assert tkb.LAUNCHES["t23_res_m"] == 1
+        assert _rel_max(y, _plain_per_slab(x, lv, S, sigma)) <= 1e-5
+        assert _rel_max(r, _plain_per_slab(x, lv, S, sigma, r=b)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_slab_solve_matches_plain_on_the_card(cuda_device):
+    """A slab V-cycle on the card equals the same cycle
+    with its applies swapped for the per-slab plain versions (1e-5)."""
+    mesh = BoxMesh((12, 7, 6))
+    dist = DistPMG(mesh, n_devices=4, degrees=(1, 3), dtype=torch.float32,
+                   operator="kron_blocked", coarse="fdm", device=cuda_device)
+    S = dist.n_shards
+    rng = np.random.default_rng(3)
+    n = mesh.num_dofs(3)
+    b, u = (dist.to_dist(rng.standard_normal(n)) for _ in range(2))
+    v = dist.apply(b, u)
+    kernels = dist._ops
+    plain = dict(kernels,
+                 apply=lambda lv, x, level: _plain_per_slab(x, lv, S, 0.0),
+                 residual=lambda lv, bb, x, level: _plain_per_slab(
+                     x, lv, S, 0.0, r=bb))
+    dist._ops = plain
+    try:
+        v_plain = dist.apply(b, u)
+    finally:
+        dist._ops = kernels
+    assert _rel_max(v, v_plain) <= 1e-5

@@ -64,7 +64,9 @@ _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "fem.unstructured", "ops.unstructured", "ops.csr",
                 "solvers.amg", "solvers.schwarz_dss", "models.semilinear",
                 "solvers.bicgstab", "solvers.shardwrap", "solvers.newton",
-                "solvers.convdiff", "solvers.lobpcg", "solvers.eig")
+                "solvers.convdiff", "solvers.lobpcg", "solvers.eig",
+                "parallel.dist", "parallel.partition", "solvers.shardwrap",
+                "utils.convert")
 
 
 def test_general_hex_modules_import_no_jax():
@@ -88,8 +90,8 @@ def test_drivers_and_smoke_import_no_jax():
     root = pathlib.Path(__file__).resolve().parent.parent
     files = sorted(root.glob("examples/*_torch.py")) + [root / "chip_smoke.py"]
     names = {f.name for f in files}
-    assert {"modes_torch.py", "nonlinear_torch.py",
-            "convdiff_torch.py"} <= names
+    assert {"modes_torch.py", "nonlinear_torch.py", "convdiff_torch.py",
+            "scaling_torch.py", "vector_update_torch.py"} <= names
     assert len(files) >= 10
     for f in files:
         names = []

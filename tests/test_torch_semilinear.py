@@ -10,9 +10,9 @@
   those norms are the rounding floor of the residual itself), solutions to
   1e-10. JAX's own oracle, the dense float64 Newton twin, holds the port
   to 1e-9.
-- `solvers.shardwrap` on one device, and its refusal on a `GridPMG`.
-- The sharded JAX case ``test_newton_sharded_matches_single`` is ROADMAP.md
-  Queue 1 item 10 and is not ported here.
+- `solvers.shardwrap` on one device and on a `GridPMG` (which it once
+  refused). The sharded JAX case ``test_newton_sharded_matches_single``
+  (slab and grid) is ported in `tests/test_torch_dist_solvers.py`.
 """
 
 import numpy as np
@@ -169,15 +169,20 @@ def test_shardwrap_one_device_and_grid_refusal():
     v = torch.arange(hier.levels[-1].ndofs, dtype=torch.float64)
     assert tuple(to_w(v).shape) == hier.levels[-1].shape
     assert torch.equal(from_w(to_w(v)), v)
+    # the grid is no longer refused: its shards, its x exchange, its
+    # stacked layout, and Newton on it (a zero rhs: u = 0 at once)
     grid = GridPMG(BoxMesh((4, 4, 4)), (2, 1, 1), degrees=(1, 2),
                    operator="kron", coarse="fdm", device="cpu")
     assert shardwrap.is_sharded(grid)
-    for name in ("shards_of", "axis_exchanges", "layout_converters"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            getattr(shardwrap, name)(grid)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        newton_solve(grid, np.zeros(BoxMesh((4, 4, 4)).num_dofs(2)),
-                     ts.cubic(1.0))
+    assert shardwrap.shards_of(grid) == (2, 1, 1)
+    ex = shardwrap.axis_exchanges(grid)
+    assert callable(ex[0]) and ex[1] is None and ex[2] is None
+    to_w, from_w = shardwrap.layout_converters(grid)
+    v = torch.arange(BoxMesh((4, 4, 4)).num_dofs(2), dtype=torch.float64)
+    assert torch.equal(from_w(to_w(v)), v)
+    u, info = newton_solve(grid, np.zeros(BoxMesh((4, 4, 4)).num_dofs(2)),
+                           ts.cubic(1.0))
+    assert info["converged"] and not bool(u.abs().max())
 
 
 def _driver(*args):

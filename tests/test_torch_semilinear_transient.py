@@ -10,8 +10,8 @@ package on the CPU.
 - `semilinear_packed_evolve` (float32, the kernels' plain versions on the
   CPU) against JAX's Pallas kernels in interpret mode, B = 1 and 3, BE
   and CNAB, cubic with a source, and Bratu (``N(0) != 0``): to 1e-5.
-- The sharded JAX case ``test_dist_matches_single`` is ROADMAP.md Queue 1
-  item 10 and is not ported here.
+- The sharded JAX case ``test_dist_matches_single`` (transient_dist) is
+  ROADMAP.md Queue 1 item 10 and is not ported here.
 """
 
 import numpy as np

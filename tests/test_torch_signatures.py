@@ -732,3 +732,56 @@ def test_lobpcg_matches_jax_signature():
     from pmg_dolfinx_tpu_torch.solvers.lobpcg import lobpcg_standard as tl
 
     assert _positional(tl) == _positional(jl) == ["A", "X", "m", "tol"]
+
+
+@pytest.mark.parametrize("mod,name", [
+    ("parallel.dist", "DistPMG"),
+    ("parallel.dist", "dist_cycle_ops"),
+    ("parallel.dist", "dist_kron_cycle_ops"),
+    ("parallel.dist", "dist_kron_blocked_cycle_ops"),
+    ("parallel.dist", "dist_lattice_cycle_ops"),
+    ("parallel.dist", "_exchange_partials"),
+    ("parallel.dist", "_shifted_diag_np"),
+    ("parallel.partition", "SlabPartition"),
+    ("parallel.partition", "duplicate_planes"),
+    ("solvers.shardwrap", "is_sharded"),
+    ("solvers.shardwrap", "layout_converters"),
+    ("solvers.shardwrap", "shards_of"),
+    ("solvers.shardwrap", "axis_exchanges"),
+])
+def test_slab_layer_signatures(mod, name):
+    """The 1D slab layer keeps JAX's public names and positional orders;
+    the port adds only keyword-only parameters (``device`` on `DistPMG`,
+    ``launch`` on the kron_blocked factory, ``inplace`` on
+    `_exchange_partials`)."""
+    import importlib
+
+    jf = getattr(importlib.import_module(f"pmg_dolfinx_tpu.{mod}"), name)
+    tf = getattr(importlib.import_module(f"pmg_dolfinx_tpu_torch.{mod}"),
+                 name)
+    assert _positional(tf) == _positional(jf)
+
+
+@pytest.mark.parametrize("method", [
+    "local_planes", "axis_starts", "local_shape", "local_ndofs",
+    "local_dofmap", "to_dist", "from_dist", "ownership_weights",
+    "cell_slab_slices"])
+def test_slab_partition_method_signatures(method):
+    """`SlabPartition`'s methods bind JAX's positional arguments."""
+    from pmg_dolfinx_tpu.parallel.partition import SlabPartition as JS
+    from pmg_dolfinx_tpu_torch.parallel.partition import SlabPartition as TS
+
+    assert _positional(getattr(TS, method)) == _positional(getattr(JS,
+                                                                   method))
+
+
+@pytest.mark.parametrize("method", [
+    "to_dist", "from_dist", "apply", "operator", "residual_norm", "solve",
+    "solve_pcg", "solve_refined", "_fmg_guess_dist"])
+def test_dist_pmg_method_signatures(method):
+    """`DistPMG`'s public methods bind JAX's positional arguments."""
+    from pmg_dolfinx_tpu.parallel.dist import DistPMG as JD
+    from pmg_dolfinx_tpu_torch.parallel.dist import DistPMG as TD
+
+    assert _positional(getattr(TD, method)) == _positional(getattr(JD,
+                                                                   method))
