@@ -16,18 +16,21 @@ kappa, sigma fields) and the unstructured-mesh family (the DSS and csr
 operators, the DSS Schwarz smoother, the AMG coarse solve) and the
 transient and extra model families (steady and implicit Newton,
 convection-diffusion with BiCGStab, the semilinear serving and IMEX
-steppers, modal LOBPCG) and the 1D slab layer (`DistPMG`, its sweep
-driver, Newton, BiCGStab and the halo micro-benchmark on the slabs)
-through them.
+steppers, modal LOBPCG), the 1D slab layer (`DistPMG`, its sweep
+driver, Newton, BiCGStab and the halo micro-benchmark on the slabs) and
+the gather-free coarse family and sharded time loops (`fdm_dist`, the
+distributed hmg on the slab and the grid, `transient_dist`) through them.
 Every phase raises on failure; nothing is caught. The phases run in the
-order 1-3f, 4-4e, 14, 26a, 26b, 15, 18d, 24a, 25a, 25b, 26c, 19a-19c,
-5-8b, 16, 17, 20a-20c, 9-11, 21, 12, 13, 18a-18c, 22, 23a-23d, 24b,
-25c-25f: 26a, 15, 18d, 24a, 25a, 25b, 19b and 20c reuse phase 4's mesh
-(and its host geometry factors; 25a and 26a its hierarchy, 26c 26a's),
-16 and 17 phase 7's. The 16.2M L2 errors of phases 4, 15, 19a and 26a
-run on host threads (joined after phase 5), and the L-shaped meshes of
-phases 22-23 build on host threads started with phase 2. The script
-prints its seconds.
+order 1-3f, 4-4e, 14, 26a, 26b, 27a-27c, 15, 18d, 24a, 25a, 25b, 26c,
+19a-19c, 5-8b, 16, 17, 20a-20c, 9-11, 21, 12, 27d, 13, 18a-18c, 22,
+23a-23d, 24b, 25c-25f: 26a, 27a-27c, 15, 18d, 24a, 25a, 25b, 19b and 20c
+reuse phase 4's mesh (and its host geometry factors; 25a and 26a its
+hierarchy, 26c and 27a 26a's), 16 and 17 phase 7's. The 16.2M L2 errors
+of phases 4, 15, 19a, 26a and 27c run on the card (`card_l2`: the host
+rule's quadrature, interpolation on the card; checked after phase 5),
+phase 6's 16.2M geometry factors on a host thread started in phase 4,
+and the L-shaped meshes of phases 22-23 build on host threads started
+with phase 2. The script prints its seconds.
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch,
    CUDA and nvcc versions. Fails when ``torch.cuda.is_available()`` is
@@ -254,7 +257,7 @@ prints its seconds.
    ``kron_blocked`` + ``fdm`` (JAX's ``examples/pmg.py`` flags). a:
    ``--grade z:8 --neumann x --robin y`` (the mesh of 3f, kappa 2,
    `f_rhs_mixed` / `u_exact_mixed` / `robin_data`): FCG(V) to 1e-6
-   within 50, L2 < 1e-4 (on a host thread, joined after phase 5), ms per
+   within 50, L2 < 1e-4 (`card_l2`, checked after phase 5), ms per
    V-cycle (CUDA events, 10 back-to-back, median of 3), #1-#3 launch. b: ``--kappa-field aniso-diag``
    (diag(1, 1, 100)) on phase 4's mesh: FCG(V) count and ms per V-cycle;
    the ``--fdm`` one-shot direct solve within 1e-3 of the FCG solution,
@@ -328,9 +331,8 @@ prints its seconds.
    1e-4 of the f64 ``kron`` run, Newton per step, #1-#3 launch. f:
    `examples/modes_torch.py` (f64) ``--ndofs 100000 --kmodes 6 --neumann
    x --sigma 5`` and ``--mesh perturbed --ndofs 1000 --kmodes 1`` (its
-   ``lattice`` + ``cg`` hierarchy); that hierarchy at ~10k dofs for 2 LOBPCG
-   iterations (FCG per solve below its cap, coarse CG per V-cycle); and
-   `lowest_eigenpairs` on the ~10k-dof ``PerturbedBoxMesh`` (k=1, tol
+   ``lattice`` + ``cg`` hierarchy: FCG per solve below its cap, coarse CG
+   per V-cycle); and `lowest_eigenpairs` on the ~10k-dof ``PerturbedBoxMesh`` (k=1, tol
    1e-14, a ``lattice`` + ``direct`` hierarchy): each pair's ``|K u - lam
    M u| / |lam M u|`` against the host scipy stiffness (1e-7, 1e-6),
    M-orthonormality <= 1e-10, LOBPCG iterations and seconds.
@@ -344,7 +346,7 @@ prints its seconds.
    phase 4's, FCG(V) within one of phase 4's, the solution within 1e-3,
    the apply and one V-cycle on a seeded input within 1e-5 of phase 4's
    hierarchy's, the per-slab launch design's V-cycle within 1e-5 of the
-   stacked one's, L2 < 1e-4 (host thread); ms per V-cycle of both launch
+   stacked one's, L2 < 1e-4 (`card_l2`); ms per V-cycle of both launch
    designs in turns beside phase 4's, #1-#3 launches per V-cycle, the
    idle share from a complete profiler window. b:
    `examples/scaling_torch.py`'s slab sweep (S = 1, 2, 4, 8) at ~2.5M
@@ -354,6 +356,30 @@ prints its seconds.
    f64 solution; `convdiff_solve` on 7 slabs at nc=21 within 25b's f32
    gates of its f64 solution; `examples/vector_update_torch.py` (8
    slabs, p=6, ``kron_blocked``, 100 rounds) with a deterministic dot.
+
+27. The gather-free coarse family and the sharded time loops
+   (`parallel.fdm_dist`, `build_hmg_dist` / `build_hmg_grid`,
+   `parallel.transient_dist`; no new kernel: JAX writes them as XLA
+   einsums and collectives, and their p-levels run #1-#3 and #9). a (after
+   26b, on phase 4's mesh and rhs, at 26a's smoother bounds): ``DistPMG(6
+   slabs, coarse="fdm", coarse_cfg=dict(dist=True))``: FCG(V) equal to
+   26a's, one V-cycle on a seeded input within 1e-5 of 26a's, ms per
+   V-cycle in turns with 26a's, all_to_all calls per V-cycle; `DistFDM`
+   at p=6 (253^3) on 6 slabs and (2, 2, 2) within 1e-5 of the
+   single-device `FastDiagonalizationSolver`, ms per solve in turns, and
+   one all_to_all alone (ms, GB/s). b: on 7 slabs (42 -> 21 -> 7 h-cells),
+   ``coarse="hmg"`` with ``dist=True, bottom="fdm"`` (nothing gathers)
+   against the gathered ``hmg``: one V-cycle within 1e-5, FCG(V) within 2
+   of 26a's, the h-levels, ms per V-cycle in turns, the idle share. c:
+   ``GridPMG((2, 2, 2), coarse="hmg", coarse_cfg=dict(dist=True,
+   bottom="fdm"))`` (42 -> 14): FCG(V) within 2 of phase 14's, L2 < 1e-4
+   (`card_l2`), ms per V-cycle, #1/#9 launch. d (after 12, at its
+   2,048,383 dofs, p=3): `heat_dist_evolve` CN on 6 slabs and (2, 2, 2),
+   steps/s by the 200/1000 slope in turns with `heat_fdm_evolve`;
+   leapfrog, Newmark, semilinear and convdiff CNAB on 6 slabs, 200 steps:
+   f32 within 1e-4 relative L2 of the f64 sharded run, f64 sharded within
+   1e-9 of the f64 single-device evolver; `examples/heat_torch.py
+   --shards 6` (L2 < 1e-3).
 
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
@@ -366,8 +392,9 @@ their separable twin's device time, #12 with the blocked apply's), the
 lattice kernels with their box and face
 scratch, the serving kernels per batch beside ``bound_ms_by_batch``;
 ``launches`` sums each kernel's launches over every path that runs it
-(#1-#3 phases 4, 15, 24a, 25a, 25e, 19a/19b and 26a-26c, #4/#7/#10/#11
-phases 4b-4e and 19c, #9 phases 14 and 18d, K-A phases 7, 16, 17, 20a and 20b,
+(#1-#3 phases 4, 15, 24a, 25a, 25e, 19a/19b, 26a-26c and 27a-27b, #1
+also 27c, #4/#7/#10/#11 phases 4b-4e and 19c, #9 phases 14, 18d and 27c,
+K-A phases 7, 16, 17, 20a and 20b,
 K-B phases 8 and 20c, #18-#21 phases 11 and 21, #19/#21 phase 25c),
 with their kernels and host us per call and, with ``--parent``, the
 parent's device times and whether the bits are the same) and, only when every
@@ -2622,7 +2649,7 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
     this card, against phase 4's single-device hierarchy (``spread``: phase
     4's plain-kron spread); then (1, 2, 4) at about 2.0M dofs against the
     single-device hierarchy on its mesh. Adds #9's launches on the path to
-    ``launches``."""
+    ``launches``; returns the (2, 2, 2) grid's FCG(V) count."""
     import numpy as np
     import torch
 
@@ -2743,6 +2770,7 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
     grid_vcycle_parity(grid, single, SEED + 16, "grid (1, 2, 4)")
     if abs(n_g - n_s) > 1 or not du <= 1e-3:
         raise AssertionError(f"(1, 2, 4): FCG {n_g} vs {n_s}, solutions {du}")
+    return niter
 
 
 
@@ -2908,7 +2936,7 @@ def slab_flagship(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg,
     the apply and residual on the stacked fine operand within 1e-5 of the
     per-slab plain versions (`slab_kernel_parity`), the per-slab launch
     design's V-cycle (`per_slab_launch_ops`) within 1e-5 of the stacked
-    one's, #1-#3 launch; the L2 error (< 1e-4) on a host thread. Prints
+    one's, #1-#3 launch; the L2 error (< 1e-4, `card_l2`). Prints
     ms per V-cycle of both launch designs in turns beside the single
     device's, launches per V-cycle and the idle share (complete profiler
     window). Adds #1-#3's
@@ -2958,7 +2986,7 @@ def slab_flagship(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg,
           f"{du:.3e}")
     if not du <= 1e-3:
         raise AssertionError(f"slab and single-device solutions differ: {du}")
-    l2 = start_l2(prob.error_l2, u.double().cpu().numpy())
+    l2 = card_l2(prob, u)
     x = torch.tensor(np.random.default_rng(SEED + 26).standard_normal(
         u_ref.numel(), dtype=np.float32), device="cuda")
     y_s = hier.operator()(x)
@@ -3123,6 +3151,404 @@ def slab_models(slab, newton_ref, conv_ref, launches):
     return out
 
 
+
+# Phases 27a-27d: the gather-free coarse family and the sharded time loops.
+GF_SLABS = 7          # 27b: 42 x-cells in 7 slabs, h-levels 42 -> 21 -> 7
+GF_VCYCLE_RTOL = 1e-5
+DIST_FDM_RTOL = 1e-5
+STEP_NC = (42, 42, 42)  # 27d at p=3: 2,048,383 dofs, phase 12's size
+STEP_F32_RTOL = 1e-4
+STEP_F64_RTOL = 1e-9
+STEP_N = 200
+DEV = "cuda"
+
+
+@contextlib.contextmanager
+def a2a_counts():
+    """Within the block, count `StackedGrid.all_to_all` calls (the pencil
+    transposes of `fdm_dist`): yields a one-element list."""
+    from pmg_dolfinx_tpu_torch.parallel import grid2d
+
+    n, orig = [0], grid2d.StackedGrid.all_to_all
+
+    def counted(self, *a, **k):
+        n[0] += 1
+        return orig(self, *a, **k)
+
+    grid2d.StackedGrid.all_to_all = counted
+    try:
+        yield n
+    finally:
+        grid2d.StackedGrid.all_to_all = orig
+
+
+def seeded(n, seed, dtype=None):
+    import numpy as np
+    import torch
+
+    return torch.tensor(np.random.default_rng(seed).standard_normal(
+        n, dtype=np.float32), dtype=dtype, device=DEV)
+
+
+def dist_vcycle_parity(a, b, seed, tag, rtol=GF_VCYCLE_RTOL):
+    """One V-cycle of two `DistPMG` / `GridPMG` hierarchies of the same
+    mesh on a seeded global rhs and iterate, ``b`` at ``a``'s smoother
+    bounds: relative max-norm within ``rtol``."""
+    n = a.mesh.num_dofs(a.degrees[-1])
+    rhs, it = seeded(n, seed), seeded(n, seed + 1)
+    b.load_state({"levels": [{"lmax": lv["lmax"]}
+                             for lv in a.data["levels"]]})
+    va = a.from_dist(a.apply(a.to_dist(rhs), a.to_dist(it)))
+    vb = b.from_dist(b.apply(b.to_dist(rhs), b.to_dist(it)))
+    err = rel_max_err(vb, va)
+    print(f"    {tag}: one V-cycle, seeded rhs and iterate: rel max err "
+          f"{err:.3e} (gate {rtol:g})")
+    if not err <= rtol:
+        raise AssertionError(f"{tag}: V-cycles differ by {err:.3e}")
+    return err
+
+
+def dist_fdm_solves(mesh):
+    """27a, second half: `DistFDM` as a whole-problem direct solve at p=6
+    on 6 slabs and on (2, 2, 2) against the single-device
+    `FastDiagonalizationSolver` on one seeded rhs (relative max-norm within
+    `DIST_FDM_RTOL`); ms per solve in turns (single, slab, grid, grid,
+    slab, single), all_to_all calls per solve and the one-card
+    all_to_all's ms at the first transpose's shape. Returns {tag: (None,
+    ms per solve)}."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.parallel.fdm_dist import DistFDM
+    from pmg_dolfinx_tpu_torch.solvers.fdm import FastDiagonalizationSolver
+
+    P, kw = 6, dict(kappa=2.0, dtype=torch.float32)
+    b = seeded(mesh.num_dofs(P), SEED + 271)
+    single = FastDiagonalizationSolver(mesh, P, device=DEV, **kw)
+    u_s = single.solve(b).reshape(-1)
+    solvers, stacked = {}, {}
+    for shards in (SLAB_SHARDS, (2, 2, 2)):
+        tag = f"{shards} slabs" if isinstance(shards, int) else str(shards)
+        ts = time.perf_counter()
+        d = DistFDM(mesh, P, shards, device=DEV, **kw)
+        bd = d.to_dist(b)
+        with a2a_counts() as n:
+            u_d = d.from_dist(d._solve_local(d.data, bd))
+        err = rel_max_err(u_d, u_s)
+        print(f"    DistFDM {tag} at {mesh.num_dofs(P)} dofs (p=6, local "
+              f"{d.part.local_shape(P)}): setup {time.perf_counter() - ts:.2f}"
+              f" s; vs FastDiagonalizationSolver rel max err {err:.3e} (gate "
+              f"{DIST_FDM_RTOL:g}); {n[0]} all_to_all per solve")
+        if not err <= DIST_FDM_RTOL:
+            raise AssertionError(f"DistFDM {tag}: {err:.3e}")
+        solvers[tag], stacked[tag] = d, bd
+    tags = list(solvers)
+    ms = {t: [] for t in ["single"] + tags}
+    for t in ["single"] + tags + tags[::-1] + ["single"]:
+        if t == "single":
+            ms[t].append(cuda_ms(lambda: single.solve(b), reps=10))
+        else:
+            d, bd = solvers[t], stacked[t]
+            ms[t].append(cuda_ms(lambda: d._solve_local(d.data, bd), reps=10))
+    print("    ms per solve, in turns: " + "; ".join(
+        f"{t} {sum(v) / len(v):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+        for t, v in ms.items()))
+    # The one-card all_to_all alone: the slab's x transpose, its buddy the
+    # y axis (the longest other local axis) padded to a multiple of 6.
+    d, bd = solvers[tags[0]], stacked[tags[0]]
+    x = torch.nn.functional.pad(bd, (0, 0, 0, (-bd.shape[4]) % SLAB_SHARDS))
+    a2a = cuda_ms(lambda: d.grid.all_to_all(x, 0, 1, 0), reps=10)
+    gbs = 2 * x.numel() * x.element_size() / a2a / 1e6
+    print(f"    one all_to_all (the slab's x transpose, {tuple(x.shape)}): "
+          f"{a2a:.3f} ms, {gbs:.0f} GB/s read + written (bound "
+          f"{2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3:.3f} "
+          f"ms)")
+    return {f"27a DistFDM {t}": (1, sum(v) / len(v))
+            for t, v in ms.items()}
+
+
+def gather_free_slab(prob, slab, niter_ref, cfg, launches):
+    """Phases 27a and 27b on phase 4's mesh and rhs (16,194,277 dofs,
+    p=(1,3,6), f32, ``kron_blocked``). 27a: ``DistPMG(n_devices=6,
+    coarse="fdm", coarse_cfg=dict(dist=True))`` at 26a's smoother bounds:
+    FCG(V) equal to 26a's (``niter_ref``), one V-cycle on a seeded input
+    within 1e-5 of 26a's gathered-fdm hierarchy (``slab``), ms per V-cycle
+    in turns with 26a's, all_to_all calls per V-cycle; then
+    `dist_fdm_solves`. 27b: on 7 slabs, ``coarse="hmg"`` with
+    ``coarse_cfg=dict(dist=True, bottom="fdm")`` (gathers nothing) and the
+    gathered ``hmg``: one V-cycle within 1e-5 of each other, FCG(V)
+    within 2 of ``niter_ref``, the h-levels, ms per V-cycle in turns and
+    the gather-free one's idle share. Adds #1-#3's launches to
+    ``launches``; returns {tag: (FCG count, ms per V-cycle or per
+    solve)}."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.dist import DistPMG
+
+    out = {}
+    t0 = phase("27a. slab p-coarse fdm with coarse_cfg dist=True (pencil "
+               "all_to_all, no gather), 6 slabs, 16.2M dofs; DistFDM at p=6")
+    ts = time.perf_counter()
+    dfdm = DistPMG(prob.mesh, n_devices=SLAB_SHARDS, operator="kron_blocked",
+                   coarse_cfg=dict(dist=True), **cfg)
+    dfdm.load_state({"levels": [{"lmax": lv["lmax"]}
+                                for lv in slab.data["levels"]]})
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f} (26a's smoother "
+          "bounds loaded)")
+    reset(kb)
+    u, niter = dfdm.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    add_launches(launches, dict(kb.LAUNCHES), ("t1_m", "t23_m", "t23_res_m"))
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} (26a, gathered fdm: "
+          f"{niter_ref}); launches {dict((k, v) for k, v in kb.LAUNCHES.items() if v)}")
+    if niter != niter_ref or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"27a: FCG {niter} vs 26a's {niter_ref}")
+    dist_vcycle_parity(slab, dfdm, SEED + 272, "27a fdm dist vs 26a fdm")
+    bd = dfdm.to_dist(prob.b)
+    ud = torch.zeros_like(bd)
+    with a2a_counts() as n:
+        dfdm.apply(bd, ud)
+    t_g1, _ = slab_vcycle_ms(slab)
+    t_d1, all_d1 = slab_vcycle_ms(dfdm)
+    t_d2, all_d2 = slab_vcycle_ms(dfdm)
+    t_g2, _ = slab_vcycle_ms(slab)
+    vc = (t_d1 + t_d2) / 2
+    print(f"    V-cycle: fdm dist {vc:.3f} ms ({t_d1:.3f}, {t_d2:.3f}; reps "
+          f"{[round(t, 3) for t in all_d1 + all_d2]}) vs 26a's gathered fdm "
+          f"{(t_g1 + t_g2) / 2:.3f} ms ({t_g1:.3f}, {t_g2:.3f}); 10 "
+          f"back-to-back, median of 3, in turns; {n[0]} all_to_all per "
+          "V-cycle")
+    out["27a slab fdm dist"] = (niter, vc)
+    del dfdm, u, bd, ud
+    out.update(dist_fdm_solves(prob.mesh))
+    done(t0)
+
+    t0 = phase(f"27b. slab gather-free h-coarse: {GF_SLABS} slabs, 16.2M "
+               "dofs, coarse=hmg with dist=True, bottom=fdm, against the "
+               "gathered hmg")
+    kw = dict(cfg, coarse="hmg")
+    ts = time.perf_counter()
+    gf = DistPMG(prob.mesh, n_devices=GF_SLABS, operator="kron_blocked",
+                 coarse_cfg=dict(dist=True, bottom="fdm"), **kw)
+    torch.cuda.synchronize()
+    setup_gf = time.perf_counter() - ts
+    ts = time.perf_counter()
+    ga = DistPMG(prob.mesh, n_devices=GF_SLABS, operator="kron_blocked", **kw)
+    torch.cuda.synchronize()
+    setup_ga = time.perf_counter() - ts
+    hl = [tuple(lv.shape) for lv in gf.coarse_cfg["hmg_levels"]]
+    print(f"    setup seconds: gather-free {setup_gf:.2f}, gathered "
+          f"{setup_ga:.2f}; h-levels (per-slab lattice, coarse to fine) {hl},"
+          f" bottom {gf.coarse_cfg['hmg_bottom']}; gathered h-levels "
+          f"{[tuple(lv.shape) for lv in ga.coarse_cfg['hmg_levels']]}, "
+          f"bottom {ga.coarse_cfg['hmg_bottom']}")
+    dist_vcycle_parity(ga, gf, SEED + 274, "27b gather-free vs gathered hmg")
+    reset(kb)
+    u, niter = gf.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    add_launches(launches, dict(kb.LAUNCHES), ("t1_m", "t23_m", "t23_res_m"))
+    _, niter_ga = ga.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    print(f"    FCG(V) iterations to rtol 1e-6: gather-free {niter}, gathered "
+          f"{niter_ga} (26a's fdm: {niter_ref})")
+    if abs(niter - niter_ref) > 2 or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"27b: FCG {niter} vs 26a's {niter_ref}")
+    bd = gf.to_dist(prob.b)
+    ud = torch.zeros_like(bd)
+    with a2a_counts() as n:
+        gf.apply(bd, ud)
+    t_a1, _ = slab_vcycle_ms(ga)
+    t_f1, all_f1 = slab_vcycle_ms(gf)
+    t_f2, all_f2 = slab_vcycle_ms(gf)
+    t_a2, _ = slab_vcycle_ms(ga)
+    vc = (t_f1 + t_f2) / 2
+    wall, busy, nk, _ = profile_busy(lambda: gf.apply(bd, ud))
+    print(f"    V-cycle: gather-free {vc:.3f} ms ({t_f1:.3f}, {t_f2:.3f}; reps "
+          f"{[round(t, 3) for t in all_f1 + all_f2]}) vs gathered "
+          f"{(t_a1 + t_a2) / 2:.3f} ms ({t_a1:.3f}, {t_a2:.3f}); in turns; "
+          f"{n[0]} all_to_all per V-cycle; profiled: busy {busy:.3f} ms, "
+          f"{nk} kernels, idle {max(0.0, 1 - busy / vc):.1%} of the "
+          "back-to-back cycle")
+    out["27b slab hmg gather-free"] = (niter, vc)
+    out["27b slab hmg gathered"] = (niter_ga, (t_a1 + t_a2) / 2)
+    done(t0)
+    return out
+
+
+def gather_free_grid(prob, niter_ref, cfg, launches):
+    """Phase 27c: ``GridPMG((2, 2, 2), coarse="hmg",
+    coarse_cfg=dict(dist=True, bottom="fdm"), operator="kron_blocked")``
+    on phase 4's mesh and rhs: FCG(V) within 2 of phase 14's grid count
+    (``niter_ref``), the L2 error (< 1e-4, `card_l2`), the h-levels, ms
+    per V-cycle; #1/#9 launch. Returns ((FCG, ms), the L2 job)."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+
+    ts = time.perf_counter()
+    grid = GridPMG(prob.mesh, (2, 2, 2), operator="kron_blocked",
+                   coarse_cfg=dict(dist=True, bottom="fdm"),
+                   **dict(cfg, coarse="hmg"))
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f}; h-levels "
+          f"(per-shard lattice, coarse to fine) "
+          f"{[tuple(lv.shape) for lv in grid.coarse_cfg['hmg_levels']]}, "
+          f"bottom {grid.coarse_cfg['hmg_bottom']}")
+    reset(kb)
+    u, niter = grid.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    counts = dict(kb.LAUNCHES)
+    add_launches(launches, counts, ("t1_m", "t23_grid_m"))
+    launches["t23_grid_m"] += counts["t23_grid_res_m"]
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} (phase 14's grid with "
+          f"the gathered fdm: {niter_ref}); launches "
+          f"{dict((k, v) for k, v in counts.items() if v)}")
+    if abs(niter - niter_ref) > 2 or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"27c: FCG {niter} vs phase 14's {niter_ref}")
+    l2 = card_l2(prob, u)
+    bd = grid.to_dist(prob.b)
+    ud = torch.zeros_like(bd)
+    with a2a_counts() as n:
+        grid.apply(bd, ud)
+    vc, reps = grid_vcycle_ms(grid)
+    wall, busy, nk, _ = profile_busy(lambda: grid.apply(bd, ud))
+    print(f"    V-cycle {vc:.3f} ms (reps {[round(t, 3) for t in reps]}); "
+          f"{n[0]} all_to_all per V-cycle; profiled: busy {busy:.3f} ms, "
+          f"{nk} kernels, idle {max(0.0, 1 - busy / vc):.1%}")
+    return (niter, vc), l2
+
+
+def sharded_steppers(mesh=None, steps=STEP_N):
+    """Phase 27d at phase 12's ``heat_cn_2M`` size (``STEP_NC``, p=3,
+    2,048,383 dofs): `heat_dist_evolve` CN (dt 1e-4, kappa 2) on 6 slabs
+    and on (2, 2, 2), f32 steps/s by the 200/1000 slope in turns with the
+    single-device `heat_fdm_evolve`; then `wave_leapfrog_dist_evolve`,
+    `wave_newmark_dist_evolve`, `semilinear_dist_evolve` (cubic, CNAB) and
+    `convdiff_dist_evolve` (CNAB) on 6 slabs. Gates, each over ``steps``
+    steps: the f32 run within `STEP_F32_RTOL` relative L2 of the f64 run
+    of the same sharded evolver, the f64 sharded run within
+    `STEP_F64_RTOL` of its f64 single-device evolver. Then
+    ``examples/heat_torch.py --shards 6`` end to end. Returns {tag:
+    (steps, ms per step)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models.semilinear import cubic
+    from pmg_dolfinx_tpu_torch.parallel import transient_dist as td
+    from pmg_dolfinx_tpu_torch.solvers import transient as ts1
+
+    mesh = mesh or BoxMesh(STEP_NC)
+    P, kappa = 3, 2.0
+    c = mesh.dof_coords(P)
+    mode = (np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1])
+            * np.sin(np.pi * c[:, 2]))
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+
+    def timed(ev, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = ev(*args)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, r
+
+    def flat(r):
+        return (r[0] if isinstance(r, tuple) else r).reshape(-1)
+
+    def gates(tag, make_dist, make_single, args):
+        """``make_*(dtype)`` build an evolver (or return a built one)."""
+        t32, r32 = timed(make_dist(f32), *args)
+        r64 = make_dist(f64)(*args)
+        s64 = make_single(f64)(*args)
+        e32 = rel_l2(flat(r32).double(), flat(r64))
+        e64 = rel_l2(flat(r64), flat(s64))
+        print(f"    {tag}: {steps} steps f32 {steps / t32:.1f} steps/s (with "
+              f"the loop's first call); f32 vs f64 sharded rel L2 {e32:.3e} "
+              f"(gate {STEP_F32_RTOL:g}); f64 sharded vs f64 single device "
+              f"{e64:.3e} (gate {STEP_F64_RTOL:g})")
+        if not (e32 <= STEP_F32_RTOL and e64 <= STEP_F64_RTOL
+                and bool(torch.isfinite(flat(r32)).all())):
+            raise AssertionError(f"27d {tag}: {e32:.3e}, {e64:.3e}")
+        out[f"27d {tag}"] = (steps, 1e3 * t32 / steps)
+
+    dt = 1e-4
+    # Each heat evolver built once per dtype (the host lumped mass and FDM
+    # factors are set-up work), for the gates and the timing alike.
+    heat = {"single": {d: ts1.heat_fdm_evolve(
+        mesh, P, kappa=kappa, dt=dt, scheme="cn", dtype=d, device=DEV)
+        for d in (f32, f64)}}
+    for shards in (SLAB_SHARDS, (2, 2, 2)):
+        tag = f"{shards} slabs" if isinstance(shards, int) else str(shards)
+        heat[tag] = {d: td.heat_dist_evolve(
+            mesh, P, shards, kappa=kappa, dt=dt, scheme="cn", dtype=d,
+            device=DEV) for d in (f32, f64)}
+    for tag in list(heat)[1:]:
+        gates(f"heat CN {tag}", heat[tag].get, heat["single"].get,
+              (mode, steps))
+    evs = {t: ev[f32] for t, ev in heat.items()}
+    u0 = torch.tensor(mode, dtype=f32, device=DEV)
+    lo, hi = steps, 5 * steps
+    slope = {t: [] for t in evs}
+    for t in list(evs) + list(evs)[::-1]:
+        timed(evs[t], u0, lo)
+        t_lo, _ = timed(evs[t], u0, lo)
+        t_hi, _ = timed(evs[t], u0, hi)
+        slope[t].append((t_hi - t_lo) / (hi - lo))
+    print("    heat CN f32 steps/s by the " f"{lo}/{hi} slope, in turns: "
+          + "; ".join(f"{t} {len(v) / sum(v):.1f} "
+                      f"({', '.join(f'{1 / x:.1f}' for x in v)})"
+                      for t, v in slope.items()))
+    for t, v in slope.items():
+        out[f"27d heat CN {t} slope"] = (hi - lo, 1e3 * sum(v) / len(v))
+
+    S = SLAB_SHARDS
+    dtw = 0.72 * ts1.wave_stable_dt(mesh, P, kappa=kappa)
+    gates("leapfrog", lambda dtype: td.wave_leapfrog_dist_evolve(
+        mesh, P, S, kappa=kappa, dt=dtw, dtype=dtype, device=DEV),
+        lambda dtype: ts1.wave_leapfrog_evolve(
+            mesh, P, kappa=kappa, dt=dtw, dtype=dtype, device=DEV),
+        (mode, 0.0 * mode, steps))
+    # Newmark at dt 1e-2: at 1e-3 its f32 acceleration c0 (u1 - u*), c0 =
+    # 1/(beta dt^2), cancels, and over 200 steps the f32 run leaves the f64
+    # one by more than the gate, on one device or sharded alike (the
+    # scheme's f32 rounding, not the decomposition).
+    gates("Newmark", lambda dtype: td.wave_newmark_dist_evolve(
+        mesh, P, S, kappa=kappa, dt=1e-2, dtype=dtype, device=DEV),
+        lambda dtype: ts1.wave_newmark_evolve(
+            mesh, P, kappa=kappa, dt=1e-2, dtype=dtype, device=DEV),
+        (mode, 0.0 * mode, steps))
+    nl = cubic(SEMI_C)
+    gates("semilinear CNAB", lambda dtype: td.semilinear_dist_evolve(
+        mesh, P, S, nl, kappa=kappa, dt=dt, dtype=dtype, device=DEV),
+        lambda dtype: ts1.semilinear_fdm_evolve(
+            mesh, P, nl, kappa=kappa, dt=dt, dtype=dtype, device=DEV),
+        (mode, steps))
+    cvel = (3.0, -1.5, 0.8)
+    dtc = 0.25 * ts1.convdiff_advective_dt(mesh, P, cvel)
+    gates("convdiff CNAB", lambda dtype: td.convdiff_dist_evolve(
+        mesh, P, S, cvel, kappa=kappa, dt=dtc, dtype=dtype, device=DEV),
+        lambda dtype: ts1.convdiff_fdm_evolve(
+            mesh, P, cvel, kappa=kappa, dt=dtc, dtype=dtype, device=DEV),
+        (mode, steps))
+    return out
+
+
+def heat_driver_sharded(ndofs="2000000"):
+    """27d's driver: ``examples/heat_torch.py --shards 6`` (f32, p=3, CN,
+    dt 1e-4, 200 steps): the L2 error against the analytic mode < 1e-3."""
+    res = run_example("heat_torch", ["--ndofs", ndofs, "--degree", "3",
+                                     "--shards", str(SLAB_SHARDS), "--dt",
+                                     "1e-4", "--steps", str(STEP_N),
+                                     "--device", DEV])
+    print(f"    examples/heat_torch.py --shards {SLAB_SHARDS}: {res}")
+    if not res["l2_error"] < 1e-3:
+        raise AssertionError(f"27d heat driver: {res}")
+    return {"27d heat_torch.py --shards 6": (STEP_N,
+                                             1e3 / res["steps_per_s"])}
+
+
 def kron_profile(fn, tag, tries=4):
     """`profile_busy` of one V-cycle ``fn`` on a Kronecker hierarchy from a
     complete window: one whose ``kron_t*`` kernels number the wrappers'
@@ -3160,7 +3586,7 @@ def schwarz_flagship(prob, niter_ref, cfg, launches):
     ``kron`` Schwarz twin's smoother bounds, one V-cycle within
     `SCHWARZ_VCYCLE_RTOL` of the twin's and the trajectories within twice
     the f32 floor. Adds #1-#3's launches to ``launches``; returns the
-    hierarchy (phase 18d) and the L2 thread's job."""
+    hierarchy (phase 18d) and the L2 job."""
     import numpy as np
     import torch
 
@@ -3243,9 +3669,7 @@ def schwarz_flagship(prob, niter_ref, cfg, launches):
     print("    busy V-cycle by kernel (top 8): " + "; ".join(
         f"{ms:.3f} ms {name[:50]}" for name, ms in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:8]))
-    # The host L2 (~90 s of numpy) runs on a worker thread; main joins it.
-    l2_job = start_l2(prob.error_l2, u.double().cpu().numpy())
-    print("    the L2 error runs on a host thread")
+    l2_job = card_l2(prob, u)
 
     # nc=21: the kernels' Schwarz trajectory against the plain-torch
     # Kronecker twin's, at the twin's smoother bounds (phase 5's rules).
@@ -3698,7 +4122,7 @@ def box_family(mesh, launches):
     import numpy as np
     import torch
 
-    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs, l2_error
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
     from pmg_dolfinx_tpu_torch.models.poisson import (
         PoissonProblem,
@@ -3728,13 +4152,10 @@ def box_family(mesh, launches):
         raise AssertionError(f"19a: FCG {niter}, finite "
                              f"{bool(torch.isfinite(u).all())}")
     add_launches(launches, path, need)
-    # The host L2 (numpy, ~100 s at this size) runs on a worker thread
-    # while the card goes on; `check_l2` joins it.
-    l2_job = start_l2(prob.error_l2, u.double().cpu().numpy())
+    l2_job = card_l2(prob, u)
     vc, vc_all = vcycle_ms(prob.hierarchy)
     print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
-          f"{[round(t, 3) for t in vc_all]}); the L2 error runs on a host "
-          "thread")
+          f"{[round(t, 3) for t in vc_all]})")
     out["19a"] = (niter, vc)
     del prob, u
     done(t0)
@@ -3776,7 +4197,7 @@ def box_family(mesh, launches):
                                     device="cuda")
     b21 = torch.tensor(assemble_rhs(m21, 6, f), dtype=torch.float32,
                        device="cuda")
-    err = l2_error(m21, 6, fdm.solve(b21).double().cpu().numpy(), u_exact)
+    err = card_l2_error(m21, 6, fdm.solve(b21), u_exact)
     print(f"    --fdm one-shot at nc=21: L2 error {err:.4e}")
     if not err < 1e-4:
         raise AssertionError(f"19b: FDM L2 error {err}")
@@ -3784,9 +4205,64 @@ def box_family(mesh, launches):
     return out, l2_job
 
 
+def card_l2_error(mesh, P, u, u_exact, chunk=6):
+    """`fem.assembly.l2_error` (the Gauss-Legendre rule on an axis-aligned
+    box, float64) with its sum-factorised interpolation to the quadrature
+    points on ``u``'s device and ``u_exact`` on the host ``chunk`` x-cells
+    at a time: seconds at 16.2M dofs, where the host rule takes ~100 s of
+    numpy."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.gll import (gauss_legendre, gauss_lobatto,
+                                               lagrange_tabulate)
+
+    nq = P + 3
+    xq, wq = gauss_legendre(nq)
+    phi = lagrange_tabulate(gauss_lobatto(P + 1)[0], xq, 0)[0]   # (nq, n)
+    f64 = dict(dtype=torch.float64, device=u.device)
+    lat = u.to(torch.float64).reshape(mesh.lattice_shape(P))
+    B, pts, wts = [], [], []
+    for a in range(3):
+        nc, h = mesh.nc[a], np.broadcast_to(mesh.h_cells[a], (mesh.nc[a],))
+        Ba = np.zeros((nc * nq, nc * P + 1))
+        for c in range(nc):
+            Ba[c * nq:(c + 1) * nq, c * P:c * P + P + 1] = phi
+        B.append(torch.tensor(Ba, **f64))
+        pts.append((mesh.axis_nodes(a)[:-1, None] + xq[None] * h[:, None])
+                   .reshape(-1))
+        wts.append(torch.tensor((wq[None] * h[:, None]).reshape(-1), **f64))
+    t = torch.einsum("cz,xyz->xyc", B[2],
+                     torch.einsum("by,xyz->xbz", B[1], lat))
+    err2 = torch.zeros((), **f64)
+    for c0 in range(0, mesh.nc[0], chunk):
+        rows = slice(c0 * nq, min(c0 + chunk, mesh.nc[0]) * nq)
+        uq = torch.einsum("ax,xyz->ayz", B[0][rows], t)
+        X, Y, Z = np.meshgrid(pts[0][rows], pts[1], pts[2], indexing="ij")
+        ue = torch.tensor(u_exact(np.stack(
+            [X.reshape(-1), Y.reshape(-1), Z.reshape(-1)])), **f64)
+        w = (wts[0][rows][:, None, None] * wts[1][None, :, None]
+             * wts[2][None, None, :])
+        err2 += ((uq - ue.reshape(uq.shape)) ** 2 * w).sum()
+    return float(torch.sqrt(err2))
+
+
+def card_l2(prob, u):
+    """``prob.error_l2(u)`` on its axis-aligned box by `card_l2_error`,
+    computed now: a finished job for `check_l2`."""
+    from concurrent.futures import Future
+
+    started = time.perf_counter()
+    job = Future()
+    job.set_result(card_l2_error(prob.mesh, prob.degrees[-1], u,
+                                 prob._u_exact))
+    return job, started
+
+
 def start_l2(fn, *args):
-    """Run a host L2 error (numpy, ~90-120 s at 16.2M dofs) on a worker
-    thread while the card goes on; `check_l2` joins it."""
+    """Run a host L2 error (numpy, ~90-120 s at 16.2M dofs), or other host
+    numpy, on a worker thread while the card goes on: ``(future, start
+    time)``; `check_l2` joins an L2 job."""
     pool = ThreadPoolExecutor(max_workers=1)
     job = (pool.submit(fn, *args), time.perf_counter())
     pool.shutdown(wait=False)
@@ -3794,11 +4270,12 @@ def start_l2(fn, *args):
 
 
 def check_l2(job, tag="19a", what="u_exact_mixed"):
-    """Join a phase's L2 thread: L2 < 1e-4."""
+    """Read a phase's L2 job (a host thread's or `card_l2`'s): L2 <
+    1e-4."""
     future, started = job
     err = future.result()
-    print(f"    {tag} (joined): L2 error vs {what} {err:.4e} (the host "
-          f"thread started {time.perf_counter() - started:.1f} s ago)")
+    print(f"    {tag} (joined): L2 error vs {what} {err:.4e} (the job "
+          f"started {time.perf_counter() - started:.1f} s ago)")
     if not err < 1e-4:
         raise AssertionError(f"{tag}: L2 error {err}")
     return err
@@ -4716,7 +5193,6 @@ MODES_DRIVER_GENERAL = ["--mesh", "perturbed", "--ndofs", "1000",
                         "--kmodes", "1"]
 # ~10k since PR 17 (29,920 until then: 25f took 64-83 s of the time limit)
 MODES_GENERAL_NDOFS = 10000
-MODES_PROBE_ITERS = 2
 # k=1 on a ``direct`` coarse: at 30k with the driver's ``cg`` coarse every
 # V-cycle is host-paced by the coarse CG's per-iteration reads (k=4, tol
 # 1e-13: 638.2 s for 16 iterations on the card), which the script's time
@@ -4940,9 +5416,9 @@ def modes_phase():
     its defaults but k=1 (`MODES_DRIVER_GENERAL`: ``--mesh perturbed``,
     the ``lattice`` + ``cg`` hierarchy, default tol) on a 1,000-dof mesh, with
     `fcg_counts` reading the FCG(V) count of every inverse solve and the
-    coarse CG iterations of every V-cycle (each ends on a host read); the
-    same hierarchy at ~MODES_GENERAL_NDOFS dofs for MODES_PROBE_ITERS
-    LOBPCG iterations of one vector (gate: no solve at the FCG cap). Then
+    coarse CG iterations of every V-cycle (each ends on a host read) (gate:
+    no solve at the FCG cap; the probe of that hierarchy at ~10k dofs was
+    cut to make room for phase 27). Then
     `lowest_eigenpairs` on ``PerturbedBoxMesh`` at ~MODES_GENERAL_NDOFS
     dofs, p=3, k=MODES_GENERAL_K, tol MODES_GENERAL_TOL, with a
     ``lattice`` + ``direct`` hierarchy passed as ``hierarchy=``. Gates,
@@ -4973,26 +5449,12 @@ def modes_phase():
           f"60) over {len(coarse)} V-cycles ({cycles} counted from FCG); "
           f"{res['seconds'] / max(sum(fcg), 1) * 1e3:.3f} ms per FCG "
           f"iteration")
-    check_modes("perturbed driver", mesh, 0.0, lams, U, res["iters"],
-                res["seconds"], MODES_GENERAL_RES, out)
-    mesh = PerturbedBoxMesh(fit_box_cells(MODES_GENERAL_NDOFS, 3))
-    # The driver's default hierarchy at ~10k dofs, MODES_PROBE_ITERS LOBPCG
-    # iterations of one vector: what paces each inverse solve there.
-    ts = time.perf_counter()
-    with fcg_counts() as (fcg, coarse):
-        lowest_eigenpairs(mesh, 3, kappa=2.0, k=1, maxiter=MODES_PROBE_ITERS,
-                          device="cuda")
-        torch.cuda.synchronize()
-    secs = time.perf_counter() - ts
-    print(f"    driver's default hierarchy at {mesh.num_dofs(3)} dofs, k=1, "
-          f"{MODES_PROBE_ITERS} LOBPCG iterations: {secs:.2f} s with setup; "
-          f"FCG per solve {fcg} (cap 100); coarse CG per V-cycle "
-          f"{sum(coarse) / max(len(coarse), 1):.1f} (max {max(coarse)}, cap "
-          f"60) over {len(coarse)} V-cycles; "
-          f"{secs / max(sum(fcg), 1) * 1e3:.3f} ms per FCG iteration")
     if max(fcg) >= 100 or max(fcg + [0]) == 0:
         raise AssertionError(f"25f: FCG counts {fcg} at the driver's "
                              "default hierarchy")
+    check_modes("perturbed driver", mesh, 0.0, lams, U, res["iters"],
+                res["seconds"], MODES_GENERAL_RES, out)
+    mesh = PerturbedBoxMesh(fit_box_cells(MODES_GENERAL_NDOFS, 3))
     ts = time.perf_counter()
     hier = PMGHierarchy(mesh, degrees=(1, 3), kappa=2.0, dtype=torch.float64,
                         coarse="direct", operator="lattice", device="cuda")
@@ -5251,6 +5713,13 @@ def main():
     t0 = phase("4. main path: 16.2M dofs, p=(1,3,6), kron_blocked + fdm")
     cfg = dict(degrees=(1, 3, 6), kappa=2.0, dtype=torch.float32,
                coarse="fdm", device="cuda")
+    # Phase 6's 16.2M host f64 geometry factors (~40 s of numpy, cached on
+    # the mesh) build on a worker thread from here; phase 6 joins them.
+    from pmg_dolfinx_tpu_torch.fem.assembly import geometry_factors_np
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+
+    curved = PerturbedBoxMesh((42, 42, 42))
+    geom6 = start_l2(geometry_factors_np, curved, 6)
     for k in kb.LAUNCHES:
         kb.LAUNCHES[k] = 0
     ts = time.perf_counter()
@@ -5296,11 +5765,7 @@ def main():
     print(f"    device busy per V-cycle {busy:.3f} ms ({nk} kernels, "
           f"torch.profiler) of the back-to-back {vc_blk:.3f} ms: idle "
           f"{max(0.0, 1 - busy / vc_blk):.1%}")
-    # The host L2 (~90 s of numpy) runs on a worker thread, joined after
-    # phase 5.
-    l2_4 = start_l2(prob.error_l2, u.double().cpu().numpy())
-    print("    the L2 error vs the manufactured solution runs on a host "
-          "thread")
+    l2_4 = card_l2(prob, u)
     ts = time.perf_counter()
     plain_hier = PMGHierarchy(BoxMesh((42, 42, 42)), operator="kron", **cfg)
     torch.cuda.synchronize()
@@ -5347,7 +5812,7 @@ def main():
     t0 = phase("14. device-grid main path (run here, on phase 4's mesh, rhs "
                "and hierarchy): GridPMG (2,2,2), 16.2M dofs, kron_blocked + "
                "fdm, every shard on this card")
-    grid_path(prob, hier, rel, u, niter, spread, cfg, launches)
+    grid_niter = grid_path(prob, hier, rel, u, niter, spread, cfg, launches)
     done(t0)
 
     t0 = phase("26a. slab main path (run here, on phase 4's mesh, rhs and "
@@ -5360,6 +5825,15 @@ def main():
     t0 = phase("26b. examples/scaling_torch.py 1D slab sweep: ~2M dofs "
                "kron_blocked f32 and ~250k dofs dofmap + cg f64, 1-8 slabs")
     family.update(slab_sweeps(launches))
+    done(t0)
+
+    family.update(gather_free_slab(prob, slab, family["26a slab"][0], cfg,
+                                   launches))
+    t0 = phase("27c. grid gather-free h-coarse (run here, on phase 4's mesh "
+               "and rhs): GridPMG (2,2,2), 16.2M dofs, kron_blocked, "
+               "coarse=hmg with dist=True, bottom=fdm")
+    family["27c grid hmg gather-free"], l2_27c = gather_free_grid(
+        prob, grid_niter, cfg, launches)
     done(t0)
 
     t0 = phase("15. Schwarz flagship (run here, on phase 4's mesh and rhs): "
@@ -5434,7 +5908,8 @@ def main():
         r0 = float(torch.linalg.vector_norm(prob.b))
         _, rn = h.solve(prob.b, num_cycles=10)
         u, niter = h.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
-        res[tag] = (np.array(rn) / r0, niter, u, prob.error_l2(u),
+        res[tag] = (np.array(rn) / r0, niter, u,
+                    card_l2_error(prob.mesh, 6, u, prob._u_exact),
                     vcycle_ms(h)[0])
         print(f"    {tag}: rel {[f'{v:.3e}' for v in res[tag][0]]}, FCG "
               f"{niter}, L2 {res[tag][3]:.4e}, V-cycle {res[tag][4]:.3f} ms")
@@ -5470,12 +5945,14 @@ def main():
     check_l2(l2_4, "4", "the manufactured solution")
     check_l2(l2_15, "15", "the manufactured solution")
     check_l2(l2_26a, "26a", "the manufactured solution")
+    check_l2(l2_27c, "27c", "the manufactured solution")
     check_l2(l2_19a)
 
-    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
-
     t0 = phase("6. lattice kernel parity vs plain torch")
-    curved = PerturbedBoxMesh((42, 42, 42))
+    ts = time.perf_counter()
+    geom6[0].result()
+    print(f"    nc=42 p=6 host f64 geometry factors (host thread, started in "
+          f"phase 4) joined after {time.perf_counter() - ts:.2f} s of waiting")
     _, lat21 = lattice_parity(PerturbedBoxMesh((21, 21, 21)), 6, geom=True)
     _, lat_p1 = lattice_parity(curved, 1, geom=False)
     _, lat_p3 = lattice_parity(curved, 3, geom=False)
@@ -5683,6 +6160,14 @@ def main():
     heat_cn_2m()
     done(t0)
 
+    t0 = phase("27d. sharded time loops at 2,048,383 dofs, p=3: heat CN on "
+               "6 slabs and (2,2,2) against heat_fdm_evolve; leapfrog, "
+               "Newmark, semilinear and convdiff CNAB on 6 slabs; f32 vs "
+               "f64; examples/heat_torch.py --shards 6")
+    family.update(sharded_steppers())
+    family.update(heat_driver_sharded())
+    done(t0)
+
     t0 = phase("13. curved stepper: heat_pcg_evolve, 195k dofs, p=3")
     curved_stepper()
     print(f"    peak host RSS {peak_rss_gb():.1f} GB")
@@ -5806,7 +6291,8 @@ def main():
     print("    coefficient, unstructured and model families (FCG(V), ms "
           "per V-cycle; 25a/25e Newton steps, ms per step; 25b BiCGStab "
           "iterations, ms per iteration; 25c/25d steps/s, ms per step; 25f "
-          "LOBPCG iterations, s): " + "; ".join(
+          "LOBPCG iterations, s; 27a DistFDM 1, ms per solve; 27d steps, "
+          "ms per step): " + "; ".join(
         f"{k} {n:.6g}, " + ("-" if ms is None else f"{ms:.4g}")
         for k, (n, ms) in family.items()))
     print(f"    script seconds: {time.perf_counter() - t_script:.1f}")

@@ -30,8 +30,10 @@ def base_parser(doc):
                    help="graded spacing 'AXES:RATIO' (e.g. 'z:8'); the "
                         "FDM step solve stays exact on graded meshes")
     p.add_argument("--shards", type=str, default="",
-                   help="distributed time loop (transient_dist, not "
-                        "ported)")
+                   help="shard the time loop: 'N' (x-slab) or 'sx,sy,sz' "
+                        "(device grid), every shard stacked on the one "
+                        "device; one distributed FDM solve per step, "
+                        "gather-free (box mesh, parallel/transient_dist.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default 'cuda')")
     return p
@@ -72,14 +74,29 @@ def torch_device(args):
     return torch, device, dtype
 
 
+def parse_shards(s):
+    """'4' -> 4 (x-slab), '2,2,1' -> (2, 2, 1) (device grid)."""
+    parts = [int(v) for v in s.split(",")]
+    if len(parts) == 1:
+        return parts[0]
+    if len(parts) != 3:
+        raise SystemExit("--shards expects 'N' or 'sx,sy,sz'")
+    return tuple(parts)
+
+
+def shard_cells(nc, shards):
+    """``nc`` rounded up per axis to a multiple of the shard layout."""
+    import numpy as np
+
+    if shards is None:
+        return tuple(nc)
+    sh3 = (shards, 1, 1) if np.ndim(shards) == 0 else shards
+    return tuple((c + s - 1) // s * s for c, s in zip(nc, sh3))
+
+
 def refuse_unported(args):
-    """The transient drivers' flags whose layers the port does not have
-    yet: ``--shards`` (the distributed steppers; the steady model drivers
-    take it, e.g. `convdiff_torch.py`) and ``--save-series``."""
-    if args.shards:
-        raise SystemExit("--shards: the distributed steppers "
-                         "(transient_dist) are not ported yet (ROADMAP.md "
-                         "Queue 1 item 10)")
+    """The transient drivers' flag whose layer the port does not have
+    yet: ``--save-series``."""
     if getattr(args, "save_series", ""):
         raise SystemExit("--save-series: utils/io is not ported yet "
                          "(ROADMAP.md Queue 1 item 11)")
@@ -87,7 +104,8 @@ def refuse_unported(args):
 
 def setup(args):
     """``(torch, device, dtype, mesh)`` for the fitted unit cube (graded
-    with ``--grade``)."""
+    with ``--grade``; its cell counts rounded up to the ``--shards``
+    layout)."""
     import torch
 
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, PerturbedBoxMesh
@@ -95,7 +113,8 @@ def setup(args):
 
     refuse_unported(args)
     _, device, dtype = torch_device(args)
-    nc = fit_box_cells(args.ndofs, args.degree)
+    nc = shard_cells(fit_box_cells(args.ndofs, args.degree),
+                     parse_shards(args.shards) if args.shards else None)
     spacing = None
     if args.grade:
         from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing

@@ -11,14 +11,17 @@ system. The operator is ``kron`` (torch einsums, as JAX runs it on XLA).
 diffusion, explicit advection). ``--shards N`` runs the steady solve on
 the slab `DistPMG` (N x-slabs), ``--shards sx,sy,sz`` on the grid
 `GridPMG`: every shard is stacked on the one device, so the times
-measure the cost of the decomposition, not scaling. The sharded IMEX
-loop (``--transient --shards``, transient_dist) is not ported.
+measure the cost of the decomposition, not scaling. ``--transient
+--shards`` runs the sharded IMEX loop (`parallel.transient_dist.
+convdiff_dist_evolve`: one distributed FDM solve per step, gather-free).
 
     python examples/convdiff_torch.py --ndofs 16000000 --degrees 1 3 6
     python examples/convdiff_torch.py --peclet-sweep --device cpu --dtype f64
     python examples/convdiff_torch.py --transient --steps 500
     python examples/convdiff_torch.py --velocity 1680,0,0 --stabilize p
     python examples/convdiff_torch.py --shards 4 --device cpu --dtype f64
+    python examples/convdiff_torch.py --transient --shards 4 --device cpu \\
+        --dtype f64
 """
 
 import json
@@ -69,7 +72,8 @@ def main():
                         "'cell' = h scale")
     p.add_argument("--shards", type=str, default="",
                    help="shard the steady solve: 'N' (x-slab DistPMG) or "
-                        "'sx,sy,sz' (GridPMG), stacked on the one device")
+                        "'sx,sy,sz' (GridPMG), stacked on the one device; "
+                        "with --transient the IMEX loop (transient_dist)")
     args = p.parse_args()
     shards = None
     if args.shards:
@@ -77,10 +81,6 @@ def main():
         if len(parts) not in (1, 3):
             raise SystemExit("--shards expects 'N' or 'sx,sy,sz'")
         shards = parts[0] if len(parts) == 1 else tuple(parts)
-        if args.transient:
-            raise SystemExit("--transient --shards: the sharded IMEX loop "
-                             "(transient_dist) is not ported yet (ROADMAP.md "
-                             "Queue 1 item 10)")
     torch, device, dtype = torch_device(args)
 
     from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs, l2_error
@@ -125,9 +125,19 @@ def main():
                   "explicit advection term will blow up")
         with Timer("setup (assembly + FDM factorization)", sync=True):
             b = assemble_rhs(mesh, P, f)
-            evolve = convdiff_fdm_evolve(mesh, P, cvel, kappa=kap, dt=dt,
-                                         scheme=args.scheme, sigma=args.sigma,
-                                         dtype=dtype, f=b, device=device)
+            if shards is not None:
+                from pmg_dolfinx_tpu_torch.parallel.transient_dist import (
+                    convdiff_dist_evolve)
+
+                print(f"sharded IMEX loop: shards {shards}")
+                evolve = convdiff_dist_evolve(
+                    mesh, P, shards, cvel, kappa=kap, dt=dt,
+                    scheme=args.scheme, sigma=args.sigma, dtype=dtype, f=b,
+                    device=device)
+            else:
+                evolve = convdiff_fdm_evolve(
+                    mesh, P, cvel, kappa=kap, dt=dt, scheme=args.scheme,
+                    sigma=args.sigma, dtype=dtype, f=b, device=device)
         u0 = np.zeros(mesh.num_dofs(P))
         with Timer(f"warmup ({args.steps} steps)", sync=True):
             evolve(u0, args.steps)

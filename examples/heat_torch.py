@@ -8,7 +8,10 @@ B trajectories stepped together through the kernels of
 `ops/kron_packed.py` (float32, NZ <= 64; the CUDA kernels on a CUDA
 device). ``--mesh perturbed`` steps curved hexes through a shifted PMG
 hierarchy, one FCG(V) solve per step (``--fixed-iters N``: N FCG
-iterations per step, no host sync in the step loop).
+iterations per step, no host sync in the step loop). ``--shards N`` or
+``sx,sy,sz`` shards the box time loop (`parallel.transient_dist.
+heat_dist_evolve`: one distributed FDM solve per step, every shard stacked
+on the one device).
 
 Accuracy check: the separable mode ``u = exp(-3 kappa pi^2 t) sin(pi x)
 sin(pi y) sin(pi z)``; prints the final-time L2 error, the throughput and
@@ -18,6 +21,8 @@ a final JSON line.
         --steps 2000
     python examples/heat_torch.py --device cpu --ndofs 3000 --degree 3 \\
         --batch 3 --steps 20
+    python examples/heat_torch.py --device cpu --ndofs 3000 --shards 4 \\
+        --dtype f64
 """
 
 import json
@@ -25,7 +30,7 @@ import time
 
 import numpy as np
 
-from _common_torch import base_parser, setup, sync
+from _common_torch import base_parser, parse_shards, setup, sync
 
 
 def main():
@@ -40,6 +45,10 @@ def main():
                    help="trajectory snapshots (not ported)")
     p.add_argument("--snap-every", type=int, default=10)
     args = p.parse_args()
+    shards = parse_shards(args.shards) if args.shards else None
+    if shards is not None and (args.mesh == "perturbed" or args.batch):
+        raise SystemExit("--shards rides the distributed FDM step solve "
+                         "(axis-aligned box, unbatched)")
     torch, device, dtype, mesh = setup(args)
 
     from pmg_dolfinx_tpu_torch.fem.assembly import l2_error
@@ -109,6 +118,15 @@ def main():
             else:
                 evolve = heat_pcg_evolve(hier, mesh, P, args.dt,
                                          scheme=args.scheme, rtol=args.rtol)
+        elif shards is not None:
+            from pmg_dolfinx_tpu_torch.parallel.transient_dist import (
+                heat_dist_evolve)
+
+            print(f"sharded time loop: shards {shards} "
+                  "(distributed FDM step solves, gather-free)")
+            evolve = heat_dist_evolve(mesh, P, shards, kappa=kappa,
+                                      dt=args.dt, scheme=args.scheme,
+                                      dtype=dtype, device=device)
         else:
             from pmg_dolfinx_tpu_torch.solvers.transient import heat_fdm_evolve
 

@@ -4,7 +4,8 @@ twin of `examples/scaling.py`).
     python examples/scaling_torch.py [--device cpu] [--ndofs N]
         [--mode strong|weak] [--degrees 1 3]
         [--operator dofmap|lattice|kron|kron_blocked]
-        [--coarse cg|smoother|fdm|direct] [--smoother cheb|line-y|schwarz]
+        [--coarse cg|smoother|fdm|direct|hmg] [--dist-coarse]
+        [--bottom direct|cg|smoother|fdm] [--smoother cheb|line-y|schwarz]
         [--max-devices 8]
     python examples/scaling_torch.py --grid [...]
 
@@ -15,7 +16,12 @@ mode: one mesh whose x cells divide by the largest count; weak mode:
 residual trajectory equals the 1-slab one, rtol 1e-9 in f64, 1e-3 in
 f32). ``--grid`` sweeps `parallel.grid2d.GridPMG` on ONE fixed mesh for
 the shard layouts 1x1x1, 2x1x1, 2x2x1, 2x2x2, 4x2x2, 4x4x2 (Kronecker
-operators only). Each row prints the setup seconds, the seconds per
+operators only). ``--coarse hmg`` is the h-multigrid coarse solve
+(``--bottom`` its bottom), ``--dist-coarse`` its non-gathered form
+(``coarse_cfg=dict(dist=True)``: every h-level in the sharded layout, the
+hierarchy pinned by JAX's ``divisors`` so the trajectory stays invariant
+in the shard count; ``--bottom fdm`` makes it gather-free) or, with
+``--coarse fdm``, the pencil-transpose distributed FDM. Each row prints the setup seconds, the seconds per
 stationary V-cycle and the final relative residual; in strong mode the
 counts share one mesh, so only the first count's setup computes its
 host geometry factors.
@@ -59,8 +65,18 @@ def main():
     p.add_argument("--cycles", type=int, default=5)
     p.add_argument("--max-devices", type=int, default=0,
                    help="largest shard count (default 8)")
-    p.add_argument("--coarse", choices=["cg", "smoother", "fdm", "direct"],
-                   default="cg")
+    p.add_argument("--coarse", choices=["cg", "smoother", "fdm", "direct",
+                                        "hmg"], default="cg")
+    p.add_argument("--dist-coarse", action="store_true",
+                   help="with --coarse hmg/fdm: the distributed (non-"
+                        "gathered) coarse solve (coarse_cfg dist=True; "
+                        "fdm = pencil-transpose distributed direct "
+                        "solve, parallel/fdm_dist.py)")
+    p.add_argument("--bottom", choices=["direct", "cg", "smoother", "fdm"],
+                   default="direct",
+                   help="h-MG bottom solve (coarse_cfg['bottom']); "
+                        "'fdm' needs --dist-coarse and makes the whole "
+                        "hierarchy gather-free")
     p.add_argument("--smoother", type=str, default="cheb",
                    help="p-level smoother preconditioner: 'cheb' (point "
                         "Jacobi), 'line'/'line-x|y|z' (unsharded axis "
@@ -83,9 +99,24 @@ def main():
     sweep = _grid_sweep if args.grid else _slab_sweep
     rows, info = sweep(args, np, device, dtype, sync, name)
     print(json.dumps(dict(device=name, operator=args.operator,
-                          coarse=args.coarse, smoother=args.smoother,
+                          coarse=args.coarse, dist_coarse=args.dist_coarse,
+                          bottom=args.bottom, smoother=args.smoother,
                           dtype=args.dtype, mode=args.mode, rows=rows,
                           **info)))
+
+
+def _coarse_cfg(args, divisors):
+    """JAX's ``coarse_cfg`` of the sweep: the distributed h-hierarchy
+    pinned by ``divisors`` across shard counts (its depth depends on the
+    alignment constraint), the distributed FDM, or the gathered hmg's
+    bottom."""
+    if args.dist_coarse and args.coarse == "hmg":
+        return dict(dist=True, bottom=args.bottom, divisors=divisors)
+    if args.dist_coarse:
+        return dict(dist=True)
+    if args.coarse == "hmg":
+        return dict(bottom=args.bottom)
+    return None
 
 
 def _slab_sweep(args, np, device, dtype, sync, name):
@@ -109,6 +140,11 @@ def _slab_sweep(args, np, device, dtype, sync, name):
         target = args.ndofs * (nd if args.mode == "weak" else 1)
         nc = fit_box_cells(target, pmax)
         div = lcm if args.mode == "strong" else nd
+        if args.dist_coarse and args.coarse == "hmg":
+            # The pinned h-hierarchy needs one factor-2 coarsening with
+            # x-cells still divisible by max(counts), and even y/z cells.
+            div = 2 * lcm
+            nc = (nc[0], (nc[1] + 1) // 2 * 2, (nc[2] + 1) // 2 * 2)
         nx = max(div, (nc[0] + div - 1) // div * div)
         # One mesh object per cell count: the strong sweep's counts share
         # it, and with it its host geometry factors (cached on the mesh).
@@ -119,6 +155,7 @@ def _slab_sweep(args, np, device, dtype, sync, name):
         t0 = time.time()
         dist = DistPMG(mesh, n_devices=nd, degrees=tuple(args.degrees),
                        kappa=args.kappa, dtype=dtype, coarse=args.coarse,
+                       coarse_cfg=_coarse_cfg(args, (lcm, 1, 1)),
                        operator=args.operator, smoother=args.smoother,
                        device=device)
         sync()
@@ -166,8 +203,13 @@ def _grid_sweep(args, np, device, dtype, sync, name):
     layouts = [s for s in LAYOUTS if s[0] * s[1] * s[2] <= n_max]
     pmax = max(args.degrees)
     nc = fit_box_cells(args.ndofs, pmax)
-    div = max(max(s[a] for s in layouts) for a in range(3))
-    nc = tuple((c + div - 1) // div * div for c in nc)
+    div_all = tuple(max(s[a] for s in layouts) for a in range(3))
+    if args.dist_coarse and args.coarse == "hmg":
+        # One factor-2 coarsening must stay divisible by every layout.
+        per_axis = tuple(2 * d for d in div_all)
+    else:
+        per_axis = (max(div_all),) * 3
+    nc = tuple((c + d - 1) // d * d for c, d in zip(nc, per_axis))
     mesh = BoxMesh(nc)
     b = assemble_rhs(mesh, pmax, f_rhs(args.kappa))
     r0 = float(np.linalg.norm(b))
@@ -181,6 +223,7 @@ def _grid_sweep(args, np, device, dtype, sync, name):
         t0 = time.time()
         grid = GridPMG(mesh, shards=shards, degrees=tuple(args.degrees),
                        kappa=args.kappa, dtype=dtype, coarse=args.coarse,
+                       coarse_cfg=_coarse_cfg(args, div_all),
                        operator=args.operator, smoother=args.smoother,
                        device=device)
         sync()

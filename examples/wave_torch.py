@@ -11,7 +11,10 @@ subset). Integrators:
 `ops/kron_packed.py` (float32, NZ <= 64; the CUDA kernels on a CUDA
 device); ``--mesh perturbed`` steps curved hexes (Newmark) with one
 FCG(V) solve per step; ``--pulse F0`` drives the medium from rest with a
-Ricker wavelet at the centre (box mesh).
+Ricker wavelet at the centre (box mesh). ``--shards N`` or ``sx,sy,sz``
+shards the box time loop, every shard stacked on the one device
+(`parallel.transient_dist`: Newmark one distributed FDM solve per step,
+leapfrog one distributed forward transform apply).
 
 Accuracy check: the standing wave ``u = cos(omega t) sin(pi x) sin(pi y)
 sin(pi z)``, ``omega = pi sqrt(3 kappa)``; prints the final-time L2 error,
@@ -28,7 +31,7 @@ import time
 
 import numpy as np
 
-from _common_torch import base_parser, setup, sync
+from _common_torch import base_parser, parse_shards, setup, sync
 
 
 def main():
@@ -45,6 +48,10 @@ def main():
                         "of peak frequency F0 at the domain centre (box "
                         "mesh) instead of the standing-wave test")
     args = p.parse_args()
+    shards = parse_shards(args.shards) if args.shards else None
+    if shards is not None and args.mesh == "perturbed":
+        raise SystemExit("--shards rides the distributed FDM/transform "
+                         "step programs (box mesh)")
     torch, device, dtype, mesh = setup(args)
 
     from pmg_dolfinx_tpu_torch.fem.assembly import l2_error, lumped_mass_np
@@ -99,9 +106,9 @@ def main():
                 * np.sin(np.pi * x[1]) * np.sin(np.pi * x[2]))
 
     if args.batch:
-        if args.mesh == "perturbed":
+        if args.mesh == "perturbed" or shards is not None:
             raise SystemExit("--batch rides the kron_packed kernels "
-                             "(axis-aligned box only)")
+                             "(axis-aligned box, unsharded)")
         from pmg_dolfinx_tpu_torch.solvers.transient import wave_packed_evolve
 
         B = args.batch
@@ -155,6 +162,22 @@ def main():
                                 device=device)
             evolve = wave_pcg_evolve(hier, mesh, P, dt, gamma=args.gamma,
                                      rtol=args.rtol)
+        elif shards is not None:
+            from pmg_dolfinx_tpu_torch.parallel.transient_dist import (
+                wave_leapfrog_dist_evolve, wave_newmark_dist_evolve)
+
+            if args.scheme == "newmark":
+                print(f"sharded time loop: shards {shards} "
+                      "(distributed FDM step solves, gather-free)")
+                evolve = wave_newmark_dist_evolve(
+                    mesh, P, shards, kappa=kappa, dt=dt, gamma=args.gamma,
+                    dtype=dtype, f=f_src, f_time=f_time, device=device)
+            else:
+                print(f"sharded time loop: shards {shards} "
+                      "(distributed forward transform apply per step)")
+                evolve = wave_leapfrog_dist_evolve(
+                    mesh, P, shards, kappa=kappa, dt=dt, dtype=dtype,
+                    f=f_src, f_time=f_time, device=device)
         elif args.scheme == "newmark":
             evolve = wave_newmark_evolve(mesh, P, kappa=kappa, dt=dt,
                                          gamma=args.gamma, dtype=dtype,

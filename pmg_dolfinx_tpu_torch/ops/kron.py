@@ -137,9 +137,9 @@ def stacked_local_K(Kl, k_a, robin_ends, n_shards):
     npl)`` (float64) for a sharded axis whose global ends carry Robin
     terms: the ``alpha`` updates land on the first shard's ``[0, 0]`` and
     the last shard's ``[-1, -1]``. The device-grid layer reaches it only
-    through `local_axis_K`, which raises for Robin ends (the grid's Robin
-    faces are ROADMAP.md Queue 1 item 10); kept for the JAX package's call
-    shape."""
+    through `local_axis_K`, which raises for Robin ends (the grid's
+    Robin faces are ROADMAP.md Queue 1 item 10 (b)); kept for the JAX
+    package's call shape."""
     out = np.tile(k_a * np.asarray(Kl, np.float64), (int(n_shards), 1))
     out[0, 0] += float(robin_ends[0])
     out[-1, -1] += float(robin_ends[1])
@@ -153,11 +153,11 @@ def local_axis_K(mesh, a, nc_local, Pdeg, k_a, n_shards_a):
     spacing folded in); ``stacked=True``: the per-shard row-stacked ``(S *
     npl, npl)`` form of a sharded GRADED axis (each block assembled from
     its shard's cells). Robin ends raise NotImplementedError (ROADMAP.md
-    Queue 1 item 10)."""
+    Queue 1 item 10 (b))."""
     if robin_axis_ends(mesh, a) != (0.0, 0.0):
         raise NotImplementedError(
             "Robin faces on the device grid are not ported yet (ROADMAP.md "
-            "Queue 1 item 10)")
+            "Queue 1 item 10 (b))")
     h_cells = np.broadcast_to(np.asarray(mesh.h_cells[a], np.float64),
                               (mesh.nc[a],))
     graded = not bool(np.allclose(h_cells, h_cells[0], rtol=1e-12))

@@ -1,2 +1,18 @@
-"""The device-grid layer: the 2D/3D box decomposition of the Kronecker
-family (`grid2d`), with every shard stacked on one device."""
+"""The distributed layer, every shard stacked on one device: the 1D slab
+(`dist.DistPMG`), the 2D/3D box decomposition of the Kronecker family
+(`grid2d.GridPMG`), the gather-free coarse solves (`fdm_dist.DistFDM`,
+`dist.build_hmg_dist`, `grid2d.build_hmg_grid`) and the sharded time
+loops (`transient_dist`). Every collective goes through one seam,
+`grid2d.StackedGrid`."""
+
+from .partition import SlabPartition
+from .dist import DistPMG, build_hmg_dist
+from .grid2d import GridPMG, GridPartition, StackedGrid, build_hmg_grid
+from .fdm_dist import DistFDM
+from .transient_dist import (
+    convdiff_dist_evolve,
+    heat_dist_evolve,
+    semilinear_dist_evolve,
+    wave_leapfrog_dist_evolve,
+    wave_newmark_dist_evolve,
+)

@@ -32,16 +32,19 @@ other design, kernels 1 and 2 once per slab on its contiguous block (what
 
 Ported: `SlabPartition`, the cycle-op factories `dist_cycle_ops`
 (dofmap), `dist_kron_cycle_ops`, `dist_kron_blocked_cycle_ops`,
-`dist_lattice_cycle_ops`, and `DistPMG` with the point-Jacobi, line
+`dist_lattice_cycle_ops`, `build_hmg_dist` (the gather-free h-multigrid
+coarse hierarchy) and `DistPMG` with the point-Jacobi, line
 (``line-y``/``line-z``) and Schwarz smoothers, the ``cg``, ``smoother``
-and gathered ``fdm`` / ``direct`` coarse solves, scalar and per-axis
-kappa, a scalar sigma, `solve`, `solve_pcg`, `solve_refined`,
-`load_state`. JAX's ``pvary`` has no counterpart (ROADMAP.md, "Do not
-port"); ``make_mesh`` neither (no device mesh). Not ported yet, each
-raising NotImplementedError naming its ROADMAP.md item: ``coarse="hmg"``
-and ``coarse_cfg["dist"]`` (`build_hmg_dist`, ``fdm_dist``), sigma
-fields, Robin faces, graded spacing, tensor or per-cell kappa,
-``devices=`` (the multi-process backend, item 10) and
+and gathered ``fdm`` / ``direct`` / ``hmg`` coarse solves, the
+non-gathered ``coarse_cfg["dist"]`` forms (``fdm``: `fdm_dist`'s pencil
+transposes; ``hmg``: `build_hmg_dist`, its bottom gathered or, with
+``bottom="fdm"``, distributed too), scalar and per-axis kappa, a scalar
+sigma, `solve`, `solve_pcg`, `solve_refined`, `load_state`. JAX's
+``pvary`` has no counterpart (ROADMAP.md, "Do not port"); ``make_mesh``
+neither (no device mesh). Not ported yet, each raising
+NotImplementedError naming its ROADMAP.md item: sigma fields, Robin
+faces, graded spacing, tensor or per-cell kappa (item 10 (b)),
+``devices=`` (the multi-process backend, item 10 (d)) and
 ``precision="high"`` (item 1).
 """
 
@@ -81,7 +84,7 @@ def _shifted_diag_np(mesh, Pdeg, kappa_cells, sigma, sigma_field=None):
     return d
 
 
-def _todo(what, item=10):
+def _todo(what, item="10 (b)"):
     return NotImplementedError(
         f"DistPMG: {what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
@@ -323,6 +326,229 @@ def slab_coarse_hooks(part, P0):
     return coarse_gather, coarse_slice
 
 
+def slab_schwarz(swg, part, Pdeg, dtype, device):
+    """The global Schwarz data ``swg`` (`build_schwarz_np`'s arrays, numpy
+    or tensors) in the slab layout: ``Ux`` as per-slab diagonal blocks
+    ``(S, ncl*n, npl)`` (`shard_dense_axis`), ``Uy`` / ``Uz`` whole,
+    ``ginv`` cut cell-contiguously per slab and the marker ``(S, npl, NY,
+    NZ)`` (4D for every backend: the dense apply runs on the slab stack)."""
+    from ..solvers.schwarz import shard_dense_axis
+    from .grid2d import _host
+
+    S = part.n_shards
+    t = lambda a: torch.as_tensor(np.asarray(_host(a)), dtype=dtype,
+                                  device=device)
+    g = t(swg["ginv"])
+    return dict(
+        Ux=t(shard_dense_axis(_host(swg["Ux"]), Pdeg,
+                              *part.axis_starts(Pdeg))
+             ).reshape(S, -1, part.local_planes(Pdeg)),
+        Uy=t(swg["Uy"]), Uz=t(swg["Uz"]),
+        ginv=g.reshape((S, -1) + tuple(g.shape[1:])),
+        bc=torch.as_tensor(part.to_dist(
+            Pdeg, np.asarray(_host(swg["bc"]), np.float64)) > 0.5,
+            device=device).reshape((S,) + part.local_shape(Pdeg)),
+    )
+
+
+def _hmg_sizes(nc, div, sizes, min_cells, what):
+    """The shard-aligned cell counts of a distributed h-hierarchy (finest
+    first): ``sizes`` validated, every level divisible by ``div``; else
+    `coarsenable_levels` under ``div``."""
+    from ..solvers.hmg import coarsenable_levels, validate_hmg_sizes
+
+    if sizes is not None:
+        sizes = validate_hmg_sizes(nc, sizes)
+        for lvl in sizes:
+            if any(c % d for c, d in zip(lvl, div)):
+                raise ValueError(
+                    f"coarse_cfg['sizes'] level {lvl} is not divisible "
+                    f"by {what}; every h-level must split into the same "
+                    "per-shard slabs for the distributed (dist=True) "
+                    "hierarchy"
+                )
+        return sizes
+    return coarsenable_levels(nc, min_cells=min_cells, divisors=div)
+
+
+def _hmg_global(mesh, P0, kappa, dtype, smoother_iters, precision, bottom,
+                min_cells, sigma, sizes, smoother, device):
+    """The global `build_hmg` pass over the distributed hierarchy's level
+    sizes: per-level lmax, diagonals, line / Schwarz data and the bottom
+    factor (the distributed operator is the same, so they carry over).
+    An 'fdm' bottom is the distributed one, attached by the caller."""
+    from ..solvers.hmg import build_hmg
+
+    if bottom not in ("direct", "cg", "smoother", "fdm"):
+        raise ValueError(
+            f"distributed hmg: unsupported bottom '{bottom}' "
+            "(choose from direct, cg, smoother, fdm)"
+        )
+    _, g_data, g_bottom = build_hmg(
+        mesh, P0, kappa, dtype, smoother_iters=smoother_iters,
+        precision=precision,
+        bottom="smoother" if bottom == "fdm" else bottom,
+        min_cells=min_cells, sigma=sigma, sizes=sizes, smoother=smoother,
+        device=device)
+    return g_data, g_bottom
+
+
+def _hmg_box_meshes(mesh, sizes_cf):
+    """The coarse -> fine level meshes of a distributed box h-hierarchy.
+    Graded spacing and Robin faces on the sharded layouts are ROADMAP.md
+    Queue 1 item 10 (b)."""
+    from ..fem.mesh import BoxMesh
+
+    if getattr(mesh, "is_graded", False) or getattr(mesh, "has_robin",
+                                                     False):
+        raise NotImplementedError(
+            "distributed hmg on a graded or Robin-faced mesh is not ported "
+            "yet (ROADMAP.md Queue 1 item 10 (b))")
+    return [mesh if tuple(nc) == tuple(mesh.nc) else
+            BoxMesh(nc, extent=mesh.extent,
+                    dirichlet_faces=mesh.dirichlet_faces)
+            for nc in sizes_cf]
+
+
+def build_hmg_dist(mesh, n_shards, P0, kappa, dtype, smoother_iters=2,
+                   precision="highest", bottom="direct", min_cells=2,
+                   sigma=0.0, divisors=None, sizes=None, smoother="cheb", *,
+                   device):
+    """Distributed (non-gathered) geometric h-multigrid coarse hierarchy
+    on the slab layout, every slab stacked on ``device``.
+
+    Every h-level stays in the duplicated-plane slab layout: coarsening is
+    shard-aligned (each level's x-cells divisible by ``n_shards``, or by
+    ``divisors[0]``, which pins the hierarchy across slab counts), so the
+    level applies are `dist_kron_cycle_ops` (the partial-sum exchange) and
+    the transfers the LOCAL blocks of the per-axis h-interpolation (fine
+    interface planes ownership-weighted, coarse partials reconciled by the
+    exchange, `_slab_transfers`). Only the bottom solve may gather, at the
+    coarsest level; ``bottom="fdm"`` solves it with `fdm_dist` instead, so
+    nothing gathers. Calibration (per-level lmax), diagonals, line blocks,
+    Schwarz data and the bottom factor come from one global `build_hmg`
+    pass over the same level sizes. ``smoother``: 'cheb', 'line-y' /
+    'line-z' (lines along x would span slabs) or 'schwarz'.
+
+    Returns ``(levels, data, specs, bottom_mode, gather, unslice,
+    bottom_solve)``: the `v_cycle` data (vectors ``(S, npl, NY, NZ)``), the
+    grid axes each array is stacked over, the bottom, the coarsest-level
+    gather / slice hooks and, for ``bottom="fdm"``, the distributed bottom
+    solve (``hmg_ops["fdm_dist"]``)."""
+    from ..fem.assembly import resolve_kappa_axes
+    from ..ops.kron import axis_stiffness_mass, local_axis_K
+    from ..solvers.hmg import local_axis_h_interpolation
+    from ..solvers.line import parse_line_smoother, shard_line_blocks
+    from .grid2d import _host
+
+    S = int(n_shards)
+    kax = resolve_kappa_axes(mesh, kappa)
+    schwarz = smoother == "schwarz"
+    line_axis = (None if schwarz
+                 else parse_line_smoother(smoother, mesh, np.diag(kax),
+                                          allowed=(1, 2)))
+    if line_axis == 0:
+        raise ValueError(
+            "distributed (dist=True) h-MG line smoother cannot relax "
+            "along x — the slab axis; use 'line-y'/'line-z'"
+        )
+    div = tuple(divisors) if divisors is not None else (S, 1, 1)
+    if div[0] % S:
+        raise ValueError(
+            f"divisors[0]={div[0]} must be a multiple of n_shards={S}")
+    sizes = _hmg_sizes(mesh.nc, div, sizes, min_cells,
+                       f"divisors={div}")
+    if len(sizes) < 2:
+        raise ValueError(
+            f"mesh nc={mesh.nc} is not h-coarsenable with x-cells "
+            f"divisible by n_shards={S} (divisors={div}); use the "
+            "gathered hmg coarse (coarse_cfg without dist=True) or a "
+            "coarser-friendly mesh size"
+        )
+    meshes = _hmg_box_meshes(mesh, sizes[::-1])
+    g_data, g_bottom = _hmg_global(
+        mesh, P0, kappa, dtype, smoother_iters, precision, bottom,
+        min_cells, sigma, sizes, smoother, device)
+    parts = [SlabPartition(m, S) for m in meshes]
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    SLAB = ("x",)
+
+    levels, level_data, level_specs = [], [], []
+    for m, p_l, g_lv in zip(meshes, parts, g_data["levels"]):
+        npl = p_l.local_planes(P0)
+        shape = (S,) + p_l.local_shape(P0)
+        Kx, _ = local_axis_K(m, 0, p_l.cells_per_shard_x, P0, kax[0], S)
+        Ky, my = axis_stiffness_mass(m.nc[1], P0, m.h_cells[1])
+        Kz, mz = axis_stiffness_mass(m.nc[2], P0, m.h_cells[2])
+        _, mx_g = axis_stiffness_mass(m.nc[0], P0, m.h_cells[0])
+        lv = dict(
+            Kx=t(Kx), Ky=t(kax[1] * Ky), Kz=t(kax[2] * Kz),
+            mx=t(duplicate_planes(mx_g, npl, S)), my=t(my), mz=t(mz),
+            bc_marker=torch.as_tensor(p_l.to_dist(
+                P0, m.boundary_dof_marker(P0)) > 0.5,
+                device=device).reshape(shape),
+            diag_inv=t(p_l.to_dist(P0, _host(g_lv["diag_inv"]).reshape(-1))
+                       ).reshape(shape),
+            weights=t(p_l.ownership_weights(P0)).reshape(shape),
+            lmax=g_lv["lmax"],
+        )
+        spec = dict(Kx=(), Ky=(), Kz=(), mx=SLAB, my=(), mz=(),
+                    bc_marker=SLAB, diag_inv=SLAB, weights=SLAB, lmax=())
+        if line_axis is not None:
+            lv["line_inv"] = t(shard_line_blocks(
+                _host(g_lv["line_inv"]), m.lattice_shape(P0), line_axis,
+                [p_l.axis_starts(P0), None]))
+            spec["line_inv"] = SLAB
+        if schwarz:
+            lv["schwarz"] = slab_schwarz(g_lv["schwarz"], p_l, P0, dtype,
+                                         device)
+            spec["schwarz"] = dict(Ux=SLAB, Uy=(), Uz=(), ginv=SLAB,
+                                   bc=SLAB)
+        levels.append(Level(P=P0, ndofs=p_l.local_ndofs(P0),
+                            smoother_iters=smoother_iters,
+                            shape=p_l.local_shape(P0),
+                            line_axis=(line_axis if line_axis is not None
+                                       else 2)))
+        level_data.append(lv)
+        level_specs.append(spec)
+
+    transfer, transfer_specs = [], []
+    for (mc, pc), (mf, pf) in zip(zip(meshes, parts),
+                                  zip(meshes[1:], parts[1:])):
+        Ix, _ = local_axis_h_interpolation(pc.cells_per_shard_x, P0,
+                                           mf.nc[0] // mc.nc[0], S)
+        Iy, _ = local_axis_h_interpolation(mc.nc[1], P0,
+                                           mf.nc[1] // mc.nc[1], 1)
+        Iz, _ = local_axis_h_interpolation(mc.nc[2], P0,
+                                           mf.nc[2] // mc.nc[2], 1)
+        transfer.append(dict(
+            Ix=t(Ix), Iy=t(Iy), Iz=t(Iz),
+            weights_f=t(pf.ownership_weights(P0)).reshape(
+                (S,) + pf.local_shape(P0))))
+        transfer_specs.append(dict(Ix=(), Iy=(), Iz=(), weights_f=SLAB))
+
+    data = dict(levels=level_data, transfer=transfer)
+    specs = dict(levels=level_specs, transfer=transfer_specs)
+    if "coarse_chol" in g_data:
+        data["coarse_chol"] = g_data["coarse_chol"]
+        specs["coarse_chol"] = ()
+    bottom_solve = None
+    if bottom == "fdm":
+        # The distributed-FDM bottom (parallel/fdm_dist.py): the hierarchy
+        # never gathers.
+        from .fdm_dist import make_fdm_dist
+
+        data["fdm"], specs["fdm"], bottom_solve = make_fdm_dist(
+            meshes[0], P0, parts[0], (("x", S) if S > 1 else None, None,
+                                      None),
+            SLAB, kappa, dtype, precision=precision, sigma=sigma,
+            device=device)
+        g_bottom = "fdm"
+    hmg_gather, hmg_slice = slab_coarse_hooks(parts[0], P0)
+    return (tuple(levels), data, specs, g_bottom, hmg_gather, hmg_slice,
+            bottom_solve)
+
+
 class DistPMG:
     """p-multigrid on a slab-partitioned box mesh, every slab stacked on
     one device (``device``, CUDA unless the caller asks for the CPU).
@@ -333,7 +559,10 @@ class DistPMG:
     default), ``"lattice"`` (plain torch; the general backends keep flat
     vectors), ``"kron"`` (plain torch) or ``"kron_blocked"`` (kernels
     #1-#3, float32; vectors ``(S, npl, NY, NZ)``); ``coarse``: ``"cg"``,
-    ``"smoother"`` and the gathered ``"fdm"`` and ``"direct"``;
+    ``"smoother"``, the gathered ``"fdm"``, ``"direct"`` and ``"hmg"``,
+    and with ``coarse_cfg=dict(dist=True)`` the non-gathered ``"fdm"``
+    (pencil transposes) and ``"hmg"`` (`build_hmg_dist`, constant-kappa
+    boxes);
     ``smoother``: ``"cheb"`` (point Jacobi), ``"line-y"`` / ``"line-z"``
     (``"line"`` resolves to one of them; lines along x would span
     shards) or ``"schwarz"``; ``kappa`` a scalar or per-axis tuple,
@@ -361,7 +590,7 @@ class DistPMG:
         if devices is not None:
             raise _todo("devices= (the multi-process torch.distributed "
                         "backend; the port stacks every slab on one "
-                        "device)")
+                        "device)", "10 (d)")
         n_devices = int(n_devices or 1)
         self.n_shards = n_devices
         self.part = SlabPartition(mesh, n_devices)
@@ -439,12 +668,6 @@ class DistPMG:
                 f"DistPMG: unsupported coarse solver '{coarse}' "
                 "(choose from cg, smoother, fdm, direct, hmg)"
             )
-        if coarse == "hmg":
-            raise _todo("coarse='hmg' (the gathered and build_hmg_dist "
-                        "h-multigrid coarse solves)")
-        if (coarse_cfg or {}).get("dist"):
-            raise _todo("coarse_cfg['dist'] (fdm_dist, the non-gathered "
-                        "coarse solve)")
         self.device = torch.device(device)
         self.dtype = dtype
         self.precision = precision
@@ -464,7 +687,7 @@ class DistPMG:
             ops = dist_lattice_cycle_ops(S, precision, sigma=self._ops_sigma)
         else:
             ops = dist_cycle_ops(S, sigma=self._ops_sigma)
-        if coarse in ("fdm", "direct"):
+        if coarse in ("fdm", "direct", "hmg"):
             gather, unslice = slab_coarse_hooks(self.part, self.degrees[0])
             ops = dict(ops, coarse_gather=gather, coarse_slice=unslice)
         self._ops = ops
@@ -510,6 +733,17 @@ class DistPMG:
                 dense_cholesky(mesh, self.degrees[0], self.kappa_cells,
                                self.sigma),
                 dtype=dtype, device=self.device)
+        elif coarse == "fdm" and self.coarse_cfg.get("dist"):
+            # The non-gathered form: pencil all_to_all transposes on the
+            # sharded x axis (parallel/fdm_dist.py); the gather hooks go
+            # unused on this branch.
+            from .fdm_dist import make_fdm_dist
+
+            self.data["fdm"], _, ops["fdm_dist"] = make_fdm_dist(
+                mesh, self.degrees[0], self.part,
+                (("x", S) if S > 1 else None, None, None), ("x",),
+                self.kappa_axes, dtype, precision=precision,
+                sigma=self.sigma, device=self.device)
         elif coarse == "fdm":
             from ..solvers.fdm import FastDiagonalizationSolver
 
@@ -524,6 +758,62 @@ class DistPMG:
             )
             self.coarse_cfg["fdm_shape"] = mesh.lattice_shape(self.degrees[0])
             self.coarse_cfg["fdm_trims"] = fd.trims
+        elif coarse == "hmg":
+            self._build_hmg(smoother_iters, sigma_field)
+
+    def _build_hmg(self, smoother_iters, sigma_field):
+        """The ``hmg`` coarse solve: with ``coarse_cfg["dist"]`` every
+        h-level in the slab layout (`build_hmg_dist`, constant-kappa boxes);
+        else the gathered global hierarchy solved on the stack (`build_hmg`
+        on boxes, `build_hmg_general` on the general family)."""
+        from ..solvers.pmg import kron_cycle_ops
+
+        mesh, cfg, P0 = self.mesh, self.coarse_cfg, self.degrees[0]
+        kw = dict(smoother_iters=smoother_iters, precision=self.precision,
+                  bottom=cfg.get("bottom", "direct"),
+                  min_cells=cfg.get("min_cells", 2), sigma=self.sigma,
+                  sizes=cfg.get("sizes"), smoother=cfg.get("smoother", "cheb"),
+                  device=self.device)
+        box = (getattr(mesh, "is_axis_aligned", True)
+               and self.kappa_axes is not None and sigma_field is None)
+        if cfg.get("dist"):
+            # Non-gathered: every h-level stays in the slab layout; only
+            # the coarsest bottom solve may gather.
+            if not box:
+                raise ValueError(
+                    "DistPMG coarse_cfg dist=True (distributed hmg) "
+                    "requires a constant-kappa axis-aligned BoxMesh; "
+                    "for the general family use the gathered hmg "
+                    "coarse here, or GridPMG(shards=(n, 1, 1), "
+                    "coarse='hmg', coarse_cfg=dict(dist=True)) — "
+                    "the multi-axis build_hmg_grid_general covers "
+                    "the 1D-slab layout"
+                )
+            (levels, data, _, bottom, gather, unslice,
+             bottom_solve) = build_hmg_dist(
+                mesh, self.n_shards, P0, self.kappa_axes, self.dtype,
+                divisors=cfg.get("divisors"), **kw)
+            hmg_ops = dict(dist_kron_cycle_ops(self.n_shards, self.precision,
+                                               sigma=self.sigma),
+                           coarse_gather=gather, coarse_slice=unslice)
+            if bottom_solve is not None:
+                hmg_ops["fdm_dist"] = bottom_solve
+            cfg.update(hmg_dist=True)
+        elif box:
+            from ..solvers.hmg import build_hmg
+
+            levels, data, bottom = build_hmg(mesh, P0, self.kappa_axes,
+                                             self.dtype, **kw)
+            hmg_ops = kron_cycle_ops(self.precision, sigma=self.sigma)
+        else:
+            from ..solvers.hmg import build_hmg_general
+
+            levels, data, bottom, hmg_ops = build_hmg_general(
+                mesh, P0, self._kappa_raw, self.dtype,
+                sigma_field=sigma_field, **kw)
+        self.data["hmg"] = data
+        cfg.update(hmg_levels=levels, hmg_ops=hmg_ops, hmg_bottom=bottom,
+                   cycles=cfg.get("cycles", 3))
 
     # -- setup -----------------------------------------------------------
 
@@ -661,29 +951,12 @@ class DistPMG:
         return lv
 
     def _slab_schwarz(self, Pdeg):
-        """The global Schwarz data in the slab layout: ``Ux`` as per-slab
-        diagonal blocks ``(S, ncl*n, npl)`` (`shard_dense_axis`), ``Uy`` /
-        ``Uz`` whole, ``ginv`` cut cell-contiguously per slab and the
-        marker in the working layout (4D for both families: the dense
-        apply runs on the ``(S, npl, NY, NZ)`` stack)."""
-        from ..solvers.schwarz import build_schwarz_np, shard_dense_axis
+        """The global Schwarz data in the slab layout (`slab_schwarz`)."""
+        from ..solvers.schwarz import build_schwarz_np
 
-        part, dtype, S = self.part, self.dtype, self.n_shards
         swg = build_schwarz_np(self.mesh, Pdeg, self._kappa_raw,
                                sigma=self.sigma)
-        t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
-                                      device=self.device)
-        g = t(swg["ginv"])
-        shape = (S,) + part.local_shape(Pdeg)
-        return dict(
-            Ux=t(shard_dense_axis(swg["Ux"], Pdeg, *part.axis_starts(Pdeg))
-                 ).reshape(S, -1, part.local_planes(Pdeg)),
-            Uy=t(swg["Uy"]), Uz=t(swg["Uz"]),
-            ginv=g.reshape((S, -1) + tuple(g.shape[1:])),
-            bc=torch.as_tensor(part.to_dist(
-                Pdeg, np.asarray(swg["bc"], np.float64)) > 0.5,
-                device=self.device).reshape(shape),
-        )
+        return slab_schwarz(swg, self.part, Pdeg, self.dtype, self.device)
 
     def _build_transfer(self, Pc, Pf):
         from ..fem.gll import interpolation_matrix_1d
@@ -746,12 +1019,12 @@ class DistPMG:
             _merge_state(self.data["levels"][i], lv, f"levels[{i}]")
         for i, tr in enumerate(data.get("transfer", ())):
             _merge_state(self.data["transfer"][i], tr, f"transfer[{i}]")
-        for key in ("fdm", "coarse_chol"):
+        for key in ("fdm", "hmg", "coarse_chol"):
             if key in data and key in self.data:
-                if key == "fdm":
-                    _merge_state(self.data[key], data[key], key)
-                else:
+                if key == "coarse_chol":
                     _merge_state(self.data, {key: data[key]}, key)
+                else:
+                    _merge_state(self.data[key], data[key], key)
 
     # -- solver API --------------------------------------------------------
 

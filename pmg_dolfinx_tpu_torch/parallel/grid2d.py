@@ -28,20 +28,22 @@ global coarse solve. On the stacked layout each is an exact tensor
 operation on the three leading (shard) axes.
 
 Smoothers: point Jacobi, line relaxation along an unsharded axis (the
-global block inverses laid out like the vectors, `_stacked_line_blocks`)
+global block inverses laid out like the vectors, `stacked_line_blocks`)
 and the cell-wise Schwarz blocks (per-shard dense axis transforms,
-`_stacked_schwarz`, the overlap-add reconciled by the grid exchange).
-Coarse solves: ``cg``, ``smoother`` and the gathered ``fdm`` and
-``direct``.
+`stacked_schwarz`, the overlap-add reconciled by the grid exchange).
+Coarse solves: ``cg``, ``smoother``, the gathered ``fdm``, ``direct``
+and ``hmg``, and the non-gathered ``coarse_cfg["dist"]`` forms: ``fdm``
+through `fdm_dist`'s pencil transposes (`StackedGrid.all_to_all`) and
+``hmg`` through `build_hmg_grid` (every h-level in the stacked layout;
+``bottom="fdm"`` makes it gather-free).
 
-Not ported here (ROADMAP.md Queue 1 item 10 unless named): the lattice,
-lattice_blocked and dofmap grid backends, the ``hmg`` coarse solver and
-``coarse_cfg["dist"]``, `build_hmg_grid(_general)`, sigma fields,
-per-axis, tensor and per-cell kappa, Robin faces and graded spacing,
-``solve_refined``, ``devices`` (the multi-process backend) and
-``precision="high"`` (item 1). Each raises NotImplementedError naming
-its item. The 1D slab (`parallel.dist.DistPMG`) goes through the same
-seam with ``shards=(S, 1, 1)``.
+Not ported here, each raising NotImplementedError naming its ROADMAP.md
+item: the lattice, lattice_blocked and dofmap grid backends and with
+them `build_hmg_grid_general`, sigma fields, per-axis, tensor and
+per-cell kappa, Robin faces and graded spacing, ``solve_refined`` (item
+10 (b)), ``devices`` (the multi-process backend, item 10 (d)) and
+``precision="high"`` (item 1). The 1D slab (`parallel.dist.DistPMG`)
+goes through the same seam with ``shards=(S, 1, 1)``.
 """
 
 import numpy as np
@@ -163,15 +165,17 @@ class StackedGrid:
     is an exact tensor operation on the three leading (shard) axes:
     `ppermute_planes` (the non-wrapping neighbour ``ppermute``), `dot`
     (the ``psum`` of an ownership-weighted dot), `all_gather` (the global
-    lattice, duplicated planes stripped) and `local_slices` (each shard's
-    ``dynamic_slice`` of a global lattice at its ``axis_index``).
+    lattice, duplicated planes stripped), `local_slices` (each shard's
+    ``dynamic_slice`` of a global lattice at its ``axis_index``) and
+    `all_to_all` (the pencil transpose of `fdm_dist`).
 
     This object is the port's one seam for communication. A multi-process
     backend (``torch.distributed``, one rank per shard) holds a ``(1, 1, 1,
     nplx, nply, nplz)`` block per rank and replaces only this object: a
     neighbour send/receive for `ppermute_planes`, an ``all_reduce`` for
     `dot`, an ``all_gather`` for `all_gather`, its own block for
-    `local_slices`. Every caller stays as it is.
+    `local_slices`, an ``all_to_all_single`` for `all_to_all`. Every
+    caller stays as it is.
     """
 
     def __init__(self, shards):
@@ -217,6 +221,49 @@ class StackedGrid:
         blocks = (lat.unfold(0, nx, nx - 1).unfold(1, ny, ny - 1)
                   .unfold(2, nz, nz - 1))
         return blocks.contiguous()
+
+    def all_to_all(self, st, axis, split_axis, concat_axis):
+        """JAX's tiled ``all_to_all(x, axis_name, split_axis, concat_axis,
+        tiled=True)`` over grid axis ``axis`` on the stacked ``st``: every
+        shard cuts its local ``split_axis`` (0-2, a multiple of the shard
+        count ``S`` long) into ``S`` chunks and sends chunk ``j`` to shard
+        ``j`` of its row along ``axis``, which concatenates what it
+        receives along its local ``concat_axis`` in sender order. Swapping
+        the two axes undoes it. Here it is one exact permute-and-reshape
+        copy of the shard axes; a multi-process backend replaces it with
+        ``torch.distributed.all_to_all_single`` over the ranks of that row
+        (the send buffer cut along ``split_axis``, the receive buffer
+        reassembled along ``concat_axis``). Returns a new contiguous
+        tensor."""
+        S = self.shards[axis]
+        if S == 1:
+            return st
+        if split_axis == concat_axis:
+            raise ValueError("all_to_all: split_axis and concat_axis must "
+                             "differ")
+        x = st.movedim(axis, 0)       # (S, o1, o2, n0, n1, n2)
+        L = x.shape[3 + split_axis]
+        if L % S:
+            raise ValueError(f"all_to_all: local axis {split_axis} of length "
+                             f"{L} does not split into {S} chunks")
+        x = x.unflatten(3 + split_axis, (S, L // S))
+        names = ["s", "o1", "o2"]
+        target = ["j", "o1", "o2"]
+        out = list(x.shape[:3])
+        out[0] = S
+        for k in range(3):
+            if k == split_axis:
+                names += ["j", "in"]
+                target += ["in"]
+                out.append(L // S)
+            else:
+                names.append(f"n{k}")
+                target += (["s", f"n{k}"] if k == concat_axis
+                           else [f"n{k}"])
+                n = st.shape[3 + k]
+                out.append(S * n if k == concat_axis else n)
+        y = x.permute([names.index(n) for n in target]).reshape(out)
+        return y.movedim(0, axis).contiguous()
 
 
 def _exchange_axis(lat, grid, dim, inplace=False):
@@ -390,14 +437,242 @@ def grid_coarse_hooks(part, P0):
     return coarse_gather, coarse_slice
 
 
+def _host(a):
+    """A tensor's host numpy copy; numpy passes through."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
+def stacked_line_blocks(blocks, part, Pdeg, axis, dtype, device):
+    """Global line-block inverses ``blocks`` (numpy or a tensor) in the
+    stacked layout: ``(sx, sy, sz, npl_a, npl_b, n, n)`` over the two
+    non-line axes ``a < b`` (the line axis's shard dim is 1), duplicated
+    lines holding identical blocks; `line_precond_apply` reads them in the
+    order of the stacked vector with the line axis moved last."""
+    from ..solvers.line import shard_line_blocks
+
+    others = [a for a in range(3) if a != axis]
+    dup = shard_line_blocks(
+        _host(blocks), part.mesh.lattice_shape(Pdeg), axis,
+        [part._axis_starts(Pdeg, a) for a in others])
+    (s0, s1), (n0, n1) = ((part.shards[a] for a in others),
+                          (part.local_shape(Pdeg)[a] for a in others))
+    n = dup.shape[-1]
+    st = (torch.as_tensor(dup, dtype=dtype, device=device)
+          .reshape(s0, n0, s1, n1, n, n).permute(0, 2, 1, 3, 4, 5))
+    return st.unsqueeze(axis).contiguous()
+
+
+def stacked_schwarz(swg, part, Pdeg, dtype, device):
+    """The global Schwarz data ``swg`` (`build_schwarz_np`'s arrays, numpy
+    or tensors) in the stacked layout: each dense axis transform as
+    per-shard blocks ``(S_a, ncl_a*n, npl_a)`` (`shard_dense_axis`),
+    ``ginv`` cut cell-contiguously per shard and the marker in the
+    duplicated-plane layout."""
+    from ..solvers.schwarz import shard_dense_axis
+
+    sw = {k: torch.as_tensor(
+        shard_dense_axis(_host(swg[k]), Pdeg, *part._axis_starts(Pdeg, a)),
+        dtype=dtype, device=device).reshape(part.shards[a], -1,
+                                            part.local_shape(Pdeg)[a])
+        for a, k in enumerate(("Ux", "Uy", "Uz"))}
+    sw["ginv"] = stack_shards(torch.as_tensor(
+        _host(swg["ginv"]), dtype=dtype, device=device), part.shards)
+    sw["bc"] = stack_shards(torch.as_tensor(part.to_dist(
+        Pdeg, np.asarray(_host(swg["bc"]), np.float64)) > 0.5,
+        device=device), part.shards)
+    return sw
+
+
+def _hmg_grid_scaffold(mesh, shards, P0, dtype, smoother_iters,
+                       min_cells, divisors, global_build, make_mesh,
+                       fill_level, sizes=None, line_axis=None,
+                       bottom_fdm=None, *, device):
+    """The frame of `build_hmg_grid`: divisors validation, shard-aligned
+    level sizes, the global calibration pass (``global_build(sizes) ->
+    (g_data, g_bottom)``), each level's base data (marker, diagonal,
+    weights, lmax, line blocks or Schwarz data) in the stacked layout, the
+    per-axis h-transfers and the bottom-solve hooks. The backend's
+    operator arrays come from ``fill_level(lv, spec, m, p_l, g_lv)``.
+    ``bottom_fdm`` (kwargs of `make_fdm_dist`) makes the bottom the
+    distributed FDM, so the hierarchy never gathers."""
+    from ..solvers.hmg import local_axis_h_interpolation
+    from .dist import _hmg_sizes
+
+    shards = _norm_shards(shards)
+    # The hierarchy's DEPTH depends on the alignment constraint:
+    # ``divisors`` (coarse_cfg['divisors']) pins one constraint across
+    # layouts (the largest of a scaling sweep), so trajectories stay
+    # layout-invariant.
+    div = _norm_shards(divisors) if divisors is not None else shards
+    for a, (d, s_a) in enumerate(zip(div, shards)):
+        if d % s_a:
+            raise ValueError(
+                f"divisors[{a}]={d} must be a multiple of shards[{a}]={s_a} "
+                "(levels divisible by the override stay shard-aligned)"
+            )
+    sizes = _hmg_sizes(mesh.nc, div, sizes, min_cells,
+                       f"the shard grid (divisors={div})")
+    if len(sizes) < 2:
+        raise ValueError(
+            f"mesh nc={mesh.nc} is not h-coarsenable with cells "
+            f"divisible by shards={shards} (divisors={div}); use the "
+            "gathered hmg coarse (coarse_cfg without dist=True) or a "
+            "shard-friendlier mesh"
+        )
+    if line_axis is not None and shards[line_axis] != 1:
+        raise ValueError(
+            f"distributed (dist=True) h-MG line smoother along "
+            f"{'xyz'[line_axis]} needs shards[{line_axis}]==1 (lines "
+            f"must not span shards); got shards={shards}"
+        )
+    meshes = [make_mesh(nc) for nc in sizes[::-1]]
+    g_data, g_bottom = global_build(sizes)
+    parts = [GridPartition(m, shards) for m in meshes]
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    st = lambda dup: stack_shards(t(dup), shards)
+
+    levels, level_data, level_specs = [], [], []
+    for m, p_l, g_lv in zip(meshes, parts, g_data["levels"]):
+        lv = dict(
+            bc_marker=stack_shards(torch.as_tensor(p_l.to_dist(
+                P0, m.boundary_dof_marker(P0)) > 0.5, device=device),
+                shards),
+            diag_inv=st(p_l.to_dist(P0, _host(g_lv["diag_inv"]).reshape(-1))),
+            weights=st(p_l.ownership_weights(P0)),
+            lmax=g_lv["lmax"],
+        )
+        spec = dict(bc_marker=AXES, diag_inv=AXES, weights=AXES, lmax=())
+        if line_axis is not None:
+            lv["line_inv"] = stacked_line_blocks(g_lv["line_inv"], p_l, P0,
+                                                 line_axis, dtype, device)
+            spec["line_inv"] = AXES
+        if "schwarz" in g_lv:
+            lv["schwarz"] = stacked_schwarz(g_lv["schwarz"], p_l, P0, dtype,
+                                            device)
+            spec["schwarz"] = dict(Ux=("x",), Uy=("y",), Uz=("z",),
+                                   ginv=AXES, bc=AXES)
+        fill_level(lv, spec, m, p_l, g_lv)
+        levels.append(Level(P=P0, ndofs=p_l.local_ndofs(P0),
+                            smoother_iters=smoother_iters,
+                            shape=p_l.local_shape(P0),
+                            line_axis=(line_axis if line_axis is not None
+                                       else 2)))
+        level_data.append(lv)
+        level_specs.append(spec)
+
+    transfer, transfer_specs = [], []
+    for (mc, pc), (mf, pf) in zip(zip(meshes, parts),
+                                  zip(meshes[1:], parts[1:])):
+        tr = {"I" + name: t(local_axis_h_interpolation(
+            pc.cells_per_shard[a], P0, mf.nc[a] // mc.nc[a], shards[a])[0])
+            for a, name in enumerate("xyz")}
+        tr["weights_f"] = st(pf.ownership_weights(P0))
+        transfer.append(tr)
+        transfer_specs.append(dict(Ix=(), Iy=(), Iz=(), weights_f=AXES))
+
+    data = dict(levels=level_data, transfer=transfer)
+    specs = dict(levels=level_specs, transfer=transfer_specs)
+    if "coarse_chol" in g_data:
+        data["coarse_chol"] = g_data["coarse_chol"]
+        specs["coarse_chol"] = ()
+    bottom_solve = None
+    if bottom_fdm is not None:
+        # The distributed-FDM bottom: an exact solve at the coarsest
+        # h-level through per-axis pencil transposes, no gather anywhere.
+        from .fdm_dist import make_fdm_dist
+
+        data["fdm"], specs["fdm"], bottom_solve = make_fdm_dist(
+            meshes[0], P0, parts[0],
+            tuple((AXES[a], shards[a]) if shards[a] > 1 else None
+                  for a in range(3)),
+            AXES, dtype=dtype, device=device, **bottom_fdm)
+        g_bottom = "fdm"
+    hmg_gather, hmg_slice = grid_coarse_hooks(parts[0], P0)
+    return (tuple(levels), data, specs, g_bottom, hmg_gather, hmg_slice,
+            bottom_solve)
+
+
+def build_hmg_grid(mesh, shards, P0, kappa, dtype, smoother_iters=2,
+                   precision="highest", bottom="direct", min_cells=2,
+                   sigma=0.0, divisors=None, sizes=None, smoother="cheb", *,
+                   device):
+    """Distributed (non-gathered) h-multigrid coarse hierarchy on the 2D/3D
+    box partition, every shard stacked on ``device``: the multi-axis
+    `parallel.dist.build_hmg_dist`.
+
+    Coarsening is shard-aligned on every sharded axis (each level's cell
+    counts divisible by ``shards``, or by ``divisors``), so each level
+    keeps the stacked duplicated-plane layout: applies are
+    `grid_kron_cycle_ops` (one exchange per sharded axis), transfers the
+    local blocks of the per-axis h-interpolation (`_grid_common_ops`), and
+    only the bottom solve may gather (``bottom="fdm"``: none does).
+    Calibration, diagonals, line / Schwarz data and the bottom factor come
+    from one global `build_hmg` pass over the same level sizes. Returns
+    ``(levels, data, specs, bottom_mode, gather, unslice,
+    bottom_solve)``, as `build_hmg_dist`."""
+    from ..fem.assembly import resolve_kappa_axes
+    from ..ops.kron import axis_stiffness_mass, local_axis_K
+    from ..solvers.line import parse_line_smoother
+    from .dist import _hmg_box_meshes, _hmg_global
+
+    kax = resolve_kappa_axes(mesh, kappa)
+    line_axis = (None if smoother == "schwarz" else parse_line_smoother(
+        smoother, mesh, np.diag(kax),
+        allowed=tuple(a for a, sh in enumerate(_norm_shards(shards))
+                      if sh == 1)))
+
+    def global_build(sizes):
+        return _hmg_global(mesh, P0, kappa, dtype, smoother_iters,
+                           precision, bottom, min_cells, sigma, sizes,
+                           smoother, device)
+
+    def fill_level(lv, spec, m, p_l, g_lv):
+        # Local per-shard stiffness (interface partials reconciled by the
+        # exchange), the global axis mass in the duplicated layout.
+        npls = p_l.local_shape(P0)
+        for a, name in enumerate("xyz"):
+            Kl, _ = local_axis_K(m, a, p_l.cells_per_shard[a], P0, kax[a],
+                                 p_l.shards[a])
+            _, mg = axis_stiffness_mass(m.nc[a], P0, m.h_cells[a])
+            lv["K" + name] = torch.as_tensor(Kl, dtype=dtype, device=device)
+            lv["m" + name] = torch.as_tensor(
+                duplicate_planes(mg, npls[a], p_l.shards[a]), dtype=dtype,
+                device=device)
+            spec["K" + name] = ()
+            spec["m" + name] = (AXES[a],)
+
+    return _hmg_grid_scaffold(
+        mesh, shards, P0, dtype, smoother_iters, min_cells, divisors,
+        global_build,
+        lambda nc: _hmg_box_meshes(mesh, [nc])[0],
+        fill_level, sizes=sizes, line_axis=line_axis,
+        bottom_fdm=(dict(kappa=kappa, precision=precision, sigma=sigma)
+                    if bottom == "fdm" else None),
+        device=device)
+
+
+def build_hmg_grid_general(mesh, shards, P0, kappa, dtype,
+                           smoother_iters=2, precision="highest",
+                           bottom="direct", min_cells=2, sigma=0.0,
+                           divisors=None, sizes=None, smoother="cheb",
+                           sigma_field=None, *, device):
+    """The general family's (curved hexes, DG-0 kappa) distributed
+    h-hierarchy on the grid: it needs the grid's lattice backend, not
+    ported yet (ROADMAP.md Queue 1 item 10 (b))."""
+    raise _todo("build_hmg_grid_general (the grid's lattice backend)",
+                "10 (b)")
+
+
 class GridPMG:
     """p-multigrid over a 2D/3D device grid, every shard stacked on one
     device (``device``, CUDA unless the caller asks for the CPU).
 
     The JAX package's signature: operator backends ``"kron"`` (plain
     torch, any float dtype) and ``"kron_blocked"`` (the CUDA kernels,
-    float32); coarse solvers ``"cg"`` (default), ``"smoother"`` and the
-    gathered ``"fdm"`` and ``"direct"``; smoothers ``"cheb"`` (point
+    float32); coarse solvers ``"cg"`` (default), ``"smoother"``, the
+    gathered ``"fdm"``, ``"direct"`` and ``"hmg"``, and with
+    ``coarse_cfg=dict(dist=True)`` the non-gathered ``"fdm"`` (pencil
+    transposes) and ``"hmg"`` (`build_hmg_grid`); smoothers ``"cheb"`` (point
     Jacobi), ``"line"`` / ``"line-x|y|z"`` (the line axis unsharded) and
     ``"schwarz"`` (any layout); scalar ``kappa`` and ``sigma``. Methods `solve`, `solve_pcg`, `to_dist`,
     `from_dist` and `load_state`; vectors in and out are global flat
@@ -418,7 +693,7 @@ class GridPMG:
         if devices is not None:
             raise _todo("devices= (the multi-process torch.distributed "
                         "backend; the port stacks every shard on one "
-                        "device)", 10)
+                        "device)", "10 (d)")
         if callable(sigma):
             if operator in ("kron", "kron_blocked"):
                 raise ValueError(
@@ -426,12 +701,12 @@ class GridPMG:
                     "— the Kronecker paths carry only a separable scalar "
                     "shift"
                 )
-            raise _todo("a sigma field", 10)
+            raise _todo("a sigma field", "10 (b)")
         self.sigma = float(sigma)
         if getattr(mesh, "has_robin", False):
-            raise _todo("Robin faces", 10)
+            raise _todo("Robin faces", "10 (b)")
         if getattr(mesh, "is_graded", False):
-            raise _todo("graded spacing", 10)
+            raise _todo("graded spacing", "10 (b)")
         if (not any(any(f) for f in getattr(mesh, "dirichlet_faces",
                                             ((True, True),) * 3))
                 and self.sigma == 0.0):
@@ -463,7 +738,7 @@ class GridPMG:
                 "'lattice_blocked' or 'dofmap')"
             )
         if operator not in ("kron", "kron_blocked"):
-            raise _todo(f"operator={operator!r}", 10)
+            raise _todo(f"operator={operator!r}", "10 (b)")
         require_axis_aligned(mesh, f"GridPMG operator='{operator}'")
         if operator == "kron_blocked" and dtype != torch.float32:
             raise ValueError(
@@ -475,11 +750,6 @@ class GridPMG:
                 f"GridPMG: unsupported coarse solver '{coarse}' "
                 "(choose from cg, smoother, fdm, direct, hmg)"
             )
-        if coarse == "hmg":
-            raise _todo("coarse='hmg'", "10")
-        if (coarse_cfg or {}).get("dist"):
-            raise _todo("coarse_cfg['dist'] (the non-gathered coarse solve)",
-                        10)
         if precision == "high":
             raise _todo("precision='high' (bf16x3 products)", 1)
         if precision != "highest":
@@ -487,7 +757,7 @@ class GridPMG:
                 f"precision must be 'highest' or 'high', got {precision!r}")
         kc, kt, const = resolve_kappa_split(mesh, kappa)
         if kt is not None or not const:
-            raise _todo("a per-axis, tensor or per-cell kappa", 10)
+            raise _todo("a per-axis, tensor or per-cell kappa", "10 (b)")
         self.kappa_axes = resolve_kappa_axes(mesh, kappa,
                                              split=(kc, kt, const))
         self._kappa_cells = kc
@@ -508,7 +778,7 @@ class GridPMG:
                                               sigma=self.sigma)
         else:
             ops = grid_kron_cycle_ops(shards, precision, sigma=self.sigma)
-        if coarse in ("fdm", "direct"):
+        if coarse in ("fdm", "direct", "hmg"):
             coarse_gather, coarse_slice = grid_coarse_hooks(
                 self.part, self.degrees[0])
             ops = dict(ops, coarse_gather=coarse_gather,
@@ -564,6 +834,19 @@ class GridPMG:
             self.data["coarse_chol"] = torch.as_tensor(
                 dense_cholesky(mesh, self.degrees[0], self.kappa, self.sigma),
                 dtype=dtype, device=self.device)
+        elif coarse == "fdm" and self.coarse_cfg.get("dist"):
+            # The non-gathered form: pencil all_to_all transposes per
+            # sharded axis (parallel/fdm_dist.py); the gather hooks go
+            # unused on this branch.
+            from .fdm_dist import make_fdm_dist
+
+            self.data["fdm"], _, ops["fdm_dist"] = make_fdm_dist(
+                mesh, self.degrees[0], self.part,
+                tuple((AXES[a], shards[a]) if shards[a] > 1 else None
+                      for a in range(3)), AXES, self.kappa_axes, dtype,
+                precision=precision, sigma=self.sigma, device=self.device)
+        elif coarse == "hmg":
+            self._build_hmg(smoother_iters)
         elif coarse == "fdm":
             from ..solvers.fdm import FastDiagonalizationSolver
 
@@ -578,6 +861,38 @@ class GridPMG:
             )
             self.coarse_cfg["fdm_shape"] = mesh.lattice_shape(self.degrees[0])
             self.coarse_cfg["fdm_trims"] = fd.trims
+
+    def _build_hmg(self, smoother_iters):
+        """The ``hmg`` coarse solve: with ``coarse_cfg["dist"]`` every
+        h-level in the stacked layout (`build_hmg_grid`); else the gathered
+        global `build_hmg` hierarchy, solved once on the stack."""
+        from ..solvers.hmg import build_hmg
+        from ..solvers.pmg import kron_cycle_ops
+
+        cfg, P0 = self.coarse_cfg, self.degrees[0]
+        kw = dict(smoother_iters=smoother_iters, precision=self.precision,
+                  bottom=cfg.get("bottom", "direct"),
+                  min_cells=cfg.get("min_cells", 2), sigma=self.sigma,
+                  sizes=cfg.get("sizes"), smoother=cfg.get("smoother", "cheb"),
+                  device=self.device)
+        if cfg.get("dist"):
+            (levels, data, _, bottom, gather, unslice,
+             bottom_solve) = build_hmg_grid(
+                self.mesh, self.shards, P0, self.kappa_axes, self.dtype,
+                divisors=cfg.get("divisors"), **kw)
+            hmg_ops = dict(grid_kron_cycle_ops(self.shards, self.precision,
+                                               sigma=self.sigma),
+                           coarse_gather=gather, coarse_slice=unslice)
+            if bottom_solve is not None:
+                hmg_ops["fdm_dist"] = bottom_solve
+            cfg.update(hmg_dist=True)
+        else:
+            levels, data, bottom = build_hmg(self.mesh, P0, self.kappa_axes,
+                                             self.dtype, **kw)
+            hmg_ops = kron_cycle_ops(self.precision, sigma=self.sigma)
+        self.data["hmg"] = data
+        cfg.update(hmg_levels=levels, hmg_ops=hmg_ops, hmg_bottom=bottom,
+                   cycles=cfg.get("cycles", 3))
 
     def _stacked(self, dup, dtype=None):
         """A host array in JAX's duplicated layout -> the stacked layout
@@ -641,46 +956,22 @@ class GridPMG:
         return lv
 
     def _stacked_line_blocks(self, Pdeg):
-        """The global line-block inverses in the stacked layout: ``(sx, sy,
-        sz, npl_a, npl_b, n, n)`` over the two non-line axes ``a < b`` (the
-        line axis's shard dim is 1), duplicated lines holding identical
-        blocks; `line_precond_apply` reads them in the order of the
-        stacked vector with the line axis moved last."""
-        from ..solvers.line import line_block_inverses, shard_line_blocks
+        """The global line-block inverses in the stacked layout
+        (`stacked_line_blocks`)."""
+        from ..solvers.line import line_block_inverses
 
-        part, axis = self.part, self._line_axis
-        others = [a for a in range(3) if a != axis]
-        dup = shard_line_blocks(
-            line_block_inverses(self.mesh, Pdeg, self.kappa, axis,
+        return stacked_line_blocks(
+            line_block_inverses(self.mesh, Pdeg, self.kappa, self._line_axis,
                                 sigma=self.sigma),
-            self.mesh.lattice_shape(Pdeg), axis,
-            [part._axis_starts(Pdeg, a) for a in others])
-        (s0, s1), (n0, n1) = ((self.shards[a] for a in others),
-                              (part.local_shape(Pdeg)[a] for a in others))
-        n = dup.shape[-1]
-        st = (torch.as_tensor(dup, dtype=self.dtype, device=self.device)
-              .reshape(s0, n0, s1, n1, n, n).permute(0, 2, 1, 3, 4, 5))
-        return st.unsqueeze(axis).contiguous()
+            self.part, Pdeg, self._line_axis, self.dtype, self.device)
 
     def _stacked_schwarz(self, Pdeg):
-        """The global Schwarz data in the stacked layout: each dense axis
-        transform as per-shard blocks ``(S_a, ncl_a*n, npl_a)``
-        (`shard_dense_axis`), ``ginv`` cut cell-contiguously per shard and
-        the marker in the duplicated-plane layout."""
-        from ..solvers.schwarz import build_schwarz_np, shard_dense_axis
+        """The global Schwarz data in the stacked layout
+        (`stacked_schwarz`)."""
+        from ..solvers.schwarz import build_schwarz_np
 
-        part, dtype = self.part, self.dtype
         swg = build_schwarz_np(self.mesh, Pdeg, self.kappa, sigma=self.sigma)
-        sw = {k: torch.as_tensor(
-            shard_dense_axis(swg[k], Pdeg, *part._axis_starts(Pdeg, a)),
-            dtype=dtype, device=self.device).reshape(self.shards[a], -1,
-                                                     part.local_shape(Pdeg)[a])
-            for a, k in enumerate(("Ux", "Uy", "Uz"))}
-        sw["ginv"] = stack_shards(torch.as_tensor(
-            swg["ginv"], dtype=dtype, device=self.device), self.shards)
-        sw["bc"] = self._stacked(part.to_dist(
-            Pdeg, np.asarray(swg["bc"], np.float64)) > 0.5)
-        return sw
+        return stacked_schwarz(swg, self.part, Pdeg, self.dtype, self.device)
 
     # -- API -------------------------------------------------------------
 
@@ -721,8 +1012,9 @@ class GridPMG:
                 mine["kb_blocks"] = shard_blocks(mine["kb_mats"])
         for i, tr in enumerate(data.get("transfer", ())):
             _merge_state(self.data["transfer"][i], tr, f"transfer[{i}]")
-        if "fdm" in data and "fdm" in self.data:
-            _merge_state(self.data["fdm"], data["fdm"], "fdm")
+        for key in ("fdm", "hmg"):
+            if key in data and key in self.data:
+                _merge_state(self.data[key], data[key], key)
 
     def _vcycle(self, b, u):
         return v_cycle(self.data, b, u, levels=self.levels,
@@ -783,4 +1075,4 @@ class GridPMG:
         return self.from_dist(u), int(info["niter"])
 
     def solve_refined(self, *args, **kwargs):
-        raise _todo("solve_refined on the device grid", 10)
+        raise _todo("solve_refined on the device grid", "10 (b)")

@@ -426,7 +426,10 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
     cycle index: 1 = V-cycle (default), 2 = W-cycle; ``coarse="hmg"``
     reads its nested hierarchy from ``coarse_cfg`` (``hmg_levels``,
     ``hmg_ops``, ``hmg_bottom``, ``hmg_gamma``, ``cycles``: 2 unless set,
-    `PMGHierarchy` sets 3) and ``data["hmg"]``; ``coarse="amg"`` reads
+    `PMGHierarchy` sets 3; ``hmg_dist``: the h-levels already in the
+    sharded layout, no gather) and ``data["hmg"]``; ``coarse="fdm"`` with
+    ``ops["fdm_dist"]`` solves through that hook (`parallel.fdm_dist`)
+    instead of the gathered `fdm_solve`; ``coarse="amg"`` reads
     ``coarse_cfg["amg_meta"]`` and ``cycles`` (2 unless set, `PMGHierarchy`
     sets 3, as in the JAX package) and ``data["amg"]``.
     """
@@ -511,15 +514,20 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
             dot=lambda u, v: dot(u, v, lvs[0]),
         )
     elif coarse == "fdm":
-        from .fdm import fdm_solve
-
         fd = data["fdm"]
-        u0 = unslice(fdm_solve(
-            gather(b0), (fd["Vx"], fd["Vy"], fd["Vz"]),
-            (fd["Vxt"], fd["Vyt"], fd["Vzt"]), fd["dinv"],
-            fd["bc_global"], coarse_cfg["fdm_shape"],
-            trims=coarse_cfg.get("fdm_trims", ((1, 1),) * 3),
-        ))
+        if "fdm_dist" in ops:
+            # Distributed form (parallel/fdm_dist.py): pencil all_to_all
+            # transposes on the sharded axes, never a gather.
+            u0 = ops["fdm_dist"](fd, b0)
+        else:
+            from .fdm import fdm_solve
+
+            u0 = unslice(fdm_solve(
+                gather(b0), (fd["Vx"], fd["Vy"], fd["Vz"]),
+                (fd["Vxt"], fd["Vyt"], fd["Vzt"]), fd["dinv"],
+                fd["bc_global"], coarse_cfg["fdm_shape"],
+                trims=coarse_cfg.get("fdm_trims", ((1, 1),) * 3),
+            ))
     elif coarse == "direct":
         # Dense Cholesky factor from setup; the triangular solves take the
         # coarse vector flat (the coarse level is small).
@@ -535,6 +543,12 @@ def v_cycle(data, b_in, u_in, *, levels, coarse="smoother", coarse_cfg=None,
         # to the h-levels' layout (lattice-shaped kron, flat lattice).
         hmg_ops = coarse_cfg.get("hmg_ops", ops)
         hmg_levels = coarse_cfg["hmg_levels"]
+        if coarse_cfg.get("hmg_dist"):
+            # Non-gathered h-hierarchy (parallel.dist.build_hmg_dist,
+            # parallel.grid2d.build_hmg_grid): the p-coarse rhs is already
+            # in the finest h-level's sharded layout; only the bottom solve
+            # may gather, through the hooks in hmg_ops itself.
+            gather = unslice = lambda v: v
         u0g = hmg_ops["zeros"](hmg_levels[-1], b_in)
         b0g_raw = gather(b0)
         b0g = b0g_raw.reshape(u0g.shape)

@@ -32,8 +32,8 @@ is the explicit advection's CFL estimate.
 Kappa is a scalar, a per-axis tuple or a constant diagonal tensor on the
 FDM and serving paths (`_half_kappa` halves each for CN); graded spacing,
 mixed Dirichlet/Neumann faces and Robin ends ride the per-axis factors of
-every box evolver. Not ported: the sharded `semilinear_dist_evolve` and
-`convdiff_dist_evolve` (ROADMAP.md Queue 1 item 10).
+every box evolver. Their sharded counterparts, one distributed FDM
+solve per step, are `parallel.transient_dist`.
 """
 
 import numpy as np

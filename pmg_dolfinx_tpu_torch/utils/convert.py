@@ -28,7 +28,9 @@ numpy copy of the JAX `GridPMG.data` into the data of the port's
 
 `dist_data_from_numpy` does the same for the 1D slab: it turns a numpy
 copy of the JAX `DistPMG.data` into the data of the port's
-`parallel.dist.DistPMG`.
+`parallel.dist.DistPMG`. Both carry the ``hmg`` coarse data (gathered or
+distributed levels, transfers, bottom factor) and the distributed FDM
+bundle, laid out as the port's own arrays.
 
 `packed_state_from_numpy` does the same for the serving classes of
 `ops.kron_packed`: it undoes the JAX lane packing of their factors.
@@ -125,7 +127,45 @@ def grid_data_from_numpy(tree, grid, device, dtype):
     }
     if "fdm" in tree:
         out["fdm"] = _convert(tree["fdm"], device, dtype)
+        if "bc" in out["fdm"]:   # the distributed FDM: dinv, bc stacked
+            for k in ("dinv", "bc"):
+                out["fdm"][k] = stack_shards(out["fdm"][k], shards)
+    if "hmg" in tree:
+        mine = getattr(grid, "data", {}).get("hmg")
+        out["hmg"] = _like(_convert(tree["hmg"], device, dtype), mine,
+                           lambda t: stack_shards(t, shards))
     return out
+
+
+def _like(tree, ref, stack):
+    """A converted JAX tree laid out as the port's ``ref`` tree: a leaf
+    whose shape differs is the port's stacked layout of the JAX array
+    (``stack``, on a grid, for lattices in JAX's duplicated layout; a
+    grid's line blocks re-stacked; else, as on the slab, a reshape of the
+    same memory order)."""
+    if isinstance(tree, dict):
+        return {k: _like(v, None if ref is None else ref.get(k), stack)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_like(v, None if ref is None else ref[i], stack)
+                for i, v in enumerate(tree)]
+    if ref is None or tuple(tree.shape) == tuple(ref.shape):
+        return tree
+    if tree.dim() == 3 and ref.dim() == 6 and stack is not None:
+        return stack(tree)
+    if tree.dim() == 4 and ref.dim() == 7:   # a grid's line blocks
+        s0, s1 = (s for i, s in enumerate(ref.shape[:3])
+                  if i != _unit_axis(ref.shape[:3]))
+        n0, n1, n = ref.shape[3], ref.shape[4], ref.shape[-1]
+        st = tree.reshape(s0, n0, s1, n1, n, n).permute(0, 2, 1, 3, 4, 5)
+        return st.unsqueeze(_unit_axis(ref.shape[:3])).contiguous()
+    return tree.reshape(ref.shape)
+
+
+def _unit_axis(shards):
+    """The line axis of a grid's line blocks: a shard axis of size 1 (the
+    last one; any unit axis gives the same layout)."""
+    return max(a for a in range(3) if shards[a] == 1)
 
 
 # The vectors of a JAX DistPMG level or transfer, in its duplicated slab
@@ -184,6 +224,13 @@ def dist_data_from_numpy(tree, dist, device, dtype):
     for key in ("fdm", "coarse_chol"):
         if key in tree:
             out[key] = _convert(tree[key], device, dtype)
+    if "hmg" in tree or "bc" in tree.get("fdm", {}):
+        # The hmg data and the distributed FDM bundle: each array laid out
+        # as the port's own (slab stacks reshape, same memory order).
+        for key in ("fdm", "hmg"):
+            if key in tree:
+                out[key] = _like(_convert(tree[key], device, dtype),
+                                 dist.data.get(key), None)
     return out
 
 

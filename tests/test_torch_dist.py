@@ -18,8 +18,10 @@ CPU devices.
 - the stacked ``kron_blocked`` launch design equals the per-slab plain
   versions, and `_exchange_partials` equals its definition;
 - every refusal: ``NotImplementedError`` naming ROADMAP.md item 10 for
-  ``coarse="hmg"``, ``coarse_cfg["dist"]``, a sigma field, Robin faces,
-  graded spacing, a tensor or per-cell kappa and ``devices=``; item 1
+  the distributed hmg on a graded mesh and the distributed layout's
+  ``devices=`` (the ids of the ``coarse="hmg"`` and ``coarse_cfg["dist"]``
+  cases, ported since), a sigma field, Robin faces, graded spacing, a
+  tensor or per-cell kappa and ``devices=``; item 1
   for ``precision="high"``; JAX's ValueErrors for ``line-x``, an unknown
   backend, f64 ``kron_blocked`` and a slab count that does not divide.
 
@@ -149,9 +151,26 @@ def test_exchange_partials_adds_the_neighbour_planes():
     assert torch.equal(lat, ref)
 
 
+def _graded_hmg_dist():
+    from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
+
+    mesh = TBox((4, 4, 4), spacing=(geometric_spacing(4, 4.0), None, None))
+    td.build_hmg_dist(mesh, 2, 1, 2.0, torch.float64, device="cpu")
+
+
+def _dist_layout_devices():
+    from pmg_dolfinx_tpu_torch.parallel.fdm_dist import dist_layout
+
+    dist_layout(TBox((4, 4, 4)), 2, devices=["cpu"])
+
+
+# The first two cases were DistPMG's coarse="hmg" and coarse_cfg["dist"]
+# until item 10 (a) ported them; their ids stay, on the parts of the same
+# layer still refused: the distributed hmg on a graded mesh (item 10 (b))
+# and the distributed layout's devices= (item 10 (d)).
 _TODO = [
-    (dict(coarse="hmg"), "hmg"),
-    (dict(coarse="fdm", coarse_cfg=dict(dist=True)), "dist"),
+    (_graded_hmg_dist, "hmg"),
+    (_dist_layout_devices, "dist"),
     (dict(sigma=lambda x: 1.0 + x[0]), "sigma field"),
     (dict(kappa=np.eye(3) * 2.0), "tensor or per-cell kappa"),
     (dict(kappa=np.linspace(1.0, 2.0, 64)), "tensor or per-cell kappa"),
@@ -162,7 +181,10 @@ _TODO = [
 @pytest.mark.parametrize("kw,what", _TODO)
 def test_unported_options_raise_naming_item_10(kw, what):
     with pytest.raises(NotImplementedError, match="item 10") as err:
-        td.DistPMG(TBox((4, 4, 4)), n_devices=2, device="cpu", **kw)
+        if callable(kw):
+            kw()
+        else:
+            td.DistPMG(TBox((4, 4, 4)), n_devices=2, device="cpu", **kw)
     assert what in str(err.value)
 
 

@@ -1,9 +1,12 @@
-"""The slab layer's ``kron_blocked`` apply on an NVIDIA GPU
-(`parallel.dist.dist_kron_blocked_cycle_ops`: kernels #1-#3 with the x
-exchange between kernel 1 and kernel 2), against the per-slab plain
-versions. Every test here carries the ``cuda`` marker and skips without
-a card; the module imports no JAX (the card has none), so it runs there
-with ``python -m pytest --noconftest -m cuda tests/test_torch_dist_cuda.py``.
+"""The slab layer on an NVIDIA GPU, against the plain versions: the
+``kron_blocked`` apply (`parallel.dist.dist_kron_blocked_cycle_ops`:
+kernels #1-#3 with the x exchange between kernel 1 and kernel 2) against
+the per-slab plain versions, and the gather-free coarse family (`DistFDM`,
+the slab's ``fdm`` with ``dist=True`` and the gather-free ``hmg``) against
+the same solve or cycle run on the CPU. Every test here carries the
+``cuda`` marker and skips without a card; the module imports no JAX (the
+card has none), so it runs there with ``python -m pytest --noconftest -m
+cuda tests/test_torch_dist_cuda.py``.
 """
 
 import numpy as np
@@ -101,3 +104,43 @@ def test_cuda_slab_solve_matches_plain_on_the_card(cuda_device):
     finally:
         dist._ops = kernels
     assert _rel_max(v, v_plain) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [6, (2, 2, 2)])
+def test_cuda_dist_fdm_matches_the_cpu_run(cuda_device, shards):
+    """`DistFDM` on the card (the pencil transposes of
+    `StackedGrid.all_to_all` on CUDA tensors) equals the same solve on the
+    CPU, f32, to 1e-5 relative max-norm."""
+    from pmg_dolfinx_tpu_torch.parallel.fdm_dist import DistFDM
+
+    mesh = BoxMesh((12, 6, 10))
+    b = np.random.default_rng(8).standard_normal(mesh.num_dofs(3))
+    kw = dict(kappa=2.0, dtype=torch.float32, sigma=0.5)
+    u = DistFDM(mesh, 3, shards, device=cuda_device, **kw).solve(b)
+    u_cpu = DistFDM(mesh, 3, shards, device="cpu", **kw).solve(b)
+    assert _rel_max(u.cpu(), u_cpu) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coarse,cfg,S", [
+    ("fdm", dict(dist=True), 6), ("hmg", dict(dist=True, bottom="fdm"), 7)])
+def test_cuda_gather_free_slab_cycle_matches_the_cpu_run(cuda_device, coarse,
+                                                         cfg, S):
+    """The slab's p-coarse ``fdm`` with ``dist=True`` and the gather-free
+    ``hmg`` on ``kron_blocked`` (kernels #1-#3 on the card): one V-cycle on
+    the card equals the same cycle of the CPU hierarchy (the kernels' plain
+    versions) on the card's calibrated state, to 1e-5."""
+    mesh = BoxMesh((S * 2, 6, 6))
+    kw = dict(n_devices=S, degrees=(1, 3), dtype=torch.float32,
+              operator="kron_blocked", coarse=coarse)
+    card = DistPMG(mesh, coarse_cfg=dict(cfg), device=cuda_device, **kw)
+    cpu = DistPMG(mesh, coarse_cfg=dict(cfg), device="cpu", **kw)
+    cpu.load_state({"levels": [{"lmax": lv["lmax"]}
+                               for lv in card.data["levels"]]})
+    rng = np.random.default_rng(9)
+    n = mesh.num_dofs(3)
+    b, u = rng.standard_normal(n), rng.standard_normal(n)
+    v = card.from_dist(card.apply(card.to_dist(b), card.to_dist(u)))
+    v_cpu = cpu.from_dist(cpu.apply(cpu.to_dist(b), cpu.to_dist(u)))
+    assert _rel_max(v.cpu(), v_cpu) <= 1e-5

@@ -285,3 +285,175 @@ def test_scaling_torch_slab_matches_jax_driver(operator, coarse):
     rel_t = [r["rel_resid"] for r in out_t["rows"]]
     np.testing.assert_allclose(rel_t, rel_j, rtol=2e-3)  # printed to 4 digits
     assert j.count("invariant vs 1 device: True") == 2
+
+
+# -- the hmg coarse solve on the slab and the grid ----------------------------
+#
+# name: (layout, mesh kind, cells, shards, DistPMG/GridPMG keywords). Each
+# case: five cycles' residuals equal JAX's to rtol 1e-10 (its p-level lmax
+# from each package's own calibration), the solutions to 1e-10, and one
+# V-cycle on JAX's loaded state (`load_state`, the ``hmg`` data included)
+# to 1e-12.
+_HMG = {
+    "slab-gathered-box": ("slab", "box", (8, 4, 4), 4,
+                          dict(operator="kron")),
+    "slab-gathered-general": ("slab", "curved", (8, 4, 4), 2,
+                              dict(operator="dofmap")),
+    "slab-dist-direct-cheb": ("slab", "box", (8, 4, 4), 4,
+                              dict(operator="kron",
+                                   coarse_cfg=dict(dist=True))),
+    "slab-dist-fdm-cheb-sigma": ("slab", "box", (8, 4, 4), 4,
+                                 dict(operator="kron", sigma=37.0,
+                                      coarse_cfg=dict(dist=True,
+                                                      bottom="fdm"))),
+    "slab-dist-fdm-liney": ("slab", "box", (8, 4, 4), 4,
+                            dict(operator="kron",
+                                 coarse_cfg=dict(dist=True, bottom="fdm",
+                                                 smoother="line-y"))),
+    "slab-dist-direct-schwarz-dofmap": ("slab", "box", (8, 4, 4), 2,
+                                        dict(operator="dofmap",
+                                             coarse_cfg=dict(
+                                                 dist=True,
+                                                 smoother="schwarz"))),
+    "grid-gathered": ("grid", "box", (8, 4, 4), (2, 2, 1), {}),
+    "grid-dist-direct-222": ("grid", "box", (4, 8, 4), (2, 2, 2),
+                             dict(coarse_cfg=dict(dist=True))),
+    "grid-dist-fdm-24-sigma": ("grid", "box", (4, 8, 4), (2, 4),
+                               dict(sigma=37.0,
+                                    coarse_cfg=dict(dist=True,
+                                                    bottom="fdm"))),
+    "grid-dist-fdm-schwarz-122": ("grid", "box", (8, 8, 4), (1, 2, 2),
+                                  dict(coarse_cfg=dict(dist=True,
+                                                       bottom="fdm",
+                                                       smoother="schwarz"))),
+    "grid-dist-direct-linez-221": ("grid", "box", (8, 4, 4), (2, 2, 1),
+                                   dict(coarse_cfg=dict(dist=True,
+                                                        smoother="line-z"))),
+}
+_HMG_BUILT = {}
+
+
+def _hmg_pair(name):
+    """(JAX hierarchy, port hierarchy, seeded rhs), built once."""
+    if name not in _HMG_BUILT:
+        from pmg_dolfinx_tpu.parallel import grid2d as jg
+
+        layout, kind, nc, lay, kw = _HMG[name]
+        mj, mt = ((JBox(nc), TBox(nc)) if kind == "box"
+                  else (JPert(nc), TPert(nc)))
+        kw = dict(kw, degrees=(1, 3), kappa=KAPPA, coarse="hmg")
+        cfg = kw.pop("coarse_cfg", {})
+        J, T = ((jd.DistPMG, td.DistPMG) if layout == "slab"
+                else (jg.GridPMG, GridPMG))
+        j = J(mj, lay, coarse_cfg=dict(cfg), **kw)
+        t = T(mt, lay, coarse_cfg=dict(cfg), device="cpu", **kw)
+        b = np.random.default_rng(len(_HMG_BUILT)).standard_normal(
+            mt.num_dofs(3))
+        b[mt.boundary_dof_marker(3)] = 0.0
+        _HMG_BUILT[name] = (j, t, b)
+    return _HMG_BUILT[name]
+
+
+@pytest.mark.parametrize("name", list(_HMG))
+def test_hmg_coarse_trajectory_matches_jax(name):
+    j, t, b = _hmg_pair(name)
+    assert bool(t.coarse_cfg.get("hmg_dist")) == bool(
+        j.coarse_cfg.get("hmg_dist"))
+    assert [lv.shape for lv in t.coarse_cfg["hmg_levels"]] == [
+        lv.shape for lv in j.coarse_cfg["hmg_levels"]]
+    assert t.coarse_cfg["hmg_bottom"] == j.coarse_cfg["hmg_bottom"]
+    uj, rj = j.solve(b, num_cycles=5)
+    ut, rt = t.solve(b, num_cycles=5)
+    np.testing.assert_allclose(rt, rj, rtol=1e-10)
+    assert _rel(ut, np.asarray(uj).reshape(-1)) <= 1e-10
+
+
+@pytest.mark.parametrize("name", list(_HMG))
+def test_hmg_vcycle_on_jax_state(name):
+    import jax
+
+    from pmg_dolfinx_tpu_torch.utils.convert import (
+        dist_data_from_numpy,
+        grid_data_from_numpy,
+    )
+
+    j, t, b = _hmg_pair(name)
+    conv = (dist_data_from_numpy if isinstance(t, td.DistPMG)
+            else grid_data_from_numpy)
+    t.load_state(conv(jax.tree.map(np.asarray, j.data), t, "cpu",
+                      torch.float64))
+    x = np.random.default_rng(5).standard_normal(b.size)
+    if isinstance(t, td.DistPMG):
+        vj = j.from_dist(j.apply(j.to_dist(b), j.to_dist(x)))
+    else:
+        vj = j.from_dist(j._vcycle(j.data, j.to_dist(b), j.to_dist(x)))
+    vt = t.from_dist(t.apply(t.to_dist(b), t.to_dist(x)))
+    assert _rel(vt, np.asarray(vj).reshape(-1)) <= 1e-12
+
+
+def test_dist_hmg_matches_single_device_hmg():
+    """The gather-free slab hierarchy (``dist=True, bottom="fdm"``) on the
+    JAX test's mesh, whose shard-aligned h-levels are the single-device
+    ones: the trajectory equals the port's single-device hmg coarse."""
+    mesh = TBox((8, 4, 4))
+    b = assemble_rhs(mesh, 3, lambda x: np.sin(np.pi * x[0]))
+    single = PMGHierarchy(mesh, degrees=(1, 3), kappa=KAPPA, coarse="hmg",
+                          operator="kron", dtype=torch.float64, device="cpu")
+    _, rs = single.solve(b, num_cycles=5)
+    dist = td.DistPMG(mesh, n_devices=4, degrees=(1, 3), kappa=KAPPA,
+                      coarse="hmg", coarse_cfg=dict(dist=True, bottom="fdm"),
+                      operator="kron", device="cpu")
+    _, rd = dist.solve(b, num_cycles=5)
+    np.testing.assert_allclose(rd, rs, rtol=1e-9)
+
+
+def test_hmg_dist_refuses_what_jax_refuses():
+    from pmg_dolfinx_tpu.parallel import grid2d as jg
+    from pmg_dolfinx_tpu_torch.parallel import grid2d as tg
+
+    with pytest.raises(ValueError, match="not h-coarsenable"):
+        td.build_hmg_dist(TBox((8, 4, 4)), 8, 1, 2.0, torch.float64,
+                          device="cpu")
+    with pytest.raises(ValueError, match="not h-coarsenable"):
+        jd.build_hmg_dist(JBox((8, 4, 4)), 8, 1, 2.0, np.float64)
+    with pytest.raises(ValueError, match="not h-coarsenable"):
+        tg.build_hmg_grid(TBox((4, 4, 4)), (4, 1, 1), 1, 2.0, torch.float64,
+                          device="cpu")
+    with pytest.raises(ValueError, match="not h-coarsenable"):
+        jg.build_hmg_grid(JBox((4, 4, 4)), (4, 1, 1), 1, 2.0, np.float64)
+    with pytest.raises(ValueError, match="multiple of n_shards"):
+        td.build_hmg_dist(TBox((8, 4, 4)), 4, 1, 2.0, torch.float64,
+                          divisors=(2, 1, 1), device="cpu")
+    with pytest.raises(ValueError, match="cannot relax along x"):
+        td.build_hmg_dist(TBox((8, 4, 4)), 2, 1, 2.0, torch.float64,
+                          smoother="line-x", device="cpu")
+    with pytest.raises(ValueError, match="constant-kappa axis-aligned"):
+        td.DistPMG(TPert((8, 4, 4)), n_devices=2, degrees=(1, 3),
+                   coarse="hmg", coarse_cfg=dict(dist=True),
+                   operator="dofmap", device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 10 \(b\)"):
+        tg.build_hmg_grid_general(TPert((4, 8, 4)), (2, 2, 2), 1, 2.0,
+                                  torch.float64, device="cpu")
+
+
+def test_scaling_torch_hmg_dist_sweeps_match_jax_driver():
+    """``--coarse hmg --dist-coarse --bottom fdm``: the slab sweep and the
+    grid sweep print the JAX driver's rel resid column, every count's and
+    layout's trajectory invariant (the hierarchy pinned by JAX's
+    ``divisors``)."""
+    args = ["--ndofs", "3000", "--degrees", "1", "3", "--dtype", "f64",
+            "--cycles", "3", "--max-devices", "4", "--coarse", "hmg",
+            "--dist-coarse", "--bottom", "fdm"]
+    for grid in ((), ("--grid",)):
+        out_t = json.loads(_run("scaling_torch.py", *args, *grid).strip()
+                           .splitlines()[-1])
+        assert out_t["dist_coarse"] and out_t["bottom"] == "fdm"
+        assert all(r["invariant"] for r in out_t["rows"][1:])
+        j = _run("scaling.py", *args, *grid, torch_side=False)
+        keys = ("1x1x1", "2x1x1", "2x2x1") if grid else ("1", "2", "4")
+        rows = [line.split() for line in j.splitlines()
+                if line.split() and line.split()[0] in keys]
+        assert len(rows) == len(out_t["rows"]) == 3
+        np.testing.assert_allclose([r["rel_resid"] for r in out_t["rows"]],
+                                   [float(r[-1]) for r in rows], rtol=2e-3)
+        assert j.count("invariant vs 1") == 2 and "False" not in j

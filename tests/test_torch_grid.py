@@ -646,11 +646,9 @@ def test_grid_pmg_refuses_what_is_not_ported():
                                 **kw), ValueError, "pure-Neumann"),
             (lambda: tg.GridPMG(mesh, (2, 2), operator="lattice", **kw),
              NotImplementedError, "item 10"),
-            (lambda: tg.GridPMG(mesh, (2, 2), coarse="hmg", **kw),
-             NotImplementedError, "item 10"),
-            (lambda: tg.GridPMG(mesh, (2, 2), coarse="fdm",
-                                coarse_cfg=dict(dist=True), **kw),
-             NotImplementedError, "item 10"),
+            (lambda: tg.build_hmg_grid_general(
+                mesh, (2, 2), 1, KAPPA, torch.float64, device="cpu"),
+             NotImplementedError, r"item 10 \(b\)"),
             (lambda: tg.GridPMG(mesh, (2, 2), devices=["cuda:0"], **kw),
              NotImplementedError, "item 10"),
             (lambda: tg.GridPMG(mesh, (2, 2), sigma=lambda x: x[0], **kw),
@@ -672,13 +670,17 @@ def test_grid_pmg_refuses_what_is_not_ported():
             call()
 
 
-@pytest.mark.parametrize("kwargs", [dict(coarse="direct"),
-                                    dict(smoother="schwarz")])
+@pytest.mark.parametrize("kwargs", [
+    dict(coarse="direct"), dict(smoother="schwarz"), dict(coarse="hmg"),
+    dict(coarse="fdm", coarse_cfg=dict(dist=True)),
+    dict(coarse="hmg", coarse_cfg=dict(dist=True, bottom="fdm"))])
 def test_grid_pmg_runs_what_was_refused(kwargs):
     """The cases `test_grid_pmg_refuses_what_is_not_ported` held until
-    items 7a/7b were ported: the gathered ``direct`` coarse solve and the
-    Schwarz smoother on a (2, 2) grid cycle as JAX's `GridPMG` (f64:
-    eigenvalue estimates to 1e-12, 3 cycles to 1e-10)."""
+    items 7a/7b and 10 (a) were ported: the gathered ``direct`` coarse
+    solve, the Schwarz smoother, the gathered ``hmg`` coarse and the
+    non-gathered ``fdm`` and ``hmg`` (``coarse_cfg["dist"]``) on a (2, 2)
+    grid cycle as JAX's `GridPMG` (f64: eigenvalue estimates to 1e-12, 3
+    cycles to 1e-10)."""
     kw = dict(degrees=(1, 2), **kwargs)
     grid = tg.GridPMG(TBox(NC), (2, 2), device="cpu", **kw)
     jgrid = jg.GridPMG(JBox(NC), (2, 2), **kw)

@@ -13,8 +13,8 @@
 - `PMGHierarchy(coarse="direct" | "hmg")` in f64 (box and curved, each
   h-smoother, semicoarsened sizes): the trajectory to 1e-10 and the FCG(V)
   count, ``cycles`` 3 where `v_cycle` defaults to 2;
-- `GridPMG(coarse="direct")` against JAX's and the single device; the grid
-  ``hmg`` keeps its refusal (ROADMAP.md Queue 1 item 10);
+- `GridPMG(coarse="direct")` against JAX's and the single device, and the
+  grid's ``hmg`` coarse against the single device's;
 - the drivers' last lines: `examples/pmg_torch.py --coarse hmg|direct
   --smoother schwarz` against `examples/pmg.py --cpu` (f64), and
   `examples/amg_torch.py` against `examples/amg.py` iteration counts.
@@ -266,9 +266,13 @@ def test_grid_direct_matches_jax_and_single_device():
     assert _rel_max(u, uj) <= 1e-10
     assert grid.solve_pcg(b, rtol=1e-6)[1] == jgrid.solve_pcg(
         jnp.asarray(b), rtol=1e-6)[1]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tg.GridPMG(TBox(nc), (2, 2), degrees=(1, 2), coarse="hmg",
-                   device="cpu")
+    # The grid's hmg coarse (refused until ROADMAP item 10 (a)) cycles as
+    # the single device's.
+    kw = dict(degrees=(1, 3), coarse="hmg", dtype=torch.float64,
+              device="cpu")
+    _, rg = tg.GridPMG(TBox(nc), (2, 2), **kw).solve(b, num_cycles=3)
+    _, rs = PMGHierarchy(TBox(nc), **kw).solve(b, num_cycles=3)
+    assert _rel(rg, rs) <= 1e-10
 
 
 PMG_FLAGS = {

@@ -66,7 +66,8 @@ _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "solvers.bicgstab", "solvers.shardwrap", "solvers.newton",
                 "solvers.convdiff", "solvers.lobpcg", "solvers.eig",
                 "parallel.dist", "parallel.partition", "solvers.shardwrap",
-                "utils.convert")
+                "utils.convert", "parallel.fdm_dist",
+                "parallel.transient_dist", "parallel")
 
 
 def test_general_hex_modules_import_no_jax():

@@ -785,3 +785,56 @@ def test_dist_pmg_method_signatures(method):
 
     assert _positional(getattr(TD, method)) == _positional(getattr(JD,
                                                                    method))
+
+
+@pytest.mark.parametrize("mod,name", [
+    ("parallel.fdm_dist", "DistFDM"),
+    ("parallel.fdm_dist", "fdm_solve_dist"),
+    ("parallel.fdm_dist", "make_fdm_dist"),
+    ("parallel.fdm_dist", "make_fdm_apply_dist"),
+    ("parallel.fdm_dist", "dist_layout"),
+    ("parallel.fdm_dist", "_embed_boundary"),
+    ("parallel.fdm_dist", "_dedup"),
+    ("parallel.fdm_dist", "_redup"),
+    ("parallel.fdm_dist", "_transform_sharded"),
+    ("parallel.fdm_dist", "_axis_transform"),
+    ("parallel.dist", "build_hmg_dist"),
+    ("parallel.grid2d", "build_hmg_grid"),
+    ("parallel.grid2d", "build_hmg_grid_general"),
+    ("parallel.grid2d", "_hmg_grid_scaffold"),
+    ("parallel.transient_dist", "_dist_bundle"),
+    ("parallel.transient_dist", "heat_dist_evolve"),
+    ("parallel.transient_dist", "wave_leapfrog_dist_evolve"),
+    ("parallel.transient_dist", "semilinear_dist_evolve"),
+    ("parallel.transient_dist", "convdiff_dist_evolve"),
+    ("parallel.transient_dist", "wave_newmark_dist_evolve"),
+])
+def test_gather_free_family_signatures(mod, name):
+    """The gather-free coarse family and the sharded time loops keep JAX's
+    public names and positional orders; the port adds only the
+    keyword-only ``device``."""
+    import importlib
+
+    jf = getattr(importlib.import_module(f"pmg_dolfinx_tpu.{mod}"), name)
+    tf = getattr(importlib.import_module(f"pmg_dolfinx_tpu_torch.{mod}"),
+                 name)
+    assert _positional(tf) == _positional(jf)
+
+
+@pytest.mark.parametrize("method", ["to_dist", "from_dist", "solve"])
+def test_dist_fdm_method_signatures(method):
+    """`DistFDM`'s methods bind JAX's positional arguments."""
+    from pmg_dolfinx_tpu.parallel.fdm_dist import DistFDM as JF
+    from pmg_dolfinx_tpu_torch.parallel.fdm_dist import DistFDM as TF
+
+    assert _positional(getattr(TF, method)) == _positional(getattr(JF,
+                                                                   method))
+
+
+def test_stacked_grid_all_to_all_keeps_jax_argument_order():
+    """`StackedGrid.all_to_all(x, axis, split_axis, concat_axis)`: JAX's
+    ``all_to_all(x, axis_name, split_axis, concat_axis)``."""
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import StackedGrid
+
+    assert _positional(StackedGrid.all_to_all) == [
+        "self", "st", "axis", "split_axis", "concat_axis"]

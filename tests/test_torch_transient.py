@@ -396,14 +396,23 @@ def test_wave_driver_f64_matches_jax_evolve():
 
 @pytest.mark.parametrize("name,flag,item", [
     ("heat_torch.py", ("--grade", "z:8", "--dtype", "f64"), None),
-    ("wave_torch.py", ("--shards", "2"), "Queue 1 item 10"),
-    ("heat_torch.py", ("--shards", "2"), "Queue 1 item 10"),
+    # These two ids held ``--shards`` until ROADMAP item 10 (a) ported the
+    # sharded time loops (tests/test_torch_transient_dist.py); they keep
+    # their ids on the --shards combinations the JAX drivers refuse.
+    pytest.param("wave_torch.py", ("--shards", "2", "--mesh", "perturbed"),
+                 "--shards rides",
+                 id="wave_torch.py-flag1-Queue 1 item 10"),
+    pytest.param("heat_torch.py", ("--shards", "2", "--batch", "2"),
+                 "--shards rides",
+                 id="heat_torch.py-flag2-Queue 1 item 10"),
     ("heat_torch.py", ("--save-series", "out.vtk"), "Queue 1 item 11"),
 ])
 def test_driver_refuses_unported_flags(name, flag, item):
     """The JAX driver flags whose layers the port lacks refuse with their
-    ROADMAP item; ``--grade`` (ported) runs, and its f64 box path prints
-    the JAX evolver's L2 error on the graded mesh (1e-8)."""
+    ROADMAP item, and ``--shards`` where the JAX drivers refuse it (curved
+    or batched) with their words; ``--grade`` (ported) runs, and its f64
+    box path prints the JAX evolver's L2 error on the graded mesh
+    (1e-8)."""
     proc = _driver(name, *flag)
     if item is not None:
         assert proc.returncode != 0 and item in proc.stderr
