@@ -22,10 +22,10 @@ the gather-free coarse family and sharded time loops (`fdm_dist`, the
 distributed hmg on the slab and the grid, `transient_dist`) through them.
 Every phase raises on failure; nothing is caught. The phases run in the
 order 1-3f, 4-4e, 14, 26a, 26b, 27a-27c, 15, 18d, 24a, 25a, 25b, 26c,
-19a-19c, 5-8b, 16, 17, 20a-20c, 9-11, 21, 12, 27d, 13, 18a-18c, 22,
+19a-19c, 5-8b, 16, 17, 28a-28e, 20a-20c, 9-11, 21, 12, 27d, 13, 18a-18c, 22,
 23a-23d, 24b, 25c-25f: 26a, 27a-27c, 15, 18d, 24a, 25a, 25b, 19b and 20c
 reuse phase 4's mesh (and its host geometry factors; 25a and 26a its
-hierarchy, 26c and 27a 26a's), 16 and 17 phase 7's. The 16.2M L2 errors
+hierarchy, 26c and 27a 26a's), 16, 17 and 28a phase 7's. The 16.2M L2 errors
 of phases 4, 15, 19a, 26a and 27c run on the card (`card_l2`: the host
 rule's quadrature, interpolation on the card; checked after phase 5),
 phase 6's 16.2M geometry factors on a host thread started in phase 4,
@@ -380,6 +380,28 @@ with phase 2. The script prints its seconds.
    f32 within 1e-4 relative L2 of the f64 sharded run, f64 sharded within
    1e-9 of the f64 single-device evolver; `examples/heat_torch.py
    --shards 6` (L2 < 1e-3).
+28. The general family on the sharded layouts (no new kernel: K-A once
+   per shard), run after 17. a: ``GridPMG(PerturbedBoxMesh((42, 42, 42)),
+   (2, 2, 2), degrees=(1, 3, 6), kappa=2, float32, coarse="cg",
+   operator="lattice_blocked")`` on phase 7's mesh and rhs: 10 cycles
+   within 1e-3 of phase 7's above 5e-3, FCG(V) within 1 of its count and
+   the solution within 1e-3, one V-cycle on phase 7's seeded input at its
+   smoother bounds within 1e-5, K-A launched 8x as often as in phase 7's
+   V-cycle, collocated L2 < 1e-4, each shard's K-A at p=1, 3, 6 within
+   1e-5 of its plain version (device ms a shard beside its bound); ms per
+   V-cycle beside phase 7's, host ms to enqueue, a profiled window. b:
+   the same layout on curved nc=14 with `kappa_linear` + `sigma_linear`
+   and `kappa_aniso`, each against one device: FCG(V) within
+   1, one V-cycle within 1e-5, L2 (< 1e-4; within 1% of the single
+   device's for `kappa_linear`). d: `solve_refined` on b's first grid to
+   1e-9 within 2 cycles of one device's count. c: ``coarse="hmg",
+   coarse_cfg=dict(dist=True)`` on a curved nc=16 mesh with a Robin face
+   and z graded 8:1 against the gathered hmg: FCG(V) within 2, one
+   V-cycle within 1e-5. e: ``DistPMG(6 slabs, operator="lattice")`` f32
+   on a curved nc=12 mesh with both fields and a Robin face against one
+   device (FCG(V) within 1, one V-cycle within 1e-5), then
+   `examples/scaling_torch.py --grid --operator lattice_blocked`
+   (trajectories layout-invariant).
 
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
@@ -394,7 +416,7 @@ scratch, the serving kernels per batch beside ``bound_ms_by_batch``;
 ``launches`` sums each kernel's launches over every path that runs it
 (#1-#3 phases 4, 15, 24a, 25a, 25e, 19a/19b, 26a-26c and 27a-27b, #1
 also 27c, #4/#7/#10/#11 phases 4b-4e and 19c, #9 phases 14, 18d and 27c,
-K-A phases 7, 16, 17, 20a and 20b,
+K-A phases 7, 16, 17, 20a, 20b and 28a-28e,
 K-B phases 8 and 20c, #18-#21 phases 11 and 21, #19/#21 phase 25c),
 with their kernels and host us per call and, with ``--parent``, the
 parent's device times and whether the bits are the same) and, only when every
@@ -534,7 +556,7 @@ def grid_vcycle_parity(grid, hier, seed, tag):
     n = hier.levels[-1].ndofs
     rng = np.random.default_rng(seed)
     b, u = (torch.tensor(rng.standard_normal(n, dtype=np.float32),
-                         device="cuda") for _ in range(2))
+                         device=DEV) for _ in range(2))
     own = [lv["lmax"] for lv in grid.data["levels"]]
     for lv_g, lv_s in zip(grid.data["levels"], hier.data["levels"]):
         lv_g["lmax"] = lv_s["lmax"]
@@ -3860,6 +3882,463 @@ def curved_hmg(curved, niter_ref, vc_ref, busy_ref, ccfg, launches):
             by_name.items(), key=lambda kv: -kv[1])[:8]))
 
 
+# --- phase 28: the general family on the sharded layouts -------------------
+
+GG_SHARDS = (2, 2, 2)
+GG_NC = (14, 14, 14)          # 28b, 28d: 614,125 dofs at p=6
+# 28b's tensor case at nc=14: at nc=22 (2,352,637 dofs) it took ~40 s of a
+# 1139.0 s script on a slow host (NVIDIA H100 80GB HBM3, 700 W), too near
+# the 1200 s limit.
+GG_TENSOR_NC = GG_NC
+GG_HMG_NC = (16, 16, 16)      # 28c: nc=14 has no h-level whose cells split
+#                               into (2, 2, 2) shards (14 -> 7)
+GG_SLAB_NC = (12, 12, 12)     # 28e: 6 slabs of 2 x-cells
+GG_SLABS = 6
+# 28a against phase 7 on cycles above REF_TRAJ_FROM (`parent_gate`'s rule)
+# and its FCG solution, relative.
+GG_TRAJ_RTOL = 1e-3
+GG_SOL_RTOL = 1e-3
+GG_REFINED_RTOL = 1e-9
+# Robin (alpha 2) on the low y face, Dirichlet elsewhere.
+GG_FACES = ((True, True), (False, True), (True, True))
+GG_ROBIN = ((0.0, 0.0), (2.0, 0.0), (0.0, 0.0))
+# 28e's driver run: `examples/scaling_torch.py --grid` at its defaults.
+GG_SCALING = ["--grid", "--operator", "lattice_blocked"]
+
+
+def curved_grid_ref(prob, hier, rel, niter, u, vc, busy):
+    """Phase 7's state for 28a, taken before its hierarchy is freed: the
+    rhs, trajectory, FCG(V) count and solution, ms and busy ms per V-cycle,
+    the smoother bounds, one V-cycle on a seeded rhs and iterate, and K-A's
+    launches in that V-cycle (comparison launches, not the path's)."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    n = hier.levels[-1].ndofs
+    b1, u1 = seeded(n, SEED + 28), seeded(n, SEED + 29)
+    before = lb.LAUNCHES["lattice_apply"]
+    v1 = hier.apply(b1, u1)
+    torch.cuda.synchronize()
+    return dict(b=prob.b, rel=list(rel), niter=niter, u=u, vc=vc, busy=busy,
+                lmax=[lv["lmax"].clone() for lv in hier.data["levels"]],
+                b1=b1, u1=u1, v1=v1,
+                ka_cycle=lb.LAUNCHES["lattice_apply"] - before)
+
+
+def grid_ka_parity(grid, seed, tag):
+    """K-A on each shard of every level of a `GridPMG` (the stacked
+    vector's, marker's and ``Gt``'s contiguous blocks, ``apply_bc=False``)
+    against its plain version on the same inputs; returns the worst rel
+    max-norm error."""
+    import numpy as np
+
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    worst = 0.0
+    for i, (lv, level) in enumerate(zip(grid.data["levels"], grid.levels)):
+        P = level.P
+        ncl = tuple((n - 1) // P for n in level.shape)
+        x = seeded(int(np.prod(grid.shards)) * level.ndofs, seed + i
+                   ).reshape(grid.shards + tuple(level.shape))
+        errs = []
+        for idx in np.ndindex(*grid.shards):
+            args = (x[idx], lv["lb_mats"], lv["Gt"][idx], lv["bc_marker"][idx])
+            y = lb.blocked_lattice_apply(*args, ncl, P, apply_bc=False)
+            errs.append(rel_max_err(y, lb.plain_lattice_apply(
+                *args, apply_bc=False)))
+        worst = max(worst, max(errs))
+        args = (x[(0, 0, 0)], lv["lb_mats"], lv["Gt"][(0, 0, 0)],
+                lv["bc_marker"][(0, 0, 0)])
+        dev = graph_ms(lambda: lb.blocked_lattice_apply(
+            *args, ncl, P, apply_bc=False))
+        bound, by = kernel_bound("lattice_apply", level.ndofs, P, nc=ncl)
+        print(f"    {tag}: K-A per shard at p={P} ({level.shape[0]}x"
+              f"{level.shape[1]}x{level.shape[2]}, {len(errs)} shards, "
+              f"apply_bc=False) vs plain: rel max err {max(errs):.3e}; "
+              f"device {dev:.4f} ms a shard (CUDA graph of 20), "
+              f"{len(errs) * dev:.4f} ms an apply; bound {bound:.4f} ms a "
+              f"shard ({by}), {bound / dev:.0%}")
+    if not worst <= KERNEL_RTOL:
+        raise AssertionError(f"{tag}: K-A per shard differs from its plain "
+                             f"version by {worst:.3e}")
+    return worst
+
+
+def grid_at_lmax(grid, lmax, fn):
+    """``fn()`` with ``grid`` at the smoother bounds ``lmax`` (one per
+    p-level), its own restored after."""
+    own = [lv["lmax"] for lv in grid.data["levels"]]
+    for lv, lm in zip(grid.data["levels"], lmax):
+        lv["lmax"] = lm
+    try:
+        return fn()
+    finally:
+        for lv, lm in zip(grid.data["levels"], own):
+            lv["lmax"] = lm
+
+
+def grid_general_path(curved, ref, launches):
+    """Phase 28a: the slice's path, ``GridPMG(PerturbedBoxMesh((42, 42,
+    42)), (2, 2, 2), degrees=(1, 3, 6), kappa=2, float32, coarse="cg",
+    operator="lattice_blocked")`` on phase 7's mesh and rhs (16,194,277
+    dofs; each shard 21^3 cells, 127^3 at p=6), K-A once per shard: 10
+    cycles within `GG_TRAJ_RTOL` of phase 7's trajectory above
+    `REF_TRAJ_FROM`, FCG(V) within one of phase 7's count and its solution
+    within `GG_SOL_RTOL`, one V-cycle at phase 7's smoother bounds within
+    `GRID_VCYCLE_RTOL` of phase 7's on the same seeded inputs, K-A launched
+    8 times as often as in phase 7's V-cycle, collocated L2 < 1e-4, each
+    shard's K-A within `KERNEL_RTOL` of its plain version. Prints ms per
+    V-cycle beside phase 7's and a profiled window. Returns {tag: (FCG, ms
+    per V-cycle)}."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import l2_error_collocated
+    from pmg_dolfinx_tpu_torch.models.poisson import u_exact
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+
+    reset(lb)
+    ts = time.perf_counter()
+    grid = GridPMG(curved, GG_SHARDS, degrees=(1, 3, 6), kappa=2.0,
+                   dtype=torch.float32, coarse="cg",
+                   operator="lattice_blocked", device=DEV)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - ts
+    print(f"    setup seconds (host geometry, diagonal, calibration): "
+          f"{setup:.2f}; shard lattices "
+          f"{[tuple(lv.shape) for lv in grid.levels]}; lmax "
+          f"{[round(float(lv['lmax']), 4) for lv in grid.data['levels']]} "
+          f"(phase 7: {[round(float(v), 4) for v in ref['lmax']]})")
+    r0 = float(torch.linalg.vector_norm(ref["b"]))
+    ts = time.perf_counter()
+    _, rn = grid.solve(ref["b"], num_cycles=10)
+    solve_s = time.perf_counter() - ts
+    rel = [r / r0 for r in rn]
+    diff = traj_diff(rel, ref["rel"])
+    print(f"    10 cycles ({solve_s:.3f} s host clock): rel "
+          f"{[f'{v:.4e}' for v in rel]}; vs phase 7: max rel diff "
+          f"{diff:.3e} above {REF_TRAJ_FROM:g} (gate {GG_TRAJ_RTOL:g})")
+    ts = time.perf_counter()
+    u, niter = grid.solve_pcg(ref["b"], rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    pcg_s = time.perf_counter() - ts
+    path = dict(lb.LAUNCHES)
+    add_launches(launches, path, ("lattice_apply",))
+    du = float(torch.linalg.vector_norm(u - ref["u"])
+               / torch.linalg.vector_norm(ref["u"]))
+    print(f"    FCG(V) to rtol 1e-6: {niter} (phase 7: {ref['niter']}; "
+          f"{pcg_s:.3f} s host clock), solution vs phase 7's rel "
+          f"{du:.3e}; K-A launches on the path {path['lattice_apply']}")
+    if not (diff <= GG_TRAJ_RTOL and abs(niter - ref["niter"]) <= 1
+            and du <= GG_SOL_RTOL):
+        raise AssertionError(f"28a: trajectory {diff:.3e}, FCG {niter} vs "
+                             f"{ref['niter']}, solution {du:.3e}")
+    if tuple(u.shape) != (curved.num_dofs(6),) or not bool(
+            torch.isfinite(u).all()):
+        raise AssertionError("28a: solution is not a finite vector of ndofs")
+    before = lb.LAUNCHES["lattice_apply"]
+    v = grid_at_lmax(grid, ref["lmax"], lambda: grid.from_dist(grid.apply(
+        grid.to_dist(ref["b1"]), grid.to_dist(ref["u1"]))))
+    torch.cuda.synchronize()
+    ka_cycle = lb.LAUNCHES["lattice_apply"] - before
+    err_v = rel_max_err(v, ref["v1"])
+    print(f"    one V-cycle at phase 7's smoother bounds, seeded rhs and "
+          f"iterate: rel max err {err_v:.3e} (gate {GRID_VCYCLE_RTOL:g}); "
+          f"K-A launches per V-cycle {ka_cycle} (phase 7: "
+          f"{ref['ka_cycle']}, x{ka_cycle / max(1, ref['ka_cycle']):.1f})")
+    if not (err_v <= GRID_VCYCLE_RTOL
+            and ka_cycle == 8 * ref["ka_cycle"]):
+        raise AssertionError(f"28a: V-cycle {err_v:.3e}, K-A {ka_cycle} vs "
+                             f"8 x {ref['ka_cycle']}")
+    ts = time.perf_counter()
+    err = l2_error_collocated(curved, 6, u.double().cpu().numpy(), u_exact)
+    print(f"    collocated L2 error {err:.4e} "
+          f"({time.perf_counter() - ts:.1f} s host)")
+    if not err < 1e-4:
+        raise AssertionError(f"28a: L2 error {err}")
+    vc, vc_all = grid_vcycle_ms(grid)
+    pace = [(round(e, 3), round(h, 3)) for e, h in grid_vcycle_pace(grid)]
+    b1 = torch.ones(grid.shards + grid.levels[-1].shape, dtype=grid.dtype,
+                    device=grid.device)
+    grid.apply(b1, torch.zeros_like(b1))
+    wall, busy, nk, by_name, _, tries, complete = profile_complete(
+        lambda: grid.apply(b1, torch.zeros_like(b1)), lb)
+    ka = lattice_kernel_ms(by_name)
+    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+          f"{[round(t, 3) for t in vc_all]}) against phase 7's "
+          f"{ref['vc']:.3f} ms; (event ms, host ms to enqueue) per cycle "
+          f"{pace}; profiled ({'complete' if complete else 'INCOMPLETE'} "
+          f"window, {tries} tried): wall {wall:.3f} ms, busy {busy:.3f} ms "
+          f"({nk} kernels), K-A {ka['march'] + ka['fold']:.3f} ms "
+          f"({(ka['march'] + ka['fold']) / max(busy, 1e-9):.1%}), idle "
+          f"{max(0.0, 1 - busy / vc):.1%} (phase 7: busy {ref['busy']:.3f} "
+          f"ms, idle {max(0.0, 1 - ref['busy'] / ref['vc']):.1%})")
+    grid_ka_parity(grid, SEED + 280, "28a")
+    return {"28a grid lattice_blocked": (niter, vc)}
+
+
+def grid_vcycle_pace(grid, cycles=10, reps=3):
+    """`vcycle_pace` for a `GridPMG`."""
+    import torch
+
+    b = torch.ones(grid.shards + grid.levels[-1].shape, dtype=grid.dtype,
+                   device=grid.device)
+    u = torch.zeros_like(b)
+    grid.apply(b, u)
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(cycles):
+            grid.apply(b, u)
+        host = (time.perf_counter() - t0) * 1e3 / cycles
+        end.record()
+        end.synchronize()
+        out.append((start.elapsed_time(end) / cycles, host))
+    return out
+
+
+def f_klin_sfield():
+    """Source of `kappa_linear` with the `sigma_linear` reaction field."""
+    from pmg_dolfinx_tpu_torch.models import poisson as pm
+
+    fv = pm.f_rhs_variable()
+    return lambda x: fv(x) + pm.sigma_linear(x) * pm.u_exact(x)
+
+
+def grid_general_coeffs(launches):
+    """Phases 28b and 28d. 28b: `GridPMG` (2, 2, 2) ``lattice_blocked`` +
+    ``cg`` on curved meshes, `kappa_linear` + `sigma_linear` at `GG_NC`
+    and `kappa_aniso` at `GG_TENSOR_NC`, each against the single-device
+    ``lattice_blocked`` hierarchy on the same problem: FCG(V) within one,
+    one V-cycle at its smoother bounds within `GRID_VCYCLE_RTOL`, L2 < 1e-4
+    (`kappa_linear`: within 1% of the single device's, the DG-0
+    coefficient's own h^2 error). 28d: `solve_refined` of the first grid
+    to `GG_REFINED_RTOL` within 2 cycles of the single device's count.
+    Returns {tag: (FCG, ms per V-cycle)}."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.models import poisson as pm
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+
+    t0 = phase(f"28b. GridPMG {GG_SHARDS} lattice_blocked + cg, curved: "
+               f"kappa_linear + sigma_linear at nc={GG_NC[0]}, kappa_aniso "
+               f"at nc={GG_TENSOR_NC[0]}, each vs the single device")
+    cfg = dict(degrees=(1, 3, 6), dtype=torch.float32, coarse="cg",
+               operator="lattice_blocked", device=DEV)
+    K = pm.kappa_aniso()
+    out, keep = {}, None
+    for tag, nc, kw, f in (
+            ("kappa_linear + sigma_linear", GG_NC,
+             dict(kappa=pm.kappa_linear, sigma=pm.sigma_linear),
+             f_klin_sfield()),
+            ("kappa_aniso", GG_TENSOR_NC, dict(kappa=K), pm.f_rhs_tensor(K))):
+        mesh = PerturbedBoxMesh(nc)
+        ts = time.perf_counter()
+        prob = pm.PoissonProblem(mesh=mesh, f=f, **kw, **cfg)
+        u_s, n_s = prob.hierarchy.solve_pcg(prob.b, rtol=1e-6, maxiter=100)
+        err_s = prob.error_l2(u_s)
+        t_single = time.perf_counter() - ts
+        reset(lb)
+        ts = time.perf_counter()
+        grid = GridPMG(mesh, GG_SHARDS, **kw, **cfg)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - ts
+        u_g, n_g = grid.solve_pcg(prob.b, rtol=1e-6, maxiter=100)
+        torch.cuda.synchronize()
+        path = dict(lb.LAUNCHES)
+        add_launches(launches, path, ("lattice_apply",))
+        err_g = prob.error_l2(u_g)
+        gate = 1.01 * err_s if callable(kw["kappa"]) else 1e-4
+        vc = grid_vcycle_ms(grid)[0]
+        print(f"    {tag} at nc={nc[0]} ({mesh.num_dofs(6):,} dofs): grid "
+              f"setup {setup:.2f} s, FCG(V) {n_g} (single device {n_s}, "
+              f"{t_single:.1f} s with its setup), L2 {err_g:.4e} (single "
+              f"{err_s:.4e}; gate {gate:.4e}), V-cycle {vc:.3f} ms "
+              f"(single {vcycle_ms(prob.hierarchy)[0]:.3f}); K-A launches "
+              f"{path['lattice_apply']}")
+        grid_vcycle_parity(grid, prob.hierarchy, SEED + 281, f"28b {tag}")
+        if not (abs(n_g - n_s) <= 1 and n_g < 100 and err_g < gate):
+            raise AssertionError(f"28b {tag}: FCG {n_g} / {n_s}, L2 "
+                                 f"{err_g} / {gate}")
+        out[f"28b {tag}"] = (n_g, vc)
+        if keep is None:
+            keep = (prob, grid)
+        else:
+            del prob, grid
+    done(t0)
+    prob, grid = keep
+    t0 = phase("28d. GridPMG.solve_refined on 28b's kappa_linear + "
+               "sigma_linear grid: f64 residual to "
+               f"{GG_REFINED_RTOL:g}")
+    reset(lb)
+    r0 = float(torch.linalg.vector_norm(prob.b.double()))
+    ts = time.perf_counter()
+    u64, rn_g = grid.solve_refined(prob.b, num_cycles=40,
+                                   rtol=GG_REFINED_RTOL)
+    t_grid = time.perf_counter() - ts
+    path = dict(lb.LAUNCHES)
+    add_launches(launches, path, ("lattice_apply",))
+    _, rn_s = prob.hierarchy.solve_refined(prob.b, num_cycles=40,
+                                           rtol=GG_REFINED_RTOL)
+    print(f"    grid: {len(rn_g)} cycles to {rn_g[-1] / r0:.3e} "
+          f"({t_grid:.2f} s host clock); single device: {len(rn_s)} to "
+          f"{rn_s[-1] / r0:.3e}; u64 {u64.dtype}; K-A launches "
+          f"{path['lattice_apply']}")
+    if not (rn_g[-1] < GG_REFINED_RTOL * r0
+            and abs(len(rn_g) - len(rn_s)) <= 2):
+        raise AssertionError(f"28d: {len(rn_g)} cycles to "
+                             f"{rn_g[-1] / r0:.3e}, single {len(rn_s)}")
+    out["28d solve_refined"] = (len(rn_g), None)
+    done(t0)
+    return out
+
+
+def grid_general_hmg(launches):
+    """Phase 28c: ``coarse="hmg", coarse_cfg=dict(dist=True)``
+    (`build_hmg_grid_general`, every h-level in the stacked layout) on a
+    curved `GG_HMG_NC` mesh with a Robin face and z graded (ratio
+    `GRADE_RATIO`), (2, 2, 2) ``lattice_blocked``, against the gathered
+    ``hmg`` on the same grid: FCG(V) within 2, one V-cycle at the gathered
+    grid's smoother bounds within `GF_VCYCLE_RTOL`. Prints the h-levels and
+    ms per V-cycle of both. Returns {tag: (FCG, ms per V-cycle)}."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import (PerturbedBoxMesh,
+                                                geometric_spacing)
+    from pmg_dolfinx_tpu_torch.models.poisson import f_rhs
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+
+    mesh = PerturbedBoxMesh(GG_HMG_NC, dirichlet_faces=GG_FACES,
+                            robin=GG_ROBIN, spacing=(
+                                None, None,
+                                geometric_spacing(GG_HMG_NC[2], GRADE_RATIO)))
+    b = torch.tensor(assemble_rhs(mesh, 6, f_rhs(2.0)), dtype=torch.float32,
+                     device=DEV)
+    cfg = dict(degrees=(1, 3, 6), kappa=2.0, dtype=torch.float32,
+               operator="lattice_blocked", coarse="hmg", device=DEV)
+    reset(lb)
+    ts = time.perf_counter()
+    g_d = GridPMG(mesh, GG_SHARDS, coarse_cfg=dict(dist=True), **cfg)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - ts
+    _, n_d = g_d.solve_pcg(b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    path = dict(lb.LAUNCHES)
+    add_launches(launches, path, ("lattice_apply",))
+    g_g = GridPMG(mesh, GG_SHARDS, **cfg)
+    _, n_g = g_g.solve_pcg(b, rtol=1e-6, maxiter=50)
+    vc_d, vc_g = grid_vcycle_ms(g_d)[0], grid_vcycle_ms(g_g)[0]
+    print(f"    {mesh.num_dofs(6):,} dofs; h-levels (p=1, stacked) "
+          f"{[tuple(lv.shape) for lv in g_d.coarse_cfg['hmg_levels']]} per "
+          f"shard, bottom '{g_d.coarse_cfg['hmg_bottom']}'; setup "
+          f"{setup:.2f} s; FCG(V) {n_d} (gathered {n_g}); V-cycle {vc_d:.3f} "
+          f"ms (gathered {vc_g:.3f}); K-A launches {path['lattice_apply']}")
+    if not (abs(n_d - n_g) <= 2 and n_d < 50):
+        raise AssertionError(f"28c: FCG {n_d} vs gathered {n_g}")
+    dist_vcycle_parity(g_g, g_d, SEED + 282, "28c dist vs gathered hmg")
+    return {"28c hmg dist": (n_d, vc_d)}
+
+
+def slab_general(launches):
+    """Phase 28e: `DistPMG` with `GG_SLABS` slabs, ``lattice`` (plain torch)
+    in float32 on a curved `GG_SLAB_NC` mesh with `kappa_linear`,
+    `sigma_linear` and a Robin face, against the single-device ``lattice``
+    hierarchy: FCG(V) within 1, one V-cycle at its smoother bounds within
+    `GRID_VCYCLE_RTOL`; then `examples/scaling_torch.py` `GG_SCALING` (the
+    grid sweep, K-A per shard) at its default size in this process, every
+    layout's trajectory invariant. Returns {tag: (FCG, ms per V-cycle)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.models import poisson as pm
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+    from pmg_dolfinx_tpu_torch.parallel.dist import DistPMG
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    mesh = PerturbedBoxMesh(GG_SLAB_NC, dirichlet_faces=GG_FACES,
+                            robin=GG_ROBIN)
+    kw = dict(degrees=(1, 3, 6), kappa=pm.kappa_linear,
+              sigma=pm.sigma_linear, dtype=torch.float32, coarse="cg",
+              operator="lattice", device=DEV)
+    ts = time.perf_counter()
+    single = PMGHierarchy(mesh, **kw)
+    slab = DistPMG(mesh, n_devices=GG_SLABS, **kw)
+    setup = time.perf_counter() - ts
+    n = mesh.num_dofs(6)
+    bc = torch.tensor(mesh.boundary_dof_marker(6), device=DEV)
+    b = torch.where(bc, 0.0, seeded(n, SEED + 283))
+    _, n_s = single.solve_pcg(b, rtol=1e-6, maxiter=50)
+    _, n_d = slab.solve_pcg(b, rtol=1e-6, maxiter=50)
+    slab.load_state({"levels": [{"lmax": lv["lmax"]}
+                                for lv in single.data["levels"]]})
+    b1, u1 = seeded(n, SEED + 284), seeded(n, SEED + 285)
+    err = rel_max_err(slab.from_dist(slab.apply(slab.to_dist(b1),
+                                                slab.to_dist(u1))),
+                      single.apply(b1, u1))
+    vc = slab_vcycle_ms(slab)[0]
+    print(f"    {n:,} dofs, {GG_SLABS} slabs: setup {setup:.2f} s (both); "
+          f"FCG(V) {n_d} (single device {n_s}); one V-cycle at the single "
+          f"device's smoother bounds: rel max err {err:.3e} (gate "
+          f"{GRID_VCYCLE_RTOL:g}); V-cycle {vc:.3f} ms")
+    if not (abs(n_d - n_s) <= 1 and err <= GRID_VCYCLE_RTOL):
+        raise AssertionError(f"28e: FCG {n_d} / {n_s}, V-cycle {err:.3e}")
+    reset(lb)
+    ts = time.perf_counter()
+    res = run_example("scaling_torch", GG_SCALING)
+    torch.cuda.synchronize()
+    path = dict(lb.LAUNCHES)
+    add_launches(launches, path, ("lattice_apply",))
+    rows = res["rows"]
+    print(f"    scaling_torch.py {' '.join(GG_SCALING)}: "
+          f"{time.perf_counter() - ts:.1f} s, {res['ndofs']:,} dofs, "
+          f"layouts {[r['layout'] for r in rows]}, s/cycle "
+          f"{[round(r['s_per_cycle'], 4) for r in rows]}; K-A launches "
+          f"{path['lattice_apply']}")
+    if not (all(r["invariant"] for r in rows[1:])
+            and all(np.isfinite(r["rel_resid"]) for r in rows)):
+        raise AssertionError(f"28e: the grid sweep's trajectories are not "
+                             f"layout-invariant: {rows}")
+    return {"28e slab lattice": (n_d, vc)}
+
+
+def grid_general_family(curved, ref, launches):
+    """Phase 28 (28a-28e): the general family on the sharded layouts, K-A
+    once per shard on the grid. Returns {tag: (FCG, ms per V-cycle)}."""
+    out = {}
+    t_all = time.perf_counter()
+    t0 = phase("28a. GridPMG(PerturbedBoxMesh((42, 42, 42)), (2, 2, 2), "
+               "degrees=(1, 3, 6), kappa=2, float32, coarse='cg', "
+               "operator='lattice_blocked'): phase 7's problem on the grid, "
+               "16,194,277 dofs, K-A once per shard")
+    out.update(grid_general_path(curved, ref, launches))
+    done(t0)
+    out.update(grid_general_coeffs(launches))
+    t0 = phase(f"28c. coarse='hmg' with dist=True (build_hmg_grid_general) "
+               f"on a curved nc={GG_HMG_NC[0]} mesh, a Robin face, z graded "
+               f"{GRADE_RATIO:g}:1, {GG_SHARDS} lattice_blocked, vs the "
+               "gathered hmg")
+    out.update(grid_general_hmg(launches))
+    done(t0)
+    t0 = phase(f"28e. DistPMG(n_devices={GG_SLABS}, operator='lattice') f32 "
+               f"on a curved nc={GG_SLAB_NC[0]} mesh, kappa_linear, "
+               "sigma_linear, a Robin face, vs one device; then "
+               "examples/scaling_torch.py " + " ".join(GG_SCALING))
+    out.update(slab_general(launches))
+    done(t0)
+    print(f"    phase 28 seconds: {time.perf_counter() - t_all:.1f}")
+    return out
+
+
 # Cut from 2,000,000 (112 s, mostly host setup; PR 16) and from 500,000
 # (34.9 s; PR 17, for the slab phases 26a-26c).
 AMG_TWIN_NDOFS = 250000
@@ -6045,6 +6524,9 @@ def main():
     against_parent("7 curved", rel, niter)
     parent_gate("7 curved", rel, niter)
     curved_ref = (niter, vc_lb, busy)
+    # Phase 28a's reference (the rhs, solution, trajectory and one seeded
+    # V-cycle), kept past this hierarchy.
+    ref28 = curved_grid_ref(prob, hier, rel, niter, u, vc_lb, busy)
     del b1
     del prob, u, hier
     ts = time.perf_counter()
@@ -6091,7 +6573,9 @@ def main():
                "dofs, p=(1,3,6), lattice_blocked + hmg")
     curved_hmg(curved, *curved_ref, ccfg, launches)
     done(t0)
-    del curved
+
+    family.update(grid_general_family(curved, ref28, launches))
+    del curved, ref28
 
     family.update(general_family(box42, launches, curved_ref[1]))
     del box42

@@ -3,7 +3,7 @@ twin of `examples/scaling.py`).
 
     python examples/scaling_torch.py [--device cpu] [--ndofs N]
         [--mode strong|weak] [--degrees 1 3]
-        [--operator dofmap|lattice|kron|kron_blocked]
+        [--operator dofmap|lattice|lattice_blocked|kron|kron_blocked]
         [--coarse cg|smoother|fdm|direct|hmg] [--dist-coarse]
         [--bottom direct|cg|smoother|fdm] [--smoother cheb|line-y|schwarz]
         [--max-devices 8]
@@ -15,8 +15,9 @@ mode: one mesh whose x cells divide by the largest count; weak mode:
 ``--ndofs`` per slab) and JAX's invariance line (strong mode: the
 residual trajectory equals the 1-slab one, rtol 1e-9 in f64, 1e-3 in
 f32). ``--grid`` sweeps `parallel.grid2d.GridPMG` on ONE fixed mesh for
-the shard layouts 1x1x1, 2x1x1, 2x2x1, 2x2x2, 4x2x2, 4x4x2 (Kronecker
-operators only). ``--coarse hmg`` is the h-multigrid coarse solve
+the shard layouts 1x1x1, 2x1x1, 2x2x1, 2x2x2, 4x2x2, 4x4x2 (operators
+kron, kron_blocked, lattice and lattice_blocked; the last runs K-A once
+per shard). ``--coarse hmg`` is the h-multigrid coarse solve
 (``--bottom`` its bottom), ``--dist-coarse`` its non-gathered form
 (``coarse_cfg=dict(dist=True)``: every h-level in the sharded layout, the
 hierarchy pinned by JAX's ``divisors`` so the trajectory stays invariant
@@ -58,7 +59,8 @@ def main():
                         "mode)")
     p.add_argument("--dtype", choices=["f32", "f64"], default="f32")
     p.add_argument("--operator",
-                   choices=["dofmap", "lattice", "kron", "kron_blocked"],
+                   choices=["dofmap", "lattice", "lattice_blocked", "kron",
+                            "kron_blocked"],
                    default="kron")
     p.add_argument("--kappa", type=float, default=2.0)
     p.add_argument("--degrees", type=int, nargs="+", default=[1, 3])
@@ -196,9 +198,11 @@ def _grid_sweep(args, np, device, dtype, sync, name):
     from pmg_dolfinx_tpu_torch.models.poisson import f_rhs, fit_box_cells
     from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
 
-    if args.operator not in ("kron", "kron_blocked"):
-        raise SystemExit(f"--grid supports operators kron/kron_blocked, got "
-                         f"{args.operator!r}")
+    if args.operator not in ("kron", "kron_blocked", "lattice",
+                             "lattice_blocked"):
+        raise SystemExit(
+            f"--grid supports operators kron/kron_blocked/lattice/"
+            f"lattice_blocked, got {args.operator!r}")
     n_max = args.max_devices or 8
     layouts = [s for s in LAYOUTS if s[0] * s[1] * s[2] <= n_max]
     pmax = max(args.degrees)

@@ -136,10 +136,7 @@ def stacked_local_K(Kl, k_a, robin_ends, n_shards):
     """Per-shard row-stacked kappa-folded LOCAL axis stiffness ``(S * npl,
     npl)`` (float64) for a sharded axis whose global ends carry Robin
     terms: the ``alpha`` updates land on the first shard's ``[0, 0]`` and
-    the last shard's ``[-1, -1]``. The device-grid layer reaches it only
-    through `local_axis_K`, which raises for Robin ends (the grid's
-    Robin faces are ROADMAP.md Queue 1 item 10 (b)); kept for the JAX
-    package's call shape."""
+    the last shard's ``[-1, -1]``."""
     out = np.tile(k_a * np.asarray(Kl, np.float64), (int(n_shards), 1))
     out[0, 0] += float(robin_ends[0])
     out[-1, -1] += float(robin_ends[1])
@@ -147,17 +144,18 @@ def stacked_local_K(Kl, k_a, robin_ends, n_shards):
 
 
 def local_axis_K(mesh, a, nc_local, Pdeg, k_a, n_shards_a):
-    """Kappa-folded LOCAL axis stiffness of one shard of a device grid:
-    ``(K, stacked)``. ``stacked=False``: the shard-invariant ``(npl,
-    npl)`` float64 matrix (a uniform axis, or an unsharded one with its
-    spacing folded in); ``stacked=True``: the per-shard row-stacked ``(S *
-    npl, npl)`` form of a sharded GRADED axis (each block assembled from
-    its shard's cells). Robin ends raise NotImplementedError (ROADMAP.md
-    Queue 1 item 10 (b))."""
-    if robin_axis_ends(mesh, a) != (0.0, 0.0):
-        raise NotImplementedError(
-            "Robin faces on the device grid are not ported yet (ROADMAP.md "
-            "Queue 1 item 10 (b))")
+    """Kappa-folded LOCAL axis stiffness of one shard of a device grid,
+    with the mesh's Robin ends: ``(K, stacked)``. ``stacked=False``: the
+    shard-invariant ``(npl, npl)`` float64 matrix (a uniform axis without
+    Robin ends, or an unsharded one with its spacing and Robin ends folded
+    in); ``stacked=True``: the per-shard row-stacked ``(S * npl, npl)``
+    form of a sharded axis whose local stiffness differs per shard: Robin
+    ends at the global ends (`stacked_local_K`) and/or GRADED spacing (each
+    block assembled from its shard's cells). The Kronecker family's
+    sharded layouts refuse Robin faces and grading at their entry points
+    (ROADMAP.md Queue 1 item 10 (b)); the general family's refinement
+    applies reach the Robin and graded forms here."""
+    ends = robin_axis_ends(mesh, a)
     h_cells = np.broadcast_to(np.asarray(mesh.h_cells[a], np.float64),
                               (mesh.nc[a],))
     graded = not bool(np.allclose(h_cells, h_cells[0], rtol=1e-12))
@@ -165,13 +163,23 @@ def local_axis_K(mesh, a, nc_local, Pdeg, k_a, n_shards_a):
         K, _ = axis_stiffness_mass(nc_local, Pdeg,
                                    h_cells if n_shards_a == 1
                                    else h_cells[0])
-        return k_a * K, False
+        if ends == (0.0, 0.0):
+            return k_a * K, False
+        if n_shards_a == 1:
+            K = k_a * K
+            K[0, 0] += ends[0]
+            K[-1, -1] += ends[1]
+            return K, False
+        return stacked_local_K(K, k_a, ends, n_shards_a), True
     blocks = []
     for s in range(n_shards_a):
         Ks, _ = axis_stiffness_mass(
             nc_local, Pdeg, h_cells[s * nc_local:(s + 1) * nc_local])
         blocks.append(k_a * Ks)
-    return np.vstack(blocks), True
+    out = np.vstack(blocks)
+    out[0, 0] += float(ends[0])
+    out[-1, -1] += float(ends[1])
+    return out, True
 
 
 def kron_laplacian_apply(x, Ks, ms, bc_marker, precision="highest",

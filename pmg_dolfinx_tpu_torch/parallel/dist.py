@@ -38,14 +38,21 @@ coarse hierarchy) and `DistPMG` with the point-Jacobi, line
 and gathered ``fdm`` / ``direct`` / ``hmg`` coarse solves, the
 non-gathered ``coarse_cfg["dist"]`` forms (``fdm``: `fdm_dist`'s pencil
 transposes; ``hmg``: `build_hmg_dist`, its bottom gathered or, with
-``bottom="fdm"``, distributed too), scalar and per-axis kappa, a scalar
-sigma, `solve`, `solve_pcg`, `solve_refined`, `load_state`. JAX's
-``pvary`` has no counterpart (ROADMAP.md, "Do not port"); ``make_mesh``
-neither (no device mesh). Not ported yet, each raising
-NotImplementedError naming its ROADMAP.md item: sigma fields, Robin
-faces, graded spacing, tensor or per-cell kappa (item 10 (b)),
-``devices=`` (the multi-process backend, item 10 (d)) and
-``precision="high"`` (item 1).
+``bottom="fdm"``, distributed too), scalar and per-axis kappa and a
+scalar sigma on every backend; on the general backends (``dofmap``,
+``lattice``) also curved hexes, DG-0 and tensor kappa (folded into G), a
+sigma field, Robin faces (their boundary mass baked into ``m3``), graded
+spacing and the gathered general ``hmg`` (`build_hmg_general`); `solve`,
+`solve_pcg`, `solve_refined` (its f64 apply picked as JAX picks it),
+`load_state`. JAX's ``pvary`` has no counterpart (ROADMAP.md, "Do not
+port"); ``make_mesh`` neither (no device mesh). Not ported yet, each
+raising NotImplementedError naming its ROADMAP.md item: the Kronecker
+family's Robin faces, graded spacing and tensor or per-cell kappa, the
+``fdm`` coarse solves on Robin or graded meshes, the distributed hmg on
+them (item 10 (b)), ``devices=`` (the multi-process backend, item 10
+(d)) and ``precision="high"`` (item 1). As in JAX, the slab's
+distributed hmg is the Kronecker h-hierarchy only; the general family's
+runs on `GridPMG` with ``shards=(S, 1, 1)``.
 """
 
 import numpy as np
@@ -565,11 +572,13 @@ class DistPMG:
     boxes);
     ``smoother``: ``"cheb"`` (point Jacobi), ``"line-y"`` / ``"line-z"``
     (``"line"`` resolves to one of them; lines along x would span
-    shards) or ``"schwarz"``; ``kappa`` a scalar or per-axis tuple,
-    ``sigma`` a scalar. Vectors in and out of `solve` / `solve_pcg` / `solve_refined` are
-    global flat vectors (numpy or tensors in, tensors on ``device``
-    out); `apply`, `operator` and `residual_norm` take the slab layout
-    of `to_dist`.
+    shards) or ``"schwarz"``; ``kappa`` a scalar or per-axis tuple and
+    ``sigma`` a scalar on every backend; on ``dofmap`` / ``lattice`` also
+    a DG-0 (array or callable) or tensor kappa, a sigma field, Robin faces
+    and graded spacing on curved or box meshes. Vectors in and out of
+    `solve` / `solve_pcg` / `solve_refined` are global flat vectors (numpy
+    or tensors in, tensors on ``device`` out); `apply`, `operator` and
+    `residual_norm` take the slab layout of `to_dist`.
     """
 
     def __init__(self, mesh, n_devices=None, degrees=(1, 3), kappa=2.0,
@@ -597,6 +606,7 @@ class DistPMG:
         self.mesh = mesh
         self.degrees = tuple(int(p) for p in degrees)
         self.sigma, sigma_field = resolve_sigma(sigma)
+        self._sigma_field = sigma_field
         if sigma_field is not None:
             if operator in ("kron", "kron_blocked"):
                 raise ValueError(
@@ -604,14 +614,21 @@ class DistPMG:
                     "— the Kronecker paths carry only a separable scalar "
                     "shift"
                 )
-            raise _todo("a sigma field")
-        if getattr(mesh, "has_robin", False):
-            raise _todo("Robin faces")
-        if getattr(mesh, "is_graded", False):
-            raise _todo("graded spacing")
+            if coarse == "fdm" or (coarse_cfg or {}).get("dist"):
+                raise ValueError(
+                    "a sigma FIELD supports the gathered coarse solvers "
+                    "(cg/smoother/direct/hmg) only"
+                )
+            if smoother != "cheb" or (coarse_cfg or {}).get(
+                    "smoother", "cheb") != "cheb":
+                raise ValueError(
+                    "line/schwarz smoothers support a scalar sigma only"
+                )
+        self._robin = bool(getattr(mesh, "has_robin", False))
+        graded = bool(getattr(mesh, "is_graded", False))
         if (not any(any(f) for f in getattr(mesh, "dirichlet_faces",
                                             ((True, True),) * 3))
-                and self.sigma == 0.0):
+                and self.sigma == 0.0 and not self._robin):
             raise ValueError(
                 "pure-Neumann problem (no Dirichlet face) with sigma=0 is "
                 "singular (constant nullspace); add a Dirichlet face, a "
@@ -637,9 +654,15 @@ class DistPMG:
                 "slab is shards=(S, 1, 1))"
             )
         kron_family = operator in ("kron", "kron_blocked")
+        # Robin faces on the general backends ride the baked pointwise
+        # shift (the boundary mass folded into m3, scalar 1.0).
         self._ops_sigma = ops_shift_scalar(mesh, self.sigma, kron_family)
         if kron_family:
             require_axis_aligned(mesh, f"DistPMG operator='{operator}'")
+            if self._robin:
+                raise _todo("Robin faces on the Kronecker family")
+            if graded:
+                raise _todo("graded spacing on the Kronecker family")
         if operator == "kron_blocked" and dtype != torch.float32:
             raise ValueError(
                 "operator='kron_blocked' is f32-only (CUDA kernels); "
@@ -650,14 +673,32 @@ class DistPMG:
         per_axis = (isinstance(kappa, (tuple, list)) and len(kappa) == 3
                     and all(np.ndim(k) == 0 for k in kappa))
         kc, kt, const = resolve_kappa_split(mesh, kappa)
-        if not per_axis and (kt is not None or not const):
-            raise _todo("a tensor or per-cell kappa")
+        if kron_family and not per_axis and (kt is not None or not const):
+            raise _todo("a tensor or per-cell kappa on the Kronecker family")
         self._kappa_raw = kappa
+        # A tensor kappa folds into G (_kappa_fold); _kc is the per-cell
+        # scalar (ones for a tensor), applied to G through scale_G.
         self._kc, self._kappa_fold = kc, kt
         self.kappa_cells = kt if kt is not None else kc
         self.kappa = float(kc[0]) if const else None
-        self.kappa_axes = resolve_kappa_axes(mesh, kappa,
-                                             split=(kc, kt, const))
+        try:
+            self.kappa_axes = resolve_kappa_axes(mesh, kappa,
+                                                 split=(kc, kt, const))
+        except ValueError:
+            if kron_family:
+                raise
+            self.kappa_axes = None
+        if coarse == "fdm":
+            if self.kappa_axes is None:
+                raise ValueError(
+                    "DistPMG: coarse='fdm' is constant-coefficient (scalar, "
+                    "per-axis or diagonal-tensor) only; use 'hmg', 'cg', "
+                    "'smoother' or 'direct'"
+                )
+            if self._robin or graded:
+                raise _todo("coarse='fdm' on a Robin-faced or graded mesh "
+                            "(the Kronecker family's fast diagonalisation "
+                            "on the slabs)")
         if precision == "high":
             raise _todo("precision='high' (bf16x3 products)", 1)
         if precision != "highest":
@@ -731,7 +772,7 @@ class DistPMG:
 
             self.data["coarse_chol"] = torch.as_tensor(
                 dense_cholesky(mesh, self.degrees[0], self.kappa_cells,
-                               self.sigma),
+                               self.sigma, sigma_field),
                 dtype=dtype, device=self.device)
         elif coarse == "fdm" and self.coarse_cfg.get("dist"):
             # The non-gathered form: pencil all_to_all transposes on the
@@ -847,7 +888,8 @@ class DistPMG:
                 Pdeg),
             weights=self._work(part.ownership_weights(Pdeg), Pdeg, dtype),
             diag_inv=self._work(part.to_dist(Pdeg, 1.0 / _shifted_diag_np(
-                mesh, Pdeg, self.kappa_cells, self.sigma)), Pdeg, dtype),
+                mesh, Pdeg, self.kappa_cells, self.sigma,
+                sigma_field=self._sigma_field)), Pdeg, dtype),
         )
         if self._line_axis is not None:
             from ..solvers.line import line_block_inverses, shard_line_blocks
@@ -861,8 +903,10 @@ class DistPMG:
         elif self._schwarz:
             lv["schwarz"] = self._slab_schwarz(Pdeg)
         if self._ops_sigma and not self._kron:
+            # sigma * (field-scaled) lumped mass, any Robin boundary mass
+            # baked in (fem.assembly.general_shift_np).
             lv["m3"] = self._work(part.to_dist(Pdeg, general_shift_np(
-                mesh, Pdeg, self.sigma)[1]), Pdeg, dtype)
+                mesh, Pdeg, self.sigma, self._sigma_field)[1]), Pdeg, dtype)
         if self._kron:
             lv.update(self._kron_arrays(Pdeg, dtype))
         elif self.operator_kind == "lattice":
@@ -884,17 +928,24 @@ class DistPMG:
         return lv
 
     def _kron_arrays(self, Pdeg, dtype, operator=None):
-        """The Kronecker family's level arrays: the LOCAL x stiffness,
-        global y/z stiffness (kappa folded in) and the duplicated-layout
-        x mass (``kron``), or the symmetrized ``kb_mats`` on the stacked
-        lattice (``kron_blocked``)."""
-        from ..ops.kron import axis_stiffness_mass, local_axis_K
+        """The Kronecker family's level arrays: the LOCAL x stiffness
+        (per-slab row-stacked where Robin ends or grading make the slabs
+        differ), global y/z stiffness (kappa and Robin ends folded in) and
+        the duplicated-layout x mass (``kron``), or the symmetrized
+        ``kb_mats`` on the stacked lattice (``kron_blocked``). Robin ends
+        and grading reach here only through the general family's f64
+        refinement apply (`_refine_apply64`)."""
+        from ..ops.kron import axis_stiffness_mass, local_axis_K, robin_axis_ends
 
         part, mesh, kax = self.part, self.mesh, self.kappa_axes
         S, npl = part.n_shards, part.local_planes(Pdeg)
         Kx, _ = local_axis_K(mesh, 0, part.cells_per_shard_x, Pdeg, kax[0], S)
-        Ky, my = axis_stiffness_mass(mesh.nc[1], Pdeg, mesh.h_cells[1])
-        Kz, mz = axis_stiffness_mass(mesh.nc[2], Pdeg, mesh.h_cells[2])
+        Ky, my = axis_stiffness_mass(
+            mesh.nc[1], Pdeg, mesh.h_cells[1],
+            robin=robin_axis_ends(mesh, 1, 1.0 / kax[1]))
+        Kz, mz = axis_stiffness_mass(
+            mesh.nc[2], Pdeg, mesh.h_cells[2],
+            robin=robin_axis_ends(mesh, 2, 1.0 / kax[2]))
         _, mx_g = axis_stiffness_mass(mesh.nc[0], Pdeg, mesh.h_cells[0])
         mx_dup = duplicate_planes(mx_g, npl, S)
         Ks = (Kx, kax[1] * Ky, kax[2] * Kz)
@@ -1108,14 +1159,19 @@ class DistPMG:
 
     def _refine_apply64(self):
         """``u64 -> A u64`` in float64 on the slab layout for
-        `solve_refined`: the slab Kronecker apply on axis-aligned meshes,
-        else the slab lattice apply with f64 geometry; built once."""
+        `solve_refined`, as the JAX package picks it: the slab Kronecker
+        apply on axis-aligned meshes with a constant (per-axis) kappa and no
+        sigma field (Robin ends and grading folded into the axis factors),
+        else the slab lattice apply with f64 geometry and ``m3``; built
+        once."""
         if getattr(self, "_apply64", None) is not None:
             return self._apply64
         f64, S, Pf = torch.float64, self.n_shards, self.degrees[-1]
         fine = self.levels[-1]
         lv64 = dict(bc_marker=self.data["levels"][-1]["bc_marker"])
-        if getattr(self.mesh, "is_axis_aligned", True):
+        if (getattr(self.mesh, "is_axis_aligned", True)
+                and self.kappa_axes is not None
+                and self._sigma_field is None):
             lv64.update(self._kron_arrays(Pf, f64, operator="kron"))
             raw = dist_kron_cycle_ops(S, sigma=self.sigma)["apply"]
             if not self._kron:  # the general layout is flat
@@ -1127,7 +1183,11 @@ class DistPMG:
         else:
             lv64.update(self._lattice_arrays(Pf, f64))
             if self._ops_sigma:
-                lv64["m3"] = self.data["levels"][-1]["m3"].to(f64)
+                from ..fem.assembly import general_shift_np
+
+                lv64["m3"] = self._work(self.part.to_dist(
+                    Pf, general_shift_np(self.mesh, Pf, self.sigma,
+                                         self._sigma_field)[1]), Pf, f64)
             raw = dist_lattice_cycle_ops(S, sigma=self._ops_sigma)["apply"]
             apply = lambda u: raw(lv64, u, fine)
         self._apply64 = apply

@@ -1,25 +1,26 @@
-"""2D/3D device-grid decomposition of the Kronecker family, every shard
-stacked on one device.
+"""2D/3D device-grid decomposition, every shard stacked on one device.
 
-Port of `pmg_dolfinx_tpu.parallel.grid2d` for the ``"kron"`` and
-``"kron_blocked"`` backends. The lattice is split into ``(sx, sy, sz)``
-boxes (any factor may be 1) with the interface planes duplicated along
-every sharded axis; ownership weights (the product of per-axis masks)
-count each dof once in a reduction. The three Kronecker terms are
-axis-separable: the K_a term is shard-partial only across a-interfaces,
-so one neighbour exchange per sharded axis reconciles everything, with no
-corner or diagonal communication.
+Port of `pmg_dolfinx_tpu.parallel.grid2d`. The lattice is split into
+``(sx, sy, sz)`` boxes (any factor may be 1) with the interface planes
+duplicated along every sharded axis; ownership weights (the product of
+per-axis masks) count each dof once in a reduction. Every operator
+backend leaves partial sums only on the duplicated interface planes, and
+every cell lands on exactly one shard per axis, so one neighbour exchange
+per sharded axis, taken in turn, reconciles edges and corners too, with no
+diagonal communication.
 
 Layout. JAX runs `GridPMG` as one ``shard_map`` program over a device
 mesh. The port runs the same SPMD program with all shards stacked on one
 device: a distributed vector is ONE tensor of shape ``(sx, sy, sz, nplx,
 nply, nplz)``, shard-major, so each shard's block is contiguous and a
-kernel takes it without a copy. Pointwise work (axpy, the bc ``where``,
-the Chebyshev and FCG updates) runs on the whole tensor; per-shard work
-(kernels 1 and 2 of ``kron_blocked``, the per-shard einsums) runs on the
-blocks. The JAX package's public duplicated layout ``(sx*nplx, sy*nply,
-sz*nplz)`` is what `GridPartition.to_dist` gives; `stack_shards` /
-`unstack_shards` convert between the two.
+kernel takes it without a copy. Per-cell and quadrature-lattice arrays
+are stacked the same way (`stack_blocks`). Pointwise work (axpy, the bc
+``where``, the Chebyshev and FCG updates) runs on the whole tensor;
+per-shard work (kernels 1 and 2 of ``kron_blocked``, K-A of
+``lattice_blocked``, the per-shard einsums) runs on the blocks. The JAX
+package's public duplicated layout ``(sx*nplx, sy*nply, sz*nplz)`` is
+what `GridPartition.to_dist` gives; `stack_shards` / `unstack_shards`
+convert between the two.
 
 The seam. Every collective of the JAX program goes through one object,
 `StackedGrid`: the non-wrapping ``ppermute`` of a plane along a grid axis,
@@ -27,21 +28,27 @@ the ``psum`` of a dot, and the ``all_gather`` / ``dynamic_slice`` of the
 global coarse solve. On the stacked layout each is an exact tensor
 operation on the three leading (shard) axes.
 
-Smoothers: point Jacobi, line relaxation along an unsharded axis (the
-global block inverses laid out like the vectors, `stacked_line_blocks`)
-and the cell-wise Schwarz blocks (per-shard dense axis transforms,
-`stacked_schwarz`, the overlap-add reconciled by the grid exchange).
-Coarse solves: ``cg``, ``smoother``, the gathered ``fdm``, ``direct``
-and ``hmg``, and the non-gathered ``coarse_cfg["dist"]`` forms: ``fdm``
-through `fdm_dist`'s pencil transposes (`StackedGrid.all_to_all`) and
-``hmg`` through `build_hmg_grid` (every h-level in the stacked layout;
-``bottom="fdm"`` makes it gather-free).
+Backends: the Kronecker family (``kron``, ``kron_blocked``; scalar kappa
+and sigma on uniform boxes with Dirichlet or Neumann faces) and the
+general family (``lattice``, ``lattice_blocked``, ``dofmap``; curved
+hexes, DG-0, per-axis and tensor kappa, sigma fields, Robin faces and
+graded spacing, the shift and the Robin boundary mass baked into one
+pointwise ``m3``). Smoothers: point Jacobi, line relaxation along an
+unsharded axis (the global block inverses laid out like the vectors,
+`stacked_line_blocks`) and the cell-wise Schwarz blocks (per-shard dense
+axis transforms, `stacked_schwarz`, the overlap-add reconciled by the
+grid exchange). Coarse solves: ``cg``, ``smoother``, the gathered
+``fdm``, ``direct`` and ``hmg``, and the non-gathered
+``coarse_cfg["dist"]`` forms: ``fdm`` through `fdm_dist`'s pencil
+transposes (`StackedGrid.all_to_all`) and ``hmg`` through
+`build_hmg_grid` (boxes) or `build_hmg_grid_general` (the general
+family), every h-level in the stacked layout. `GridPMG.solve_refined`
+runs on every backend.
 
 Not ported here, each raising NotImplementedError naming its ROADMAP.md
-item: the lattice, lattice_blocked and dofmap grid backends and with
-them `build_hmg_grid_general`, sigma fields, per-axis, tensor and
-per-cell kappa, Robin faces and graded spacing, ``solve_refined`` (item
-10 (b)), ``devices`` (the multi-process backend, item 10 (d)) and
+item: the Kronecker family's Robin faces, graded spacing and per-axis or
+tensor kappa, and the ``fdm`` coarse solves on Robin or graded meshes
+(item 10 (b)), ``devices`` (the multi-process backend, item 10 (d)) and
 ``precision="high"`` (item 1). The 1D slab (`parallel.dist.DistPMG`)
 goes through the same seam with ``shards=(S, 1, 1)``.
 """
@@ -142,13 +149,33 @@ class GridPartition:
         return np.einsum("a,b,c->abc", *ws)
 
 
+def stack_blocks(a, shards):
+    """An array over the global grid, ``(X, Y, Z, *tail)`` (a tensor), cut
+    into the ``shards`` boxes and stacked: ``(sx, sy, sz, X/sx, Y/sy,
+    Z/sz, *tail)``, contiguous. On JAX's duplicated lattice layout it is
+    `stack_shards`; on a per-cell ``(ncx, ncy, ncz, ...)`` or a
+    quadrature-lattice ``(Qx, Qy, Qz, 6)`` array it gives each shard its
+    own cells (quadrature points are cell-local, so the cut is exact)."""
+    sx, sy, sz = shards
+    X, Y, Z = a.shape[:3]
+    tail = tuple(a.shape[3:])
+    return (a.reshape((sx, X // sx, sy, Y // sy, sz, Z // sz) + tail)
+            .permute((0, 2, 4, 1, 3, 5) + tuple(range(6, 6 + len(tail))))
+            .contiguous())
+
+
 def stack_shards(dup, shards):
     """JAX's duplicated layout ``(sx*nplx, sy*nply, sz*nplz)`` (a tensor)
     -> the stacked ``(sx, sy, sz, nplx, nply, nplz)`` layout, contiguous."""
-    sx, sy, sz = shards
-    X, Y, Z = dup.shape
-    return (dup.reshape(sx, X // sx, sy, Y // sy, sz, Z // sz)
-            .permute(0, 2, 4, 1, 3, 5).contiguous())
+    return stack_blocks(dup, shards)
+
+
+def stack_gfirst(Gq, shards):
+    """The quadrature-lattice geometry ``(Qx, Qy, Qz, 6)`` (a tensor) as
+    each shard's own K-A operand, stacked: ``(sx, sy, sz, 6, Qxl, Qyl,
+    Qzl)``, every shard's block contiguous (the kernel reads it through a
+    raw pointer)."""
+    return stack_blocks(Gq, shards).movedim(-1, 3).contiguous()
 
 
 def unstack_shards(st):
@@ -296,8 +323,13 @@ def _plane_exchange_pair(grid, axis):
 
 def _stacked_contract(M, t, dim):
     """``M`` contracted with the local axis ``dim`` of every shard of the
-    stacked ``t`` (one matrix for all shards)."""
-    eq = ("ax,...xyz->...ayz", "by,...xyz->...xbz", "cz,...xyz->...xyc")
+    stacked ``t``: one matrix for all shards, or ``(S_dim, n_out, n_in)``
+    per-shard blocks along grid axis ``dim`` (a sharded graded axis)."""
+    if M.dim() == 3:
+        eq = ("iax,ijkxyz->ijkayz", "jby,ijkxyz->ijkxbz",
+              "kcz,ijkxyz->ijkxyc")
+    else:
+        eq = ("ax,...xyz->...ayz", "by,...xyz->...xbz", "cz,...xyz->...xyc")
     return torch.einsum(eq[dim], M, t)
 
 
@@ -314,7 +346,7 @@ def _grid_common_ops(shards, precision):
     def restrict_op(tr, r, level_c, level_f):
         lat = r * tr["weights_f"]
         for dim, name in enumerate(("Ix", "Iy", "Iz")):
-            lat = _stacked_contract(tr[name].T, lat, dim)
+            lat = _stacked_contract(tr[name].mT, lat, dim)
         for a in range(3):
             lat = _exchange_axis(lat, grid, a, inplace=True)
         return lat.contiguous()
@@ -419,6 +451,106 @@ def grid_kron_blocked_cycle_ops(shards, precision="highest", sigma=0.0):
                 residual=residual_op)
 
 
+_LATTICE_MATS = ("Ex", "Dx", "Ey", "Dy", "Ez", "Dz")
+
+
+def _general_apply(raw, shards, sigma):
+    """``apply(lv, x, level)`` of a general backend from its per-shard raw
+    apply (Dirichlet dofs zeroed on input, no bc rows): the partial sums on
+    the duplicated interface planes reconciled by one exchange per sharded
+    axis in turn (a general G couples the axes at a quadrature point, but
+    each cell lands on one shard per axis, so after the x exchange both
+    x-copies agree, the y exchange adds neighbours already x-summed, and so
+    on), then the pointwise shift ``sigma * m3 * x`` (``m3`` bc-zeroed,
+    a sigma field and the Robin boundary mass baked in) and the Dirichlet
+    rows."""
+    grid = StackedGrid(shards)
+
+    def apply_op(lv, x, level):
+        y = raw(lv, x, level)
+        for a in range(3):
+            y = _exchange_axis(y, grid, a, inplace=True)
+        if sigma:
+            y = y + sigma * lv["m3"] * x
+        return torch.where(lv["bc_marker"], x, y)
+
+    return apply_op
+
+
+def grid_lattice_cycle_ops(shards, precision="highest", sigma=0.0):
+    """V-cycle primitives of the plain-torch lattice backend on the box
+    partition (general hexes, DG-0 or tensor kappa folded into G): the
+    lattice apply of every shard (batched over the shard axes, each shard's
+    own quadrature-lattice geometry ``G`` ``(sx, sy, sz, Qxl, Qyl, Qzl,
+    6)`` and the LOCAL axis matrices) with ``apply_bc=False``, then
+    `_general_apply`'s exchanges, shift and bc rows; `_grid_common_ops`
+    transfers."""
+    from ..ops.kron_blocked import _check_precision
+    from ..ops.lattice import lattice_laplacian_apply
+
+    _check_precision(precision)
+    shards = _norm_shards(shards)
+
+    def raw(lv, x, level):
+        return lattice_laplacian_apply(
+            x, {k: lv[k] for k in _LATTICE_MATS}, lv["G"], lv["bc_marker"],
+            apply_bc=False)
+
+    return dict(_grid_common_ops(shards, precision),
+                apply=_general_apply(raw, shards, sigma))
+
+
+def grid_lattice_blocked_cycle_ops(shards, precision="highest", sigma=0.0):
+    """The grid lattice backend over K-A (`ops.lattice_blocked.
+    blocked_lattice_apply` with ``apply_bc=False``), one launch per shard
+    on its contiguous block of the stacked vector, marker and ``Gt``
+    ``(sx, sy, sz, 6, Qxl, Qyl, Qzl)``; a CPU tensor runs the plain
+    version per shard. The exchanges, shift and bc rows as
+    `grid_lattice_cycle_ops`."""
+    from ..ops.lattice_blocked import blocked_lattice_apply
+
+    shards = _norm_shards(shards)
+    idx = [(i, j, k) for i in range(shards[0]) for j in range(shards[1])
+           for k in range(shards[2])]
+
+    def raw(lv, x, level):
+        nc = tuple((N - 1) // level.P for N in level.shape)
+        x = x.contiguous()
+        y = torch.stack([blocked_lattice_apply(
+            x[s], lv["lb_mats"], lv["Gt"][s], lv["bc_marker"][s], nc,
+            level.P, precision=precision, apply_bc=False) for s in idx])
+        return y.reshape(x.shape)
+
+    return dict(_grid_common_ops(shards, precision),
+                apply=_general_apply(raw, shards, sigma))
+
+
+def grid_dofmap_cycle_ops(shards, sigma=0.0):
+    """Grid V-cycle primitives over the dofmap oracle (gather -> per-cell
+    sum-factorised apply -> scatter-add, `ops.laplacian`): the per-cell
+    arrays are stacked per shard (``G`` ``(sx, sy, sz, ncl, nq, 6)``,
+    ``coeff`` ``(sx, sy, sz, ncl)``, cells in the local box order) and the
+    scatter targets each shard's LOCAL box dofmap, offset per shard into the
+    stacked vector; every cell's contributions land inside its shard's
+    duplicated-plane lattice, so the same exchanges reconcile them."""
+    from ..ops.laplacian import laplacian_scatter_raw
+    from .dist import _stacked_dofmap
+
+    shards = _norm_shards(shards)
+    S = shards[0] * shards[1] * shards[2]
+
+    def raw(lv, x, level):
+        G = lv["G"]
+        y = laplacian_scatter_raw(
+            x.reshape(-1), _stacked_dofmap(lv["dofmap"], S, level.ndofs),
+            G.reshape((-1,) + tuple(G.shape[-2:])), lv["coeff"].reshape(-1),
+            lv["D"], lv["bc_marker"].reshape(-1))
+        return y.reshape(x.shape)
+
+    return dict(_grid_common_ops(shards, "highest"),
+                apply=_general_apply(raw, shards, sigma))
+
+
 def grid_coarse_hooks(part, P0):
     """Gather/slice hooks of the global coarse solve on the box partition:
     ``coarse_gather`` takes the stacked coarse vector to the global
@@ -487,11 +619,12 @@ def _hmg_grid_scaffold(mesh, shards, P0, dtype, smoother_iters,
                        min_cells, divisors, global_build, make_mesh,
                        fill_level, sizes=None, line_axis=None,
                        bottom_fdm=None, *, device):
-    """The frame of `build_hmg_grid`: divisors validation, shard-aligned
-    level sizes, the global calibration pass (``global_build(sizes) ->
-    (g_data, g_bottom)``), each level's base data (marker, diagonal,
-    weights, lmax, line blocks or Schwarz data) in the stacked layout, the
-    per-axis h-transfers and the bottom-solve hooks. The backend's
+    """The frame of `build_hmg_grid` / `build_hmg_grid_general`: divisors
+    validation, shard-aligned level sizes, the global calibration pass
+    (``global_build(sizes) -> (g_data, g_bottom)``), each level's base data
+    (marker, diagonal, weights, lmax, line blocks or Schwarz data) in the
+    stacked layout, the per-axis h-transfers (per-shard blocks on a sharded
+    graded axis) and the bottom-solve hooks. The backend's
     operator arrays come from ``fill_level(lv, spec, m, p_l, g_lv)``.
     ``bottom_fdm`` (kwargs of `make_fdm_dist`) makes the bottom the
     distributed FDM, so the hierarchy never gathers."""
@@ -563,12 +696,20 @@ def _hmg_grid_scaffold(mesh, shards, P0, dtype, smoother_iters,
     transfer, transfer_specs = [], []
     for (mc, pc), (mf, pf) in zip(zip(meshes, parts),
                                   zip(meshes[1:], parts[1:])):
-        tr = {"I" + name: t(local_axis_h_interpolation(
-            pc.cells_per_shard[a], P0, mf.nc[a] // mc.nc[a], shards[a])[0])
-            for a, name in enumerate("xyz")}
+        tr, tspec = {}, dict(weights_f=AXES)
+        for a, name in enumerate("xyz"):
+            # A sharded GRADED axis gets per-shard blocks (S_a, Nf, Nc).
+            I_a, stacked = local_axis_h_interpolation(
+                pc.cells_per_shard[a], P0, mf.nc[a] // mc.nc[a], shards[a],
+                h_fine=mf.h_cells[a] if mf.is_graded else None)
+            tr["I" + name] = t(I_a)
+            if stacked:
+                tr["I" + name] = tr["I" + name].reshape(
+                    shards[a], -1, I_a.shape[1])
+            tspec["I" + name] = (AXES[a],) if stacked else ()
         tr["weights_f"] = st(pf.ownership_weights(P0))
         transfer.append(tr)
-        transfer_specs.append(dict(Ix=(), Iy=(), Iz=(), weights_f=AXES))
+        transfer_specs.append(tspec)
 
     data = dict(levels=level_data, transfer=transfer)
     specs = dict(levels=level_specs, transfer=transfer_specs)
@@ -651,32 +792,93 @@ def build_hmg_grid(mesh, shards, P0, kappa, dtype, smoother_iters=2,
         device=device)
 
 
+
+
 def build_hmg_grid_general(mesh, shards, P0, kappa, dtype,
                            smoother_iters=2, precision="highest",
                            bottom="direct", min_cells=2, sigma=0.0,
                            divisors=None, sizes=None, smoother="cheb",
                            sigma_field=None, *, device):
-    """The general family's (curved hexes, DG-0 kappa) distributed
-    h-hierarchy on the grid: it needs the grid's lattice backend, not
-    ported yet (ROADMAP.md Queue 1 item 10 (b))."""
-    raise _todo("build_hmg_grid_general (the grid's lattice backend)",
-                "10 (b)")
+    """Distributed h-multigrid coarse hierarchy of the general family
+    (curved hexes, DG-0 or tensor kappa, sigma fields, Robin faces, graded
+    spacing) on the 2D/3D box partition, every shard stacked on
+    ``device``: the lattice twin of `build_hmg_grid`, the curved operator
+    rediscretised per h-level as `solvers.hmg.build_hmg_general` does.
+
+    Every h-level keeps the stacked duplicated-plane layout: its
+    quadrature-lattice geometry (kappa folded in) is cut per shard
+    (`stack_blocks`; quadrature points are cell-local), applies are
+    `grid_lattice_cycle_ops`, transfers the local per-axis h-interpolation
+    blocks (per shard on a sharded graded axis), and only the coarsest
+    bottom solve gathers. Calibration, diagonals, the per-level ``G`` and
+    ``m3`` (the sigma field and each level's Robin mass baked in) and the
+    bottom factor come from one global `build_hmg_general` pass over the
+    same level sizes, whose arrays are reused, not recomputed. Returns
+    ``(levels, data, specs, bottom_mode, gather, unslice, bottom_solve)``,
+    as `build_hmg_grid` (``bottom_solve`` None: the bottom gathers)."""
+    from ..fem.assembly import lumped_mass_np
+    from ..fem.mesh import BoxMesh, PerturbedBoxMesh
+    from ..ops.lattice import lattice_mats
+    from ..solvers.hmg import _level_mesh, _same_or, build_hmg_general
+    from ..solvers.line import parse_line_smoother
+
+    shards = _norm_shards(shards)
+    line_axis = (None if smoother == "schwarz" else parse_line_smoother(
+        smoother, mesh, kappa,
+        allowed=tuple(a for a, sh in enumerate(shards) if sh == 1)))
+
+    def global_build(sizes):
+        _, g_data, g_bottom, _ = build_hmg_general(
+            mesh, P0, kappa, dtype, smoother_iters=smoother_iters,
+            precision=precision, bottom=bottom, min_cells=min_cells,
+            sigma=sigma, sigma_field=sigma_field, sizes=sizes,
+            smoother=smoother, device=device)
+        return g_data, g_bottom
+
+    if isinstance(mesh, PerturbedBoxMesh):
+        make = _level_mesh(mesh, PerturbedBoxMesh, warp=mesh._warp)
+    else:
+        make = _level_mesh(mesh, BoxMesh)
+    robin = bool(getattr(mesh, "has_robin", False))
+
+    def fill_level(lv, spec, m, p_l, g_lv):
+        lv["G"] = stack_blocks(g_lv["G"], shards)
+        spec["G"] = AXES
+        if sigma or robin:
+            m3 = (_host(g_lv["m3"]) if "m3" in g_lv
+                  else lumped_mass_np(m, P0, bc_zero=True))
+            lv["m3"] = stack_shards(torch.as_tensor(
+                p_l.to_dist(P0, m3), dtype=dtype, device=device), shards)
+            spec["m3"] = AXES
+        lv.update(lattice_mats(p_l.cells_per_shard, P0, dtype, device))
+        spec.update({k: () for k in _LATTICE_MATS})
+
+    return _hmg_grid_scaffold(
+        mesh, shards, P0, dtype, smoother_iters, min_cells, divisors,
+        global_build, lambda nc: _same_or(mesh, nc, make), fill_level,
+        sizes=sizes, line_axis=line_axis, device=device)
 
 
 class GridPMG:
     """p-multigrid over a 2D/3D device grid, every shard stacked on one
     device (``device``, CUDA unless the caller asks for the CPU).
 
-    The JAX package's signature: operator backends ``"kron"`` (plain
-    torch, any float dtype) and ``"kron_blocked"`` (the CUDA kernels,
-    float32); coarse solvers ``"cg"`` (default), ``"smoother"``, the
+    The JAX package's signature. Operator backends: ``"kron"`` (plain
+    torch, any float dtype) and ``"kron_blocked"`` (the CUDA kernels #1-#9,
+    float32) on uniform boxes with a scalar kappa; ``"lattice"`` (plain
+    torch), ``"lattice_blocked"`` (K-A once per shard, float32) and
+    ``"dofmap"`` on curved hexes with a scalar, per-axis, DG-0 (array or
+    callable) or tensor kappa, a sigma field and Robin faces or graded
+    spacing. Coarse solvers ``"cg"`` (default), ``"smoother"``, the
     gathered ``"fdm"``, ``"direct"`` and ``"hmg"``, and with
     ``coarse_cfg=dict(dist=True)`` the non-gathered ``"fdm"`` (pencil
-    transposes) and ``"hmg"`` (`build_hmg_grid`); smoothers ``"cheb"`` (point
+    transposes) and ``"hmg"`` (`build_hmg_grid` on constant-kappa boxes,
+    `build_hmg_grid_general` otherwise); smoothers ``"cheb"`` (point
     Jacobi), ``"line"`` / ``"line-x|y|z"`` (the line axis unsharded) and
-    ``"schwarz"`` (any layout); scalar ``kappa`` and ``sigma``. Methods `solve`, `solve_pcg`, `to_dist`,
-    `from_dist` and `load_state`; vectors in and out are global flat
-    vectors (numpy or tensors in, tensors on ``device`` out).
+    ``"schwarz"`` (any layout). Methods `solve`, `solve_pcg`,
+    `solve_refined`, `to_dist`, `from_dist` and `load_state`; vectors in
+    and out are global flat vectors (numpy or tensors in, tensors on
+    ``device`` out).
     """
 
     def __init__(self, mesh, shards=(2, 2), degrees=(1, 3), kappa=2.0,
@@ -685,8 +887,14 @@ class GridPMG:
                  calibration_iters=DEFAULT_CALIBRATION_ITERS,
                  operator="kron", precision="highest", sigma=0.0,
                  smoother="cheb", *, device="cuda"):
-        from ..fem.assembly import resolve_kappa_axes, resolve_kappa_split
+        from ..fem.assembly import (
+            ops_shift_scalar,
+            resolve_kappa_axes,
+            resolve_kappa_split,
+            resolve_sigma,
+        )
         from ..fem.mesh import require_axis_aligned
+        from ..solvers.line import parse_line_smoother
 
         self.part = GridPartition(mesh, shards)
         shards = self.part.shards
@@ -694,22 +902,29 @@ class GridPMG:
             raise _todo("devices= (the multi-process torch.distributed "
                         "backend; the port stacks every shard on one "
                         "device)", "10 (d)")
-        if callable(sigma):
+        self.sigma, self._sigma_field = resolve_sigma(sigma)
+        if self._sigma_field is not None:
             if operator in ("kron", "kron_blocked"):
                 raise ValueError(
                     "a sigma FIELD (callable) requires a general backend "
                     "— the Kronecker paths carry only a separable scalar "
                     "shift"
                 )
-            raise _todo("a sigma field", "10 (b)")
-        self.sigma = float(sigma)
-        if getattr(mesh, "has_robin", False):
-            raise _todo("Robin faces", "10 (b)")
-        if getattr(mesh, "is_graded", False):
-            raise _todo("graded spacing", "10 (b)")
+            if coarse == "fdm":
+                raise ValueError(
+                    "a sigma FIELD supports cg/smoother/direct/hmg "
+                    "coarse solvers only"
+                )
+            if smoother != "cheb" or (coarse_cfg or {}).get(
+                    "smoother", "cheb") != "cheb":
+                raise ValueError(
+                    "line/schwarz smoothers support a scalar sigma only"
+                )
+        self._robin = bool(getattr(mesh, "has_robin", False))
+        graded = bool(getattr(mesh, "is_graded", False))
         if (not any(any(f) for f in getattr(mesh, "dirichlet_faces",
                                             ((True, True),) * 3))
-                and self.sigma == 0.0):
+                and self.sigma == 0.0 and not self._robin):
             raise ValueError(
                 "pure-Neumann problem (no Dirichlet face) with sigma=0 is "
                 "singular (constant nullspace); add a Dirichlet face, a "
@@ -717,8 +932,6 @@ class GridPMG:
             )
         # Line blocks need the line axis unsharded (lines stay within a
         # shard); Schwarz blocks are cell-local, so any layout works.
-        from ..solvers.line import parse_line_smoother
-
         self._schwarz = smoother == "schwarz"
         self._line_axis = (None if self._schwarz else parse_line_smoother(
             smoother, mesh, kappa,
@@ -737,10 +950,16 @@ class GridPMG:
                 "(choose 'kron', 'kron_blocked', 'lattice', "
                 "'lattice_blocked' or 'dofmap')"
             )
-        if operator not in ("kron", "kron_blocked"):
-            raise _todo(f"operator={operator!r}", "10 (b)")
-        require_axis_aligned(mesh, f"GridPMG operator='{operator}'")
-        if operator == "kron_blocked" and dtype != torch.float32:
+        kron_family = operator in ("kron", "kron_blocked")
+        if kron_family:
+            require_axis_aligned(mesh, f"GridPMG operator='{operator}'")
+            if self._robin:
+                raise _todo("Robin faces on the Kronecker family", "10 (b)")
+            if graded:
+                raise _todo("graded spacing on the Kronecker family",
+                            "10 (b)")
+        if (operator in ("kron_blocked", "lattice_blocked")
+                and dtype != torch.float32):
             raise ValueError(
                 f"operator='{operator}' is f32-only (CUDA kernels); "
                 f"got dtype={dtype}"
@@ -755,13 +974,35 @@ class GridPMG:
         if precision != "highest":
             raise ValueError(
                 f"precision must be 'highest' or 'high', got {precision!r}")
-        kc, kt, const = resolve_kappa_split(mesh, kappa)
-        if kt is not None or not const:
-            raise _todo("a per-axis, tensor or per-cell kappa", "10 (b)")
-        self.kappa_axes = resolve_kappa_axes(mesh, kappa,
-                                             split=(kc, kt, const))
-        self._kappa_cells = kc
-        self.kappa = float(kc[0])
+        self._kappa_raw = kappa
+        self._kc, self._kappa_fold, const = resolve_kappa_split(mesh, kappa)
+        # A tensor kappa folds into G (_kappa_fold); _kc is the per-cell
+        # scalar (ones for a tensor), applied to G through scale_G.
+        self.kappa_cells = (self._kappa_fold if self._kappa_fold is not None
+                            else self._kc)
+        self.kappa = float(self._kc[0]) if const else None
+        if kron_family and (self._kappa_fold is not None or not const):
+            raise _todo("a per-axis, tensor or per-cell kappa on the "
+                        "Kronecker family", "10 (b)")
+        try:
+            self.kappa_axes = resolve_kappa_axes(
+                mesh, kappa, split=(self._kc, self._kappa_fold, const))
+        except ValueError:
+            if kron_family:
+                raise
+            self.kappa_axes = None
+        if coarse == "fdm":
+            require_axis_aligned(mesh, "GridPMG coarse='fdm'")
+            if self.kappa_axes is None:
+                raise ValueError(
+                    "GridPMG: coarse='fdm' is constant-coefficient "
+                    "(scalar, per-axis or diagonal-tensor) only; use "
+                    "'hmg', 'cg', 'smoother' or 'direct'"
+                )
+            if self._robin or graded:
+                raise _todo("coarse='fdm' on a Robin-faced or graded mesh "
+                            "(the Kronecker family's fast diagonalisation "
+                            "on the device grid)", "10 (b)")
         self.mesh = mesh
         self.shards = shards
         self.grid = StackedGrid(shards)
@@ -772,12 +1013,24 @@ class GridPMG:
         self.coarse = coarse
         self.coarse_cfg = dict(coarse_cfg or {})
         self.operator_kind = operator
+        self._kron = kron_family
         self.eigs = []
+        # Robin faces on the general backends ride the baked pointwise
+        # shift (the boundary mass folded into m3, scalar 1.0).
+        self._ops_sigma = ops_shift_scalar(mesh, self.sigma, kron_family)
         if operator == "kron_blocked":
             ops = grid_kron_blocked_cycle_ops(shards, precision,
                                               sigma=self.sigma)
-        else:
+        elif operator == "kron":
             ops = grid_kron_cycle_ops(shards, precision, sigma=self.sigma)
+        elif operator == "lattice_blocked":
+            ops = grid_lattice_blocked_cycle_ops(shards, precision,
+                                                 sigma=self._ops_sigma)
+        elif operator == "lattice":
+            ops = grid_lattice_cycle_ops(shards, precision,
+                                         sigma=self._ops_sigma)
+        else:
+            ops = grid_dofmap_cycle_ops(shards, sigma=self._ops_sigma)
         if coarse in ("fdm", "direct", "hmg"):
             coarse_gather, coarse_slice = grid_coarse_hooks(
                 self.part, self.degrees[0])
@@ -832,7 +1085,8 @@ class GridPMG:
             from ..solvers.pmg import dense_cholesky
 
             self.data["coarse_chol"] = torch.as_tensor(
-                dense_cholesky(mesh, self.degrees[0], self.kappa, self.sigma),
+                dense_cholesky(mesh, self.degrees[0], self.kappa_cells,
+                               self.sigma, self._sigma_field),
                 dtype=dtype, device=self.device)
         elif coarse == "fdm" and self.coarse_cfg.get("dist"):
             # The non-gathered form: pencil all_to_all transposes per
@@ -851,7 +1105,7 @@ class GridPMG:
             from ..solvers.fdm import FastDiagonalizationSolver
 
             fd = FastDiagonalizationSolver(
-                mesh, self.degrees[0], kappa=self.kappa, dtype=dtype,
+                mesh, self.degrees[0], kappa=self.kappa_axes, dtype=dtype,
                 precision=precision, sigma=self.sigma, device=self.device,
             )
             self.data["fdm"] = dict(
@@ -863,33 +1117,50 @@ class GridPMG:
             self.coarse_cfg["fdm_trims"] = fd.trims
 
     def _build_hmg(self, smoother_iters):
-        """The ``hmg`` coarse solve: with ``coarse_cfg["dist"]`` every
-        h-level in the stacked layout (`build_hmg_grid`); else the gathered
-        global `build_hmg` hierarchy, solved once on the stack."""
-        from ..solvers.hmg import build_hmg
+        """The ``hmg`` coarse solve. Constant-kappa axis-aligned boxes ride
+        the Kronecker h-hierarchy, the general family (curved hexes, DG-0
+        or off-diagonal tensor kappa, a sigma field) the rediscretised
+        lattice one. With ``coarse_cfg["dist"]`` every h-level stays in the
+        stacked layout (`build_hmg_grid` / `build_hmg_grid_general`); else
+        the gathered global hierarchy (`build_hmg` / `build_hmg_general`)
+        is solved once on the stack."""
+        from ..fem.assembly import ops_shift_scalar
+        from ..solvers.hmg import build_hmg, build_hmg_general
         from ..solvers.pmg import kron_cycle_ops
 
-        cfg, P0 = self.coarse_cfg, self.degrees[0]
+        mesh, cfg, P0 = self.mesh, self.coarse_cfg, self.degrees[0]
         kw = dict(smoother_iters=smoother_iters, precision=self.precision,
                   bottom=cfg.get("bottom", "direct"),
                   min_cells=cfg.get("min_cells", 2), sigma=self.sigma,
                   sizes=cfg.get("sizes"), smoother=cfg.get("smoother", "cheb"),
                   device=self.device)
+        box = (getattr(mesh, "is_axis_aligned", True)
+               and self.kappa_axes is not None and self._sigma_field is None)
         if cfg.get("dist"):
+            build = build_hmg_grid if box else build_hmg_grid_general
+            kappa = self.kappa_axes if box else self._kappa_raw
+            extra = {} if box else dict(sigma_field=self._sigma_field)
             (levels, data, _, bottom, gather, unslice,
-             bottom_solve) = build_hmg_grid(
-                self.mesh, self.shards, P0, self.kappa_axes, self.dtype,
-                divisors=cfg.get("divisors"), **kw)
-            hmg_ops = dict(grid_kron_cycle_ops(self.shards, self.precision,
-                                               sigma=self.sigma),
-                           coarse_gather=gather, coarse_slice=unslice)
+             bottom_solve) = build(mesh, self.shards, P0, kappa, self.dtype,
+                                   divisors=cfg.get("divisors"), **kw,
+                                   **extra)
+            core = (grid_kron_cycle_ops(self.shards, self.precision,
+                                        sigma=self.sigma) if box else
+                    grid_lattice_cycle_ops(
+                        self.shards, self.precision,
+                        sigma=ops_shift_scalar(mesh, self.sigma)))
+            hmg_ops = dict(core, coarse_gather=gather, coarse_slice=unslice)
             if bottom_solve is not None:
                 hmg_ops["fdm_dist"] = bottom_solve
             cfg.update(hmg_dist=True)
-        else:
-            levels, data, bottom = build_hmg(self.mesh, P0, self.kappa_axes,
+        elif box:
+            levels, data, bottom = build_hmg(mesh, P0, self.kappa_axes,
                                              self.dtype, **kw)
             hmg_ops = kron_cycle_ops(self.precision, sigma=self.sigma)
+        else:
+            levels, data, bottom, hmg_ops = build_hmg_general(
+                mesh, P0, self._kappa_raw, self.dtype,
+                sigma_field=self._sigma_field, **kw)
         self.data["hmg"] = data
         cfg.update(hmg_levels=levels, hmg_ops=hmg_ops, hmg_bottom=bottom,
                    cycles=cfg.get("cycles", 3))
@@ -902,28 +1173,59 @@ class GridPMG:
             t = t.to(dtype)
         return stack_shards(t, self.shards)
 
-    def _build_level(self, Pdeg):
+    def _build_level(self, Pdeg, dtype=None, include_diag=True,
+                     backend=None):
         """The per-level arrays under the JAX package's names, vectors in
-        the stacked layout: ``bc_marker``, ``weights``, ``diag_inv`` and
-        the backend's ``K*``/``m*`` (kron) or ``kb_mats`` (kron_blocked,
-        grid-stacked) with its per-shard ``kb_blocks``, and the smoother's
-        ``line_inv`` or ``schwarz``."""
-        from ..ops.kron import axis_stiffness_mass, local_axis_K
+        the stacked layout: ``bc_marker``, ``weights``, with
+        ``include_diag`` ``diag_inv`` and the smoother's ``line_inv`` or
+        ``schwarz``, ``m3`` (a general backend with a shift, a sigma field
+        or Robin faces) and the arrays of ``backend`` (default: the
+        hierarchy's): ``K*``/``m*`` (kron), ``kb_mats`` with its per-shard
+        ``kb_blocks`` (kron_blocked), ``G`` and ``E*``/``D*`` (lattice),
+        ``Gt`` and ``lb_mats`` (lattice_blocked), or ``dofmap``, ``G``,
+        ``coeff`` and ``D`` (dofmap). `solve_refined` builds its float64
+        fine level here."""
+        from ..fem.assembly import general_shift_np
         from .dist import _shifted_diag_np
 
-        part, mesh, dtype = self.part, self.mesh, self.dtype
-        shards = self.shards
+        dtype = dtype or self.dtype
+        backend = backend or self.operator_kind
+        part, mesh = self.part, self.mesh
         lv = dict(
             bc_marker=self._stacked(
                 part.to_dist(Pdeg, mesh.boundary_dof_marker(Pdeg)) > 0.5),
             weights=self._stacked(part.ownership_weights(Pdeg), dtype),
-            diag_inv=self._stacked(part.to_dist(Pdeg, 1.0 / _shifted_diag_np(
-                mesh, Pdeg, self._kappa_cells, self.sigma)), dtype),
         )
-        if self._line_axis is not None:
-            lv["line_inv"] = self._stacked_line_blocks(Pdeg)
-        elif self._schwarz:
-            lv["schwarz"] = self._stacked_schwarz(Pdeg)
+        if include_diag:
+            lv["diag_inv"] = self._stacked(part.to_dist(
+                Pdeg, 1.0 / _shifted_diag_np(
+                    mesh, Pdeg, self.kappa_cells, self.sigma,
+                    sigma_field=self._sigma_field)), dtype)
+            if self._line_axis is not None:
+                lv["line_inv"] = self._stacked_line_blocks(Pdeg)
+            elif self._schwarz:
+                lv["schwarz"] = self._stacked_schwarz(Pdeg)
+        if self._ops_sigma and backend not in ("kron", "kron_blocked"):
+            # sigma * (field-scaled) lumped mass, any Robin boundary mass
+            # baked in (fem.assembly.general_shift_np).
+            lv["m3"] = self._stacked(part.to_dist(Pdeg, general_shift_np(
+                mesh, Pdeg, self.sigma, self._sigma_field)[1]), dtype)
+        if backend in ("kron", "kron_blocked"):
+            lv.update(self._kron_arrays(Pdeg, dtype, backend))
+        elif backend == "dofmap":
+            lv.update(self._dofmap_arrays(Pdeg, dtype))
+        else:
+            lv.update(self._lattice_arrays(Pdeg, dtype, backend))
+        return lv
+
+    def _kron_arrays(self, Pdeg, dtype, backend):
+        """The Kronecker family's level arrays: the local per-shard axis
+        stiffness and the duplicated-layout axis masses (``kron``), or the
+        grid-stacked ``kb_mats`` and their per-shard ``kb_blocks``
+        (``kron_blocked``)."""
+        from ..ops.kron import axis_stiffness_mass, local_axis_K
+
+        part, mesh, shards = self.part, self.mesh, self.shards
         npls = part.local_shape(Pdeg)
         Ks_local, ms_dup = [], []
         for a in range(3):
@@ -932,7 +1234,7 @@ class GridPMG:
             _, mg = axis_stiffness_mass(mesh.nc[a], Pdeg, mesh.h_cells[a])
             Ks_local.append(Kl)
             ms_dup.append(duplicate_planes(mg, npls[a], shards[a]))
-        if self.operator_kind == "kron_blocked":
+        if backend == "kron_blocked":
             from ..ops.kron_blocked import (
                 checked_face_masks,
                 grid_symmetrized_mats,
@@ -943,17 +1245,65 @@ class GridPMG:
                                     mesh.boundary_dof_marker(Pdeg))
             fm_dup = None if fm is None else tuple(
                 duplicate_planes(fm[a], npls[a], shards[a]) for a in range(3))
-            lv["kb_mats"], _ = grid_symmetrized_mats(
+            kb, _ = grid_symmetrized_mats(
                 Ks_local, ms_dup, shards, dtype, fm_dup, band=Pdeg,
                 device=self.device)
-            lv["kb_blocks"] = shard_blocks(lv["kb_mats"])
-        else:
-            for a, name in enumerate("xyz"):
-                lv["K" + name] = torch.as_tensor(Ks_local[a], dtype=dtype,
-                                                 device=self.device)
-                lv["m" + name] = torch.as_tensor(ms_dup[a], dtype=dtype,
-                                                 device=self.device)
-        return lv
+            return dict(kb_mats=kb, kb_blocks=shard_blocks(kb))
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+        out = {}
+        for a, name in enumerate("xyz"):
+            out["K" + name] = t(Ks_local[a])
+            out["m" + name] = t(ms_dup[a])
+        return out
+
+    def _lattice_arrays(self, Pdeg, dtype, backend):
+        """The lattice backends' level arrays: the global quadrature-lattice
+        geometry (kappa folded in: a DG-0 kappa through `scale_G`, a tensor
+        through the geometry factors) cut per shard, as ``G`` with the
+        LOCAL axis matrices (``lattice``) or as K-A's ``Gt`` with
+        ``lb_mats`` (``lattice_blocked``)."""
+        from ..fem.assembly import geometry_factors_np, scale_G
+        from ..ops.lattice import geometry_to_qlattice, lattice_mats
+
+        part, mesh = self.part, self.mesh
+        G_cells, _ = geometry_factors_np(mesh, Pdeg, kappa=self._kappa_fold)
+        Gq = torch.as_tensor(geometry_to_qlattice(
+            scale_G(G_cells, self._kc, self._kappa_fold), mesh.nc, Pdeg),
+            dtype=dtype, device=self.device)
+        if backend == "lattice_blocked":
+            from ..ops.lattice_blocked import lattice_blocked_mats
+
+            return dict(Gt=stack_gfirst(Gq, self.shards),
+                        lb_mats=lattice_blocked_mats(
+                            part.cells_per_shard, Pdeg, dtype,
+                            device=self.device))
+        return dict(lattice_mats(part.cells_per_shard, Pdeg, dtype,
+                                 self.device),
+                    G=stack_blocks(Gq, self.shards))
+
+    def _dofmap_arrays(self, Pdeg, dtype):
+        """The dofmap backend's level arrays: the per-cell ``G`` (a tensor
+        kappa folded in) and ``coeff`` cut per shard (the global cell order
+        is x slowest, z fastest, so ``(ncells, ...)`` reshapes to ``(ncx,
+        ncy, ncz, ...)``), the shard's LOCAL box dofmap and ``D``."""
+        from ..fem.assembly import geometry_factors_np
+        from ..fem.gll import derivative_matrix
+        from ..fem.mesh import BoxMesh
+
+        part, mesh, shards = self.part, self.mesh, self.shards
+        G_cells, _ = geometry_factors_np(mesh, Pdeg, kappa=self._kappa_fold)
+        nq = G_cells.shape[1]
+        t = lambda a: torch.tensor(np.asarray(a), dtype=dtype,
+                                   device=self.device)
+        return dict(
+            G=stack_blocks(t(G_cells.reshape(tuple(mesh.nc) + (nq, 6))),
+                           shards).reshape(shards + (-1, nq, 6)),
+            coeff=stack_blocks(t(self._kc.reshape(tuple(mesh.nc))),
+                               shards).reshape(shards + (-1,)),
+            dofmap=torch.tensor(BoxMesh(part.cells_per_shard).dofmap(Pdeg),
+                                dtype=torch.int64, device=self.device),
+            D=t(derivative_matrix(Pdeg)),
+        )
 
     def _stacked_line_blocks(self, Pdeg):
         """The global line-block inverses in the stacked layout
@@ -961,8 +1311,8 @@ class GridPMG:
         from ..solvers.line import line_block_inverses
 
         return stacked_line_blocks(
-            line_block_inverses(self.mesh, Pdeg, self.kappa, self._line_axis,
-                                sigma=self.sigma),
+            line_block_inverses(self.mesh, Pdeg, self._kappa_raw,
+                                self._line_axis, sigma=self.sigma),
             self.part, Pdeg, self._line_axis, self.dtype, self.device)
 
     def _stacked_schwarz(self, Pdeg):
@@ -970,7 +1320,8 @@ class GridPMG:
         (`stacked_schwarz`)."""
         from ..solvers.schwarz import build_schwarz_np
 
-        swg = build_schwarz_np(self.mesh, Pdeg, self.kappa, sigma=self.sigma)
+        swg = build_schwarz_np(self.mesh, Pdeg, self._kappa_raw,
+                               sigma=self.sigma)
         return stacked_schwarz(swg, self.part, Pdeg, self.dtype, self.device)
 
     # -- API -------------------------------------------------------------
@@ -984,8 +1335,12 @@ class GridPMG:
     def to_dist(self, u, level=-1):
         """A global flat vector (numpy or tensor) -> the stacked layout on
         the device, in the working dtype."""
+        return self._dist(u, level, self.dtype)
+
+    def _dist(self, u, level, dtype):
+        """`to_dist` in ``dtype``."""
         glob = self.mesh.lattice_shape(self.degrees[level])
-        u = torch.as_tensor(u).to(device=self.device, dtype=self.dtype)
+        u = torch.as_tensor(u).to(device=self.device, dtype=dtype)
         return self.grid.local_slices(u.reshape(glob),
                                       self.part.local_shape(
                                           self.degrees[level]))
@@ -1012,9 +1367,12 @@ class GridPMG:
                 mine["kb_blocks"] = shard_blocks(mine["kb_mats"])
         for i, tr in enumerate(data.get("transfer", ())):
             _merge_state(self.data["transfer"][i], tr, f"transfer[{i}]")
-        for key in ("fdm", "hmg"):
+        for key in ("fdm", "hmg", "coarse_chol"):
             if key in data and key in self.data:
-                _merge_state(self.data[key], data[key], key)
+                if key == "coarse_chol":
+                    _merge_state(self.data, {key: data[key]}, key)
+                else:
+                    _merge_state(self.data[key], data[key], key)
 
     def _vcycle(self, b, u):
         return v_cycle(self.data, b, u, levels=self.levels,
@@ -1029,6 +1387,14 @@ class GridPMG:
                                  coarse=self.coarse,
                                  coarse_cfg=self.coarse_cfg, ops=self._ops)
 
+    def _warn_tensor(self):
+        from ..solvers.pmg import warn_tensor_stationary
+
+        warn_tensor_stationary(self._kappa_fold, self.kappa_axes,
+                               self.operator_kind,
+                               line=(self._line_axis is not None
+                                     or self._schwarz))
+
     def apply(self, bd, ud):
         """One V-cycle on stacked vectors."""
         return self._vcycle(bd, ud)
@@ -1039,6 +1405,7 @@ class GridPMG:
         Returns ``(u, residual_norms)``: the global flat solution on the
         device and the fine residual norm after each cycle, read back once
         at the end."""
+        self._warn_tensor()
         bd = self.to_dist(b)
         if u0 is not None:
             ud = self.to_dist(u0)
@@ -1074,5 +1441,60 @@ class GridPMG:
         )
         return self.from_dist(u), int(info["niter"])
 
-    def solve_refined(self, *args, **kwargs):
-        raise _todo("solve_refined on the device grid", "10 (b)")
+    def _refine_apply64(self):
+        """``(lv64, apply64)`` of `solve_refined`: the float64 fine level
+        (`_build_level` without diagonal; the f32-only kernels pair with
+        their plain twins, ``lattice_blocked`` with ``lattice`` and
+        ``kron_blocked`` with ``kron``, the same discrete operator) and its
+        stacked apply; built once."""
+        if getattr(self, "_apply64", None) is None:
+            kind = self.operator_kind
+            backend = {"lattice_blocked": "lattice",
+                       "kron_blocked": "kron"}.get(kind, kind)
+            lv64 = self._build_level(self.degrees[-1], torch.float64,
+                                     include_diag=False, backend=backend)
+            if backend == "kron":
+                ops64 = grid_kron_cycle_ops(self.shards, sigma=self.sigma)
+            elif backend == "dofmap":
+                ops64 = grid_dofmap_cycle_ops(self.shards,
+                                              sigma=self._ops_sigma)
+            else:
+                ops64 = grid_lattice_cycle_ops(self.shards,
+                                               sigma=self._ops_sigma)
+            self._apply64 = (lv64, ops64["apply"])
+        return self._apply64
+
+    def solve_refined(self, b, num_cycles=15, rtol=0.0, residuals=True,
+                      u0=None, fmg=False):
+        """Mixed-precision iterative refinement over the grid: a float64
+        residual through the f64 fine-level apply (`_refine_apply64`) with
+        the working-dtype V-cycle as the error smoother, on every backend.
+        ``u0`` resumes from an iterate, ``fmg=True`` starts from the
+        working-dtype FMG guess. Returns ``(u64, residual_norms)`` (the f64
+        residual norm before each cycle); with ``rtol`` the loop stops once
+        it falls below ``rtol * |b|``, reading the norm once per cycle."""
+        self._warn_tensor()
+        lv64, apply64 = self._refine_apply64()
+        f64, fine = torch.float64, self.levels[-1]
+        b64 = self._dist(b, -1, f64)
+        if u0 is not None:
+            u64 = self._dist(u0, -1, f64)
+        elif fmg:
+            u64 = self._fmg_guess(b64.to(self.dtype)).to(f64)
+        else:
+            u64 = torch.zeros_like(b64)
+        r0 = (float(np.linalg.norm(np.asarray(
+            torch.as_tensor(b).detach().cpu(), dtype=np.float64)))
+            if rtol else None)
+        norms = []
+        for _ in range(num_cycles):
+            r64 = b64 - apply64(lv64, u64, fine)
+            rn = torch.sqrt(self.grid.dot(r64, r64, lv64["weights"]))
+            r = r64.to(self.dtype)
+            u64 = u64 + self._vcycle(r, torch.zeros_like(r)).to(f64)
+            norms.append(rn)
+            if rtol and float(rn) < rtol * r0:
+                break
+        rnorms = ([float(v) for v in torch.stack(norms).cpu().numpy()]
+                  if residuals and norms else [])
+        return self.from_dist(u64), rnorms

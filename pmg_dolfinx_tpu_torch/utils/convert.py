@@ -24,7 +24,11 @@ calibration parity.
 
 `grid_data_from_numpy` does the same for the device grid: it turns a
 numpy copy of the JAX `GridPMG.data` into the data of the port's
-`parallel.grid2d.GridPMG` (its `load_state` takes the result).
+`parallel.grid2d.GridPMG` (its `load_state` takes the result), every
+backend's level arrays (the Kronecker factors, the general family's
+``G``, ``Gt``, ``lb_mats``, ``dofmap``, ``coeff`` and ``m3``) and the
+coarse data (``fdm``, ``coarse_chol``, ``hmg`` with the h-levels of
+`build_hmg_grid` or `build_hmg_grid_general`) in the stacked layout.
 
 `dist_data_from_numpy` does the same for the 1D slab: it turns a numpy
 copy of the JAX `DistPMG.data` into the data of the port's
@@ -95,7 +99,31 @@ def hierarchy_data_from_numpy(tree, device, dtype):
 
 # The lattice-shaped arrays of a JAX GridPMG level or transfer: JAX keeps
 # them in its global duplicated layout, the port stacks the shards.
-_GRID_LATTICE_KEYS = ("bc_marker", "weights", "diag_inv", "weights_f")
+_GRID_LATTICE_KEYS = ("bc_marker", "weights", "diag_inv", "weights_f", "m3")
+
+
+def _grid_level_array(k, t, shards):
+    """One array of a JAX GridPMG level or transfer in the port's stacked
+    layout: the duplicated-layout lattices (`_GRID_LATTICE_KEYS`), the
+    general family's quadrature-lattice ``G`` ``(Qx, Qy, Qz, 6)`` and
+    K-A's ``Gt`` ``(6, Qx, Qy, Qz)`` cut per shard, the dofmap backend's
+    box-blocked per-cell ``G`` ``(ncx, ncy, ncz, nq, 6)`` and ``coeff``
+    ``(ncx, ncy, ncz)`` stacked with each shard's cells flattened; the
+    rest (axis factors, ``lb_mats``, the local dofmap) as they are."""
+    from ..parallel.grid2d import stack_blocks, stack_gfirst, stack_shards
+
+    if k in _GRID_LATTICE_KEYS:
+        return stack_shards(t, shards)
+    if k == "Gt":
+        return stack_gfirst(t.movedim(0, -1), shards)
+    if k == "G" and t.dim() == 4:
+        return stack_blocks(t, shards)
+    if k == "G" and t.dim() == 5:
+        return stack_blocks(t, shards).reshape(
+            tuple(shards) + (-1,) + tuple(t.shape[3:]))
+    if k == "coeff" and t.dim() == 3:
+        return stack_blocks(t, shards).reshape(tuple(shards) + (-1,))
+    return t
 
 
 def grid_data_from_numpy(tree, grid, device, dtype):
@@ -103,23 +131,24 @@ def grid_data_from_numpy(tree, grid, device, dtype):
     numpy copy of the JAX `GridPMG.data` (``jax.tree.map(np.asarray,
     grid.data)``). ``grid`` is the port's `GridPMG` (or `GridPartition`)
     of the same mesh and shards. The lattice arrays (``bc_marker``,
-    ``weights``, ``diag_inv``, ``weights_f``) go from JAX's global
-    duplicated layout ``(sx*nplx, sy*nply, sz*nplz)`` to the stacked
-    ``(sx, sy, sz, nplx, nply, nplz)``; the grid-stacked ``kb_mats``, the
-    ``K*``/``m*`` factors, the interpolation matrices, ``lmax`` and the
-    global ``fdm`` arrays keep their layout. Float arrays are cast to
-    ``dtype``."""
+    ``weights``, ``diag_inv``, ``weights_f``, ``m3``) go from JAX's
+    global duplicated layout ``(sx*nplx, sy*nply, sz*nplz)`` to the
+    stacked ``(sx, sy, sz, nplx, nply, nplz)``; the general family's
+    geometry (``G``, ``Gt``, ``coeff``) is cut per shard
+    (`_grid_level_array`); the grid-stacked ``kb_mats``, ``lb_mats``, the
+    ``K*``/``m*`` and ``E*``/``D*`` factors, the local dofmap, the
+    interpolation matrices, ``lmax`` and the global ``fdm`` and
+    ``coarse_chol`` arrays keep their layout. The ``hmg`` data (gathered,
+    or the distributed h-levels of `build_hmg_grid` /
+    `build_hmg_grid_general`) is laid out as the port's own. Float arrays
+    are cast to ``dtype``."""
     from ..parallel.grid2d import stack_shards
 
     shards = getattr(grid, "part", grid).shards
 
     def one(d):
-        out = {}
-        for k, v in d.items():
-            t = _convert(v, device, dtype)
-            out[k] = (stack_shards(t, shards) if k in _GRID_LATTICE_KEYS
-                      else t)
-        return out
+        return {k: _grid_level_array(k, _convert(v, device, dtype), shards)
+                for k, v in d.items()}
 
     out = {
         "levels": [one(lv) for lv in tree["levels"]],
@@ -130,29 +159,38 @@ def grid_data_from_numpy(tree, grid, device, dtype):
         if "bc" in out["fdm"]:   # the distributed FDM: dinv, bc stacked
             for k in ("dinv", "bc"):
                 out["fdm"][k] = stack_shards(out["fdm"][k], shards)
+    if "coarse_chol" in tree:
+        out["coarse_chol"] = _convert(tree["coarse_chol"], device, dtype)
     if "hmg" in tree:
         mine = getattr(grid, "data", {}).get("hmg")
         out["hmg"] = _like(_convert(tree["hmg"], device, dtype), mine,
-                           lambda t: stack_shards(t, shards))
+                           lambda t: stack_shards(t, shards),
+                           qlattice=lambda t: _grid_level_array(
+                               "G", t, shards))
     return out
 
 
-def _like(tree, ref, stack):
+def _like(tree, ref, stack, qlattice=None, key=None):
     """A converted JAX tree laid out as the port's ``ref`` tree: a leaf
     whose shape differs is the port's stacked layout of the JAX array
-    (``stack``, on a grid, for lattices in JAX's duplicated layout; a
-    grid's line blocks re-stacked; else, as on the slab, a reshape of the
-    same memory order)."""
+    (``stack``, on a grid, for lattices in JAX's duplicated layout;
+    ``qlattice`` for a grid h-level's quadrature-lattice ``G``; a grid's
+    line blocks re-stacked; else, as on the slab, a reshape of the same
+    memory order)."""
     if isinstance(tree, dict):
-        return {k: _like(v, None if ref is None else ref.get(k), stack)
+        return {k: _like(v, None if ref is None else ref.get(k), stack,
+                         qlattice, k)
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_like(v, None if ref is None else ref[i], stack)
+        return [_like(v, None if ref is None else ref[i], stack, qlattice,
+                      key)
                 for i, v in enumerate(tree)]
     if ref is None or tuple(tree.shape) == tuple(ref.shape):
         return tree
     if tree.dim() == 3 and ref.dim() == 6 and stack is not None:
         return stack(tree)
+    if key == "G" and qlattice is not None:
+        return qlattice(tree)
     if tree.dim() == 4 and ref.dim() == 7:   # a grid's line blocks
         s0, s1 = (s for i, s in enumerate(ref.shape[:3])
                   if i != _unit_axis(ref.shape[:3]))

@@ -20,10 +20,12 @@ CPU devices.
 - every refusal: ``NotImplementedError`` naming ROADMAP.md item 10 for
   the distributed hmg on a graded mesh and the distributed layout's
   ``devices=`` (the ids of the ``coarse="hmg"`` and ``coarse_cfg["dist"]``
-  cases, ported since), a sigma field, Robin faces, graded spacing, a
-  tensor or per-cell kappa and ``devices=``; item 1
-  for ``precision="high"``; JAX's ValueErrors for ``line-x``, an unknown
-  backend, f64 ``kron_blocked`` and a slab count that does not divide.
+  cases, ported since), and on the Kronecker family for Robin faces,
+  graded spacing and a tensor or per-cell kappa (the general family runs
+  them since item 10 (b): `tests/test_torch_dist_general.py`), and for
+  ``devices=``; item 1 for ``precision="high"``; JAX's ValueErrors for a
+  sigma field on the Kronecker family, ``line-x``, an unknown backend,
+  f64 ``kron_blocked`` and a slab count that does not divide.
 
 The solve modes (`solve_refined`, ``fmg``, ``u0``), the shardwrap
 programs and the drivers are in `tests/test_torch_dist_solvers.py` and
@@ -164,23 +166,42 @@ def _dist_layout_devices():
     dist_layout(TBox((4, 4, 4)), 2, devices=["cpu"])
 
 
+def _sigma_field_kron():
+    td.DistPMG(TBox((4, 4, 4)), n_devices=2, operator="kron",
+               sigma=lambda x: 1.0 + x[0], device="cpu")
+
+
 # The first two cases were DistPMG's coarse="hmg" and coarse_cfg["dist"]
 # until item 10 (a) ported them; their ids stay, on the parts of the same
 # layer still refused: the distributed hmg on a graded mesh (item 10 (b))
-# and the distributed layout's devices= (item 10 (d)).
+# and the distributed layout's devices= (item 10 (d)). The sigma-field and
+# kappa cases ran on the default dofmap backend until the general family
+# of item 10 (b) was ported (tests/test_torch_dist_general.py runs them);
+# their ids stay on the Kronecker family: a tensor or per-cell kappa there
+# is still item 10 (b), and a sigma field there is refused for good, with
+# JAX's ValueError.
 _TODO = [
-    (_graded_hmg_dist, "hmg"),
-    (_dist_layout_devices, "dist"),
-    (dict(sigma=lambda x: 1.0 + x[0]), "sigma field"),
-    (dict(kappa=np.eye(3) * 2.0), "tensor or per-cell kappa"),
-    (dict(kappa=np.linspace(1.0, 2.0, 64)), "tensor or per-cell kappa"),
-    (dict(devices=["cpu"]), "devices="),
+    (_graded_hmg_dist, "hmg", NotImplementedError),
+    (_dist_layout_devices, "dist", NotImplementedError),
+    (_sigma_field_kron, "sigma FIELD", ValueError),
+    (dict(kappa=np.eye(3) * 2.0, operator="kron"),
+     "tensor or per-cell kappa", NotImplementedError),
+    (dict(kappa=np.linspace(1.0, 2.0, 64), operator="kron"),
+     "tensor or per-cell kappa", NotImplementedError),
+    (dict(devices=["cpu"]), "devices=", NotImplementedError),
 ]
 
 
-@pytest.mark.parametrize("kw,what", _TODO)
-def test_unported_options_raise_naming_item_10(kw, what):
-    with pytest.raises(NotImplementedError, match="item 10") as err:
+# The ids the cases have carried since they were written.
+_TODO_IDS = ["_graded_hmg_dist-hmg", "_dist_layout_devices-dist",
+             "kw2-sigma field", "kw3-tensor or per-cell kappa",
+             "kw4-tensor or per-cell kappa", "kw5-devices="]
+
+
+@pytest.mark.parametrize("kw,what,err_type", _TODO, ids=_TODO_IDS)
+def test_unported_options_raise_naming_item_10(kw, what, err_type):
+    match = "item 10" if err_type is NotImplementedError else "Kronecker"
+    with pytest.raises(err_type, match=match) as err:
         if callable(kw):
             kw()
         else:
@@ -189,16 +210,24 @@ def test_unported_options_raise_naming_item_10(kw, what):
 
 
 def test_robin_and_graded_meshes_raise_naming_item_10():
+    """Robin faces and graded spacing on the Kronecker family's slabs are
+    item 10 (b) (the general family runs them:
+    tests/test_torch_dist_general.py)."""
     from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
 
     robin = TBox((4, 4, 4), dirichlet_faces=((True, True), (False, False),
                                             (True, True)),
                  robin=((0.0, 0.0), (2.0, 2.0), (0.0, 0.0)))
-    with pytest.raises(NotImplementedError, match="Robin faces.*item 10"):
-        td.DistPMG(robin, n_devices=2, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"Robin faces on the Kronecker family.*"
+                             r"item 10 \(b\)"):
+        td.DistPMG(robin, n_devices=2, operator="kron", device="cpu")
     graded = TBox((4, 4, 4), spacing=(geometric_spacing(4, 4.0), None, None))
-    with pytest.raises(NotImplementedError, match="graded.*item 10"):
-        td.DistPMG(graded, n_devices=2, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"graded spacing on the Kronecker family.*"
+                             r"item 10 \(b\)"):
+        td.DistPMG(graded, n_devices=2, operator="kron_blocked",
+                   dtype=torch.float32, device="cpu")
 
 
 def test_high_precision_raises_naming_item_1():

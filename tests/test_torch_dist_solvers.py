@@ -431,9 +431,13 @@ def test_hmg_dist_refuses_what_jax_refuses():
         td.DistPMG(TPert((8, 4, 4)), n_devices=2, degrees=(1, 3),
                    coarse="hmg", coarse_cfg=dict(dist=True),
                    operator="dofmap", device="cpu")
+    # build_hmg_grid_general runs since item 10 (b)'s general family
+    # (tests/test_torch_grid_general.py); the Kronecker h-hierarchy on a
+    # graded mesh is still item 10 (b).
     with pytest.raises(NotImplementedError, match=r"item 10 \(b\)"):
-        tg.build_hmg_grid_general(TPert((4, 8, 4)), (2, 2, 2), 1, 2.0,
-                                  torch.float64, device="cpu")
+        tg.build_hmg_grid(TBox((4, 8, 4), spacing=(
+            None, None, (1.0, 2.0, 3.0, 4.0))), (2, 2, 2), 1, 2.0,
+            torch.float64, device="cpu")
 
 
 def test_scaling_torch_hmg_dist_sweeps_match_jax_driver():

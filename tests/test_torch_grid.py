@@ -28,7 +28,8 @@
   1e-5 of JAX's relative residuals;
 - the grid apply against the scipy ``assemble_stiffness`` oracle
   (<= 1e-5, f32) and `examples/scaling_torch.py --grid` against
-  `examples/scaling.py --grid` (f64, layout-invariant residuals).
+  `examples/scaling.py --grid` (f64, layout-invariant residuals; also
+  with `--operator lattice`).
 
 Kernels #8 / #9 against their plain versions, on a GPU only, are in
 `tests/test_torch_grid_cuda.py` (no JAX: the card has none).
@@ -644,51 +645,89 @@ def test_grid_pmg_refuses_what_is_not_ported():
              ValueError, "f32-only"),
             (lambda: tg.GridPMG(TBox(NC, dirichlet_faces=((False, False),) * 3), (2, 2),
                                 **kw), ValueError, "pure-Neumann"),
-            (lambda: tg.GridPMG(mesh, (2, 2), operator="lattice", **kw),
-             NotImplementedError, "item 10"),
-            (lambda: tg.build_hmg_grid_general(
-                mesh, (2, 2), 1, KAPPA, torch.float64, device="cpu"),
+            (lambda: tg.GridPMG(mesh, (2, 2), kappa=(1.0, 2.0, 3.0), **kw),
+             NotImplementedError, r"Kronecker family.*item 10 \(b\)"),
+            (lambda: tg.build_hmg_grid(
+                TBox(NC, robin=((1.0, 1.0), (0.0, 0.0), (0.0, 0.0)),
+                     dirichlet_faces=((False, False), (True, True),
+                                      (True, True))),
+                (2, 2), 1, KAPPA, torch.float64, device="cpu"),
              NotImplementedError, r"item 10 \(b\)"),
             (lambda: tg.GridPMG(mesh, (2, 2), devices=["cuda:0"], **kw),
              NotImplementedError, "item 10"),
             (lambda: tg.GridPMG(mesh, (2, 2), sigma=lambda x: x[0], **kw),
              ValueError, "sigma FIELD"),
             (lambda: tg.GridPMG(mesh, (2, 2), kappa=np.arange(1.0, 65.0),
-                                **kw), NotImplementedError, "item 10"),
+                                **kw), NotImplementedError,
+             r"Kronecker family.*item 10 \(b\)"),
             (lambda: tg.GridPMG(TBox(NC, dirichlet_faces=(
                 (False, False), (True, True), (True, True)),
                 robin=((1.0, 1.0), (0.0, 0.0), (0.0, 0.0))), (2, 2), **kw),
-             NotImplementedError, "item 10"),
+             NotImplementedError, r"Robin faces on the Kronecker family.*"
+                                  r"item 10 \(b\)"),
             (lambda: tg.GridPMG(TBox(NC, spacing=(None, None, (1.0, 2.0, 3.0,
                                                               4.0))),
-                                (2, 2), **kw), NotImplementedError, "item 10"),
+                                (2, 2), **kw), NotImplementedError,
+             r"graded spacing on the Kronecker family.*item 10 \(b\)"),
             (lambda: tg.GridPMG(mesh, (2, 2), precision="high", **kw),
              NotImplementedError, "item 1"),
-            (lambda: tg.GridPMG(mesh, (2, 2), **kw).solve_refined(None),
-             NotImplementedError, "item 10")):
+            (lambda: tg.GridPMG(TBox(NC, spacing=(None, None, (1.0, 2.0, 3.0,
+                                                              4.0))),
+                                (2, 2), operator="lattice", coarse="fdm",
+                                **kw),
+             NotImplementedError, r"coarse='fdm'.*item 10 \(b\)")):
         with pytest.raises(err, match=match):
             call()
+
+
+# Meshes of the cases below that are not TBox(NC): (kind, BoxMesh keywords).
+_RUN_MESH = {
+    "robin": dict(dirichlet_faces=((False, False), (True, True),
+                                   (True, True)),
+                  robin=((1.0, 1.0), (0.0, 0.0), (0.0, 0.0))),
+    "graded": dict(spacing=(None, None, (1.0, 2.0, 3.0, 4.0))),
+}
 
 
 @pytest.mark.parametrize("kwargs", [
     dict(coarse="direct"), dict(smoother="schwarz"), dict(coarse="hmg"),
     dict(coarse="fdm", coarse_cfg=dict(dist=True)),
-    dict(coarse="hmg", coarse_cfg=dict(dist=True, bottom="fdm"))])
+    dict(coarse="hmg", coarse_cfg=dict(dist=True, bottom="fdm")),
+    dict(operator="lattice"),
+    dict(operator="dofmap", sigma="field", coarse="hmg"),
+    dict(operator="lattice", kappa="cells", coarse="direct"),
+    dict(operator="lattice", mesh="robin", coarse="hmg"),
+    dict(operator="dofmap", mesh="graded"),
+    dict(operator="lattice", sigma="field", refined=True)])
 def test_grid_pmg_runs_what_was_refused(kwargs):
     """The cases `test_grid_pmg_refuses_what_is_not_ported` held until
-    items 7a/7b and 10 (a) were ported: the gathered ``direct`` coarse
-    solve, the Schwarz smoother, the gathered ``hmg`` coarse and the
-    non-gathered ``fdm`` and ``hmg`` (``coarse_cfg["dist"]``) on a (2, 2)
-    grid cycle as JAX's `GridPMG` (f64: eigenvalue estimates to 1e-12, 3
-    cycles to 1e-10)."""
+    items 7a/7b, 10 (a) and the general family of 10 (b) were ported: the
+    gathered ``direct`` coarse solve, the Schwarz smoother, the gathered
+    ``hmg`` coarse and the non-gathered ``fdm`` and ``hmg``
+    (``coarse_cfg["dist"]``); the ``lattice`` and ``dofmap`` backends with a
+    sigma field, a per-cell kappa, Robin faces and graded spacing, and
+    `solve_refined`, on a
+    (2, 2) grid cycle as JAX's `GridPMG` (f64: eigenvalue estimates to
+    1e-12, 3 cycles to 1e-10)."""
     kw = dict(degrees=(1, 2), **kwargs)
-    grid = tg.GridPMG(TBox(NC), (2, 2), device="cpu", **kw)
-    jgrid = jg.GridPMG(JBox(NC), (2, 2), **kw)
+    mesh_kw = _RUN_MESH.get(kw.pop("mesh", None), {})
+    refined = kw.pop("refined", False)
+    kw_t, kw_j = dict(kw), dict(kw)
+    if kw.get("sigma") == "field":
+        from pmg_dolfinx_tpu.models.poisson import sigma_linear as js
+        from pmg_dolfinx_tpu_torch.models.poisson import sigma_linear as ts
+
+        kw_t["sigma"], kw_j["sigma"] = ts, js
+    if kw.get("kappa") == "cells":
+        kw_t["kappa"] = kw_j["kappa"] = np.linspace(1.0, 3.0, 64)
+    grid = tg.GridPMG(TBox(NC, **mesh_kw), (2, 2), device="cpu", **kw_t)
+    jgrid = jg.GridPMG(JBox(NC, **mesh_kw), (2, 2), **kw_j)
     for e_t, e_j in zip(grid.eigs, jgrid.eigs):
         assert np.max(np.abs(e_t - e_j) / np.abs(e_j)) <= 1e-12
     b = np.random.default_rng(4).standard_normal(TBox(NC).num_dofs(2))
-    _, rt = grid.solve(b, num_cycles=3)
-    _, rj = jgrid.solve(jnp.asarray(b), num_cycles=3)
+    solve = "solve_refined" if refined else "solve"
+    _, rt = getattr(grid, solve)(b, num_cycles=3)
+    _, rj = getattr(jgrid, solve)(jnp.asarray(b), num_cycles=3)
     assert np.max(np.abs(np.array(rt) - rj) / np.array(rj)) <= 1e-10
 
 
@@ -699,8 +738,18 @@ def _last_json(out):
 def test_scaling_torch_grid_matches_jax_driver():
     """`examples/scaling_torch.py --grid --device cpu` prints the JAX
     driver's layout-invariant residuals (f64)."""
+    _scaling_grid_matches_jax([])
+
+
+def test_scaling_torch_grid_lattice_matches_jax_driver():
+    """The same with ``--operator lattice`` (the general family's grid
+    backend) against ``examples/scaling.py --grid --operator lattice``."""
+    _scaling_grid_matches_jax(["--operator", "lattice"])
+
+
+def _scaling_grid_matches_jax(extra):
     args = ["--grid", "--ndofs", "3000", "--degrees", "1", "3", "--dtype",
-            "f64", "--cycles", "3", "--max-devices", "4"]
+            "f64", "--cycles", "3", "--max-devices", "4", *extra]
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
     t = subprocess.run([sys.executable, str(ROOT / "examples" /
                                             "scaling_torch.py"), *args,
