@@ -19,18 +19,21 @@ convection-diffusion with BiCGStab, the semilinear serving and IMEX
 steppers, modal LOBPCG), the 1D slab layer (`DistPMG`, its sweep
 driver, Newton, BiCGStab and the halo micro-benchmark on the slabs) and
 the gather-free coarse family and sharded time loops (`fdm_dist`, the
-distributed hmg on the slab and the grid, `transient_dist`) through them.
+distributed hmg on the slab and the grid, `transient_dist`) and the
+Kronecker family on the sharded layouts (Robin faces, graded spacing,
+per-axis and diagonal-tensor kappa on the slab and the grid) through them.
 Every phase raises on failure; nothing is caught. The phases run in the
 order 1-3f, 4-4e, 14, 26a, 26b, 27a-27c, 15, 18d, 24a, 25a, 25b, 26c,
-19a-19c, 5-8b, 16, 17, 28a-28e, 20a-20c, 9-11, 21, 12, 27d, 13, 18a-18c, 22,
-23a-23d, 24b, 25c-25f: 26a, 27a-27c, 15, 18d, 24a, 25a, 25b, 19b and 20c
-reuse phase 4's mesh (and its host geometry factors; 25a and 26a its
-hierarchy, 26c and 27a 26a's), 16, 17 and 28a phase 7's. The 16.2M L2 errors
-of phases 4, 15, 19a, 26a and 27c run on the card (`card_l2`: the host
+19a, 29a, 19b, 19c, 29b-29d, 5-8b, 16, 17, 28a-28e, 20a-20c, 9-11, 21,
+12, 27d, 13, 18a-18c, 22, 23a-23d, 24b, 25c-25f: 26a, 27a-27c, 15, 18d,
+24a, 25a, 25b, 19b and 20c reuse phase 4's mesh (and its host geometry
+factors; 25a and 26a its hierarchy, 26c and 27a 26a's), 29a 19a's mesh,
+rhs and hierarchy, 16, 17 and 28a phase 7's. The 16.2M L2 errors
+of phases 4, 15, 19a, 26a, 27c and 29a run on the card (`card_l2`: the host
 rule's quadrature, interpolation on the card; checked after phase 5),
 phase 6's 16.2M geometry factors on a host thread started in phase 4,
-and the L-shaped meshes of phases 22-23 build on host threads started
-with phase 2. The script prints its seconds.
+and phase 4's and 19a's 16.2M box geometry factors and the L-shaped
+meshes of phases 22-23 on host threads started with phase 2. The script prints its seconds.
 
 1. Environment: the card (``nvidia-smi`` name and power limit), torch,
    CUDA and nvcc versions. Fails when ``torch.cuda.is_available()`` is
@@ -402,6 +405,28 @@ with phase 2. The script prints its seconds.
    device (FCG(V) within 1, one V-cycle within 1e-5), then
    `examples/scaling_torch.py --grid --operator lattice_blocked`
    (trajectories layout-invariant).
+29. The Kronecker family on the sharded layouts (no new kernel: #1/#9 per
+   shard on blocks that differ, #1-#3 on a stacked ``Ktx`` whose blocks
+   differ). a (run right after 19a, on its mesh, rhs and hierarchy):
+   ``GridPMG(mixed_mesh(42), (2, 2, 2), degrees=(1, 3, 6), kappa=2,
+   float32, coarse="fdm", operator="kron_blocked")`` at 19a's smoother
+   bounds: 10 cycles within 5e-4 of 19a's above 5e-3, FCG(V) within 1 of
+   its count and the solution within 1e-3, one seeded V-cycle within
+   1e-5, card L2 < 1e-4, #1 and #9 on every shard's own blocks within
+   1e-5 of their plain versions; ms per V-cycle beside 19a's and phase
+   14's, launches per cycle, a profiled window's busy ms and idle share.
+   b-d (after 19c, seeded right-hand sides): b: (2, 2, 2) on
+   ``mixed_mesh(24)`` with ``coarse="fdm", coarse_cfg=dict(dist=True)``
+   against the gathered fdm (FCG within 1, one V-cycle within 1e-5). c:
+   ``DistPMG(7 slabs)`` on ``BoxMesh((28, 14, 14))`` with x graded 8:1
+   and a Robin x-high face, ``coarse="fdm"`` and the gather-free hmg
+   (``dist=True, bottom="fdm"``), each against one device (FCG within 1,
+   2; one V-cycle within 1e-5), #1-#3 on the stacked ``Ktx`` against the
+   per-slab plain versions. d: (2, 2, 2) + fdm on ``BoxMesh((24,) * 3)``
+   with ``diag(1, 1, 100)`` and with ``(1, 2, 4)`` against one device
+   (FCG within 1, one V-cycle within 1e-5); `solve_refined` on b's
+   gathered grid to an f64 relative residual below 1e-9 within 2 cycles
+   of one device's count.
 
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
@@ -414,8 +439,9 @@ their separable twin's device time, #12 with the blocked apply's), the
 lattice kernels with their box and face
 scratch, the serving kernels per batch beside ``bound_ms_by_batch``;
 ``launches`` sums each kernel's launches over every path that runs it
-(#1-#3 phases 4, 15, 24a, 25a, 25e, 19a/19b, 26a-26c and 27a-27b, #1
-also 27c, #4/#7/#10/#11 phases 4b-4e and 19c, #9 phases 14, 18d and 27c,
+(#1-#3 phases 4, 15, 24a, 25a, 25e, 19a/19b, 26a-26c, 27a-27b and
+29c, #1 also 27c, 29a, 29b and 29d, #4/#7/#10/#11 phases 4b-4e and 19c,
+#9 phases 14, 18d, 27c, 29a, 29b and 29d,
 K-A phases 7, 16, 17, 20a, 20b and 28a-28e,
 K-B phases 8 and 20c, #18-#21 phases 11 and 21, #19/#21 phase 25c),
 with their kernels and host us per call and, with ``--parent``, the
@@ -2671,7 +2697,8 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
     this card, against phase 4's single-device hierarchy (``spread``: phase
     4's plain-kron spread); then (1, 2, 4) at about 2.0M dofs against the
     single-device hierarchy on its mesh. Adds #9's launches on the path to
-    ``launches``; returns the (2, 2, 2) grid's FCG(V) count."""
+    ``launches``; returns the (2, 2, 2) grid's FCG(V) count and ms per
+    V-cycle."""
     import numpy as np
     import torch
 
@@ -2753,7 +2780,8 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
     t_g1, all_g1 = grid_vcycle_ms(grid)
     t_g2, all_g2 = grid_vcycle_ms(grid)
     t_s2, _ = vcycle_ms(hier)
-    print(f"    V-cycle: grid (2, 2, 2) {(t_g1 + t_g2) / 2:.3f} ms ({t_g1:.3f}, "
+    grid_ms = (t_g1 + t_g2) / 2
+    print(f"    V-cycle: grid (2, 2, 2) {grid_ms:.3f} ms ({t_g1:.3f}, "
           f"{t_g2:.3f}; reps {[round(t, 3) for t in all_g1 + all_g2]}) vs "
           f"single device {(t_s1 + t_s2) / 2:.3f} ms ({t_s1:.3f}, "
           f"{t_s2:.3f}); 10 back-to-back, median of 3, in turns")
@@ -2792,7 +2820,7 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
     grid_vcycle_parity(grid, single, SEED + 16, "grid (1, 2, 4)")
     if abs(n_g - n_s) > 1 or not du <= 1e-3:
         raise AssertionError(f"(1, 2, 4): FCG {n_g} vs {n_s}, solutions {du}")
-    return niter
+    return niter, grid_ms
 
 
 
@@ -4057,16 +4085,18 @@ def grid_general_path(curved, ref, launches):
           f"({time.perf_counter() - ts:.1f} s host)")
     if not err < 1e-4:
         raise AssertionError(f"28a: L2 error {err}")
-    vc, vc_all = grid_vcycle_ms(grid)
-    pace = [(round(e, 3), round(h, 3)) for e, h in grid_vcycle_pace(grid)]
+    # One rep each (it was 3): the script's time limit on a slow host.
+    vc, vc_all = grid_vcycle_ms(grid, reps=1)
+    pace = [(round(e, 3), round(h, 3))
+            for e, h in grid_vcycle_pace(grid, reps=1)]
     b1 = torch.ones(grid.shards + grid.levels[-1].shape, dtype=grid.dtype,
                     device=grid.device)
     grid.apply(b1, torch.zeros_like(b1))
     wall, busy, nk, by_name, _, tries, complete = profile_complete(
         lambda: grid.apply(b1, torch.zeros_like(b1)), lb)
     ka = lattice_kernel_ms(by_name)
-    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
-          f"{[round(t, 3) for t in vc_all]}) against phase 7's "
+    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 1 rep) against "
+          f"phase 7's "
           f"{ref['vc']:.3f} ms; (event ms, host ms to enqueue) per cycle "
           f"{pace}; profiled ({'complete' if complete else 'INCOMPLETE'} "
           f"window, {tries} tried): wall {wall:.3f} ms, busy {busy:.3f} ms "
@@ -4589,15 +4619,19 @@ def coeff_operand_parity():
                                   opf.planes).reshape(-1))
 
 
-def box_family(mesh, launches):
+def box_family(mesh, launches, grid14_ms=None, mixed=None):
     """Phase 19a/19b at 16,194,277 dofs (p=(1,3,6), float32, kron_blocked +
     fdm). 19a: the JAX driver's ``--grade z:8 --neumann x --robin y``
     (kappa 2): FCG(V) to 1e-6 within 50, L2 < 1e-4, ms per V-cycle, #1-#3
     launches. 19b on ``mesh`` (phase 4's uniform box, whose host geometry
     is cached): ``--kappa-field aniso-diag``: FCG(V) count, ms per
     V-cycle; the ``--fdm`` one-shot direct solve against the FCG solution,
-    and its L2 < 1e-4 at nc=21. Returns ({tag: (FCG, ms per V-cycle)},
-    19a's L2 job for `check_l2`)."""
+    and its L2 < 1e-4 at nc=21. Phase 29a runs between them, on 19a's
+    mesh, rhs and hierarchy (`kron_sharded_flagship`; ``grid14_ms``: phase
+    14's grid V-cycle ms, printed beside its own). ``mixed``: 19a's
+    ``mixed_mesh(42)`` (its host geometry built already), else a new one.
+    Returns ({tag: (FCG, ms per V-cycle)}, 19a's L2 job for
+    `check_l2`)."""
     import numpy as np
     import torch
 
@@ -4619,7 +4653,8 @@ def box_family(mesh, launches):
                "dofs, p=(1,3,6), kron_blocked + fdm")
     reset(kb)
     ts = time.perf_counter()
-    prob = mixed_problem(mixed_mesh(42), kappa=2.0, **cfg)
+    prob = mixed_problem(mixed if mixed is not None else mixed_mesh(42),
+                         kappa=2.0, **cfg)
     torch.cuda.synchronize()
     print(f"    setup seconds: {time.perf_counter() - ts:.2f} (eig max per "
           f"level {[round(float(e[-1]), 4) for e in prob.hierarchy.eigs]})")
@@ -4636,6 +4671,13 @@ def box_family(mesh, launches):
     print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
           f"{[round(t, 3) for t in vc_all]})")
     out["19a"] = (niter, vc)
+    done(t0)
+
+    t0 = phase("29a. Kronecker family on the device grid (run here, on 19a's "
+               "mesh, rhs and hierarchy): GridPMG (2,2,2), 16.2M dofs, "
+               "kron_blocked + fdm, x Neumann, y Robin, z graded 8:1")
+    out["29a grid"] = kron_sharded_flagship(prob, u, niter, vc, cfg,
+                                            launches, grid14_ms)
     del prob, u
     done(t0)
 
@@ -4795,6 +4837,300 @@ def box_family_fused(launches):
         raise AssertionError(f"19c: FCG counts {n_f} vs {n_u}")
     add_launches(launches, path, ("t1", "t23_cheb", "transfer_x",
                                   "transfer_yz"))
+
+
+# --- phase 29: the Kronecker family on the sharded layouts ------------------
+
+KS_SHARDS = (2, 2, 2)
+KS_SMALL_NC = 24              # 29b, 29d: 145^3 = 3,048,625 dofs at p=6
+# 29c: 169x85x85 = 1,221,025 dofs at p=6 (it was (42, 21, 21), 4,080,907
+# dofs, until a run took 1306.6 s to phase 25e on a slow host).
+KS_SLAB_NC = (28, 14, 14)
+KS_SLABS = 7
+# 29c: x graded 8:1 with a Robin x-high face (alpha 1.7), Dirichlet
+# elsewhere: every slab's x block differs, the last one by its Robin end.
+KS_SLAB_FACES = ((True, False), (True, True), (True, True))
+KS_SLAB_ROBIN = ((0.0, 1.7), (0.0, 0.0), (0.0, 0.0))
+KS_PER_AXIS = (1.0, 2.0, 4.0)
+KS_REFINED_RTOL = 1e-9
+# 29d's cap on refinement cycles: the f32 V-cycle contracts this mixed-BC
+# problem's f64 residual by ~0.77-0.83 a cycle (75 cycles to 1e-9 at
+# nc=4, 94 at nc=8, CPU runs of the same code), slower as nc grows.
+KS_REFINED_MAX = 250
+
+
+def ks_shard_parity(grid, seed, tag):
+    """Kernels #1 and #9 (apply and fused residual, both corrections, sigma
+    0 and 0.5) on every shard of ``grid``'s fine level, each with its own
+    ``kb_blocks`` entry, against the plain versions on the same blocks:
+    relative max-norm within `KERNEL_RTOL`. First checks that the blocks
+    differ where the mesh says they must: the y shards' ``Kty`` (one
+    Robin end each) and the z shards' ``KtzT`` (graded z). These launches
+    are comparisons, not the main path's. Returns the worst error."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+
+    lv = grid.data["levels"][-1]
+    blocks = lv["kb_blocks"]
+    for key, a, b in (("Kty", (0, 0, 0), (0, 1, 0)),
+                      ("KtzT", (0, 0, 0), (0, 0, 1))):
+        if torch.equal(blocks[a][key], blocks[b][key]):
+            raise AssertionError(f"{tag}: shards {a} and {b} share {key}")
+    shape = tuple(grid.levels[-1].shape)
+    rng = np.random.default_rng(seed)
+    f32 = lambda s: torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                                 device=DEV)
+    x, r = f32(shape), f32(shape)
+    cy, cz = f32((shape[0], 2, shape[2])), f32((shape[0], shape[1], 2))
+    worst = 0.0
+    for idx, m in blocks.items():
+        t1 = kb.plain_t1_m(x, m)
+        worst = max(worst, rel_max_err(kb.kron_t1_m(x, m), t1))
+        for sigma in (0.0, 0.5):
+            ref = kb.plain_t23_grid_m(x, t1, m, sigma, cy, cz)
+            worst = max(worst, rel_max_err(
+                kb.kron_t23_grid_m(x, t1, m, sigma, cy, cz), ref),
+                rel_max_err(kb.kron_t23_grid_m(x, t1, m, sigma, cy, cz,
+                                               r3=r), r - ref))
+    torch.cuda.synchronize()
+    print(f"    {tag}: #1 and #9 (apply, residual; sigma 0, 0.5) on each of "
+          f"the {len(blocks)} shards' own blocks (Kty differs across y, KtzT "
+          f"across z) vs the plain versions: worst rel max err {worst:.3e} "
+          f"(gate {KERNEL_RTOL:g})")
+    if not worst <= KERNEL_RTOL:
+        raise AssertionError(f"{tag}: per-shard kernels differ by {worst}")
+    return worst
+
+
+def kron_sharded_flagship(prob, u_ref, niter_ref, vc_ref, cfg, launches,
+                          grid14_ms=None):
+    """Phase 29a, run right after 19a on its mesh, rhs and hierarchy: the
+    slice's path, ``GridPMG(mixed_mesh(42), (2, 2, 2), degrees=(1, 3, 6),
+    kappa=2, float32, coarse="fdm", operator="kron_blocked")`` (x Neumann,
+    y Robin, z graded 8:1; 16,194,277 dofs), every shard on this card, at
+    19a's smoother bounds: 10 stationary cycles within `GRID_TRAJ_RTOL` of
+    19a's on cycles above `REF_TRAJ_FROM`, FCG(V) within 1 of 19a's count
+    (``niter_ref``) and its solution within 1e-3 of 19a's (``u_ref``), one
+    seeded V-cycle within `GRID_VCYCLE_RTOL`, the card L2 < 1e-4, #1 and #9
+    per shard (`ks_shard_parity`); ms per V-cycle beside 19a's (``vc_ref``)
+    and phase 14's (``grid14_ms``), the profiled busy ms, kernels and idle
+    share. Adds #1's and #9's launches on the path to ``launches``; returns
+    (FCG, ms per V-cycle)."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+
+    hier = prob.hierarchy
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    _, rn = hier.solve(prob.b, num_cycles=10)
+    rel_ref = [v / r0 for v in rn]
+    ts = time.perf_counter()
+    grid = GridPMG(prob.mesh, KS_SHARDS, kappa=2.0, **cfg)
+    torch.cuda.synchronize()
+    print(f"    setup seconds: {time.perf_counter() - ts:.2f} (per-shard "
+          f"lattice {grid.levels[-1].shape}; eig max per level "
+          f"{[round(float(e[-1]), 4) for e in grid.eigs]}, 19a's "
+          f"{[round(float(e[-1]), 4) for e in hier.eigs]})")
+    grid.load_state({"levels": [{"lmax": lv["lmax"]}
+                                for lv in hier.data["levels"]]})
+    reset(kb)
+    _, rn_g = grid.solve(prob.b, num_cycles=10)
+    u, niter = grid.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    path = dict(kb.LAUNCHES)
+    rel = [v / r0 for v in rn_g]
+    diff = traj_diff(rel, rel_ref)
+    print(f"    10 cycles at 19a's lmax: rel {[f'{v:.4e}' for v in rel]}; "
+          f"19a {[f'{v:.4e}' for v in rel_ref]}; max rel diff (cycles above "
+          f"{REF_TRAJ_FROM:g}) {diff:.3e} (gate {GRID_TRAJ_RTOL:g})")
+    if not diff <= GRID_TRAJ_RTOL:
+        raise AssertionError(f"29a: trajectories differ by {diff:.3e}")
+    du = float(torch.linalg.vector_norm(u - u_ref)
+               / torch.linalg.vector_norm(u_ref))
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} (19a {niter_ref}); "
+          f"solution vs 19a's: rel diff {du:.3e} (gate 1e-3); launches "
+          f"{ {k: v for k, v in path.items() if v} }")
+    if abs(niter - niter_ref) > 1 or not du <= 1e-3 or not bool(
+            torch.isfinite(u).all()):
+        raise AssertionError(f"29a: FCG {niter} vs {niter_ref}, solutions "
+                             f"{du:.3e}")
+    add_launches(launches, path, ("t1_m", "t23_grid_m"))
+    launches["t23_grid_m"] += path["t23_grid_res_m"]
+    check_l2(card_l2(prob, u), "29a")
+    grid_vcycle_parity(grid, hier, SEED + 29, "29a grid (2, 2, 2)")
+    ks_shard_parity(grid, SEED + 30, "29a")
+    bd = grid.to_dist(prob.b)
+    ud = torch.zeros_like(bd)
+    reset(kb)
+    grid.apply(bd, ud)
+    torch.cuda.synchronize()
+    per_cycle = {k: v for k, v in kb.LAUNCHES.items() if v}
+    vc, reps = grid_vcycle_ms(grid)
+    wall, busy, nk, _, complete = kron_profile(lambda: grid.apply(bd, ud),
+                                               "29a")
+    print(f"    launches per V-cycle {per_cycle}; V-cycle {vc:.3f} ms (10 "
+          f"back-to-back, 3 reps {[round(t, 3) for t in reps]}) vs 19a's "
+          f"single device {vc_ref:.3f} ms and phase 14's uniform grid "
+          + (f"{grid14_ms:.3f} ms" if grid14_ms is not None else "(not run)")
+          + f"; busy {busy:.3f} ms, {nk} kernels, idle "
+          f"{max(0.0, 1 - busy / vc):.1%} ({'complete' if complete else 'INCOMPLETE'}"
+          " window)")
+    return niter, vc
+
+
+def ks_rhs(mesh, seed):
+    """A seeded normal rhs on the card with ``mesh``'s Dirichlet rows
+    zeroed (no host assembly: a new mesh's rhs would build its host
+    geometry first)."""
+    import torch
+
+    bc = torch.tensor(mesh.boundary_dof_marker(6), device=DEV)
+    return torch.where(bc, 0.0, seeded(mesh.num_dofs(6), seed))
+
+
+def ks_fcg(hier, b, launches, need, maxiter=50):
+    """FCG(V) to rtol 1e-6 on ``hier`` between a reset and a read of the
+    launch counts: every kernel of ``need`` must launch (counted into
+    ``launches``; #9's residual form folded into ``t23_grid_m``)."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+
+    reset(kb)
+    u, niter = hier.solve_pcg(b, rtol=1e-6, maxiter=maxiter)
+    torch.cuda.synchronize()
+    path = dict(kb.LAUNCHES)
+    add_launches(launches, path, need)
+    if "t23_grid_m" in need:
+        launches["t23_grid_m"] += path["t23_grid_res_m"]
+    if not bool(torch.isfinite(u).all()):
+        raise AssertionError("FCG solution is not finite")
+    return u, niter, {k: v for k, v in path.items() if v}
+
+
+def ks_fcg_gate(tag, n, n_ref, slack=1):
+    print(f"    {tag}: FCG(V) {n} vs {n_ref} (gate within {slack})")
+    if abs(n - n_ref) > slack:
+        raise AssertionError(f"{tag}: FCG {n} vs {n_ref}")
+
+
+def kron_sharded_small(launches):
+    """Phases 29b-29d at 2-3M dofs, p=(1,3,6), float32, kron_blocked, on
+    seeded right-hand sides. 29b: `GridPMG` (2,2,2) on ``mixed_mesh(24)``
+    with the distributed fdm coarse (``coarse_cfg=dict(dist=True)``)
+    against the gathered fdm at its smoother bounds. 29c: `DistPMG` on 7
+    slabs of ``BoxMesh(KS_SLAB_NC)`` with x graded 8:1 and a Robin x-high
+    face, (i) ``coarse="fdm"`` and (ii) the gather-free hmg (``dist=True,
+    bottom="fdm"``), each against the single-device hierarchy on the same
+    mesh; #1-#3 on the stacked ``Ktx`` whose blocks differ against the
+    per-slab plain versions. 29d: (2,2,2) + fdm on ``BoxMesh((24,) * 3)``
+    with the diagonal tensor ``diag(ANISO_DIAG)`` and the per-axis
+    ``KS_PER_AXIS`` against one device; `GridPMG.solve_refined` (29b's
+    gathered grid) to an f64 relative residual of `KS_REFINED_RTOL`
+    within 2 cycles of the single device's count. Gates: FCG within 1 (2
+    for 29c (ii)), one seeded V-cycle within `GRID_VCYCLE_RTOL`. Returns
+    {tag: (FCG or cycles, None)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh, geometric_spacing
+    from pmg_dolfinx_tpu_torch.parallel.dist import DistPMG, slab_blocks
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    cfg = dict(degrees=(1, 3, 6), kappa=2.0, dtype=torch.float32,
+               operator="kron_blocked", device=DEV)
+    grid_need, slab_need = ("t1_m", "t23_grid_m"), ("t1_m", "t23_m",
+                                                     "t23_res_m")
+    out = {}
+
+    t0 = phase(f"29b. GridPMG (2,2,2) kron_blocked on mixed_mesh("
+               f"{KS_SMALL_NC}): coarse fdm with dist=True vs the gathered "
+               "fdm")
+    mesh = mixed_mesh(KS_SMALL_NC)
+    b = ks_rhs(mesh, SEED + 31)
+    gath = GridPMG(mesh, KS_SHARDS, coarse="fdm", **cfg)
+    dist = GridPMG(mesh, KS_SHARDS, coarse="fdm",
+                   coarse_cfg=dict(dist=True), **cfg)
+    dist_vcycle_parity(gath, dist, SEED + 32, "29b dist fdm vs gathered",
+                       rtol=GRID_VCYCLE_RTOL)
+    _, n_g, _ = ks_fcg(gath, b, launches, grid_need)
+    _, n_d, path = ks_fcg(dist, b, launches, grid_need)
+    bd = dist.to_dist(b)
+    with a2a_counts() as n_a2a:
+        dist.apply(bd, torch.zeros_like(bd))
+    print(f"    {mesh.num_dofs(6):,} dofs; launches {path}; {n_a2a[0]} "
+          "all_to_all per V-cycle")
+    ks_fcg_gate("29b dist fdm vs gathered", n_d, n_g)
+    out["29b"] = (n_d, None)
+    del dist
+    done(t0)
+
+    t0 = phase(f"29c. DistPMG {KS_SLABS} slabs kron_blocked on BoxMesh("
+               f"{KS_SLAB_NC}), x graded 8:1, Robin x-high: (i) fdm, (ii) "
+               "hmg dist=True bottom=fdm")
+    slab_mesh = BoxMesh(KS_SLAB_NC, dirichlet_faces=KS_SLAB_FACES,
+                        robin=KS_SLAB_ROBIN,
+                        spacing=(geometric_spacing(KS_SLAB_NC[0],
+                                                   GRADE_RATIO), None, None))
+    b_slab = ks_rhs(slab_mesh, SEED + 33)
+    for tag, kw, slack in (
+            ("29c (i) fdm", dict(coarse="fdm"), 1),
+            ("29c (ii) hmg dist bottom=fdm",
+             dict(coarse="hmg", coarse_cfg=dict(dist=True, bottom="fdm")),
+             2)):
+        single = PMGHierarchy(slab_mesh, coarse=kw["coarse"], **cfg)
+        slab = DistPMG(slab_mesh, n_devices=KS_SLABS, **kw, **cfg)
+        grid_vcycle_parity(slab, single, SEED + 34, tag)
+        _, n_s = single.solve_pcg(b_slab, rtol=1e-6, maxiter=100)
+        _, n_d, path = ks_fcg(slab, b_slab, launches, slab_need,
+                              maxiter=100)
+        print(f"    {tag}: {slab_mesh.num_dofs(6):,} dofs; launches {path}")
+        ks_fcg_gate(tag, n_d, n_s, slack)
+        out[tag] = (n_d, None)
+        if kw["coarse"] == "fdm":
+            ktx = [m["Ktx"] for m in slab_blocks(
+                slab.data["levels"][-1]["kb_mats"], KS_SLABS)]
+            if any(torch.equal(ktx[0], k) for k in ktx[1:]):
+                raise AssertionError("29c: slab 0 shares its Ktx block")
+            slab_kernel_parity(slab)
+        del single, slab
+    done(t0)
+
+    t0 = phase(f"29d. GridPMG (2,2,2) kron_blocked + fdm on BoxMesh(("
+               f"{KS_SMALL_NC},)*3): diagonal-tensor and per-axis kappa; "
+               f"solve_refined on 29b's mixed_mesh({KS_SMALL_NC})")
+    box = BoxMesh((KS_SMALL_NC,) * 3)
+    b_box = ks_rhs(box, SEED + 35)
+    for tag, kappa in (("29d diag tensor", np.diag(ANISO_DIAG)),
+                       ("29d per-axis", KS_PER_AXIS)):
+        kw = dict(cfg, kappa=kappa, coarse="fdm")
+        single = PMGHierarchy(box, **kw)
+        grid = GridPMG(box, KS_SHARDS, **kw)
+        grid_vcycle_parity(grid, single, SEED + 36, tag)
+        _, n_s = single.solve_pcg(b_box, rtol=1e-6, maxiter=200)
+        _, n_d, _ = ks_fcg(grid, b_box, launches, grid_need, maxiter=200)
+        ks_fcg_gate(tag, n_d, n_s)
+        out[tag] = (n_d, None)
+        del single, grid
+    r0 = float(torch.linalg.vector_norm(b))
+    single = PMGHierarchy(mesh, coarse="fdm", **cfg)
+    _, rn_s = single.solve_refined(b, num_cycles=KS_REFINED_MAX,
+                                   rtol=KS_REFINED_RTOL)
+    _, rn_g = gath.solve_refined(b, num_cycles=KS_REFINED_MAX,
+                                 rtol=KS_REFINED_RTOL)
+    print(f"    29d solve_refined: grid {len(rn_g)} cycles to f64 rel "
+          f"{rn_g[-1] / r0:.3e}, single device {len(rn_s)} to "
+          f"{rn_s[-1] / r0:.3e} (gate {KS_REFINED_RTOL:g}, counts within 2)")
+    if not rn_g[-1] / r0 < KS_REFINED_RTOL or abs(len(rn_g) - len(rn_s)) > 2:
+        raise AssertionError(f"29d refined: {len(rn_g)} cycles to "
+                             f"{rn_g[-1] / r0:.3e} vs {len(rn_s)}")
+    out["29d refined"] = (len(rn_g), None)
+    done(t0)
+    return out
 
 
 def general_family(mesh, launches, vc_curved):
@@ -6077,6 +6413,15 @@ def main():
     lshape_pool = ThreadPoolExecutor(max_workers=len(LSHAPE_N))
     lshape_jobs = {n: lshape_pool.submit(lshape_spaces, n) for n in LSHAPE_N}
     lshape_pool.shutdown(wait=False)
+    # The 16.2M host f64 geometry factors of phase 4's box and 19a's mixed
+    # box (30-48 s of numpy each, cached on the mesh; their rhs assembly
+    # reads them) build on worker threads while nvcc runs.
+    from pmg_dolfinx_tpu_torch.fem.assembly import geometry_factors_np
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+
+    box42, mixed42 = BoxMesh((42, 42, 42)), mixed_mesh(42)
+    geom_box = start_l2(geometry_factors_np, box42, 6)
+    geom_mixed = start_l2(geometry_factors_np, mixed42, 6)
     modules = (kb, lb, kp, tt, kf)
     # The parent's kron_blocked.cu (phases 3b and 3e time it) alongside.
     builds = modules + ((importlib.import_module(
@@ -6185,7 +6530,6 @@ def main():
     coeff_operand_parity()
     done(t0)
 
-    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
     from pmg_dolfinx_tpu_torch.models.poisson import PoissonProblem
     from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
 
@@ -6194,7 +6538,6 @@ def main():
                coarse="fdm", device="cuda")
     # Phase 6's 16.2M host f64 geometry factors (~40 s of numpy, cached on
     # the mesh) build on a worker thread from here; phase 6 joins them.
-    from pmg_dolfinx_tpu_torch.fem.assembly import geometry_factors_np
     from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
 
     curved = PerturbedBoxMesh((42, 42, 42))
@@ -6202,7 +6545,11 @@ def main():
     for k in kb.LAUNCHES:
         kb.LAUNCHES[k] = 0
     ts = time.perf_counter()
-    prob = PoissonProblem(nc=(42, 42, 42), operator="kron_blocked", **cfg)
+    geom_box[0].result()
+    print(f"    nc=42 p=6 host f64 geometry factors (host thread, started in "
+          f"phase 2) joined after {time.perf_counter() - ts:.2f} s of waiting")
+    ts = time.perf_counter()
+    prob = PoissonProblem(mesh=box42, operator="kron_blocked", **cfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - ts
     hier = prob.hierarchy
@@ -6291,7 +6638,8 @@ def main():
     t0 = phase("14. device-grid main path (run here, on phase 4's mesh, rhs "
                "and hierarchy): GridPMG (2,2,2), 16.2M dofs, kron_blocked + "
                "fdm, every shard on this card")
-    grid_niter = grid_path(prob, hier, rel, u, niter, spread, cfg, launches)
+    grid_niter, grid_ms = grid_path(prob, hier, rel, u, niter, spread, cfg,
+                                    launches)
     done(t0)
 
     t0 = phase("26a. slab main path (run here, on phase 4's mesh, rhs and "
@@ -6354,12 +6702,14 @@ def main():
     del slab, keep
     done(t0)
 
-    fam, l2_19a = box_family(box42, launches)
+    geom_mixed[0].result()
+    fam, l2_19a = box_family(box42, launches, grid_ms, mixed42)
     family.update(fam)
     t0 = phase("19c. box family at nc=21: --grade z:8 --neumann x --robin y, "
                "fuse_smoother + fuse_transfers vs unfused")
     box_family_fused(launches)
     done(t0)
+    family.update(kron_sharded_small(launches))
 
     t0 = phase("5. in-card reference: nc=21, kron (plain) vs kron_blocked, "
                "unfused and fused")

@@ -151,10 +151,9 @@ def local_axis_K(mesh, a, nc_local, Pdeg, k_a, n_shards_a):
     in); ``stacked=True``: the per-shard row-stacked ``(S * npl, npl)``
     form of a sharded axis whose local stiffness differs per shard: Robin
     ends at the global ends (`stacked_local_K`) and/or GRADED spacing (each
-    block assembled from its shard's cells). The Kronecker family's
-    sharded layouts refuse Robin faces and grading at their entry points
-    (ROADMAP.md Queue 1 item 10 (b)); the general family's refinement
-    applies reach the Robin and graded forms here."""
+    block assembled from its shard's cells). The sharded Kronecker levels
+    (`DistPMG`, `GridPMG`, their h-hierarchies) and the general family's
+    f64 refinement applies build their axis factors here."""
     ends = robin_axis_ends(mesh, a)
     h_cells = np.broadcast_to(np.asarray(mesh.h_cells[a], np.float64),
                               (mesh.nc[a],))

@@ -38,19 +38,21 @@ coarse hierarchy) and `DistPMG` with the point-Jacobi, line
 and gathered ``fdm`` / ``direct`` / ``hmg`` coarse solves, the
 non-gathered ``coarse_cfg["dist"]`` forms (``fdm``: `fdm_dist`'s pencil
 transposes; ``hmg``: `build_hmg_dist`, its bottom gathered or, with
-``bottom="fdm"``, distributed too), scalar and per-axis kappa and a
-scalar sigma on every backend; on the general backends (``dofmap``,
-``lattice``) also curved hexes, DG-0 and tensor kappa (folded into G), a
-sigma field, Robin faces (their boundary mass baked into ``m3``), graded
-spacing and the gathered general ``hmg`` (`build_hmg_general`); `solve`,
-`solve_pcg`, `solve_refined` (its f64 apply picked as JAX picks it),
-`load_state`. JAX's ``pvary`` has no counterpart (ROADMAP.md, "Do not
-port"); ``make_mesh`` neither (no device mesh). Not ported yet, each
-raising NotImplementedError naming its ROADMAP.md item: the Kronecker
-family's Robin faces, graded spacing and tensor or per-cell kappa, the
-``fdm`` coarse solves on Robin or graded meshes, the distributed hmg on
-them (item 10 (b)), ``devices=`` (the multi-process backend, item 10
-(d)) and ``precision="high"`` (item 1). As in JAX, the slab's
+``bottom="fdm"``, distributed too), a scalar sigma, Robin faces and
+graded spacing on every backend, and scalar, per-axis and diagonal-tensor
+kappa; on the Kronecker family Robin ends and grading ride the 1D
+factors (a sharded x axis gets per-slab row-stacked ``Kx`` blocks, the
+stacked kernel operand ``Ktx`` each slab's own block), on the general
+backends (``dofmap``, ``lattice``) the Robin boundary mass is baked into
+``m3`` and curved hexes, DG-0 and off-diagonal tensor kappa (folded into
+G), a sigma field and the gathered general ``hmg`` (`build_hmg_general`)
+run too; `solve`, `solve_pcg`, `solve_refined` (its f64 apply picked as
+JAX picks it), `load_state`. JAX's ``pvary`` has no counterpart
+(ROADMAP.md, "Do not port"); ``make_mesh`` neither (no device mesh). As
+in JAX, a per-cell or off-diagonal tensor kappa on the Kronecker family
+raises ValueError. Not ported yet, each raising NotImplementedError
+naming its ROADMAP.md item: ``devices=`` (the multi-process backend,
+item 10 (d)) and ``precision="high"`` (item 1). As in JAX, the slab's
 distributed hmg is the Kronecker h-hierarchy only; the general family's
 runs on `GridPMG` with ``shards=(S, 1, 1)``.
 """
@@ -91,7 +93,7 @@ def _shifted_diag_np(mesh, Pdeg, kappa_cells, sigma, sigma_field=None):
     return d
 
 
-def _todo(what, item="10 (b)"):
+def _todo(what, item):
     return NotImplementedError(
         f"DistPMG: {what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
@@ -143,7 +145,7 @@ def _slab_transfers(n_shards, flat):
     def restrict_op(tr, r, level_c, level_f):
         lat = _six(r * tr["weights_f"], S, level_f.shape)
         for dim, name in enumerate(("Ix", "Iy", "Iz")):
-            lat = _stacked_contract(tr[name].T, lat, dim)
+            lat = _stacked_contract(tr[name].mT, lat, dim)
         return out(_exchange_partials(lat[:, 0, 0], S, inplace=True),
                    level_c)
 
@@ -401,20 +403,16 @@ def _hmg_global(mesh, P0, kappa, dtype, smoother_iters, precision, bottom,
 
 
 def _hmg_box_meshes(mesh, sizes_cf):
-    """The coarse -> fine level meshes of a distributed box h-hierarchy.
-    Graded spacing and Robin faces on the sharded layouts are ROADMAP.md
-    Queue 1 item 10 (b)."""
+    """The coarse -> fine level meshes of a distributed box h-hierarchy:
+    each level keeps the mesh's faces and Robin alphas (the end updates
+    rediscretised per level) and a graded mesh's spacing merged onto the
+    coarser cells (`coarsen_spacing`), as the global `build_hmg` pass
+    builds them."""
     from ..fem.mesh import BoxMesh
+    from ..solvers.hmg import _level_mesh, _same_or
 
-    if getattr(mesh, "is_graded", False) or getattr(mesh, "has_robin",
-                                                     False):
-        raise NotImplementedError(
-            "distributed hmg on a graded or Robin-faced mesh is not ported "
-            "yet (ROADMAP.md Queue 1 item 10 (b))")
-    return [mesh if tuple(nc) == tuple(mesh.nc) else
-            BoxMesh(nc, extent=mesh.extent,
-                    dirichlet_faces=mesh.dirichlet_faces)
-            for nc in sizes_cf]
+    make = _level_mesh(mesh, BoxMesh)
+    return [_same_or(mesh, nc, make) for nc in sizes_cf]
 
 
 def build_hmg_dist(mesh, n_shards, P0, kappa, dtype, smoother_iters=2,
@@ -443,7 +441,7 @@ def build_hmg_dist(mesh, n_shards, P0, kappa, dtype, smoother_iters=2,
     gather / slice hooks and, for ``bottom="fdm"``, the distributed bottom
     solve (``hmg_ops["fdm_dist"]``)."""
     from ..fem.assembly import resolve_kappa_axes
-    from ..ops.kron import axis_stiffness_mass, local_axis_K
+    from ..ops.kron import axis_stiffness_mass, local_axis_K, robin_axis_ends
     from ..solvers.hmg import local_axis_h_interpolation
     from ..solvers.line import parse_line_smoother, shard_line_blocks
     from .grid2d import _host
@@ -484,9 +482,15 @@ def build_hmg_dist(mesh, n_shards, P0, kappa, dtype, smoother_iters=2,
     for m, p_l, g_lv in zip(meshes, parts, g_data["levels"]):
         npl = p_l.local_planes(P0)
         shape = (S,) + p_l.local_shape(P0)
-        Kx, _ = local_axis_K(m, 0, p_l.cells_per_shard_x, P0, kax[0], S)
-        Ky, my = axis_stiffness_mass(m.nc[1], P0, m.h_cells[1])
-        Kz, mz = axis_stiffness_mass(m.nc[2], P0, m.h_cells[2])
+        # Robin ends rediscretised per h-level: row-stacked per slab on x
+        # where they or the grading make the slabs differ, folded into the
+        # global y/z matrices (the 1/k_a pre-divide keeps alpha kappa-free).
+        Kx, kx_stacked = local_axis_K(m, 0, p_l.cells_per_shard_x, P0,
+                                      kax[0], S)
+        Ky, my = axis_stiffness_mass(m.nc[1], P0, m.h_cells[1],
+                                     robin=robin_axis_ends(m, 1, 1.0 / kax[1]))
+        Kz, mz = axis_stiffness_mass(m.nc[2], P0, m.h_cells[2],
+                                     robin=robin_axis_ends(m, 2, 1.0 / kax[2]))
         _, mx_g = axis_stiffness_mass(m.nc[0], P0, m.h_cells[0])
         lv = dict(
             Kx=t(Kx), Ky=t(kax[1] * Ky), Kz=t(kax[2] * Kz),
@@ -499,7 +503,8 @@ def build_hmg_dist(mesh, n_shards, P0, kappa, dtype, smoother_iters=2,
             weights=t(p_l.ownership_weights(P0)).reshape(shape),
             lmax=g_lv["lmax"],
         )
-        spec = dict(Kx=(), Ky=(), Kz=(), mx=SLAB, my=(), mz=(),
+        spec = dict(Kx=SLAB if kx_stacked else (), Ky=(), Kz=(),
+                    mx=SLAB, my=(), mz=(),
                     bc_marker=SLAB, diag_inv=SLAB, weights=SLAB, lmax=())
         if line_axis is not None:
             lv["line_inv"] = t(shard_line_blocks(
@@ -522,17 +527,27 @@ def build_hmg_dist(mesh, n_shards, P0, kappa, dtype, smoother_iters=2,
     transfer, transfer_specs = [], []
     for (mc, pc), (mf, pf) in zip(zip(meshes, parts),
                                   zip(meshes[1:], parts[1:])):
-        Ix, _ = local_axis_h_interpolation(pc.cells_per_shard_x, P0,
-                                           mf.nc[0] // mc.nc[0], S)
+        # A graded axis interpolates on its fine cells' sizes; on the
+        # sharded x axis that gives per-slab blocks (S, Nf, Nc).
+        h_fine = (lambda a: mf.h_cells[a] if mf.is_graded else None)
+        Ix, x_stacked = local_axis_h_interpolation(
+            pc.cells_per_shard_x, P0, mf.nc[0] // mc.nc[0], S,
+            h_fine=h_fine(0))
         Iy, _ = local_axis_h_interpolation(mc.nc[1], P0,
-                                           mf.nc[1] // mc.nc[1], 1)
+                                           mf.nc[1] // mc.nc[1], 1,
+                                           h_fine=h_fine(1))
         Iz, _ = local_axis_h_interpolation(mc.nc[2], P0,
-                                           mf.nc[2] // mc.nc[2], 1)
+                                           mf.nc[2] // mc.nc[2], 1,
+                                           h_fine=h_fine(2))
+        Ix = t(Ix)
+        if x_stacked:
+            Ix = Ix.reshape(S, -1, Ix.shape[1])
         transfer.append(dict(
-            Ix=t(Ix), Iy=t(Iy), Iz=t(Iz),
+            Ix=Ix, Iy=t(Iy), Iz=t(Iz),
             weights_f=t(pf.ownership_weights(P0)).reshape(
                 (S,) + pf.local_shape(P0))))
-        transfer_specs.append(dict(Ix=(), Iy=(), Iz=(), weights_f=SLAB))
+        transfer_specs.append(dict(Ix=SLAB if x_stacked else (), Iy=(),
+                                   Iz=(), weights_f=SLAB))
 
     data = dict(levels=level_data, transfer=transfer)
     specs = dict(levels=level_specs, transfer=transfer_specs)
@@ -569,16 +584,17 @@ class DistPMG:
     ``"smoother"``, the gathered ``"fdm"``, ``"direct"`` and ``"hmg"``,
     and with ``coarse_cfg=dict(dist=True)`` the non-gathered ``"fdm"``
     (pencil transposes) and ``"hmg"`` (`build_hmg_dist`, constant-kappa
-    boxes);
+    boxes, Robin faces and grading included);
     ``smoother``: ``"cheb"`` (point Jacobi), ``"line-y"`` / ``"line-z"``
     (``"line"`` resolves to one of them; lines along x would span
-    shards) or ``"schwarz"``; ``kappa`` a scalar or per-axis tuple and
-    ``sigma`` a scalar on every backend; on ``dofmap`` / ``lattice`` also
-    a DG-0 (array or callable) or tensor kappa, a sigma field, Robin faces
-    and graded spacing on curved or box meshes. Vectors in and out of
-    `solve` / `solve_pcg` / `solve_refined` are global flat vectors (numpy
-    or tensors in, tensors on ``device`` out); `apply`, `operator` and
-    `residual_norm` take the slab layout of `to_dist`.
+    shards) or ``"schwarz"``; ``kappa`` a scalar, per-axis tuple or
+    diagonal tensor, ``sigma`` a scalar, Robin faces and graded spacing
+    on every backend; on ``dofmap`` / ``lattice`` also a DG-0 (array or
+    callable) or any tensor kappa, a sigma field and curved meshes.
+    Vectors in and out of `solve` / `solve_pcg` / `solve_refined` are
+    global flat vectors (numpy or tensors in, tensors on ``device`` out);
+    `apply`, `operator` and `residual_norm` take the slab layout of
+    `to_dist`.
     """
 
     def __init__(self, mesh, n_devices=None, degrees=(1, 3), kappa=2.0,
@@ -625,7 +641,6 @@ class DistPMG:
                     "line/schwarz smoothers support a scalar sigma only"
                 )
         self._robin = bool(getattr(mesh, "has_robin", False))
-        graded = bool(getattr(mesh, "is_graded", False))
         if (not any(any(f) for f in getattr(mesh, "dirichlet_faces",
                                             ((True, True),) * 3))
                 and self.sigma == 0.0 and not self._robin):
@@ -659,10 +674,6 @@ class DistPMG:
         self._ops_sigma = ops_shift_scalar(mesh, self.sigma, kron_family)
         if kron_family:
             require_axis_aligned(mesh, f"DistPMG operator='{operator}'")
-            if self._robin:
-                raise _todo("Robin faces on the Kronecker family")
-            if graded:
-                raise _todo("graded spacing on the Kronecker family")
         if operator == "kron_blocked" and dtype != torch.float32:
             raise ValueError(
                 "operator='kron_blocked' is f32-only (CUDA kernels); "
@@ -670,17 +681,16 @@ class DistPMG:
             )
         if coarse == "fdm":
             require_axis_aligned(mesh, "coarse='fdm'")
-        per_axis = (isinstance(kappa, (tuple, list)) and len(kappa) == 3
-                    and all(np.ndim(k) == 0 for k in kappa))
         kc, kt, const = resolve_kappa_split(mesh, kappa)
-        if kron_family and not per_axis and (kt is not None or not const):
-            raise _todo("a tensor or per-cell kappa on the Kronecker family")
         self._kappa_raw = kappa
         # A tensor kappa folds into G (_kappa_fold); _kc is the per-cell
         # scalar (ones for a tensor), applied to G through scale_G.
         self._kc, self._kappa_fold = kc, kt
         self.kappa_cells = kt if kt is not None else kc
         self.kappa = float(kc[0]) if const else None
+        # The forms the Kronecker family and the fdm coarse solves can
+        # express (scalar, per-axis, diagonal tensor); JAX's ValueError for
+        # the rest on the Kronecker family.
         try:
             self.kappa_axes = resolve_kappa_axes(mesh, kappa,
                                                  split=(kc, kt, const))
@@ -688,17 +698,12 @@ class DistPMG:
             if kron_family:
                 raise
             self.kappa_axes = None
-        if coarse == "fdm":
-            if self.kappa_axes is None:
-                raise ValueError(
-                    "DistPMG: coarse='fdm' is constant-coefficient (scalar, "
-                    "per-axis or diagonal-tensor) only; use 'hmg', 'cg', "
-                    "'smoother' or 'direct'"
-                )
-            if self._robin or graded:
-                raise _todo("coarse='fdm' on a Robin-faced or graded mesh "
-                            "(the Kronecker family's fast diagonalisation "
-                            "on the slabs)")
+        if coarse == "fdm" and self.kappa_axes is None:
+            raise ValueError(
+                "DistPMG: coarse='fdm' is constant-coefficient (scalar, "
+                "per-axis or diagonal-tensor) only; use 'hmg', 'cg', "
+                "'smoother' or 'direct'"
+            )
         if precision == "high":
             raise _todo("precision='high' (bf16x3 products)", 1)
         if precision != "highest":
@@ -929,17 +934,18 @@ class DistPMG:
 
     def _kron_arrays(self, Pdeg, dtype, operator=None):
         """The Kronecker family's level arrays: the LOCAL x stiffness
-        (per-slab row-stacked where Robin ends or grading make the slabs
-        differ), global y/z stiffness (kappa and Robin ends folded in) and
-        the duplicated-layout x mass (``kron``), or the symmetrized
-        ``kb_mats`` on the stacked lattice (``kron_blocked``). Robin ends
-        and grading reach here only through the general family's f64
-        refinement apply (`_refine_apply64`)."""
+        (per-slab row-stacked ``(S*npl, npl)`` where Robin x ends or an x
+        grading make the slabs differ), global y/z stiffness (kappa and
+        Robin ends folded in) and the duplicated-layout x mass (``kron``),
+        or the symmetrized ``kb_mats`` on the stacked lattice
+        (``kron_blocked``: ``Ktx`` block-diagonal, each block its own
+        slab's ``Kx`` over its own sqrt-mass scaling)."""
         from ..ops.kron import axis_stiffness_mass, local_axis_K, robin_axis_ends
 
         part, mesh, kax = self.part, self.mesh, self.kappa_axes
         S, npl = part.n_shards, part.local_planes(Pdeg)
-        Kx, _ = local_axis_K(mesh, 0, part.cells_per_shard_x, Pdeg, kax[0], S)
+        Kx, x_stacked = local_axis_K(mesh, 0, part.cells_per_shard_x, Pdeg,
+                                     kax[0], S)
         Ky, my = axis_stiffness_mass(
             mesh.nc[1], Pdeg, mesh.h_cells[1],
             robin=robin_axis_ends(mesh, 1, 1.0 / kax[1]))
@@ -948,32 +954,33 @@ class DistPMG:
             robin=robin_axis_ends(mesh, 2, 1.0 / kax[2]))
         _, mx_g = axis_stiffness_mass(mesh.nc[0], Pdeg, mesh.h_cells[0])
         mx_dup = duplicate_planes(mx_g, npl, S)
-        Ks = (Kx, kax[1] * Ky, kax[2] * Kz)
         if (operator or self.operator_kind) == "kron":
             t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
-            return dict(Kx=t(Ks[0]), Ky=t(Ks[1]), Kz=t(Ks[2]), mx=t(mx_dup),
-                        my=t(my), mz=t(mz))
+            return dict(Kx=t(Kx), Ky=t(kax[1] * Ky), Kz=t(kax[2] * Kz),
+                        mx=t(mx_dup), my=t(my), mz=t(mz))
         from ..ops.kron_blocked import (
             _check_band,
             checked_face_masks,
             symmetrized_mats,
         )
 
-        # The shard-invariant y/z factors from the helper on slab 0; the
-        # x-dependent ones stacked over the slabs (the sqrt-mass scalings
-        # differ between boundary and interior slabs), Ktx block-diagonal.
+        Kx_shards = (Kx.reshape(S, npl, npl) if x_stacked
+                     else np.broadcast_to(Kx, (S, npl, npl)))
+        # The shard-invariant y/z factors from the helper on slab 0's
+        # block; the x-dependent ones stacked over the slabs (the sqrt-mass
+        # scalings differ between boundary and interior slabs, and Robin
+        # ends or grading make the blocks differ), Ktx block-diagonal.
         fm = checked_face_masks(mesh, Pdeg, mesh.boundary_dof_marker(Pdeg))
         kb = symmetrized_mats(
-            Ks, (mx_dup[:npl], my, mz), dtype,
-            None if fm is None else (fm[0][:npl], fm[1], fm[2]),
+            (Kx_shards[0], kax[1] * Ky, kax[2] * Kz), (mx_dup[:npl], my, mz),
+            dtype, None if fm is None else (fm[0][:npl], fm[1], fm[2]),
             band=Pdeg, device=self.device)
         sx = np.sqrt(mx_dup)
         sz = np.sqrt(mz)
         Ktx = np.zeros((S * npl, S * npl))
-        for s in range(S):
-            ss = sx[s * npl:(s + 1) * npl]
+        for s, (K_s, ss) in enumerate(zip(Kx_shards, sx.reshape(S, npl))):
             Ktx[s * npl:(s + 1) * npl, s * npl:(s + 1) * npl] = (
-                Kx / ss[:, None] / ss[None, :])
+                K_s / ss[:, None] / ss[None, :])
         _check_band("x", Ktx, Pdeg)
         arrays = dict(Ktx=Ktx, sx2d=sx[:, None], sxz=np.outer(sx, sz))
         if fm is not None:

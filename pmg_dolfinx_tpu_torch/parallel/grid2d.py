@@ -28,29 +28,33 @@ the ``psum`` of a dot, and the ``all_gather`` / ``dynamic_slice`` of the
 global coarse solve. On the stacked layout each is an exact tensor
 operation on the three leading (shard) axes.
 
-Backends: the Kronecker family (``kron``, ``kron_blocked``; scalar kappa
-and sigma on uniform boxes with Dirichlet or Neumann faces) and the
-general family (``lattice``, ``lattice_blocked``, ``dofmap``; curved
-hexes, DG-0, per-axis and tensor kappa, sigma fields, Robin faces and
-graded spacing, the shift and the Robin boundary mass baked into one
-pointwise ``m3``). Smoothers: point Jacobi, line relaxation along an
-unsharded axis (the global block inverses laid out like the vectors,
-`stacked_line_blocks`) and the cell-wise Schwarz blocks (per-shard dense
-axis transforms, `stacked_schwarz`, the overlap-add reconciled by the
-grid exchange). Coarse solves: ``cg``, ``smoother``, the gathered
-``fdm``, ``direct`` and ``hmg``, and the non-gathered
+Backends: the Kronecker family (``kron``, ``kron_blocked``; scalar,
+per-axis or diagonal-tensor kappa and a scalar sigma on axis-aligned
+boxes with Dirichlet, Neumann or Robin faces and graded spacing, the
+Robin ends and the grading folded into the 1D factors, per-shard
+row-stacked on a sharded axis where the shards differ, so every shard's
+kernel operands are its own) and the general family (``lattice``,
+``lattice_blocked``, ``dofmap``; curved hexes, DG-0, per-axis and tensor
+kappa, sigma fields, Robin faces and graded spacing, the shift and the
+Robin boundary mass baked into one pointwise ``m3``). Smoothers: point
+Jacobi, line relaxation along an unsharded axis (the global block
+inverses laid out like the vectors, `stacked_line_blocks`) and the
+cell-wise Schwarz blocks (per-shard dense axis transforms,
+`stacked_schwarz`, the overlap-add reconciled by the grid exchange).
+Coarse solves: ``cg``, ``smoother``, the gathered ``fdm``, ``direct``
+and ``hmg``, and the non-gathered
 ``coarse_cfg["dist"]`` forms: ``fdm`` through `fdm_dist`'s pencil
 transposes (`StackedGrid.all_to_all`) and ``hmg`` through
 `build_hmg_grid` (boxes) or `build_hmg_grid_general` (the general
 family), every h-level in the stacked layout. `GridPMG.solve_refined`
 runs on every backend.
 
-Not ported here, each raising NotImplementedError naming its ROADMAP.md
-item: the Kronecker family's Robin faces, graded spacing and per-axis or
-tensor kappa, and the ``fdm`` coarse solves on Robin or graded meshes
-(item 10 (b)), ``devices`` (the multi-process backend, item 10 (d)) and
-``precision="high"`` (item 1). The 1D slab (`parallel.dist.DistPMG`)
-goes through the same seam with ``shards=(S, 1, 1)``.
+As in JAX, a per-cell or off-diagonal tensor kappa on the Kronecker
+family raises ValueError. Not ported here, each raising
+NotImplementedError naming its ROADMAP.md item: ``devices`` (the
+multi-process backend, item 10 (d)) and ``precision="high"`` (item 1).
+The 1D slab (`parallel.dist.DistPMG`) goes through the same seam with
+``shards=(S, 1, 1)``.
 """
 
 import numpy as np
@@ -772,14 +776,16 @@ def build_hmg_grid(mesh, shards, P0, kappa, dtype, smoother_iters=2,
         # exchange), the global axis mass in the duplicated layout.
         npls = p_l.local_shape(P0)
         for a, name in enumerate("xyz"):
-            Kl, _ = local_axis_K(m, a, p_l.cells_per_shard[a], P0, kax[a],
-                                 p_l.shards[a])
+            # Robin ends rediscretise per h-level (row-stacked per shard
+            # on a sharded axis where they or the grading differ).
+            Kl, stacked = local_axis_K(m, a, p_l.cells_per_shard[a], P0,
+                                       kax[a], p_l.shards[a])
             _, mg = axis_stiffness_mass(m.nc[a], P0, m.h_cells[a])
             lv["K" + name] = torch.as_tensor(Kl, dtype=dtype, device=device)
             lv["m" + name] = torch.as_tensor(
                 duplicate_planes(mg, npls[a], p_l.shards[a]), dtype=dtype,
                 device=device)
-            spec["K" + name] = ()
+            spec["K" + name] = (AXES[a],) if stacked else ()
             spec["m" + name] = (AXES[a],)
 
     return _hmg_grid_scaffold(
@@ -865,8 +871,10 @@ class GridPMG:
 
     The JAX package's signature. Operator backends: ``"kron"`` (plain
     torch, any float dtype) and ``"kron_blocked"`` (the CUDA kernels #1-#9,
-    float32) on uniform boxes with a scalar kappa; ``"lattice"`` (plain
-    torch), ``"lattice_blocked"`` (K-A once per shard, float32) and
+    float32) on axis-aligned boxes (Robin faces and graded spacing
+    included) with a scalar, per-axis or diagonal-tensor kappa;
+    ``"lattice"`` (plain torch), ``"lattice_blocked"`` (K-A once per
+    shard, float32) and
     ``"dofmap"`` on curved hexes with a scalar, per-axis, DG-0 (array or
     callable) or tensor kappa, a sigma field and Robin faces or graded
     spacing. Coarse solvers ``"cg"`` (default), ``"smoother"``, the
@@ -921,7 +929,6 @@ class GridPMG:
                     "line/schwarz smoothers support a scalar sigma only"
                 )
         self._robin = bool(getattr(mesh, "has_robin", False))
-        graded = bool(getattr(mesh, "is_graded", False))
         if (not any(any(f) for f in getattr(mesh, "dirichlet_faces",
                                             ((True, True),) * 3))
                 and self.sigma == 0.0 and not self._robin):
@@ -953,11 +960,6 @@ class GridPMG:
         kron_family = operator in ("kron", "kron_blocked")
         if kron_family:
             require_axis_aligned(mesh, f"GridPMG operator='{operator}'")
-            if self._robin:
-                raise _todo("Robin faces on the Kronecker family", "10 (b)")
-            if graded:
-                raise _todo("graded spacing on the Kronecker family",
-                            "10 (b)")
         if (operator in ("kron_blocked", "lattice_blocked")
                 and dtype != torch.float32):
             raise ValueError(
@@ -981,9 +983,9 @@ class GridPMG:
         self.kappa_cells = (self._kappa_fold if self._kappa_fold is not None
                             else self._kc)
         self.kappa = float(self._kc[0]) if const else None
-        if kron_family and (self._kappa_fold is not None or not const):
-            raise _todo("a per-axis, tensor or per-cell kappa on the "
-                        "Kronecker family", "10 (b)")
+        # The forms the Kronecker family and the fdm coarse solves can
+        # express (scalar, per-axis, diagonal tensor); JAX's ValueError for
+        # the rest on the Kronecker family.
         try:
             self.kappa_axes = resolve_kappa_axes(
                 mesh, kappa, split=(self._kc, self._kappa_fold, const))
@@ -999,10 +1001,6 @@ class GridPMG:
                     "(scalar, per-axis or diagonal-tensor) only; use "
                     "'hmg', 'cg', 'smoother' or 'direct'"
                 )
-            if self._robin or graded:
-                raise _todo("coarse='fdm' on a Robin-faced or graded mesh "
-                            "(the Kronecker family's fast diagonalisation "
-                            "on the device grid)", "10 (b)")
         self.mesh = mesh
         self.shards = shards
         self.grid = StackedGrid(shards)

@@ -17,15 +17,16 @@ CPU devices.
   per-axis kappa and S in {2, 4, 8};
 - the stacked ``kron_blocked`` launch design equals the per-slab plain
   versions, and `_exchange_partials` equals its definition;
-- every refusal: ``NotImplementedError`` naming ROADMAP.md item 10 for
-  the distributed hmg on a graded mesh and the distributed layout's
-  ``devices=`` (the ids of the ``coarse="hmg"`` and ``coarse_cfg["dist"]``
-  cases, ported since), and on the Kronecker family for Robin faces,
-  graded spacing and a tensor or per-cell kappa (the general family runs
-  them since item 10 (b): `tests/test_torch_dist_general.py`), and for
-  ``devices=``; item 1 for ``precision="high"``; JAX's ValueErrors for a
-  sigma field on the Kronecker family, ``line-x``, an unknown backend,
-  f64 ``kron_blocked`` and a slab count that does not divide.
+- every refusal: ``NotImplementedError`` naming ROADMAP.md item 10 (d)
+  for ``devices=`` (on `DistPMG`, on the distributed layout and on a
+  graded Kronecker slab) and item 1 for ``precision="high"`` (also on a
+  Robin-faced one); JAX's ValueErrors for an off-diagonal tensor or a
+  per-cell kappa on the Kronecker family (on `DistPMG` and on a graded
+  mesh's `build_hmg_dist`), a sigma field on the Kronecker family,
+  ``line-x``, an unknown backend, f64 ``kron_blocked`` and a slab count
+  that does not divide. Robin faces, graded spacing and diagonal-tensor
+  kappa on the Kronecker slabs run against JAX in
+  `tests/test_torch_kron_sharded.py`.
 
 The solve modes (`solve_refined`, ``fmg``, ``u0``), the shardwrap
 programs and the drivers are in `tests/test_torch_dist_solvers.py` and
@@ -153,11 +154,16 @@ def test_exchange_partials_adds_the_neighbour_planes():
     assert torch.equal(lat, ref)
 
 
+# An off-diagonal tensor kappa: the Kronecker-sum factorisation cannot
+# express it (JAX's ValueError).
+_ROTATED = np.array([[2.0, 0.5, 0.0], [0.5, 2.0, 0.0], [0.0, 0.0, 2.0]])
+
+
 def _graded_hmg_dist():
     from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
 
     mesh = TBox((4, 4, 4), spacing=(geometric_spacing(4, 4.0), None, None))
-    td.build_hmg_dist(mesh, 2, 1, 2.0, torch.float64, device="cpu")
+    td.build_hmg_dist(mesh, 2, 1, _ROTATED, torch.float64, device="cpu")
 
 
 def _dist_layout_devices():
@@ -172,22 +178,23 @@ def _sigma_field_kron():
 
 
 # The first two cases were DistPMG's coarse="hmg" and coarse_cfg["dist"]
-# until item 10 (a) ported them; their ids stay, on the parts of the same
-# layer still refused: the distributed hmg on a graded mesh (item 10 (b))
-# and the distributed layout's devices= (item 10 (d)). The sigma-field and
-# kappa cases ran on the default dofmap backend until the general family
-# of item 10 (b) was ported (tests/test_torch_dist_general.py runs them);
-# their ids stay on the Kronecker family: a tensor or per-cell kappa there
-# is still item 10 (b), and a sigma field there is refused for good, with
-# JAX's ValueError.
+# until item 10 (a) ported them, the first then the distributed hmg on a
+# graded mesh until item 10 (b) ported it; their ids stay, on what is
+# still refused: a graded mesh's distributed hmg with an off-diagonal
+# tensor kappa (JAX's ValueError) and the distributed layout's devices=
+# (item 10 (d)). The kappa cases ran on the dofmap backend until the
+# general family ported them, then as a tensor or per-cell kappa on the
+# Kronecker family until item 10 (b) ported the diagonal tensor; they stay
+# on what JAX refuses there for good: an off-diagonal tensor and a
+# per-cell kappa. A sigma field on the Kronecker family is refused for
+# good too.
 _TODO = [
-    (_graded_hmg_dist, "hmg", NotImplementedError),
-    (_dist_layout_devices, "dist", NotImplementedError),
+    (_graded_hmg_dist, "off-diagonal", ValueError),
+    (_dist_layout_devices, "devices=", NotImplementedError),
     (_sigma_field_kron, "sigma FIELD", ValueError),
-    (dict(kappa=np.eye(3) * 2.0, operator="kron"),
-     "tensor or per-cell kappa", NotImplementedError),
-    (dict(kappa=np.linspace(1.0, 2.0, 64), operator="kron"),
-     "tensor or per-cell kappa", NotImplementedError),
+    (dict(kappa=_ROTATED, operator="kron"), "off-diagonal", ValueError),
+    (dict(kappa=np.linspace(1.0, 2.0, 64), operator="kron"), "per-cell",
+     ValueError),
     (dict(devices=["cpu"]), "devices=", NotImplementedError),
 ]
 
@@ -200,34 +207,40 @@ _TODO_IDS = ["_graded_hmg_dist-hmg", "_dist_layout_devices-dist",
 
 @pytest.mark.parametrize("kw,what,err_type", _TODO, ids=_TODO_IDS)
 def test_unported_options_raise_naming_item_10(kw, what, err_type):
-    match = "item 10" if err_type is NotImplementedError else "Kronecker"
+    """What the slab layer still refuses: the unported options name their
+    ROADMAP.md item (10 (d)), the rest raise JAX's own ValueError, which
+    JAX's `DistPMG` raises on the same keywords."""
+    match = (r"item 10 \(d\)" if err_type is NotImplementedError
+             else "Kronecker")
     with pytest.raises(err_type, match=match) as err:
         if callable(kw):
             kw()
         else:
             td.DistPMG(TBox((4, 4, 4)), n_devices=2, device="cpu", **kw)
     assert what in str(err.value)
+    if err_type is ValueError and not callable(kw):
+        with pytest.raises(ValueError, match=what):
+            jd.DistPMG(JBox((4, 4, 4)), n_devices=2, **kw)
 
 
 def test_robin_and_graded_meshes_raise_naming_item_10():
-    """Robin faces and graded spacing on the Kronecker family's slabs are
-    item 10 (b) (the general family runs them:
-    tests/test_torch_dist_general.py)."""
+    """Robin faces and graded spacing on the Kronecker family's slabs run
+    since item 10 (b) (tests/test_torch_kron_sharded.py); on such meshes
+    the slabs still refuse ``devices=`` (item 10 (d)) and
+    ``precision="high"`` (item 1)."""
     from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
 
     robin = TBox((4, 4, 4), dirichlet_faces=((True, True), (False, False),
                                             (True, True)),
                  robin=((0.0, 0.0), (2.0, 2.0), (0.0, 0.0)))
-    with pytest.raises(NotImplementedError,
-                       match=r"Robin faces on the Kronecker family.*"
-                             r"item 10 \(b\)"):
-        td.DistPMG(robin, n_devices=2, operator="kron", device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 1\)"):
+        td.DistPMG(robin, n_devices=2, operator="kron", precision="high",
+                   device="cpu")
     graded = TBox((4, 4, 4), spacing=(geometric_spacing(4, 4.0), None, None))
     with pytest.raises(NotImplementedError,
-                       match=r"graded spacing on the Kronecker family.*"
-                             r"item 10 \(b\)"):
+                       match=r"devices=.*item 10 \(d\)"):
         td.DistPMG(graded, n_devices=2, operator="kron_blocked",
-                   dtype=torch.float32, device="cpu")
+                   dtype=torch.float32, devices=["cpu"], device="cpu")
 
 
 def test_high_precision_raises_naming_item_1():

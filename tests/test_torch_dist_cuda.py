@@ -144,3 +144,39 @@ def test_cuda_gather_free_slab_cycle_matches_the_cpu_run(cuda_device, coarse,
     v = card.from_dist(card.apply(card.to_dist(b), card.to_dist(u)))
     v_cpu = cpu.from_dist(cpu.apply(cpu.to_dist(b), cpu.to_dist(u)))
     assert _rel_max(v.cpu(), v_cpu) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [3, 6])
+def test_cuda_stacked_ktx_with_blocks_that_differ(cuda_device, P):
+    """Kernel #1 on the stacked block-diagonal ``Ktx`` of a slab whose x
+    is graded 8:1 with a Robin x-high face (every slab's block its own),
+    and the apply and fused residual (#1-#3), within 1e-5 of the per-slab
+    plain versions on each slab's own arrays, sigma 0 and 0.5."""
+    from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
+
+    S = 4
+    mesh = BoxMesh((12, 5, 7), dirichlet_faces=((True, False), (True, True),
+                                                (True, True)),
+                   robin=((0.0, 1.7), (0.0, 0.0), (0.0, 0.0)),
+                   spacing=(geometric_spacing(12, 8.0), None, None))
+    rng = np.random.default_rng(41 + P)
+    for sigma in (0.0, 0.5):
+        dist = DistPMG(mesh, n_devices=S, degrees=(P,), dtype=torch.float32,
+                       operator="kron_blocked", sigma=sigma, coarse="cg",
+                       device=cuda_device)
+        lv, level = dist.data["levels"][-1], dist.levels[-1]
+        blocks = slab_blocks(lv["kb_mats"], S)
+        assert not any(torch.equal(blocks[0]["Ktx"], m["Ktx"])
+                       for m in blocks[1:])
+        shape = (S,) + tuple(level.shape)
+        x, b = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                             device=cuda_device) for _ in range(2))
+        t1 = torch.stack([tkb.plain_t1_m(x[s], blocks[s]) for s in range(S)])
+        got = tkb.kron_t1_m(x.reshape((-1,) + shape[2:]), lv["kb_mats"])
+        assert _rel_max(got.reshape(shape), t1) <= 1e-5
+        ops = dist_kron_blocked_cycle_ops(S, sigma=sigma)
+        assert _rel_max(ops["apply"](lv, x, level),
+                        _plain_per_slab(x, lv, S, sigma)) <= 1e-5
+        assert _rel_max(ops["residual"](lv, b, x, level),
+                        _plain_per_slab(x, lv, S, sigma, r=b)) <= 1e-5

@@ -431,13 +431,17 @@ def test_hmg_dist_refuses_what_jax_refuses():
         td.DistPMG(TPert((8, 4, 4)), n_devices=2, degrees=(1, 3),
                    coarse="hmg", coarse_cfg=dict(dist=True),
                    operator="dofmap", device="cpu")
-    # build_hmg_grid_general runs since item 10 (b)'s general family
-    # (tests/test_torch_grid_general.py); the Kronecker h-hierarchy on a
-    # graded mesh is still item 10 (b).
-    with pytest.raises(NotImplementedError, match=r"item 10 \(b\)"):
-        tg.build_hmg_grid(TBox((4, 8, 4), spacing=(
-            None, None, (1.0, 2.0, 3.0, 4.0))), (2, 2, 2), 1, 2.0,
-            torch.float64, device="cpu")
+    # The Kronecker h-hierarchy on a graded mesh runs since item 10 (b)
+    # (tests/test_torch_kron_sharded.py); there, as in JAX, a line
+    # smoother along a sharded axis is refused.
+    graded = (None, None, (1.0, 2.0, 3.0, 4.0))
+    with pytest.raises(ValueError, match=r"needs shards\[2\]==1"):
+        tg.build_hmg_grid(TBox((4, 8, 4), spacing=graded), (2, 2, 2), 1,
+                          2.0, torch.float64, smoother="line-z",
+                          device="cpu")
+    with pytest.raises(ValueError, match=r"needs shards\[2\]==1"):
+        jg.build_hmg_grid(JBox((4, 8, 4), spacing=graded), (2, 2, 2), 1,
+                          2.0, np.float64, smoother="line-z")
 
 
 def test_scaling_torch_hmg_dist_sweeps_match_jax_driver():

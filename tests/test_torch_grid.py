@@ -645,37 +645,44 @@ def test_grid_pmg_refuses_what_is_not_ported():
              ValueError, "f32-only"),
             (lambda: tg.GridPMG(TBox(NC, dirichlet_faces=((False, False),) * 3), (2, 2),
                                 **kw), ValueError, "pure-Neumann"),
-            (lambda: tg.GridPMG(mesh, (2, 2), kappa=(1.0, 2.0, 3.0), **kw),
-             NotImplementedError, r"Kronecker family.*item 10 \(b\)"),
+            # The Kronecker family takes a per-axis kappa, Robin faces and
+            # graded spacing since item 10 (b) (runs below); these cases
+            # now hold what it still refuses: JAX's ValueErrors for an
+            # off-diagonal tensor or a per-cell kappa, devices= (item
+            # 10 (d)) and precision="high" (item 1), on the same meshes.
+            (lambda: tg.GridPMG(mesh, (2, 2), kappa=np.array(
+                [[2.0, 0.5, 0.0], [0.5, 2.0, 0.0], [0.0, 0.0, 2.0]]), **kw),
+             ValueError, r"Kronecker-sum.*off-diagonal"),
             (lambda: tg.build_hmg_grid(
                 TBox(NC, robin=((1.0, 1.0), (0.0, 0.0), (0.0, 0.0)),
                      dirichlet_faces=((False, False), (True, True),
                                       (True, True))),
-                (2, 2), 1, KAPPA, torch.float64, device="cpu"),
-             NotImplementedError, r"item 10 \(b\)"),
+                (2, 2), 1, KAPPA, torch.float64, precision="high",
+                device="cpu"),
+             NotImplementedError, r"item 1\)"),
             (lambda: tg.GridPMG(mesh, (2, 2), devices=["cuda:0"], **kw),
              NotImplementedError, "item 10"),
             (lambda: tg.GridPMG(mesh, (2, 2), sigma=lambda x: x[0], **kw),
              ValueError, "sigma FIELD"),
             (lambda: tg.GridPMG(mesh, (2, 2), kappa=np.arange(1.0, 65.0),
-                                **kw), NotImplementedError,
-             r"Kronecker family.*item 10 \(b\)"),
+                                **kw), ValueError,
+             r"Kronecker-sum.*per-cell"),
             (lambda: tg.GridPMG(TBox(NC, dirichlet_faces=(
                 (False, False), (True, True), (True, True)),
-                robin=((1.0, 1.0), (0.0, 0.0), (0.0, 0.0))), (2, 2), **kw),
-             NotImplementedError, r"Robin faces on the Kronecker family.*"
-                                  r"item 10 \(b\)"),
+                robin=((1.0, 1.0), (0.0, 0.0), (0.0, 0.0))), (2, 2),
+                devices=["cuda:0"], **kw),
+             NotImplementedError, r"devices=.*item 10 \(d\)"),
             (lambda: tg.GridPMG(TBox(NC, spacing=(None, None, (1.0, 2.0, 3.0,
                                                               4.0))),
-                                (2, 2), **kw), NotImplementedError,
-             r"graded spacing on the Kronecker family.*item 10 \(b\)"),
+                                (2, 2), precision="high", **kw),
+             NotImplementedError, r"item 1\)"),
             (lambda: tg.GridPMG(mesh, (2, 2), precision="high", **kw),
              NotImplementedError, "item 1"),
             (lambda: tg.GridPMG(TBox(NC, spacing=(None, None, (1.0, 2.0, 3.0,
                                                               4.0))),
                                 (2, 2), operator="lattice", coarse="fdm",
-                                **kw),
-             NotImplementedError, r"coarse='fdm'.*item 10 \(b\)")):
+                                kappa=np.arange(1.0, 65.0), **kw),
+             ValueError, r"coarse='fdm' is constant-coefficient")):
         with pytest.raises(err, match=match):
             call()
 
@@ -698,15 +705,23 @@ _RUN_MESH = {
     dict(operator="lattice", kappa="cells", coarse="direct"),
     dict(operator="lattice", mesh="robin", coarse="hmg"),
     dict(operator="dofmap", mesh="graded"),
-    dict(operator="lattice", sigma="field", refined=True)])
+    dict(operator="lattice", sigma="field", refined=True),
+    dict(kappa=(1.0, 2.0, 3.0)),
+    dict(mesh="robin", coarse="fdm"),
+    dict(mesh="graded", coarse="fdm", refined=True),
+    dict(mesh="robin", coarse="hmg", coarse_cfg=dict(dist=True)),
+    dict(operator="lattice", mesh="graded", coarse="fdm")])
 def test_grid_pmg_runs_what_was_refused(kwargs):
     """The cases `test_grid_pmg_refuses_what_is_not_ported` held until
-    items 7a/7b, 10 (a) and the general family of 10 (b) were ported: the
+    items 7a/7b, 10 (a) and 10 (b) were ported: the
     gathered ``direct`` coarse solve, the Schwarz smoother, the gathered
     ``hmg`` coarse and the non-gathered ``fdm`` and ``hmg``
     (``coarse_cfg["dist"]``); the ``lattice`` and ``dofmap`` backends with a
     sigma field, a per-cell kappa, Robin faces and graded spacing, and
-    `solve_refined`, on a
+    `solve_refined`; the Kronecker family (``kron``, the default) with a
+    per-axis kappa, Robin faces and graded spacing, the ``fdm`` coarse and
+    the distributed hmg on them, and ``fdm`` on a graded ``lattice`` grid,
+    on a
     (2, 2) grid cycle as JAX's `GridPMG` (f64: eigenvalue estimates to
     1e-12, 3 cycles to 1e-10)."""
     kw = dict(degrees=(1, 2), **kwargs)

@@ -270,3 +270,69 @@ def test_grid_lattice_blocked_pmg_on_cuda_matches_cpu(cuda_device):
     keep = rel_h > 5e-3
     assert np.max(np.abs(rel_c[keep] - rel_h[keep]) / rel_h[keep]) <= 5e-4
     assert _rel_max(u_c.cpu(), u_h) <= 1e-5
+
+
+def _robin_graded(nc):
+    """A box with x Neumann, y Robin (alpha 2) on both faces, z Dirichlet
+    and graded 8:1: on (2, 2, 2) the y shards' ``Kty`` / ``Ktye`` differ at
+    their Robin ends and every z shard's ``KtzT`` / ``KtzTe`` differs."""
+    from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
+
+    return BoxMesh(nc, dirichlet_faces=((False, False), (False, False),
+                                        (True, True)),
+                   robin=((0.0, 0.0), (2.0, 2.0), (0.0, 0.0)),
+                   spacing=(None, None, geometric_spacing(nc[2], 8.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [3, 6])
+def test_grid_kernel_9_per_shard_blocks_that_differ(cuda_device, P):
+    """Kernel #9 (apply and fused residual, both corrections, sigma 0 and
+    0.5) and #1 on every shard of a (2, 2, 2) Robin + graded grid, each
+    with its own `kb_blocks` entry, within 1e-5 of the plain versions on
+    the same blocks; the blocks differ across y and across z."""
+    grid = GridPMG(_robin_graded((4, 6, 8)), (2, 2, 2), degrees=(P,),
+                   kappa=2.0, coarse="cg", operator="kron_blocked",
+                   dtype=torch.float32, device=cuda_device)
+    blocks = grid.data["levels"][-1]["kb_blocks"]
+    assert not torch.equal(blocks[(0, 0, 0)]["Kty"], blocks[(0, 1, 0)]["Kty"])
+    assert not torch.equal(blocks[(0, 0, 0)]["KtzT"],
+                           blocks[(0, 0, 1)]["KtzT"])
+    shape = tuple(grid.levels[-1].shape)
+    rng = np.random.default_rng(29 + P)
+    f32 = lambda s: torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                 device=cuda_device)
+    x, r = f32(shape), f32(shape)
+    cy, cz = f32((shape[0], 2, shape[2])), f32((shape[0], shape[1], 2))
+    for m in blocks.values():
+        t1 = tkb.plain_t1_m(x, m)
+        assert _rel_max(tkb.kron_t1_m(x, m), t1) <= 1e-5
+        for sigma in (0.0, 0.5):
+            ref = tkb.plain_t23_grid_m(x, t1, m, sigma, cy, cz)
+            assert _rel_max(tkb.kron_t23_grid_m(x, t1, m, sigma, cy, cz),
+                            ref) <= 1e-5
+            assert _rel_max(tkb.kron_t23_grid_m(x, t1, m, sigma, cy, cz,
+                                                r3=r), r - ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_grid_robin_graded_vcycle_on_cuda_matches_cpu(cuda_device):
+    """One (2, 2, 2) ``kron_blocked`` V-cycle on the Robin + graded box on
+    the card against the same V-cycle on the CPU (plain versions) at the
+    CPU run's smoother bounds, on a seeded rhs and iterate: within 1e-5
+    relative max-norm; #9 launches."""
+    mesh = _robin_graded((4, 4, 4))
+    kw = dict(degrees=(1, 3), kappa=2.0, coarse="fdm",
+              operator="kron_blocked", dtype=torch.float32)
+    g_h = GridPMG(mesh, (2, 2, 2), device="cpu", **kw)
+    g_c = GridPMG(mesh, (2, 2, 2), device=cuda_device, **kw)
+    g_c.load_state({"levels": [{"lmax": lv["lmax"].to(cuda_device)}
+                               for lv in g_h.data["levels"]]})
+    rng = np.random.default_rng(30)
+    b, u = (rng.standard_normal(mesh.num_dofs(3)) for _ in range(2))
+    before = tkb.LAUNCHES["t23_grid_m"]
+    v_c = g_c.from_dist(g_c.apply(g_c.to_dist(b), g_c.to_dist(u)))
+    torch.cuda.synchronize()
+    assert tkb.LAUNCHES["t23_grid_m"] > before
+    v_h = g_h.from_dist(g_h.apply(g_h.to_dist(b), g_h.to_dist(u)))
+    assert _rel_max(v_c.cpu(), v_h) <= 1e-5
