@@ -21,14 +21,17 @@ driver, Newton, BiCGStab and the halo micro-benchmark on the slabs) and
 the gather-free coarse family and sharded time loops (`fdm_dist`, the
 distributed hmg on the slab and the grid, `transient_dist`) and the
 Kronecker family on the sharded layouts (Robin faces, graded spacing,
-per-axis and diagonal-tensor kappa on the slab and the grid) through them.
+per-axis and diagonal-tensor kappa on the slab and the grid) and the
+distributed unstructured path (`DSSDist`, shards stacked) through them.
 Every phase raises on failure; nothing is caught. The phases run in the
-order 1-3f, 4-4e, 14, 26a, 26b, 27a-27c, 15, 18d, 24a, 25a, 25b, 26c,
-19a, 29a, 19b, 19c, 29b-29d, 5-8b, 16, 17, 28a-28e, 20a-20c, 9-11, 21,
-12, 27d, 13, 18a-18c, 22, 23a-23d, 24b, 25c-25f: 26a, 27a-27c, 15, 18d,
+order 1, 2 (nvcc started), 18a, 18c, 25f (kernel-free, on the card while
+nvcc builds), 2 (joined), 3-3f, 4-4e, 14, 26a, 26b, 27a-27c, 15, 18d,
+24a, 25a, 25b, 26c, 19a, 29a, 19b, 19c, 29b-29d, 5-8b, 16, 17, 28a-28e,
+20a-20c, 9-11, 21, 12, 27d, 13, 18b, 22, 23a-23c, 30a, 30b, 23d, 24b,
+25c-25e: 26a, 27a-27c, 15, 18d,
 24a, 25a, 25b, 19b and 20c reuse phase 4's mesh (and its host geometry
 factors; 25a and 26a its hierarchy, 26c and 27a 26a's), 29a 19a's mesh,
-rhs and hierarchy, 16, 17 and 28a phase 7's. The 16.2M L2 errors
+rhs and hierarchy, 16 phase 7's, 28a 17's. The 16.2M L2 errors
 of phases 4, 15, 19a, 26a, 27c and 29a run on the card (`card_l2`: the host
 rule's quadrature, interpolation on the card; checked after phase 5),
 phase 6's 16.2M geometry factors on a host thread started in phase 4,
@@ -180,7 +183,7 @@ meshes of phases 22-23 on host threads started with phase 2. The script prints i
    ``select_zgroup``, 14): ``lattice_apply_zgrp``'s launch count rises.
    Both runs get phase 7's mesh, so its host geometry factors are not
    computed again.
-9. Curved in-card reference: nc=21 with ``operator="lattice"`` (plain
+9. Curved in-card reference: nc=10 with ``operator="lattice"`` (plain
    torch) and ``"lattice_blocked"`` under the rules of phase 5.
 10. Serving kernel parity: ``packed_apply`` and ``packed_fdm``
    (``csrc/kron_packed.cu``) through each of the four classes of
@@ -237,11 +240,13 @@ meshes of phases 22-23 on host threads started with phase 2. The script prints i
    the JAX bench's ``curved_2M_p136`` Schwarz half (V-cycle ms, FCG(V),
    L2).
 17. Curved hmg coarse, the JAX driver's ``--mesh perturbed --coarse fdm``
-   path: ``coarse="hmg"`` on phase 7's mesh (h-levels (42,42,42) ->
-   (21,...) -> (7,...) at p=1, a 512-dof dense bottom): the levels, setup
-   seconds, FCG(V) within one of phase 7's ``cg``-coarse count, L2 <
-   1e-4, wall and busy ms per V-cycle and the idle share beside phase
-   7's.
+   path, on ``PerturbedBoxMesh((14, 14, 14))`` (614,125 dofs; 28a's
+   mesh): first the single-device reference of 17 and 28a there
+   (``lattice_blocked`` + ``cg``: 10 cycles, FCG(V), ms and busy ms per
+   V-cycle, one seeded V-cycle), then ``coarse="hmg"`` (the
+   rediscretised h-levels at p=1 and a dense bottom): the levels, setup
+   seconds, FCG(V) within one of the ``cg``-coarse count, L2 < 1e-4, wall
+   and busy ms per V-cycle and the idle share beside the ``cg`` one's.
 18. The remaining entry points. a: ``examples/amg_torch.py --ndofs
    500000 --pc jacobi|cheb|hmg`` (cut from 2M for time), box and ``--mesh
    perturbed``, in this
@@ -270,7 +275,7 @@ meshes of phases 22-23 on host threads started with phase 2. The script prints i
    within 1e-5 of the unfused one's, FCG(V) within one.
 20. The general family, ``lattice_blocked``. a: ``--kappa-field aniso``
    (`kappa_aniso`, 100:1 rotated 30 degrees, folded into G: the first
-   off-diagonal G on a box) at nc=21 (16.2M until PR 17), ``coarse="cg"``:
+   off-diagonal G on a box) at nc=14, ``coarse="cg"``:
    FCG(V) to 1e-6 within 100, ms per V-cycle beside phase 7's curved
    cycle, K-A launches, L2 < 1e-4. b: at nc=14 (nc=21 until PR 17),
    `kappa_linear` with
@@ -333,9 +338,9 @@ meshes of phases 22-23 on host threads started with phase 2. The script prints i
    nc=21, p=(1,3,6), ``kron_blocked``, 5 steps, rtol by 25a's rule: within
    1e-4 of the f64 ``kron`` run, Newton per step, #1-#3 launch. f:
    `examples/modes_torch.py` (f64) ``--ndofs 100000 --kmodes 6 --neumann
-   x --sigma 5`` and ``--mesh perturbed --ndofs 1000 --kmodes 1`` (its
+   x --sigma 5`` and ``--mesh perturbed --ndofs 400 --kmodes 1`` (its
    ``lattice`` + ``cg`` hierarchy: FCG per solve below its cap, coarse CG
-   per V-cycle); and `lowest_eigenpairs` on the ~10k-dof ``PerturbedBoxMesh`` (k=1, tol
+   per V-cycle); and `lowest_eigenpairs` on the ~4k-dof ``PerturbedBoxMesh`` (k=1, tol
    1e-14, a ``lattice`` + ``direct`` hierarchy): each pair's ``|K u - lam
    M u| / |lam M u|`` against the host scipy stiffness (1e-7, 1e-6),
    M-orthonormality <= 1e-10, LOBPCG iterations and seconds.
@@ -378,21 +383,23 @@ meshes of phases 22-23 on host threads started with phase 2. The script prints i
    bottom="fdm"))`` (42 -> 14): FCG(V) within 2 of phase 14's, L2 < 1e-4
    (`card_l2`), ms per V-cycle, #1/#9 launch. d (after 12, at its
    2,048,383 dofs, p=3): `heat_dist_evolve` CN on 6 slabs and (2, 2, 2),
-   steps/s by the 200/1000 slope in turns with `heat_fdm_evolve`;
-   leapfrog, Newmark, semilinear and convdiff CNAB on 6 slabs, 200 steps:
+   steps/s by the 100/500 slope in turns with `heat_fdm_evolve`;
+   leapfrog, Newmark, semilinear and convdiff CNAB on 6 slabs at nc=18
+   (166,375 dofs), 200 steps:
    f32 within 1e-4 relative L2 of the f64 sharded run, f64 sharded within
    1e-9 of the f64 single-device evolver; `examples/heat_torch.py
-   --shards 6` (L2 < 1e-3).
+   --shards 6 --ndofs 250000` (L2 < 1e-3).
 28. The general family on the sharded layouts (no new kernel: K-A once
-   per shard), run after 17. a: ``GridPMG(PerturbedBoxMesh((42, 42, 42)),
+   per shard), run after 17. a: ``GridPMG(PerturbedBoxMesh((14, 14, 14)),
    (2, 2, 2), degrees=(1, 3, 6), kappa=2, float32, coarse="cg",
-   operator="lattice_blocked")`` on phase 7's mesh and rhs: 10 cycles
-   within 1e-3 of phase 7's above 5e-3, FCG(V) within 1 of its count and
-   the solution within 1e-3, one V-cycle on phase 7's seeded input at its
-   smoother bounds within 1e-5, K-A launched 8x as often as in phase 7's
-   V-cycle, collocated L2 < 1e-4, each shard's K-A at p=1, 3, 6 within
-   1e-5 of its plain version (device ms a shard beside its bound); ms per
-   V-cycle beside phase 7's, host ms to enqueue, a profiled window. b:
+   operator="lattice_blocked")`` on 17's mesh, rhs and single-device
+   reference: 10 cycles within 1e-3 of the single device's above 5e-3,
+   FCG(V) within 1 of its count and the solution within 1e-3, one
+   V-cycle on its seeded input at its smoother bounds within 1e-5, K-A
+   launched 8x as often as in its V-cycle, collocated L2 < 1e-4, each
+   shard's K-A at p=1, 3, 6 within 1e-5 of its plain version (device ms
+   a shard beside its bound); ms per V-cycle beside the single device's,
+   host ms to enqueue, a profiled window. b:
    the same layout on curved nc=14 with `kappa_linear` + `sigma_linear`
    and `kappa_aniso`, each against one device: FCG(V) within
    1, one V-cycle within 1e-5, L2 (< 1e-4; within 1% of the single
@@ -416,17 +423,35 @@ meshes of phases 22-23 on host threads started with phase 2. The script prints i
    1e-5 of their plain versions; ms per V-cycle beside 19a's and phase
    14's, launches per cycle, a profiled window's busy ms and idle share.
    b-d (after 19c, seeded right-hand sides): b: (2, 2, 2) on
-   ``mixed_mesh(24)`` with ``coarse="fdm", coarse_cfg=dict(dist=True)``
+   ``mixed_mesh(12)`` with ``coarse="fdm", coarse_cfg=dict(dist=True)``
    against the gathered fdm (FCG within 1, one V-cycle within 1e-5). c:
    ``DistPMG(7 slabs)`` on ``BoxMesh((28, 14, 14))`` with x graded 8:1
    and a Robin x-high face, ``coarse="fdm"`` and the gather-free hmg
    (``dist=True, bottom="fdm"``), each against one device (FCG within 1,
    2; one V-cycle within 1e-5), #1-#3 on the stacked ``Ktx`` against the
-   per-slab plain versions. d: (2, 2, 2) + fdm on ``BoxMesh((24,) * 3)``
+   per-slab plain versions. d: (2, 2, 2) + fdm on ``BoxMesh((12,) * 3)``
    with ``diag(1, 1, 100)`` and with ``(1, 2, 4)`` against one device
    (FCG within 1, one V-cycle within 1e-5); `solve_refined` on b's
    gathered grid to an f64 relative residual below 1e-9 within 2 cycles
    of one device's count.
+30. The distributed unstructured path (`parallel.dss_dist`; no new
+   kernel: JAX writes it as XLA ops). a (after 23c, on its mesh and 23a's
+   rhs): ``DSSDist(l_shaped_hex_mesh(15), 8, (1, 3, 6), 2.0, float32,
+   coarse="direct")``, the 8 shards stacked on the card: `DSSPartition`'s
+   host seconds at p = 1, 3, 6; the fine apply within 1e-5 of the
+   single-device ``dss`` apply, every level's lmax within 1e-3 of 23a's,
+   FCG(V) within 1 of 23a's, one V-cycle at 23a's bounds within 1e-5 of
+   23a's, L2 < 1e-4 (host thread); ms per apply and kernels per apply
+   beside phase 22's, ms per V-cycle beside 23a's, busy ms, kernels and
+   idle share of a complete profiled V-cycle (23a's too), exchanges per
+   V-cycle; ``smoother="schwarz"`` against 23c (FCG within 1, one V-cycle
+   within 1e-5). b: ``l_shaped_hex_mesh(5)`` (375 cells over 8 shards),
+   seeded rhs, ``coarse="cg"`` and ``coarse="direct"`` with sigma 0.8 and
+   a DG-0 kappa, each against the single-device ``dss`` hierarchy (FCG
+   within 1, one V-cycle within 1e-5).
+
+Before the kernels line, a line lists the ten longest phases with their
+seconds.
 
 Prints a ``{"kernels": [...]}`` JSON line (each kernel's launches on its
 path, error, host-issued time, plain time, library time where one
@@ -536,13 +561,26 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 
+# The seconds of every finished phase, by its tag (the phase name up to
+# its first '.'), for the line of the ten longest; phases in flight by
+# their start time.
+PHASE_SECONDS = {}
+_OPEN_PHASES = {}
+
+
 def phase(name):
     print(f"\n=== {name}", flush=True)
-    return time.perf_counter()
+    t0 = time.perf_counter()
+    _OPEN_PHASES[t0] = name.split(".")[0]
+    return t0
 
 
 def done(t0):
-    print(f"    phase seconds: {time.perf_counter() - t0:.2f}", flush=True)
+    secs = time.perf_counter() - t0
+    tag = _OPEN_PHASES.pop(t0, None)
+    if tag is not None:
+        PHASE_SECONDS[tag] = PHASE_SECONDS.get(tag, 0.0) + secs
+    print(f"    phase seconds: {secs:.2f}", flush=True)
 
 
 def traj_diff(rel, rel_ref):
@@ -1744,7 +1782,7 @@ def profile_busy(fn, counts=None):
     return wall, sum(by_name.values()), len(kernels), by_name
 
 
-def profile_complete(fn, lb, tries=8):
+def profile_complete(fn, lb, tries=4):
     """`profile_busy` of one call of ``fn`` (a curved V-cycle) from a
     complete window. Late in a long process the profiler can leave out
     some of a window's kernels (here phase 7 misses two of the cycle's
@@ -1754,13 +1792,18 @@ def profile_complete(fn, lb, tries=8):
     wrappers counted for the call (`lb.LAUNCHES`:
     each apply is one march, or cells, kernel and one fold, or faces,
     kernel; every level of the curved cycle has faces between boxes) and
-    its kernel count equals an earlier window's. Returns (wall, busy, kernels,
-    {name: ms}, {name: launches}, windows tried, complete)."""
+    its kernel count equals an earlier window's. At most ``tries``
+    windows: late in the process phases 7, 17 and 28a have come back
+    INCOMPLETE in all of 8, so more windows buy no complete one, and each
+    costs seconds of host time. Returns (wall, busy, kernels, {name: ms}, {name: launches}, windows
+    tried, complete)."""
     seen, last = [], None
     for tries_made in range(1, tries + 1):
         before = sum(lb.LAUNCHES.values())
         calls = {}
+        ts = time.perf_counter()
         wall, busy, nk, by_name = profile_busy(fn, calls)
+        secs = time.perf_counter() - ts
         applies = sum(lb.LAUNCHES.values()) - before
         march = sum(n for k, n in calls.items()
                     if "lattice_march" in k or "lattice_cells" in k)
@@ -1768,7 +1811,7 @@ def profile_complete(fn, lb, tries=8):
                    if "lattice_faces" in k or "lattice_fold" in k)
         complete = march == applies and fold == applies and nk in seen
         print(f"    profile window {tries_made}: {nk} kernels, lattice "
-              f"{march} + {fold} for {applies} applies"
+              f"{march} + {fold} for {applies} applies, {secs:.2f} s"
               + (" (complete)" if complete else ""))
         seen.append(nk)
         last = (wall, busy, nk, by_name, calls, tries_made, complete)
@@ -1862,6 +1905,32 @@ PACKED_NC = (10, 10, 10)     # 61^3 at p=6: 226,981 dofs, the serving size
 PACKED_P = 6
 PACKED_BATCHES = (1, 8, 64)  # B=64 (58 MB) is more than the card's L2
 MIXED = ((True, False), (False, False), (True, True))
+
+
+def timed_build(mod):
+    """``mod.load_kernels()`` (nvcc on its source): the clock at its end."""
+    mod.load_kernels()
+    return time.perf_counter()
+
+
+def kernel_free_phases():
+    """Phases 18a, 18c and 25f, which launch none of the port's CUDA
+    kernels (plain torch operators), run on the otherwise idle card while
+    nvcc builds the kernels: their times share the host with the build
+    and the host threads. Returns 25f's {tag: (iterations, seconds)}."""
+    t0 = phase(f"18a. AMG twin: examples/amg_torch.py --ndofs "
+               f"{AMG_TWIN_NDOFS} --pc jacobi|cheb|hmg, box and perturbed")
+    amg_twin()
+    done(t0)
+    t0 = phase("18c. line smoother + semicoarsened hmg: BoxMesh((16,16,32), "
+               "extent (1,1,0.25)), p=(1,3), f64 kron")
+    line_semicoarsened()
+    done(t0)
+    t0 = phase("25f. modes: examples/modes_torch.py, FDM box (100k); "
+               "lowest_eigenpairs, FCG(V) perturbed (4k); float64")
+    out = modes_phase()
+    done(t0)
+    return out
 
 
 def load_parent(root):
@@ -2827,9 +2896,14 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
 # Phase 26a: the flagship mesh's 42 x-cells in 6 slabs of 7 (258 stacked
 # x-planes at p=6 against 253).
 SLAB_SHARDS = 6
-# 20b's mesh: nc=21 until PR 17 (64.0 s on a slow host), cut for 26a-26c.
-GENERAL_NC = (14, 14, 14)
-SLAB_SWEEP = ["--ndofs", "2000000", "--degrees", "1", "3", "6",
+# 20b's mesh (331,451 dofs at p=6): its lattice_blocked and plain lattice
+# hierarchies, two per case, set the phase's time (64.0 s at nc=21 on a
+# slow host); 28b drives the same coefficients on the grid.
+GENERAL_NC = (10, 10, 10)
+# 20a's box: the tensor fold and FCG(V) at 614,125 dofs (28b drives the
+# same aniso tensor on the curved grid at this size).
+GENERAL_ANISO_NC = (14, 14, 14)
+SLAB_SWEEP = ["--ndofs", "1000000", "--degrees", "1", "3", "6",
               "--operator", "kron_blocked", "--coarse", "fdm", "--dtype",
               "f32", "--max-devices", "8", "--cycles", "3"]
 SLAB_SWEEP_F64 = ["--ndofs", "250000", "--operator", "dofmap", "--coarse",
@@ -3210,6 +3284,13 @@ STEP_NC = (42, 42, 42)  # 27d at p=3: 2,048,383 dofs, phase 12's size
 STEP_F32_RTOL = 1e-4
 STEP_F64_RTOL = 1e-9
 STEP_N = 200
+# 27d's steps/s slope: the wall-clock difference of runs of these step
+# counts, over the steps between them.
+STEP_SLOPE = (100, 500)
+# 27d's leapfrog, Newmark, semilinear and convdiff gates (6 slabs of 3
+# x-cells; 166,375 dofs at p=3); heat CN and its slope stay at STEP_NC,
+# phase 12's size.
+STEP_GATE_NC = (18, 18, 18)
 DEV = "cuda"
 
 
@@ -3472,14 +3553,16 @@ def gather_free_grid(prob, niter_ref, cfg, launches):
 def sharded_steppers(mesh=None, steps=STEP_N):
     """Phase 27d at phase 12's ``heat_cn_2M`` size (``STEP_NC``, p=3,
     2,048,383 dofs): `heat_dist_evolve` CN (dt 1e-4, kappa 2) on 6 slabs
-    and on (2, 2, 2), f32 steps/s by the 200/1000 slope in turns with the
+    and on (2, 2, 2), f32 steps/s by the `STEP_SLOPE` slope in turns with the
     single-device `heat_fdm_evolve`; then `wave_leapfrog_dist_evolve`,
     `wave_newmark_dist_evolve`, `semilinear_dist_evolve` (cubic, CNAB) and
-    `convdiff_dist_evolve` (CNAB) on 6 slabs. Gates, each over ``steps``
+    `convdiff_dist_evolve` (CNAB) on 6 slabs of ``BoxMesh(STEP_GATE_NC)``.
+    Gates, each over ``steps``
     steps: the f32 run within `STEP_F32_RTOL` relative L2 of the f64 run
     of the same sharded evolver, the f64 sharded run within
     `STEP_F64_RTOL` of its f64 single-device evolver. Then
-    ``examples/heat_torch.py --shards 6`` end to end. Returns {tag:
+    ``examples/heat_torch.py --shards 6 --ndofs 250000`` end to end.
+    Returns {tag:
     (steps, ms per step)}."""
     import numpy as np
     import torch
@@ -3539,7 +3622,7 @@ def sharded_steppers(mesh=None, steps=STEP_N):
               (mode, steps))
     evs = {t: ev[f32] for t, ev in heat.items()}
     u0 = torch.tensor(mode, dtype=f32, device=DEV)
-    lo, hi = steps, 5 * steps
+    lo, hi = STEP_SLOPE
     slope = {t: [] for t in evs}
     for t in list(evs) + list(evs)[::-1]:
         timed(evs[t], u0, lo)
@@ -3554,6 +3637,10 @@ def sharded_steppers(mesh=None, steps=STEP_N):
         out[f"27d heat CN {t} slope"] = (hi - lo, 1e3 * sum(v) / len(v))
 
     S = SLAB_SHARDS
+    mesh = BoxMesh(STEP_GATE_NC)
+    c = mesh.dof_coords(P)
+    mode = (np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1])
+            * np.sin(np.pi * c[:, 2]))
     dtw = 0.72 * ts1.wave_stable_dt(mesh, P, kappa=kappa)
     gates("leapfrog", lambda dtype: td.wave_leapfrog_dist_evolve(
         mesh, P, S, kappa=kappa, dt=dtw, dtype=dtype, device=DEV),
@@ -3585,7 +3672,7 @@ def sharded_steppers(mesh=None, steps=STEP_N):
     return out
 
 
-def heat_driver_sharded(ndofs="2000000"):
+def heat_driver_sharded(ndofs="250000"):
     """27d's driver: ``examples/heat_torch.py --shards 6`` (f32, p=3, CN,
     dt 1e-4, 200 steps): the L2 error against the analytic mode < 1e-3."""
     res = run_example("heat_torch", ["--ndofs", ndofs, "--degree", "3",
@@ -3855,11 +3942,11 @@ def curved_schwarz(curved, niter_ref, ccfg, launches):
 
 def curved_hmg(curved, niter_ref, vc_ref, busy_ref, ccfg, launches):
     """Phase 17: the JAX driver's ``--mesh perturbed --coarse fdm`` path
-    (``coarse="hmg"``: the rediscretised curved h-hierarchy, (42, 42, 42)
-    -> (21, ...) -> (7, ...) at p=1 with a 512-dof dense bottom) on phase
-    7's mesh, ``lattice_blocked``: FCG(V) within one of phase 7's ``cg``
-    coarse count, collocated L2 < 1e-4; wall and busy ms per V-cycle beside
-    phase 7's. Adds K-A's launches to ``launches``."""
+    (``coarse="hmg"``: the rediscretised curved h-hierarchy at p=1 with a
+    dense bottom) on ``curved``, ``lattice_blocked``: FCG(V) within one of
+    the ``cg`` coarse count on the same mesh (``niter_ref``), collocated
+    L2 < 1e-4; wall and busy ms per V-cycle beside the ``cg`` one's. Adds
+    K-A's launches to ``launches``."""
     import torch
 
     from pmg_dolfinx_tpu_torch.models.poisson import PoissonProblem
@@ -3883,11 +3970,11 @@ def curved_hmg(curved, niter_ref, vc_ref, busy_ref, ccfg, launches):
     print(f"    10 cycles: rel {[f'{v / r0:.4e}' for v in rn]}")
     u, niter = hier.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
     torch.cuda.synchronize()
-    print(f"    FCG(V) iterations to rtol 1e-6: {niter} (cg coarse, phase 7: "
+    print(f"    FCG(V) iterations to rtol 1e-6: {niter} (cg coarse: "
           f"{niter_ref}); kernel launches on this path: {dict(lb.LAUNCHES)}")
     launches["lattice_apply"] += lb.LAUNCHES["lattice_apply"]
     if abs(niter - niter_ref) > 1:
-        raise AssertionError(f"FCG(V) {niter} vs phase 7's {niter_ref}")
+        raise AssertionError(f"FCG(V) {niter} vs the cg coarse's {niter_ref}")
     err = prob.error_l2(u)
     print(f"    collocated L2 error {err:.4e}")
     if not err < 1e-4:
@@ -3902,7 +3989,7 @@ def curved_hmg(curved, niter_ref, vc_ref, busy_ref, ccfg, launches):
           f"{[round(t, 3) for t in vc_all]}), device busy {busy:.3f} ms "
           f"({nk} kernels, {'complete' if complete else 'INCOMPLETE'} window, "
           f"{tries} tried; K-A {ka['march'] + ka['fold']:.3f} ms), idle "
-          f"{max(0.0, 1 - busy / vc):.1%}; phase 7 (cg coarse): "
+          f"{max(0.0, 1 - busy / vc):.1%}; cg coarse: "
           f"{vc_ref:.3f} ms, busy {busy_ref:.3f} ms, idle "
           f"{max(0.0, 1 - busy_ref / vc_ref):.1%}")
     print("    busy V-cycle by kernel (top 8): " + "; ".join(
@@ -3913,16 +4000,16 @@ def curved_hmg(curved, niter_ref, vc_ref, busy_ref, ccfg, launches):
 # --- phase 28: the general family on the sharded layouts -------------------
 
 GG_SHARDS = (2, 2, 2)
-GG_NC = (14, 14, 14)          # 28b, 28d: 614,125 dofs at p=6
-# 28b's tensor case at nc=14: at nc=22 (2,352,637 dofs) it took ~40 s of a
-# 1139.0 s script on a slow host (NVIDIA H100 80GB HBM3, 700 W), too near
-# the 1200 s limit.
+GG_NC = (10, 10, 10)          # 28b, 28d: 226,981 dofs at p=6
+# 28b's tensor case with the fields' case: at nc=22 (2,352,637 dofs) it
+# took ~40 s of a 1139.0 s script on a slow host (NVIDIA H100 80GB HBM3,
+# 700 W); its grid V-cycle is host-paced, so its FCG count sets the time.
 GG_TENSOR_NC = GG_NC
 GG_HMG_NC = (16, 16, 16)      # 28c: nc=14 has no h-level whose cells split
 #                               into (2, 2, 2) shards (14 -> 7)
 GG_SLAB_NC = (12, 12, 12)     # 28e: 6 slabs of 2 x-cells
 GG_SLABS = 6
-# 28a against phase 7 on cycles above REF_TRAJ_FROM (`parent_gate`'s rule)
+# 28a against the single device on cycles above REF_TRAJ_FROM (`parent_gate`'s rule)
 # and its FCG solution, relative.
 GG_TRAJ_RTOL = 1e-3
 GG_SOL_RTOL = 1e-3
@@ -3935,7 +4022,8 @@ GG_SCALING = ["--grid", "--operator", "lattice_blocked"]
 
 
 def curved_grid_ref(prob, hier, rel, niter, u, vc, busy):
-    """Phase 7's state for 28a, taken before its hierarchy is freed: the
+    """The single-device state 28a compares with, taken before its
+    hierarchy is freed: the
     rhs, trajectory, FCG(V) count and solution, ms and busy ms per V-cycle,
     the smoother bounds, one V-cycle on a seeded rhs and iterate, and K-A's
     launches in that V-cycle (comparison launches, not the path's)."""
@@ -3952,6 +4040,46 @@ def curved_grid_ref(prob, hier, rel, niter, u, vc, busy):
                 lmax=[lv["lmax"].clone() for lv in hier.data["levels"]],
                 b1=b1, u1=u1, v1=v1,
                 ka_cycle=lb.LAUNCHES["lattice_apply"] - before)
+
+
+# 17 and 28a: 614,125 dofs at p=6 (each (2, 2, 2) shard 7^3 cells).
+CURVED_SMALL_NC = (14, 14, 14)
+# Phase 9's in-card reference: the plain lattice V-cycle is ~5x the
+# kernel's (181 ms against 37 at nc=21), so its size sets the phase's time.
+CURVED_REF_NC = (10, 10, 10)
+
+
+def curved_small_ref(ccfg):
+    """The single-device reference of phases 17 and 28a:
+    ``PoissonProblem(mesh=PerturbedBoxMesh(CURVED_SMALL_NC),
+    operator="lattice_blocked", coarse="cg")``: 10 cycles, FCG(V) to rtol
+    1e-6, ms per V-cycle, busy ms of a profiled V-cycle and
+    `curved_grid_ref`'s state. Returns (mesh, state)."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import PoissonProblem
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    ts = time.perf_counter()
+    prob = PoissonProblem(mesh=PerturbedBoxMesh(CURVED_SMALL_NC),
+                          operator="lattice_blocked", **ccfg)
+    hier = prob.hierarchy
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    _, rn = prob.solve(num_cycles=10)
+    rel = [r / r0 for r in rn]
+    u, niter = hier.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    vc, _ = vcycle_ms(hier)
+    b1 = torch.ones_like(prob.b)
+    hier.apply(b1, torch.zeros_like(b1))
+    _, busy, nk, _, _, tries, complete = profile_complete(
+        lambda: hier.apply(b1, torch.zeros_like(b1)), lb)
+    print(f"    single-device reference (lattice_blocked + cg, "
+          f"{prob.mesh.num_dofs(6):,} dofs): FCG(V) {niter}, V-cycle "
+          f"{vc:.3f} ms, busy {busy:.3f} ms ({nk} kernels, "
+          f"{'complete' if complete else 'INCOMPLETE'} window, {tries} "
+          f"tried); {time.perf_counter() - ts:.2f} s with its setup")
+    return prob.mesh, curved_grid_ref(prob, hier, rel, niter, u, vc, busy)
 
 
 def grid_ka_parity(grid, seed, tag):
@@ -4007,18 +4135,18 @@ def grid_at_lmax(grid, lmax, fn):
 
 
 def grid_general_path(curved, ref, launches):
-    """Phase 28a: the slice's path, ``GridPMG(PerturbedBoxMesh((42, 42,
-    42)), (2, 2, 2), degrees=(1, 3, 6), kappa=2, float32, coarse="cg",
-    operator="lattice_blocked")`` on phase 7's mesh and rhs (16,194,277
-    dofs; each shard 21^3 cells, 127^3 at p=6), K-A once per shard: 10
-    cycles within `GG_TRAJ_RTOL` of phase 7's trajectory above
-    `REF_TRAJ_FROM`, FCG(V) within one of phase 7's count and its solution
-    within `GG_SOL_RTOL`, one V-cycle at phase 7's smoother bounds within
-    `GRID_VCYCLE_RTOL` of phase 7's on the same seeded inputs, K-A launched
-    8 times as often as in phase 7's V-cycle, collocated L2 < 1e-4, each
+    """Phase 28a: ``GridPMG(curved, (2, 2, 2), degrees=(1, 3, 6),
+    kappa=2, float32, coarse="cg", operator="lattice_blocked")`` on the
+    mesh and rhs of ``ref`` (`curved_small_ref`: 614,125 dofs, each shard
+    7^3 cells, 43^3 at p=6), K-A once per shard: 10 cycles within
+    `GG_TRAJ_RTOL` of the single device's trajectory above
+    `REF_TRAJ_FROM`, FCG(V) within one of its count and its solution
+    within `GG_SOL_RTOL`, one V-cycle at its smoother bounds within
+    `GRID_VCYCLE_RTOL` of its one on the same seeded inputs, K-A launched
+    8 times as often as in its V-cycle, collocated L2 < 1e-4, each
     shard's K-A within `KERNEL_RTOL` of its plain version. Prints ms per
-    V-cycle beside phase 7's and a profiled window. Returns {tag: (FCG, ms
-    per V-cycle)}."""
+    V-cycle beside the single device's and a profiled window. Returns
+    {tag: (FCG, ms per V-cycle)}."""
     import torch
 
     from pmg_dolfinx_tpu_torch.fem.assembly import l2_error_collocated
@@ -4037,7 +4165,7 @@ def grid_general_path(curved, ref, launches):
           f"{setup:.2f}; shard lattices "
           f"{[tuple(lv.shape) for lv in grid.levels]}; lmax "
           f"{[round(float(lv['lmax']), 4) for lv in grid.data['levels']]} "
-          f"(phase 7: {[round(float(v), 4) for v in ref['lmax']]})")
+          f"(single device: {[round(float(v), 4) for v in ref['lmax']]})")
     r0 = float(torch.linalg.vector_norm(ref["b"]))
     ts = time.perf_counter()
     _, rn = grid.solve(ref["b"], num_cycles=10)
@@ -4045,7 +4173,7 @@ def grid_general_path(curved, ref, launches):
     rel = [r / r0 for r in rn]
     diff = traj_diff(rel, ref["rel"])
     print(f"    10 cycles ({solve_s:.3f} s host clock): rel "
-          f"{[f'{v:.4e}' for v in rel]}; vs phase 7: max rel diff "
+          f"{[f'{v:.4e}' for v in rel]}; vs the single device: max rel diff "
           f"{diff:.3e} above {REF_TRAJ_FROM:g} (gate {GG_TRAJ_RTOL:g})")
     ts = time.perf_counter()
     u, niter = grid.solve_pcg(ref["b"], rtol=1e-6, maxiter=50)
@@ -4055,8 +4183,8 @@ def grid_general_path(curved, ref, launches):
     add_launches(launches, path, ("lattice_apply",))
     du = float(torch.linalg.vector_norm(u - ref["u"])
                / torch.linalg.vector_norm(ref["u"]))
-    print(f"    FCG(V) to rtol 1e-6: {niter} (phase 7: {ref['niter']}; "
-          f"{pcg_s:.3f} s host clock), solution vs phase 7's rel "
+    print(f"    FCG(V) to rtol 1e-6: {niter} (single device: {ref['niter']}; "
+          f"{pcg_s:.3f} s host clock), solution vs the single device's rel "
           f"{du:.3e}; K-A launches on the path {path['lattice_apply']}")
     if not (diff <= GG_TRAJ_RTOL and abs(niter - ref["niter"]) <= 1
             and du <= GG_SOL_RTOL):
@@ -4071,9 +4199,9 @@ def grid_general_path(curved, ref, launches):
     torch.cuda.synchronize()
     ka_cycle = lb.LAUNCHES["lattice_apply"] - before
     err_v = rel_max_err(v, ref["v1"])
-    print(f"    one V-cycle at phase 7's smoother bounds, seeded rhs and "
+    print(f"    one V-cycle at the single device's smoother bounds, seeded rhs and "
           f"iterate: rel max err {err_v:.3e} (gate {GRID_VCYCLE_RTOL:g}); "
-          f"K-A launches per V-cycle {ka_cycle} (phase 7: "
+          f"K-A launches per V-cycle {ka_cycle} (single device: "
           f"{ref['ka_cycle']}, x{ka_cycle / max(1, ref['ka_cycle']):.1f})")
     if not (err_v <= GRID_VCYCLE_RTOL
             and ka_cycle == 8 * ref["ka_cycle"]):
@@ -4096,13 +4224,13 @@ def grid_general_path(curved, ref, launches):
         lambda: grid.apply(b1, torch.zeros_like(b1)), lb)
     ka = lattice_kernel_ms(by_name)
     print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 1 rep) against "
-          f"phase 7's "
+          f"the single device's "
           f"{ref['vc']:.3f} ms; (event ms, host ms to enqueue) per cycle "
           f"{pace}; profiled ({'complete' if complete else 'INCOMPLETE'} "
           f"window, {tries} tried): wall {wall:.3f} ms, busy {busy:.3f} ms "
           f"({nk} kernels), K-A {ka['march'] + ka['fold']:.3f} ms "
           f"({(ka['march'] + ka['fold']) / max(busy, 1e-9):.1%}), idle "
-          f"{max(0.0, 1 - busy / vc):.1%} (phase 7: busy {ref['busy']:.3f} "
+          f"{max(0.0, 1 - busy / vc):.1%} (single device: busy {ref['busy']:.3f} "
           f"ms, idle {max(0.0, 1 - ref['busy'] / ref['vc']):.1%})")
     grid_ka_parity(grid, SEED + 280, "28a")
     return {"28a grid lattice_blocked": (niter, vc)}
@@ -4346,10 +4474,10 @@ def grid_general_family(curved, ref, launches):
     once per shard on the grid. Returns {tag: (FCG, ms per V-cycle)}."""
     out = {}
     t_all = time.perf_counter()
-    t0 = phase("28a. GridPMG(PerturbedBoxMesh((42, 42, 42)), (2, 2, 2), "
-               "degrees=(1, 3, 6), kappa=2, float32, coarse='cg', "
-               "operator='lattice_blocked'): phase 7's problem on the grid, "
-               "16,194,277 dofs, K-A once per shard")
+    t0 = phase(f"28a. GridPMG(PerturbedBoxMesh({CURVED_SMALL_NC}), (2, 2, "
+               "2), degrees=(1, 3, 6), kappa=2, float32, coarse='cg', "
+               "operator='lattice_blocked'): 17's problem on the grid, "
+               "614,125 dofs, K-A once per shard")
     out.update(grid_general_path(curved, ref, launches))
     done(t0)
     out.update(grid_general_coeffs(launches))
@@ -4842,7 +4970,7 @@ def box_family_fused(launches):
 # --- phase 29: the Kronecker family on the sharded layouts ------------------
 
 KS_SHARDS = (2, 2, 2)
-KS_SMALL_NC = 24              # 29b, 29d: 145^3 = 3,048,625 dofs at p=6
+KS_SMALL_NC = 12              # 29b, 29d: 73^3 = 389,017 dofs at p=6
 # 29c: 169x85x85 = 1,221,025 dofs at p=6 (it was (42, 21, 21), 4,080,907
 # dofs, until a run took 1306.6 s to phase 25e on a slow host).
 KS_SLAB_NC = (28, 14, 14)
@@ -5019,14 +5147,14 @@ def ks_fcg_gate(tag, n, n_ref, slack=1):
 
 def kron_sharded_small(launches):
     """Phases 29b-29d at 2-3M dofs, p=(1,3,6), float32, kron_blocked, on
-    seeded right-hand sides. 29b: `GridPMG` (2,2,2) on ``mixed_mesh(24)``
+    seeded right-hand sides. 29b: `GridPMG` (2,2,2) on ``mixed_mesh(12)``
     with the distributed fdm coarse (``coarse_cfg=dict(dist=True)``)
     against the gathered fdm at its smoother bounds. 29c: `DistPMG` on 7
     slabs of ``BoxMesh(KS_SLAB_NC)`` with x graded 8:1 and a Robin x-high
     face, (i) ``coarse="fdm"`` and (ii) the gather-free hmg (``dist=True,
     bottom="fdm"``), each against the single-device hierarchy on the same
     mesh; #1-#3 on the stacked ``Ktx`` whose blocks differ against the
-    per-slab plain versions. 29d: (2,2,2) + fdm on ``BoxMesh((24,) * 3)``
+    per-slab plain versions. 29d: (2,2,2) + fdm on ``BoxMesh((12,) * 3)``
     with the diagonal tensor ``diag(ANISO_DIAG)`` and the per-axis
     ``KS_PER_AXIS`` against one device; `GridPMG.solve_refined` (29b's
     gathered grid) to an f64 relative residual of `KS_REFINED_RTOL`
@@ -5134,8 +5262,8 @@ def kron_sharded_small(launches):
 
 
 def general_family(mesh, launches, vc_curved):
-    """Phase 20 (lattice_blocked, K-A / K-B). 20a at nc=21 (2,048,383
-    dofs): ``--kappa-field aniso`` (`kappa_aniso`, 100:1 rotated 30
+    """Phase 20 (lattice_blocked, K-A / K-B). 20a at `GENERAL_ANISO_NC`
+    (614,125 dofs): ``--kappa-field aniso`` (`kappa_aniso`, 100:1 rotated 30
     degrees, folded into G), ``coarse="cg"``, FCG(V) to 1e-6 within 100,
     ms per V-cycle beside phase 7's curved cycle (``vc_curved``), K-A
     launches, L2 < 1e-4. 20b at `GENERAL_NC` (nc=21 until PR 17):
@@ -5158,15 +5286,14 @@ def general_family(mesh, launches, vc_curved):
     cfg = dict(degrees=(1, 3, 6), dtype=torch.float32,
                operator="lattice_blocked", device="cuda")
     out = {}
-    t0 = phase("20a. general family: --kappa-field aniso (100:1 rotated 30 "
-               "degrees), nc=21 (2,048,383 dofs), lattice_blocked + cg")
+    t0 = phase(f"20a. general family: --kappa-field aniso (100:1 rotated 30 "
+               f"degrees), nc={GENERAL_ANISO_NC[0]} (614,125 dofs), "
+               "lattice_blocked + cg")
     K = pm.kappa_aniso()
     f = pm.f_rhs_tensor(K)
-    # At nc=21 since PR 17 (16.2M until then: its host tensor fold took
-    # 61-87 s of the script's time limit).
     reset(lb)
     ts = time.perf_counter()
-    p21 = pm.PoissonProblem(mesh=BoxMesh((21, 21, 21)), kappa=K, f=f,
+    p21 = pm.PoissonProblem(mesh=BoxMesh(GENERAL_ANISO_NC), kappa=K, f=f,
                             coarse="cg", **cfg)
     torch.cuda.synchronize()
     print(f"    setup seconds: {time.perf_counter() - ts:.2f}")
@@ -5183,7 +5310,7 @@ def general_family(mesh, launches, vc_curved):
           f"{[round(t, 3) for t in vc_all]}; phase 7's 16.2M curved cycle "
           f"{vc_curved:.3f} ms); L2 error {err:.4e}")
     if not err < 1e-4:
-        raise AssertionError(f"20a: L2 error at nc=21 {err}")
+        raise AssertionError(f"20a: L2 error at nc=14 {err}")
     out["20a"] = (n21, vc)
     del p21, u
     done(t0)
@@ -5460,6 +5587,249 @@ def dss_apply_phase(mesh, secs, tag):
                 err=err, split=split, dofmap_ms=dm_ms)
 
 
+DSS_SHARDS = 8
+DSS_LMAX_RTOL = 1e-3        # 30a: calibrated lmax against 23a's, relative
+
+
+def u_lshape(x):
+    """The L-shape demo's manufactured solution (`examples/
+    unstructured_torch.py`): zero on the whole boundary."""
+    import numpy as np
+
+    return np.sin(np.pi * x[0]) * np.sin(np.pi * x[1]) * np.sin(np.pi * x[2])
+
+
+def dss_reference(hier, b, niter, vc, tag, profile=False):
+    """What phase 30 holds `DSSDist` to, taken from a single-device ``dss``
+    hierarchy before it is freed: its rhs, FCG count, per-level ``lmax``,
+    ms per V-cycle, one V-cycle on a seeded rhs and iterate, the fine
+    apply of a seeded vector and (``profile``) the busy ms, kernels and
+    idle share of one V-cycle from a complete profiler window."""
+    import types
+
+    import torch
+
+    n = hier.levels[-1].ndofs
+    bs, us, xs = (seeded(n, SEED + k) for k in (41, 42, 43))
+    ref = dict(b=b, niter=niter, vc=vc, seeds=(bs, us, xs),
+               lmax=[lv["lmax"].clone() for lv in hier.data["levels"]],
+               vcycle=hier.apply(bs, us), fine=hier.operator()(xs))
+    if profile:
+        b1 = torch.ones_like(b)
+        hier.apply(b1, torch.zeros_like(b1))
+        _, busy, nk, _, _, tries, complete = profile_complete(
+            lambda: hier.apply(b1, torch.zeros_like(b1)),
+            types.SimpleNamespace(LAUNCHES={}))
+        ref["busy"] = (busy, nk, complete)
+        window = "complete" if complete else "INCOMPLETE"
+        print(f"    {tag} profiled V-cycle ({window} window, {tries} "
+              f"tried): busy {busy:.3f} ms "
+              f"({nk} kernels); idle {max(0.0, 1 - busy / vc):.1%} of the "
+              f"back-to-back {vc:.3f} ms")
+    return ref
+
+
+@contextlib.contextmanager
+def dss_exchanges():
+    """Within the block, count `parallel.dss_dist.dss_exchange` calls (the
+    cycle ops look the function up at each call): yields a one-item
+    list."""
+    from pmg_dolfinx_tpu_torch.parallel import dss_dist as dd
+
+    n, fn = [0], dd.dss_exchange
+
+    def counted(*a, **k):
+        n[0] += 1
+        return fn(*a, **k)
+
+    dd.dss_exchange = counted
+    try:
+        yield n
+    finally:
+        dd.dss_exchange = fn
+
+
+def dss_vcycle_at(dist, ref):
+    """One `DSSDist` V-cycle on ``ref``'s seeded rhs and iterate at
+    ``ref``'s smoother bounds, against ``ref``'s single-device V-cycle:
+    relative max-norm (the dist's own bounds restored after)."""
+    bs, us, _ = ref["seeds"]
+    own = [lv["lmax"] for lv in dist.data["levels"]]
+    dist.load_state({"levels": [{"lmax": v} for v in ref["lmax"]]})
+    try:
+        v = dist.from_dist(dist.apply(dist.to_dist(bs), dist.to_dist(us)))
+    finally:
+        for lv, lm in zip(dist.data["levels"], own):
+            lv["lmax"] = lm
+    return rel_max_err(v, ref["vcycle"])
+
+
+def dss_dist_full(mesh, ref, ref_c, dss15):
+    """Phase 30a: `DSSDist(mesh, 8, (1, 3, 6), 2.0, float32,
+    coarse="direct")` on 23a's mesh and rhs, every shard on this card, then
+    the same with ``smoother="schwarz"`` against 23c. Prints
+    `DSSPartition`'s host seconds at p = 1, 3, 6 and the setup seconds.
+    Gates: the fine apply of a seeded vector within `KERNEL_RTOL` of the
+    single-device ``dss`` apply; every level's calibrated lmax within
+    `DSS_LMAX_RTOL` of 23a's; FCG(V) to rtol 1e-6 within 1 of 23a's count;
+    one V-cycle at 23a's bounds within `SCHWARZ_VCYCLE_RTOL` of 23a's
+    (`vcycle_pair_parity`'s rule); L2 < 1e-4 (host thread, returned);
+    Schwarz: FCG within 1 of 23c's, one V-cycle within the same gate.
+    Prints ms per fine apply (20 back-to-back, median of 3) and kernels
+    per apply beside phase 22's, ms per V-cycle beside 23a's, busy ms,
+    kernels and idle share of a complete profiled V-cycle, exchanges per
+    V-cycle. Returns ({tag: (FCG, ms per V-cycle)}, the L2 job)."""
+    import types
+
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import l2_error_collocated
+    from pmg_dolfinx_tpu_torch.parallel.dss_dist import DSSDist, DSSPartition
+
+    out = {}
+    part = DSSPartition(mesh, DSS_SHARDS)
+    secs = {}
+    for P in LSHAPE_DEGREES:
+        ts = time.perf_counter()
+        t = part.tables(P)
+        secs[P] = time.perf_counter() - ts
+        print(f"    DSSPartition p={P}: {secs[P]:.2f} s host; {part.ncl} "
+              f"cells a shard ({mesh.ncells} cells, "
+              f"{part.ncl * DSS_SHARDS - mesh.ncells} dummy), {t['ndl']} "
+              f"dofs a shard, {t['ndl'] * DSS_SHARDS:,} stacked for "
+              f"{mesh.num_dofs(P):,}; {t['nshd']:,} shared dofs")
+    cfg = dict(degrees=LSHAPE_DEGREES, kappa=2.0, dtype=torch.float32,
+               coarse="direct", device=DEV)
+    ts = time.perf_counter()
+    dist = DSSDist(mesh, DSS_SHARDS, **cfg)
+    torch.cuda.synchronize()
+    print(f"    DSSDist setup {time.perf_counter() - ts:.2f} s (its own "
+          "partition, device tables, geometry, diagonal, calibration, dense "
+          f"Cholesky of {mesh.num_dofs(1):,} p=1 dofs)")
+    lmax = [float(lv["lmax"]) for lv in dist.data["levels"]]
+    lref = [float(v) for v in ref["lmax"]]
+    dl = max(abs(a - r) / r for a, r in zip(lmax, lref))
+    print(f"    calibrated lmax {lmax} vs 23a's {lref}: max rel diff {dl:.3e} "
+          f"(gate {DSS_LMAX_RTOL:g})")
+    if not dl <= DSS_LMAX_RTOL:
+        raise AssertionError(f"30a: lmax {lmax} against 23a's {lref}")
+    xs = ref["seeds"][2]
+    fine = dist.operator()
+    xd = dist.to_dist(xs)
+    check_rel("30a stacked DSS apply vs the single-device dss apply",
+              dist.from_dist(fine(xd)), ref["fine"])
+    ts = time.perf_counter()
+    u, niter = dist.solve_pcg(ref["b"], rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    pcg = time.perf_counter() - ts
+    print(f"    FCG(V) to rtol 1e-6: {niter} (23a: {ref['niter']}; "
+          f"{pcg:.3f} s host clock)")
+    if abs(niter - ref["niter"]) > 1 or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"30a: FCG {niter} against 23a's {ref['niter']}")
+    l2_job = start_l2(l2_error_collocated, mesh, 6,
+                      u.double().cpu().numpy(), u_lshape)
+    err = dss_vcycle_at(dist, ref)
+    print(f"    one V-cycle at 23a's lmax, seeded rhs and iterate, vs 23a: "
+          f"rel max err {err:.3e} (gate {SCHWARZ_VCYCLE_RTOL:g})")
+    if not err <= SCHWARZ_VCYCLE_RTOL:
+        raise AssertionError(f"30a: V-cycle differs from 23a's by {err:.3e}")
+    times = [cuda_ms(lambda: fine(xd), reps=20, warmup=3) for _ in range(3)]
+    ms = sorted(times)[1]
+    nk = kernels_per_call(lambda: fine(xd))
+    with dss_exchanges() as n_apply:
+        fine(xd)
+    lvf = dist.data["levels"][-1]
+    bound, nbytes = dss_bound(lvf, xd.numel())
+    xbytes = sum(v.numel() * v.element_size() for k, v in lvf.items()
+                 if k.startswith("x_"))
+    bound += xbytes / HBM_BYTES_PER_S * 1e3
+    print(f"    stacked DSS apply: {ms:.4f} ms (20 back-to-back, 3 reps "
+          f"{[round(t, 4) for t in times]}), {mesh.num_dofs(6) / ms / 1e6:.3f}"
+          f" GDOF/s; {nk} kernels per apply, {n_apply[0]} exchange; bound "
+          f"{bound:.4f} ms ({(nbytes + xbytes) / 1e6:.1f} MB with the "
+          f"exchange tables over 3.35 TB/s); phase 22's single-device "
+          f"apply at n=15: {dss15['ms']:.4f} ms, {dss15['kernels']} "
+          f"kernels, bound {dss15['bound_ms']:.4f} ms")
+    vc, vc_all = slab_vcycle_ms(dist)
+    bd = dist.to_dist(torch.ones(mesh.num_dofs(6), device=DEV))
+    with dss_exchanges() as n_vc:
+        dist.apply(bd, torch.zeros_like(bd))
+    wall, busy, nkv, _, _, tries, complete = profile_complete(
+        lambda: dist.apply(bd, torch.zeros_like(bd)),
+        types.SimpleNamespace(LAUNCHES={}))
+    b23 = ref["busy"]
+    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+          f"{[round(t, 3) for t in vc_all]}) against 23a's {ref['vc']:.3f}; "
+          f"{n_vc[0]} exchanges per V-cycle; profiled "
+          f"({'complete' if complete else 'INCOMPLETE'} window, {tries} "
+          f"tried) busy {busy:.3f} ms ({nkv} kernels), idle "
+          f"{max(0.0, 1 - busy / vc):.1%}; 23a busy {b23[0]:.3f} ms "
+          f"({b23[1]} kernels), idle {max(0.0, 1 - b23[0] / ref['vc']):.1%}")
+    out["30a"] = (niter, vc)
+    del dist, u, fine, xd, bd
+
+    ts = time.perf_counter()
+    dist = DSSDist(mesh, DSS_SHARDS, smoother="schwarz", **cfg)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - ts
+    _, niter = dist.solve_pcg(ref_c["b"], rtol=1e-6, maxiter=50)
+    err = dss_vcycle_at(dist, ref_c)
+    vc, _ = slab_vcycle_ms(dist)
+    print(f"    schwarz: setup {setup:.2f} s; FCG(V) {niter} (23c: "
+          f"{ref_c['niter']}); one V-cycle at 23c's lmax vs 23c: rel max err "
+          f"{err:.3e} (gate {SCHWARZ_VCYCLE_RTOL:g}); V-cycle {vc:.3f} ms "
+          f"against 23c's {ref_c['vc']:.3f}")
+    if abs(niter - ref_c["niter"]) > 1 or not err <= SCHWARZ_VCYCLE_RTOL:
+        raise AssertionError(f"30a schwarz: FCG {niter} against "
+                             f"{ref_c['niter']}, V-cycle {err:.3e}")
+    out["30a schwarz"] = (niter, vc)
+    del dist
+    return out, l2_job
+
+
+def dss_dist_small():
+    """Phase 30b: ``l_shaped_hex_mesh(5)`` (375 cells over 8 shards: dummy
+    cells), p=(1,3,6), float32, a seeded rhs; `DSSDist` with ``coarse="cg"``
+    and with ``coarse="direct"``, sigma 0.8 and a DG-0 kappa, each against
+    the single-device ``dss`` hierarchy: FCG(V) to rtol 1e-6 within 1, one
+    V-cycle at the single device's bounds within `SCHWARZ_VCYCLE_RTOL`.
+    Returns {tag: (FCG, None)}."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.unstructured import l_shaped_hex_mesh
+    from pmg_dolfinx_tpu_torch.parallel.dss_dist import DSSDist
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    mesh = l_shaped_hex_mesh(5)
+    nd = mesh.num_dofs(6)
+    bc = torch.tensor(mesh.boundary_dof_marker(6), device=DEV)
+    b = torch.where(bc, 0.0, seeded(nd, SEED + 44))
+    out = {}
+    for tag, kw in (("30b cg", dict(coarse="cg", kappa=2.0)),
+                    ("30b direct sigma DG-0",
+                     dict(coarse="direct", sigma=0.8,
+                          kappa=np.linspace(1.0, 2.5, mesh.ncells)))):
+        cfg = dict(degrees=LSHAPE_DEGREES, dtype=torch.float32, device=DEV,
+                   **kw)
+        single = PMGHierarchy(mesh, operator="dss", **cfg)
+        dist = DSSDist(mesh, DSS_SHARDS, **cfg)
+        _, n_s = single.solve_pcg(b, rtol=1e-6, maxiter=50)
+        _, n_d = dist.solve_pcg(b, rtol=1e-6, maxiter=50)
+        bs, us = seeded(nd, SEED + 45), seeded(nd, SEED + 46)
+        ref = dict(seeds=(bs, us, None), vcycle=single.apply(bs, us),
+                   lmax=[lv["lmax"] for lv in single.data["levels"]])
+        err = dss_vcycle_at(dist, ref)
+        print(f"    {tag}: {nd:,} dofs; FCG(V) {n_d} (single device {n_s}); "
+              f"one V-cycle vs the single device: rel max err {err:.3e} "
+              f"(gate {SCHWARZ_VCYCLE_RTOL:g})")
+        if abs(n_d - n_s) > 1 or not err <= SCHWARZ_VCYCLE_RTOL:
+            raise AssertionError(f"{tag}: FCG {n_d} vs {n_s}, V-cycle "
+                                 f"{err:.3e}")
+        out[tag] = (n_d, None)
+    return out
+
+
 def load_example(name):
     spec = importlib.util.spec_from_file_location(
         name, ROOT / "examples" / f"{name}.py")
@@ -5490,7 +5860,7 @@ def amg_levels(hier):
             + [amg["chol"].shape[0]])
 
 
-def unstructured_solves(mesh15, mesh29):
+def unstructured_solves(mesh15, mesh29, dss15):
     """Phase 23 through `examples/unstructured_torch.py`'s code path,
     ``--demo-n N --degrees 1 3 6``, float32, FCG(V) to rtol 1e-6. a (n=15,
     ``--coarse direct``, cheb): FCG within 50, L2 < 1e-4, ms per V-cycle,
@@ -5499,8 +5869,10 @@ def unstructured_solves(mesh15, mesh29):
     within 2 of a's, the AMG levels and setup seconds; c (``--smoother
     schwarz``): FCG at or below a's, ms per V-cycle; d (n=29, ``--coarse
     amg``, 79,200 p=1 dofs): FCG within 50, L2 < 1e-4 (host thread), ms
-    per V-cycle, idle share. Returns {tag: (FCG, ms per V-cycle)} and d's
-    L2 job."""
+    per V-cycle, idle share. Between c and d, phase 30 (`dss_dist_full`
+    on a's and c's references, ``dss15`` phase 22's n=15 apply; then
+    `dss_dist_small`). Returns {tag: (FCG, ms per V-cycle)} and the L2
+    jobs of d and 30a."""
     import torch
 
     from pmg_dolfinx_tpu_torch.fem.assembly import l2_error_collocated
@@ -5535,7 +5907,10 @@ def unstructured_solves(mesh15, mesh29):
     if not err <= SCHWARZ_VCYCLE_RTOL:
         raise AssertionError(f"23a: V-cycle differs from dofmap's: {err}")
     out["23a"] = (res["niter"], vc)
-    del ref, hier, b
+    del ref
+    # Phase 30a's reference, kept past this hierarchy.
+    ref30 = dss_reference(hier, b, res["niter"], vc, "23a", profile=True)
+    del hier
     done(t0)
 
     t0 = phase("23b. the same with --coarse amg")
@@ -5565,7 +5940,22 @@ def unstructured_solves(mesh15, mesh29):
     if not (res_c["niter"] <= res["niter"] and res_c["l2_error"] < 1e-4):
         raise AssertionError(f"23c: {res_c} against 23a's {res}")
     out["23c"] = (res_c["niter"], vc)
+    ref30c = dss_reference(hier, b, res_c["niter"], vc, "23c")
     del hier, b
+    done(t0)
+
+    t0 = phase("30a. DSSDist on l_shaped_hex_mesh(15) (2,244,151 dofs), 8 "
+               "shards stacked on this card, p=(1,3,6), direct, cheb and "
+               "schwarz, against 23a and 23c")
+    dist_out, l2_30a = dss_dist_full(mesh15, ref30, ref30c, dss15)
+    out.update(dist_out)
+    del ref30, ref30c
+    done(t0)
+
+    t0 = phase("30b. DSSDist on l_shaped_hex_mesh(5) (375 cells over 8 "
+               "shards), f32, seeded rhs: cg; direct with sigma 0.8 and a "
+               "DG-0 kappa; against the single-device dss hierarchy")
+    out.update(dss_dist_small())
     done(t0)
 
     t0 = phase("23d. examples/unstructured_torch.py --demo-n 29 --degrees 1 "
@@ -5602,7 +5992,7 @@ def unstructured_solves(mesh15, mesh29):
     out["23d"] = (niter, vc)
     del hier, b, u, b1
     done(t0)
-    return out, l2_job
+    return out, l2_job, l2_30a
 
 
 def flagship_amg(prob, niter_ref, vc_ref, cfg, launches):
@@ -5998,16 +6388,20 @@ SEMI_CONFIGS = (("cubic", "cnab", 1), ("cubic", "cnab", 8),
 
 # 25f: the driver's box run (modes_torch.py argv), its general family at
 # the driver's defaults (``lattice`` + ``cg``, default tol) on a small mesh,
-# and the general family at ~10k dofs; gates on |K u - lam M u| / |lam M u|.
+# and the general family at ~4k dofs; gates on |K u - lam M u| / |lam M u|.
 MODES_BOX = ["--ndofs", "100000", "--kmodes", "6", "--neumann", "x",
              "--sigma", "5"]
 MODES_BOX_RES = 1e-7
 # The driver's hierarchy and tol, k=1: its default k=4 took 85.13 s here
-# (21 iterations; NVIDIA H100 80GB HBM3, 700 W), k=1 15 on the CPU.
-MODES_DRIVER_GENERAL = ["--mesh", "perturbed", "--ndofs", "1000",
+# (21 iterations; NVIDIA H100 80GB HBM3, 700 W), k=1 15 on the CPU. ~400
+# dofs: every V-cycle ends on the coarse CG's host reads, as many as the
+# coarse problem's free dofs allow, so the seconds follow the size (at
+# 1,000 dofs 23.2 s: 62 solves, 5.4 coarse CG iterations a V-cycle).
+MODES_DRIVER_GENERAL = ["--mesh", "perturbed", "--ndofs", "400",
                         "--kmodes", "1"]
-# ~10k since PR 17 (29,920 until then: 25f took 64-83 s of the time limit)
-MODES_GENERAL_NDOFS = 10000
+# ~4k dofs: host-paced FCG(V) solves (at 29,920 dofs 25f took 64-83 s of
+# the time limit; at ~10k 50 solves of ~16 iterations).
+MODES_GENERAL_NDOFS = 4000
 # k=1 on a ``direct`` coarse: at 30k with the driver's ``cg`` coarse every
 # V-cycle is host-paced by the coarse CG's per-iteration reads (k=4, tol
 # 1e-13: 638.2 s for 16 iterations on the card), which the script's time
@@ -6229,7 +6623,7 @@ def modes_phase():
     README's flags (`MODES_BOX`: ``--ndofs 100000 --kmodes 6 --neumann x
     --sigma 5``, FDM inverse). The general family through the driver at
     its defaults but k=1 (`MODES_DRIVER_GENERAL`: ``--mesh perturbed``,
-    the ``lattice`` + ``cg`` hierarchy, default tol) on a 1,000-dof mesh, with
+    the ``lattice`` + ``cg`` hierarchy, default tol) on a ~400-dof mesh, with
     `fcg_counts` reading the FCG(V) count of every inverse solve and the
     coarse CG iterations of every V-cycle (each ends on a host read) (gate:
     no solve at the FCG cap; the probe of that hierarchy at ~10k dofs was
@@ -6406,7 +6800,7 @@ def main():
     from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
     from pmg_dolfinx_tpu_torch.ops import transfer as tt
 
-    t0 = phase("2. build kernels")
+    t0 = t_build = phase("2. build kernels")
     # The L-shaped meshes of phases 22-23 (their merge, layouts and
     # geometry: ~15 s and ~2 min of host numpy) build on worker threads
     # from here on, while nvcc and the card work.
@@ -6426,11 +6820,19 @@ def main():
     # The parent's kron_blocked.cu (phases 3b and 3e time it) alongside.
     builds = modules + ((importlib.import_module(
         f"{parent.__name__}.ops.kron_blocked"),) if parent else ())
-    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
-        for fut in [pool.submit(m.load_kernels) for m in builds]:
-            fut.result()
+    build_pool = ThreadPoolExecutor(max_workers=len(builds))
+    built = [build_pool.submit(timed_build, m) for m in builds]
+    build_pool.shutdown(wait=False)
+    print(f"    nvcc started ({len(builds)} sources, in parallel); the "
+          "kernel-free phases 18a, 18c and 25f run on the card meanwhile")
+    done(t0)
+    early = kernel_free_phases()
+    t0 = phase("2 (joined). kernel build")
+    ts = time.perf_counter()
+    ends = [fut.result() for fut in built]
     print(f"    build seconds ({len(builds)} sources, in parallel): "
-          f"{time.perf_counter() - t0:.2f}")
+          f"{max(ends) - t_build:.2f}; joined after "
+          f"{time.perf_counter() - ts:.2f} s of waiting")
     for mod in modules:
         if mod is kb:
             # One instantiation per band: the main path's bands 3 and 6 of
@@ -6874,9 +7276,6 @@ def main():
     against_parent("7 curved", rel, niter)
     parent_gate("7 curved", rel, niter)
     curved_ref = (niter, vc_lb, busy)
-    # Phase 28a's reference (the rhs, solution, trajectory and one seeded
-    # V-cycle), kept past this hierarchy.
-    ref28 = curved_grid_ref(prob, hier, rel, niter, u, vc_lb, busy)
     del b1
     del prob, u, hier
     ts = time.perf_counter()
@@ -6919,22 +7318,26 @@ def main():
     curved_schwarz(curved, curved_ref[0], ccfg, launches)
     done(t0)
 
-    t0 = phase("17. curved hmg coarse (run here, on phase 7's mesh): 16.2M "
-               "dofs, p=(1,3,6), lattice_blocked + hmg")
-    curved_hmg(curved, *curved_ref, ccfg, launches)
+    del curved
+    t0 = phase(f"17. curved hmg coarse on PerturbedBoxMesh({CURVED_SMALL_NC})"
+               " (614,125 dofs), p=(1,3,6), lattice_blocked + hmg, against "
+               "lattice_blocked + cg there")
+    small, ref28 = curved_small_ref(ccfg)
+    curved_hmg(small, ref28["niter"], ref28["vc"], ref28["busy"], ccfg,
+               launches)
     done(t0)
 
-    family.update(grid_general_family(curved, ref28, launches))
-    del curved, ref28
+    family.update(grid_general_family(small, ref28, launches))
+    del small, ref28
 
     family.update(general_family(box42, launches, curved_ref[1]))
     del box42
 
-    t0 = phase("9. curved in-card reference: nc=21, lattice (plain) vs "
-               "lattice_blocked")
+    t0 = phase(f"9. curved in-card reference: nc={CURVED_REF_NC[0]}, "
+               "lattice (plain) vs lattice_blocked")
     res = {}
     lmax = None
-    mesh21 = PerturbedBoxMesh((21, 21, 21))
+    mesh21 = PerturbedBoxMesh(CURVED_REF_NC)
     for op in ("lattice", "lattice_blocked"):
         prob = PoissonProblem(mesh=mesh21, operator=op, **ccfg)
         levels = prob.hierarchy.data["levels"]
@@ -7007,22 +7410,12 @@ def main():
     print(f"    peak host RSS {peak_rss_gb():.1f} GB")
     done(t0)
 
-    t0 = phase(f"18a. AMG twin: examples/amg_torch.py --ndofs "
-               f"{AMG_TWIN_NDOFS} --pc jacobi|cheb|hmg, box and perturbed")
-    amg_twin()
-    done(t0)
-
     t0 = phase("18b. direct coarse: nc=14, p=(1,3,6), kron_blocked, "
                "coarse=direct vs fdm")
     direct_coarse(cfg)
     done(t0)
 
-    t0 = phase("18c. line smoother + semicoarsened hmg: BoxMesh((16,16,32), "
-               "extent (1,1,0.25)), p=(1,3), f64 kron")
-    line_semicoarsened()
     print(f"    peak host RSS {peak_rss_gb():.1f} GB")
-    done(t0)
-
     t_new = time.perf_counter()
     t0 = phase("22. DSS operator (ops/unstructured.py): l_shaped_hex_mesh(15) "
                "(2,244,151 dofs) and (29) (16,016,875 dofs), p=6, float32, "
@@ -7036,7 +7429,8 @@ def main():
         dss[n] = dss_apply_phase(meshes[n], secs, f"n={n}")
     done(t0)
 
-    solves, l2_23d = unstructured_solves(meshes[15], meshes[29])
+    solves, l2_23d, l2_30a = unstructured_solves(meshes[15], meshes[29],
+                                                 dss[15])
     family.update(solves)
 
     t0 = phase("24b. operator='csr' (cuSPARSE) on l_shaped_hex_mesh(4), "
@@ -7044,13 +7438,14 @@ def main():
     csr_small()
     done(t0)
     check_l2(l2_23d, "23d", "the manufactured solution")
+    check_l2(l2_30a, "30a", "the manufactured solution")
     del meshes
     print("    DSS apply (not a TPU kernel; no Pallas kernel on this path): "
           + "; ".join(f"n={n} {r['ms']:.4f} ms, {r['gdofs']:.3f} GDOF/s, "
                       f"{r['kernels']} kernels, bound {r['bound_ms']:.4f} ms"
                       for n, r in dss.items()))
-    print(f"    phases 22-24b added {time.perf_counter() - t_new:.1f} s "
-          "(24a and the host threads not counted)")
+    print(f"    phases 22-24b and 30 added {time.perf_counter() - t_new:.1f} "
+          "s (24a and the host threads not counted)")
 
     t_new = time.perf_counter()
     t0 = phase("25c. semilinear serving: semilinear_packed_evolve at 61^3, "
@@ -7068,12 +7463,9 @@ def main():
     family.update(newton_be(launches))
     done(t0)
 
-    t0 = phase("25f. modes: examples/modes_torch.py, FDM box (100k); "
-               "lowest_eigenpairs, FCG(V) perturbed (10k); float64")
-    family.update(modes_phase())
-    done(t0)
-    print(f"    phases 25c-25f added {time.perf_counter() - t_new:.1f} s "
-          "(25a and 25b not counted)")
+    family.update(early)
+    print(f"    phases 25c-25e added {time.perf_counter() - t_new:.1f} s "
+          "(25a and 25b not counted; 25f ran during the build)")
 
     # Kernels #1-#3 and #9: besides `ms` (host-issued, as every row), the
     # device time from a CUDA graph at the main path's fine shape, at 127^3
@@ -7130,6 +7522,9 @@ def main():
         f"{k} {n:.6g}, " + ("-" if ms is None else f"{ms:.4g}")
         for k, (n, ms) in family.items()))
     print(f"    script seconds: {time.perf_counter() - t_script:.1f}")
+    print("    ten longest phases (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(
+            PHASE_SECONDS.items(), key=lambda kv: -kv[1])[:10]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

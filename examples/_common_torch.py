@@ -34,9 +34,24 @@ def base_parser(doc):
                         "(device grid), every shard stacked on the one "
                         "device; one distributed FDM solve per step, "
                         "gather-free (box mesh, parallel/transient_dist.py)")
+    add_operator_flag(p, "accepted for the JAX twin's command line and "
+                      "left unread, as there: each stepper picks its own "
+                      "operator")
     p.add_argument("--device", default="cuda",
                    help="torch device (default 'cuda')")
     return p
+
+
+# The operator backends of the JAX examples' ``--operator``
+# (``examples/_common.py``).
+OPERATORS = ["kron", "kron_blocked", "lattice", "lattice_blocked", "dofmap",
+             "csr", "dss"]
+
+
+def add_operator_flag(p, help):
+    """``--operator`` with the JAX examples' choices."""
+    p.add_argument("--operator", choices=OPERATORS, default="kron",
+                   help=help)
 
 
 def model_parser(doc):
@@ -48,11 +63,8 @@ def model_parser(doc):
     p.add_argument("--ndofs", type=int, default=50000,
                    help="target number of dofs (global)")
     p.add_argument("--dtype", choices=["f32", "f64"], default="f32")
-    p.add_argument("--operator",
-                   choices=["kron", "kron_blocked", "lattice",
-                            "lattice_blocked", "dofmap", "csr", "dss"],
-                   default="kron", help="operator backend ('kron_blocked' "
-                   "and 'lattice_blocked' run the CUDA kernels, float32)")
+    add_operator_flag(p, "operator backend ('kron_blocked' and "
+                      "'lattice_blocked' run the CUDA kernels, float32)")
     p.add_argument("--kappa", type=float, default=2.0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default 'cuda')")

@@ -29,11 +29,9 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main(argv=None, mesh=None):
-    """Run the driver on ``argv``; ``mesh`` (optional) is a prebuilt mesh
-    of the fitted cells and kind to use, so a caller running several
-    preconditioners on one mesh computes its host geometry once. Returns
-    the CG iteration count."""
+def parse_args(argv=None):
+    """The command line (JAX `examples/amg.py`'s, ``--device`` in place
+    of ``--cpu``)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ndofs", type=int, default=50000,
@@ -52,9 +50,24 @@ def main(argv=None, mesh=None):
                    help="'linear': the variable DG-0 coefficient "
                         "kappa(x) = 1 + x (models.poisson.kappa_linear; "
                         "with --pc hmg the rediscretised lattice h-levels)")
+    p.add_argument("--operator",
+                   choices=["kron", "kron_blocked", "lattice",
+                            "lattice_blocked", "dofmap", "csr", "dss"],
+                   default="kron",
+                   help="accepted for the JAX twin's command line and left "
+                        "unread, as there: the operator is the lattice "
+                        "one")
     p.add_argument("--device", default="cuda",
                    help="torch device (default 'cuda')")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None, mesh=None):
+    """Run the example on ``argv``; ``mesh`` (optional) is a prebuilt mesh
+    of the fitted cells and kind to use, so a caller running several
+    preconditioners on one mesh computes its host geometry once. Returns
+    the CG iteration count."""
+    args = parse_args(argv)
 
     import torch
 

@@ -33,7 +33,8 @@ import numpy as np
 from _common_torch import base_parser, parse_shards, setup, sync
 
 
-def main():
+def parse_args(argv=None):
+    """The command line (JAX `examples/heat.py`'s ported subset)."""
     p = base_parser(__doc__)
     p.add_argument("--dt", type=float, default=1e-3)
     p.add_argument("--scheme", choices=["be", "cn"], default="cn")
@@ -44,7 +45,11 @@ def main():
     p.add_argument("--save-series", type=str, default="",
                    help="trajectory snapshots (not ported)")
     p.add_argument("--snap-every", type=int, default=10)
-    args = p.parse_args()
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     shards = parse_shards(args.shards) if args.shards else None
     if shards is not None and (args.mesh == "perturbed" or args.batch):
         raise SystemExit("--shards rides the distributed FDM step solve "

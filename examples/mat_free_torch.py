@@ -28,7 +28,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def parse_args(argv=None):
+    """The command line (JAX `examples/mat_free.py`'s, ``--device`` in
+    place of ``--cpu``); ``--bcells`` and ``--precision`` take JAX's
+    defaults only and name why they refuse any other value."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ndofs", type=int, default=50000,
@@ -54,8 +57,30 @@ def main():
     p.add_argument("--mat_comp", action="store_true",
                    help="verify against the assembled scipy matrix (host "
                         "dense-per-cell assembly; use moderate --ndofs)")
+    p.add_argument("--bcells", type=int, default=1,
+                   help="JAX's lattice_blocked cell-slab block size; 1 "
+                        "only (a dead knob, not ported)")
+    p.add_argument("--precision", choices=["highest", "high", "default"],
+                   default="highest",
+                   help="'highest' (true f32 / f64 products) only")
     p.add_argument("--device", default="cuda")
-    args = p.parse_args()
+    args = p.parse_args(argv)
+    if args.bcells != 1:
+        raise SystemExit(
+            f"--bcells {args.bcells}: the x-cells each grid step of JAX's "
+            "lattice_blocked kernel owns, a measured dead knob there; the "
+            "CUDA kernels pick their own boxes, so only 1 is accepted "
+            "(ROADMAP.md, 'Do not port')")
+    if args.precision != "highest":
+        raise SystemExit(
+            f"--precision {args.precision}: the reduced-precision (bf16x3 "
+            "or single-pass) products are not ported yet (ROADMAP.md Queue "
+            "1 item 1); use 'highest'")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     import numpy as np
     import torch

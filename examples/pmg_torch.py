@@ -192,7 +192,9 @@ def model_family(args, nc):
     return kappa, f, sigma, u_exact, robin_g, robin, faces, spacing
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The command line (JAX `examples/pmg.py`'s ported subset,
+    ``--device`` in place of ``--cpu``)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ndofs", type=int, default=50000,
@@ -282,7 +284,20 @@ def main(argv=None):
                    help="after the solve, trace N V-cycles with "
                         "torch.profiler and print the device time by "
                         "kernel (CUDA only)")
+    p.add_argument("--precision", choices=["highest", "high"],
+                   default="highest",
+                   help="'highest' (true f32 / f64 products) only; 'high' "
+                        "(bf16x3 products) is not ported yet")
     args = p.parse_args(argv)
+    if args.precision != "highest":
+        raise SystemExit(
+            f"--precision {args.precision}: the bf16x3 products are not "
+            "ported yet (ROADMAP.md Queue 1 item 1); use 'highest'")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     import torch
 

@@ -34,7 +34,8 @@ import numpy as np
 from _common_torch import base_parser, parse_shards, setup, sync
 
 
-def main():
+def parse_args(argv=None):
+    """The command line (JAX `examples/wave.py`'s ported subset)."""
     p = base_parser(__doc__)
     p.add_argument("--dt", type=float, default=1e-3,
                    help="time step; 0 = auto (0.72x the spectral "
@@ -47,7 +48,11 @@ def main():
                    help="drive the medium from rest with a Ricker wavelet "
                         "of peak frequency F0 at the domain centre (box "
                         "mesh) instead of the standing-wave test")
-    args = p.parse_args()
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     shards = parse_shards(args.shards) if args.shards else None
     if shards is not None and args.mesh == "perturbed":
         raise SystemExit("--shards rides the distributed FDM/transform "

@@ -163,7 +163,7 @@ def dss_gather(x, t, meta):
     (the reference gather, src/laplacian.hpp:182-189): one index gather
     through ``t["gather"]``."""
     n = meta.P + 1
-    return x.index_select(0, t["gather"]).reshape(meta.nc, n, n, n)
+    return x.index_select(0, t["gather"]).reshape(-1, n, n, n)
 
 
 def dss_scatter(yc, t, meta, first=False):
@@ -172,22 +172,29 @@ def dss_scatter(yc, t, meta, first=False):
     atomicAdd scatter, src/laplacian.hpp:272-277, in a fixed order).
     ``first=True`` takes the owner's value only, exact for
     value-consistent fields (prolongation writes identical values from
-    every sharer)."""
+    every sharer).
+
+    Stacked tables (`parallel.dss_dist.stacked_tables`: ``src_i`` ``(S,
+    rows, K)``, ``own`` ``(S, ndl)``, padding rows at the zero slot) give
+    the shards' sums shard-major, each shard's classes in turn."""
     flat = yc.reshape(-1)
-    if first:
+    stacked = t["own"].dim() == 2
+    if first and not stacked:
         return flat.index_select(0, t["own"])
     flat = torch.cat([flat, flat.new_zeros(1)])
+    if first:
+        return flat.index_select(0, t["own"].reshape(-1))
     parts = []
     for i in range(4):
         s = t.get(f"src_{i}")
         if s is None:
             continue
         g = flat.index_select(0, s.reshape(-1)).reshape(s.shape)
-        acc = g[:, 0]
-        for k in range(1, s.shape[1]):
-            acc = acc + g[:, k]
+        acc = g[..., 0]
+        for k in range(1, s.shape[-1]):
+            acc = acc + g[..., k]
         parts.append(acc)
-    return torch.cat(parts)
+    return torch.cat(parts, dim=-1).reshape(-1)
 
 
 def apply_cells(u_cells, G, coeff, D, precision="highest"):

@@ -1,14 +1,16 @@
 """The distributed layer, every shard stacked on one device: the 1D slab
 (`dist.DistPMG`), the 2D/3D box decomposition of the Kronecker family
 (`grid2d.GridPMG`), the gather-free coarse solves (`fdm_dist.DistFDM`,
-`dist.build_hmg_dist`, `grid2d.build_hmg_grid`) and the sharded time
-loops (`transient_dist`). Every collective goes through one seam,
-`grid2d.StackedGrid`."""
+`dist.build_hmg_dist`, `grid2d.build_hmg_grid`), the sharded time loops
+(`transient_dist`) and the unstructured-mesh cell partition with its
+shared-entity exchange (`dss_dist.DSSDist`, `dss_dist.DSSPartition`).
+Every collective goes through one seam, `grid2d.StackedGrid`."""
 
 from .partition import SlabPartition
 from .dist import DistPMG, build_hmg_dist
 from .grid2d import GridPMG, GridPartition, StackedGrid, build_hmg_grid
 from .fdm_dist import DistFDM
+from .dss_dist import DSSDist, DSSPartition
 from .transient_dist import (
     convdiff_dist_evolve,
     heat_dist_evolve,

@@ -195,8 +195,10 @@ class StackedGrid:
     device, so each collective of the JAX package's ``shard_map`` program
     is an exact tensor operation on the three leading (shard) axes:
     `ppermute_planes` (the non-wrapping neighbour ``ppermute``), `dot`
-    (the ``psum`` of an ownership-weighted dot), `all_gather` (the global
-    lattice, duplicated planes stripped), `local_slices` (each shard's
+    (the ``psum`` of an ownership-weighted dot), `psum` (the ``psum`` of a
+    per-shard buffer: `dss_dist`'s shared-entity exchange and its
+    ``direct`` coarse gather), `all_gather` (the global lattice,
+    duplicated planes stripped), `local_slices` (each shard's
     ``dynamic_slice`` of a global lattice at its ``axis_index``) and
     `all_to_all` (the pencil transpose of `fdm_dist`).
 
@@ -204,8 +206,8 @@ class StackedGrid:
     backend (``torch.distributed``, one rank per shard) holds a ``(1, 1, 1,
     nplx, nply, nplz)`` block per rank and replaces only this object: a
     neighbour send/receive for `ppermute_planes`, an ``all_reduce`` for
-    `dot`, an ``all_gather`` for `all_gather`, its own block for
-    `local_slices`, an ``all_to_all_single`` for `all_to_all`. Every
+    `dot` and `psum`, an ``all_gather`` for `all_gather`, its own block
+    for `local_slices`, an ``all_to_all_single`` for `all_to_all`. Every
     caller stays as it is.
     """
 
@@ -230,6 +232,13 @@ class StackedGrid:
     def dot(self, u, v, weights):
         """``psum`` of the ownership-weighted local dots: a 0-d tensor."""
         return dist_inner_product(u, v, weights, AXES)
+
+    def psum(self, buf):
+        """JAX's ``psum`` over the shard axes of a per-shard buffer ``buf``
+        (leading dims the shard axes): the total every shard sees, one
+        reduction over the shard axes in a fixed order (the same sums on
+        every call)."""
+        return buf.sum(dim=(0, 1, 2))
 
     def all_gather(self, st):
         """The global lattice from the stacked one: per sharded axis the

@@ -84,7 +84,8 @@ def _level_precond(lv, level, ops):
     """The level's smoother preconditioner ``r -> M^-1 r`` when it carries
     line blocks (``line_inv``) or Schwarz data (``schwarz``, its partials
     reconciled by ``ops["exchange"]`` on a device grid; the cell blocks of
-    `solvers.schwarz_dss` on a DSS level); None for point Jacobi."""
+    `solvers.schwarz_dss` on a DSS level, their overlap-add reconciled by
+    ``ops["dss_exchange"]`` on stacked shards); None for point Jacobi."""
     if "line_inv" in lv:
         from .line import line_precond_apply
 
@@ -93,7 +94,11 @@ def _level_precond(lv, level, ops):
     if "schwarz" in lv and level.dss is not None:
         from .schwarz_dss import dss_schwarz_apply
 
-        return lambda r: dss_schwarz_apply(lv["schwarz"], r, lv, level.dss)
+        xde = ops.get("dss_exchange")
+        return lambda r: dss_schwarz_apply(
+            lv["schwarz"], r, lv, level.dss,
+            exchange=None if xde is None else (
+                lambda y: xde(y, lv, level.dss)))
     if "schwarz" in lv:
         from .schwarz import schwarz_precond_apply
 

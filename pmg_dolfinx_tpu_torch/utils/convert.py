@@ -36,6 +36,11 @@ copy of the JAX `DistPMG.data` into the data of the port's
 distributed levels, transfers, bottom factor) and the distributed FDM
 bundle, laid out as the port's own arrays.
 
+`dss_dist_data_from_numpy` does the same for the distributed unstructured
+path: it turns a numpy copy of the JAX `DSSDist.data` into the data of
+the port's `parallel.dss_dist.DSSDist` (the per-dof and per-cell arrays;
+the layouts are equal, so each is a reshape).
+
 `packed_state_from_numpy` does the same for the serving classes of
 `ops.kron_packed`: it undoes the JAX lane packing of their factors.
 """
@@ -269,6 +274,39 @@ def dist_data_from_numpy(tree, dist, device, dtype):
             if key in tree:
                 out[key] = _like(_convert(tree[key], device, dtype),
                                  dist.data.get(key), None)
+    return out
+
+
+# The arrays of a JAX DSSDist level and transfer the port carries: the
+# per-dof vectors and per-cell factors on the stacked layout (equal to
+# JAX's), the Schwarz blocks and the smoother bound. JAX's index tables
+# (``*_pack``, ``*_src``, ``pmat``, the bit-planes) are not carried: the
+# port's own come from the same partition.
+_DSS_DIST_KEYS = frozenset((
+    "G", "coeff", "D", "bc_marker", "weights", "m3", "diag_inv", "lmax",
+    "schwarz", "M1", "inv_mult_f"))
+
+
+def dss_dist_data_from_numpy(tree, dist, device, dtype):
+    """The port's `DSSDist` data (``levels``, ``transfer``,
+    ``coarse_chol``) from a numpy copy of the JAX `DSSDist.data`
+    (``jax.tree.map(np.asarray, dist.data)``). ``dist`` is the port's
+    `DSSDist` of the same mesh, shard count and options: every carried
+    array takes the shape of its counterpart there (the same memory
+    order). Float arrays are cast to ``dtype``."""
+
+    def one(d, ref):
+        return {k: _like(_convert(v, device, dtype), ref[k], None)
+                for k, v in d.items() if k in _DSS_DIST_KEYS and k in ref}
+
+    out = {
+        "levels": [one(lv, ref) for lv, ref in zip(tree["levels"],
+                                                   dist.data["levels"])],
+        "transfer": [one(tr, ref) for tr, ref in zip(tree["transfer"],
+                                                     dist.data["transfer"])],
+    }
+    if "coarse_chol" in tree:
+        out["coarse_chol"] = _convert(tree["coarse_chol"], device, dtype)
     return out
 
 

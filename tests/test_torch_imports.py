@@ -67,7 +67,7 @@ _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "solvers.convdiff", "solvers.lobpcg", "solvers.eig",
                 "parallel.dist", "parallel.partition", "solvers.shardwrap",
                 "utils.convert", "parallel.fdm_dist",
-                "parallel.transient_dist", "parallel")
+                "parallel.transient_dist", "parallel.dss_dist", "parallel")
 
 
 def test_general_hex_modules_import_no_jax():

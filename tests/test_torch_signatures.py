@@ -838,3 +838,61 @@ def test_stacked_grid_all_to_all_keeps_jax_argument_order():
 
     assert _positional(StackedGrid.all_to_all) == [
         "self", "st", "axis", "split_axis", "concat_axis"]
+
+
+@pytest.mark.parametrize("mod,name", [
+    ("parallel.dss_dist", "DSSDist"),
+    ("parallel.dss_dist", "DSSPartition"),
+    ("parallel.dss_dist", "_entity_partition"),
+    ("parallel.dss_dist", "_pad_stack"),
+    ("parallel.dss_dist", "dss_exchange"),
+    ("parallel.dss_dist", "dss_dist_cycle_ops"),
+])
+def test_dss_dist_signatures(mod, name):
+    """The distributed unstructured path keeps JAX's public names and
+    positional orders; the port adds only keyword-only parameters
+    (``device`` on `DSSDist`, ``grid`` on the exchange and the cycle
+    ops)."""
+    import importlib
+
+    jf = getattr(importlib.import_module(f"pmg_dolfinx_tpu.{mod}"), name)
+    tf = getattr(importlib.import_module(f"pmg_dolfinx_tpu_torch.{mod}"),
+                 name)
+    assert _positional(tf) == _positional(jf)
+
+
+@pytest.mark.parametrize("cls,method", [
+    ("DSSDist", "to_dist"), ("DSSDist", "from_dist"), ("DSSDist", "solve"),
+    ("DSSDist", "solve_pcg"), ("DSSPartition", "tables"),
+    ("DSSPartition", "to_dist"), ("DSSPartition", "from_dist")])
+def test_dss_dist_method_signatures(cls, method):
+    """`DSSDist`'s and `DSSPartition`'s methods bind JAX's positional
+    arguments."""
+    import pmg_dolfinx_tpu.parallel.dss_dist as jd
+    import pmg_dolfinx_tpu_torch.parallel.dss_dist as td
+
+    assert _positional(getattr(getattr(td, cls), method)) == _positional(
+        getattr(getattr(jd, cls), method))
+
+
+@pytest.mark.parametrize("cls,args", [
+    ("DSSDist", ("mesh", 8, (1, 3, 6), 2.0, "dtype", 3, "direct", None,
+                 None, 25, "highest", 0.8, "schwarz")),
+    ("DSSPartition", ("mesh", 8)),
+])
+def test_dss_dist_positional_calls_match_jax(cls, args):
+    """JAX's positional list (``mesh, n_devices, degrees, kappa, dtype,
+    smoother_iters, coarse, coarse_cfg, devices, calibration_iters,
+    precision, sigma, smoother``) binds every value to the parameter of
+    the same name in the port."""
+    import inspect
+
+    import pmg_dolfinx_tpu.parallel.dss_dist as jd
+    import pmg_dolfinx_tpu_torch.parallel.dss_dist as td
+
+    bind = lambda c: dict(inspect.signature(getattr(c, cls)).bind(
+        *args, **({"device": "cpu"} if c is td and cls == "DSSDist"
+                  else {})).arguments)
+    got = bind(td)
+    got.pop("device", None)
+    assert got == bind(jd)
