@@ -449,6 +449,28 @@ meshes of phases 22-23 on host threads started with phase 2. The script prints i
    seeded rhs, ``coarse="cg"`` and ``coarse="direct"`` with sigma 0.8 and
    a DG-0 kappa, each against the single-device ``dss`` hierarchy (FCG
    within 1, one V-cycle within 1e-5).
+31. Across processes on the card (`parallel.multihost`; no new kernel),
+   after 30: the parent starts rank processes (``--rank31``), each a gloo
+   rank pinned to ``cuda:0`` that loads the kernels phase 2 built and
+   stages every collective buffer through pinned host memory (NCCL
+   refuses two ranks on one GPU). a: 26a's slab flagship on 2 ranks x 3
+   slabs (16.2M dofs, the gathered fdm coarse crossing ranks), against
+   26a's run; b: 30a's ``DSSDist`` on 2 ranks x 4 shards (the mesh and
+   its caches handed over as a pickle), against 30a's; c: ``GridPMG(
+   BoxMesh((22,) * 3), (2, 2, 2), (1, 3, 6), kron_blocked, coarse="fdm",
+   coarse_cfg=dict(dist=True))`` on 4 ranks x 2 shards (2,352,637 dofs:
+   plane exchanges on every axis, pencil all_to_all across ranks),
+   against the same problem stacked here. Each rhs goes to the ranks as a
+   ``.npy``; 31c's four ranks start with 31a/31b's and wait for their
+   turn. Gates: FCG(V) to 1e-6 within 1 of the twin's, 10 cycles
+   within 1e-4 of the twin's above 5e-3, one V-cycle on a seeded input
+   at the twin's smoother bounds within 1e-5, and on every rank #1-#3
+   (a) or #1 and #9 (c) on its own operands within 1e-5 of their plain
+   versions. Prints each sub-phase's ms per V-cycle beside its twin's
+   (two processes on one card: the cost of the decomposition and the
+   staging, not a multi-GPU speed), the collective calls and staged
+   bytes per V-cycle, setup and wall seconds; the ranks' main-path
+   launches join the kernels line.
 
 Before the kernels line, a line lists the ten longest phases with their
 seconds.
@@ -464,9 +486,9 @@ their separable twin's device time, #12 with the blocked apply's), the
 lattice kernels with their box and face
 scratch, the serving kernels per batch beside ``bound_ms_by_batch``;
 ``launches`` sums each kernel's launches over every path that runs it
-(#1-#3 phases 4, 15, 24a, 25a, 25e, 19a/19b, 26a-26c, 27a-27b and
-29c, #1 also 27c, 29a, 29b and 29d, #4/#7/#10/#11 phases 4b-4e and 19c,
-#9 phases 14, 18d, 27c, 29a, 29b and 29d,
+(#1-#3 phases 4, 15, 24a, 25a, 25e, 19a/19b, 26a-26c, 27a-27b, 29c
+and 31a, #1 also 27c, 29a, 29b, 29d and 31c, #4/#7/#10/#11 phases 4b-4e
+and 19c, #9 phases 14, 18d, 27c, 29a, 29b, 29d and 31c,
 K-A phases 7, 16, 17, 20a, 20b and 28a-28e,
 K-B phases 8 and 20c, #18-#21 phases 11 and 21, #19/#21 phase 25c),
 with their kernels and host us per call and, with ``--parent``, the
@@ -479,6 +501,7 @@ import contextlib
 import importlib.util
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2999,14 +3022,14 @@ def slab_kernel_parity(slab):
         slab_blocks,
     )
 
-    S = slab.n_shards
+    S = slab.grid.block[0]     # this process's slabs
     lv = slab.data["levels"][-1]
     mats = lv["kb_mats"]
     blocks = slab_blocks(mats, S)
     shape = (S,) + tuple(slab.levels[-1].shape)
     rng = np.random.default_rng(SEED + 28)
     x, r = (torch.tensor(rng.standard_normal(shape, dtype=np.float32),
-                         device="cuda") for _ in range(2))
+                         device=DEV) for _ in range(2))
     flat = lambda t: t.reshape((-1,) + shape[2:])
     bc = flat(lv["bc_marker"])
 
@@ -4987,14 +5010,16 @@ KS_REFINED_RTOL = 1e-9
 KS_REFINED_MAX = 250
 
 
-def ks_shard_parity(grid, seed, tag):
+def ks_shard_parity(grid, seed, tag, differ=True):
     """Kernels #1 and #9 (apply and fused residual, both corrections, sigma
     0 and 0.5) on every shard of ``grid``'s fine level, each with its own
     ``kb_blocks`` entry, against the plain versions on the same blocks:
     relative max-norm within `KERNEL_RTOL`. First checks that the blocks
     differ where the mesh says they must: the y shards' ``Kty`` (one
     Robin end each) and the z shards' ``KtzT`` (graded z). These launches
-    are comparisons, not the main path's. Returns the worst error."""
+    are comparisons, not the main path's. ``differ=False`` skips the
+    first check (a rank's block need not hold both shards). Returns the
+    worst error."""
     import numpy as np
     import torch
 
@@ -5004,7 +5029,7 @@ def ks_shard_parity(grid, seed, tag):
     blocks = lv["kb_blocks"]
     for key, a, b in (("Kty", (0, 0, 0), (0, 1, 0)),
                       ("KtzT", (0, 0, 0), (0, 0, 1))):
-        if torch.equal(blocks[a][key], blocks[b][key]):
+        if differ and torch.equal(blocks[a][key], blocks[b][key]):
             raise AssertionError(f"{tag}: shards {a} and {b} share {key}")
     shape = tuple(grid.levels[-1].shape)
     rng = np.random.default_rng(seed)
@@ -5024,8 +5049,9 @@ def ks_shard_parity(grid, seed, tag):
                                                r3=r), r - ref))
     torch.cuda.synchronize()
     print(f"    {tag}: #1 and #9 (apply, residual; sigma 0, 0.5) on each of "
-          f"the {len(blocks)} shards' own blocks (Kty differs across y, KtzT "
-          f"across z) vs the plain versions: worst rel max err {worst:.3e} "
+          f"the {len(blocks)} shards' own blocks"
+          + (" (Kty differs across y, KtzT across z)" if differ else "")
+          + f" vs the plain versions: worst rel max err {worst:.3e} "
           f"(gate {KERNEL_RTOL:g})")
     if not worst <= KERNEL_RTOL:
         raise AssertionError(f"{tag}: per-shard kernels differ by {worst}")
@@ -5726,6 +5752,7 @@ def dss_dist_full(mesh, ref, ref_c, dss15):
           f"{pcg:.3f} s host clock)")
     if abs(niter - ref["niter"]) > 1 or not bool(torch.isfinite(u).all()):
         raise AssertionError(f"30a: FCG {niter} against 23a's {ref['niter']}")
+    rank_twin(dist, ref["b"], "31b")     # phase 31b's reference
     l2_job = start_l2(l2_error_collocated, mesh, 6,
                       u.double().cpu().numpy(), u_lshape)
     err = dss_vcycle_at(dist, ref)
@@ -6755,6 +6782,426 @@ def check_modes(tag, mesh, sigma, lams, U, iters, secs, gate, out):
     out[f"25f {tag}"] = (iters, secs)
 
 
+# -- phase 31: the sharded paths across processes ---------------------------
+
+RANK_TRAJ_RTOL = 1e-4     # 31a-31c: 10 cycles against the twin's, relative
+RANK_TIMEOUT_S = 420      # each rank process's time limit
+RANK_SLAB_NC = (42, 42, 42)   # 31a: phase 4's mesh, 16,194,277 dofs at p=6
+RANK_GRID_NC = (22, 22, 22)   # 31c: 2,352,637 dofs at p=6
+RANK_DEGREES = (1, 3, 6)
+RANK_SEED = SEED + 31
+RANK_VC_CYCLES = 5        # back-to-back V-cycles a timing window, 3 windows
+RANK_TWINS = {}           # {tag: the single-process twin's numbers}
+_RANK_DIR = []            # the temporary directory of phase 31's files
+
+
+def rank_dir():
+    """Phase 31's temporary directory (under TMPDIR), made once."""
+    import tempfile
+
+    if not _RANK_DIR:
+        _RANK_DIR.append(Path(tempfile.mkdtemp(prefix="chip_smoke_31_")))
+    return _RANK_DIR[0]
+
+
+def seeded_pair(n, seed):
+    """A seeded random rhs and iterate, float32 host arrays of ``n``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n, dtype=np.float32),
+            rng.standard_normal(n, dtype=np.float32))
+
+
+def rank_twin(h, b, tag):
+    """The single-process twin of a phase-31 sub-phase, ``h`` with every
+    shard on this card: 10 stationary cycles' relative residuals on the
+    global rhs ``b``, FCG(V) to 1e-6, every level's lmax, one V-cycle on
+    `seeded_pair` (host array) and ms per V-cycle. ``b`` is saved as
+    ``{tag}_rhs.npy`` for the ranks."""
+    import numpy as np
+    import torch
+
+    b = torch.as_tensor(b, device=DEV)
+    np.save(rank_dir() / f"{tag}_rhs.npy", b.cpu().numpy())
+    if tag == "31a":
+        ship_geometry(h.mesh, rank_dir() / "31a_geom")
+    r0 = float(torch.linalg.vector_norm(b))
+    _, rn = h.solve(b, num_cycles=10)
+    _, niter = h.solve_pcg(b, rtol=1e-6, maxiter=50)
+    bs, us = seeded_pair(b.numel(), RANK_SEED)
+    vc = h.from_dist(h.apply(h.to_dist(bs), h.to_dist(us))).cpu().numpy()
+    ms, _ = slab_vcycle_ms(h, cycles=RANK_VC_CYCLES)
+    RANK_TWINS[tag] = dict(rel=[v / r0 for v in rn], niter=niter, vc=vc,
+                           lmax=[float(lv["lmax"])
+                                 for lv in h.data["levels"]], ms=ms)
+    print(f"    31{tag[-1]} twin: FCG(V) {niter}, V-cycle {ms:.3f} ms, lmax "
+          f"{RANK_TWINS[tag]['lmax']}")
+
+
+def ship_mesh(mesh, path):
+    """Pickle an unstructured mesh with its built spaces (the merge, DSS
+    layout, marker and multiplicity of every degree of phase 31b), so a
+    rank process skips the half minute of host work (`load_mesh`)."""
+    import pickle
+
+    spaces = {P: (mesh._space(P), mesh.boundary_dof_marker(P),
+                  mesh.dof_multiplicity(P)) for P in RANK_DEGREES}
+    with open(path, "wb") as f:
+        pickle.dump((mesh, spaces), f, protocol=5)
+
+
+def ship_geometry(mesh, path):
+    """Save a box mesh's cached host geometry factors (G and detJ of every
+    degree of phase 31a, ~1.6 GB at 16.2M dofs) as ``.npy`` files under
+    ``path``, which `load_geometry` maps into a rank's mesh: 31a's ranks
+    skip the ~40 s of numpy the parent did in phase 2."""
+    import numpy as np
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import geometry_factors_np
+
+    path.mkdir(exist_ok=True)
+    for P in RANK_DEGREES:
+        G, detJ = geometry_factors_np(mesh, P)
+        np.save(path / f"G{P}.npy", G)
+        np.save(path / f"detJ{P}.npy", detJ)
+
+
+def load_geometry(mesh, path):
+    """`ship_geometry`'s factors, memory-mapped read-only, as ``mesh``'s
+    cache (`fem.assembly.geometry_factors_np` reads it)."""
+    import numpy as np
+
+    cache = mesh.__dict__.setdefault("_geometry_factors_np", {})
+    for P in RANK_DEGREES:
+        cache[P] = tuple(np.load(Path(path) / f"{k}{P}.npy", mmap_mode="r")
+                         for k in ("G", "detJ"))
+    return mesh
+
+
+def load_mesh(path):
+    """`ship_mesh`'s mesh with its spaces served from the pickle: the
+    cached methods shadowed on the instance."""
+    import pickle
+
+    with open(path, "rb") as f:
+        mesh, spaces = pickle.load(f)
+    mesh._space = lambda P: spaces[P][0]
+    mesh.boundary_dof_marker = lambda P: spaces[P][1]
+    mesh.dof_multiplicity = lambda P: spaces[P][2]
+    return mesh
+
+
+def rank_build(sub):
+    """A rank's solver of sub-phase ``sub`` (``devices=None``: the shards
+    span every rank)."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+
+    cfg = dict(degrees=RANK_DEGREES, kappa=2.0, dtype=torch.float32,
+               device=DEV)
+    if sub["kind"] == "slab":
+        from pmg_dolfinx_tpu_torch.parallel.dist import DistPMG
+
+        mesh = load_geometry(BoxMesh(tuple(sub["nc"])), sub["geom"])
+        return DistPMG(mesh, n_devices=sub["shards"], coarse="fdm",
+                       operator="kron_blocked", **cfg)
+    if sub["kind"] == "dss":
+        from pmg_dolfinx_tpu_torch.parallel.dss_dist import DSSDist
+
+        return DSSDist(load_mesh(sub["mesh"]), sub["shards"],
+                       coarse="direct", **cfg)
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+
+    return GridPMG(BoxMesh(tuple(sub["nc"])), tuple(sub["shards"]),
+                   coarse="fdm", coarse_cfg=dict(dist=True),
+                   operator="kron_blocked", **cfg)
+
+
+def rank_subphase(sub, rank):
+    """One sub-phase on this rank: the solver, the main path (10 cycles,
+    FCG(V) to 1e-6) with the kernel counts set to 0 just before and read
+    just after, one V-cycle on `seeded_pair` at the twin's lmax (rank 0
+    saves the global result), collective calls and staged bytes of one
+    V-cycle, ms per V-cycle (CUDA events), and the kernels on this rank's
+    own operands against their plain versions (raises past
+    `KERNEL_RTOL`)."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+
+    ts = time.perf_counter()
+    h = rank_build(sub)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - ts
+    grid = h.grid
+    b = np.load(sub["rhs"])
+    r0 = float(np.linalg.norm(b.astype(np.float64)))
+    ts = time.perf_counter()
+    reset(kb)
+    _, rn = h.solve(b, num_cycles=10)
+    _, niter = h.solve_pcg(b, rtol=1e-6, maxiter=50)
+    torch.cuda.synchronize()
+    path = {k: v for k, v in kb.LAUNCHES.items() if v}
+    path_s = time.perf_counter() - ts
+    bs, us = seeded_pair(b.size, RANK_SEED)
+    own = [lv["lmax"] for lv in h.data["levels"]]
+    for lv, lm in zip(h.data["levels"], sub["lmax"]):
+        lv["lmax"] = torch.tensor(lm, dtype=own[0].dtype, device=DEV)
+    try:
+        vc = h.from_dist(h.apply(h.to_dist(bs), h.to_dist(us)))
+    finally:
+        for lv, lm in zip(h.data["levels"], own):
+            lv["lmax"] = lm
+    if rank == 0:
+        np.save(sub["vc_out"], vc.cpu().numpy())
+    bd = h.to_dist(np.ones(b.size, dtype=np.float32))
+    ud = torch.zeros_like(bd)
+    torch.cuda.synchronize()
+    grid.stats.update(calls=0, staged_bytes=0)
+    h.apply(bd, ud)
+    torch.cuda.synchronize()
+    per_cycle = dict(grid.stats)
+    times = [cuda_ms(lambda: h.apply(bd, ud), reps=RANK_VC_CYCLES, warmup=1)
+             for _ in range(3)]
+    ms = sorted(times)[1]
+    if sub["kind"] == "slab":
+        err = slab_kernel_parity(h)
+    elif sub["kind"] == "grid":
+        err = ks_shard_parity(h, RANK_SEED + rank, f"rank {rank}",
+                              differ=False)
+    else:
+        err = None
+    return dict(rel=[v / r0 for v in rn], niter=niter, launches=path,
+                setup_s=setup, path_s=path_s, ms=ms, ms_reps=times,
+                per_cycle=per_cycle, kernel_err=err, block=list(grid.block),
+                staged=bool(grid.staged))
+
+
+def rank_worker(cfg_path, rank):
+    """A phase-31 rank process (``chip_smoke.py --rank31 CFG RANK``): its
+    CUDA context on ``cuda:0`` and the kernels loaded from phase 2's
+    build (no nvcc) first, then, once the parent has written CFG's ``go``
+    file, a gloo rank (its collective buffers staged through pinned host
+    memory) that runs the sub-phases of ``CFG`` in order; the results go
+    to the file CFG names for this rank."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel import multihost
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    torch.set_num_threads(cfg["threads"])
+    torch.zeros(1, device=DEV)      # the CUDA context, before the go
+    ts = time.perf_counter()
+    kb.load_kernels()
+    out = {"load_s": time.perf_counter() - ts}
+    go, deadline = Path(cfg["go"]), time.monotonic() + RANK_TIMEOUT_S
+    while not go.exists():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"rank {rank}: no go file {go}")
+        time.sleep(0.05)
+    multihost.initialize(cfg["init"], cfg["world"], rank, backend="gloo",
+                         device="cuda:0", timeout_s=RANK_TIMEOUT_S)
+    for sub in cfg["subs"]:
+        out[sub["tag"]] = rank_subphase(sub, rank)
+    with open(cfg["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+    multihost.shutdown()
+
+
+def start_ranks(tag, world, subs):
+    """Start ``world`` rank processes on this card for ``subs``; they make
+    their CUDA context and load the kernels, then wait for `go_ranks`.
+    Returns the handle `wait_ranks` takes."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    d = rank_dir()
+    cfg = dict(init=f"tcp://localhost:{port}", world=world,
+               threads=max(1, 8 // world), subs=subs,
+               out=str(d / f"{tag}_rank{{rank}}.json"),
+               go=str(d / f"{tag}_go"))
+    cfg_path = d / f"{tag}_cfg.json"
+    cfg_path.write_text(json.dumps(cfg))
+    logs = [open(d / f"{tag}_rank{r}.log", "w+") for r in range(world)]
+    # the ranks share the host's cores: each its share of BLAS threads
+    env = dict(os.environ, OMP_NUM_THREADS=str(cfg["threads"]),
+               OPENBLAS_NUM_THREADS=str(cfg["threads"]),
+               MKL_NUM_THREADS=str(cfg["threads"]))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank31",
+         str(cfg_path), str(r)], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=str(ROOT), env=env) for r in range(world)]
+    return dict(tag=tag, cfg=cfg, procs=procs, logs=logs, t0=None)
+
+
+def go_ranks(h):
+    """Let `start_ranks`' processes begin their sub-phases."""
+    h["t0"] = time.perf_counter()
+    Path(h["cfg"]["go"]).touch()
+
+
+def stop_ranks(h):
+    """Kill any of ``h``'s processes still running and close the logs."""
+    for p in h["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in h["logs"]:
+        f.close()
+
+
+def wait_ranks(h):
+    """Wait for ``h``'s processes (each within `RANK_TIMEOUT_S`); a failure
+    raises with the failed rank's last output (the caller stops every
+    group with `stop_ranks`). Returns the ranks' results, rank order, and
+    the wall seconds since `go_ranks`."""
+    tag, cfg = h["tag"], h["cfg"]
+    for r, p in enumerate(h["procs"]):
+        rc = p.wait(timeout=RANK_TIMEOUT_S)
+        if rc != 0:
+            h["logs"][r].seek(0)
+            raise AssertionError(f"{tag}: rank {r} exited {rc}:\n"
+                                 + h["logs"][r].read()[-6000:])
+    wall = time.perf_counter() - h["t0"]
+    res = []
+    for r in range(cfg["world"]):
+        with open(cfg["out"].format(rank=r)) as f:
+            res.append(json.load(f))
+    return res, wall
+
+
+def kerr(m):
+    """A rank's worst kernel parity error as text."""
+    e = m["kernel_err"]
+    return "none on this path" if e is None else f"{e:.3e}"
+
+
+def rank_gates(tag, res, twin, launches, need):
+    """Phase 31's gates of sub-phase ``tag`` on every rank against its
+    twin; prints its numbers and adds every rank's main-path launches of
+    ``need`` to ``launches`` (#9's fused-residual launches counted as
+    #9's, as the other grid phases count them). Returns (FCG count, ms
+    per V-cycle)."""
+    import numpy as np
+    import torch
+
+    vc = torch.as_tensor(np.load(rank_dir() / f"{tag}_vc.npy"))
+    err = rel_max_err(vc, torch.as_tensor(twin["vc"]))
+    mine = [r[tag] for r in res]
+    print(f"    {tag}: {len(res)} ranks, blocks {mine[0]['block']}, "
+          f"collective buffers staged through pinned host memory: "
+          f"{mine[0]['staged']}; setup s {[round(m['setup_s'], 2) for m in mine]}"
+          f", main path s {[round(m['path_s'], 2) for m in mine]}")
+    for r, m in enumerate(mine):
+        diff = traj_diff(m["rel"], twin["rel"])
+        print(f"      rank {r}: FCG(V) {m['niter']} (twin {twin['niter']}); "
+              f"trajectory max rel diff above {REF_TRAJ_FROM:g} {diff:.3e} "
+              f"(gate {RANK_TRAJ_RTOL:g}); launches {m['launches']}; "
+              f"kernels on its own operands vs plain: "
+              f"{kerr(m)}")
+        if abs(m["niter"] - twin["niter"]) > 1:
+            raise AssertionError(f"{tag} rank {r}: FCG {m['niter']} against "
+                                 f"the twin's {twin['niter']}")
+        if not diff <= RANK_TRAJ_RTOL:
+            raise AssertionError(f"{tag} rank {r}: trajectory differs by "
+                                 f"{diff:.3e}")
+        add_launches(launches, m["launches"], need)
+        if "t23_grid_m" in need:
+            launches["t23_grid_m"] += m["launches"].get("t23_grid_res_m", 0)
+    print(f"    {tag}: one V-cycle at the twin's lmax, seeded rhs and "
+          f"iterate, vs the twin: rel max err {err:.3e} (gate "
+          f"{GRID_VCYCLE_RTOL:g})")
+    if not err <= GRID_VCYCLE_RTOL:
+        raise AssertionError(f"{tag}: V-cycle differs by {err:.3e}")
+    ms = max(m["ms"] for m in mine)
+    pc = mine[0]["per_cycle"]
+    print(f"    {tag}: V-cycle {ms:.3f} ms across {len(res)} processes "
+          f"(rank reps {[[round(t, 3) for t in m['ms_reps']] for m in mine]})"
+          f" vs the single-process twin {twin['ms']:.3f} ms ({len(res)} "
+          f"processes on one card: the cost of the decomposition and the "
+          f"host staging, not a multi-GPU speed); per V-cycle and rank "
+          f"{pc['calls']} collective calls, {pc['staged_bytes']:,} bytes "
+          f"staged")
+    return mine[0]["niter"], ms
+
+
+def rank_phases(mesh15, launches):
+    """Phase 31: 31a and 31b on 2 rank processes, 31c on 4 (`run_ranks`),
+    each against its twin (`rank_twin`: 26a's and 30a's from their phases,
+    31c's built here). Returns {tag: (FCG count, ms per V-cycle)}."""
+    import shutil
+
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.models.poisson import f_rhs
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+
+    d = rank_dir()
+    ts = time.perf_counter()
+    mesh_c = BoxMesh(RANK_GRID_NC)
+    twin = GridPMG(mesh_c, (2, 2, 2), degrees=RANK_DEGREES, kappa=2.0,
+                   dtype=torch.float32, coarse="fdm",
+                   coarse_cfg=dict(dist=True), operator="kron_blocked",
+                   device=DEV)
+    rank_twin(twin, assemble_rhs(mesh_c, 6, f_rhs(2.0)), "31c")
+    del twin
+    ship_mesh(mesh15, d / "31b_mesh.pkl")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"    twins and hand-over files: {time.perf_counter() - ts:.2f} s")
+    sub = lambda tag, **kw: dict(tag=tag, rhs=str(d / f"{tag}_rhs.npy"),
+                                 vc_out=str(d / f"{tag}_vc.npy"),
+                                 lmax=RANK_TWINS[tag]["lmax"], **kw)
+    out = {}
+    t0 = phase("31a/31b. 2 rank processes (gloo, cuda:0): 26a's slab "
+               "flagship (6 slabs, 3 a rank, 16.2M dofs) and 30a's DSSDist "
+               "(8 shards, 4 a rank, 2,244,151 dofs)")
+    ab = start_ranks("31ab", 2, [
+        sub("31a", kind="slab", nc=list(RANK_SLAB_NC), shards=SLAB_SHARDS,
+            geom=str(d / "31a_geom")),
+        sub("31b", kind="dss", mesh=str(d / "31b_mesh.pkl"),
+            shards=DSS_SHARDS)])
+    # 31c's ranks start now too, and wait, their start under 31a/31b's
+    c = start_ranks("31c", 4, [
+        sub("31c", kind="grid", nc=list(RANK_GRID_NC), shards=[2, 2, 2])])
+    try:
+        go_ranks(ab)
+        res, wall = wait_ranks(ab)
+        print(f"    rank processes: {wall:.1f} s wall (kernel load "
+              f"{[round(r['load_s'], 2) for r in res]} s)")
+        out["31a slab 2 ranks"] = rank_gates(
+            "31a", res, RANK_TWINS["31a"], launches,
+            ("t1_m", "t23_m", "t23_res_m"))
+        out["31b dss 2 ranks"] = rank_gates("31b", res, RANK_TWINS["31b"],
+                                            launches, ())
+        done(t0)
+        t0 = phase("31c. 4 rank processes (gloo, cuda:0): GridPMG (2,2,2) "
+                   "on BoxMesh((22,22,22)), 2,352,637 dofs, kron_blocked, "
+                   "fdm dist (pencil all_to_all across ranks)")
+        go_ranks(c)
+        res, wall = wait_ranks(c)
+    finally:
+        stop_ranks(ab)
+        stop_ranks(c)
+    print(f"    rank processes: {wall:.1f} s wall after the go (started "
+          "with 31a/31b's)")
+    out["31c grid 4 ranks"] = rank_gates("31c", res, RANK_TWINS["31c"],
+                                         launches, ("t1_m", "t23_grid_m"))
+    done(t0)
+    shutil.rmtree(d, ignore_errors=True)
+    _RANK_DIR.clear()
+    return out
+
+
 def main():
     import argparse
 
@@ -6766,6 +7213,9 @@ def main():
                     help="root of a parent checkout: phases 3b-3e and 10-11 "
                     "also time its full-bc, transfer, whole-lattice, shard "
                     "and serving kernels and its steppers, in turns")
+    ap.add_argument("--rank31", nargs=2, metavar=("CFG", "RANK"),
+                    help="run as one rank process of phase 31 (started by "
+                    "the script itself)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -6774,6 +7224,9 @@ def main():
         raise SystemExit(f"chip_smoke: {PKG} not found; run from the root "
                          "of a checkout")
     sys.path.insert(0, str(ROOT))
+    if args.rank31:
+        rank_worker(args.rank31[0], int(args.rank31[1]))
+        return
 
     parent = load_parent(args.parent)
     t_script = time.perf_counter()
@@ -7049,6 +7502,7 @@ def main():
                "every slab on this card")
     slab, l2_26a, family = slab_flagship(prob, hier, rel, u, niter, spread,
                                          cfg, launches)
+    rank_twin(slab, prob.b, "31a")     # phase 31a's reference
     done(t0)
 
     t0 = phase("26b. examples/scaling_torch.py 1D slab sweep: ~2M dofs "
@@ -7432,6 +7886,9 @@ def main():
     solves, l2_23d, l2_30a = unstructured_solves(meshes[15], meshes[29],
                                                  dss[15])
     family.update(solves)
+    t_31 = time.perf_counter()
+    family.update(rank_phases(meshes[15], launches))
+    print(f"    phase 31 added {time.perf_counter() - t_31:.1f} s")
 
     t0 = phase("24b. operator='csr' (cuSPARSE) on l_shaped_hex_mesh(4), "
                "p=(1,3), against dss")

@@ -50,9 +50,10 @@ run too; `solve`, `solve_pcg`, `solve_refined` (its f64 apply picked as
 JAX picks it), `load_state`. JAX's ``pvary`` has no counterpart
 (ROADMAP.md, "Do not port"); ``make_mesh`` neither (no device mesh). As
 in JAX, a per-cell or off-diagonal tensor kappa on the Kronecker family
-raises ValueError. Not ported yet, each raising NotImplementedError
-naming its ROADMAP.md item: ``devices=`` (the multi-process backend,
-item 10 (d)) and ``precision="high"`` (item 1). As in JAX, the slab's
+raises ValueError. Across processes (``devices=``, `multihost`) each rank
+holds a run of slabs and uploads its part of the host-built stack
+(`slab_level_spec`). Not ported yet: ``precision="high"``
+(NotImplementedError naming ROADMAP.md item 1). As in JAX, the slab's
 distributed hmg is the Kronecker h-hierarchy only; the general family's
 runs on `GridPMG` with ``shards=(S, 1, 1)``.
 """
@@ -60,7 +61,6 @@ runs on `GridPMG` with ``shards=(S, 1, 1)``.
 import numpy as np
 import torch
 
-from ..ops.blas import dist_inner_product
 from ..solvers.cg import cg_solve
 from ..solvers.pmg import (
     DEFAULT_CALIBRATION_ITERS,
@@ -99,9 +99,15 @@ def _todo(what, item):
 
 
 def _grid(n_shards):
+    """The layout a factory's ``n_shards`` slot names: JAX's slab count
+    (every slab stacked here) or the solver's own grid (a `StackedGrid`
+    or a rank's `multihost.RankGrid`, whose ``block`` is the leading
+    shape of the tensors it takes)."""
     from .grid2d import StackedGrid
 
-    return StackedGrid((n_shards, 1, 1))
+    if isinstance(n_shards, StackedGrid):
+        return n_shards
+    return StackedGrid((int(n_shards), 1, 1))
 
 
 def _six(t, n_shards, shape):
@@ -113,7 +119,9 @@ def _six(t, n_shards, shape):
 def _exchange_partials(lat, n_shards, *, inplace=False):
     """Reconcile interface-plane partial sums with both neighbours.
 
-    ``lat`` is the stacked slab lattice ``(S, npl, NY, NZ)``: shard
+    ``n_shards`` is the slab count or the slab's grid (`_grid`); ``lat``
+    is the stacked slab lattice ``(S, npl, NY, NZ)`` (``S`` the grid's
+    local block on a rank): shard
     ``s``'s last plane and shard ``s+1``'s first plane are copies of one
     global plane, each holding the partial sum of its own cells; after
     the exchange both hold the full sum (the non-wrapping ``ppermute``
@@ -121,10 +129,11 @@ def _exchange_partials(lat, n_shards, *, inplace=False):
     tensor, or writes ``lat`` when ``inplace``."""
     from .grid2d import _exchange_axis
 
-    if n_shards == 1:
+    grid = _grid(n_shards)
+    if grid.shards[0] == 1:
         return lat
-    out = _exchange_axis(_six(lat, n_shards, lat.shape[1:]),
-                         _grid(n_shards), 0, inplace=inplace)
+    out = _exchange_axis(_six(lat, grid.block[0], lat.shape[1:]),
+                         grid, 0, inplace=inplace)
     return out.reshape(lat.shape)
 
 
@@ -136,8 +145,8 @@ def _slab_transfers(n_shards, flat):
     communication (both owners of a plane compute it alike)."""
     from .grid2d import _stacked_contract
 
-    S = n_shards
-    grid = _grid(S)
+    grid = _grid(n_shards)
+    S = grid.block[0]
 
     def out(t, level):
         return t.reshape(-1) if flat else t.reshape((S,) + level.shape)
@@ -146,7 +155,7 @@ def _slab_transfers(n_shards, flat):
         lat = _six(r * tr["weights_f"], S, level_f.shape)
         for dim, name in enumerate(("Ix", "Iy", "Iz")):
             lat = _stacked_contract(tr[name].mT, lat, dim)
-        return out(_exchange_partials(lat[:, 0, 0], S, inplace=True),
+        return out(_exchange_partials(lat[:, 0, 0], grid, inplace=True),
                    level_c)
 
     def prolong_op(tr, u, level_c, level_f):
@@ -161,7 +170,7 @@ def _slab_transfers(n_shards, flat):
         zeros=lambda level, like: torch.zeros(
             (S * level.ndofs,) if flat else (S,) + tuple(level.shape),
             dtype=like.dtype, device=like.device),
-        exchange=lambda lat: _exchange_partials(lat, S),
+        exchange=lambda lat: _exchange_partials(lat, grid),
     )
 
 
@@ -178,33 +187,36 @@ def dist_cycle_ops(n_shards, sigma=0.0):
     dofmap (batched over the slabs), then the partial-sum exchange;
     dofmap p-transfers likewise (restriction exchanged, prolongation
     consistent without communication). ``sigma`` adds the lumped-mass
-    shift after the exchange."""
+    shift after the exchange. ``n_shards`` may be the solver's grid
+    (`_grid`); the local slab count is its block."""
     from ..ops.interpolate import prolongate, restrict
     from ..ops.laplacian import laplacian_scatter_raw
 
-    S = n_shards
+    grid = _grid(n_shards)
+    S = grid.block[0]
 
     def raw(lv, x, level):
         dm = _stacked_dofmap(lv["dofmap"], S, level.ndofs)
         y = laplacian_scatter_raw(x, dm, lv["G"], lv["coeff"], lv["D"],
                                   lv["bc_marker"])
         lat = y.reshape((S,) + level.shape)
-        return _exchange_partials(lat, S, inplace=True).reshape(-1)
+        return _exchange_partials(lat, grid, inplace=True).reshape(-1)
 
     def restrict_op(tr, r, level_c, level_f):
         y = restrict(r, _stacked_dofmap(tr["dofmap_c"], S, level_c.ndofs),
                      _stacked_dofmap(tr["dofmap_f"], S, level_f.ndofs),
                      tr["M1"], tr["mult_f"], S * level_c.ndofs)
         lat = y.reshape((S,) + level_c.shape)
-        return _exchange_partials(lat, S, inplace=True).reshape(-1)
+        return _exchange_partials(lat, grid, inplace=True).reshape(-1)
 
     def prolong_op(tr, u, level_c, level_f):
         return prolongate(u, _stacked_dofmap(tr["dofmap_c"], S, level_c.ndofs),
                           _stacked_dofmap(tr["dofmap_f"], S, level_f.ndofs),
                           tr["M1"], S * level_f.ndofs)
 
-    return dict(_slab_transfers(S, flat=True), apply=_shifted(raw, sigma),
-                restrict=restrict_op, prolong=prolong_op)
+    return dict(_slab_transfers(grid, flat=True),
+                apply=_shifted(raw, sigma), restrict=restrict_op,
+                prolong=prolong_op)
 
 
 def dist_kron_cycle_ops(n_shards, precision="highest", sigma=0.0):
@@ -217,8 +229,9 @@ def dist_kron_cycle_ops(n_shards, precision="highest", sigma=0.0):
     from .grid2d import grid_kron_cycle_ops
 
     _check_precision(precision)
-    S = n_shards
-    grid_apply = grid_kron_cycle_ops((S, 1, 1), precision, sigma)["apply"]
+    grid = _grid(n_shards)
+    S = grid.block[0]
+    grid_apply = grid_kron_cycle_ops(grid, precision, sigma)["apply"]
 
     def apply_op(lv, x, level):
         six = lambda t: _six(t, S, level.shape)
@@ -226,7 +239,7 @@ def dist_kron_cycle_ops(n_shards, precision="highest", sigma=0.0):
                        level)
         return y.reshape(x.shape)
 
-    return dict(_slab_transfers(S, flat=False), apply=apply_op)
+    return dict(_slab_transfers(grid, flat=False), apply=apply_op)
 
 
 def slab_blocks(mats, n_shards):
@@ -262,11 +275,12 @@ def dist_kron_blocked_cycle_ops(n_shards, precision="highest", sigma=0.0):
     )
 
     _check_precision(precision)
-    S = n_shards
+    grid = _grid(n_shards)
+    S = grid.block[0]
 
     def ex(t1):  # kernel 1's output is the entry point's own tensor
         lat = t1.view((S, -1) + tuple(t1.shape[1:]))
-        return _exchange_partials(lat, S, inplace=True).view(t1.shape)
+        return _exchange_partials(lat, grid, inplace=True).view(t1.shape)
 
     def run(lv, x, level, r=None):
         x = x.contiguous()
@@ -281,7 +295,7 @@ def dist_kron_blocked_cycle_ops(n_shards, precision="highest", sigma=0.0):
         return y.reshape(x.shape)
 
     return dict(
-        _slab_transfers(S, flat=False),
+        _slab_transfers(grid, flat=False),
         apply=lambda lv, x, level: run(lv, x, level),
         residual=lambda lv, b, u, level: run(lv, u, level, r=b),
     )
@@ -297,7 +311,8 @@ def dist_lattice_cycle_ops(n_shards, precision="highest", sigma=0.0):
     from ..ops.lattice import lattice_laplacian_apply
 
     _check_precision(precision)
-    S = n_shards
+    grid = _grid(n_shards)
+    S = grid.block[0]
 
     def raw(lv, x, level):
         shape = (S,) + tuple(level.shape)
@@ -306,20 +321,21 @@ def dist_lattice_cycle_ops(n_shards, precision="highest", sigma=0.0):
         y = lattice_laplacian_apply(x.reshape(shape), mats, G,
                                     lv["bc_marker"].reshape(shape),
                                     apply_bc=False)
-        return _exchange_partials(y, S, inplace=True).reshape(-1)
+        return _exchange_partials(y, grid, inplace=True).reshape(-1)
 
-    return dict(_slab_transfers(S, flat=True),
+    return dict(_slab_transfers(grid, flat=True),
                 apply=_shifted(raw, sigma))
 
 
-def slab_coarse_hooks(part, P0):
+def slab_coarse_hooks(part, P0, *, grid=None):
     """Gather/slice hooks of the gathered coarse solves: ``coarse_gather``
     takes the slab coarse vector to the global lattice (3D from the
     Kronecker layout, flat from the flat one; the duplicated interface
     planes kept once), ``coarse_slice`` a global vector back to the
-    layout of its shape (3D -> ``(S, npl, NY, NZ)``, flat -> flat)."""
-    S = part.n_shards
-    grid = _grid(S)
+    layout of its shape (3D -> ``(S, npl, NY, NZ)``, flat -> flat; ``S``
+    this rank's slabs on a `multihost.RankGrid`)."""
+    grid = _grid(part.n_shards if grid is None else grid)
+    S = grid.block[0]
     shape0 = part.local_shape(P0)
     glob = part.mesh.lattice_shape(P0)
 
@@ -439,14 +455,18 @@ def build_hmg_dist(mesh, n_shards, P0, kappa, dtype, smoother_iters=2,
     bottom_solve)``: the `v_cycle` data (vectors ``(S, npl, NY, NZ)``), the
     grid axes each array is stacked over, the bottom, the coarsest-level
     gather / slice hooks and, for ``bottom="fdm"``, the distributed bottom
-    solve (``hmg_ops["fdm_dist"]``)."""
+    solve (``hmg_ops["fdm_dist"]``). The arrays are the whole stack on
+    ``device``; when ``n_shards`` is a rank's grid (`_grid`) the hooks
+    communicate through it and the caller cuts the rank's block by
+    ``specs``."""
     from ..fem.assembly import resolve_kappa_axes
     from ..ops.kron import axis_stiffness_mass, local_axis_K, robin_axis_ends
     from ..solvers.hmg import local_axis_h_interpolation
     from ..solvers.line import parse_line_smoother, shard_line_blocks
     from .grid2d import _host
 
-    S = int(n_shards)
+    grid = _grid(n_shards)
+    S = grid.shards[0]
     kax = resolve_kappa_axes(mesh, kappa)
     schwarz = smoother == "schwarz"
     line_axis = (None if schwarz
@@ -564,20 +584,49 @@ def build_hmg_dist(mesh, n_shards, P0, kappa, dtype, smoother_iters=2,
             meshes[0], P0, parts[0], (("x", S) if S > 1 else None, None,
                                       None),
             SLAB, kappa, dtype, precision=precision, sigma=sigma,
-            device=device)
+            device=device, grid=grid)
         g_bottom = "fdm"
-    hmg_gather, hmg_slice = slab_coarse_hooks(parts[0], P0)
+    hmg_gather, hmg_slice = slab_coarse_hooks(parts[0], P0, grid=grid)
     return (tuple(levels), data, specs, g_bottom, hmg_gather, hmg_slice,
             bottom_solve)
+
+
+def slab_level_spec(data, n_shards):
+    """The layout of each array of a `DistPMG` level or transfer (JAX's
+    PartitionSpec tree, `multihost.take_block`'s ``spec``): the working-
+    layout vectors, the x-slab geometry and per-cell arrays, the
+    duplicated x mass, a row-stacked ``Kx`` and the x-dependent kernel
+    factors over the slab axis (the block-diagonal ``Ktx`` by rows and
+    columns), the rest replicated."""
+    SLAB = ("x",)
+    spec = {}
+    for k, v in data.items():
+        if k in ("bc_marker", "weights", "diag_inv", "m3", "line_inv", "G",
+                 "coeff", "mx", "mult_f", "weights_f"):
+            spec[k] = SLAB
+        elif k == "Kx":    # row-stacked per slab, or one matrix for all
+            stacked = n_shards > 1 and v.shape[0] == n_shards * v.shape[1]
+            spec[k] = SLAB if stacked else ()
+        elif k == "schwarz":
+            spec[k] = dict(Ux=SLAB, Uy=(), Uz=(), ginv=SLAB, bc=SLAB)
+        elif k == "kb_mats":
+            spec[k] = {key: (("x", "x") if key == "Ktx" else SLAB)
+                       for key in ("Ktx", "sx2d", "sxz", "sxzm", "mx2")}
+    return spec
 
 
 class DistPMG:
     """p-multigrid on a slab-partitioned box mesh, every slab stacked on
     one device (``device``, CUDA unless the caller asks for the CPU).
 
-    The JAX package's signature. ``n_devices`` is the number of stacked
-    slabs (None: one slab, the whole mesh; the port runs on one device,
-    so JAX's "every device" is one). ``operator``: ``"dofmap"`` (the
+    The JAX package's signature. ``n_devices`` is the number of slabs
+    (None: one slab, the whole mesh). With no process group every slab
+    is stacked on ``device``; with one up (`multihost.initialize`) the
+    slabs span the ranks, contiguous runs of equal length, or as
+    ``devices`` (the rank of each slab) says, and each rank holds its run
+    on its ``device`` (`to_dist` gives the rank's slabs; `from_dist`,
+    `solve`'s solution and its residual list are the same on every
+    rank). ``operator``: ``"dofmap"`` (the
     default), ``"lattice"`` (plain torch; the general backends keep flat
     vectors), ``"kron"`` (plain torch) or ``"kron_blocked"`` (kernels
     #1-#3, float32; vectors ``(S, npl, NY, NZ)``); ``coarse``: ``"cg"``,
@@ -612,10 +661,6 @@ class DistPMG:
         from ..fem.mesh import require_axis_aligned
         from ..solvers.line import parse_line_smoother
 
-        if devices is not None:
-            raise _todo("devices= (the multi-process torch.distributed "
-                        "backend; the port stacks every slab on one "
-                        "device)", "10 (d)")
         n_devices = int(n_devices or 1)
         self.n_shards = n_devices
         self.part = SlabPartition(mesh, n_devices)
@@ -721,26 +766,32 @@ class DistPMG:
         self.coarse_cfg = dict(coarse_cfg or {})
         self.operator_kind = operator
         self._kron = kron_family
-        self.grid = _grid(n_devices)
+        from .multihost import layout_grid
+
+        # every slab stacked here, or this rank's block of them; a rank
+        # builds the whole stack on the host and uploads its block
+        self.grid = g = layout_grid((n_devices, 1, 1), devices,
+                                    device=self.device)
+        self._bdev = g.build_device(self.device)
         self.eigs = []
 
-        S = n_devices
         if operator == "kron":
-            ops = dist_kron_cycle_ops(S, precision, sigma=self.sigma)
+            ops = dist_kron_cycle_ops(g, precision, sigma=self.sigma)
         elif operator == "kron_blocked":
-            ops = dist_kron_blocked_cycle_ops(S, precision, sigma=self.sigma)
+            ops = dist_kron_blocked_cycle_ops(g, precision, sigma=self.sigma)
         elif operator == "lattice":
-            ops = dist_lattice_cycle_ops(S, precision, sigma=self._ops_sigma)
+            ops = dist_lattice_cycle_ops(g, precision, sigma=self._ops_sigma)
         else:
-            ops = dist_cycle_ops(S, sigma=self._ops_sigma)
+            ops = dist_cycle_ops(g, sigma=self._ops_sigma)
         if coarse in ("fdm", "direct", "hmg"):
-            gather, unslice = slab_coarse_hooks(self.part, self.degrees[0])
+            gather, unslice = slab_coarse_hooks(self.part, self.degrees[0],
+                                                grid=g)
             ops = dict(ops, coarse_gather=gather, coarse_slice=unslice)
         self._ops = ops
 
         level_data, levels = [], []
         for Pdeg in self.degrees:
-            lv = self._build_level(Pdeg)
+            lv = self._place(self._build_level(Pdeg))
             level = Level(P=Pdeg, ndofs=self.part.local_ndofs(Pdeg),
                           smoother_iters=smoother_iters,
                           shape=self.part.local_shape(Pdeg),
@@ -769,9 +820,9 @@ class DistPMG:
             levels.append(level)
         self.levels = tuple(levels)
         self.data = dict(levels=level_data,
-                         transfer=[self._build_transfer(Pc, Pf) for Pc, Pf
-                                   in zip(self.degrees[:-1],
-                                          self.degrees[1:])])
+                         transfer=[self._place(self._build_transfer(Pc, Pf))
+                                   for Pc, Pf in zip(self.degrees[:-1],
+                                                     self.degrees[1:])])
         if coarse == "direct":
             from ..solvers.pmg import dense_cholesky
 
@@ -785,11 +836,13 @@ class DistPMG:
             # unused on this branch.
             from .fdm_dist import make_fdm_dist
 
-            self.data["fdm"], _, ops["fdm_dist"] = make_fdm_dist(
+            fdm, spec, ops["fdm_dist"] = make_fdm_dist(
                 mesh, self.degrees[0], self.part,
-                (("x", S) if S > 1 else None, None, None), ("x",),
+                (("x", n_devices) if n_devices > 1 else None, None, None),
+                ("x",),
                 self.kappa_axes, dtype, precision=precision,
-                sigma=self.sigma, device=self.device)
+                sigma=self.sigma, device=self._bdev, grid=g)
+            self.data["fdm"] = self._place(fdm, spec)
         elif coarse == "fdm":
             from ..solvers.fdm import FastDiagonalizationSolver
 
@@ -835,11 +888,13 @@ class DistPMG:
                     "the multi-axis build_hmg_grid_general covers "
                     "the 1D-slab layout"
                 )
-            (levels, data, _, bottom, gather, unslice,
+            kw.update(device=self._bdev)
+            (levels, data, specs, bottom, gather, unslice,
              bottom_solve) = build_hmg_dist(
-                mesh, self.n_shards, P0, self.kappa_axes, self.dtype,
+                mesh, self.grid, P0, self.kappa_axes, self.dtype,
                 divisors=cfg.get("divisors"), **kw)
-            hmg_ops = dict(dist_kron_cycle_ops(self.n_shards, self.precision,
+            data = self._place(data, specs)
+            hmg_ops = dict(dist_kron_cycle_ops(self.grid, self.precision,
                                                sigma=self.sigma),
                            coarse_gather=gather, coarse_slice=unslice)
             if bottom_solve is not None:
@@ -864,15 +919,24 @@ class DistPMG:
     # -- setup -----------------------------------------------------------
 
     def _vshape(self, level):
-        """The working-layout shape of a vector on ``level``."""
+        """The working-layout shape of a vector on ``level`` (this rank's
+        slabs)."""
         if self._kron:
-            return (self.n_shards,) + tuple(level.shape)
-        return (self.n_shards * level.ndofs,)
+            return (self.grid.block[0],) + tuple(level.shape)
+        return (self.grid.block[0] * level.ndofs,)
+
+    def _place(self, data, spec=None):
+        """Set-up arrays built for the whole stack -> this grid's slabs on
+        the device (`StackedGrid.place` under ``spec``, default
+        `slab_level_spec`)."""
+        spec = slab_level_spec(data, self.n_shards) if spec is None else spec
+        return self.grid.place(data, spec, self.device)
 
     def _work(self, dup, Pdeg, dtype=None):
         """A host array in JAX's duplicated layout ``(S*npl, NY, NZ)`` ->
-        the working layout on the device (``(S, npl, NY, NZ)`` or flat)."""
-        t = torch.as_tensor(np.ascontiguousarray(dup), device=self.device)
+        the working layout on the build device (``(S, npl, NY, NZ)`` or
+        flat)."""
+        t = torch.as_tensor(np.ascontiguousarray(dup), device=self._bdev)
         if dtype is not None:
             t = t.to(dtype)
         if self._kron:
@@ -904,7 +968,7 @@ class DistPMG:
                                     self._line_axis, sigma=self.sigma),
                 mesh.lattice_shape(Pdeg), self._line_axis,
                 [part.axis_starts(Pdeg), None]), dtype=dtype,
-                device=self.device)
+                device=self._bdev)
         elif self._schwarz:
             lv["schwarz"] = self._slab_schwarz(Pdeg)
         if self._ops_sigma and not self._kron:
@@ -923,10 +987,10 @@ class DistPMG:
             G_cells, _ = geometry_factors_np(mesh, Pdeg,
                                              kappa=self._kappa_fold)
             tensor = lambda a: torch.tensor(a, dtype=dtype,
-                                            device=self.device)
+                                            device=self._bdev)
             lv.update(
                 dofmap=torch.tensor(part.local_dofmap(Pdeg),
-                                       dtype=torch.int64, device=self.device),
+                                       dtype=torch.int64, device=self._bdev),
                 G=tensor(G_cells), coeff=tensor(self._kc),
                 D=tensor(derivative_matrix(Pdeg)),
             )
@@ -955,7 +1019,7 @@ class DistPMG:
         _, mx_g = axis_stiffness_mass(mesh.nc[0], Pdeg, mesh.h_cells[0])
         mx_dup = duplicate_planes(mx_g, npl, S)
         if (operator or self.operator_kind) == "kron":
-            t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+            t = lambda a: torch.as_tensor(a, dtype=dtype, device=self._bdev)
             return dict(Kx=t(Kx), Ky=t(kax[1] * Ky), Kz=t(kax[2] * Kz),
                         mx=t(mx_dup), my=t(my), mz=t(mz))
         from ..ops.kron_blocked import (
@@ -974,7 +1038,7 @@ class DistPMG:
         kb = symmetrized_mats(
             (Kx_shards[0], kax[1] * Ky, kax[2] * Kz), (mx_dup[:npl], my, mz),
             dtype, None if fm is None else (fm[0][:npl], fm[1], fm[2]),
-            band=Pdeg, device=self.device)
+            band=Pdeg, device=self._bdev)
         sx = np.sqrt(mx_dup)
         sz = np.sqrt(mz)
         Ktx = np.zeros((S * npl, S * npl))
@@ -988,7 +1052,7 @@ class DistPMG:
             arrays.update(sxzm=np.outer(mxd * sx, fm[2] * sz),
                           mx2=mxd[:, None])
         kb.update({k: torch.as_tensor(v, dtype=dtype,
-                                      device=self.device).contiguous()
+                                      device=self._bdev).contiguous()
                    for k, v in arrays.items()})
         return dict(kb_mats=kb)
 
@@ -1002,10 +1066,10 @@ class DistPMG:
         part, mesh = self.part, self.mesh
         G_cells, _ = geometry_factors_np(mesh, Pdeg, kappa=self._kappa_fold)
         lv = lattice_mats((part.cells_per_shard_x, mesh.nc[1], mesh.nc[2]),
-                          Pdeg, dtype, self.device)
+                          Pdeg, dtype, self._bdev)
         lv["G"] = torch.as_tensor(geometry_to_qlattice(
             scale_G(G_cells, self._kc, self._kappa_fold), mesh.nc, Pdeg),
-            dtype=dtype, device=self.device)
+            dtype=dtype, device=self._bdev)
         return lv
 
     def _slab_schwarz(self, Pdeg):
@@ -1014,18 +1078,18 @@ class DistPMG:
 
         swg = build_schwarz_np(self.mesh, Pdeg, self._kappa_raw,
                                sigma=self.sigma)
-        return slab_schwarz(swg, self.part, Pdeg, self.dtype, self.device)
+        return slab_schwarz(swg, self.part, Pdeg, self.dtype, self._bdev)
 
     def _build_transfer(self, Pc, Pf):
         from ..fem.gll import interpolation_matrix_1d
         from ..ops.lattice import axis_interpolation_matrix
 
         part, mesh, dtype = self.part, self.mesh, self.dtype
-        t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=self._bdev)
         if self.operator_kind == "dofmap":
             dm = lambda P: torch.tensor(part.local_dofmap(P),
                                            dtype=torch.int64,
-                                           device=self.device)
+                                           device=self._bdev)
             return dict(
                 M1=t(interpolation_matrix_1d(Pc, Pf)),
                 dofmap_c=dm(Pc), dofmap_f=dm(Pf),
@@ -1054,17 +1118,17 @@ class DistPMG:
         return self._slabs(u, level, self.dtype)
 
     def _slabs(self, u, level, dtype):
-        """`to_dist` in ``dtype``."""
+        """`to_dist` in ``dtype`` (`StackedGrid.put_local`)."""
         Pdeg = self.degrees[level]
-        u = torch.as_tensor(u).to(device=self.device, dtype=dtype)
-        loc = self.grid.local_slices(u.reshape(self.mesh.lattice_shape(Pdeg)),
-                                     self.part.local_shape(Pdeg))
+        loc = self.grid.put_local(
+            torch.as_tensor(u).reshape(self.mesh.lattice_shape(Pdeg)),
+            self.part.local_shape(Pdeg), device=self.device, dtype=dtype)
         return loc.reshape(self._vshape(self.levels[level]))
 
     def from_dist(self, ud, level=-1):
         """The slab layout -> the global flat vector (a tensor on the
-        device)."""
-        six = _six(ud, self.n_shards, self.levels[level].shape)
+        device, on every rank)."""
+        six = _six(ud, self.grid.block[0], self.levels[level].shape)
         return self.grid.all_gather(six).reshape(-1)
 
     def load_state(self, data):
@@ -1173,14 +1237,15 @@ class DistPMG:
         once."""
         if getattr(self, "_apply64", None) is not None:
             return self._apply64
-        f64, S, Pf = torch.float64, self.n_shards, self.degrees[-1]
+        f64, S, Pf = torch.float64, self.grid.block[0], self.degrees[-1]
         fine = self.levels[-1]
         lv64 = dict(bc_marker=self.data["levels"][-1]["bc_marker"])
         if (getattr(self.mesh, "is_axis_aligned", True)
                 and self.kappa_axes is not None
                 and self._sigma_field is None):
-            lv64.update(self._kron_arrays(Pf, f64, operator="kron"))
-            raw = dist_kron_cycle_ops(S, sigma=self.sigma)["apply"]
+            lv64.update(self._place(self._kron_arrays(Pf, f64,
+                                                      operator="kron")))
+            raw = dist_kron_cycle_ops(self.grid, sigma=self.sigma)["apply"]
             if not self._kron:  # the general layout is flat
                 six = (S,) + tuple(fine.shape)
                 lv64["bc_marker"] = lv64["bc_marker"].reshape(six)
@@ -1188,14 +1253,16 @@ class DistPMG:
             else:
                 apply = lambda u: raw(lv64, u, fine)
         else:
-            lv64.update(self._lattice_arrays(Pf, f64))
+            arrays = self._lattice_arrays(Pf, f64)
             if self._ops_sigma:
                 from ..fem.assembly import general_shift_np
 
-                lv64["m3"] = self._work(self.part.to_dist(
+                arrays["m3"] = self._work(self.part.to_dist(
                     Pf, general_shift_np(self.mesh, Pf, self.sigma,
                                          self._sigma_field)[1]), Pf, f64)
-            raw = dist_lattice_cycle_ops(S, sigma=self._ops_sigma)["apply"]
+            lv64.update(self._place(arrays))
+            raw = dist_lattice_cycle_ops(self.grid,
+                                         sigma=self._ops_sigma)["apply"]
             apply = lambda u: raw(lv64, u, fine)
         self._apply64 = apply
         return apply
@@ -1226,7 +1293,7 @@ class DistPMG:
         norms = []
         for _ in range(num_cycles):
             r64 = b64 - apply64(u64)
-            rn = torch.sqrt(dist_inner_product(r64, r64, w64))
+            rn = torch.sqrt(self.grid.dot(r64, r64, w64))
             r = r64.to(self.dtype)
             u64 = u64 + self._vcycle(r, torch.zeros_like(r)).to(f64)
             norms.append(rn)

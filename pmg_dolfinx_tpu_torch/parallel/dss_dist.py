@@ -44,11 +44,12 @@ bit-planes) have no counterpart: the port's tables fold them in.
 solves ``cg`` (distributed), ``direct`` (the dense Cholesky of the global
 coarse matrix, gathered through ``psum``) and ``smoother``; a scalar,
 DG-0 or tensor kappa and a scalar sigma. As in JAX, a mesh without a DSS
-layout, ``coarse="amg"`` and a sigma field raise ValueError. Not ported
-here, each raising NotImplementedError naming its ROADMAP.md item:
-``devices=`` (the multi-process backend, item 10 (d)) and
-``precision="high"`` (item 1). JAX's ``pvary`` and ``make_mesh`` have no
-counterpart (no device mesh).
+layout, ``coarse="amg"`` and a sigma field raise ValueError. Across
+processes (``devices=``, `multihost`) each rank cuts its shards' tables
+and per-cell arrays from the host partition and the exchange's ``psum``
+adds the ranks' sums. Not ported here: ``precision="high"``
+(NotImplementedError naming ROADMAP.md item 1). JAX's ``pvary`` and
+``make_mesh`` have no counterpart (no device mesh).
 """
 
 import numpy as np
@@ -76,7 +77,6 @@ from ..solvers.pmg import (
     v_cycle,
 )
 from ..solvers.tridiag import lanczos_eigenvalue_estimates
-from .grid2d import StackedGrid
 
 _KINDS = (("face", 6), ("edge", 12), ("vert", 8))
 
@@ -364,7 +364,7 @@ def dss_exchange(y, t, meta, *, grid):
     if t["x_pos"].numel() == 0:
         return y
     buf = torch.where(t["x_ok"], y.index_select(0, t["x_pack"]), 0.0)
-    tot = grid.psum(buf.view(grid.shards + (-1,)))
+    tot = grid.psum(buf.view(grid.block + (-1,)))
     return y.index_copy_(0, t["x_pos"], tot.index_select(0, t["x_slot"]))
 
 
@@ -373,11 +373,12 @@ def dss_dist_cycle_ops(precision="highest", sigma=0.0, *, grid):
     layout: the single device's gather / cell contraction / scatter on the
     stacked tables, the shared-entity exchange after every overlap-add
     (apply, restrict and the Schwarz smoother's, through
-    ``dss_exchange``); ``grid`` the `StackedGrid` of the shards."""
+    ``dss_exchange``); ``grid`` the `StackedGrid` of the shards (or a
+    rank's `multihost.RankGrid`, whose block is the local shard count)."""
     from ..ops.kron_blocked import _check_precision
 
     _check_precision(precision)
-    S = grid.shards[0]
+    S = grid.block[0]
     exchange = lambda y, t, meta: dss_exchange(y, t, meta, grid=grid)
 
     def apply_op(lv, x, level):
@@ -417,8 +418,10 @@ class DSSDist:
     every shard stacked on one device (``device``, CUDA unless the caller
     asks for the CPU).
 
-    The JAX package's signature. ``n_devices`` is the number of stacked
-    shards (None: one shard). Coarse solvers: ``"cg"`` (fully
+    The JAX package's signature. ``n_devices`` is the number of shards
+    (None: one shard), stacked on ``device``, or with a process group up
+    spread over the ranks as `DistPMG`'s slabs are (``devices``: the rank
+    of each shard). Coarse solvers: ``"cg"`` (fully
     distributed), ``"direct"`` (the gathered dense Cholesky, solved once)
     or ``"smoother"``; smoothers: ``"cheb"`` (point Jacobi) or
     ``"schwarz"`` (cell-local blocks + exchange); ``kappa`` a scalar, a
@@ -453,10 +456,6 @@ class DSSDist:
             raise ValueError(
                 f"DSSDist smoother must be 'cheb' or 'schwarz', got "
                 f"{smoother!r}")
-        if devices is not None:
-            raise _todo("devices= (the multi-process torch.distributed "
-                        "backend; the port stacks every shard on one "
-                        "device)", "10 (d)")
         if precision == "high":
             raise _todo("precision='high' (bf16x3 products)", 1)
         if precision != "highest":
@@ -471,7 +470,14 @@ class DSSDist:
         self.degrees = tuple(int(p) for p in degrees)
         self.dtype = dtype
         self.device = torch.device(device)
-        self.grid = StackedGrid((S,))
+        from .multihost import layout_grid
+
+        # every shard stacked here, or this rank's block of them: a rank
+        # cuts its shards' tables and per-cell arrays on the host
+        self.grid = layout_grid((S, 1, 1), devices, device=self.device)
+        lo, nb = self.grid.origin[0], self.grid.block[0]
+        # this rank's rows of a stacked per-cell (S * ncl, ...) array
+        cells = lambda a: a[lo * self.part.ncl:(lo + nb) * self.part.ncl]
         self._kc, self._kappa_fold, _ = resolve_kappa_split(mesh, kappa)
         self.kappa_cells = (self._kappa_fold
                             if self._kappa_fold is not None else self._kc)
@@ -487,7 +493,7 @@ class DSSDist:
         self._vec = []     # per level: (l2g clamped, real, own pos, own l2g)
         level_data, levels = [], []
         for Pdeg in self.degrees:
-            t = part.tables(Pdeg)
+            t = self._tables(Pdeg)
             meta, ndl = t["meta"], t["ndl"]
             n = Pdeg + 1
             l2g = t["l2g"]
@@ -496,8 +502,8 @@ class DSSDist:
                                              kappa=self._kappa_fold)
             lv = stacked_tables(t, device=dev)
             lv.update(
-                G=tensor(part.per_cell(G_cells)),
-                coeff=tensor(part.per_cell(self._kc)),
+                G=tensor(cells(part.per_cell(G_cells))),
+                coeff=tensor(cells(part.per_cell(self._kc))),
                 D=tensor(derivative_matrix(Pdeg)),
                 bc_marker=torch.as_tensor(t["bc"].reshape(-1), device=dev),
                 weights=tensor(t["weights"].reshape(-1)),
@@ -506,10 +512,10 @@ class DSSDist:
             if self.sigma:
                 m3g = shifted_mass_np(mesh, Pdeg, None)
                 dg = dg + self.sigma * m3g
-                m3l = np.zeros((S, ndl))
+                m3l = np.zeros((nb, ndl))
                 m3l[sel] = np.where(t["bc"][sel], 0.0, m3g[l2g[sel]])
                 lv["m3"] = tensor(m3l.reshape(-1))
-            dl = np.ones((S, ndl))
+            dl = np.ones((nb, ndl))
             dl[sel] = np.where(t["bc"][sel], 1.0, dg[l2g[sel]])
             lv["diag_inv"] = tensor(1.0 / dl.reshape(-1))
             if smoother == "schwarz":
@@ -518,11 +524,12 @@ class DSSDist:
                 sw = build_schwarz_dss(mesh, Pdeg, kappa, dtype,
                                        sigma=self.sigma, device="cpu")
                 # w from the GLOBAL multiplicity through l2g (0 on padding)
-                wl = np.zeros((S, ndl))
+                wl = np.zeros((nb, ndl))
                 wl[sel] = sw["w"].double().numpy()[l2g[sel]]
                 lv["schwarz"] = dict(
-                    V=tensor(part.per_cell(sw["V"].double().numpy())),
-                    ginv=tensor(part.per_cell(sw["ginv"].double().numpy())),
+                    V=tensor(cells(part.per_cell(sw["V"].double().numpy()))),
+                    ginv=tensor(cells(part.per_cell(
+                        sw["ginv"].double().numpy()))),
                     w=tensor(wl.reshape(-1)), bc=lv["bc_marker"])
             level = Level(P=Pdeg, ndofs=ndl, smoother_iters=smoother_iters,
                           dss=meta)
@@ -534,7 +541,7 @@ class DSSDist:
             # Smoother calibration as JAX runs it distributed: recorded CG
             # on A x = 1 from 0, preconditioned as the smoother is,
             # Lanczos, lmax inflated by 1.1.
-            ones = tensor(part.to_dist(Pdeg, np.ones(mesh.num_dofs(Pdeg))))
+            ones = tensor(sel.reshape(-1).astype(np.float64))
             _, info = cg_solve(
                 lambda x, _lv=lv, _level=level: ops["apply"](_lv, x, _level),
                 ones, torch.zeros_like(ones), lv["diag_inv"],
@@ -555,7 +562,7 @@ class DSSDist:
         transfer = []
         for i in range(len(self.degrees) - 1):
             Pc, Pf = self.degrees[i], self.degrees[i + 1]
-            tf = part.tables(Pf)
+            tf = self._tables(Pf)
             sel = tf["l2g"] >= 0
             inv_mult = np.zeros(sel.shape)
             inv_mult[sel] = 1.0 / np.asarray(
@@ -573,12 +580,23 @@ class DSSDist:
                 mesh, self.degrees[0], self.kappa_cells, self.sigma))
             ops["coarse_gather"], ops["coarse_slice"] = self._coarse_hooks()
 
+    def _tables(self, Pdeg):
+        """`DSSPartition.tables` of the grid's shards: the per-shard
+        arrays and local layouts cut to its block (all of them when every
+        shard is stacked here)."""
+        t = self.part.tables(Pdeg)
+        cut = slice(self.grid.origin[0],
+                    self.grid.origin[0] + self.grid.block[0])
+        return dict(t, layouts=t["layouts"][cut], l2g=t["l2g"][cut],
+                    weights=t["weights"][cut], bc=t["bc"][cut],
+                    xslot=t["xslot"][cut])
+
     def _coarse_hooks(self):
         """``coarse_gather``: the owned coarse values written (each dof has
         one owner) into each shard's row of a global coarse buffer, then
         `StackedGrid.psum`; ``coarse_slice``: every shard's local values
         of the global coarse vector (padding reads dof 0, as in JAX)."""
-        S = self.n_shards
+        S = self.grid.block[0]
         nd0 = self.mesh.num_dofs(self.degrees[0])
         l2g0, _, own, own_g = self._vec[0]
         ndl0 = self.levels[0].ndofs
@@ -588,7 +606,7 @@ class DSSDist:
         def coarse_gather(v):
             buf = v.new_zeros(S * nd0)
             buf.index_copy_(0, flat, v.index_select(0, own))
-            return grid.psum(buf.view(grid.shards + (nd0,)))
+            return grid.psum(buf.view(grid.block + (nd0,)))
 
         def coarse_slice(g):
             return g.index_select(0, l2g0)
@@ -607,15 +625,22 @@ class DSSDist:
         """A global flat vector (numpy or tensor) -> the stacked layout
         ``(S * ndl,)`` on the device in the working dtype (0 on padding)."""
         l2g, real, _, _ = self._vec[level]
-        u = torch.as_tensor(u).to(device=self.device, dtype=self.dtype)
-        return torch.where(real, u.reshape(-1).index_select(0, l2g), 0.0)
+        # the local values gathered on the build device (a rank: the
+        # host), then uploaded
+        u = torch.as_tensor(u).reshape(-1).to(
+            self.grid.build_device(self.device))
+        loc = u.index_select(0, l2g.to(u.device)).to(device=self.device,
+                                                     dtype=self.dtype)
+        return torch.where(real, loc, 0.0)
 
     def from_dist(self, ud, level=-1):
         """The stacked layout -> the global flat vector (each dof from its
-        owner), a tensor on the device."""
+        owner), a tensor on the device, on every rank (a rank's owned
+        values summed with the others' zeros: exact)."""
         _, _, own, own_g = self._vec[level]
         out = ud.new_zeros(self.mesh.num_dofs(self.degrees[level]))
-        return out.index_copy_(0, own_g, ud.index_select(0, own))
+        out.index_copy_(0, own_g, ud.index_select(0, own))
+        return self.grid.psum(out[None, None, None])
 
     def load_state(self, data):
         """Overwrite the level, transfer and coarse arrays (the calibrated

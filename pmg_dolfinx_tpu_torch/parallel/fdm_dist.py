@@ -25,12 +25,14 @@ whether or not it holds a global boundary plane. Results equal the
 single-device `fdm_solve` to rounding: the embedded zeros only add exact
 zero terms to the same sums.
 
-Layout. The port stacks every shard on one device (`grid2d.StackedGrid`):
-a distributed lattice is ONE tensor ``(sx, sy, sz, nplx, nply, nplz)`` (a
-slab of `DistPMG` is the same memory as ``(S, npl, NY, NZ)``). Every
-transpose goes through `StackedGrid.all_to_all`, the one seam a
-multi-process backend replaces; two per sharded axis per sweep, at most
-12 per solve. No path here gathers the lattice. The host data are float64
+Layout. The port stacks every shard on one device (`grid2d.StackedGrid`),
+or each rank's block of them (`multihost.RankGrid`): a distributed lattice
+is ONE tensor ``(sx, sy, sz, nplx, nply, nplz)`` (the block's leading
+shape on a rank; a slab of `DistPMG` is the same memory as ``(S, npl, NY,
+NZ)``). Every transpose goes through the solver's grid's `all_to_all`
+(never a grid made from a tensor's shape, which on a rank would keep the
+transpose inside it); two per sharded axis per sweep, at most 12 per
+solve. No path here gathers the lattice. The host data are float64
 numpy, as in the JAX package; the contractions are `torch.einsum` (TF32
 off, as everywhere in the port).
 """
@@ -86,13 +88,13 @@ def _shards_of(axes_spec):
     return tuple(1 if spec is None else int(spec[1]) for spec in axes_spec)
 
 
-def _transform_sharded(x, M, dim, axis_name, n_sh, precision):
+def _transform_sharded(x, M, dim, axis_name, n_sh, precision, *, grid):
     """Per-axis transform along a sharded lattice axis of the stacked
-    ``x``: transpose in (all_to_all), dedup, contract, redup, transpose
-    out."""
-    from .grid2d import AXES, StackedGrid
+    ``x`` (``grid``'s block): transpose in (all_to_all across the whole
+    row of shards, other ranks' included), dedup, contract, redup,
+    transpose out."""
+    from .grid2d import AXES
 
-    grid = StackedGrid(tuple(x.shape[:3]))
     d = 3 + dim
     npl = x.shape[d]
     # Buddy = the longest other LOCAL axis (least relative zero-padding).
@@ -114,14 +116,16 @@ def _transform_sharded(x, M, dim, axis_name, n_sh, precision):
     return x
 
 
-def _axis_transform(x, M, dim, spec, precision):
+def _axis_transform(x, M, dim, spec, precision, *, grid):
     if spec is None:  # lattice axis unsharded: plain local contraction
         return torch.einsum(_AXIS_EINSUM[dim], M, x)
     axis_name, n_sh = spec
-    return _transform_sharded(x, M, dim, axis_name, n_sh, precision)
+    return _transform_sharded(x, M, dim, axis_name, n_sh, precision,
+                              grid=grid)
 
 
-def fdm_solve_dist(fd, b, local_shape, axes_spec, precision="highest"):
+def fdm_solve_dist(fd, b, local_shape, axes_spec, precision="highest", *,
+                   grid=None):
     """Exact solve ``u = A^{-1} b`` on the stacked layout
     (shape-preserving).
 
@@ -131,16 +135,22 @@ def fdm_solve_dist(fd, b, local_shape, axes_spec, precision="highest"):
     n_shards)``. ``b`` is any tensor holding the stacked lattice (the
     grid's six dimensions, a slab's ``(S, npl, NY, NZ)`` or flat); the
     output has its shape, with ``u[bc] = b[bc]`` identity rows as every
-    backend. ``precision`` is the JAX package's ('highest' only)."""
+    backend. ``precision`` is the JAX package's ('highest' only).
+    ``grid`` is the layout's communication object (default: every shard
+    of ``axes_spec`` stacked here; a rank's `multihost.RankGrid`, whose
+    block is the leading shape of ``b``)."""
     from ..ops.kron_blocked import _check_precision
+    from .grid2d import StackedGrid
 
     _check_precision(precision)
-    x = b.reshape(_shards_of(axes_spec) + tuple(local_shape))
+    if grid is None:
+        grid = StackedGrid(_shards_of(axes_spec))
+    x = b.reshape(grid.block + tuple(local_shape))
     for dim, M in enumerate((fd["Vxt"], fd["Vyt"], fd["Vzt"])):
-        x = _axis_transform(x, M, dim, axes_spec[dim], precision)
+        x = _axis_transform(x, M, dim, axes_spec[dim], precision, grid=grid)
     x = x * fd["dinv"]
     for dim, M in enumerate((fd["Vx"], fd["Vy"], fd["Vz"])):
-        x = _axis_transform(x, M, dim, axes_spec[dim], precision)
+        x = _axis_transform(x, M, dim, axes_spec[dim], precision, grid=grid)
     return torch.where(fd["bc"].reshape(b.shape), b, x.reshape(b.shape))
 
 
@@ -185,7 +195,7 @@ def _axis_data(mesh, faces, kax, Pdeg, forward):
 
 
 def _bundle(mesh, Pdeg, part, axes_spec, kappa, dtype, precision, sigma,
-            device, forward):
+            device, forward, *, grid=None):
     from ..fem.mesh import require_axis_aligned
     from ..ops.kron_blocked import _check_precision
 
@@ -227,7 +237,8 @@ def _bundle(mesh, Pdeg, part, axes_spec, kappa, dtype, precision, sigma,
         bc=_stacked(part, Pdeg, part.to_dist(Pdeg, bc), None, device) > 0.5,
     )
     solve = partial(fdm_solve_dist, local_shape=tuple(part.local_shape(Pdeg)),
-                    axes_spec=tuple(axes_spec), precision=precision)
+                    axes_spec=tuple(axes_spec), precision=precision,
+                    grid=grid)
     return data, solve
 
 
@@ -239,7 +250,7 @@ def _spec(lat_spec):
 
 
 def make_fdm_dist(mesh, Pdeg, part, axes_spec, lat_spec, kappa, dtype,
-                  precision="highest", sigma=0.0, *, device):
+                  precision="highest", sigma=0.0, *, device, grid=None):
     """The distributed-FDM bundle of one partition layout.
 
     ``part`` is a `SlabPartition` or `GridPartition`, ``axes_spec`` the
@@ -248,34 +259,36 @@ def make_fdm_dist(mesh, Pdeg, part, axes_spec, lat_spec, kappa, dtype,
     slab, ``("x", "y", "z")`` on grids; `dist_layout`). Returns ``(data,
     spec, solve)``: the tensors on ``device``, their layout tree and
     ``solve(fd, b)``, the hook `v_cycle` takes as ``ops["fdm_dist"]`` (or
-    a whole-problem direct solve)."""
+    a whole-problem direct solve), communicating through ``grid`` (default:
+    every shard stacked here). The tensors are the whole stack; a rank
+    takes its block by ``spec`` (`multihost.put_tree`)."""
     data, solve = _bundle(mesh, Pdeg, part, axes_spec, kappa, dtype,
-                          precision, sigma, device, forward=False)
+                          precision, sigma, device, forward=False, grid=grid)
     return data, _spec(lat_spec), solve
 
 
-def dist_layout(mesh, shards, devices=None):
+def dist_layout(mesh, shards, devices=None, *, device="cuda"):
     """Resolve ``shards`` (int = x-slab, 3-tuple = device grid) to the
     layout quadruple ``(part, grid, axes_spec, lat_spec)`` of `DistFDM` and
-    the forward-apply bundles: the partition, the `StackedGrid` that holds
-    every shard on one device (in place of JAX's device mesh), the
+    the forward-apply bundles: the partition, the communication object (in
+    place of JAX's device mesh: the `StackedGrid` that holds every shard
+    on ``device``, or with a process group up this rank's
+    `multihost.RankGrid` over the ranks ``devices`` names), the
     per-lattice-axis spec and the grid axes a lattice is stacked over."""
-    from .grid2d import AXES, GridPartition, StackedGrid, _norm_shards
+    from .grid2d import AXES, GridPartition, _norm_shards
+    from .multihost import layout_grid
     from .partition import SlabPartition
 
-    if devices is not None:
-        raise _todo("devices= (the multi-process torch.distributed backend; "
-                    "the port stacks every shard on one device)", "10 (d)")
     if np.ndim(shards) == 0:
         n = int(shards)
         part = SlabPartition(mesh, n)
-        grid = StackedGrid((n, 1, 1))
+        grid = layout_grid((n, 1, 1), devices, device=device)
         axes_spec = (("x", n) if n > 1 else None, None, None)
         lat_spec = ("x",)
     else:
         sh = _norm_shards(shards)
         part = GridPartition(mesh, sh)
-        grid = StackedGrid(sh)
+        grid = layout_grid(sh, devices, device=device)
         axes_spec = tuple((AXES[a], sh[a]) if sh[a] > 1 else None
                           for a in range(3))
         lat_spec = AXES
@@ -283,7 +296,8 @@ def dist_layout(mesh, shards, devices=None):
 
 
 def make_fdm_apply_dist(mesh, Pdeg, part, axes_spec, lat_spec, kappa,
-                        dtype, precision="highest", sigma=0.0, *, device):
+                        dtype, precision="highest", sigma=0.0, *, device,
+                        grid=None):
     """FORWARD operator bundle ``A = (⊗ M V) diag(d) (⊗ V^T M)`` (``V^T M V
     = I``): the solve's pencil transposes with mass-weighted eigenvector
     matrices and the eigenvalue sums themselves. Returns ``(data, spec,
@@ -291,7 +305,8 @@ def make_fdm_apply_dist(mesh, Pdeg, part, axes_spec, lat_spec, kappa,
     embedded zero rows give the operator's masked input and identity rows
     through the same epilogue). The sharded leapfrog's apply."""
     data, apply_fn = _bundle(mesh, Pdeg, part, axes_spec, kappa, dtype,
-                             precision, sigma, device, forward=True)
+                             precision, sigma, device, forward=True,
+                             grid=grid)
     return data, _spec(lat_spec), apply_fn
 
 
@@ -304,9 +319,11 @@ class DistFDM:
     The sharded counterpart of `solvers.fdm.FastDiagonalizationSolver`:
     ``shards`` is an int (x-slab layout) or a 3-tuple (device grid); a
     solve is six per-axis contractions with pencil transposes on the
-    sharded axes. ``devices=`` keeps its slot (ROADMAP.md Queue 1 item 10
-    (d)). Vectors in and out of `solve` are global flat vectors (numpy or
-    tensors in, a tensor on ``device`` out)."""
+    sharded axes. With a process group up the shards span the ranks
+    (``devices``: `multihost.rank_layout`), each rank building the whole
+    stack on the host and uploading its block. Vectors in and out of
+    `solve` are global flat vectors (numpy or tensors in, a tensor on
+    ``device`` out, on every rank)."""
 
     def __init__(self, mesh, Pdeg, shards, kappa=2.0, dtype=torch.float32,
                  precision="highest", sigma=0.0, devices=None, *,
@@ -318,20 +335,23 @@ class DistFDM:
         self.dtype = dtype
         self.device = torch.device(device)
         self.part, self.grid, axes_spec, lat_spec = dist_layout(
-            mesh, shards, devices=devices)
-        self.data, self._spec, solve = make_fdm_dist(
+            mesh, shards, devices=devices, device=self.device)
+        data, self._spec, solve = make_fdm_dist(
             mesh, self.P, self.part, axes_spec, lat_spec, kappa, dtype,
-            precision=precision, sigma=sigma, device=self.device)
+            precision=precision, sigma=sigma,
+            device=self.grid.build_device(self.device), grid=self.grid)
+        self.data = self.grid.place(data, self._spec, self.device)
         self._lat_spec = lat_spec
         self._axes_spec = tuple(axes_spec)
         self._solve_local = solve   # the hook (fd, b) on the stacked layout
 
     def to_dist(self, u):
-        """A global flat vector -> the stacked layout on the device, in the
-        working dtype."""
-        u = torch.as_tensor(u).to(device=self.device, dtype=self.dtype)
-        return self.grid.local_slices(u.reshape(self.mesh.lattice_shape(
-            self.P)), self.part.local_shape(self.P))
+        """A global flat vector -> the stacked layout (this rank's block)
+        on the device, in the working dtype."""
+        return self.grid.put_local(
+            torch.as_tensor(u).reshape(self.mesh.lattice_shape(self.P)),
+            self.part.local_shape(self.P), device=self.device,
+            dtype=self.dtype)
 
     def from_dist(self, ud):
         """The stacked layout -> the global flat vector (a tensor)."""

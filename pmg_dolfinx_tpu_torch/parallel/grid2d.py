@@ -1,4 +1,5 @@
-"""2D/3D device-grid decomposition, every shard stacked on one device.
+"""2D/3D device-grid decomposition, every shard stacked on one device (or,
+across processes, each rank's block of shards on its device).
 
 Port of `pmg_dolfinx_tpu.parallel.grid2d`. The lattice is split into
 ``(sx, sy, sz)`` boxes (any factor may be 1) with the interface planes
@@ -49,12 +50,20 @@ transposes (`StackedGrid.all_to_all`) and ``hmg`` through
 family), every h-level in the stacked layout. `GridPMG.solve_refined`
 runs on every backend.
 
+Across processes. With a process group up (`multihost.initialize`)
+``devices=None`` spans every rank and an explicit ``devices=`` names the
+rank of each shard (`multihost.rank_layout`): each rank holds a box of
+shards, the seam is its `multihost.RankGrid` and the stacked program is
+unchanged, every caller reading the local shard counts from
+``grid.block``. The set-up arrays are built for the whole stack on the
+host and each rank uploads its block (`GridPMG._place`, by
+`grid_level_spec` or the builders' specs).
+
 As in JAX, a per-cell or off-diagonal tensor kappa on the Kronecker
-family raises ValueError. Not ported here, each raising
-NotImplementedError naming its ROADMAP.md item: ``devices`` (the
-multi-process backend, item 10 (d)) and ``precision="high"`` (item 1).
-The 1D slab (`parallel.dist.DistPMG`) goes through the same seam with
-``shards=(S, 1, 1)``.
+family raises ValueError. Not ported here: ``precision="high"``
+(NotImplementedError naming ROADMAP.md item 1). The 1D slab
+(`parallel.dist.DistPMG`) goes through the same seam with ``shards=(S, 1,
+1)``.
 """
 
 import numpy as np
@@ -202,17 +211,38 @@ class StackedGrid:
     ``dynamic_slice`` of a global lattice at its ``axis_index``) and
     `all_to_all` (the pencil transpose of `fdm_dist`).
 
-    This object is the port's one seam for communication. A multi-process
-    backend (``torch.distributed``, one rank per shard) holds a ``(1, 1, 1,
-    nplx, nply, nplz)`` block per rank and replaces only this object: a
-    neighbour send/receive for `ppermute_planes`, an ``all_reduce`` for
-    `dot` and `psum`, an ``all_gather`` for `all_gather`, its own block
-    for `local_slices`, an ``all_to_all_single`` for `all_to_all`. Every
-    caller stays as it is.
+    This object is the port's one seam for communication. Its ``block``
+    (the leading shape of the tensors it takes) is the whole grid and its
+    ``origin`` the first shard; the multi-process backend,
+    `multihost.RankGrid`, holds one rank's box of shards and adds the
+    cross-rank half of each method (a neighbour send/receive, an
+    ``all_reduce``, an ``all_gather``, an ``all_to_all_single``). Every
+    caller reads the local leading shape from ``block``, and places its
+    set-up arrays and input vectors through `build_device`, `place` and
+    `put_local`, which decide where the whole stack is built and cut.
     """
 
     def __init__(self, shards):
-        self.shards = _norm_shards(shards)
+        self.shards = self.block = _norm_shards(shards)
+        self.origin = (0, 0, 0)
+
+    def build_device(self, device):
+        """Where a solver on ``device`` builds its whole-stack set-up
+        arrays: ``device`` itself, since every shard lives there."""
+        return torch.device(device)
+
+    def place(self, tree, spec, device):
+        """Set-up arrays built for the whole stack on `build_device` ->
+        this grid's shards on ``device``: here the same arrays. ``spec``
+        (their layout tree, `multihost.take_block`'s) is what a rank's
+        grid cuts its block by."""
+        return tree
+
+    def put_local(self, lat, local_shape, *, device, dtype):
+        """A global lattice (numpy or a tensor) -> `local_slices` on
+        ``device`` in ``dtype``: uploaded whole, then cut there."""
+        lat = torch.as_tensor(lat).to(device=device, dtype=dtype)
+        return self.local_slices(lat, local_shape)
 
     def ppermute_planes(self, first, last, axis):
         """Non-wrapping ``ppermute`` along grid axis ``axis`` of per-shard
@@ -220,7 +250,7 @@ class StackedGrid:
         from_right)`` with ``from_left[s] = last[s - 1]`` and
         ``from_right[s] = first[s + 1]``, zeros at the chain ends. Both
         are new tensors: the planes are read before anyone adds them."""
-        S = self.shards[axis]
+        S = self.block[axis]
         from_left = torch.zeros_like(last)
         from_right = torch.zeros_like(first)
         if S > 1:
@@ -256,8 +286,12 @@ class StackedGrid:
 
     def local_slices(self, lat, local_shape):
         """Each shard's block of a global lattice (JAX's ``dynamic_slice``
-        at ``axis_index * (npl - 1)`` per sharded axis), stacked."""
+        at ``axis_index * (npl - 1)`` per sharded axis), stacked: the
+        shards of ``block`` from ``origin``."""
         nx, ny, nz = local_shape
+        lat = lat[tuple(slice(o * (n - 1), (o + b) * (n - 1) + 1)
+                        for o, b, n in zip(self.origin, self.block,
+                                           local_shape))]
         blocks = (lat.unfold(0, nx, nx - 1).unfold(1, ny, ny - 1)
                   .unfold(2, nz, nz - 1))
         return blocks.contiguous()
@@ -270,11 +304,9 @@ class StackedGrid:
         ``j`` of its row along ``axis``, which concatenates what it
         receives along its local ``concat_axis`` in sender order. Swapping
         the two axes undoes it. Here it is one exact permute-and-reshape
-        copy of the shard axes; a multi-process backend replaces it with
-        ``torch.distributed.all_to_all_single`` over the ranks of that row
-        (the send buffer cut along ``split_axis``, the receive buffer
-        reassembled along ``concat_axis``). Returns a new contiguous
-        tensor."""
+        copy of the shard axes (`multihost.RankGrid` adds one
+        ``all_to_all_single`` over the ranks of that row). Returns a new
+        contiguous tensor."""
         S = self.shards[axis]
         if S == 1:
             return st
@@ -346,6 +378,14 @@ def _stacked_contract(M, t, dim):
     return torch.einsum(eq[dim], M, t)
 
 
+def _grid_of(shards):
+    """The layout a factory's ``shards`` slot names: JAX's shard counts
+    (every shard stacked here, `StackedGrid`) or the solver's own grid (a
+    `StackedGrid` or a rank's `multihost.RankGrid`), whose ``block`` is
+    the leading shape of the tensors it takes."""
+    return shards if isinstance(shards, StackedGrid) else StackedGrid(shards)
+
+
 def _grid_common_ops(shards, precision):
     """The backend-independent V-cycle primitives on the box partition:
     transfers (ownership-weighted restriction with one exchange per
@@ -354,7 +394,7 @@ def _grid_common_ops(shards, precision):
     from ..ops.kron_blocked import _check_precision
 
     _check_precision(precision)
-    grid = StackedGrid(shards)
+    grid = _grid_of(shards)
 
     def restrict_op(tr, r, level_c, level_f):
         lat = r * tr["weights_f"]
@@ -379,7 +419,7 @@ def _grid_common_ops(shards, precision):
         restrict=restrict_op, prolong=prolong_op,
         dot=lambda u, v, lv: grid.dot(u, v, lv["weights"]),
         zeros=lambda level, like: torch.zeros(
-            grid.shards + tuple(level.shape), dtype=like.dtype,
+            grid.block + tuple(level.shape), dtype=like.dtype,
             device=like.device),
         exchange=exchange,
     )
@@ -398,12 +438,13 @@ def grid_kron_cycle_ops(shards, precision="highest", sigma=0.0):
     """V-cycle primitives on the box partition, plain torch Kronecker-sum
     apply: the symmetrized form ``A = S (Kt_x ⊕ Kt_y ⊕ Kt_z) S`` per
     shard (batched over the shard axes), each term reconciled by one
-    exchange along its own axis; stacked lattice vectors throughout."""
-    shards = _norm_shards(shards)
-    grid = StackedGrid(shards)
+    exchange along its own axis; stacked lattice vectors throughout.
+    ``shards`` may be the solver's grid (`_grid_of`); the local shard
+    counts are its ``block``."""
+    grid = _grid_of(shards)
 
     def apply_op(lv, x, level):
-        (Sx, Sy, Sz), (nx, ny, nz) = shards, level.shape
+        (Sx, Sy, Sz), (nx, ny, nz) = grid.block, level.shape
         Ktx, sx = _local_axis_factors(lv["Kx"], lv["mx"], Sx, nx)
         Kty, sy = _local_axis_factors(lv["Ky"], lv["my"], Sy, ny)
         Ktz, sz = _local_axis_factors(lv["Kz"], lv["mz"], Sz, nz)
@@ -424,7 +465,7 @@ def grid_kron_cycle_ops(shards, precision="highest", sigma=0.0):
             t = t + sigma * w
         return torch.where(lv["bc_marker"], x, t * s3)
 
-    return dict(_grid_common_ops(shards, precision), apply=apply_op)
+    return dict(_grid_common_ops(grid, precision), apply=apply_op)
 
 
 def grid_kron_blocked_cycle_ops(shards, precision="highest", sigma=0.0):
@@ -438,8 +479,8 @@ def grid_kron_blocked_cycle_ops(shards, precision="highest", sigma=0.0):
     kernel 2. Transfers and dots are `_grid_common_ops`."""
     from ..ops.kron_blocked import blocked_kron_apply_grid
 
-    shards = _norm_shards(shards)
-    grid = StackedGrid(shards)
+    grid = _grid_of(shards)
+    shards = grid.shards
     # kernel 1's output is the entry point's own tensor: reconcile in place
     ex_x = ((lambda t1: _exchange_axis(t1, grid, 0, inplace=True))
             if shards[0] > 1 else None)
@@ -460,7 +501,7 @@ def grid_kron_blocked_cycle_ops(shards, precision="highest", sigma=0.0):
             blocks=lv.get("kb_blocks"),
         )
 
-    return dict(_grid_common_ops(shards, "highest"), apply=apply_op,
+    return dict(_grid_common_ops(grid, "highest"), apply=apply_op,
                 residual=residual_op)
 
 
@@ -477,7 +518,7 @@ def _general_apply(raw, shards, sigma):
     on), then the pointwise shift ``sigma * m3 * x`` (``m3`` bc-zeroed,
     a sigma field and the Robin boundary mass baked in) and the Dirichlet
     rows."""
-    grid = StackedGrid(shards)
+    grid = _grid_of(shards)
 
     def apply_op(lv, x, level):
         y = raw(lv, x, level)
@@ -502,15 +543,15 @@ def grid_lattice_cycle_ops(shards, precision="highest", sigma=0.0):
     from ..ops.lattice import lattice_laplacian_apply
 
     _check_precision(precision)
-    shards = _norm_shards(shards)
+    grid = _grid_of(shards)
 
     def raw(lv, x, level):
         return lattice_laplacian_apply(
             x, {k: lv[k] for k in _LATTICE_MATS}, lv["G"], lv["bc_marker"],
             apply_bc=False)
 
-    return dict(_grid_common_ops(shards, precision),
-                apply=_general_apply(raw, shards, sigma))
+    return dict(_grid_common_ops(grid, precision),
+                apply=_general_apply(raw, grid, sigma))
 
 
 def grid_lattice_blocked_cycle_ops(shards, precision="highest", sigma=0.0):
@@ -522,9 +563,10 @@ def grid_lattice_blocked_cycle_ops(shards, precision="highest", sigma=0.0):
     `grid_lattice_cycle_ops`."""
     from ..ops.lattice_blocked import blocked_lattice_apply
 
-    shards = _norm_shards(shards)
-    idx = [(i, j, k) for i in range(shards[0]) for j in range(shards[1])
-           for k in range(shards[2])]
+    grid = _grid_of(shards)
+    block = grid.block
+    idx = [(i, j, k) for i in range(block[0]) for j in range(block[1])
+           for k in range(block[2])]
 
     def raw(lv, x, level):
         nc = tuple((N - 1) // level.P for N in level.shape)
@@ -534,8 +576,8 @@ def grid_lattice_blocked_cycle_ops(shards, precision="highest", sigma=0.0):
             level.P, precision=precision, apply_bc=False) for s in idx])
         return y.reshape(x.shape)
 
-    return dict(_grid_common_ops(shards, precision),
-                apply=_general_apply(raw, shards, sigma))
+    return dict(_grid_common_ops(grid, precision),
+                apply=_general_apply(raw, grid, sigma))
 
 
 def grid_dofmap_cycle_ops(shards, sigma=0.0):
@@ -549,8 +591,8 @@ def grid_dofmap_cycle_ops(shards, sigma=0.0):
     from ..ops.laplacian import laplacian_scatter_raw
     from .dist import _stacked_dofmap
 
-    shards = _norm_shards(shards)
-    S = shards[0] * shards[1] * shards[2]
+    grid = _grid_of(shards)
+    S = grid.block[0] * grid.block[1] * grid.block[2]
 
     def raw(lv, x, level):
         G = lv["G"]
@@ -560,16 +602,17 @@ def grid_dofmap_cycle_ops(shards, sigma=0.0):
             lv["D"], lv["bc_marker"].reshape(-1))
         return y.reshape(x.shape)
 
-    return dict(_grid_common_ops(shards, "highest"),
-                apply=_general_apply(raw, shards, sigma))
+    return dict(_grid_common_ops(grid, "highest"),
+                apply=_general_apply(raw, grid, sigma))
 
 
-def grid_coarse_hooks(part, P0):
+def grid_coarse_hooks(part, P0, *, grid=None):
     """Gather/slice hooks of the global coarse solve on the box partition:
     ``coarse_gather`` takes the stacked coarse vector to the global
     lattice (the duplicated interface planes stripped), ``coarse_slice``
-    a global lattice (or flat vector) back to the stacked layout."""
-    grid = StackedGrid(part.shards)
+    a global lattice (or flat vector) back to the stacked layout (this
+    rank's block on a `multihost.RankGrid`)."""
+    grid = _grid_of(part.shards if grid is None else grid)
     npls = part.local_shape(P0)
     glob = part.mesh.lattice_shape(P0)
 
@@ -640,11 +683,15 @@ def _hmg_grid_scaffold(mesh, shards, P0, dtype, smoother_iters,
     graded axis) and the bottom-solve hooks. The backend's
     operator arrays come from ``fill_level(lv, spec, m, p_l, g_lv)``.
     ``bottom_fdm`` (kwargs of `make_fdm_dist`) makes the bottom the
-    distributed FDM, so the hierarchy never gathers."""
+    distributed FDM, so the hierarchy never gathers. The arrays are the
+    whole stack on ``device``; when ``shards`` is a rank's grid
+    (`_grid_of`) the bottom-solve hooks communicate through it, and the
+    caller cuts the rank's block from the arrays by ``specs``."""
     from ..solvers.hmg import local_axis_h_interpolation
     from .dist import _hmg_sizes
 
-    shards = _norm_shards(shards)
+    grid = _grid_of(shards)
+    shards = grid.shards
     # The hierarchy's DEPTH depends on the alignment constraint:
     # ``divisors`` (coarse_cfg['divisors']) pins one constraint across
     # layouts (the largest of a scaling sweep), so trajectories stay
@@ -739,9 +786,9 @@ def _hmg_grid_scaffold(mesh, shards, P0, dtype, smoother_iters,
             meshes[0], P0, parts[0],
             tuple((AXES[a], shards[a]) if shards[a] > 1 else None
                   for a in range(3)),
-            AXES, dtype=dtype, device=device, **bottom_fdm)
+            AXES, dtype=dtype, device=device, grid=grid, **bottom_fdm)
         g_bottom = "fdm"
-    hmg_gather, hmg_slice = grid_coarse_hooks(parts[0], P0)
+    hmg_gather, hmg_slice = grid_coarse_hooks(parts[0], P0, grid=grid)
     return (tuple(levels), data, specs, g_bottom, hmg_gather, hmg_slice,
             bottom_solve)
 
@@ -772,7 +819,7 @@ def build_hmg_grid(mesh, shards, P0, kappa, dtype, smoother_iters=2,
     kax = resolve_kappa_axes(mesh, kappa)
     line_axis = (None if smoother == "schwarz" else parse_line_smoother(
         smoother, mesh, np.diag(kax),
-        allowed=tuple(a for a, sh in enumerate(_norm_shards(shards))
+        allowed=tuple(a for a, sh in enumerate(_grid_of(shards).shards)
                       if sh == 1)))
 
     def global_build(sizes):
@@ -837,7 +884,8 @@ def build_hmg_grid_general(mesh, shards, P0, kappa, dtype,
     from ..solvers.hmg import _level_mesh, _same_or, build_hmg_general
     from ..solvers.line import parse_line_smoother
 
-    shards = _norm_shards(shards)
+    grid = _grid_of(shards)
+    shards = grid.shards
     line_axis = (None if smoother == "schwarz" else parse_line_smoother(
         smoother, mesh, kappa,
         allowed=tuple(a for a, sh in enumerate(shards) if sh == 1)))
@@ -869,14 +917,47 @@ def build_hmg_grid_general(mesh, shards, P0, kappa, dtype,
         spec.update({k: () for k in _LATTICE_MATS})
 
     return _hmg_grid_scaffold(
-        mesh, shards, P0, dtype, smoother_iters, min_cells, divisors,
+        mesh, grid, P0, dtype, smoother_iters, min_cells, divisors,
         global_build, lambda nc: _same_or(mesh, nc, make), fill_level,
         sizes=sizes, line_axis=line_axis, device=device)
 
 
+def grid_level_spec(lv, shards):
+    """The layout of each array of a `GridPMG` level (JAX's PartitionSpec
+    tree, `multihost.take_block`'s ``spec``): the stacked lattices and
+    per-cell / quadrature-lattice arrays over the three grid axes, the
+    per-axis masses, row-stacked stiffness and Schwarz transforms over
+    their own axis, ``kb_mats`` by rows and columns as
+    `ops.kron_blocked.grid_symmetrized_mats` stacks them, the rest
+    replicated."""
+    from ..ops.kron_blocked import _GRID_AXES
+
+    spec = {}
+    for k, v in lv.items():
+        if k in ("bc_marker", "weights", "diag_inv", "m3", "G", "Gt",
+                 "coeff", "line_inv"):
+            spec[k] = AXES
+        elif k == "schwarz":
+            spec[k] = dict(Ux=("x",), Uy=("y",), Uz=("z",), ginv=AXES,
+                           bc=AXES)
+        elif k in ("Kx", "Ky", "Kz", "mx", "my", "mz"):
+            a = "xyz".index(k[1])
+            stacked = k[0] == "m" or (shards[a] > 1 and v.shape[0]
+                                      == shards[a] * v.shape[-1])
+            spec[k] = (AXES[a],) if stacked else ()
+        elif k == "kb_mats":
+            spec[k] = {key: _GRID_AXES[key] for key in v if key != "band"}
+    return spec
+
+
 class GridPMG:
     """p-multigrid over a 2D/3D device grid, every shard stacked on one
-    device (``device``, CUDA unless the caller asks for the CPU).
+    device (``device``, CUDA unless the caller asks for the CPU) or, with a
+    process group up, each rank's box of shards on its ``device``
+    (``devices=None``: row-major equal blocks over every rank; else the
+    rank of each shard, row-major). `to_dist` gives the rank's block;
+    `from_dist`, the solution and the residual lists are the same on
+    every rank.
 
     The JAX package's signature. Operator backends: ``"kron"`` (plain
     torch, any float dtype) and ``"kron_blocked"`` (the CUDA kernels #1-#9,
@@ -913,12 +994,13 @@ class GridPMG:
         from ..fem.mesh import require_axis_aligned
         from ..solvers.line import parse_line_smoother
 
+        from .multihost import layout_grid
+
         self.part = GridPartition(mesh, shards)
         shards = self.part.shards
-        if devices is not None:
-            raise _todo("devices= (the multi-process torch.distributed "
-                        "backend; the port stacks every shard on one "
-                        "device)", "10 (d)")
+        self.device = torch.device(device)
+        # every shard stacked here, or this rank's block of them
+        self.grid = layout_grid(shards, devices, device=self.device)
         self.sigma, self._sigma_field = resolve_sigma(sigma)
         if self._sigma_field is not None:
             if operator in ("kron", "kron_blocked"):
@@ -1012,9 +1094,9 @@ class GridPMG:
                 )
         self.mesh = mesh
         self.shards = shards
-        self.grid = StackedGrid(shards)
+        # where the whole stack is built (the host on a rank, `_place`)
+        self._bdev = self.grid.build_device(self.device)
         self.degrees = tuple(int(p) for p in degrees)
-        self.device = torch.device(device)
         self.dtype = dtype
         self.precision = precision
         self.coarse = coarse
@@ -1025,29 +1107,28 @@ class GridPMG:
         # Robin faces on the general backends ride the baked pointwise
         # shift (the boundary mass folded into m3, scalar 1.0).
         self._ops_sigma = ops_shift_scalar(mesh, self.sigma, kron_family)
+        g = self.grid
         if operator == "kron_blocked":
-            ops = grid_kron_blocked_cycle_ops(shards, precision,
-                                              sigma=self.sigma)
+            ops = grid_kron_blocked_cycle_ops(g, precision, sigma=self.sigma)
         elif operator == "kron":
-            ops = grid_kron_cycle_ops(shards, precision, sigma=self.sigma)
+            ops = grid_kron_cycle_ops(g, precision, sigma=self.sigma)
         elif operator == "lattice_blocked":
-            ops = grid_lattice_blocked_cycle_ops(shards, precision,
+            ops = grid_lattice_blocked_cycle_ops(g, precision,
                                                  sigma=self._ops_sigma)
         elif operator == "lattice":
-            ops = grid_lattice_cycle_ops(shards, precision,
-                                         sigma=self._ops_sigma)
+            ops = grid_lattice_cycle_ops(g, precision, sigma=self._ops_sigma)
         else:
-            ops = grid_dofmap_cycle_ops(shards, sigma=self._ops_sigma)
+            ops = grid_dofmap_cycle_ops(g, sigma=self._ops_sigma)
         if coarse in ("fdm", "direct", "hmg"):
             coarse_gather, coarse_slice = grid_coarse_hooks(
-                self.part, self.degrees[0])
+                self.part, self.degrees[0], grid=g)
             ops = dict(ops, coarse_gather=coarse_gather,
                        coarse_slice=coarse_slice)
         self._ops = ops
 
         level_data, levels = [], []
         for Pdeg in self.degrees:
-            lv = self._build_level(Pdeg)
+            lv = self._place(self._build_level(Pdeg))
             level = Level(P=Pdeg, ndofs=self.part.local_ndofs(Pdeg),
                           smoother_iters=smoother_iters,
                           shape=self.part.local_shape(Pdeg),
@@ -1056,7 +1137,7 @@ class GridPMG:
             # Smoother calibration, as the JAX package runs it per shard:
             # recorded CG on A x = 1 from 0 preconditioned as the smoother
             # is (line, Schwarz or Jacobi), Lanczos, lmax inflated by 1.1.
-            ones = torch.ones(shards + level.shape, dtype=dtype,
+            ones = torch.ones(g.block + level.shape, dtype=dtype,
                               device=self.device)
             _, info = cg_solve(
                 lambda x, _lv=lv, _level=level: ops["apply"](_lv, x, _level),
@@ -1086,7 +1167,7 @@ class GridPMG:
                 for a, name in enumerate("xyz")}
             tr["weights_f"] = self._stacked(
                 self.part.ownership_weights(Pf), dtype)
-            transfer.append(tr)
+            transfer.append(self._place(tr, dict(weights_f=AXES)))
         self.data = dict(levels=level_data, transfer=transfer)
         if coarse == "direct":
             from ..solvers.pmg import dense_cholesky
@@ -1101,11 +1182,13 @@ class GridPMG:
             # unused on this branch.
             from .fdm_dist import make_fdm_dist
 
-            self.data["fdm"], _, ops["fdm_dist"] = make_fdm_dist(
+            fdm, spec, ops["fdm_dist"] = make_fdm_dist(
                 mesh, self.degrees[0], self.part,
                 tuple((AXES[a], shards[a]) if shards[a] > 1 else None
                       for a in range(3)), AXES, self.kappa_axes, dtype,
-                precision=precision, sigma=self.sigma, device=self.device)
+                precision=precision, sigma=self.sigma, device=self._bdev,
+                grid=g)
+            self.data["fdm"] = self._place(fdm, spec)
         elif coarse == "hmg":
             self._build_hmg(smoother_iters)
         elif coarse == "fdm":
@@ -1147,14 +1230,16 @@ class GridPMG:
             build = build_hmg_grid if box else build_hmg_grid_general
             kappa = self.kappa_axes if box else self._kappa_raw
             extra = {} if box else dict(sigma_field=self._sigma_field)
-            (levels, data, _, bottom, gather, unslice,
-             bottom_solve) = build(mesh, self.shards, P0, kappa, self.dtype,
+            kw.update(device=self._bdev)
+            (levels, data, specs, bottom, gather, unslice,
+             bottom_solve) = build(mesh, self.grid, P0, kappa, self.dtype,
                                    divisors=cfg.get("divisors"), **kw,
                                    **extra)
-            core = (grid_kron_cycle_ops(self.shards, self.precision,
-                                        sigma=self.sigma) if box else
-                    grid_lattice_cycle_ops(
-                        self.shards, self.precision,
+            data = self._place(data, specs)
+            core = (grid_kron_cycle_ops(self.grid, self.precision,
+                                        sigma=self.sigma)
+                    if box else grid_lattice_cycle_ops(
+                        self.grid, self.precision,
                         sigma=ops_shift_scalar(mesh, self.sigma)))
             hmg_ops = dict(core, coarse_gather=gather, coarse_slice=unslice)
             if bottom_solve is not None:
@@ -1172,10 +1257,23 @@ class GridPMG:
         cfg.update(hmg_levels=levels, hmg_ops=hmg_ops, hmg_bottom=bottom,
                    cycles=cfg.get("cycles", 3))
 
+    def _place(self, data, spec=None):
+        """Set-up arrays built for the whole stack -> this grid's shards
+        on the device (`StackedGrid.place` under ``spec``, default
+        `grid_level_spec`), with the per-shard ``kb_blocks`` cut from the
+        placed ``kb_mats``."""
+        from ..ops.kron_blocked import shard_blocks
+
+        spec = grid_level_spec(data, self.shards) if spec is None else spec
+        out = self.grid.place(data, spec, self.device)
+        if "kb_mats" in out:
+            out["kb_blocks"] = shard_blocks(out["kb_mats"])
+        return out
+
     def _stacked(self, dup, dtype=None):
         """A host array in JAX's duplicated layout -> the stacked layout
-        on the device."""
-        t = torch.as_tensor(np.ascontiguousarray(dup), device=self.device)
+        on the build device."""
+        t = torch.as_tensor(np.ascontiguousarray(dup), device=self._bdev)
         if dtype is not None:
             t = t.to(dtype)
         return stack_shards(t, self.shards)
@@ -1228,8 +1326,8 @@ class GridPMG:
     def _kron_arrays(self, Pdeg, dtype, backend):
         """The Kronecker family's level arrays: the local per-shard axis
         stiffness and the duplicated-layout axis masses (``kron``), or the
-        grid-stacked ``kb_mats`` and their per-shard ``kb_blocks``
-        (``kron_blocked``)."""
+        grid-stacked ``kb_mats`` (``kron_blocked``; `_place` cuts their
+        per-shard ``kb_blocks``)."""
         from ..ops.kron import axis_stiffness_mass, local_axis_K
 
         part, mesh, shards = self.part, self.mesh, self.shards
@@ -1245,7 +1343,6 @@ class GridPMG:
             from ..ops.kron_blocked import (
                 checked_face_masks,
                 grid_symmetrized_mats,
-                shard_blocks,
             )
 
             fm = checked_face_masks(mesh, Pdeg,
@@ -1254,9 +1351,9 @@ class GridPMG:
                 duplicate_planes(fm[a], npls[a], shards[a]) for a in range(3))
             kb, _ = grid_symmetrized_mats(
                 Ks_local, ms_dup, shards, dtype, fm_dup, band=Pdeg,
-                device=self.device)
-            return dict(kb_mats=kb, kb_blocks=shard_blocks(kb))
-        t = lambda a: torch.as_tensor(a, dtype=dtype, device=self.device)
+                device=self._bdev)
+            return dict(kb_mats=kb)
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=self._bdev)
         out = {}
         for a, name in enumerate("xyz"):
             out["K" + name] = t(Ks_local[a])
@@ -1276,16 +1373,16 @@ class GridPMG:
         G_cells, _ = geometry_factors_np(mesh, Pdeg, kappa=self._kappa_fold)
         Gq = torch.as_tensor(geometry_to_qlattice(
             scale_G(G_cells, self._kc, self._kappa_fold), mesh.nc, Pdeg),
-            dtype=dtype, device=self.device)
+            dtype=dtype, device=self._bdev)
         if backend == "lattice_blocked":
             from ..ops.lattice_blocked import lattice_blocked_mats
 
             return dict(Gt=stack_gfirst(Gq, self.shards),
                         lb_mats=lattice_blocked_mats(
                             part.cells_per_shard, Pdeg, dtype,
-                            device=self.device))
+                            device=self._bdev))
         return dict(lattice_mats(part.cells_per_shard, Pdeg, dtype,
-                                 self.device),
+                                 self._bdev),
                     G=stack_blocks(Gq, self.shards))
 
     def _dofmap_arrays(self, Pdeg, dtype):
@@ -1301,14 +1398,14 @@ class GridPMG:
         G_cells, _ = geometry_factors_np(mesh, Pdeg, kappa=self._kappa_fold)
         nq = G_cells.shape[1]
         t = lambda a: torch.tensor(np.asarray(a), dtype=dtype,
-                                   device=self.device)
+                                   device=self._bdev)
         return dict(
             G=stack_blocks(t(G_cells.reshape(tuple(mesh.nc) + (nq, 6))),
                            shards).reshape(shards + (-1, nq, 6)),
             coeff=stack_blocks(t(self._kc.reshape(tuple(mesh.nc))),
                                shards).reshape(shards + (-1,)),
             dofmap=torch.tensor(BoxMesh(part.cells_per_shard).dofmap(Pdeg),
-                                dtype=torch.int64, device=self.device),
+                                dtype=torch.int64, device=self._bdev),
             D=t(derivative_matrix(Pdeg)),
         )
 
@@ -1320,7 +1417,7 @@ class GridPMG:
         return stacked_line_blocks(
             line_block_inverses(self.mesh, Pdeg, self._kappa_raw,
                                 self._line_axis, sigma=self.sigma),
-            self.part, Pdeg, self._line_axis, self.dtype, self.device)
+            self.part, Pdeg, self._line_axis, self.dtype, self._bdev)
 
     def _stacked_schwarz(self, Pdeg):
         """The global Schwarz data in the stacked layout
@@ -1329,7 +1426,7 @@ class GridPMG:
 
         swg = build_schwarz_np(self.mesh, Pdeg, self._kappa_raw,
                                sigma=self.sigma)
-        return stacked_schwarz(swg, self.part, Pdeg, self.dtype, self.device)
+        return stacked_schwarz(swg, self.part, Pdeg, self.dtype, self._bdev)
 
     # -- API -------------------------------------------------------------
 
@@ -1345,12 +1442,13 @@ class GridPMG:
         return self._dist(u, level, self.dtype)
 
     def _dist(self, u, level, dtype):
-        """`to_dist` in ``dtype``."""
+        """`to_dist` in ``dtype`` (a rank cuts its block before the
+        upload)."""
         glob = self.mesh.lattice_shape(self.degrees[level])
-        u = torch.as_tensor(u).to(device=self.device, dtype=dtype)
-        return self.grid.local_slices(u.reshape(glob),
-                                      self.part.local_shape(
-                                          self.degrees[level]))
+        return self.grid.put_local(
+            torch.as_tensor(u).reshape(glob),
+            self.part.local_shape(self.degrees[level]), device=self.device,
+            dtype=dtype)
 
     def from_dist(self, ud, level=-1):
         """The stacked layout -> the global flat vector (a tensor on the
@@ -1458,16 +1556,16 @@ class GridPMG:
             kind = self.operator_kind
             backend = {"lattice_blocked": "lattice",
                        "kron_blocked": "kron"}.get(kind, kind)
-            lv64 = self._build_level(self.degrees[-1], torch.float64,
-                                     include_diag=False, backend=backend)
+            lv64 = self._place(self._build_level(
+                self.degrees[-1], torch.float64, include_diag=False,
+                backend=backend))
+            g = self.grid
             if backend == "kron":
-                ops64 = grid_kron_cycle_ops(self.shards, sigma=self.sigma)
+                ops64 = grid_kron_cycle_ops(g, sigma=self.sigma)
             elif backend == "dofmap":
-                ops64 = grid_dofmap_cycle_ops(self.shards,
-                                              sigma=self._ops_sigma)
+                ops64 = grid_dofmap_cycle_ops(g, sigma=self._ops_sigma)
             else:
-                ops64 = grid_lattice_cycle_ops(self.shards,
-                                               sigma=self._ops_sigma)
+                ops64 = grid_lattice_cycle_ops(g, sigma=self._ops_sigma)
             self._apply64 = (lv64, ops64["apply"])
         return self._apply64
 

@@ -105,15 +105,17 @@ def wave_leapfrog_dist_evolve(mesh, P, shards, kappa=1.0, dt=1e-2,
 
     device = torch.device(device)
     part, grid, axes_spec, lat_spec = dist_layout(mesh, shards,
-                                                  devices=devices)
-    fd, _, apply_local = make_fdm_apply_dist(
+                                                  devices=devices,
+                                                  device=device)
+    fd, spec, apply_local = make_fdm_apply_dist(
         mesh, P, part, axes_spec, lat_spec, kappa, dtype,
-        precision=precision, device=device)
+        precision=precision, device=grid.build_device(device), grid=grid)
+    fd = grid.place(fd, spec, device)
     glob, loc = mesh.lattice_shape(P), part.local_shape(P)
 
     def to_d(u):
-        u = torch.as_tensor(u).to(device=device, dtype=dtype)
-        return grid.local_slices(u.reshape(glob), loc)
+        return grid.put_local(torch.as_tensor(u).reshape(glob), loc,
+                              device=device, dtype=dtype)
 
     bc_np = np.asarray(mesh.boundary_dof_marker(P))
     m3 = lumped_mass_np(mesh, P, bc_zero=True)
@@ -210,7 +212,8 @@ def convdiff_dist_evolve(mesh, P, shards, velocity, kappa=1.0, dt=1e-3,
     one solve."""
     from ..ops.kron import (axis_advection, axis_stiffness_mass,
                             kron_advection_terms)
-    from .grid2d import _exchange_axis
+    from .grid2d import AXES, _exchange_axis
+    from .multihost import take_block
     from .partition import duplicate_planes
 
     if scheme not in ("be", "cnab"):
@@ -233,9 +236,10 @@ def convdiff_dist_evolve(mesh, P, shards, velocity, kappa=1.0, dt=1e-3,
     Cs = tuple(t(axis_advection(mesh.nc[a] // sh3[a], P)) for a in range(3))
     ms = []
     for a in range(3):
+        # the duplicated mass of a sharded axis, this rank's shards of it
         m_g = axis_stiffness_mass(mesh.nc[a], P, mesh.h_cells[a])[1]
-        ms.append(t(duplicate_planes(m_g, loc[a], sh3[a]) if sh3[a] > 1
-                    else m_g))
+        ms.append(t(take_block(duplicate_planes(m_g, loc[a], sh3[a]),
+                               (AXES[a],), grid) if sh3[a] > 1 else m_g))
     cv = t(cvel)
     exchanges = tuple(
         (lambda v, a=a: _exchange_axis(v, grid, a)) if sh3[a] > 1 else None

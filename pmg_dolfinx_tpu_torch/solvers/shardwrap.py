@@ -4,12 +4,14 @@ classes: the single-device `PMGHierarchy`, the 1D slab
 
 Port of `pmg_dolfinx_tpu.solvers.shardwrap`. A whole-solve program (a
 Newton step, a BiCGStab loop) runs as it is on every class: the port
-stacks the shards of the sharded classes on one device, so the JAX
-package's ``shard_map`` wrapping (`wrap_program`, `vector_spec`) has no
+stacks the shards of the sharded classes on one device (or, across
+processes, each rank's block of them), so the JAX package's
+``shard_map`` wrapping (`wrap_program`, `vector_spec`) has no
 counterpart. What differs between the classes is the working layout of a
-vector (`layout_converters`), the shard counts (`shards_of`) and the
+vector (`layout_converters`: global vectors in and out on every rank),
+the global shard counts (`shards_of`; the cells a shard holds) and the
 per-axis interface exchanges of a custom operator term
-(`axis_exchanges`).
+(`axis_exchanges`, through the class's own grid).
 """
 
 
@@ -61,6 +63,6 @@ def axis_exchanges(hier):
         )
     from ..parallel.dist import _exchange_partials
 
-    n = shards[0]
-    return ((lambda t: _exchange_partials(t, n)) if n > 1 else None,
-            None, None)
+    grid = hier.grid      # every slab here, or this rank's block of them
+    return ((lambda t: _exchange_partials(t, grid)) if shards[0] > 1
+            else None, None, None)

@@ -42,6 +42,10 @@ class Timer(ContextDecorator):
         rec[1] += dt
         return False
 
+    @property
+    def elapsed(self):
+        return time.perf_counter() - self._t0
+
 
 def list_timings(print_fn=print):
     """Print the aggregated timing table."""
@@ -55,3 +59,8 @@ def list_timings(print_fn=print):
         print_fn(
             f"{name.ljust(width)} {count:>7d} {total:>10.4f} {total / max(count, 1):>10.4f}"
         )
+
+
+def reset_timings():
+    """Forget every recorded timing."""
+    _records.clear()

@@ -17,9 +17,11 @@ CPU devices.
   per-axis kappa and S in {2, 4, 8};
 - the stacked ``kron_blocked`` launch design equals the per-slab plain
   versions, and `_exchange_partials` equals its definition;
-- every refusal: ``NotImplementedError`` naming ROADMAP.md item 10 (d)
-  for ``devices=`` (on `DistPMG`, on the distributed layout and on a
-  graded Kronecker slab) and item 1 for ``precision="high"`` (also on a
+- every refusal: a ValueError for a ``devices=`` that names no ranks
+  (on `DistPMG`, on the distributed layout and on a graded Kronecker
+  slab; the multi-process runs are tests/test_torch_multihost.py), a
+  ``NotImplementedError`` naming ROADMAP.md item 1 for
+  ``precision="high"`` (also on a
   Robin-faced one); JAX's ValueErrors for an off-diagonal tensor or a
   per-cell kappa on the Kronecker family (on `DistPMG` and on a graded
   mesh's `build_hmg_dist`), a sigma field on the Kronecker family,
@@ -182,7 +184,10 @@ def _sigma_field_kron():
 # graded mesh until item 10 (b) ported it; their ids stay, on what is
 # still refused: a graded mesh's distributed hmg with an off-diagonal
 # tensor kappa (JAX's ValueError) and the distributed layout's devices=
-# (item 10 (d)). The kappa cases ran on the dofmap backend until the
+# (item 10 (d) until it ported the ranks: now a ValueError for a
+# devices= that names devices, not ranks, with no process group up). The
+# devices= case on DistPMG is the same. The kappa cases ran on the
+# dofmap backend until the
 # general family ported them, then as a tensor or per-cell kappa on the
 # Kronecker family until item 10 (b) ported the diagonal tensor; they stay
 # on what JAX refuses there for good: an off-diagonal tensor and a
@@ -190,12 +195,12 @@ def _sigma_field_kron():
 # good too.
 _TODO = [
     (_graded_hmg_dist, "off-diagonal", ValueError),
-    (_dist_layout_devices, "devices=", NotImplementedError),
+    (_dist_layout_devices, "devices=", ValueError),
     (_sigma_field_kron, "sigma FIELD", ValueError),
     (dict(kappa=_ROTATED, operator="kron"), "off-diagonal", ValueError),
     (dict(kappa=np.linspace(1.0, 2.0, 64), operator="kron"), "per-cell",
      ValueError),
-    (dict(devices=["cpu"]), "devices=", NotImplementedError),
+    (dict(devices=["cpu"]), "devices=", ValueError),
 ]
 
 
@@ -207,18 +212,18 @@ _TODO_IDS = ["_graded_hmg_dist-hmg", "_dist_layout_devices-dist",
 
 @pytest.mark.parametrize("kw,what,err_type", _TODO, ids=_TODO_IDS)
 def test_unported_options_raise_naming_item_10(kw, what, err_type):
-    """What the slab layer still refuses: the unported options name their
-    ROADMAP.md item (10 (d)), the rest raise JAX's own ValueError, which
-    JAX's `DistPMG` raises on the same keywords."""
-    match = (r"item 10 \(d\)" if err_type is NotImplementedError
-             else "Kronecker")
+    """What the slab layer still refuses: a ``devices=`` that names no
+    ranks raises ValueError, the rest JAX's own ValueError, which JAX's
+    `DistPMG` raises on the same keywords."""
+    ranks = what == "devices="
+    match = "rank of each shard" if ranks else "Kronecker"
     with pytest.raises(err_type, match=match) as err:
         if callable(kw):
             kw()
         else:
             td.DistPMG(TBox((4, 4, 4)), n_devices=2, device="cpu", **kw)
     assert what in str(err.value)
-    if err_type is ValueError and not callable(kw):
+    if not ranks and not callable(kw):
         with pytest.raises(ValueError, match=what):
             jd.DistPMG(JBox((4, 4, 4)), n_devices=2, **kw)
 
@@ -226,8 +231,8 @@ def test_unported_options_raise_naming_item_10(kw, what, err_type):
 def test_robin_and_graded_meshes_raise_naming_item_10():
     """Robin faces and graded spacing on the Kronecker family's slabs run
     since item 10 (b) (tests/test_torch_kron_sharded.py); on such meshes
-    the slabs still refuse ``devices=`` (item 10 (d)) and
-    ``precision="high"`` (item 1)."""
+    the slabs refuse a ``devices=`` that names no ranks (ValueError; item
+    10 (d) ported the ranks) and ``precision="high"`` (item 1)."""
     from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
 
     robin = TBox((4, 4, 4), dirichlet_faces=((True, True), (False, False),
@@ -237,8 +242,7 @@ def test_robin_and_graded_meshes_raise_naming_item_10():
         td.DistPMG(robin, n_devices=2, operator="kron", precision="high",
                    device="cpu")
     graded = TBox((4, 4, 4), spacing=(geometric_spacing(4, 4.0), None, None))
-    with pytest.raises(NotImplementedError,
-                       match=r"devices=.*item 10 \(d\)"):
+    with pytest.raises(ValueError, match=r"devices=.*rank of each shard"):
         td.DistPMG(graded, n_devices=2, operator="kron_blocked",
                    dtype=torch.float32, devices=["cpu"], device="cpu")
 

@@ -398,7 +398,8 @@ def test_rejects_unsupported():
     with pytest.raises(ValueError, match="scalar sigma"):
         tdd.DSSDist(mt, n_devices=S, sigma=lambda x: 1.0 + x[0],
                     device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 10 \(d\)"):
+    # devices= names ranks since item 10 (d) ported them
+    with pytest.raises(ValueError, match=r"devices=.*rank of each shard"):
         tdd.DSSDist(mt, n_devices=S, devices=["cpu"] * S, device="cpu")
     with pytest.raises(NotImplementedError, match="item 1"):
         tdd.DSSDist(mt, n_devices=S, precision="high", device="cpu")

@@ -263,7 +263,9 @@ def test_dist_fdm_refuses_what_jax_refuses():
 
 
 def test_dist_fdm_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match=r"item 10 \(d\)"):
+    # devices= names ranks since item 10 (d) ported them: device names
+    # are refused
+    with pytest.raises(ValueError, match=r"devices=.*rank of each shard"):
         tfd.DistFDM(TBox((4, 4, 4)), 2, 2, devices=["cpu"], device="cpu")
     with pytest.raises(NotImplementedError, match=r"item 1\)"):
         tfd.DistFDM(TBox((4, 4, 4)), 2, 2, precision="high", device="cpu")

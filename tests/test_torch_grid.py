@@ -648,8 +648,10 @@ def test_grid_pmg_refuses_what_is_not_ported():
             # The Kronecker family takes a per-axis kappa, Robin faces and
             # graded spacing since item 10 (b) (runs below); these cases
             # now hold what it still refuses: JAX's ValueErrors for an
-            # off-diagonal tensor or a per-cell kappa, devices= (item
-            # 10 (d)) and precision="high" (item 1), on the same meshes.
+            # off-diagonal tensor or a per-cell kappa, a devices= that
+            # names devices, not ranks (a ValueError since item 10 (d)
+            # ported the ranks) and precision="high" (item 1), on the
+            # same meshes.
             (lambda: tg.GridPMG(mesh, (2, 2), kappa=np.array(
                 [[2.0, 0.5, 0.0], [0.5, 2.0, 0.0], [0.0, 0.0, 2.0]]), **kw),
              ValueError, r"Kronecker-sum.*off-diagonal"),
@@ -661,7 +663,7 @@ def test_grid_pmg_refuses_what_is_not_ported():
                 device="cpu"),
              NotImplementedError, r"item 1\)"),
             (lambda: tg.GridPMG(mesh, (2, 2), devices=["cuda:0"], **kw),
-             NotImplementedError, "item 10"),
+             ValueError, "devices="),
             (lambda: tg.GridPMG(mesh, (2, 2), sigma=lambda x: x[0], **kw),
              ValueError, "sigma FIELD"),
             (lambda: tg.GridPMG(mesh, (2, 2), kappa=np.arange(1.0, 65.0),
@@ -671,7 +673,7 @@ def test_grid_pmg_refuses_what_is_not_ported():
                 (False, False), (True, True), (True, True)),
                 robin=((1.0, 1.0), (0.0, 0.0), (0.0, 0.0))), (2, 2),
                 devices=["cuda:0"], **kw),
-             NotImplementedError, r"devices=.*item 10 \(d\)"),
+             ValueError, r"devices=.*rank of each shard"),
             (lambda: tg.GridPMG(TBox(NC, spacing=(None, None, (1.0, 2.0, 3.0,
                                                               4.0))),
                                 (2, 2), precision="high", **kw),

@@ -67,7 +67,9 @@ _NEW_MODULES = ("fem.mesh", "fem.assembly", "ops.cuda_build", "ops.laplacian",
                 "solvers.convdiff", "solvers.lobpcg", "solvers.eig",
                 "parallel.dist", "parallel.partition", "solvers.shardwrap",
                 "utils.convert", "parallel.fdm_dist",
-                "parallel.transient_dist", "parallel.dss_dist", "parallel")
+                "parallel.transient_dist", "parallel.dss_dist", "parallel",
+                "parallel.multihost", "utils.logging", "utils.checkpoint",
+                "utils.io", "utils.measure", "utils.timers", "utils")
 
 
 def test_general_hex_modules_import_no_jax():

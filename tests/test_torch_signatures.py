@@ -896,3 +896,73 @@ def test_dss_dist_positional_calls_match_jax(cls, args):
     got = bind(td)
     got.pop("device", None)
     assert got == bind(jd)
+
+
+@pytest.mark.parametrize("mod,name", [
+    ("utils.logging", "init_logging"),
+    ("utils.logging", "get_logger"),
+    ("utils.checkpoint", "save_state"),
+    ("utils.checkpoint", "load_state"),
+    ("utils.io", "write_vtk"),
+    ("utils.io", "write_npz"),
+    ("utils.measure", "measure"),
+    ("utils.timers", "reset_timings"),
+    ("utils.timers", "list_timings"),
+])
+def test_item_11_utils_signatures(mod, name):
+    """The rank-aware and rank-free utilities of item 11 keep JAX's names
+    and positional orders."""
+    import importlib
+
+    jf = getattr(importlib.import_module(f"pmg_dolfinx_tpu.{mod}"), name)
+    tf = getattr(importlib.import_module(f"pmg_dolfinx_tpu_torch.{mod}"),
+                 name)
+    assert _positional(tf) == _positional(jf)
+
+
+@pytest.mark.parametrize("name", ["initialize", "put_global",
+                                  "fetch_global", "process_index",
+                                  "process_count"])
+def test_multihost_names(name):
+    """`parallel.multihost` has JAX's entry points (``initialize``,
+    ``put_global``, ``fetch_global``) and the rank queries logging reads;
+    ``initialize`` takes torch.distributed's arguments and a keyword-only
+    ``device``."""
+    import inspect
+
+    import pmg_dolfinx_tpu_torch.parallel.multihost as tm
+
+    fn = getattr(tm, name)
+    assert callable(fn)
+    if name == "initialize":
+        params = inspect.signature(fn).parameters
+        assert _positional(fn) == ["init_method", "world_size", "rank",
+                                   "backend"]
+        assert params["device"].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+@pytest.mark.parametrize("mod,name", [
+    ("parallel.dist", "DistPMG"),
+    ("parallel.grid2d", "GridPMG"),
+    ("parallel.fdm_dist", "DistFDM"),
+    ("parallel.fdm_dist", "dist_layout"),
+    ("parallel.dss_dist", "DSSDist"),
+    ("parallel.transient_dist", "heat_dist_evolve"),
+    ("parallel.transient_dist", "wave_leapfrog_dist_evolve"),
+    ("parallel.transient_dist", "semilinear_dist_evolve"),
+    ("parallel.transient_dist", "convdiff_dist_evolve"),
+    ("parallel.transient_dist", "wave_newmark_dist_evolve"),
+])
+def test_sharded_solvers_take_devices(mod, name):
+    """Every sharded solver takes ``devices=`` at JAX's position, default
+    None (the ranks' shards; tests/test_torch_multihost.py runs them)."""
+    import importlib
+    import inspect
+
+    jf = getattr(importlib.import_module(f"pmg_dolfinx_tpu.{mod}"), name)
+    tf = getattr(importlib.import_module(f"pmg_dolfinx_tpu_torch.{mod}"),
+                 name)
+    assert "devices" in _positional(tf)
+    assert _positional(tf).index("devices") == _positional(jf).index(
+        "devices")
+    assert inspect.signature(tf).parameters["devices"].default is None

@@ -200,7 +200,8 @@ def test_dist_evolvers_reject_bad_arguments():
     u0 = np.zeros(mesh.num_dofs(2))
     with pytest.raises(ValueError, match="nsteps"):
         ev(u0, u0, 0)
-    with pytest.raises(NotImplementedError, match=r"item 10 \(d\)"):
+    # devices= names ranks since item 10 (d) ported them
+    with pytest.raises(ValueError, match=r"devices=.*rank of each shard"):
         ttd.heat_dist_evolve(mesh, 2, 3, devices=["cpu"], device="cpu")
 
 
