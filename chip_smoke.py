@@ -22,10 +22,12 @@ the gather-free coarse family and sharded time loops (`fdm_dist`, the
 distributed hmg on the slab and the grid, `transient_dist`) and the
 Kronecker family on the sharded layouts (Robin faces, graded spacing,
 per-axis and diagonal-tensor kappa on the slab and the grid) and the
-distributed unstructured path (`DSSDist`, shards stacked) through them.
+distributed unstructured path (`DSSDist`, shards stacked) and
+precision="high" (bf16x3) on the Kronecker and general families through
+them.
 Every phase raises on failure; nothing is caught. The phases run in the
 order 1, 2 (nvcc started), 18a, 18c, 25f (kernel-free, on the card while
-nvcc builds), 2 (joined), 3-3f, 4-4e, 14, 26a, 26b, 27a-27c, 15, 18d,
+nvcc builds), 2 (joined), 3-3f, 4-4e, 32a-32d, 14, 26a, 26b, 27a-27c, 15, 18d,
 24a, 25a, 25b, 26c, 19a, 29a, 19b, 19c, 29b-29d, 5-8b, 16, 17, 28a-28e,
 20a-20c, 9-11, 21, 12, 27d, 13, 18b, 22, 23a-23c, 30a, 30b, 23d, 24b,
 25c-25e: 26a, 27a-27c, 15, 18d,
@@ -471,6 +473,35 @@ meshes of phases 22-23 on host threads started with phase 2. The script prints i
    staging, not a multi-GPU speed), the collective calls and staged
    bytes per V-cycle, setup and wall seconds; the ranks' main-path
    launches join the kernels line.
+32. precision="high" (bf16x3: the HIGH instantiations of
+   `csrc/kron_blocked.cu` and `csrc/lattice_blocked.cu`, a second library
+   each, nvcc started in phase 2 beside the others), run after 4e on
+   phase 4's mesh and hierarchy. a: every HIGH kernel against its plain
+   'high' version, 1e-5 relative max norm, and its gap to the 'highest'
+   kernel (which must lie in (1e-7, 1e-3): the split acts): #1-#3 and #7
+   at 253^3 band 6, #4-#6 on a non-separable marker at 127^3 (their entry
+   points' launches count), #8/#9 through `blocked_kron_apply_grid` on
+   the (2,2,2) stack of 127^3 shards (x, y and z exchanges), K-A with the
+   'v1' splits at 253^3 p=6 and 127^3 p=3 ('yexp' at 253^3), K-A on Gz
+   and K-B at 253^3 (synthetic SPD G; K-B on PerturbedBoxMesh((42,)*3)'s
+   coefficients); device ms of each beside the 'highest' kernel's in
+   turns, the plain 'high' ms, bounds with 3x the operations of the
+   sums each kernel splits (`kernel_bound`), the ptxas registers and spills, a first K-A HIGH launch in a graph
+   capture. b: `examples/pmg_torch.py --precision high --pcg` at the
+   flagship (16.2M, fdm): FCG(V) to 1e-6 within 1 of phase 4's; the
+   driver's FCG solution solves the 'high' operator, its L2 a finding
+   (< 1e-3), `solve_refined` at 'high' L2 < 1e-4; ms per V-cycle (10
+   back-to-back, median of 3) in turns with phase 4's, the relative
+   residual after 16 stationary V-cycles at both precisions (a finding),
+   the stationary warning; the fused smoother at
+   'high' (#4 + #7, FCG within 1). c: curved_2M_p136 (nc=21,
+   lattice_blocked + cg) through the driver at 'high' against the same
+   hierarchy at 'highest' on its mesh and rhs, FCG within 1, ms per
+   V-cycle in turns; `mat_free_torch.py --precision
+   high` with 'zgrp' and 'geom'. d: `GridPMG(BoxMesh((22,)*3), (2,2,2),
+   (1,3,6), kron_blocked, fdm, precision="high")`, one V-cycle within
+   1e-5 of a `PMGHierarchy` at 'high'. The HIGH kernels join the kernels
+   line (``_high`` names, with their 'highest' twin's device ms).
 
 Before the kernels line, a line lists the ten longest phases with their
 seconds.
@@ -554,6 +585,9 @@ TPU_KERNELS = {
     "t23_grid_m": "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py:365",
 }
 KERNEL_RTOL = 1e-5
+# V-cycle timing windows: VC_CYCLES back-to-back cycles a window, three
+# windows after one warm-up, the median read.
+VC_CYCLES = 5
 REF_TRAJ_FROM = 5e-3
 # Fused against unfused Chebyshev at the same lmax: the CPU tests' gate
 # of the fused hierarchy against the JAX one.
@@ -910,7 +944,8 @@ def kernel_parity(nc, P, kappa=2.0, host_cost=False):
     return out, dev, lib_t1, host
 
 
-def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None):
+def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None,
+                 high=None):
     """The least time (ms) the card could take for one launch of kernel
     ``name`` at the shape its ``ms`` was measured on, and what bounds it:
     the larger of its bytes (each input read once, each output written
@@ -921,9 +956,16 @@ def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None):
     (serving kernels; the transfers' ``(NX, NY, NZ, A)`` / ``(A, NY, NZ,
     B, C)``, the whole-lattice apply's ``(NX, NY, NZ)``). ``terms`` counts
     the nonzero-range products these inputs need (`transfer_terms`,
-    `kron_fused_terms`)."""
+    `kron_fused_terms`). ``high``: a precision='high' kernel's variant
+    ("kron", "v1", "yexp", "zgrp" or "geom"), which does three products
+    where the 'highest' one does one in each contraction it splits and
+    nowhere else: the band sums of the kron kernels (x of #1 / #4, y and
+    z of the others), four of K-A's six derivative sums for 'v1' (uy, uz
+    and their transposes) and two (uz and its transpose) for the others;
+    the scales, G, the geometry rebuild and the epilogues stay f32."""
     D = 2 * P + 1
     n = P + 1
+    split = None   # the operations of the sums a HIGH variant splits
     if name in ("t1_m", "t1", "t23_m", "t23", "t23_res_m", "t23_res",
                 "t23_cheb"):
         lattices = {"t1_m": (1, 1), "t1": (1, 1), "t23_m": (2, 1),
@@ -934,12 +976,14 @@ def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None):
         flops = {"t1_m": 2 * D + 2, "t1": 2 * D + 1, "t23_m": 4 * D + 10,
                  "t23": 4 * D + 8, "t23_res_m": 4 * D + 11,
                  "t23_res": 4 * D + 9, "t23_cheb": 4 * D + 14}[name] * N
+        split = (2 * D if name.startswith("t1") else 4 * D) * N
     elif name in ("lattice_apply", "lattice_apply_zgrp", "lattice_apply_geom"):
         cells = nc[0] * nc[1] * nc[2]
         Q = cells * n**3
         geom = 4 * 37 * cells if name == "lattice_apply_geom" else 24 * Q
         nbytes = 9 * N + geom
         flops = (12 * n + 15 + (120 if name == "lattice_apply_geom" else 0)) * Q
+        split = (4 if high == "v1" else 2) * 2 * n * Q
     elif name == "packed_apply":
         nbytes = 8 * B * N + N
         flops = (6 * D + 4) * B * N
@@ -962,6 +1006,7 @@ def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None):
         edge = 2 * NX * NZ + 2 * NX * NY
         nbytes = 4 * N * (3 + res) + marker * N + 4 * edge
         flops = (4 * D + (8 if marker else 10) + res) * N + 2 * edge
+        split = 4 * D * N
     elif name == "kron_fused":           # x, marker, planes read, y written
         NX, NY, NZ = dims
         nbytes = 9 * N + 4 * (NY * NZ + NX * NZ + NX * NY)
@@ -969,6 +1014,10 @@ def kernel_bound(name, N, P, nc=None, B=None, dims=None, terms=None):
     else:
         raise KeyError(name)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if high:
+        if split is None:
+            raise KeyError(f"{name} has no precision='high' variant")
+        flops += 2 * split   # the split sums' two more products
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1724,20 +1773,27 @@ def run_mat_free(args, mesh=None):
     return json.loads(text.strip().splitlines()[-1])
 
 
-def vcycle_ms(hier, cycles=10, reps=3):
-    """ms per V-cycle on the fine rhs: CUDA events around ``cycles``
-    back-to-back V-cycles, ``reps`` times; returns (median, all)."""
+def windows_ms(fn, cycles=VC_CYCLES, reps=3):
+    """ms per call of ``fn``: CUDA events around ``cycles`` back-to-back
+    calls, ``reps`` windows after one warm-up of two calls; returns
+    (median, all)."""
+    times = [cuda_ms(fn, reps=cycles, warmup=0 if i else 2)
+             for i in range(reps)]
+    return sorted(times)[len(times) // 2], times
+
+
+def vcycle_ms(hier, cycles=VC_CYCLES, reps=3):
+    """ms per V-cycle on the fine rhs (`windows_ms`); returns (median,
+    all)."""
     import torch
 
     b = torch.ones(hier.levels[-1].ndofs, dtype=hier.dtype,
                    device=hier.device)
     u = torch.zeros_like(b)
-    times = [cuda_ms(lambda: hier.apply(b, u), reps=cycles, warmup=2)
-             for _ in range(reps)]
-    return sorted(times)[len(times) // 2], times
+    return windows_ms(lambda: hier.apply(b, u), cycles, reps)
 
 
-def vcycle_pace(hier, cycles=10, reps=5):
+def vcycle_pace(hier, cycles=VC_CYCLES, reps=3):
     """Who sets the pace of back-to-back V-cycles: per rep of ``cycles``
     cycles, (CUDA-event ms per cycle, host ms per cycle to enqueue them).
     Host ms well under the event ms: the card sets the pace; host ms near
@@ -1805,7 +1861,7 @@ def profile_busy(fn, counts=None):
     return wall, sum(by_name.values()), len(kernels), by_name
 
 
-def profile_complete(fn, lb, tries=4):
+def profile_complete(fn, lb, tries=3):
     """`profile_busy` of one call of ``fn`` (a curved V-cycle) from a
     complete window. Late in a long process the profiler can leave out
     some of a window's kernels (here phase 7 misses two of the cycle's
@@ -1818,7 +1874,8 @@ def profile_complete(fn, lb, tries=4):
     its kernel count equals an earlier window's. At most ``tries``
     windows: late in the process phases 7, 17 and 28a have come back
     INCOMPLETE in all of 8, so more windows buy no complete one, and each
-    costs seconds of host time. Returns (wall, busy, kernels, {name: ms}, {name: launches}, windows
+    costs seconds of host time (three: one window more than a complete
+    read needs). Returns (wall, busy, kernels, {name: ms}, {name: launches}, windows
     tried, complete)."""
     seen, last = [], None
     for tries_made in range(1, tries + 1):
@@ -2250,11 +2307,11 @@ def serving_path(parent=None):
 
 
 def heat_cn_2m():
-    """Phase 12: the JAX bench's heat_cn_2M recipe on the port."""
+    """Phase 12: the JAX bench's heat_cn_2M recipe on the port (its L2
+    error on the card, `card_l2_error`)."""
     import numpy as np
     import torch
 
-    from pmg_dolfinx_tpu_torch.fem.assembly import l2_error
     from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
     from pmg_dolfinx_tpu_torch.solvers.transient import heat_fdm_evolve
 
@@ -2275,7 +2332,6 @@ def heat_cn_2m():
 
     lo, hi = 200, 1000
     timed(lo)
-    timed(hi)
     samples = []
     for _ in range(3):
         t_lo, _ = timed(lo)
@@ -2284,9 +2340,8 @@ def heat_cn_2m():
     per = sorted(samples)[1]
     T = hi * dt
     amp = np.exp(-3.0 * np.pi**2 * 2.0 * T)
-    err = l2_error(mesh, P, u.double().cpu().numpy().reshape(-1),
-                   lambda x: amp * np.sin(np.pi * x[0]) * np.sin(np.pi * x[1])
-                   * np.sin(np.pi * x[2]))
+    err = card_l2_error(mesh, P, u, lambda x: amp * np.sin(np.pi * x[0])
+                        * np.sin(np.pi * x[1]) * np.sin(np.pi * x[2]))
     print(f"    {mesh.num_dofs(P)} dofs: {1.0 / per:.1f} steps/s "
           f"({per * 1e3:.4f} ms/step; slope samples "
           f"{[round(s * 1e3, 4) for s in samples]} ms); L2 error at "
@@ -2389,7 +2444,7 @@ def fused_path(prob, hier, rel_ref, u_ref, niter_ref, cfg, launches):
     t_u2, _ = vcycle_ms(hier)
     print(f"    V-cycle: fused {(t_f1 + t_f2) / 2:.3f} ms ({t_f1:.3f}, "
           f"{t_f2:.3f}; reps {[round(t, 3) for t in all_f1 + all_f2]}) vs "
-          f"unfused {(t_u1 + t_u2) / 2:.3f} ms ({t_u1:.3f}, {t_u2:.3f}); 10 "
+          f"unfused {(t_u1 + t_u2) / 2:.3f} ms ({t_u1:.3f}, {t_u2:.3f}); {VC_CYCLES} "
           "back-to-back, median of 3, in turns unfused/fused/fused/unfused")
     b1 = torch.ones(fused.levels[-1].ndofs, dtype=torch.float32,
                     device="cuda")
@@ -2482,7 +2537,7 @@ def fused_transfer_path(prob, hier, fused, rel_ref, rel_fused, niter_ref,
         print(f"    {tag}: V-cycle {(t_f1 + t_f2) / 2:.3f} ms ({t_f1:.3f}, "
               f"{t_f2:.3f}; reps {[round(t, 3) for t in all_f1 + all_f2]}) "
               f"vs einsum transfers {(t_r1 + t_r2) / 2:.3f} ms ({t_r1:.3f}, "
-              f"{t_r2:.3f}); 10 back-to-back, median of 3, in turns")
+              f"{t_r2:.3f}); {VC_CYCLES} back-to-back, median of 3, in turns")
         wall, busy, nk, by_name = profile_busy(lambda: h.apply(b1, u0))
         tms = sum(v for k, v in by_name.items() if "transfer" in k)
         print(f"    profile, one {tag} V-cycle: wall {wall:.3f} ms, device "
@@ -2589,7 +2644,7 @@ def grid_mats(nc, P, shards, masks, kappa=2.0):
         fm = tuple(duplicate_planes(m, npls[a], part.shards[a]) for a, m in
                    enumerate(kb.axis_interior_masks(mesh, P)))
     mats, _ = kb.grid_symmetrized_mats(Ks, ms, part.shards, torch.float32,
-                                       fm, band=P, device="cuda")
+                                       fm, band=P, device=DEV)
     return mesh, part, mats
 
 
@@ -2770,16 +2825,14 @@ def grid_entry_point():
     return launches["t23_grid"] + launches["t23_grid_res"]
 
 
-def grid_vcycle_ms(grid, cycles=10, reps=3):
+def grid_vcycle_ms(grid, cycles=VC_CYCLES, reps=3):
     """`vcycle_ms` for a `GridPMG`: one-vectors in the stacked layout."""
     import torch
 
     b = torch.ones(grid.shards + grid.levels[-1].shape, dtype=grid.dtype,
                    device=grid.device)
     u = torch.zeros_like(b)
-    times = [cuda_ms(lambda: grid.apply(b, u), reps=cycles, warmup=2)
-             for _ in range(reps)]
-    return sorted(times)[len(times) // 2], times
+    return windows_ms(lambda: grid.apply(b, u), cycles, reps)
 
 
 def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
@@ -2876,7 +2929,7 @@ def grid_path(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg, launches):
     print(f"    V-cycle: grid (2, 2, 2) {grid_ms:.3f} ms ({t_g1:.3f}, "
           f"{t_g2:.3f}; reps {[round(t, 3) for t in all_g1 + all_g2]}) vs "
           f"single device {(t_s1 + t_s2) / 2:.3f} ms ({t_s1:.3f}, "
-          f"{t_s2:.3f}); 10 back-to-back, median of 3, in turns")
+          f"{t_s2:.3f}); {VC_CYCLES} back-to-back, median of 3, in turns")
     wall, busy, nk, by_name = profile_busy(lambda: grid.apply(bd, ud))
     print(f"    profile, one grid V-cycle: wall {wall:.3f} ms, device busy "
           f"{busy:.3f} ms, {nk} kernels, idle {max(0.0, 1 - busy / wall):.1%}")
@@ -2955,16 +3008,14 @@ def run_example(name, args):
     return json.loads(text.strip().splitlines()[-1])
 
 
-def slab_vcycle_ms(dist, cycles=10, reps=3):
+def slab_vcycle_ms(dist, cycles=VC_CYCLES, reps=3):
     """`vcycle_ms` for a `DistPMG`: one-vectors in the slab layout."""
     import torch
 
     b = dist.to_dist(torch.ones(dist.mesh.num_dofs(dist.degrees[-1]),
                                 device=dist.device))
     u = torch.zeros_like(b)
-    times = [cuda_ms(lambda: dist.apply(b, u), reps=cycles, warmup=2)
-             for _ in range(reps)]
-    return sorted(times)[len(times) // 2], times
+    return windows_ms(lambda: dist.apply(b, u), cycles, reps)
 
 
 def per_slab_launch_ops(slab):
@@ -3184,7 +3235,7 @@ def slab_flagship(prob, hier, rel_ref, u_ref, niter_ref, spread, cfg,
           f"{t_s2:.3f}; reps {[round(t, 3) for t in all_s1 + all_s2]}), "
           f"per-shard launches {vc_ps:.3f} ms ({t_p1:.3f}, {t_p2:.3f}; reps "
           f"{[round(t, 3) for t in all_p1 + all_p2]}), single device "
-          f"{(t_h1 + t_h2) / 2:.3f} ms ({t_h1:.3f}, {t_h2:.3f}); 10 "
+          f"{(t_h1 + t_h2) / 2:.3f} ms ({t_h1:.3f}, {t_h2:.3f}); {VC_CYCLES} "
           f"back-to-back, median of 3, in turns")
     faster = "stacked" if vc_st <= vc_ps else "per_shard"
     print(f"    faster design this run: {faster}; DistPMG runs: stacked")
@@ -3470,7 +3521,7 @@ def gather_free_slab(prob, slab, niter_ref, cfg, launches):
     vc = (t_d1 + t_d2) / 2
     print(f"    V-cycle: fdm dist {vc:.3f} ms ({t_d1:.3f}, {t_d2:.3f}; reps "
           f"{[round(t, 3) for t in all_d1 + all_d2]}) vs 26a's gathered fdm "
-          f"{(t_g1 + t_g2) / 2:.3f} ms ({t_g1:.3f}, {t_g2:.3f}); 10 "
+          f"{(t_g1 + t_g2) / 2:.3f} ms ({t_g1:.3f}, {t_g2:.3f}); {VC_CYCLES} "
           f"back-to-back, median of 3, in turns; {n[0]} all_to_all per "
           "V-cycle")
     out["27a slab fdm dist"] = (niter, vc)
@@ -3709,7 +3760,7 @@ def heat_driver_sharded(ndofs="250000"):
                                              1e3 / res["steps_per_s"])}
 
 
-def kron_profile(fn, tag, tries=4):
+def kron_profile(fn, tag, tries=3):
     """`profile_busy` of one V-cycle ``fn`` on a Kronecker hierarchy from a
     complete window: one whose ``kron_t*`` kernels number the wrappers'
     launches in the call and whose kernel count repeats an earlier
@@ -3795,7 +3846,7 @@ def schwarz_flagship(prob, niter_ref, cfg, launches):
             torch.isfinite(u).all()):
         raise AssertionError("solution is not a finite vector of ndofs")
     vc, vc_all = vcycle_ms(hier)
-    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+    print(f"    V-cycle {vc:.3f} ms ({VC_CYCLES} back-to-back, 3 reps "
           f"{[round(t, 3) for t in vc_all]}); pace, 5 reps of 10 (CUDA-event "
           f"ms, host ms to enqueue): "
           f"{[(round(a, 3), round(b, 3)) for a, b in vcycle_pace(hier)]}")
@@ -3903,7 +3954,7 @@ def grid_schwarz(prob, hier, cfg, launches):
         raise AssertionError(f"#9 was not launched: {path}")
     launches["t23_grid_m"] += path["t23_grid_m"] + path["t23_grid_res_m"]
     print(f"    V-cycle: grid (2, 2, 2) Schwarz {grid_vcycle_ms(grid)[0]:.3f} "
-          f"ms vs single device {vcycle_ms(hier)[0]:.3f} ms (10 "
+          f"ms vs single device {vcycle_ms(hier)[0]:.3f} ms ({VC_CYCLES} "
           f"back-to-back, median of 3)")
 
 
@@ -3946,7 +3997,7 @@ def curved_schwarz(curved, niter_ref, ccfg, launches):
                              f"{niter_ref}")
     err = prob.error_l2(u)
     vc, vc_all = vcycle_ms(hier)
-    print(f"    collocated L2 error {err:.4e}; V-cycle {vc:.3f} ms (10 "
+    print(f"    collocated L2 error {err:.4e}; V-cycle {vc:.3f} ms ({VC_CYCLES} "
           f"back-to-back, 3 reps {[round(t, 3) for t in vc_all]})")
     if not err < 1e-4:
         raise AssertionError(f"L2 error {err} too large")
@@ -4246,7 +4297,7 @@ def grid_general_path(curved, ref, launches):
     wall, busy, nk, by_name, _, tries, complete = profile_complete(
         lambda: grid.apply(b1, torch.zeros_like(b1)), lb)
     ka = lattice_kernel_ms(by_name)
-    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 1 rep) against "
+    print(f"    V-cycle {vc:.3f} ms ({VC_CYCLES} back-to-back, 1 rep) against "
           f"the single device's "
           f"{ref['vc']:.3f} ms; (event ms, host ms to enqueue) per cycle "
           f"{pace}; profiled ({'complete' if complete else 'INCOMPLETE'} "
@@ -4259,7 +4310,7 @@ def grid_general_path(curved, ref, launches):
     return {"28a grid lattice_blocked": (niter, vc)}
 
 
-def grid_vcycle_pace(grid, cycles=10, reps=3):
+def grid_vcycle_pace(grid, cycles=VC_CYCLES, reps=3):
     """`vcycle_pace` for a `GridPMG`."""
     import torch
 
@@ -4819,7 +4870,7 @@ def box_family(mesh, launches, grid14_ms=None, mixed=None):
     add_launches(launches, path, need)
     l2_job = card_l2(prob, u)
     vc, vc_all = vcycle_ms(prob.hierarchy)
-    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+    print(f"    V-cycle {vc:.3f} ms ({VC_CYCLES} back-to-back, 3 reps "
           f"{[round(t, 3) for t in vc_all]})")
     out["19a"] = (niter, vc)
     done(t0)
@@ -4850,7 +4901,7 @@ def box_family(mesh, launches, grid14_ms=None, mixed=None):
         raise AssertionError(f"19b: FCG {niter}")
     add_launches(launches, path, need)
     vc, vc_all = vcycle_ms(prob.hierarchy)
-    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+    print(f"    V-cycle {vc:.3f} ms ({VC_CYCLES} back-to-back, 3 reps "
           f"{[round(t, 3) for t in vc_all]})")
     out["19b"] = (niter, vc)
     fdm = FastDiagonalizationSolver(mesh, 6, kappa=K, dtype=torch.float32,
@@ -5125,7 +5176,7 @@ def kron_sharded_flagship(prob, u_ref, niter_ref, vc_ref, cfg, launches,
     vc, reps = grid_vcycle_ms(grid)
     wall, busy, nk, _, complete = kron_profile(lambda: grid.apply(bd, ud),
                                                "29a")
-    print(f"    launches per V-cycle {per_cycle}; V-cycle {vc:.3f} ms (10 "
+    print(f"    launches per V-cycle {per_cycle}; V-cycle {vc:.3f} ms ({VC_CYCLES} "
           f"back-to-back, 3 reps {[round(t, 3) for t in reps]}) vs 19a's "
           f"single device {vc_ref:.3f} ms and phase 14's uniform grid "
           + (f"{grid14_ms:.3f} ms" if grid14_ms is not None else "(not run)")
@@ -5332,7 +5383,7 @@ def general_family(mesh, launches, vc_curved):
     vc, vc_all = vcycle_ms(p21.hierarchy)
     err = p21.error_l2(u)
     print(f"    FCG(V) iterations to rtol 1e-6: {n21}; launches {path}; "
-          f"V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+          f"V-cycle {vc:.3f} ms ({VC_CYCLES} back-to-back, 3 reps "
           f"{[round(t, 3) for t in vc_all]}; phase 7's 16.2M curved cycle "
           f"{vc_curved:.3f} ms); L2 error {err:.4e}")
     if not err < 1e-4:
@@ -5785,7 +5836,7 @@ def dss_dist_full(mesh, ref, ref_c, dss15):
         lambda: dist.apply(bd, torch.zeros_like(bd)),
         types.SimpleNamespace(LAUNCHES={}))
     b23 = ref["busy"]
-    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+    print(f"    V-cycle {vc:.3f} ms ({VC_CYCLES} back-to-back, 3 reps "
           f"{[round(t, 3) for t in vc_all]}) against 23a's {ref['vc']:.3f}; "
           f"{n_vc[0]} exchanges per V-cycle; profiled "
           f"({'complete' if complete else 'INCOMPLETE'} window, {tries} "
@@ -5917,7 +5968,7 @@ def unstructured_solves(mesh15, mesh29, dss15):
     vc, vc_all = vcycle_ms(hier)
     print(f"    setup seconds {setup:.2f} (rhs + hierarchy; {hier.levels[0].ndofs}"
           f" p=1 dofs); FCG(V) {res['niter']} ({solve:.3f} s); L2 "
-          f"{res['l2_error']:.4e}; V-cycle {vc:.3f} ms (10 back-to-back, "
+          f"{res['l2_error']:.4e}; V-cycle {vc:.3f} ms ({VC_CYCLES} back-to-back, "
           f"3 reps {[round(t, 3) for t in vc_all]})")
     if not (res["niter"] < 50 and res["l2_error"] < 1e-4):
         raise AssertionError(f"23a: {res}")
@@ -5963,7 +6014,7 @@ def unstructured_solves(mesh15, mesh29, dss15):
     vc, vc_all = vcycle_ms(hier)
     print(f"    setup seconds {setup:.2f}; FCG(V) {res_c['niter']} (23a: "
           f"{res['niter']}); L2 {res_c['l2_error']:.4e}; V-cycle {vc:.3f} "
-          f"ms (10 back-to-back, 3 reps {[round(t, 3) for t in vc_all]})")
+          f"ms ({VC_CYCLES} back-to-back, 3 reps {[round(t, 3) for t in vc_all]})")
     if not (res_c["niter"] <= res["niter"] and res_c["l2_error"] < 1e-4):
         raise AssertionError(f"23c: {res_c} against 23a's {res}")
     out["23c"] = (res_c["niter"], vc)
@@ -6009,7 +6060,7 @@ def unstructured_solves(mesh15, mesh29, dss15):
         lambda: hier.apply(b1, torch.zeros_like(b1)))
     print(f"    setup seconds {setup:.2f} (rhs + hierarchy); AMG levels "
           f"{amg_levels(hier)}; FCG(V) {niter} ({solve:.3f} s host clock); "
-          f"V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+          f"V-cycle {vc:.3f} ms ({VC_CYCLES} back-to-back, 3 reps "
           f"{[round(t, 3) for t in vc_all]}); profiled busy {busy:.3f} ms "
           f"({nk} kernels): idle {max(0.0, 1 - busy / vc):.1%}; peak host "
           f"RSS {peak_rss_gb():.1f} GB; the L2 error runs on a host thread")
@@ -6049,7 +6100,7 @@ def flagship_amg(prob, niter_ref, vc_ref, cfg, launches):
         raise AssertionError(f"24a: FCG {niter} against {niter_ref}")
     add_launches(launches, path, ("t1_m", "t23_m", "t23_res_m"))
     vc, vc_all = vcycle_ms(hier)
-    print(f"    V-cycle {vc:.3f} ms (10 back-to-back, 3 reps "
+    print(f"    V-cycle {vc:.3f} ms ({VC_CYCLES} back-to-back, 3 reps "
           f"{[round(t, 3) for t in vc_all]}); phase 4's (fdm coarse) "
           f"{vc_ref:.3f} ms")
     del hier, u
@@ -6257,13 +6308,16 @@ def convdiff_phase(mesh42, launches, keep=None):
 
     cvel, out = (3.0, -1.5, 0.8), {}
 
-    def solve(mesh, degrees, kappa, cv, dtype, rtol, tag, kappa_src=2.0):
+    def solve(mesh, degrees, kappa, cv, dtype, rtol, tag, kappa_src=2.0,
+              b=None):
         # The source is the physical problem's (kappa_src); the hierarchy
-        # may carry a stabilized kappa, as in the driver.
+        # may carry a stabilized kappa, as in the driver. ``b``: the rhs
+        # an earlier solve on the mesh assembled (host numpy, float64).
         ts = time.perf_counter()
         hier = PMGHierarchy(mesh, degrees=degrees, kappa=kappa, dtype=dtype,
                             coarse="fdm", operator="kron", device="cuda")
-        b = assemble_rhs(mesh, degrees[-1], conv_source(kappa_src, cv))
+        if b is None:
+            b = assemble_rhs(mesh, degrees[-1], conv_source(kappa_src, cv))
         torch.cuda.synchronize()
         setup = time.perf_counter() - ts
         ts = time.perf_counter()
@@ -6286,7 +6340,7 @@ def convdiff_phase(mesh42, launches, keep=None):
         u32, h32, b = solve(mesh, (1, 3, 6), 2.0, cvel, torch.float32,
                             rtol32, f"{tag} f32")
         u64, h64, _ = solve(mesh, (1, 3, 6), 2.0, cvel, torch.float64,
-                            1e-10, f"{tag} f64")
+                            1e-10, f"{tag} f64", b=b)
         d = rel_max_err(u32.double(), u64)
         u_pred = conv_floor_gate(h32, h64, b, cvel, u32, u64, tag)
         return u32, u64, u_pred, d
@@ -7202,6 +7256,650 @@ def rank_phases(mesh15, launches):
     return out
 
 
+# --- phase 32: precision="high" (bf16x3) ------------------------------------
+
+# The HIGH kernels (launch-count name -> the JAX package's `high` branch it
+# ports) and the kernel each one instantiates with HIGH = true.
+_JKB = "pmg_dolfinx_tpu/ops/pallas_kron_blocked.py"
+_JLB = "pmg_dolfinx_tpu/ops/pallas_lattice_blocked.py"
+HIGH_KERNELS = {
+    "t1_m_high": f"{_JKB}:137 (_kernel_t1_m, if high; _dot3 at :57)",
+    "t23_m_high": f"{_JKB}:162 (_kernel_t23_m, if high)",
+    "t23_res_m_high": f"{_JKB}:195 (_kernel_t23_res_m, if high)",
+    "t1_high": f"{_JKB}:78 (_kernel_t1, if high)",
+    "t23_high": f"{_JKB}:100 (_kernel_t23, if high)",
+    "t23_res_high": f"{_JKB}:272 (_kernel_t23_res, if high)",
+    "t23_cheb_high": f"{_JKB}:237 (_kernel_t23_cheb, if high)",
+    "t23_grid_high": f"{_JKB}:326 (_kernel_t23_grid, if high)",
+    "t23_grid_m_high": f"{_JKB}:387 (_kernel_t23_grid_m, if high)",
+    "lattice_apply_high": (f"{_JLB}:55 (_mk_dot) in :69 _kernel_lattice "
+                           "'v1', the default at 'high' (:997); also :117 "
+                           "'yexp' and :191 _mk_split_dot 'ym'"),
+    "lattice_apply_zgrp_high": f"{_JLB}:358 (_kernel_lattice_zg, _mk_dot)",
+    "lattice_apply_geom_high": (f"{_JLB}:432 (_kernel_lattice_geom, "
+                                "dot = _mk_dot(high))"),
+}
+
+
+def high_build():
+    """Both HIGH libraries (kron_blocked.cu and lattice_blocked.cu built
+    with -DPMG_HIGH=1, in parallel): the clock at the end of each."""
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    def build(mod):
+        mod.load_kernels(high=True)
+        return time.perf_counter()
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        return [f.result() for f in [pool.submit(build, kb),
+                                     pool.submit(build, lb)]]
+
+
+def high_ptxas():
+    """The HIGH libraries' registers and spills, as `-Xptxas -v` printed
+    them: the main path's instantiations and every one that spills."""
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    spills = {}
+    for tag, log, keep, prefix in (
+            ("kron_blocked_high", kb.BUILD_LOG_HIGH,
+             ("kron_t1_mILi3E", "kron_t1_mILi6E", "kron_t23_mILi3E",
+              "kron_t23_mILi6E", "kron_t23ILi"), "kron_t"),
+            ("lattice_blocked_high", lb.BUILD_LOG_HIGH, ("lattice_march",),
+             "lattice_march")):
+        for line in ptxas_lines(log, keep, prefix, width=40):
+            print("    " + line)
+        lines = [ln.strip() for ln in log.splitlines() if "spill" in ln]
+        bad = [ln for ln in lines if " 0 bytes spill stores" not in ln]
+        spills[tag] = (len(bad), len(lines))
+        print(f"    {tag}: {len(bad)} of {len(lines)} kernels spill"
+              + (f", e.g. {bad[:2]}" if bad else ""))
+    return spills
+
+
+def high_check(name, got, ref, gap_to, split=True):
+    """A HIGH kernel's output against its plain 'high' version (relative
+    max norm <= KERNEL_RTOL, else raise) and its gap to the 'highest'
+    kernel's output ``gap_to`` (with ``split``, an output that went
+    through a split: the gap must lie in (1e-7, 1e-3)); returns (max abs
+    err, gap)."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = rel_max_err(got, ref)
+    gap = rel_max_err(got, gap_to)
+    print(f"    {name}: rel max err vs plain 'high' {err:.3e}; gap to "
+          f"'highest' {gap:.3e}")
+    if not err <= KERNEL_RTOL:
+        raise AssertionError(f"{name}: relative max-norm error {err:.3e} "
+                             f"> {KERNEL_RTOL}")
+    if split and not 1e-7 < gap < 1e-3:
+        raise AssertionError(f"{name}: gap to 'highest' {gap:.3e} outside "
+                             "(1e-7, 1e-3): the split does not act")
+    return float((got - ref).abs().max()), gap
+
+
+def high_time(row, kern_high, kern_highest, plain_high, bound):
+    """Device ms (`graph_ms`) of the HIGH kernel and of the 'highest' one
+    in turns (high, highest, highest, high), and the plain 'high' ms
+    (CUDA events), into ``row``."""
+    h1, g1, g2, h2 = (graph_ms(kern_high), graph_ms(kern_highest),
+                      graph_ms(kern_highest), graph_ms(kern_high))
+    row.update(ms=(h1 + h2) / 2, highest_ms=(g1 + g2) / 2,
+               plain_ms=cuda_ms(plain_high, reps=5, warmup=1),
+               bound_ms=bound[0], bound_by=bound[1])
+    print(f"    {row['shape']} {row['name']}: {row['ms']:.4f} ms device "
+          f"(turns {h1:.4f}, {h2:.4f}) vs 'highest' {row['highest_ms']:.4f} "
+          f"({g1:.4f}, {g2:.4f}); plain 'high' {row['plain_ms']:.4f} ms; "
+          f"bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{bound[0] / row['ms']:.0%}")
+
+
+def high_kron_kernels(rows, launches):
+    """32a, kernels #1-#9: each HIGH kernel against its plain 'high'
+    version at the main path's shapes (#1-#3 and #7 at 253^3 band 6, #4-#6
+    on a non-separable marker at 127^3, #8/#9 on the (2, 2, 2) stacked
+    layout of 127^3 shards); fills ``rows`` (kernel name -> its numbers
+    for the kernels line). The entry points' launches of #4-#6 and #8 on
+    the non-separable marker at 'high' (`blocked_kron_apply`,
+    `blocked_kron_residual`, `blocked_kron_apply_grid`) count in
+    ``launches``, each path's output checked against plain; the
+    comparisons' own launches do not."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.ops.kron import axis_stiffness_mass
+    from pmg_dolfinx_tpu_torch.parallel import grid2d as tg
+
+    def box(nc, masks):
+        mesh = BoxMesh((nc,) * 3)
+        Ks, ms = zip(*(axis_stiffness_mass(n, 6, h)
+                       for n, h in zip(mesh.nc, mesh.h_cells)))
+        fm = (kb.checked_face_masks(mesh, 6, mesh.boundary_dof_marker(6))
+              if masks else None)
+        m = kb.symmetrized_mats([2.0 * K for K in Ks], ms, torch.float32, fm,
+                                band=6, device=DEV)
+        return mesh, m
+
+    rng = np.random.default_rng(SEED + 32)
+    f32 = lambda s: torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                                 device=DEV)
+
+    def row(name, shape):
+        rows[name] = dict(name=name, shape=shape)
+        return rows[name]
+
+    # #1-#3 at 253^3.
+    mesh, m = box(42, True)
+    shape = mesh.lattice_shape(6)
+    x, r = f32(shape), f32(shape)
+    t1 = kb.plain_t1_m(x, m, True)
+    N = x.numel()
+    for name, kh, kg, plain in (
+            ("t1_m", lambda: kb.kron_t1_m(x, m, high=True),
+             lambda: kb.kron_t1_m(x, m), lambda: kb.plain_t1_m(x, m, True)),
+            ("t23_m", lambda: kb.kron_t23_m(x, t1, m, high=True),
+             lambda: kb.kron_t23_m(x, t1, m),
+             lambda: kb.plain_t23_m(x, t1, m, high=True)),
+            ("t23_res_m", lambda: kb.kron_t23_m(x, t1, m, r3=r, high=True),
+             lambda: kb.kron_t23_m(x, t1, m, r3=r),
+             lambda: r - kb.plain_t23_m(x, t1, m, high=True))):
+        rw = row(name + "_high", shape)
+        rw["max_abs_err"], rw["gap"] = high_check(name + "_high", kh(),
+                                                  plain(), kg())
+        high_time(rw, kh, kg, plain, kernel_bound(name, N, 6, high="kron"))
+    for sigma in (0.5,):
+        high_check("t23_m_high sigma=0.5",
+                   kb.kron_t23_m(x, t1, m, sigma, high=True),
+                   kb.plain_t23_m(x, t1, m, sigma, high=True),
+                   kb.kron_t23_m(x, t1, m, sigma))
+    # #7 at 253^3: the full-bc arrays, the box's marker.
+    _, mf = box(42, False)
+    bc = torch.tensor(mesh.boundary_dof_marker(6).reshape(shape),
+                      device=DEV)
+    dinv = f32(shape).abs() + 0.5
+    lm = torch.tensor(3.1, device=DEV)
+    t1f = kb.plain_t1(x, bc, mf, True)
+    coefs = kb.cheb_coefs(lm, 2, torch.float32, DEV)
+    cheb = lambda high: kb.kron_t23_cheb(x, bc, t1f, mf, r, r, dinv, lm, 2,
+                                         high=high)
+    plain_c = lambda: kb.plain_cheb_step(x, bc, r, r, dinv, coefs, mf,
+                                         t1=t1f, high=True)
+    rw = row("t23_cheb_high", shape)
+    errs = [high_check(f"t23_cheb_high ({o})", a, b, c, o != "x")
+            for o, a, b, c in zip("xrz", cheb(True), plain_c(), cheb(False))]
+    rw["max_abs_err"] = max(e[0] for e in errs)
+    rw["gap"] = max(e[1] for e in errs[1:])
+    high_time(rw, lambda: cheb(True)[1], lambda: cheb(False)[1],
+              lambda: plain_c()[1], kernel_bound("t23_cheb", N, 6,
+                                                 high="kron"))
+    del x, r, t1, t1f, dinv, bc, m, mf
+    # #4-#6 at 127^3 on a non-separable marker (the faces and ~1% of the
+    # interior).
+    mesh, mf = box(21, False)
+    shape = mesh.lattice_shape(6)
+    x, r = f32(shape), f32(shape)
+    bc = torch.tensor(mesh.boundary_dof_marker(6).reshape(shape)
+                      | (rng.random(shape) < 0.01), device=DEV)
+    t1 = kb.plain_t1(x, bc, mf, True)
+    N = x.numel()
+    reset(kb)
+    path = (kb.blocked_kron_apply(x, bc, mf, precision="high"),
+            kb.blocked_kron_residual(r, x, bc, mf, precision="high"))
+    torch.cuda.synchronize()
+    counts = dict(kb.LAUNCHES)
+    for tag, got, ref in (("apply", path[0], kb.plain_apply(x, bc, mf,
+                                                             high=True)),
+                          ("residual", path[1], kb.plain_residual(
+                              r, x, bc, mf, high=True))):
+        e = rel_max_err(got, ref)
+        print(f"    blocked_kron_{tag} at 'high', non-separable marker, "
+              f"127^3: rel max err vs plain 'high' {e:.3e}")
+        if not e <= KERNEL_RTOL:
+            raise AssertionError(f"blocked_kron_{tag} at 'high': {e:.3e}")
+    add_launches(launches, counts, ("t1_high", "t23_high", "t23_res_high"))
+    for name, kh, kg, plain in (
+            ("t1", lambda: kb.kron_t1(x, bc, mf, high=True),
+             lambda: kb.kron_t1(x, bc, mf),
+             lambda: kb.plain_t1(x, bc, mf, True)),
+            ("t23", lambda: kb.kron_t23(x, bc, t1, mf, high=True),
+             lambda: kb.kron_t23(x, bc, t1, mf),
+             lambda: kb.plain_t23(x, bc, t1, mf, high=True)),
+            ("t23_res", lambda: kb.kron_t23(x, bc, t1, mf, r3=r, high=True),
+             lambda: kb.kron_t23(x, bc, t1, mf, r3=r),
+             lambda: r - kb.plain_t23(x, bc, t1, mf, high=True))):
+        rw = row(name + "_high", shape)
+        rw["max_abs_err"], rw["gap"] = high_check(name + "_high", kh(),
+                                                  plain(), kg())
+        high_time(rw, kh, kg, plain, kernel_bound(name, N, 6, high="kron"))
+    # #8 / #9 on the (2, 2, 2) stacked layout of phase 14's grid (127^3
+    # shards of the 16.2M lattice), the x, y and z exchanges of `GridPMG`,
+    # sigma 0.5, apply and fused residual, against the same steps with the
+    # plain 'high' versions (`grid_plain_high`).
+    shards = (2, 2, 2)
+    grid = tg.StackedGrid(shards)
+    ex = dict(exchange_x=lambda t: tg._exchange_axis(t, grid, 0,
+                                                     inplace=True),
+              ex_y=tg._plane_exchange_pair(grid, 1),
+              ex_z=tg._plane_exchange_pair(grid, 2))
+    for name, masks in (("t23_grid_m", True), ("t23_grid", False)):
+        gmesh, part, gm = grid_mats((42,) * 3, 6, shards, masks)
+        blocks = kb.shard_blocks(gm)
+        stack = lambda a: tg.stack_shards(torch.as_tensor(
+            part.to_dist(6, a), device=DEV), shards)
+        xs = stack(rng.standard_normal(gmesh.num_dofs(6)).astype(np.float32))
+        rs = stack(rng.standard_normal(gmesh.num_dofs(6)).astype(np.float32))
+        marker = gmesh.boundary_dof_marker(6).astype(np.float32)
+        if not masks:
+            marker = np.maximum(marker, rng.random(marker.shape) < 0.01)
+        bcs = stack(marker) > 0.5
+        for rr in (None, rs):
+            run = lambda high: kb.blocked_kron_apply_grid(
+                xs, bcs, gm, precision="high" if high else "highest",
+                sigma=0.5, r3=rr, blocks=blocks, **ex)
+            ref = grid_plain_high(xs, bcs, gm, blocks, ex, 0.5, rr)
+            tag = f"{name}_high ({'residual' if rr is not None else 'apply'})"
+            reset(kb)
+            got = run(True)
+            if not masks:   # #8's path: the grid entry point at 'high'
+                launches[name + "_high"] += (kb.LAUNCHES["t23_grid_high"]
+                                             + kb.LAUNCHES[
+                                                 "t23_grid_res_high"])
+            e = high_check(tag, got, ref, run(False))
+            if rr is None:
+                rw = row(name + "_high", tuple(xs.shape))
+                rw["max_abs_err"], rw["gap"] = e
+        del xs, rs, bcs
+        # Kernel 2 alone on shard 0 with seeded corrections: the device
+        # ms beside 'highest' and the plain 'high' version's.
+        idx = (0, 0, 0)
+        m0 = blocks[idx]
+        x0 = f32(tuple(m0[k].shape[1] for k in ("Ktx", "Kty", "KtzT")))
+        b0 = torch.zeros(x0.shape, dtype=torch.bool, device=DEV)
+        b0[0], b0[:, 0], b0[:, :, 0] = True, True, True
+        t10 = kb.plain_t1_m(x0, m0, True) if masks else kb.plain_t1(
+            x0, b0, m0, True)
+        cy0, cz0 = f32((x0.shape[0], 2, x0.shape[2])), f32(
+            (x0.shape[0], x0.shape[1], 2))
+        if masks:
+            kh = lambda: kb.kron_t23_grid_m(x0, t10, m0, 0.5, cy0, cz0,
+                                            high=True)
+            kg = lambda: kb.kron_t23_grid_m(x0, t10, m0, 0.5, cy0, cz0)
+            plain = lambda: kb.plain_t23_grid_m(x0, t10, m0, 0.5, cy0, cz0,
+                                                high=True)
+        else:
+            kh = lambda: kb.kron_t23_grid(x0, b0, t10, m0, 0.5, cy0, cz0,
+                                          high=True)
+            kg = lambda: kb.kron_t23_grid(x0, b0, t10, m0, 0.5, cy0, cz0)
+            plain = lambda: kb.plain_t23_grid(x0, b0, t10, m0, 0.5, cy0, cz0,
+                                              high=True)
+        high_check(f"{name}_high (shard 0)", kh(), plain(), kg())
+        rw["shard_shape"] = tuple(x0.shape)
+        high_time(rw, kh, kg, plain, kernel_bound(
+            name, x0.numel(), 6, dims=tuple(x0.shape), high="kron"))
+
+
+def grid_plain_high(xs, bcs, gm, blocks, ex, sigma, r):
+    """`blocked_kron_apply_grid` at 'high' on the stacked layout, its
+    steps with the plain 'high' versions on the same device: the edge
+    partials exchanged into ``cy`` / ``cz``, kernel 1 per shard, the x
+    exchange, kernel 2 per shard (the residual ``r - A x`` when ``r``)."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+
+    sep = "sxzm" in gm
+    t2b, t3b = kb.edge_partials(xs, bcs, gm, True, True)
+    cy = torch.stack(ex["ex_y"](t2b[..., 0, :], t2b[..., 1, :]), dim=-2)
+    cz = torch.stack(ex["ex_z"](t3b[..., 0], t3b[..., 1]), dim=-1)
+    t1 = torch.empty_like(xs)
+    for idx, m in blocks.items():
+        t1[idx] = (kb.plain_t1_m(xs[idx], m, True) if sep
+                   else kb.plain_t1(xs[idx], bcs[idx], m, True))
+    t1 = ex["exchange_x"](t1)
+    out = torch.empty_like(xs)
+    for idx, m in blocks.items():
+        y = (kb.plain_t23_m(xs[idx], t1[idx], m, sigma, cy[idx], cz[idx],
+                            True) if sep else
+             kb.plain_t23(xs[idx], bcs[idx], t1[idx], m, sigma, cy[idx],
+                          cz[idx], True))
+        out[idx] = y if r is None else r[idx] - y
+    return out
+
+
+def high_lattice_kernels(rows, nc=42):
+    """32a, K-A / K-B: K-A with the 'v1' splits at 253^3 p=6 and 127^3
+    p=3 (and with the 'yexp' splits at 253^3), K-A on the z-grouped
+    geometry and K-B at 253^3, each against `plain_lattice_apply_high`. G
+    and Gz are seeded synthetic SPD geometry (the kernels' function does
+    not depend on where G came from); K-B reads the coefficients of
+    PerturbedBoxMesh((42,)*3)."""
+    import numpy as np
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    rng = np.random.default_rng(SEED + 320)
+
+    def spd_G(Q):
+        g = torch.empty((6,) + Q, device=DEV)
+        g[[0, 3, 5]] = 1.0 + torch.rand((3,) + Q, device=DEV)
+        g[[1, 2, 4]] = 0.3 * (2 * torch.rand((3,) + Q, device=DEV) - 1)
+        return g
+
+    for P, variants in ((6, ("v1", "yexp")), (3, ("v1",))):
+        mesh = PerturbedBoxMesh((nc,) * 3)
+        cells = (nc,) * 3
+        Q = tuple(c * (P + 1) for c in cells)
+        mats = lb.lattice_blocked_mats(cells, P, device=DEV)
+        bc = torch.tensor(mesh.boundary_dof_marker(P), device=DEV)
+        x = torch.tensor(rng.standard_normal(mesh.num_dofs(P),
+                                             dtype=np.float32), device=DEV)
+        N = x.numel()
+        Gt = spd_G(Q)
+        for variant in variants:
+            v1 = variant == "v1"
+            kh = lambda: lb.lattice_apply(x, bc, Gt, mats["D1"], cells, P,
+                                          high=True, v1=v1)
+            kg = lambda: lb.lattice_apply(x, bc, Gt, mats["D1"], cells, P)
+            plain = lambda: lb.plain_lattice_apply_high(
+                x, mats["D1"], torch.movedim(Gt, 0, -1), bc, cells, P, v1)
+            tag = f"lattice_apply_high ({variant}, {N} dofs, p={P})"
+            e = high_check(tag, kh(), plain(), kg())
+            if v1:
+                rw = rows.setdefault("lattice_apply_high", dict(
+                    name="lattice_apply_high", shape=(N, P),
+                    max_abs_err=0.0, gap=0.0, by_shape={}))
+                rw["max_abs_err"] = max(rw["max_abs_err"], e[0])
+                rw["gap"] = max(rw["gap"], e[1])
+                sub = dict(name="lattice_apply_high", shape=f"{N} p={P}")
+                high_time(sub, kh, kg, plain, kernel_bound(
+                    "lattice_apply", N, P, nc=cells, high="v1"))
+                rw["by_shape"][f"{N} p={P}"] = {
+                    k: sub[k] for k in ("ms", "highest_ms", "plain_ms",
+                                        "bound_ms", "bound_by")}
+                if P == 6:
+                    rw.update({k: sub[k] for k in (
+                        "ms", "highest_ms", "plain_ms", "bound_ms",
+                        "bound_by")})
+        del Gt
+        if P != 6:
+            continue
+        zb = lb.select_zgroup(nc, P)
+        zbn = zb * (P + 1)
+        Gz = spd_G(Q).permute(1, 0, 2, 3).reshape(
+            Q[0], 6, Q[1], Q[2] // zbn, zbn).permute(0, 1, 3, 2, 4).reshape(
+            Q[0], 6 * (Q[2] // zbn), Q[1], zbn).contiguous()
+        kh = lambda: lb.lattice_apply_zgrp(x, bc, Gz, mats["D1"], cells, P,
+                                           zb, high=True)
+        kg = lambda: lb.lattice_apply_zgrp(x, bc, Gz, mats["D1"], cells, P,
+                                           zb)
+        plain = lambda: lb.plain_lattice_apply_zgrp(x, mats, Gz, bc, cells,
+                                                    P, zb, high=True)
+        rw = rows["lattice_apply_zgrp_high"] = dict(
+            name="lattice_apply_zgrp_high", shape=f"{N} p={P} zb={zb}")
+        rw["max_abs_err"], rw["gap"] = high_check(
+            f"lattice_apply_zgrp_high (zb={zb})", kh(), plain(), kg())
+        high_time(rw, kh, kg, plain, kernel_bound(
+            "lattice_apply_zgrp", N, P, nc=cells, high="zgrp"))
+        del Gz
+        co = torch.tensor(lb.lattice_geom_coefficients(
+            mesh, P, np.full(mesh.ncells, 2.0)), dtype=torch.float32,
+            device=DEV)
+        _, xi, wx = lb.lattice_geom_data(cells, P, device=DEV)
+        kh = lambda: lb.lattice_apply_geom(x, bc, co, mats["D1"], cells, P,
+                                           xi, wx, high=True)
+        kg = lambda: lb.lattice_apply_geom(x, bc, co, mats["D1"], cells, P,
+                                           xi, wx)
+        plain = lambda: lb.plain_lattice_apply_geom(x, mats, co, bc, cells,
+                                                    P, high=True)
+        rw = rows["lattice_apply_geom_high"] = dict(
+            name="lattice_apply_geom_high", shape=f"{N} p={P}")
+        rw["max_abs_err"], rw["gap"] = high_check(
+            "lattice_apply_geom_high", kh(), plain(), kg())
+        high_time(rw, kh, kg, plain, kernel_bound(
+            "lattice_apply_geom", N, P, nc=cells, high="geom"))
+
+
+def high_graph_capture():
+    """A first HIGH launch of each kron_blocked form and of K-A inside a
+    CUDA graph capture equals the same launch outside it."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+
+    mesh = PerturbedBoxMesh((4, 5, 6))
+    op = lb.PallasLatticeBlocked(mesh, 3, precision="high", device=DEV)
+    x = torch.randn(op.ndofs, device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(SEED))
+    lb._RECORDS.clear()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = op(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(y, op(x)):
+        raise AssertionError("K-A HIGH: a first launch in graph capture "
+                             "differs from one outside it")
+    print("    K-A HIGH (v1): first launch inside a CUDA graph capture "
+          "equals the launch outside it")
+
+
+def run_pmg_driver(args, box=None, curved=None):
+    """``examples/pmg_torch.py`` through its ``main`` in this process (its
+    launches count here); with ``box`` / ``curved`` the mesh instance the
+    driver builds for the same cells (its cached host geometry; on the box
+    the driver's L2 error is computed on the card, `card_l2_error`).
+    Returns (its last JSON line, the `PoissonProblem` it built)."""
+    from pmg_dolfinx_tpu_torch.fem import mesh as fem_mesh
+    from pmg_dolfinx_tpu_torch.models import poisson
+
+    built = []
+
+    class Recorded(poisson.PoissonProblem):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            built.append(self)
+
+        def error_l2(self, u):
+            if box is None:
+                return super().error_l2(u)
+            return card_l2_error(self.mesh, self.degrees[-1], u,
+                                 self._u_exact)
+
+    def same(mesh):
+        def make(nc, dirichlet_faces=True, spacing=None):
+            if (tuple(nc) != tuple(mesh.nc) or dirichlet_faces is not True
+                    or spacing is not None):
+                raise AssertionError(f"the driver built {nc}, not {mesh.nc}")
+            return mesh
+        return make
+
+    saved = (poisson.PoissonProblem, poisson.BoxMesh,
+             fem_mesh.PerturbedBoxMesh)
+    poisson.PoissonProblem = Recorded
+    if box is not None:
+        poisson.BoxMesh = same(box)
+    if curved is not None:
+        fem_mesh.PerturbedBoxMesh = same(curved)
+    try:
+        out = run_example("pmg_torch", args)
+    finally:
+        (poisson.PoissonProblem, poisson.BoxMesh,
+         fem_mesh.PerturbedBoxMesh) = saved
+    return out, built[-1]
+
+
+def vcycle_turns(a, b):
+    """ms per V-cycle of hierarchies ``a`` and ``b`` (`vcycle_ms`: 10
+    back-to-back, median of 3) in turns a, b, b, a; returns (a ms, b ms,
+    the four)."""
+    a1, b1, b2, a2 = (vcycle_ms(h, cycles=10)[0] for h in (a, b, b, a))
+    return (a1 + a2) / 2, (b1 + b2) / 2, (a1, b1, b2, a2)
+
+
+def high_flagship(box, prob, hier, niter_ref, cfg, launches):
+    """32b: the flagship through `examples/pmg_torch.py --precision high
+    --pcg` on phase 4's mesh (kernels #1-#3 HIGH), held to phase 4's
+    'highest' hierarchy: FCG(V) to rtol 1e-6 within 1, ms per V-cycle in
+    turns, the relative residual after 16 stationary V-cycles at both
+    precisions (a finding, not a gate) and the stationary warning. The
+    driver's FCG solution solves the 'high' operator (its outer matvec is
+    the bf16x3 apply, as in JAX; on the CPU, JAX's own split FCG solution
+    lies as far from the exact one: `tests/test_torch_precision_high.py::
+    test_hierarchy_high_matches_split_jax`): its L2 error is a finding,
+    held below 1e-3; the refined solve at 'high' (f64 outer residual, the
+    mode JAX names for 'high') is held below 1e-4. Then the fused smoother
+    at 'high' (#4 + #7). Returns its numbers."""
+    import warnings
+
+    import torch
+
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    reset(kb)
+    out, prob_h = run_pmg_driver(
+        ["--ndofs", str(box.num_dofs(6)), "--degrees", "1", "3", "6",
+         "--coarse", "fdm", "--operator", "kron_blocked", "--precision",
+         "high", "--pcg", "--cycles", "50", "--device", DEV], box=box)
+    counts = dict(kb.LAUNCHES)
+    if any(counts[k] for k in ("t1_m", "t23_m", "t23_res_m")):
+        raise AssertionError(f"a 'highest' kernel ran at 'high': {counts}")
+    add_launches(launches, counts, ("t1_m_high", "t23_m_high",
+                                    "t23_res_m_high"))
+    hier_h = prob_h.hierarchy
+    if not out["l2_error"] < 1e-3:
+        raise AssertionError(f"32b: FCG L2 error {out['l2_error']}")
+    u_r, _ = hier_h.solve_refined(prob_h.b, num_cycles=12)
+    l2_ref = card_l2_error(box, 6, u_r, prob_h._u_exact)
+    if not l2_ref < 1e-4:
+        raise AssertionError(f"32b: refined L2 error {l2_ref}")
+    _, n_h = hier_h.solve_pcg(prob_h.b, rtol=1e-6, maxiter=50)
+    ms_h, ms_g, four = vcycle_turns(hier_h, hier)
+    r0 = float(torch.linalg.vector_norm(prob.b))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, rn_h = hier_h.solve(prob_h.b, num_cycles=16)
+    warned = any("stalls" in str(w.message) for w in caught)
+    _, rn_g = hier.solve(prob.b, num_cycles=16)
+    stat = (rn_h[-1] / r0, rn_g[-1] / r0)
+    print(f"    FCG(V) to rtol 1e-6: 'high' {n_h}, 'highest' {niter_ref} "
+          f"(phase 4); L2 error: the driver's FCG to 1e-8 "
+          f"{out['l2_error']:.4e} (the 'high' operator's solution), "
+          f"solve_refined at 'high' {l2_ref:.4e}; V-cycle 'high' "
+          f"{ms_h:.3f} ms vs 'highest' {ms_g:.3f} ms (turns "
+          f"{[round(t, 3) for t in four]}); 16 stationary V-cycles: rel "
+          f"residual 'high' {stat[0]:.4e}, 'highest' {stat[1]:.4e} "
+          f"({'the stall shows' if stat[0] > 10 * stat[1] else 'no stall'}"
+          f"); stationary warning raised: {warned}; launches {counts}")
+    if abs(n_h - niter_ref) > 1:
+        raise AssertionError(f"32b: FCG {n_h} at 'high' vs {niter_ref}")
+    if not warned:
+        raise AssertionError("32b: no stationary warning at 'high'")
+    del hier_h, prob_h, u_r
+    reset(kb)
+    fused = PMGHierarchy(box, operator="kron_blocked", fuse_smoother=True,
+                         precision="high", **cfg)
+    _, n_f = fused.solve_pcg(prob.b, rtol=1e-6, maxiter=50)
+    counts = dict(kb.LAUNCHES)
+    print(f"    fused smoother at 'high': FCG(V) to rtol 1e-6 {n_f}; "
+          f"launches {counts}")
+    if abs(n_f - niter_ref) > 1:
+        raise AssertionError(f"32b fused: FCG {n_f} vs {niter_ref}")
+    add_launches(launches, counts, ("t1_high", "t23_cheb_high"))
+    return dict(fcg_high=n_h, fcg_highest=niter_ref, l2=out["l2_error"],
+                l2_refined=l2_ref, vc_high=ms_h, vc_highest=ms_g,
+                stationary=stat,
+                warned=warned, fcg_fused_high=n_f)
+
+
+def high_curved(launches, nc=21):
+    """32c: curved_2M_p136 (PerturbedBoxMesh((21,)*3), p=(1,3,6),
+    lattice_blocked + cg) through `examples/pmg_torch.py --pcg` at 'high'
+    (K-A with the 'v1' splits) against the same hierarchy at 'highest'
+    (built on the driver's mesh, solving its rhs): FCG(V) to rtol 1e-6
+    within 1, ms per V-cycle in turns; then `mat_free_torch.py
+    --precision high` with the 'zgrp' (K-A on Gz, zb 7) and 'geom' (K-B)
+    variants on the same mesh (``nc`` cells per axis). Returns its
+    numbers."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_tpu_torch.ops import lattice_blocked as lb
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    mesh = PerturbedBoxMesh((nc,) * 3)
+    ndofs = str(mesh.num_dofs(6))
+    reset(lb)
+    _, p = run_pmg_driver(
+        ["--ndofs", ndofs, "--degrees", "1", "3", "6", "--mesh", "perturbed",
+         "--operator", "lattice_blocked", "--coarse", "cg", "--precision",
+         "high", "--pcg", "--cycles", "50", "--device", DEV], curved=mesh)
+    counts = dict(lb.LAUNCHES)
+    if counts["lattice_apply"]:
+        raise AssertionError(f"'highest' K-A ran at 'high': {counts}")
+    add_launches(launches, counts, ("lattice_apply_high",))
+    ref = PMGHierarchy(mesh, degrees=(1, 3, 6), kappa=2.0,
+                       dtype=torch.float32, coarse="cg",
+                       operator="lattice_blocked", device=DEV)
+    _, n_h = p.hierarchy.solve_pcg(p.b, rtol=1e-6, maxiter=50)
+    _, n_g = ref.solve_pcg(p.b, rtol=1e-6, maxiter=50)
+    ms_h, ms_g, four = vcycle_turns(p.hierarchy, ref)
+    print(f"    FCG(V) to rtol 1e-6: 'high' {n_h}, 'highest' {n_g}; V-cycle "
+          f"'high' {ms_h:.3f} ms vs 'highest' {ms_g:.3f} ms (turns "
+          f"{[round(t, 3) for t in four]})")
+    if abs(n_h - n_g) > 1:
+        raise AssertionError(f"32c: FCG {n_h} at 'high' vs {n_g}")
+    del p, ref
+    mf = {}
+    zb = str(next(z for z in (7, 5, 3, 2, 1) if nc % z == 0))
+    for variant, extra, name in (("zgrp", ["--zb", zb], "lattice_apply_zgrp"),
+                                 ("geom", [], "lattice_apply_geom")):
+        reset(lb)
+        mf[variant] = run_mat_free(
+            ["--ndofs", ndofs, "--degree", "6", "--mesh", "perturbed",
+             "--operator", "lattice_blocked", "--variant", variant, *extra,
+             "--precision", "high", "--reps", "20", "--device", DEV],
+            mesh)
+        add_launches(launches, dict(lb.LAUNCHES), (name + "_high",))
+    return dict(fcg_high=n_h, fcg_highest=n_g, vc_high=ms_h,
+                vc_highest=ms_g,
+                mat_free_ms={k: v["ms_per_apply"] for k, v in mf.items()})
+
+
+def high_grid(launches, nc=22):
+    """32d: `GridPMG(BoxMesh((22,)*3), (2,2,2), (1,3,6), float32,
+    kron_blocked, fdm, precision='high')` (31c's problem, 2,352,637 dofs,
+    on one process): one V-cycle on a seeded rhs and iterate against a
+    `PMGHierarchy` at 'high' at its smoother bounds (#1 / #9 HIGH)."""
+    import torch
+
+    from pmg_dolfinx_tpu_torch.fem.mesh import BoxMesh
+    from pmg_dolfinx_tpu_torch.ops import kron_blocked as kb
+    from pmg_dolfinx_tpu_torch.parallel.grid2d import GridPMG
+    from pmg_dolfinx_tpu_torch.solvers.pmg import PMGHierarchy
+
+    mesh = BoxMesh((nc,) * 3)
+    cfg = dict(degrees=(1, 3, 6), kappa=2.0, dtype=torch.float32,
+               coarse="fdm", operator="kron_blocked", precision="high",
+               device=DEV)
+    hier = PMGHierarchy(mesh, **cfg)
+    grid = GridPMG(mesh, (2, 2, 2), **cfg)
+    reset(kb)
+    grid_vcycle_parity(grid, hier, SEED + 32, "32d grid (2, 2, 2) at 'high'")
+    counts = dict(kb.LAUNCHES)
+    counts["t23_grid_m_high"] += counts["t23_grid_res_m_high"]
+    print(f"    launches: {counts}")
+    add_launches(launches, counts, ("t1_m_high", "t23_grid_m_high"))
+
+
 def main():
     import argparse
 
@@ -7276,8 +7974,16 @@ def main():
     build_pool = ThreadPoolExecutor(max_workers=len(builds))
     built = [build_pool.submit(timed_build, m) for m in builds]
     build_pool.shutdown(wait=False)
-    print(f"    nvcc started ({len(builds)} sources, in parallel); the "
-          "kernel-free phases 18a, 18c and 25f run on the card meanwhile")
+    # The precision='high' libraries (kron_blocked.cu and lattice_blocked.cu
+    # with -DPMG_HIGH=1) build beside them, joined in phase 32a: started
+    # later (before 25f) they were still building at 32a and slowed the
+    # join and phase 4 (PERF.md §4).
+    high_pool = ThreadPoolExecutor(max_workers=1)
+    high_job = (time.perf_counter(), high_pool.submit(high_build))
+    high_pool.shutdown(wait=False)
+    print(f"    nvcc started ({len(builds)} sources and the two HIGH "
+          "libraries, in parallel); the kernel-free phases 18a, 18c and 25f "
+          "run on the card meanwhile")
     done(t0)
     early = kernel_free_phases()
     t0 = phase("2 (joined). kernel build")
@@ -7438,7 +8144,7 @@ def main():
     if not all(kb.LAUNCHES[k] > 0 for k in ("t1_m", "t23_m", "t23_res_m")):
         raise AssertionError(f"a kernel was not launched: {kb.LAUNCHES}")
     vc_blk, vc_blk_all = vcycle_ms(hier)
-    print(f"    V-cycle {vc_blk:.3f} ms (kron_blocked kernels; 10 "
+    print(f"    V-cycle {vc_blk:.3f} ms (kron_blocked kernels; {VC_CYCLES} "
           f"back-to-back, 3 reps {[round(t, 3) for t in vc_blk_all]})")
     b1 = torch.ones_like(prob.b)
     hier.apply(b1, torch.zeros_like(b1))
@@ -7453,7 +8159,7 @@ def main():
     print(f"    plain kron PMGHierarchy setup seconds (no rhs): "
           f"{time.perf_counter() - ts:.2f}")
     vc_plain, vc_plain_all = vcycle_ms(plain_hier)
-    print(f"    V-cycle {vc_plain:.3f} ms (plain torch kron; 10 "
+    print(f"    V-cycle {vc_plain:.3f} ms (plain torch kron; {VC_CYCLES} "
           f"back-to-back, 3 reps {[round(t, 3) for t in vc_plain_all]})")
     # The f32 spread of two correct operators at this size (phase 14
     # compares the device grid against the same single-device trajectory).
@@ -7488,6 +8194,42 @@ def main():
     fused_transfer_path(prob, hier, fused, rel, rel_fused, niter, cfg,
                         launches)
     del fused, u_fused
+    done(t0)
+
+    t0 = phase("32a. precision='high': the HIGH kernels #1-#9, K-A and K-B "
+               "vs their plain 'high' versions (253^3, 127^3, the (2,2,2) "
+               "stack of 127^3 shards)")
+    launches.update({k: 0 for k in HIGH_KERNELS})
+    ts = time.perf_counter()
+    t_high, job = high_job
+    high_ends = job.result()
+    print(f"    HIGH libraries (nvcc started in phase 2): built in "
+          f"{max(high_ends) - t_high:.2f} s; joined after "
+          f"{time.perf_counter() - ts:.2f} s of waiting")
+    high_spills = high_ptxas()
+    high_rows = {}
+    high_kron_kernels(high_rows, launches)
+    high_lattice_kernels(high_rows)
+    high_graph_capture()
+    done(t0)
+
+    t0 = phase("32b. precision='high' flagship (run here, on phase 4's mesh "
+               "and hierarchy): examples/pmg_torch.py --precision high "
+               "--pcg, 16.2M dofs, p=(1,3,6), kron_blocked + fdm; the fused "
+               "smoother at 'high'")
+    high_flagship(box42, prob, hier, niter, cfg, launches)
+    done(t0)
+
+    t0 = phase("32c. precision='high' curved_2M_p136: examples/pmg_torch.py "
+               "--mesh perturbed, nc=21, lattice_blocked + cg, 'high' vs "
+               "'highest'; mat_free_torch.py --precision high, zgrp and geom")
+    high_curved(launches)
+    done(t0)
+
+    t0 = phase("32d. precision='high' GridPMG (2,2,2) on BoxMesh((22,)*3) "
+               "(2,352,637 dofs), kron_blocked + fdm, one V-cycle vs "
+               "PMGHierarchy at 'high'")
+    high_grid(launches)
     done(t0)
 
     t0 = phase("14. device-grid main path (run here, on phase 4's mesh, rhs "
@@ -7706,7 +8448,7 @@ def main():
     if not err < 1e-4:
         raise AssertionError(f"L2 error {err} too large")
     vc_lb, vc_lb_all = vcycle_ms(hier)
-    print(f"    V-cycle {vc_lb:.3f} ms (lattice_blocked kernels; 10 "
+    print(f"    V-cycle {vc_lb:.3f} ms (lattice_blocked kernels; {VC_CYCLES} "
           f"back-to-back, 3 reps {[round(t, 3) for t in vc_lb_all]}); "
           f"peak host RSS so far {peak_rss_gb():.1f} GB, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1024**3:.1f} GB")
@@ -7738,7 +8480,7 @@ def main():
     print(f"    plain lattice PMGHierarchy setup seconds (no rhs): "
           f"{time.perf_counter() - ts:.2f}")
     vc_plain, vc_plain_all = vcycle_ms(plain_hier)
-    print(f"    V-cycle {vc_plain:.3f} ms (plain torch lattice; 10 "
+    print(f"    V-cycle {vc_plain:.3f} ms (plain torch lattice; {VC_CYCLES} "
           f"back-to-back, 3 reps {[round(t, 3) for t in vc_plain_all]})")
     del plain_hier
     done(t0)
@@ -7971,6 +8713,29 @@ def main():
               f"{bound / ms:.0%} of the bound's rate"
               + ("" if dev is None else
                  f"; device {dev:.4f} ms, {bound / dev:.0%}"))
+    # The precision='high' kernels (phase 32a's numbers; ms is device time
+    # there, beside the 'highest' kernel's in the same turns).
+    for name in HIGH_KERNELS:
+        row = high_rows[name]
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        lib = ("kron_blocked_high" if name.startswith("t")
+               else "lattice_blocked_high")
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": SOURCES[name[:-len("_high")]],
+             "replaces": HIGH_KERNELS[name], "launches": launches[name],
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": None,
+             "highest_ms": row["highest_ms"], "gap_to_highest": row["gap"],
+             "shape": str(row["shape"]),
+             "spilling_kernels_of_library": high_spills[lib],
+             **({"by_shape": row["by_shape"]} if "by_shape" in row else {})})
+        print(f"    {name}: {row['ms']:.4f} ms device ('highest' "
+              f"{row['highest_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.0%}; "
+              f"launches {launches[name]}")
     print("    coefficient, unstructured and model families (FCG(V), ms "
           "per V-cycle; 25a/25e Newton steps, ms per step; 25b BiCGStab "
           "iterations, ms per iteration; 25c/25d steps/s, ms per step; 25f "

@@ -30,8 +30,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def parse_args(argv=None):
     """The command line (JAX `examples/mat_free.py`'s, ``--device`` in
-    place of ``--cpu``); ``--bcells`` and ``--precision`` take JAX's
-    defaults only and name why they refuse any other value."""
+    place of ``--cpu``); ``--bcells`` takes JAX's default only and
+    ``--precision`` 'highest' or 'high', each naming why it refuses any
+    other value."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ndofs", type=int, default=50000,
@@ -62,7 +63,12 @@ def parse_args(argv=None):
                         "only (a dead knob, not ported)")
     p.add_argument("--precision", choices=["highest", "high", "default"],
                    default="highest",
-                   help="'highest' (true f32 / f64 products) only")
+                   help="'highest': true f32 / f64 products. 'high': "
+                        "bf16x3 products (hi*hi + hi*lo + lo*hi, f32 sums, "
+                        "~1e-5 operator error) in the kron_blocked and "
+                        "lattice_blocked kernels; the einsum operators "
+                        "compute it in f32 / f64 (TF32 off). 'default' is "
+                        "refused")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.bcells != 1:
@@ -71,11 +77,11 @@ def parse_args(argv=None):
             "lattice_blocked kernel owns, a measured dead knob there; the "
             "CUDA kernels pick their own boxes, so only 1 is accepted "
             "(ROADMAP.md, 'Do not port')")
-    if args.precision != "highest":
+    if args.precision == "default":
         raise SystemExit(
-            f"--precision {args.precision}: the reduced-precision (bf16x3 "
-            "or single-pass) products are not ported yet (ROADMAP.md Queue "
-            "1 item 1); use 'highest'")
+            "--precision default: single-pass bf16 products, the TPU's "
+            "setting of the JAX package's XLA paths, are not ported; "
+            "ROADMAP.md Queue 1 item 1 ported 'highest' and 'high'")
     return args
 
 
@@ -104,7 +110,7 @@ def main(argv=None):
           f"{name}, operator {args.operator}"
           + (f" ({args.variant})" if args.variant else ""))
 
-    kw = dict(kappa=args.kappa, device=device)
+    kw = dict(kappa=args.kappa, precision=args.precision, device=device)
     if args.operator == "kron":
         from pmg_dolfinx_tpu_torch.ops.kron import KronLaplacian
 
@@ -127,7 +133,8 @@ def main(argv=None):
     else:
         from pmg_dolfinx_tpu_torch.ops.laplacian import MatFreeLaplacian
 
-        op = MatFreeLaplacian(mesh, P, dtype=dtype, **kw)
+        op = MatFreeLaplacian(mesh, P, dtype=dtype, kappa=args.kappa,
+                              device=device)
 
     x = torch.ones(nd, dtype=dtype, device=device)
     for _ in range(3):

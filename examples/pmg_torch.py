@@ -286,14 +286,14 @@ def parse_args(argv=None):
                         "kernel (CUDA only)")
     p.add_argument("--precision", choices=["highest", "high"],
                    default="highest",
-                   help="'highest' (true f32 / f64 products) only; 'high' "
-                        "(bf16x3 products) is not ported yet")
-    args = p.parse_args(argv)
-    if args.precision != "highest":
-        raise SystemExit(
-            f"--precision {args.precision}: the bf16x3 products are not "
-            "ported yet (ROADMAP.md Queue 1 item 1); use 'highest'")
-    return args
+                   help="'highest': true f32 / f64 products. 'high': "
+                        "bf16x3 products (hi*hi + hi*lo + lo*hi, f32 sums, "
+                        "~1e-5 operator error) in the kron_blocked and "
+                        "lattice_blocked kernels; the einsum backends "
+                        "compute it in f32 / f64 (TF32 off), the transfers "
+                        "stay 'highest'. The stationary iteration stalls "
+                        "with it above ~8M dofs; use --pcg or --refined")
+    return p.parse_args(argv)
 
 
 def main(argv=None):
@@ -365,7 +365,8 @@ def main(argv=None):
         prob = PoissonProblem(
             nc=nc, degrees=tuple(args.degrees), kappa=kappa,
             dtype=dtype, coarse=args.coarse, operator=args.operator, f=f,
-            mesh=mesh, sigma=sigma, coarse_cfg=coarse_cfg or None,
+            precision=args.precision, mesh=mesh, sigma=sigma,
+            coarse_cfg=coarse_cfg or None,
             smoother_iters=args.smoother_iters, smoother=args.smoother,
             u_exact=u_exact, robin_g=robin_g, device=device,
         )

@@ -120,17 +120,48 @@
 // of kernels 2 and #5/#6 take cy / cz and pick the GRID instantiation when
 // either is given.
 //
+// precision="high" (bf16x3, the `if high:` branches of the TPU kernels).
+// The same source built with -DPMG_HIGH=1 is a second library whose entry
+// points launch the HIGH = true instantiations (ops/kron_blocked.py builds
+// it the first time 'high' is asked for). Each operand of a contraction
+// that the TPU kernel splits -- Ktx and the masked, scaled w of kernels
+// #1/#4; Kty, KtzT and w^ of kron_t23_m and kron_t23 -- becomes (hi, lo) =
+// (bf16_rn(a), bf16_rn(a - hi)) (split_pack); the products hi*hi, hi*lo
+// and lo*hi are exact in f32, each is summed over the band in its own f32
+// accumulator (Acc3), the lo*lo product is dropped, and the three sums are
+// added as hh + (hl + lh): pallas_util.split_bf16 and _dot3. A split value
+// is held packed in one 32-bit word (hi in the high half, lo in the low
+// half), so the rings, the staged bands and the tiles keep their sizes;
+// the sigma term reads w^ in f32, recomputed from x and the scale as it
+// arrived. t1', the s3 scale, sigma and the epilogues stay f32.
+//
 // Every C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for a band the
 // tiles cannot hold) so the Python wrapper can raise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 #include <type_traits>
 
+#include "bf16x3.cuh"  // split_pack, hi_part, lo_part, Acc3
+
+#ifndef PMG_HIGH
+#define PMG_HIGH 0
+#endif
+
 namespace {
+
+// The instantiations this library's entry points launch (see the head).
+constexpr bool kHigh = PMG_HIGH != 0;
+
+// A value as the HIGH kernels keep it: split and packed, else as is.
+template <bool HIGH>
+__device__ __forceinline__ float keep(float a) {
+  return HIGH ? split_pack(a) : a;
+}
 
 constexpr int kTK = 32;           // tile extent along z (one warp)
 constexpr int kTR = 8;            // thread rows per block
@@ -179,9 +210,9 @@ __host__ __device__ constexpr int band_pad(int band) {
 }
 
 // Stage rows [r0, r0 + rows) of the band of the square n x n matrix K in
-// shared memory: sK[r][d] = K[r0 + r, r0 + r - BAND + d], zero outside
-// the matrix and in the padding.
-template <int BAND>
+// shared memory: sK[r][d] = K[r0 + r, r0 + r - BAND + d] (HIGH: split and
+// packed), zero outside the matrix and in the padding.
+template <int BAND, bool HIGH>
 __device__ __forceinline__ void stage_band(float* sK,
                                            const float* __restrict__ K,
                                            int r0, int rows, int n) {
@@ -190,26 +221,35 @@ __device__ __forceinline__ void stage_band(float* sK,
   for (int t = tid; t < rows * DP; t += kLanes * kWarps) {
     const int r = t / DP, d = t - r * DP;
     const int a = r0 + r, c = a - BAND + d;
-    sK[t] = (d < D && a < n && c >= 0 && c < n) ? K[(int64_t)a * n + c] : 0.f;
+    sK[t] = (d < D && a < n && c >= 0 && c < n)
+                ? keep<HIGH>(K[(int64_t)a * n + c])
+                : 0.f;
   }
 }
 
-// sum_d band[d] * v[d] as fmaf over d ascending from 0, the band row read
+// sum_d band[d] * v[d] as fmaf over d ascending from 0 (HIGH: Acc3 over
+// the packed splits, band first as in _dot3(K, w)), the band row read
 // from shared memory as float4 broadcasts.
-template <int BAND>
+template <int BAND, bool HIGH>
 __device__ __forceinline__ float band_dot(const float* sKrow, const float* v) {
   constexpr int D = 2 * BAND + 1, DP = band_pad(BAND);
   const float4* k4 = reinterpret_cast<const float4*>(sKrow);
   float acc = 0.f;
+  Acc3 acc3;
 #pragma unroll
   for (int q = 0; q < DP / 4; ++q) {
     const float4 c = k4[q];
     const float cs[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (4 * q + e < D) acc = fmaf(cs[e], v[4 * q + e], acc);
+    for (int e = 0; e < 4; ++e) {
+      if (4 * q + e >= D) continue;
+      if (HIGH)
+        acc3.add(cs[e], v[4 * q + e]);
+      else
+        acc = fmaf(cs[e], v[4 * q + e], acc);
+    }
   }
-  return acc;
+  return HIGH ? acc3.sum() : acc;
 }
 
 // Rows a thread's loads run ahead of its march: a slot's loads are
@@ -245,7 +285,8 @@ __host__ __device__ constexpr int t23_m_min_blocks(int band) {
 
 // FULL = false: kernel #1, w = x * (my_j * sxzm) with the separable mask;
 // FULL = true: kernel #4, w = where(bc, 0, x) * sxz with the bc lattice.
-template <int BAND, bool FULL>
+// HIGH: the ring and the Ktx band hold split_pack'ed values.
+template <int BAND, bool FULL, bool HIGH>
 __global__ void __launch_bounds__(kLanes * kWarps)
 kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
           const uint8_t* __restrict__ bc, const float* __restrict__ Ktx,
@@ -258,7 +299,7 @@ kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
   const int j = blockIdx.y * (kWarps / kw) + threadIdx.y / kw;
   const int a0 = blockIdx.z * chunk;
   const int a1 = min(a0 + chunk, NX);
-  stage_band<BAND>(sK, Ktx, a0, chunk, NX);
+  stage_band<BAND, HIGH>(sK, Ktx, a0, chunk, NX);
   __syncthreads();
   if (j >= NY || k >= NZ) return;
   const int64_t plane = (int64_t)NY * NZ;
@@ -297,9 +338,10 @@ kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
       fetch(s, an + U);
 #pragma unroll
       for (int d = 0; d + 1 < D; ++d) ring[d] = ring[d + 1];
-      ring[D - 1] = w;
+      ring[D - 1] = keep<HIGH>(w);
       const int a = an - BAND;
-      if (a >= a0) ol[a * plane] = band_dot<BAND>(sK + (a - a0) * DP, ring);
+      if (a >= a0)
+        ol[a * plane] = band_dot<BAND, HIGH>(sK + (a - a0) * DP, ring);
     }
   }
 }
@@ -308,8 +350,10 @@ kron_t1_m(const float* __restrict__ x, const float* __restrict__ myb,
 // (mx_i * s23m) and the epilogue x (1 - mx_i my_j mz_k) + y mx_i; FULL =
 // true: kernels #5, #6 and #8 with the bc lattice, w^ = where(bc, 0, x) *
 // s23 and the epilogue where(bc, x, y) (mx2, myb and mzrow are null, and
-// s23m is the unmasked s23).
-template <int BAND, bool RESIDUAL, bool GRID, bool FULL>
+// s23m is the unmasked s23). HIGH: the ring, the z ring rows of w^, kz
+// and the Kty band hold split_pack'ed values, and the sigma term
+// recomputes w^ from the raw x and s23m rows.
+template <int BAND, bool RESIDUAL, bool GRID, bool FULL, bool HIGH>
 __global__ void __launch_bounds__(kLanes * kWarps, t23_m_min_blocks(BAND))
 kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
            const uint8_t* __restrict__ bc, const float* __restrict__ t1,
@@ -337,7 +381,7 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
   const int i = blockIdx.y * (kWarps / kw) + threadIdx.y / kw;
   const int j0 = blockIdx.z * chunk;
   const int j1 = min(j0 + chunk, NY);
-  stage_band<BAND>(sKy, Kty, j0, chunk, NY);
+  stage_band<BAND, HIGH>(sKy, Kty, j0, chunk, NY);
   for (int t = threadIdx.y * kLanes + lane; t < chunk; t += kLanes * kWarps) {
     sSy[t] = j0 + t < NY ? sycol[j0 + t] : 0.f;
     if (!FULL) sMy[t] = j0 + t < NY ? myb[j0 + t] : 0.f;
@@ -352,7 +396,8 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const int kk = k - BAND + d;
-    kz[d] = (kin && kk >= 0 && kk < NZ) ? KtzT[(int64_t)kk * NZ + k] : 0.f;
+    kz[d] = (kin && kk >= 0 && kk < NZ) ? keep<HIGH>(KtzT[(int64_t)kk * NZ + k])
+                                        : 0.f;
   }
   // The z halo: lanes < BAND also load column k0 - BAND + lane, lanes >=
   // 32 - BAND column k0 + BAND + lane (2 BAND <= 32: one extra each).
@@ -444,30 +489,40 @@ kron_t23_m(const float* __restrict__ x, const float* __restrict__ mx2,
       const float tv = pt[s], rv = pr[s];
       fetch_far(s, jn + U);
       fetch_near(q, jn + kNear);
-      sW[slot * W + BAND + lane] = wv;
-      if (hpos >= 0) sW[slot * W + hpos] = hw;
+      const float wk = keep<HIGH>(wv);
+      sW[slot * W + BAND + lane] = wk;
+      if (hpos >= 0) sW[slot * W + hpos] = keep<HIGH>(hw);
       sX[slot * kLanes + lane] = xv;
       sS[slot * kLanes + lane] = sring;
 #pragma unroll
       for (int d = 0; d + 1 < D; ++d) ring[d] = ring[d + 1];
-      ring[D - 1] = wv;
+      ring[D - 1] = wk;
       __syncwarp();
       const int j = jn - BAND;       // the row whose window is complete
       const int sj = slot >= BAND ? slot - BAND : slot + BAND + 1;
       if (++slot == D) slot = 0;
       if (j < j0) continue;
-      const float t2 = band_dot<BAND>(sKy + (j - j0) * DP, ring);
+      const float t2 = band_dot<BAND, HIGH>(sKy + (j - j0) * DP, ring);
       const float* srow = sW + sj * W + lane;
       float t3 = 0.f;
+      Acc3 t33;   // HIGH: _dot3(w^, KtzT), w^ first
 #pragma unroll
-      for (int d = 0; d < D; ++d) t3 = fmaf(srow[d], kz[d], t3);
+      for (int d = 0; d < D; ++d) {
+        if (HIGH)
+          t33.add(srow[d], kz[d]);
+        else
+          t3 = fmaf(srow[d], kz[d], t3);
+      }
+      if (HIGH) t3 = t33.sum();
       const float xj = sX[sj * kLanes + lane];
       const float sring_j = sS[sj * kLanes + lane];
       const float sj23 = FULL ? fabsf(sring_j) : sring_j;
       const bool bcj = FULL && __float_as_int(sring_j) < 0;
       if (BAND == 0) __syncwarp();   // the next row reuses the only slot
       if (!kin) continue;
-      const float what = ring[BAND];
+      const float what = !HIGH ? ring[BAND]
+                         : FULL ? (bcj ? 0.f : xj * sj23)
+                                : xj * (mxi * sj23);
       float acc = sSy[j - j0] * tv + sxi * (t2 + t3);
       if (sigma != 0.f) acc = acc + (sigma * sxi) * what;
       if (GRID) acc = grid_corrections(acc, sxi, cy, cz, i, j, k, NY, NZ);
@@ -484,7 +539,9 @@ enum T23Mode { kApply = 0, kResidual = 1, kCheb = 2 };
 
 // kron_t23_m with the full bc lattice and three epilogues (see the head of
 // this file). Unused pointers of a mode are null.
-template <int MODE, bool GRID>
+// HIGH: the tile of w^ and the bands of Kty and KtzT hold split_pack'ed
+// values, and the sigma term recomputes w^ from v and s23.
+template <int MODE, bool GRID, bool HIGH>
 __global__ void __launch_bounds__(kTK * kTR)
 kron_t23(const float* __restrict__ v, const uint8_t* __restrict__ bc,
          const float* __restrict__ t1, const float* __restrict__ Kty,
@@ -519,16 +576,20 @@ kron_t23(const float* __restrict__ v, const uint8_t* __restrict__ bc,
       const int64_t o = (int64_t)jj * NZ + kk;
       w = bci_pl[o] ? 0.f : vi_pl[o] * s23[o];
     }
-    sw[t] = w;
+    sw[t] = keep<HIGH>(w);
   }
   for (int t = tid; t < D * kRows; t += kTK * kTR) {
     const int d = t / kRows, rj = t % kRows;
     const int j = j0 + rj, jj = j - band + d;
-    sKy[t] = (j < NY && jj >= 0 && jj < NY) ? Kty[(int64_t)j * NY + jj] : 0.f;
+    sKy[t] = (j < NY && jj >= 0 && jj < NY)
+                 ? keep<HIGH>(Kty[(int64_t)j * NY + jj])
+                 : 0.f;
   }
   for (int t = tid; t < D * kTK; t += kTK * kTR) {
     const int d = t / kTK, kc = k0 + t % kTK, kk = kc - band + d;
-    sKz[t] = (kc < NZ && kk >= 0 && kk < NZ) ? KtzT[(int64_t)kk * NZ + kc] : 0.f;
+    sKz[t] = (kc < NZ && kk >= 0 && kk < NZ)
+                 ? keep<HIGH>(KtzT[(int64_t)kk * NZ + kc])
+                 : 0.f;
   }
   // The Chebyshev coefficients, as the JAX package computes them in f32.
   float gamma = 0.f, ca = 0.f, cb = 0.f;
@@ -550,16 +611,26 @@ kron_t23(const float* __restrict__ v, const uint8_t* __restrict__ bc,
     const int j = j0 + rj;
     if (j >= NY) break;
     float t2 = 0.f, t3 = 0.f;
-    for (int d = 0; d < D; ++d)
-      t2 = fmaf(sKy[d * kRows + rj], sw[(rj + d) * W + tx + band], t2);
     const float* srow = sw + (rj + band) * W + tx;
-    for (int d = 0; d < D; ++d)
-      t3 = fmaf(srow[d], sKz[d * kTK + tx], t3);
+    if (HIGH) {   // _dot3(Kty, w^) and _dot3(w^, KtzT)
+      Acc3 a2, a3;
+      for (int d = 0; d < D; ++d)
+        a2.add(sKy[d * kRows + rj], sw[(rj + d) * W + tx + band]);
+      for (int d = 0; d < D; ++d) a3.add(srow[d], sKz[d * kTK + tx]);
+      t2 = a2.sum();
+      t3 = a3.sum();
+    } else {
+      for (int d = 0; d < D; ++d)
+        t2 = fmaf(sKy[d * kRows + rj], sw[(rj + d) * W + tx + band], t2);
+      for (int d = 0; d < D; ++d)
+        t3 = fmaf(srow[d], sKz[d * kTK + tx], t3);
+    }
 
     const int64_t o = (int64_t)j * NZ + k;
     const int64_t idx = (int64_t)i * plane + o;
     const float vv = vi_pl[o];
-    const float what = srow[band];
+    const float what =
+        HIGH ? (bci_pl[o] ? 0.f : vv * s23[o]) : srow[band];
     float acc = sycol[j] * t1[idx] + sxi * (t2 + t3);
     if (sigma != 0.f) acc = acc + (sigma * sxi) * what;
     if (GRID) acc = grid_corrections(acc, sxi, cy, cz, i, j, k, NY, NZ);
@@ -682,7 +753,7 @@ int launch_t1_m(const float* x, const float* myb, const uint8_t* bc,
   return with_band<kMaxBand>(band, [&](auto b) {
     constexpr int B = decltype(b)::value;
     const size_t smem = sizeof(float) * chunk * band_pad(B);
-    kron_t1_m<B, FULL><<<march_grid(NZ, NY, NX, chunk, kw),
+    kron_t1_m<B, FULL, kHigh><<<march_grid(NZ, NY, NX, chunk, kw),
                          dim3(kLanes, kWarps), smem, stream>>>(
         x, myb, bc, Ktx, sxz, out, NX, NY, NZ, chunk, kw);
     return (int)cudaGetLastError();
@@ -707,10 +778,11 @@ int launch_t23_m(const float* x, const float* mx2, const uint8_t* bc,
   constexpr int kMax = FULL ? kT23MarchMaxBand : kMaxBand;
   return with_band<kMax>(band, [&](auto b) {
     constexpr int B = decltype(b)::value;
-    auto kern = r == nullptr ? (grid ? kron_t23_m<B, false, true, FULL>
-                                     : kron_t23_m<B, false, false, FULL>)
-                             : (grid ? kron_t23_m<B, true, true, FULL>
-                                     : kron_t23_m<B, true, false, FULL>);
+    auto kern = r == nullptr
+        ? (grid ? kron_t23_m<B, false, true, FULL, kHigh>
+                : kron_t23_m<B, false, false, FULL, kHigh>)
+        : (grid ? kron_t23_m<B, true, true, FULL, kHigh>
+                : kron_t23_m<B, true, false, FULL, kHigh>);
     // One opt-in per variant and device, for the longest chunk.
     static std::atomic<uint64_t> granted[2][2];
     if (int rc = allow_smem(kern, t23_m_smem(B, kLongChunk), card.dev,
@@ -729,6 +801,9 @@ int launch_t23_m(const float* x, const float* mx2, const uint8_t* bc,
 extern "C" {
 
 int kron_max_band() { return kMaxBand; }
+
+// 1 in the precision="high" library (built with -DPMG_HIGH=1), else 0.
+int kron_high() { return kHigh ? 1 : 0; }
 
 int kron_t1_m_launch(const float* x, const float* myb, const float* Ktx,
                      const float* sxzm, float* out, int NX, int NY, int NZ,
@@ -774,8 +849,9 @@ int kron_t23_launch(const float* v, const uint8_t* bc, const float* t1,
   if (band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
   const bool grid = cy != nullptr || cz != nullptr;
   auto kern = r == nullptr
-      ? (grid ? kron_t23<kApply, true> : kron_t23<kApply, false>)
-      : (grid ? kron_t23<kResidual, true> : kron_t23<kResidual, false>);
+      ? (grid ? kron_t23<kApply, true, kHigh> : kron_t23<kApply, false, kHigh>)
+      : (grid ? kron_t23<kResidual, true, kHigh>
+              : kron_t23<kResidual, false, kHigh>);
   kern<<<tile_grid(NZ, NY, NX), dim3(kTK, kTR), t23_smem(band),
          (cudaStream_t)stream>>>(v, bc, t1, Kty, KtzT, sx2d, sycol, s23, cy,
                                  cz, r, nullptr, nullptr, nullptr, 0, out,
@@ -793,7 +869,7 @@ int kron_t23_cheb_launch(const float* v, const uint8_t* bc, const float* t1,
                          int NZ, int band, float sigma, void* stream) {
   if (band < 0 || band > kMaxBand || kstep < 0)
     return (int)cudaErrorInvalidValue;
-  kron_t23<kCheb, false><<<tile_grid(NZ, NY, NX), dim3(kTK, kTR),
+  kron_t23<kCheb, false, kHigh><<<tile_grid(NZ, NY, NX), dim3(kTK, kTR),
                            t23_smem(band), (cudaStream_t)stream>>>(
       v, bc, t1, Kty, KtzT, sx2d, sycol, s23, nullptr, nullptr, r, x, dinv,
       lmax, kstep, ro, xo, zo, NX, NY, NZ, band, sigma);

@@ -70,15 +70,52 @@
 // Sums run in true f32 FMA on the CUDA cores (precision="highest"); they
 // differ from the plain torch version (dense einsums) only in order.
 //
+// precision="high" (bf16x3, the TPU kernels' `high` flag). The same
+// source built with -DPMG_HIGH=1 is a second library whose entry points
+// launch lattice_march<N, GEO, true> (ops/lattice_blocked.py builds it the
+// first time 'high' is asked for). The TPU kernels split both operands of
+// each contraction they hand the MXU (_mk_dot: hi = bf16_rn(a), lo =
+// bf16_rn(a - hi), the products hi*hi + (hi*lo + lo*hi) each summed in
+// f32, lo*lo dropped); on this card's per-cell sums that is, per
+// quadrature point and dof:
+//   u   -> hi(u) + lo(u)              (the expansion dot with E, 0/1)
+//   ux  =  sum D u                    (f32: the TPU kernel's VPU sum)
+//   uy  =  'yexp', 'ym', 'zgrp', 'geom': sum D u (f32, block-D1 VPU sum);
+//          'v1' (GEO kGtV1): bf16x3 sum D u (its Dy dot)
+//   uz  =  bf16x3 sum u D (the DzT dot); 'v1' then hi + lo of it (its Ey)
+//   bx  =  sum D^T t_x (f32)
+//   s   =  bx + sum D^T t_y (f32) ; 'v1': hi(bx) + lo(bx) + bf16x3 sum
+//          D^T t_y (its EyT and DyT dots)
+//   y   =  hi(s) + lo(s) + bf16x3 sum t_z D^T (the Ez and Dz dots)
+// and G, the geometry of K-B and the folds stay f32. 'v1' folds y across
+// the cells of a y-face before its z dots split the sum; here each cell's
+// value is split before the fold, which differs only in those last bits.
+//
 // Every C entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (cudaErrorInvalidValue for a degree or a
 // plan that is not supported) so the Python wrapper can raise. The face
 // scratch holds lattice_scratch_bytes; it needs no initial value.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16x3.cuh"  // split_pack, hi_part, lo_part, Acc3
+
+#ifndef PMG_HIGH
+#define PMG_HIGH 0
+#endif
+
 namespace {
+
+// The instantiations this library's entry points launch (see the head).
+constexpr bool kHigh = PMG_HIGH != 0;
+
+// hi(a) + lo(a): a's product with a 0/1 matrix in bf16x3 (exact sum).
+__device__ __forceinline__ float round16(float a) {
+  const float p = split_pack(a);
+  return hi_part(p) + lo_part(p);
+}
 
 constexpr int kCo = 37;             // per-cell coefficients of K-B
 constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory per block
@@ -88,6 +125,7 @@ constexpr int kFaceThreads = 256;   // threads per block of lattice_faces
 constexpr int kGt = 0;      // G (6, Qx, Qy, Qz)                    (K-A)
 constexpr int kGeom = 1;    // rebuilt from co (37, ncx, ncy, ncz)  (K-B)
 constexpr int kZgrp = 2;    // Gz (Qx, 6*ngz, Qy, zb*n), z-grouped  (K-A)
+constexpr int kGtV1 = 3;    // G as kGt, with 'v1''s splits (K-A, HIGH only)
 
 // The launch plan and the face scratch's layout. Axis a = 0, 1, 2 is x,
 // y, z; a set of shared axes A is a bit mask (x = 1, y = 2, z = 4). All
@@ -215,7 +253,7 @@ __host__ __device__ inline size_t block_smem(int N, int geo, int LP,
   return sizeof(float) * ((size_t)4 * N * LP + extra) + (size_t)2 * N * LP;
 }
 
-template <int N, int GEO>
+template <int N, int GEO, bool HIGH>
 __global__ void __launch_bounds__(max_threads(N, GEO), min_blocks(N, GEO))
 lattice_march(const float* __restrict__ x, const unsigned char* __restrict__ bc,
               const float* __restrict__ G, const float* __restrict__ co,
@@ -225,12 +263,16 @@ lattice_march(const float* __restrict__ x, const unsigned char* __restrict__ bc,
   constexpr bool GEOM = GEO == kGeom;
   constexpr bool STAGE = stages_g(N, GEO);
   constexpr bool GREG = !GEOM && !STAGE;
+  constexpr bool V1 = GEO == kGtV1;
   constexpr int P = N - 1;
   constexpr int N4 = (N + 3) / 4 * 4;               // padded row
   constexpr int KC = (kCo + N * N - 1) / (N * N);  // coefficients a thread
   extern __shared__ float smem[];
   __shared__ __align__(16) float sD[N][N4];         // D[i][q]
   __shared__ __align__(16) float sDT[N][N4];        // D[q][i]
+  // HIGH: the same, split_pack'ed.
+  __shared__ __align__(16) float sDp[HIGH ? N : 1][N4];
+  __shared__ __align__(16) float sDTp[HIGH ? N : 1][N4];
   __shared__ float sq[2][N];        // GLL points, weights (K-B)
   __shared__ int s_off[8];          // p.slot (indexed at run time)
 
@@ -280,6 +322,10 @@ lattice_march(const float* __restrict__ x, const unsigned char* __restrict__ bc,
   for (int t = tid; t < N * N; t += L) {
     sD[t / N][t % N] = D1[t];
     sDT[t % N][t / N] = D1[t];
+    if constexpr (HIGH) {
+      sDp[t / N][t % N] = split_pack(D1[t]);
+      sDTp[t % N][t / N] = split_pack(D1[t]);
+    }
   }
   if (GEOM && tid < 2 * N) sq[tid / N][tid % N] = gll[tid];
   for (int t = tid; t < 8; t += L) s_off[t] = p.slot[t];
@@ -367,6 +413,7 @@ lattice_march(const float* __restrict__ x, const unsigned char* __restrict__ bc,
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       u[i] = m[i] ? 0.f : u[i];
+      if (HIGH) u[i] = round16(u[i]);
       su[i * LP + sl] = u[i];
       mk[i * LP + sl] = m[i];
     }
@@ -401,9 +448,13 @@ lattice_march(const float* __restrict__ x, const unsigned char* __restrict__ bc,
         }
         wjk = sq[1][j] * sq[1][k] * c0[(kCo - 1) * BB];
       }
-      float Dj[N], Dk[N];
+      float Dj[N], Dk[N], Djp[HIGH ? N : 1], Dkp[HIGH ? N : 1];
       load_row<N>(sD[j], Dj);
       load_row<N>(sD[k], Dk);
+      if constexpr (HIGH) {
+        load_row<N>(sDp[j], Djp);
+        load_row<N>(sDp[k], Dkp);
+      }
       const float* uyp = su + cyl * N * LZP + czl * ZP + k;
       const float* uzp = su + ly * LZP + czl * ZP;
 #pragma unroll
@@ -412,11 +463,27 @@ lattice_march(const float* __restrict__ x, const unsigned char* __restrict__ bc,
         load_row<N>(sD[i], Di);
         load_row<N>(uzp + i * LP, uk);
         float ux = 0.f, uy = 0.f, uz = 0.f;
+        if constexpr (HIGH) {
+          Acc3 ay, az;
 #pragma unroll
-        for (int q = 0; q < N; ++q) {
-          ux = fmaf(Di[q], u[q], ux);
-          uy = fmaf(Dj[q], uyp[i * LP + q * LZP], uy);
-          uz = fmaf(Dk[q], uk[q], uz);
+          for (int q = 0; q < N; ++q) {
+            ux = fmaf(Di[q], u[q], ux);
+            const float vy = uyp[i * LP + q * LZP];
+            if (V1)
+              ay.add(Djp[q], split_pack(vy));
+            else
+              uy = fmaf(Dj[q], vy, uy);
+            az.add(split_pack(uk[q]), Dkp[q]);
+          }
+          if (V1) uy = ay.sum();
+          uz = V1 ? round16(az.sum()) : az.sum();
+        } else {
+#pragma unroll
+          for (int q = 0; q < N; ++q) {
+            ux = fmaf(Di[q], u[q], ux);
+            uy = fmaf(Dj[q], uyp[i * LP + q * LZP], uy);
+            uz = fmaf(Dk[q], uk[q], uz);
+          }
         }
         float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f, g4 = 0.f, g5 = 0.f;
         if (valid) {
@@ -479,9 +546,13 @@ lattice_march(const float* __restrict__ x, const unsigned char* __restrict__ bc,
     // that do not own their dofs hand their values to the owners.
     float yl[N];
     {
-      float Djt[N], Dkt[N];
+      float Djt[N], Dkt[N], Djtp[HIGH ? N : 1], Dktp[HIGH ? N : 1];
       load_row<N>(sDT[j], Djt);
       load_row<N>(sDT[k], Dkt);
+      if constexpr (HIGH) {
+        load_row<N>(sDTp[j], Djtp);
+        load_row<N>(sDTp[k], Dktp);
+      }
       const float* typ = sty + cyl * N * LZP + czl * ZP + k;
       const float* tzp = stz + ly * LZP + czl * ZP;
 #pragma unroll
@@ -490,11 +561,28 @@ lattice_march(const float* __restrict__ x, const unsigned char* __restrict__ bc,
         load_row<N>(sDT[i], Dit);
         load_row<N>(tzp + i * LP, tk);
         float y = 0.f;
+        if constexpr (HIGH) {
+          float bx = 0.f, by = 0.f;
+          Acc3 ay, az;
 #pragma unroll
-        for (int q = 0; q < N; ++q) {
-          y = fmaf(Dit[q], tx[q], y);
-          y = fmaf(Djt[q], typ[i * LP + q * LZP], y);
-          y = fmaf(Dkt[q], tk[q], y);
+          for (int q = 0; q < N; ++q) {
+            bx = fmaf(Dit[q], tx[q], bx);
+            const float ty = typ[i * LP + q * LZP];
+            if (V1)
+              ay.add(Djtp[q], split_pack(ty));
+            else
+              by = fmaf(Djt[q], ty, by);
+            az.add(split_pack(tk[q]), Dktp[q]);
+          }
+          const float s = V1 ? round16(bx) + ay.sum() : bx + by;
+          y = round16(s) + az.sum();
+        } else {
+#pragma unroll
+          for (int q = 0; q < N; ++q) {
+            y = fmaf(Dit[q], tx[q], y);
+            y = fmaf(Djt[q], typ[i * LP + q * LZP], y);
+            y = fmaf(Dkt[q], tk[q], y);
+          }
         }
         if (i == 0) y = carry + y;
         if (i == P) carry = y;
@@ -587,15 +675,16 @@ lattice_faces(const float* __restrict__ x, const unsigned char* __restrict__ bc,
   out[o] = (p.apply_bc && m) ? x[o] : v;
 }
 
-// Lets lattice_march<N, GEO> take `smem` bytes of dynamic shared memory
-// (above 48 KB only after an opt-in, made once per size and process).
+// Lets lattice_march<N, GEO, kHigh> take `smem` bytes of dynamic shared
+// memory (above 48 KB only after an opt-in, made once per size and
+// process).
 template <int N, int GEO>
 int opt_in(size_t smem) {
   static size_t granted = 48 * 1024;
   if (smem <= granted) return 0;
   const int err = (int)cudaFuncSetAttribute(
-      lattice_march<N, GEO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      lattice_march<N, GEO, kHigh>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == 0) granted = smem;
   return err;
 }
@@ -612,7 +701,7 @@ int launch(const float* x, const unsigned char* bc, const float* G,
   int err = opt_in<N, GEO>(smem);
   if (err != 0) return err;
   const dim3 grid((unsigned)p.nb[2], (unsigned)p.nb[1], (unsigned)p.nb[0]);
-  lattice_march<N, GEO><<<grid, dim3(LZ, LY), smem, stream>>>(
+  lattice_march<N, GEO, kHigh><<<grid, dim3(LZ, LY), smem, stream>>>(
       x, bc, G, co, D1, gll, out, scratch, p);
   err = (int)cudaGetLastError();
   if (err != 0 || p.face[8] == 0) return err;
@@ -663,6 +752,22 @@ int apply(const float* x, const unsigned char* bc, const float* G,
   }
 }
 
+// K-A on G: the 'v1' splits (kGtV1) when HIGH and asked for, else kGt;
+// the 'highest' library instantiates no kGtV1 kernel.
+template <bool H>
+int apply_gt(const float* x, const unsigned char* bc, const float* Gt,
+             const float* D1, float* out, void* scratch, int P, int ncx,
+             int ncy, int ncz, int Sx, int By, int Bz, int apply_bc, int v1,
+             cudaStream_t stream) {
+  if constexpr (H) {
+    if (v1)
+      return apply<kGtV1>(x, bc, Gt, nullptr, D1, nullptr, out, scratch, P,
+                          ncx, ncy, ncz, 1, Sx, By, Bz, apply_bc, stream);
+  }
+  return apply<kGt>(x, bc, Gt, nullptr, D1, nullptr, out, scratch, P, ncx,
+                    ncy, ncz, 1, Sx, By, Bz, apply_bc, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -679,14 +784,19 @@ int64_t lattice_scratch_bytes(int P, int ncx, int ncy, int ncz, int Sx,
 }
 
 // K-A: out = A x with the weighted geometry Gt (6, Qx, Qy, Qz), on boxes
-// of Sx x By x Bz cells; scratch of lattice_scratch_bytes.
+// of Sx x By x Bz cells; scratch of lattice_scratch_bytes. v1 != 0 in the
+// HIGH library: the splits of the TPU's 'v1' kernel (see the head).
 int lattice_apply_launch(const float* x, const unsigned char* bc,
                          const float* Gt, const float* D1, void* scratch,
                          float* out, int P, int ncx, int ncy, int ncz,
-                         int Sx, int By, int Bz, int apply_bc, void* stream) {
-  return apply<kGt>(x, bc, Gt, nullptr, D1, nullptr, out, scratch, P, ncx,
-                    ncy, ncz, 1, Sx, By, Bz, apply_bc, (cudaStream_t)stream);
+                         int Sx, int By, int Bz, int apply_bc, int v1,
+                         void* stream) {
+  return apply_gt<kHigh>(x, bc, Gt, D1, out, scratch, P, ncx, ncy, ncz, Sx,
+                         By, Bz, apply_bc, v1, (cudaStream_t)stream);
 }
+
+// 1 in the precision="high" library (built with -DPMG_HIGH=1), else 0.
+int lattice_high() { return kHigh ? 1 : 0; }
 
 // K-A on the z-grouped geometry Gz (Qx, 6*ngz, Qy, zb*(P+1)), ngz = ncz/zb.
 int lattice_apply_zgrp_launch(const float* x, const unsigned char* bc,
@@ -725,13 +835,13 @@ int lattice_blocks_per_sm(int geo, int P, int By, int Bz) {
   case NN - 1:                                                              \
     if (geo == kGt && opt_in<NN, kGt>(smem) == 0)                           \
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(                        \
-          &blocks, lattice_march<NN, kGt>, threads, smem);                  \
+          &blocks, lattice_march<NN, kGt, kHigh>, threads, smem);           \
     else if (geo == kGeom && opt_in<NN, kGeom>(smem) == 0)                  \
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(                        \
-          &blocks, lattice_march<NN, kGeom>, threads, smem);                \
+          &blocks, lattice_march<NN, kGeom, kHigh>, threads, smem);         \
     else if (geo == kZgrp && opt_in<NN, kZgrp>(smem) == 0)                  \
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(                        \
-          &blocks, lattice_march<NN, kZgrp>, threads, smem);                \
+          &blocks, lattice_march<NN, kZgrp, kHigh>, threads, smem);         \
     break;
   switch (P) {
     LATTICE_OCC(2)

@@ -5,9 +5,11 @@ The one build-and-load path of the port's hand-written CUDA kernels
 (`ops/kron_blocked.py`, `ops/lattice_blocked.py`), with their shared
 operand check and ctypes argument helpers: each source compiles
 for ``sm_90a`` into a shared library with a plain C interface, once per
-hash of the source and the flags, under ``build/kernels/`` at the root
-of the checkout. Nothing here runs at import time, and nothing falls
-back: no device, no ``nvcc`` or a failed build raises RuntimeError.
+hash of the source, the headers of ``csrc/`` (on the include path, so a
+copy of a source built elsewhere finds them) and the flags, under
+``build/kernels/`` at the root of the checkout. Nothing here runs at
+import time, and nothing falls back: no device, no ``nvcc`` or a failed
+build raises RuntimeError.
 """
 
 import contextlib
@@ -21,6 +23,7 @@ from pathlib import Path
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,13 +36,16 @@ def find_nvcc():
     return nvcc
 
 
-def build_and_load(src, name, find=find_nvcc):
-    """Compile ``src`` (once per source hash) and load it.
+def build_and_load(src, name, find=find_nvcc, defines=()):
+    """Compile ``src`` (once per hash of the source, the headers of
+    ``CSRC`` and the flags) and load it.
 
     Returns ``(library, build_log)``; the log is the compiler's output
     (``-Xptxas -v``: registers, shared memory, spills) of a build made by
     this call, or "" when the library was already built. ``name`` prefixes
-    the library file and the error messages; ``find`` locates ``nvcc``.
+    the library file and the error messages; ``find`` locates ``nvcc``;
+    ``defines`` are extra ``NAME=VALUE`` macros (``-D``), part of the hash,
+    so one source can build several libraries side by side.
     """
     if not torch.cuda.is_available():
         raise RuntimeError(
@@ -50,14 +56,17 @@ def build_and_load(src, name, find=find_nvcc):
         raise RuntimeError(
             "nvcc not found (PATH or /usr/local/cuda/bin): cannot build "
             f"the {name} CUDA kernels from {src}")
-    code = Path(src).read_bytes()
-    digest = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    code = Path(src).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(code + " ".join(flags).encode()).hexdigest()
     so = BUILD_DIR / f"{name}_{digest[:16]}.so"
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.run([nvcc, *flags, f"-I{CSRC}", "-o", str(tmp),
+                               str(src)],
                               capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:

@@ -193,7 +193,8 @@ def kron_laplacian_apply(x, Ks, ms, bc_marker, precision="highest",
     adds the lumped-mass shift ``sigma M``. ``exchange`` (optional) is
     applied to the K_x term's lattice before the terms are summed: the
     interface partial-sum reconciliation of an x-sharded layout, as in
-    the JAX package. ``precision`` is the JAX package's ('highest' only).
+    the JAX package. ``precision`` is the JAX package's (either value, in
+    f32/f64: the XLA-path rule of `ops.kron_blocked`).
     The parameters keep the JAX package's order.
     """
     from .kron_blocked import _check_precision
@@ -246,7 +247,7 @@ class KronLaplacian:
     adds the lumped-mass shift; ``kappa`` is a scalar, a per-axis tuple or
     a constant diagonal tensor (`resolve_kappa_axes`), graded spacing and
     Robin ends ride the 1D factors; ``precision`` is the JAX package's
-    fifth parameter ('highest' only)."""
+    fifth parameter (either value, as in `kron_laplacian_apply`)."""
 
     def __init__(self, mesh, P, kappa=2.0, dtype=torch.float32,
                  precision="highest", sigma=0.0, *, device):

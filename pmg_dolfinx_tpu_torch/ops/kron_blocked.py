@@ -38,7 +38,33 @@ The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
 bound through a plain C interface with `ctypes`. `LAUNCHES` counts every kernel launch,
 so a run can show that its main path went through the kernels.
 
-Not ported yet: ``precision="high"`` (bf16x3, ROADMAP.md Queue 1 item 1).
+Precision. ``precision="highest"`` (the default) sums true f32 products.
+``precision="high"`` is the JAX package's bf16x3 contract:
+
+- where the JAX package splits explicitly (every Pallas kernel with a
+  ``high`` flag: #1-#9 here, K-A / K-B of `ops.lattice_blocked`), the port
+  splits the same operands. Each operand ``a`` of a contraction becomes
+  ``hi = bf16_rne(a)``, ``lo = bf16_rne(a - hi)`` (`split_bf16`); the
+  products ``hi*hi``, ``hi*lo`` and ``lo*hi`` are accumulated in f32, each
+  on its own, ``lo*lo`` is dropped, and the sum is ``hh + (hl + lh)``
+  (`dot3`, the JAX package's ``_dot3``). Kernels #1 / #4 split ``Ktx``
+  and the masked, scaled ``w``; #2, #3, #5-#9 split ``Kty``, ``KtzT`` and
+  the masked, scaled ``w^``; ``t1'``, the ``s3`` scale, the ``sigma`` term
+  and the epilogues stay f32. The kernels are the ``HIGH`` instantiations
+  of the same source, a second library built the first time 'high' is
+  asked for (`load_kernels`); their launches count under the kernel's
+  name with ``_high`` appended. ~1e-5 relative error on O(1) data; the
+  gap to 'highest' is 1e-6 to 1.5e-5 in the max norm (PERF.md §6);
+- where the JAX package passes ``precision`` to XLA (the einsums of
+  `ops.kron`, `ops.lattice`, `ops.unstructured`, `solvers.fdm`,
+  `parallel.fdm_dist`), XLA picks per backend: bf16x3 on the TPU, exact
+  f32 on the CPU backend the reference tests run on. The port computes
+  those in f32 / f64 with TF32 off at both precisions, which meets the
+  'high' contract and matches that CPU reference.
+  ``torch.backends.cuda.matmul.allow_tf32`` is never switched on;
+- the kernel families are f32 only at both precisions, as in JAX; the
+  p-transfers and dots of a hierarchy stay at 'highest' (the JAX
+  package's ``tprec``).
 """
 
 import ctypes
@@ -56,16 +82,20 @@ from .cuda_build import stream_of
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "kron_blocked.cu"
 
-# Kernel launches since the last reset: kernel name -> count. Raised only
-# where a wrapper launches its kernel.
-LAUNCHES = {"t1_m": 0, "t23_m": 0, "t23_res_m": 0, "t1": 0, "t23": 0,
-            "t23_res": 0, "t23_cheb": 0, "t23_grid": 0, "t23_grid_res": 0,
-            "t23_grid_m": 0, "t23_grid_res_m": 0}
+# Kernel launches since the last reset: kernel name -> count, the HIGH
+# kernels (precision="high") under the name with "_high" appended. Raised
+# only where a wrapper launches its kernel.
+_KERNELS = ("t1_m", "t23_m", "t23_res_m", "t1", "t23", "t23_res", "t23_cheb",
+            "t23_grid", "t23_grid_res", "t23_grid_m", "t23_grid_res_m")
+LAUNCHES = {k + h: 0 for h in ("", "_high") for k in _KERNELS}
 
-# The loaded library, the compiler's output of the build that made it and
-# the largest band its kernels take (read from the library once).
+# The loaded libraries ('highest', and the HIGH instantiations built with
+# -DPMG_HIGH=1), the compiler's output of the builds that made them and the
+# largest band their kernels take (read from the library once).
 _lib = None
+_lib_high = None
 BUILD_LOG = ""
+BUILD_LOG_HIGH = ""
 _MAX_BAND = None
 
 # Kernels #5 / #6 / #8 run the y-march of kernel 2 with the marker byte up
@@ -74,6 +104,40 @@ _MAX_BAND = None
 # The library compiles the march up to the same band (`kT23MarchMaxBand`)
 # and refuses it above.
 T23_MARCH_MAX_BAND = 12
+
+
+def split_bf16(a):
+    """``(hi, lo)`` bf16 parts of ``a`` with ``a ~= hi + lo``: ``hi =
+    bf16_rne(a)``, ``lo = bf16_rne(a - hi)`` (the JAX package's
+    ``pallas_util.split_bf16``, the operand split behind XLA's
+    ``Precision.HIGH``). The difference ``a - hi`` is taken as XLA takes
+    it on the CPU and the TPU: an operand below the smallest normal float
+    counts as zero, and a result below it is flushed to a zero of its
+    sign."""
+    tiny = torch.finfo(a.dtype).tiny
+    hi = a.to(torch.bfloat16)
+    daz = lambda t: torch.where(t.abs() < tiny, torch.zeros_like(t), t)
+    d = daz(a) - daz(hi.to(a.dtype))
+    d = torch.where(d.abs() < tiny, d * 0.0, d)
+    return hi, d.to(torch.bfloat16)
+
+
+def dot3(eq, a_split, b_split, dtype=torch.float32):
+    """bf16x3 contraction ``einsum(eq, a, b)`` of split operands (`split_bf16`):
+    the products ``hi*hi``, ``hi*lo`` and ``lo*hi``, each accumulated in
+    ``dtype`` (exact products in f32), ``lo*lo`` dropped, summed as ``hh +
+    (hl + lh)`` (the JAX package's ``_dot3``)."""
+    ah, al = (t.to(dtype) for t in a_split)
+    bh, bl = (t.to(dtype) for t in b_split)
+    return torch.einsum(eq, ah, bh) + (torch.einsum(eq, ah, bl)
+                                       + torch.einsum(eq, al, bh))
+
+
+def _contract(eq, a, b, high):
+    """``einsum(eq, a, b)``: in bf16x3 (`dot3`) when ``high``."""
+    if high:
+        return dot3(eq, split_bf16(a), split_bf16(b), a.dtype)
+    return torch.einsum(eq, a, b)
 
 
 def _np64(a):
@@ -180,10 +244,11 @@ def default_tiles(P):
 
 # --- plain torch versions ---------------------------------------------------
 
-def plain_t1_m(x3, m):
-    """Kernel 1: ``t1' = Ktx-contraction of (x * my_j * sxzm)``."""
+def plain_t1_m(x3, m, high=False):
+    """Kernel 1: ``t1' = Ktx-contraction of (x * my_j * sxzm)`` (in
+    bf16x3 when ``high``, as every plain version below)."""
     w = x3 * (m["myb"][None, :, :] * m["sxzm"][:, None, :])
-    return torch.einsum("ax,xyz->ayz", m["Ktx"], w)
+    return _contract("ax,xyz->ayz", m["Ktx"], w, high)
 
 
 def _add_corrections(acc, sx2, cy, cz):
@@ -198,15 +263,25 @@ def _add_corrections(acc, sx2, cy, cz):
     return acc
 
 
-def plain_t23_m(x3, t1, m, sigma=0.0, cy=None, cz=None):
+def _t2_t3(what, m, high):
+    """Kernel 2's y / z contractions ``Kty w^`` and ``w^ KtzT``; in bf16x3
+    ``w^`` is split once for both, as the JAX kernels do."""
+    if not high:
+        return (torch.einsum("by,xyz->xbz", m["Kty"], what),
+                torch.einsum("xyz,zc->xyc", what, m["KtzT"]))
+    ws = split_bf16(what)
+    return (dot3("by,xyz->xbz", split_bf16(m["Kty"]), ws, what.dtype),
+            dot3("xyz,zc->xyc", ws, split_bf16(m["KtzT"]), what.dtype))
+
+
+def plain_t23_m(x3, t1, m, sigma=0.0, cy=None, cz=None, high=False):
     """Kernel 2: the y/z contractions, scaling and bc epilogue on t1'.
     On a device-grid shard (kernel #9) the neighbour corrections ``cy``
     (NX, 2, NZ) / ``cz`` (NX, NY, 2) are added to the accumulator's
     boundary planes before the final scaling."""
     mx = m["mx2"][:, 0][:, None, None]
     what = x3 * (mx * m["s23m"][None])
-    t2 = torch.einsum("by,xyz->xbz", m["Kty"], what)
-    t3 = torch.einsum("xyz,zc->xyc", what, m["KtzT"])
+    t2, t3 = _t2_t3(what, m, high)
     sx = m["sx2d"][:, 0][:, None, None]
     sy = m["sycol"][:, 0][None, :, None]
     acc = sy * t1 + sx * (t2 + t3)
@@ -218,29 +293,28 @@ def plain_t23_m(x3, t1, m, sigma=0.0, cy=None, cz=None):
     return x3 * (1.0 - mx * inter_yz) + y * mx
 
 
-def plain_apply_m(x3, m, sigma=0.0):
+def plain_apply_m(x3, m, sigma=0.0, high=False):
     """``A x`` on a lattice-shaped vector (kernels 1 + 2)."""
-    return plain_t23_m(x3, plain_t1_m(x3, m), m, sigma)
+    return plain_t23_m(x3, plain_t1_m(x3, m, high), m, sigma, high=high)
 
 
-def plain_residual_m(b3, u3, m, sigma=0.0):
+def plain_residual_m(b3, u3, m, sigma=0.0, high=False):
     """``b - A u`` on lattice-shaped vectors (kernels 1 + 3)."""
-    return b3 - plain_apply_m(u3, m, sigma)
+    return b3 - plain_apply_m(u3, m, sigma, high)
 
 
-def plain_t1(x3, bc3, m):
+def plain_t1(x3, bc3, m, high=False):
     """Kernel #4: ``t1' = Ktx-contraction of (where(bc, 0, x) * sxz)``."""
     w = torch.where(bc3, torch.zeros_like(x3), x3) * m["sxz"][:, None, :]
-    return torch.einsum("ax,xyz->ayz", m["Ktx"], w)
+    return _contract("ax,xyz->ayz", m["Ktx"], w, high)
 
 
-def plain_t23(x3, bc3, t1, m, sigma=0.0, cy=None, cz=None):
+def plain_t23(x3, bc3, t1, m, sigma=0.0, cy=None, cz=None, high=False):
     """Kernel #5: the y/z contractions and scaling on t1', then the bc
     rows ``where(bc, x, y)``; with ``cy`` / ``cz`` kernel #8 (the JAX
     package's ``_emu_t23_grid``), as in `plain_t23_m`."""
     what = torch.where(bc3, torch.zeros_like(x3), x3) * m["s23"][None]
-    t2 = torch.einsum("by,xyz->xbz", m["Kty"], what)
-    t3 = torch.einsum("xyz,zc->xyc", what, m["KtzT"])
+    t2, t3 = _t2_t3(what, m, high)
     sx = m["sx2d"][:, 0][:, None, None]
     sy = m["sycol"][:, 0][None, :, None]
     acc = sy * t1 + sx * (t2 + t3)
@@ -250,14 +324,15 @@ def plain_t23(x3, bc3, t1, m, sigma=0.0, cy=None, cz=None):
     return torch.where(bc3, x3, acc * (sx * m["s23"][None]))
 
 
-def plain_apply(x3, bc3, m, sigma=0.0):
+def plain_apply(x3, bc3, m, sigma=0.0, high=False):
     """``A x`` with the full bc array (kernels #4 + #5)."""
-    return plain_t23(x3, bc3, plain_t1(x3, bc3, m), m, sigma)
+    return plain_t23(x3, bc3, plain_t1(x3, bc3, m, high), m, sigma,
+                     high=high)
 
 
-def plain_residual(b3, u3, bc3, m, sigma=0.0):
+def plain_residual(b3, u3, bc3, m, sigma=0.0, high=False):
     """``b - A u`` with the full bc array (kernels #4 + #6)."""
-    return b3 - plain_apply(u3, bc3, m, sigma)
+    return b3 - plain_apply(u3, bc3, m, sigma, high)
 
 
 def cheb_coefs(lmax, k, dtype, device):
@@ -275,14 +350,15 @@ def cheb_coefs(lmax, k, dtype, device):
             (8.0 * kf + 4.0) / ((2.0 * kf + 3.0) * lm))
 
 
-def plain_cheb_step(v3, bc3, x3, r3, dinv3, coefs, m, sigma=0.0, t1=None):
+def plain_cheb_step(v3, bc3, x3, r3, dinv3, coefs, m, sigma=0.0, t1=None,
+                    high=False):
     """Kernel #7 (after kernel #4, or on the given ``t1``): one fused
     Chebyshev half-step ``(x + gamma v, r - A v, a v + b dinv (r - A v))``
     with ``coefs = (gamma, a, b)`` from `cheb_coefs`."""
     if t1 is None:
-        t1 = plain_t1(v3, bc3, m)
+        t1 = plain_t1(v3, bc3, m, high)
     gamma, a, b = coefs
-    r_new = r3 - plain_t23(v3, bc3, t1, m, sigma)
+    r_new = r3 - plain_t23(v3, bc3, t1, m, sigma, high=high)
     return x3 + gamma * v3, r_new, a * v3 + b * dinv3 * r_new
 
 
@@ -295,28 +371,38 @@ def _cheb4(step, b3, x3, num_iters):
     return x
 
 
-def plain_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters, sigma=0.0):
+def plain_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters, sigma=0.0,
+                high=False):
     """`blocked_kron_cheb4` with every half-step `plain_cheb_step`, in any
     float dtype on any device (the CPU branch of the entry point, and the
     reference the kernels are held to on the card)."""
     def step(v, x, r, k):
         coefs = cheb_coefs(lmax, k, x3.dtype, x3.device)
-        return plain_cheb_step(v, bc3, x, r, dinv3, coefs, mats, sigma)
+        return plain_cheb_step(v, bc3, x, r, dinv3, coefs, mats, sigma,
+                               high=high)
     return _cheb4(step, b3, x3, num_iters)
 
 
 # --- CUDA kernels -------------------------------------------------------------
 
-def load_kernels():
-    """Build (once per source hash) and load the kernel library.
+def load_kernels(high=False):
+    """Build (once per source hash) and load the kernel library: the
+    'highest' kernels, or with ``high`` the HIGH instantiations of the same
+    source (-DPMG_HIGH=1, a library of its own, built at its first use).
 
     Raises RuntimeError when there is no CUDA device, no ``nvcc`` or the
     build fails; never returns a stand-in.
     """
-    global _lib, BUILD_LOG, _MAX_BAND
-    if _lib is not None:
+    global _lib, _lib_high, BUILD_LOG, BUILD_LOG_HIGH, _MAX_BAND
+    if high and _lib_high is not None:
+        return _lib_high
+    if not high and _lib is not None:
         return _lib
-    lib, BUILD_LOG = build_and_load(_SRC, "kron_blocked", _find_nvcc)
+    if high:
+        lib, BUILD_LOG_HIGH = build_and_load(_SRC, "kron_blocked_high",
+                                             _find_nvcc, ("PMG_HIGH=1",))
+    else:
+        lib, BUILD_LOG = build_and_load(_SRC, "kron_blocked", _find_nvcc)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.kron_t1_m_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.kron_t1_m_launch.restype = ci
@@ -331,8 +417,15 @@ def load_kernels():
     lib.kron_t23_cheb_launch.restype = ci
     lib.kron_max_band.argtypes = []
     lib.kron_max_band.restype = ci
+    lib.kron_high.argtypes = []
+    lib.kron_high.restype = ci
+    if lib.kron_high() != int(high):
+        raise RuntimeError(f"{_SRC} built as the high={not high} library")
     _MAX_BAND = lib.kron_max_band()
-    _lib = lib
+    if high:
+        _lib_high = lib
+    else:
+        _lib = lib
     return lib
 
 
@@ -363,8 +456,8 @@ def _check_operands(x3, m, bc3=None):
     return shape, m["band"]
 
 
-def _kernels_for(band):
-    lib = load_kernels()
+def _kernels_for(band, high):
+    lib = load_kernels(high)
     if not 0 <= band <= _MAX_BAND:
         raise ValueError(
             f"band {band} exceeds the kernels' tiles (at most "
@@ -413,13 +506,19 @@ def _check_t23_extras(x3, t1, r3, cy, cz):
         _check_lattice("cz", cz, (NX, NY, 2), x3.device)
 
 
-def kron_t1_m(x3, m, out=None):
+def _hi(high):
+    """The `LAUNCHES` suffix of a launch at ``high``."""
+    return "_high" if high else ""
+
+
+def kron_t1_m(x3, m, out=None, high=False):
     """Launch kernel 1 on CUDA tensors (`plain_t1_m` on CPU tensors);
-    returns a new ``t1'`` lattice (or writes ``out``)."""
+    returns a new ``t1'`` lattice (or writes ``out``). ``high``: the bf16x3
+    kernel, here and in every wrapper below."""
     if x3.device.type == "cpu":
-        return _plain_into(plain_t1_m(x3, m), None, out)
+        return _plain_into(plain_t1_m(x3, m, high), None, out)
     (NX, NY, NZ), band = _check_operands(x3, m)
-    lib = _kernels_for(band)
+    lib = _kernels_for(band, high)
     out = _out(out, x3)
     with _on_device(x3):
         rc = lib.kron_t1_m_launch(
@@ -428,20 +527,22 @@ def kron_t1_m(x3, m, out=None):
             stream_of(x3))
     if rc != 0:
         raise RuntimeError(f"kron_t1_m launch failed: CUDA error {rc}")
-    LAUNCHES["t1_m"] += 1
+    LAUNCHES["t1_m" + _hi(high)] += 1
     return out
 
 
-def kron_t23_m(x3, t1, m, sigma=0.0, cy=None, cz=None, r3=None, out=None):
+def kron_t23_m(x3, t1, m, sigma=0.0, cy=None, cz=None, r3=None, out=None,
+               high=False):
     """Launch kernel 2 (``A x``), or kernel 3 (``r - A x``) when ``r3``
     is given, on CUDA tensors; with either neighbour correction ``cy`` /
     ``cz`` of a device-grid shard, kernel #9 in the same two forms. A CPU
     tensor runs `plain_t23_m`. Returns a new lattice (or writes ``out``)."""
     if x3.device.type == "cpu":
-        return _plain_into(plain_t23_m(x3, t1, m, sigma, cy, cz), r3, out)
+        return _plain_into(plain_t23_m(x3, t1, m, sigma, cy, cz, high), r3,
+                           out)
     (NX, NY, NZ), band = _check_operands(x3, m)
     _check_t23_extras(x3, t1, r3, cy, cz)
-    lib = _kernels_for(band)
+    lib = _kernels_for(band, high)
     out = _out(out, x3)
     with _on_device(x3):
         rc = lib.kron_t23_m_launch(
@@ -453,18 +554,18 @@ def kron_t23_m(x3, t1, m, sigma=0.0, cy=None, cz=None, r3=None, out=None):
     name = _t23_name("_m", cy, cz, r3)
     if rc != 0:
         raise RuntimeError(f"kron_{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name + _hi(high)] += 1
     return out
 
 
-def kron_t1(x3, bc3, m, out=None):
+def kron_t1(x3, bc3, m, out=None, high=False):
     """Launch kernel #4 (``t1'`` with the full bool marker ``bc3``) on
     CUDA tensors (`plain_t1` on CPU tensors); returns a new lattice (or
     writes ``out``)."""
     if x3.device.type == "cpu":
-        return _plain_into(plain_t1(x3, bc3, m), None, out)
+        return _plain_into(plain_t1(x3, bc3, m, high), None, out)
     (NX, NY, NZ), band = _check_operands(x3, m, bc3)
-    lib = _kernels_for(band)
+    lib = _kernels_for(band, high)
     out = _out(out, x3)
     with _on_device(x3):
         rc = lib.kron_t1_launch(
@@ -473,7 +574,7 @@ def kron_t1(x3, bc3, m, out=None):
             stream_of(x3))
     if rc != 0:
         raise RuntimeError(f"kron_t1 launch failed: CUDA error {rc}")
-    LAUNCHES["t1"] += 1
+    LAUNCHES["t1" + _hi(high)] += 1
     return out
 
 
@@ -491,7 +592,7 @@ def _t23_args(v3, bc3, t1, m):
 
 
 def kron_t23(v3, bc3, t1, m, sigma=0.0, cy=None, cz=None, r3=None,
-             out=None):
+             out=None, high=False):
     """Launch kernel #5 (``where(bc, v, y)``), or kernel #6 (``r - A v``)
     when ``r3`` is given, on CUDA tensors; with either neighbour
     correction ``cy`` / ``cz``, kernel #8 in the same two forms, each in
@@ -499,10 +600,11 @@ def kron_t23(v3, bc3, t1, m, sigma=0.0, cy=None, cz=None, r3=None,
     `plain_t23`. Returns a new lattice (or writes ``out``, which must not
     alias an input)."""
     if v3.device.type == "cpu":
-        return _plain_into(plain_t23(v3, bc3, t1, m, sigma, cy, cz), r3, out)
+        return _plain_into(plain_t23(v3, bc3, t1, m, sigma, cy, cz, high),
+                           r3, out)
     (NX, NY, NZ), band = _check_operands(v3, m, bc3)
     _check_t23_extras(v3, t1, r3, cy, cz)
-    lib = _kernels_for(band)
+    lib = _kernels_for(band, high)
     out = _out(out, v3)
     with torch.cuda.device(v3.device):
         rc = lib.kron_t23_launch(
@@ -512,11 +614,12 @@ def kron_t23(v3, bc3, t1, m, sigma=0.0, cy=None, cz=None, r3=None,
     name = _t23_name("", cy, cz, r3)
     if rc != 0:
         raise RuntimeError(f"kron_{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name + _hi(high)] += 1
     return out
 
 
-def kron_t23_cheb(v3, bc3, t1, m, x3, r3, dinv3, lmax, k, sigma=0.0):
+def kron_t23_cheb(v3, bc3, t1, m, x3, r3, dinv3, lmax, k, sigma=0.0,
+                  high=False):
     """Launch kernel #7, Chebyshev half-step ``k`` (0: the init step,
     ``v = x``), on CUDA tensors. ``lmax`` is a 0-d float32 tensor on the
     device (read there: no host sync). Returns three new lattices
@@ -526,7 +629,7 @@ def kron_t23_cheb(v3, bc3, t1, m, x3, r3, dinv3, lmax, k, sigma=0.0):
         _check_lattice(name, t, shape, v3.device)
     _check_lattice("lmax", lmax, (), v3.device)
     NX, NY, NZ = shape
-    lib = _kernels_for(band)
+    lib = _kernels_for(band, high)
     xo, ro, zo = (torch.empty_like(v3) for _ in range(3))
     with torch.cuda.device(v3.device):
         rc = lib.kron_t23_cheb_launch(
@@ -535,7 +638,7 @@ def kron_t23_cheb(v3, bc3, t1, m, x3, r3, dinv3, lmax, k, sigma=0.0):
             band, float(sigma), stream_of(v3))
     if rc != 0:
         raise RuntimeError(f"kron_t23_cheb launch failed: CUDA error {rc}")
-    LAUNCHES["t23_cheb"] += 1
+    LAUNCHES["t23_cheb" + _hi(high)] += 1
     return xo, ro, zo
 
 
@@ -559,14 +662,12 @@ def _tpu_knobs(by, bx, interpret):
 
 
 def _check_precision(precision):
-    """The port's precision policy: true f32/f64 products ('highest')."""
-    if precision == "high":
-        raise NotImplementedError(
-            "precision='high' (bf16x3 products) is not ported (ROADMAP.md "
-            "Queue 1 item 1); the port runs true f32/f64 ('highest')")
-    if precision != "highest":
+    """Raise unless ``precision`` is 'highest' or 'high' (the policy in
+    the module docstring); returns whether it is 'high'."""
+    if precision not in ("highest", "high"):
         raise ValueError(
             f"precision must be 'highest' or 'high', got {precision!r}")
+    return precision == "high"
 
 
 def blocked_kron_apply(x3, bc3, mats, *, by=8, bx=8, precision="highest",
@@ -585,22 +686,22 @@ def blocked_kron_apply(x3, bc3, mats, *, by=8, bx=8, precision="highest",
     The JAX package's tile and mode knobs ``by``, ``bx``, ``interpret``
     take its defaults only (`_tpu_knobs`).
     """
-    _check_precision(precision)
+    high = _check_precision(precision)
     _tpu_knobs(by, bx, interpret)
-    separable = "sxzm" in mats
-    if x3.device.type == "cpu":
-        t1 = plain_t1_m(x3, mats) if separable else plain_t1(x3, bc3, mats)
-        if exchange is not None:
-            t1 = exchange(t1)
-        if separable:
-            return plain_t23_m(x3, t1, mats, sigma)
-        return plain_t23(x3, bc3, t1, mats, sigma)
-    t1 = kron_t1_m(x3, mats) if separable else kron_t1(x3, bc3, mats)
+    t1 = _t1(x3, bc3, mats, high)
     if exchange is not None:
         t1 = exchange(t1)
-    if separable:
-        return kron_t23_m(x3, t1, mats, sigma)
-    return kron_t23(x3, bc3, t1, mats, sigma)
+    if "sxzm" in mats:
+        return kron_t23_m(x3, t1, mats, sigma, high=high)
+    return kron_t23(x3, bc3, t1, mats, sigma, high=high)
+
+
+def _t1(x3, bc3, mats, high):
+    """Kernel 1 of an apply: #1 with the separable arrays, else #4 (the
+    plain version on CPU tensors)."""
+    if "sxzm" in mats:
+        return kron_t1_m(x3, mats, high=high)
+    return kron_t1(x3, bc3, mats, high=high)
 
 
 def blocked_kron_residual(b3, u3, bc3, mats, *, by=8, bx=8,
@@ -610,22 +711,14 @@ def blocked_kron_residual(b3, u3, bc3, mats, *, by=8, bx=8,
     #3 with the separable arrays, else #4 + #6; the plain torch version
     on CPU tensors). ``exchange`` and the TPU knobs as in
     `blocked_kron_apply`."""
-    _check_precision(precision)
+    high = _check_precision(precision)
     _tpu_knobs(by, bx, interpret)
-    separable = "sxzm" in mats
-    if u3.device.type == "cpu":
-        t1 = plain_t1_m(u3, mats) if separable else plain_t1(u3, bc3, mats)
-        if exchange is not None:
-            t1 = exchange(t1)
-        if separable:
-            return b3 - plain_t23_m(u3, t1, mats, sigma)
-        return b3 - plain_t23(u3, bc3, t1, mats, sigma)
-    t1 = kron_t1_m(u3, mats) if separable else kron_t1(u3, bc3, mats)
+    t1 = _t1(u3, bc3, mats, high)
     if exchange is not None:
         t1 = exchange(t1)
-    if separable:
-        return kron_t23_m(u3, t1, mats, sigma, r3=b3)
-    return kron_t23(u3, bc3, t1, mats, sigma, r3=b3)
+    if "sxzm" in mats:
+        return kron_t23_m(u3, t1, mats, sigma, r3=b3, high=high)
+    return kron_t23(u3, bc3, t1, mats, sigma, r3=b3, high=high)
 
 
 def blocked_kron_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters, *,
@@ -640,25 +733,27 @@ def blocked_kron_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters, *,
     as in `blocked_kron_apply`, on every half-step's kernel-1 output, and
     so are the TPU knobs. Returns the new ``x``; the inputs are not
     written."""
-    _check_precision(precision)
+    high = _check_precision(precision)
     _tpu_knobs(by, bx, interpret)
     if x3.device.type == "cpu":
         if exchange is None:
             return plain_cheb4(b3, x3, bc3, mats, dinv3, lmax, num_iters,
-                               sigma)
+                               sigma, high)
 
         def plain_step(v, x, r, k):
             coefs = cheb_coefs(lmax, k, x3.dtype, x3.device)
-            return plain_cheb_step(v, bc3, x, r, dinv3, coefs, mats, sigma,
-                                   t1=exchange(plain_t1(v, bc3, mats)))
+            return plain_cheb_step(
+                v, bc3, x, r, dinv3, coefs, mats, sigma,
+                t1=exchange(plain_t1(v, bc3, mats, high)), high=high)
         return _cheb4(plain_step, b3, x3, num_iters)
     lm = torch.as_tensor(lmax, dtype=torch.float32, device=x3.device)
 
     def step(v, x, r, k):
-        t1 = kron_t1(v, bc3, mats)
+        t1 = kron_t1(v, bc3, mats, high=high)
         if exchange is not None:
             t1 = exchange(t1)
-        return kron_t23_cheb(v, bc3, t1, mats, x, r, dinv3, lm, k, sigma)
+        return kron_t23_cheb(v, bc3, t1, mats, x, r, dinv3, lm, k, sigma,
+                             high=high)
     return _cheb4(step, b3, x3, num_iters)
 
 
@@ -843,16 +938,18 @@ def blocked_kron_apply_grid(x3, bc3, mats, *, by=8, bx=8,
     the kernels (per shard) or raise. ``by``, ``bx`` and ``interpret`` are
     the JAX package's TPU knobs (defaults only).
     """
-    _check_precision(precision)
+    high = _check_precision(precision)
     _tpu_knobs(by, bx, interpret)
     need_y, need_z = ex_y is not None, ex_z is not None
     if x3.ndim == 3:
         if not (need_y or need_z):
             if r3 is not None:
                 return blocked_kron_residual(r3, x3, bc3, mats, sigma=sigma,
-                                             exchange=exchange_x)
+                                             exchange=exchange_x,
+                                             precision=precision)
             return blocked_kron_apply(x3, bc3, mats, sigma=sigma,
-                                      exchange=exchange_x)
+                                      exchange=exchange_x,
+                                      precision=precision)
         blocks = {(): mats}
     elif blocks is None:
         blocks = shard_blocks(mats)
@@ -871,16 +968,16 @@ def blocked_kron_apply_grid(x3, bc3, mats, *, by=8, bx=8,
     t1 = torch.empty_like(x3)
     for idx, m in blocks.items():
         if separable:
-            kron_t1_m(x3[idx], m, out=t1[idx])
+            kron_t1_m(x3[idx], m, out=t1[idx], high=high)
         else:
-            kron_t1(x3[idx], bc3[idx], m, out=t1[idx])
+            kron_t1(x3[idx], bc3[idx], m, out=t1[idx], high=high)
     if exchange_x is not None:
         t1 = exchange_x(t1)
     out = torch.empty_like(x3)
     part = lambda t, idx: None if t is None else t[idx]
     for idx, m in blocks.items():
         extra = dict(cy=part(cy, idx), cz=part(cz, idx), r3=part(r3, idx),
-                     out=out[idx])
+                     out=out[idx], high=high)
         if separable:
             kron_t23_m(x3[idx], t1[idx], m, sigma, **extra)
         else:

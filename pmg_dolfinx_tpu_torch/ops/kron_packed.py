@@ -41,9 +41,10 @@ The factors are built as the JAX package builds them: from the float32
 Kappa is a scalar, a per-axis tuple or a constant diagonal tensor
 (`resolve_kappa_axes`); graded spacing, mixed Dirichlet/Neumann faces and
 Robin ends ride the per-axis factors, as in the JAX package. Not ported:
-``precision="high"`` (bf16x3, raises NotImplementedError) and the TPU
-knob ``interpret`` (it keeps its trailing slot in the four classes and
-takes ``False`` only).
+``precision="high"`` (bf16x3; `check_serving_precision` raises
+NotImplementedError naming ROADMAP.md Queue 1 item 1) and the TPU knob
+``interpret`` (it keeps its trailing slot in the four classes and takes
+``False`` only).
 """
 
 import ctypes
@@ -59,6 +60,19 @@ from .cuda_build import ptr as _ptr
 from .cuda_build import stream_of
 from .kron_blocked import _check_precision, _tpu_knob
 from .transfer import _sms
+
+
+def check_serving_precision(precision):
+    """The serving pair's precision: 'highest' only. Its `high` branch
+    (bf16x3 in `packed_apply_march`) and the steppers over it are not
+    ported yet, so 'high' raises rather than run in f32 quietly."""
+    if precision == "high":
+        raise NotImplementedError(
+            "precision='high' (bf16x3) is not ported for the serving "
+            "kernels and the steppers over them (ROADMAP.md Queue 1 item "
+            "1, with item 11); use 'highest'")
+    _check_precision(precision)
+
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "kron_packed.cu"
 
@@ -604,7 +618,7 @@ class PackedKronBatch(_Kron):
 
     def __init__(self, mesh, P, kappa=2.0, B=8, precision="highest",
                  sigma=0.0, interpret=False, *, device):
-        _check_precision(precision)
+        check_serving_precision(precision)
         _tpu_knob("interpret", interpret, False)
         self._init_layout(mesh, P, (-1,), device)
         self.B = int(B)
@@ -648,7 +662,7 @@ class PackedKronSingle(_Kron):
 
     def __init__(self, mesh, P, kappa=2.0, precision="highest", sigma=0.0,
                  interpret=False, *, device):
-        _check_precision(precision)
+        check_serving_precision(precision)
         _tpu_knob("interpret", interpret, False)
         self._init_layout(mesh, P, (), device)
         _check_slab(P, self.shape)

@@ -69,8 +69,8 @@ def along_z(M, t):
 def lattice_prolongate(x_c, I1s, shape_c, precision="highest"):
     """Coarse->fine transfer via three per-axis dense contractions.
     Shape-preserving: lattice-shaped in -> lattice-shaped out, flat in ->
-    flat out. ``precision`` is the JAX package's fourth positional; only
-    'highest' is ported."""
+    flat out. ``precision`` is the JAX package's fourth positional (either
+    value, in f32/f64: the XLA-path rule of `ops.kron_blocked`)."""
     _check_precision(precision)
     Ix, Iy, Iz = I1s
     t = x_c.reshape(shape_c)
@@ -140,7 +140,8 @@ def lattice_laplacian_apply(x, mats, G, bc_marker, precision="highest",
     the coefficient folded in, ``bc_marker`` a bool marker shaped like
     ``x``. Dirichlet dofs are zeroed on input; their rows return ``x``
     unless ``apply_bc=False`` (the raw accumulation). ``precision`` is the
-    JAX package's fifth parameter ('highest' only). A stack of lattices
+    JAX package's fifth parameter (either value, in f32/f64: the XLA-path
+    rule of `ops.kron_blocked`). A stack of lattices
     ``(S, NX, NY, NZ)`` with ``G`` of ``(S, Qx, Qy, Qz, 6)`` applies
     each lattice's own operator (the slabs of `parallel.dist`).
     """

@@ -37,9 +37,16 @@ fixed order (`csrc/lattice_blocked.cu`). The kernels are built with
 (`ops.cuda_build`) and bound through a plain C interface with `ctypes`.
 `LAUNCHES` counts one per apply.
 
-Not ported: ``precision="high"`` (bf16x3), and the TPU tile knobs
-``bcells`` and ``interpret`` (they keep their positions in
-`PallasLatticeBlocked`; anything but JAX's default raises).
+``precision="high"`` (bf16x3) follows the contract of
+`ops.kron_blocked`: the kernels split the operands of each contraction
+the TPU kernels split (the ``HIGH`` instantiations of the same source, a
+second library built at the first 'high' call; launches count under the
+kernel's name with ``_high`` appended), and `plain_lattice_apply_high` is
+their plain version, cell by cell. 'v1' (the JAX package's default at
+'high') splits its y contractions too, the other variants only the z
+ones. Not ported: the TPU tile knobs ``bcells`` and ``interpret`` (they
+keep their positions in `PallasLatticeBlocked`; anything but JAX's
+default raises).
 """
 
 import ctypes
@@ -53,22 +60,26 @@ from .cuda_build import check_operand as _check
 from .cuda_build import find_nvcc as _find_nvcc
 from .cuda_build import on_device as _on_device
 from .cuda_build import stream_of
-from .kron_blocked import _check_precision, _tpu_knob
-from .lattice import axis_matrices, lattice_laplacian_apply
+from .kron_blocked import _check_precision, _tpu_knob, dot3, split_bf16
+from .lattice import _expand, _fold, axis_matrices, lattice_laplacian_apply
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "lattice_blocked.cu"
 
 # Kernel launches since the last reset: kernel name -> count. Raised only
 # where a wrapper launches its kernel.
-LAUNCHES = {"lattice_apply": 0, "lattice_apply_zgrp": 0,
-            "lattice_apply_geom": 0}
+LAUNCHES = {k + h: 0 for h in ("", "_high")
+            for k in ("lattice_apply", "lattice_apply_zgrp",
+                      "lattice_apply_geom")}
 
 # Degrees the kernels are compiled for (csrc/lattice_blocked.cu, N = P+1).
 DEGREES = (1, 2, 3, 4, 5, 6)
 
-# The loaded library and the compiler's output of the build that made it.
+# The loaded libraries ('highest', and the HIGH instantiations built with
+# -DPMG_HIGH=1) and the compiler's output of the builds that made them.
 _lib = None
+_lib_high = None
 BUILD_LOG = ""
+BUILD_LOG_HIGH = ""
 
 _MATS_PLAIN = ("Ex", "Dx", "Ey", "Dy", "Ez", "Dz")
 
@@ -283,29 +294,93 @@ def geom_to_G(co, nc, P, xp=np):
 
 # --- plain torch versions -----------------------------------------------------
 
-def plain_lattice_apply(x, mats, Gt, bc_marker, apply_bc=True):
+def _round16(t):
+    """``hi + lo`` of `split_bf16`: ``t``'s product with a 0/1 matrix in
+    bf16x3 (the sum is exact)."""
+    hi, lo = split_bf16(t)
+    return hi.to(t.dtype) + lo.to(t.dtype)
+
+
+def plain_lattice_apply_high(x, D1, G, bc_marker, nc, P, v1=False,
+                             apply_bc=True):
+    """The lattice kernels at precision='high', cell by cell: ``x`` flat or
+    lattice-shaped, ``G`` the ``(Qx, Qy, Qz, 6)`` geometry, ``D1`` the 1D
+    GLL derivative. Each cell's sums split what the TPU kernel splits (the
+    table at the head of ``csrc/lattice_blocked.cu``; ``v1``: the 'v1'
+    kernel's y splits too), and the cells' values are then added across
+    shared faces in f32. The plain version of the HIGH kernels."""
+    ncx, ncy, ncz = (int(c) for c in nc)
+    n = P + 1
+    N = tuple(c * P + 1 for c in (ncx, ncy, ncz))
+    xl = x.reshape(N)
+    u = torch.where(bc_marker.reshape(N), torch.zeros_like(xl), xl)
+    for a, c in enumerate((ncx, ncy, ncz)):
+        u = _expand(u, a, c, P)
+    v = _round16(u.reshape(ncx, n, ncy, n, ncz, n))
+    dt = v.dtype
+    D = D1.to(dt)
+    Ds, vs = split_bf16(D), split_bf16(v)
+    ux = torch.einsum("qi,aibjck->aqbjck", D, v)
+    if v1:
+        uy = dot3("qj,aibjck->aibqck", Ds, vs, dt)
+    else:
+        uy = torch.einsum("qj,aibjck->aibqck", D, v)
+    uz = dot3("aibjck,qk->aibjcq", vs, Ds, dt)
+    if v1:
+        uz = _round16(uz)
+    g = G.reshape(ncx, n, ncy, n, ncz, n, 6).to(dt)
+    tx = g[..., 0] * ux + g[..., 1] * uy + g[..., 2] * uz
+    ty = g[..., 1] * ux + g[..., 3] * uy + g[..., 4] * uz
+    tz = g[..., 2] * ux + g[..., 4] * uy + g[..., 5] * uz
+    bx = torch.einsum("qi,aqbjck->aibjck", D, tx)
+    if v1:
+        s = _round16(bx) + dot3("qj,aibqck->aibjck", Ds, split_bf16(ty), dt)
+    else:
+        s = bx + torch.einsum("qj,aibqck->aibjck", D, ty)
+    y = _round16(s) + dot3("aibjcq,qk->aibjck", split_bf16(tz), Ds, dt)
+    y = y.reshape(ncx * n, ncy * n, ncz * n)
+    for a, c in ((2, ncz), (1, ncy), (0, ncx)):
+        y = _fold(y, a, c, P)
+    y = y.reshape(x.shape)
+    return torch.where(bc_marker, x, y) if apply_bc else y
+
+
+def _plain(x, mats, G, bc_marker, apply_bc, high, v1=False):
+    """`lattice_laplacian_apply` on ``G``, or with ``high``
+    `plain_lattice_apply_high` (the cells and degree read off ``mats``)."""
+    if not high:
+        return lattice_laplacian_apply(
+            x, {k: mats[k] for k in _MATS_PLAIN}, G, bc_marker,
+            apply_bc=apply_bc)
+    P = mats["D1"].shape[0] - 1
+    nc = tuple(mats["E" + a].shape[0] // (P + 1) for a in "xyz")
+    return plain_lattice_apply_high(x, mats["D1"], G, bc_marker, nc, P, v1,
+                                    apply_bc)
+
+
+def plain_lattice_apply(x, mats, Gt, bc_marker, apply_bc=True, high=False,
+                        v1=False):
     """K-A's function: `lattice_laplacian_apply` on ``moveaxis(Gt, 0, -1)``
-    (the JAX emulation path), any float dtype, shape-preserving."""
-    return lattice_laplacian_apply(
-        x, {k: mats[k] for k in _MATS_PLAIN}, torch.movedim(Gt, 0, -1),
-        bc_marker, apply_bc=apply_bc)
+    (the JAX emulation path), any float dtype, shape-preserving; with
+    ``high`` `plain_lattice_apply_high` (``v1``: the 'v1' splits)."""
+    return _plain(x, mats, torch.movedim(Gt, 0, -1), bc_marker, apply_bc,
+                  high, v1)
 
 
 def plain_lattice_apply_zgrp(x, mats, Gz, bc_marker, nc, P, zb,
-                             apply_bc=True):
+                             apply_bc=True, high=False):
     """The function of K-A on ``Gz``: `lattice_laplacian_apply` on the
-    un-grouped geometry (the JAX emulation path)."""
-    return lattice_laplacian_apply(
-        x, {k: mats[k] for k in _MATS_PLAIN},
-        zgrouped_to_qlattice(Gz, nc, P, zb), bc_marker, apply_bc=apply_bc)
+    un-grouped geometry (the JAX emulation path); ``high`` as in
+    `plain_lattice_apply`."""
+    return _plain(x, mats, zgrouped_to_qlattice(Gz, nc, P, zb), bc_marker,
+                  apply_bc, high)
 
 
-def plain_lattice_apply_geom(x, mats, co, bc_marker, nc, P, apply_bc=True):
+def plain_lattice_apply_geom(x, mats, co, bc_marker, nc, P, apply_bc=True,
+                             high=False):
     """K-B's function: `geom_to_G` of the coefficients, then
-    `lattice_laplacian_apply`."""
-    return lattice_laplacian_apply(
-        x, {k: mats[k] for k in _MATS_PLAIN}, geom_to_G(co, nc, P),
-        bc_marker, apply_bc=apply_bc)
+    `lattice_laplacian_apply`; ``high`` as in `plain_lattice_apply`."""
+    return _plain(x, mats, geom_to_G(co, nc, P), bc_marker, apply_bc, high)
 
 
 # --- CUDA kernels -------------------------------------------------------------
@@ -354,18 +429,26 @@ def lattice_plan(nc, P, zb=None):
     return (_fit(ncx, MARCH), By, Bz)
 
 
-def load_kernels():
-    """Build (once per source hash) and load the kernel library.
+def load_kernels(high=False):
+    """Build (once per source hash) and load the kernel library: the
+    'highest' kernels, or with ``high`` the HIGH instantiations of the same
+    source (-DPMG_HIGH=1, a library of its own, built at its first use).
 
     Raises RuntimeError when there is no CUDA device, no ``nvcc`` or the
     build fails; never returns a stand-in.
     """
-    global _lib, BUILD_LOG
-    if _lib is not None:
+    global _lib, _lib_high, BUILD_LOG, BUILD_LOG_HIGH
+    if high and _lib_high is not None:
+        return _lib_high
+    if not high and _lib is not None:
         return _lib
-    lib, BUILD_LOG = build_and_load(_SRC, "lattice_blocked", _find_nvcc)
+    if high:
+        lib, BUILD_LOG_HIGH = build_and_load(_SRC, "lattice_blocked_high",
+                                             _find_nvcc, ("PMG_HIGH=1",))
+    else:
+        lib, BUILD_LOG = build_and_load(_SRC, "lattice_blocked", _find_nvcc)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lattice_apply_launch.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+    lib.lattice_apply_launch.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.lattice_apply_launch.restype = ci
     lib.lattice_apply_geom_launch.argtypes = [vp] * 7 + [ci] * 8 + [vp]
     lib.lattice_apply_geom_launch.restype = ci
@@ -375,7 +458,14 @@ def load_kernels():
     lib.lattice_scratch_bytes.restype = ctypes.c_int64
     lib.lattice_blocks_per_sm.argtypes = [ci] * 4
     lib.lattice_blocks_per_sm.restype = ci
-    _lib = lib
+    lib.lattice_high.argtypes = []
+    lib.lattice_high.restype = ci
+    if lib.lattice_high() != int(high):
+        raise RuntimeError(f"{_SRC} built as the high={not high} library")
+    if high:
+        _lib_high = lib
+    else:
+        _lib = lib
     return lib
 
 
@@ -435,20 +525,23 @@ def _scratch(floats, x):
     return torch.empty(floats, dtype=torch.float32, device=x.device)
 
 
-def _launched(name, rc):
+def _launched(name, rc, high):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name + ("_high" if high else "")] += 1
 
 
 def _cells(nc):
     return tuple(int(c) for c in nc)
 
 
-def lattice_apply(x, bc_marker, Gt, D1, nc, P, apply_bc=True):
+def lattice_apply(x, bc_marker, Gt, D1, nc, P, apply_bc=True, high=False,
+                  v1=False):
     """Launch K-A on CUDA tensors: ``A x`` (flat or lattice-shaped f32
     ``x``, bool ``bc_marker`` of the same shape, ``Gt`` ``(6, Qx, Qy,
-    Qz)``, ``D1`` ``(P+1, P+1)``); returns a new tensor shaped like x."""
+    Qz)``, ``D1`` ``(P+1, P+1)``); returns a new tensor shaped like x.
+    ``high``: the bf16x3 kernel (``v1``: with the 'v1' splits), here and
+    in the launchers below."""
     nc = _cells(nc)
     Q = _check_common(x, bc_marker, D1, nc, P)
     _check("Gt", Gt, (6,) + Q, x.device)
@@ -456,11 +549,11 @@ def lattice_apply(x, bc_marker, Gt, D1, nc, P, apply_bc=True):
     out = torch.empty_like(x)
     scratch = _scratch(floats, x)
     with _on_device(x):
-        rc = load_kernels().lattice_apply_launch(
+        rc = load_kernels(high).lattice_apply_launch(
             x.data_ptr(), bc_marker.data_ptr(), Gt.data_ptr(), D1.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), P, *nc, *box,
-            int(bool(apply_bc)), stream_of(x))
-    _launched("lattice_apply", rc)
+            int(bool(apply_bc)), int(bool(v1)), stream_of(x))
+    _launched("lattice_apply", rc, high)
     return out
 
 
@@ -469,7 +562,8 @@ def _check_zb(nc, zb):
         raise ValueError(f"zb={zb} must divide ncz={nc[2]}")
 
 
-def lattice_apply_zgrp(x, bc_marker, Gz, D1, nc, P, zb, apply_bc=True):
+def lattice_apply_zgrp(x, bc_marker, Gz, D1, nc, P, zb, apply_bc=True,
+                       high=False):
     """Launch K-A on CUDA tensors with the z-grouped geometry ``Gz``
     ``(Qx, 6*ngz, Qy, zb*(P+1))`` of `geometry_to_zgrouped`; returns a new
     tensor shaped like x."""
@@ -482,11 +576,11 @@ def lattice_apply_zgrp(x, bc_marker, Gz, D1, nc, P, zb, apply_bc=True):
     out = torch.empty_like(x)
     scratch = _scratch(floats, x)
     with _on_device(x):
-        rc = load_kernels().lattice_apply_zgrp_launch(
+        rc = load_kernels(high).lattice_apply_zgrp_launch(
             x.data_ptr(), bc_marker.data_ptr(), Gz.data_ptr(), D1.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), P, *nc, zb, *box,
             int(bool(apply_bc)), stream_of(x))
-    _launched("lattice_apply_zgrp", rc)
+    _launched("lattice_apply_zgrp", rc, high)
     return out
 
 
@@ -503,7 +597,8 @@ def _gll_table(xi, wx, device):
     return _GLL_DEVICE[key]
 
 
-def lattice_apply_geom(x, bc_marker, co, D1, nc, P, xi, wx, apply_bc=True):
+def lattice_apply_geom(x, bc_marker, co, D1, nc, P, xi, wx, apply_bc=True,
+                       high=False):
     """Launch K-B on CUDA tensors: ``A x`` with G rebuilt in the kernel
     from ``co`` ``(37, ncx, ncy, ncz)`` f32 and the GLL tuples ``xi``,
     ``wx``; returns a new tensor shaped like x."""
@@ -517,11 +612,11 @@ def lattice_apply_geom(x, bc_marker, co, D1, nc, P, xi, wx, apply_bc=True):
     out = torch.empty_like(x)
     scratch = _scratch(floats, x)
     with _on_device(x):
-        rc = load_kernels().lattice_apply_geom_launch(
+        rc = load_kernels(high).lattice_apply_geom_launch(
             x.data_ptr(), bc_marker.data_ptr(), co.data_ptr(), D1.data_ptr(),
             gll.data_ptr(), scratch.data_ptr(), out.data_ptr(), P, *nc, *box,
             int(bool(apply_bc)), stream_of(x))
-    _launched("lattice_apply_geom", rc)
+    _launched("lattice_apply_geom", rc, high)
     return out
 
 
@@ -547,11 +642,13 @@ def blocked_lattice_apply(x, mats, Gt, bc_marker, nc, P, *, bcells=1,
     """Fused ``y = A x`` on general hexes (shape-preserving). ``Gt`` is the
     ``(6, Qx, Qy, Qz)`` array of `geometry_to_gfirst`, ``mats`` from
     `lattice_blocked_mats`. ``variant`` in {None, 'yexp', 'v1', 'ym'}: the
-    TPU layouts of one function, all K-A here. A CPU tensor runs the plain
-    torch version (any float dtype); a CUDA tensor launches K-A (float32)
-    or raises. The JAX package's TPU knobs ``bcells`` and ``interpret``
-    take its defaults only."""
-    _check_precision(precision)
+    TPU layouts of one function, all K-A here; at 'high' they differ in
+    what they split ('v1' its y contractions too), and None is 'v1' there
+    and 'yexp' at 'highest', as in the JAX package. A CPU tensor runs the
+    plain torch version (any float dtype); a CUDA tensor launches K-A
+    (float32) or raises. The JAX package's TPU knobs ``bcells`` and
+    ``interpret`` take its defaults only."""
+    high = _check_precision(precision)
     _lattice_knobs(bcells, interpret)
     if variant not in (None, "yexp", "v1", "ym"):
         raise ValueError(f"unknown variant {variant!r} (the in-kernel-"
@@ -559,10 +656,14 @@ def blocked_lattice_apply(x, mats, Gt, bc_marker, nc, P, *, bcells=1,
                          "have their own entry points, "
                          "`blocked_lattice_apply_geom` and "
                          "`blocked_lattice_apply_zgrp`)")
+    if variant is None:
+        variant = "v1" if high else "yexp"
+    v1 = high and variant == "v1"
     if x.device.type == "cpu":
-        return plain_lattice_apply(x, mats, Gt, bc_marker, apply_bc)
+        return plain_lattice_apply(x, mats, Gt, bc_marker, apply_bc, high,
+                                   v1)
     return lattice_apply(x, bc_marker, Gt, mats["D1"], tuple(nc), int(P),
-                         apply_bc)
+                         apply_bc, high, v1)
 
 
 def blocked_lattice_apply_geom(x, mats, co, geom, bc_marker, nc, P, *, xi,
@@ -575,13 +676,13 @@ def blocked_lattice_apply_geom(x, mats, co, geom, bc_marker, nc, P, *, xi,
     is not read). CPU tensors run the plain version; CUDA tensors launch
     K-B or raise. ``bcells`` and ``interpret`` as in
     `blocked_lattice_apply`."""
-    _check_precision(precision)
+    high = _check_precision(precision)
     _lattice_knobs(bcells, interpret)
     if x.device.type == "cpu":
         return plain_lattice_apply_geom(x, mats, co, bc_marker, tuple(nc),
-                                        int(P), apply_bc)
+                                        int(P), apply_bc, high)
     return lattice_apply_geom(x, bc_marker, co, mats["D1"], tuple(nc),
-                              int(P), xi, wx, apply_bc)
+                              int(P), xi, wx, apply_bc, high)
 
 
 def blocked_lattice_apply_zgrp(x, mats, zmats, Gz, bc_marker, nc, P, zb, *,
@@ -593,15 +694,15 @@ def blocked_lattice_apply_zgrp(x, mats, zmats, Gz, bc_marker, nc, P, zb, *,
     the CUDA kernel does not need it. CPU tensors run the plain version;
     CUDA tensors launch K-A on ``Gz`` or raise. ``bcells`` and
     ``interpret`` as in `blocked_lattice_apply`."""
-    _check_precision(precision)
+    high = _check_precision(precision)
     _lattice_knobs(bcells, interpret)
     nc, P, zb = tuple(nc), int(P), int(zb)
     _check_zb(nc, zb)
     if x.device.type == "cpu":
         return plain_lattice_apply_zgrp(x, mats, Gz, bc_marker, nc, P, zb,
-                                        apply_bc)
+                                        apply_bc, high)
     return lattice_apply_zgrp(x, bc_marker, Gz, mats["D1"], nc, P, zb,
-                              apply_bc)
+                              apply_bc, high)
 
 
 class PallasLatticeBlocked:

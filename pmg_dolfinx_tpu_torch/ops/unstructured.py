@@ -199,7 +199,8 @@ def dss_scatter(yc, t, meta, first=False):
 
 def apply_cells(u_cells, G, coeff, D, precision="highest"):
     """Cell-local stiffness action (`ops.laplacian.laplacian_apply_cells`);
-    ``precision`` keeps the JAX slot ('highest', true f32/f64, only)."""
+    ``precision`` keeps the JAX slot (either value, true f32/f64: the
+    XLA-path rule of `ops.kron_blocked`)."""
     from .kron_blocked import _check_precision
 
     _check_precision(precision)

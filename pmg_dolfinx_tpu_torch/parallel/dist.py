@@ -52,8 +52,9 @@ JAX picks it), `load_state`. JAX's ``pvary`` has no counterpart
 in JAX, a per-cell or off-diagonal tensor kappa on the Kronecker family
 raises ValueError. Across processes (``devices=``, `multihost`) each rank
 holds a run of slabs and uploads its part of the host-built stack
-(`slab_level_spec`). Not ported yet: ``precision="high"``
-(NotImplementedError naming ROADMAP.md item 1). As in JAX, the slab's
+(`slab_level_spec`). ``precision="high"`` runs the bf16x3 kernels of
+`ops.kron_blocked` / `ops.lattice_blocked` as in `PMGHierarchy`, with
+the transfers at 'highest'. As in JAX, the slab's
 distributed hmg is the Kronecker h-hierarchy only; the general family's
 runs on `GridPMG` with ``shards=(S, 1, 1)``.
 """
@@ -61,6 +62,7 @@ runs on `GridPMG` with ``shards=(S, 1, 1)``.
 import numpy as np
 import torch
 
+from ..ops.kron_blocked import _check_precision
 from ..solvers.cg import cg_solve
 from ..solvers.pmg import (
     DEFAULT_CALIBRATION_ITERS,
@@ -91,11 +93,6 @@ def _shifted_diag_np(mesh, Pdeg, kappa_cells, sigma, sigma_field=None):
     if getattr(mesh, "has_robin", False):
         d = d + robin_mass_np(mesh, Pdeg)
     return d
-
-
-def _todo(what, item):
-    return NotImplementedError(
-        f"DistPMG: {what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 def _grid(n_shards):
@@ -287,11 +284,13 @@ def dist_kron_blocked_cycle_ops(n_shards, precision="highest", sigma=0.0):
         flat3 = lambda t: t.reshape((-1,) + tuple(level.shape[1:]))
         if r is None:
             y = blocked_kron_apply(flat3(x), flat3(lv["bc_marker"]),
-                                   lv["kb_mats"], exchange=ex, sigma=sigma)
+                                   lv["kb_mats"], precision=precision,
+                                   exchange=ex, sigma=sigma)
         else:
             y = blocked_kron_residual(flat3(r.contiguous()), flat3(x),
                                       flat3(lv["bc_marker"]), lv["kb_mats"],
-                                      exchange=ex, sigma=sigma)
+                                      precision=precision, exchange=ex,
+                                      sigma=sigma)
         return y.reshape(x.shape)
 
     return dict(
@@ -749,11 +748,7 @@ class DistPMG:
                 "per-axis or diagonal-tensor) only; use 'hmg', 'cg', "
                 "'smoother' or 'direct'"
             )
-        if precision == "high":
-            raise _todo("precision='high' (bf16x3 products)", 1)
-        if precision != "highest":
-            raise ValueError(
-                f"precision must be 'highest' or 'high', got {precision!r}")
+        _check_precision(precision)
         if coarse not in ("cg", "smoother", "fdm", "direct", "hmg"):
             raise ValueError(
                 f"DistPMG: unsupported coarse solver '{coarse}' "
@@ -1192,6 +1187,10 @@ class DistPMG:
         full-multigrid guess). Returns ``(u, residual_norms)``: the global
         flat solution on the device and the fine residual norm after each
         cycle, read back once at the end."""
+        from ..solvers.pmg import warn_high_precision_stationary
+
+        warn_high_precision_stationary(
+            self.precision, self.mesh.num_dofs(self.degrees[-1]))
         self._warn_tensor()
         bd = self.to_dist(b)
         if u0 is not None:

@@ -47,14 +47,16 @@ DG-0 or tensor kappa and a scalar sigma. As in JAX, a mesh without a DSS
 layout, ``coarse="amg"`` and a sigma field raise ValueError. Across
 processes (``devices=``, `multihost`) each rank cuts its shards' tables
 and per-cell arrays from the host partition and the exchange's ``psum``
-adds the ranks' sums. Not ported here: ``precision="high"``
-(NotImplementedError naming ROADMAP.md item 1). JAX's ``pvary`` and
+adds the ranks' sums. ``precision`` passes to the DSS apply (its torch
+ops compute either value in f32/f64, the XLA-path rule of
+`ops.kron_blocked`). JAX's ``pvary`` and
 ``make_mesh`` have no counterpart (no device mesh).
 """
 
 import numpy as np
 import torch
 
+from ..ops.kron_blocked import _check_precision
 from ..ops.unstructured import (
     DSSMeta,
     _padw,
@@ -79,11 +81,6 @@ from ..solvers.pmg import (
 from ..solvers.tridiag import lanczos_eigenvalue_estimates
 
 _KINDS = (("face", 6), ("edge", 12), ("vert", 8))
-
-
-def _todo(what, item):
-    return NotImplementedError(
-        f"DSSDist: {what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 # -- host-side partition ------------------------------------------------
@@ -456,11 +453,7 @@ class DSSDist:
             raise ValueError(
                 f"DSSDist smoother must be 'cheb' or 'schwarz', got "
                 f"{smoother!r}")
-        if precision == "high":
-            raise _todo("precision='high' (bf16x3 products)", 1)
-        if precision != "highest":
-            raise ValueError(
-                f"precision must be 'highest' or 'high', got {precision!r}")
+        _check_precision(precision)
         self.sigma, sigma_field = resolve_sigma(sigma)
         if sigma_field is not None:
             raise ValueError("DSSDist supports a scalar sigma only")

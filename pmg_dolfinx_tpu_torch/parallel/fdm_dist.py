@@ -52,11 +52,6 @@ _AXIS_EINSUM = ("ax,...xyz->...ayz", "by,...xyz->...xbz",
                 "cz,...xyz->...xyc")
 
 
-def _todo(what, item):
-    return NotImplementedError(
-        f"DistFDM: {what} is not ported yet (ROADMAP.md Queue 1 item {item})")
-
-
 def _embed_boundary(V, ends=(True, True)):
     """Free-node matrix -> full-size with zero rows/cols at the
     Dirichlet-flagged ends (natural-Neumann ends are free nodes)."""
@@ -135,7 +130,8 @@ def fdm_solve_dist(fd, b, local_shape, axes_spec, precision="highest", *,
     n_shards)``. ``b`` is any tensor holding the stacked lattice (the
     grid's six dimensions, a slab's ``(S, npl, NY, NZ)`` or flat); the
     output has its shape, with ``u[bc] = b[bc]`` identity rows as every
-    backend. ``precision`` is the JAX package's ('highest' only).
+    backend. ``precision`` is the JAX package's (either value, in f32/f64:
+    the XLA-path rule of `ops.kron_blocked`).
     ``grid`` is the layout's communication object (default: every shard
     of ``axes_spec`` stacked here; a rank's `multihost.RankGrid`, whose
     block is the leading shape of ``b``)."""
@@ -328,8 +324,6 @@ class DistFDM:
     def __init__(self, mesh, Pdeg, shards, kappa=2.0, dtype=torch.float32,
                  precision="highest", sigma=0.0, devices=None, *,
                  device="cuda"):
-        if precision == "high":
-            raise _todo("precision='high' (bf16x3 products)", 1)
         self.mesh = mesh
         self.P = int(Pdeg)
         self.dtype = dtype

@@ -60,8 +60,9 @@ host and each rank uploads its block (`GridPMG._place`, by
 `grid_level_spec` or the builders' specs).
 
 As in JAX, a per-cell or off-diagonal tensor kappa on the Kronecker
-family raises ValueError. Not ported here: ``precision="high"``
-(NotImplementedError naming ROADMAP.md item 1). The 1D slab
+family raises ValueError. ``precision="high"`` runs the bf16x3 kernels
+(#1/#9 and K-A on each shard) as `PMGHierarchy` does, with the transfers
+at 'highest'. The 1D slab
 (`parallel.dist.DistPMG`) goes through the same seam with ``shards=(S, 1,
 1)``.
 """
@@ -70,6 +71,7 @@ import numpy as np
 import torch
 
 from ..ops.blas import dist_inner_product
+from ..ops.kron_blocked import _check_precision
 from ..solvers.cg import cg_solve
 from ..solvers.pmg import (
     DEFAULT_CALIBRATION_ITERS,
@@ -91,11 +93,6 @@ AXES = ("x", "y", "z")
 def _norm_shards(shards):
     s = tuple(int(v) for v in shards)
     return s + (1,) * (3 - len(s))
-
-
-def _todo(what, item):
-    return NotImplementedError(
-        f"GridPMG: {what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 class GridPartition:
@@ -1062,11 +1059,7 @@ class GridPMG:
                 f"GridPMG: unsupported coarse solver '{coarse}' "
                 "(choose from cg, smoother, fdm, direct, hmg)"
             )
-        if precision == "high":
-            raise _todo("precision='high' (bf16x3 products)", 1)
-        if precision != "highest":
-            raise ValueError(
-                f"precision must be 'highest' or 'high', got {precision!r}")
+        _check_precision(precision)
         self._kappa_raw = kappa
         self._kc, self._kappa_fold, const = resolve_kappa_split(mesh, kappa)
         # A tensor kappa folds into G (_kappa_fold); _kc is the per-cell
@@ -1510,6 +1503,10 @@ class GridPMG:
         Returns ``(u, residual_norms)``: the global flat solution on the
         device and the fine residual norm after each cycle, read back once
         at the end."""
+        from ..solvers.pmg import warn_high_precision_stationary
+
+        warn_high_precision_stationary(
+            self.precision, self.mesh.num_dofs(self.degrees[-1]))
         self._warn_tensor()
         bd = self.to_dist(b)
         if u0 is not None:

@@ -51,7 +51,8 @@ def fdm_solve(b, Vs, Vts, dinv, bc_marker, shape, precision="highest",
     ``dinv`` the reciprocal eigenvalue-sum lattice, ``shape`` the full
     lattice shape, ``trims`` the per-axis (lo, hi) Dirichlet-plane trim
     counts. Dirichlet rows return ``u[bc] = b[bc]``. ``precision`` is the
-    JAX package's seventh parameter ('highest' only).
+    JAX package's seventh parameter (either value, in f32/f64: the
+    XLA-path rule of `ops.kron_blocked`).
     """
     from ..ops.kron_blocked import _check_precision
 
@@ -84,7 +85,7 @@ class FastDiagonalizationSolver:
                  precision="highest", sigma=0.0, *, device):
         """``sigma`` shifts the operator by the lumped mass (the shift
         adds to the eigenvalue sums); ``precision`` is the JAX package's
-        fifth parameter ('highest' only)."""
+        fifth parameter (either value, as in `fdm_solve`)."""
         from ..fem.assembly import resolve_kappa_axes
         from ..fem.mesh import require_axis_aligned
         from ..ops.kron import robin_axis_ends

@@ -108,6 +108,27 @@ def _level_precond(lv, level, ops):
     return None
 
 
+def warn_high_precision_stationary(precision, ndofs_global):
+    """Runtime guard shared by every stationary-solve entry point
+    (`PMGHierarchy`, `DistPMG`, `GridPMG` solve): precision='high' (bf16x3
+    products) stalls the stationary V-cycle iteration at ~1e-1 relative
+    residual above ~8M dofs (measured by the JAX package at 16.2M on
+    v5e; the smoother reinjects the operator's perturbation each sweep).
+    FCG / refined outer loops recompute the true residual and are
+    unaffected. The JAX package's text and threshold."""
+    if precision == "high" and ndofs_global > 8_000_000:
+        import warnings
+
+        warnings.warn(
+            "stationary V-cycle iteration with precision='high' "
+            "(bf16x3 matmuls) stalls at ~1e-1 relative residual above "
+            "~8M dofs (measured at 16.2M on v5e); use solve_pcg / "
+            "solve_refined, which recompute the outer residual "
+            "exactly, or precision='highest'",
+            stacklevel=3,
+        )
+
+
 def warn_tensor_stationary(kappa_fold, kappa_axes=None, operator="",
                            line=False):
     """Warn that the stationary V-cycle iteration can diverge with a
@@ -285,7 +306,8 @@ def dss_cycle_ops(precision="highest", sigma=0.0):
     _check_precision(precision)
 
     def apply_op(lv, x, level):
-        return dss_laplacian_apply(x, lv, level.dss, sigma=sigma)
+        return dss_laplacian_apply(x, lv, level.dss, precision=precision,
+                                   sigma=sigma)
 
     return dict(
         apply=apply_op,
@@ -302,7 +324,8 @@ def dss_cycle_ops(precision="highest", sigma=0.0):
 def lattice_cycle_ops(precision="highest", sigma=0.0):
     """V-cycle primitives of the plain-torch lattice backend (general
     hexes, `ops.lattice`) with the lattice per-axis transfers; flat
-    vectors. ``precision`` as in the JAX package ('highest' only)."""
+    vectors. ``precision`` as in the JAX package (either value, in
+    f32/f64: the XLA-path rule of `ops.kron_blocked`)."""
     from ..ops.kron_blocked import _check_precision
     from ..ops.lattice import lattice_laplacian_apply
 
@@ -311,7 +334,7 @@ def lattice_cycle_ops(precision="highest", sigma=0.0):
     def raw(lv, x, level):
         mats = {k: lv[k] for k in ("Ex", "Dx", "Ey", "Dy", "Ez", "Dz")}
         return lattice_laplacian_apply(x, mats, lv["G"], lv["bc_marker"],
-                                       apply_bc=False)
+                                       precision=precision, apply_bc=False)
 
     return dict(apply=_shifted(raw, sigma),
                 **_lattice_transfers(flat=True, precision=precision))
@@ -333,10 +356,11 @@ def lattice_blocked_cycle_ops(precision="highest", bcells=1, sigma=0.0):
         nc = tuple((N - 1) // level.P for N in level.shape)
         if not sigma:
             return blocked_lattice_apply(x, lv["lb_mats"], lv["Gt"],
-                                         lv["bc_marker"], nc, level.P)
+                                         lv["bc_marker"], nc, level.P,
+                                         precision=precision)
         y = blocked_lattice_apply(x, lv["lb_mats"], lv["Gt"],
                                   lv["bc_marker"], nc, level.P,
-                                  apply_bc=False)
+                                  precision=precision, apply_bc=False)
         y = y + sigma * lv["m3"] * x
         return torch.where(lv["bc_marker"], x, y)
 
@@ -347,8 +371,8 @@ def lattice_blocked_cycle_ops(precision="highest", bcells=1, sigma=0.0):
 def kron_cycle_ops(precision="highest", sigma=0.0):
     """V-cycle primitives backed by the plain-torch Kronecker-sum apply
     (`ops.kron`) and the lattice per-axis transfers; lattice-shaped
-    vectors throughout. ``precision`` as in the JAX package ('highest'
-    only)."""
+    vectors throughout. ``precision`` as in the JAX package (either
+    value, in f32/f64: the XLA-path rule of `ops.kron_blocked`)."""
     from ..ops.kron import kron_laplacian_apply
     from ..ops.kron_blocked import _check_precision
 
@@ -357,7 +381,7 @@ def kron_cycle_ops(precision="highest", sigma=0.0):
     def apply_op(lv, x, level):
         return kron_laplacian_apply(
             x, (lv["Kx"], lv["Ky"], lv["Kz"]), (lv["mx"], lv["my"], lv["mz"]),
-            lv["bc_marker"], sigma=sigma,
+            lv["bc_marker"], precision=precision, sigma=sigma,
         )
 
     return dict(apply=apply_op, **_lattice_transfers(precision=precision))
@@ -391,16 +415,17 @@ def kron_blocked_cycle_ops(precision="highest", by=None, bx=None,
 
     def apply_op(lv, x, level):
         return blocked_kron_apply(x, lv["bc_marker"], lv["kb_mats"],
-                                  sigma=sigma)
+                                  precision=precision, sigma=sigma)
 
     def smooth_op(lv, b, x, level):
         return blocked_kron_cheb4(b, x, lv["bc_marker"], lv["kb_mats"],
                                   lv["diag_inv"], lv["lmax"],
-                                  level.smoother_iters, sigma=sigma)
+                                  level.smoother_iters, precision=precision,
+                                  sigma=sigma)
 
     def residual_op(lv, b, u, level):
         return blocked_kron_residual(b, u, lv["bc_marker"], lv["kb_mats"],
-                                     sigma=sigma)
+                                     precision=precision, sigma=sigma)
 
     fused = {}
     if fuse_smoother:
@@ -744,10 +769,10 @@ class PMGHierarchy:
                 "the unstructured path")
         if coarse not in _COARSE:
             raise ValueError(f"unknown coarse solver '{coarse}'")
-        if precision != "highest":
-            raise NotImplementedError(
-                "only precision='highest' (true f32/f64) is ported; "
-                "'high' (bf16x3) is ROADMAP.md Queue 1 item 1")
+        from ..ops.kron_blocked import _check_precision
+
+        _check_precision(precision)
+        self.precision = precision
         kron_family = operator in ("kron", "kron_blocked")
         self.sigma, sigma_field = resolve_sigma(sigma)
         if sigma_field is not None:
@@ -1098,7 +1123,8 @@ class PMGHierarchy:
 
             fd = FastDiagonalizationSolver(
                 mesh, self.degrees[0], kappa=self.kappa_axes,
-                dtype=dtype, sigma=self.sigma, device=self.device,
+                dtype=dtype, precision=precision, sigma=self.sigma,
+                device=self.device,
             )
             self.data["fdm"] = dict(
                 Vx=fd.Vs[0], Vy=fd.Vs[1], Vz=fd.Vs[2],
@@ -1187,6 +1213,7 @@ class PMGHierarchy:
         ``fmg=True`` (and no ``u0``) starts from the full-multigrid guess
         instead of zero. The residual norms stay on the device and are
         read back once, at the end."""
+        warn_high_precision_stationary(self.precision, self.levels[-1].ndofs)
         self._warn_tensor()
         b = self._to_work(b)
         if u0 is not None:

@@ -240,7 +240,7 @@ def schwarz_precond_apply(sw, r, shape, P, precision="highest",
     ``shape`` the local lattice; `solvers.line.stacked_lead`);
     ``exchange`` reconciles the interface partials of a device grid or
     slab after the overlap-add. ``precision`` is the JAX package's
-    ('highest' only)."""
+    (either value, in f32/f64: the XLA-path rule of `ops.kron_blocked`)."""
     from ..ops.kron_blocked import _check_precision
     from ..ops.lattice import _expand, _fold
     from .line import stacked_lead

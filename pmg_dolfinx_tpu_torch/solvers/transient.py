@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..fem.assembly import lumped_mass_np
-from ..ops.kron_blocked import _check_precision
+from ..ops.kron_packed import check_serving_precision
 from .fdm import FastDiagonalizationSolver
 
 
@@ -104,7 +104,7 @@ def heat_fdm_evolve(mesh, P, kappa=1.0, dt=1e-2, scheme="cn",
 
     if scheme not in ("be", "cn"):
         raise ValueError(f"scheme must be 'be' or 'cn', got {scheme!r}")
-    _check_precision(precision)
+    check_serving_precision(precision)
     sigma = 1.0 / float(dt)
     shape, bc, m3, fvec = _lattice_vectors(mesh, P, f, dtype, device)
 
@@ -264,7 +264,7 @@ def wave_newmark_evolve(mesh, P, kappa=1.0, dt=1e-2, beta=0.25, gamma=0.5,
 
     if not (beta > 0.0 and gamma >= 0.5):
         raise ValueError(f"need beta > 0, gamma >= 1/2, got {beta}, {gamma}")
-    _check_precision(precision)
+    check_serving_precision(precision)
     c0 = 1.0 / (beta * dt * dt)
     shape, bc, m3, fvec = _lattice_vectors(mesh, P, f, dtype, device)
     m3safe = torch.where(bc, torch.ones_like(m3), m3)
@@ -383,7 +383,7 @@ def convdiff_fdm_evolve(mesh, P, velocity, kappa=1.0, dt=1e-3,
 
     if scheme not in ("be", "cnab"):
         raise ValueError(f"scheme must be 'be' or 'cnab', got {scheme!r}")
-    _check_precision(precision)
+    check_serving_precision(precision)
     sdt = 1.0 / float(dt)
     shape, bc, m3, fvec = _lattice_vectors(mesh, P, f, dtype, device)
     cvel = np.asarray(velocity, dtype=np.float64)
@@ -458,7 +458,7 @@ def semilinear_fdm_evolve(mesh, P, nonlin, kappa=1.0, dt=1e-3,
     1``); stiff reactions take `semilinear_newton_evolve`."""
     if scheme not in ("be", "cnab"):
         raise ValueError(f"scheme must be 'be' or 'cnab', got {scheme!r}")
-    _check_precision(precision)
+    check_serving_precision(precision)
     sdt = 1.0 / float(dt)
     shape, bc, m3, fvec = _lattice_vectors(mesh, P, f, dtype, device)
 
@@ -565,7 +565,7 @@ def wave_leapfrog_evolve(mesh, P, kappa=1.0, dt=1e-2, dtype=torch.float64,
     (dt/2) a^N``."""
     from ..ops.kron import KronLaplacian
 
-    _check_precision(precision)
+    check_serving_precision(precision)
     shape, bc, m3, fvec = _lattice_vectors(mesh, P, f, dtype, device)
     m3safe = torch.where(bc, torch.ones_like(m3), m3)
     op = KronLaplacian(mesh, P, kappa=kappa, dtype=dtype, device=device)

@@ -15,7 +15,7 @@ hierarchy and of the port's hierarchy that loaded its state
   JAX kernels are f32 only).
 
 `lattice_restrict` / `lattice_prolongate` take JAX's fourth positional,
-``precision``. The TPU tile knobs (``by``, ``bx``, ``bcells``) keep their
+``precision``. Every factory at 'high' matches JAX's at 'high'. The TPU tile knobs (``by``, ``bx``, ``bcells``) keep their
 positions and raise anything but JAX's default.
 """
 
@@ -136,10 +136,15 @@ def test_lattice_transfers_take_precision_fourth(direction):
                               tuple(torch.from_numpy(I) for I in I1s), shape,
                               "highest")
     assert _rel(y_t.numpy(), y_j) <= 1e-12
-    with pytest.raises(NotImplementedError, match="precision='high'"):
-        getattr(tlat, name)(torch.from_numpy(x),
-                            tuple(torch.from_numpy(I) for I in I1s), shape,
-                            "high")
+    # 'high' on an einsum path: exact in both (XLA's CPU backend, and the
+    # port's rule for the XLA paths)
+    y_j = getattr(jlat, name)(jnp.asarray(x),
+                              tuple(jnp.asarray(I) for I in I1s), shape,
+                              "high")
+    y_t = getattr(tlat, name)(torch.from_numpy(x),
+                              tuple(torch.from_numpy(I) for I in I1s), shape,
+                              "high")
+    assert _rel(y_t.numpy(), y_j) <= 1e-12
 
 
 @pytest.mark.parametrize("call,match", [
@@ -154,9 +159,37 @@ def test_tpu_tile_knobs_raise(call, match):
         call()
 
 
-@pytest.mark.parametrize("factory", ["kron_cycle_ops", "kron_blocked_cycle_ops",
-                                     "lattice_cycle_ops",
-                                     "lattice_blocked_cycle_ops"])
-def test_precision_high_raises(factory):
-    with pytest.raises(NotImplementedError, match="precision='high'"):
-        getattr(tpmg, factory)("high")
+@pytest.mark.parametrize("factory,operator", [
+    ("kron_cycle_ops", "kron"), ("kron_blocked_cycle_ops", "kron_blocked"),
+    ("lattice_cycle_ops", "lattice"),
+    ("lattice_blocked_cycle_ops", "lattice_blocked")])
+def test_precision_high_matches_jax(factory, operator):
+    """Each factory at 'high' on the fine level against JAX's factory at
+    'high' on the CPU (XLA's exact f32 / f64 there, and the blocked
+    backends' emulation): the einsum backends to 1e-12, the bf16x3
+    kernels' plain versions to the file's f32 bound; the restriction
+    stays exact ('highest')."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from pmg_dolfinx_tpu.solvers import pmg as jpmg
+
+    jh, th, tol = _hierarchies(operator)
+    ops_j = getattr(jpmg, factory)("high")
+    ops_t = getattr(tpmg, factory)("high")
+    lj, lt = jh.levels[-1], th.levels[-1]
+    dvj, dvt = jh.data["levels"][-1], th.data["levels"][-1]
+    shape = lt.shape if operator.startswith("kron") else (lt.ndofs,)
+    x = np.random.default_rng(5).standard_normal(shape)
+    x = x.astype(np.float64 if tol < 1e-6 else np.float32)
+    y_j = ops_j["apply"](dvj, jnp.asarray(x), lj)
+    y_t = ops_t["apply"](dvt, torch.from_numpy(x), lt)
+    assert _rel(y_t.numpy(), y_j) <= tol
+    if tol > 1e-6:   # the split acts on the kernel backends
+        y_h = tpmg.__dict__[factory]("highest")["apply"](
+            dvt, torch.from_numpy(x), lt)
+        assert _rel(y_t.numpy(), y_h.numpy()) > 1e-8
+    trj, trt = jh.data["transfer"][0], th.data["transfer"][0]
+    r_j = ops_j["restrict"](trj, jnp.asarray(x), jh.levels[0], lj)
+    r_t = ops_t["restrict"](trt, torch.from_numpy(x), th.levels[0], lt)
+    assert _rel(r_t.numpy(), r_j) <= tol

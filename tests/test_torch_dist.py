@@ -17,12 +17,15 @@ CPU devices.
   per-axis kappa and S in {2, 4, 8};
 - the stacked ``kron_blocked`` launch design equals the per-slab plain
   versions, and `_exchange_partials` equals its definition;
+- ``precision="high"``: ``kron_blocked`` (bf16x3, the plain versions
+  here) against JAX's `DistPMG` at 'high' (its CPU emulation, exact f32):
+  five cycles within 1e-4 of |b| above 5e-3, FCG within 1; ``kron`` on a
+  Robin-faced slab (the einsum path: f64 at either value) equal to
+  'highest' bit for bit;
 - every refusal: a ValueError for a ``devices=`` that names no ranks
   (on `DistPMG`, on the distributed layout and on a graded Kronecker
-  slab; the multi-process runs are tests/test_torch_multihost.py), a
-  ``NotImplementedError`` naming ROADMAP.md item 1 for
-  ``precision="high"`` (also on a
-  Robin-faced one); JAX's ValueErrors for an off-diagonal tensor or a
+  slab; the multi-process runs are tests/test_torch_multihost.py);
+  JAX's ValueErrors for an off-diagonal tensor or a
   per-cell kappa on the Kronecker family (on `DistPMG` and on a graded
   mesh's `build_hmg_dist`), a sigma field on the Kronecker family,
   ``line-x``, an unknown backend, f64 ``kron_blocked`` and a slab count
@@ -232,25 +235,48 @@ def test_robin_and_graded_meshes_raise_naming_item_10():
     """Robin faces and graded spacing on the Kronecker family's slabs run
     since item 10 (b) (tests/test_torch_kron_sharded.py); on such meshes
     the slabs refuse a ``devices=`` that names no ranks (ValueError; item
-    10 (d) ported the ranks) and ``precision="high"`` (item 1)."""
+    10 (d) ported the ranks), and ``precision="high"`` runs (item 1): on
+    the einsum path it equals 'highest' bit for bit."""
     from pmg_dolfinx_tpu_torch.fem.mesh import geometric_spacing
 
     robin = TBox((4, 4, 4), dirichlet_faces=((True, True), (False, False),
                                             (True, True)),
                  robin=((0.0, 0.0), (2.0, 2.0), (0.0, 0.0)))
-    with pytest.raises(NotImplementedError, match=r"item 1\)"):
-        td.DistPMG(robin, n_devices=2, operator="kron", precision="high",
-                   device="cpu")
+    high, ref = (td.DistPMG(robin, n_devices=2, operator="kron",
+                            precision=p, device="cpu")
+                 for p in ("high", "highest"))
+    x = np.random.default_rng(3).standard_normal(robin.num_dofs(3))
+    assert torch.equal(high.from_dist(high.operator()(high.to_dist(x))),
+                       ref.from_dist(ref.operator()(ref.to_dist(x))))
     graded = TBox((4, 4, 4), spacing=(geometric_spacing(4, 4.0), None, None))
     with pytest.raises(ValueError, match=r"devices=.*rank of each shard"):
         td.DistPMG(graded, n_devices=2, operator="kron_blocked",
                    dtype=torch.float32, devices=["cpu"], device="cpu")
 
 
-def test_high_precision_raises_naming_item_1():
-    with pytest.raises(NotImplementedError, match="item 1\\)"):
-        td.DistPMG(TBox((4, 4, 4)), n_devices=2, operator="kron",
-                   precision="high", device="cpu")
+def test_high_precision_matches_jax():
+    """`DistPMG` kron_blocked at precision='high' on 2 slabs against JAX's
+    at 'high' (its CPU emulation, exact f32): five cycles within 1e-4 of
+    |b| above 5e-3 (the port's residual norms are bf16x3 residuals, ~1e-5
+    |b| from exact), FCG(V) to 1e-5 (the 'high' contract's accuracy)
+    within 1."""
+    import jax.numpy as jnp
+
+    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
+    from pmg_dolfinx_tpu.models.poisson import f_rhs
+
+    kw = dict(degrees=(1, 3), kappa=2.0, coarse="fdm",
+              operator="kron_blocked", precision="high")
+    j = jd.DistPMG(JBox((8, 4, 4)), n_devices=2, dtype=jnp.float32, **kw)
+    t = td.DistPMG(TBox((8, 4, 4)), n_devices=2, dtype=torch.float32,
+                   device="cpu", **kw)
+    b = np.asarray(assemble_rhs(JBox((8, 4, 4)), 3, f_rhs(2.0)))
+    rn_j, rn_t = (np.array(h.solve(b, num_cycles=5)[1]) for h in (j, t))
+    r0 = np.linalg.norm(b)
+    keep = rn_j / r0 > 5e-3
+    assert np.max(np.abs(rn_t - rn_j)[keep]) / r0 <= 1e-4
+    (_, n_j), (_, n_t) = (h.solve_pcg(b, rtol=1e-5) for h in (j, t))
+    assert abs(n_t - n_j) <= 1
 
 
 @pytest.mark.parametrize("kw,match", [

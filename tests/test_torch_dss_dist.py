@@ -259,6 +259,25 @@ def test_stationary_trajectory_exact_with_padding(padded):
     assert _rel(ud, us) < 1e-12
 
 
+def test_high_precision_matches_jax(padded):
+    """`DSSDist` at precision='high' (its torch ops: f64 at either value)
+    against JAX's `DSSDist` at 'high' on the CPU: the trajectory to 1e-10,
+    the solution to 1e-12, and equal to the port's 'highest' bit for
+    bit."""
+    mt, mj = _meshes(3)
+    b = padded[1]
+    jd = jdd.DSSDist(mj, n_devices=S, degrees=(1, 3), kappa=2.0,
+                     coarse="cg", precision="high")
+    ju, jr = jd.solve(b, num_cycles=6)
+    td = tdd.DSSDist(mt, S, (1, 3), 2.0, coarse="cg", precision="high",
+                     device="cpu")
+    ud, rd = td.solve(b, num_cycles=6)
+    assert _traj(rd, jr) < 1e-10
+    assert _rel(ud, np.asarray(ju)) < 1e-12
+    ref = tdd.DSSDist(mt, S, (1, 3), 2.0, coarse="cg", device="cpu")
+    assert torch.equal(ud, ref.solve(b, num_cycles=6)[0])
+
+
 def test_load_state_cycles_as_jax(padded):
     mt, b, _, _, j4, data = padded
     td = tdd.DSSDist(mt, S, (1, 3), 2.0, coarse="cg", device="cpu")
@@ -401,5 +420,3 @@ def test_rejects_unsupported():
     # devices= names ranks since item 10 (d) ported them
     with pytest.raises(ValueError, match=r"devices=.*rank of each shard"):
         tdd.DSSDist(mt, n_devices=S, devices=["cpu"] * S, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1"):
-        tdd.DSSDist(mt, n_devices=S, precision="high", device="cpu")

@@ -154,6 +154,22 @@ def test_dist_fdm_solve_matches_jax(name):
     assert _rel(ut, single.solve(b)) < 1e-12
 
 
+@pytest.mark.parametrize("shards", [2, (2, 2, 1)])
+def test_dist_fdm_high_precision_matches_jax(shards):
+    """`DistFDM` at precision='high': its einsums in f64 at either value
+    (the XLA-path rule), so JAX's 'high' on the CPU to 1e-12 and the
+    port's 'highest' bit for bit."""
+    jm, tm = _meshes((4, 4, 4))
+    b = np.random.default_rng(1).standard_normal(tm.num_dofs(2))
+    uj = jfd.DistFDM(jm, 2, shards, kappa=2.0, dtype=jnp.float64,
+                     precision="high").solve(b)
+    ut, ur = (tfd.DistFDM(tm, 2, shards, kappa=2.0, dtype=torch.float64,
+                          precision=p, device="cpu").solve(b)
+              for p in ("high", "highest"))
+    assert _rel(ut, uj) < 1e-12
+    assert torch.equal(ut, ur)
+
+
 def test_dist_fdm_solution_is_exact():
     """The distributed solve really solves (A u == b through the oracle
     operator), and nonzero Dirichlet rows pass through."""
@@ -267,8 +283,6 @@ def test_dist_fdm_refuses_unported_options():
     # are refused
     with pytest.raises(ValueError, match=r"devices=.*rank of each shard"):
         tfd.DistFDM(TBox((4, 4, 4)), 2, 2, devices=["cpu"], device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 1\)"):
-        tfd.DistFDM(TBox((4, 4, 4)), 2, 2, precision="high", device="cpu")
 
 
 def test_hmg_fdm_bottom_rejected_where_unsupported():

@@ -175,9 +175,18 @@ def test_band_check_and_separable_guard(jx):
     r_t = tkb.blocked_kron_residual(torch.from_numpy(b), torch.from_numpy(x),
                                     torch.from_numpy(bad), mats)
     assert _rel(r_t.numpy(), r_j) <= 1e-12
-    with pytest.raises(NotImplementedError, match="precision='high'"):
-        tkb.blocked_kron_apply(torch.zeros(tm.lattice_shape(P)), None, tmats,
-                               precision="high")
+    # precision='high' on the non-separable marker: the bf16x3 full-bc
+    # kernels #4 + #5, held to JAX's kernels in interpret mode (f32)
+    jm32 = jx.jkb.symmetrized_mats(base.Ks, base.ms, dtype=jx.jnp.float32)
+    m32 = tkb.symmetrized_mats([np.asarray(K) for K in base.Ks],
+                               [np.asarray(m) for m in base.ms], band=P,
+                               device="cpu")
+    x32 = x.astype(np.float32)
+    y_j = jx.jkb.blocked_kron_apply(jx.jnp.asarray(x32), bad, jm32,
+                                    precision="high", interpret=True)
+    y_t = tkb.blocked_kron_apply(torch.from_numpy(x32), torch.from_numpy(bad),
+                                 m32, precision="high")
+    assert _rel(y_t.numpy(), y_j) <= 1e-5
 
 
 # Shapes that stress the y-march of kernels #5 / #6 / #8: an axis no

@@ -311,9 +311,9 @@ def test_blocked_guards():
         tlb.blocked_lattice_apply_zgrp(x, mats, None, Gt, bc, tm.nc, 2, 3)
     with pytest.raises(ValueError, match="z-group"):
         tlb.PallasLatticeBlocked(tm, 2, variant="zgrp", device="cpu")
-    with pytest.raises(NotImplementedError, match="precision='high'"):
+    with pytest.raises(ValueError, match="precision must be"):
         tlb.blocked_lattice_apply(x, mats, Gt, bc, tm.nc, 2,
-                                  precision="high")
+                                  precision="default")
     with pytest.raises(ValueError, match="unknown variant"):
         tlb.blocked_lattice_apply(x, mats, Gt, bc, tm.nc, 2, variant="geom")
 

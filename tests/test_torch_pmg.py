@@ -176,7 +176,7 @@ def test_load_state_checks_shapes():
 
 
 # The refusals of options ported since: they now build and cycle.
-_PORTED = ("Queue 1 items 6 and 8",)
+_PORTED = ("Queue 1 items 6 and 8", "Queue 1 item 1")
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -190,8 +190,9 @@ def test_unported_options_raise(kwargs, match):
     """The options still to port raise naming their ROADMAP item; those
     ported since (``match`` None: the h-multigrid coarse solve, the line
     and Schwarz smoothers; or a refusal in `_PORTED`: the assembled
-    ``csr`` operator of items 6 and 8) build and cycle as the JAX package
-    does (f64: eigenvalue estimates to 1e-12, 3 cycles to 1e-10)."""
+    ``csr`` operator of items 6 and 8, ``precision="high"`` of item 1)
+    build and cycle as the JAX package does (f64: eigenvalue estimates to
+    1e-12, 3 cycles to 1e-10)."""
     if match is not None and match not in _PORTED:
         with pytest.raises(NotImplementedError, match=match):
             PMGHierarchy(BoxMesh((2, 2, 2)), degrees=(1, 2), device="cpu",

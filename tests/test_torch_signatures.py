@@ -132,8 +132,11 @@ def test_kron_laplacian_class_positional():
     top = TK(TBox(NC), P, 2.0, torch.float64, "highest", SIGMA,
              device="cpu")
     assert _rel(top(torch.from_numpy(x)), jop(jnp.asarray(x))) <= 1e-12
-    with pytest.raises(NotImplementedError, match="precision='high'"):
-        TK(TBox(NC), P, 2.0, torch.float64, "high", device="cpu")
+    # 'high' at the same position: the einsum path, exact in both on the
+    # CPU (XLA's CPU backend; the port's rule for the XLA paths)
+    jop = JK(JBox(NC), P, 2.0, jnp.float64, "high", SIGMA)
+    top = TK(TBox(NC), P, 2.0, torch.float64, "high", SIGMA, device="cpu")
+    assert _rel(top(torch.from_numpy(x)), jop(jnp.asarray(x))) <= 1e-12
 
 
 def test_fdm_positional():
